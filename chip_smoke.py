@@ -6,7 +6,8 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases (any failure exits non-zero before the result line):
   A. build the CUDA sources in csrc/ (one nvcc each, all started
-     together) and time it;
+     together), time it, and count the tensor-core (HGMMA) instructions
+     in the theta-search library's SASS where cuobjdump is at hand;
   B. the uniform crop kernels against their plain PyTorch versions on
      the same card tensors at the slice's shapes: 102,400 particles, a
      1024^2 map with 6 classes (8 packed channels), Th x R = 100 x 25,
@@ -41,10 +42,14 @@ Phases (any failure exits non-zero before the result line):
      update from the 10 hypotheses (theta search, and tracked once each
      particle has a theta), the host part of its dispatch, and the fill
      on C3's last state; on those same 3-class inputs each crop kernel
-     is held against its plain version as in B;
-  E. one JSON line of kernel results with each kernel's bound, the
-     card's name and power limit, and the final {"ok": true, "device":
-     ...} line.
+     is held against its plain version as in B; the tracked kernel also
+     runs on the spread cloud, the gather-only floor of the theta
+     search's windows;
+  E. one JSON line of kernel results with each kernel's bound (the
+     theta searches on two bases: bf16 tensor cores, and float32 outside
+     them), the largest relative error of each theta search against its
+     plain version, the card's name and power limit, and the final
+     {"ok": true, "device": ...} line.
 """
 
 from __future__ import annotations
@@ -86,29 +91,34 @@ from top_down_renderer_torch.utils.convert import (  # noqa: E402
 from util_synthetic import generate_scan_points, make_world  # noqa: E402
 
 CROP_SRC = "top_down_renderer_torch/csrc/crop_score.cu"
+INIT_SRC = "top_down_renderer_torch/csrc/crop_score_init.cu"
 FILL_SRC = "top_down_renderer_torch/csrc/fill_rows.cu"
-# name -> (source, the TPU kernel it replaces)
-# the kernels' names in a profile, at the drive map's 3 classes
+# the kernels' names in a profile, at the drive map's 3 classes (the two
+# theta searches are one kernel at CP = 4 channels)
 SYMBOLS = {
-    "crop_score_tracked": "crop_score_kernel<3, 1>",
-    "crop_score_init": "crop_score_kernel<3, 40>",
-    "crop_score_multi_tracked": "crop_score_multi_kernel<3, 1>",
-    "crop_score_multi_init": "crop_score_multi_kernel<3, 40>",
+    "crop_score_tracked": "crop_score_kernel<3>",
+    "crop_score_init": "crop_init_kernel<4>",
+    "crop_score_multi_tracked": "crop_score_multi_kernel<3>",
+    "crop_score_multi_init": "crop_init_kernel<4>",
     "fill_rows": "fill_rows_kernel",
 }
+# name -> (source, the TPU kernel it replaces)
 KERNELS = {
     "crop_score_tracked": (
         CROP_SRC, "top_down_renderer_tpu/filter/pallas_score.py:693"),
     "crop_score_init": (
-        CROP_SRC, "top_down_renderer_tpu/filter/pallas_score.py:693"),
+        INIT_SRC, "top_down_renderer_tpu/filter/pallas_score.py:693"),
     "crop_score_multi_tracked": (
         CROP_SRC, "top_down_renderer_tpu/filter/multiscale.py:444"),
     "crop_score_multi_init": (
-        CROP_SRC, "top_down_renderer_tpu/filter/multiscale.py:363"),
+        INIT_SRC, "top_down_renderer_tpu/filter/multiscale.py:363"),
     "fill_rows": (FILL_SRC, "top_down_renderer_tpu/filter/resample.py:116"),
 }
-# published H100 SXM peaks (dense): float32 outside the tensor cores, HBM
+INIT = ("crop_score_init", "crop_score_multi_init")
+# published H100 SXM peaks (dense): float32 outside the tensor cores, bf16
+# on them, HBM
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 N = 102_400
 HW = 1024
@@ -144,6 +154,22 @@ def log_clocks(label: str) -> None:
         + smi("clocks.sm,clocks.max.sm,power.draw,temperature.gpu"))
 
 
+def log_tensor_core_sass(name: str) -> None:
+    """Count the HGMMA (wgmma) instructions in the SASS of csrc/<name>.cu's
+    library, with the toolkit's cuobjdump; a build without them fails."""
+    tool = os.path.join(os.path.dirname(kernels.find_nvcc()), "cuobjdump")
+    if not os.path.isfile(tool):
+        log(f"[A] no cuobjdump beside nvcc: {name}'s SASS not read")
+        return
+    sass = subprocess.run([tool, "-sass", str(kernels.build(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    lines = [ln.strip() for ln in sass.splitlines() if "HGMMA" in ln]
+    check(lines, f"no HGMMA instruction in {name}'s SASS")
+    log(f"[A] {name}: {len(lines)} HGMMA instructions in its SASS, e.g. "
+        f"{lines[0]}")
+
+
 def max_rel(ref: torch.Tensor, got: torch.Tensor) -> float:
     return float(((got - ref).abs() / ref.abs().clamp(min=1e-9)).max())
 
@@ -151,7 +177,8 @@ def max_rel(ref: torch.Tensor, got: torch.Tensor) -> float:
 def compare(label, errs, names, tracked, init, need_gated=False) -> None:
     """A tracked and a theta-search kernel against their plain versions:
     tracked / init are (kernel call, plain call) without arguments, names
-    their kernels'.  Folds the largest |err| of each into errs."""
+    their kernels'.  Folds the largest |err| of each into errs["abs"],
+    and the theta search's largest relative error into errs["rel"]."""
     num, den, kf = tracked[0]()
     rnum, rden, rkf = tracked[1]()
     torch.cuda.synchronize()
@@ -163,7 +190,8 @@ def compare(label, errs, names, tracked, init, need_gated=False) -> None:
     for a, b, name in ((num, rnum, "cost"), (den, rden, "norm")):
         rel = max_rel(b[ok], a[ok])
         check(rel <= REL_TOL, f"{label}: tracked {name} rel {rel}")
-        errs[names[0]] = max(errs[names[0]], float((a - b)[ok].abs().max()))
+        errs["abs"][names[0]] = max(errs["abs"][names[0]],
+                                    float((a - b)[ok].abs().max()))
     cost = torch.where(kf < 0.5, torch.nan, num / den)
     rcost = torch.where(rkf < 0.5, torch.nan, rnum / rden)
     check(torch.equal(cost.isnan(), rcost.isnan()), f"{label}: NaN pattern")
@@ -179,18 +207,21 @@ def compare(label, errs, names, tracked, init, need_gated=False) -> None:
           f"{label}: init FLT_MAX pattern")
     rel = max_rel(rbest[fin], best[fin])
     check(rel <= REL_TOL, f"{label}: init best rel {rel}")
-    errs[names[1]] = max(errs[names[1]],
-                         float((best - rbest)[fin].abs().max()))
+    errs["rel"][names[1]] = max(errs["rel"][names[1]], rel)
+    errs["abs"][names[1]] = max(errs["abs"][names[1]],
+                                float((best - rbest)[fin].abs().max()))
     log(f"[{label}] tracked and init agree (init argmin same on "
-        f"{same_k:.5f}, kf-gated {int((~ok).sum())})")
+        f"{same_k:.5f}, init best rel {rel:.3e}, kf-gated "
+        f"{int((~ok).sum())})")
 
 
-def crop_pair(args, theta, f):
-    """(tracked, init) kernel/plain call pairs of the uniform crop path."""
+def crop_pair(args, theta, f, compact=None):
+    """(tracked, init) kernel/plain call pairs of the uniform crop path;
+    compact: the filter's compact map, as its theta search passes it."""
     return (
         (lambda: cs.score_tracked(*args, theta, f),
          lambda: cs.score_tracked_plain(*args, theta, f)),
-        (lambda: cs.score_init_sel(*args, f),
+        (lambda: cs.score_init_sel(*args, f, compact=compact),
          lambda: cs.score_init_sel_plain(*args, f)),
     )
 
@@ -310,7 +341,7 @@ def phase_b2(dev, errs, b_args, theta):
         got, ref = rs.fill_rows(r0, v0), rs.fill_rows_plain(r0, v0)
         torch.cuda.synchronize()
         check(torch.equal(got, ref), "fill kernel differs from plain")
-    errs["fill_rows"] = 0.0
+    errs["abs"]["fill_rows"] = 0.0
     log("[B2] fill kernel equals its plain version bit for bit")
 
 
@@ -524,10 +555,11 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(ops: float, moved: float):
-    """(bound ms, what bounds it): the larger of the float32 operations
-    over the non-tensor peak and the bytes over the HBM rate."""
-    t_ops = ops / PEAK_F32_FLOPS * 1e3
+def bound(ops: float, moved: float, peak: float = PEAK_F32_FLOPS):
+    """(bound ms, what bounds it): the larger of the operations over
+    `peak` (default: float32 outside the tensor cores) and the bytes over
+    the HBM rate."""
+    t_ops = ops / peak * 1e3
     t_bytes = moved / PEAK_HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -538,6 +570,19 @@ def crop_bound(maps, c, tr, shifts, inputs):
     n = inputs[0].shape[0]
     return bound(2.0 * (c + 1) * tr * shifts * n,
                  nbytes(maps, *inputs) + n * 12)
+
+
+def tc_bound(compact, npix, counts, inputs):
+    """The theta search on bf16 tensor cores: per particle three split
+    products of 2 x K x 88 FLOPs, K = CP x its bucket's distinct pixels
+    (npix (K,), counts (K,) particles per bucket); the compact map, M's
+    hi and lo rows and the per-particle inputs read once, (N, 3)
+    written."""
+    k = compact.shape[-1] * npix.double().cpu()
+    n = int(counts.sum())
+    ops = 6.0 * cs.M_COLS * float((counts.double().cpu() * k).sum())
+    moved = nbytes(compact, *inputs) + float(k.sum()) * cs.M_COLS * 4
+    return bound(ops, moved + n * 12, PEAK_BF16_FLOPS)
 
 
 def timed(name, kernel, plain, library=None):
@@ -571,11 +616,17 @@ def phase_d(dev, pf, world, errs):
         pf._all_have_init = False
         pf.update(scan, RES)
 
-    pair = crop_pair(args, spread.particles.theta, f)
+    compact = pf._get_compact(1)
+    pair = crop_pair(args, spread.particles.theta, f, compact)
+    npix = cs.fold_offsets(cs.crop_offsets(sten, f)[None])[1]
     out["crop_score_init"] = dict(
         timed("crop_score_init", *pair[1]),
         update_ms=median_ms(init_update),
-        bound=crop_bound(maps, 3, tr, 40, (ctr,)),
+        bound=tc_bound(compact, npix, torch.tensor([N]), (ctr,)),
+        bound_f32=crop_bound(maps, 3, tr, 40, (ctr,)),
+        # the tracked kernel on the same windows: their gather alone
+        gather_ms=kernel_ms(pair[0][0], SYMBOLS["crop_score_tracked"]),
+        pixels=int(npix[0]),
     )
     compare("D spread, C=3", errs, CROP, *pair)
 
@@ -644,6 +695,17 @@ def phase_d2(dev, world, errs):
             host_ms=host_ms,
             bound=crop_bound(pyr.flat, 3, tr, 1 if tracked else 40, inputs),
         )
+        if not tracked:
+            mips, _ = pyr.bucket_tables(plan.bmi)
+            npix = cs.fold_offsets(ms.bucket_offsets(sten, slots, RES,
+                                                     mips))[1]
+            counts = torch.bincount(ms.assign_buckets(p.scale, slots).long(),
+                                    minlength=len(slots))
+            out[name].update(
+                bound_f32=out[name]["bound"],
+                bound=tc_bound(pyr.compact(3), npix, counts, inputs),
+                pixels=npix.tolist(),
+            )
         log(f"[D2] {name}: {plan.mode}, K {plan.kp}, mo {plan.mo}, levels "
             f"{plan.levels}; host part of the dispatch {host_ms:.4f} ms")
         compare(f"D2 {plan.mode}, C=3", errs, MULTI, *pair)
@@ -687,8 +749,9 @@ def main() -> int:
     ready = kernels.build_all()
     log(f"[A] built {', '.join(f'{k}.cu in {v:.2f} s' for k, v in ready.items())}"
         f" (wall {time.perf_counter() - t0:.2f} s, in parallel)")
+    log_tensor_core_sass("crop_score_init")
 
-    errs = dict.fromkeys(KERNELS, 0.0)
+    errs = {"abs": dict.fromkeys(KERNELS, 0.0), "rel": dict.fromkeys(INIT, 0.0)}
     b_args, b_theta = phase_b(dev, errs)
     phase_b2(dev, errs, b_args, b_theta)
     del b_args, b_theta
@@ -720,6 +783,14 @@ def main() -> int:
     for name, t in times.items():
         extra = "".join(f", {k} {t[k]:.4f} ms"
                         for k in ("update_ms", "host_ms") if k in t)
+        if "bound_f32" in t:
+            extra += (f", bound on float32 outside the tensor cores "
+                      f"{t['bound_f32'][0]:.4f} ms, distinct pixels "
+                      f"{t['pixels']}, largest rel err vs plain "
+                      f"{errs['rel'][name]:.3e}")
+        if "gather_ms" in t:
+            extra += (f", the tracked kernel on the same windows (gather "
+                      f"floor) {t['gather_ms']:.4f} ms")
         log(f"[D] {name}: kernel {t['ms']:.4f} ms (with its wrapper "
             f"{t['wrapper_ms']:.4f} ms), plain "
             f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms "
@@ -733,12 +804,14 @@ def main() -> int:
             "source": KERNELS[name][0],
             "replaces": KERNELS[name][1],
             "launches": launches[name],
-            "max_abs_err": errs[name],
+            "max_abs_err": errs["abs"][name],
             "ms": times[name]["ms"],
             "plain_ms": times[name]["plain_ms"],
             "bound_ms": times[name]["bound"][0],
             "bound_by": times[name]["bound"][1],
             "library_ms": times[name]["library_ms"],
+            **({"bound_f32_ms": times[name]["bound_f32"][0],
+                "max_rel_err": errs["rel"][name]} if name in INIT else {}),
         }
         for name in KERNELS
     ]}

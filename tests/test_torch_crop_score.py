@@ -321,3 +321,175 @@ def test_kernel_operand_checks():
         with pytest.raises((ValueError, TypeError)):
             cs._kernel_inputs(mm, cc, sten, ss, torch.ones(ss.shape[0]),
                               rows[:, 0:2], 0.5, 1.0)
+
+
+# -- the theta-search kernel's product --------------------------------------
+def _window_rows(compact, ctr, pix, npix, m, level=None):
+    """The kernel's product in float32: each particle's window at its
+    centre + pix[:npix] on the compact map (zero outside `level` = (pixel
+    offset, H, W), default the whole (H, W, CP) map) times M."""
+    cp = compact.shape[-1]
+    flat = compact.reshape(-1, cp)
+    base, h, w = level if level else (0,) + tuple(compact.shape[:2])
+    q = int(npix)
+    iy = ctr[:, None, 0] + pix[None, :q, 0]
+    ix = ctr[:, None, 1] + pix[None, :q, 1]
+    valid = (iy >= 0) & (iy < h) & (ix >= 0) & (ix < w)
+    lin = base + iy.clamp(0, h - 1) * w + ix.clamp(0, w - 1)
+    a = torch.where(valid[..., None], flat[lin.long()], 0.0)
+    return a.reshape(len(ctr), -1), m[: q * cp]
+
+
+def _split_product(a, m):
+    """The kernel's arithmetic: A_hi B_hi + A_hi B_lo + A_lo B_hi over bf16
+    hi/lo splits of both operands, summed in float64."""
+    ah, al = (x.double() for x in cs.split_bf16(a))
+    bh, bl = (x.double() for x in cs.split_bf16(m))
+    return (ah @ bh + ah @ bl + al @ bh).float()
+
+
+def _rows_of(acc, num_rot, tr):
+    inv = np.float32(1.0) / np.float32(tr)
+    return (acc[:, 0 : 2 * num_rot : 2], acc[:, 1 : 2 * num_rot : 2],
+            acc[:, cs.KF_COL] * float(inv))
+
+
+@pytest.mark.parametrize("num_rot", [7, 40])
+@pytest.mark.parametrize("c", [1, 3, 6])
+@pytest.mark.parametrize("f", [1.0, 0.5, 0.37])
+def test_init_m_window_product_equals_raw_rows(f, c, num_rot):
+    """window @ M (crop_score.init_m, float32) is the plain version's raw
+    rows (rel 1e-5, kf bit-equal), windows across the map's edges and
+    far outside it included; the padding columns stay 0."""
+    rng = np.random.default_rng(int(f * 100) + c)
+    packed = np.zeros((64, 80, 8), np.float32)
+    packed[..., :c] = rng.random((64, 80, c)) * 50
+    packed[..., c] = (rng.random((64, 80)) < 0.9).astype(np.float32)
+    scan = (rng.random((c, TH, R)) * 3).astype(np.float32)
+    centers = rng.uniform(-20, 100, (96, 2)).astype(np.float32)
+    centers[:3] = [[0.0, 0.0], [79.0, 63.0], [-500.0, 30.0]]
+    cw = (0.5 + rng.random(c)).astype(np.float32)
+    m_, sten, sc, cwt, ctr_px = _t(packed, STENCIL, scan, cw, centers)
+    nums, dens, kf = cs.score_init_raw_plain(m_, c, sten, sc, cwt, ctr_px,
+                                             f, num_rot)
+    pix, npix, m = cs.init_m(sc, cwt, cs.crop_offsets(sten, f)[None],
+                             num_rot)
+    off = np_(cs.crop_offsets(sten, f))
+    distinct = np.unique(off, axis=0)
+    assert int(npix[0]) == len(distinct)
+    np.testing.assert_array_equal(np_(pix[0, : len(distinct)]), distinct)
+    assert (np_(pix[0, len(distinct):]) == cs.PAD_PIX).all()
+    a, mm = _window_rows(cs.compact_map(m_, c),
+                         cs.crop_centers(ctr_px, 1.0), pix[0], npix[0], m[0])
+    acc = a @ mm
+    got = _rows_of(acc, num_rot, TH * R)
+    assert_rel(np_(nums), np_(got[0]), 1e-5, "num")
+    assert_rel(np_(dens), np_(got[1]), 1e-5, "den")
+    np.testing.assert_array_equal(np_(got[2]), np_(kf))
+    pad = np.ones(cs.M_COLS, bool)
+    pad[: 2 * num_rot] = pad[cs.KF_COL] = False
+    assert not np_(m)[..., pad].any()
+
+
+def test_init_operands_lay_out_m_in_core_matrix_chunks():
+    """init_operands' records, decoded as the kernel reads them: chunk c,
+    plane element (k, n) at ((k // 8) * 11 + n // 8) * 64 + (n % 8) * 8
+    + k % 8, then the chunk's pixel offsets."""
+    rng = np.random.default_rng(2)
+    c = 6
+    scan = torch.as_tensor((rng.random((c, TH, R)) * 3).astype(np.float32))
+    off = cs.crop_offsets(torch.as_tensor(STENCIL), torch.tensor(
+        [[[0.5]], [[1.0]]]))  # two buckets
+    pix, npix, m = cs.init_m(scan, torch.ones(c), off, 40)
+    rec, nchunk = cs.init_operands(pix, npix, m)
+    cp = cs.channel_pad(c)
+    ppc = cs.K_CHUNK // cp
+    np.testing.assert_array_equal(np_(nchunk), -(-np_(npix) * cp // 32))
+    plane = cs.K_CHUNK * cs.M_COLS
+    assert rec.shape == (2, m.shape[1] // 32, 2 * plane + 4 * ppc)
+    hi, lo = (x.view(torch.int16) for x in cs.split_bf16(m))
+    k, n = np.meshgrid(np.arange(32), np.arange(cs.M_COLS), indexing="ij")
+    at = ((k // 8) * 11 + n // 8) * 64 + (n % 8) * 8 + k % 8
+    for b in range(2):
+        for ch in (0, 7, int(nchunk[b]) - 1):
+            r = rec[b, ch]
+            rows = slice(32 * ch, 32 * ch + 32)
+            np.testing.assert_array_equal(np_(r[at]), np_(hi[b, rows]))
+            np.testing.assert_array_equal(np_(r[plane + at]),
+                                          np_(lo[b, rows]))
+            np.testing.assert_array_equal(
+                np_(r[2 * plane:].view(torch.int32)).reshape(ppc, 2),
+                np_(pix[b, ppc * ch : ppc * ch + ppc]))
+
+
+def test_init_schedule_covers_every_row_once():
+    """The kernel's block -> (bucket, rows) walk over init_schedule: each
+    sorted row in exactly one tile of its own bucket, within
+    N // INIT_TILE + K blocks; empty buckets and a bucket of one particle
+    included."""
+    t = cs.INIT_TILE
+    counts = np.array([0, 1, t - 1, t, t + 1, 0, 3000, 2 * t - 1], np.int64)
+    k, n = len(counts), int(counts.sum())
+    row_start = torch.as_tensor(np.concatenate([[0], np.cumsum(counts)]))
+    sched = np_(cs.init_schedule(row_start, torch.arange(k) + 1))
+    rs, ts, nch = sched[: k + 1], sched[k + 1 : 2 * k + 2], sched[2 * k + 2:]
+    np.testing.assert_array_equal(nch, np.arange(k) + 1)
+    seen = np.zeros(n, int)
+    for tile in range(n // cs.INIT_TILE + k):
+        if tile >= ts[k]:
+            continue
+        b = 0
+        while tile >= ts[b + 1]:
+            b += 1
+        row0 = rs[b] + (tile - ts[b]) * cs.INIT_TILE
+        rows = np.arange(row0, min(row0 + cs.INIT_TILE, rs[b + 1]))
+        assert len(rows) and (rows >= rs[b]).all()
+        seen[rows] += 1
+    assert (seen == 1).all()
+
+
+def test_split_arithmetic_holds_the_jax_kernel_bounds(float_world):
+    """The kernel's bf16 hi/lo arithmetic, emulated on the CPU, selects
+    against the JAX theta search (interpret mode, compiled) within that
+    kernel's bounds, and within rel 1e-4 of the plain version."""
+    packed, scan, centers, _, ref = float_world
+    args = _t(packed, STENCIL, scan, CW, centers)
+    pix, npix, m = cs.init_m(args[2], args[3],
+                             cs.crop_offsets(args[1], F)[None], 40)
+    a, mm = _window_rows(cs.compact_map(args[0], C),
+                         cs.crop_centers(args[4], 1.0), pix[0], npix[0],
+                         m[0])
+    nums, dens, kf = _rows_of(_split_product(a, mm), 40, TH * R)
+    best, k = cs.select_best(nums, dens, kf)
+    rbest, rtheta, rkf = ref["sel"]
+    finite = rbest < cs.FLT_MAX
+    np.testing.assert_array_equal(np_(best) < cs.FLT_MAX, finite)
+    _check(rbest[finite], np_(best)[finite], rkf[finite], np_(kf)[finite],
+           "split sel_init best")
+    theta = np_(k).astype(np.float32) * np.float32(2 * math.pi / 40)
+    assert np.mean(np.isclose(theta, rtheta)[finite]) > 0.9
+    pbest, pk, pkf = cs.score_init_sel_plain(args[0], C, *args[1:], F)
+    np.testing.assert_array_equal(np_(kf), np_(pkf))
+    fin = np_(pbest) < cs.FLT_MAX
+    assert_rel(np_(pbest)[fin], np_(best)[fin], 1e-4, "split vs plain")
+    assert np.mean(np_(k) == np_(pk)) >= 0.999
+
+
+def test_init_operand_checks():
+    """What the theta-search wrappers refuse, checked on CPU tensors:
+    more shifts than M's 40 column pairs, classes that do not match the
+    scan or leave no known channel, a wrong dtype."""
+    packed, scan, rng = _world(4, 32, 32)
+    rows = torch.as_tensor(rng.random((64, 2)).astype(np.float32)) * 30
+    _, sten, sc, cw = _t(packed, STENCIL, scan, CW)
+    cpu = torch.device("cpu")
+    assert cs.check_operands(C, sten, sc, cw, rows, cpu, 40) == (C, TH, R)
+    for args in ((C, sten, sc, cw, rows, cpu, 41),
+                 (C, sten, sc, cw, rows, cpu, 0),
+                 (4, sten, sc, cw, rows, cpu, 40),
+                 (8, sten, torch.ones((8, TH, R)), torch.ones(8), rows, cpu,
+                  40),
+                 (C, sten, sc.double(), cw, rows, cpu, 40)):
+        with pytest.raises((ValueError, TypeError)):
+            cs.check_operands(*args)
+    assert [cs.channel_pad(c) for c in range(1, 8)] == [2, 4, 4, 8, 8, 8, 8]

@@ -38,9 +38,10 @@ def dev():
     return torch.device("cuda")
 
 
-def _world(dev, c, seed):
-    """Map, scan and centres: the residual grid, map edges, far out,
-    random float centres; thetas over two turns, negative included."""
+def _world(dev, c, seed, n=N):
+    """Map, scan and n centres: map edges, far out, the residual grid,
+    then random float centres; thetas over two turns, negative
+    included."""
     rng = np.random.default_rng(seed)
     packed = np.zeros((H, W, 8), np.float32)
     packed[..., :c] = rng.random((H, W, c)) * 50
@@ -51,9 +52,9 @@ def _world(dev, c, seed):
     grid = np.stack([40.0 + xs.ravel(), 40.0 + ys.ravel()], -1)
     edges = [[1, 80], [W - 2, 80], [80, 1], [80, H - 2], [2, 2]]
     far = [[-300.0, 80.0], [80.0, H + 300.0]]
-    rnd = rng.uniform(-2, H + 2, (N - 135, 2))
-    centers = np.concatenate([grid, edges, far, rnd]).astype(np.float32)
-    thetas = (rng.random(N) * 4 * np.pi - np.pi).astype(np.float32)
+    rnd = rng.uniform(-2, H + 2, (max(n - 135, 0), 2))
+    centers = np.concatenate([edges, far, grid, rnd])[:n].astype(np.float32)
+    thetas = (rng.random(n) * 4 * np.pi - np.pi).astype(np.float32)
     cw = (0.5 + rng.random(c)).astype(np.float32)
     return [torch.as_tensor(a, device=dev) for a in
             (packed, polar_stencil(TH, R), scan, cw, centers, thetas)]
@@ -77,10 +78,18 @@ def test_tracked_kernel_matches_plain(dev, c, f):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,f,num_rot", [(3, 0.5, 40), (3, 1.0, 40),
-                                         (6, 1.0, 40), (7, 0.37, 17)])
-def test_init_kernel_matches_plain(dev, c, f, num_rot):
-    packed, sten, scan, cw, centers, _ = _world(dev, c, 2)
+@pytest.mark.parametrize("c,f,num_rot,n", [
+    (3, 0.5, 40, N), (3, 1.0, 40, N), (6, 1.0, 40, N), (7, 0.37, 17, N),
+    (1, 1.0, 40, 1), (1, 0.5, 7, 127), (3, 1.0, 1, 129), (7, 1.0, 7, 129),
+    (6, 0.5, 40, 127), (3, 0.5, 40, 193), (3, 1.0, 40, 102_400),
+    (7, 0.5, 1, 102_400),
+])
+def test_init_kernel_matches_plain(dev, c, f, num_rot, n):
+    """The tensor-core theta search at the edges of a warpgroup's 64 rows
+    and a block's 192 (1, 127, 129, 193 and 102,400 particles), mo 12 and
+    24 (f 0.5 and 1.0), 1 to 40 shifts, 1 to 7 classes, centres at the
+    edges and far out."""
+    packed, sten, scan, cw, centers, _ = _world(dev, c, 2, n)
     before = kernels.LAUNCHES["crop_score_init"]
     best, k, kf = cs.score_init_sel(packed, c, sten, scan, cw, centers, f,
                                     num_rot)
@@ -101,9 +110,10 @@ def test_wrapper_refuses_what_the_kernel_cannot_take(dev):
     packed, sten, scan, cw, centers, thetas = _world(dev, 3, 3)
     big = torch.ones((7, 300, 100), device=dev)  # 1.2 MB of shared memory
     with pytest.raises(ValueError, match="shared memory"):
-        cs.score_init_sel(torch.zeros((H, W, 8), device=dev), 7,
-                          torch.zeros((300, 100, 2), device=dev), big,
-                          torch.ones(7, device=dev), centers, 0.5)
+        cs.score_tracked(torch.zeros((H, W, 8), device=dev), 7,
+                         torch.zeros((300, 100, 2), device=dev), big,
+                         torch.ones(7, device=dev), centers[:4],
+                         torch.zeros(4, device=dev), 0.5)
     with pytest.raises(ValueError, match="num_rot"):
         cs.score_init_sel(packed, 3, sten, scan, cw, centers, 0.5, 41)
     with pytest.raises(ValueError, match="is on"):
@@ -138,12 +148,13 @@ def test_crop_step_on_card_matches_cpu(dev, mode):
     assert_rel(np_(cpu.ml_state), np_(gpu.ml_state), 1e-5, "ml_state")
 
 
-def _multi_world(dev, c, k, seed):
+def _multi_world(dev, c, k, seed, n=N, single=False):
     """The uniform world's map as a pyramid, with K buckets: K = 2 is
     test_multiscale's (scales 0.5 and 1.0 at res 1, mips 1 and 2), K = 10
     the reference's init hypotheses 10^{k/10} at res 0.5 with the mips the
-    dispatch gives them.  Scales sit within 2 % of their slot."""
-    packed, sten, scan, cw, centers, thetas = _world(dev, c, seed)
+    dispatch gives them.  Scales sit within 2 % of their slot; `single`
+    leaves bucket 0 one particle."""
+    packed, sten, scan, cw, centers, thetas = _world(dev, c, seed, n)
     if k == 2:
         slots, res = np.array([0.5, 1.0], np.float32), 1.0
     else:
@@ -154,8 +165,10 @@ def _multi_world(dev, c, k, seed):
     levels = tuple(sorted(set(mips)))
     bmi = tuple(levels.index(m) for m in mips)
     rng = np.random.default_rng(seed)
-    scale = slots[rng.integers(0, k, N)] * (
-        1.0 + 0.02 * (rng.random(N) - 0.5))
+    pick = rng.integers(1 if single else 0, k, n)
+    if single:
+        pick[n // 2] = 0
+    scale = slots[pick] * (1.0 + 0.02 * (rng.random(n) - 0.5))
     pyr = ms.build_pyramid_maps(packed, levels)
     return (pyr, c, sten, scan, cw, centers), thetas, (
         torch.as_tensor(scale.astype(np.float32), device=dev),
@@ -180,13 +193,19 @@ def test_multi_tracked_kernel_matches_plain(dev, c, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [3, 6, 7])
-@pytest.mark.parametrize("k", [2, 10])
-def test_multi_init_kernel_matches_plain(dev, c, k):
-    args, _, tail = _multi_world(dev, c, k, 5)
+@pytest.mark.parametrize("c,k,n,num_rot,single", [
+    (3, 2, N, 40, False), (6, 2, N, 40, False), (7, 2, N, 40, False),
+    (3, 10, N, 40, False), (6, 10, N, 40, False), (7, 10, N, 40, False),
+    (1, 2, 1, 40, True), (3, 10, 129, 7, True), (7, 2, 127, 1, True),
+    (1, 10, 102_400, 40, True), (3, 10, 102_400, 40, False),
+])
+def test_multi_init_kernel_matches_plain(dev, c, k, n, num_rot, single):
+    """The K-bucket theta search, tiles per bucket: tile edges, 1 to 40
+    shifts, a bucket of one particle, windows across a level's edge."""
+    args, _, tail = _multi_world(dev, c, k, 5, n, single)
     before = kernels.LAUNCHES["crop_score_multi_init"]
-    best, kk, kf = ms.score_init_multi_sel(*args, *tail)
-    rbest, rk, rkf = ms.score_init_multi_sel_plain(*args, *tail)
+    best, kk, kf = ms.score_init_multi_sel(*args, *tail, num_rot)
+    rbest, rk, rkf = ms.score_init_multi_sel_plain(*args, *tail, num_rot)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["crop_score_multi_init"] == before + 1
     np.testing.assert_array_equal(np_(kf), np_(rkf))
@@ -278,3 +297,33 @@ def test_resample_indices_repeat_on_card(dev):
     ref = res_t._systematic_indices(*args)
     for _ in range(20):
         assert torch.equal(res_t._systematic_indices(*args), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("multi", [False, True])
+def test_init_kernel_ties_go_to_the_first_shift(dev, multi):
+    """On windows of constant map values (open terrain beyond the distance
+    cut-off) the 40 costs are equal in exact arithmetic, and both versions'
+    float32 sums differ only by rounding.  The kernel resolves costs
+    within 2^-20 of the minimum to the first shift: shift 0 here, with
+    the plain version's minimum cost."""
+    packed, sten, scan, cw, centers, _ = _world(dev, 3, 6)
+    packed[:] = torch.tensor([0.0, 50.0, 50.0, 1.0, 0, 0, 0, 0], device=dev)
+    inside = centers[(centers >= 30).all(1) & (centers <= H - 30).all(1)]
+    args = (packed, 3, sten, scan, cw, inside)
+    if multi:
+        pyr = ms.build_pyramid_maps(packed, (1, 2))
+        tail = (torch.full((len(inside),), 0.5, device=dev),
+                torch.tensor([0.5, 1.0], device=dev), (0, 1), 1.0)
+        got = ms.score_init_multi_sel(pyr, *args[1:], *tail)
+        nums, dens, _ = ms.score_init_multi_raw_plain(pyr, *args[1:], *tail)
+        ref = ms.score_init_multi_sel_plain(pyr, *args[1:], *tail)
+    else:
+        got = cs.score_init_sel(*args, 0.5)
+        nums, dens, _ = cs.score_init_raw_plain(*args, 0.5)
+        ref = cs.score_init_sel_plain(*args, 0.5)
+    torch.cuda.synchronize()
+    costs = np_(nums / dens)
+    assert (costs.max(1) / costs.min(1) - 1 < 1e-6).all()  # ties
+    assert (np_(got[1]) == 0).all()
+    assert_rel(np_(ref[0]), np_(got[0]), 1e-4, "best cost")

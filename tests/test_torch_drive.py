@@ -87,7 +87,7 @@ def _pair(scale, have_init):
     tdm_j.grid = build_grid_j(world)
     tdm_j.have_map = True
     tdm_j.sample_pts_polar(100, 25)
-    tdm_t = TopDownMap(mp, class_maps=world)
+    tdm_t = TopDownMap(mp, device="cpu", class_maps=world)
     tdm_t.sample_pts_polar(100, 25)
     pf_j = PFJ(1024, tdm_j, FilterParams(**kw), seed=1, use_fast=True)
     pf_t = ParticleFilter(1024, tdm_t, FilterParams(**kw), seed=1)
@@ -123,7 +123,8 @@ def test_unknown_scale_runs_the_multi_path_and_logs_nothing(caplog,
     scorers (plain versions on the CPU): theta search first, tracked
     after; the exact step never runs and nothing is logged."""
     world = make_world(128, 128)
-    tdm = TopDownMap(MapParams(map_path="", num_classes=3), class_maps=world)
+    tdm = TopDownMap(MapParams(map_path="", num_classes=3), device="cpu",
+                     class_maps=world)
     tdm.sample_pts_polar(100, 25)
     pf = ParticleFilter(
         200, tdm, FilterParams(fixed_scale=-1.0, regularization=0.02), seed=0
@@ -175,7 +176,8 @@ def test_unknown_scale_drive_finds_the_scale():
 def test_filter_queries_and_dynamic_map():
     world = make_world(128, 128)
     mp = MapParams(map_path="", num_classes=3)
-    tdm = TopDownMap(mp)  # no map yet: the filter waits for update_map
+    # no map yet: the filter waits for update_map
+    tdm = TopDownMap(mp, device="cpu")
     pf = ParticleFilter(256, tdm, FilterParams(fixed_scale=2.0), seed=0)
     assert pf.state is None and pf.num_particles() == 0
     ind = np.zeros(world.shape[1:], np.uint8)

@@ -79,7 +79,8 @@ def _class_maps(seed=3, c=4, h=48, w=64):
 @pytest.mark.parametrize("resolution", [1.0, 2.0])
 def test_build_grid_matches_jax(resolution):
     maps = _class_maps()
-    g_t = map_t.build_grid(maps, resolution=resolution, trunc_m=30.0)
+    g_t = map_t.build_grid(maps, resolution=resolution, trunc_m=30.0,
+                           device="cpu")
     g_j = map_j.build_grid(maps, resolution=resolution, trunc_m=30.0)
     for name in ("dist", "geo_dist"):
         np.testing.assert_allclose(
@@ -105,7 +106,7 @@ def test_build_grid_matches_jax(resolution):
 def test_topdownmap_queries_match_jax():
     world = make_world(96, 128)
     params = MapParams(map_path="", num_classes=3)
-    tdm_t = map_t.TopDownMap(params, class_maps=world)
+    tdm_t = map_t.TopDownMap(params, device="cpu", class_maps=world)
     tdm_j = map_j.TopDownMap(params)
     tdm_j.class_maps_binary = world
     tdm_j.grid = map_j.build_grid(world)
@@ -138,7 +139,7 @@ def test_colour_raster_and_update_map_match_jax(tmp_path):
     cc = ClassConfig(lut, [0, 1, 2], [0, 1, 2], [True, True, False],
                      [0.1, 1.5, 3.0])
     params = MapParams(map_path=png, num_classes=3, class_config=cc)
-    tdm_t = map_t.TopDownMap(params)
+    tdm_t = map_t.TopDownMap(params, device="cpu")
     tdm_j = map_j.TopDownMap(params)
     np.testing.assert_array_equal(
         tdm_t.class_maps_binary, tdm_j.class_maps_binary
@@ -203,3 +204,29 @@ def test_render_cartesian_equal(res):
     )
     np.testing.assert_array_equal(np_(got), np.asarray(ref))
     assert np_(got).sum() > 0
+
+
+def test_the_card_is_the_default_device(monkeypatch):
+    """With no device, TopDownMap and build_grid use the card and a
+    ParticleFilter follows its map; with no card they raise, never falling
+    back to the CPU.  device="cpu" builds on the CPU."""
+    from top_down_renderer_torch import config as cfg_t
+    from top_down_renderer_torch.filter.filter import ParticleFilter
+    from top_down_renderer_torch.kernels import default_device
+
+    world = make_world(64, 64)
+    params = cfg_t.MapParams(map_path="", num_classes=3)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (lambda: map_t.TopDownMap(params, class_maps=world),
+                  lambda: map_t.TopDownMap(params),
+                  lambda: map_t.build_grid(world)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+    tdm = map_t.TopDownMap(params, device="cpu", class_maps=world)
+    assert tdm.device == tdm.grid.dist.device == torch.device("cpu")
+    assert map_t.build_grid(world, device="cpu").dist.device.type == "cpu"
+    pf = ParticleFilter(64, tdm, cfg_t.FilterParams(fixed_scale=2.0))
+    assert pf.device == pf.state.particles.theta.device == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert default_device() == torch.device("cuda")
+    assert default_device("cpu") == torch.device("cpu")

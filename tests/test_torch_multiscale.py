@@ -30,6 +30,7 @@ from top_down_renderer_torch.filter.filter import MultiDispatch
 from top_down_renderer_torch.filter.filter import ParticleFilter as PFT
 from top_down_renderer_torch.filter.resample import pack_fields
 from top_down_renderer_torch.maps.map import TopDownMap
+from top_down_renderer_torch.maps.polar import polar_stencil
 
 from test_multiscale import C, MO, _world
 from test_pallas_interpret import _check
@@ -91,7 +92,7 @@ def _filters(n=640):
     tdm_j.class_maps_binary = maps_bin
     tdm_j.have_map = True
     tdm_j.sample_pts_polar(100, 25)
-    tdm_t = TopDownMap(mp, class_maps=maps_bin)
+    tdm_t = TopDownMap(mp, device="cpu", class_maps=maps_bin)
     tdm_t.sample_pts_polar(100, 25)
     kw = dict(fixed_scale=-1.0, class_weights=[0.5] + [1.5] * (C - 1))
     pf_j = PFJ(n, tdm_j, FilterParams(**kw), seed=0, chunk_size=64,
@@ -466,3 +467,98 @@ def test_multi_step_matches_jax(mode):
     rows_t = np_(pack_fields(out_t.particles))
     same = np.all(rows_j == rows_t, axis=1) | flip
     assert same.mean() >= 0.99, f"{same.mean():.3f} rows identical"
+
+
+# -- the theta-search kernel's product, per bucket -----------------------
+def _bucket_rows_product(pyr, c, sten, scan, cw, ctr_px, scale, slots, bmi,
+                         res, num_rot, split):
+    """The K-bucket kernel's arithmetic on the CPU: each particle's window
+    on its bucket's level, times its bucket's M (float32, or the bf16
+    hi/lo split when `split`), in the kernel's bucket-major row order;
+    returns (num, den, kf) in particle order."""
+    from test_torch_crop_score import _rows_of, _split_product, _window_rows
+
+    bucket, off, ctr, table = ms._prepare(pyr, sten, ctr_px, scale, slots,
+                                          bmi, res, 1.0)
+    pix, npix, m = cs.init_m(scan, cw, off, num_rot)
+    perm, row_start = ms.bucket_rows(bucket, len(bmi))
+    acc = torch.zeros((len(ctr), cs.M_COLS))
+    for b in range(len(bmi)):
+        rows = perm[row_start[b] : row_start[b + 1]].long()
+        assert (bucket[rows] == b).all()
+        a, mm = _window_rows(pyr.compact(c), ctr[rows], pix[b], npix[b],
+                             m[b], level=tuple(table[b, :3].tolist()))
+        acc[rows] = _split_product(a, mm) if split else a @ mm
+    return _rows_of(acc, num_rot, scan.shape[1] * scan.shape[2])
+
+
+@pytest.mark.parametrize("c", [1, 3, 6])
+@pytest.mark.parametrize("num_rot", [7, 40])
+@pytest.mark.parametrize("k", [2, 10])
+def test_init_m_per_bucket_equals_raw_rows(k, num_rot, c):
+    """Per bucket, window @ M_b (float32) is the plain version's raw rows
+    (rel 1e-5, kf bit-equal): K = 2 (mips 1 and 2) and the 10 init
+    hypotheses on the levels the dispatch gives them, windows across a
+    level's edges and outside it included, and a bucket of one particle."""
+    rng = np.random.default_rng(10 * k + c)
+    packed = np.zeros((96, 112, 8), np.float32)
+    packed[..., :c] = rng.random((96, 112, c)) * 50
+    packed[..., c] = (rng.random((96, 112)) < 0.9).astype(np.float32)
+    scan = (rng.random((c, 100, 25)) * 3).astype(np.float32)
+    if k == 2:
+        slots, res = SLOTS, 1.0
+    else:
+        slots, res = (10.0 ** (np.arange(10) / 10.0)).astype(np.float32), 0.5
+    mips = ms.bucket_mips(slots.copy(), ms.SCALE_RTOL, ms.MO_MULTI, 25, res,
+                          10.0)
+    levels = tuple(sorted(set(mips)))
+    bmi = tuple(levels.index(mm) for mm in mips)
+    n = 120
+    pick = np.concatenate([[0], rng.integers(1, k, n - 1)])  # bucket 0: one
+    scale = (slots[pick] * (1 + 0.02 * (rng.random(n) - 0.5))).astype(
+        np.float32)
+    centers = rng.uniform(-30, 140, (n, 2)).astype(np.float32)
+    centers[1:5] = [[0.0, 0.0], [111.0, 95.0], [-400.0, 30.0],
+                    [30.0, 500.0]]
+    cw = (0.5 + rng.random(c)).astype(np.float32)
+    pyr = ms.build_pyramid_maps(torch.as_tensor(packed), levels)
+    t = [torch.as_tensor(a) for a in (polar_stencil(100, 25), scan, cw,
+                                      centers, scale, slots)]
+    args = (pyr, c, *t[:4], t[4], t[5], bmi, res, num_rot)
+    nums, dens, kf = ms.score_init_multi_raw_plain(*args)
+    assert int((ms.assign_buckets(t[4], t[5]) == 0).sum()) == 1
+    got = _bucket_rows_product(pyr, c, *t, bmi, res, num_rot, split=False)
+    assert_rel(np_(nums), np_(got[0]), 1e-5, "num")
+    assert_rel(np_(dens), np_(got[1]), 1e-5, "den")
+    np.testing.assert_array_equal(np_(got[2]), np_(kf))
+    assert (np_(kf) == 0).any() and (np_(kf) > 0.5).any()
+
+
+def test_bucket_rows_are_stable_and_bucket_major():
+    bucket = torch.tensor([3, 0, 3, 1, 0, 3, 3], dtype=torch.int32)
+    perm, row_start = ms.bucket_rows(bucket, 5)
+    assert perm.dtype == torch.int32
+    assert perm.tolist() == [1, 4, 3, 0, 2, 5, 6]
+    assert row_start.tolist() == [0, 2, 3, 3, 7, 7]
+
+
+def test_split_arithmetic_holds_the_jax_kernel_bounds(world):
+    """The K-bucket kernel's bf16 hi/lo arithmetic, emulated on the CPU,
+    against the JAX multi theta search (interpret mode, compiled) within
+    its bounds, and within rel 1e-4 of the plain version."""
+    t, ref = world
+    nums, dens, kf = _bucket_rows_product(
+        t["pyr"], C, t["stencil"], t["scan"], t["cw"], t["centers"],
+        t["scale"], t["slots"], BMI, 1.0, 40, split=True)
+    best, k = cs.select_best(nums, dens, kf)
+    rbest, _, rkf = ref["sel"]
+    finite = rbest < cs.FLT_MAX
+    np.testing.assert_array_equal(np_(best) < cs.FLT_MAX, finite)
+    _check(rbest[finite], np_(best)[finite], rkf[finite], np_(kf)[finite],
+           "split sel_init best")
+    pbest, pk, pkf = ms.score_init_multi_sel_plain(
+        *_args(t), t["scale"], t["slots"], BMI, 1.0)
+    np.testing.assert_array_equal(np_(kf), np_(pkf))
+    fin = np_(pbest) < cs.FLT_MAX
+    assert_rel(np_(pbest)[fin], np_(best)[fin], 1e-4, "split vs plain")
+    assert np.mean(np_(k) == np_(pk)) >= 0.999

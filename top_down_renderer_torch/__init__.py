@@ -16,7 +16,8 @@ is easy to find:
 
 Parameters are the reference package's numpy-only config classes, in
 the port's own copy (`config.py`); nothing here imports JAX or the JAX
-package.
+package.  Maps, and with them filters, live on the card unless the
+caller passes device="cpu".
 """
 
 __version__ = "0.1.0"

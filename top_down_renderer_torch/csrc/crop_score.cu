@@ -1,21 +1,24 @@
-// Crop scoring of a particle cloud, for Hopper (sm_90a): at one uniform
-// scale, or over K scale buckets on a mip pyramid.
+// Tracked crop scoring of a particle cloud, for Hopper (sm_90a): at one
+// uniform scale, or over K scale buckets on a mip pyramid.
 //
 // Replaces: top_down_renderer_tpu/filter/pallas_score.py::_kernel (launched
-// by _run_kernel), its `sel` (tracked) and `sel_init` (theta-search argmin)
-// epilogues, as called by pallas_score.py for one uniform scale and by
-// filter/multiscale.py's make_score_{tracked,init}_multi for K buckets.  The
-// TPU kernel DMAs an int8 crop of the map around every particle and
-// contracts it with a hi/lo int8 table M (the stencil -> pixel one-hot
-// folded through the rolled-scan circulant) on the MXU; the multi variant
-// picks a per-bucket M and a pyramid row offset per tile.  Here nothing of
-// that layout is carried over: a warp walks the Th*R stencil cells of one
-// particle, reads each cell's 8 packed channels (two 16-byte loads of the
-// float32 map), and folds them with the weighted scan held in shared memory.
+// by _run_kernel) with its `sel` (tracked) epilogue, as called by
+// pallas_score.py for one uniform scale and by filter/multiscale.py's
+// make_score_tracked_multi for K buckets.  The TPU kernel DMAs an int8 crop
+// of the map around every particle and contracts it with a hi/lo int8 table
+// M (the stencil -> pixel one-hot folded through the rolled-scan circulant)
+// on the MXU; the multi variant picks a per-bucket M and a pyramid row
+// offset per tile.  Here nothing of that layout is carried over: a warp
+// walks the Th*R stencil cells of one particle, reads each cell's 8 packed
+// channels (two 16-byte loads of the float32 map), and folds them with the
+// weighted scan held in shared memory at the particle's own shift s:
 //
-//   cost(s) = sum_{t,r,c} 0.01 w_c scan_c[(t+s) % Th, r] * map_c(cell)
-//   norm(s) = sum_{t,r} (sum_c scan_c)[(t+s) % Th, r] * known(cell)
-//   kf      = sum known / (Th R)
+//   cost = sum_{t,r,c} 0.01 w_c scan_c[(t+s) % Th, r] * map_c(cell)
+//   norm = sum_{t,r} (sum_c scan_c)[(t+s) % Th, r] * known(cell)
+//   kf   = sum known / (Th R)
+//
+// (The theta search over 40 shifts is csrc/crop_score_init.cu, on tensor
+// cores.)
 //
 // Uniform scale: every particle shares the offsets off = round(stencil * f),
 // staged in shared memory.  K buckets: particle p in bucket b reads bucket
@@ -25,18 +28,13 @@
 // bounds test is against that level's own H and W: a window that leaves its
 // level reads zeros and never another level's pixels.
 //
-// Bound on an H100: the tracked flavour is a gather: Th*R random 32-byte
-// pixel reads per particle (80 KB at 100x25), from a map that fits the
-// 50 MB L2 (1024^2 x 8 x 4 B = 32 MB; the 1/2/4/8 pyramid 42.5 MB), against
-// 7 FMAs per cell.  The theta-search flavour does 40x the arithmetic on the
-// same reads (~0.7 M FMAs per particle at C = 6) and is bound by the
-// shared-memory reads of the weighted scan (one 4-byte load per FMA).  The
+// Bound on an H100: a gather: Th*R random 32-byte pixel reads per particle
+// (80 KB at 100x25), from a map that fits the 50 MB L2 (1024^2 x 8 x 4 B =
+// 32 MB; the 1/2/4/8 pyramid 42.5 MB), against 7 FMAs per cell.  The
 // design: the weighted scan and the scan's class sum live in shared memory,
 // laid out class-major so the 32 lanes of a warp, which hold 32 consecutive
-// cells, read 32 consecutive words for any shift; the 40 cost and norm sums
-// stay in registers; a grid of at most a few blocks per SM walks the
-// particles so the shared tables are staged once per block.  The fast form
-// (a crop x M contraction on wgmma) is later work.
+// cells, read 32 consecutive words; a grid of at most a few blocks per SM
+// walks the particles so the shared tables are staged once per block.
 //
 // Contract (equal to the plain versions in filter/crop_score.py and
 // filter/multiscale.py up to float summation order): maps are (H, W, 8)
@@ -46,7 +44,6 @@
 
 #include <cuda_runtime.h>
 
-#include <cfloat>
 #include <cstddef>
 #include <type_traits>
 
@@ -54,7 +51,6 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kMaxSearch = 40;
 constexpr int kMaxBuckets = 12;
 
 __device__ __forceinline__ int pmod(int a, int m) {
@@ -80,36 +76,26 @@ struct GlobalOff {
   }
 };
 
-// The scan tables every crop kernel stages: the weighted scan (C, Th*R),
-// the class sum (Th*R) and, for the theta search, the NS search shifts.
-template <int C, int NS>
-__device__ __forceinline__ void stage_scan(
-    float* s_ws, float* s_ss, int* s_shift, const float* __restrict__ wscan,
-    const float* __restrict__ ssum, const int* __restrict__ shifts, int S,
-    int Th, int R) {
-  const int TR = Th * R;
+// The scan tables every crop kernel stages: the weighted scan (C, Th*R) and
+// the class sum (Th*R).
+template <int C>
+__device__ __forceinline__ void stage_scan(float* s_ws, float* s_ss,
+                                           const float* __restrict__ wscan,
+                                           const float* __restrict__ ssum,
+                                           int TR) {
   for (int i = threadIdx.x; i < TR; i += kThreads) s_ss[i] = ssum[i];
   for (int i = threadIdx.x; i < C * TR; i += kThreads) s_ws[i] = wscan[i];
-  if (NS > 1) {
-    for (int k = threadIdx.x; k < NS; k += kThreads)
-      s_shift[k] = k < S ? pmod(shifts[k], Th) * R : 0;
-  }
 }
 
 // One particle, scored by one warp: the lane-strided walk over the Th*R
-// cells of its window centred at ctr on `map` (H, W), the warp sums, and
-// lane 0's epilogue into o3.
-// NS == 1: tracked, `own` is the particle's shift * R; writes cost, norm, kf.
-// NS > 1:  theta search over s_shift[0..S); writes best cost, k, kf.
-template <int C, int NS, typename Off>
+// cells of its window centred at ctr on `map` (H, W) at shift `own` * R,
+// the warp sums, and lane 0's (cost, norm, kf) into o3.
+template <int C, typename Off>
 __device__ __forceinline__ void score_particle(
     const float* __restrict__ map, int H, int W, Off off, int2 ctr,
-    const float* s_ws, const float* s_ss, const int* s_shift, int own,
-    int TR, int S, float inv_tr, int lane, float* __restrict__ o3) {
-  float acc_c[NS], acc_n[NS];
-#pragma unroll
-  for (int k = 0; k < NS; ++k) acc_c[k] = acc_n[k] = 0.f;
-  float acc_k = 0.f;
+    const float* s_ws, const float* s_ss, int own, int TR, float inv_tr,
+    int lane, float* __restrict__ o3) {
+  float acc_c = 0.f, acc_n = 0.f, acc_k = 0.f;
 
   for (int i = lane; i < TR; i += 32) {
     const int2 o = off(i);
@@ -126,55 +112,27 @@ __device__ __forceinline__ void score_particle(
     }
     const float known = v[C];
     acc_k += known;
+    int j = i + own;
+    if (j >= TR) j -= TR;
+    float a = 0.f;
 #pragma unroll
-    for (int k = 0; k < NS; ++k) {
-      int j = i + (NS == 1 ? own : s_shift[k]);
-      if (j >= TR) j -= TR;
-      float a = 0.f;
-#pragma unroll
-      for (int ch = 0; ch < C; ++ch) a = fmaf(s_ws[ch * TR + j], v[ch], a);
-      acc_c[k] += a;
-      acc_n[k] = fmaf(s_ss[j], known, acc_n[k]);
-    }
+    for (int ch = 0; ch < C; ++ch) a = fmaf(s_ws[ch * TR + j], v[ch], a);
+    acc_c += a;
+    acc_n = fmaf(s_ss[j], known, acc_n);
   }
 
-#pragma unroll
-  for (int k = 0; k < NS; ++k) {
-    acc_c[k] = warp_sum(acc_c[k]);
-    acc_n[k] = warp_sum(acc_n[k]);
-  }
+  acc_c = warp_sum(acc_c);
+  acc_n = warp_sum(acc_n);
   const float kf = warp_sum(acc_k) * inv_tr;
   if (lane != 0) return;
-
-  if (NS == 1) {
-    o3[0] = acc_c[0];
-    o3[1] = acc_n[0];
-    o3[2] = kf;
-    return;
-  }
-  // theta search: NaN never beats FLT_MAX, a window less than half known
-  // scores FLT_MAX, ties keep the first shift
-  float best = FLT_MAX;
-  int bk = 0;
-#pragma unroll
-  for (int k = 0; k < NS; ++k) {
-    if (k >= S) break;
-    float c = acc_c[k] / acc_n[k];
-    if (isnan(c) || kf < 0.5f) c = FLT_MAX;
-    if (k == 0 || c < best) {
-      best = c;
-      bk = k;
-    }
-  }
-  o3[0] = best;
-  o3[1] = (float)bk;
+  o3[0] = acc_c;
+  o3[1] = acc_n;
   o3[2] = kf;
 }
 
-// NS == 1: tracked, shifts[p] is particle p's own shift.
-// NS > 1:  theta search over shifts[0..S), S <= NS.
-// Two blocks per SM: at most 128 registers a thread.
-template <int C, int NS>
+// shifts[p] is particle p's own shift.  Two blocks per SM: at most 128
+// registers a thread.
+template <int C>
 __global__ void __launch_bounds__(kThreads, 2)
     crop_score_kernel(const float* __restrict__ map, int H, int W,
                       const float* __restrict__ wscan,  // (C, Th*R)
@@ -182,31 +140,29 @@ __global__ void __launch_bounds__(kThreads, 2)
                       const int2* __restrict__ off,     // (Th*R) dy, dx
                       int Th, int R,
                       const int2* __restrict__ centers,  // (N) cy, cx
-                      const int* __restrict__ shifts, int S, int N,
+                      const int* __restrict__ shifts, int N,
                       float inv_tr, float* __restrict__ out) {  // (N, 3)
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int s_shift[NS];
   const int TR = Th * R;
   int2* s_off = reinterpret_cast<int2*>(smem);
   float* s_ws = reinterpret_cast<float*>(s_off + TR);
   float* s_ss = s_ws + C * TR;
 
   for (int i = threadIdx.x; i < TR; i += kThreads) s_off[i] = off[i];
-  stage_scan<C, NS>(s_ws, s_ss, s_shift, wscan, ssum, shifts, S, Th, R);
+  stage_scan<C>(s_ws, s_ss, wscan, ssum, TR);
   __syncthreads();
 
   const int lane = threadIdx.x & 31;
   for (int p = blockIdx.x * kWarps + (threadIdx.x >> 5); p < N;
        p += gridDim.x * kWarps) {
-    const int own = NS == 1 ? pmod(shifts[p], Th) * R : 0;
-    score_particle<C, NS>(map, H, W, SharedOff{s_off}, centers[p], s_ws,
-                          s_ss, s_shift, own, TR, S, inv_tr, lane,
-                          out + (size_t)p * 3);
+    score_particle<C>(map, H, W, SharedOff{s_off}, centers[p], s_ws, s_ss,
+                      pmod(shifts[p], Th) * R, TR, inv_tr, lane,
+                      out + (size_t)p * 3);
   }
 }
 
 // K buckets: particle p reads bucket[p]'s offsets on bucket[p]'s level.
-template <int C, int NS>
+template <int C>
 __global__ void __launch_bounds__(kThreads, 2)
     crop_score_multi_kernel(const float* __restrict__ pyramid,
                             const int4* __restrict__ table,  // (K) off,H,W,-
@@ -217,17 +173,16 @@ __global__ void __launch_bounds__(kThreads, 2)
                             int Th, int R,
                             const int* __restrict__ bucket,    // (N)
                             const int2* __restrict__ centers,  // (N)
-                            const int* __restrict__ shifts, int S, int N,
+                            const int* __restrict__ shifts, int N,
                             float inv_tr, float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int s_shift[NS];
   __shared__ int4 s_tab[kMaxBuckets];
   const int TR = Th * R;
   float* s_ws = reinterpret_cast<float*>(smem);
   float* s_ss = s_ws + C * TR;
 
   for (int k = threadIdx.x; k < K; k += kThreads) s_tab[k] = table[k];
-  stage_scan<C, NS>(s_ws, s_ss, s_shift, wscan, ssum, shifts, S, Th, R);
+  stage_scan<C>(s_ws, s_ss, wscan, ssum, TR);
   __syncthreads();
 
   const int lane = threadIdx.x & 31;
@@ -235,11 +190,10 @@ __global__ void __launch_bounds__(kThreads, 2)
        p += gridDim.x * kWarps) {
     const int b = bucket[p];
     const int4 lv = s_tab[b];
-    const int own = NS == 1 ? pmod(shifts[p], Th) * R : 0;
-    score_particle<C, NS>(pyramid + (size_t)lv.x * 8, lv.y, lv.z,
-                          GlobalOff{off + (size_t)b * TR}, centers[p], s_ws,
-                          s_ss, s_shift, own, TR, S, inv_tr, lane,
-                          out + (size_t)p * 3);
+    score_particle<C>(pyramid + (size_t)lv.x * 8, lv.y, lv.z,
+                      GlobalOff{off + (size_t)b * TR}, centers[p], s_ws, s_ss,
+                      pmod(shifts[p], Th) * R, TR, inv_tr, lane,
+                      out + (size_t)p * 3);
   }
 }
 
@@ -278,13 +232,13 @@ cudaError_t grid_size(Kern kern, size_t smem, int N, LaunchCache& cache,
   return cudaSuccess;
 }
 
-template <int C, int NS>
+template <int C>
 cudaError_t launch(const float* map, int H, int W, const float* wscan,
                    const float* ssum, const int* off, int Th, int R,
-                   const int* centers, const int* shifts, int S, int N,
+                   const int* centers, const int* shifts, int N,
                    float inv_tr, float* out, cudaStream_t stream) {
   static LaunchCache cache;
-  auto kern = crop_score_kernel<C, NS>;
+  auto kern = crop_score_kernel<C>;
   const size_t TR = (size_t)Th * R;
   const size_t smem = TR * (sizeof(int2) + (C + 1) * sizeof(float));
   int blocks = 0;
@@ -292,18 +246,18 @@ cudaError_t launch(const float* map, int H, int W, const float* wscan,
   if (err != cudaSuccess) return err;
   kern<<<blocks, kThreads, smem, stream>>>(
       map, H, W, wscan, ssum, reinterpret_cast<const int2*>(off), Th, R,
-      reinterpret_cast<const int2*>(centers), shifts, S, N, inv_tr, out);
+      reinterpret_cast<const int2*>(centers), shifts, N, inv_tr, out);
   return cudaGetLastError();
 }
 
-template <int C, int NS>
+template <int C>
 cudaError_t launch_multi(const float* pyramid, const int* table, int K,
                          const float* wscan, const float* ssum,
                          const int* off, int Th, int R, const int* bucket,
-                         const int* centers, const int* shifts, int S, int N,
+                         const int* centers, const int* shifts, int N,
                          float inv_tr, float* out, cudaStream_t stream) {
   static LaunchCache cache;
-  auto kern = crop_score_multi_kernel<C, NS>;
+  auto kern = crop_score_multi_kernel<C>;
   const size_t smem = (size_t)Th * R * (C + 1) * sizeof(float);
   int blocks = 0;
   cudaError_t err = grid_size(kern, smem, N, cache, &blocks);
@@ -311,7 +265,7 @@ cudaError_t launch_multi(const float* pyramid, const int* table, int K,
   kern<<<blocks, kThreads, smem, stream>>>(
       pyramid, reinterpret_cast<const int4*>(table), K, wscan, ssum,
       reinterpret_cast<const int2*>(off), Th, R, bucket,
-      reinterpret_cast<const int2*>(centers), shifts, S, N, inv_tr, out);
+      reinterpret_cast<const int2*>(centers), shifts, N, inv_tr, out);
   return cudaGetLastError();
 }
 
@@ -341,23 +295,9 @@ extern "C" int tdr_crop_score_tracked(const float* map, int H, int W, int C,
                                       int N, float inv_tr, float* out,
                                       void* stream) {
   return by_classes(C, [&](auto cc) {
-    return (int)launch<decltype(cc)::value, 1>(
-        map, H, W, wscan, ssum, off, Th, R, centers, shifts, 1, N, inv_tr,
-        out, static_cast<cudaStream_t>(stream));
-  });
-}
-
-extern "C" int tdr_crop_score_init(const float* map, int H, int W, int C,
-                                   const float* wscan, const float* ssum,
-                                   const int* off, int Th, int R,
-                                   const int* centers, const int* search,
-                                   int S, int N, float inv_tr, float* out,
-                                   void* stream) {
-  if (S < 1 || S > kMaxSearch) return (int)cudaErrorInvalidValue;
-  return by_classes(C, [&](auto cc) {
-    return (int)launch<decltype(cc)::value, kMaxSearch>(
-        map, H, W, wscan, ssum, off, Th, R, centers, search, S, N, inv_tr,
-        out, static_cast<cudaStream_t>(stream));
+    return (int)launch<decltype(cc)::value>(
+        map, H, W, wscan, ssum, off, Th, R, centers, shifts, N, inv_tr, out,
+        static_cast<cudaStream_t>(stream));
   });
 }
 
@@ -368,22 +308,8 @@ extern "C" int tdr_crop_score_multi_tracked(
     void* stream) {
   if (K < 1 || K > kMaxBuckets) return (int)cudaErrorInvalidValue;
   return by_classes(C, [&](auto cc) {
-    return (int)launch_multi<decltype(cc)::value, 1>(
+    return (int)launch_multi<decltype(cc)::value>(
         pyramid, table, K, wscan, ssum, off, Th, R, bucket, centers, shifts,
-        1, N, inv_tr, out, static_cast<cudaStream_t>(stream));
-  });
-}
-
-extern "C" int tdr_crop_score_multi_init(
-    const float* pyramid, const int* table, int K, int C, const float* wscan,
-    const float* ssum, const int* off, int Th, int R, const int* bucket,
-    const int* centers, const int* search, int S, int N, float inv_tr,
-    float* out, void* stream) {
-  if (K < 1 || K > kMaxBuckets || S < 1 || S > kMaxSearch)
-    return (int)cudaErrorInvalidValue;
-  return by_classes(C, [&](auto cc) {
-    return (int)launch_multi<decltype(cc)::value, kMaxSearch>(
-        pyramid, table, K, wscan, ssum, off, Th, R, bucket, centers, search,
-        S, N, inv_tr, out, static_cast<cudaStream_t>(stream));
+        N, inv_tr, out, static_cast<cudaStream_t>(stream));
   });
 }

@@ -1,5 +1,5 @@
 """Crop scoring for a uniform particle scale: host side, plain version and
-the wrapper of the CUDA kernel (counterpart of filter/pallas_score.py).
+the wrappers of the CUDA kernels (counterpart of filter/pallas_score.py).
 
 With one scale for every particle, the stencil's pixel offsets
 off = round(stencil * f), f = scale * res / mip, are shared, and the
@@ -19,16 +19,25 @@ Two entry points, one per scoring flavour:
                      cost / norm, NaN -> FLT_MAX, FLT_MAX where
                      kf < 0.5, first argmin k (best_theta = k 2 pi / n)
 
-Each takes CPU or CUDA tensors.  On CUDA it launches the kernel of
-csrc/crop_score.cu and counts it in kernels.LAUNCHES; on the CPU it runs
+Each takes CPU or CUDA tensors.  On CUDA it launches its kernel
+(csrc/crop_score.cu for the tracked flavour, csrc/crop_score_init.cu for
+the theta search) and counts it in kernels.LAUNCHES; on the CPU it runs
 the plain version (score_tracked_plain / score_init_sel_plain: a gather
 of the shared-offset windows and a matmul against circulant columns),
 which is public and also runs on CUDA tensors, for comparisons.  Any
 other device raises.
 
+The theta-search kernel is a product on the tensor cores: each
+particle's window of distinct stencil pixels (compact_map: the C + 1
+channels the score reads) times a matrix M that folds the stencil's
+one-hot into the circulant columns (init_m), with both operands split
+into bf16 hi and lo parts (split_bf16, init_operands).  init_m is plain
+PyTorch and public, so that the CPU tests hold window @ M to the plain
+version.
+
 The crop-size buckets and the mip fallback are kept in the host dispatch
 (filter/filter.py) so that both packages score the same map at the same
-state; the kernel itself needs no crop buffer.
+state; neither kernel needs a crop buffer.
 """
 
 from __future__ import annotations
@@ -51,9 +60,15 @@ from top_down_renderer_torch.filter.scoring import (
 )
 
 FLT_MAX = float(np.finfo(np.float32).max)
-C_PAD = 8  # packed map channels the kernel reads per pixel
-MAX_SEARCH = 40  # search shifts the init kernel accumulates in registers
+C_PAD = 8  # packed map channels the tracked kernel reads per pixel
+MAX_SEARCH = 40  # search shifts of the init kernel: columns 0-79 of M
 SMEM_LIMIT = 227 * 1024  # dynamic shared memory a Hopper block may use
+M_COLS = 88  # columns of M: (cost, norm) at 2k, 2k + 1; kf count; padding
+KF_COL = 2 * MAX_SEARCH
+K_CHUNK = 32  # rows of M per pipeline stage of the init kernel
+INIT_TILE = 192  # particles per block of the init kernel
+PAD_PIX = 2**29  # (dy, dx) of a padding pixel: outside every map
+_KEY_BITS = 22  # bits per offset in fold_offsets' sort key
 
 # crop-size buckets keyed by the max stencil pixel offset mo
 _MO_BUCKETS = (12, 24)
@@ -187,22 +202,33 @@ def _require(t, name: str, shape, dtype, device, contiguous=False) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _scan_inputs(num_classes, stencil, scan, class_weights, center_px,
-                 dev, off_bytes: int):
-    """Check the operands every crop kernel shares and derive the
-    weighted scan and its class sum: (C, Th, R, wscan, ssum, inv_tr).
-    off_bytes: shared memory per stencil cell beyond the two tables."""
+def check_operands(num_classes, stencil, scan, class_weights, center_px,
+                   dev, num_rot=None):
+    """The checks every crop kernel's wrapper shares (and the theta
+    search's num_rot): (C, Th, R)."""
     c, th, r = scan.shape
     if not 1 <= num_classes < C_PAD or c != num_classes:
         raise ValueError(
             f"the kernel takes 1..{C_PAD - 1} classes matching the scan; "
             f"got num_classes={num_classes}, scan {tuple(scan.shape)}"
         )
-    n = center_px.shape[0]
+    if num_rot is not None and not 1 <= num_rot <= MAX_SEARCH:
+        raise ValueError(f"num_rot must be in 1..{MAX_SEARCH}, got {num_rot}")
     _require(stencil, "stencil", (th, r, 2), torch.float32, dev)
     _require(scan, "scan", (c, th, r), torch.float32, dev)
     _require(class_weights, "class_weights", (c,), torch.float32, dev)
-    _require(center_px, "center_px", (n, 2), torch.float32, dev)
+    _require(center_px, "center_px", (center_px.shape[0], 2), torch.float32,
+             dev)
+    return c, th, r
+
+
+def _scan_inputs(num_classes, stencil, scan, class_weights, center_px,
+                 dev, off_bytes: int):
+    """Check the tracked kernels' operands and derive the weighted scan
+    and its class sum: (C, Th, R, wscan, ssum, inv_tr).  off_bytes: shared
+    memory per stencil cell beyond the two tables."""
+    c, th, r = check_operands(num_classes, stencil, scan, class_weights,
+                              center_px, dev)
     smem = th * r * (4 * c + 4 + off_bytes)
     if smem > SMEM_LIMIT:
         raise ValueError(f"scan window needs {smem} B of shared memory")
@@ -262,29 +288,183 @@ def score_tracked(
     return out[:, 0], out[:, 1], out[:, 2]
 
 
+# -- the theta-search kernel's operands ----------------------------------
+def channel_pad(num_classes: int) -> int:
+    """CP, the channels per pixel of the compact map: C + 1 (the classes
+    and the known indicator) rounded up to 2, 4 or 8."""
+    return next(cp for cp in (2, 4, 8) if num_classes + 1 <= cp)
+
+
+def compact_map(packed: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """(..., CP) float32: the packed map's C class distances and its known
+    channel, zeros above; the theta-search kernel's A operand (half the
+    bytes of the 8-channel packed map at C <= 3)."""
+    cp = channel_pad(num_classes)
+    out = torch.zeros(packed.shape[:-1] + (cp,), dtype=torch.float32,
+                      device=packed.device)
+    out[..., : num_classes + 1] = packed[..., : num_classes + 1]
+    return out
+
+
+def fold_offsets(off: torch.Tensor):
+    """The distinct pixels of K offset tables off (K, Th*R, 2): (pix (K, P,
+    2) int32, npix (K,) int64, slot (K*Th*R,) int64).  pix[b, :npix[b]]
+    are bucket b's distinct (dy, dx) in row-major order, PAD_PIX after;
+    slot[b*Th*R + i] = b*P + the index of cell i's pixel.  P is Th*R
+    rounded up to 16 (whole kernel chunks at any CP).  Fixed sizes only:
+    no host read."""
+    k, tr = off.shape[:2]
+    cap = -(-tr // 16) * 16
+    dev = off.device
+    half = 2 ** (_KEY_BITS - 1)
+    o = off.to(torch.int64) + half
+    b = torch.arange(k, device=dev)[:, None]
+    key = (((b << _KEY_BITS) + o[..., 0]) << _KEY_BITS) + o[..., 1]
+    skey, order = torch.sort(key.reshape(-1))
+    new = torch.ones_like(skey, dtype=torch.bool)
+    new[1:] = skey[1:] != skey[:-1]
+    seg = (torch.cumsum(new, 0) - 1).view(k, tr)  # buckets never share
+    local = seg - seg[:, :1]
+    sorted_slot = (b * cap + local).reshape(-1)
+    slot = torch.empty_like(sorted_slot)
+    slot[order] = sorted_slot
+    pix = torch.full((k * cap, 2), PAD_PIX, dtype=torch.int32, device=dev)
+    pix[sorted_slot] = off.reshape(-1, 2)[order]  # duplicates write alike
+    return pix.view(k, cap, 2), local[:, -1] + 1, slot
+
+
+def init_m(scan, class_weights, off, num_rot: int = 40):
+    """The theta search as a matrix: for offset tables off (K, Th*R, 2)
+    (K = 1 at a uniform scale), (pix (K, P, 2), npix (K,), m (K, P*CP,
+    M_COLS) float32) with pix, npix from fold_offsets.  Row q*CP + ch of
+    m[b] is pixel pix[b, q], channel ch; for each search shift k,
+    column 2k holds the cost and 2k + 1 the norm circulant summed over the
+    stencil cells on that pixel, column KF_COL the count of those cells
+    (known channel).  So for a window w[q, ch] of the compact map at
+    centre + pix[b, q]: (w @ m[b])[2k] = num(k), [2k + 1] = den(k),
+    [KF_COL] * 1/(Th R) = kf.  The sums are taken in float64, so that
+    their order (index_add_ on the card) does not change the result."""
+    c, th, r = scan.shape
+    cp = channel_pad(c)
+    k = off.shape[0]
+    tr = th * r
+    pix, npix, slot = fold_offsets(off)
+    cap = pix.shape[1]
+    ssh = search_shifts(th, num_rot, scan.device)
+    cost_sel, norm_sel = circulants_at_shifts(scan, class_weights, ssh)
+    s = num_rot
+    feat = torch.cat([cost_sel.reshape(tr, c * s), norm_sel,
+                      torch.ones((tr, 1), device=scan.device)], 1).double()
+    acc = torch.zeros((k * cap, feat.shape[1]), dtype=torch.float64,
+                      device=scan.device)
+    acc.index_add_(0, slot, feat.repeat(k, 1))
+    m = torch.zeros((k * cap, cp, M_COLS), dtype=torch.float32,
+                    device=scan.device)
+    m[:, :c, 0 : 2 * s : 2] = acc[:, : c * s].view(-1, c, s)
+    m[:, c, 1 : 2 * s : 2] = acc[:, c * s : c * s + s]
+    m[:, c, KF_COL] = acc[:, -1]
+    return pix, npix, m.view(k, cap * cp, M_COLS)
+
+
+def split_bf16(x: torch.Tensor):
+    """(hi, lo) bf16 with hi = bf16(x), lo = bf16(x - hi), both rounded
+    to nearest even: hi + lo keeps about 16 bits of x."""
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.to(torch.float32)).to(torch.bfloat16)
+
+
+def init_operands(pix, npix, m):
+    """M as the init kernel streams it: (records (K, chunks, words) int16,
+    nchunk (K,) int64).  A record is one chunk of K_CHUNK rows of M: its
+    bf16 hi plane, its lo plane (each in wgmma's K-major core-matrix
+    order: 8 columns x 8 rows blocks of 128 bytes, N-block fastest), then
+    the int32 (dy, dx) of its K_CHUNK / CP pixels.  nchunk[b] counts the
+    chunks that hold bucket b's npix[b] pixels."""
+    k, rows, ncol = m.shape
+    cp = rows // pix.shape[1]
+    nch = rows // K_CHUNK
+
+    def plane(x):  # (k, rows, ncol) -> chunk, k block, n block, n, k
+        x = x.view(k, nch, K_CHUNK // 8, 8, ncol // 8, 8)
+        return x.permute(0, 1, 2, 4, 5, 3).reshape(k, nch, -1)
+
+    hi, lo = split_bf16(m)
+    pixels = pix.reshape(k, nch, -1).view(torch.int16)
+    rec = torch.cat([plane(hi).view(torch.int16), plane(lo).view(torch.int16),
+                     pixels], 2).contiguous()
+    return rec, (npix * cp + K_CHUNK - 1) // K_CHUNK
+
+
+def init_schedule(row_start: torch.Tensor, nchunk: torch.Tensor):
+    """The init kernel's schedule (int32): row_start (K + 1), the first
+    tile of each bucket and the total (K + 1), nchunk (K).  Block i takes
+    tile i: bucket b with tile_start[b] <= i < tile_start[b + 1], rows
+    row_start[b] + (i - tile_start[b]) * INIT_TILE onward, at most up to
+    row_start[b + 1].  At most N // INIT_TILE + K tiles."""
+    tiles = (row_start[1:] - row_start[:-1] + INIT_TILE - 1) // INIT_TILE
+    tile_start = torch.cat([tiles.new_zeros(1), torch.cumsum(tiles, 0)])
+    return torch.cat([row_start, tile_start, nchunk]).to(torch.int32)
+
+
+def launch_init(name: str, maps, table, h: int, w: int, num_classes: int,
+                scan, class_weights, off, ctr, perm, row_start,
+                num_rot: int):
+    """Build M for off (K, Th*R, 2), schedule the tiles and launch the
+    theta-search kernel `name` (kernels.LAUNCHES key; entry tdr_<name>)
+    over the compact map `maps` (table: the K buckets' levels, or None at
+    a uniform scale).  row_start (K + 1,) int64: the first row of each
+    bucket in perm's order, and N.  Returns (best, k, kf) (N,)."""
+    th, r = scan.shape[1:]
+    n = ctr.shape[0]
+    out = torch.empty((n, 3), dtype=torch.float32, device=ctr.device)
+    if n:
+        pix, npix, m = init_m(scan, class_weights, off, num_rot)
+        rec, nchunk = init_operands(pix, npix, m)
+        sched = init_schedule(row_start, nchunk)
+        inv_tr = float(np.float32(1.0) / np.float32(th * r))
+        cp = channel_pad(num_classes)
+        if table is None:
+            args = (ptr(maps), h, w, cp)
+        else:
+            args = (ptr(maps), ptr(table), table.shape[0], cp)
+        args += (ptr(rec), ptr(sched), rec.shape[1])
+        if perm is not None:
+            args += (ptr(perm),)
+        kernels.launch("crop_score_init", f"tdr_{name}", *args, ptr(ctr), n,
+                       num_rot, ctypes.c_float(inv_tr), ptr(out))
+        kernels.LAUNCHES[name] += 1
+    return out[:, 0], out[:, 1].to(torch.int64), out[:, 2]
+
+
 def score_init_sel(
     packed_map, num_classes, stencil, scan, class_weights, center_px, f,
-    num_rot: int = 40, map_resolution: float = 1.0,
+    num_rot: int = 40, map_resolution: float = 1.0, compact=None,
 ):
-    """Theta-search flavour: (best_cost, k (int64), kf) (N,)."""
+    """Theta-search flavour: (best_cost, k (int64), kf) (N,).  compact:
+    compact_map(packed_map, num_classes), when the caller keeps one."""
     if not kernels.on_card(packed_map.device, "crop scorer"):
         return score_init_sel_plain(
             packed_map, num_classes, stencil, scan, class_weights,
             center_px, f, num_rot, map_resolution,
         )
-    (h, w, c, th, r, n, wscan, ssum, off, ctr, inv_tr) = _kernel_inputs(
-        packed_map, num_classes, stencil, scan, class_weights, center_px,
-        f, map_resolution,
+    dev = packed_map.device
+    h, w = packed_map.shape[:2]
+    _require(packed_map, "packed_map", (h, w, C_PAD), torch.float32, dev)
+    check_operands(num_classes, stencil, scan, class_weights, center_px,
+                   dev, num_rot)
+    if compact is None:
+        compact = compact_map(packed_map, num_classes)
+    _require(compact, "compact", (h, w, channel_pad(num_classes)),
+             torch.float32, dev, contiguous=True)
+    if compact.data_ptr() % 16:
+        raise ValueError("compact must be 16-byte aligned")
+    if compact.numel() >= 2**31:
+        raise ValueError("map too large for 32-bit indexing")
+    rows = torch.zeros(2, dtype=torch.int64, device=dev)
+    rows[1] = center_px.shape[0]
+    return launch_init(
+        "crop_score_init", compact, None, h, w, num_classes, scan,
+        class_weights, crop_offsets(stencil, f)[None],
+        crop_centers(center_px, map_resolution).contiguous(), None, rows,
+        num_rot,
     )
-    if not 1 <= num_rot <= MAX_SEARCH:
-        raise ValueError(f"num_rot must be in 1..{MAX_SEARCH}, got {num_rot}")
-    ssh = search_shifts(th, num_rot, packed_map.device).to(torch.int32)
-    out = torch.empty((n, 3), dtype=torch.float32, device=packed_map.device)
-    if n:
-        kernels.launch(
-            "crop_score", "tdr_crop_score_init", ptr(packed_map), h, w, c,
-            ptr(wscan), ptr(ssum), ptr(off), th, r, ptr(ctr), ptr(ssh),
-            num_rot, n, ctypes.c_float(inv_tr), ptr(out),
-        )
-        kernels.LAUNCHES["crop_score_init"] += 1
-    return out[:, 0], out[:, 1].to(torch.int64), out[:, 2]

@@ -28,8 +28,13 @@ Two scorers, each a wrapper with a public plain version beside it:
                            with the uniform path's select (NaN and
                            kf < 0.5 -> FLT_MAX, first argmin)
 On CPU tensors the wrapper runs the plain version; on CUDA it launches
-the kernel of csrc/crop_score.cu and counts it in kernels.LAUNCHES; any
-other device raises.
+its kernel (csrc/crop_score.cu tracked, csrc/crop_score_init.cu for the
+theta search) and counts it in kernels.LAUNCHES; any other device
+raises.  The theta search is the uniform path's tensor-core product with
+one M per bucket (crop_score.init_m over the (K, Th*R) offsets): the
+wrapper sorts the particles by bucket (a stable torch.sort), so that each
+tile of the kernel lies in one bucket, and the kernel writes each row
+back to its particle.
 """
 
 from __future__ import annotations
@@ -191,6 +196,15 @@ class PyramidMaps:
         self.mips = tuple(mips)
         self.levels = tuple(levels)
         self._tables = {}
+        self._compact = {}
+
+    def compact(self, num_classes: int) -> torch.Tensor:
+        """crop_score.compact_map of `flat` (P, CP), made once and kept:
+        the theta-search kernel's operand."""
+        if num_classes not in self._compact:
+            self._compact[num_classes] = cs.compact_map(self.flat,
+                                                        num_classes)
+        return self._compact[num_classes]
 
     def level_map(self, l: int) -> torch.Tensor:
         """Level l as an (H, W, 8) view of `flat`."""
@@ -251,6 +265,19 @@ def pyramid_centers(center_px, bucket, mips, map_resolution: float):
     c = torch.round(center_px.to(torch.float32).flip(-1) / d[:, None])
     c = torch.nan_to_num(c, nan=-(2.0**20)).clamp(-(2.0**20), 2.0**20)
     return c.to(torch.int32)
+
+
+def bucket_rows(bucket: torch.Tensor, k: int):
+    """Bucket-major rows for the theta-search kernel, whose tiles each lie
+    in one bucket: (perm (N,) int32, the particles in stable bucket order;
+    row_start (K + 1,) int64, bucket b's first row, and N).  Device ops of
+    fixed size only: no host read."""
+    sorted_bucket, perm = torch.sort(bucket, stable=True)
+    row_start = torch.searchsorted(
+        sorted_bucket,
+        torch.arange(k + 1, dtype=torch.int32, device=bucket.device),
+    )
+    return perm.to(torch.int32), row_start
 
 
 def _prepare(pyr, stencil, center_px, scale, slot_vals, bucket_level, res,
@@ -347,11 +374,9 @@ def score_init_multi_sel_plain(
 
 
 # -- wrapper ----------------------------------------------------------------
-def _kernel_inputs(pyr, num_classes, stencil, scan, class_weights,
-                   center_px, scale, slot_vals, bucket_level, res,
-                   map_resolution):
-    """Check the kernel's operands and derive its inputs on their device:
-    the pyramid is read in place, everything else is derived here."""
+def _check_buckets(pyr, stencil, scan, class_weights, center_px, scale,
+                   slot_vals, bucket_level, num_classes, num_rot=None):
+    """The checks both K-bucket wrappers share: (K, C, Th, R)."""
     flat = pyr.flat
     dev = flat.device
     k = len(bucket_level)
@@ -359,13 +384,27 @@ def _kernel_inputs(pyr, num_classes, stencil, scan, class_weights,
         raise ValueError(f"the kernel takes 1..{MAX_BUCKETS} buckets, got {k}")
     cs._require(flat, "pyramid", (flat.shape[0], cs.C_PAD), torch.float32,
                 dev, contiguous=True)
-    if flat.data_ptr() % 16:
-        raise ValueError("pyramid must be 16-byte aligned")
     if flat.numel() >= 2**31:
         raise ValueError("pyramid too large for 32-bit indexing")
     n = center_px.shape[0]
     cs._require(scale, "scale", (n,), torch.float32, dev)
     cs._require(slot_vals, "slot_vals", (k,), torch.float32, dev)
+    return (k,) + cs.check_operands(num_classes, stencil, scan,
+                                    class_weights, center_px, dev, num_rot)
+
+
+def _kernel_inputs(pyr, num_classes, stencil, scan, class_weights,
+                   center_px, scale, slot_vals, bucket_level, res,
+                   map_resolution):
+    """Check the tracked kernel's operands and derive its inputs on their
+    device: the pyramid is read in place, everything else is derived
+    here."""
+    flat = pyr.flat
+    dev = flat.device
+    k = _check_buckets(pyr, stencil, scan, class_weights, center_px, scale,
+                       slot_vals, bucket_level, num_classes)[0]
+    if flat.data_ptr() % 16:
+        raise ValueError("pyramid must be 16-byte aligned")
     (c, th, r, wscan, ssum, inv_tr) = cs._scan_inputs(
         num_classes, stencil, scan, class_weights, center_px, dev, 0
     )
@@ -373,8 +412,8 @@ def _kernel_inputs(pyr, num_classes, stencil, scan, class_weights,
         pyr, stencil, center_px, scale, slot_vals, bucket_level, res,
         map_resolution,
     )
-    return (k, c, th, r, n, table, wscan, ssum, off.contiguous(), bucket,
-            ctr.contiguous(), inv_tr)
+    return (k, c, th, r, center_px.shape[0], table, wscan, ssum,
+            off.contiguous(), bucket, ctr.contiguous(), inv_tr)
 
 
 def score_tracked_multi(
@@ -418,23 +457,15 @@ def score_init_multi_sel(
             pyr, num_classes, stencil, scan, class_weights, center_px,
             scale, slot_vals, bucket_level, res, num_rot, map_resolution,
         )
-    (k, c, th, r, n, table, wscan, ssum, off, bucket, ctr,
-     inv_tr) = _kernel_inputs(
-        pyr, num_classes, stencil, scan, class_weights, center_px, scale,
-        slot_vals, bucket_level, res, map_resolution,
+    k = _check_buckets(pyr, stencil, scan, class_weights, center_px, scale,
+                       slot_vals, bucket_level, num_classes, num_rot)[0]
+    compact = pyr.compact(num_classes)
+    bucket, off, ctr, table = _prepare(
+        pyr, stencil, center_px, scale, slot_vals, bucket_level, res,
+        map_resolution,
     )
-    if not 1 <= num_rot <= cs.MAX_SEARCH:
-        raise ValueError(
-            f"num_rot must be in 1..{cs.MAX_SEARCH}, got {num_rot}"
-        )
-    ssh = search_shifts(th, num_rot, pyr.flat.device).to(torch.int32)
-    out = torch.empty((n, 3), dtype=torch.float32, device=pyr.flat.device)
-    if n:
-        kernels.launch(
-            "crop_score", "tdr_crop_score_multi_init", ptr(pyr.flat),
-            ptr(table), k, c, ptr(wscan), ptr(ssum), ptr(off), th, r,
-            ptr(bucket), ptr(ctr), ptr(ssh), num_rot, n,
-            ctypes.c_float(inv_tr), ptr(out),
-        )
-        kernels.LAUNCHES["crop_score_multi_init"] += 1
-    return out[:, 0], out[:, 1].to(torch.int64), out[:, 2]
+    perm, row_start = bucket_rows(bucket, k)
+    return cs.launch_init(
+        "crop_score_multi_init", compact, table, 0, 0, num_classes, scan,
+        class_weights, off, ctr.contiguous(), perm, row_start, num_rot,
+    )

@@ -144,10 +144,10 @@ def rotation_shift(theta: torch.Tensor, theta_bins: int) -> torch.Tensor:
 
 def search_shifts(theta_bins: int, num_rot: int, device=None) -> torch.Tensor:
     """Row shifts of the uninitialised-theta search grid
-    t_k = k * 2 pi / num_rot: round half to even of k * Th / num_rot."""
-    k = np.arange(num_rot, dtype=np.float64)
-    s = np.round(k * theta_bins / num_rot).astype(np.int64) % theta_bins
-    return torch.as_tensor(s, device=device)
+    t_k = k * 2 pi / num_rot: round half to even of k * Th / num_rot,
+    in float64, made on `device` (no copy from the host)."""
+    k = torch.arange(num_rot, dtype=torch.float64, device=device)
+    return torch.round(k * theta_bins / num_rot).to(torch.int64) % theta_bins
 
 
 def shift_mask(

@@ -65,19 +65,22 @@ _SIGNATURES = {
         "tdr_crop_score_tracked": (
             _P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _I, _F, _P, _P,
         ),
-        # ... centers, search, S, N, inv_tr, out, stream
-        "tdr_crop_score_init": (
-            _P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _F, _P, _P,
-        ),
         # pyramid, table, K, C, wscan, ssum, off, Th, R, bucket, centers,
         # shifts, N, inv_tr, out, stream
         "tdr_crop_score_multi_tracked": (
             _P, _P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _I, _F, _P, _P,
         ),
-        # ... bucket, centers, search, S, N, inv_tr, out, stream
+    },
+    "crop_score_init": {
+        # compact map, H, W, CP, M records, sched, chunk_cap, centers, N,
+        # S, inv_tr, out, stream
+        "tdr_crop_score_init": (
+            _P, _I, _I, _I, _P, _P, _I, _P, _I, _I, _F, _P, _P,
+        ),
+        # compact pyramid, table, K, CP, M records, sched, chunk_cap, perm,
+        # centers, N, S, inv_tr, out, stream
         "tdr_crop_score_multi_init": (
-            _P, _P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _F, _P,
-            _P,
+            _P, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _F, _P, _P,
         ),
     },
     "fill_rows": {
@@ -85,6 +88,20 @@ _SIGNATURES = {
         "tdr_fill_rows": (_P, _P, _I, _P, _P),
     },
 }
+
+
+def default_device(device=None) -> torch.device:
+    """`device`, or the card when none is given.  Without a card that is
+    an error, never a silent fall back to the CPU: CPU callers say
+    device="cpu"."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: top_down_renderer_torch runs on the card by "
+            "default; pass device=\"cpu\" to run on the CPU"
+        )
+    return torch.device("cuda")
 
 
 def on_card(device, what: str) -> bool:

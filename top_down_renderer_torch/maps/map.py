@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from top_down_renderer_torch.config import MapParams
+from top_down_renderer_torch.kernels import default_device
 from top_down_renderer_torch.core.grids import SemanticMapGrid
 from top_down_renderer_torch.maps.edt import compute_dists
 from top_down_renderer_torch.maps.polar import polar_stencil
@@ -33,9 +34,11 @@ def build_grid(
     map_center: Tuple[int, int] = (0, 0),
     device=None,
 ) -> SemanticMapGrid:
-    """SemanticMapGrid on `device` from binary class maps (C, H, W)."""
+    """SemanticMapGrid on `device` (default: the card; without one this
+    raises) from binary class maps (C, H, W)."""
     cm = torch.as_tensor(
-        np.asarray(class_maps_binary, dtype=np.float32), device=device
+        np.asarray(class_maps_binary, dtype=np.float32),
+        device=default_device(device),
     )
     c, h, w = cm.shape
 
@@ -103,13 +106,14 @@ class TopDownMap:
 
     Built from `class_maps` (binary, (C, H, W)) when given, else from
     params.map_path when it names a colour raster.  With neither, the
-    map waits for update_map()."""
+    map waits for update_map().  Everything lives on `device`, by
+    default the card; without one that raises (pass device="cpu")."""
 
     def __init__(
         self, params: MapParams, device=None, class_maps=None
     ):
         self.params = params
-        self.device = torch.device(device or "cpu")
+        self.device = default_device(device)
         self.have_map = False
         self.grid: Optional[SemanticMapGrid] = None
         self.class_maps_binary: Optional[np.ndarray] = None
