@@ -7,7 +7,8 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases (any failure exits non-zero before the result line):
   A. build the CUDA sources in csrc/ (one nvcc each, all started
      together), time it, and count the tensor-core (HGMMA) instructions
-     in the theta-search library's SASS where cuobjdump is at hand;
+     in the theta-search library's SASS with the toolkit's cuobjdump
+     (fails without the tool or without the instructions);
   B. the uniform crop kernels against their plain PyTorch versions on
      the same card tensors at the slice's shapes: 102,400 particles, a
      1024^2 map with 6 classes (8 packed channels), Th x R = 100 x 25,
@@ -43,11 +44,12 @@ Phases (any failure exits non-zero before the result line):
      particle has a theta), the host part of its dispatch, and the fill
      on C3's last state; on those same 3-class inputs each crop kernel
      is held against its plain version as in B; the tracked kernel also
-     runs on the spread cloud, the gather-only floor of the theta
-     search's windows;
+     runs on the spread cloud (its own gather: 2,500 stencil cells of the
+     8-channel map per particle, not the theta search's distinct pixels
+     of the compact map);
   E. one JSON line of kernel results with each kernel's bound (the
-     theta searches on two bases: bf16 tensor cores, and float32 outside
-     them), the largest relative error of each theta search against its
+     theta searches on two bases: the nonzero entries of M on bf16
+     tensor cores, and float32 outside them), the largest relative error of each theta search against its
      plain version, the card's name and power limit, and the final
      {"ok": true, "device": ...} line.
 """
@@ -156,11 +158,11 @@ def log_clocks(label: str) -> None:
 
 def log_tensor_core_sass(name: str) -> None:
     """Count the HGMMA (wgmma) instructions in the SASS of csrc/<name>.cu's
-    library, with the toolkit's cuobjdump; a build without them fails."""
+    library, with the toolkit's cuobjdump; a build without them, or a
+    toolkit without the tool, fails."""
     tool = os.path.join(os.path.dirname(kernels.find_nvcc()), "cuobjdump")
-    if not os.path.isfile(tool):
-        log(f"[A] no cuobjdump beside nvcc: {name}'s SASS not read")
-        return
+    check(os.path.isfile(tool), f"no cuobjdump beside nvcc: {name}'s SASS "
+          "cannot be read")
     sass = subprocess.run([tool, "-sass", str(kernels.build(name))],
                           capture_output=True, text=True, check=True,
                           timeout=120).stdout
@@ -215,14 +217,15 @@ def compare(label, errs, names, tracked, init, need_gated=False) -> None:
         f"{int((~ok).sum())})")
 
 
-def crop_pair(args, theta, f, compact=None):
+def crop_pair(args, theta, f):
     """(tracked, init) kernel/plain call pairs of the uniform crop path;
-    compact: the filter's compact map, as its theta search passes it."""
+    args[0] is the map's CropMap, as the filter passes it."""
+    maps, rest = args[0], args[1:]
     return (
-        (lambda: cs.score_tracked(*args, theta, f),
-         lambda: cs.score_tracked_plain(*args, theta, f)),
-        (lambda: cs.score_init_sel(*args, f, compact=compact),
-         lambda: cs.score_init_sel_plain(*args, f)),
+        (lambda: cs.score_tracked(maps.packed, *rest, theta, f),
+         lambda: cs.score_tracked_plain(maps.packed, *rest, theta, f)),
+        (lambda: cs.score_init_sel(maps, *rest, f),
+         lambda: cs.score_init_sel_plain(maps.packed, *rest, f)),
     )
 
 
@@ -255,7 +258,7 @@ def phase_b(dev, errs):
     cw = torch.ones(C, device=dev)
     ctr = torch.as_tensor(centers, device=dev)
     theta = torch.as_tensor(d["state"]["particles"]["theta"], device=dev)
-    args = (t["packed"], C, t["stencil"], t["scan"], cw, ctr)
+    args = (cs.CropMap(t["packed"]), C, t["stencil"], t["scan"], cw, ctr)
     for f in (1.0, 0.5):
         compare(f"B C={C} f={f}", errs, CROP, *crop_pair(args, theta, f),
                 need_gated=True)
@@ -280,9 +283,9 @@ def phase_b2(dev, errs, b_args, theta):
     """The K-bucket kernels against their plain versions, and per bucket
     against the uniform kernel on the bucket's level; the fill kernel
     against its plain version."""
-    packed, _, sten, scan, cw, ctr = b_args
+    maps, _, sten, scan, cw, ctr = b_args
     hyp, slots, levels, bmi = init_plan()
-    pyr = ms.build_pyramid_maps(packed, levels)
+    pyr = ms.build_pyramid_maps(maps.packed, levels)
     log(f"[B2] slots {np.round(slots, 4).tolist()}, levels {levels}, "
         f"bucket -> level {bmi}, pyramid {pyr.flat.numel() * 4 / 2**20:.1f}"
         " MiB")
@@ -310,7 +313,8 @@ def phase_b2(dev, errs, b_args, theta):
         mres = float(levels[bmi[b]])
         u_args = (level, C, sten, scan, cw, ctr[sel])
         u_tr = cs.score_tracked(*u_args, theta[sel], f_eff[b], mres)
-        u_in = cs.score_init_sel(*u_args, f_eff[b], 40, mres)
+        u_in = cs.score_init_sel(cs.CropMap(level), *u_args[1:], f_eff[b],
+                                 40, mres)
         torch.cuda.synchronize()
         label = f"B2 bucket {b} (mip {levels[bmi[b]]})"
         check(torch.equal(u_tr[2], tr[2][sel]), f"{label}: kf differs")
@@ -572,17 +576,20 @@ def crop_bound(maps, c, tr, shifts, inputs):
                  nbytes(maps, *inputs) + n * 12)
 
 
-def tc_bound(compact, npix, counts, inputs):
-    """The theta search on bf16 tensor cores: per particle three split
-    products of 2 x K x 88 FLOPs, K = CP x its bucket's distinct pixels
-    (npix (K,), counts (K,) particles per bucket); the compact map, M's
-    hi and lo rows and the per-particle inputs read once, (N, 3)
-    written."""
-    k = compact.shape[-1] * npix.double().cpu()
+def tc_bound(compact, c, shifts, npix, counts, inputs):
+    """The theta search on bf16 tensor cores, counting the products the
+    inputs need, not the dense ones the kernel runs: M has C S + S + 1
+    nonzero entries per distinct pixel (S cost columns on each class
+    channel; S norm columns and the kf column on the known channel), and
+    each costs three split products of 2 FLOPs per particle of its bucket
+    (npix (K,) distinct pixels, counts (K,) particles per bucket); the
+    compact map, M's nonzero hi and lo entries and the per-particle
+    inputs read once, (N, 3) written."""
+    nnz = (c * shifts + shifts + 1) * npix.double().cpu()
     n = int(counts.sum())
-    ops = 6.0 * cs.M_COLS * float((counts.double().cpu() * k).sum())
-    moved = nbytes(compact, *inputs) + float(k.sum()) * cs.M_COLS * 4
-    return bound(ops, moved + n * 12, PEAK_BF16_FLOPS)
+    ops = 6.0 * float((counts.double().cpu() * nnz).sum())
+    moved = nbytes(compact, *inputs) + float(nnz.sum()) * 4 + n * 12
+    return bound(ops, moved, PEAK_BF16_FLOPS)
 
 
 def timed(name, kernel, plain, library=None):
@@ -599,7 +606,8 @@ def phase_d(dev, pf, world, errs):
     scan = scan_at(world, 0, dev)
     cw = torch.tensor([0.1, 1.5, 3.0], device=dev)
     f = torch.tensor(SCALE_GT * RES, device=dev)
-    maps = pf._get_map(1)
+    cmap = pf._get_map(1)
+    maps = cmap.packed
     sten = torch.as_tensor(pf.map.stencil, device=dev)
     tr = sten.shape[0] * sten.shape[1]
     out = {}
@@ -609,23 +617,25 @@ def phase_d(dev, pf, world, errs):
     pf.initialize_particles()  # spread cloud, no theta prior
     spread = pf.state.replace(step=1)
     ctr = spread.particles.pose_px()
-    args = (maps, 3, sten, scan, cw, ctr)
+    args = (cmap, 3, sten, scan, cw, ctr)
 
     def init_update():
         pf.state = spread
         pf._all_have_init = False
         pf.update(scan, RES)
 
-    compact = pf._get_compact(1)
-    pair = crop_pair(args, spread.particles.theta, f, compact)
+    pair = crop_pair(args, spread.particles.theta, f)
     npix = cs.fold_offsets(cs.crop_offsets(sten, f)[None])[1]
     out["crop_score_init"] = dict(
         timed("crop_score_init", *pair[1]),
         update_ms=median_ms(init_update),
-        bound=tc_bound(compact, npix, torch.tensor([N]), (ctr,)),
+        bound=tc_bound(cmap.compact(3), 3, 40, npix, torch.tensor([N]),
+                       (ctr,)),
         bound_f32=crop_bound(maps, 3, tr, 40, (ctr,)),
-        # the tracked kernel on the same windows: their gather alone
-        gather_ms=kernel_ms(pair[0][0], SYMBOLS["crop_score_tracked"]),
+        # the tracked kernel on the spread cloud: 2,500 cells of the
+        # 8-channel map per particle, not the theta search's gather
+        tracked_spread_ms=kernel_ms(pair[0][0],
+                                    SYMBOLS["crop_score_tracked"]),
         pixels=int(npix[0]),
     )
     compare("D spread, C=3", errs, CROP, *pair)
@@ -635,7 +645,7 @@ def phase_d(dev, pf, world, errs):
     clustered = filter_state_from_numpy(d["state"], dev).replace(step=1)
     ctr = clustered.particles.pose_px()
     theta = clustered.particles.theta
-    args = (maps, 3, sten, scan, cw, ctr)
+    args = (cmap, 3, sten, scan, cw, ctr)
 
     def tracked_update():
         pf.state = clustered
@@ -703,7 +713,7 @@ def phase_d2(dev, world, errs):
                                     minlength=len(slots))
             out[name].update(
                 bound_f32=out[name]["bound"],
-                bound=tc_bound(pyr.compact(3), npix, counts, inputs),
+                bound=tc_bound(pyr.compact(3), 3, 40, npix, counts, inputs),
                 pixels=npix.tolist(),
             )
         log(f"[D2] {name}: {plan.mode}, K {plan.kp}, mo {plan.mo}, levels "
@@ -788,9 +798,9 @@ def main() -> int:
                       f"{t['bound_f32'][0]:.4f} ms, distinct pixels "
                       f"{t['pixels']}, largest rel err vs plain "
                       f"{errs['rel'][name]:.3e}")
-        if "gather_ms" in t:
-            extra += (f", the tracked kernel on the same windows (gather "
-                      f"floor) {t['gather_ms']:.4f} ms")
+        if "tracked_spread_ms" in t:
+            extra += (f", the tracked kernel on the spread cloud "
+                      f"{t['tracked_spread_ms']:.4f} ms")
         log(f"[D] {name}: kernel {t['ms']:.4f} ms (with its wrapper "
             f"{t['wrapper_ms']:.4f} ms), plain "
             f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms "

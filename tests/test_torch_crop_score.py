@@ -172,7 +172,7 @@ def test_float_centres_init_vs_jax_kernel(float_world):
             _ratio(rn[:, j], rd[:, j]), _ratio(nums[:, j], dens[:, j]), rkf,
             np_(kf), f"init shift {j}",
         )
-    best, k, kf2 = cs.score_init_sel(args[0], C, *args[1:], F)
+    best, k, kf2 = cs.score_init_sel(cs.CropMap(args[0]), C, *args[1:], F)
     rbest, rtheta, rkf2 = ref["sel"]
     got_theta = np_(k).astype(np.float32) * np.float32(2 * math.pi / 40)
     finite = rbest < cs.FLT_MAX
@@ -246,7 +246,8 @@ def test_sel_init_equals_raw_rows_through_select(case):
         packed[20:70, 20:70, C] = 0.0  # kf < 0.5 inside the block
     centers = rng.uniform(-10, 106, (200, 2)).astype(np.float32)
     args = _t(packed, STENCIL, scan, CW, centers)
-    best, k, kf = cs.score_init_sel(args[0], C, *args[1:], 0.5)
+    best, k, kf = cs.score_init_sel(cs.CropMap(args[0]), C, *args[1:],
+                                    0.5)
     nums, dens, kf_raw = cs.score_init_raw_plain(args[0], C, *args[1:], 0.5)
     costs = _init_costs(nums, dens, kf_raw)
     ref_cost, ref_theta = select_init_cost(torch.as_tensor(costs), 40)
@@ -277,11 +278,24 @@ def test_cpu_wrapper_runs_plain_version_and_counts_nothing(world):
 @pytest.mark.parametrize("fn", ["score_tracked", "score_init_sel"])
 def test_wrapper_raises_off_cpu_and_cuda(fn):
     meta = torch.zeros((16, 16, 8), device="meta")
+    if fn == "score_init_sel":
+        meta = cs.CropMap(meta)
     args = [meta, C] + [torch.zeros(s, device="meta") for s in
                         ((TH, R, 2), (C, TH, R), (C,), (4, 2))]
     extra = [torch.zeros(4, device="meta")] if fn == "score_tracked" else []
     with pytest.raises(ValueError, match="no crop scorer"):
         getattr(cs, fn)(*args, *extra, 0.5)
+
+
+def test_crop_map_makes_its_compact_copy_once():
+    """A CropMap keeps compact(num_classes) beside its packed map: made on
+    first use as compact_map, then the same tensor on every call."""
+    packed, _, _ = _world(4, 32, 32)
+    maps = cs.CropMap(torch.as_tensor(packed))
+    a = maps.compact(C)
+    assert maps.compact(C) is a
+    np.testing.assert_array_equal(np_(a), np_(cs.compact_map(maps.packed, C)))
+    assert maps.compact(1).shape == (32, 32, 2)
 
 
 def test_offsets_and_centres_follow_reference_rounding():

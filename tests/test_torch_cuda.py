@@ -91,8 +91,8 @@ def test_init_kernel_matches_plain(dev, c, f, num_rot, n):
     edges and far out."""
     packed, sten, scan, cw, centers, _ = _world(dev, c, 2, n)
     before = kernels.LAUNCHES["crop_score_init"]
-    best, k, kf = cs.score_init_sel(packed, c, sten, scan, cw, centers, f,
-                                    num_rot)
+    best, k, kf = cs.score_init_sel(cs.CropMap(packed), c, sten, scan, cw,
+                                    centers, f, num_rot)
     rbest, rk, rkf = cs.score_init_sel_plain(packed, c, sten, scan, cw,
                                              centers, f, num_rot)
     torch.cuda.synchronize()
@@ -115,7 +115,8 @@ def test_wrapper_refuses_what_the_kernel_cannot_take(dev):
                          torch.ones(7, device=dev), centers[:4],
                          torch.zeros(4, device=dev), 0.5)
     with pytest.raises(ValueError, match="num_rot"):
-        cs.score_init_sel(packed, 3, sten, scan, cw, centers, 0.5, 41)
+        cs.score_init_sel(cs.CropMap(packed), 3, sten, scan, cw, centers,
+                          0.5, 41)
     with pytest.raises(ValueError, match="is on"):
         cs.score_tracked(packed, 3, sten.cpu(), scan, cw, centers, thetas,
                          0.5)
@@ -134,10 +135,10 @@ def test_crop_step_on_card_matches_cpu(dev, mode):
                                     gmm_every=1)
     outs = []
     for device in ("cpu", dev):
-        args = [torch.as_tensor(d[k], device=device)
-                for k in ("packed", "map_size", "stencil", "scan")]
+        maps, *args = [torch.as_tensor(d[k], device=device)
+                       for k in ("packed", "map_size", "stencil", "scan")]
         st = filter_state_from_numpy(d["state"], device)
-        outs.append(step(st, *args, 0.5, shift=0.25))
+        outs.append(step(st, cs.CropMap(maps), *args, 0.5, shift=0.25))
     cpu, gpu = outs
     assert int(gpu.n_active) == int(cpu.n_active)
     rows_c = np_(torch.cat(
@@ -319,11 +320,74 @@ def test_init_kernel_ties_go_to_the_first_shift(dev, multi):
         nums, dens, _ = ms.score_init_multi_raw_plain(pyr, *args[1:], *tail)
         ref = ms.score_init_multi_sel_plain(pyr, *args[1:], *tail)
     else:
-        got = cs.score_init_sel(*args, 0.5)
+        got = cs.score_init_sel(cs.CropMap(packed), *args[1:], 0.5)
         nums, dens, _ = cs.score_init_raw_plain(*args, 0.5)
         ref = cs.score_init_sel_plain(*args, 0.5)
     torch.cuda.synchronize()
     costs = np_(nums / dens)
     assert (costs.max(1) / costs.min(1) - 1 < 1e-6).all()  # ties
     assert (np_(got[1]) == 0).all()
+    assert_rel(np_(ref[0]), np_(got[0]), 1e-4, "best cost")
+
+
+def _half_turn_tiles(dev, c, seed, tiles=16, half=13):
+    """A map of tiles 2 half + 1 px wide, each reading the same at
+    (dy, dx) and (-dy, -dx) from its centre, with random values; returns
+    the map and the tiles' centres (x, y)."""
+    s = 2 * half + 1
+    rng = np.random.default_rng(seed)
+    a = rng.random((tiles, tiles, s, s, c)).astype(np.float32) * 25
+    a = a + a[:, :, ::-1, ::-1]
+    packed = np.zeros((tiles * s, tiles * s, 8), np.float32)
+    packed[..., :c] = a.transpose(0, 2, 1, 3, 4).reshape(tiles * s,
+                                                         tiles * s, c)
+    packed[..., c] = 1.0
+    mid = np.arange(tiles, dtype=np.float32) * s + half
+    centers = np.stack(np.meshgrid(mid, mid), -1).reshape(-1, 2)
+    return (torch.as_tensor(packed, device=dev),
+            torch.as_tensor(centers, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("multi", [False, True])
+def test_init_kernel_near_ties_go_to_the_first_shift(dev, multi):
+    """Particles at the centres of half-turn symmetric windows (as on a
+    road's centre line): shifts k and k + 20 have equal costs in exact
+    arithmetic, with varying map values, and the sums of both versions,
+    taken in other orders, differ by a few 1e-7.  The plain version takes
+    whichever of the pair its float32 sums make smaller; the kernel takes
+    the first (its tie window TIE_REL): the plain version's shift modulo
+    the half turn, with a cost within rel 1e-4."""
+    c, half = 3, 20
+    packed, centers = _half_turn_tiles(dev, c, 8)
+    rng = np.random.default_rng(8)
+    scan = torch.as_tensor((rng.random((c, TH, R)) * 3).astype(np.float32),
+                           device=dev)
+    sten = torch.as_tensor(polar_stencil(TH, R), device=dev)
+    cw = torch.tensor([0.5, 1.0, 1.5], device=dev)
+    args = (c, sten, scan, cw, centers)
+    if multi:
+        pyr = ms.build_pyramid_maps(packed, (1, 2))
+        tail = (torch.full((len(centers),), 0.5, device=dev),
+                torch.tensor([0.5, 1.0], device=dev), (0, 1), 1.0)
+        got = ms.score_init_multi_sel(pyr, *args, *tail)
+        nums, dens, _ = ms.score_init_multi_raw_plain(pyr, *args, *tail)
+        ref = ms.score_init_multi_sel_plain(pyr, *args, *tail)
+    else:
+        got = cs.score_init_sel(cs.CropMap(packed), *args, 0.5)
+        nums, dens, _ = cs.score_init_raw_plain(packed, *args, 0.5)
+        ref = cs.score_init_sel_plain(packed, *args, 0.5)
+    torch.cuda.synchronize()
+    costs = np_(nums / dens)
+    pair = np.abs(costs[:, half:] / costs[:, :half] - 1)
+    assert pair.max() < 1e-5  # near ties, a half turn apart
+    assert (np_(ref[1]) >= half).any()  # where the two rules part
+    k = np_(got[1])
+    assert (k < half).all()
+    # where one pair wins by more than the sums' error, it is the plain
+    # version's
+    pairs = np.sort(costs[:, :half], 1)
+    apart = pairs[:, 1] / pairs[:, 0] - 1 > 1e-4
+    assert apart.mean() > 0.9
+    np.testing.assert_array_equal(k[apart], np_(ref[1])[apart] % half)
     assert_rel(np_(ref[0]), np_(got[0]), 1e-4, "best cost")

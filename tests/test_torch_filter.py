@@ -16,6 +16,7 @@ from top_down_renderer_tpu.filter import gmm as gmm_j
 from top_down_renderer_tpu.filter import particles as part_j
 from top_down_renderer_tpu.filter import resample as res_j
 from top_down_renderer_tpu.filter import stats as stats_j
+from top_down_renderer_torch.filter import crop_score as cs
 from top_down_renderer_torch.filter import filter as ft
 from top_down_renderer_torch.filter import gmm as gmm_t
 from top_down_renderer_torch.filter import particles as part_t
@@ -353,9 +354,10 @@ def test_crop_step_on_integer_centres_matches_jax_exact(mode):
     st_t = filter_state_from_numpy(d["state"])
     step_t = ft.make_update_step_fast(params, 3, 1.0, 100, N, mode,
                                       gmm_every=1)
-    out_t = step_t(st_t, *(torch.as_tensor(d[k]) for k in
-                           ("packed", "map_size", "stencil", "scan")),
-                   res, shift=_resample_shift(st_j))
+    maps, *rest = (torch.as_tensor(d[k]) for k in
+                   ("packed", "map_size", "stencil", "scan"))
+    out_t = step_t(st_t, cs.CropMap(maps), *rest, res,
+                   shift=_resample_shift(st_j))
     _compare_states(out_j, out_t)
 
 

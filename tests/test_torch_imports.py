@@ -64,7 +64,7 @@ def test_kernel_module_needs_no_nvcc_until_launch(tmp_path):
         "except RuntimeError as e:\n"
         "    print('no nvcc:', 'nvcc not found' in str(e))\n"
         "m = torch.zeros((32, 32, 8)); m[..., 1] = 1\n"
-        "out = cs.score_init_sel(m, 1, torch.as_tensor(polar_stencil(100, 25)),\n"
+        "out = cs.score_init_sel(cs.CropMap(m), 1, torch.as_tensor(polar_stencil(100, 25)),\n"
         "    torch.ones((1, 100, 25)), torch.ones(1), torch.full((3, 2), 16.),\n"
         "    0.5)\n"
         "print('cpu ok', tuple(out[0].shape), sum(kernels.LAUNCHES.values()))\n",

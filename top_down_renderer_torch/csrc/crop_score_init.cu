@@ -19,10 +19,12 @@
 // offsets) and its own pyramid level; the wrapper sorts the particles by
 // bucket, so that every tile of 192 rows lies in one bucket.
 //
-// Bound on an H100: per particle 2 x K x 88 x 3 bf16 tensor FLOPs (the
-// three split products below), K = CP x the distinct pixels (about 6,600 at
-// f = 1 and C = 3), against a gather of K x 4 bytes of window from the
-// L2-resident compact map; both sides are near 1 ms at 102,400 particles.
+// Work: the dense product runs 2 x K x 88 x 3 bf16 tensor FLOPs per particle
+// (the three split products below), K = CP x the distinct pixels (about
+// 6,300 at f = 1 and C = 3); of M's 88 columns a pixel holds only C S + S + 1
+// nonzero entries (161 at C = 3, S = 40), so more than half of that work
+// multiplies zeros.  Each particle also gathers K x 4 bytes of window from
+// the L2-resident compact map.
 // The design:
 //   - a block scores a tile of 192 particles: three warpgroups, one m64
 //     wgmma tile each, so every chunk of M read from L2 serves 192 rows (the
@@ -49,7 +51,8 @@
 //   - the epilogue divides, gates (NaN and kf < 0.5 -> FLT_MAX) and takes the
 //     first argmin across the four lanes that hold a row, and writes (best
 //     cost, k, kf) to the particle's own row.  Costs within kTieRel of the
-//     row's minimum count as ties and go to the first shift: on a window
+//     row's minimum count as ties and go to the first shift (the contract
+//     in filter/crop_score.py, TIE_REL there): on a window
 //     of constant map values (open terrain beyond the distance cut-off)
 //     all 40 costs are equal in exact arithmetic, the plain version's
 //     float32 sums come out exactly equal (first argmin 0), and this

@@ -19,6 +19,16 @@ Two entry points, one per scoring flavour:
                      cost / norm, NaN -> FLT_MAX, FLT_MAX where
                      kf < 0.5, first argmin k (best_theta = k 2 pi / n)
 
+Ties in the theta search.  The plain version takes the exact first
+argmin of its float32 costs.  The kernel takes the first shift whose
+cost lies within TIE_REL (2^-20) relative of the row's minimum, and
+returns that shift's cost.  Costs equal in exact arithmetic (a window of
+constant map values; shifts a half turn apart on a road's centre line)
+come out of both versions' sums, taken in other orders, up to a few
+1e-7 apart: the kernel sends them to the first shift, the plain version to
+whichever of its sums is smaller.  Either way best_cost agrees within
+rel 1e-4, and k differs only between such near ties.
+
 Each takes CPU or CUDA tensors.  On CUDA it launches its kernel
 (csrc/crop_score.cu for the tracked flavour, csrc/crop_score_init.cu for
 the theta search) and counts it in kernels.LAUNCHES; on the CPU it runs
@@ -33,7 +43,8 @@ channels the score reads) times a matrix M that folds the stencil's
 one-hot into the circulant columns (init_m), with both operands split
 into bf16 hi and lo parts (split_bf16, init_operands).  init_m is plain
 PyTorch and public, so that the CPU tests hold window @ M to the plain
-version.
+version.  score_init_sel's map operand is a CropMap: the packed map at
+one mip level with its compact copy, made once and kept beside it.
 
 The crop-size buckets and the mip fallback are kept in the host dispatch
 (filter/filter.py) so that both packages score the same map at the same
@@ -66,6 +77,7 @@ SMEM_LIMIT = 227 * 1024  # dynamic shared memory a Hopper block may use
 M_COLS = 88  # columns of M: (cost, norm) at 2k, 2k + 1; kf count; padding
 KF_COL = 2 * MAX_SEARCH
 K_CHUNK = 32  # rows of M per pipeline stage of the init kernel
+TIE_REL = 2.0**-20  # the init kernel's tie window (kTieRel)
 INIT_TILE = 192  # particles per block of the init kernel
 PAD_PIX = 2**29  # (dy, dx) of a padding pixel: outside every map
 _KEY_BITS = 22  # bits per offset in fold_offsets' sort key
@@ -306,6 +318,23 @@ def compact_map(packed: torch.Tensor, num_classes: int) -> torch.Tensor:
     return out
 
 
+class CropMap:
+    """A packed (..., 8) float32 map and its compact copies: the crop
+    kernels' operands.  compact(num_classes) is made on first use and
+    kept, so a map's owner makes it once per map version."""
+
+    def __init__(self, packed: torch.Tensor):
+        self.packed = packed
+        self._compact = {}
+
+    def compact(self, num_classes: int) -> torch.Tensor:
+        """compact_map(packed, num_classes), made once."""
+        if num_classes not in self._compact:
+            self._compact[num_classes] = compact_map(self.packed,
+                                                     num_classes)
+        return self._compact[num_classes]
+
+
 def fold_offsets(off: torch.Tensor):
     """The distinct pixels of K offset tables off (K, Th*R, 2): (pix (K, P,
     2) int32, npix (K,) int64, slot (K*Th*R,) int64).  pix[b, :npix[b]]
@@ -437,11 +466,12 @@ def launch_init(name: str, maps, table, h: int, w: int, num_classes: int,
 
 
 def score_init_sel(
-    packed_map, num_classes, stencil, scan, class_weights, center_px, f,
-    num_rot: int = 40, map_resolution: float = 1.0, compact=None,
+    maps: CropMap, num_classes, stencil, scan, class_weights, center_px, f,
+    num_rot: int = 40, map_resolution: float = 1.0,
 ):
-    """Theta-search flavour: (best_cost, k (int64), kf) (N,).  compact:
-    compact_map(packed_map, num_classes), when the caller keeps one."""
+    """Theta-search flavour: (best_cost, k (int64), kf) (N,) on
+    maps.packed; ties as in the module's docstring."""
+    packed_map = maps.packed
     if not kernels.on_card(packed_map.device, "crop scorer"):
         return score_init_sel_plain(
             packed_map, num_classes, stencil, scan, class_weights,
@@ -452,12 +482,7 @@ def score_init_sel(
     _require(packed_map, "packed_map", (h, w, C_PAD), torch.float32, dev)
     check_operands(num_classes, stencil, scan, class_weights, center_px,
                    dev, num_rot)
-    if compact is None:
-        compact = compact_map(packed_map, num_classes)
-    _require(compact, "compact", (h, w, channel_pad(num_classes)),
-             torch.float32, dev, contiguous=True)
-    if compact.data_ptr() % 16:
-        raise ValueError("compact must be 16-byte aligned")
+    compact = maps.compact(num_classes)
     if compact.numel() >= 2**31:
         raise ValueError("map too large for 32-bit indexing")
     rows = torch.zeros(2, dtype=torch.int64, device=dev)

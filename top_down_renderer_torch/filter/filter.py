@@ -279,31 +279,30 @@ def make_update_step_fast(
     mip: int = 1,
 ):
     """The crop-kernel update step for a uniform particle scale:
-    update(state, maps, map_size_scaled, stencil, scan, res, compact=None,
-    shift=None, generator=None), where `maps` is the packed map at this
-    mip level (crop_score.mip_map) and `compact` its
-    crop_score.compact_map, when the caller keeps one for the theta
-    search.  mode "tracked" scores each particle at its own
-    rotation, "init" runs the theta search, "mixed" both with the exact
-    path's per-particle select.  At mip > 1 the kernel sees f / mip at
-    resolution map_resolution * mip: an NN granularity of mip px."""
+    update(state, maps, map_size_scaled, stencil, scan, res, shift=None,
+    generator=None), where `maps` is a crop_score.CropMap of the packed
+    map at this mip level (crop_score.mip_map).  mode "tracked" scores
+    each particle at its own rotation, "init" runs the theta search,
+    "mixed" both with the exact path's per-particle select.  At mip > 1
+    the kernel sees f / mip at resolution map_resolution * mip: an NN
+    granularity of mip px."""
     if mode not in ("tracked", "init", "mixed"):
         raise ValueError(f"unknown crop mode {mode!r}")
     class_weights = _pad_class_weights(params, grid_num_classes)
     num_rot = params.num_rot_search
     mres = map_resolution * mip
 
-    def score(p: Particles, maps, stencil, scan, res, compact=None):
+    def score(p: Particles, maps, stencil, scan, res):
         f = p.scale[0] * torch.as_tensor(
             res, dtype=torch.float32, device=scan.device
         ) / mip
-        args = (maps, grid_num_classes, stencil, scan,
+        args = (grid_num_classes, stencil, scan,
                 class_weights.to(scan.device), p.pose_px())
         return _select_flavour(
             mode, p,
-            lambda: crop_score.score_tracked(*args, p.theta, f, mres),
-            lambda: crop_score.score_init_sel(*args, f, num_rot, mres,
-                                              compact=compact),
+            lambda: crop_score.score_tracked(maps.packed, *args, p.theta, f,
+                                             mres),
+            lambda: crop_score.score_init_sel(maps, *args, f, num_rot, mres),
             num_rot,
         )
 
@@ -616,22 +615,14 @@ class ParticleFilter:
             )
         return self._fast_fns[key]
 
-    def _get_map(self, mip: int) -> torch.Tensor:
+    def _get_map(self, mip: int) -> crop_score.CropMap:
+        """The packed map at this mip level with its compact copy, per
+        map version."""
         key = (self._map_version, mip)
         if key not in self._maps_cache:
-            self._maps_cache[key] = crop_score.mip_map(
+            self._maps_cache[key] = crop_score.CropMap(crop_score.mip_map(
                 self.map.grid.dist.to(self.device), mip
-            )
-        return self._maps_cache[key]
-
-    def _get_compact(self, mip: int) -> torch.Tensor:
-        """crop_score.compact_map of the mip map, made once per map
-        version: the theta-search kernel's operand."""
-        key = (self._map_version, mip, "compact")
-        if key not in self._maps_cache:
-            self._maps_cache[key] = crop_score.compact_map(
-                self._get_map(mip), self.map.grid.num_classes
-            )
+            ))
         return self._maps_cache[key]
 
     def _get_fast_fn(self, mode: str, mip: int):
@@ -683,10 +674,9 @@ class ParticleFilter:
             )
         else:
             mode, _mo, _scale, mip = fast
-            compact = () if mode == "tracked" else (self._get_compact(mip),)
             self.state = self._get_fast_fn(mode, mip)(
                 self.state, self._get_map(mip), map_size_scaled, stencil,
-                scan, res, *compact, generator=self.generator,
+                scan, res, generator=self.generator,
             )
         # every scoring path sets have_init for all particles
         self._all_have_init = True

@@ -187,24 +187,20 @@ def plan_buckets(scales: np.ndarray, range_bins: int, res: float,
 
 
 # -- the pyramid -------------------------------------------------------------
-class PyramidMaps:
+class PyramidMaps(cs.CropMap):
     """Packed float32 levels dist[::m, ::m] for m in `mips`, back to back
-    in `flat` (P, 8); `levels[l]` = (pixel offset, H, W) of level l."""
+    in `flat` (P, 8); `levels[l]` = (pixel offset, H, W) of level l.
+    compact(num_classes) (P, CP) is the theta-search kernel's operand."""
 
     def __init__(self, flat: torch.Tensor, mips, levels):
-        self.flat = flat
+        super().__init__(flat)
         self.mips = tuple(mips)
         self.levels = tuple(levels)
         self._tables = {}
-        self._compact = {}
 
-    def compact(self, num_classes: int) -> torch.Tensor:
-        """crop_score.compact_map of `flat` (P, CP), made once and kept:
-        the theta-search kernel's operand."""
-        if num_classes not in self._compact:
-            self._compact[num_classes] = cs.compact_map(self.flat,
-                                                        num_classes)
-        return self._compact[num_classes]
+    @property
+    def flat(self) -> torch.Tensor:
+        return self.packed
 
     def level_map(self, l: int) -> torch.Tensor:
         """Level l as an (H, W, 8) view of `flat`."""
