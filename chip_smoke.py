@@ -12,7 +12,11 @@ Phases (any failure exits non-zero before the result line):
   B. the uniform crop kernels against their plain PyTorch versions on
      the same card tensors at the slice's shapes: 102,400 particles, a
      1024^2 map with 6 classes (8 packed channels), Th x R = 100 x 25,
-     f = 1.0 and 0.5, edge and far-out centres included;
+     f = 1.0 and 0.5, edge and far-out centres included; each tracked
+     kernel also runs twice on the same inputs and must return the same
+     bits (here and wherever a kernel is held against its plain version),
+     and the tracked kernels' offset fold (one launch) must equal
+     crop_score.fold_offsets (here, in B2 and in D);
   B2. the K-bucket crop kernels against their plain versions on the
      same map with the 10 init hypotheses 10^{k/10} at res 0.5 (the
      levels the dispatch picks), and per bucket against the uniform
@@ -42,16 +46,21 @@ Phases (any failure exits non-zero before the result line):
      cloud, tracked on a cloud clustered to 100 px, the unknown-scale
      update from the 10 hypotheses (theta search, and tracked once each
      particle has a theta), the host part of its dispatch, and the fill
-     on C3's last state; on those same 3-class inputs each crop kernel
+     on C3's last state, and the offset fold on the clustered cell's
+     offsets; on those same 3-class inputs each crop kernel
      is held against its plain version as in B; the tracked kernel also
-     runs on the spread cloud (its own gather: 2,500 stencil cells of the
-     8-channel map per particle, not the theta search's distinct pixels
-     of the compact map);
-  E. one JSON line of kernel results with each kernel's bound (the
-     theta searches on two bases: the nonzero entries of M on bf16
-     tensor cores, and float32 outside them), the largest relative error of each theta search against its
-     plain version, the card's name and power limit, and the final
-     {"ok": true, "device": ...} line.
+     runs on the spread cloud (tiles over all 100 shifts); the lines of
+     the crop kernels give the distinct pixels of their stencil (per
+     bucket on the K-bucket path), the pixels each particle reads;
+  E. one JSON line of kernel results with each kernel's bound on the
+     work its inputs need (the crop kernels per distinct stencil pixel:
+     the theta searches on the nonzero entries of M on bf16 tensor cores,
+     the tracked kernels on float32 outside them), each crop kernel's
+     bound also on the per-cell basis of earlier runs (2 (C + 1) FLOPs
+     per stencil cell, float32, the packed map read once), the largest
+     relative error of each theta search against its plain version, the
+     card's name and power limit, and the final {"ok": true, "device":
+     ...} line.
 """
 
 from __future__ import annotations
@@ -96,16 +105,20 @@ CROP_SRC = "top_down_renderer_torch/csrc/crop_score.cu"
 INIT_SRC = "top_down_renderer_torch/csrc/crop_score_init.cu"
 FILL_SRC = "top_down_renderer_torch/csrc/fill_rows.cu"
 # the kernels' names in a profile, at the drive map's 3 classes (the two
-# theta searches are one kernel at CP = 4 channels)
+# theta searches are one kernel at CP = 4 channels, the two tracked
+# kernels one at C = 3)
 SYMBOLS = {
-    "crop_score_tracked": "crop_score_kernel<3>",
+    "crop_fold": "crop_fold_kernel",
+    "crop_score_tracked": "crop_tracked_kernel<3>",
     "crop_score_init": "crop_init_kernel<4>",
-    "crop_score_multi_tracked": "crop_score_multi_kernel<3>",
+    "crop_score_multi_tracked": "crop_tracked_kernel<3>",
     "crop_score_multi_init": "crop_init_kernel<4>",
     "fill_rows": "fill_rows_kernel",
 }
 # name -> (source, the TPU kernel it replaces)
 KERNELS = {
+    # the tracked kernels' offset fold, launched by both tracked wrappers
+    "crop_fold": (CROP_SRC, "top_down_renderer_tpu/filter/pallas_score.py:693"),
     "crop_score_tracked": (
         CROP_SRC, "top_down_renderer_tpu/filter/pallas_score.py:693"),
     "crop_score_init": (
@@ -176,14 +189,23 @@ def max_rel(ref: torch.Tensor, got: torch.Tensor) -> float:
     return float(((got - ref).abs() / ref.abs().clamp(min=1e-9)).max())
 
 
+def same_bits(a, b) -> bool:
+    return all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+               for x, y in zip(a, b))
+
+
 def compare(label, errs, names, tracked, init, need_gated=False) -> None:
     """A tracked and a theta-search kernel against their plain versions:
     tracked / init are (kernel call, plain call) without arguments, names
-    their kernels'.  Folds the largest |err| of each into errs["abs"],
-    and the theta search's largest relative error into errs["rel"]."""
+    their kernels'.  The tracked kernel runs twice and must return the
+    same bits.  Folds the largest |err| of each into errs["abs"], and the
+    theta search's largest relative error into errs["rel"]."""
     num, den, kf = tracked[0]()
+    again = tracked[0]()
     rnum, rden, rkf = tracked[1]()
     torch.cuda.synchronize()
+    check(same_bits((num, den, kf), again),
+          f"{label}: the tracked kernel does not repeat bit for bit")
     check(torch.equal(kf, rkf), f"{label}: tracked kf differs")
     ok = rkf >= 0.5
     if need_gated:
@@ -212,9 +234,21 @@ def compare(label, errs, names, tracked, init, need_gated=False) -> None:
     errs["rel"][names[1]] = max(errs["rel"][names[1]], rel)
     errs["abs"][names[1]] = max(errs["abs"][names[1]],
                                 float((best - rbest)[fin].abs().max()))
-    log(f"[{label}] tracked and init agree (init argmin same on "
+    log(f"[{label}] tracked (repeats bit for bit) and init agree (init "
+        f"argmin same on "
         f"{same_k:.5f}, init best rel {rel:.3e}, kf-gated "
         f"{int((~ok).sum())})")
+
+
+def check_fold(label, off) -> None:
+    """The fold kernel against fold_offsets on the same offsets: equal."""
+    got = cs.fold_pixels(off)
+    want = cs.fold_offsets(off)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          f"{label}: the fold kernel differs from fold_offsets")
+    log(f"[{label}] fold kernel equals fold_offsets: distinct pixels "
+        f"{got[1].tolist()}")
 
 
 def crop_pair(args, theta, f):
@@ -222,7 +256,7 @@ def crop_pair(args, theta, f):
     args[0] is the map's CropMap, as the filter passes it."""
     maps, rest = args[0], args[1:]
     return (
-        (lambda: cs.score_tracked(maps.packed, *rest, theta, f),
+        (lambda: cs.score_tracked(maps, *rest, theta, f),
          lambda: cs.score_tracked_plain(maps.packed, *rest, theta, f)),
         (lambda: cs.score_init_sel(maps, *rest, f),
          lambda: cs.score_init_sel_plain(maps.packed, *rest, f)),
@@ -243,6 +277,7 @@ def multi_pair(args, theta, scale, slots, bmi):
 
 CROP = ("crop_score_tracked", "crop_score_init")
 MULTI = ("crop_score_multi_tracked", "crop_score_multi_init")
+FOLD = ("crop_fold",)  # launched by both tracked wrappers
 
 
 def phase_b(dev, errs):
@@ -260,8 +295,10 @@ def phase_b(dev, errs):
     theta = torch.as_tensor(d["state"]["particles"]["theta"], device=dev)
     args = (cs.CropMap(t["packed"]), C, t["stencil"], t["scan"], cw, ctr)
     for f in (1.0, 0.5):
+        check_fold(f"B f={f}", cs.crop_offsets(t["stencil"], f)[None])
         compare(f"B C={C} f={f}", errs, CROP, *crop_pair(args, theta, f),
                 need_gated=True)
+    errs["abs"]["crop_fold"] = 0.0
     init_ms = median_ms(lambda: cs.score_init_sel(*args, 1.0))
     log(f"[B] theta-search kernel at C={C}, f=1.0: {init_ms:.4f} ms")
     torch.cuda.synchronize()
@@ -296,6 +333,8 @@ def phase_b2(dev, errs, b_args, theta):
     ctr[6:10] = torch.tensor([[HW + 40.0, 500.0], [500.0, HW + 90.0],
                               [-60.0, 300.0], [300.0, -50.0]], device=dev)
     slots_t = torch.as_tensor(slots, device=dev)
+    mips_t, _ = pyr.bucket_tables(bmi)
+    check_fold("B2", ms.bucket_offsets(sten, slots_t, RES, mips_t))
     args = (pyr, C, sten, scan, cw, ctr)
     compare("B2 multi", errs, MULTI,
             *multi_pair(args, theta, scale, slots_t, bmi), need_gated=True)
@@ -303,7 +342,6 @@ def phase_b2(dev, errs, b_args, theta):
     tr = ms.score_tracked_multi(*args, theta, scale, slots_t, bmi, RES)
     ini = ms.score_init_multi_sel(*args, scale, slots_t, bmi, RES)
     bucket = ms.assign_buckets(scale, slots_t)
-    mips_t, _ = pyr.bucket_tables(bmi)
     f_eff = slots_t * torch.tensor(RES, device=dev) / mips_t
     for b in range(len(slots)):
         sel = bucket == b
@@ -312,7 +350,8 @@ def phase_b2(dev, errs, b_args, theta):
         level = pyr.level_map(bmi[b])
         mres = float(levels[bmi[b]])
         u_args = (level, C, sten, scan, cw, ctr[sel])
-        u_tr = cs.score_tracked(*u_args, theta[sel], f_eff[b], mres)
+        u_tr = cs.score_tracked(cs.CropMap(level), *u_args[1:], theta[sel],
+                                f_eff[b], mres)
         u_in = cs.score_init_sel(cs.CropMap(level), *u_args[1:], f_eff[b],
                                  40, mres)
         torch.cuda.synchronize()
@@ -569,11 +608,24 @@ def bound(ops: float, moved: float, peak: float = PEAK_F32_FLOPS):
 
 
 def crop_bound(maps, c, tr, shifts, inputs):
-    """Each search shift costs C + 1 FMAs per stencil cell (cost, norm);
-    the map and the per-particle inputs are read once, (N, 3) written."""
+    """The per-cell basis of earlier runs: each search shift costs C + 1
+    FMAs per stencil cell (cost, norm); the packed map and the
+    per-particle inputs are read once, (N, 3) written."""
     n = inputs[0].shape[0]
     return bound(2.0 * (c + 1) * tr * shifts * n,
                  nbytes(maps, *inputs) + n * 12)
+
+
+def pixel_bound(compact, c, npix, counts, inputs):
+    """The tracked kernels on the work their inputs need: C + 1 FMAs
+    (cost, norm) per distinct stencil pixel of the particle's bucket
+    (npix (K,) distinct pixels, counts (K,) particles per bucket), float32
+    outside the tensor cores; the compact map and the per-particle inputs
+    read once, (N, 3) written."""
+    n = int(counts.sum())
+    ops = 2.0 * (c + 1) * float((counts.double().cpu()
+                                 * npix.double().cpu()).sum())
+    return bound(ops, nbytes(compact, *inputs) + n * 12)
 
 
 def tc_bound(compact, c, shifts, npix, counts, inputs):
@@ -605,11 +657,12 @@ def phase_d(dev, pf, world, errs):
     own inputs (the 3-class drive map)."""
     scan = scan_at(world, 0, dev)
     cw = torch.tensor([0.1, 1.5, 3.0], device=dev)
-    f = torch.tensor(SCALE_GT * RES, device=dev)
     cmap = pf._get_map(1)
     maps = cmap.packed
-    sten = torch.as_tensor(pf.map.stencil, device=dev)
+    sten = pf._device_consts()[1]  # the filter's own: its fold is kept
     tr = sten.shape[0] * sten.shape[1]
+    f = SCALE_GT * RES  # a host number, as the filter passes it
+    one = torch.tensor([N])  # every particle in the one bucket
     out = {}
 
     # timed updates start at step 1: the GMM refit (every 10th update)
@@ -629,11 +682,10 @@ def phase_d(dev, pf, world, errs):
     out["crop_score_init"] = dict(
         timed("crop_score_init", *pair[1]),
         update_ms=median_ms(init_update),
-        bound=tc_bound(cmap.compact(3), 3, 40, npix, torch.tensor([N]),
-                       (ctr,)),
+        bound=tc_bound(cmap.compact(3), 3, 40, npix, one, (ctr,)),
         bound_f32=crop_bound(maps, 3, tr, 40, (ctr,)),
-        # the tracked kernel on the spread cloud: 2,500 cells of the
-        # 8-channel map per particle, not the theta search's gather
+        # the tracked kernel on the spread cloud: its tiles spread over
+        # all Th shifts, each folding the weights of its own
         tracked_spread_ms=kernel_ms(pair[0][0],
                                     SYMBOLS["crop_score_tracked"]),
         pixels=int(npix[0]),
@@ -653,10 +705,20 @@ def phase_d(dev, pf, world, errs):
         pf.update(scan, RES)
 
     pair = crop_pair(args, theta, f)
+    off = cs.crop_offsets(sten, f)[None]
+    check_fold("D", off)
+    pix_bytes = nbytes(*cs.fold_pixels(off))
+    out["crop_fold"] = dict(
+        timed("crop_fold", lambda: cs.fold_pixels(off),
+              lambda: cs.fold_offsets(off)),
+        bound=bound(0.0, nbytes(off) + pix_bytes),
+    )
     out["crop_score_tracked"] = dict(
         timed("crop_score_tracked", *pair[0]),
         update_ms=median_ms(tracked_update),
-        bound=crop_bound(maps, 3, tr, 1, (ctr, theta)),
+        bound=pixel_bound(cmap.compact(3), 3, npix, one, (ctr, theta)),
+        bound_cells=crop_bound(maps, 3, tr, 1, (ctr, theta)),
+        pixels=int(npix[0]),
     )
     compare("D clustered, C=3", errs, CROP, *pair)
     gmm_ms = median_ms(lambda: gmm_mod.compute_gmm(
@@ -699,23 +761,25 @@ def phase_d2(dev, world, errs):
 
         tracked = name == MULTI[0]
         inputs = (p.pose_px(), p.scale) + ((p.theta,) if tracked else ())
+        mips, _ = pyr.bucket_tables(plan.bmi)
+        npix = cs.fold_offsets(ms.bucket_offsets(sten, slots, RES, mips))[1]
+        counts = torch.bincount(ms.assign_buckets(p.scale, slots).long(),
+                                minlength=len(slots))
+        cells = crop_bound(pyr.flat, 3, tr, 1 if tracked else 40, inputs)
         out[name] = dict(
             timed(name, *pair[0 if tracked else 1]),
             update_ms=median_ms(update),
             host_ms=host_ms,
-            bound=crop_bound(pyr.flat, 3, tr, 1 if tracked else 40, inputs),
+            pixels=npix.tolist(),
         )
-        if not tracked:
-            mips, _ = pyr.bucket_tables(plan.bmi)
-            npix = cs.fold_offsets(ms.bucket_offsets(sten, slots, RES,
-                                                     mips))[1]
-            counts = torch.bincount(ms.assign_buckets(p.scale, slots).long(),
-                                    minlength=len(slots))
+        if tracked:
             out[name].update(
-                bound_f32=out[name]["bound"],
+                bound=pixel_bound(pyr.compact(3), 3, npix, counts, inputs),
+                bound_cells=cells)
+        else:
+            out[name].update(
                 bound=tc_bound(pyr.compact(3), 3, 40, npix, counts, inputs),
-                pixels=npix.tolist(),
-            )
+                bound_f32=cells)
         log(f"[D2] {name}: {plan.mode}, K {plan.kp}, mo {plan.mo}, levels "
             f"{plan.levels}; host part of the dispatch {host_ms:.4f} ms")
         compare(f"D2 {plan.mode}, C=3", errs, MULTI, *pair)
@@ -774,14 +838,15 @@ def main() -> int:
         got = {k: kernels.LAUNCHES[k] for k in names}
         log(f"[{label}] launches on its path: {got}")
         check(all(v > 0 for v in got.values()), got)
-        launches.update(got)
+        for k, v in got.items():  # the fold runs on both tracked paths
+            launches[k] = launches.get(k, 0) + v
         kernels.reset_launch_counts()
 
     kernels.reset_launch_counts()
     pf, world = phase_c(dev)
-    read_launches("C", CROP)
+    read_launches("C", CROP + FOLD)
     phase_c2(dev, world)
-    read_launches("C2", MULTI)
+    read_launches("C2", MULTI + FOLD)
     pf_fill = phase_c3(dev, world)
     read_launches("C3", ("fill_rows",))
 
@@ -793,11 +858,15 @@ def main() -> int:
     for name, t in times.items():
         extra = "".join(f", {k} {t[k]:.4f} ms"
                         for k in ("update_ms", "host_ms") if k in t)
+        if "pixels" in t:
+            extra += f", distinct pixels {t['pixels']}"
         if "bound_f32" in t:
             extra += (f", bound on float32 outside the tensor cores "
-                      f"{t['bound_f32'][0]:.4f} ms, distinct pixels "
-                      f"{t['pixels']}, largest rel err vs plain "
-                      f"{errs['rel'][name]:.3e}")
+                      f"{t['bound_f32'][0]:.4f} ms, largest rel err vs "
+                      f"plain {errs['rel'][name]:.3e}")
+        if "bound_cells" in t:
+            extra += (f", bound per stencil cell (the earlier basis) "
+                      f"{t['bound_cells'][0]:.4f} ms")
         if "tracked_spread_ms" in t:
             extra += (f", the tracked kernel on the spread cloud "
                       f"{t['tracked_spread_ms']:.4f} ms")
@@ -822,6 +891,8 @@ def main() -> int:
             "library_ms": times[name]["library_ms"],
             **({"bound_f32_ms": times[name]["bound_f32"][0],
                 "max_rel_err": errs["rel"][name]} if name in INIT else {}),
+            **({"bound_cells_ms": times[name]["bound_cells"][0]}
+               if "bound_cells" in times[name] else {}),
         }
         for name in KERNELS
     ]}

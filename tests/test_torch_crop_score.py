@@ -29,6 +29,7 @@ from top_down_renderer_tpu.filter.scoring import (
 from top_down_renderer_torch import kernels
 from top_down_renderer_torch.filter import crop_score as cs
 from top_down_renderer_torch.filter.filter import select_init_cost
+from top_down_renderer_torch.filter.scoring import rotation_shift
 from top_down_renderer_torch.maps.polar import polar_stencil
 
 from test_pallas_interpret import _check, _centers
@@ -156,7 +157,7 @@ def test_float_centres_tracked_vs_jax_kernel(float_world):
     packed, scan, centers, thetas, ref = float_world
     args = _t(packed, STENCIL, scan, CW, centers)
     num, den, kf = cs.score_tracked(
-        args[0], C, *args[1:], torch.as_tensor(thetas), F
+        cs.CropMap(args[0]), C, *args[1:], torch.as_tensor(thetas), F
     )
     rn, rd, rkf = ref["tracked"]
     _check(_ratio(rn, rd), _ratio(num, den), rkf, np_(kf), "tracked")
@@ -266,7 +267,8 @@ def test_cpu_wrapper_runs_plain_version_and_counts_nothing(world):
     packed, scan, centers, thetas, _, _ = world
     args = _t(packed, STENCIL, scan, CW, centers)
     kernels.reset_launch_counts()
-    got = cs.score_tracked(args[0], C, *args[1:], torch.as_tensor(thetas), F)
+    got = cs.score_tracked(cs.CropMap(args[0]), C, *args[1:],
+                           torch.as_tensor(thetas), F)
     ref = cs.score_tracked_plain(
         args[0], C, *args[1:], torch.as_tensor(thetas), F
     )
@@ -277,9 +279,7 @@ def test_cpu_wrapper_runs_plain_version_and_counts_nothing(world):
 
 @pytest.mark.parametrize("fn", ["score_tracked", "score_init_sel"])
 def test_wrapper_raises_off_cpu_and_cuda(fn):
-    meta = torch.zeros((16, 16, 8), device="meta")
-    if fn == "score_init_sel":
-        meta = cs.CropMap(meta)
+    meta = cs.CropMap(torch.zeros((16, 16, 8), device="meta"))
     args = [meta, C] + [torch.zeros(s, device="meta") for s in
                         ((TH, R, 2), (C, TH, R), (C,), (4, 2))]
     extra = [torch.zeros(4, device="meta")] if fn == "score_tracked" else []
@@ -314,27 +314,192 @@ def test_offsets_and_centres_follow_reference_rounding():
 
 def test_kernel_operand_checks():
     """What the CUDA wrapper accepts, checked on CPU tensors: strided
-    particle views (the resample's unpacked rows) are fine, a map the
-    kernel cannot read in place is refused."""
+    particle views (the resample's unpacked rows) and a strided packed map
+    are fine (the kernel reads the compact copy), a wrong dtype, channel
+    count or class count is refused."""
     packed, scan, rng = _world(4, 32, 32)
     rows = torch.as_tensor(rng.random((64, 8)).astype(np.float32)) * 30
     m, sten, sc, cw = _t(packed, STENCIL, scan, CW)
-    got = cs._kernel_inputs(m, C, sten, sc, cw, rows[:, 0:2], 0.5, 1.0)
-    h, w, c, th, r, n, wscan, ssum, off, ctr, inv_tr = got
-    assert (h, w, c, th, r, n) == (32, 32, C, TH, R, 64)
-    assert all(t.is_contiguous() for t in (wscan, ssum, off, ctr))
-    assert off.dtype == ctr.dtype == torch.int32
+    for mm in (m, m.transpose(0, 1)):
+        maps = cs.CropMap(mm)
+        compact, fold, ctr, shift = cs._tracked_inputs(
+            maps, C, sten, sc, cw, rows[:, 0:2], rows[:, 2], 0.5, 1.0)
+        assert compact is maps.compact(C) and compact.shape == (32, 32, 4)
+        assert fold is maps.fold(sten, 0.5)
+        assert fold[0].shape == (1, -(-TH * R // 16) * 16, 2)
+        assert ctr.shape == (64, 2)
+        assert fold[0].dtype == ctr.dtype == torch.int32
+        assert ctr.is_contiguous() and shift.shape == (64,)
+        assert (shift >= 0).all() and (shift < TH).all()
     bad = [
-        (m.double(), C, sc),  # dtype
-        (m.transpose(0, 1), C, sc),  # not contiguous
-        (m[..., :4].contiguous(), C, sc),  # channels != 8
-        (m, 4, sc),  # classes != scan classes
-        (m, 8, torch.ones((8, TH, R))),  # known channel would be 8
+        (m.double(), C, sc, rows[:, 2]),  # dtype
+        (m[..., :4].contiguous(), C, sc, rows[:, 2]),  # channels != 8
+        (m, 4, sc, rows[:, 2]),  # classes != scan classes
+        (m, 8, torch.ones((8, TH, R)), rows[:, 2]),  # known channel 8
+        (m, C, sc, rows[:5, 2]),  # one theta per particle
     ]
-    for mm, cc, ss in bad:
+    for mm, cc, ss, th in bad:
         with pytest.raises((ValueError, TypeError)):
-            cs._kernel_inputs(mm, cc, sten, ss, torch.ones(ss.shape[0]),
-                              rows[:, 0:2], 0.5, 1.0)
+            cs._tracked_inputs(cs.CropMap(mm), cc, sten, ss,
+                               torch.ones(ss.shape[0]), rows[:, 0:2], th,
+                               0.5, 1.0)
+
+
+# -- the tracked kernel's folded product -----------------------------------
+def _folded(packed, c, sten, scan, cw, centers, thetas, f):
+    """The tracked kernel's computation in plain PyTorch at one uniform
+    scale: the offsets folded to their distinct pixels, the weights at
+    every shift, each particle's window of those pixels on the compact
+    map."""
+    pix, _, order, seg = cs.fold_offsets(cs.crop_offsets(sten, f)[None])
+    w = cs.tracked_weights(scan, cw, order, seg)
+    h, wd = packed.shape[:2]
+    ctr = cs.crop_centers(centers, 1.0)
+    return cs.folded_scores(
+        cs.compact_map(packed, c).reshape(h * wd, -1),
+        torch.tensor([[0, h, wd, 0]]), ctr, pix, w,
+        torch.zeros(len(ctr), dtype=torch.int32),
+        rotation_shift(thetas, scan.shape[1]), c)
+
+
+@pytest.mark.parametrize("c,f", [(1, 1.0), (3, 0.5), (3, 1.0), (6, 0.37),
+                                 (7, 1.0)])
+def test_folded_product_equals_tracked_plain(c, f):
+    """fold_offsets, tracked_weights and folded_scores (the tracked
+    kernel's fold and product) equal the plain version: rel 1e-5, kf
+    bit-equal; every shift, thetas negative and over two turns, windows
+    across the map's edges and far outside it."""
+    rng = np.random.default_rng(int(f * 100) + c)
+    packed = np.zeros((64, 80, 8), np.float32)
+    packed[..., :c] = rng.random((64, 80, c)) * 50
+    packed[..., c] = (rng.random((64, 80)) < 0.9).astype(np.float32)
+    scan = (rng.random((c, TH, R)) * 3).astype(np.float32)
+    centers = rng.uniform(-20, 100, (160, 2)).astype(np.float32)
+    centers[:3] = [[0.0, 0.0], [79.0, 63.0], [-500.0, 30.0]]
+    thetas = (rng.random(160) * 4 * np.pi - np.pi).astype(np.float32)
+    thetas[:TH] = np.arange(TH) * np.float32(2 * math.pi / TH) - 2 * math.pi
+    cw = (0.5 + rng.random(c)).astype(np.float32)
+    args = _t(packed, STENCIL, scan, cw, centers, thetas)
+    assert len(set(rotation_shift(args[5], TH).tolist())) == TH
+    cost, norm, kf = cs.score_tracked_plain(args[0], c, *args[1:], f)
+    got = _folded(args[0], c, *args[1:], f)
+    np.testing.assert_array_equal(np_(got[2]), np_(kf))
+    assert_rel(np_(cost), np_(got[0]), 1e-5, "cost")
+    assert_rel(np_(norm), np_(got[1]), 1e-5, "norm")
+    assert (np_(kf) == 0).any() and (np_(kf) > 0.5).any()
+
+
+def test_folded_product_holds_the_jax_tracked_kernel_bounds(float_world):
+    """The tracked kernel's fold against the JAX tracked kernel
+    (interpret mode) on float centres, within
+    test_float_centres_tracked_vs_jax_kernel's bounds."""
+    packed, scan, centers, thetas, ref = float_world
+    args = _t(packed, STENCIL, scan, CW, centers, thetas)
+    num, den, kf = _folded(args[0], C, *args[1:], F)
+    rn, rd, rkf = ref["tracked"]
+    _check(_ratio(rn, rd), _ratio(num, den), rkf, np_(kf), "folded tracked")
+
+
+@pytest.mark.parametrize("fs", [(1.0,), (0.5, 1.0, 0.37, 0.96)])
+def test_fold_csr_covers_every_cell_once_in_order(fs):
+    """fold_offsets' CSR: every cell of every table on exactly one slot,
+    the slot of its own pixel in its own table, the cells of a slot in
+    increasing order, none on a padding slot; cell_slots reads the slot
+    of each CSR entry."""
+    off = cs.crop_offsets(torch.as_tensor(STENCIL),
+                          torch.tensor(fs)[:, None, None])
+    pix, npix, order, seg = cs.fold_offsets(off)
+    k, cap = pix.shape[:2]
+    tr = TH * R
+    for t in (pix, npix, order, seg):
+        assert t.dtype == torch.int32
+    slots = np_(cs.cell_slots(seg, k * tr))
+    order, seg = np_(order), np_(seg).astype(np.int64)
+    assert seg[0] == 0 and seg[-1] == k * tr
+    counts = np.diff(seg)
+    assert (counts >= 0).all()
+    np.testing.assert_array_equal(np.sort(order), np.arange(k * tr))
+    on = np.repeat(np.arange(k * cap), counts)  # slot of each CSR entry
+    np.testing.assert_array_equal(slots, on)
+    np.testing.assert_array_equal(on // cap, order // tr)
+    assert (np.diff(order)[on[1:] == on[:-1]] > 0).all()
+    np.testing.assert_array_equal(np_(pix).reshape(-1, 2)[on],
+                                  np_(off).reshape(-1, 2)[order])
+    per = counts.reshape(k, cap)
+    for b in range(k):
+        assert (per[b, : int(npix[b])] > 0).all()
+        assert (per[b, int(npix[b]):] == 0).all()
+
+
+def _walk_tracked_rows(skey, n):
+    """The tracked kernel's walk: block i takes sorted rows [i T, (i + 1)
+    T), T = TRACKED_TILE, and splits them into runs of one key, each
+    scored with its own weight fold; returns (key, rows) per run."""
+    runs = []
+    for row0 in range(0, n, cs.TRACKED_TILE):
+        rows = np.arange(row0, min(row0 + cs.TRACKED_TILE, n))
+        for part in np.split(rows, np.flatnonzero(np.diff(skey[rows])) + 1):
+            runs.append((int(skey[part[0]]), part))
+    return runs
+
+
+@pytest.mark.parametrize("case", ["one", "one_group", "all_shifts",
+                                  "1200_groups"])
+def test_tracked_schedule_covers_every_row_once(case):
+    """tracked_rows' order, walked as the tracked kernel walks it: each
+    particle in exactly one run, a run holds one group, and the weights
+    are folded at most N / TRACKED_TILE + (groups present) times: 1
+    particle, one group only, all Th shifts, 1,200 groups of which most
+    are empty."""
+    rng = np.random.default_rng(7)
+    key = {
+        "one": np.array([37]),
+        "one_group": np.full(300, 5),
+        "all_shifts": np.concatenate([np.arange(TH),
+                                      rng.integers(0, TH, 4000)]),
+        "1200_groups": rng.choice([0, 5, 64, 65, 299, 1199], 3000),
+    }[case]
+    skey, perm = (np_(x) for x in cs.tracked_rows(torch.as_tensor(key)))
+    assert skey.dtype == np.int32 and perm.dtype == np.int64
+    seen = np.zeros(len(key), int)
+    runs = _walk_tracked_rows(skey, len(key))
+    for g, rows in runs:
+        assert (key[perm[rows]] == g).all()
+        seen[perm[rows]] += 1
+    assert (seen == 1).all()
+    assert len(runs) <= -(-len(key) // cs.TRACKED_TILE) + len(set(key)) - 1
+
+
+def test_fold_pixels_on_the_cpu_is_fold_offsets():
+    """fold_pixels, the fold kernel's wrapper, runs fold_offsets on CPU
+    tensors and returns its (pix, npix, order, seg) as int32."""
+    off = cs.crop_offsets(torch.as_tensor(STENCIL),
+                          torch.tensor([0.5, 1.0])[:, None, None])
+    kernels.reset_launch_counts()
+    got = cs.fold_pixels(off)
+    pix, npix, order, seg = cs.fold_offsets(off)
+    for a, b in zip(got, (pix, npix, order, seg)):
+        assert a.dtype == torch.int32
+        np.testing.assert_array_equal(np_(a), np_(b))
+    assert sum(kernels.LAUNCHES.values()) == 0
+
+
+def test_tracked_rows_put_rows_back():
+    """tracked_rows' perm is a stable group-major order of the particles,
+    and writing row j's result to perm[j] (as the tracked kernel does)
+    puts every result back on its own particle."""
+    rng = np.random.default_rng(8)
+    key = rng.integers(0, 1200, 5000)
+    vals = rng.random(5000)
+    skey, perm = (np_(x) for x in cs.tracked_rows(torch.as_tensor(key)))
+    np.testing.assert_array_equal(np.sort(perm), np.arange(5000))
+    np.testing.assert_array_equal(skey, key[perm])
+    assert (np.diff(skey) >= 0).all()
+    assert (np.diff(perm)[np.diff(skey) == 0] > 0).all()  # stable
+    rows = vals[perm]  # row j scores particle perm[j]
+    back = np.empty(5000)
+    back[perm] = rows
+    np.testing.assert_array_equal(back, vals)
 
 
 # -- the theta-search kernel's product --------------------------------------
@@ -386,8 +551,8 @@ def test_init_m_window_product_equals_raw_rows(f, c, num_rot):
     m_, sten, sc, cwt, ctr_px = _t(packed, STENCIL, scan, cw, centers)
     nums, dens, kf = cs.score_init_raw_plain(m_, c, sten, sc, cwt, ctr_px,
                                              f, num_rot)
-    pix, npix, m = cs.init_m(sc, cwt, cs.crop_offsets(sten, f)[None],
-                             num_rot)
+    pix, npix, order, seg = cs.fold_pixels(cs.crop_offsets(sten, f)[None])
+    m = cs.init_m(sc, cwt, order, seg, num_rot)
     off = np_(cs.crop_offsets(sten, f))
     distinct = np.unique(off, axis=0)
     assert int(npix[0]) == len(distinct)
@@ -414,7 +579,8 @@ def test_init_operands_lay_out_m_in_core_matrix_chunks():
     scan = torch.as_tensor((rng.random((c, TH, R)) * 3).astype(np.float32))
     off = cs.crop_offsets(torch.as_tensor(STENCIL), torch.tensor(
         [[[0.5]], [[1.0]]]))  # two buckets
-    pix, npix, m = cs.init_m(scan, torch.ones(c), off, 40)
+    pix, npix, order, seg = cs.fold_pixels(off)
+    m = cs.init_m(scan, torch.ones(c), order, seg, 40)
     rec, nchunk = cs.init_operands(pix, npix, m)
     cp = cs.channel_pad(c)
     ppc = cs.K_CHUNK // cp
@@ -468,8 +634,8 @@ def test_split_arithmetic_holds_the_jax_kernel_bounds(float_world):
     kernel's bounds, and within rel 1e-4 of the plain version."""
     packed, scan, centers, _, ref = float_world
     args = _t(packed, STENCIL, scan, CW, centers)
-    pix, npix, m = cs.init_m(args[2], args[3],
-                             cs.crop_offsets(args[1], F)[None], 40)
+    pix, npix, order, seg = cs.fold_pixels(cs.crop_offsets(args[1], F)[None])
+    m = cs.init_m(args[2], args[3], order, seg, 40)
     a, mm = _window_rows(cs.compact_map(args[0], C),
                          cs.crop_centers(args[4], 1.0), pix[0], npix[0],
                          m[0])
@@ -507,3 +673,23 @@ def test_init_operand_checks():
         with pytest.raises((ValueError, TypeError)):
             cs.check_operands(*args)
     assert [cs.channel_pad(c) for c in range(1, 8)] == [2, 4, 4, 8, 8, 8, 8]
+
+
+def test_crop_map_keeps_the_fold_of_a_host_scale():
+    """CropMap.fold returns the kept fold again for the same stencil
+    tensor and number f, folds anew for another f or stencil, and on
+    every call for a tensor f; each is fold_offsets of the offsets."""
+    maps = cs.CropMap(torch.zeros((8, 8, 8)))
+    sten = torch.as_tensor(STENCIL)
+    first = maps.fold(sten, 0.5)
+    assert maps.fold(sten, np.float32(0.5)) is first
+    for f in (1.0, torch.tensor(1.0)):
+        got = maps.fold(sten, f)
+        assert got is not first
+        for a, b in zip(got, cs.fold_offsets(cs.crop_offsets(sten, 1.0)[None])):
+            np.testing.assert_array_equal(np_(a), np_(b))
+    assert maps.fold(sten, torch.tensor(1.0)) is not maps.fold(
+        sten, torch.tensor(1.0))
+    assert maps.fold(sten.clone(), 1.0) is not maps.fold(sten, 1.0)
+    for a, b in zip(first, cs.fold_offsets(cs.crop_offsets(sten, 0.5)[None])):
+        np.testing.assert_array_equal(np_(a), np_(b))

@@ -60,21 +60,98 @@ def _world(dev, c, seed, n=N):
             (packed, polar_stencil(TH, R), scan, cw, centers, thetas)]
 
 
+def _every_shift(thetas):
+    """The last TH thetas set to every shift 0..TH-1, a turn below zero."""
+    n = min(len(thetas), TH)
+    thetas[-n:] = (torch.arange(n, device=thetas.device)
+                   * (2 * np.pi / TH) - 2 * np.pi)
+    return thetas
+
+
+def _same_bits(a, b):
+    return all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+               for x, y in zip(a, b))
+
+
+def _check_tracked(got, ref, n):
+    np.testing.assert_array_equal(np_(got[2]), np_(ref[2]))
+    ok = np_(ref[2]) >= 0.5
+    if n > 7:  # edges and far-out centres come first
+        assert 0 < ok.sum() < n
+    for a, b, name in ((got[0], ref[0], "cost"), (got[1], ref[1], "norm")):
+        assert_rel(np_(b)[ok], np_(a)[ok], 1e-4, name)
+    cost = np.where(np_(got[2]) < 0.5, np.nan, np_(got[0]) / np_(got[1]))
+    rcost = np.where(np_(ref[2]) < 0.5, np.nan, np_(ref[0]) / np_(ref[1]))
+    np.testing.assert_array_equal(np.isnan(cost), np.isnan(rcost))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,f", [(3, 0.5), (3, 1.0), (6, 1.0), (7, 0.37)])
-def test_tracked_kernel_matches_plain(dev, c, f):
-    packed, sten, scan, cw, centers, thetas = _world(dev, c, 1)
+@pytest.mark.parametrize("th,r,fs", [
+    (TH, R, (1.0,)), (TH, R, (0.5,)), (TH, R, (0.37, 0.5, 1.0)),
+    (64, 20, (0.05, 2.0)), (100, 50, (1.0,)), (7, 3, (1.0,)),
+])
+def test_fold_kernel_matches_fold_offsets(dev, th, r, fs):
+    """The fold kernel (one block per offset table, a bitonic sort in
+    shared memory) returns fold_offsets' distinct pixels and cell CSR
+    exactly: one and three tables, 21 to 5,000 cells (sorts of 32 to
+    8,192 keys), offsets near zero and out to 99 px."""
+    sten = torch.as_tensor(polar_stencil(th, r), device=dev)
+    off = cs.crop_offsets(sten, torch.tensor(fs, device=dev)[:, None, None])
+    before = kernels.LAUNCHES["crop_fold"]
+    got = cs.fold_pixels(off)
+    pix, npix, order, seg = cs.fold_offsets(off)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["crop_fold"] == before + 1
+    for a, b in zip(got, (pix, npix, order, seg)):
+        assert a.dtype == torch.int32
+        assert torch.equal(a, b.to(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,f,n", [
+    (3, 0.5, N), (3, 1.0, N), (6, 1.0, N), (7, 0.37, N),
+    (1, 1.0, 1), (2, 0.5, 127), (4, 1.0, 129), (5, 0.5, 193),
+    (3, 1.0, 102_400), (7, 0.5, 102_400), (1, 0.5, 102_400),
+])
+def test_tracked_kernel_matches_plain(dev, c, f, n):
+    """The tracked kernel against its plain version: 1 to 7 classes, mo
+    12 and 24 (f 0.5 and 1.0), tile edges (1, 127, 129, 193 and 102,400
+    particles), every shift (thetas negative and over two turns), centres
+    at the edges and far out; a second call returns the same bits."""
+    packed, sten, scan, cw, centers, thetas = _world(dev, c, 1, n)
+    thetas = _every_shift(thetas)
+    maps = cs.CropMap(packed)
     before = kernels.LAUNCHES["crop_score_tracked"]
-    got = cs.score_tracked(packed, c, sten, scan, cw, centers, thetas, f)
+    got = cs.score_tracked(maps, c, sten, scan, cw, centers, thetas, f)
+    again = cs.score_tracked(maps, c, sten, scan, cw, centers, thetas, f)
     ref = cs.score_tracked_plain(packed, c, sten, scan, cw, centers,
                                  thetas, f)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["crop_score_tracked"] == before + 1
-    np.testing.assert_array_equal(np_(got[2]), np_(ref[2]))
-    ok = np_(ref[2]) >= 0.5
-    assert 0 < ok.sum() < N
-    for a, b, name in ((got[0], ref[0], "cost"), (got[1], ref[1], "norm")):
-        assert_rel(np_(b)[ok], np_(a)[ok], 1e-4, name)
+    assert kernels.LAUNCHES["crop_score_tracked"] == before + 2
+    assert _same_bits(got, again)
+    _check_tracked(got, ref, n)
+
+
+@pytest.mark.cuda
+def test_crop_map_folds_the_stencil_once_per_host_scale(dev):
+    """With f as a number the CropMap keeps the stencil's fold: two
+    tracked calls and a theta search launch the fold kernel once, and
+    score as with f as a card tensor, which is folded on every call."""
+    packed, sten, scan, cw, centers, thetas = _world(dev, 3, 4)
+    maps = cs.CropMap(packed)
+    before = kernels.LAUNCHES["crop_fold"]
+    got = [cs.score_tracked(maps, 3, sten, scan, cw, centers, thetas, 0.5)
+           for _ in range(2)]
+    best = cs.score_init_sel(maps, 3, sten, scan, cw, centers, 0.5)
+    assert kernels.LAUNCHES["crop_fold"] == before + 1
+    f = torch.tensor(0.5, device=dev)
+    ref = cs.score_tracked(maps, 3, sten, scan, cw, centers, thetas, f)
+    rbest = cs.score_init_sel(maps, 3, sten, scan, cw, centers, f)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["crop_fold"] == before + 3
+    assert _same_bits(got[0], got[1]) and _same_bits(got[0], ref)
+    assert torch.equal(best[1], rbest[1]) and torch.equal(best[2], rbest[2])
+    assert_rel(np_(rbest[0]), np_(best[0]), 1e-6, "best cost")
 
 
 @pytest.mark.cuda
@@ -110,7 +187,7 @@ def test_wrapper_refuses_what_the_kernel_cannot_take(dev):
     packed, sten, scan, cw, centers, thetas = _world(dev, 3, 3)
     big = torch.ones((7, 300, 100), device=dev)  # 1.2 MB of shared memory
     with pytest.raises(ValueError, match="shared memory"):
-        cs.score_tracked(torch.zeros((H, W, 8), device=dev), 7,
+        cs.score_tracked(cs.CropMap(torch.zeros((H, W, 8), device=dev)), 7,
                          torch.zeros((300, 100, 2), device=dev), big,
                          torch.ones(7, device=dev), centers[:4],
                          torch.zeros(4, device=dev), 0.5)
@@ -118,8 +195,8 @@ def test_wrapper_refuses_what_the_kernel_cannot_take(dev):
         cs.score_init_sel(cs.CropMap(packed), 3, sten, scan, cw, centers,
                           0.5, 41)
     with pytest.raises(ValueError, match="is on"):
-        cs.score_tracked(packed, 3, sten.cpu(), scan, cw, centers, thetas,
-                         0.5)
+        cs.score_tracked(cs.CropMap(packed), 3, sten.cpu(), scan, cw, centers,
+                         thetas, 0.5)
 
 
 @pytest.mark.cuda
@@ -149,24 +226,24 @@ def test_crop_step_on_card_matches_cpu(dev, mode):
     assert_rel(np_(cpu.ml_state), np_(gpu.ml_state), 1e-5, "ml_state")
 
 
-def _multi_world(dev, c, k, seed, n=N, single=False):
-    """The uniform world's map as a pyramid, with K buckets: K = 2 is
-    test_multiscale's (scales 0.5 and 1.0 at res 1, mips 1 and 2), K = 10
-    the reference's init hypotheses 10^{k/10} at res 0.5 with the mips the
-    dispatch gives them.  Scales sit within 2 % of their slot; `single`
-    leaves bucket 0 one particle."""
+def _multi_world(dev, c, k, seed, n=N, single=False, mo=ms.MO_MULTI):
+    """The uniform world's map as a pyramid, with K buckets: K = 1 one
+    scale 0.5 at res 1, K = 2 test_multiscale's (scales 0.5 and 1.0 at res
+    1, mips 1 and 2), K = 10 the reference's init hypotheses 10^{k/10} at
+    res 0.5 with the mips the dispatch gives them at crop bucket mo.
+    Scales sit within 2 % of their slot; `single` leaves bucket 0 one
+    particle."""
     packed, sten, scan, cw, centers, thetas = _world(dev, c, seed, n)
-    if k == 2:
-        slots, res = np.array([0.5, 1.0], np.float32), 1.0
+    if k <= 2:
+        slots, res = np.array([0.5, 1.0][:k], np.float32), 1.0
     else:
         slots = (10.0 ** (np.arange(10) / 10.0)).astype(np.float32)
         res = 0.5
-    mips = ms.bucket_mips(slots.copy(), ms.SCALE_RTOL, ms.MO_MULTI, R, res,
-                          10.0)
+    mips = ms.bucket_mips(slots.copy(), ms.SCALE_RTOL, mo, R, res, 10.0)
     levels = tuple(sorted(set(mips)))
     bmi = tuple(levels.index(m) for m in mips)
     rng = np.random.default_rng(seed)
-    pick = rng.integers(1 if single else 0, k, n)
+    pick = rng.integers(1 if single and k > 1 else 0, k, n)
     if single:
         pick[n // 2] = 0
     scale = slots[pick] * (1.0 + 0.02 * (rng.random(n) - 0.5))
@@ -177,20 +254,34 @@ def _multi_world(dev, c, k, seed, n=N, single=False):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [3, 6, 7])
-@pytest.mark.parametrize("k", [2, 10])
-def test_multi_tracked_kernel_matches_plain(dev, c, k):
-    args, thetas, tail = _multi_world(dev, c, k, 4)
+@pytest.mark.parametrize("c,k,n,single,mo", [
+    (3, 2, N, False, 12), (6, 2, N, False, 12), (7, 2, N, False, 12),
+    (3, 10, N, False, 12), (6, 10, N, False, 12), (7, 10, N, False, 12),
+    (1, 1, 1, False, 12), (2, 1, 127, False, 24), (4, 2, 129, True, 12),
+    (5, 10, 193, True, 24), (3, 10, 102_400, False, 12),
+    (7, 12, 102_400, True, 24), (1, 10, 102_400, True, 12),
+])
+def test_multi_tracked_kernel_matches_plain(dev, c, k, n, single, mo):
+    """The K-bucket tracked kernel against its plain version: 1 to 7
+    classes, K = 1, 2, 10 and 12 (10 hypotheses and two padded copies of
+    the last, as the dispatch pads them), mo 12 and 24, a bucket (and so
+    a group) of one particle, every shift, windows across a level's edges
+    and far out; a second call returns the same bits."""
+    kk = min(k, 10)
+    args, thetas, tail = _multi_world(dev, c, kk, 4, n, single, mo)
+    if k > kk:  # padded slots: copies of the last, never nearest
+        scale, slots, bmi, res = tail
+        slots = torch.cat([slots, slots[-1:].repeat(k - kk)])
+        tail = (scale, slots, bmi + (bmi[-1],) * (k - kk), res)
+    thetas = _every_shift(thetas)
     before = kernels.LAUNCHES["crop_score_multi_tracked"]
     got = ms.score_tracked_multi(*args, thetas, *tail)
+    again = ms.score_tracked_multi(*args, thetas, *tail)
     ref = ms.score_tracked_multi_plain(*args, thetas, *tail)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["crop_score_multi_tracked"] == before + 1
-    np.testing.assert_array_equal(np_(got[2]), np_(ref[2]))
-    ok = np_(ref[2]) >= 0.5
-    assert 0 < ok.sum() < N
-    for a, b, name in ((got[0], ref[0], "cost"), (got[1], ref[1], "norm")):
-        assert_rel(np_(b)[ok], np_(a)[ok], 1e-4, name)
+    assert kernels.LAUNCHES["crop_score_multi_tracked"] == before + 2
+    assert _same_bits(got, again)
+    _check_tracked(got, ref, n)
 
 
 @pytest.mark.cuda

@@ -372,3 +372,26 @@ def test_state_round_trip():
     for k, v in tree["gmm"].items():
         np.testing.assert_array_equal(back["gmm"][k], v, k)
     assert back["step"] == int(tree["step"])
+
+
+@pytest.mark.parametrize("mode,mip", [("tracked", 1), ("init", 1),
+                                      ("mixed", 2)])
+def test_crop_step_with_host_scale_equals_the_card_scale(mode, mip):
+    """Given the dispatch's host scale, the crop step computes f in the
+    same float32 steps as from particle 0's scale on the card, so the
+    step's result is the same bit for bit."""
+    _, d, params = _setups(mode != "init", cluster=False, integer=True)
+    if mode == "mixed":
+        d["state"]["particles"]["have_init"][:] = np.arange(N) % 3 == 0
+    step_t = ft.make_update_step_fast(params, 3, 1.0, 100, N, mode,
+                                      gmm_every=1, mip=mip)
+    packed, *rest = (torch.as_tensor(d[k]) for k in
+                     ("packed", "map_size", "stencil", "scan"))
+    maps = cs.CropMap(cs.mip_map(packed, mip))
+    outs = [filter_state_to_numpy(step_t(
+        filter_state_from_numpy(d["state"]), maps, *rest, 0.5, *scale,
+        shift=0.25)) for scale in ((), (params.fixed_scale,))]
+    for k, v in outs[0]["particles"].items():
+        np.testing.assert_array_equal(outs[1]["particles"][k], v, k)
+    for k in ("n_active", "ml_state", "bbox", "smask"):
+        np.testing.assert_array_equal(outs[1][k], outs[0][k], k)

@@ -44,9 +44,20 @@ def test_edt_matches_jax_and_scipy(seed, trunc):
     present[3, 5] = True
     ours = np_(edt_t.edt(torch.as_tensor(present), trunc))
     ref_j = np.asarray(edt_jax(jnp.asarray(present), trunc_px=trunc))
-    np.testing.assert_allclose(ours, ref_j, rtol=0, atol=1e-5)
     oracle = np.minimum(distance_transform_edt(~present), float(trunc))
-    np.testing.assert_allclose(ours, oracle, atol=1e-4)
+    # The port is exact in any process: every step before the square root
+    # is integer arithmetic in float32 (row indices, their cummax, squares
+    # and sums below 2 T^2), and torch's sqrt rounds correctly.
+    np.testing.assert_allclose(ours, oracle, rtol=0, atol=1e-5)
+    # The reference is exact in a fresh process too, but not in every one:
+    # in a whole-suite run its compiled edt differed from the port on
+    # 48.5 % of the pixels, by up to rel 3.0e-4, the size of a 12-bit
+    # reciprocal square-root estimate's error (at most 1.5 * 2^-12 =
+    # 3.7e-4), which the port's exact arithmetic cannot make.  So JAX is
+    # held to that bound against scipy, and the port is held to JAX
+    # through scipy: within 1e-5 + JAX's own error there.
+    err_j = np.abs(ref_j - oracle)
+    assert (err_j <= 3.7e-4 * oracle + 1e-5).all()
 
 
 @pytest.mark.parametrize("resolution,trunc_m", [(1.0, 50.0), (2.0, 20.0)])

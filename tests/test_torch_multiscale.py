@@ -29,6 +29,7 @@ from top_down_renderer_torch.filter import multiscale as ms
 from top_down_renderer_torch.filter.filter import MultiDispatch
 from top_down_renderer_torch.filter.filter import ParticleFilter as PFT
 from top_down_renderer_torch.filter.resample import pack_fields
+from top_down_renderer_torch.filter.scoring import rotation_shift
 from top_down_renderer_torch.maps.map import TopDownMap
 from top_down_renderer_torch.maps.polar import polar_stencil
 
@@ -314,21 +315,28 @@ def test_level_bounds_read_zeros_not_the_next_level():
 def test_kernel_operand_checks(world):
     """What the CUDA wrapper derives and refuses, checked on CPU tensors."""
     t, _ = world
-    got = ms._kernel_inputs(*_args(t), t["scale"], t["slots"], BMI, 1.0, 1.0)
-    k, c, th, r, n, table, wscan, ssum, off, bucket, ctr, _ = got
-    assert (k, c, th, r, n) == (2, C, 100, 25, 96)
-    assert table.dtype == off.dtype == bucket.dtype == ctr.dtype == (
-        torch.int32)
-    assert tuple(off.shape) == (2, 2500, 2) and tuple(table.shape) == (2, 4)
-    assert all(x.is_contiguous() for x in (table, wscan, ssum, off, bucket,
-                                           ctr))
+    th = t["thetas"]
+    got = ms._tracked_inputs(*_args(t), th, t["scale"], t["slots"], BMI,
+                             1.0, 1.0)
+    compact, table, fold, ctr, key = got
+    assert compact is t["pyr"].compact(C)
+    assert compact.shape == (256 * 256 + 128 * 128, 4)
+    pix = fold[0]
+    assert table.dtype == pix.dtype == ctr.dtype == torch.int32
+    assert tuple(pix.shape) == (2, 2512, 2) and tuple(table.shape) == (2, 4)
+    assert all(x.is_contiguous() for x in (table, pix, ctr))
     assert table.tolist() == [[0, 256, 256, 0], [65536, 128, 128, 0]]
+    bucket = ms.assign_buckets(t["scale"], t["slots"]).long()
+    assert torch.equal(key, bucket * 100 + rotation_shift(th, 100))
     with pytest.raises(ValueError, match="buckets"):
-        ms._kernel_inputs(*_args(t), t["scale"], torch.ones(13),
-                          tuple(range(13)), 1.0, 1.0)
+        ms._tracked_inputs(*_args(t), th, t["scale"], torch.ones(13),
+                           tuple(range(13)), 1.0, 1.0)
     with pytest.raises((ValueError, TypeError)):
-        ms._kernel_inputs(*_args(t), t["scale"].double(), t["slots"], BMI,
-                          1.0, 1.0)
+        ms._tracked_inputs(*_args(t), th, t["scale"].double(), t["slots"],
+                           BMI, 1.0, 1.0)
+    with pytest.raises(ValueError, match="theta"):
+        ms._tracked_inputs(*_args(t), th[:3], t["scale"], t["slots"], BMI,
+                           1.0, 1.0)
 
 
 @pytest.mark.parametrize("fn", ["score_tracked_multi", "score_init_multi_sel"])
@@ -480,7 +488,8 @@ def _bucket_rows_product(pyr, c, sten, scan, cw, ctr_px, scale, slots, bmi,
 
     bucket, off, ctr, table = ms._prepare(pyr, sten, ctr_px, scale, slots,
                                           bmi, res, 1.0)
-    pix, npix, m = cs.init_m(scan, cw, off, num_rot)
+    pix, npix, order, seg = cs.fold_pixels(off)
+    m = cs.init_m(scan, cw, order, seg, num_rot)
     perm, row_start = ms.bucket_rows(bucket, len(bmi))
     acc = torch.zeros((len(ctr), cs.M_COLS))
     for b in range(len(bmi)):
@@ -492,14 +501,11 @@ def _bucket_rows_product(pyr, c, sten, scan, cw, ctr_px, scale, slots, bmi,
     return _rows_of(acc, num_rot, scan.shape[1] * scan.shape[2])
 
 
-@pytest.mark.parametrize("c", [1, 3, 6])
-@pytest.mark.parametrize("num_rot", [7, 40])
-@pytest.mark.parametrize("k", [2, 10])
-def test_init_m_per_bucket_equals_raw_rows(k, num_rot, c):
-    """Per bucket, window @ M_b (float32) is the plain version's raw rows
-    (rel 1e-5, kf bit-equal): K = 2 (mips 1 and 2) and the 10 init
-    hypotheses on the levels the dispatch gives them, windows across a
-    level's edges and outside it included, and a bucket of one particle."""
+def _bucket_case(k, c):
+    """K = 2 (mips 1 and 2) or the 10 init hypotheses on the levels the
+    dispatch gives them, with windows across a level's edges and outside
+    it, and a bucket of one particle: (pyr, tensors (stencil, scan, cw,
+    centres, scale, slots), bmi, res, rng)."""
     rng = np.random.default_rng(10 * k + c)
     packed = np.zeros((96, 112, 8), np.float32)
     packed[..., :c] = rng.random((96, 112, c)) * 50
@@ -524,6 +530,18 @@ def test_init_m_per_bucket_equals_raw_rows(k, num_rot, c):
     pyr = ms.build_pyramid_maps(torch.as_tensor(packed), levels)
     t = [torch.as_tensor(a) for a in (polar_stencil(100, 25), scan, cw,
                                       centers, scale, slots)]
+    return pyr, t, bmi, res, rng
+
+
+@pytest.mark.parametrize("c", [1, 3, 6])
+@pytest.mark.parametrize("num_rot", [7, 40])
+@pytest.mark.parametrize("k", [2, 10])
+def test_init_m_per_bucket_equals_raw_rows(k, num_rot, c):
+    """Per bucket, window @ M_b (float32) is the plain version's raw rows
+    (rel 1e-5, kf bit-equal): K = 2 (mips 1 and 2) and the 10 init
+    hypotheses on the levels the dispatch gives them, windows across a
+    level's edges and outside it included, and a bucket of one particle."""
+    pyr, t, bmi, res, _ = _bucket_case(k, c)
     args = (pyr, c, *t[:4], t[4], t[5], bmi, res, num_rot)
     nums, dens, kf = ms.score_init_multi_raw_plain(*args)
     assert int((ms.assign_buckets(t[4], t[5]) == 0).sum()) == 1
@@ -562,3 +580,51 @@ def test_split_arithmetic_holds_the_jax_kernel_bounds(world):
     fin = np_(pbest) < cs.FLT_MAX
     assert_rel(np_(pbest)[fin], np_(best)[fin], 1e-4, "split vs plain")
     assert np.mean(np_(k) == np_(pk)) >= 0.999
+
+
+# -- the tracked kernel's folded product, per bucket ----------------------
+def _folded_multi(pyr, c, sten, scan, cw, ctr_px, thetas, scale, slots, bmi,
+                  res):
+    """The K-bucket tracked kernel's computation in plain PyTorch: the
+    offsets folded per bucket, the weights at every shift, each particle's
+    window of its bucket's distinct pixels on its level of the compact
+    pyramid."""
+    bucket, off, ctr, table = ms._prepare(pyr, sten, ctr_px, scale, slots,
+                                          bmi, res, 1.0)
+    pix, _, order, seg = cs.fold_offsets(off)
+    w = cs.tracked_weights(scan, cw, order, seg)
+    return cs.folded_scores(pyr.compact(c), table, ctr, pix, w, bucket,
+                            rotation_shift(thetas, scan.shape[1]), c)
+
+
+@pytest.mark.parametrize("c", [1, 3, 6])
+@pytest.mark.parametrize("k", [2, 10])
+def test_folded_product_per_bucket_equals_tracked_plain(k, c):
+    """The tracked kernel's fold per bucket (fold_offsets, tracked_weights,
+    folded_scores) is the plain version (rel 1e-5, kf bit-equal), at
+    every shift (thetas negative and over two turns), on both bucket
+    sets of _bucket_case."""
+    pyr, t, bmi, res, rng = _bucket_case(k, c)
+    n = len(t[3])
+    thetas = torch.as_tensor(
+        (rng.random(n) * 4 * np.pi - np.pi).astype(np.float32))
+    thetas[:100] = torch.arange(100) * (2 * math.pi / 100) - 2 * math.pi
+    assert len(set(rotation_shift(thetas, 100).tolist())) == 100
+    cost, norm, kf = ms.score_tracked_multi_plain(
+        pyr, c, *t[:4], thetas, t[4], t[5], bmi, res)
+    got = _folded_multi(pyr, c, *t[:4], thetas, t[4], t[5], bmi, res)
+    np.testing.assert_array_equal(np_(got[2]), np_(kf))
+    assert_rel(np_(cost), np_(got[0]), 1e-5, "cost")
+    assert_rel(np_(norm), np_(got[1]), 1e-5, "norm")
+    assert (np_(kf) == 0).any() and (np_(kf) > 0.5).any()
+
+
+def test_folded_product_holds_the_jax_tracked_kernel_bounds(world):
+    """The K-bucket tracked kernel's fold against the JAX multi tracked
+    kernel (interpret mode) within test_plain_tracked_vs_jax_kernel's
+    bounds."""
+    t, ref = world
+    num, den, kf = _folded_multi(*_args(t), t["thetas"], t["scale"],
+                                 t["slots"], BMI, 1.0)
+    rn, rd, rkf = ref["tracked"]
+    _check(_ratio(rn, rd), _ratio(num, den), rkf, np_(kf), "folded tracked")

@@ -3,44 +3,51 @@
 //
 // Replaces: top_down_renderer_tpu/filter/pallas_score.py::_kernel (launched
 // by _run_kernel) with its `sel` (tracked) epilogue, as called by
-// pallas_score.py for one uniform scale and by filter/multiscale.py's
-// make_score_tracked_multi for K buckets.  The TPU kernel DMAs an int8 crop
-// of the map around every particle and contracts it with a hi/lo int8 table
-// M (the stencil -> pixel one-hot folded through the rolled-scan circulant)
-// on the MXU; the multi variant picks a per-bucket M and a pyramid row
-// offset per tile.  Here nothing of that layout is carried over: a warp
-// walks the Th*R stencil cells of one particle, reads each cell's 8 packed
-// channels (two 16-byte loads of the float32 map), and folds them with the
-// weighted scan held in shared memory at the particle's own shift s:
+// pallas_score.py for one uniform scale (make_score_tracked) and by
+// filter/multiscale.py's make_score_tracked_multi for K buckets.  The TPU
+// kernel sorts the particles into shift groups of 16, DMAs an int8 crop of
+// the map around every particle and contracts it on the MXU with the
+// group's 16-column M (the stencil -> pixel one-hot folded through the
+// rolled-scan circulant), keeping each particle's own column.  On Hopper a
+// 16-column product that keeps one column would waste 15/16 of the tensor
+// work, so none of that layout is carried over.  The contract:
 //
 //   cost = sum_{t,r,c} 0.01 w_c scan_c[(t+s) % Th, r] * map_c(cell)
 //   norm = sum_{t,r} (sum_c scan_c)[(t+s) % Th, r] * known(cell)
 //   kf   = sum known / (Th R)
 //
-// (The theta search over 40 shifts is csrc/crop_score_init.cu, on tensor
-// cores.)
+// for particle p at its own shift s, cell (t, r) at centre + off[t, r]
+// (zero outside the map or the bucket's pyramid level).  (The theta search
+// over 40 shifts is csrc/crop_score_init.cu, on tensor cores.)
 //
-// Uniform scale: every particle shares the offsets off = round(stencil * f),
-// staged in shared memory.  K buckets: particle p in bucket b reads bucket
-// b's offsets (a (K, Th*R) int2 table, at most 240 KB, read through __ldg
-// from L2 so that shared memory holds only the scan tables) on bucket b's
-// pyramid level, whose pixel offset, H and W come from a (K, 4) table.  The
-// bounds test is against that level's own H and W: a window that leaves its
-// level reads zeros and never another level's pixels.
-//
-// Bound on an H100: a gather: Th*R random 32-byte pixel reads per particle
-// (80 KB at 100x25), from a map that fits the 50 MB L2 (1024^2 x 8 x 4 B =
-// 32 MB; the 1/2/4/8 pyramid 42.5 MB), against 7 FMAs per cell.  The
-// design: the weighted scan and the scan's class sum live in shared memory,
-// laid out class-major so the 32 lanes of a warp, which hold 32 consecutive
-// cells, read 32 consecutive words; a grid of at most a few blocks per SM
-// walks the particles so the shared tables are staged once per block.
+// Bound on an H100: the gather from L2.  The Th*R = 2,500 stencil cells
+// land on far fewer distinct pixels (1,577 at f = 1; 197-489 per bucket at
+// mo 12), and the score reads only C + 1 of the packed map's 8 channels.
+// The design reads each distinct pixel once, from the compact map (C
+// classes and the known channel in CP = 2, 4 or 8 floats: one 16-byte load
+// at C <= 3):
+//   - crop_fold_kernel folds each offset table to its distinct pixels,
+//     row-major, with the CSR of each pixel's stencil cells (one block per
+//     table: a bitonic sort of (dy, dx, cell) keys in shared memory, then a
+//     block scan), the result of crop_score.fold_offsets in one launch;
+//   - the wrapper sorts the particles by group = bucket * Th + shift (one
+//     stable device sort); block i of the tracked kernel takes sorted rows
+//     [i kTile, (i + 1) kTile) and walks them run by run, one group a run;
+//   - for each run the block folds the weights of its shift into W[u] = (C
+//     cost weights, one norm weight, the cell count) in shared memory, each
+//     pixel's cells summed in the CSR's order, from scan tables staged once
+//     a block: no atomics, so a call repeats bit for bit;
+//   - each warp scores one particle at a time: its lanes take consecutive
+//     distinct pixels (neighbours along a map row, so the loads coalesce),
+//     C + 2 FMAs a pixel, then a fixed butterfly sum, and the row goes back
+//     to its particle through the sort's permutation.
+// kf is an integer count of known cells times 1/(Th R), exact as in the
+// plain version.
 //
 // Contract (equal to the plain versions in filter/crop_score.py and
-// filter/multiscale.py up to float summation order): maps are (H, W, 8)
-// float32 with class distances in channels [0, C) and the known indicator in
-// channel C; samples outside the map (level) read 0.  centers are (cy, cx)
-// int32, off (dy, dx) int32, shifts in any integer range (reduced mod Th).
+// filter/multiscale.py up to float summation order): the compact map is
+// (pixels, CP) float32, classes in channels [0, C), known in channel C;
+// centers are (cy, cx) int32, pixel offsets (dy, dx) int32.
 
 #include <cuda_runtime.h>
 
@@ -49,14 +56,13 @@
 
 namespace {
 
-constexpr int kWarps = 8;
+constexpr int kWarps = 16;
 constexpr int kThreads = kWarps * 32;
+constexpr int kTile = 64;  // particles per block: TRACKED_TILE
 constexpr int kMaxBuckets = 12;
-
-__device__ __forceinline__ int pmod(int a, int m) {
-  const int r = a % m;  // C++ % truncates; shifts may be negative
-  return r < 0 ? r + m : r;
-}
+constexpr int kFoldThreads = 1024;  // one block per offset table
+constexpr int kPad = 1 << 29;       // (dy, dx) of a padding pixel: PAD_PIX
+constexpr int kCellBits = 20;       // cells per table < 2^20
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -64,208 +70,281 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Offsets staged in shared memory (uniform scale) or read from L2 (buckets).
-struct SharedOff {
-  const int2* p;
-  __device__ __forceinline__ int2 operator()(int i) const { return p[i]; }
-};
-struct GlobalOff {
-  const int2* __restrict__ p;
-  __device__ __forceinline__ int2 operator()(int i) const {
-    return __ldg(p + i);
-  }
-};
-
-// The scan tables every crop kernel stages: the weighted scan (C, Th*R) and
-// the class sum (Th*R).
+// channels per pixel of the compact map at C classes (channel_pad)
 template <int C>
-__device__ __forceinline__ void stage_scan(float* s_ws, float* s_ss,
-                                           const float* __restrict__ wscan,
-                                           const float* __restrict__ ssum,
-                                           int TR) {
-  for (int i = threadIdx.x; i < TR; i += kThreads) s_ss[i] = ssum[i];
-  for (int i = threadIdx.x; i < C * TR; i += kThreads) s_ws[i] = wscan[i];
-}
+struct Pixel {
+  static constexpr int CP = C + 1 <= 2 ? 2 : (C + 1 <= 4 ? 4 : 8);
+};
 
-// One particle, scored by one warp: the lane-strided walk over the Th*R
-// cells of its window centred at ctr on `map` (H, W) at shift `own` * R,
-// the warp sums, and lane 0's (cost, norm, kf) into o3.
-template <int C, typename Off>
-__device__ __forceinline__ void score_particle(
-    const float* __restrict__ map, int H, int W, Off off, int2 ctr,
-    const float* s_ws, const float* s_ss, int own, int TR, float inv_tr,
-    int lane, float* __restrict__ o3) {
-  float acc_c = 0.f, acc_n = 0.f, acc_k = 0.f;
-
-  for (int i = lane; i < TR; i += 32) {
-    const int2 o = off(i);
-    const int y = ctr.x + o.x;
-    const int x = ctr.y + o.y;
-    float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if ((unsigned)y < (unsigned)H && (unsigned)x < (unsigned)W) {
-      const float4* px =
-          reinterpret_cast<const float4*>(map + ((size_t)y * W + x) * 8);
-      const float4 a = __ldg(px);
-      const float4 b = __ldg(px + 1);
-      v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-      v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-    }
-    const float known = v[C];
-    acc_k += known;
-    int j = i + own;
-    if (j >= TR) j -= TR;
-    float a = 0.f;
+template <int CP>
+__device__ __forceinline__ void load_pixel(const float* p, float (&v)[CP]) {
+  if constexpr (CP == 2) {
+    const float2 a = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = a.x; v[1] = a.y;
+  } else {
+    const float4* q = reinterpret_cast<const float4*>(p);
 #pragma unroll
-    for (int ch = 0; ch < C; ++ch) a = fmaf(s_ws[ch * TR + j], v[ch], a);
-    acc_c += a;
-    acc_n = fmaf(s_ss[j], known, acc_n);
+    for (int h = 0; h < CP / 4; ++h) {
+      const float4 a = __ldg(q + h);
+      v[4 * h] = a.x; v[4 * h + 1] = a.y; v[4 * h + 2] = a.z;
+      v[4 * h + 3] = a.w;
+    }
   }
-
-  acc_c = warp_sum(acc_c);
-  acc_n = warp_sum(acc_n);
-  const float kf = warp_sum(acc_k) * inv_tr;
-  if (lane != 0) return;
-  o3[0] = acc_c;
-  o3[1] = acc_n;
-  o3[2] = kf;
 }
 
-// shifts[p] is particle p's own shift.  Two blocks per SM: at most 128
-// registers a thread.
+// Dynamic shared memory of a block: the group's pixel offsets (P int2), its
+// folded weights (C + 2, P) and the scan tables (C + 1, Th*R).
+template <int C>
+size_t smem_bytes(int TR, int P) {
+  return (size_t)P * sizeof(int2) + (size_t)(C + 2) * P * sizeof(float) +
+         (size_t)(C + 1) * TR * sizeof(float);
+}
+
+// Block i scores sorted rows [i kTile, (i + 1) kTile): skey[row] is the
+// group bucket * Th + shift of particle perm[row].  pix (K, P): bucket b's
+// npix[b] distinct offsets; order (K*Th*R) and seg (K*P + 1): the cells
+// b*Th*R + i on slot b*P + u are order[seg[b*P+u] .. seg[b*P+u+1]).  Level
+// b of the map is table[b] = (pixel offset, H, W, -), or (0, H, W) when
+// table is null.
 template <int C>
 __global__ void __launch_bounds__(kThreads, 2)
-    crop_score_kernel(const float* __restrict__ map, int H, int W,
-                      const float* __restrict__ wscan,  // (C, Th*R)
-                      const float* __restrict__ ssum,   // (Th*R)
-                      const int2* __restrict__ off,     // (Th*R) dy, dx
-                      int Th, int R,
-                      const int2* __restrict__ centers,  // (N) cy, cx
-                      const int* __restrict__ shifts, int N,
-                      float inv_tr, float* __restrict__ out) {  // (N, 3)
+    crop_tracked_kernel(const float* __restrict__ map,  // (pixels, CP)
+                        const int4* __restrict__ table, int H, int W,
+                        const float* __restrict__ scan,  // (C, Th*R)
+                        const float* __restrict__ cw,    // (C)
+                        const int2* __restrict__ pix,    // (K, P) dy, dx
+                        const int* __restrict__ npix,    // (K)
+                        const int* __restrict__ order,   // (K*Th*R)
+                        const int* __restrict__ seg,     // (K*P + 1)
+                        int Th, int R, int P,
+                        const int* __restrict__ skey,        // (N)
+                        const long long* __restrict__ perm,  // (N)
+                        const int2* __restrict__ centers,    // (N) cy, cx
+                        int N, float inv_tr, float* __restrict__ out) {
+  constexpr int CP = Pixel<C>::CP;
   extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_key[kTile];
   const int TR = Th * R;
-  int2* s_off = reinterpret_cast<int2*>(smem);
-  float* s_ws = reinterpret_cast<float*>(s_off + TR);
+  int2* s_pix = reinterpret_cast<int2*>(smem);
+  float* s_w = reinterpret_cast<float*>(s_pix + P);
+  float* s_ws = s_w + (C + 2) * P;
   float* s_ss = s_ws + C * TR;
 
-  for (int i = threadIdx.x; i < TR; i += kThreads) s_off[i] = off[i];
-  stage_scan<C>(s_ws, s_ss, wscan, ssum, TR);
+  const int row0 = blockIdx.x * kTile;
+  const int rows = min(kTile, N - row0);
+  // the weighted scan 0.01 w_c scan_c and its class sum, in class order
+  // (as crop_score's plain version computes them)
+  for (int i = threadIdx.x; i < TR; i += kThreads) {
+    float sum = 0.f;
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) {
+      const float v = scan[ch * TR + i];
+      s_ws[ch * TR + i] = v * (0.01f * cw[ch]);
+      sum = ch ? sum + v : v;
+    }
+    s_ss[i] = sum;
+  }
+  for (int r = threadIdx.x; r < rows; r += kThreads) s_key[r] = skey[row0 + r];
   __syncthreads();
 
   const int lane = threadIdx.x & 31;
-  for (int p = blockIdx.x * kWarps + (threadIdx.x >> 5); p < N;
-       p += gridDim.x * kWarps) {
-    score_particle<C>(map, H, W, SharedOff{s_off}, centers[p], s_ws, s_ss,
-                      pmod(shifts[p], Th) * R, TR, inv_tr, lane,
-                      out + (size_t)p * 3);
+  for (int run0 = 0; run0 < rows;) {
+    const int g = s_key[run0];
+    int run1 = run0 + 1;
+    while (run1 < rows && s_key[run1] == g) ++run1;
+    const int b = g / Th;
+    const int sR = (g - b * Th) * R;
+    const int U = npix[b];
+    const int* sb = seg + (size_t)b * P;
+    const int cell0 = b * TR;
+    for (int u = threadIdx.x; u < U; u += kThreads) {
+      float wc[C];
+#pragma unroll
+      for (int ch = 0; ch < C; ++ch) wc[ch] = 0.f;
+      float wn = 0.f;
+      const int lo = sb[u], hi = sb[u + 1];
+      for (int q = lo; q < hi; ++q) {
+        int j = order[q] - cell0 + sR;
+        if (j >= TR) j -= TR;
+#pragma unroll
+        for (int ch = 0; ch < C; ++ch) wc[ch] += s_ws[ch * TR + j];
+        wn += s_ss[j];
+      }
+#pragma unroll
+      for (int ch = 0; ch < C; ++ch) s_w[ch * P + u] = wc[ch];
+      s_w[C * P + u] = wn;
+      s_w[(C + 1) * P + u] = (float)(hi - lo);
+      s_pix[u] = pix[(size_t)b * P + u];
+    }
+    __syncthreads();
+
+    const int4 lv = table ? table[b] : make_int4(0, H, W, 0);
+    const float* level = map + (size_t)lv.x * CP;
+    for (int r = run0 + (threadIdx.x >> 5); r < run1; r += kWarps) {
+      const long long p = perm[row0 + r];
+      const int2 ctr = centers[p];
+      float acc_c = 0.f, acc_n = 0.f, acc_k = 0.f;
+#pragma unroll 4
+      for (int u = lane; u < U; u += 32) {
+        const int2 o = s_pix[u];
+        const int y = ctr.x + o.x;
+        const int x = ctr.y + o.y;
+        float v[CP];
+#pragma unroll
+        for (int ch = 0; ch < CP; ++ch) v[ch] = 0.f;
+        if ((unsigned)y < (unsigned)lv.y && (unsigned)x < (unsigned)lv.z)
+          load_pixel<CP>(level + ((size_t)y * lv.z + x) * CP, v);
+        float a = 0.f;
+#pragma unroll
+        for (int ch = 0; ch < C; ++ch) a = fmaf(s_w[ch * P + u], v[ch], a);
+        acc_c += a;
+        acc_n = fmaf(s_w[C * P + u], v[C], acc_n);
+        acc_k = fmaf(s_w[(C + 1) * P + u], v[C], acc_k);
+      }
+      acc_c = warp_sum(acc_c);
+      acc_n = warp_sum(acc_n);
+      acc_k = warp_sum(acc_k);
+      if (lane == 0) {
+        float* o3 = out + (size_t)p * 3;
+        o3[0] = acc_c;
+        o3[1] = acc_n;
+        o3[2] = acc_k * inv_tr;
+      }
+    }
+    __syncthreads();  // every warp is done with this run's weights
+    run0 = run1;
   }
 }
 
-// K buckets: particle p reads bucket[p]'s offsets on bucket[p]'s level.
-template <int C>
-__global__ void __launch_bounds__(kThreads, 2)
-    crop_score_multi_kernel(const float* __restrict__ pyramid,
-                            const int4* __restrict__ table,  // (K) off,H,W,-
-                            int K,
-                            const float* __restrict__ wscan,
-                            const float* __restrict__ ssum,
-                            const int2* __restrict__ off,  // (K, Th*R)
-                            int Th, int R,
-                            const int* __restrict__ bucket,    // (N)
-                            const int2* __restrict__ centers,  // (N)
-                            const int* __restrict__ shifts, int N,
-                            float inv_tr, float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int4 s_tab[kMaxBuckets];
-  const int TR = Th * R;
-  float* s_ws = reinterpret_cast<float*>(smem);
-  float* s_ss = s_ws + C * TR;
-
-  for (int k = threadIdx.x; k < K; k += kThreads) s_tab[k] = table[k];
-  stage_scan<C>(s_ws, s_ss, wscan, ssum, TR);
+// Exclusive prefix sum of one int per thread over a block of kFoldThreads;
+// *total gets the block's sum.  Every thread must call it.
+__device__ __forceinline__ int block_scan(int v, int* s_warp, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) s_warp[warp] = x;
   __syncthreads();
+  if (warp == 0) {
+    int w = s_warp[lane];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += y;
+    }
+    s_warp[lane] = w;
+  }
+  __syncthreads();
+  const int excl = (warp ? s_warp[warp - 1] : 0) + x - v;
+  *total = s_warp[31];
+  __syncthreads();  // s_warp is reused by the next call
+  return excl;
+}
 
-  const int lane = threadIdx.x & 31;
-  for (int p = blockIdx.x * kWarps + (threadIdx.x >> 5); p < N;
-       p += gridDim.x * kWarps) {
-    const int b = bucket[p];
-    const int4 lv = s_tab[b];
-    score_particle<C>(pyramid + (size_t)lv.x * 8, lv.y, lv.z,
-                      GlobalOff{off + (size_t)b * TR}, centers[p], s_ws, s_ss,
-                      pmod(shifts[p], Th) * R, TR, inv_tr, lane,
-                      out + (size_t)p * 3);
+// Block b folds offset table b (off (K, Th*R) int2): the keys (dy, dx,
+// cell) sorted in shared memory (bitonic, n2 = Th*R rounded up to a power
+// of two), then each new pixel numbered by a block scan.  Writes pix (K, P)
+// (PAD_PIX after the table's npix[b] pixels), npix (K), order (K*Th*R, the
+// flat cells b*Th*R + i by pixel, then cell) and seg (K*P + 1): what
+// crop_score.fold_offsets returns.
+__global__ void __launch_bounds__(kFoldThreads)
+    crop_fold_kernel(const int2* __restrict__ off, int K, int TR, int P,
+                     int n2, int2* __restrict__ pix, int* __restrict__ npix,
+                     int* __restrict__ order, int* __restrict__ seg) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned long long* s_key = reinterpret_cast<unsigned long long*>(smem);
+  __shared__ int s_warp[32];
+  const int b = blockIdx.x;
+  const int2* o = off + (size_t)b * TR;
+  for (int i = threadIdx.x; i < n2; i += kFoldThreads) {
+    unsigned long long k = ~0ull;  // padding sorts last
+    if (i < TR) {
+      const int2 d = o[i];
+      k = ((unsigned long long)(unsigned)(d.x + (1 << 21)) << 42) |
+          ((unsigned long long)(unsigned)(d.y + (1 << 21)) << kCellBits) |
+          (unsigned long long)i;
+    }
+    s_key[i] = k;
+  }
+  __syncthreads();
+  for (int k = 2; k <= n2; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = threadIdx.x; i < n2; i += kFoldThreads) {
+        const int ij = i ^ j;
+        if (ij > i) {
+          const unsigned long long a = s_key[i], c = s_key[ij];
+          if ((a > c) == ((i & k) == 0)) {
+            s_key[i] = c;
+            s_key[ij] = a;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  int count = 0;  // pixels numbered so far
+  const int base = b * TR;
+  for (int r = 0; r < TR; r += kFoldThreads) {
+    const int i = r + threadIdx.x;
+    int fresh = 0;
+    unsigned long long k = 0;
+    if (i < TR) {
+      k = s_key[i];
+      fresh = i == 0 || (k >> kCellBits) != (s_key[i - 1] >> kCellBits);
+    }
+    int total;
+    const int u = count + block_scan(fresh, s_warp, &total);
+    if (i < TR) {
+      const int cell = (int)(k & ((1u << kCellBits) - 1));
+      order[base + i] = base + cell;
+      if (fresh) {
+        pix[(size_t)b * P + u] = o[cell];
+        seg[(size_t)b * P + u] = base + i;
+      }
+    }
+    count += total;
+  }
+  for (int u = count + threadIdx.x; u < P; u += kFoldThreads) {
+    pix[(size_t)b * P + u] = make_int2(kPad, kPad);
+    seg[(size_t)b * P + u] = base + TR;
+  }
+  if (threadIdx.x == 0) {
+    npix[b] = count;
+    if (b == K - 1) seg[(size_t)K * P] = K * TR;
   }
 }
 
-// The smem opt-in and the resident-block cap depend only on the device and
-// the table size: set and query them once per (device, smem), not on every
-// launch.  Callers launch from one host thread.
-struct LaunchCache {
-  int dev = -1;
-  size_t smem = 0;
-  int cap = 0;
-};
-
-template <typename Kern>
-cudaError_t grid_size(Kern kern, size_t smem, int N, LaunchCache& cache,
-                      int* blocks) {
+template <int C>
+cudaError_t launch(const float* map, const int* table, int H, int W,
+                   const float* scan, const float* cw, const int* pix,
+                   const int* npix, const int* order, const int* seg, int Th,
+                   int R, int P, const int* skey, const long long* perm,
+                   const int* centers, int N, float inv_tr, float* out,
+                   cudaStream_t stream) {
+  // the smem opt-in, set once per device and raised with the table size;
+  // callers launch from one host thread
+  static int ready_dev = -1;
+  static size_t ready_smem = 0;
+  auto kern = crop_tracked_kernel<C>;
+  const size_t smem = smem_bytes<C>(Th * R, P);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  if (dev != cache.dev || smem != cache.smem) {
+  if (dev != ready_dev || smem > ready_smem) {
     err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
-                                                        kThreads, smem);
-    if (err != cudaSuccess) return err;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    cache.dev = dev;
-    cache.smem = smem;
-    cache.cap = per_sm * sms;
+    ready_dev = dev;
+    ready_smem = smem;
   }
-  const int want = (N + kWarps - 1) / kWarps;
-  *blocks = want < cache.cap ? want : cache.cap;
-  return cudaSuccess;
-}
-
-template <int C>
-cudaError_t launch(const float* map, int H, int W, const float* wscan,
-                   const float* ssum, const int* off, int Th, int R,
-                   const int* centers, const int* shifts, int N,
-                   float inv_tr, float* out, cudaStream_t stream) {
-  static LaunchCache cache;
-  auto kern = crop_score_kernel<C>;
-  const size_t TR = (size_t)Th * R;
-  const size_t smem = TR * (sizeof(int2) + (C + 1) * sizeof(float));
-  int blocks = 0;
-  cudaError_t err = grid_size(kern, smem, N, cache, &blocks);
-  if (err != cudaSuccess) return err;
-  kern<<<blocks, kThreads, smem, stream>>>(
-      map, H, W, wscan, ssum, reinterpret_cast<const int2*>(off), Th, R,
-      reinterpret_cast<const int2*>(centers), shifts, N, inv_tr, out);
-  return cudaGetLastError();
-}
-
-template <int C>
-cudaError_t launch_multi(const float* pyramid, const int* table, int K,
-                         const float* wscan, const float* ssum,
-                         const int* off, int Th, int R, const int* bucket,
-                         const int* centers, const int* shifts, int N,
-                         float inv_tr, float* out, cudaStream_t stream) {
-  static LaunchCache cache;
-  auto kern = crop_score_multi_kernel<C>;
-  const size_t smem = (size_t)Th * R * (C + 1) * sizeof(float);
-  int blocks = 0;
-  cudaError_t err = grid_size(kern, smem, N, cache, &blocks);
-  if (err != cudaSuccess) return err;
-  kern<<<blocks, kThreads, smem, stream>>>(
-      pyramid, reinterpret_cast<const int4*>(table), K, wscan, ssum,
-      reinterpret_cast<const int2*>(off), Th, R, bucket,
-      reinterpret_cast<const int2*>(centers), shifts, N, inv_tr, out);
+  kern<<<(N + kTile - 1) / kTile, kThreads, smem, stream>>>(
+      map, reinterpret_cast<const int4*>(table), H, W, scan, cw,
+      reinterpret_cast<const int2*>(pix), npix, order, seg, Th, R, P, skey,
+      perm, reinterpret_cast<const int2*>(centers), N, inv_tr, out);
   return cudaGetLastError();
 }
 
@@ -288,28 +367,72 @@ int by_classes(int C, F&& f) {
 
 // Plain C entry points (loaded with ctypes).  Each returns the CUDA error of
 // its launch (0 on success); none allocates or synchronises.
-extern "C" int tdr_crop_score_tracked(const float* map, int H, int W, int C,
-                                      const float* wscan, const float* ssum,
-                                      const int* off, int Th, int R,
-                                      const int* centers, const int* shifts,
-                                      int N, float inv_tr, float* out,
-                                      void* stream) {
+
+// off (K, Th*R) int2 offset tables, TR = Th*R < 2^20, P >= TR; out holds
+// pix (K, P) int2, seg (K*P + 1), order (K*Th*R) and npix (K), int32, back
+// to back.
+extern "C" int tdr_crop_fold(const int* off, int K, int TR, int P, int* out,
+                             void* stream) {
+  static int ready_dev = -1;
+  static size_t ready_smem = 0;
+  if (K < 1 || TR < 1 || TR >= (1 << kCellBits) || P < TR)
+    return (int)cudaErrorInvalidValue;
+  int n2 = 1;
+  while (n2 < TR) n2 <<= 1;
+  const size_t smem = (size_t)n2 * sizeof(unsigned long long);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev != ready_dev || smem > ready_smem) {
+    err = cudaFuncSetAttribute(
+        crop_fold_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    ready_dev = dev;
+    ready_smem = smem;
+  }
+  int2* pix = reinterpret_cast<int2*>(out);
+  int* seg = out + (size_t)2 * K * P;
+  int* order = seg + (size_t)K * P + 1;
+  int* npix = order + (size_t)K * TR;
+  crop_fold_kernel<<<K, kFoldThreads, smem,
+                     static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const int2*>(off), K, TR, P, n2, pix, npix, order,
+      seg);
+  return (int)cudaGetLastError();
+}
+
+// map: the compact (H, W, CP) map; scan (C, Th, R) and cw (C): the scan
+// and the class weights; pix, npix, order, seg, P: tdr_crop_fold's output;
+// skey (N) int32, perm (N) int64: the particles' group keys (shift at one
+// scale) sorted stably, and the sort's permutation; centers (N) int2 (cy, cx);
+// out (N, 3).
+extern "C" int tdr_crop_score_tracked(
+    const float* map, int H, int W, int C, const float* scan,
+    const float* cw, const int* pix, const int* npix, const int* order,
+    const int* seg, int Th, int R, int P, const int* skey,
+    const long long* perm, const int* centers, int N, float inv_tr,
+    float* out, void* stream) {
   return by_classes(C, [&](auto cc) {
     return (int)launch<decltype(cc)::value>(
-        map, H, W, wscan, ssum, off, Th, R, centers, shifts, N, inv_tr, out,
-        static_cast<cudaStream_t>(stream));
+        map, nullptr, H, W, scan, cw, pix, npix, order, seg, Th, R, P, skey,
+        perm, centers, N, inv_tr, out, static_cast<cudaStream_t>(stream));
   });
 }
 
+// K buckets: compact pyramid (pixels, CP) with table (K, 4) of (pixel
+// offset, H, W, -) per bucket; the group keys are bucket * Th + shift.
 extern "C" int tdr_crop_score_multi_tracked(
-    const float* pyramid, const int* table, int K, int C, const float* wscan,
-    const float* ssum, const int* off, int Th, int R, const int* bucket,
-    const int* centers, const int* shifts, int N, float inv_tr, float* out,
-    void* stream) {
+    const float* pyramid, const int* table, int K, int C, const float* scan,
+    const float* cw, const int* pix, const int* npix, const int* order,
+    const int* seg, int Th, int R, int P, const int* skey,
+    const long long* perm, const int* centers, int N, float inv_tr,
+    float* out, void* stream) {
   if (K < 1 || K > kMaxBuckets) return (int)cudaErrorInvalidValue;
   return by_classes(C, [&](auto cc) {
-    return (int)launch_multi<decltype(cc)::value>(
-        pyramid, table, K, wscan, ssum, off, Th, R, bucket, centers, shifts,
-        N, inv_tr, out, static_cast<cudaStream_t>(stream));
+    return (int)launch<decltype(cc)::value>(
+        pyramid, table, 0, 0, scan, cw, pix, npix, order, seg, Th, R, P,
+        skey, perm, centers, N, inv_tr, out,
+        static_cast<cudaStream_t>(stream));
   });
 }

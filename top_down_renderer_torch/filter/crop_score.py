@@ -43,8 +43,24 @@ channels the score reads) times a matrix M that folds the stencil's
 one-hot into the circulant columns (init_m), with both operands split
 into bf16 hi and lo parts (split_bf16, init_operands).  init_m is plain
 PyTorch and public, so that the CPU tests hold window @ M to the plain
-version.  score_init_sel's map operand is a CropMap: the packed map at
-one mip level with its compact copy, made once and kept beside it.
+version.
+
+The tracked kernel, on CUDA cores, reads each particle's distinct
+stencil pixels once, from the same compact map, and weighs them with the
+stencil folded for the particle's own shift: per pixel, the cost weights
+of its C classes, the norm weight and the count of its cells.  The
+wrapper sorts the particles by shift (bucket * Th + shift over K
+buckets), so that a block of the kernel folds the weights once for each
+run of one shift among its rows (tracked_rows).  The fold of the offsets
+to distinct pixels and their cells, which both kernels read, is a kernel
+of its own (fold_pixels, one launch; fold_offsets is its plain version),
+and a CropMap keeps the last fold for a scale f given as a number, so the
+filter folds its stencil once per map and scale.  tracked_weights and
+folded_scores are the tracked kernel's computation in plain PyTorch, for
+the CPU tests.
+
+Both wrappers take the map as a CropMap: the packed map at one mip level
+with its compact copy, made once and kept beside it.
 
 The crop-size buckets and the mip fallback are kept in the host dispatch
 (filter/filter.py) so that both packages score the same map at the same
@@ -71,7 +87,7 @@ from top_down_renderer_torch.filter.scoring import (
 )
 
 FLT_MAX = float(np.finfo(np.float32).max)
-C_PAD = 8  # packed map channels the tracked kernel reads per pixel
+C_PAD = 8  # channels of the packed map
 MAX_SEARCH = 40  # search shifts of the init kernel: columns 0-79 of M
 SMEM_LIMIT = 227 * 1024  # dynamic shared memory a Hopper block may use
 M_COLS = 88  # columns of M: (cost, norm) at 2k, 2k + 1; kf count; padding
@@ -79,6 +95,7 @@ KF_COL = 2 * MAX_SEARCH
 K_CHUNK = 32  # rows of M per pipeline stage of the init kernel
 TIE_REL = 2.0**-20  # the init kernel's tie window (kTieRel)
 INIT_TILE = 192  # particles per block of the init kernel
+TRACKED_TILE = 64  # sorted rows per block of the tracked kernel (kTile)
 PAD_PIX = 2**29  # (dy, dx) of a padding pixel: outside every map
 _KEY_BITS = 22  # bits per offset in fold_offsets' sort key
 
@@ -234,70 +251,188 @@ def check_operands(num_classes, stencil, scan, class_weights, center_px,
     return c, th, r
 
 
-def _scan_inputs(num_classes, stencil, scan, class_weights, center_px,
-                 dev, off_bytes: int):
-    """Check the tracked kernels' operands and derive the weighted scan
-    and its class sum: (C, Th, R, wscan, ssum, inv_tr).  off_bytes: shared
-    memory per stencil cell beyond the two tables."""
+def check_tracked(num_classes, stencil, scan, class_weights, center_px,
+                  theta, dev):
+    """The checks both tracked wrappers share: the crop operands, the
+    block's shared memory (tracked_smem) and theta: (C, Th, R)."""
     c, th, r = check_operands(num_classes, stencil, scan, class_weights,
                               center_px, dev)
-    smem = th * r * (4 * c + 4 + off_bytes)
+    smem = tracked_smem(c, th * r)
     if smem > SMEM_LIMIT:
         raise ValueError(f"scan window needs {smem} B of shared memory")
-    wscan = (scan * (0.01 * class_weights)[:, None, None]).contiguous()
-    ssum = class_sum(scan).contiguous()
-    inv_tr = float(np.float32(1.0) / np.float32(th * r))
-    return c, th, r, wscan, ssum, inv_tr
+    _require(theta, "theta", (center_px.shape[0],), torch.float32, dev)
+    return c, th, r
 
 
-def _kernel_inputs(packed_map, num_classes, stencil, scan, class_weights,
-                   center_px, f, map_resolution):
-    """Check the kernel's operands and derive its inputs on their device.
-    The map is read in place (contiguous, 16-byte aligned); every other
-    operand the kernel reads is derived here."""
-    dev = packed_map.device
-    h, w = packed_map.shape[:2]
-    _require(packed_map, "packed_map", (h, w, C_PAD), torch.float32, dev,
-             contiguous=True)
-    if packed_map.data_ptr() % 16:
-        raise ValueError("packed_map must be 16-byte aligned")
-    if h * w * C_PAD >= 2**31:
-        raise ValueError("packed_map too large for 32-bit indexing")
-    c, th, r, wscan, ssum, inv_tr = _scan_inputs(
-        num_classes, stencil, scan, class_weights, center_px, dev, 8
-    )
-    off = crop_offsets(stencil, f).contiguous()
-    ctr = crop_centers(center_px, map_resolution).contiguous()
-    return (h, w, c, th, r, center_px.shape[0], wscan, ssum, off, ctr,
-            inv_tr)
+def _tracked_inputs(maps, num_classes, stencil, scan, class_weights,
+                    center_px, theta, f, map_resolution):
+    """Check the tracked kernel's operands and derive its inputs on their
+    device: (compact map, the stencil's fold at f (CropMap.fold), centres
+    (N, 2), shifts (N,))."""
+    packed = maps.packed
+    dev = packed.device
+    h, w = packed.shape[:2]
+    _require(packed, "packed_map", (h, w, C_PAD), torch.float32, dev)
+    th = check_tracked(num_classes, stencil, scan, class_weights,
+                       center_px, theta, dev)[1]
+    compact = maps.compact(num_classes)
+    if compact.numel() >= 2**31:
+        raise ValueError("map too large for 32-bit indexing")
+    return (compact, maps.fold(stencil, f),
+            crop_centers(center_px, map_resolution).contiguous(),
+            rotation_shift(theta, th))
 
 
 def score_tracked(
-    packed_map, num_classes, stencil, scan, class_weights, center_px,
-    theta, f, map_resolution: float = 1.0,
+    maps, num_classes, stencil, scan, class_weights, center_px, theta, f,
+    map_resolution: float = 1.0,
 ):
     """Tracked flavour: (cost, norm, kf) (N,) at each particle's own
-    rotation shift; cost/norm is the particle's cost."""
-    if not kernels.on_card(packed_map.device, "crop scorer"):
+    rotation shift on maps.packed (a CropMap); cost/norm is the
+    particle's cost.  f as a number lets maps keep the stencil's fold
+    (CropMap.fold)."""
+    if not kernels.on_card(maps.packed.device, "crop scorer"):
         return score_tracked_plain(
-            packed_map, num_classes, stencil, scan, class_weights,
+            maps.packed, num_classes, stencil, scan, class_weights,
             center_px, theta, f, map_resolution,
         )
-    (h, w, c, th, r, n, wscan, ssum, off, ctr, inv_tr) = _kernel_inputs(
-        packed_map, num_classes, stencil, scan, class_weights, center_px,
+    compact, fold, ctr, shift = _tracked_inputs(
+        maps, num_classes, stencil, scan, class_weights, center_px, theta,
         f, map_resolution,
     )
-    _require(theta, "theta", (n,), torch.float32, packed_map.device)
-    shifts = rotation_shift(theta, th).to(torch.int32).contiguous()
-    out = torch.empty((n, 3), dtype=torch.float32, device=packed_map.device)
+    h, w = maps.packed.shape[:2]
+    return launch_tracked("crop_score_tracked", compact, None, h, w,
+                          num_classes, scan, class_weights, fold, ctr, shift)
+
+
+# -- the tracked kernel's operands ---------------------------------------
+def tracked_smem(num_classes: int, tr: int) -> int:
+    """Bytes of shared memory of a tracked kernel block: the pixel offsets
+    (P int2), the folded weights (C + 2, P) and the scan tables (C + 1,
+    Th*R) float32, P = Th*R rounded up to 16 (fold_offsets)."""
+    cap = -(-tr // 16) * 16
+    return cap * 8 + (num_classes + 2) * cap * 4 + (num_classes + 1) * tr * 4
+
+
+def tracked_rows(key: torch.Tensor):
+    """The particles in stable order of their group keys (bucket * Th +
+    shift): (sorted keys int32, perm int64) (N,).  Block i of the tracked
+    kernel takes sorted rows [i T, (i + 1) T), T = TRACKED_TILE, and
+    scores each run of one key among them with that group's folded
+    weights; row j's result goes to particle perm[j].  One device sort of
+    32-bit keys (half the radix passes of 64-bit ones), no host read."""
+    return torch.sort(key.to(torch.int32), stable=True)
+
+
+def fold_pixels(off: torch.Tensor):
+    """The distinct pixels of the offset tables off (K, Th*R, 2) int32 and
+    the CSR of their cells: (pix, npix, order, seg), as fold_offsets
+    returns them.  On the card one launch of the fold kernel
+    (csrc/crop_score.cu, counted as "crop_fold") writes them into one
+    buffer; on the CPU it is fold_offsets itself."""
+    k, tr = off.shape[:2]
+    if not kernels.on_card(off.device, "offset fold"):
+        return fold_offsets(off)
+    _require(off, "off", (k, tr, 2), torch.int32, off.device,
+             contiguous=True)
+    cap = -(-tr // 16) * 16
+    buf = torch.empty(3 * k * cap + 1 + k * tr + k, dtype=torch.int32,
+                      device=off.device)
+    kernels.launch("crop_score", "tdr_crop_fold", ptr(off), k, tr, cap,
+                   ptr(buf))
+    kernels.LAUNCHES["crop_fold"] += 1
+    seg = buf[2 * k * cap : 3 * k * cap + 1]
+    order = buf[3 * k * cap + 1 : 3 * k * cap + 1 + k * tr]
+    return buf[: 2 * k * cap].view(k, cap, 2), buf[-k:], order, seg
+
+
+def launch_tracked(name: str, maps, table, h: int, w: int, num_classes: int,
+                   scan, class_weights, fold, ctr, key):
+    """Sort the particles by group key (bucket * Th + shift) and launch
+    the tracked kernel `name` (kernels.LAUNCHES key; entry tdr_<name>)
+    over the compact map `maps` (table: the K buckets' levels, or None at
+    a uniform scale) with the K offset tables' fold (fold_pixels).
+    Returns (cost, norm, kf) (N,)."""
+    th, r = scan.shape[1:]
+    n = ctr.shape[0]
+    out = torch.empty((n, 3), dtype=torch.float32, device=ctr.device)
     if n:
+        pix, npix, order, seg = fold
+        skey, perm = tracked_rows(key)
+        inv_tr = float(np.float32(1.0) / np.float32(th * r))
+        # kept alive until the asynchronous launch has read them
+        scan, class_weights = scan.contiguous(), class_weights.contiguous()
+        if table is None:
+            head = (ptr(maps), h, w)
+        else:
+            head = (ptr(maps), ptr(table), table.shape[0])
         kernels.launch(
-            "crop_score", "tdr_crop_score_tracked", ptr(packed_map), h, w,
-            c, ptr(wscan), ptr(ssum), ptr(off), th, r, ptr(ctr),
-            ptr(shifts), n, ctypes.c_float(inv_tr), ptr(out),
+            "crop_score", f"tdr_{name}", *head, num_classes, ptr(scan),
+            ptr(class_weights), ptr(pix), ptr(npix), ptr(order), ptr(seg),
+            th, r, pix.shape[1], ptr(skey), ptr(perm), ptr(ctr), n,
+            ctypes.c_float(inv_tr), ptr(out),
         )
-        kernels.LAUNCHES["crop_score_tracked"] += 1
+        kernels.LAUNCHES[name] += 1
     return out[:, 0], out[:, 1], out[:, 2]
+
+
+def cell_slots(seg: torch.Tensor, n: int) -> torch.Tensor:
+    """(n,) int64: the slot of each position of a CSR with segment starts
+    seg, n = seg[-1] entries."""
+    pos = torch.arange(n, device=seg.device)
+    return torch.searchsorted(seg.long(), pos, right=True) - 1
+
+
+def tracked_weights(scan, class_weights, order, seg):
+    """The tracked kernel's folded weights at every shift, in plain
+    PyTorch: (K, Th, P, C + 2) float32 over fold_offsets' CSR (order, seg)
+    of K offset tables.  w[b, s, u] holds, for pixel u of table b at shift
+    s, the sums over the pixel's cells i of the weighted scan 0.01 w_c
+    scan_c (C cost weights) and of its class sum (the norm weight) at scan
+    cell (i + s R) mod Th R, and the count of those cells (the kf weight);
+    summed in float64, so that their order does not change the result."""
+    c, th, r = scan.shape
+    tr = th * r
+    nslot = seg.shape[0] - 1
+    k = order.shape[0] // tr
+    dev = scan.device
+    wscan = (scan * (0.01 * class_weights)[:, None, None]).reshape(c, tr)
+    feat = torch.cat([wscan.T, class_sum(scan).reshape(tr, 1),
+                      torch.ones((tr, 1), device=dev)], 1).double()
+    slot = cell_slots(seg, order.shape[0])
+    cell = order.long() % tr
+    w = torch.zeros((th, nslot, c + 2), dtype=torch.float32, device=dev)
+    for s in range(th):
+        acc = torch.zeros((nslot, c + 2), dtype=torch.float64, device=dev)
+        w[s] = acc.index_add_(0, slot, feat[(cell + s * r) % tr]).float()
+    return w.view(th, k, nslot // k, c + 2).transpose(0, 1)
+
+
+def folded_scores(compact, table, ctr, pix, w, bucket, shift,
+                  num_classes: int):
+    """The tracked kernel's product in plain PyTorch: (cost, norm, kf)
+    (N,).  Particle p in bucket b = bucket[p] at shift s = shift[p] reads
+    its window a of b's distinct pixels, ctr[p] + pix[b], on the compact
+    map (compact (pixels, CP); level b at table[b] = (pixel offset, H, W,
+    -), zero outside it) and weighs it with w[b, s] (tracked_weights):
+    cost = sum_u sum_{c<C} w[u, c] a[u, c], norm = sum_u w[u, C] a[u, C],
+    kf = sum_u w[u, C + 1] a[u, C] / (Th R), an exact count."""
+    c = num_classes
+    b = bucket.long()
+    lv = table.long()[b]
+    base, h, wd = lv[:, 0:1], lv[:, 1:2], lv[:, 2:3]
+    iy = ctr[:, None, 0].long() + pix[b][..., 0]
+    ix = ctr[:, None, 1].long() + pix[b][..., 1]
+    valid = (iy >= 0) & (iy < h) & (ix >= 0) & (ix < wd)
+    lin = base + torch.minimum(iy.clamp(min=0), h - 1) * wd + torch.minimum(
+        ix.clamp(min=0), wd - 1)
+    a = torch.where(valid[..., None], compact[lin], 0.0)
+    ws = w[b, shift.long()]
+    tr = float(ws[0, :, c + 1].sum())
+    inv = float(np.float32(1.0) / np.float32(tr))
+    return ((a[..., :c] * ws[..., :c]).sum((1, 2)),
+            (a[..., c] * ws[..., c]).sum(1),
+            (a[..., c] * ws[..., c + 1]).sum(1) * inv)
 
 
 # -- the theta-search kernel's operands ----------------------------------
@@ -321,11 +456,13 @@ def compact_map(packed: torch.Tensor, num_classes: int) -> torch.Tensor:
 class CropMap:
     """A packed (..., 8) float32 map and its compact copies: the crop
     kernels' operands.  compact(num_classes) is made on first use and
-    kept, so a map's owner makes it once per map version."""
+    kept, so a map's owner makes it once per map version; fold(stencil,
+    f) keeps the last stencil fold at a host scale f."""
 
     def __init__(self, packed: torch.Tensor):
         self.packed = packed
         self._compact = {}
+        self._fold = None  # (stencil, f, fold)
 
     def compact(self, num_classes: int) -> torch.Tensor:
         """compact_map(packed, num_classes), made once."""
@@ -334,14 +471,32 @@ class CropMap:
                                                      num_classes)
         return self._compact[num_classes]
 
+    def fold(self, stencil: torch.Tensor, f):
+        """fold_pixels(crop_offsets(stencil, f)[None]): the stencil's
+        distinct pixels at f and the CSR of their cells.  For a number f
+        the last fold is kept and returned again for the same stencil
+        tensor and f; a tensor f is folded on every call, since comparing
+        it would read it to the host."""
+        if isinstance(f, torch.Tensor):
+            return fold_pixels(crop_offsets(stencil, f)[None])
+        f = float(f)
+        if (self._fold is None or self._fold[0] is not stencil
+                or self._fold[1] != f):
+            self._fold = (stencil, f,
+                          fold_pixels(crop_offsets(stencil, f)[None]))
+        return self._fold[2]
+
 
 def fold_offsets(off: torch.Tensor):
-    """The distinct pixels of K offset tables off (K, Th*R, 2): (pix (K, P,
-    2) int32, npix (K,) int64, slot (K*Th*R,) int64).  pix[b, :npix[b]]
-    are bucket b's distinct (dy, dx) in row-major order, PAD_PIX after;
-    slot[b*Th*R + i] = b*P + the index of cell i's pixel.  P is Th*R
-    rounded up to 16 (whole kernel chunks at any CP).  Fixed sizes only:
-    no host read."""
+    """The distinct pixels of K offset tables off (K, Th*R, 2) and the
+    cells on each, in plain PyTorch (the fold kernel's plain version):
+    (pix (K, P, 2), npix (K,), order (K*Th*R,), seg (K*P + 1,)), all
+    int32.  pix[b, :npix[b]] are bucket b's distinct (dy, dx) in row-major
+    order, PAD_PIX after.  order and seg are the cells by slot b*P + u (a
+    CSR): the cells on slot q, as flat indices b*Th*R + i, are
+    order[seg[q]:seg[q + 1]] in increasing order, none on a padding slot.
+    P is Th*R rounded up to 16 (whole kernel chunks at any CP).  Fixed
+    sizes only: no host read."""
     k, tr = off.shape[:2]
     cap = -(-tr // 16) * 16
     dev = off.device
@@ -349,24 +504,26 @@ def fold_offsets(off: torch.Tensor):
     o = off.to(torch.int64) + half
     b = torch.arange(k, device=dev)[:, None]
     key = (((b << _KEY_BITS) + o[..., 0]) << _KEY_BITS) + o[..., 1]
-    skey, order = torch.sort(key.reshape(-1))
+    skey, order = torch.sort(key.reshape(-1), stable=True)
     new = torch.ones_like(skey, dtype=torch.bool)
     new[1:] = skey[1:] != skey[:-1]
     seg = (torch.cumsum(new, 0) - 1).view(k, tr)  # buckets never share
     local = seg - seg[:, :1]
     sorted_slot = (b * cap + local).reshape(-1)
-    slot = torch.empty_like(sorted_slot)
-    slot[order] = sorted_slot
     pix = torch.full((k * cap, 2), PAD_PIX, dtype=torch.int32, device=dev)
     pix[sorted_slot] = off.reshape(-1, 2)[order]  # duplicates write alike
-    return pix.view(k, cap, 2), local[:, -1] + 1, slot
+    starts = torch.searchsorted(
+        sorted_slot, torch.arange(k * cap + 1, device=dev), out_int32=True
+    )
+    return (pix.view(k, cap, 2), (local[:, -1] + 1).to(torch.int32),
+            order.to(torch.int32), starts)
 
 
-def init_m(scan, class_weights, off, num_rot: int = 40):
-    """The theta search as a matrix: for offset tables off (K, Th*R, 2)
-    (K = 1 at a uniform scale), (pix (K, P, 2), npix (K,), m (K, P*CP,
-    M_COLS) float32) with pix, npix from fold_offsets.  Row q*CP + ch of
-    m[b] is pixel pix[b, q], channel ch; for each search shift k,
+def init_m(scan, class_weights, order, seg, num_rot: int = 40):
+    """The theta search as a matrix: m (K, P*CP, M_COLS) float32 over the
+    CSR (order, seg) of K offset tables' fold (fold_pixels; K = 1 at a
+    uniform scale), whose pixels pix (K, P, 2) it multiplies.  Row q*CP +
+    ch of m[b] is pixel pix[b, q], channel ch; for each search shift k,
     column 2k holds the cost and 2k + 1 the norm circulant summed over the
     stencil cells on that pixel, column KF_COL the count of those cells
     (known channel).  So for a window w[q, ch] of the compact map at
@@ -375,10 +532,9 @@ def init_m(scan, class_weights, off, num_rot: int = 40):
     their order (index_add_ on the card) does not change the result."""
     c, th, r = scan.shape
     cp = channel_pad(c)
-    k = off.shape[0]
     tr = th * r
-    pix, npix, slot = fold_offsets(off)
-    cap = pix.shape[1]
+    k = order.shape[0] // tr
+    cap = (seg.shape[0] - 1) // k
     ssh = search_shifts(th, num_rot, scan.device)
     cost_sel, norm_sel = circulants_at_shifts(scan, class_weights, ssh)
     s = num_rot
@@ -386,13 +542,14 @@ def init_m(scan, class_weights, off, num_rot: int = 40):
                       torch.ones((tr, 1), device=scan.device)], 1).double()
     acc = torch.zeros((k * cap, feat.shape[1]), dtype=torch.float64,
                       device=scan.device)
-    acc.index_add_(0, slot, feat.repeat(k, 1))
+    acc.index_add_(0, cell_slots(seg, order.shape[0]),
+                   feat[order.long() % tr])
     m = torch.zeros((k * cap, cp, M_COLS), dtype=torch.float32,
                     device=scan.device)
     m[:, :c, 0 : 2 * s : 2] = acc[:, : c * s].view(-1, c, s)
     m[:, c, 1 : 2 * s : 2] = acc[:, c * s : c * s + s]
     m[:, c, KF_COL] = acc[:, -1]
-    return pix, npix, m.view(k, cap * cp, M_COLS)
+    return m.view(k, cap * cp, M_COLS)
 
 
 def split_bf16(x: torch.Tensor):
@@ -421,7 +578,7 @@ def init_operands(pix, npix, m):
     pixels = pix.reshape(k, nch, -1).view(torch.int16)
     rec = torch.cat([plane(hi).view(torch.int16), plane(lo).view(torch.int16),
                      pixels], 2).contiguous()
-    return rec, (npix * cp + K_CHUNK - 1) // K_CHUNK
+    return rec, (npix.long() * cp + K_CHUNK - 1) // K_CHUNK
 
 
 def init_schedule(row_start: torch.Tensor, nchunk: torch.Tensor):
@@ -436,18 +593,20 @@ def init_schedule(row_start: torch.Tensor, nchunk: torch.Tensor):
 
 
 def launch_init(name: str, maps, table, h: int, w: int, num_classes: int,
-                scan, class_weights, off, ctr, perm, row_start,
+                scan, class_weights, fold, ctr, perm, row_start,
                 num_rot: int):
-    """Build M for off (K, Th*R, 2), schedule the tiles and launch the
-    theta-search kernel `name` (kernels.LAUNCHES key; entry tdr_<name>)
-    over the compact map `maps` (table: the K buckets' levels, or None at
-    a uniform scale).  row_start (K + 1,) int64: the first row of each
-    bucket in perm's order, and N.  Returns (best, k, kf) (N,)."""
+    """Build M over the K offset tables' fold (fold_pixels), schedule the
+    tiles and launch the theta-search kernel `name` (kernels.LAUNCHES key;
+    entry tdr_<name>) over the compact map `maps` (table: the K buckets'
+    levels, or None at a uniform scale).  row_start (K + 1,) int64: the
+    first row of each bucket in perm's order, and N.  Returns (best, k,
+    kf) (N,)."""
     th, r = scan.shape[1:]
     n = ctr.shape[0]
     out = torch.empty((n, 3), dtype=torch.float32, device=ctr.device)
     if n:
-        pix, npix, m = init_m(scan, class_weights, off, num_rot)
+        pix, npix, order, seg = fold
+        m = init_m(scan, class_weights, order, seg, num_rot)
         rec, nchunk = init_operands(pix, npix, m)
         sched = init_schedule(row_start, nchunk)
         inv_tr = float(np.float32(1.0) / np.float32(th * r))
@@ -470,7 +629,8 @@ def score_init_sel(
     num_rot: int = 40, map_resolution: float = 1.0,
 ):
     """Theta-search flavour: (best_cost, k (int64), kf) (N,) on
-    maps.packed; ties as in the module's docstring."""
+    maps.packed; ties as in the module's docstring.  f as a number lets
+    maps keep the stencil's fold (CropMap.fold)."""
     packed_map = maps.packed
     if not kernels.on_card(packed_map.device, "crop scorer"):
         return score_init_sel_plain(
@@ -489,7 +649,7 @@ def score_init_sel(
     rows[1] = center_px.shape[0]
     return launch_init(
         "crop_score_init", compact, None, h, w, num_classes, scan,
-        class_weights, crop_offsets(stencil, f)[None],
+        class_weights, maps.fold(stencil, f),
         crop_centers(center_px, map_resolution).contiguous(), None, rows,
         num_rot,
     )

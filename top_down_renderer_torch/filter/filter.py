@@ -279,9 +279,11 @@ def make_update_step_fast(
     mip: int = 1,
 ):
     """The crop-kernel update step for a uniform particle scale:
-    update(state, maps, map_size_scaled, stencil, scan, res, shift=None,
-    generator=None), where `maps` is a crop_score.CropMap of the packed
-    map at this mip level (crop_score.mip_map).  mode "tracked" scores
+    update(state, maps, map_size_scaled, stencil, scan, res, scale=None,
+    shift=None, generator=None), where `maps` is a crop_score.CropMap of
+    the packed map at this mip level (crop_score.mip_map) and `scale`, if
+    given, the particles' scale on the host (else particle 0's is read on
+    the card).  mode "tracked" scores
     each particle at its own rotation, "init" runs the theta search,
     "mixed" both with the exact path's per-particle select.  At mip > 1
     the kernel sees f / mip at resolution map_resolution * mip: an NN
@@ -292,16 +294,21 @@ def make_update_step_fast(
     num_rot = params.num_rot_search
     mres = map_resolution * mip
 
-    def score(p: Particles, maps, stencil, scan, res):
-        f = p.scale[0] * torch.as_tensor(
-            res, dtype=torch.float32, device=scan.device
-        ) / mip
+    def score(p: Particles, maps, stencil, scan, res, scale=None):
+        # the dispatch's host scale, every particle's at a fixed or frozen
+        # scale, gives f in the same float32 steps as particle 0's on the
+        # card, and lets `maps` keep the stencil's fold (CropMap.fold)
+        if scale is None:
+            f = p.scale[0] * torch.as_tensor(
+                res, dtype=torch.float32, device=scan.device
+            ) / mip
+        else:
+            f = float(np.float32(scale) * np.float32(res) / np.float32(mip))
         args = (grid_num_classes, stencil, scan,
                 class_weights.to(scan.device), p.pose_px())
         return _select_flavour(
             mode, p,
-            lambda: crop_score.score_tracked(maps.packed, *args, p.theta, f,
-                                             mres),
+            lambda: crop_score.score_tracked(maps, *args, p.theta, f, mres),
             lambda: crop_score.score_init_sel(maps, *args, f, num_rot, mres),
             num_rot,
         )
@@ -673,10 +680,10 @@ class ParticleFilter:
                 generator=self.generator,
             )
         else:
-            mode, _mo, _scale, mip = fast
+            mode, _mo, scale, mip = fast
             self.state = self._get_fast_fn(mode, mip)(
                 self.state, self._get_map(mip), map_size_scaled, stencil,
-                scan, res, generator=self.generator,
+                scan, res, scale, generator=self.generator,
             )
         # every scoring path sets have_init for all particles
         self._all_have_init = True

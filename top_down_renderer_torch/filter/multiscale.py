@@ -30,16 +30,19 @@ Two scorers, each a wrapper with a public plain version beside it:
 On CPU tensors the wrapper runs the plain version; on CUDA it launches
 its kernel (csrc/crop_score.cu tracked, csrc/crop_score_init.cu for the
 theta search) and counts it in kernels.LAUNCHES; any other device
-raises.  The theta search is the uniform path's tensor-core product with
-one M per bucket (crop_score.init_m over the (K, Th*R) offsets): the
-wrapper sorts the particles by bucket (a stable torch.sort), so that each
-tile of the kernel lies in one bucket, and the kernel writes each row
-back to its particle.
+raises.  Both kernels are the uniform path's, with one fold of the
+offsets per bucket (crop_score.fold_pixels over the (K, Th*R) offsets)
+read on the bucket's level of the compact pyramid (PyramidMaps.compact).
+The theta search is the tensor-core product with one M per bucket
+(crop_score.init_m); its wrapper sorts the particles by bucket (a stable
+torch.sort), so that each tile of the kernel lies in one bucket.  The
+tracked wrapper sorts them by bucket * Th + shift, so that each tile
+lies in one bucket at one shift.  Both kernels write each row back to
+its particle.
 """
 
 from __future__ import annotations
 
-import ctypes
 import os
 from typing import Optional, Sequence, Tuple
 
@@ -47,7 +50,6 @@ import numpy as np
 import torch
 
 from top_down_renderer_torch import kernels
-from top_down_renderer_torch.kernels import ptr
 from top_down_renderer_torch.filter import crop_score as cs
 from top_down_renderer_torch.filter.scoring import (
     circulants_at_shifts,
@@ -190,7 +192,7 @@ def plan_buckets(scales: np.ndarray, range_bins: int, res: float,
 class PyramidMaps(cs.CropMap):
     """Packed float32 levels dist[::m, ::m] for m in `mips`, back to back
     in `flat` (P, 8); `levels[l]` = (pixel offset, H, W) of level l.
-    compact(num_classes) (P, CP) is the theta-search kernel's operand."""
+    compact(num_classes) (P, CP) is both kernels' operand."""
 
     def __init__(self, flat: torch.Tensor, mips, levels):
         super().__init__(flat)
@@ -389,27 +391,25 @@ def _check_buckets(pyr, stencil, scan, class_weights, center_px, scale,
                                     class_weights, center_px, dev, num_rot)
 
 
-def _kernel_inputs(pyr, num_classes, stencil, scan, class_weights,
-                   center_px, scale, slot_vals, bucket_level, res,
-                   map_resolution):
+def _tracked_inputs(pyr, num_classes, stencil, scan, class_weights,
+                    center_px, theta, scale, slot_vals, bucket_level, res,
+                    map_resolution):
     """Check the tracked kernel's operands and derive its inputs on their
-    device: the pyramid is read in place, everything else is derived
-    here."""
-    flat = pyr.flat
-    dev = flat.device
-    k = _check_buckets(pyr, stencil, scan, class_weights, center_px, scale,
-                       slot_vals, bucket_level, num_classes)[0]
-    if flat.data_ptr() % 16:
-        raise ValueError("pyramid must be 16-byte aligned")
-    (c, th, r, wscan, ssum, inv_tr) = cs._scan_inputs(
-        num_classes, stencil, scan, class_weights, center_px, dev, 0
-    )
+    device: (compact pyramid, table (K, 4), the fold of the offsets (K,
+    Th*R, 2) (crop_score.fold_pixels), centres (N, 2), group keys bucket *
+    Th + shift (N,))."""
+    dev = pyr.flat.device
+    _check_buckets(pyr, stencil, scan, class_weights, center_px, scale,
+                   slot_vals, bucket_level, num_classes)
+    th = cs.check_tracked(num_classes, stencil, scan, class_weights,
+                          center_px, theta, dev)[1]
+    compact = pyr.compact(num_classes)
     bucket, off, ctr, table = _prepare(
         pyr, stencil, center_px, scale, slot_vals, bucket_level, res,
         map_resolution,
     )
-    return (k, c, th, r, center_px.shape[0], table, wscan, ssum,
-            off.contiguous(), bucket, ctr.contiguous(), inv_tr)
+    key = bucket * th + rotation_shift(theta, th)
+    return compact, table, cs.fold_pixels(off), ctr.contiguous(), key
 
 
 def score_tracked_multi(
@@ -423,23 +423,14 @@ def score_tracked_multi(
             pyr, num_classes, stencil, scan, class_weights, center_px,
             theta, scale, slot_vals, bucket_level, res, map_resolution,
         )
-    (k, c, th, r, n, table, wscan, ssum, off, bucket, ctr,
-     inv_tr) = _kernel_inputs(
-        pyr, num_classes, stencil, scan, class_weights, center_px, scale,
-        slot_vals, bucket_level, res, map_resolution,
+    compact, table, fold, ctr, key = _tracked_inputs(
+        pyr, num_classes, stencil, scan, class_weights, center_px, theta,
+        scale, slot_vals, bucket_level, res, map_resolution,
     )
-    cs._require(theta, "theta", (n,), torch.float32, pyr.flat.device)
-    shifts = rotation_shift(theta, th).to(torch.int32).contiguous()
-    out = torch.empty((n, 3), dtype=torch.float32, device=pyr.flat.device)
-    if n:
-        kernels.launch(
-            "crop_score", "tdr_crop_score_multi_tracked", ptr(pyr.flat),
-            ptr(table), k, c, ptr(wscan), ptr(ssum), ptr(off), th, r,
-            ptr(bucket), ptr(ctr), ptr(shifts), n, ctypes.c_float(inv_tr),
-            ptr(out),
-        )
-        kernels.LAUNCHES["crop_score_multi_tracked"] += 1
-    return out[:, 0], out[:, 1], out[:, 2]
+    return cs.launch_tracked(
+        "crop_score_multi_tracked", compact, table, 0, 0, num_classes, scan,
+        class_weights, fold, ctr, key,
+    )
 
 
 def score_init_multi_sel(
@@ -463,5 +454,6 @@ def score_init_multi_sel(
     perm, row_start = bucket_rows(bucket, k)
     return cs.launch_init(
         "crop_score_multi_init", compact, table, 0, 0, num_classes, scan,
-        class_weights, off, ctr.contiguous(), perm, row_start, num_rot,
+        class_weights, cs.fold_pixels(off), ctr.contiguous(), perm,
+        row_start, num_rot,
     )

@@ -42,6 +42,7 @@ NVCC_FLAGS = (
 
 # kernel launches by name (reset by callers that count a run)
 LAUNCHES = {
+    "crop_fold": 0,
     "crop_score_tracked": 0,
     "crop_score_init": 0,
     "crop_score_multi_tracked": 0,
@@ -60,15 +61,18 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "crop_score": {
-        # map, H, W, C, wscan, ssum, off, Th, R, centers, shifts, N,
-        # inv_tr, out, stream
+        # offsets, K, TR, P, out, stream
+        "tdr_crop_fold": (_P, _I, _I, _I, _P, _P),
+        # compact map, H, W, C, scan, class weights, pix, npix, order, seg,
+        # Th, R, P, sorted keys, perm, centers, N, inv_tr, out, stream
         "tdr_crop_score_tracked": (
-            _P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _I, _F, _P, _P,
+            _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
+            _I, _F, _P, _P,
         ),
-        # pyramid, table, K, C, wscan, ssum, off, Th, R, bucket, centers,
-        # shifts, N, inv_tr, out, stream
+        # compact pyramid, table, K, then as above from C on
         "tdr_crop_score_multi_tracked": (
-            _P, _P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _I, _F, _P, _P,
+            _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
+            _I, _F, _P, _P,
         ),
     },
     "crop_score_init": {
