@@ -25,7 +25,10 @@ Phases (any failure exits non-zero before the result line):
   C. the known-scale main path through the public entry points: the
      consumer drive (2,048 particles, 30 scans, must converge) and 20
      updates of 102,400 particles on a 1024^2 map from a spread init;
-     every update must launch a crop kernel;
+     each update must run the scorer its plan names: a crop kernel
+     launch on the crop path, a conv cost field (cuDNN, counted in
+     conv_score.CALLS) and no crop launch on the conv path, which the
+     dispatch takes once the alive box fits a conv region;
   C2. the unknown-scale main path at fixed_scale -1 on the same world:
      20 updates of 102,400 particles with the robot standing, each of
      which must launch a K-bucket kernel (theta search first) and none
@@ -37,6 +40,11 @@ Phases (any failure exits non-zero before the result line):
   C3. 10 updates of 102,400 particles with TDR_RESAMPLE=pallas: each
      must launch the fill kernel, whose rows must equal the gather
      path's bit for bit on the same weights and shift;
+  C4. the conv path: 20 known-scale updates of 102,400 particles on the
+     clustered cloud of D (100 px, a 0.15 rad theta band), driving; each
+     must take the conv path (one cost field, no crop launch), and a
+     second run from the same state and generator seed must end in the
+     same state bit for bit;
   D. each kernel's own device time (20 launches under torch.profiler,
      after 3 warm-up calls), and median host-clock times (3 warm-up, 20
      timed, synchronised) of its wrapper, its plain version, the PyTorch
@@ -45,9 +53,11 @@ Phases (any failure exits non-zero before the result line):
      at 102,400 particles on the 1024^2 map: theta search on a spread
      cloud, tracked on a cloud clustered to 100 px, the unknown-scale
      update from the 10 hypotheses (theta search, and tracked once each
-     particle has a theta), the host part of its dispatch, and the fill
-     on C3's last state, and the offset fold on the clustered cell's
-     offsets; on those same 3-class inputs each crop kernel
+     particle has a theta), the host part of its dispatch, the fill on
+     C3's last state and on 2^22 random rows, and the offset fold on the
+     clustered cell's offsets; on the clustered cloud also the conv cost
+     field alone (CUDA events) and the conv update beside the crop
+     update; on those same 3-class inputs each crop kernel
      is held against its plain version as in B; the tracked kernel also
      runs on the spread cloud (tiles over all 100 shifts); the lines of
      the crop kernels give the distinct pixels of their stencil (per
@@ -87,11 +97,16 @@ from drive_consumer_torch import (  # noqa: E402
     make_filter,
 )
 from top_down_renderer_torch import kernels  # noqa: E402
+from top_down_renderer_torch.filter import conv_score  # noqa: E402
 from top_down_renderer_torch.filter import crop_score as cs  # noqa: E402
 from top_down_renderer_torch.filter import filter as filter_mod  # noqa: E402
 from top_down_renderer_torch.filter import gmm as gmm_mod  # noqa: E402
 from top_down_renderer_torch.filter import multiscale as ms  # noqa: E402
 from top_down_renderer_torch.filter import resample as rs  # noqa: E402
+from top_down_renderer_torch.filter.scoring import (  # noqa: E402
+    rotation_shift,
+    shift_mask,
+)
 from top_down_renderer_torch.render.semantic import (  # noqa: E402
     render_semantic_polar,
 )
@@ -407,16 +422,54 @@ def scan_at(world, i, dev, move=True):
     )
 
 
+def conv_calls() -> int:
+    return conv_score.CALLS["cost_field"]
+
+
+class PlanLog:
+    """Records the plan of every known-scale update of every
+    ParticleFilter while it is open (a wrapper of _fast_mode)."""
+
+    def __enter__(self):
+        self.plans = []
+        self._orig = orig = filter_mod.ParticleFilter._fast_mode
+
+        def planned(pf, res):
+            self.plans.append(orig(pf, res))
+            return self.plans[-1]
+
+        filter_mod.ParticleFilter._fast_mode = planned
+        return self.plans
+
+    def __exit__(self, *exc):
+        filter_mod.ParticleFilter._fast_mode = self._orig
+
+
+def check_paths(label, plans, crop, conv) -> None:
+    """Each update ran the scorer its plan names: crop launches per
+    update `crop`, conv cost fields per update `conv`."""
+    check(len(plans) == len(crop) == len(conv),
+          f"{label}: {len(plans)} plans for {len(crop)} updates")
+    for i, (p, k, c) in enumerate(zip(plans, crop, conv)):
+        want = (k == 0 and c >= 1) if p.path == "conv" else (k >= 1 and c == 0)
+        check(want, f"{label}: update {i} planned {p.path} ({p.mode}) "
+              f"launched {k} crop kernels and {c} cost fields")
+    log(f"[{label}] paths per update: "
+        + " ".join(f"{p.path}/{p.mode}/r{p.region}/w{p.ww}" for p in plans))
+
+
 def run_updates(pf, world, dev, steps, names, move=True):
     """`steps` updates (with a propagate before each when the robot
-    moves); returns the launches of `names` per update."""
+    moves); returns the launches of `names` per update (and a last column
+    of the conv cost fields) and the mean likelihood."""
     per = []
     for i in range(steps):
-        before = [kernels.LAUNCHES[k] for k in names]
+        before = [kernels.LAUNCHES[k] for k in names] + [conv_calls()]
         if move:
             pf.propagate([1.5, 0.0], 0.0)
         pf.update(scan_at(world, i, dev, move), RES)
-        per.append([kernels.LAUNCHES[k] - b for k, b in zip(names, before)])
+        now = [kernels.LAUNCHES[k] for k in names] + [conv_calls()]
+        per.append([a - b for a, b in zip(now, before)])
     torch.cuda.synchronize()
     ml, cov = pf.pose_stats()
     check(np.all(np.isfinite(ml)) and np.all(np.isfinite(cov)),
@@ -426,22 +479,24 @@ def run_updates(pf, world, dev, steps, names, move=True):
 
 
 def phase_c(dev):
-    launches = []
+    counts = [(0, conv_calls())]
 
     def on_step(i, pf):
-        launches.append(sum(kernels.LAUNCHES[k] for k in CROP))
+        counts.append((sum(kernels.LAUNCHES[k] for k in CROP), conv_calls()))
 
-    err, cov_xx, _ = drive(dev, 2048, 30, res=1.0, on_step=on_step,
-                           log=lambda *_: None)
-    log(f"[C] consumer drive (2048 particles, crop mip 2): err {err:.3f} px"
-        f", cov_xx {cov_xx:.3f}")
+    with PlanLog() as plans:
+        err, cov_xx, _ = drive(dev, 2048, 30, res=1.0, on_step=on_step,
+                               log=lambda *_: None)
+    log(f"[C] consumer drive (2048 particles; crop at mip 2, then conv): "
+        f"err {err:.3f} px, cov_xx {cov_xx:.3f}")
     check(err < 8.0 and cov_xx < 400.0, "consumer drive did not converge")
-    check((np.diff([0] + launches) >= 1).all(),
-          f"drive updates without a crop launch: {launches}")
+    crop, conv = np.diff(np.asarray(counts), axis=0).T
+    check_paths("C drive", plans, crop, conv)
 
     pf, world = big_filter(dev)
-    per, ml = run_updates(pf, world, dev, 20, CROP)
-    check((per.sum(1) >= 1).all(), f"updates without a kernel launch: {per}")
+    with PlanLog() as plans:
+        per, ml = run_updates(pf, world, dev, 20, CROP)
+    check_paths("C 102,400", plans, per[:, :-1].sum(1), per[:, -1])
     log(f"[C] 20 updates at {N} particles on {HW}^2: n_active "
         f"{pf.num_particles()}, ml {np.round(ml, 3).tolist()}")
     return pf, world
@@ -469,6 +524,7 @@ def multi_run(dev, world, move):
     finally:
         pf._update_fn, pf._multi_mode = step_fn, multi_mode
     label = "C2 moving" if move else "C2 standing"
+    per = per[:, :-1]  # no conv cost field under an unknown scale
     for i, (plan, (t, n)) in enumerate(zip(plans, per)):
         log(f"[{label}] update {i}: " + (
             "exact gather" if plan is None else
@@ -551,6 +607,43 @@ def phase_c3(dev, world):
     check((per[:, 0] >= 1).all(), f"updates without a fill launch: {per}")
     log(f"[C3] 10 updates with the fill: rows equal the gather's")
     return pf
+
+
+def clustered_state(dev):
+    """bench.py's cloud: 102,400 particles in a 100 px square at the map's
+    centre, thetas in a 0.15 rad band around 0.7, at step 1 (no GMM
+    refit), with the shift mask of its thetas, as an update leaves it."""
+    d = synthetic_setup(N, h=HW, w=HW, c=3, cluster=(HW // 2, HW // 2, 100),
+                        theta_spread=(0.7, 0.15))
+    st = filter_state_from_numpy(d["state"], dev).replace(step=1)
+    p = st.particles
+    return st.replace(smask=shift_mask(rotation_shift(p.theta, 100), p.alive,
+                                       100))
+
+
+def phase_c4(dev, pf, world):
+    """The conv path: 20 driving updates from the clustered cloud, twice
+    from the same state and generator seed."""
+    start = clustered_state(dev)
+    finals = []
+    for run in range(2):
+        pf.state, pf._all_have_init = start, True
+        pf.generator.manual_seed(7)
+        with PlanLog() as plans:
+            per, ml = run_updates(pf, world, dev, 20, CROP)
+        check(all(p.path == "conv" for p in plans),
+              f"C4: updates off the conv path: {[p.path for p in plans]}")
+        check_paths(f"C4 run {run}", plans, per[:, :-1].sum(1), per[:, -1])
+        finals.append(pf.state)
+    a, b = (rs.pack_fields(st.particles) for st in finals)
+    check(torch.equal(a.view(torch.int32), b.view(torch.int32))
+          and torch.equal(finals[0].particles.alive, finals[1].particles.alive)
+          and torch.equal(finals[0].particles.weight.view(torch.int32),
+                          finals[1].particles.weight.view(torch.int32)),
+          "C4: two runs from the same state differ")
+    log(f"[C4] 20 conv updates at {N} particles, twice: the same state bit "
+        f"for bit; n_active {pf.num_particles()}, ml "
+        f"{np.round(ml, 3).tolist()}")
 
 
 def device_us(evt) -> float:
@@ -692,17 +785,21 @@ def phase_d(dev, pf, world, errs):
     )
     compare("D spread, C=3", errs, CROP, *pair)
 
-    d = synthetic_setup(N, h=HW, w=HW, c=3, cluster=(HW // 2, HW // 2, 100),
-                        theta_spread=(0.7, 0.15))
-    clustered = filter_state_from_numpy(d["state"], dev).replace(step=1)
+    clustered = clustered_state(dev)
     ctr = clustered.particles.pose_px()
     theta = clustered.particles.theta
     args = (cmap, 3, sten, scan, cw, ctr)
 
     def tracked_update():
+        """The crop update of the clustered cloud: its conv region
+        withheld from the dispatch."""
         pf.state = clustered
         pf._all_have_init = True
-        pf.update(scan, RES)
+        pf._conv_region = lambda mo: None
+        try:
+            pf.update(scan, RES)
+        finally:
+            del pf._conv_region
 
     pair = crop_pair(args, theta, f)
     off = cs.crop_offsets(sten, f)[None]
@@ -724,7 +821,67 @@ def phase_d(dev, pf, world, errs):
     gmm_ms = median_ms(lambda: gmm_mod.compute_gmm(
         clustered.particles, clustered.n_active, clustered.gmm.k))
     log(f"[D] GMM refit (every {pf.gmm_every}th update): {gmm_ms:.4f} ms")
-    return out
+    return out, conv_times(pf, clustered, scan, cw, sten, f)
+
+
+def events_ms(fn, runs: int = 20) -> float:
+    """Device time per call of fn by CUDA events around `runs` calls,
+    after 3 warm-up calls: every kernel the call launches, and the gaps
+    between them."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(runs):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / runs
+
+
+def conv_times(pf, clustered, scan, cw, sten, f):
+    """The conv path on the clustered cloud: its plan, the cost field
+    alone (CUDA events; the block cut and the cuDNN convolution) with its
+    bound (float32 FMAs outside the tensor cores, TF32 off; the block and
+    the kernel read once, the field written once), the kernel build, and
+    the conv update beside the crop update of phase D (host clock)."""
+    pf.state, pf._all_have_init = clustered, True
+    plan = pf._fast_mode(RES)
+    check(plan.path == "conv", f"the clustered cloud plans {plan}")
+    cmap = pf._get_conv_map()
+    kernel = conv_score.build_conv_kernel(scan, cw, sten, f, plan.mo,
+                                          "tracked", window_w=plan.ww,
+                                          s0=plan.s0)
+    pose = clustered.particles.pose_px()
+    origin = torch.round(pose.flip(-1)).to(torch.int64).amin(0) + cmap.pad
+    s_out, cp, dr, dc = kernel.shape
+    field = conv_score.cost_field(cmap.padded, kernel, origin, plan.mo,
+                                  plan.region)
+    ops = 2.0 * plan.region**2 * dr * dc * cp * s_out
+    moved = (nbytes(kernel, field)
+             + (plan.region + dr - 1) * (plan.region + dc - 1) * cp * 4)
+
+    def conv_update():
+        pf.state, pf._all_have_init = clustered, True
+        pf._snap = None  # the host snapshot of a new state is read afresh
+        pf.update(scan, RES)
+
+    calls = conv_calls()
+    conv_update()
+    check(conv_calls() == calls + 1, "the conv update made no cost field")
+    return dict(
+        plan=plan,
+        field_ms=events_ms(lambda: conv_score.cost_field(
+            cmap.padded, kernel, origin, plan.mo, plan.region)),
+        build_ms=events_ms(lambda: conv_score.build_conv_kernel(
+            scan, cw, sten, f, plan.mo, "tracked", window_w=plan.ww,
+            s0=plan.s0)),
+        bound=bound(ops, moved),
+        flops=ops,
+        update_ms=median_ms(conv_update),
+    )
 
 
 def phase_d2(dev, world, errs):
@@ -786,8 +943,29 @@ def phase_d2(dev, world, errs):
     return out
 
 
+def fill_times(rows0, valid0):
+    """The fill's times (timed) and bound on rows0, valid0, after a check
+    that the kernel equals its plain version and repeats bit for bit."""
+    got, again = rs.fill_rows(rows0, valid0), rs.fill_rows(rows0, valid0)
+    ref = rs.fill_rows_plain(rows0, valid0)
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref) and torch.equal(got.view(torch.int32),
+                                                again.view(torch.int32)),
+          f"the fill at {rows0.shape[0]} rows differs or does not repeat")
+    idx = torch.where(valid0, torch.arange(rows0.shape[0],
+                                           device=rows0.device), 0)
+    return dict(
+        timed("fill_rows", lambda: rs.fill_rows(rows0, valid0),
+              lambda: rs.fill_rows_plain(rows0, valid0),
+              lambda: rows0.index_select(0, torch.cummax(idx, 0).values)),
+        bound=bound(0.0, nbytes(rows0, valid0) + rows0.numel() * 4),
+    )
+
+
 def phase_d3(dev, pf):
-    """The fill's times on the resample inputs of C3's last state."""
+    """The fill's times on the resample inputs of C3's last state, and on
+    2^22 random rows (about 30 % of the slots valid), where the launch no
+    longer hides the bytes."""
     p = pf.state.particles
     n_act = pf.state.n_active
     rng = np.random.default_rng(3)
@@ -797,14 +975,14 @@ def phase_d3(dev, pf):
     w = w / w.sum()
     rows0, valid0 = rs._segment_starts(rs.pack_fields(p), w, n_act, n_act,
                                        torch.tensor(0.37, device=dev))
-    idx = torch.where(valid0, torch.arange(N, device=dev), 0)
-    return {"fill_rows": dict(
-        timed("fill_rows", lambda: rs.fill_rows(rows0, valid0),
-              lambda: rs.fill_rows_plain(rows0, valid0),
-              lambda: rows0.index_select(
-                  0, torch.cummax(idx, 0).values)),
-        bound=bound(0.0, nbytes(rows0, valid0) + rows0.numel() * 4),
-    )}
+    out = fill_times(rows0, valid0)
+    n = 2**22
+    big = fill_times(torch.rand((n, 8), device=dev),
+                     torch.rand(n, device=dev) < 0.3)
+    out.update({f"{k}_2p22": big[k] for k in ("ms", "wrapper_ms", "plain_ms",
+                                                "library_ms")})
+    out["bound_2p22"] = big["bound"]
+    return {"fill_rows": out}
 
 
 def main() -> int:
@@ -850,8 +1028,17 @@ def main() -> int:
     pf_fill = phase_c3(dev, world)
     read_launches("C3", ("fill_rows",))
 
+    kernels.reset_launch_counts()
+    calls = conv_calls()
+    phase_c4(dev, pf, world)
+    check(conv_calls() - calls == 40, "C4: not one cost field per update")
+    check(not any(kernels.LAUNCHES[k] for k in CROP),
+          f"C4: crop launches {kernels.LAUNCHES}")
+    log(f"[C4] conv cost fields on its path: {conv_calls() - calls}")
+    kernels.reset_launch_counts()
+
     log_clocks("D start")
-    times = phase_d(dev, pf, world, errs)
+    times, conv = phase_d(dev, pf, world, errs)
     times.update(phase_d2(dev, world, errs))
     times.update(phase_d3(dev, pf_fill))
     log_clocks("D end")
@@ -870,11 +1057,27 @@ def main() -> int:
         if "tracked_spread_ms" in t:
             extra += (f", the tracked kernel on the spread cloud "
                       f"{t['tracked_spread_ms']:.4f} ms")
+        if "ms_2p22" in t:
+            extra += (f"; at 2^22 rows: kernel {t['ms_2p22']:.4f} ms (with "
+                      f"its wrapper {t['wrapper_ms_2p22']:.4f} ms), plain "
+                      f"{t['plain_ms_2p22']:.4f} ms, bound "
+                      f"{t['bound_2p22'][0]:.4f} ms, cummax + index_select "
+                      f"{t['library_ms_2p22']:.4f} ms")
+        if t["library_ms"] is not None:
+            extra += f", library_ms {t['library_ms']:.4f} ms"
         log(f"[D] {name}: kernel {t['ms']:.4f} ms (with its wrapper "
             f"{t['wrapper_ms']:.4f} ms), plain "
             f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms "
             f"({t['bound'][1]}){extra} ({N} particles, {HW}^2 map) on "
             f"{name_limit}")
+    p = conv["plan"]
+    log(f"[D] conv path on the clustered cloud (region {p.region}, mo "
+        f"{p.mo}, window {p.ww} at {p.s0}): cost field {conv['field_ms']:.4f}"
+        f" ms (CUDA events; {conv['flops']:.3e} FLOPs, bound "
+        f"{conv['bound'][0]:.4f} ms, {conv['bound'][1]}), kernel build "
+        f"{conv['build_ms']:.4f} ms, conv update {conv['update_ms']:.4f} ms "
+        f"against the crop update {times['crop_score_tracked']['update_ms']:.4f}"
+        f" ms ({N} particles, {HW}^2 map) on {name_limit}")
 
     result = {"kernels": [
         {
@@ -893,6 +1096,10 @@ def main() -> int:
                 "max_rel_err": errs["rel"][name]} if name in INIT else {}),
             **({"bound_cells_ms": times[name]["bound_cells"][0]}
                if "bound_cells" in times[name] else {}),
+            **({k: times[name][k] for k in ("ms_2p22", "plain_ms_2p22",
+                                            "library_ms_2p22")}
+               | {"bound_ms_2p22": times[name]["bound_2p22"][0]}
+               if "ms_2p22" in times[name] else {}),
         }
         for name in KERNELS
     ]}

@@ -5,8 +5,9 @@ a class-map world (tests/util_synthetic.make_world) -> TopDownMap ->
 ParticleFilter at fixed scale 2 -> per scan: render_semantic_polar,
 propagate, update -> mean_likelihood / compute_mean_cov, then optionally
 a dynamic-map swap (update_map with a shifted centre).  At res 1 the
-dispatch scores with the crop kernel on a mip-2 map throughout (theta
-search on the first update, tracked after).
+dispatch runs the theta search with the crop kernel on a mip-2 map, then,
+once the alive cloud fits a conv region, the conv path (conv bucket mo
+48) on the full-resolution map, as the reference's dispatch does.
 
 Pass criterion (the canonical drive's): err < 8 px and cov_xx < 400
 after the scans, err < 10 px after a swap.

@@ -1,15 +1,18 @@
 """Where the time of one ParticleFilter.update goes, on the card.
 
 Builds the 102,400-particle filters of chip_smoke.py (1024^2 class-map
-world, res 0.5) and profiles 10 updates in each of four regimes with
-torch.profiler: at fixed scale 2 (crop at mip 1), theta search on a
-spread cloud and tracked on a cloud clustered to 100 px; at an unknown
-scale (the K-bucket crop path), theta search on the 10 scale hypotheses
-of a fresh spread init, and tracked on the same population once each
-particle has a theta.  Each update starts from the same state (step 1:
-no GMM refit).  Prints, per regime, the
+world, res 0.5) and profiles 10 updates in each of five regimes with
+torch.profiler: at fixed scale 2, theta search on a spread cloud (crop at
+mip 1), and tracked on chip_smoke's cloud clustered to 100 px, on the
+conv path the dispatch plans there and on the crop path (the conv region
+withheld); at an unknown scale (the K-bucket crop path), theta search on
+the 10 scale hypotheses of a fresh spread init, and tracked on the same
+population once each particle has a theta.  Each update starts from the
+same state (step 1: no GMM refit) and reads its host snapshot afresh, as
+an update of a new state does.  Prints, per regime, the
 wall time per update, the device busy share (device kernel time over
-wall time) and the top kernels by device time; writes the full tables
+wall time), the count of top-level operators per update and their host
+time, and the top kernels by device time; writes the full tables
 and chrome traces to --out (default profile_out/).
 
 Usage (on a machine with a CUDA card):
@@ -31,10 +34,6 @@ from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 import chip_smoke as smoke  # noqa: E402
-from top_down_renderer_torch.testing import synthetic_setup  # noqa: E402
-from top_down_renderer_torch.utils.convert import (  # noqa: E402
-    filter_state_from_numpy,
-)
 
 STEPS = 10
 
@@ -43,6 +42,7 @@ def profile_regime(name, pf, state, have_init, scan, out_dir):
     def update():
         pf.state = state
         pf._all_have_init = have_init
+        pf._snap = None
         pf.update(scan, smoke.RES)
 
     for _ in range(3):
@@ -62,8 +62,15 @@ def profile_regime(name, pf, state, have_init, scan, out_dir):
     ]
     dev_ms = sum(smoke.device_us(e) for e in events) / 1e3
     events.sort(key=smoke.device_us, reverse=True)
+    # the host's side: the operators the update calls itself, not those
+    # they call in turn
+    tops = [e for e in prof.events() if e.device_type == DeviceType.CPU
+            and e.cpu_parent is None and e.name.startswith("aten::")]
     print(f"[{name}] {wall_ms / STEPS:.4f} ms/update wall, device busy "
-          f"{dev_ms / STEPS:.4f} ms/update ({100 * dev_ms / wall_ms:.1f}%)")
+          f"{dev_ms / STEPS:.4f} ms/update ({100 * dev_ms / wall_ms:.1f}%); "
+          f"{len(tops) / STEPS:.0f} top-level operators per update, "
+          f"{sum(e.cpu_time_total for e in tops) / 1e3 / STEPS:.4f} ms of "
+          f"host time in them")
     for e in events[:12]:
         print(f"[{name}]   {smoke.device_us(e) / 1e3 / STEPS:9.4f} ms/update "
               f"x{e.count // STEPS:<4d} {e.key[:90]}")
@@ -86,12 +93,14 @@ def main() -> int:
     pf, world = smoke.big_filter(dev)
     scan = smoke.scan_at(world, 0, dev)
     spread = pf.state.replace(step=1)
-    d = synthetic_setup(smoke.N, h=smoke.HW, w=smoke.HW, c=3,
-                        cluster=(smoke.HW // 2, smoke.HW // 2, 100),
-                        theta_spread=(0.7, 0.15))
-    clustered = filter_state_from_numpy(d["state"], dev).replace(step=1)
+    clustered = smoke.clustered_state(dev)
     profile_regime("init_spread", pf, spread, False, scan, args.out)
-    profile_regime("tracked_clustered", pf, clustered, True, scan, args.out)
+    profile_regime("tracked_clustered_conv", pf, clustered, True, scan,
+                   args.out)
+    pf._conv_region = lambda mo: None
+    profile_regime("tracked_clustered_crop", pf, clustered, True, scan,
+                   args.out)
+    del pf._conv_region
     pf, _ = smoke.make_filter(dev, smoke.N, seed=0, world=world,
                               fixed_scale=-1.0)
     fresh = pf.state.replace(step=1)

@@ -1,5 +1,6 @@
 """The CUDA kernels (uniform and K-bucket crop scoring, the forward fill)
-against their plain versions, on the card.
+against their plain versions, and the conv path (cuDNN) against a float64
+convolution and against the CPU, on the card.
 
 These tests need a CUDA device and skip without one.  The file imports
 no JAX, so it also runs on a machine without it:
@@ -16,6 +17,7 @@ import pytest
 import torch
 
 from top_down_renderer_torch import kernels
+from top_down_renderer_torch.filter import conv_score as cs_conv
 from top_down_renderer_torch.filter import crop_score as cs
 from top_down_renderer_torch.filter import filter as ft
 from top_down_renderer_torch.filter import multiscale as ms
@@ -340,23 +342,27 @@ def test_multi_step_on_card_matches_cpu(dev, mode):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,density", [(1, 1.0), (200, 0.3), (8192, 0.001),
-                                       (8193, 0.5), (102_400, 0.0),
-                                       (102_400, 0.4)])
-def test_fill_kernel_matches_plain(dev, n, density):
-    """Bit-equal rows: within a tile, across tiles (a lone valid slot 0
-    carries over all 13 tiles at 102,400), and off the tile grid."""
+@pytest.mark.parametrize("pattern", ["all", "slot0", "random"])
+@pytest.mark.parametrize("n", [1, 700, res_t.FILL_TILE + 1, 102_400, 2**22])
+def test_fill_kernel_matches_plain(dev, n, pattern):
+    """Bit-equal rows: one slot, within a tile, one over a tile boundary,
+    102,400 (100 tiles) and 2^22 (4,096 tiles); every slot valid, only
+    slot 0 (its row carries over every tile: the longest look-back) or a
+    random 1-50 %.  Two calls give the same bits."""
     rng = np.random.default_rng(n)
     rows0 = torch.as_tensor(rng.random((n, 8)).astype(np.float32),
                             device=dev)
-    valid0 = torch.as_tensor(rng.random(n) < density, device=dev)
+    density = {"all": 1.0, "slot0": 0.0, "random": rng.uniform(0.01, 0.5)}
+    valid0 = torch.as_tensor(rng.random(n) < density[pattern], device=dev)
     valid0[0] = True
     before = kernels.LAUNCHES["fill_rows"]
     got = res_t.fill_rows(rows0, valid0)
+    again = res_t.fill_rows(rows0, valid0)
     ref = res_t.fill_rows_plain(rows0, valid0)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["fill_rows"] == before + 1
-    assert torch.equal(got, ref)
+    assert kernels.LAUNCHES["fill_rows"] == before + 2
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(again.view(torch.int32), got.view(torch.int32))
 
 
 @pytest.mark.cuda
@@ -482,3 +488,62 @@ def test_init_kernel_near_ties_go_to_the_first_shift(dev, multi):
     assert apart.mean() > 0.9
     np.testing.assert_array_equal(k[apart], np_(ref[1])[apart] % half)
     assert_rel(np_(ref[0]), np_(got[0]), 1e-4, "best cost")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,ww", [("tracked", 16), ("tracked", 100),
+                                     ("init", 100)])
+def test_conv_cost_field_matches_float64(dev, mode, ww):
+    """The cost field (cuDNN, float32, TF32 off) against a float64
+    convolution of the same bf16-rounded operands on the card: cost and
+    norm columns within rel 1e-5 (float32 sums of 10,000 nonnegative
+    products), the kf column an exact count; a second call is
+    bit-equal."""
+    packed, sten, scan, cw, _, _ = _world(dev, 3, 9)
+    cmap = cs_conv.ConvMap(cs.compact_map(packed, 3))
+    kernel = cs_conv.build_conv_kernel(scan, cw, sten, 1.0, 24, mode,
+                                       window_w=ww, s0=95)
+    origin = torch.tensor([90, 100], device=dev)
+    before = cs_conv.CALLS["cost_field"]
+    got = cs_conv.cost_field(cmap.padded, kernel, origin, 24, 64)
+    again = cs_conv.cost_field(cmap.padded, kernel, origin, 24, 64)
+    assert cs_conv.CALLS["cost_field"] == before + 2
+    block = cmap.padded[:, :, 65:178, 75:188]  # origin - 25, 64 + 49 px
+    ref = torch.nn.functional.conv2d(block.double(), kernel.double())[0]
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (kernel.shape[0], 64, 64)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    assert torch.equal(got[-1].double(), ref[-1])
+    main = ref[:-1]
+    assert float(main.min()) >= 0.0 and float(main.max()) > 0.0
+    rel = ((got[:-1].double() - main).abs() / main.abs().clamp(min=1e-9))
+    assert float(rel.max()) <= 1e-5, float(rel.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["tracked", "init", "mixed"])
+def test_conv_step_on_card_matches_cpu(dev, mode):
+    """One whole conv update of a clustered cloud on the card against the
+    same update on the CPU, with the same resample shift."""
+    d = synthetic_setup(512, h=128, w=128, seed=5, cluster=(30, 40, 60))
+    d["state"]["particles"]["have_init"][:] = (
+        np.arange(512) % 3 == 0 if mode == "mixed" else mode == "tracked"
+    )
+    step = ft.make_update_step_fast(d["params"], 3, 1.0, 100, 512, mode,
+                                    gmm_every=1, path="conv", mo=24,
+                                    region=64, window_w=100)
+    outs = []
+    for device in ("cpu", dev):
+        maps, *args = [torch.as_tensor(d[k], device=device)
+                       for k in ("packed", "map_size", "stencil", "scan")]
+        st = filter_state_from_numpy(d["state"], device)
+        outs.append(step(st, cs_conv.ConvMap(cs.compact_map(maps, 3)),
+                         *args, 0.5, 2.0, 0, shift=0.25))
+    cpu, gpu = outs
+    assert int(gpu.n_active) == int(cpu.n_active)
+    rows_c = np_(torch.cat(
+        [cpu.particles.init_px, cpu.particles.theta[:, None]], 1))
+    rows_g = np_(torch.cat(
+        [gpu.particles.init_px, gpu.particles.theta[:, None]], 1))
+    assert np.mean(np.all(rows_c == rows_g, axis=1)) >= 0.99
+    assert_rel(np_(cpu.ml_state), np_(gpu.ml_state), 1e-5, "ml_state")

@@ -15,7 +15,7 @@ from top_down_renderer_tpu.filter.filter import ParticleFilter as PFJ
 from top_down_renderer_tpu.maps.map import TopDownMap as TDMJ
 from top_down_renderer_tpu.maps.map import build_grid as build_grid_j
 from top_down_renderer_torch import kernels
-from top_down_renderer_torch.filter import crop_score
+from top_down_renderer_torch.filter import conv_score, crop_score
 from top_down_renderer_torch.filter import multiscale as ms
 from top_down_renderer_torch.filter.filter import ParticleFilter
 from top_down_renderer_torch.maps.map import TopDownMap
@@ -27,8 +27,11 @@ torch.set_num_threads(2)
 
 
 def test_consumer_drive_converges_on_crop_mip2(monkeypatch):
-    """2048 particles, fixed scale 2, res 1 -> f = 2: crop at mip 2 on
-    every update (theta search first, tracked after), plain version."""
+    """2048 particles, fixed scale 2, res 1 -> f = 2: the spread cloud's
+    theta search on the crop path at mip 2, then, once the alive box fits
+    a conv region, the conv cost field at full resolution (conv bucket mo
+    48), as the reference's dispatch plans it; every update runs the path
+    its plan names (plain versions on the CPU, no kernel launch)."""
     calls = {"tracked": 0, "init": 0}
     dispatch = []
     for name, flavour in (("score_tracked_plain", "tracked"),
@@ -51,9 +54,10 @@ def test_consumer_drive_converges_on_crop_mip2(monkeypatch):
     seen = []
 
     def on_step(i, pf):
-        seen.append(dict(calls))
+        seen.append((dict(calls), conv_score.CALLS["cost_field"]))
 
     steps = 30
+    prev = ({"tracked": 0, "init": 0}, conv_score.CALLS["cost_field"])
     err, cov_xx, err_swap = drive(
         "cpu", 2048, steps, res=1.0, swap_steps=6, on_step=on_step,
         log=lambda *_: None,
@@ -61,13 +65,24 @@ def test_consumer_drive_converges_on_crop_mip2(monkeypatch):
     assert err < 8.0 and cov_xx < 400.0, (err, cov_xx)
     assert err_swap < 10.0, err_swap
     assert len(dispatch) == steps + 6
-    assert dispatch[0][0] == "init"
-    assert all(d[0] == "tracked" for d in dispatch[1:]), dispatch[:3]
-    assert all(d[1] == 24 and d[3] == 2 for d in dispatch)  # mo 24, mip 2
-    # the plain crop scorer ran on every update
-    assert seen[0] == {"tracked": 0, "init": 1}
-    for a, b in zip(seen, seen[1:]):
-        assert b["tracked"] == a["tracked"] + 1 and b["init"] == a["init"]
+    assert dispatch[0][:4] == ("init", 24, 2.0, "crop")
+    assert dispatch[0].mip == 2
+    first_conv = [d.path for d in dispatch].index("conv")
+    assert 1 <= first_conv <= 5, [d.path for d in dispatch]
+    for d in dispatch[1:first_conv]:
+        assert (d.mode, d.mo, d.path, d.mip) == ("tracked", 24, "crop", 2)
+    for d in dispatch[first_conv:]:
+        assert (d.mode, d.mo, d.path, d.mip) == ("tracked", 48, "conv", 1)
+        assert d.region in conv_score.REGION_BUCKETS
+        assert d.ww in (16, 32, 64, 100)
+    assert dispatch[-1].region == 64 and dispatch[-1].ww <= 32
+    # each update ran the scorer its plan names, once
+    for d, now in zip(dispatch, seen):
+        assert now[1] - prev[1] == (d.path == "conv")
+        assert now[0]["tracked"] - prev[0]["tracked"] == (
+            d.path == "crop" and d.mode == "tracked")
+        assert now[0]["init"] - prev[0]["init"] == (d.mode == "init")
+        prev = now
     assert sum(kernels.LAUNCHES.values()) == 0
 
 
@@ -114,7 +129,7 @@ def test_fast_mode_matches_jax_on_spread_clouds(have_init):
             assert ft is None, res
             continue
         assert fj[3] == "crop", (res, fj)  # spread: no conv region
-        assert (ft[0], ft[1], ft[3]) == (fj[0], fj[1], fj[7]), res
+        assert tuple(ft) == tuple(fj), res
 
 
 def test_unknown_scale_runs_the_multi_path_and_logs_nothing(caplog,

@@ -2,7 +2,9 @@
 
 Builds chip_smoke.py's 102,400-particle filter (1024^2 class-map world,
 res 0.5, fixed scale 2) and its cloud clustered to 100 px, and times 20
-tracked updates from the same state (step 1: no GMM refit): the median of
+tracked updates on the crop path (the dispatch's conv region withheld,
+where the tree has one) from the same state (step 1: no GMM refit): the
+median of
 the whole update (synchronised) and of the tracked scorer's host part
 inside it (crop_score.score_tracked, not synchronised).  It times them
 three times in the one process: first fresh, then after what chip_smoke's
@@ -58,6 +60,7 @@ def main() -> int:
                         cluster=(smoke.HW // 2, smoke.HW // 2, 100),
                         theta_spread=(0.7, 0.15))
     clustered = filter_state_from_numpy(d["state"], dev).replace(step=1)
+    pf._conv_region = lambda mo: None  # the crop path's tracked update
 
     def update():
         pf.state, pf._all_have_init = clustered, True

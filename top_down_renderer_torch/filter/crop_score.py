@@ -101,6 +101,9 @@ _KEY_BITS = 22  # bits per offset in fold_offsets' sort key
 
 # crop-size buckets keyed by the max stencil pixel offset mo
 _MO_BUCKETS = (12, 24)
+# the conv path's (filter/conv_score.py): its kernel has no crop buffer to
+# bound, so it covers larger range scales (its size grows with mo^2)
+_MO_BUCKETS_CONV = (12, 24, 36, 48)
 
 def pick_crop_size(
     f: float, range_bins: int, buckets=_MO_BUCKETS

@@ -1,7 +1,8 @@
 """The particle filter step and its host dispatch (counterpart of
 filter/filter.py).
 
-One update: score (exact gather, the crop kernel at a uniform scale, or
+One update: score (exact gather, the crop kernel at a uniform scale, the
+conv cost field over a clustered cloud's region at a uniform scale, or
 the K-bucket crop kernel under an unknown scale) -> per-particle tracked
 / theta-search cost -> weight 1/(cost + reg) with the force-on-map and
 scale-range gates -> NaN repair and distance regularisation -> adaptive
@@ -25,6 +26,7 @@ import torch
 
 from top_down_renderer_torch.config import FilterParams
 from top_down_renderer_torch.core.grids import FilterState, Particles
+from top_down_renderer_torch.filter import conv_score
 from top_down_renderer_torch.filter import crop_score
 from top_down_renderer_torch.filter import gmm as gmm_mod
 from top_down_renderer_torch.filter import multiscale as ms
@@ -224,18 +226,23 @@ def make_update_step(
     return update
 
 
-def _select_flavour(mode: str, p: Particles, tracked, init, num_rot: int):
-    """(cost, theta) of one crop flavour: tracked() -> (num, den, kf) at
-    each particle's own rotation, init() -> (best, k, kf) of the theta
-    search; "mixed" runs both with the exact path's per-particle
+def _search_theta(sel, num_rot: int):
+    """(best_cost, best_theta) from a crop theta search's (best, k, kf)."""
+    best, k, _ = sel
+    return best, k.to(torch.float32) * (2.0 * math.pi / num_rot)
+
+
+def _select_flavour(mode: str, p: Particles, tracked, init):
+    """(cost, theta) of one fast flavour: tracked() -> (num, den, kf) at
+    each particle's own rotation, init() -> (best_cost, best_theta) of the
+    theta search; "mixed" runs both with the exact path's per-particle
     select."""
     if mode != "init":
         num, den, kf = tracked()
         cost_t = torch.where(kf < 0.5, torch.nan, num / den)
         if mode == "tracked":
             return cost_t, p.theta
-    best, k, _ = init()
-    theta_i = k.to(torch.float32) * (2.0 * math.pi / num_rot)
+    best, theta_i = init()
     if mode == "init":
         return best, theta_i
     have = p.have_init
@@ -277,40 +284,73 @@ def make_update_step_fast(
     k_max: int = 8,
     gmm_every: int = 1,
     mip: int = 1,
+    path: str = "crop",  # "crop" | "conv"
+    mo: int = 24,
+    region: int = 128,
+    window_w: int = 100,
 ):
-    """The crop-kernel update step for a uniform particle scale:
+    """The fast update step for a uniform particle scale:
     update(state, maps, map_size_scaled, stencil, scan, res, scale=None,
-    shift=None, generator=None), where `maps` is a crop_score.CropMap of
-    the packed map at this mip level (crop_score.mip_map) and `scale`, if
-    given, the particles' scale on the host (else particle 0's is read on
-    the card).  mode "tracked" scores
-    each particle at its own rotation, "init" runs the theta search,
-    "mixed" both with the exact path's per-particle select.  At mip > 1
-    the kernel sees f / mip at resolution map_resolution * mip: an NN
-    granularity of mip px."""
+    s0=0, shift=None, generator=None), where `scale`, if given, is the
+    particles' scale on the host (else particle 0's is read on the card).
+    mode "tracked" scores each particle at its own rotation, "init" runs
+    the theta search, "mixed" both with the exact path's per-particle
+    select.
+
+    path "crop": the crop kernels, any spatial spread; `maps` is a
+    crop_score.CropMap of the packed map at this mip level
+    (crop_score.mip_map).  At mip > 1 the kernel sees f / mip at
+    resolution map_resolution * mip: an NN granularity of mip px.
+
+    path "conv": the conv cost field over a (region, region) block of
+    centres (conv_score), for a clustered cloud; `maps` is a
+    conv_score.ConvMap, mo the conv kernel's bucket, and the tracked
+    flavour reads the shift window [s0, s0 + window_w).  The theta search
+    feeds its (N, num_rot) costs, gated where kf < 0.5, to
+    select_init_cost."""
     if mode not in ("tracked", "init", "mixed"):
         raise ValueError(f"unknown crop mode {mode!r}")
+    if path not in ("crop", "conv") or (path == "conv" and mip != 1):
+        raise ValueError(f"no fast path {path!r} at mip {mip}")
     class_weights = _pad_class_weights(params, grid_num_classes)
     num_rot = params.num_rot_search
     mres = map_resolution * mip
+    if path == "conv":
+        conv = {
+            flavour: conv_score.make_conv_scorer(
+                mo, region, flavour, num_rot, map_resolution, window_w)
+            for flavour in ("tracked", "init")
+            if mode in (flavour, "mixed")
+        }
 
-    def score(p: Particles, maps, stencil, scan, res, scale=None):
+    def score(p: Particles, maps, stencil, scan, res, scale=None, s0=0):
         # the dispatch's host scale, every particle's at a fixed or frozen
         # scale, gives f in the same float32 steps as particle 0's on the
-        # card, and lets `maps` keep the stencil's fold (CropMap.fold)
+        # card, and lets a CropMap keep the stencil's fold (CropMap.fold)
         if scale is None:
             f = p.scale[0] * torch.as_tensor(
                 res, dtype=torch.float32, device=scan.device
             ) / mip
         else:
             f = float(np.float32(scale) * np.float32(res) / np.float32(mip))
-        args = (grid_num_classes, stencil, scan,
-                class_weights.to(scan.device), p.pose_px())
+        cw = class_weights.to(scan.device)
+        if path == "conv":
+            args = (maps, stencil, scan, cw, p.pose_px(), p.theta, f,
+                    p.alive)
+
+            def init():
+                nums, dens, kf = conv["init"](*args)
+                costs = torch.where(kf[:, None] < 0.5, torch.nan, nums / dens)
+                return select_init_cost(costs, num_rot)
+
+            return _select_flavour(
+                mode, p, lambda: conv["tracked"](*args, s0), init)
+        args = (grid_num_classes, stencil, scan, cw, p.pose_px())
         return _select_flavour(
             mode, p,
             lambda: crop_score.score_tracked(maps, *args, p.theta, f, mres),
-            lambda: crop_score.score_init_sel(maps, *args, f, num_rot, mres),
-            num_rot,
+            lambda: _search_theta(crop_score.score_init_sel(
+                maps, *args, f, num_rot, mres), num_rot),
         )
 
     return _scored_step(score, params, n_max, k_max, gmm_every, theta_bins)
@@ -348,14 +388,52 @@ def make_update_step_multiscale(
                 *args, p.theta, p.scale, slot_vals, bucket_level, res,
                 map_resolution,
             ),
-            lambda: ms.score_init_multi_sel(
+            lambda: _search_theta(ms.score_init_multi_sel(
                 *args, p.scale, slot_vals, bucket_level, res, num_rot,
                 map_resolution,
-            ),
-            num_rot,
+            ), num_rot),
         )
 
     return _scored_step(score, params, n_max, k_max, gmm_every, theta_bins)
+
+
+class FastDispatch(NamedTuple):
+    """The host plan of one known-scale update (ParticleFilter._fast_mode),
+    in the reference's field order: mode, the crop or conv bucket mo, the
+    host scale, path ("crop" | "conv"), the conv region, the tracked
+    shift window [s0, s0 + ww), and the crop path's mip level."""
+
+    mode: str
+    mo: int
+    scale: float
+    path: str
+    region: int
+    s0: int
+    ww: int
+    mip: int
+
+
+# the packed host snapshot's layout (_snapshot_vec)
+_SNAP_BBOX = slice(0, 4)
+_SNAP_NACT = 4
+_SNAP_ML = slice(5, 9)
+_SNAP_COV = slice(9, 25)
+_SNAP_SMASK = slice(25, None)
+
+
+def _snapshot_vec(state: FilterState) -> torch.Tensor:
+    """The small per-update values the host dispatch reads, in one float32
+    vector, so that one copy to the host brings them all: bbox[4],
+    n_active, mean-likelihood state[4], mean covariance[16],
+    smask[Th]."""
+    ml, cov = stats_mod.pose_stats(state.particles, state.n_active)
+    return torch.cat([
+        state.bbox.to(torch.float32).reshape(4),
+        torch.as_tensor(state.n_active).to(torch.float32).reshape(1),
+        ml.to(torch.float32).reshape(4),
+        cov.to(torch.float32).reshape(16),
+        state.smask.to(torch.float32).reshape(-1),
+    ])
 
 
 class MultiDispatch(NamedTuple):
@@ -379,13 +457,14 @@ class ParticleFilter:
     the initial cloud comes from numpy's generator with the same seed,
     as in the reference package.
 
-    Dispatch per update: at a known scale (fixed or frozen) the crop
-    kernel scores the cloud, on a mip of the map when scale * res
-    exceeds the crop buckets; at an unknown scale the K-bucket crop
-    kernel scores it on a mip pyramid (_multi_mode).  The exact step runs
-    only where the reference also falls back: no crop bucket even at mip
-    32, alive scales beyond the clustering ladder, or a live scale
-    bucket beyond mip 64."""
+    Dispatch per update: at a known scale (fixed or frozen) the conv cost
+    field scores a cloud whose alive bounding box fits a conv region (and
+    whose block fits the padded map), else the crop kernel scores it, on a
+    mip of the map when scale * res exceeds the crop buckets; at an
+    unknown scale the K-bucket crop kernel scores it on a mip pyramid
+    (_multi_mode).  The exact step runs only where the reference also
+    falls back: no crop bucket even at mip 32, alive scales beyond the
+    clustering ladder, or a live scale bucket beyond mip 64."""
 
     def __init__(
         self,
@@ -421,6 +500,10 @@ class ParticleFilter:
         self._scale_frozen_host = False
         self._frozen_scale_cache = -1.0
         self._slow_reason = None
+        self._snap = None  # (state, its _snapshot_vec on the host)
+        # rotation and distance since the last update, for _shift_window
+        self._last_omega = 0.0
+        self._last_dist_m = 0.0
         self._last_map_center = np.zeros(2, dtype=np.int64)
         if tdmap.have_map:
             self.initialize_particles()
@@ -506,6 +589,8 @@ class ParticleFilter:
             return
         t = np.asarray(trans, dtype=np.float64).reshape(-1)
         d = float(np.hypot(t[0], t[1]))
+        self._last_omega += float(omega)
+        self._last_dist_m += d
         t2 = np.asarray(trans, np.float32).reshape(2)
         if self._pending_motion is None:
             self._pending_motion = (t2, float(omega), d)
@@ -551,10 +636,59 @@ class ParticleFilter:
             return "tracked"
         return "init" if not bool(have.any()) else "mixed"
 
+    def _host_snapshot(self) -> np.ndarray:
+        """The current state's _snapshot_vec on the host (layout _SNAP_*):
+        one copy from the card per state, kept for further reads."""
+        if self._snap is None or self._snap[0] is not self.state:
+            self._snap = (self.state, _snapshot_vec(self.state).cpu().numpy())
+        return self._snap[1]
+
+    def _conv_region(self, mo: int):
+        """The conv region bucket of the alive bounding box, or None where
+        it fits no bucket or the conv block (region + kernel - 1) does not
+        fit the map with its MAP_PAD border."""
+        snap = self._host_snapshot()
+        if snap[_SNAP_NACT] <= 0:
+            return None
+        bb = snap[_SNAP_BBOX] / self.map.resolution
+        extent = int(np.ceil(max(bb[2] - bb[0], bb[3] - bb[1]))) + 2
+        region = conv_score.pick_region(extent)
+        dr, dc = conv_score.conv_dims(mo)
+        g = self.map.grid
+        if region is None or (
+            region + dr - 1 > g.height + 2 * conv_score.MAP_PAD
+            or region + dc - 1 > g.width + 2 * conv_score.MAP_PAD
+        ):
+            return None
+        return region
+
+    def _shift_window(self):
+        """Smallest circular shift window (s0, ww) covering the live shifts
+        (the state's smask), padded for this step's rotation and 3 sigma
+        of its theta noise, bucketed to {16, 32, 64, theta_bins}."""
+        th = self.theta_bins
+        present = np.nonzero(self._host_snapshot()[_SNAP_SMASK] > 0.5)[0]
+        if len(present) == 0 or len(present) == th:
+            return 0, th
+        # the largest circular gap between consecutive live shifts
+        gaps = np.diff(np.concatenate([present, [present[0] + th]]))
+        gi = int(np.argmax(gaps))
+        span = th - int(gaps[gi])  # the covered arc, bins - 1
+        start = int(present[(gi + 1) % len(present)])
+        noise3 = 3.0 * self.params.theta_cov * self._last_dist_m
+        margin = int(np.ceil(abs(self._last_omega) * th / (2 * np.pi))) + max(
+            3, int(np.ceil(noise3 * th / (2 * np.pi))))
+        need = span + 1 + 2 * margin
+        for ww in (16, 32, 64):
+            if need <= ww:
+                return int((start - margin - (ww - need) // 2) % th), ww
+        return 0, th
+
     def _fast_mode(self, res: float):
-        """Host dispatch: (mode, mo, scale, mip) for the crop step, a
+        """Host dispatch: a FastDispatch for the conv or crop step, a
         MultiDispatch for the K-bucket step (unknown scale), or None for
-        the exact step."""
+        the exact step.  The conv branch reads the state's bounding box
+        and smask to the host in one packed read (_host_snapshot)."""
         if self.params.fixed_scale > 0:
             scale = self.params.fixed_scale
         elif self._scale_frozen_host:
@@ -563,11 +697,23 @@ class ParticleFilter:
             return self._multi_mode(res)
         mode = self._crop_mode()
         range_bins = self.map.stencil.shape[1]
+        mo_conv = crop_score.pick_crop_size(
+            scale * res, range_bins, crop_score._MO_BUCKETS_CONV)
+        region = None if mo_conv is None else self._conv_region(mo_conv)
+        if region is not None:
+            # mixed: the smask predates the partial reinit, whose fresh
+            # thetas are not in it, so the window is the full one
+            s0, ww = (0, self.theta_bins) if mode == "mixed" else (
+                self._shift_window())
+            self._slow_reason = None
+            return FastDispatch(mode, mo_conv, scale, "conv", region, s0, ww,
+                                1)
         for mip in (1, 2, 4, 8, 16, 32):
             mo = crop_score.pick_crop_size(scale * res / mip, range_bins)
             if mo is not None:
                 self._slow_reason = None
-                return mode, mo, scale, mip
+                return FastDispatch(mode, mo, scale, "crop", 0, 0,
+                                    self.theta_bins, mip)
         return self._slow_path(
             "scale*res=%.3g exceeds every crop bucket even at mip 32"
             % (scale * res)
@@ -632,8 +778,17 @@ class ParticleFilter:
             ))
         return self._maps_cache[key]
 
-    def _get_fast_fn(self, mode: str, mip: int):
-        key = (mode, mip)
+    def _get_conv_map(self) -> conv_score.ConvMap:
+        """The conv path's padded compact map, per map version."""
+        key = (self._map_version, "conv")
+        if key not in self._maps_cache:
+            self._maps_cache[key] = conv_score.ConvMap(
+                self._get_map(1).compact(self.map.grid.num_classes))
+        return self._maps_cache[key]
+
+    def _get_fast_fn(self, mode: str, mo: int, path: str = "crop",
+                     region: int = 0, window_w: int = 100, mip: int = 1):
+        key = (mode, mo, path, region, window_w, mip)
         if key not in self._fast_fns:
             self._fast_fns[key] = make_update_step_fast(
                 self.params,
@@ -644,6 +799,10 @@ class ParticleFilter:
                 mode,
                 gmm_every=self.gmm_every,
                 mip=mip,
+                path=path,
+                mo=mo,
+                region=region,
+                window_w=window_w,
             )
         return self._fast_fns[key]
 
@@ -679,14 +838,24 @@ class ParticleFilter:
                 map_size_scaled, stencil, scan, res, slots,
                 generator=self.generator,
             )
+        elif fast.path == "conv":
+            self.state = self._get_fast_fn(
+                fast.mode, fast.mo, "conv", fast.region, fast.ww,
+            )(
+                self.state, self._get_conv_map(), map_size_scaled, stencil,
+                scan, res, fast.scale, fast.s0, generator=self.generator,
+            )
         else:
-            mode, _mo, scale, mip = fast
-            self.state = self._get_fast_fn(mode, mip)(
-                self.state, self._get_map(mip), map_size_scaled, stencil,
-                scan, res, scale, generator=self.generator,
+            self.state = self._get_fast_fn(
+                fast.mode, fast.mo, mip=fast.mip,
+            )(
+                self.state, self._get_map(fast.mip), map_size_scaled,
+                stencil, scan, res, fast.scale, generator=self.generator,
             )
         # every scoring path sets have_init for all particles
         self._all_have_init = True
+        self._last_omega = 0.0
+        self._last_dist_m = 0.0
 
     # -- queries -------------------------------------------------------
     def n_active_host(self) -> int:

@@ -18,6 +18,7 @@ Both give the same rows, bit for bit.
 
 from __future__ import annotations
 
+import ctypes
 import os
 from typing import Optional
 
@@ -124,9 +125,31 @@ def fill_rows_plain(rows0: torch.Tensor, valid0: torch.Tensor) -> torch.Tensor:
     return rows0.index_select(0, src)
 
 
+FILL_TILE = 1024  # slots per block of the fill kernel (kTile)
+_EPOCHS = 2**30  # the kernel's status words hold epochs below this
+# (device index, stream) -> [scratch (1 + tiles,) int64, last epoch]
+_fill_scratch = {}
+
+
+def _fill_status(dev: torch.device, tiles: int):
+    """The fill kernel's scratch on this device and stream, and a fresh
+    epoch for it.  The scratch is zeroed once when made (or grown, or when
+    the epochs run out); every call after that gets the next epoch, so the
+    status words of earlier calls read as unpublished and nothing is reset
+    between calls."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    ent = _fill_scratch.get(key)
+    if ent is None or ent[0].numel() < 1 + tiles or ent[1] + 1 >= _EPOCHS:
+        ent = [torch.zeros(1 + tiles, dtype=torch.int64, device=dev), 0]
+        _fill_scratch[key] = ent
+    ent[1] += 1
+    return ent[0], ent[1]
+
+
 def fill_rows(rows0: torch.Tensor, valid0: torch.Tensor) -> torch.Tensor:
     """The forward fill of fill_rows_plain: on CPU tensors the plain
-    version, on CUDA the kernel of csrc/fill_rows.cu; any other device
+    version, on CUDA the kernel of csrc/fill_rows.cu (one pass over tiles
+    of FILL_TILE slots with a decoupled look-back); any other device
     raises."""
     dev = rows0.device
     if not kernels.on_card(dev, "forward fill"):
@@ -141,8 +164,9 @@ def fill_rows(rows0: torch.Tensor, valid0: torch.Tensor) -> torch.Tensor:
     if not 1 <= n < 2**31 // 8:
         raise ValueError(f"fill of {n} rows is out of range")
     out = torch.empty_like(rows0)
+    scratch, epoch = _fill_status(dev, -(-n // FILL_TILE))
     kernels.launch("fill_rows", "tdr_fill_rows", ptr(rows0), ptr(valid0), n,
-                   ptr(out))
+                   ptr(out), ptr(scratch), ctypes.c_uint(epoch))
     kernels.LAUNCHES["fill_rows"] += 1
     return out
 

@@ -88,8 +88,8 @@ _SIGNATURES = {
         ),
     },
     "fill_rows": {
-        # rows0, valid0, N, out, stream
-        "tdr_fill_rows": (_P, _P, _I, _P, _P),
+        # rows0, valid0, N, out, scratch, epoch, stream
+        "tdr_fill_rows": (_P, _P, _I, _P, _P, ctypes.c_uint, _P),
     },
 }
 
