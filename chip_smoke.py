@@ -16,12 +16,15 @@ Phases (any failure exits non-zero before the result line):
      kernel also runs twice on the same inputs and must return the same
      bits (here and wherever a kernel is held against its plain version),
      and the tracked kernels' offset fold (one launch) must equal
-     crop_score.fold_offsets (here, in B2 and in D);
+     crop_score.fold_offsets (here, in B2 and in D); the theta search's
+     raw rows (its raw-row epilogue) against score_init_raw_plain: kf bit
+     for bit, nums and dens within rel 1e-4, and select_init_cost of the
+     kernel's rows the argmin of the theta-search kernel on >= 99.9 %;
   B2. the K-bucket crop kernels against their plain versions on the
      same map with the 10 init hypotheses 10^{k/10} at res 0.5 (the
      levels the dispatch picks), and per bucket against the uniform
-     kernel on that bucket's mip level; the fill kernel against its
-     plain version;
+     kernel on that bucket's mip level; the K-bucket raw rows as in B;
+     the fill kernel against its plain version;
   C. the known-scale main path through the public entry points: the
      consumer drive (2,048 particles, 30 scans, must converge) and 20
      updates of 102,400 particles on a 1024^2 map from a spread init;
@@ -62,6 +65,22 @@ Phases (any failure exits non-zero before the result line):
      runs on the spread cloud (tiles over all 100 shifts); the lines of
      the crop kernels give the distinct pixels of their stencil (per
      bucket on the K-bucket path), the pixels each particle reads;
+     the raw-row kernels on the theta searches' inputs;
+  M1. the multi-device filter (ParticleFilter(mesh=...)) on a world-1
+     NCCL mesh on the card, 102,400 particles on the 1024^2 map: (a) ten
+     unknown-scale updates standing (the K-bucket theta search through
+     the raw-row kernel, then tracked), (b) five updates of C4's
+     clustered cloud on the row-sharded conv step, (c) one known-scale
+     update of a spread cloud, which plans crop and so runs the sharded
+     exact step, as the reference's mesh does; each held against the
+     single-device filter from the same state with the same draws
+     (max_likelihood rtol 1e-4, atol 1e-5), each update's plan and
+     launches checked, the dispatch keys equal to the plans; then the
+     mesh update against the single-device one by host clock, (a)'s theta
+     search and (b)'s conv update;
+  M2. the same three on two ranks over gloo on the one card (two
+     processes; collectives through host memory), held against M1 at the
+     same tolerance (their times are not the card's mesh times);
   E. one JSON line of kernel results with each kernel's bound on the
      work its inputs need (the crop kernels per distinct stencil pixel:
      the theta searches on the nonzero entries of M on bf16 tensor cores,
@@ -78,8 +97,10 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -87,6 +108,7 @@ sys.path.insert(0, os.path.join(ROOT, "tests"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
@@ -107,6 +129,8 @@ from top_down_renderer_torch.filter.scoring import (  # noqa: E402
     rotation_shift,
     shift_mask,
 )
+from top_down_renderer_torch.parallel import sharding  # noqa: E402
+from top_down_renderer_torch.parallel.launch import run_ranks  # noqa: E402
 from top_down_renderer_torch.render.semantic import (  # noqa: E402
     render_semantic_polar,
 )
@@ -120,15 +144,20 @@ CROP_SRC = "top_down_renderer_torch/csrc/crop_score.cu"
 INIT_SRC = "top_down_renderer_torch/csrc/crop_score_init.cu"
 FILL_SRC = "top_down_renderer_torch/csrc/fill_rows.cu"
 # the kernels' names in a profile, at the drive map's 3 classes (the two
-# theta searches are one kernel at CP = 4 channels, the two tracked
-# kernels one at C = 3)
+# theta searches are one kernel at CP = 4 channels, their raw-row epilogue
+# another, the two tracked kernels one at C = 3); a bool template argument
+# in either of the demangler's spellings
+_ARGMIN = ("crop_init_kernel<4, false>", "crop_init_kernel<4, (bool)0>")
+_RAW = ("crop_init_kernel<4, true>", "crop_init_kernel<4, (bool)1>")
 SYMBOLS = {
-    "crop_fold": "crop_fold_kernel",
-    "crop_score_tracked": "crop_tracked_kernel<3>",
-    "crop_score_init": "crop_init_kernel<4>",
-    "crop_score_multi_tracked": "crop_tracked_kernel<3>",
-    "crop_score_multi_init": "crop_init_kernel<4>",
-    "fill_rows": "fill_rows_kernel",
+    "crop_fold": ("crop_fold_kernel",),
+    "crop_score_tracked": ("crop_tracked_kernel<3>",),
+    "crop_score_init": _ARGMIN,
+    "crop_score_multi_tracked": ("crop_tracked_kernel<3>",),
+    "crop_score_multi_init": _ARGMIN,
+    "crop_score_init_raw": _RAW,
+    "crop_score_multi_init_raw": _RAW,
+    "fill_rows": ("fill_rows_kernel",),
 }
 # name -> (source, the TPU kernel it replaces)
 KERNELS = {
@@ -142,9 +171,17 @@ KERNELS = {
         CROP_SRC, "top_down_renderer_tpu/filter/multiscale.py:444"),
     "crop_score_multi_init": (
         INIT_SRC, "top_down_renderer_tpu/filter/multiscale.py:363"),
+    # the raw-row epilogue (sel_init = 0) of the same kernel: the uniform
+    # one is on no path of the reference (its parity surface), the
+    # K-bucket one is the multi-device init step's
+    "crop_score_init_raw": (
+        INIT_SRC, "top_down_renderer_tpu/filter/pallas_score.py:693"),
+    "crop_score_multi_init_raw": (
+        INIT_SRC, "top_down_renderer_tpu/filter/multiscale.py:363"),
     "fill_rows": (FILL_SRC, "top_down_renderer_tpu/filter/resample.py:116"),
 }
-INIT = ("crop_score_init", "crop_score_multi_init")
+RAW = ("crop_score_init_raw", "crop_score_multi_init_raw")
+INIT = ("crop_score_init", "crop_score_multi_init") + RAW
 # published H100 SXM peaks (dense): float32 outside the tensor cores, bf16
 # on them, HBM
 PEAK_F32_FLOPS = 67e12
@@ -155,6 +192,9 @@ HW = 1024
 C = 6
 RES = 0.5  # range m/bin: f = scale 2 * 0.5 = 1.0, mip 1
 REL_TOL = 1e-4  # float32 sums of ~15,000 positive terms in two orders
+ML_RTOL, ML_ATOL = 1e-4, 1e-5  # max_likelihood, mesh against one device
+M_MULTI = 10  # M's unknown-scale updates
+M_CONV = 5  # M's conv updates
 
 
 def log(msg: str) -> None:
@@ -255,6 +295,35 @@ def compare(label, errs, names, tracked, init, need_gated=False) -> None:
         f"{int((~ok).sum())})")
 
 
+def compare_raw(label, errs, name, raw, plain, sel) -> None:
+    """A raw-row kernel against its plain version (calls without
+    arguments): kf bit for bit, nums and dens within REL_TOL where kf >=
+    0.5, and select_init_cost of the kernel's rows the theta-search
+    kernel's argmin (`sel`) on >= 99.9 % of the rows.  Folds the largest
+    |err| and relative error into errs."""
+    nums, dens, kf = raw()
+    rnums, rdens, rkf = plain()
+    best, k, _ = sel()
+    torch.cuda.synchronize()
+    check(torch.equal(kf, rkf), f"{label}: raw kf differs")
+    ok = rkf >= 0.5
+    rel = 0.0
+    for a, b, what in ((nums, rnums, "num"), (dens, rdens, "den")):
+        r = max_rel(b[ok], a[ok])
+        check(r <= REL_TOL, f"{label}: raw {what} rel {r}")
+        rel = max(rel, r)
+        errs["abs"][name] = max(errs["abs"][name],
+                                float((a - b)[ok].abs().max()))
+    errs["rel"][name] = max(errs["rel"][name], rel)
+    rbest, theta = filter_mod._raw_theta((nums, dens, kf), nums.shape[1])
+    rk = torch.round(theta * (nums.shape[1] / (2 * math.pi))).long()
+    same_k = float((rk == k).float().mean())
+    check(same_k >= 0.999, f"{label}: select_init_cost of the raw rows "
+          f"agrees with the argmin kernel on {same_k:.5f}")
+    log(f"[{label}] raw rows agree (num/den rel {rel:.3e}, kf bit for bit, "
+        f"argmin same as the theta-search kernel on {same_k:.5f})")
+
+
 def check_fold(label, off) -> None:
     """The fold kernel against fold_offsets on the same offsets: equal."""
     got = cs.fold_pixels(off)
@@ -313,11 +382,30 @@ def phase_b(dev, errs):
         check_fold(f"B f={f}", cs.crop_offsets(t["stencil"], f)[None])
         compare(f"B C={C} f={f}", errs, CROP, *crop_pair(args, theta, f),
                 need_gated=True)
+        compare_raw(f"B raw C={C} f={f}", errs, RAW[0], *raw_triple(args, f))
     errs["abs"]["crop_fold"] = 0.0
     init_ms = median_ms(lambda: cs.score_init_sel(*args, 1.0))
     log(f"[B] theta-search kernel at C={C}, f=1.0: {init_ms:.4f} ms")
     torch.cuda.synchronize()
     return args, theta
+
+
+def raw_triple(args, f):
+    """(raw kernel, plain, argmin kernel) calls of the uniform theta
+    search; args[0] is the map's CropMap."""
+    maps, rest = args[0], args[1:]
+    return (lambda: cs.score_init_raw(maps, *rest, f),
+            lambda: cs.score_init_raw_plain(maps.packed, *rest, f),
+            lambda: cs.score_init_sel(maps, *rest, f))
+
+
+def multi_raw_triple(args, scale, slots, bmi):
+    """(raw kernel, plain, argmin kernel) calls of the K-bucket theta
+    search."""
+    return (lambda: ms.score_init_multi_raw(*args, scale, slots, bmi, RES),
+            lambda: ms.score_init_multi_raw_plain(*args, scale, slots, bmi,
+                                                  RES),
+            lambda: ms.score_init_multi_sel(*args, scale, slots, bmi, RES))
 
 
 def init_plan():
@@ -353,6 +441,8 @@ def phase_b2(dev, errs, b_args, theta):
     args = (pyr, C, sten, scan, cw, ctr)
     compare("B2 multi", errs, MULTI,
             *multi_pair(args, theta, scale, slots_t, bmi), need_gated=True)
+    compare_raw("B2 multi raw", errs, RAW[1],
+                *multi_raw_triple(args, scale, slots_t, bmi))
 
     tr = ms.score_tracked_multi(*args, theta, scale, slots_t, bmi, RES)
     ini = ms.score_init_multi_sel(*args, scale, slots_t, bmi, RES)
@@ -654,10 +744,10 @@ def device_us(evt) -> float:
     return 0.0
 
 
-def kernel_ms(fn, symbol: str, runs: int = 20) -> float:
+def kernel_ms(fn, symbols, runs: int = 20) -> float:
     """The kernel's own device time per launch: `runs` calls of fn (its
     wrapper) under torch.profiler, the mean over the device events whose
-    name holds `symbol` (the profiler may miss a short one)."""
+    name holds one of `symbols` (the profiler may miss a short one)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -667,10 +757,11 @@ def kernel_ms(fn, symbol: str, runs: int = 20) -> float:
             fn()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and symbol in e.key]
+              if e.device_type == DeviceType.CUDA
+              and any(sym in e.key for sym in symbols)]
     seen = sum(e.count for e in events)
     check(0 < seen <= runs, f"the profiler saw {seen} launches of "
-          f"{symbol} in {runs} calls")
+          f"{symbols} in {runs} calls")
     return sum(device_us(e) for e in events) / seen / 1e3
 
 
@@ -721,7 +812,7 @@ def pixel_bound(compact, c, npix, counts, inputs):
     return bound(ops, nbytes(compact, *inputs) + n * 12)
 
 
-def tc_bound(compact, c, shifts, npix, counts, inputs):
+def tc_bound(compact, c, shifts, npix, counts, inputs, out_floats=3):
     """The theta search on bf16 tensor cores, counting the products the
     inputs need, not the dense ones the kernel runs: M has C S + S + 1
     nonzero entries per distinct pixel (S cost columns on each class
@@ -729,11 +820,13 @@ def tc_bound(compact, c, shifts, npix, counts, inputs):
     each costs three split products of 2 FLOPs per particle of its bucket
     (npix (K,) distinct pixels, counts (K,) particles per bucket); the
     compact map, M's nonzero hi and lo entries and the per-particle
-    inputs read once, (N, 3) written."""
+    inputs read once, (N, out_floats) float32 written: 3 for the argmin,
+    2 S + 1 for the raw rows."""
     nnz = (c * shifts + shifts + 1) * npix.double().cpu()
     n = int(counts.sum())
     ops = 6.0 * float((counts.double().cpu() * nnz).sum())
-    moved = nbytes(compact, *inputs) + float(nnz.sum()) * 4 + n * 12
+    moved = (nbytes(compact, *inputs) + float(nnz.sum()) * 4
+             + n * 4 * out_floats)
     return bound(ops, moved, PEAK_BF16_FLOPS)
 
 
@@ -784,6 +877,14 @@ def phase_d(dev, pf, world, errs):
         pixels=int(npix[0]),
     )
     compare("D spread, C=3", errs, CROP, *pair)
+    raw = raw_triple(args, f)
+    out["crop_score_init_raw"] = dict(
+        timed("crop_score_init_raw", *raw[:2]),
+        bound=tc_bound(cmap.compact(3), 3, 40, npix, one, (ctr,), 81),
+        bound_f32=crop_bound(maps, 3, tr, 40, (ctr,)),
+        pixels=int(npix[0]),
+    )
+    compare_raw("D spread raw, C=3", errs, RAW[0], *raw)
 
     clustered = clustered_state(dev)
     ctr = clustered.particles.pose_px()
@@ -909,8 +1010,8 @@ def phase_d2(dev, world, errs):
         pyr = pf._get_pyramid_maps(plan.levels)
         p = state.particles
         slots = torch.as_tensor(plan.slots, device=dev)
-        pair = multi_pair((pyr, 3, sten, scan, cw, p.pose_px()),
-                          p.theta, p.scale, slots, plan.bmi)
+        pair = multi_pair(pair_args(pyr, sten, scan, cw, p), p.theta,
+                          p.scale, slots, plan.bmi)
 
         def update():
             pf.state, pf._all_have_init = state, have
@@ -940,7 +1041,22 @@ def phase_d2(dev, world, errs):
         log(f"[D2] {name}: {plan.mode}, K {plan.kp}, mo {plan.mo}, levels "
             f"{plan.levels}; host part of the dispatch {host_ms:.4f} ms")
         compare(f"D2 {plan.mode}, C=3", errs, MULTI, *pair)
+        if not tracked:
+            raw = multi_raw_triple(pair_args(pyr, sten, scan, cw, p), p.scale,
+                                   slots, plan.bmi)
+            out[RAW[1]] = dict(
+                timed(RAW[1], *raw[:2]),
+                bound=tc_bound(pyr.compact(3), 3, 40, npix, counts, inputs,
+                               81),
+                bound_f32=cells,
+                pixels=npix.tolist(),
+            )
+            compare_raw("D2 raw, C=3", errs, RAW[1], *raw)
     return out
+
+
+def pair_args(pyr, sten, scan, cw, p):
+    return (pyr, 3, sten, scan, cw, p.pose_px())
 
 
 def fill_times(rows0, valid0):
@@ -983,6 +1099,196 @@ def phase_d3(dev, pf):
                                                 "library_ms")})
     out["bound_2p22"] = big["bound"]
     return {"fill_rows": out}
+
+
+def launch_counts(names):
+    return np.asarray([kernels.LAUNCHES[k] for k in names] + [conv_calls()])
+
+
+def drive_standing(pf, world, dev, steps, names):
+    """`steps` updates with the robot standing (no motion pending): the
+    max_likelihood after each, the launches of `names` (and a last column
+    of conv cost fields) per update, and the plans."""
+    mls, per = [], []
+    with PlanLog() as plans:
+        for i in range(steps):
+            before = launch_counts(names)
+            pf.update(scan_at(world, i, dev, move=False), RES)
+            per.append(launch_counts(names) - before)
+            mls.append(pf.max_likelihood())
+    return np.stack(mls), np.stack(per), plans
+
+
+M_NAMES = ("crop_score_multi_init_raw", "crop_score_multi_tracked",
+           "crop_score_multi_init", "crop_score_init", "crop_score_tracked")
+
+
+def mesh_drives(dev, world, mesh):
+    """M's three drives on filters over `mesh` (None: one device), at
+    102,400 particles on the drive world: (a) M_MULTI unknown-scale
+    updates from the 10 hypotheses; (b) M_CONV updates of the clustered
+    cloud, generator seeded 7; (c) one update of a fresh known-scale
+    spread cloud, on one device forced to the exact step.  No motion is
+    pending anywhere, so both run the same draws.  Returns per drive the
+    max_likelihoods, plans, dispatch keys and launches per update (of
+    M_NAMES, then conv cost fields), and the filters with their start
+    states under "pf"."""
+    out, pfs = {}, {}
+    pf, _ = make_filter(dev, N, seed=0, world=world, fixed_scale=-1.0,
+                        mesh=mesh)
+    pfs["multi"] = (pf, pf.state)
+    ml, per, plans = drive_standing(pf, world, dev, M_MULTI, M_NAMES)
+    out["multi"] = dict(
+        ml=ml, launches=per, keys=sorted(pf._sharded_fns, key=repr),
+        plans=[None if p is None else (p.mode, p.kp, p.bmi, p.mo)
+               for p in plans])
+
+    pf, _ = make_filter(dev, N, seed=0, world=world, mesh=mesh)
+    start = clustered_state(dev)
+    pf.state = start if mesh is None else sharding.shard_filter_state(
+        start, mesh)
+    pf._all_have_init = True
+    pf.generator.manual_seed(7)
+    pfs["conv"] = (pf, pf.state)
+    ml, per, plans = drive_standing(pf, world, dev, M_CONV, M_NAMES)
+    out["conv"] = dict(
+        ml=ml, launches=per, keys=sorted(pf._sharded_fns, key=repr),
+        plans=[(p.mode, p.mo, p.region, p.ww, p.path) for p in plans])
+
+    pf, _ = make_filter(dev, N, seed=0, world=world, mesh=mesh)
+    exact, step_fn = [], pf._update_fn
+
+    def exact_step(*a, **kw):
+        exact.append(1)
+        return step_fn(*a, **kw)
+
+    pf._update_fn = exact_step
+    if mesh is None:
+        pf._fast_mode = lambda res: None
+    ml, per, plans = drive_standing(pf, world, dev, 1, M_NAMES)
+    out["exact"] = dict(
+        ml=ml, launches=per, keys=sorted(pf._sharded_fns, key=repr),
+        exact=len(exact),
+        plans=[None if p is None else (p.mode, p.mo, p.path) for p in plans])
+    out["pf"] = pfs
+    return out
+
+
+def check_mesh_plans(label, got, n_ranks) -> None:
+    """The mesh's plans, keys and launches per update as the reference's
+    _update_sharded would dispatch them."""
+    a = got["multi"]
+    check([p[0] for p in a["plans"]] == ["init"] + ["tracked"] * (M_MULTI - 1),
+          f"{label} (a): plans {a['plans']}")
+    check(a["keys"] == sorted({("multi",) + p for p in a["plans"]}, key=repr),
+          f"{label} (a): keys {a['keys']} for plans {a['plans']}")
+    raw, tracked = a["launches"][:, 0], a["launches"][:, 1]
+    check(raw[0] == 1 and not raw[1:].any() and tracked[0] == 0
+          and (tracked[1:] == 1).all() and not a["launches"][:, 2:].any(),
+          f"{label} (a): launches per update {a['launches'].tolist()}")
+    b = got["conv"]
+    keys = set()
+    for mode, mo, region, ww, path in b["plans"]:
+        check(path == "conv", f"{label} (b): plans {b['plans']}")
+        s_out = 2 * ww + 1 if mode == "tracked" else 81
+        keys.add((mode, mo, region, ww, conv_score.s2d_gate(mo, s_out), 0))
+    check(b["keys"] == sorted(keys, key=repr),
+          f"{label} (b): keys {b['keys']} for plans {b['plans']}")
+    check(not b["launches"][:, :-1].any() and (b["launches"][:, -1] == 1).all(),
+          f"{label} (b): launches per update {b['launches'].tolist()}")
+    c = got["exact"]
+    check(c["plans"][0][2] == "crop" and c["keys"] == [] and c["exact"] == 1
+          and not c["launches"].any(),
+          f"{label} (c): plan {c['plans']}, keys {c['keys']}, exact steps "
+          f"{c['exact']}, launches {c['launches'].tolist()}")
+    log(f"[{label}] {n_ranks} rank(s): (a) {[p[0] for p in a['plans']]}, K "
+        f"{a['plans'][0][1]}, mo {a['plans'][0][3]}; (b) "
+        f"{b['plans'][0]}; (c) {c['plans'][0]} -> the sharded exact step")
+
+
+def check_close(label, got, ref) -> None:
+    for drive in ("multi", "conv", "exact"):
+        a, b = got[drive]["ml"], ref[drive]["ml"]
+        ok = np.allclose(a, b, rtol=ML_RTOL, atol=ML_ATOL)
+        check(ok, f"{label} ({drive}): max_likelihood {a.tolist()} against "
+              f"{b.tolist()}")
+        log(f"[{label}] {drive}: max_likelihood within rtol {ML_RTOL}, atol "
+            f"{ML_ATOL} over {len(a)} update(s), largest |diff| "
+            f"{float(np.abs(a - b).max()):.3e}")
+
+
+def mesh_update_times(world, dev, mesh_pfs, single_pfs):
+    """Host-clock median of the world-1 mesh update against the
+    single-device one, from the same state: (a)'s theta search (its start
+    at step 1, no GMM refit) and (b)'s conv update."""
+    scan = scan_at(world, 0, dev, move=False)
+    out = {}
+    for drive, have in (("multi", False), ("conv", True)):
+        for which, pfs in (("mesh", mesh_pfs), ("single", single_pfs)):
+            pf, start = pfs[drive]
+            start = start.replace(step=1)
+
+            def update(pf=pf, start=start, have=have):
+                pf.state, pf._all_have_init = start, have
+                pf._snap = None  # the snapshot of a new state is read afresh
+                pf.update(scan, RES)
+
+            out[f"{drive}_{which}_ms"] = median_ms(update)
+    return out
+
+
+def m2_rank(rank, world_size):
+    """One of M2's two ranks: the three drives on a gloo mesh over the one
+    card (launch.run_ranks' target)."""
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    torch.ones(1, device=dev)  # the card is this rank's current device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = sharding.make_mesh(world_size, device_type="cuda")
+    t0 = time.perf_counter()
+    out = mesh_drives(dev, make_world(HW, HW), mesh)
+    del out["pf"]
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_m(dev, world, read_launches):
+    """M1 on a world-1 NCCL mesh in this process, then M2 on two ranks
+    over gloo; returns the mesh update times."""
+    store = tempfile.mkdtemp(dir=kernels.BUILD_DIR)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(store, "m1"), 1), rank=0, world_size=1, device_id=dev)
+    try:
+        mesh = sharding.make_mesh(1)
+        kernels.reset_launch_counts()
+        calls = conv_calls()
+        m1 = mesh_drives(dev, world, mesh)
+        check(conv_calls() - calls == M_CONV,
+              "M1: not one cost field per conv update")
+        read_launches("M1", ("crop_score_multi_init_raw",
+                             "crop_score_multi_tracked", "crop_fold"))
+        check_mesh_plans("M1", m1, 1)
+        single = mesh_drives(dev, world, None)
+        kernels.reset_launch_counts()
+        check_close("M1 vs one device", m1, single)
+        times = mesh_update_times(world, dev, m1["pf"], single["pf"])
+        del m1["pf"], single["pf"]
+        t0 = time.perf_counter()
+        m2 = run_ranks("chip_smoke:m2_rank", 2, os.path.join(store, "m2"),
+                       timeout=300.0)
+        log(f"[M2] two ranks over gloo on the card: {time.perf_counter() - t0:.1f}"
+            f" s (their drives {m2[0]['seconds']:.1f} s)")
+        for r, got in enumerate(m2):
+            check_mesh_plans(f"M2 rank {r}", got, 2)
+            check_close(f"M2 rank {r} vs M1", got, m1)
+        for drive in ("multi", "conv", "exact"):
+            check(m2[0][drive]["plans"] == m2[1][drive]["plans"],
+                  f"M2 ({drive}): the ranks planned differently")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    return times
 
 
 def main() -> int:
@@ -1042,6 +1348,13 @@ def main() -> int:
     times.update(phase_d2(dev, world, errs))
     times.update(phase_d3(dev, pf_fill))
     log_clocks("D end")
+    mesh_times = phase_m(dev, world, read_launches)
+    log(f"[D] world-1 mesh update against the single-device update (host "
+        f"clock, median of 20; {N} particles, {HW}^2 map): K-bucket theta "
+        f"search {mesh_times['multi_mesh_ms']:.4f} against "
+        f"{mesh_times['multi_single_ms']:.4f} ms, conv "
+        f"{mesh_times['conv_mesh_ms']:.4f} against "
+        f"{mesh_times['conv_single_ms']:.4f} ms on {name_limit}")
     for name, t in times.items():
         extra = "".join(f", {k} {t[k]:.4f} ms"
                         for k in ("update_ms", "host_ms") if k in t)
@@ -1085,7 +1398,7 @@ def main() -> int:
             "route": "cuda",
             "source": KERNELS[name][0],
             "replaces": KERNELS[name][1],
-            "launches": launches[name],
+            "launches": launches.get(name, 0),
             "max_abs_err": errs["abs"][name],
             "ms": times[name]["ms"],
             "plain_ms": times[name]["plain_ms"],

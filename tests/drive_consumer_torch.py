@@ -51,9 +51,10 @@ PSI_GT = 0.7
 START = (60.0, 105.0)
 
 
-def make_filter(device="cpu", particles=2048, seed=0, world=None, **params):
+def make_filter(device="cpu", particles=2048, seed=0, world=None, mesh=None,
+                **params):
     """(ParticleFilter, world) on the drive's map and filter settings;
-    `params` override the FilterParams."""
+    `params` override the FilterParams; `mesh` shards the filter."""
     world = make_world() if world is None else world
     tdm = TopDownMap(
         MapParams(map_path="", num_classes=3), device=device,
@@ -71,7 +72,7 @@ def make_filter(device="cpu", particles=2048, seed=0, world=None, **params):
     )
     fp = dataclasses.replace(fp, **params)
     return ParticleFilter(particles, tdm, fp, seed=seed, chunk_size=512,
-                          device=device), world
+                          device=device, mesh=mesh), world
 
 
 def drive(

@@ -286,7 +286,8 @@ def test_fast_mode_plans_conv_as_jax(cloud, have_init, monkeypatch):
     reads = []
     snapshot = ft._snapshot_vec
     monkeypatch.setattr(ft, "_snapshot_vec",
-                        lambda st: reads.append(1) or snapshot(st))
+                        lambda st, *psum: reads.append(1)
+                        or snapshot(st, *psum))
     paths = set()
     for res in (0.25, 0.5, 0.75, 1.0, 2.0):
         ref = pf_j._fast_mode(res)

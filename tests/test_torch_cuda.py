@@ -1,5 +1,6 @@
-"""The CUDA kernels (uniform and K-bucket crop scoring, the forward fill)
-against their plain versions, and the conv path (cuDNN) against a float64
+"""The CUDA kernels (uniform and K-bucket crop scoring, with the theta
+searches' raw-row epilogue, and the forward fill) against their plain
+versions, and the conv path (cuDNN) against a float64
 convolution and against the CPU, on the card.
 
 These tests need a CUDA device and skip without one.  The file imports
@@ -308,6 +309,71 @@ def test_multi_init_kernel_matches_plain(dev, c, k, n, num_rot, single):
     assert np.mean(np_(kk) == np_(rk)) >= 0.99
     fin = np_(rbest) < cs.FLT_MAX
     assert_rel(np_(rbest)[fin], np_(best)[fin], 1e-4, "best cost")
+
+
+def _check_raw(got, ref, sel, num_rot, far=()):
+    """Raw rows (nums, dens, kf) against their plain version: kf bit-equal,
+    nums and dens within rel 1e-4 where kf >= 0.5, the rows of far-out
+    centres zero in both, and select_init_cost of the kernel's rows the
+    theta-search kernel's argmin `sel` (best, k, kf) on 99 % of them."""
+    nums, dens, kf = got
+    rnums, rdens, rkf = ref
+    assert nums.shape == dens.shape == (len(kf), num_rot)
+    np.testing.assert_array_equal(np_(kf), np_(rkf))
+    ok = np_(rkf) >= 0.5
+    for a, b, name in ((nums, rnums, "num"), (dens, rdens, "den")):
+        assert np.isfinite(np_(a)).all()
+        assert_rel(np_(b)[ok], np_(a)[ok], 1e-4, name)
+        for i in far:
+            assert not np_(a)[i].any() and not np_(b)[i].any(), (name, i)
+    best, theta = ft._raw_theta(got, num_rot)
+    k = torch.round(theta * (num_rot / (2 * np.pi))).long()
+    assert np.mean(np_(k) == np_(sel[1])) >= 0.99
+    np.testing.assert_array_equal(np_(best) == cs.FLT_MAX,
+                                  np_(sel[0]) == cs.FLT_MAX)
+    fin = np_(sel[0]) < cs.FLT_MAX
+    assert_rel(np_(sel[0])[fin], np_(best)[fin], 1e-4, "best cost")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,f,num_rot,n", [
+    (3, 0.5, 40, N), (6, 1.0, 40, N), (7, 0.37, 17, N), (1, 1.0, 40, 1),
+    (3, 1.0, 7, 129), (6, 0.5, 40, 193), (3, 1.0, 40, 102_400),
+])
+def test_init_raw_kernel_matches_plain(dev, c, f, num_rot, n):
+    """The theta search's raw-row epilogue against score_init_raw_plain:
+    tile edges, 1 to 40 shifts, 1 to 7 classes, centres at the map's edges
+    and far out (rows of zeros), kf-gated windows."""
+    packed, sten, scan, cw, centers, _ = _world(dev, c, 2, n)
+    maps = cs.CropMap(packed)
+    before = kernels.LAUNCHES["crop_score_init_raw"]
+    got = cs.score_init_raw(maps, c, sten, scan, cw, centers, f, num_rot)
+    ref = cs.score_init_raw_plain(packed, c, sten, scan, cw, centers, f,
+                                  num_rot)
+    sel = cs.score_init_sel(maps, c, sten, scan, cw, centers, f, num_rot)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["crop_score_init_raw"] == before + 1
+    _check_raw(got, ref, sel, num_rot, far=[i for i in (5, 6) if i < n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,k,n,num_rot,single", [
+    (3, 2, N, 40, False), (6, 10, N, 40, False), (7, 2, N, 17, False),
+    (1, 2, 1, 40, True), (3, 10, 129, 7, True), (3, 10, 102_400, 40, False),
+])
+def test_multi_init_raw_kernel_matches_plain(dev, c, k, n, num_rot, single):
+    """The K-bucket theta search's raw-row epilogue against
+    score_init_multi_raw_plain: each row back at its particle through the
+    bucket sort, windows across a level's edge and far out, a bucket of one
+    particle."""
+    args, _, tail = _multi_world(dev, c, k, 5, n, single)
+    before = kernels.LAUNCHES["crop_score_multi_init_raw"]
+    got = ms.score_init_multi_raw(*args, *tail, num_rot)
+    ref = ms.score_init_multi_raw_plain(*args, *tail, num_rot)
+    sel = ms.score_init_multi_sel(*args, *tail, num_rot)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["crop_score_multi_init_raw"] == before + 1
+    _check_raw(got, ref, sel, num_rot, far=[i for i in (5, 6) if i < n])
 
 
 @pytest.mark.cuda

@@ -3,7 +3,9 @@
 //
 // Replaces: top_down_renderer_tpu/filter/pallas_score.py::_kernel with its
 // `sel_init` epilogue (make_score_init(sel=True), run by _run_kernel) and
-// the K-bucket theta search of filter/multiscale.py::make_score_init_multi.
+// the K-bucket theta search of filter/multiscale.py::make_score_init_multi,
+// and the same kernel's raw-row epilogue (sel_init = 0: make_score_init and
+// make_score_init_multi with sel=False, the multi-device init step's).
 // Like the TPU kernel it computes the search as a matrix product per tile
 // of particles:
 //
@@ -200,8 +202,8 @@ __device__ __forceinline__ void split(float2 v, uint32_t& hi, uint32_t& lo) {
 // (K + 1), tile_start (K + 1) and each bucket's chunk count (K); rows are
 // positions in the sorted order, perm maps them to particles (null: the
 // identity).  Level b of the map is table[b] = (pixel offset, H, W, -), or
-// (0, H, W) when table is null.
-template <int CP>
+// (0, H, W) when table is null.  RAW picks the raw-row epilogue.
+template <int CP, bool RAW>
 __global__ void __launch_bounds__(kThreads, 1)
     crop_init_kernel(const float* __restrict__ map,    // (pixels, CP)
                      const int4* __restrict__ table, int H, int W,
@@ -342,6 +344,25 @@ __global__ void __launch_bounds__(kThreads, 1)
   // epilogue: accumulator 4j + 2h (+1) holds column 8j + 2t (+1) of row
   // g + 8h, i.e. cost (norm) of shift k = 4j + t; column 80 (j 10, t 0)
   // the count of known stencil cells
+  if constexpr (RAW) {
+    const int width = 2 * S + 1;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = wrow + g + 8 * h;
+      if (row >= row_end) continue;
+      float* o = out + (size_t)(perm ? perm[row] : row) * width;
+#pragma unroll
+      for (int j = 0; j < kMaxSearch / 4; ++j) {
+        const int k = 4 * j + t;
+        if (k < S) {
+          o[2 * k] = acc[4 * j + 2 * h];
+          o[2 * k + 1] = acc[4 * j + 2 * h + 1];
+        }
+      }
+      if (t == 0) o[2 * S] = acc[4 * (kKfCol / 8) + 2 * h];
+    }
+    return;
+  }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const float cnt =
@@ -390,13 +411,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int CP>
+template <int CP, bool RAW>
 cudaError_t launch(const float* map, const int* table, int H, int W, int K,
                    const void* m, const int* sched, int chunk_cap,
                    const int* perm, const int* centers, int N, int S,
                    float inv_tr, float* out, cudaStream_t stream) {
   static int ready_dev = -1;  // the smem opt-in is set once per device
-  auto kern = crop_init_kernel<CP>;
+  auto kern = crop_init_kernel<CP, RAW>;
   const int smem = kStages * Chunk<CP>::kBytes;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -416,6 +437,7 @@ cudaError_t launch(const float* map, const int* table, int H, int W, int K,
   return cudaGetLastError();
 }
 
+template <bool RAW>
 int by_channels(int CP, const float* map, const int* table, int H, int W,
                 int K, const void* m, const int* sched, int chunk_cap,
                 const int* perm, const int* centers, int N, int S,
@@ -425,14 +447,14 @@ int by_channels(int CP, const float* map, const int* table, int H, int W,
   const auto st = static_cast<cudaStream_t>(stream);
   switch (CP) {
     case 2:
-      return (int)launch<2>(map, table, H, W, K, m, sched, chunk_cap, perm,
-                            centers, N, S, inv_tr, out, st);
+      return (int)launch<2, RAW>(map, table, H, W, K, m, sched, chunk_cap,
+                                 perm, centers, N, S, inv_tr, out, st);
     case 4:
-      return (int)launch<4>(map, table, H, W, K, m, sched, chunk_cap, perm,
-                            centers, N, S, inv_tr, out, st);
+      return (int)launch<4, RAW>(map, table, H, W, K, m, sched, chunk_cap,
+                                 perm, centers, N, S, inv_tr, out, st);
     case 8:
-      return (int)launch<8>(map, table, H, W, K, m, sched, chunk_cap, perm,
-                            centers, N, S, inv_tr, out, st);
+      return (int)launch<8, RAW>(map, table, H, W, K, m, sched, chunk_cap,
+                                 perm, centers, N, S, inv_tr, out, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -443,14 +465,24 @@ int by_channels(int CP, const float* map, const int* table, int H, int W,
 // Plain C entry points (loaded with ctypes).  Each returns the CUDA error of
 // its launch (0 on success); none allocates or synchronises.  map: the
 // compact (H, W, CP) map; m, sched, chunk_cap: init_operands' records and
-// schedule (filter/crop_score.py); centers (N) int2 (cy, cx); out (N, 3).
+// schedule (filter/crop_score.py); centers (N) int2 (cy, cx); out (N, 3),
+// or (N, 2S + 1) for the raw-row entry points (*_raw).
 extern "C" int tdr_crop_score_init(const float* map, int H, int W, int CP,
                                    const void* m, const int* sched,
                                    int chunk_cap, const int* centers, int N,
                                    int S, float inv_tr, float* out,
                                    void* stream) {
-  return by_channels(CP, map, nullptr, H, W, 1, m, sched, chunk_cap, nullptr,
-                     centers, N, S, inv_tr, out, stream);
+  return by_channels<false>(CP, map, nullptr, H, W, 1, m, sched, chunk_cap,
+                            nullptr, centers, N, S, inv_tr, out, stream);
+}
+
+extern "C" int tdr_crop_score_init_raw(const float* map, int H, int W, int CP,
+                                       const void* m, const int* sched,
+                                       int chunk_cap, const int* centers,
+                                       int N, int S, float inv_tr, float* out,
+                                       void* stream) {
+  return by_channels<true>(CP, map, nullptr, H, W, 1, m, sched, chunk_cap,
+                           nullptr, centers, N, S, inv_tr, out, stream);
 }
 
 // K buckets: pyramid (pixels, CP) with table (K, 4) of (pixel offset, H, W,
@@ -462,6 +494,17 @@ extern "C" int tdr_crop_score_multi_init(const float* pyramid,
                                          const int* centers, int N, int S,
                                          float inv_tr, float* out,
                                          void* stream) {
-  return by_channels(CP, pyramid, table, 0, 0, K, m, sched, chunk_cap, perm,
-                     centers, N, S, inv_tr, out, stream);
+  return by_channels<false>(CP, pyramid, table, 0, 0, K, m, sched, chunk_cap,
+                            perm, centers, N, S, inv_tr, out, stream);
+}
+
+extern "C" int tdr_crop_score_multi_init_raw(const float* pyramid,
+                                             const int* table, int K, int CP,
+                                             const void* m, const int* sched,
+                                             int chunk_cap, const int* perm,
+                                             const int* centers, int N, int S,
+                                             float inv_tr, float* out,
+                                             void* stream) {
+  return by_channels<true>(CP, pyramid, table, 0, 0, K, m, sched, chunk_cap,
+                           perm, centers, N, S, inv_tr, out, stream);
 }

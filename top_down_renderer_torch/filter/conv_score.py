@@ -52,12 +52,27 @@ MAP_PAD = 64  # the reference's zero border around the map (MAP_PAD)
 
 CALLS = {"cost_field": 0}
 
+# The reference's gate between its space-to-depth conv and its direct one
+# (top_down_renderer_tpu/filter/conv_score.py F_S2D, K4_MAX_BYTES,
+# s2d_extent).  The port runs the direct conv only; the multi-device
+# dispatch reads the gate to plan what the reference plans there.
+F_S2D = 4
+K4_MAX_BYTES = 256 * 2**20
+
 
 def conv_dims(mo: int):
     """Kernel extent (rows, cols) for max stencil offset mo: the conv
     slides at 1 px, so it needs no alignment margin."""
     d = 2 * mo + 2
     return d, d
+
+
+def s2d_gate(mo: int, s_out: int) -> bool:
+    """True where the reference would run its folded (s2d) conv: its
+    folded kernel of s_out columns at bucket mo fits K4_MAX_BYTES."""
+    dr, dc = conv_dims(mo)
+    ext = lambda d: (d + 2) // F_S2D + 1  # noqa: E731 - the folded extent
+    return 16 * s_out * ext(dr) * ext(dc) * 128 * 2 <= K4_MAX_BYTES
 
 
 def pick_region(extent: int) -> int | None:
@@ -153,23 +168,74 @@ def cost_field(
     origin_yx: torch.Tensor,
     mo: int,
     region: int,
+    rows=None,
 ) -> torch.Tensor:
     """The cost field over a (region, region) block of centres whose
     top-left centre is origin_yx (padded coordinates, a (2,) integer
     tensor: the block is cut on the device, with no host read).  Returns
     (S_out, region, region) float32: field[:, y, x] belongs to the centre
-    at padded (origin_y + y, origin_x + x).  cuDNN runs it in float32,
-    TF32 off, with a deterministic algorithm."""
+    at padded (origin_y + y, origin_x + x).  rows = (r0, nr) computes only
+    the field's rows [r0, r0 + nr), (S_out, nr, region): one rank's share
+    of a row-sharded field (parallel/sharding.py); rows past the padded
+    map read its last row, for the caller to drop.  cuDNN runs it in
+    float32, TF32 off, with a deterministic algorithm."""
     dr, dc = conv_dims(mo)
     dev = padded.device
-    rows = origin_yx[0] - dr // 2 + torch.arange(region + dr - 1, device=dev)
+    r0, nr = (0, region) if rows is None else rows
+    rows = origin_yx[0] - dr // 2 + r0 + torch.arange(nr + dr - 1, device=dev)
     cols = origin_yx[1] - dc // 2 + torch.arange(region + dc - 1, device=dev)
-    block = padded.index_select(2, rows).index_select(3, cols)
+    block = padded.index_select(2, rows.clamp(max=padded.shape[2] - 1))
+    block = block.index_select(3, cols)
     with torch.backends.cudnn.flags(enabled=True, benchmark=False,
                                     deterministic=True, allow_tf32=False):
         out = F.conv2d(block, kernel)
     CALLS["cost_field"] += 1
     return out[0]
+
+
+def conv_centres(center_px: torch.Tensor, map_resolution: float, pad: int):
+    """(cy, cx) (N,) int64: each centre's rounded padded pixel."""
+    mres = torch.tensor(map_resolution, dtype=torch.float32,
+                        device=center_px.device)
+    cy = torch.round(center_px[:, 1] / mres).to(torch.int64) + pad
+    cx = torch.round(center_px[:, 0] / mres).to(torch.int64) + pad
+    return cy, cx
+
+
+def alive_min(cy, cx, alive) -> torch.Tensor:
+    """(2,) int64: the least cy and cx over the alive particles (2^30 where
+    none is alive)."""
+    big = 1 << 30
+    return torch.stack([torch.where(alive, cy, big).min(),
+                        torch.where(alive, cx, big).min()])
+
+
+def clamp_origin(least: torch.Tensor, cmap: "ConvMap", mo: int, region: int):
+    """(2,) int64 region origin: the least alive centre (alive_min),
+    clamped so that the conv block fits the padded map."""
+    dr, dc = conv_dims(mo)
+    return torch.stack([
+        least[0].clamp(dr // 2, cmap.hp - (region + dr - 1) + dr // 2),
+        least[1].clamp(dc // 2, cmap.wp - (region + dc - 1) + dc // 2),
+    ])
+
+
+def read_scores(field, cell, theta, mode: str, num_rot: int, window_w: int,
+                s0, th: int, r: int):
+    """A flavour's scores from its (S_out, cells) field at each particle's
+    cell: tracked (cost, norm, kf) (N,) at its own shift in the window [s0,
+    s0 + window_w) (a shift outside it clamped to its edge), init (costs,
+    norms (N, num_rot), kf (N,)).  kf: the count times f32(1 / (Th R)), as
+    the reference's compiled division by a constant."""
+    inv_tr = float(np.float32(1.0) / np.float32(th * r))
+    if mode == "tracked":
+        s = rotation_shift(theta, th)
+        local = ((s - s0) % th).clamp(0, window_w - 1)
+        return (field[local, cell], field[window_w + local, cell],
+                field[2 * window_w, cell] * inv_tr)
+    rows = field[:, cell]
+    return (rows[:num_rot].T, rows[num_rot : 2 * num_rot].T,
+            rows[2 * num_rot] * inv_tr)
 
 
 def make_conv_scorer(
@@ -195,37 +261,19 @@ def make_conv_scorer(
     window is clamped to its edge the same way."""
     if mode not in ("tracked", "init"):
         raise ValueError(f"unknown conv mode {mode!r}")
-    dr, dc = conv_dims(mo)
 
     def score(cmap: ConvMap, stencil, scan, class_weights, center_px,
               theta, f, alive, s0=0):
         th, r = stencil.shape[:2]
-        dev = center_px.device
-        mres = torch.tensor(map_resolution, dtype=torch.float32, device=dev)
-        cy = torch.round(center_px[:, 1] / mres).to(torch.int64) + cmap.pad
-        cx = torch.round(center_px[:, 0] / mres).to(torch.int64) + cmap.pad
-        big = 1 << 30
-        oy = torch.where(alive, cy, big).min().clamp(
-            dr // 2, cmap.hp - (region + dr - 1) + dr // 2)
-        ox = torch.where(alive, cx, big).min().clamp(
-            dc // 2, cmap.wp - (region + dc - 1) + dc // 2)
-        iy = (cy - oy).clamp(0, region - 1)
-        ix = (cx - ox).clamp(0, region - 1)
+        cy, cx = conv_centres(center_px, map_resolution, cmap.pad)
+        origin = clamp_origin(alive_min(cy, cx, alive), cmap, mo, region)
+        iy = (cy - origin[0]).clamp(0, region - 1)
+        ix = (cx - origin[1]).clamp(0, region - 1)
         kernel = build_conv_kernel(scan, class_weights, stencil, f, mo,
                                    mode, num_rot, window_w, s0)
-        field = cost_field(cmap.padded, kernel, torch.stack([oy, ox]), mo,
+        field = cost_field(cmap.padded, kernel, origin, mo,
                            region).reshape(kernel.shape[0], -1)
-        cell = iy * region + ix
-        # kf: the count times f32(1 / (Th R)), as the reference's compiled
-        # division by a constant
-        inv_tr = float(np.float32(1.0) / np.float32(th * r))
-        if mode == "tracked":
-            s = rotation_shift(theta, th)
-            local = ((s - s0) % th).clamp(0, window_w - 1)
-            return (field[local, cell], field[window_w + local, cell],
-                    field[2 * window_w, cell] * inv_tr)
-        rows = field[:, cell]
-        return (rows[:num_rot].T, rows[num_rot : 2 * num_rot].T,
-                rows[2 * num_rot] * inv_tr)
+        return read_scores(field, iy * region + ix, theta, mode, num_rot,
+                           window_w, s0, th, r)
 
     return score

@@ -13,11 +13,13 @@ of filter/scoring.py.  On integer centres this picks the same pixels as
 the exact path; on float centres it can differ from round(c + d * f) by
 one pixel, the reference crop kernel's documented NN granularity.
 
-Two entry points, one per scoring flavour:
+Three entry points:
   score_tracked   -> (cost, norm, kf) at each particle's own shift
   score_init_sel  -> (best_cost, k, kf) over the num_rot search shifts:
                      cost / norm, NaN -> FLT_MAX, FLT_MAX where
                      kf < 0.5, first argmin k (best_theta = k 2 pi / n)
+  score_init_raw  -> (nums, dens, kf) at the search shifts, the raw rows
+                     the multi-device step selects from (select_init_cost)
 
 Ties in the theta search.  The plain version takes the exact first
 argmin of its float32 costs.  The kernel takes the first shift whose
@@ -603,16 +605,20 @@ def launch_init(name: str, maps, table, h: int, w: int, num_classes: int,
     entry tdr_<name>) over the compact map `maps` (table: the K buckets'
     levels, or None at a uniform scale).  row_start (K + 1,) int64: the
     first row of each bucket in perm's order, and N.  Returns (best, k,
-    kf) (N,)."""
+    kf) (N,); a name ending in "_raw" launches the raw-row epilogue and
+    returns (nums, dens (N, num_rot), kf (N,)): the sums as they are, kf the
+    known count times f32(1 / (Th R))."""
     th, r = scan.shape[1:]
     n = ctr.shape[0]
-    out = torch.empty((n, 3), dtype=torch.float32, device=ctr.device)
+    raw = name.endswith("_raw")
+    width = 2 * num_rot + 1 if raw else 3
+    out = torch.empty((n, width), dtype=torch.float32, device=ctr.device)
+    inv_tr = float(np.float32(1.0) / np.float32(th * r))
     if n:
         pix, npix, order, seg = fold
         m = init_m(scan, class_weights, order, seg, num_rot)
         rec, nchunk = init_operands(pix, npix, m)
         sched = init_schedule(row_start, nchunk)
-        inv_tr = float(np.float32(1.0) / np.float32(th * r))
         cp = channel_pad(num_classes)
         if table is None:
             args = (ptr(maps), h, w, cp)
@@ -624,22 +630,17 @@ def launch_init(name: str, maps, table, h: int, w: int, num_classes: int,
         kernels.launch("crop_score_init", f"tdr_{name}", *args, ptr(ctr), n,
                        num_rot, ctypes.c_float(inv_tr), ptr(out))
         kernels.LAUNCHES[name] += 1
+    if raw:
+        s = 2 * num_rot
+        return out[:, 0:s:2], out[:, 1:s:2], out[:, s] * inv_tr
     return out[:, 0], out[:, 1].to(torch.int64), out[:, 2]
 
 
-def score_init_sel(
-    maps: CropMap, num_classes, stencil, scan, class_weights, center_px, f,
-    num_rot: int = 40, map_resolution: float = 1.0,
-):
-    """Theta-search flavour: (best_cost, k (int64), kf) (N,) on
-    maps.packed; ties as in the module's docstring.  f as a number lets
-    maps keep the stencil's fold (CropMap.fold)."""
+def _score_init(name, maps, num_classes, stencil, scan, class_weights,
+                center_px, f, num_rot, map_resolution):
+    """Check the theta search's operands on the card and launch `name`
+    (launch_init) at one uniform scale."""
     packed_map = maps.packed
-    if not kernels.on_card(packed_map.device, "crop scorer"):
-        return score_init_sel_plain(
-            packed_map, num_classes, stencil, scan, class_weights,
-            center_px, f, num_rot, map_resolution,
-        )
     dev = packed_map.device
     h, w = packed_map.shape[:2]
     _require(packed_map, "packed_map", (h, w, C_PAD), torch.float32, dev)
@@ -651,8 +652,44 @@ def score_init_sel(
     rows = torch.zeros(2, dtype=torch.int64, device=dev)
     rows[1] = center_px.shape[0]
     return launch_init(
-        "crop_score_init", compact, None, h, w, num_classes, scan,
-        class_weights, maps.fold(stencil, f),
+        name, compact, None, h, w, num_classes, scan, class_weights,
+        maps.fold(stencil, f),
         crop_centers(center_px, map_resolution).contiguous(), None, rows,
         num_rot,
     )
+
+
+def score_init_sel(
+    maps: CropMap, num_classes, stencil, scan, class_weights, center_px, f,
+    num_rot: int = 40, map_resolution: float = 1.0,
+):
+    """Theta-search flavour: (best_cost, k (int64), kf) (N,) on
+    maps.packed; ties as in the module's docstring.  f as a number lets
+    maps keep the stencil's fold (CropMap.fold)."""
+    if not kernels.on_card(maps.packed.device, "crop scorer"):
+        return score_init_sel_plain(
+            maps.packed, num_classes, stencil, scan, class_weights,
+            center_px, f, num_rot, map_resolution,
+        )
+    return _score_init("crop_score_init", maps, num_classes, stencil, scan,
+                       class_weights, center_px, f, num_rot, map_resolution)
+
+
+def score_init_raw(
+    maps: CropMap, num_classes, stencil, scan, class_weights, center_px, f,
+    num_rot: int = 40, map_resolution: float = 1.0,
+):
+    """The theta search's raw rows, score_init_raw_plain's contract: (nums,
+    dens (N, num_rot), kf (N,)) at the search shifts, nothing divided or
+    gated.  A window off the map reads zeros, so a particle centred far
+    off it has a row of zeros, as the reference zeroes its out-of-range
+    rows.  On the card the same tensor-core product as score_init_sel
+    with the raw-row epilogue ("crop_score_init_raw")."""
+    if not kernels.on_card(maps.packed.device, "crop scorer"):
+        return score_init_raw_plain(
+            maps.packed, num_classes, stencil, scan, class_weights,
+            center_px, f, num_rot, map_resolution,
+        )
+    return _score_init("crop_score_init_raw", maps, num_classes, stencil,
+                       scan, class_weights, center_px, f, num_rot,
+                       map_resolution)

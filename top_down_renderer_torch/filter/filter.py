@@ -17,6 +17,7 @@ the tests feed both packages the same numbers.
 
 from __future__ import annotations
 
+import functools
 import logging
 import math
 from typing import NamedTuple, Optional, Tuple
@@ -108,29 +109,36 @@ def postprocess_weights(
     last_dist: torch.Tensor,
     alive: torch.Tensor,
     n_active: torch.Tensor,
+    psum=stats_mod.local,
 ) -> torch.Tensor:
     """NaN repair to (mean - bottom stddev), normalisation, and the
-    distance regularisation toward uniform."""
+    distance regularisation toward uniform.  `psum` sums each stage's
+    statistics over the shards of a sharded particle set
+    (stats_mod.local: one set on one device)."""
     isnan = torch.isnan(weight_raw)
     valid = alive & ~isnan
-    total = torch.where(valid, weight_raw, 0.0).sum()
-    mean = total / torch.clamp(valid.to(torch.float32).sum(), min=1.0)
+    total, num_valid = psum(torch.stack([
+        torch.where(valid, weight_raw, 0.0).sum(),
+        valid.to(torch.float32).sum(),
+    ]))
+    mean = total / torch.clamp(num_valid, min=1.0)
     under = valid & (weight_raw < mean)
-    num_under = under.to(torch.float32).sum()
-    bot_var = torch.where(under, (weight_raw - mean) ** 2, 0.0).sum() / (
-        torch.clamp(num_under, min=1.0)
-    )
+    num_under, bot_sq = psum(torch.stack([
+        under.to(torch.float32).sum(),
+        torch.where(under, (weight_raw - mean) ** 2, 0.0).sum(),
+    ]))
+    bot_var = bot_sq / torch.clamp(num_under, min=1.0)
     degenerate = (total == 0) | (num_under < 1)
     repaired = torch.where(
         alive & isnan, mean - torch.sqrt(bot_var), weight_raw
     )
     w = torch.where(degenerate, 1.0, repaired)
     w = torch.where(alive, w, 0.0)
-    w = w / w.sum()
+    w = w / psum(w.sum())
     d = torch.clamp(last_dist * 5.0, max=1.0)
     na = torch.clamp(torch.as_tensor(n_active).to(torch.float32), min=1.0)
     w = torch.where(alive, d * w + (1.0 - d) / na, 0.0)
-    return w / w.sum()
+    return w / psum(w.sum())
 
 
 def pose_bbox(p: Particles) -> torch.Tensor:
@@ -230,6 +238,15 @@ def _search_theta(sel, num_rot: int):
     """(best_cost, best_theta) from a crop theta search's (best, k, kf)."""
     best, k, _ = sel
     return best, k.to(torch.float32) * (2.0 * math.pi / num_rot)
+
+
+def _raw_theta(raw, num_rot: int):
+    """(best_cost, best_theta) from a theta search's raw rows (nums, dens
+    (N, num_rot), kf): cost = num / den, NaN where kf < 0.5, then
+    select_init_cost."""
+    nums, dens, kf = raw
+    costs = torch.where(kf[:, None] < 0.5, torch.nan, nums / dens)
+    return select_init_cost(costs, num_rot)
 
 
 def _select_flavour(mode: str, p: Particles, tracked, init):
@@ -338,13 +355,9 @@ def make_update_step_fast(
             args = (maps, stencil, scan, cw, p.pose_px(), p.theta, f,
                     p.alive)
 
-            def init():
-                nums, dens, kf = conv["init"](*args)
-                costs = torch.where(kf[:, None] < 0.5, torch.nan, nums / dens)
-                return select_init_cost(costs, num_rot)
-
             return _select_flavour(
-                mode, p, lambda: conv["tracked"](*args, s0), init)
+                mode, p, lambda: conv["tracked"](*args, s0),
+                lambda: _raw_theta(conv["init"](*args), num_rot))
         args = (grid_num_classes, stencil, scan, cw, p.pose_px())
         return _select_flavour(
             mode, p,
@@ -421,12 +434,12 @@ _SNAP_COV = slice(9, 25)
 _SNAP_SMASK = slice(25, None)
 
 
-def _snapshot_vec(state: FilterState) -> torch.Tensor:
+def _snapshot_vec(state: FilterState, psum=stats_mod.local) -> torch.Tensor:
     """The small per-update values the host dispatch reads, in one float32
     vector, so that one copy to the host brings them all: bbox[4],
     n_active, mean-likelihood state[4], mean covariance[16],
-    smask[Th]."""
-    ml, cov = stats_mod.pose_stats(state.particles, state.n_active)
+    smask[Th].  psum: as in stats_mod, for a sharded state."""
+    ml, cov = stats_mod.pose_stats(state.particles, state.n_active, psum)
     return torch.cat([
         state.bbox.to(torch.float32).reshape(4),
         torch.as_tensor(state.n_active).to(torch.float32).reshape(1),
@@ -464,7 +477,22 @@ class ParticleFilter:
     unknown scale the K-bucket crop kernel scores it on a mip pyramid
     (_multi_mode).  The exact step runs only where the reference also
     falls back: no crop bucket even at mip 32, alive scales beyond the
-    clustering ladder, or a live scale bucket beyond mip 64."""
+    clustering ladder, or a live scale bucket beyond mip 64.
+
+    mesh: a 1-D DeviceMesh (parallel.sharding.make_mesh) shards the
+    particle axis over the ranks of the process group, one process per
+    rank: each rank builds the same filter and calls the same methods in
+    the same order.  n_max is padded to a multiple of the mesh size, and
+    `state` holds this rank's rows of the particles (every other field
+    replicated).  Every rank plans each update from values that are the
+    same on every rank, so all issue the same collectives: the dispatch
+    runs the K-bucket step (unknown scale) or the row-sharded conv cost
+    field (a clustered cloud, where the reference's mesh runs one), and
+    otherwise the sharded exact step, whose fused propagate takes the
+    pending motion (parallel/sharding.py).  The resample shift comes from
+    `generator`, seeded alike on every rank; the propagate noise from one
+    seeded by (seed, rank).  The queries return the global answer on every
+    rank."""
 
     def __init__(
         self,
@@ -476,9 +504,15 @@ class ParticleFilter:
         gmm_every: int = 10,
         chunk_size: int = 2048,
         device=None,
+        mesh=None,
     ):
         chunk_size = min(chunk_size, n_max)
-        self.n_max = -(-n_max // chunk_size) * chunk_size
+        n_max = -(-n_max // chunk_size) * chunk_size
+        self.mesh = mesh
+        if mesh is not None:
+            # a mesh-size multiple too, so that the rows shard evenly
+            n_max = -(-n_max // mesh.size()) * mesh.size()
+        self.n_max = n_max
         self.map = tdmap
         self.params = params
         self.theta_bins = theta_bins
@@ -488,6 +522,20 @@ class ParticleFilter:
         self.device = torch.device(device) if device else tdmap.device
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
+        # the sum of per-particle statistics over the shards of the state
+        self._psum = stats_mod.local
+        self._sharded_fns = {}
+        if mesh is not None:
+            from top_down_renderer_torch.parallel import sharding
+
+            if self.device.type != mesh.device_type:
+                raise ValueError(f"the map is on {self.device}, the mesh on "
+                                 f"{mesh.device_type}")
+            self._comm = sharding.Collectives(mesh)
+            self._psum = self._comm.psum
+            self._noise_generator = torch.Generator(device=self.device)
+            self._noise_generator.manual_seed(
+                sharding.rank_seed(seed, self._comm.rank))
         self.state: Optional[FilterState] = None
         self._update_fn = None
         self._fast_fns = {}
@@ -570,7 +618,14 @@ class ParticleFilter:
                 self.theta_bins,
             ),
         )
-        self._update_fn = make_update_step(
+        if self.mesh is None:
+            make = make_update_step
+        else:
+            from top_down_renderer_torch.parallel import sharding
+
+            self.state = sharding.shard_filter_state(self.state, self.mesh)
+            make = functools.partial(sharding.make_sharded_step, self.mesh)
+        self._update_fn = make(
             params,
             g.num_classes,
             self.map.resolution,
@@ -602,12 +657,20 @@ class ParticleFilter:
             )
             self._pending_motion = (t0 + t_rot, o0 + float(omega), d0 + d)
 
-    def _apply_pending_motion(self) -> None:
+    def _pop_motion(self):
+        """The pending motion (4,) tx, ty, omega, dist, cleared, or None."""
         if self._pending_motion is None:
-            return
+            return None
         trans, omega, dist = self._pending_motion
         self._pending_motion = None
-        motion = np.asarray([trans[0], trans[1], omega, dist], np.float32)
+        return np.asarray([trans[0], trans[1], omega, dist], np.float32)
+
+    def _apply_pending_motion(self) -> None:
+        """Propagate the pending motion now, with noise from the filter's
+        generator (under a mesh: this rank's)."""
+        motion = self._pop_motion()
+        if motion is None:
+            return
         parts = particles_mod.propagate(
             self.state.particles,
             motion[:2],
@@ -615,7 +678,8 @@ class ParticleFilter:
             self.params,
             self.state.scale_frozen,
             dist=motion[3],
-            generator=self.generator,
+            generator=(self.generator if self.mesh is None
+                       else self._noise_generator),
         )
         self.state = self.state.replace(particles=parts)
 
@@ -631,17 +695,30 @@ class ParticleFilter:
         if self._all_have_init:
             return "tracked"
         p = self.state.particles
-        have = p.have_init[p.alive]
-        if bool(have.all()):
+        with_theta, without = self._psum(torch.stack([
+            (p.alive & p.have_init).sum(), (p.alive & ~p.have_init).sum()
+        ])).tolist()
+        if not without:
             return "tracked"
-        return "init" if not bool(have.any()) else "mixed"
+        return "init" if not with_theta else "mixed"
 
     def _host_snapshot(self) -> np.ndarray:
         """The current state's _snapshot_vec on the host (layout _SNAP_*):
         one copy from the card per state, kept for further reads."""
         if self._snap is None or self._snap[0] is not self.state:
-            self._snap = (self.state, _snapshot_vec(self.state).cpu().numpy())
+            self._snap = (self.state, _snapshot_vec(
+                self.state, self._psum).cpu().numpy())
         return self._snap[1]
+
+    def _alive_scales(self) -> np.ndarray:
+        """The alive particles' scales on the host (under a mesh: every
+        rank's, gathered, in rank order)."""
+        p = self.state.particles
+        if self.mesh is None:
+            return p.scale[p.alive].cpu().numpy()
+        g = self._comm.gather(torch.stack(
+            [p.scale, p.alive.to(torch.float32)], 1)).cpu().numpy()
+        return g[g[:, 1] > 0.5, 0]
 
     def _conv_region(self, mo: int):
         """The conv region bucket of the alive bounding box, or None where
@@ -727,8 +804,7 @@ class ParticleFilter:
         Copies the alive scales to the host."""
         self._apply_pending_motion()
         mode = self._crop_mode()
-        p = self.state.particles
-        scales = p.scale[p.alive].cpu().numpy()
+        scales = self._alive_scales()
         if scales.size == 0:
             return self._slow_path("no alive particles with scale > 0")
         plan = ms.plan_buckets(
@@ -817,12 +893,88 @@ class ParticleFilter:
             self._consts = (self._map_version, mss, sten)
         return self._consts[1], self._consts[2]
 
+    def _get_sharded_fast_fn(self, mode: str, mo: int, region: int,
+                             window_w: int, use_s2d: bool):
+        """The sharded conv step, cached under the reference's key (its
+        use_s2d names the reference's formulation; the port's is direct)."""
+        key = (mode, mo, region, window_w, use_s2d, self._map_version)
+        if key not in self._sharded_fns:
+            from top_down_renderer_torch.parallel import sharding
+
+            self._sharded_fns[key] = sharding.make_sharded_step_fast(
+                self.mesh, self.params, self.map.grid.num_classes,
+                self.map.resolution, self.theta_bins, self.n_max, mode,
+                mo=mo, region=region, window_w=window_w,
+                gmm_every=self.gmm_every,
+            )
+        return self._sharded_fns[key]
+
+    def _get_sharded_multi_fn(self, mode: str, kp: int, bmi, mo: int):
+        """The sharded K-bucket step, cached under the reference's key."""
+        key = ("multi", mode, kp, bmi, mo)
+        if key not in self._sharded_fns:
+            from top_down_renderer_torch.parallel import sharding
+
+            self._sharded_fns[key] = sharding.make_sharded_step_multi(
+                self.mesh, self.params, self.map.grid.num_classes,
+                self.map.resolution, self.theta_bins, self.n_max, mode, bmi,
+                gmm_every=self.gmm_every,
+            )
+        return self._sharded_fns[key]
+
+    def _update_sharded(self, scan, res, map_size_scaled, stencil) -> None:
+        """The mesh's update, planned as the reference's _update_sharded
+        plans it: the K-bucket step for a multi plan (its pending motion
+        applied while planning), the row-sharded conv step for a conv plan
+        where the reference's mesh runs one (its s2d fold, or its direct
+        conv when the region's rows split evenly over the ranks), else the
+        sharded exact step; the conv and exact steps take the pending
+        motion in their fused propagate."""
+        fast = self._fast_mode(float(res))
+        motion = self._pop_motion()
+        draws = dict(generator=self.generator,
+                     noise_generator=self._noise_generator)
+        if isinstance(fast, MultiDispatch):
+            self.state = self._get_sharded_multi_fn(
+                fast.mode, fast.kp, fast.bmi, fast.mo,
+            )(
+                self.state, self._get_pyramid_maps(fast.levels),
+                map_size_scaled, stencil, scan, res,
+                torch.as_tensor(fast.slots, device=self.device),
+                generator=self.generator,
+            )
+            return
+        if fast is not None and fast.path == "conv":
+            num_rot = self.params.num_rot_search
+            s_out = {"tracked": 2 * fast.ww + 1, "init": 2 * num_rot + 1,
+                     "mixed": 2 * fast.ww + 2 * num_rot + 2}[fast.mode]
+            use_s2d = conv_score.s2d_gate(fast.mo, s_out)
+            if use_s2d or fast.region % self.mesh.size() == 0:
+                self.state = self._get_sharded_fast_fn(
+                    fast.mode, fast.mo, fast.region, fast.ww, use_s2d,
+                )(
+                    self.state, self._get_conv_map(), map_size_scaled,
+                    stencil, scan, res, fast.scale, fast.s0, motion=motion,
+                    **draws,
+                )
+                return
+        self.state = self._update_fn(
+            self.state, self.map.grid.dist.to(self.device), map_size_scaled,
+            stencil, scan, res, motion=motion, **draws,
+        )
+
     def update(self, scan, res) -> None:
         """scan: (C, Theta, R) polar semantic render; res: range m/bin."""
         if self.state is None or self.n_active_host() == 0:
             return
         map_size_scaled, stencil = self._device_consts()
         scan = torch.as_tensor(scan, dtype=torch.float32, device=self.device)
+        if self.mesh is not None:
+            self._update_sharded(scan, res, map_size_scaled, stencil)
+            self._all_have_init = True
+            self._last_omega = 0.0
+            self._last_dist_m = 0.0
+            return
         fast = self._fast_mode(float(res))
         self._apply_pending_motion()  # done already on the multi branch
         if fast is None:
@@ -866,18 +1018,18 @@ class ParticleFilter:
 
     def mean_likelihood(self) -> np.ndarray:
         return stats_mod.mean_likelihood(
-            self.state.particles, self.state.n_active
+            self.state.particles, self.state.n_active, self._psum
         ).cpu().numpy()
 
     def compute_mean_cov(self) -> np.ndarray:
         return stats_mod.compute_mean_cov(
-            self.state.particles, self.state.n_active
+            self.state.particles, self.state.n_active, self._psum
         ).cpu().numpy()
 
     def pose_stats(self):
         """(mean_likelihood (4,), mean_cov (4, 4)) as float64 numpy."""
         ml, cov = stats_mod.pose_stats(
-            self.state.particles, self.state.n_active
+            self.state.particles, self.state.n_active, self._psum
         )
         return (
             ml.cpu().numpy().astype(np.float64),
@@ -901,7 +1053,10 @@ class ParticleFilter:
         logs = np.where(
             m > 0, np.log(np.maximum(p.scale.cpu().numpy(), 1e-30)), 0.0
         )
-        geo_mean = float(np.exp(logs.sum() / max(m.sum(), 1.0)))
+        total, count = self._psum(torch.tensor(
+            [logs.sum(), m.sum()], dtype=torch.float64, device=self.device
+        )).tolist()
+        geo_mean = float(np.exp(total / max(count, 1.0)))
         self.state = self.state.replace(
             particles=p.replace(scale=torch.full_like(p.scale, geo_mean)),
             scale_frozen=torch.tensor(True, device=self.device),

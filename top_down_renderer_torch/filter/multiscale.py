@@ -22,11 +22,13 @@ A window that leaves its own level reads zeros there, never another
 level's pixels.  None of the TPU layout is carried over (int8
 quantisation, y-shifted copies, padding, nibble packing).
 
-Two scorers, each a wrapper with a public plain version beside it:
+Three scorers, each a wrapper with a public plain version beside it:
   score_tracked_multi   -> (cost, norm, kf) at each particle's own shift
   score_init_multi_sel  -> (best_cost, k, kf) over the search shifts,
                            with the uniform path's select (NaN and
                            kf < 0.5 -> FLT_MAX, first argmin)
+  score_init_multi_raw  -> (nums, dens, kf) at the search shifts: the raw
+                           rows, which the multi-device step selects from
 On CPU tensors the wrapper runs the plain version; on CUDA it launches
 its kernel (csrc/crop_score.cu tracked, csrc/crop_score_init.cu for the
 theta search) and counts it in kernels.LAUNCHES; any other device
@@ -433,6 +435,25 @@ def score_tracked_multi(
     )
 
 
+def _score_init_multi(name, pyr, num_classes, stencil, scan, class_weights,
+                      center_px, scale, slot_vals, bucket_level, res,
+                      num_rot, map_resolution):
+    """Check the K-bucket theta search's operands on the card and launch
+    `name` (crop_score.launch_init) over the bucket-major rows."""
+    k = _check_buckets(pyr, stencil, scan, class_weights, center_px, scale,
+                       slot_vals, bucket_level, num_classes, num_rot)[0]
+    compact = pyr.compact(num_classes)
+    bucket, off, ctr, table = _prepare(
+        pyr, stencil, center_px, scale, slot_vals, bucket_level, res,
+        map_resolution,
+    )
+    perm, row_start = bucket_rows(bucket, k)
+    return cs.launch_init(
+        name, compact, table, 0, 0, num_classes, scan, class_weights,
+        cs.fold_pixels(off), ctr.contiguous(), perm, row_start, num_rot,
+    )
+
+
 def score_init_multi_sel(
     pyr, num_classes, stencil, scan, class_weights, center_px, scale,
     slot_vals, bucket_level, res, num_rot: int = 40,
@@ -444,16 +465,30 @@ def score_init_multi_sel(
             pyr, num_classes, stencil, scan, class_weights, center_px,
             scale, slot_vals, bucket_level, res, num_rot, map_resolution,
         )
-    k = _check_buckets(pyr, stencil, scan, class_weights, center_px, scale,
-                       slot_vals, bucket_level, num_classes, num_rot)[0]
-    compact = pyr.compact(num_classes)
-    bucket, off, ctr, table = _prepare(
-        pyr, stencil, center_px, scale, slot_vals, bucket_level, res,
-        map_resolution,
+    return _score_init_multi(
+        "crop_score_multi_init", pyr, num_classes, stencil, scan,
+        class_weights, center_px, scale, slot_vals, bucket_level, res,
+        num_rot, map_resolution,
     )
-    perm, row_start = bucket_rows(bucket, k)
-    return cs.launch_init(
-        "crop_score_multi_init", compact, table, 0, 0, num_classes, scan,
-        class_weights, cs.fold_pixels(off), ctr.contiguous(), perm,
-        row_start, num_rot,
+
+
+def score_init_multi_raw(
+    pyr, num_classes, stencil, scan, class_weights, center_px, scale,
+    slot_vals, bucket_level, res, num_rot: int = 40,
+    map_resolution: float = 1.0,
+):
+    """The K-bucket theta search's raw rows, score_init_multi_raw_plain's
+    contract: (nums, dens (N, num_rot), kf (N,)), nothing divided or gated;
+    a window off its level reads zeros.  On the card the tensor-core
+    product of score_init_multi_sel with the raw-row epilogue
+    ("crop_score_multi_init_raw"): the multi-device init step's scorer."""
+    if not kernels.on_card(pyr.flat.device, "crop scorer"):
+        return score_init_multi_raw_plain(
+            pyr, num_classes, stencil, scan, class_weights, center_px,
+            scale, slot_vals, bucket_level, res, num_rot, map_resolution,
+        )
+    return _score_init_multi(
+        "crop_score_multi_init_raw", pyr, num_classes, stencil, scan,
+        class_weights, center_px, scale, slot_vals, bucket_level, res,
+        num_rot, map_resolution,
     )

@@ -47,6 +47,8 @@ LAUNCHES = {
     "crop_score_init": 0,
     "crop_score_multi_tracked": 0,
     "crop_score_multi_init": 0,
+    "crop_score_init_raw": 0,
+    "crop_score_multi_init_raw": 0,
     "fill_rows": 0,
 }
 
@@ -84,6 +86,13 @@ _SIGNATURES = {
         # compact pyramid, table, K, CP, M records, sched, chunk_cap, perm,
         # centers, N, S, inv_tr, out, stream
         "tdr_crop_score_multi_init": (
+            _P, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _F, _P, _P,
+        ),
+        # the raw-row epilogue of each: the same arguments, out (N, 2S + 1)
+        "tdr_crop_score_init_raw": (
+            _P, _I, _I, _I, _P, _P, _I, _P, _I, _I, _F, _P, _P,
+        ),
+        "tdr_crop_score_multi_init_raw": (
             _P, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _F, _P, _P,
         ),
     },
