@@ -118,6 +118,7 @@ from drive_consumer_torch import (  # noqa: E402
     drive_unknown_scale,
     make_filter,
 )
+from spawn_ranks import run_ranks  # noqa: E402
 from top_down_renderer_torch import kernels  # noqa: E402
 from top_down_renderer_torch.filter import conv_score  # noqa: E402
 from top_down_renderer_torch.filter import crop_score as cs  # noqa: E402
@@ -130,7 +131,6 @@ from top_down_renderer_torch.filter.scoring import (  # noqa: E402
     shift_mask,
 )
 from top_down_renderer_torch.parallel import sharding  # noqa: E402
-from top_down_renderer_torch.parallel.launch import run_ranks  # noqa: E402
 from top_down_renderer_torch.render.semantic import (  # noqa: E402
     render_semantic_polar,
 )
@@ -1239,7 +1239,7 @@ def mesh_update_times(world, dev, mesh_pfs, single_pfs):
 
 def m2_rank(rank, world_size):
     """One of M2's two ranks: the three drives on a gloo mesh over the one
-    card (launch.run_ranks' target)."""
+    card (spawn_ranks.run_ranks' target)."""
     torch.cuda.set_device(0)
     dev = torch.device("cuda", 0)
     torch.ones(1, device=dev)  # the card is this rank's current device
@@ -1275,7 +1275,7 @@ def phase_m(dev, world, read_launches):
         times = mesh_update_times(world, dev, m1["pf"], single["pf"])
         del m1["pf"], single["pf"]
         t0 = time.perf_counter()
-        m2 = run_ranks("chip_smoke:m2_rank", 2, os.path.join(store, "m2"),
+        m2 = run_ranks(m2_rank, 2, os.path.join(store, "m2"),
                        timeout=300.0)
         log(f"[M2] two ranks over gloo on the card: {time.perf_counter() - t0:.1f}"
             f" s (their drives {m2[0]['seconds']:.1f} s)")
@@ -1315,14 +1315,17 @@ def main() -> int:
     del b_args, b_theta
 
     # each path runs with the counts set to 0 just before it and read
-    # just after: its own kernels must have launched
+    # just after: its own kernels (`names`) must have launched.  Every
+    # kernel's count is read after every path and summed over the paths,
+    # so that each kernel's `launches` below is a sum of counts read (the
+    # uniform raw-row kernel is on no path: its reads are all 0)
     launches = {}
 
     def read_launches(label, names):
-        got = {k: kernels.LAUNCHES[k] for k in names}
+        got = {k: kernels.LAUNCHES[k] for k in KERNELS}
         log(f"[{label}] launches on its path: {got}")
-        check(all(v > 0 for v in got.values()), got)
-        for k, v in got.items():  # the fold runs on both tracked paths
+        check(all(got[k] > 0 for k in names), got)
+        for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
         kernels.reset_launch_counts()
 
@@ -1341,7 +1344,7 @@ def main() -> int:
     check(not any(kernels.LAUNCHES[k] for k in CROP),
           f"C4: crop launches {kernels.LAUNCHES}")
     log(f"[C4] conv cost fields on its path: {conv_calls() - calls}")
-    kernels.reset_launch_counts()
+    read_launches("C4", ())
 
     log_clocks("D start")
     times, conv = phase_d(dev, pf, world, errs)
@@ -1398,7 +1401,7 @@ def main() -> int:
             "route": "cuda",
             "source": KERNELS[name][0],
             "replaces": KERNELS[name][1],
-            "launches": launches.get(name, 0),
+            "launches": launches[name],
             "max_abs_err": errs["abs"][name],
             "ms": times[name]["ms"],
             "plain_ms": times[name]["plain_ms"],

@@ -35,8 +35,7 @@ def _run(code: str, env=None):
         "top_down_renderer_torch.render.semantic, "
         "top_down_renderer_torch.utils.convert, "
         "top_down_renderer_torch.testing",
-        "top_down_renderer_torch.parallel, "
-        "top_down_renderer_torch.parallel.launch",
+        "top_down_renderer_torch.parallel",
         "chip_smoke",
     ],
 )

@@ -5,11 +5,12 @@ devices, its crop kernel interpreted as tests/test_sharding.py runs it)
 and against the port on one device.
 
 The ranks run tests/torch_mesh_ranks.py's scenarios, started by
-parallel.launch.run_ranks with a FileStore rendezvous under the test's
-temporary directory and a join timeout of their own: a hung rank fails
-its test, not the suite.  They run while the reference does.  The same seeds build the same inputs on every
-rank, in the reference and in the single-device port; the reference's
-resample shifts are fed to the port where a result depends on them."""
+tests/spawn_ranks.py's run_ranks with a FileStore rendezvous under the
+test's temporary directory and a join timeout of their own: a hung rank
+fails its test, not the suite.  They run while the reference does.  The
+same seeds build the same inputs on every rank, in the reference and in
+the single-device port; the reference's resample shifts are fed to the
+port where a result depends on them."""
 
 import concurrent.futures
 
@@ -20,11 +21,12 @@ import pytest
 import torch
 
 import torch_mesh_ranks as scen
+from spawn_ranks import run_ranks
 from top_down_renderer_torch.config import FilterParams, MapParams
+from top_down_renderer_torch.filter import conv_score
 from top_down_renderer_torch.filter.filter import ParticleFilter
 from top_down_renderer_torch.maps.map import TopDownMap
 from top_down_renderer_torch.parallel import make_mesh
-from top_down_renderer_torch.parallel.launch import run_ranks
 
 RTOL, ATOL = 1e-4, 1e-5  # tests/test_sharding.py's max_likelihood bounds
 JOIN_S = 120.0
@@ -37,8 +39,8 @@ def _ranks(tmp_path_factory, target, *args, world=2):
     *args); returns the future of their results."""
     work = tmp_path_factory.mktemp(target)
     pool = concurrent.futures.ThreadPoolExecutor(1)
-    future = pool.submit(run_ranks, f"torch_mesh_ranks:{target}", world,
-                         work, args=args, timeout=JOIN_S)
+    future = pool.submit(run_ranks, getattr(scen, target), world, work,
+                         args=args, timeout=JOIN_S)
     pool.shutdown(wait=False)
     return future
 
@@ -211,6 +213,8 @@ def test_mesh_conv_path_matches_jax(conv):
 
 def test_mesh_conv_path_matches_one_device(conv):
     _, _, ranks, single = conv
+    # the scenario put the s2d gate back after its run
+    assert conv_score.K4_MAX_BYTES == 256 * 2**20
     assert [p[3] for p in single["plans"]] == ["conv"]
     for got in ranks:
         np.testing.assert_allclose(got["ml"], single["ml"], rtol=RTOL,

@@ -2,7 +2,7 @@
 tests/test_torch_sharding.py.  Each scenario builds its inputs from seeds,
 so that every rank, the single-device port and the reference build the
 same ones; run(..., mesh=None) runs it on one device, and the *_rank
-functions are the targets of parallel.launch.run_ranks (a gloo group over
+functions are the targets of spawn_ranks.run_ranks (a gloo group over
 CPU processes).  Results are numpy values.  Imports no JAX."""
 
 from __future__ import annotations
@@ -120,15 +120,19 @@ def unknown_scale(mesh=None, seed=11, shifts=None) -> dict:
 def conv(mesh=None, seed=7, direct=False, scan_seed=2) -> dict:
     """tests/test_sharding.py's conv-path case: one update of 64 particles
     at a known scale after a propagate of 1 m, no motion noise; `direct`
-    closes the reference's s2d gate (its K4_MAX_BYTES = 0)."""
-    if direct:
-        conv_score.K4_MAX_BYTES = 0
-    pf = mini_pf(mesh, known_scale=True, n=64, seed=seed)
-    plans = record_plans(pf)
-    scan = np.random.default_rng(scan_seed).random((3, 100, 25))
-    pf.propagate(np.array([1.0, 0.0], np.float32), 0.0)
-    pf.update(torch.as_tensor(scan.astype(np.float32)), 1.0)
-    return _filter_result(pf, [pf.max_likelihood()], plans)
+    closes the reference's s2d gate (its K4_MAX_BYTES = 0) for the run,
+    and puts it back after."""
+    gate = conv_score.K4_MAX_BYTES
+    conv_score.K4_MAX_BYTES = 0 if direct else gate
+    try:
+        pf = mini_pf(mesh, known_scale=True, n=64, seed=seed)
+        plans = record_plans(pf)
+        scan = np.random.default_rng(scan_seed).random((3, 100, 25))
+        pf.propagate(np.array([1.0, 0.0], np.float32), 0.0)
+        pf.update(torch.as_tensor(scan.astype(np.float32)), 1.0)
+        return _filter_result(pf, [pf.max_likelihood()], plans)
+    finally:
+        conv_score.K4_MAX_BYTES = gate
 
 
 def exact_step(mesh=None, shift=0.5, n=512, seed=3) -> dict:

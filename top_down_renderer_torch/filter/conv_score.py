@@ -182,10 +182,12 @@ def cost_field(
     dr, dc = conv_dims(mo)
     dev = padded.device
     r0, nr = (0, region) if rows is None else rows
-    rows = origin_yx[0] - dr // 2 + r0 + torch.arange(nr + dr - 1, device=dev)
-    cols = origin_yx[1] - dc // 2 + torch.arange(region + dc - 1, device=dev)
-    block = padded.index_select(2, rows.clamp(max=padded.shape[2] - 1))
-    block = block.index_select(3, cols)
+    ys = origin_yx[0] - dr // 2 + torch.arange(r0, r0 + nr + dr - 1,
+                                               device=dev)
+    if rows is not None:
+        ys = ys.clamp(max=padded.shape[2] - 1)
+    xs = origin_yx[1] - dc // 2 + torch.arange(region + dc - 1, device=dev)
+    block = padded.index_select(2, ys).index_select(3, xs)
     with torch.backends.cudnn.flags(enabled=True, benchmark=False,
                                     deterministic=True, allow_tf32=False):
         out = F.conv2d(block, kernel)
@@ -202,22 +204,19 @@ def conv_centres(center_px: torch.Tensor, map_resolution: float, pad: int):
     return cy, cx
 
 
-def alive_min(cy, cx, alive) -> torch.Tensor:
-    """(2,) int64: the least cy and cx over the alive particles (2^30 where
+def alive_min(cy, cx, alive):
+    """(least cy, least cx) () int64 over the alive particles (2^30 where
     none is alive)."""
     big = 1 << 30
-    return torch.stack([torch.where(alive, cy, big).min(),
-                        torch.where(alive, cx, big).min()])
+    return torch.where(alive, cy, big).min(), torch.where(alive, cx, big).min()
 
 
-def clamp_origin(least: torch.Tensor, cmap: "ConvMap", mo: int, region: int):
-    """(2,) int64 region origin: the least alive centre (alive_min),
+def clamp_origin(ly, lx, cmap: "ConvMap", mo: int, region: int):
+    """(oy, ox) () int64 region origin: the least alive centre (alive_min),
     clamped so that the conv block fits the padded map."""
     dr, dc = conv_dims(mo)
-    return torch.stack([
-        least[0].clamp(dr // 2, cmap.hp - (region + dr - 1) + dr // 2),
-        least[1].clamp(dc // 2, cmap.wp - (region + dc - 1) + dc // 2),
-    ])
+    return (ly.clamp(dr // 2, cmap.hp - (region + dr - 1) + dr // 2),
+            lx.clamp(dc // 2, cmap.wp - (region + dc - 1) + dc // 2))
 
 
 def read_scores(field, cell, theta, mode: str, num_rot: int, window_w: int,
@@ -266,12 +265,12 @@ def make_conv_scorer(
               theta, f, alive, s0=0):
         th, r = stencil.shape[:2]
         cy, cx = conv_centres(center_px, map_resolution, cmap.pad)
-        origin = clamp_origin(alive_min(cy, cx, alive), cmap, mo, region)
-        iy = (cy - origin[0]).clamp(0, region - 1)
-        ix = (cx - origin[1]).clamp(0, region - 1)
+        oy, ox = clamp_origin(*alive_min(cy, cx, alive), cmap, mo, region)
+        iy = (cy - oy).clamp(0, region - 1)
+        ix = (cx - ox).clamp(0, region - 1)
         kernel = build_conv_kernel(scan, class_weights, stencil, f, mo,
                                    mode, num_rot, window_w, s0)
-        field = cost_field(cmap.padded, kernel, origin, mo,
+        field = cost_field(cmap.padded, kernel, torch.stack([oy, ox]), mo,
                            region).reshape(kernel.shape[0], -1)
         return read_scores(field, iy * region + ix, theta, mode, num_rot,
                            window_w, s0, th, r)

@@ -117,16 +117,14 @@ def postprocess_weights(
     (stats_mod.local: one set on one device)."""
     isnan = torch.isnan(weight_raw)
     valid = alive & ~isnan
-    total, num_valid = psum(torch.stack([
-        torch.where(valid, weight_raw, 0.0).sum(),
-        valid.to(torch.float32).sum(),
-    ]))
+    total, num_valid = psum(torch.where(valid, weight_raw, 0.0).sum(),
+                            valid.to(torch.float32).sum())
     mean = total / torch.clamp(num_valid, min=1.0)
     under = valid & (weight_raw < mean)
-    num_under, bot_sq = psum(torch.stack([
+    num_under, bot_sq = psum(
         under.to(torch.float32).sum(),
         torch.where(under, (weight_raw - mean) ** 2, 0.0).sum(),
-    ]))
+    )
     bot_var = bot_sq / torch.clamp(num_under, min=1.0)
     degenerate = (total == 0) | (num_under < 1)
     repaired = torch.where(
@@ -695,6 +693,12 @@ class ParticleFilter:
         if self._all_have_init:
             return "tracked"
         p = self.state.particles
+        if self.mesh is None:
+            have = p.have_init[p.alive]
+            if bool(have.all()):
+                return "tracked"
+            return "init" if not bool(have.any()) else "mixed"
+        # under a mesh: the counts over every rank, in one collective
         with_theta, without = self._psum(torch.stack([
             (p.alive & p.have_init).sum(), (p.alive & ~p.have_init).sum()
         ])).tolist()

@@ -2,9 +2,10 @@
 filter/stats.py): unweighted means and covariances of the mlState
 (x_px, y_px, theta, scale), theta handled circularly.
 
-Each takes `psum`, which sums a tensor of per-particle sums over every
-shard of a particle set sharded over ranks (parallel/sharding.py); the
-default, one set on one device, leaves it as it is."""
+Each takes `psum`, which sums its arguments, tensors of per-particle sums,
+over every shard of a particle set sharded over ranks
+(parallel/sharding.py); the default, one set on one device, returns them
+as they are."""
 
 from __future__ import annotations
 
@@ -14,9 +15,10 @@ from top_down_renderer_torch.core.geometry import wrap_angle
 from top_down_renderer_torch.core.grids import Particles
 
 
-def local(t: torch.Tensor) -> torch.Tensor:
-    """The psum of a particle set on one device: the sums themselves."""
-    return t
+def local(*sums: torch.Tensor):
+    """The psum of a particle set on one device: the sums themselves (one
+    tensor for one argument, else a tuple)."""
+    return sums if len(sums) > 1 else sums[0]
 
 
 def mean_likelihood(particles: Particles, n_active, psum=local) -> torch.Tensor:
@@ -24,13 +26,13 @@ def mean_likelihood(particles: Particles, n_active, psum=local) -> torch.Tensor:
     ml = particles.ml_state()
     m = particles.alive.to(torch.float32)
     cnt = torch.clamp(torch.as_tensor(n_active).to(torch.float32), min=1.0)
-    sums = psum(torch.cat([
+    total, cos_t, sin_t = psum(
         (ml * m[:, None]).sum(0),
-        (torch.cos(ml[:, 2]) * m).sum()[None],
-        (torch.sin(ml[:, 2]) * m).sum()[None],
-    ]))
-    mean = sums[:4] / cnt
-    cos_s, sin_s = sums[4] / cnt, sums[5] / cnt
+        (torch.cos(ml[:, 2]) * m).sum(),
+        (torch.sin(ml[:, 2]) * m).sum(),
+    )
+    mean = total / cnt
+    cos_s, sin_s = cos_t / cnt, sin_t / cnt
     return torch.cat([mean[:2], torch.atan2(sin_s, cos_s)[None], mean[3:]])
 
 

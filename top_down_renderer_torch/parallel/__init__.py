@@ -1,6 +1,5 @@
 """Multi-device scaling of the particle filter over torch.distributed
-(parallel/sharding.py); launch.run_ranks starts the ranks of a group on
-one machine."""
+(parallel/sharding.py)."""
 
 from top_down_renderer_torch.parallel.sharding import (
     make_mesh,

@@ -127,16 +127,23 @@ class Collectives:
             return t.detach().cpu()
         return t.detach().clone()
 
-    def _reduce(self, t: torch.Tensor, op) -> torch.Tensor:
-        buf = self._buffer(t.reshape(-1))
+    def _reduce(self, ts, op):
+        """ts reduced over the ranks, in ONE all_reduce of their values
+        laid end to end (they share a dtype): one tensor for one, else a
+        tuple."""
+        buf = self._buffer(torch.cat([t.reshape(-1) for t in ts]))
         dist.all_reduce(buf, op, group=self.group)
-        return buf.to(t.device).reshape(t.shape)
+        out = tuple(v.to(t.device).reshape(t.shape) for v, t in
+                    zip(buf.split([t.numel() for t in ts]), ts))
+        return out if len(out) > 1 else out[0]
 
-    def psum(self, t: torch.Tensor) -> torch.Tensor:
-        return self._reduce(t, dist.ReduceOp.SUM)
+    def psum(self, *ts: torch.Tensor):
+        """The sum over the ranks of each argument (stats.local's
+        signature)."""
+        return self._reduce(ts, dist.ReduceOp.SUM)
 
-    def pmin(self, t: torch.Tensor) -> torch.Tensor:
-        return self._reduce(t, dist.ReduceOp.MIN)
+    def pmin(self, *ts: torch.Tensor):
+        return self._reduce(ts, dist.ReduceOp.MIN)
 
     def gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """Every rank's t, concatenated along dim in rank order."""
@@ -392,15 +399,16 @@ def make_sharded_step_fast(
         f = float(np.float32(scale) * np.float32(res))
         cw = class_weights.to(scan.device)
         cy, cx = cs.conv_centres(p.pose_px(), map_resolution, cmap.pad)
-        origin = cs.clamp_origin(comm.pmin(cs.alive_min(cy, cx, p.alive)),
+        oy, ox = cs.clamp_origin(*comm.pmin(*cs.alive_min(cy, cx, p.alive)),
                                  cmap, mo, region)
-        cell = ((cy - origin[0]).clamp(0, region - 1) * region
-                + (cx - origin[1]).clamp(0, region - 1))
+        cell = ((cy - oy).clamp(0, region - 1) * region
+                + (cx - ox).clamp(0, region - 1))
         kernels = [cs.build_conv_kernel(scan, cw, stencil, f, mo, fl,
                                         num_rot, window_w, s0)
                    for fl in flavours]
         kernel = torch.cat(kernels)
-        part = cs.cost_field(cmap.padded, kernel, origin, mo, region,
+        part = cs.cost_field(cmap.padded, kernel, torch.stack([oy, ox]), mo,
+                             region,
                              rows=(comm.rank * rows_per, rows_per))
         field = comm.gather(part, dim=1)[:, :region].reshape(
             kernel.shape[0], -1)
