@@ -81,6 +81,22 @@ Phases (any failure exits non-zero before the result line):
   M2. the same three on two ranks over gloo on the one card (two
      processes; collectives through host memory), held against M1 at the
      same tolerance (their times are not the card's mesh times);
+  N. the node (TopDownRenderNode, the package's entry point) at 102,400
+     particles on the 1536^2 six-class city world, loaded from
+     benchmarks/data/city.png by the port's PNG reader, replaying the city
+     drive's first scans (tests/city_drive_torch.py; 8,192 points each):
+     N1 300 scans after warmup (the first scan's latency also without
+     it), each update on the scorer its plan names (crop kernels, conv
+     cost field, or the exact step where the plan falls to it), the node
+     converged and the published poses within NODE_ERR_M of the true
+     trajectory on average; per-scan render, filter and publish times
+     (median, p90), and the blocking reads per scan (the synchronising
+     calls torch.cuda's sync debug mode reports, by site, and the waits on
+     the filter's snapshot copy); N2 the same with async_publish, whose
+     nowait snapshot read must make no synchronising call (sync debug
+     mode "error"); N3 the unknown-scale node over 150 scans, with a
+     relocalisation kick (reinitialize_fraction) that makes a K-bucket
+     update mixed (theta search and tracked);
   E. one JSON line of kernel results with each kernel's bound on the
      work its inputs need (the crop kernels per distinct stencil pixel:
      the theta searches on the nonzero entries of M on bf16 tensor cores,
@@ -102,6 +118,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "tests"))
@@ -112,6 +129,7 @@ import torch.distributed as dist  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
+import city_drive_torch as city_drive  # noqa: E402
 from drive_consumer_torch import (  # noqa: E402
     SCALE_GT,
     drive,
@@ -131,6 +149,9 @@ from top_down_renderer_torch.filter.scoring import (  # noqa: E402
     shift_mask,
 )
 from top_down_renderer_torch.parallel import sharding  # noqa: E402
+from top_down_renderer_torch.render.geometric import (  # noqa: E402
+    render_geometric_polar,
+)
 from top_down_renderer_torch.render.semantic import (  # noqa: E402
     render_semantic_polar,
 )
@@ -778,6 +799,20 @@ def median_ms(fn, warmup=3, runs=20) -> float:
     return float(np.median(times))
 
 
+def as_updated(pf, state, have_init: bool) -> None:
+    """Put `state` in the filter as the update that made it leaves it: its
+    snapshot copy to the host started (made once per state and kept, so a
+    timing loop that starts every update from one state reads it as the
+    node's loop reads the previous update's)."""
+    pf.state, pf._all_have_init = state, have_init
+    kept = getattr(pf, "_kept_snaps", {})
+    if id(state) not in kept:
+        pf._prefetch_snapshot()
+        kept[id(state)] = pf._snap  # holds the state: the id stays its own
+        pf._kept_snaps = kept
+    pf._snap = kept[id(state)]
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -859,8 +894,7 @@ def phase_d(dev, pf, world, errs):
     args = (cmap, 3, sten, scan, cw, ctr)
 
     def init_update():
-        pf.state = spread
-        pf._all_have_init = False
+        as_updated(pf, spread, False)
         pf.update(scan, RES)
 
     pair = crop_pair(args, spread.particles.theta, f)
@@ -894,8 +928,7 @@ def phase_d(dev, pf, world, errs):
     def tracked_update():
         """The crop update of the clustered cloud: its conv region
         withheld from the dispatch."""
-        pf.state = clustered
-        pf._all_have_init = True
+        as_updated(pf, clustered, True)
         pf._conv_region = lambda mo: None
         try:
             pf.update(scan, RES)
@@ -965,8 +998,7 @@ def conv_times(pf, clustered, scan, cw, sten, f):
              + (plan.region + dr - 1) * (plan.region + dc - 1) * cp * 4)
 
     def conv_update():
-        pf.state, pf._all_have_init = clustered, True
-        pf._snap = None  # the host snapshot of a new state is read afresh
+        as_updated(pf, clustered, True)
         pf.update(scan, RES)
 
     calls = conv_calls()
@@ -1014,7 +1046,7 @@ def phase_d2(dev, world, errs):
                           p.scale, slots, plan.bmi)
 
         def update():
-            pf.state, pf._all_have_init = state, have
+            as_updated(pf, state, have)
             pf.update(scan, RES)
 
         tracked = name == MULTI[0]
@@ -1229,8 +1261,7 @@ def mesh_update_times(world, dev, mesh_pfs, single_pfs):
             start = start.replace(step=1)
 
             def update(pf=pf, start=start, have=have):
-                pf.state, pf._all_have_init = start, have
-                pf._snap = None  # the snapshot of a new state is read afresh
+                as_updated(pf, start, have)
                 pf.update(scan, RES)
 
             out[f"{drive}_{which}_ms"] = median_ms(update)
@@ -1291,10 +1322,320 @@ def phase_m(dev, world, read_launches):
     return times
 
 
+# phase N: the node on the card
+N_SCANS = 300  # N1, N2: the first scans of the city drive
+N3_SCANS = 150
+# N1's bound on the mean error (m) of the published poses against the
+# true trajectory: twice the mean of the CPU run of the same 300 scans
+# through the port (tests/city_drive_torch.py --device cpu --particles
+# 8192: converged at scan 31, mean 2.075 m, max 5.01 m over 269 poses),
+# rounded up
+NODE_ERR_M = 4.2
+SYNC_WARNING = "synchronizing CUDA operation"
+
+
+class UpdateLog:
+    """Per ParticleFilter.update of one filter, while open: the dispatch's
+    plan (None: the exact step) and the change in the launches of every
+    kernel, the conv cost fields and the exact steps run."""
+
+    def __init__(self, pf):
+        self.pf, self.rows, self._exact = pf, [], 0
+
+    def _counts(self):
+        return dict(kernels.LAUNCHES, conv=conv_calls(), exact=self._exact)
+
+    def __enter__(self):
+        pf = self.pf
+        self._plan_log = PlanLog()
+        plans = self._plan_log.__enter__()
+        step_fn, update = pf._update_fn, pf.update
+
+        def exact_step(*a, **kw):
+            self._exact += 1
+            return step_fn(*a, **kw)
+
+        def logged(scan, res):
+            before, n_plans = self._counts(), len(plans)
+            update(scan, res)
+            after = self._counts()
+            if len(plans) > n_plans:
+                self.rows.append((plans[-1], {k: after[k] - before[k]
+                                              for k in after}))
+
+        self._orig = step_fn
+        pf._update_fn, pf.update = exact_step, logged
+        return self
+
+    def __exit__(self, *exc):
+        self._plan_log.__exit__(*exc)
+        del self.pf.update  # the instance attribute: the method again
+        self.pf._update_fn = self._orig
+
+
+# the kernels each plan must launch: (uniform or K-bucket) -> mode ->
+# kernel names
+PLAN_KERNELS = {
+    False: {"tracked": ("crop_score_tracked",), "init": ("crop_score_init",),
+            "mixed": ("crop_score_tracked", "crop_score_init")},
+    True: {"tracked": ("crop_score_multi_tracked",),
+           "init": ("crop_score_multi_init",),
+           "mixed": ("crop_score_multi_tracked", "crop_score_multi_init")},
+}
+SCORERS = CROP + MULTI
+
+
+def check_node_plans(label, rows) -> dict:
+    """Each update ran what its plan names: the crop or K-bucket kernels
+    of its mode and no other scorer, a conv cost field and no crop
+    launch, or (no plan) the exact step.  Returns the updates per path."""
+    paths = {}
+    for i, (plan, d) in enumerate(rows):
+        if plan is None:
+            path, ok = "exact", d["exact"] == 1 and not any(
+                d[k] for k in SCORERS) and d["conv"] == 0
+        elif isinstance(plan, filter_mod.MultiDispatch):
+            want = PLAN_KERNELS[True][plan.mode]
+            path = f"multi/{plan.mode}"
+            ok = (all(d[k] >= 1 for k in want) and d["exact"] == 0
+                  and d["conv"] == 0
+                  and not any(d[k] for k in SCORERS if k not in want))
+        elif plan.path == "conv":
+            path = f"conv/{plan.mode}"
+            ok = d["conv"] >= 1 and d["exact"] == 0 and not any(
+                d[k] for k in SCORERS)
+        else:
+            want = PLAN_KERNELS[False][plan.mode]
+            path = f"crop/{plan.mode}/mip{plan.mip}"
+            ok = (all(d[k] >= 1 for k in want) and d["exact"] == 0
+                  and d["conv"] == 0
+                  and not any(d[k] for k in SCORERS if k not in want))
+        check(ok, f"{label}: update {i} planned {path}, launched "
+              f"{ {k: v for k, v in d.items() if v} }")
+        paths[path] = paths.get(path, 0) + 1
+    log(f"[{label}] each of {len(rows)} updates ran what its plan names: "
+        f"{paths}")
+    return paths
+
+
+def city_bag_for_smoke(n_scans):
+    """(world maps, true trajectory px, bag) of the city drive's first
+    n_scans scans (tests/city_drive_torch.py)."""
+    t0 = time.perf_counter()
+    maps, traj, psi = city_drive.city_world()
+    bag = city_drive.make_bag(maps, traj, psi, n_scans)
+    log(f"[N] city drive: {n_scans} scans of "
+        f"{bag.scan_points.shape[0] // n_scans} points synthesised in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return traj, bag
+
+
+def node_replay(node, traj, bag, max_scans=None, after_scan=None):
+    """Replay the bag through the node with every update logged and every
+    blocking read counted: the synchronising calls that torch.cuda's sync
+    debug mode reports ("warn"), by site, and the waits on the filter's
+    snapshot copy.  after_scan(node, ulog) runs after each scan.  Returns
+    (record, errors (m) of the published poses, per-scan timing dicts,
+    UpdateLog, per-scan synchronising calls, per-scan snapshot reads,
+    sites)."""
+    kernels.reset_launch_counts()
+    pf = node.filter
+    syncs, snaps, sites = [], [], {}
+    seen = [0, pf.snapshot_reads]
+    with UpdateLog(pf) as ulog, warnings.catch_warnings(
+            record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            def counted(node):
+                new = [w for w in caught[seen[0]:]
+                       if SYNC_WARNING in str(w.message)]
+                seen[0] = len(caught)
+                syncs.append(len(new))
+                snaps.append(pf.snapshot_reads - seen[1])
+                seen[1] = pf.snapshot_reads
+                for w in new:
+                    site = f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+                    sites[site] = sites.get(site, 0) + 1
+                if after_scan is not None:
+                    after_scan(node, ulog)
+
+            rec, errs, times = city_drive.run(
+                node, bag, traj, on_scan=counted,
+                **({} if max_scans is None else {"max_scans": max_scans}))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return (rec, errs, times, ulog, np.asarray(syncs), np.asarray(snaps),
+            sites)
+
+
+def log_node_times(label, times, syncs, snaps, name_limit):
+    reads = syncs + snaps
+    stats = {}
+    for key in ("render_ms", "filter_ms", "publish_ms"):
+        v = np.asarray([t[key] for t in times])
+        stats[key] = (float(np.median(v)), float(np.percentile(v, 90)))
+    total = np.asarray([sum(t[k] for k in ("render_ms", "filter_ms",
+                                           "publish_ms")) for t in times])
+    stats["scan_ms"] = (float(np.median(total)),
+                        float(np.percentile(total, 90)))
+    log(f"[{label}] per scan (host clock, median / p90 over {len(times)} "
+        f"scans): " + ", ".join(f"{k} {a:.3f} / {b:.3f}"
+                                for k, (a, b) in stats.items())
+        + f"; blocking reads per scan {reads.mean():.2f} (max "
+        f"{reads.max()}): synchronising calls under sync debug mode "
+        f"{syncs.mean():.2f}, snapshot reads {snaps.mean():.2f} ({N} "
+        f"particles, 1536^2 city map) on {name_limit}")
+    stats["reads"] = float(reads.mean())
+    return stats
+
+
+def first_scan_ms(node, bag, traj):
+    t0 = time.perf_counter()
+    city_drive.run(node, bag, traj, max_scans=1)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_n(dev, name_limit, read_launches):
+    """The node on the card at 102,400 particles on the 1536^2 city world
+    loaded from benchmarks/data/city.png: N1 the city drive's first
+    N_SCANS scans with warmup, N2 the same with async_publish, N3 the
+    unknown-scale node over N3_SCANS scans."""
+    traj, bag = city_bag_for_smoke(N_SCANS)
+    out = {}
+
+    t0 = time.perf_counter()
+    cold = city_drive.make_node(particles=N, device=dev)
+    build_s = time.perf_counter() - t0
+    check(cold.filter.n_max == N, f"n_max {cold.filter.n_max}")
+    out["first_cold_ms"] = first_scan_ms(cold, bag, traj)
+    del cold
+    node = city_drive.make_node(particles=N, device=dev)
+    t0 = time.perf_counter()
+    node.warmup()
+    torch.cuda.synchronize()
+    out["warmup_ms"] = (time.perf_counter() - t0) * 1e3
+    caches = (len(node.filter._fast_fns), len(node.filter._maps_cache))
+    log(f"[N1] node built from city.png in {build_s:.2f} s; first scan "
+        f"without warmup {out['first_cold_ms']:.1f} ms; warmup "
+        f"{out['warmup_ms']:.1f} ms (step functions, maps cached: {caches})")
+
+    rec, errs, times, ulog, syncs, snaps, sites = node_replay(node, traj, bag)
+    read_launches("N1", ("crop_score_init", "crop_score_tracked",
+                         "crop_fold"))
+    out["first_warm_ms"] = sum(times[0][k] for k in ("render_ms", "filter_ms",
+                                                    "publish_ms"))
+    paths = check_node_plans("N1", ulog.rows)
+    first = rec["first_converged_stamp"]
+    check(first is not None and node.is_converged, "N1: did not converge")
+    check(errs.size > 0 and errs.mean() < NODE_ERR_M,
+          f"N1: mean error {errs.mean() if errs.size else None} m of the "
+          f"published poses, bound {NODE_ERR_M} m")
+    log(f"[N1] converged at scan {int(round(first / city_drive.DT))}; "
+        f"{len(rec['poses'])} poses published, error against the true "
+        f"trajectory mean {errs.mean():.3f} m, median "
+        f"{np.median(errs):.3f} m, max {errs.max():.3f} m (bound "
+        f"{NODE_ERR_M} m); first scan with warmup "
+        f"{out['first_warm_ms']:.1f} ms against {out['first_cold_ms']:.1f} "
+        f"ms without")
+    out["n1"] = log_node_times("N1", times, syncs, snaps, name_limit)
+    top = sorted(sites.items(), key=lambda kv: -kv[1])[:8]
+    log(f"[N1] synchronising call sites (count over {len(times)} scans): "
+        + "; ".join(f"{k} x{v}" for k, v in top))
+    out["paths"] = paths
+    pts = node._upload(bag.scan(0))
+    res = torch.full((), 4.0, device=dev)
+    parts = {
+        "upload": lambda: node._upload(bag.scan(0)),
+        "semantic": lambda: render_semantic_polar(
+            pts, node.flatten_lut, res, node._ang_res, 6, 100, 25),
+        "geometric": lambda: render_geometric_polar(
+            pts, res, node._ang_res, 100, 25),
+    }
+    out["render_parts_ms"] = {k: median_ms(f) for k, f in parts.items()}
+    log(f"[N1] a scan's render by parts (host clock, synchronised, median "
+        f"of 20; 8,192 points): " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in out["render_parts_ms"].items())
+        + f" on {name_limit}")
+    del node
+
+    # N2: async publish; the nowait read must make no synchronising call
+    node = city_drive.make_node(particles=N, device=dev, async_publish=True)
+    node.warmup()
+    orig, served = node.filter.publish_stats, {"fresh": 0, "stale": 0,
+                                               "none": 0}
+
+    def guarded(block=True):
+        if block:
+            return orig(block=True)
+        pf = node.filter
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = orig(block=False)
+        finally:
+            torch.cuda.set_sync_debug_mode("warn")
+        fresh = pf._snap is not None and pf._snap[0] is pf.state and (
+            pf._snap[1] is not None)
+        served["none" if got is None else "fresh" if fresh else "stale"] += 1
+        return got
+
+    node.filter.publish_stats = guarded
+    rec, errs, times, ulog, syncs, snaps, _ = node_replay(node, traj, bag)
+    read_launches("N2", ("crop_score_init", "crop_score_tracked",
+                         "crop_fold"))
+    check_node_plans("N2", ulog.rows)
+    check(rec["first_converged_stamp"] is not None and node.is_converged,
+          "N2: did not converge")
+    log(f"[N2] async publish: converged at scan "
+        f"{int(round(rec['first_converged_stamp'] / city_drive.DT))}, mean "
+        f"error {errs.mean():.3f} m; publish_stats(block=False) made no "
+        f"synchronising call in {sum(served.values())} publishes "
+        f"(snapshot served {served})")
+    out["n2"] = log_node_times("N2", times, syncs, snaps, name_limit)
+    del node
+
+    # N3: unknown scale.  The node's propagate diffuses the 10 scale
+    # hypotheses by 2 % at the first scan (standing too), so the first
+    # updates plan the exact step, as the reference's dispatch does, until
+    # resampling clusters the scales and the K-bucket tracked kernel runs;
+    # a relocalisation kick (reinitialize_fraction) on the first K-bucket
+    # update from scan 20 on makes the next update mixed: the K-bucket
+    # theta search for the fresh particles, tracked for the rest
+    node = city_drive.make_node(particles=N, device=dev, unknown_scale=True)
+    node.warmup()
+    kicked = []
+
+    def kick(node, ulog):
+        plan = ulog.rows[-1][0] if ulog.rows else None
+        if (not kicked and len(ulog.rows) >= 20
+                and isinstance(plan, filter_mod.MultiDispatch)):
+            node.filter.reinitialize_fraction(0.05)
+            kicked.append(len(ulog.rows))
+
+    rec, errs, times, ulog, syncs, snaps, _ = node_replay(
+        node, traj, bag, max_scans=N3_SCANS, after_scan=kick)
+    read_launches("N3", ("crop_score_multi_init", "crop_score_multi_tracked",
+                         "crop_fold"))
+    paths = check_node_plans("N3", ulog.rows)
+    check(kicked and paths.get("multi/mixed"),
+          f"N3: no mixed K-bucket update after the kick ({kicked})")
+    frozen = node.filter.is_scale_frozen
+    log(f"[N3] unknown scale over {rec['n_scans']} scans (5 % of the cloud "
+        f"redrawn after update {kicked[0]}): scale "
+        + (f"frozen at {node.filter.scale():.4f}" if frozen
+           else "not frozen") + f" (true {city_drive.SCALE}), converged "
+        f"{node.is_converged}, {len(rec['poses'])} poses published")
+    out["n3"] = log_node_times("N3", times, syncs, snaps, name_limit)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False  # full-f32 plain matmuls
@@ -1358,6 +1699,11 @@ def main() -> int:
         f"{mesh_times['multi_single_ms']:.4f} ms, conv "
         f"{mesh_times['conv_mesh_ms']:.4f} against "
         f"{mesh_times['conv_single_ms']:.4f} ms on {name_limit}")
+    node = phase_n(dev, name_limit, read_launches)
+    log(f"[N] node per scan (median ms, host clock): N1 "
+        f"{node['n1']['scan_ms'][0]:.3f}, N2 (async publish) "
+        f"{node['n2']['scan_ms'][0]:.3f}, N3 (unknown scale) "
+        f"{node['n3']['scan_ms'][0]:.3f} on {name_limit}")
     for name, t in times.items():
         extra = "".join(f", {k} {t[k]:.4f} ms"
                         for k in ("update_ms", "host_ms") if k in t)
@@ -1419,6 +1765,7 @@ def main() -> int:
         }
         for name in KERNELS
     ]}
+    log(f"[E] chip_smoke ran {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(result))
     print(name_limit)
     print(json.dumps({"ok": True, "device": {

@@ -42,8 +42,7 @@ STEPS = 10
 
 def updater(pf, state, have, scan):
     def update():
-        pf.state, pf._all_have_init = state, have
-        pf._snap = None  # the snapshot of a new state is read afresh
+        smoke.as_updated(pf, state, have)
         pf.update(scan, smoke.RES)
 
     return update

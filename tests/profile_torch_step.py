@@ -8,8 +8,9 @@ conv path the dispatch plans there and on the crop path (the conv region
 withheld); at an unknown scale (the K-bucket crop path), theta search on
 the 10 scale hypotheses of a fresh spread init, and tracked on the same
 population once each particle has a theta.  Each update starts from the
-same state (step 1: no GMM refit) and reads its host snapshot afresh, as
-an update of a new state does.  Prints, per regime, the
+same state (step 1: no GMM refit), as the update that made it leaves
+the filter (chip_smoke.as_updated: its snapshot copy made).  Prints,
+per regime, the
 wall time per update, the device busy share (device kernel time over
 wall time), the count of top-level operators per update and their host
 time, and the top kernels by device time; writes the full tables
@@ -40,9 +41,7 @@ STEPS = 10
 
 def profile_regime(name, pf, state, have_init, scan, out_dir):
     def update():
-        pf.state = state
-        pf._all_have_init = have_init
-        pf._snap = None
+        smoke.as_updated(pf, state, have_init)
         pf.update(scan, smoke.RES)
 
     for _ in range(3):

@@ -1,7 +1,8 @@
 """The CUDA kernels (uniform and K-bucket crop scoring, with the theta
 searches' raw-row epilogue, and the forward fill) against their plain
-versions, and the conv path (cuDNN) against a float64
-convolution and against the CPU, on the card.
+versions, the conv path (cuDNN) against a float64 convolution and
+against the CPU, and the node (its plans, publish and snapshot copy, the
+PNG map) against the CPU, on the card.
 
 These tests need a CUDA device and skip without one.  The file imports
 no JAX, so it also runs on a machine without it:
@@ -613,3 +614,102 @@ def test_conv_step_on_card_matches_cpu(dev, mode):
         [gpu.particles.init_px, gpu.particles.theta[:, None]], 1))
     assert np.mean(np.all(rows_c == rows_g, axis=1)) >= 0.99
     assert_rel(np_(cpu.ml_state), np_(gpu.ml_state), 1e-5, "ml_state")
+
+
+# -- the node ------------------------------------------------------------
+def _city_node_world(scans=6):
+    """A 256^2 window of the city world around the drive's first scans,
+    its PNG, the bag of those scans, and an initial pose prior."""
+    import math
+    import os
+    import tempfile
+
+    import city_drive_torch as city
+
+    maps, traj, psi = city.city_world()
+    maps, traj = city.crop(maps, traj, slice(0, scans), 256)
+    png = os.path.join(tempfile.mkdtemp(), "city_window.png")
+    city.write_world_png(maps, png)
+    init = dict(init_pos_px_x=float(traj[0][0]),
+                init_pos_px_y=float(traj[0][1]), init_pos_px_cov=15.0,
+                init_pos_deg_theta=math.degrees(psi[0]), init_pos_deg_cov=15.0)
+    return city, png, city.make_bag(maps, traj, psi, scans), traj, init
+
+
+@pytest.mark.cuda
+def test_node_scans_on_card_plan_and_publish_as_on_cpu(dev):
+    """A few node scans on the card plan the same steps as on the CPU and
+    publish the same pose within a few pixels (the draws differ: each
+    device has its own generator)."""
+    city, png, bag, traj, init = _city_node_world()
+    runs = []
+    for device in ("cpu", dev):
+        node = city.make_node(png, 1024, device, init=init)
+        plans = []
+        fast_mode = node.filter._fast_mode
+
+        def planned(res, fast_mode=fast_mode, plans=plans):
+            plans.append(fast_mode(res))
+            return plans[-1]
+
+        node.filter._fast_mode = planned
+        rec, errs, _ = city.run(node, bag, traj)
+        runs.append(([(p.path, p.mode, p.mip) for p in plans],
+                     node.filter.publish_stats(), errs))
+    (plans_c, stats_c, errs_c), (plans_g, stats_g, errs_g) = runs
+    assert plans_g == plans_c
+    assert np.all(np.isfinite(stats_g[1])) and stats_g[2] > 0
+    assert np.linalg.norm(stats_g[0][:2] - stats_c[0][:2]) < 3.0
+    assert errs_g.size and errs_g.mean() < 2.0 and errs_c.mean() < 2.0
+
+
+@pytest.mark.cuda
+def test_nowait_publish_makes_no_sync(dev):
+    """publish_stats(block=False) never synchronises; the next update's
+    copy lands in the other pinned buffer, so the last snapshot read stays
+    as it was; publish_stats' arrays are the caller's own."""
+    city, png, bag, traj, init = _city_node_world(3)
+    node = city.make_node(png, 1024, dev, init=init)
+    pf = node.filter
+    held = pf.publish_stats()
+    kept = [np.copy(a) for a in held]
+    raw = pf._host_snapshot()
+    raw_copy = raw.copy()
+    scan = torch.rand((6, 100, 25), device=dev)
+    pf.update(scan, 4.0)
+    torch.cuda.synchronize()  # the update's copy has landed
+    np.testing.assert_array_equal(raw, raw_copy)
+    for _ in range(3):
+        pf.update(scan, 4.0)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = pf.publish_stats(block=False)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert got is not None
+    for a, b in zip(held, kept):
+        np.testing.assert_array_equal(a, b)
+    torch.cuda.synchronize()
+    fresh = pf.publish_stats(block=True)
+    np.testing.assert_array_equal(pf.publish_stats(block=False)[0], fresh[0])
+    assert pf.snapshot_copies == 5
+
+
+@pytest.mark.cuda
+def test_png_map_on_card_equals_cpu(dev):
+    """TopDownMap from benchmarks/data/city.png on the card: the class maps
+    of the CPU's, and its distances within float32 rounding."""
+    import city_drive_torch as city
+    from top_down_renderer_torch import MapParams
+    from top_down_renderer_torch.maps.map import TopDownMap
+
+    cc = city.class_config()
+    params = MapParams(map_path=city.PNG, num_classes=6,
+                       flatten_lut=cc.flatten_lut(), class_config=cc)
+    cpu, gpu = TopDownMap(params, device="cpu"), TopDownMap(params)
+    assert gpu.grid.dist.device.type == "cuda"
+    np.testing.assert_array_equal(gpu.class_maps_binary,
+                                  cpu.class_maps_binary)
+    np.testing.assert_allclose(np_(gpu.grid.dist), np_(cpu.grid.dist),
+                               rtol=1e-6, atol=1e-5)
+    np.testing.assert_array_equal(np_(gpu.grid.road_ok), np_(cpu.grid.road_ok))

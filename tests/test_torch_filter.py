@@ -395,3 +395,181 @@ def test_crop_step_with_host_scale_equals_the_card_scale(mode, mip):
         np.testing.assert_array_equal(outs[1]["particles"][k], v, k)
     for k in ("n_active", "ml_state", "bbox", "smask"):
         np.testing.assert_array_equal(outs[1][k], outs[0][k], k)
+
+
+# -- the ParticleFilter's snapshot, publish queries, reinit and warmup ----
+def _filters(fixed_scale=2.0, n=512, hw=128, seed=0):
+    """A reference and a port ParticleFilter on the same world (their
+    initial clouds are the same numpy draws)."""
+    from top_down_renderer_tpu.config import MapParams as MapParamsJ
+    from top_down_renderer_tpu.maps import map as map_j
+    from top_down_renderer_torch import FilterParams as FilterParamsT
+    from top_down_renderer_torch import MapParams as MapParamsT
+    from top_down_renderer_torch.maps import map as map_t
+    from util_synthetic import make_world
+
+    world = make_world(hw, hw)
+    tdm_j = map_j.TopDownMap(MapParamsJ(map_path="", num_classes=3))
+    tdm_j.class_maps_binary = world
+    tdm_j.grid = map_j.build_grid(world)
+    tdm_j.have_map = True
+    tdm_t = map_t.TopDownMap(MapParamsT(map_path="", num_classes=3),
+                             device="cpu", class_maps=world)
+    kw = dict(pos_cov=0.1, regularization=0.02, fixed_scale=fixed_scale,
+              class_weights=[0.1, 1.5, 3.0], force_on_map=True)
+    for tdm in (tdm_j, tdm_t):
+        tdm.sample_pts_polar(100, 25)
+    pf_j = fj.ParticleFilter(n, tdm_j, FilterParams(**kw), seed=seed,
+                             chunk_size=256)
+    pf_t = ft.ParticleFilter(n, tdm_t, FilterParamsT(**kw), seed=seed,
+                             chunk_size=256)
+    np.testing.assert_array_equal(np_(pf_t.state.particles.init_px),
+                                  np.asarray(pf_j.state.particles.init_px))
+    return pf_j, pf_t, world
+
+
+def _carry(pf_j, pf_t, edit):
+    """Edit the reference's state in numpy and give both filters the
+    result (filter_state_from_numpy on the port's side)."""
+    tree = to_numpy_tree(pf_j.state)
+    tree["particles"] = {k: np.array(v) for k, v in tree["particles"].items()}
+    edit(tree["particles"], np.random.default_rng(4))
+    pj = pf_j.state.particles
+    pf_j.state = pf_j.state.replace(particles=pj.replace(**{
+        k: jnp.asarray(v) for k, v in tree["particles"].items()}))
+    pf_t.state = filter_state_from_numpy(tree, "cpu")
+    pf_t._all_have_init = pf_j._all_have_init = bool(
+        tree["particles"]["have_init"][tree["particles"]["alive"]].all())
+
+
+def _spread(p, rng):
+    """Dead rows, some displacement, thetas, half the cloud with one."""
+    n = len(p["alive"])
+    p["alive"][rng.random(n) < 0.2] = False
+    p["d_m"][:] = rng.standard_normal((n, 2)).astype(np.float32)
+    p["theta"][:] = rng.uniform(-3, 3, n).astype(np.float32)
+    p["have_init"][:] = rng.random(n) < 0.5
+
+
+def test_reinitialize_fraction_equals_reference():
+    """Bit-equal to the reference's for the same state and seed: which
+    rows are redrawn, their positions, thetas, displacements and
+    have_init, the bounding box and the all-ones shift mask."""
+    pf_j, pf_t, _ = _filters()
+    _carry(pf_j, pf_t, _spread)
+    for frac, seed in ((0.3, 11), (0.05, None)):
+        pf_j.reinitialize_fraction(frac, seed=seed)
+        pf_t.reinitialize_fraction(frac, seed=seed)
+        tj, tt = to_numpy_tree(pf_j.state), filter_state_to_numpy(pf_t.state)
+        for k in ("init_px", "d_m", "theta", "have_init", "alive", "scale"):
+            np.testing.assert_array_equal(tt["particles"][k],
+                                          tj["particles"][k], k)
+        np.testing.assert_array_equal(tt["bbox"], tj["bbox"])
+        np.testing.assert_array_equal(tt["smask"], tj["smask"])
+        assert not pf_t._all_have_init and pf_t._crop_mode() == "mixed"
+    before = pf_t.state
+    pf_t.reinitialize_fraction(0.0)
+    assert pf_t.state is before
+
+
+def test_compute_cov_and_publish_stats_equal_reference():
+    """compute_cov (about the max-likelihood state) and publish_stats
+    (mean likelihood, mean covariance, n_active from the snapshot) equal
+    the reference's within rel 1e-5 on one state."""
+    pf_j, pf_t, _ = _filters(fixed_scale=-1.0)
+    _carry(pf_j, pf_t, _spread)
+    ml = np.asarray(pf_j.state.particles.ml_state())[7]
+    pf_j.state = pf_j.state.replace(ml_state=jnp.asarray(ml))
+    pf_t.state = pf_t.state.replace(ml_state=torch.tensor(ml))
+    ref, got = pf_j.compute_cov(), pf_t.compute_cov()
+    np.testing.assert_allclose(got, ref, rtol=1e-5,
+                               atol=1e-5 * np.abs(ref).max())
+    for block in (True, False):
+        sj, st = pf_j.publish_stats(block=True), pf_t.publish_stats(block)
+        for a, b in zip(st[:2], sj[:2]):
+            np.testing.assert_allclose(a, b, rtol=1e-5,
+                                       atol=1e-5 * np.abs(b).max())
+        assert st[2] == sj[2]
+    np.testing.assert_array_equal(pf_t.pose_stats()[0], st[0])
+    assert pf_t.is_scale_frozen is False and pf_j.is_scale_frozen is False
+
+
+def test_publish_stats_block_and_nowait():
+    """As the reference's test_async_publish_uses_completed_snapshot: no
+    snapshot before the first read; blocking reads give the current
+    state's values; nowait gives the freshest snapshot on the host, which
+    on the CPU (a synchronous copy) is the update's own, and after a
+    state no update made (reinitialize_fraction) the last one read."""
+    _, pf, _ = _filters(fixed_scale=1.0, n=64)
+    assert pf.publish_stats(block=False) is None
+    assert pf.pose_stats_nowait() is None
+    pre = pf.publish_stats(block=True)
+    scan = np.random.default_rng(21).random((3, 100, 25)).astype(np.float32)
+    pf.update(scan, 1.0)
+    post = pf.publish_stats(block=False)
+    assert not np.allclose(post[0], pre[0])
+    for a, b in zip(post, pf.publish_stats(block=True)):
+        np.testing.assert_array_equal(a, b)
+    ml, cov = stats_t.pose_stats(pf.state.particles, pf.state.n_active)
+    np.testing.assert_array_equal(post[0], np_(ml).astype(np.float64))
+    np.testing.assert_array_equal(post[1], np_(cov).astype(np.float64))
+    pf.reinitialize_fraction(0.5, seed=3)
+    stale = pf.publish_stats(block=False)
+    np.testing.assert_array_equal(stale[0], post[0])
+    fresh = pf.publish_stats(block=True)
+    assert not np.allclose(fresh[0], post[0])
+    np.testing.assert_array_equal(pf.pose_stats_nowait()[0], fresh[0])
+
+
+def test_one_snapshot_copy_per_update():
+    """Every update starts one snapshot copy; n_active_host, the dispatch,
+    pose_stats and publish_stats read it and make none of their own: one
+    update plus one publish is one copy."""
+    _, pf, _ = _filters(fixed_scale=2.0, n=256)
+    rng = np.random.default_rng(2)
+    pf.publish_stats()
+    copies = pf.snapshot_copies
+    assert copies == 1
+    for i in range(4):
+        pf.propagate(np.array([1.0, 0.0], np.float32), 0.05)
+        pf.update(rng.random((3, 100, 25)).astype(np.float32), 1.0)
+        assert pf.snapshot_copies == copies + 1
+        assert pf.n_active_host() == int(pf.state.n_active)
+        pf.pose_stats()
+        pf.publish_stats(block=True)
+        pf.publish_stats(block=False)
+        assert pf.snapshot_copies == copies + 1
+        copies += 1
+    assert pf.snapshot_reads == 0  # no copy from a card to wait for
+
+
+def _cache_keys(pf):
+    maps = {k: (sorted(v._compact), v._fold) if isinstance(v, cs.CropMap)
+            else v for k, v in pf._maps_cache.items()}
+    return (sorted(pf._fast_fns, key=repr), sorted(pf._pyramid_cache),
+            sorted(maps, key=repr),
+            {k: (v[0], None if v[1] is None else (v[1][0], v[1][1]))
+             for k, v in maps.items() if isinstance(v, tuple)})
+
+
+@pytest.mark.parametrize("fixed_scale,res", [(2.0, 1.0), (2.0, 4.0),
+                                             (-1.0, 1.0)])
+def test_warmup_leaves_nothing_for_the_first_update_to_build(fixed_scale,
+                                                             res):
+    """After warmup(res) the first update adds no step function and no
+    map cache entry (CropMap, its compact map and stencil fold, ConvMap,
+    pyramid), and warmup changed neither the state nor the draws."""
+    _, pf, _ = _filters(fixed_scale=fixed_scale, n=512)
+    state, gen = pf.state, pf.generator.get_state()
+    pf.warmup(res)
+    assert pf.state is state
+    assert torch.equal(pf.generator.get_state(), gen)
+    keys = _cache_keys(pf)
+    assert keys[0], "warmup made no step function"
+    folds = {k: v._fold for k, v in pf._maps_cache.items()
+             if isinstance(v, cs.CropMap)}
+    pf.update(np.random.default_rng(0).random((3, 100, 25)).astype(
+        np.float32), res)
+    assert _cache_keys(pf) == keys
+    for k, fold in folds.items():
+        assert pf._maps_cache[k]._fold is fold, k

@@ -1,7 +1,8 @@
 """The port stands apart from JAX: importing it, its scorers, its kernel
-loader and chip_smoke.py's imports leaves jax, and every module of the
-JAX package (top_down_renderer_tpu), out of sys.modules, and nothing is
-compiled (or needs nvcc) until a kernel is launched."""
+loader, its node, replay and PNG reader, and chip_smoke.py's imports
+leaves jax, and every module of the JAX package (top_down_renderer_tpu),
+out of sys.modules, and nothing is compiled (or needs nvcc) until a
+kernel is launched."""
 
 import os
 import subprocess
@@ -36,6 +37,12 @@ def _run(code: str, env=None):
         "top_down_renderer_torch.utils.convert, "
         "top_down_renderer_torch.testing",
         "top_down_renderer_torch.parallel",
+        "top_down_renderer_torch.maps.png, "
+        "top_down_renderer_torch.render.geometric, "
+        "top_down_renderer_torch.runtime.node, "
+        "top_down_renderer_torch.runtime.viz, "
+        "top_down_renderer_torch.io.replay, "
+        "top_down_renderer_torch.io.points",
         "chip_smoke",
     ],
 )

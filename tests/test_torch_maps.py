@@ -241,3 +241,73 @@ def test_the_card_is_the_default_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert default_device() == torch.device("cuda")
     assert default_device("cpu") == torch.device("cpu")
+
+
+def _maps_both(h=96, w=128, resolution=1.0, center=(0, 0)):
+    """The same world in both packages' TopDownMap, polar stencil 100 x
+    25."""
+    world = make_world(h, w)
+    params = MapParams(map_path="", num_classes=3, resolution=resolution)
+    tdm_t = map_t.TopDownMap(params, device="cpu", class_maps=world)
+    tdm_t._set_class_maps(world, center)
+    tdm_j = map_j.TopDownMap(params)
+    tdm_j.class_maps_binary = world
+    # one grid: the port's distances (the two EDTs may differ by an ulp)
+    tdm_j.grid = map_j.build_grid(world, resolution=resolution,
+                                  map_center=center).replace(
+        dist=jnp.asarray(np_(tdm_t.grid.dist)),
+        geo_dist=jnp.asarray(np_(tdm_t.grid.geo_dist)))
+    tdm_j.have_map = True
+    for tdm in (tdm_t, tdm_j):
+        tdm.sample_pts_polar(100, 25)
+    return tdm_t, tdm_j
+
+
+# centres inside, on the edge, half outside and far outside the map, as
+# floats, numpy floats and exact halves
+_CENTRES = [(60.0, 105.0), (0.0, 0.0), (127.5, 95.5), (np.float64(64.25),
+            np.float64(30.5)), (-10.0, 50.0), (500.0, -400.0)]
+
+
+@pytest.mark.parametrize("resolution", [1.0, 2.0])
+def test_local_maps_equal(resolution):
+    """get_local_map (polar), get_local_geo_map and
+    get_local_map_cartesian equal the reference's on one grid, with
+    size() and map_center()."""
+    tdm_t, tdm_j = _maps_both(resolution=resolution, center=(7, -3))
+    np.testing.assert_array_equal(tdm_t.size(), tdm_j.size())
+    np.testing.assert_array_equal(tdm_t.map_center(), tdm_j.map_center())
+    for c in _CENTRES:
+        for scale, res in ((2.0, 1.0), (1.0, 0.5), (3.3, 0.7)):
+            for name in ("get_local_map", "get_local_geo_map"):
+                got = getattr(tdm_t, name)(c, scale, res)
+                ref = getattr(tdm_j, name)(c, scale, res)
+                for a, b in zip(got if isinstance(got, tuple) else [got],
+                                ref if isinstance(ref, tuple) else [ref]):
+                    assert a.dtype == b.dtype and a.shape == b.shape
+                    np.testing.assert_array_equal(a, b, (name, c))
+        for rot in (0.0, 0.3, math.pi / 2, -2.0):
+            got = tdm_t.get_local_map_cartesian(c, rot, 1.0, 21, 31)
+            ref = tdm_j.get_local_map_cartesian(c, rot, 1.0, 21, 31)
+            for a, b in zip(got, ref):
+                np.testing.assert_array_equal(a, b, (c, rot))
+
+
+def test_cartesian_local_map_identity_and_rotation():
+    """The reference's own checks (tests/test_runtime_extras.py) on the
+    port: rot 0, res 1 is a slice of the distance field; rot pi/2 is its
+    transpose flipped; far out of the map, dist 0 and mask 1."""
+    tdm, _ = _maps_both(256, 256)
+    h = w = 21
+    center = (60.0, 105.0)
+    dists, mask = tdm.get_local_map_cartesian(center, 0.0, 1.0, h, w)
+    full = np_(tdm.grid.dist)
+    y0, x0 = int(center[1]) - h // 2, int(center[0]) - w // 2
+    np.testing.assert_allclose(
+        dists, np.moveaxis(full[y0:y0 + h, x0:x0 + w, :3], -1, 0), atol=1e-5)
+    assert mask.sum() == 0
+    d0, _ = tdm.get_local_map_cartesian((128, 128), 0.0, 1.0, 31, 31)
+    d90, _ = tdm.get_local_map_cartesian((128, 128), np.pi / 2, 1.0, 31, 31)
+    np.testing.assert_allclose(d90[1], np.flipud(d0[1]).T, atol=1e-4)
+    d_o, m_o = tdm.get_local_map_cartesian((-500, -500), 0.0, 1.0, 5, 5)
+    assert np.all(d_o == 0) and np.all(m_o == 1)

@@ -6,8 +6,9 @@ theta band (the conv cell: region 128, mo 24, a window of 16 shifts), and
 times, in three rounds of turns, the median of 20 synchronised updates
 from the same state (step 1: no GMM refit) on each path: the crop path
 (the conv region withheld from the dispatch), the conv path reading its
-host snapshot afresh (as the update of a new state does), and the conv
-path with the snapshot kept.  Then the medians of 20 synchronised calls
+host snapshot afresh (as the update of a state no update made does), and
+the conv path with the state's snapshot copy made, as the update that
+made it leaves it.  Then the medians of 20 synchronised calls
 of the conv update's parts: the snapshot read, the dispatch's plan with
 the snapshot kept, the kernel build, the cost field, the whole conv
 scorer, and beside them the crop path's tracked scorer.
@@ -61,7 +62,7 @@ def main() -> int:
 
     def update(path, fresh=True):
         def run():
-            pf.state, pf._all_have_init = clustered, True
+            smoke.as_updated(pf, clustered, True)
             if fresh:
                 pf._snap = None
             if path == "crop":

@@ -176,3 +176,30 @@ def conv_rank(rank, world, seed, direct, scan_seed):
 
 def exact_step_rank(rank, world, shift):
     return _on_mesh(exact_step, shift)
+
+
+def node_rank(rank, world, png, bag_path, init):
+    """The city-window node (tests/city_drive_torch.py) with
+    RuntimeParams(mesh_devices=world) on the CPU, replaying the bag at
+    bag_path: the number of ranks its filter is sharded over, the
+    position and covariance of each pose it published, and its whole
+    state (gathered) before and after reinitialize_fraction(0.1, 3)."""
+    import city_drive_torch as city
+    from top_down_renderer_torch import Bag, replay
+    from top_down_renderer_torch.utils.convert import filter_state_to_numpy
+
+    node = city.make_node(png, 512, "cpu", init=init, mesh_devices=world)
+    rec = replay(node, Bag.load(bag_path))
+    pf = node.filter
+
+    def whole():
+        return filter_state_to_numpy(pf.state.replace(
+            particles=sharding.gather_particles(pf.state.particles,
+                                                pf._comm)))
+
+    before = whole()
+    pf.reinitialize_fraction(0.1, seed=3)
+    return {"mesh": pf.mesh.size(),
+            "poses": [np.concatenate([p.position, p.covariance.ravel()])
+                      for p in rec["poses"]],
+            "before": before, "after": whole()}

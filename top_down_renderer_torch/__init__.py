@@ -7,17 +7,20 @@ reference; this package mirrors its layout so each module's counterpart
 is easy to find:
 
   core/      tensor dataclasses (map grid, particles, filter state)
-  maps/      polar stencil, truncated EDT, TopDownMap
-  render/    scan -> polar / Cartesian semantic histograms
+  maps/      polar stencil, truncated EDT, PNG reader, TopDownMap
+  render/    scan -> polar / Cartesian semantic and geometric histograms
   filter/    propagate / score / resample / stats / GMM, and the
              ParticleFilter host dispatch
   kernels/   nvcc build + ctypes loading of the CUDA sources in csrc/
+  parallel/  the filter sharded over the ranks of a process group
+  runtime/   the localization node (TopDownRenderNode) and its viz
+  io/        recorded drives (Bag), replay and the accuracy harnesses
   utils/     state conversion to and from dicts of numpy arrays
 
 Parameters are the reference package's numpy-only config classes, in
 the port's own copy (`config.py`); nothing here imports JAX or the JAX
-package.  Maps, and with them filters, live on the card unless the
-caller passes device="cpu".
+package.  Maps, and with them filters and nodes, live on the card unless
+the caller passes device="cpu".
 """
 
 __version__ = "0.1.0"
@@ -25,13 +28,24 @@ __version__ = "0.1.0"
 from top_down_renderer_torch.config import (
     ClassConfig,
     FilterParams,
+    MapConfig,
     MapParams,
     RuntimeParams,
 )
+from top_down_renderer_torch.io.replay import Bag, replay
+from top_down_renderer_torch.runtime.node import (
+    PoseWithCovariance,
+    TopDownRenderNode,
+)
 
 __all__ = [
+    "Bag",
     "ClassConfig",
     "FilterParams",
+    "MapConfig",
     "MapParams",
+    "PoseWithCovariance",
     "RuntimeParams",
+    "TopDownRenderNode",
+    "replay",
 ]

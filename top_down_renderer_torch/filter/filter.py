@@ -523,6 +523,7 @@ class ParticleFilter:
         # the sum of per-particle statistics over the shards of the state
         self._psum = stats_mod.local
         self._sharded_fns = {}
+        self._noise_generator = None  # the propagate noise's, under a mesh
         if mesh is not None:
             from top_down_renderer_torch.parallel import sharding
 
@@ -546,7 +547,15 @@ class ParticleFilter:
         self._scale_frozen_host = False
         self._frozen_scale_cache = -1.0
         self._slow_reason = None
-        self._snap = None  # (state, its _snapshot_vec on the host)
+        # the packed snapshot (_snapshot_vec) of the latest state on its
+        # way to the host: [state, host array (None until read), CUDA
+        # event after the copy (None on the CPU), pinned buffer index]
+        self._snap = None
+        # the last snapshot read on the host: (array, pinned buffer index)
+        self._snap_last = None
+        self._pinned = None  # two pinned host buffers, made on the card
+        self.snapshot_copies = 0  # snapshot copies to the host
+        self.snapshot_reads = 0  # waits on a copy from the card
         # rotation and distance since the last update, for _shift_window
         self._last_omega = 0.0
         self._last_dist_m = 0.0
@@ -633,6 +642,61 @@ class ParticleFilter:
             chunk_size=self.chunk_size,
         )
 
+    def reinitialize_fraction(self, frac: float, seed=None) -> None:
+        """Redraw a random fraction of the alive particles at fresh road
+        positions with no theta (have_init False): a global relocalisation
+        kick.  The draws come from numpy's generator seeded with `seed`
+        (default: the filter's seed + 104729), as the reference's, so one
+        seed redraws the same rows at the same positions in both packages.
+        The next update scores the mixed cloud in mode "mixed"."""
+        if self.state is None or frac <= 0.0:
+            return
+        rng = np.random.default_rng(
+            self.seed + 104729 if seed is None else seed)
+        p = self.state.particles
+        alive = p.alive if self.mesh is None else self._comm.gather(
+            p.alive.to(torch.uint8))
+        idx_alive = np.flatnonzero(alive.cpu().numpy())
+        k = int(round(frac * idx_alive.size))
+        if k == 0:
+            return
+        idx = rng.choice(idx_alive, size=k, replace=False)
+        g = self.map.grid
+        map_size_scaled = (np.array([g.width, g.height], np.float32)
+                           * self.map.resolution)
+        pos = particles_mod._sample_positions_on_road(
+            rng, k, g.road_ok.cpu().numpy(), map_size_scaled,
+            self.map.resolution, self.params,
+        )
+        # under a mesh, the rows of this rank's shard
+        lo = 0 if self.mesh is None else self._comm.rank * p.n_max
+        mine = (idx >= lo) & (idx < lo + p.n_max)
+        rows = torch.as_tensor(idx[mine] - lo, device=self.device)
+        pos = torch.as_tensor(pos[mine], device=self.device)
+
+        def put(field, value):
+            out = field.clone()
+            out[rows] = value
+            return out
+
+        parts = p.replace(
+            init_px=put(p.init_px, pos),
+            d_m=put(p.d_m, 0.0),
+            theta=put(p.theta, 0.0),
+            have_init=put(p.have_init, False),
+        )
+        bbox = pose_bbox(parts)
+        if self.mesh is not None:
+            least = self._comm.pmin(torch.cat([bbox[:2], -bbox[2:]]))
+            bbox = torch.cat([least[:2], -least[2:]])
+        self.state = self.state.replace(
+            particles=parts,
+            bbox=bbox,
+            # the fresh thetas are in no shift window
+            smask=torch.ones_like(self.state.smask),
+        )
+        self._all_have_init = False
+
     # -- step ----------------------------------------------------------
     def propagate(self, trans, omega) -> None:
         """Record a body-frame motion; applied at the next update().
@@ -706,13 +770,53 @@ class ParticleFilter:
             return "tracked"
         return "init" if not with_theta else "mixed"
 
+    def _prefetch_snapshot(self) -> None:
+        """Start the copy of the state's _snapshot_vec to the host.  On the
+        card: one non_blocking copy into a pinned buffer, never the one
+        that holds the last snapshot read (a caller may still hold it),
+        and an event after it; on the CPU the copy is made at once."""
+        st = self.state
+        vec = _snapshot_vec(st, self._psum)
+        self.snapshot_copies += 1
+        if vec.device.type != "cuda":
+            self._snap = [st, vec.numpy(), None, -1]
+            return
+        if self._pinned is None or self._pinned[0].numel() != vec.numel():
+            self._pinned = [torch.empty(vec.numel(), pin_memory=True)
+                            for _ in range(2)]
+        i = 1 if self._snap_last is not None and self._snap_last[1] == 0 else 0
+        self._pinned[i].copy_(vec, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        self._snap = [st, None, event, i]
+
     def _host_snapshot(self) -> np.ndarray:
         """The current state's _snapshot_vec on the host (layout _SNAP_*):
-        one copy from the card per state, kept for further reads."""
-        if self._snap is None or self._snap[0] is not self.state:
-            self._snap = (self.state, _snapshot_vec(
-                self.state, self._psum).cpu().numpy())
-        return self._snap[1]
+        the copy started after the update that made the state, waited for
+        here once; a state no update made (a new cloud, freeze_scale,
+        update_map, reinitialize_fraction) gets its own copy."""
+        snap = self._snap
+        if snap is None or snap[0] is not self.state:
+            self._prefetch_snapshot()
+            snap = self._snap
+        if snap[1] is None:
+            self.snapshot_reads += 1
+            snap[2].synchronize()
+            snap[1] = self._pinned[snap[3]].numpy()
+        self._snap_last = (snap[1], snap[3])
+        return snap[1]
+
+    def _host_snapshot_nowait(self):
+        """The freshest snapshot that has reached the host, without
+        waiting: the current state's if its copy has landed, else the last
+        one read (one update stale), else None."""
+        snap = self._snap
+        if snap is not None and snap[0] is self.state:
+            if snap[1] is None and snap[2].query():
+                snap[1] = self._pinned[snap[3]].numpy()
+            if snap[1] is not None:
+                self._snap_last = (snap[1], snap[3])
+        return None if self._snap_last is None else self._snap_last[0]
 
     def _alive_scales(self) -> np.ndarray:
         """The alive particles' scales on the host (under a mesh: every
@@ -807,6 +911,10 @@ class ParticleFilter:
         its 2 %/step scale diffusion must be in the scales clustered.
         Copies the alive scales to the host."""
         self._apply_pending_motion()
+        return self._multi_plan(res)
+
+    def _multi_plan(self, res: float):
+        """_multi_mode's plan of the state as it is (no motion applied)."""
         mode = self._crop_mode()
         scales = self._alive_scales()
         if scales.size == 0:
@@ -926,96 +1034,135 @@ class ParticleFilter:
             )
         return self._sharded_fns[key]
 
-    def _update_sharded(self, scan, res, map_size_scaled, stencil) -> None:
-        """The mesh's update, planned as the reference's _update_sharded
-        plans it: the K-bucket step for a multi plan (its pending motion
-        applied while planning), the row-sharded conv step for a conv plan
+    def _planned_step(self, fast):
+        """The step a plan runs, (fn, maps, extra), called as fn(state,
+        maps, map_size_scaled, stencil, scan, res, *extra, **draws).  Under
+        a mesh, as the reference's _update_sharded plans it: the K-bucket
+        step for a multi plan, the row-sharded conv step for a conv plan
         where the reference's mesh runs one (its s2d fold, or its direct
         conv when the region's rows split evenly over the ranks), else the
-        sharded exact step; the conv and exact steps take the pending
-        motion in their fused propagate."""
-        fast = self._fast_mode(float(res))
-        motion = self._pop_motion()
-        draws = dict(generator=self.generator,
-                     noise_generator=self._noise_generator)
+        sharded exact step."""
         if isinstance(fast, MultiDispatch):
-            self.state = self._get_sharded_multi_fn(
-                fast.mode, fast.kp, fast.bmi, fast.mo,
-            )(
-                self.state, self._get_pyramid_maps(fast.levels),
-                map_size_scaled, stencil, scan, res,
-                torch.as_tensor(fast.slots, device=self.device),
-                generator=self.generator,
-            )
-            return
+            slots = torch.as_tensor(fast.slots, device=self.device)
+            fn = (self._get_multi_fn(fast.mode, fast.bmi) if self.mesh is None
+                  else self._get_sharded_multi_fn(fast.mode, fast.kp,
+                                                  fast.bmi, fast.mo))
+            return fn, self._get_pyramid_maps(fast.levels), (slots,)
         if fast is not None and fast.path == "conv":
-            num_rot = self.params.num_rot_search
-            s_out = {"tracked": 2 * fast.ww + 1, "init": 2 * num_rot + 1,
-                     "mixed": 2 * fast.ww + 2 * num_rot + 2}[fast.mode]
-            use_s2d = conv_score.s2d_gate(fast.mo, s_out)
-            if use_s2d or fast.region % self.mesh.size() == 0:
-                self.state = self._get_sharded_fast_fn(
-                    fast.mode, fast.mo, fast.region, fast.ww, use_s2d,
-                )(
-                    self.state, self._get_conv_map(), map_size_scaled,
-                    stencil, scan, res, fast.scale, fast.s0, motion=motion,
-                    **draws,
-                )
-                return
-        self.state = self._update_fn(
-            self.state, self.map.grid.dist.to(self.device), map_size_scaled,
-            stencil, scan, res, motion=motion, **draws,
-        )
+            if self.mesh is None:
+                fn = self._get_fast_fn(fast.mode, fast.mo, "conv",
+                                       fast.region, fast.ww)
+            else:
+                num_rot = self.params.num_rot_search
+                s_out = {"tracked": 2 * fast.ww + 1,
+                         "init": 2 * num_rot + 1,
+                         "mixed": 2 * fast.ww + 2 * num_rot + 2}[fast.mode]
+                use_s2d = conv_score.s2d_gate(fast.mo, s_out)
+                fn = None
+                if use_s2d or fast.region % self.mesh.size() == 0:
+                    fn = self._get_sharded_fast_fn(
+                        fast.mode, fast.mo, fast.region, fast.ww, use_s2d)
+            if fn is not None:
+                return fn, self._get_conv_map(), (fast.scale, fast.s0)
+        elif fast is not None and self.mesh is None:
+            return (self._get_fast_fn(fast.mode, fast.mo, mip=fast.mip),
+                    self._get_map(fast.mip), (fast.scale,))
+        return self._update_fn, self.map.grid.dist.to(self.device), ()
+
+    def _draws(self, fast, generator, noise_generator):
+        """The draw arguments of _planned_step(fast)'s step: under a mesh
+        the conv and exact steps take the pending motion (popped here) in
+        their fused propagate, with its noise from noise_generator."""
+        if self.mesh is None or isinstance(fast, MultiDispatch):
+            return dict(generator=generator)
+        return dict(motion=self._pop_motion(), generator=generator,
+                    noise_generator=noise_generator)
 
     def update(self, scan, res) -> None:
-        """scan: (C, Theta, R) polar semantic render; res: range m/bin."""
+        """scan: (C, Theta, R) polar semantic render; res: range m/bin.
+        Plans the step (_fast_mode, which under an unknown scale applies
+        the pending motion first), applies the pending motion on one
+        device, runs the step, and starts the copy of the new state's
+        snapshot to the host."""
         if self.state is None or self.n_active_host() == 0:
             return
         map_size_scaled, stencil = self._device_consts()
         scan = torch.as_tensor(scan, dtype=torch.float32, device=self.device)
-        if self.mesh is not None:
-            self._update_sharded(scan, res, map_size_scaled, stencil)
-            self._all_have_init = True
-            self._last_omega = 0.0
-            self._last_dist_m = 0.0
-            return
         fast = self._fast_mode(float(res))
-        self._apply_pending_motion()  # done already on the multi branch
-        if fast is None:
-            self.state = self._update_fn(
-                self.state, self.map.grid.dist.to(self.device),
-                map_size_scaled, stencil, scan, res,
-                generator=self.generator,
-            )
-        elif isinstance(fast, MultiDispatch):
-            slots = torch.as_tensor(fast.slots, device=self.device)
-            self.state = self._get_multi_fn(fast.mode, fast.bmi)(
-                self.state, self._get_pyramid_maps(fast.levels),
-                map_size_scaled, stencil, scan, res, slots,
-                generator=self.generator,
-            )
-        elif fast.path == "conv":
-            self.state = self._get_fast_fn(
-                fast.mode, fast.mo, "conv", fast.region, fast.ww,
-            )(
-                self.state, self._get_conv_map(), map_size_scaled, stencil,
-                scan, res, fast.scale, fast.s0, generator=self.generator,
-            )
-        else:
-            self.state = self._get_fast_fn(
-                fast.mode, fast.mo, mip=fast.mip,
-            )(
-                self.state, self._get_map(fast.mip), map_size_scaled,
-                stencil, scan, res, fast.scale, generator=self.generator,
-            )
+        fn, maps, extra = self._planned_step(fast)
+        if self.mesh is None:
+            self._apply_pending_motion()  # done already on the multi branch
+        draws = self._draws(fast, self.generator, self._noise_generator)
+        self.state = fn(self.state, maps, map_size_scaled, stencil, scan,
+                        res, *extra, **draws)
         # every scoring path sets have_init for all particles
         self._all_have_init = True
         self._last_omega = 0.0
         self._last_dist_m = 0.0
+        self._prefetch_snapshot()
+
+    def warmup(self, res: float, regions=(64, 128, 256), windows=(16, 100),
+               modes=("tracked", "init")) -> None:
+        """Prepare an operating point (range scale `res`) before the first
+        scan: runs once, on a zero scan from the current state, the step
+        of each plan the reference's warmup walks, so that the kernels are
+        built and loaded (nvcc at first use, on the card) and the step
+        functions and map caches (CropMap with its compact map and
+        stencil fold, ConvMap, the scale pyramid) are made.  Known scale:
+        the conv step of each mode at each region that fits the padded
+        map (tracked at each window, init at the full one), and the crop
+        step at its mip; unknown scale: the K-bucket step of the current
+        cloud's plan in each mode.  The results are dropped and the draws
+        come from a generator of their own: the filter's state and draws
+        stay as they were."""
+        if self.state is None:
+            return
+        range_bins = self.map.stencil.shape[1]
+        plans = []
+        if self.params.fixed_scale <= 0 and not self._scale_frozen_host:
+            fast = self._multi_plan(res)
+            if isinstance(fast, MultiDispatch):
+                plans = [fast._replace(mode=m) for m in modes]
+        else:
+            scale = self.scale()
+            mo = crop_score.pick_crop_size(
+                scale * res, range_bins, crop_score._MO_BUCKETS_CONV)
+            if mo is not None:
+                dr, dc = conv_score.conv_dims(mo)
+                cmap = self._get_conv_map()
+                plans += [
+                    FastDispatch(mode, mo, scale, "conv", region, 0, ww, 1)
+                    for mode in modes for region in regions
+                    if region + dr - 1 <= cmap.hp
+                    and region + dc - 1 <= cmap.wp
+                    for ww in (windows if mode == "tracked"
+                               else (self.theta_bins,))
+                ]
+            for mip in (1, 2, 4, 8, 16, 32):
+                mo = crop_score.pick_crop_size(scale * res / mip, range_bins)
+                if mo is not None:
+                    plans += [FastDispatch(mode, mo, scale, "crop", 0, 0,
+                                           self.theta_bins, mip)
+                              for mode in modes]
+                    break
+        map_size_scaled, stencil = self._device_consts()
+        scan = torch.zeros((self.map.grid.num_classes, self.theta_bins,
+                            range_bins), device=self.device)
+        draws = torch.Generator(device=self.device)
+        draws.manual_seed(self.seed)
+        pending, self._pending_motion = self._pending_motion, None
+        try:
+            for fast in plans:
+                fn, maps, extra = self._planned_step(fast)
+                fn(self.state, maps, map_size_scaled, stencil, scan, res,
+                   *extra, **self._draws(fast, draws, draws))
+        finally:
+            self._pending_motion = pending
 
     # -- queries -------------------------------------------------------
     def n_active_host(self) -> int:
-        return int(self.state.n_active)
+        """The active count, from the state's host snapshot."""
+        return int(self._host_snapshot()[_SNAP_NACT])
 
     def num_particles(self) -> int:
         return self.n_active_host() if self.state is not None else 0
@@ -1031,17 +1178,40 @@ class ParticleFilter:
         ).cpu().numpy()
 
     def pose_stats(self):
-        """(mean_likelihood (4,), mean_cov (4, 4)) as float64 numpy."""
-        ml, cov = stats_mod.pose_stats(
-            self.state.particles, self.state.n_active, self._psum
-        )
+        """(mean_likelihood (4,), mean_cov (4, 4)) as float64 numpy, from
+        the state's host snapshot."""
+        return self.publish_stats()[:2]
+
+    def pose_stats_nowait(self):
+        """(mean_likelihood, mean_cov) from the freshest snapshot on the
+        host (_host_snapshot_nowait), or None before the first."""
+        stats = self.publish_stats(block=False)
+        return None if stats is None else stats[:2]
+
+    def publish_stats(self, block: bool = True):
+        """(mean_likelihood (4,), mean_cov (4, 4), n_active) from one
+        snapshot read.  block=False takes the freshest snapshot that has
+        reached the host (at most one update stale) and never waits for
+        the card; None if none has yet."""
+        snap = (self._host_snapshot() if block
+                else self._host_snapshot_nowait())
+        if snap is None:
+            return None
         return (
-            ml.cpu().numpy().astype(np.float64),
-            cov.cpu().numpy().astype(np.float64),
+            snap[_SNAP_ML].astype(np.float64),
+            snap[_SNAP_COV].reshape(4, 4).astype(np.float64),
+            int(snap[_SNAP_NACT]),
         )
 
     def max_likelihood(self) -> np.ndarray:
         return self.state.ml_state.cpu().numpy()
+
+    def compute_cov(self) -> np.ndarray:
+        """4x4 covariance about the max-likelihood particle state."""
+        return stats_mod.compute_cov(
+            self.state.particles, self.state.ml_state, self.state.n_active,
+            self._psum,
+        ).cpu().numpy()
 
     def get_gmm(self):
         g = self.state.gmm
@@ -1071,6 +1241,10 @@ class ParticleFilter:
         self._scale_frozen_host = True
         self._frozen_scale_cache = geo_mean
         print(f"[tdr-torch] scale converged and locked to {geo_mean}")
+
+    @property
+    def is_scale_frozen(self) -> bool:
+        return self._scale_frozen_host if self.state is not None else False
 
     def scale(self) -> float:
         if self.params.fixed_scale > 0:

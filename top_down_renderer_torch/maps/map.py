@@ -1,16 +1,19 @@
 """Host-facing semantic map (counterpart of maps/map.py).
 
 A TopDownMap is built from binary class maps ((C, H, W), 0 inside a
-class, 1 outside) or from a colour raster (png/jpg, decoded with Pillow
-and mapped through the ClassConfig colour LUT).  The distance transform
-runs on the map's device, and the packed (H, W, 8) scoring tensor stays
-there: class distances in channels [0, C), the known-space indicator in
-channel C, zero padding above.
+class, 1 outside) or from a colour raster (an 8-bit RGB or RGBA PNG,
+decoded by maps/png.py and mapped through the ClassConfig colour LUT).
+The distance transform runs on the map's device, and the packed (H, W, 8)
+scoring tensor stays there: class distances in channels [0, C), the
+known-space indicator in channel C, zero padding above.  The local-window
+queries index on the host and gather on the map's device.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple
+
+import math
 
 import numpy as np
 import torch
@@ -19,6 +22,7 @@ from top_down_renderer_torch.config import MapParams
 from top_down_renderer_torch.kernels import default_device
 from top_down_renderer_torch.core.grids import SemanticMapGrid
 from top_down_renderer_torch.maps.edt import compute_dists
+from top_down_renderer_torch.maps.png import read_png_rgb
 from top_down_renderer_torch.maps.polar import polar_stencil
 
 
@@ -105,7 +109,7 @@ class TopDownMap:
     """Semantic map with its polar stencil.
 
     Built from `class_maps` (binary, (C, H, W)) when given, else from
-    params.map_path when it names a colour raster.  With neither, the
+    params.map_path when it names a colour raster (PNG).  With neither, the
     map waits for update_map().  Everything lives on `device`, by
     default the card; without one that raises (pass device="cpu")."""
 
@@ -124,12 +128,13 @@ class TopDownMap:
             maps = np.asarray(class_maps, dtype=np.float32)
         elif not path:
             return
-        elif path.endswith((".png", ".jpg")):
+        elif path.endswith(".png"):
             maps = self._load_color_raster(path)
         else:
             raise NotImplementedError(
-                f"{path}: only colour rasters (png/jpg) load in this "
-                "package; SVG maps and raster directories are not ported"
+                f"{path}: only colour rasters (8-bit RGB or RGBA PNG) load "
+                "in this package; SVG maps and raster directories are not "
+                "ported"
             )
         self._set_class_maps(maps)
         self.have_map = True
@@ -151,12 +156,10 @@ class TopDownMap:
         return cc.flatten_lut() if cc else np.arange(256)
 
     def _load_color_raster(self, path: str) -> np.ndarray:
-        from PIL import Image
-
         cc = self.params.class_config
         if cc is None:
             raise ValueError("raster loading requires class_config")
-        img = np.asarray(Image.open(path).convert("RGB"))
+        img = read_png_rgb(path)
         return class_maps_from_index_image(
             cc.color_to_ind(img),
             self._flatten_lut(),
@@ -165,6 +168,19 @@ class TopDownMap:
         )
 
     # -- queries -------------------------------------------------------
+    def size(self) -> np.ndarray:
+        """(width, height) px; zeros before a map arrives."""
+        if self.grid is None:
+            return np.zeros(2, dtype=np.int64)
+        return np.array([self.grid.width, self.grid.height], dtype=np.int64)
+
+    def map_center(self) -> np.ndarray:
+        """The map centre (px) the grid was built with; (0, 0) before a
+        map arrives."""
+        if self.grid is None:
+            return np.zeros(2, dtype=np.int32)
+        return self.grid.map_center.cpu().numpy()
+
     @property
     def num_classes(self) -> int:
         return self.params.num_classes
@@ -209,3 +225,77 @@ class TopDownMap:
         self.stencil = polar_stencil(
             theta_bins, range_bins, ang_res, self.params.resolution
         )
+
+    # -- local windows (host indices, a gather on the map's device) -----
+    def _gather(self, field: torch.Tensor, rows: np.ndarray,
+                cols: np.ndarray):
+        """(valid, field[rows, cols] with clamped indices) on the host."""
+        g = self.grid
+        valid = (rows >= 0) & (rows < g.height) & (cols >= 0) & (
+            cols < g.width)
+        idx = (np.clip(rows, 0, g.height - 1) * g.width
+               + np.clip(cols, 0, g.width - 1))
+        flat = field.reshape(g.height * g.width, -1)
+        vals = flat[torch.as_tensor(idx.reshape(-1), device=flat.device)]
+        return valid, vals.cpu().numpy().reshape(idx.shape + (-1,))
+
+    def _polar_indices(self, center_xy_px, scale: float, res: float):
+        pts = self.stencil * (scale * res)
+        rows = np.rint(
+            pts[..., 0] + center_xy_px[1] / self.params.resolution
+        ).astype(np.int64)
+        cols = np.rint(
+            pts[..., 1] + center_xy_px[0] / self.params.resolution
+        ).astype(np.int64)
+        return rows, cols
+
+    def get_local_map(
+        self, center_xy_px: Sequence[float], scale: float, res: float
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """The polar window at a centre: (dists (C, Th, R), mask (Th, R))
+        as numpy, nearest-neighbour; out of the map dist 0 and mask 1 (as
+        TopDownMapPolar::getLocalMap)."""
+        valid, packed = self._gather(
+            self.grid.dist, *self._polar_indices(center_xy_px, scale, res))
+        c = self.num_classes
+        dists = np.where(valid[..., None], packed[..., :c], 0.0)
+        mask = 1.0 - np.where(valid, packed[..., c], 0.0)
+        return np.moveaxis(dists, -1, 0), mask
+
+    def get_local_map_cartesian(
+        self,
+        center_xy_px: Sequence[float],
+        rot: float,
+        res: float,
+        h: int,
+        w: int,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """An (h, w) grid of samples spaced `res`, centred on the centre
+        and rotated by `rot` (TopDownMap::getLocalMap): (dists (C, h, w),
+        mask (h, w)) as numpy; out of the map dist 0 and mask 1."""
+        yy = res * (np.arange(h) - (h - 1) / 2.0)
+        xx = res * (np.arange(w) - (w - 1) / 2.0)
+        py, px = np.meshgrid(yy, xx, indexing="ij")
+        c, s = math.cos(rot), math.sin(rot)
+        rows = np.rint(
+            c * py - s * px + center_xy_px[1] / self.params.resolution
+        ).astype(np.int64)
+        cols = np.rint(
+            s * py + c * px + center_xy_px[0] / self.params.resolution
+        ).astype(np.int64)
+        valid, packed = self._gather(self.grid.dist, rows, cols)
+        nc = self.num_classes
+        dists = np.where(valid[..., None], packed[..., :nc], 0.0)
+        mask = np.where(valid, 1.0 - packed[..., nc], 1.0)
+        return np.moveaxis(dists, -1, 0), mask
+
+    def get_local_geo_map(
+        self, center_xy_px: Sequence[float], scale: float, res: float
+    ) -> np.ndarray:
+        """The polar window of the geometric (ground, elevated) distances,
+        (2, Th, R) as numpy, 0 out of the map
+        (TopDownMapPolar::getLocalGeoMap)."""
+        valid, geo = self._gather(
+            self.grid.geo_dist,
+            *self._polar_indices(center_xy_px, scale, res))
+        return np.moveaxis(np.where(valid[..., None], geo, 0.0), -1, 0)
