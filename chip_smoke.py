@@ -121,6 +121,17 @@ Phases (any failure exits non-zero before the result line):
      poses bit for bit; R5 device_trace over R1's first 5 updates names
      the node's trace_span labels and the crop kernels launched, and the
      node's StepTimer report;
+  P. the probe path (top_down_renderer_torch.probes, the counterparts of
+     the TPU's probe kernels in tests/): the window gather (K1) on the
+     TPU DMA probes' windows, bit for bit, then 102,400 windows of 56 x
+     640 B summed on a 13 MB and an 84 MB map in each fetch geometry;
+     the tensor-core products (K2) on the TPU matrix-unit probes' shapes,
+     int8 bit for bit and bf16 within MM_TOL, then at the theta search's
+     work shape beside torch._int_mm and torch.matmul; the tracked crop
+     kernel with stages knocked out (K3) on D's clustered cloud and on
+     the probe's own spread, clustered and K-bucket clouds, `full` bit
+     for bit against the production kernel and the others against their
+     plain versions at REL_TOL; one JSON line a probe;
   E. one JSON line of kernel results with each kernel's bound on the
      work its inputs need (the crop kernels per distinct stencil pixel:
      the theta searches on the nonzero entries of M on bf16 tensor cores,
@@ -154,8 +165,6 @@ sys.path.insert(0, os.path.join(ROOT, "tests"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
-from torch.autograd import DeviceType  # noqa: E402
-from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 import city_drive_torch as city_drive  # noqa: E402
 import city_svg_torch as city_svg  # noqa: E402
@@ -179,6 +188,13 @@ from top_down_renderer_torch.filter.scoring import (  # noqa: E402
     shift_mask,
 )
 from top_down_renderer_torch.parallel import sharding  # noqa: E402
+from top_down_renderer_torch.probes import __main__ as probes  # noqa: E402
+from top_down_renderer_torch.probes.__main__ import (  # noqa: E402
+    device_us,
+    events_ms,
+    kernel_ms,
+)
+from top_down_renderer_torch.probes import crop_ablate as ca  # noqa: E402
 from top_down_renderer_torch.render.geometric import (  # noqa: E402
     render_geometric_polar,
 )
@@ -258,7 +274,19 @@ KERNELS = {
     "crop_score_multi_init_raw": (
         INIT_SRC, "top_down_renderer_tpu/filter/multiscale.py:363"),
     "fill_rows": (FILL_SRC, "top_down_renderer_tpu/filter/resample.py:116"),
+    # the probes (phase P): each replaces several TPU probe kernels, each
+    # case of its line names its own
+    "crop_ablate": ("top_down_renderer_torch/csrc/crop_ablate.cu",
+                    "tests/exp_crop_ablate.py:39"),
+    "probe_window_gather": ("top_down_renderer_torch/csrc/probe_window.cu",
+                            "tests/probe_dma_fold.py:41"),
+    "probe_mm": ("top_down_renderer_torch/csrc/probe_mm.cu",
+                 "tests/probe_int8_mm.py:17"),
 }
+# each probe kernel's case that stands for it in the kernels line
+PROBE_HEADLINE = {"crop_ablate": "ablate/D clustered C=3/full",
+                  "probe_window_gather": "window/l2/strided",
+                  "probe_mm": "theta_shape/s8"}
 RAW = ("crop_score_init_raw", "crop_score_multi_init_raw")
 INIT = ("crop_score_init", "crop_score_multi_init") + RAW
 # published H100 SXM peaks (dense): float32 outside the tensor cores, bf16
@@ -815,35 +843,6 @@ def phase_c4(dev, pf, world):
         f"{np.round(ml, 3).tolist()}")
 
 
-def device_us(evt) -> float:
-    """A profiler event's own device time in microseconds."""
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, name):
-            return float(getattr(evt, name))
-    return 0.0
-
-
-def kernel_ms(fn, symbols, runs: int = 20) -> float:
-    """The kernel's own device time per launch: `runs` calls of fn (its
-    wrapper) under torch.profiler, the mean over the device events whose
-    name holds one of `symbols` (the profiler may miss a short one)."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA
-              and any(sym in e.key for sym in symbols)]
-    seen = sum(e.count for e in events)
-    check(0 < seen <= runs, f"the profiler saw {seen} launches of "
-          f"{symbols} in {runs} calls")
-    return sum(device_us(e) for e in events) / seen / 1e3
-
-
 def median_ms(fn, warmup=3, runs=20) -> float:
     for _ in range(warmup):
         fn()
@@ -1014,23 +1013,6 @@ def phase_d(dev, pf, world, errs):
         clustered.particles, clustered.n_active, clustered.gmm.k))
     log(f"[D] GMM refit (every {pf.gmm_every}th update): {gmm_ms:.4f} ms")
     return out, conv_times(pf, clustered, scan, cw, sten, f)
-
-
-def events_ms(fn, runs: int = 20) -> float:
-    """Device time per call of fn by CUDA events around `runs` calls,
-    after 3 warm-up calls: every kernel the call launches, and the gaps
-    between them."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(runs):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / runs
 
 
 def conv_times(pf, clustered, scan, cw, sten, f):
@@ -1378,6 +1360,53 @@ def phase_m(dev, world, read_launches):
         dist.destroy_process_group()
         shutil.rmtree(store, ignore_errors=True)
     return times
+
+
+# phase P: the probe path
+def phase_p(dev, pf, world, errs, read_launches, name_limit):
+    """The probes' kernels on their own inputs (probes.__main__) and the
+    crop ablation also on D's clustered cloud; returns the times of each
+    probe kernel's headline case, with all its cases."""
+    scan = scan_at(world, 0, dev)
+    cw = torch.tensor([0.1, 1.5, 3.0], device=dev)
+    sten = pf._device_consts()[1]
+    clustered = clustered_state(dev)
+    p = clustered.particles
+    d_case = ("D clustered C=3", cs.score_tracked, ca.crop_ablate,
+              ca.crop_ablate_plain,
+              (pf._get_map(1), 3, sten, scan, cw, p.pose_px(), p.theta,
+               SCALE_GT * RES))
+    cases = [d_case] + probes.ablate_cases(dev)
+    kernels.reset_launch_counts()
+    recs = []
+    for label, fn in (("window", probes.run_window), ("mm", probes.run_mm),
+                      ("ablate", lambda d: probes.run_ablate(d, cases=cases))):
+        t0 = time.perf_counter()
+        recs += fn(dev)
+        log(f"[P] {label}: {time.perf_counter() - t0:.1f} s")
+    read_launches("P", tuple(PROBE_HEADLINE))
+    out = {}
+    for rec in recs:
+        log(json.dumps(dict(rec, card=name_limit)))
+        name = rec["kernel"]
+        if name not in PROBE_HEADLINE:
+            continue  # the production kernel's comparison
+        errs["abs"][name] = max(errs["abs"][name], rec["max_abs_err"])
+        if rec["probe"] == PROBE_HEADLINE[name]:
+            out[name] = dict(ms=rec["kernel_ms"], plain_ms=rec["plain_ms"],
+                             library_ms=rec["library_ms"],
+                             bound=(rec["bound_ms"], rec["bound_by"]),
+                             cases=[])
+    for rec in recs:
+        if rec["kernel"] in out and "kernel_ms" in rec:
+            out[rec["kernel"]]["cases"].append({
+                k: rec[k] for k in (
+                    "probe", "replaces", "kernel_ms", "plain_ms",
+                    "library_ms", "bound_ms", "bound_by", "share_of_bound",
+                    "effective_tbps", "effective_tops", "effective_tflops",
+                    "production_ms") if k in rec})
+    check(set(out) == set(PROBE_HEADLINE), f"P: headline cases {list(out)}")
+    return out
 
 
 # phase N: the node on the card
@@ -2220,6 +2249,10 @@ def main() -> int:
     times.update(phase_d2(dev, world, errs))
     times.update(phase_d3(dev, pf_fill))
     log_clocks("D end")
+    t0 = time.perf_counter()
+    times.update(phase_p(dev, pf, world, errs, read_launches, name_limit))
+    log(f"[P] the probe path ran in {time.perf_counter() - t0:.1f} s on "
+        f"{name_limit}")
     mesh_times = phase_m(dev, world, read_launches)
     log(f"[D] world-1 mesh update against the single-device update (host "
         f"clock, median of 20; {N} particles, {HW}^2 map): K-bucket theta "
@@ -2238,6 +2271,8 @@ def main() -> int:
         f"R1 per scan median {oper['r1']['scan_ms'][0]:.3f} ms against N1's "
         f"{node['n1']['scan_ms'][0]:.3f} ms on {name_limit}")
     for name, t in times.items():
+        if "cases" in t:
+            continue  # the probes: their lines are phase P's
         extra = "".join(f", {k} {t[k]:.4f} ms"
                         for k in ("update_ms", "host_ms") if k in t)
         if "pixels" in t:
@@ -2291,6 +2326,8 @@ def main() -> int:
                 "max_rel_err": errs["rel"][name]} if name in INIT else {}),
             **({"bound_cells_ms": times[name]["bound_cells"][0]}
                if "bound_cells" in times[name] else {}),
+            **({"cases": times[name]["cases"]}
+               if "cases" in times[name] else {}),
             **({k: times[name][k] for k in ("ms_2p22", "plain_ms_2p22",
                                             "library_ms_2p22")}
                | {"bound_ms_2p22": times[name]["bound_2p22"][0]}

@@ -1,5 +1,6 @@
 """The CUDA kernels (uniform and K-bucket crop scoring, with the theta
-searches' raw-row epilogue, and the forward fill) against their plain
+searches' raw-row epilogue, the forward fill, and the probes: the window
+gather, the tensor-core products, the crop ablation) against their plain
 versions, the conv path (cuDNN) against a float64 convolution and
 against the CPU, the node (its plans, publish and snapshot copy, the PNG
 map), the SVG rasteriser and the refinement's count sweep against the
@@ -26,6 +27,8 @@ from top_down_renderer_torch.filter import filter as ft
 from top_down_renderer_torch.filter import multiscale as ms
 from top_down_renderer_torch.filter import resample as res_t
 from top_down_renderer_torch.maps.polar import polar_stencil
+from top_down_renderer_torch.probes import __main__ as probes
+from top_down_renderer_torch.probes import window as wg
 from top_down_renderer_torch.testing import synthetic_setup
 from top_down_renderer_torch.utils.convert import filter_state_from_numpy
 
@@ -764,3 +767,42 @@ def test_accumulate_counts_on_card_equals_cpu(dev):
                              *args)
     assert got.device.type == "cuda"
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", list(wg.GEOMETRIES))
+def test_window_kernel_matches_plain(dev, geometry):
+    """The window gather in each geometry, copy and sum, against its plain
+    version: 256 crops of 56 x 640 B (8 x 5,120 B slices folded) at rows
+    of 8 and columns of 128 B, and at any row and byte (strided)."""
+    rng = np.random.default_rng(6)
+    src = torch.as_tensor(rng.integers(-100, 100, (1, 128, 2048),
+                                       dtype=np.int8), device=dev)
+    n = 256
+    if geometry.startswith("folded"):
+        m, rows, cols = wg.fold_rows(src), 8 * int(geometry[-1]), 5120
+    else:
+        m, rows, cols = src, 56, 640
+    starts = [(8, 128)] + ([(1, 1)] if geometry == "strided" else [])
+    for ys, xs in starts:
+        o = np.stack([np.zeros(n, np.int64),
+                      rng.integers(0, (m.shape[1] - rows) // ys + 1, n) * ys,
+                      rng.integers(0, (m.shape[2] - cols) // xs + 1, n) * xs],
+                     1)
+        o = torch.as_tensor(o, dtype=torch.int32, device=dev)
+        for out in ("copy", "sum"):
+            got = wg.window_gather(m, o, rows, cols, geometry=geometry,
+                                   out=out)
+            assert torch.equal(got, wg.window_gather_plain(m, o, rows, cols,
+                                                           out))
+
+
+@pytest.mark.cuda
+def test_probe_path_on_the_card(dev):
+    """Every probe at small sizes, each kernel held to its plain version
+    by probes.__main__'s checks (a failed check raises)."""
+    recs = (probes.window_parity(dev, 0)
+            + probes.window_rates(dev, 0, 256, 256, "small")
+            + probes.run_mm(dev, 0, 256)
+            + probes.run_ablate(dev, 0, 4096))
+    assert all(r["kernel_ms"] > 0 for r in recs)

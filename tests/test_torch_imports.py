@@ -1,7 +1,8 @@
 """The port stands apart from JAX: importing it, its scorers, its kernel
 loader, its node, replay and PNG reader, the operator's modules (YAML
 reader, SVG loader and rasteriser, rosbag reader, ROS shim, run_node),
-active localisation, refinement, checkpoints and tracing, and
+active localisation, refinement, checkpoints and tracing, the probes,
+the script twins (tools.live_view, tools.preproc_survey), and
 chip_smoke.py's imports leaves jax, every module of the JAX package
 (top_down_renderer_tpu), pyyaml, Pillow and lz4 (none of which the
 machine with the card has) out of sys.modules, and nothing is compiled
@@ -62,6 +63,13 @@ def _run(code: str, env=None):
         "top_down_renderer_torch.utils.tracing, "
         "top_down_renderer_torch.render",
         "city_svg_torch, rosbag_write_torch, city_drive_torch",
+        "top_down_renderer_torch.probes, "
+        "top_down_renderer_torch.probes.window, "
+        "top_down_renderer_torch.probes.mm, "
+        "top_down_renderer_torch.probes.crop_ablate, "
+        "top_down_renderer_torch.probes.__main__",
+        "top_down_renderer_torch.tools.live_view, "
+        "top_down_renderer_torch.tools.preproc_survey",
         "chip_smoke",
     ],
 )

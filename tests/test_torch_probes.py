@@ -1,0 +1,447 @@
+"""The probes (top_down_renderer_torch/probes) against the TPU probe
+kernels they replace, on the CPU, from the same numpy inputs.
+
+The JAX probe kernels that import cleanly (probe_dma_unaligned._kernel,
+probe_dma_fold._kernel_a / _kernel_fold / _kernel_db,
+probe_int8_mm._kernel) run through pl.pallas_call(interpret=True), their
+HBM operands in pl.ANY, as the probes' own calls pass them; the port's
+plain versions must equal them bit for bit.  probe_dma_align.py and
+probe_dma2.py run at import, and probe_int8.py nests its kernels, so their
+counterparts are held to the numpy slicing, sums and rolls those probes
+assert.  The crop ablation's variants are held to their definitions on a
+4,096-particle cloud.  The kernels themselves are held to these plain
+versions on the card by tests/test_torch_cuda.py (which imports no JAX)
+and chip_smoke.py phase P.
+"""
+
+import functools
+import io
+import json
+from contextlib import redirect_stdout
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+import probe_dma_fold
+import probe_dma_unaligned
+import probe_int8_mm
+from top_down_renderer_torch.filter import crop_score as cs
+from top_down_renderer_torch.filter import multiscale as ms
+from top_down_renderer_torch.probes import __main__ as probes
+from top_down_renderer_torch.probes import crop_ablate as ca
+from top_down_renderer_torch.probes import mm
+from top_down_renderer_torch.probes import window as wg
+from top_down_renderer_torch.testing import synthetic_setup
+
+CPU = torch.device("cpu")
+N_WIN = 256  # windows of the DMA-probe comparisons: 4 tiles of 64
+N_ABL = 4096  # particles of the ablation cloud
+
+
+def _gather(src_np, origins_np, rows, cols, geometry, out="copy"):
+    got = wg.window_gather(torch.as_tensor(src_np), torch.as_tensor(
+        origins_np, dtype=torch.int32), rows, cols, geometry=geometry,
+        out=out)
+    return got.float().numpy() if got.dtype == torch.bfloat16 else got.numpy()
+
+
+# -- K1 against the JAX DMA kernels ------------------------------------------
+@pytest.mark.parametrize("dtype", ["int8", "bf16"])
+def test_unaligned_row_copies_equal_probe_dma_unaligned(dtype):
+    """8-row copies at row starts {0,1,3,7,9,17,30,101} of a (256, 1024)
+    map, int8 and bf16 (probe_dma_unaligned.run)."""
+    rng = np.random.default_rng(0)
+    h, w, dr = probe_dma_unaligned.H, probe_dma_unaligned.W, \
+        probe_dma_unaligned.DR
+    if dtype == "int8":
+        src = rng.integers(-127, 128, (h, w), dtype=np.int8)
+        jdt, tdt = jnp.int8, torch.int8
+    else:
+        src = rng.standard_normal((h, w)).astype(np.float32)
+        jdt, tdt = jnp.bfloat16, torch.bfloat16
+    starts = np.array([0, 1, 3, 7, 9, 17, 30, 101], np.int32)
+    n = len(starts)
+    gs = pltpu.PrefetchScalarGridSpec(
+        num_scalar_prefetch=1, grid=(n,),
+        in_specs=[pl.BlockSpec(memory_space=pl.ANY)],
+        out_specs=pl.BlockSpec((1, dr, w), lambda i, s: (i, 0, 0)),
+        scratch_shapes=[pltpu.VMEM((dr, w), jdt), pltpu.SemaphoreType.DMA(())],
+    )
+    ref = pl.pallas_call(
+        functools.partial(probe_dma_unaligned._kernel, n=n), grid_spec=gs,
+        out_shape=jax.ShapeDtypeStruct((n, dr, w), jdt), interpret=True,
+    )(jnp.asarray(starts), jnp.asarray(src, jdt))
+    ref = np.asarray(ref.astype(jnp.float32))
+    src_t = torch.as_tensor(np.array(jnp.asarray(src, jdt).astype(
+        jnp.float32))).to(tdt)[None]
+    origins = torch.as_tensor(np.stack([0 * starts, starts, 0 * starts], 1))
+    for geometry in ("strided", "async"):
+        got = wg.window_gather(src_t, origins, dr, w, geometry=geometry)
+        np.testing.assert_array_equal(got.float().numpy(), ref)
+
+
+def _fold_inputs(seed, h=128, wb=2048):
+    """A small int8 map for probe_dma_fold's kernels and N_WIN origins:
+    (src, strided origins (y/8, x/128), folded origins)."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(-100, 100, (h, wb), dtype=np.int8)
+    ys = rng.integers(0, (h - probe_dma_fold.DR) // 8, N_WIN)
+    xs = rng.integers(0, (wb - probe_dma_fold.DCB) // 128, N_WIN)
+    ys_f = rng.integers(0, h // 64 - 1, N_WIN)
+    xs_f = rng.integers(0, (8 * wb - probe_dma_fold.DCF) // 128, N_WIN)
+    return (src, np.stack([ys, xs], 1).astype(np.int32),
+            np.stack([ys_f, xs_f], 1).astype(np.int32))
+
+
+def _fold_call(kernel, buf_shape, src, origins, *, db=False):
+    """probe_dma_fold's grid (P_TILE windows a step) in interpret mode:
+    (N_WIN, 128) float32, the first 128 bytes of each window's first
+    row."""
+    p = probe_dma_fold.P_TILE
+    tiles = N_WIN // p
+    smem = [pl.BlockSpec((p, 2), lambda i, d: (i, 0),
+                         memory_space=pltpu.SMEM)]
+    if db:
+        smem.append(pl.BlockSpec(
+            (p, 2), lambda i, d: (jnp.minimum(i + 1, tiles - 1), 0),
+            memory_space=pltpu.SMEM))
+    gs = pltpu.PrefetchScalarGridSpec(
+        num_scalar_prefetch=1, grid=(tiles,),
+        in_specs=smem + [pl.BlockSpec(memory_space=pl.ANY)],
+        out_specs=pl.BlockSpec((p, 128), lambda i, d: (i, 0)),
+        scratch_shapes=[pltpu.VMEM(buf_shape, jnp.int8),
+                        pltpu.SemaphoreType.DMA((2,) if db else ())],
+    )
+    ops = [jnp.zeros(1, jnp.int32)] + [jnp.asarray(origins)] * len(smem)
+    out = pl.pallas_call(kernel, grid_spec=gs, interpret=True,
+                         out_shape=jax.ShapeDtypeStruct((N_WIN, 128),
+                                                        jnp.float32),
+                         )(*ops, jnp.asarray(src))
+    return np.asarray(out)
+
+
+def _origins3(o2, ymul, xmul):
+    return np.stack([0 * o2[:, 0], o2[:, 0] * ymul, o2[:, 1] * xmul],
+                    1).astype(np.int32)
+
+
+@pytest.mark.parametrize("geometry", ["strided", "async"])
+def test_strided_crops_equal_probe_dma_fold_kernel_a_and_db(geometry):
+    """256 crops of 56 rows x 640 B at (8 y, 128 x): one strided fetch
+    each (_kernel_a), and double-buffered across tiles (_kernel_db)."""
+    src, o2, _ = _fold_inputs(1)
+    dr, dc, p = probe_dma_fold.DR, probe_dma_fold.DCB, probe_dma_fold.P_TILE
+    if geometry == "strided":
+        ref = _fold_call(probe_dma_fold._kernel_a, (p, dr, dc), src, o2)
+    else:
+        ref = _fold_call(probe_dma_fold._kernel_db, (2, p, dr, dc), src, o2,
+                         db=True)
+    got = _gather(src[None], _origins3(o2, 8, 128), dr, dc, geometry)
+    np.testing.assert_array_equal(got[:, 0, :128].astype(np.float32), ref)
+    sums = _gather(src[None], _origins3(o2, 8, 128), dr, dc, geometry, "sum")
+    np.testing.assert_array_equal(sums, got.astype(np.int64).sum((1, 2)))
+
+
+@pytest.mark.parametrize("nsl", [1, 2])
+def test_folded_slices_equal_probe_dma_fold_kernel_fold(nsl):
+    """256 fetches of nsl (8, 5,120 B) slices of the 8-row-folded map
+    (_kernel_fold)."""
+    src, _, of = _fold_inputs(2)
+    p, dcf = probe_dma_fold.P_TILE, probe_dma_fold.DCF
+    src8 = src.reshape(src.shape[0] // 8, -1)
+    ref = _fold_call(functools.partial(probe_dma_fold._kernel_fold, nsl=nsl),
+                     (p, 8 * nsl, dcf), src8, of)
+    folded = wg.fold_rows(torch.as_tensor(src)[None]).numpy()
+    np.testing.assert_array_equal(folded[0], src8)
+    got = _gather(folded, _origins3(of, 8, 128), 8 * nsl, dcf,
+                  f"folded{nsl}")
+    np.testing.assert_array_equal(got[:, 0, :128].astype(np.float32), ref)
+
+
+# -- K1 against the probes' own numpy references ---------------------------
+def test_align_sweep_sums_equal_numpy():
+    """probe_dma_align: 64 x 512 bf16 slices at y0 = 3 ymul, x0 = xmul over
+    its alignment sweep, summed (float64, rounded once)."""
+    src = jnp.asarray(np.random.default_rng(3).random((256, 1024)),
+                      jnp.bfloat16)
+    src_np = np.array(src.astype(jnp.float32))
+    src_t = torch.as_tensor(src_np).to(torch.bfloat16)[None]
+    for ymul, xmul in ((8, 128), (1, 128), (8, 1), (16, 256), (1, 1)):
+        o = np.array([[0, 3 * ymul, xmul]], np.int32)
+        got = _gather(src_t, o, 64, 512, "strided", "sum")
+        want = np.float32(src_np[3 * ymul:3 * ymul + 64,
+                                 xmul:xmul + 512].astype(np.float64).sum())
+        assert got[0] == want, (ymul, xmul)
+
+
+def test_stacked_slice_sum_equals_probe_dma2():
+    """probe_dma2 probe 1: the (64, 512) slice of stack 3 at y 16, x 128
+    of arange % 1000 in bf16, summed; the probe's own bound is rel 1e-2."""
+    src = jnp.asarray(np.arange(8 * 128 * 1024).reshape(8, 128, 1024) % 1000,
+                      jnp.bfloat16)
+    src_np = np.array(src.astype(jnp.float32))
+    got = _gather(torch.as_tensor(src_np).to(torch.bfloat16),
+                  np.array([[3, 16, 128]], np.int32), 64, 512, "strided",
+                  "sum")
+    ref = src_np[3, 16:16 + 64, 128:128 + 512].sum(dtype=np.float64)
+    assert got[0] == np.float32(ref)
+    assert abs(float(got[0]) - ref) < ref * 1e-2
+
+
+@pytest.mark.parametrize("ymul", [8, 32])
+def test_int8_slice_equals_probe_int8_dma(ymul):
+    """probe_int8.probe_dma: the (56, 640) int8 slice at y0 = 3 ymul, x0 =
+    128 of a (256, 2048) map."""
+    src = np.random.default_rng(0).integers(-128, 128, (256, 2048)).astype(
+        np.int8)
+    got = _gather(src[None], np.array([[0, 3 * ymul, 128]], np.int32), 56,
+                  640, "strided")
+    np.testing.assert_array_equal(got[0], src[3 * ymul:3 * ymul + 56,
+                                              128:128 + 640])
+
+
+@pytest.mark.parametrize("rx", [0, 3, 11])
+def test_rotation_is_a_window_of_the_row_laid_out_twice(rx):
+    """probe_int8.probe_rotate: a (56, 640) int8 block rotated by rx * 8
+    bytes equals np.roll(block, -rx * 8, 1); here the window at byte rx * 8
+    of the block laid out twice."""
+    blk = np.random.default_rng(1).integers(-128, 128, (56, 640)).astype(
+        np.int8)
+    twice = np.concatenate([blk, blk], 1)[None]
+    got = _gather(twice, np.array([[0, 0, rx * 8]], np.int32), 56, 640,
+                  "strided")
+    np.testing.assert_array_equal(got[0], np.roll(blk, -rx * 8, axis=1))
+
+
+def test_covered_bytes_counts_each_covered_byte_once():
+    rng = np.random.default_rng(4)
+    shape, rows, cols = (2, 40, 300), 7, 50
+    o = np.stack([rng.integers(0, 2, 30), rng.integers(0, 34, 30),
+                  rng.integers(0, 251, 30)], 1).astype(np.int32)
+    mask = np.zeros(shape, bool)
+    for k, y, x in o:
+        mask[k, y:y + rows, x:x + cols] = True
+    assert wg.covered_bytes(shape, torch.as_tensor(o), rows, cols, 2) == \
+        2 * mask.sum()
+
+
+def test_window_gather_refuses_what_the_kernel_cannot_take():
+    src = torch.zeros((1, 64, 256), dtype=torch.int8)
+    ok = torch.tensor([[0, 0, 0]], dtype=torch.int32)
+    with pytest.raises(ValueError, match="outside"):
+        wg.window_gather(src, torch.tensor([[0, 60, 0]], dtype=torch.int32),
+                         8, 16)
+    with pytest.raises(ValueError, match="folded rows"):
+        wg.window_gather(src, ok, 12, 16, geometry="folded1")
+    with pytest.raises(ValueError, match="async"):
+        wg.window_gather(src, torch.tensor([[0, 0, 3]], dtype=torch.int32),
+                         8, 16, geometry="async")
+    with pytest.raises(TypeError):
+        wg.window_gather(src.float(), ok, 8, 16)
+    with pytest.raises(ValueError, match="geometry"):
+        wg.window_gather(src, ok, 8, 16, geometry="tiled")
+
+
+# -- K2 -------------------------------------------------------------------------
+def test_int8_product_equals_probe_int8_mm():
+    """probe_int8_mm: int8 (128, 1024) x (64, 1024)^T -> int32, exactly."""
+    rng = np.random.default_rng(0)
+    a = rng.integers(-127, 128, (128, 1024), dtype=np.int8)
+    b = rng.integers(-127, 128, (64, 1024), dtype=np.int8)
+    ref = pl.pallas_call(
+        probe_int8_mm._kernel, interpret=True,
+        out_shape=jax.ShapeDtypeStruct((128, 64), jnp.int32),
+    )(jnp.asarray(a), jnp.asarray(b))
+    got = mm.mm_s8(torch.as_tensor(a), torch.as_tensor(b))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def _probe_rel(got, want):
+    """probe_int8's measure: |got - want| / (|want| + 1e3)."""
+    return np.max(np.abs(got - want) / (np.abs(want) + 1e3))
+
+
+def test_selected_blocks_equal_numpy():
+    """probe_dma2 probe 2 (ones times constant blocks, blocks [2, 0, 3,
+    1]), and random bf16 blocks picked per 8-row block."""
+    rng = np.random.default_rng(5)
+    x = torch.ones((32, 256), dtype=torch.bfloat16)
+    mvar = np.stack([np.full((256, 128), v, np.float32) for v in range(4)])
+    blocks = torch.as_tensor(mvar.transpose(0, 2, 1).copy()).to(
+        torch.bfloat16)
+    sel = torch.tensor([2, 0, 3, 1], dtype=torch.int32)
+    got = mm.mm_bf16(x, blocks, select=sel).numpy()
+    np.testing.assert_array_equal(got[::8, 0] / 256, [2, 0, 3, 1])
+    a = torch.as_tensor(rng.random((64, 96)) - 0.5).to(torch.bfloat16)
+    b = torch.as_tensor(rng.random((3, 40, 96)) - 0.5).to(torch.bfloat16)
+    sel = torch.as_tensor(rng.integers(0, 3, 8), dtype=torch.int32)
+    got = mm.mm_bf16(a, b, select=sel).numpy()
+    a64, b64 = a.double().numpy(), b.double().numpy()
+    want = np.concatenate([a64[8 * i:8 * i + 8] @ b64[s].T
+                           for i, s in enumerate(sel.numpy())])
+    assert _probe_rel(got, want) < 1e-2
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_int8_to_bf16_product_equals_numpy():
+    """probe_int8.probe_convert_matmul: int8 crops (48, 35,840) converted
+    to bf16 times M (64, 35,840) bf16, float32 sums."""
+    rng = np.random.default_rng(2)
+    crop = rng.integers(0, 127, (48, 56 * 640)).astype(np.int8)
+    m_np = (rng.random((64, 56 * 640)) - 0.5).astype(np.float32)
+    m_bf = torch.as_tensor(m_np).to(torch.bfloat16)
+    got = mm.mm_bf16(torch.as_tensor(crop), m_bf).numpy()
+    want = crop.astype(np.float64) @ m_bf.double().numpy().T
+    assert _probe_rel(got, want) < 1e-2
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-3)
+
+
+def test_products_refuse_what_the_kernel_cannot_take():
+    a = torch.zeros((16, 48), dtype=torch.int8)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        mm.mm_s8(a, torch.zeros((8, 48), dtype=torch.int8))
+    with pytest.raises(TypeError):
+        mm.mm_s8(a.float(), a)
+    b = torch.zeros((2, 8, 64), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="select"):
+        mm.mm_bf16(torch.zeros((16, 64), dtype=torch.bfloat16), b,
+                   select=torch.tensor([0, 2], dtype=torch.int32))
+
+
+# -- K3 -------------------------------------------------------------------------
+def _ablation_args(seed=0, c=3, constant=False, theta=None, n=N_ABL,
+                   cluster=(80, 80, 60)):
+    d = synthetic_setup(n, h=256, w=256, c=c, seed=seed, cluster=cluster)
+    packed = d["packed"]
+    if constant:
+        packed[..., :c] = np.arange(1, c + 1, dtype=np.float32) * 3.5
+    p = d["state"]["particles"]
+    th = p["theta"] if theta is None else np.full(n, theta, np.float32)
+    t = [torch.as_tensor(v) for v in (packed, d["stencil"], d["scan"],
+                                      np.linspace(0.5, 2, c).astype(
+                                          np.float32), p["init_px"], th)]
+    return (cs.CropMap(t[0]), c, *t[1:5], t[5], 1.0)
+
+
+def test_full_is_the_plain_tracked_score_bit_for_bit():
+    args = _ablation_args()
+    want = cs.score_tracked_plain(args[0].packed, *args[1:])
+    for got in (ca.crop_ablate("full", *args),
+                ca.crop_ablate_plain("full", *args)):
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def test_no_fold_equals_full_when_every_tile_has_one_group():
+    one = _ablation_args(theta=0.3)
+    full = ca.crop_ablate("full", *one)
+    for g, w in zip(ca.crop_ablate("no_fold", *one), full):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=0)
+    spread = _ablation_args()
+    assert not torch.allclose(ca.crop_ablate("no_fold", *spread)[0],
+                              ca.crop_ablate("full", *spread)[0])
+
+
+def test_no_gather_and_gather_only_on_a_constant_map():
+    """On a map constant per class, every pixel known, and windows inside
+    it: no_gather scores as full, and gather_only counts the distinct
+    pixels (norm = npix, cost = npix sum_c value_c)."""
+    args = _ablation_args(constant=True)
+    npix = int(cs.fold_offsets(cs.crop_offsets(args[2], 1.0)[None])[1][0])
+    for g, w in zip(ca.crop_ablate("no_gather", *args),
+                    ca.crop_ablate("full", *args)):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=0)
+    cost, norm, kf = ca.crop_ablate("gather_only", *args)
+    assert torch.all(norm == npix)
+    torch.testing.assert_close(cost, torch.full_like(cost, npix * 21.0),
+                               rtol=1e-6, atol=0)
+    torch.testing.assert_close(kf, norm * np.float32(1 / 2500), rtol=1e-6,
+                               atol=0)
+
+
+def test_fold_only_writes_its_groups_folded_weights():
+    """fold_only: the particle at sorted row j writes slot j % U of its
+    group's weights (tracked_weights)."""
+    maps, c, sten, scan, cw, ctr, theta, f = _ablation_args()
+    cost, norm, kf = ca.crop_ablate("fold_only", maps, c, sten, scan, cw,
+                                    ctr, theta, f)
+    pix, npix, order, seg = cs.fold_offsets(cs.crop_offsets(sten, f)[None])
+    w = cs.tracked_weights(scan, cw, order, seg)[0]
+    shift = cs.rotation_shift(theta, scan.shape[1])
+    _, perm = cs.tracked_rows(shift)
+    u_count = int(npix[0])
+    for j in (0, 1, 63, 64, 1000, N_ABL - 1):
+        p = int(perm[j])
+        ws = w[int(shift[p]), j % u_count].double()
+        assert abs(float(cost[p]) - float(ws[0])) <= 1e-6 * float(ws[0])
+        assert abs(float(norm[p]) - float(ws[c])) <= 1e-6 * float(ws[c])
+        assert kf[p] == np.float32(ws[c + 1] * np.float32(1 / 2500))
+
+
+def _multi_args(n=N_ABL):
+    maps, c, sten, scan, cw, ctr, theta, _ = _ablation_args(n=n,
+                                                            cluster=None)
+    hyp = (10.0 ** (np.arange(10) / 10.0)).astype(np.float32)
+    _, slots, mips = ms.plan_buckets(hyp, 25, 0.5, 10.0)
+    levels = tuple(sorted(set(mips)))
+    return (ms.build_pyramid_maps(maps.packed, levels), c, sten, scan, cw,
+            ctr, theta, torch.as_tensor(np.resize(hyp, n)),
+            torch.as_tensor(slots), tuple(levels.index(m) for m in mips), 0.5)
+
+
+def test_bucket_variants_on_the_multi_tracked_path():
+    """The K-bucket case: full is score_tracked_multi_plain bit for bit,
+    and every variant keeps its definition's relation to full."""
+    args = _multi_args()
+    want = ms.score_tracked_multi_plain(*args)
+    full = ca.crop_ablate_multi("full", *args)
+    for g, w in zip(full, want):
+        assert torch.equal(g, w)
+    for g, w in zip(ca.crop_ablate_multi_plain("full", *args), want):
+        assert torch.equal(g, w)
+    for variant in ca.VARIANTS[1:]:
+        got = ca.crop_ablate_multi(variant, *args)
+        assert all(torch.isfinite(g).all() and g.shape == (N_ABL,)
+                   for g in got), variant
+    # gather_only's norm counts each particle's known in-map pixels
+    norm = ca.crop_ablate_multi("gather_only", *args)[1]
+    assert torch.all(norm == norm.round()) and norm.max() > 0
+
+
+def test_crop_ablate_refuses_an_unknown_variant():
+    with pytest.raises(ValueError, match="variant"):
+        ca.crop_ablate("no_roll", *_ablation_args(n=64))
+
+
+# -- the probe path on the CPU -------------------------------------------------
+def test_probe_path_checks_on_the_cpu():
+    """probes.__main__'s functions at small sizes on the CPU: every check
+    holds and no time is measured."""
+    recs = (probes.window_parity(CPU, 0)
+            + probes.window_rates(CPU, 0, N_WIN, 256, "small")
+            + probes.run_mm(CPU, 0, 256)
+            + probes.run_ablate(CPU, 0, 512))
+    assert len(recs) == 6 + 5 + 6 + 15
+    assert all(r.get("kernel_ms") is None for r in recs)
+    assert {r["replaces"].split(":")[0] for r in recs} == {
+        f"tests/{f}.py" for f in (
+            "probe_dma_unaligned", "probe_dma_align", "probe_dma2",
+            "probe_dma_fold", "probe_int8", "probe_int8_mm",
+            "exp_crop_ablate")}
+
+
+def test_probe_command_prints_one_json_line_a_probe():
+    out = io.StringIO()
+    with redirect_stdout(out):
+        assert probes.main(["mm", "--device", "cpu", "--n", "64"]) == 0
+    lines = [json.loads(ln) for ln in out.getvalue().splitlines()]
+    assert [r["probe"] for r in lines] == [
+        "int8_mm", "dma2_select", "int8_convert_mm", "theta_shape/s8",
+        "theta_shape/s8_to_bf16", "theta_shape/bf16"]
+    assert all(r["card"] == "cpu" for r in lines)

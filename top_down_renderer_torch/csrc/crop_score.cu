@@ -44,6 +44,9 @@
 // kf is an integer count of known cells times 1/(Th R), exact as in the
 // plain version.
 //
+// The tracked kernel's body lives in crop_tracked.cuh, which
+// csrc/crop_ablate.cu includes too, to time it with stages knocked out.
+//
 // Contract (equal to the plain versions in filter/crop_score.py and
 // filter/multiscale.py up to float summation order): the compact map is
 // (pixels, CP) float32, classes in channels [0, C), known in channel C;
@@ -54,58 +57,15 @@
 #include <cstddef>
 #include <type_traits>
 
+#include "crop_tracked.cuh"
+
 namespace {
 
-constexpr int kWarps = 16;
-constexpr int kThreads = kWarps * 32;
-constexpr int kTile = 64;  // particles per block: TRACKED_TILE
-constexpr int kMaxBuckets = 12;
 constexpr int kFoldThreads = 1024;  // one block per offset table
 constexpr int kPad = 1 << 29;       // (dy, dx) of a padding pixel: PAD_PIX
 constexpr int kCellBits = 20;       // cells per table < 2^20
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// channels per pixel of the compact map at C classes (channel_pad)
-template <int C>
-struct Pixel {
-  static constexpr int CP = C + 1 <= 2 ? 2 : (C + 1 <= 4 ? 4 : 8);
-};
-
-template <int CP>
-__device__ __forceinline__ void load_pixel(const float* p, float (&v)[CP]) {
-  if constexpr (CP == 2) {
-    const float2 a = __ldg(reinterpret_cast<const float2*>(p));
-    v[0] = a.x; v[1] = a.y;
-  } else {
-    const float4* q = reinterpret_cast<const float4*>(p);
-#pragma unroll
-    for (int h = 0; h < CP / 4; ++h) {
-      const float4 a = __ldg(q + h);
-      v[4 * h] = a.x; v[4 * h + 1] = a.y; v[4 * h + 2] = a.z;
-      v[4 * h + 3] = a.w;
-    }
-  }
-}
-
-// Dynamic shared memory of a block: the group's pixel offsets (P int2), its
-// folded weights (C + 2, P) and the scan tables (C + 1, Th*R).
-template <int C>
-size_t smem_bytes(int TR, int P) {
-  return (size_t)P * sizeof(int2) + (size_t)(C + 2) * P * sizeof(float) +
-         (size_t)(C + 1) * TR * sizeof(float);
-}
-
-// Block i scores sorted rows [i kTile, (i + 1) kTile): skey[row] is the
-// group bucket * Th + shift of particle perm[row].  pix (K, P): bucket b's
-// npix[b] distinct offsets; order (K*Th*R) and seg (K*P + 1): the cells
-// b*Th*R + i on slot b*P + u are order[seg[b*P+u] .. seg[b*P+u+1]).  Level
-// b of the map is table[b] = (pixel offset, H, W, -), or (0, H, W) when
-// table is null.
+// The tracked kernel: its body (crop_tracked.cuh) with every stage on.
 template <int C>
 __global__ void __launch_bounds__(kThreads, 2)
     crop_tracked_kernel(const float* __restrict__ map,  // (pixels, CP)
@@ -121,99 +81,8 @@ __global__ void __launch_bounds__(kThreads, 2)
                         const long long* __restrict__ perm,  // (N)
                         const int2* __restrict__ centers,    // (N) cy, cx
                         int N, float inv_tr, float* __restrict__ out) {
-  constexpr int CP = Pixel<C>::CP;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int s_key[kTile];
-  const int TR = Th * R;
-  int2* s_pix = reinterpret_cast<int2*>(smem);
-  float* s_w = reinterpret_cast<float*>(s_pix + P);
-  float* s_ws = s_w + (C + 2) * P;
-  float* s_ss = s_ws + C * TR;
-
-  const int row0 = blockIdx.x * kTile;
-  const int rows = min(kTile, N - row0);
-  // the weighted scan 0.01 w_c scan_c and its class sum, in class order
-  // (as crop_score's plain version computes them)
-  for (int i = threadIdx.x; i < TR; i += kThreads) {
-    float sum = 0.f;
-#pragma unroll
-    for (int ch = 0; ch < C; ++ch) {
-      const float v = scan[ch * TR + i];
-      s_ws[ch * TR + i] = v * (0.01f * cw[ch]);
-      sum = ch ? sum + v : v;
-    }
-    s_ss[i] = sum;
-  }
-  for (int r = threadIdx.x; r < rows; r += kThreads) s_key[r] = skey[row0 + r];
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31;
-  for (int run0 = 0; run0 < rows;) {
-    const int g = s_key[run0];
-    int run1 = run0 + 1;
-    while (run1 < rows && s_key[run1] == g) ++run1;
-    const int b = g / Th;
-    const int sR = (g - b * Th) * R;
-    const int U = npix[b];
-    const int* sb = seg + (size_t)b * P;
-    const int cell0 = b * TR;
-    for (int u = threadIdx.x; u < U; u += kThreads) {
-      float wc[C];
-#pragma unroll
-      for (int ch = 0; ch < C; ++ch) wc[ch] = 0.f;
-      float wn = 0.f;
-      const int lo = sb[u], hi = sb[u + 1];
-      for (int q = lo; q < hi; ++q) {
-        int j = order[q] - cell0 + sR;
-        if (j >= TR) j -= TR;
-#pragma unroll
-        for (int ch = 0; ch < C; ++ch) wc[ch] += s_ws[ch * TR + j];
-        wn += s_ss[j];
-      }
-#pragma unroll
-      for (int ch = 0; ch < C; ++ch) s_w[ch * P + u] = wc[ch];
-      s_w[C * P + u] = wn;
-      s_w[(C + 1) * P + u] = (float)(hi - lo);
-      s_pix[u] = pix[(size_t)b * P + u];
-    }
-    __syncthreads();
-
-    const int4 lv = table ? table[b] : make_int4(0, H, W, 0);
-    const float* level = map + (size_t)lv.x * CP;
-    for (int r = run0 + (threadIdx.x >> 5); r < run1; r += kWarps) {
-      const long long p = perm[row0 + r];
-      const int2 ctr = centers[p];
-      float acc_c = 0.f, acc_n = 0.f, acc_k = 0.f;
-#pragma unroll 4
-      for (int u = lane; u < U; u += 32) {
-        const int2 o = s_pix[u];
-        const int y = ctr.x + o.x;
-        const int x = ctr.y + o.y;
-        float v[CP];
-#pragma unroll
-        for (int ch = 0; ch < CP; ++ch) v[ch] = 0.f;
-        if ((unsigned)y < (unsigned)lv.y && (unsigned)x < (unsigned)lv.z)
-          load_pixel<CP>(level + ((size_t)y * lv.z + x) * CP, v);
-        float a = 0.f;
-#pragma unroll
-        for (int ch = 0; ch < C; ++ch) a = fmaf(s_w[ch * P + u], v[ch], a);
-        acc_c += a;
-        acc_n = fmaf(s_w[C * P + u], v[C], acc_n);
-        acc_k = fmaf(s_w[(C + 1) * P + u], v[C], acc_k);
-      }
-      acc_c = warp_sum(acc_c);
-      acc_n = warp_sum(acc_n);
-      acc_k = warp_sum(acc_k);
-      if (lane == 0) {
-        float* o3 = out + (size_t)p * 3;
-        o3[0] = acc_c;
-        o3[1] = acc_n;
-        o3[2] = acc_k * inv_tr;
-      }
-    }
-    __syncthreads();  // every warp is done with this run's weights
-    run0 = run1;
-  }
+  tracked_body<C, kFull>(map, table, H, W, scan, cw, pix, npix, order, seg,
+                         Th, R, P, skey, perm, centers, N, inv_tr, out);
 }
 
 // Exclusive prefix sum of one int per thread over a block of kFoldThreads;
@@ -331,16 +200,8 @@ cudaError_t launch(const float* map, const int* table, int H, int W,
   static size_t ready_smem = 0;
   auto kern = crop_tracked_kernel<C>;
   const size_t smem = smem_bytes<C>(Th * R, P);
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = opt_in_smem(kern, smem, &ready_dev, &ready_smem);
   if (err != cudaSuccess) return err;
-  if (dev != ready_dev || smem > ready_smem) {
-    err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    ready_dev = dev;
-    ready_smem = smem;
-  }
   kern<<<(N + kTile - 1) / kTile, kThreads, smem, stream>>>(
       map, reinterpret_cast<const int4*>(table), H, W, scan, cw,
       reinterpret_cast<const int2*>(pix), npix, order, seg, Th, R, P, skey,
@@ -380,17 +241,9 @@ extern "C" int tdr_crop_fold(const int* off, int K, int TR, int P, int* out,
   int n2 = 1;
   while (n2 < TR) n2 <<= 1;
   const size_t smem = (size_t)n2 * sizeof(unsigned long long);
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err =
+      opt_in_smem(crop_fold_kernel, smem, &ready_dev, &ready_smem);
   if (err != cudaSuccess) return (int)err;
-  if (dev != ready_dev || smem > ready_smem) {
-    err = cudaFuncSetAttribute(
-        crop_fold_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    ready_dev = dev;
-    ready_smem = smem;
-  }
   int2* pix = reinterpret_cast<int2*>(out);
   int* seg = out + (size_t)2 * K * P;
   int* order = seg + (size_t)K * P + 1;

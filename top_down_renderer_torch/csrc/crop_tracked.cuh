@@ -1,0 +1,246 @@
+// The tracked crop kernel's body, shared by csrc/crop_score.cu (the
+// production kernel, every stage on) and csrc/crop_ablate.cu (the same body
+// with stages knocked out, to split its time).  Included by both; one copy
+// of the code, so that the ablation measures the kernel the filter runs.
+// What the kernel computes and why it is laid out so: see crop_score.cu.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstddef>
+#include <type_traits>
+
+namespace {
+
+constexpr int kWarps = 16;
+constexpr int kThreads = kWarps * 32;
+constexpr int kTile = 64;  // particles per block: TRACKED_TILE
+constexpr int kMaxBuckets = 12;
+
+// The stages a body runs (crop_ablate.cu's variants; the production kernel
+// is kFull).  A knocked-out stage leaves an output that still depends on
+// what stays, so that nvcc cannot drop the stages kept:
+//   kNoFold      the weights and pixels are folded for the block's first run
+//                only and reused for every later run;
+//   kNoGather    each lane reads one pixel, the particle's centre clamped
+//                into its level, in place of its own (the FMAs stay, the
+//                scattered loads go);
+//   kGatherOnly  the pixels are summed without weights (no weight fold);
+//   kFoldOnly    the weights are folded per run, and each particle writes
+//                one folded pixel's weights (no pixel loop).
+enum : int {
+  kFull = 0,
+  kNoFold = 1,
+  kNoGather = 2,
+  kGatherOnly = 3,
+  kFoldOnly = 4,
+};
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// channels per pixel of the compact map at C classes (channel_pad)
+template <int C>
+struct Pixel {
+  static constexpr int CP = C + 1 <= 2 ? 2 : (C + 1 <= 4 ? 4 : 8);
+};
+
+template <int CP>
+__device__ __forceinline__ void load_pixel(const float* p, float (&v)[CP]) {
+  if constexpr (CP == 2) {
+    const float2 a = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = a.x; v[1] = a.y;
+  } else {
+    const float4* q = reinterpret_cast<const float4*>(p);
+#pragma unroll
+    for (int h = 0; h < CP / 4; ++h) {
+      const float4 a = __ldg(q + h);
+      v[4 * h] = a.x; v[4 * h + 1] = a.y; v[4 * h + 2] = a.z;
+      v[4 * h + 3] = a.w;
+    }
+  }
+}
+
+// Dynamic shared memory of a block: the group's pixel offsets (P int2), its
+// folded weights (C + 2, P) and the scan tables (C + 1, Th*R).
+template <int C>
+size_t smem_bytes(int TR, int P) {
+  return (size_t)P * sizeof(int2) + (size_t)(C + 2) * P * sizeof(float) +
+         (size_t)(C + 1) * TR * sizeof(float);
+}
+
+// Block i scores sorted rows [i kTile, (i + 1) kTile): skey[row] is the
+// group bucket * Th + shift of particle perm[row].  pix (K, P): bucket b's
+// npix[b] distinct offsets; order (K*Th*R) and seg (K*P + 1): the cells
+// b*Th*R + i on slot b*P + u are order[seg[b*P+u] .. seg[b*P+u+1]).  Level
+// b of the map is table[b] = (pixel offset, H, W, -), or (0, H, W) when
+// table is null.  V picks the stages (kFull: all).
+template <int C, int V>
+__device__ __forceinline__ void tracked_body(
+    const float* __restrict__ map,  // (pixels, CP)
+    const int4* __restrict__ table, int H, int W,
+    const float* __restrict__ scan,  // (C, Th*R)
+    const float* __restrict__ cw,    // (C)
+    const int2* __restrict__ pix,    // (K, P) dy, dx
+    const int* __restrict__ npix,    // (K)
+    const int* __restrict__ order,   // (K*Th*R)
+    const int* __restrict__ seg,     // (K*P + 1)
+    int Th, int R, int P,
+    const int* __restrict__ skey,        // (N)
+    const long long* __restrict__ perm,  // (N)
+    const int2* __restrict__ centers,    // (N) cy, cx
+    int N, float inv_tr, float* __restrict__ out) {
+  constexpr int CP = Pixel<C>::CP;
+  constexpr bool kWeights = V != kGatherOnly;  // folds the weights
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_key[kTile];
+  const int TR = Th * R;
+  int2* s_pix = reinterpret_cast<int2*>(smem);
+  float* s_w = reinterpret_cast<float*>(s_pix + P);
+  float* s_ws = s_w + (C + 2) * P;
+  float* s_ss = s_ws + C * TR;
+
+  const int row0 = blockIdx.x * kTile;
+  const int rows = min(kTile, N - row0);
+  // the weighted scan 0.01 w_c scan_c and its class sum, in class order
+  // (as crop_score's plain version computes them)
+  if constexpr (kWeights) {
+    for (int i = threadIdx.x; i < TR; i += kThreads) {
+      float sum = 0.f;
+#pragma unroll
+      for (int ch = 0; ch < C; ++ch) {
+        const float v = scan[ch * TR + i];
+        s_ws[ch * TR + i] = v * (0.01f * cw[ch]);
+        sum = ch ? sum + v : v;
+      }
+      s_ss[i] = sum;
+    }
+  }
+  for (int r = threadIdx.x; r < rows; r += kThreads) s_key[r] = skey[row0 + r];
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  int U = 0;  // distinct pixels of the folded group
+  for (int run0 = 0; run0 < rows;) {
+    const int g = s_key[run0];
+    int run1 = run0 + 1;
+    while (run1 < rows && s_key[run1] == g) ++run1;
+    const int b = g / Th;
+    if (V != kNoFold || run0 == 0) {
+      const int sR = (g - b * Th) * R;
+      U = npix[b];
+      const int* sb = seg + (size_t)b * P;
+      const int cell0 = b * TR;
+      for (int u = threadIdx.x; u < U; u += kThreads) {
+        if constexpr (kWeights) {
+          float wc[C];
+#pragma unroll
+          for (int ch = 0; ch < C; ++ch) wc[ch] = 0.f;
+          float wn = 0.f;
+          const int lo = sb[u], hi = sb[u + 1];
+          for (int q = lo; q < hi; ++q) {
+            int j = order[q] - cell0 + sR;
+            if (j >= TR) j -= TR;
+#pragma unroll
+            for (int ch = 0; ch < C; ++ch) wc[ch] += s_ws[ch * TR + j];
+            wn += s_ss[j];
+          }
+#pragma unroll
+          for (int ch = 0; ch < C; ++ch) s_w[ch * P + u] = wc[ch];
+          s_w[C * P + u] = wn;
+          s_w[(C + 1) * P + u] = (float)(hi - lo);
+        }
+        s_pix[u] = pix[(size_t)b * P + u];
+      }
+      __syncthreads();
+    }
+
+    const int4 lv = table ? table[b] : make_int4(0, H, W, 0);
+    const float* level = map + (size_t)lv.x * CP;
+    for (int r = run0 + (threadIdx.x >> 5); r < run1; r += kWarps) {
+      const long long p = perm[row0 + r];
+      float acc_c = 0.f, acc_n = 0.f, acc_k = 0.f;
+      if constexpr (V == kFoldOnly) {
+        if (U > 0) {
+          const int u = (row0 + r) % U;
+          acc_c = s_w[u];
+          acc_n = s_w[C * P + u];
+          acc_k = s_w[(C + 1) * P + u];
+        }
+      } else {
+        const int2 ctr = centers[p];
+        // kNoGather: the centre clamped into the level, the same pixel for
+        // every lane and slot
+        const int yc = min(max(ctr.x, 0), lv.y - 1);
+        const int xc = min(max(ctr.y, 0), lv.z - 1);
+#pragma unroll 4
+        for (int u = lane; u < U; u += 32) {
+          float v[CP];
+#pragma unroll
+          for (int ch = 0; ch < CP; ++ch) v[ch] = 0.f;
+          if constexpr (V == kNoGather) {
+            load_pixel<CP>(level + ((size_t)yc * lv.z + xc) * CP, v);
+          } else {
+            const int2 o = s_pix[u];
+            const int y = ctr.x + o.x;
+            const int x = ctr.y + o.y;
+            if ((unsigned)y < (unsigned)lv.y && (unsigned)x < (unsigned)lv.z)
+              load_pixel<CP>(level + ((size_t)y * lv.z + x) * CP, v);
+          }
+          if constexpr (kWeights) {
+            float a = 0.f;
+#pragma unroll
+            for (int ch = 0; ch < C; ++ch)
+              a = fmaf(s_w[ch * P + u], v[ch], a);
+            acc_c += a;
+            acc_n = fmaf(s_w[C * P + u], v[C], acc_n);
+            acc_k = fmaf(s_w[(C + 1) * P + u], v[C], acc_k);
+          } else {
+            float a = 0.f;
+#pragma unroll
+            for (int ch = 0; ch < C; ++ch) a += v[ch];
+            acc_c += a;
+            acc_n += v[C];
+            acc_k += v[C];
+          }
+        }
+        acc_c = warp_sum(acc_c);
+        acc_n = warp_sum(acc_n);
+        acc_k = warp_sum(acc_k);
+      }
+      if (lane == 0) {
+        float* o3 = out + (size_t)p * 3;
+        o3[0] = acc_c;
+        o3[1] = acc_n;
+        o3[2] = acc_k * inv_tr;
+      }
+    }
+    __syncthreads();  // every warp is done with this run's weights
+    run0 = run1;
+  }
+}
+
+// Raise kern's dynamic shared memory opt-in to smem, once per device and
+// size (ready_dev, ready_smem: the caller's record for this kernel, set
+// from one host thread).
+template <typename Kern>
+cudaError_t opt_in_smem(Kern kern, size_t smem, int* ready_dev,
+                        size_t* ready_smem) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev != *ready_dev || smem > *ready_smem) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    *ready_dev = dev;
+    *ready_smem = smem;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace

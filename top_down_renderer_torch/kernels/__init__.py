@@ -3,12 +3,14 @@
 The sources live in top_down_renderer_torch/csrc/.  Each one is compiled
 at first use with nvcc for sm_90a into a shared library with a plain C
 interface, under top_down_renderer_torch/_build/, named by a hash of its
-source and flags so a changed source rebuilds.  The library is loaded
+source, the local headers it includes and the flags, so a changed source
+or header rebuilds.  The library is loaded
 with ctypes: pointers and the stream go as c_void_p, and every entry
 point returns the CUDA error of its launch.
 
 The wrappers around the kernels (filter/crop_score.py,
-filter/multiscale.py, filter/resample.py) share on_card(), which sends
+filter/multiscale.py, filter/resample.py, and the probes' in probes/)
+share on_card(), which sends
 CPU tensors to their plain versions, and launch().  LAUNCHES counts the
 launches of every kernel by name: each wrapper adds one where it
 launches its kernel, and nowhere else, so that a run can show which
@@ -24,6 +26,7 @@ import concurrent.futures
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -50,6 +53,9 @@ LAUNCHES = {
     "crop_score_init_raw": 0,
     "crop_score_multi_init_raw": 0,
     "fill_rows": 0,
+    "crop_ablate": 0,
+    "probe_window_gather": 0,
+    "probe_mm": 0,
 }
 
 
@@ -99,6 +105,25 @@ _SIGNATURES = {
     "fill_rows": {
         # rows0, valid0, N, out, scratch, epoch, stream
         "tdr_fill_rows": (_P, _P, _I, _P, _P, ctypes.c_uint, _P),
+    },
+    "crop_ablate": {
+        # variant, compact map, table (or null), K, H, W, then as
+        # tdr_crop_score_tracked from C on
+        "tdr_crop_ablate": (
+            _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+            _P, _P, _P, _I, _F, _P, _P,
+        ),
+    },
+    "probe_window": {
+        # src, S, H, W, elem bytes, origins, n, rows, cols, geometry,
+        # out mode, out, stream
+        "tdr_probe_window_gather": (
+            _P, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P,
+        ),
+    },
+    "probe_mm": {
+        # a, b, select (or null), M, N, K, a_type, c, stream
+        "tdr_probe_mm": (_P, _P, _P, _I, _I, _I, _I, _P, _P),
     },
 }
 
@@ -156,12 +181,31 @@ def find_nvcc() -> str:
     )
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def source_bytes(path: Path, seen=None) -> bytes:
+    """The bytes of a source and of every local header it includes
+    (#include "..." beside it, recursively, each once): what its library
+    is built from."""
+    seen = set() if seen is None else seen
+    if path in seen:
+        return b""
+    seen.add(path)
+    data = path.read_bytes()
+    for inc in _INCLUDE.findall(data):
+        header = path.parent / inc.decode()
+        if header.is_file():
+            data += source_bytes(header, seen)
+    return data
+
+
 def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless a library for this exact source and
-    these flags exists; returns the library's path."""
+    """Compile csrc/<name>.cu unless a library for this exact source, its
+    local headers and these flags exists; returns the library's path."""
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        source_bytes(src) + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}_{digest}.so"
     if lib.exists():
