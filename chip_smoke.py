@@ -6,9 +6,11 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases (any failure exits non-zero before the result line):
   A. build the CUDA sources in csrc/ (one nvcc each, all started
-     together), time it, and count the tensor-core (HGMMA) instructions
-     in the theta-search library's SASS with the toolkit's cuobjdump
-     (fails without the tool or without the instructions);
+     together), time it, and count in the SASS of the libraries, with the
+     toolkit's cuobjdump, the tensor-core (HGMMA) instructions of the
+     theta search and of the probe product, and the TMA tensor loads
+     (UTMALDG) of the probe product and the window gather (fails without
+     the tool or without the instructions);
   B. the uniform crop kernels against their plain PyTorch versions on
      the same card tensors at the slice's shapes: 102,400 particles, a
      1024^2 map with 6 classes (8 packed channels), Th x R = 100 x 25,
@@ -123,11 +125,17 @@ Phases (any failure exits non-zero before the result line):
      node's StepTimer report;
   P. the probe path (top_down_renderer_torch.probes, the counterparts of
      the TPU's probe kernels in tests/): the window gather (K1) on the
-     TPU DMA probes' windows, bit for bit, then 102,400 windows of 56 x
-     640 B summed on a 13 MB and an 84 MB map in each fetch geometry;
-     the tensor-core products (K2) on the TPU matrix-unit probes' shapes,
-     int8 bit for bit and bf16 within MM_TOL, then at the theta search's
-     work shape beside torch._int_mm and torch.matmul; the tracked crop
+     TPU DMA probes' windows, bit for bit (strided and the TMA-staged
+     async geometry, at any byte; copies beside advanced indexing of the
+     strided view), then 102,400 windows of 56 x 640 B summed on a 13 MB
+     and an 84 MB map in each fetch geometry, strided and async also at
+     any row and byte; the tensor-core products (K2: wgmma fed by TMA,
+     the select route on mma.sync) on the TPU matrix-unit probes' shapes,
+     int8 bit for bit and bf16 within MM_TOL, row 13's 48 x 64 x 35,840
+     with K split (converted and bf16; two launches bit for bit), then at
+     the theta search's work shape (its last wave's tiles split over K)
+     beside torch._int_mm and torch.matmul; a line a case with its route,
+     kernel and wrapper ms, bound, share and library ms; the tracked crop
      kernel with stages knocked out (K3) on D's clustered cloud and on
      the probe's own spread, clustered and K-bucket clouds, `full` bit
      for bit against the production kernel and the others against their
@@ -331,9 +339,16 @@ def log_clocks(label: str) -> None:
         + smi("clocks.sm,clocks.max.sm,power.draw,temperature.gpu"))
 
 
-def log_tensor_core_sass(name: str) -> None:
-    """Count the HGMMA (wgmma) instructions in the SASS of csrc/<name>.cu's
-    library, with the toolkit's cuobjdump; a build without them, or a
+# the instructions each library's SASS must hold: wgmma (HGMMA) and the
+# TMA tensor load (UTMALDG)
+SASS_NEEDS = {"crop_score_init": ("HGMMA",),
+              "probe_mm": ("HGMMA", "UTMALDG"),
+              "probe_window": ("UTMALDG",)}
+
+
+def log_sass(name: str, opcodes) -> None:
+    """Count each of `opcodes` in the SASS of csrc/<name>.cu's library,
+    with the toolkit's cuobjdump; a build without one of them, or a
     toolkit without the tool, fails."""
     tool = os.path.join(os.path.dirname(kernels.find_nvcc()), "cuobjdump")
     check(os.path.isfile(tool), f"no cuobjdump beside nvcc: {name}'s SASS "
@@ -341,10 +356,11 @@ def log_tensor_core_sass(name: str) -> None:
     sass = subprocess.run([tool, "-sass", str(kernels.build(name))],
                           capture_output=True, text=True, check=True,
                           timeout=120).stdout
-    lines = [ln.strip() for ln in sass.splitlines() if "HGMMA" in ln]
-    check(lines, f"no HGMMA instruction in {name}'s SASS")
-    log(f"[A] {name}: {len(lines)} HGMMA instructions in its SASS, e.g. "
-        f"{lines[0]}")
+    for op in opcodes:
+        lines = [ln.strip() for ln in sass.splitlines() if op in ln]
+        check(lines, f"no {op} instruction in {name}'s SASS")
+        log(f"[A] {name}: {len(lines)} {op} instructions in its SASS, e.g. "
+            f"{lines[0]}")
 
 
 def max_rel(ref: torch.Tensor, got: torch.Tensor) -> float:
@@ -1388,6 +1404,16 @@ def phase_p(dev, pf, world, errs, read_launches, name_limit):
     out = {}
     for rec in recs:
         log(json.dumps(dict(rec, card=name_limit)))
+        if rec.get("route") is not None:
+            lib = rec["library_ms"]
+            log(f"[P] {rec['probe']}: route {rec['route']}"
+                + (f" (K in {rec['split_k']} splits)"
+                   if rec.get("split_k", 1) > 1 else "")
+                + f", kernel {rec['kernel_ms']:.4f} ms (wrapper "
+                f"{rec['wrapper_ms']:.4f}), bound {rec['bound_ms']:.4f} ms "
+                f"({rec['bound_by']}), share {rec['share_of_bound']:.3f}, "
+                "library " + ("none" if lib is None else f"{lib:.4f} ms")
+                + f" on {name_limit}")
         name = rec["kernel"]
         if name not in PROBE_HEADLINE:
             continue  # the production kernel's comparison
@@ -1401,8 +1427,9 @@ def phase_p(dev, pf, world, errs, read_launches, name_limit):
         if rec["kernel"] in out and "kernel_ms" in rec:
             out[rec["kernel"]]["cases"].append({
                 k: rec[k] for k in (
-                    "probe", "replaces", "kernel_ms", "plain_ms",
-                    "library_ms", "bound_ms", "bound_by", "share_of_bound",
+                    "probe", "replaces", "route", "split_k", "kernel_ms",
+                    "wrapper_ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by", "share_of_bound",
                     "effective_tbps", "effective_tops", "effective_tflops",
                     "production_ms") if k in rec})
     check(set(out) == set(PROBE_HEADLINE), f"P: headline cases {list(out)}")
@@ -2205,7 +2232,8 @@ def main() -> int:
     ready = kernels.build_all()
     log(f"[A] built {', '.join(f'{k}.cu in {v:.2f} s' for k, v in ready.items())}"
         f" (wall {time.perf_counter() - t0:.2f} s, in parallel)")
-    log_tensor_core_sass("crop_score_init")
+    for name, opcodes in SASS_NEEDS.items():
+        log_sass(name, opcodes)
 
     errs = {"abs": dict.fromkeys(KERNELS, 0.0), "rel": dict.fromkeys(INIT, 0.0)}
     b_args, b_theta = phase_b(dev, errs)

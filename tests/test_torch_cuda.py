@@ -1,6 +1,7 @@
 """The CUDA kernels (uniform and K-bucket crop scoring, with the theta
 searches' raw-row epilogue, the forward fill, and the probes: the window
-gather, the tensor-core products, the crop ablation) against their plain
+gather at any byte, the tensor-core products on every route and split,
+the crop ablation) against their plain
 versions, the conv path (cuDNN) against a float64 convolution and
 against the CPU, the node (its plans, publish and snapshot copy, the PNG
 map), the SVG rasteriser and the refinement's count sweep against the
@@ -28,6 +29,7 @@ from top_down_renderer_torch.filter import multiscale as ms
 from top_down_renderer_torch.filter import resample as res_t
 from top_down_renderer_torch.maps.polar import polar_stencil
 from top_down_renderer_torch.probes import __main__ as probes
+from top_down_renderer_torch.probes import mm
 from top_down_renderer_torch.probes import window as wg
 from top_down_renderer_torch.testing import synthetic_setup
 from top_down_renderer_torch.utils.convert import filter_state_from_numpy
@@ -774,7 +776,7 @@ def test_accumulate_counts_on_card_equals_cpu(dev):
 def test_window_kernel_matches_plain(dev, geometry):
     """The window gather in each geometry, copy and sum, against its plain
     version: 256 crops of 56 x 640 B (8 x 5,120 B slices folded) at rows
-    of 8 and columns of 128 B, and at any row and byte (strided)."""
+    of 8 and columns of 128 B, and at any row and byte (strided, async)."""
     rng = np.random.default_rng(6)
     src = torch.as_tensor(rng.integers(-100, 100, (1, 128, 2048),
                                        dtype=np.int8), device=dev)
@@ -783,7 +785,8 @@ def test_window_kernel_matches_plain(dev, geometry):
         m, rows, cols = wg.fold_rows(src), 8 * int(geometry[-1]), 5120
     else:
         m, rows, cols = src, 56, 640
-    starts = [(8, 128)] + ([(1, 1)] if geometry == "strided" else [])
+    starts = [(8, 128)] + ([(1, 1)] if geometry in ("strided", "async")
+                           else [])
     for ys, xs in starts:
         o = np.stack([np.zeros(n, np.int64),
                       rng.integers(0, (m.shape[1] - rows) // ys + 1, n) * ys,
@@ -795,6 +798,89 @@ def test_window_kernel_matches_plain(dev, geometry):
                                    out=out)
             assert torch.equal(got, wg.window_gather_plain(m, o, rows, cols,
                                                            out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("geometry", ["strided", "async"])
+def test_window_gather_at_any_byte_and_width(dev, dtype, geometry):
+    """Windows at any row and byte whose rows are not whole 16-byte words
+    (so the async tail box and the strided edge words carry bytes outside
+    the window), windows ending at the map's last byte, and a row pitch
+    that is not a multiple of 16 bytes (strided only): copies and sums bit
+    for bit."""
+    rng = np.random.default_rng(7)
+    src = torch.as_tensor(rng.integers(-100, 100, (2, 96, 1024)),
+                          dtype=torch.float32).to(dev, dtype)
+    maps = [src]
+    if geometry == "strided":
+        maps.append(src[:, :, :1004].contiguous())
+    for m in maps:
+        w = m.shape[2]
+        # (64, 600): five async stages of int8, an odd count
+        for rows, cols in ((56, 640), (8, 300), (3, 17), (1, 1), (64, 512),
+                           (64, 600)):
+            n = 300
+            o = np.stack([rng.integers(0, 2, n),
+                          rng.integers(0, 96 - rows + 1, n),
+                          rng.integers(0, w - cols + 1, n)], 1)
+            o[:4, 2] = w - cols  # the map's right edge
+            o = torch.as_tensor(o, dtype=torch.int32, device=dev)
+            for out in ("copy", "sum"):
+                got = wg.window_gather(m, o, rows, cols, geometry=geometry,
+                                       out=out)
+                assert torch.equal(got, wg.window_gather_plain(m, o, rows,
+                                                               cols, out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [64, 4096, 35_840])
+@pytest.mark.parametrize("a_type", ["s8", "bf16", "s8_to_bf16"])
+def test_dense_products_match_plain(dev, a_type, k):
+    """Each dense route (wgmma fed by TMA, K split where mm.plan says) at M
+    in {48, 200, 4,096} and N in {64, 88, 128}: s8 bit for bit, bf16 and
+    the converted int8 within MM_TOL of sum |a b|."""
+    rng = np.random.default_rng(k)
+    for m in (48, 200, 4096):
+        for n in (64, 88, 128):
+            a8 = torch.as_tensor(rng.integers(-127, 128, (m, k),
+                                              dtype=np.int8), device=dev)
+            if a_type == "s8":
+                b = torch.as_tensor(rng.integers(-127, 128, (n, k),
+                                                 dtype=np.int8), device=dev)
+                assert torch.equal(mm.mm_s8(a8, b), mm.mm_s8_plain(a8, b))
+                continue
+            b = torch.as_tensor(rng.random((n, k)) - 0.5,
+                                dtype=torch.float32).to(dev, torch.bfloat16)
+            a = a8 if a_type == "s8_to_bf16" else (a8.float() / 128).to(
+                torch.bfloat16)
+            got = mm.mm_bf16(a, b)
+            err = (got.double() - mm.mm_bf16_plain(a, b).double()).abs()
+            assert float((err / mm.abs_products(a, b)).max()) <= mm.MM_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a_type", ["s8", "bf16", "s8_to_bf16"])
+def test_split_k_repeats_bit_for_bit(dev, a_type):
+    """Split K (row 13's shape, all of it split; and the theta shape's
+    last wave) sums its splits in a fixed order: two launches return the
+    same bits."""
+    rng = np.random.default_rng(3)
+    for m, n, k in ((48, 64, 35_840), (102_400, 128, 4096)):
+        assert mm.plan(m, n, k, a_type, False)[1] > 1
+        a8 = torch.as_tensor(rng.integers(-127, 128, (m, k), dtype=np.int8),
+                             device=dev)
+        if a_type == "s8":
+            b = torch.as_tensor(rng.integers(-127, 128, (n, k),
+                                             dtype=np.int8), device=dev)
+            run = lambda: mm.mm_s8(a8, b)  # noqa: E731
+        else:
+            b = torch.as_tensor(rng.random((n, k)) - 0.5,
+                                dtype=torch.float32).to(dev, torch.bfloat16)
+            a = a8 if a_type == "s8_to_bf16" else a8.to(torch.bfloat16)
+            run = lambda: mm.mm_bf16(a, b)  # noqa: E731
+        first = run()
+        assert torch.equal(first.view(torch.int32), run().view(torch.int32))
 
 
 @pytest.mark.cuda

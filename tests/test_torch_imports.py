@@ -68,6 +68,7 @@ def _run(code: str, env=None):
         "top_down_renderer_torch.probes.mm, "
         "top_down_renderer_torch.probes.crop_ablate, "
         "top_down_renderer_torch.probes.__main__",
+        "top_down_renderer_torch.probes.variants",
         "top_down_renderer_torch.tools.live_view, "
         "top_down_renderer_torch.tools.preproc_survey",
         "chip_smoke",

@@ -238,16 +238,138 @@ def test_window_gather_refuses_what_the_kernel_cannot_take():
                          8, 16)
     with pytest.raises(ValueError, match="folded rows"):
         wg.window_gather(src, ok, 12, 16, geometry="folded1")
+    # async takes any start, but TMA's row pitch is a multiple of 16 bytes
+    wg.window_gather(src, torch.tensor([[0, 0, 3]], dtype=torch.int32), 8,
+                     16, geometry="async")
     with pytest.raises(ValueError, match="async"):
-        wg.window_gather(src, torch.tensor([[0, 0, 3]], dtype=torch.int32),
-                         8, 16, geometry="async")
+        wg.window_gather(torch.zeros((1, 64, 250), dtype=torch.int8), ok, 8,
+                         16, geometry="async")
+    with pytest.raises(ValueError, match="async"):
+        wg.window_gather(torch.zeros((1, 300, 256), dtype=torch.int8), ok,
+                         257, 16, geometry="async")
     with pytest.raises(TypeError):
         wg.window_gather(src.float(), ok, 8, 16)
     with pytest.raises(ValueError, match="geometry"):
         wg.window_gather(src, ok, 8, 16, geometry="tiled")
 
 
+@pytest.mark.parametrize("cols", [1, 15, 16, 17, 255, 256, 257, 300, 512,
+                                  640, 1024, 5120])
+@pytest.mark.parametrize("elem", [1, 2])
+def test_tma_boxes_cover_a_row(cols, elem):
+    """Each box at most BOX_MAX (256) bytes and a multiple
+    of 16 bytes; the boxes lie end to end from 0 and cover the lead and
+    cols, the last by less than 16 bytes more; the stage holds the larger
+    layout's boxes, each on 128 bytes."""
+    rows = 56
+    stages = []
+    for lead in range(wg.STAGE_ALIGN // elem):
+        boxes = wg.tma_boxes(cols, elem, lead)
+        assert all(0 < w * elem <= wg.BOX_MAX
+                   and w * elem % 16 == 0 for _, w in boxes)
+        assert [x for x, _ in boxes] == list(np.cumsum(
+            [0] + [w for _, w in boxes[:-1]]))
+        end = boxes[-1][0] + boxes[-1][1]
+        assert lead + cols <= end and (end - lead - cols) * elem < 16
+        assert all(w * elem == wg.BOX_MAX for _, w in boxes[:-1])
+        stages.append(sum(-(-rows * w * elem // 128) * 128
+                          for _, w in boxes))
+    assert wg.async_stage_bytes(rows, cols, elem) == max(stages)
+
+
+def test_a_crop_stages_in_three_boxes():
+    """A crop of 56 x 640 B: boxes of 256 + 256 + 128 B, or 256 + 256 + 160
+    B from the 32-byte boundary below any other start; 37,632 B a stage,
+    six stages in 227 KB."""
+    assert wg.tma_boxes(640, 1) == [(0, 256), (256, 256), (512, 128)]
+    assert wg.tma_boxes(640, 1, 31) == [(0, 256), (256, 256), (512, 160)]
+    assert wg.tma_boxes(1024, 2, 15) == [(128 * b, 128) for b in range(8)] + [
+        (1024, 16)]
+    assert wg.async_stage_bytes(56, 640, 1) == 56 * 672
+    assert wg.async_stages(56, 640, 1) == wg.MAX_STAGES == 6
+    assert wg.async_stages(64, 512, 2) == 3  # 64 x 1,056 B a stage
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_async_gather_at_any_byte_equals_the_strided_plain_version(dtype):
+    """The async geometry at any row and byte (and ragged widths) on the
+    CPU: copies and sums equal the plain version, which is the strided
+    geometry's too."""
+    rng = np.random.default_rng(7)
+    src = torch.as_tensor(rng.integers(-100, 100, (2, 96, 1024)),
+                          dtype=torch.float32).to(dtype)
+    for rows, cols in ((56, 640), (8, 300), (3, 17)):
+        n = 64
+        o = torch.as_tensor(np.stack([
+            rng.integers(0, 2, n), rng.integers(0, 96 - rows + 1, n),
+            rng.integers(0, 1024 - cols + 1, n)], 1), dtype=torch.int32)
+        for out in ("copy", "sum"):
+            got = wg.window_gather(src, o, rows, cols, geometry="async",
+                                   out=out)
+            want = wg.window_gather_plain(src, o, rows, cols, out)
+            assert torch.equal(got, want)
+            assert torch.equal(got, wg.window_gather(src, o, rows, cols,
+                                                     geometry="strided",
+                                                     out=out))
+        ref = torch.stack([src[k, y:y + rows, x:x + cols]
+                           for k, y, x in o.tolist()])
+        assert torch.equal(wg.window_gather(src, o, rows, cols,
+                                            geometry="async"), ref)
+
+
 # -- K2 -------------------------------------------------------------------------
+@pytest.mark.parametrize("a_type", list(mm.A_TYPES))
+def test_plan_sends_dense_products_to_wgmma(a_type):
+    """The theta search's shape is 800 tiles: six waves of 132 whole, and
+    the last wave's 8 tiles split over K.  Row 13's shape (48 x 64 x
+    35,840) and probe_int8_mm's (128 x 64 x 1,024) are one tile each: all
+    of it split.  Splits are at least two stages, none empty, at most one
+    item an SM for the split tiles; a shape of whole waves, or whose last
+    wave fills more than half the card, is not split."""
+    for m, n, k in ((102_400, 128, 4096), (48, 64, 35_840), (128, 64, 1024),
+                    (4096, 128, 35_840)):
+        route, split = mm.plan(m, n, k, a_type, False)
+        stages = -(-k // mm.STAGE_K[a_type])
+        per = -(-stages // split)
+        tail = mm._tiles(m, n) - mm.whole_tiles(m, n, split)
+        assert route == "wgmma" and 1 < split and tail * split <= 2 * mm.SMS
+        assert per >= mm.MIN_SPLIT_STAGES and (split - 1) * per < stages
+    assert mm.whole_tiles(102_400, 128, 16) == 792
+    assert mm.whole_tiles(48, 64, 94) == 0
+    assert mm.plan(48, 64, 35_840, a_type, False)[1] >= 64
+    for m in (101_376, 100 * 128):  # six whole waves; 100 tiles
+        assert mm.plan(m, 128, 4096, a_type, False) == ("wgmma", 1)
+        assert mm.whole_tiles(m, 128, 1) == mm._tiles(m, 128)
+
+
+def test_plan_keeps_the_select_route_on_mma_sync():
+    for m, n, k in ((32, 128, 256), (102_400, 128, 4096), (48, 64, 35_840)):
+        assert mm.plan(m, n, k, "bf16", True) == ("mma_sync", 1)
+
+
+@pytest.mark.parametrize("m", [1, 7, 48, 200])
+@pytest.mark.parametrize("n", [1, 9, 64, 88])
+def test_products_take_every_shape_they_took_before(m, n):
+    """_check's contract: any M and N, K a multiple of 64 (int8) or 32
+    (bf16, converted); the CPU runs the plain version, and plan names a
+    route with K splits that cover K."""
+    rng = np.random.default_rng(m * 100 + n)
+    for k in (64, 192):
+        a = torch.as_tensor(rng.integers(-127, 128, (m, k)), dtype=torch.int8)
+        b = torch.as_tensor(rng.integers(-127, 128, (n, k)), dtype=torch.int8)
+        assert torch.equal(mm.mm_s8(a, b), mm.mm_s8_plain(a, b))
+        assert mm.plan(m, n, k, "s8", False)[0] == "wgmma"
+    for k in (32, 96):
+        a8 = torch.as_tensor(rng.integers(-127, 128, (m, k)),
+                             dtype=torch.int8)
+        bb = torch.as_tensor(rng.random((n, k)) - 0.5).to(torch.bfloat16)
+        ab = a8.to(torch.bfloat16)
+        for a, a_type in ((a8, "s8_to_bf16"), (ab, "bf16")):
+            assert torch.equal(mm.mm_bf16(a, bb), mm.mm_bf16_plain(a, bb))
+            route, split = mm.plan(m, n, k, a_type, False)
+            assert route == "wgmma" and split >= 1
+
+
 def test_int8_product_equals_probe_int8_mm():
     """probe_int8_mm: int8 (128, 1024) x (64, 1024)^T -> int32, exactly."""
     rng = np.random.default_rng(0)
@@ -427,7 +549,7 @@ def test_probe_path_checks_on_the_cpu():
             + probes.window_rates(CPU, 0, N_WIN, 256, "small")
             + probes.run_mm(CPU, 0, 256)
             + probes.run_ablate(CPU, 0, 512))
-    assert len(recs) == 6 + 5 + 6 + 15
+    assert len(recs) == 6 + 6 + 7 + 15
     assert all(r.get("kernel_ms") is None for r in recs)
     assert {r["replaces"].split(":")[0] for r in recs} == {
         f"tests/{f}.py" for f in (
@@ -442,6 +564,9 @@ def test_probe_command_prints_one_json_line_a_probe():
         assert probes.main(["mm", "--device", "cpu", "--n", "64"]) == 0
     lines = [json.loads(ln) for ln in out.getvalue().splitlines()]
     assert [r["probe"] for r in lines] == [
-        "int8_mm", "dma2_select", "int8_convert_mm", "theta_shape/s8",
-        "theta_shape/s8_to_bf16", "theta_shape/bf16"]
+        "int8_mm", "dma2_select", "int8_convert_mm", "int8_convert_mm/bf16",
+        "theta_shape/s8", "theta_shape/s8_to_bf16", "theta_shape/bf16"]
     assert all(r["card"] == "cpu" for r in lines)
+    assert [(r["route"], r["split_k"] > 1) for r in lines] == [
+        ("wgmma", True), ("mma_sync", False), ("wgmma", True),
+        ("wgmma", True)] + [("wgmma", True)] * 3  # --n 64: one tile

@@ -1,0 +1,98 @@
+// TMA and mbarrier helpers of the probe kernels (csrc/probe_mm.cu,
+// csrc/probe_window.cu): shared-memory addresses, mbarrier waits and
+// arrivals, 2-D tensor-map loads, and cuTensorMapEncodeTiled reached
+// through cudaGetDriverEntryPoint, so that no library links
+// -lcuda.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Wait for the phase of `parity` to complete.  A wait that outlasts about
+// ten seconds of clock traps: a broken pipeline fails its launch rather
+// than hang the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  const long long t0 = clock64();
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (!done && clock64() - t0 > 20000000000LL) __trap();
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// One TMA box at element coordinates (x, y) of a 2-D tensor map into
+// shared memory, counted on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int x, int y, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, or null where the installed CUDA has none
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+constexpr int kEncodeFailed = 1000;  // + the CUresult of an encode
+
+}  // namespace

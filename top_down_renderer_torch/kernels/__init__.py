@@ -122,8 +122,9 @@ _SIGNATURES = {
         ),
     },
     "probe_mm": {
-        # a, b, select (or null), M, N, K, a_type, c, stream
-        "tdr_probe_mm": (_P, _P, _P, _I, _I, _I, _I, _P, _P),
+        # a, b, select (or null), M, N, K, a_type, whole tiles, split_k,
+        # scratch (or null), c, stream
+        "tdr_probe_mm": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     },
 }
 

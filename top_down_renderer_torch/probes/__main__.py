@@ -8,7 +8,9 @@ shapes, runs its kernel and its plain version on the same tensors, checks
 them (a failed check raises), and prints one JSON line a probe: what it
 replaces, how it was checked, and on the card the kernel's device time
 (torch.profiler, 20 launches after 3), the plain version's and the
-library call's (CUDA events), the bytes and operations of the work, the
+library call's (CUDA events), the wrapper's (host clock, median of 20
+calls each synchronised: it encodes the TMA tensor maps), the route the
+kernel took, the bytes and operations of the work, the
 bound (the larger of the operations over the card's peak for their type
 and the bytes over 3.35 TB/s), the share of it the kernel reached, the
 effective rate, and the card's name and power limit.  On the CPU
@@ -16,15 +18,18 @@ effective rate, and the card's name and power limit.  On the CPU
 hold them to their definitions, and no time is measured.
 
   window  K1 (csrc/probe_window.cu): the TPU's DMA probes' windows,
-          held bit for bit; then 102,400 windows of 56 x 640 B on a map of
-          1,280 x 10,240 B (13 MB, inside the 50 MB L2) and of 8,192 x
-          10,240 B (84 MB), summed, in each geometry, and at unaligned
-          starts;
-  mm      K2 (csrc/probe_mm.cu): the TPU's matrix-unit probes, then the
+          held bit for bit (a copy beside advanced indexing of the strided
+          view); then 102,400 windows of 56 x 640 B on a map of 1,280 x
+          10,240 B (13 MB, inside the 50 MB L2) and of 8,192 x 10,240 B (84
+          MB), summed, in each geometry, and strided and async at any row
+          and byte;
+  mm      K2 (csrc/probe_mm.cu): the TPU's matrix-unit probes (row 13's
+          48 x 64 x 35,840 with split K, converted and in bf16), then the
           theta search's work shape (A 102,400 x 4,096, B 128 x 4,096) in
-          int8 and bf16 beside the one PyTorch call of each,
-          torch._int_mm and torch.matmul (timed here, never called by the
-          port);
+          int8, int8 converted to bf16 and bf16, each beside the one
+          PyTorch call of it where there is one: torch._int_mm and
+          torch.matmul (timed here, never called by the port); a split-K
+          product must repeat bit for bit;
   ablate  K3 (csrc/crop_ablate.cu): the tracked crop kernel's variants on
           a 1024^2 6-class map at 102,400 particles, spread, clustered and
           over K buckets; `full` held bit for bit to the production kernel.
@@ -62,7 +67,7 @@ FOLD_COLS = wg.FOLD * DC  # a folded slice's bytes: 5,120
 L2_ROWS, HBM_ROWS, MAP_BYTES = 1280, 8192, 10240
 THETA_K, THETA_N = 4096, 128  # the theta search's work shape (with N rows)
 SYMBOLS = {"probe_window_gather": "probe_window",
-           "probe_mm": "probe_mm_kernel",
+           "probe_mm": "probe_mm_",  # the product, and a split-K sum
            "crop_ablate": "crop_ablate_kernel",
            "crop_score_tracked": "crop_tracked_kernel<"}
 
@@ -95,10 +100,15 @@ def device_us(evt) -> float:
     return 0.0
 
 
-def kernel_ms(fn, symbols, runs: int = RUNS) -> float:
+def kernel_ms(fn, symbols, runs: int = RUNS, per_call: int = 1,
+              tries: int = 3) -> float:
     """The kernel's own device time per launch: `runs` calls of fn under
     torch.profiler after 3 to warm up, the mean over the device events
-    whose name holds `symbols` (a name, or a tuple of its spellings)."""
+    whose name holds `symbols` (a name, or a tuple of its spellings).
+    With per_call > 1 a call launches that many kernels of those names
+    (a product and its split-K sum), and the time is their sum a call.  A
+    profile whose trace holds no such event (the profiler's device trace
+    came back empty) is taken again, up to `tries` in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -106,18 +116,38 @@ def kernel_ms(fn, symbols, runs: int = RUNS) -> float:
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and any(sym in e.key for sym in symbols)]
+        seen = sum(e.count for e in events)
+        if seen:
+            break
+        print(f"[probes] profile {attempt + 1} saw no launch of "
+              f"{symbols}", file=sys.stderr, flush=True)
+    check(0 < seen <= runs * per_call, f"the profiler saw {seen} launches "
+          f"of {symbols} in {runs} calls")
+    return sum(device_us(e) for e in events) / seen * per_call / 1e3
+
+
+def wrapper_ms(fn, runs: int = RUNS) -> float:
+    """Host time of one call of fn and a synchronise, median of `runs`
+    after 3 to warm up."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA
-              and any(sym in e.key for sym in symbols)]
-    seen = sum(e.count for e in events)
-    check(0 < seen <= runs, f"the profiler saw {seen} launches of "
-          f"{symbols} in {runs} calls")
-    return sum(device_us(e) for e in events) / seen / 1e3
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
 
 
 def events_ms(fn, runs: int = RUNS) -> float:
@@ -160,17 +190,22 @@ def once(dev, fn):
     return out, start.elapsed_time(end)
 
 
-def timing(dev, kernel_name, fn, plain_ms, library=None):
-    """{kernel_ms, plain_ms, library_ms}: the kernel under torch.profiler,
-    the library call by CUDA events; None on the CPU.  The timing loops'
-    launches are left out of kernels.LAUNCHES, which so counts the probe
-    path's own: one launch a probe, the one its check holds."""
+def timing(dev, kernel_name, fn, plain_ms, library=None, per_call=1):
+    """{kernel_ms, plain_ms, library_ms, wrapper_ms}: the kernel under
+    torch.profiler (per_call kernels a call, kernel_ms), the library call
+    by CUDA events, the wrapper by host clock; None on the CPU.  The
+    timing loops' launches are left out of kernels.LAUNCHES, which so
+    counts the probe path's own: one launch a probe, the one its check
+    holds."""
     if dev.type != "cuda":
-        return dict(kernel_ms=None, plain_ms=None, library_ms=None)
+        return dict(kernel_ms=None, plain_ms=None, library_ms=None,
+                    wrapper_ms=None)
     counts = dict(kernels.LAUNCHES)
-    out = dict(kernel_ms=kernel_ms(fn, SYMBOLS[kernel_name]),
+    out = dict(kernel_ms=kernel_ms(fn, SYMBOLS[kernel_name],
+                                   per_call=per_call),
                plain_ms=plain_ms,
-               library_ms=None if library is None else events_ms(library))
+               library_ms=None if library is None else events_ms(library),
+               wrapper_ms=wrapper_ms(fn))
     kernels.LAUNCHES.update(counts)
     return out
 
@@ -220,7 +255,10 @@ def _timed_window(rec, dev, src, o, rows, cols, geometry, out):
     got = run()
     check(torch.equal(got, want), f"{rec['probe']}: the {geometry} {out} "
           "differs from its plain version")
-    t = timing(dev, "probe_window_gather", run, plain_ms)
+    library = ((lambda: wg._windows(src, o, rows, cols)) if out == "copy"
+               else None)
+    rec["route"] = geometry
+    t = timing(dev, "probe_window_gather", run, plain_ms, library)
     es = src.element_size()
     window_bytes = o.shape[0] * rows * cols * es
     moved = (wg.covered_bytes(src.shape, o, rows, cols, es) + o.numel() * 4
@@ -251,11 +289,12 @@ def window_parity(dev, seed: int):
                           ).to(dev, torch.bfloat16)  # probe_dma_align
     for ymul, xmul in ((8, 128), (1, 128), (8, 1), (16, 256)):
         o = torch.tensor([[0, 3 * ymul, xmul]], dtype=torch.int32, device=dev)
-        _equal_windows("align", src, o, 64, 512, "strided", "sum")
+        for geometry in ("strided", "async"):
+            _equal_windows("align", src, o, 64, 512, geometry, "sum")
     recs.append(_timed_window(_record(
         "dma_align", "probe_window_gather", "tests/probe_dma_align.py:13",
         "64 x 512 bf16 sums at y0 = 3 ymul, x0 = xmul over 5 alignments "
-        "(the last, 3, 1, timed), bit for bit"), dev, src,
+        "(the last, 3, 1, timed), strided and async, bit for bit"), dev, src,
         torch.tensor([[0, 3, 1]], dtype=torch.int32, device=dev), 64, 512,
         "strided", "sum"))
     src = (torch.arange(8 * 128 * 1024) % 1000).reshape(8, 128, 1024).to(
@@ -272,9 +311,11 @@ def window_parity(dev, seed: int):
     got = _equal_windows("int8 dma", src, o, DR, DC, "strided", "copy")
     check(torch.equal(got[1], src[0, 96:96 + DR, 128:128 + DC]),
           "int8 dma: the window at y0 = 96 is not the map's slice")
+    _equal_windows("int8 dma", src, o, DR, DC, "async", "copy")
     recs.append(_timed_window(_record(
         "int8_dma", "probe_window_gather", "tests/probe_int8.py:42",
-        "56 x 640 int8 copies at y0 = 24, 96, bit for bit"), dev, src, o,
+        "56 x 640 int8 copies at y0 = 24, 96, strided (timed) and async, "
+        "bit for bit"), dev, src, o,
         DR, DC, "strided", "copy"))
     blk = torch.as_tensor(rng.integers(-128, 128, (DR, DC)),
                           dtype=torch.int8, device=dev)  # probe_int8 rotate
@@ -285,10 +326,12 @@ def window_parity(dev, seed: int):
     for i, rx in enumerate((0, 3, 11)):
         check(torch.equal(got[i], torch.roll(blk, -rx * 8, 1)),
               f"rotate rx={rx}: not torch.roll")
+    _equal_windows("rotate", twice, o, DR, DC, "async", "copy")
     recs.append(_timed_window(_record(
         "int8_rotate", "probe_window_gather", "tests/probe_int8.py:93",
         "a 56 x 640 int8 block rotated by rx*8 B (rx 0, 3, 11) as a window "
-        "of the block laid out twice, equal to torch.roll"), dev, twice, o,
+        "of the block laid out twice, equal to torch.roll (strided, timed; "
+        "async)"), dev, twice, o,
         DR, DC, "strided", "copy"))
     return recs
 
@@ -306,23 +349,26 @@ def window_cases(seed: int, n: int, map_rows: int):
     """The timed windows on a map of map_rows x 10,240 B: (label,
     geometry, replaces, map layout, origins, rows, cols) with the TPU
     probe's origins (rows at multiples of 8, columns of 128 B), and the
-    strided gather at any row and byte."""
+    strided and async gathers at any row and byte (the same origins)."""
     rng = _rng(seed, map_rows)
     h, w = map_rows, MAP_BYTES
     fh, fw = h // wg.FOLD, wg.FOLD * w
     aligned = _origins(rng, n, h - DR, w - DC, 8, 128)
     fold = "tests/probe_dma_fold.py:59"
+    folded = (_origins(rng, n, fh - 8, fw - FOLD_COLS, 8, 128),
+              _origins(rng, n, fh - 16, fw - FOLD_COLS, 8, 128))
+    anywhere = _origins(rng, n, h - DR, w - DC, 1, 1)
     return [
         ("strided", "strided", "tests/probe_dma_fold.py:41", "rows",
          aligned, DR, DC),
-        ("folded1", "folded1", fold, "folded",
-         _origins(rng, n, fh - 8, fw - FOLD_COLS, 8, 128), 8, FOLD_COLS),
-        ("folded2", "folded2", fold, "folded",
-         _origins(rng, n, fh - 16, fw - FOLD_COLS, 8, 128), 16, FOLD_COLS),
+        ("folded1", "folded1", fold, "folded", folded[0], 8, FOLD_COLS),
+        ("folded2", "folded2", fold, "folded", folded[1], 16, FOLD_COLS),
         ("async", "async", "tests/probe_dma_fold.py:77", "rows", aligned,
          DR, DC),
         ("strided_unaligned", "strided", "tests/probe_dma_unaligned.py:26",
-         "rows", _origins(rng, n, h - DR, w - DC, 1, 1), DR, DC),
+         "rows", anywhere, DR, DC),
+        ("async_unaligned", "async", "tests/probe_dma_unaligned.py:26",
+         "rows", anywhere, DR, DC),
     ]
 
 
@@ -364,8 +410,9 @@ def _close(label, got, ref, scale):
 def _timed_mm(rec, dev, run, plain, peak, scale=None, library=None):
     """rec with the time of one product (checked first against its plain
     version, timed on that call: bit for bit, or within MM_TOL of
-    scale()), its bound (2 M N K operations at `peak`; A, the B blocks
-    and C moved once) and its rate."""
+    scale()), its route and split of K (mm.plan), its bound (2 M N K
+    operations at `peak`; A, the B blocks and C moved once) and its rate.
+    A product with split K must repeat bit for bit."""
     want, plain_ms = once(dev, plain)
     got = run()
     if scale is None:
@@ -373,7 +420,13 @@ def _timed_mm(rec, dev, run, plain, peak, scale=None, library=None):
               "plain version")
     else:
         rec["max_abs_err"] = _close(rec["probe"], got, want, scale())
-    t = timing(dev, "probe_mm", run, plain_ms, library)
+    route, split_k = rec.pop("plan")
+    rec.update(route=route, split_k=split_k)
+    if split_k > 1:
+        check(torch.equal(run(), got), f"{rec['probe']}: the split-K "
+              "product does not repeat bit for bit")
+    t = timing(dev, "probe_mm", run, plain_ms, library,
+               per_call=2 if split_k > 1 else 1)
     ops, moved = rec.pop("work")
     return _rated(rec, dev, t, ops, ops, peak, moved, "tops")
 
@@ -385,9 +438,18 @@ def _work(a, b, out_cols):
             + b.numel() * b.element_size() + m * out_cols * 4)
 
 
+def _plan(a, b, select=None):
+    """mm.plan of the product a b^T as mm_s8 / mm_bf16 launch it."""
+    a_type = ("s8" if b.dtype == torch.int8 else
+              "s8_to_bf16" if a.dtype == torch.int8 else "bf16")
+    return mm.plan(a.shape[0], b.shape[-2], a.shape[1], a_type,
+                   select is not None)
+
+
 def run_mm(dev, seed: int = 0, m: int = N):
-    """The matrix-unit probes' own products, then the theta search's work
-    shape with m rows in int8, int8 converted to bf16, and bf16."""
+    """The matrix-unit probes' own products (row 13's shape also with bf16
+    A), then the theta search's work shape with m rows in int8, int8
+    converted to bf16, and bf16."""
     rng = _rng(seed, 3)
     recs = []
     a = torch.as_tensor(rng.integers(-127, 128, (128, 1024)), dtype=torch.int8,
@@ -396,8 +458,9 @@ def run_mm(dev, seed: int = 0, m: int = N):
                         device=dev)
     recs.append(_timed_mm(
         _record("int8_mm", "probe_mm", "tests/probe_int8_mm.py:17",
-                "int32 bit for bit", work=_work(a, b, 64)), dev,
-        lambda: mm.mm_s8(a, b), lambda: mm.mm_s8_plain(a, b), PEAK_INT8_OPS))
+                "int32 bit for bit", work=_work(a, b, 64), plan=_plan(a, b)),
+        dev, lambda: mm.mm_s8(a, b), lambda: mm.mm_s8_plain(a, b),
+        PEAK_INT8_OPS, library=lambda: torch._int_mm(a, b.T)))
 
     x = torch.ones((32, 256), dtype=torch.bfloat16, device=dev)  # kern2
     blocks = (torch.arange(4.0)[:, None, None] * torch.ones(128, 256)).to(
@@ -410,7 +473,7 @@ def run_mm(dev, seed: int = 0, m: int = N):
     recs.append(_timed_mm(
         _record("dma2_select", "probe_mm", "tests/probe_dma2.py:46",
                 "bit for bit (exact sums of ones times block values)",
-                work=_work(x, blocks, 128)), dev,
+                work=_work(x, blocks, 128), plan=_plan(x, blocks, sel)), dev,
         lambda: mm.mm_bf16(x, blocks, select=sel),
         lambda: mm.mm_bf16_plain(x, blocks, sel), PEAK_BF16_FLOPS))
 
@@ -418,11 +481,22 @@ def run_mm(dev, seed: int = 0, m: int = N):
                            dtype=torch.int8, device=dev)  # probe_int8
     mb = torch.as_tensor(rng.random((64, DR * DC)) - 0.5,
                          dtype=torch.float32).to(dev, torch.bfloat16)
+    crop_bf = crop.to(torch.bfloat16)  # exact
     recs.append(_timed_mm(
         _record("int8_convert_mm", "probe_mm", "tests/probe_int8.py:136",
-                f"|err| <= {mm.MM_TOL} sum|a b|", work=_work(crop, mb, 64)),
+                f"|err| <= {mm.MM_TOL} sum|a b|; split K bit for bit twice",
+                work=_work(crop, mb, 64), plan=_plan(crop, mb)),
         dev, lambda: mm.mm_bf16(crop, mb), lambda: mm.mm_bf16_plain(crop, mb),
-        PEAK_BF16_FLOPS, lambda: mm.abs_products(crop, mb)))
+        PEAK_BF16_FLOPS, lambda: mm.abs_products(crop, mb),
+        lambda: torch.matmul(crop_bf, mb.T)))
+    recs.append(_timed_mm(
+        _record("int8_convert_mm/bf16", "probe_mm", "tests/probe_int8.py:136",
+                f"|err| <= {mm.MM_TOL} sum|a b|; split K bit for bit twice",
+                work=_work(crop_bf, mb, 64), plan=_plan(crop_bf, mb)),
+        dev, lambda: mm.mm_bf16(crop_bf, mb),
+        lambda: mm.mm_bf16_plain(crop_bf, mb), PEAK_BF16_FLOPS,
+        lambda: mm.abs_products(crop_bf, mb),
+        lambda: torch.matmul(crop_bf, mb.T)))
 
     # the theta search's work shape, in int8, int8 converted to bf16, bf16
     a8 = torch.as_tensor(rng.integers(-127, 128, (m, THETA_K), dtype=np.int8),
@@ -431,7 +505,8 @@ def run_mm(dev, seed: int = 0, m: int = N):
                                       dtype=np.int8), device=dev)
     recs.append(_timed_mm(
         _record("theta_shape/s8", "probe_mm", "tests/probe_int8_mm.py:17",
-                "int32 bit for bit", work=_work(a8, b8, THETA_N)), dev,
+                "int32 bit for bit", work=_work(a8, b8, THETA_N),
+                plan=_plan(a8, b8)), dev,
         lambda: mm.mm_s8(a8, b8), lambda: mm.mm_s8_plain(a8, b8),
         PEAK_INT8_OPS, library=lambda: torch._int_mm(a8, b8.T)))
     # the same integers in bf16 (exact), B scaled to [-1, 1)
@@ -439,14 +514,15 @@ def run_mm(dev, seed: int = 0, m: int = N):
     recs.append(_timed_mm(
         _record("theta_shape/s8_to_bf16", "probe_mm",
                 "tests/probe_int8.py:136", f"|err| <= {mm.MM_TOL} sum|a b|",
-                work=_work(a8, bb, THETA_N)), dev,
+                work=_work(a8, bb, THETA_N), plan=_plan(a8, bb)), dev,
         lambda: mm.mm_bf16(a8, bb), lambda: mm.mm_bf16_plain(a8, bb),
         PEAK_BF16_FLOPS, lambda: mm.abs_products(a8, bb)))
     ab = (a8.float() / 128).to(torch.bfloat16)
     del a8, b8
     recs.append(_timed_mm(
         _record("theta_shape/bf16", "probe_mm", "tests/probe_int8.py:136",
-                f"|err| <= {mm.MM_TOL} sum|a b|", work=_work(ab, bb, THETA_N)),
+                f"|err| <= {mm.MM_TOL} sum|a b|", work=_work(ab, bb, THETA_N),
+                plan=_plan(ab, bb)),
         dev, lambda: mm.mm_bf16(ab, bb), lambda: mm.mm_bf16_plain(ab, bb),
         PEAK_BF16_FLOPS, lambda: mm.abs_products(ab, bb),
         lambda: torch.matmul(ab, bb.T)))

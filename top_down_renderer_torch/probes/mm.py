@@ -9,8 +9,10 @@ and matrix-unit probes; kernel csrc/probe_mm.cu).
                                8-row block i of a takes b[select[i]].
 
 K fills whole 64-byte slabs: a multiple of 64 for mm_s8, of 32 for
-mm_bf16.  On CPU tensors each runs its plain version; on CUDA tensors it
-launches the kernel, counted in kernels.LAUNCHES["probe_mm"].  The plain
+mm_bf16; M and N are free.  On CPU tensors each runs its plain version; on
+CUDA tensors it launches the kernel on the route that plan() names for the
+shape, counted in kernels.LAUNCHES["probe_mm"] (one a call, the split-K
+sum included).  The plain
 versions take the products in float64, exactly (int8 sums up to 2^53 / 2^14
 terms; bf16 products exact, sums rounded once to float32); the kernel's
 float32 sums differ from them by their rounding (MM_TOL).
@@ -24,7 +26,12 @@ from top_down_renderer_torch import kernels
 from top_down_renderer_torch.kernels import ptr
 
 A_TYPES = {"s8": 0, "bf16": 1, "s8_to_bf16": 2}
-SLAB = 64  # bytes of a row a stage of the kernel reads
+SLAB = 64  # bytes of a row that K must fill
+TILE = 128  # rows of A and of B a tile of the dense routes covers
+# K elements a stage of the dense routes (128 bytes of A a row)
+STAGE_K = {"s8": 128, "bf16": 64, "s8_to_bf16": 128}
+SMS = 132  # streaming multiprocessors of an H100 SXM
+MIN_SPLIT_STAGES = 2  # K stages a split of K takes at least
 # the kernel's float32 sums against the exact product: |err| <= MM_TOL *
 # sum_k |a_ik b_jk| (a float32 sum of K terms in some order errs by at most
 # about K 2^-24 of it; the tensor cores' sum in blocks of 16 by far less)
@@ -59,6 +66,42 @@ def abs_products(a, b, select=None) -> torch.Tensor:
     return _product64(a.double().abs(), b.double().abs(), select)
 
 
+def _tiles(m: int, n: int) -> int:
+    return -(-m // TILE) * -(-n // TILE)
+
+
+def _tail(m: int, n: int) -> int:
+    """Tiles past the last whole wave of SMS (all of them below one)."""
+    tiles = _tiles(m, n)
+    return tiles % SMS if tiles >= SMS else tiles
+
+
+def plan(m: int, n: int, k: int, a_type: str, select: bool):
+    """(route, split_k) of the kernel for C (m, n) = A (m, k) B^T with A of
+    a_type: "mma_sync" for the select route (a B block per 8 rows of A does
+    not fit wgmma's 64-row tiles), else "wgmma".  The dense route computes
+    the 128 x 128 tiles of whole waves of SMS whole; when the tiles past
+    them (all tiles, below one wave) fill at most half the card, each of
+    those is split over K into split_k items, each at least
+    MIN_SPLIT_STAGES stages of STAGE_K and none empty, so that they come
+    near one item an SM; split_k is 1 otherwise."""
+    if select:
+        return "mma_sync", 1
+    tail = _tail(m, n)
+    stages = -(-k // STAGE_K[a_type])
+    if tail == 0 or 2 * tail > SMS:
+        return "wgmma", 1
+    splits = max(1, min(-(-SMS // tail), stages // MIN_SPLIT_STAGES))
+    per = -(-stages // splits)
+    return "wgmma", -(-stages // per)
+
+
+def whole_tiles(m: int, n: int, split_k: int) -> int:
+    """Tiles the dense route computes whole (row-major tile order): all of
+    them without a split, else those before the split tail."""
+    return _tiles(m, n) - (_tail(m, n) if split_k > 1 else 0)
+
+
 def _check(a, b, select, a_types, b_type):
     if a.dtype not in a_types or b.dtype != b_type:
         raise TypeError(f"a must be {a_types} and b {b_type}; got {a.dtype}, "
@@ -90,9 +133,15 @@ def _launch(a, b, select, a_type: str, dtype) -> torch.Tensor:
     out = torch.empty((m, n), dtype=dtype, device=a.device)
     if select is not None:
         select = select.contiguous()
+    _, split_k = plan(m, n, k, a_type, select is not None)
+    whole = whole_tiles(m, n, split_k)
+    blocks = split_k * (_tiles(m, n) - whole)
+    scratch = (torch.empty((blocks, TILE, TILE), dtype=dtype,
+                           device=a.device) if blocks else None)
     kernels.launch("probe_mm", "tdr_probe_mm", ptr(a), ptr(b),
                    None if select is None else ptr(select), m, n, k,
-                   A_TYPES[a_type], ptr(out))
+                   A_TYPES[a_type], whole, split_k,
+                   None if scratch is None else ptr(scratch), ptr(out))
     kernels.LAUNCHES["probe_mm"] += 1
     return out
 

@@ -7,13 +7,15 @@ elements: bytes for int8); window i is src[k, y:y + rows, x:x + cols], and
 every window must lie inside the map.  out="copy" returns the windows (n,
 rows, cols); out="sum" one exact sum a window, int32 for int8 and float32
 for bfloat16 (summed in float64, then rounded once).  The geometry says
-how the kernel fetches them: "strided" (each row with the widest load its
-alignment allows), "folded1" / "folded2" (src is fold_rows(map, 8), the
-map with 8 rows folded into one, read in 1 or 2 slices of 8 folded rows:
-rows = 8 or 16), "async" (cp.async copies into shared memory,
-double-buffered across a block's windows; every offset a multiple of 16
-bytes).  On CPU tensors it runs window_gather_plain, indexing a strided
-view of src; on CUDA tensors it launches the kernel, counted in
+how the kernel fetches them: "strided" (a warp a window, 16-byte loads;
+a window at any byte in the aligned 16-byte words that cover it),
+"folded1" / "folded2" (src is fold_rows(map, 8), the map with 8 rows
+folded into one, read in 1 or 2 slices of 8 folded rows: rows = 8 or 16),
+"async" (each window staged in shared memory by TMA, in the boxes
+tma_boxes(cols, elem, lead) names, through a ring of up to MAX_STAGES
+window stages: any start, a row pitch of a multiple of 16 bytes, rows <=
+256).  On CPU tensors it runs window_gather_plain, indexing a strided view
+of src; on CUDA tensors it launches the kernel, counted in
 kernels.LAUNCHES["probe_window_gather"].
 """
 
@@ -29,6 +31,44 @@ GEOMETRIES = {"strided": 0, "folded1": 1, "folded2": 2, "async": 3}
 OUTS = {"copy": 0, "sum": 1}
 FOLD = 8  # map rows folded into one row (probe_dma_fold.py's layout)
 _CHUNK = 2**26  # elements a chunk of the plain version gathers
+# a TMA box holds at most 256 elements a dimension: here bytes of the map
+# across, rows down
+BOX_MAX = 256
+STAGE_ALIGN = 32  # bytes a staged row starts on
+# window stages of the async ring: six groups of 5 consumer warps and the
+# producer warp are 992 of a block's 1,024 threads
+MAX_STAGES = 6
+
+
+def tma_boxes(cols: int, elem: int, lead: int = 0):
+    """[(x offset, width)] in elements of `elem` bytes: the boxes that
+    stage a row of `cols` elements by TMA, `lead` elements before it (a
+    window at any byte is staged from the STAGE_ALIGN-byte boundary below
+    it: lead = (x elem % STAGE_ALIGN) / elem).  Each box is at most BOX_MAX
+    bytes wide and a multiple of 16 bytes; all but the last are that
+    wide, and the last ends on the first 16 bytes at or past lead + cols
+    (bytes the kernel ignores)."""
+    staged = -(-(lead + cols) * elem // 16) * 16
+    nfull = (staged - 1) // BOX_MAX
+    return ([(BOX_MAX * b // elem, BOX_MAX // elem) for b in range(nfull)]
+            + [(BOX_MAX * nfull // elem, (staged - BOX_MAX * nfull)
+                // elem)])
+
+
+def async_stage_bytes(rows: int, cols: int, elem: int) -> int:
+    """Shared-memory bytes of one window stage of the async geometry: the
+    larger of its two layouts (an aligned window, and one with the largest
+    lead), each box starting on 128 bytes (csrc/probe_window.cu)."""
+    return max(sum(-(-rows * w * elem // 128) * 128
+                   for _, w in tma_boxes(cols, elem, lead))
+               for lead in (0, STAGE_ALIGN // elem - 1))
+
+
+def async_stages(rows: int, cols: int, elem: int) -> int:
+    """Window stages of the async ring: as many as fit 227 KB, at most
+    MAX_STAGES (the kernel's count)."""
+    return min(MAX_STAGES, (SMEM_LIMIT - 512)
+               // async_stage_bytes(rows, cols, elem))
 
 
 def fold_rows(src: torch.Tensor, fold: int = FOLD) -> torch.Tensor:
@@ -93,10 +133,11 @@ def _check(src, origins, rows, cols, geometry, out) -> None:
             raise ValueError("a window lies outside the map")
         if geometry == "async":
             es = src.element_size()
-            if (w * es % 16 or cols * es % 16 or bool((x * es % 16).any())
-                    or 2 * rows * cols * es > SMEM_LIMIT):
-                raise ValueError("async windows need 16-byte aligned rows "
-                                 "and two of them in shared memory")
+            if (w * es % 16 or rows > BOX_MAX
+                    or async_stages(rows, cols, es) < 2):
+                raise ValueError("async windows need a row pitch of a "
+                                 f"multiple of 16 bytes, at most {BOX_MAX} "
+                                 "rows and two of them in shared memory")
 
 
 def window_gather(src, origins, rows: int, cols: int, *,
