@@ -8,9 +8,13 @@ Phases (any failure exits non-zero before the result line):
   A. build the CUDA sources in csrc/ (one nvcc each, all started
      together), time it, and count in the SASS of the libraries, with the
      toolkit's cuobjdump, the tensor-core (HGMMA) instructions of the
-     theta search and of the probe product, and the TMA tensor loads
-     (UTMALDG) of the probe product and the window gather (fails without
-     the tool or without the instructions);
+     theta search, of its ablation (K4) and of the probe product, and the
+     TMA tensor loads (UTMALDG) of the probe product and the window gather
+     (fails without the tool or without the instructions); and, per
+     variant of K4, its HGMMA, global loads, bulk copies and mbarrier
+     operations: the variants that keep a product hold HGMMA (one_plane a
+     third of full's), gather_only and ring_only none, gather_only every
+     window load and ring_only none of them;
   B. the uniform crop kernels against their plain PyTorch versions on
      the same card tensors at the slice's shapes: 102,400 particles, a
      1024^2 map with 6 classes (8 packed channels), Th x R = 100 x 25,
@@ -139,7 +143,15 @@ Phases (any failure exits non-zero before the result line):
      kernel with stages knocked out (K3) on D's clustered cloud and on
      the probe's own spread, clustered and K-bucket clouds, `full` bit
      for bit against the production kernel and the others against their
-     plain versions at REL_TOL; one JSON line a probe;
+     plain versions at REL_TOL; the theta search with stages knocked out
+     (K4: one_plane, no_gather, gather_only, ring_only, no_promote) on
+     D's crop-init spread cell, the TPU clone's 6-class spread cloud and
+     D2's multi-init cell, `full` bit for bit against the production
+     theta search (argmin and raw rows, uniform and K-bucket), every
+     variant against its plain version (rel 1e-4, k a near-argmin), with
+     the production kernel's time and `full`'s wrapper split into inputs,
+     M build and launch; one JSON line a probe, a line whenever a kernel
+     time took more than one profile;
   E. one JSON line of kernel results with each kernel's bound on the
      work its inputs need (the crop kernels per distinct stencil pixel:
      the theta searches on the nonzero entries of M on bf16 tensor cores,
@@ -159,6 +171,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -286,6 +299,10 @@ KERNELS = {
     # case of its line names its own
     "crop_ablate": ("top_down_renderer_torch/csrc/crop_ablate.cu",
                     "tests/exp_crop_ablate.py:39"),
+    # the same TPU kernel in its theta-search configuration (ABL_S_COLS
+    # 128), on the theta search's body
+    "crop_ablate_init": ("top_down_renderer_torch/csrc/crop_ablate_init.cu",
+                         "tests/exp_crop_ablate.py:39"),
     "probe_window_gather": ("top_down_renderer_torch/csrc/probe_window.cu",
                             "tests/probe_dma_fold.py:41"),
     "probe_mm": ("top_down_renderer_torch/csrc/probe_mm.cu",
@@ -293,6 +310,7 @@ KERNELS = {
 }
 # each probe kernel's case that stands for it in the kernels line
 PROBE_HEADLINE = {"crop_ablate": "ablate/D clustered C=3/full",
+                  "crop_ablate_init": "ablate_init/D spread C=3/full",
                   "probe_window_gather": "window/l2/strided",
                   "probe_mm": "theta_shape/s8"}
 RAW = ("crop_score_init_raw", "crop_score_multi_init_raw")
@@ -342,25 +360,74 @@ def log_clocks(label: str) -> None:
 # the instructions each library's SASS must hold: wgmma (HGMMA) and the
 # TMA tensor load (UTMALDG)
 SASS_NEEDS = {"crop_score_init": ("HGMMA",),
+              "crop_ablate_init": ("HGMMA", "UBLKCP"),
               "probe_mm": ("HGMMA", "UTMALDG"),
               "probe_window": ("UTMALDG",)}
 
 
-def log_sass(name: str, opcodes) -> None:
-    """Count each of `opcodes` in the SASS of csrc/<name>.cu's library,
-    with the toolkit's cuobjdump; a build without one of them, or a
-    toolkit without the tool, fails."""
+def read_sass(name: str) -> str:
+    """The SASS of csrc/<name>.cu's library, by the toolkit's cuobjdump
+    (a toolkit without the tool fails)."""
     tool = os.path.join(os.path.dirname(kernels.find_nvcc()), "cuobjdump")
     check(os.path.isfile(tool), f"no cuobjdump beside nvcc: {name}'s SASS "
           "cannot be read")
-    sass = subprocess.run([tool, "-sass", str(kernels.build(name))],
+    return subprocess.run([tool, "-sass", str(kernels.build(name))],
                           capture_output=True, text=True, check=True,
                           timeout=120).stdout
+
+
+def log_sass(name: str, opcodes) -> None:
+    """Count each of `opcodes` in the SASS of csrc/<name>.cu's library; a
+    build without one of them fails."""
+    sass = read_sass(name)
     for op in opcodes:
         lines = [ln.strip() for ln in sass.splitlines() if op in ln]
         check(lines, f"no {op} instruction in {name}'s SASS")
         log(f"[A] {name}: {len(lines)} {op} instructions in its SASS, e.g. "
             f"{lines[0]}")
+
+
+# K4's variants by index (csrc/crop_ablate_init.cu), in its mangled names
+# crop_ablate_init_kernel<CP, RAW, V> (ILi4ELb0ELi<V>E: CP 4, argmin)
+_ABLATE_INIT_FN = re.compile(
+    r"Function : \S*crop_ablate_init_kernelILi4ELb0ELi(\d)E")
+SASS_COUNTED = ("HGMMA", "LDG", "UBLKCP", "SYNCS")
+
+
+def log_ablate_init_sass() -> dict:
+    """Count, per variant of K4 (CP 4, argmin rows), its tensor-core
+    products (HGMMA), global loads (LDG), bulk copies (UBLKCP) and
+    mbarrier operations (SYNCS), so that no knocked-out stage took a kept
+    one with it: full, one_plane, no_gather and no_promote hold HGMMA
+    (one_plane a third of full's), gather_only and ring_only none;
+    gather_only holds every global load full does, ring_only fewer (no
+    window); each holds the ring's bulk copies."""
+    sass = read_sass("crop_ablate_init")
+    counts, current = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            hit = _ABLATE_INIT_FN.search(line)
+            current = ca.INIT_VARIANTS[int(hit.group(1))] if hit else None
+            if current:
+                counts[current] = dict.fromkeys(SASS_COUNTED, 0)
+        elif current:
+            for op in SASS_COUNTED:
+                counts[current][op] += f" {op}" in line
+    check(set(counts) == set(ca.INIT_VARIANTS),
+          f"crop_ablate_init's SASS names the variants {sorted(counts)}")
+    for v, c in counts.items():
+        log(f"[A] crop_ablate_init {v} (CP 4, argmin): {c}")
+    hg = {v: c["HGMMA"] for v, c in counts.items()}
+    check(all(hg[v] > 0 for v in ("full", "no_gather", "no_promote"))
+          and 3 * hg["one_plane"] == hg["full"]
+          and hg["gather_only"] == hg["ring_only"] == 0,
+          f"K4's tensor-core products by variant: {hg}")
+    ldg = {v: c["LDG"] for v, c in counts.items()}
+    check(ldg["gather_only"] >= ldg["full"] > ldg["ring_only"],
+          f"K4's global loads by variant: {ldg}")
+    check(all(c["UBLKCP"] > 0 for c in counts.values()),
+          "a K4 variant lost the ring's bulk copies")
+    return counts
 
 
 def max_rel(ref: torch.Tensor, got: torch.Tensor) -> float:
@@ -938,10 +1005,20 @@ def tc_bound(compact, c, shifts, npix, counts, inputs, out_floats=3):
     return bound(ops, moved, PEAK_BF16_FLOPS)
 
 
+def profiled_ms(label, kernel, symbols) -> float:
+    """kernel_ms of `kernel`, with a line in the log where the reading took
+    more than one profile."""
+    ms, tries = kernel_ms(kernel, symbols)
+    if tries > 1:
+        log(f"[D] {label}: the kernel time took {tries} profiles (an empty "
+            "device trace before)")
+    return ms
+
+
 def timed(name, kernel, plain, library=None):
     """The kernel's own device time (ms), its wrapper's, its plain
     version's and the library call's (host clock, synchronised)."""
-    return dict(ms=kernel_ms(kernel, SYMBOLS[name]),
+    return dict(ms=profiled_ms(name, kernel, SYMBOLS[name]),
                 wrapper_ms=median_ms(kernel), plain_ms=median_ms(plain),
                 library_ms=None if library is None else median_ms(library))
 
@@ -979,8 +1056,9 @@ def phase_d(dev, pf, world, errs):
         bound_f32=crop_bound(maps, 3, tr, 40, (ctr,)),
         # the tracked kernel on the spread cloud: its tiles spread over
         # all Th shifts, each folding the weights of its own
-        tracked_spread_ms=kernel_ms(pair[0][0],
-                                    SYMBOLS["crop_score_tracked"]),
+        tracked_spread_ms=profiled_ms("tracked on the spread cloud",
+                                      pair[0][0],
+                                      SYMBOLS["crop_score_tracked"]),
         pixels=int(npix[0]),
     )
     compare("D spread, C=3", errs, CROP, *pair)
@@ -1379,10 +1457,37 @@ def phase_m(dev, world, read_launches):
 
 
 # phase P: the probe path
+def init_cases(dev, pf, world):
+    """The theta search's ablation cases (K4): phase D's crop-init spread
+    cell (a fresh spread init of C's filter, 3 classes, f = 1), the TPU
+    clone's 6-class spread cloud (probes.ablate_init_cases) and D2's
+    multi-init cell (fixed_scale -1 from the 10 hypotheses, K buckets as
+    the dispatch plans them)."""
+    scan = scan_at(world, 0, dev)
+    cw = torch.tensor([0.1, 1.5, 3.0], device=dev)
+    sten = pf._device_consts()[1]
+    pf.initialize_particles()  # spread cloud, no theta prior
+    spread = ("D spread C=3", False, (pf._get_map(1), 3, sten, scan, cw,
+                                      pf.state.particles.pose_px(),
+                                      SCALE_GT * RES))
+    mpf, _ = make_filter(dev, N, seed=0, world=world, fixed_scale=-1.0)
+    mpf._all_have_init = False
+    plan = mpf._multi_mode(RES)
+    check(plan is not None and plan.mode == "init",
+          f"D2's multi-init cell plans {plan}")
+    p = mpf.state.particles
+    multi = ("D2 multi-init C=3", True, pair_args(
+        mpf._get_pyramid_maps(plan.levels), torch.as_tensor(
+            mpf.map.stencil, device=dev), scan, cw, p) + (
+        p.scale, torch.as_tensor(plan.slots, device=dev), plan.bmi, RES))
+    return [spread, probes.ablate_init_cases(dev, n=N)[1], multi]
+
+
 def phase_p(dev, pf, world, errs, read_launches, name_limit):
-    """The probes' kernels on their own inputs (probes.__main__) and the
-    crop ablation also on D's clustered cloud; returns the times of each
-    probe kernel's headline case, with all its cases."""
+    """The probes' kernels on their own inputs (probes.__main__), the
+    tracked crop ablation also on D's clustered cloud, the theta search's
+    on init_cases; returns the times of each probe kernel's headline case,
+    with all its cases."""
     scan = scan_at(world, 0, dev)
     cw = torch.tensor([0.1, 1.5, 3.0], device=dev)
     sten = pf._device_consts()[1]
@@ -1393,10 +1498,14 @@ def phase_p(dev, pf, world, errs, read_launches, name_limit):
               (pf._get_map(1), 3, sten, scan, cw, p.pose_px(), p.theta,
                SCALE_GT * RES))
     cases = [d_case] + probes.ablate_cases(dev)
+    i_cases = init_cases(dev, pf, world)
     kernels.reset_launch_counts()
     recs = []
-    for label, fn in (("window", probes.run_window), ("mm", probes.run_mm),
-                      ("ablate", lambda d: probes.run_ablate(d, cases=cases))):
+    for label, fn in (
+            ("window", probes.run_window), ("mm", probes.run_mm),
+            ("ablate", lambda d: probes.run_ablate(d, cases=cases)),
+            ("ablate_init",
+             lambda d: probes.run_ablate_init(d, cases=i_cases))):
         t0 = time.perf_counter()
         recs += fn(dev)
         log(f"[P] {label}: {time.perf_counter() - t0:.1f} s")
@@ -1404,6 +1513,26 @@ def phase_p(dev, pf, world, errs, read_launches, name_limit):
     out = {}
     for rec in recs:
         log(json.dumps(dict(rec, card=name_limit)))
+        for what in ("profile", "production"):
+            tries = rec.get(f"{what}_tries")
+            if tries is not None and tries > 1:
+                log(f"[P] {rec['probe']}: the {what} kernel time took "
+                    f"{tries} profiles (an empty device trace before)")
+        share = rec.get("share_of_bound")
+        check(share is None or share <= 1, f"P: {rec['probe']} runs at "
+              f"{share} of its bound, which no kernel can beat")
+        if rec["probe"].startswith("ablate_init/"):
+            split = "".join(f", {k} {rec[k]:.4f}" for k in (
+                "production_ms", "inputs_ms", "m_build_ms", "launch_ms")
+                if k in rec)
+            log(f"[P] {rec['probe']}: kernel {rec['kernel_ms']:.4f} ms "
+                f"(wrapper {rec['wrapper_ms']:.4f}{split}), plain "
+                f"{rec['plain_ms']:.2f} ms, bound {rec['bound_ms']:.4f} ms "
+                f"({rec['bound_by']}), share {rec['share_of_bound']:.3f}; "
+                f"{rec['l2_bytes'] / 1e9:.3f} GB re-read from L2 "
+                f"({rec['l2_window_rate_ms']:.4f} ms at K1's rate), "
+                f"{rec['blocks_per_sm']} block an SM, max rel err "
+                f"{rec['max_rel_err']:.2e} on {name_limit}")
         if rec.get("route") is not None:
             lib = rec["library_ms"]
             log(f"[P] {rec['probe']}: route {rec['route']}"
@@ -1429,9 +1558,11 @@ def phase_p(dev, pf, world, errs, read_launches, name_limit):
                 k: rec[k] for k in (
                     "probe", "replaces", "route", "split_k", "kernel_ms",
                     "wrapper_ms", "plain_ms", "library_ms", "bound_ms",
-                    "bound_by", "share_of_bound",
+                    "bound_by", "share_of_bound", "profile_tries",
                     "effective_tbps", "effective_tops", "effective_tflops",
-                    "production_ms") if k in rec})
+                    "production_ms", "production_tries", "inputs_ms",
+                    "m_build_ms", "launch_ms", "l2_bytes",
+                    "l2_window_rate_ms", "blocks_per_sm") if k in rec})
     check(set(out) == set(PROBE_HEADLINE), f"P: headline cases {list(out)}")
     return out
 
@@ -2234,6 +2365,7 @@ def main() -> int:
         f" (wall {time.perf_counter() - t0:.2f} s, in parallel)")
     for name, opcodes in SASS_NEEDS.items():
         log_sass(name, opcodes)
+    log_ablate_init_sass()
 
     errs = {"abs": dict.fromkeys(KERNELS, 0.0), "rel": dict.fromkeys(INIT, 0.0)}
     b_args, b_theta = phase_b(dev, errs)

@@ -1,11 +1,11 @@
 """The CUDA kernels (uniform and K-bucket crop scoring, with the theta
 searches' raw-row epilogue, the forward fill, and the probes: the window
 gather at any byte, the tensor-core products on every route and split,
-the crop ablation) against their plain
-versions, the conv path (cuDNN) against a float64 convolution and
-against the CPU, the node (its plans, publish and snapshot copy, the PNG
-map), the SVG rasteriser and the refinement's count sweep against the
-CPU, on the card.
+the crop ablations of the tracked kernel and the theta search) against
+their plain versions, the conv path (cuDNN) against a float64
+convolution and against the CPU, the node (its plans, publish and
+snapshot copy, the PNG map), the SVG rasteriser and the refinement's
+count sweep against the CPU, on the card.
 
 These tests need a CUDA device and skip without one.  The file imports
 no JAX, so it also runs on a machine without it:
@@ -29,6 +29,7 @@ from top_down_renderer_torch.filter import multiscale as ms
 from top_down_renderer_torch.filter import resample as res_t
 from top_down_renderer_torch.maps.polar import polar_stencil
 from top_down_renderer_torch.probes import __main__ as probes
+from top_down_renderer_torch.probes import crop_ablate as ca
 from top_down_renderer_torch.probes import mm
 from top_down_renderer_torch.probes import window as wg
 from top_down_renderer_torch.testing import synthetic_setup
@@ -884,11 +885,57 @@ def test_split_k_repeats_bit_for_bit(dev, a_type):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("variant", ca.INIT_VARIANTS)
+@pytest.mark.parametrize("multi,c,n", [
+    (False, 3, N), (False, 6, 193), (True, 3, N), (True, 6, 129),
+])
+def test_init_ablation_matches_plain(dev, variant, multi, c, n):
+    """Each variant of the theta search's ablation (K4) against its plain
+    version, argmin and raw rows (probes' _close_rows: rel 1e-4, k a
+    near-argmin), on the uniform world (map edges, far-out centres,
+    kf-gated windows, tile edges) and over K = 10 buckets; `full` also
+    against the production kernel bit for bit."""
+    if multi:
+        args, _, tail = _multi_world(dev, c, 10, 5, n)
+        args += tail
+        fn, plain = ca.crop_ablate_multi_init, ca.crop_ablate_multi_init_plain
+        prod = (ms.score_init_multi_sel, ms.score_init_multi_raw)
+    else:
+        packed, sten, scan, cw, centers, _ = _world(dev, c, 2, n)
+        args = (cs.CropMap(packed), c, sten, scan, cw, centers, 1.0)
+        fn, plain = ca.crop_ablate_init, ca.crop_ablate_init_plain
+        prod = (cs.score_init_sel, cs.score_init_raw)
+    before = kernels.LAUNCHES["crop_ablate_init"]
+    got, raw = fn(variant, *args), fn(variant, *args, raw=True)
+    want, want_raw = plain(variant, *args), plain(variant, *args, raw=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["crop_ablate_init"] == before + 2
+    probes._close_rows(variant, got, raw, want, want_raw)
+    if variant == "full":
+        for g, w in zip((*got, *raw), (*prod[0](*args), *prod[1](*args))):
+            assert probes._same_bits(g, w)
+
+
+@pytest.mark.cuda
+def test_init_ablation_runs_one_block_an_sm(dev):
+    """Every variant of the theta search's ablation, at both class counts,
+    argmin and raw, holds one block an SM at the shared memory its launches
+    ask for, as full does by its registers."""
+    for variant in ca.INIT_VARIANTS:
+        for c in ca.CLASSES:
+            for raw in (False, True):
+                assert ca.blocks_per_sm(variant, c, raw) == 1, (variant, c,
+                                                                raw)
+
+
+@pytest.mark.cuda
 def test_probe_path_on_the_card(dev):
     """Every probe at small sizes, each kernel held to its plain version
     by probes.__main__'s checks (a failed check raises)."""
     recs = (probes.window_parity(dev, 0)
             + probes.window_rates(dev, 0, 256, 256, "small")
             + probes.run_mm(dev, 0, 256)
-            + probes.run_ablate(dev, 0, 4096))
-    assert all(r["kernel_ms"] > 0 for r in recs)
+            + probes.run_ablate(dev, 0, 4096)
+            + probes.run_ablate_init(dev, 0, 4096))
+    assert all(r["kernel_ms"] > 0 and r["profile_tries"] >= 1
+               for r in recs)

@@ -72,6 +72,7 @@ def _run(code: str, env=None):
         "top_down_renderer_torch.tools.live_view, "
         "top_down_renderer_torch.tools.preproc_survey",
         "chip_smoke",
+        "time_torch_tracked, time_torch_ablate_init",
     ],
 )
 def test_imports_leave_jax_out(modules):

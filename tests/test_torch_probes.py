@@ -8,8 +8,10 @@ HBM operands in pl.ANY, as the probes' own calls pass them; the port's
 plain versions must equal them bit for bit.  probe_dma_align.py and
 probe_dma2.py run at import, and probe_int8.py nests its kernels, so their
 counterparts are held to the numpy slicing, sums and rolls those probes
-assert.  The crop ablation's variants are held to their definitions on a
-4,096-particle cloud.  The kernels themselves are held to these plain
+assert.  The crop ablation's variants (K3, tracked) are held to their
+definitions on a 4,096-particle cloud, the theta search's (K4) on 512
+particles, and its `full` also to JAX's theta search in interpret mode.
+The kernels themselves are held to these plain
 versions on the card by tests/test_torch_cuda.py (which imports no JAX)
 and chip_smoke.py phase P.
 """
@@ -30,6 +32,9 @@ from jax.experimental.pallas import tpu as pltpu
 import probe_dma_fold
 import probe_dma_unaligned
 import probe_int8_mm
+import test_torch_crop_score as tcs
+from test_pallas_interpret import _check
+from test_torch_crop_score import float_world  # noqa: F401 (a fixture)
 from top_down_renderer_torch.filter import crop_score as cs
 from top_down_renderer_torch.filter import multiscale as ms
 from top_down_renderer_torch.probes import __main__ as probes
@@ -541,6 +546,292 @@ def test_crop_ablate_refuses_an_unknown_variant():
         ca.crop_ablate("no_roll", *_ablation_args(n=64))
 
 
+# -- K4 -------------------------------------------------------------------------
+N_INIT = 512  # particles of the theta-search ablation's clouds
+
+
+def _init_args(c=3, constant=False, n=N_INIT, cluster=(80, 80, 60),
+               seed=0):
+    """score_init_sel's arguments on a 256^2 map: a cloud of n particles
+    (cluster None: spread over the map, windows across its edges)."""
+    maps, c, sten, scan, cw, ctr, _, f = _ablation_args(
+        seed=seed, c=c, constant=constant, n=n, cluster=cluster)
+    return (maps, c, sten, scan, cw, ctr, f)
+
+
+def _init_multi_args(n=N_INIT):
+    args = _multi_args(n)
+    return args[:6] + args[7:]  # score_init_multi_sel's: no theta
+
+
+def _same(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("raw", [False, True])
+@pytest.mark.parametrize("multi", [False, True])
+def test_init_full_is_the_plain_theta_search_bit_for_bit(multi, raw):
+    """full is the production plain version, argmin and raw rows, uniform
+    and K-bucket, through the wrapper and through its plain version."""
+    if multi:
+        args = _init_multi_args()
+        want = (ms.score_init_multi_raw_plain if raw
+                else ms.score_init_multi_sel_plain)(*args)
+        fns = (ca.crop_ablate_multi_init, ca.crop_ablate_multi_init_plain)
+    else:
+        args = _init_args(cluster=None)
+        maps, rest = args[0], args[1:]
+        want = (cs.score_init_raw_plain if raw
+                else cs.score_init_sel_plain)(maps.packed, *rest)
+        fns = (ca.crop_ablate_init, ca.crop_ablate_init_plain)
+    for fn in fns:
+        _same(fn("full", *args, raw=raw), want)
+
+
+def test_init_full_plain_holds_the_jax_theta_search(float_world):
+    """On test_torch_crop_score's float-centre world, full's plain version
+    selects against JAX's score_init_sel_mo (interpret mode) within the
+    JAX crop kernel's bounds (tests/test_pallas_interpret.py's _check)."""
+    packed, scan, centers, _, ref = float_world
+    args = [torch.as_tensor(a) for a in (packed, tcs.STENCIL, scan, tcs.CW,
+                                         centers)]
+    best, k, kf = ca.crop_ablate_init_plain(
+        "full", cs.CropMap(args[0]), tcs.C, *args[1:], tcs.F)
+    rbest, rtheta, rkf = ref["sel"]
+    finite = rbest < cs.FLT_MAX
+    np.testing.assert_array_equal(best.numpy() < cs.FLT_MAX, finite)
+    _check(rbest[finite], best.numpy()[finite], rkf[finite],
+           kf.numpy()[finite], "full plain best")
+    theta = k.numpy().astype(np.float32) * np.float32(2 * np.pi / 40)
+    assert np.mean(np.isclose(theta, rtheta)[finite]) > 0.9
+
+
+def _windows(args):
+    """(each particle's window rows (n, P*CP) float32, M (P*CP, 88)) of a
+    uniform case, gathered pixel by pixel in numpy."""
+    maps, c, sten, scan, cw, ctr, f = args
+    pix, npix, order, seg = cs.fold_offsets(cs.crop_offsets(sten, f)[None])
+    m = cs.init_m(scan, cw, order, seg)[0]
+    compact = cs.compact_map(maps.packed, c).numpy()
+    h, w, cp = compact.shape
+    cyx = cs.crop_centers(ctr, 1.0).numpy()
+    a = np.zeros((len(cyx), pix.shape[1], cp), np.float32)
+    for q, (dy, dx) in enumerate(pix[0, :int(npix[0])].tolist()):
+        y, x = cyx[:, 0] + dy, cyx[:, 1] + dx
+        ok = (y >= 0) & (y < h) & (x >= 0) & (x < w)
+        a[ok, q] = compact[y[ok], x[ok]]
+    return torch.as_tensor(a.reshape(len(cyx), -1)), m
+
+
+def _raw_rows(acc, tr=2500):
+    return (acc[:, 0:80:2].float(), acc[:, 1:80:2].float(),
+            acc[:, cs.KF_COL].float() * float(np.float32(1) / np.float32(tr)))
+
+
+def test_init_one_plane_is_the_hi_plane_product():
+    """one_plane's rows are bf16(window) @ bf16(M) with the production
+    epilogue, and differ from full's on a random map."""
+    args = _init_args(cluster=None)
+    a, m = _windows(args)
+    want = _raw_rows(a.to(torch.bfloat16).double()
+                     @ m.to(torch.bfloat16).double())
+    got = ca.crop_ablate_init("one_plane", *args, raw=True)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=0)
+    best, k, kf = ca.crop_ablate_init("one_plane", *args)
+    wbest, wk = cs.select_best(*want)
+    assert torch.equal(k, wk) and torch.equal(kf, want[2])
+    torch.testing.assert_close(best, wbest, rtol=1e-6, atol=0)
+    full = ca.crop_ablate_init("full", *args, raw=True)
+    ok = full[2] >= 0.5
+    rel = ((got[0] - full[0]).abs() / full[0].abs())[ok]
+    assert rel.max() > 1e-4  # one bf16 plane keeps ~2^-9, not 2^-16
+
+
+def test_init_no_gather_and_gather_only_on_a_constant_map():
+    """On a map constant per class, every pixel known, and windows inside
+    it: no_gather scores as full, and gather_only sums the bf16 values of
+    the quarter of each window's rows a column's threads hold: column n
+    gets rows r with (r % 8) // 2 == (n % 8) // 2, i.e. at CP = 4 the
+    even (t = 0, 1) or odd (t = 2, 3) pixels' channels 2t % 4 and
+    2t % 4 + 1."""
+    args = _init_args(constant=True)
+    for g, w in zip(ca.crop_ablate_init("no_gather", *args, raw=True),
+                    ca.crop_ablate_init("full", *args, raw=True)):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=0)
+    npix = int(cs.fold_offsets(cs.crop_offsets(args[2], 1.0)[None])[1][0])
+    value = [3.5, 7.0, 10.5, 1.0]  # the classes' distances, known
+    pixels = [(npix + 1) // 2, (npix + 1) // 2, npix // 2, npix // 2]
+    quad = [pixels[t] * (value[2 * t % 4] + value[2 * t % 4 + 1])
+            for t in range(4)]
+    nums, dens, kf = ca.crop_ablate_init("gather_only", *args, raw=True)
+    want = torch.tensor([quad[k % 4] for k in range(40)])
+    assert torch.equal(nums, want.expand_as(nums))
+    assert torch.equal(dens, want.expand_as(dens))  # exact in bf16: lo = 0
+    assert torch.equal(kf, torch.full_like(kf, quad[0]) * float(
+        np.float32(1) / np.float32(2500)))
+
+
+def test_init_ring_only_sums_each_chunks_first_pixel():
+    """ring_only: every row of a bucket holds the sum of |dy| (even
+    columns) and |dx| (odd) over the first pixel of each of M's chunks of
+    K_CHUNK / CP pixels; argmin rows tie at k = 0."""
+    args = _init_args()
+    pix, npix = cs.fold_offsets(cs.crop_offsets(args[2], 1.0)[None])[:2]
+    firsts = np.asarray(pix[0, :int(npix[0])])[::cs.K_CHUNK // 4]
+    dy, dx = np.abs(firsts).sum(0).astype(np.float32)
+    nums, dens, kf = ca.crop_ablate_init("ring_only", *args, raw=True)
+    assert torch.all(nums == dy) and torch.all(dens == dx)
+    best, k, _ = ca.crop_ablate_init("ring_only", *args)
+    assert torch.all(k == 0) and torch.all(best == np.float32(dy / dx))
+
+
+@pytest.mark.parametrize("multi", [False, True])
+def test_init_no_promote_plain_equals_full_within_summation_order(multi):
+    """no_promote's plain version (window @ M in float64) against full's
+    (the production plain version, float32 circulant products)."""
+    if multi:
+        args, fn = _init_multi_args(), ca.crop_ablate_multi_init_plain
+    else:
+        args, fn = _init_args(cluster=None), ca.crop_ablate_init_plain
+    got, want = fn("no_promote", *args, raw=True), fn("full", *args, raw=True)
+    assert torch.equal(got[2], want[2])
+    ok = want[2] >= 0.5
+    assert ok.sum() > N_INIT // 2
+    for g, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g[ok], w[ok], rtol=1e-5, atol=0)
+
+
+def _defined_acc(variant, a, m, centre, firsts):
+    """acc (n, 88) float64 of a theta-search variant by its definition
+    (crop_ablate's module docstring), in numpy: a (n, P*CP) float32 the
+    windows, m (P*CP, 88) float32 M, centre (n, CP) the centre pixel's
+    channels, firsts (chunks, 2) the first pixel of each of M's chunks."""
+    def bf16(x):
+        return torch.as_tensor(x).to(torch.bfloat16).double().numpy()
+
+    cols = np.arange(cs.M_COLS)
+    if variant == "ring_only":
+        dy, dx = np.abs(firsts).sum(0)
+        return np.tile(np.where(cols % 2 == 0, dy, dx), (len(a), 1)) * 1.0
+    if variant == "one_plane":
+        return bf16(a) @ bf16(m)
+    if variant == "gather_only":
+        hi = bf16(a)
+        lo = bf16(a - hi.astype(np.float32))
+        quad = (np.arange(a.shape[1]) % 8) // 2
+        even, odd = (np.stack([x[:, quad == q].sum(1) for q in range(4)], 1)
+                     for x in (hi, hi + lo))
+        q = (cols % 8) // 2
+        return np.where(cols % 2 == 0, even[:, q], odd[:, q])
+    if variant == "no_gather":
+        a = np.tile(centre, m.shape[0] // centre.shape[1])
+    return a.astype(np.float64) @ m.astype(np.float64)
+
+
+def test_bucket_init_variants_follow_their_definitions():
+    """The K-bucket case: each variant's raw rows are its definition
+    (_defined_acc) on each bucket's windows, gathered pixel by pixel from
+    the bucket's level in numpy (full's within float32 summation order
+    where kf >= 0.5), and its argmin rows the production epilogue's
+    (select_best) on them."""
+    args = _init_multi_args()
+    pyr, c, sten, scan, cw, ctr_px, scale, slots, bmi, res = args
+    bucket, off, ctr, table = ms._prepare(pyr, sten, ctr_px, scale, slots,
+                                          bmi, res, 1.0)
+    pix, npix, order, seg = cs.fold_offsets(off)
+    m = cs.init_m(scan, cw, order, seg).numpy()
+    compact = cs.compact_map(pyr.flat, c).numpy()
+    cp = compact.shape[1]
+    bucket, ctr, table = bucket.numpy(), ctr.numpy(), table.numpy()
+    inv_tr = np.float32(1) / np.float32(scan.shape[1] * scan.shape[2])
+    assert len(set(bucket.tolist())) > 1
+    for variant in ca.INIT_VARIANTS:
+        got = ca.crop_ablate_multi_init(variant, *args, raw=True)
+        for b, (base, h, w, _) in enumerate(table.tolist()):
+            rows = np.flatnonzero(bucket == b)
+            if not len(rows):
+                continue
+            cy, cx = ctr[rows, 0], ctr[rows, 1]
+            p = pix[b, :int(npix[b])].numpy()
+            a = np.zeros((len(rows), pix.shape[1], cp), np.float32)
+            for q, (dy, dx) in enumerate(p.tolist()):
+                y, x = cy + dy, cx + dx
+                ok = (y >= 0) & (y < h) & (x >= 0) & (x < w)
+                a[ok, q] = compact[base + y[ok] * w + x[ok]]
+            centre = compact[base + np.clip(cy, 0, h - 1) * w
+                             + np.clip(cx, 0, w - 1)]
+            per = cs.K_CHUNK // cp
+            firsts = p[:-(-len(p) * cp // cs.K_CHUNK) * per:per]
+            acc = _defined_acc(variant, a.reshape(len(rows), -1), m[b],
+                               centre, firsts)
+            want = (acc[:, 0:80:2].astype(np.float32),
+                    acc[:, 1:80:2].astype(np.float32),
+                    acc[:, cs.KF_COL].astype(np.float32) * inv_tr)
+            sel = torch.as_tensor(rows)
+            np.testing.assert_array_equal(got[2][sel].numpy(), want[2])
+            ok = (want[2] >= 0.5 if variant == "full"
+                  else np.ones(len(rows), bool))
+            for g, w_ in zip(got[:2], want[:2]):
+                np.testing.assert_allclose(
+                    g[sel].numpy()[ok], w_[ok],
+                    rtol=1e-5 if variant == "full" else 1e-6, atol=0,
+                    err_msg=f"{variant}, bucket {b}")
+        if variant != "full":
+            _same(ca.crop_ablate_multi_init(variant, *args),
+                  (*cs.select_best(*got), got[2]))
+
+
+def test_init_ablation_refuses_unknown_variants_and_classes():
+    args = _init_args(n=64)
+    with pytest.raises(ValueError, match="variant"):
+        ca.crop_ablate_init("no_roll", *args)
+    for c in (1, 7):
+        a = _init_args(c=c, n=64)
+        with pytest.raises(ValueError, match="built for C"):
+            ca.crop_ablate_init("full", *a)
+    with pytest.raises(ValueError, match="built for C"):
+        ca.crop_ablate_multi_init_plain("one_plane",
+                                        *_init_args(c=1, n=64)[:6],
+                                        None, None, (0,), 0.5)
+
+
+def test_kernel_ms_reports_a_second_profile(monkeypatch, capsys):
+    """A profile whose device trace comes back empty is taken again, and
+    kernel_ms says it took two."""
+    from torch.autograd import DeviceType
+
+    class Event:
+        device_type, key, count = DeviceType.CUDA, "probe_mm_s8", 4
+        self_device_time_total = 8.0  # us over the 4 launches
+
+    class Profile:
+        runs = 0
+
+        def __init__(self, **kw):
+            pass
+
+        def __enter__(self):
+            Profile.runs += 1
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            return [] if Profile.runs == 1 else [Event()]
+
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    calls = []
+    ms_, tries = probes.kernel_ms(lambda: calls.append(1), "probe_mm",
+                                  runs=4)
+    assert (ms_, tries) == (2.0 / 1e3, 2)
+    assert len(calls) == 3 + 4 + 4
+    assert "profile 1 saw no launch" in capsys.readouterr().err
+
+
 # -- the probe path on the CPU -------------------------------------------------
 def test_probe_path_checks_on_the_cpu():
     """probes.__main__'s functions at small sizes on the CPU: every check
@@ -556,6 +847,27 @@ def test_probe_path_checks_on_the_cpu():
             "probe_dma_unaligned", "probe_dma_align", "probe_dma2",
             "probe_dma_fold", "probe_int8", "probe_int8_mm",
             "exp_crop_ablate")}
+
+
+def test_theta_search_ablation_checks_on_the_cpu():
+    """probes.run_ablate_init's cases at 256 particles on the CPU: 3 cases
+    times 6 variants, every check holds, no time is measured."""
+    recs = probes.run_ablate_init(CPU, 0, 256)
+    assert [r["probe"] for r in recs[:6]] == [
+        f"ablate_init/spread C=3/{v}" for v in ca.INIT_VARIANTS]
+    assert len(recs) == 18 and {r["buckets"] for r in recs} == {1, 12}
+    assert all(r["kernel_ms"] is None and r["profile_tries"] is None
+               and r["replaces"] == "tests/exp_crop_ablate.py:39"
+               and r["bound_ms"] > 0 for r in recs)
+    by = {r["probe"].split("/")[-1]: r for r in recs[:6]}
+    assert by["one_plane"]["ops"] * 3 == pytest.approx(by["full"]["ops"])
+    assert by["gather_only"]["bound_by"] == "bytes"
+    assert by["ring_only"]["ops"] == 0.0
+    # the bound is the function's bytes for every variant; what gather_only
+    # and ring_only re-read from L2 stands beside it
+    assert {r["bytes"] for r in by.values()} == {by["full"]["bytes"]}
+    assert (by["full"]["l2_bytes"] == by["gather_only"]["l2_bytes"]
+            > by["no_gather"]["l2_bytes"] == by["ring_only"]["l2_bytes"] > 0)
 
 
 def test_probe_command_prints_one_json_line_a_probe():

@@ -1,32 +1,42 @@
-"""Device time of the tracked crop kernel (csrc/crop_score.cu,
-crop_tracked_kernel), on the card.
+"""Device time of a crop kernel on the card: the tracked kernel
+(csrc/crop_score.cu, crop_tracked_kernel) or the theta search
+(csrc/crop_score_init.cu, crop_init_kernel), uniform and K-bucket.
 
-Times the tracked kernel of the checkout at ROOT on the clustered cell:
-102,400 particles in a 100 px square of a 1024^2 3-class map, thetas in
-a 0.15 rad band, f = 1 (1,577 distinct stencil pixels), class weights
-(0.1, 1.5, 3.0): five rounds of 20 launches under torch.profiler after 3
-warm-up calls (chip_smoke.kernel_ms of the checkout at ROOT).  Each
-round's result must equal the first call's bit for bit, and its SHA-256
-is printed, so that two checkouts' results can be compared too.
+Times the kernel of the checkout at ROOT:
+
+  tracked  the clustered cell: 102,400 particles in a 100 px square of a
+           1024^2 3-class map, thetas in a 0.15 rad band;
+  init     a spread cloud of 102,400 particles over the 1024^2 3-class
+           map, and the same cloud over the 10 scale hypotheses' K buckets
+           at res 0.5;
+
+each at f = 1 (1,577 distinct stencil pixels), class weights (0.1, 1.5,
+3.0): five rounds of 20 launches under torch.profiler after 3 warm-up
+calls (chip_smoke.kernel_ms of the checkout at ROOT).  Each round's result
+must equal the first call's bit for bit, and its SHA-256 is printed, so
+that two checkouts' results can be compared too.
 
 The tree to time is ROOT (default: this checkout); running it for two
 checkouts on one machine, in turns (parent, change, change, parent),
 compares them:
 
-    python tests/time_torch_tracked.py [ROOT]
+    python tests/time_torch_tracked.py [--kernel tracked|init] [ROOT]
 """
 
 from __future__ import annotations
 
+import argparse
 import hashlib
 import json
 import os
 import sys
 
-ROOT = os.path.abspath(
-    sys.argv[1] if len(sys.argv) > 1
-    else os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
-)
+ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+ap.add_argument("--kernel", choices=("tracked", "init"), default="tracked")
+ap.add_argument("root", nargs="?", default=os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), ".."))
+ARGS = ap.parse_args()
+ROOT = os.path.abspath(ARGS.root)
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "tests"))
 
@@ -35,10 +45,49 @@ import torch  # noqa: E402
 
 import chip_smoke as smoke  # noqa: E402
 from top_down_renderer_torch.filter import crop_score as cs  # noqa: E402
+from top_down_renderer_torch.filter import multiscale as ms  # noqa: E402
 from top_down_renderer_torch.testing import synthetic_setup  # noqa: E402
 
 N = 102_400
 ROUNDS = 5
+CW = np.asarray([0.1, 1.5, 3.0], np.float32)
+
+
+def tracked_cells(dev):
+    """{label: (the kernel's wrapper call, its profiler symbols)}."""
+    d = synthetic_setup(N, h=1024, w=1024, c=3, cluster=(462, 462, 100),
+                        theta_spread=(0.7, 0.075))
+    p = d["state"]["particles"]
+    t = [torch.as_tensor(v, device=dev) for v in (
+        d["stencil"], d["scan"], CW, p["init_px"], p["theta"])]
+    maps = cs.CropMap(torch.as_tensor(d["packed"], device=dev))
+    return {"clustered": (lambda: cs.score_tracked(maps, 3, *t, 1.0),
+                          ("crop_tracked_kernel<3>",))}
+
+
+def init_cells(dev):
+    d = synthetic_setup(N, h=1024, w=1024, c=3)
+    t = [torch.as_tensor(v, device=dev) for v in (
+        d["packed"], d["stencil"], d["scan"], CW,
+        d["state"]["particles"]["init_px"])]
+    maps = cs.CropMap(t[0])
+    hyp = (10.0 ** (np.arange(10) / 10.0)).astype(np.float32)
+    _, slots, mips = ms.plan_buckets(hyp, 25, 0.5, 10.0)
+    levels = tuple(sorted(set(mips)))
+    multi = (ms.build_pyramid_maps(t[0], levels), 3, *t[1:],
+             torch.as_tensor(np.resize(hyp, N), device=dev),
+             torch.as_tensor(slots, device=dev),
+             tuple(levels.index(m) for m in mips), 0.5)
+    symbols = ("crop_init_kernel<4, false>", "crop_init_kernel<4, (bool)0>")
+    return {
+        "uniform": (lambda: cs.score_init_sel(maps, 3, *t[1:], 1.0),
+                    symbols),
+        "buckets": (lambda: ms.score_init_multi_sel(*multi), symbols),
+    }
+
+
+def rows(out):
+    return torch.stack([o.float() for o in out]).cpu()
 
 
 def main() -> int:
@@ -46,31 +95,24 @@ def main() -> int:
         print("time_torch_tracked: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    d = synthetic_setup(N, h=1024, w=1024, c=3, cluster=(462, 462, 100),
-                        theta_spread=(0.7, 0.075))
-    p = d["state"]["particles"]
-    args = (cs.CropMap(torch.as_tensor(d["packed"], device=dev)), 3,
-            torch.as_tensor(d["stencil"], device=dev),
-            torch.as_tensor(d["scan"], device=dev),
-            torch.tensor([0.1, 1.5, 3.0], device=dev),
-            torch.as_tensor(p["init_px"], device=dev),
-            torch.as_tensor(p["theta"], device=dev), 1.0)
-
-    def run():
-        return cs.score_tracked(*args)
-
-    first = torch.stack(run()).cpu()
-    times = []
-    for _ in range(ROUNDS):
-        times.append(smoke.kernel_ms(run, ("crop_tracked_kernel<3>",)))
-        if not torch.equal(torch.stack(run()).cpu().view(torch.int32),
-                           first.view(torch.int32)):
-            raise RuntimeError("the tracked kernel does not repeat")
-    print(json.dumps({
-        "root": ROOT, "card": smoke.card_name_and_limit(),
-        "kernel_ms": times, "median_ms": float(np.median(times)),
-        "sha256": hashlib.sha256(first.numpy().tobytes()).hexdigest(),
-    }))
+    cells = (tracked_cells if ARGS.kernel == "tracked" else init_cells)(dev)
+    result = {"root": ROOT, "kernel": ARGS.kernel,
+              "card": smoke.card_name_and_limit()}
+    for label, (run, symbols) in cells.items():
+        first = rows(run())
+        times = []
+        for _ in range(ROUNDS):
+            ms_ = smoke.kernel_ms(run, symbols)
+            # (ms, profiles taken) where ROOT's kernel_ms reports its tries
+            times.append(ms_[0] if isinstance(ms_, tuple) else ms_)
+            if not torch.equal(rows(run()).view(torch.int32),
+                               first.view(torch.int32)):
+                raise RuntimeError(f"the {label} kernel does not repeat")
+        result[label] = {
+            "kernel_ms": times, "median_ms": float(np.median(times)),
+            "sha256": hashlib.sha256(first.numpy().tobytes()).hexdigest(),
+        }
+    print(json.dumps(result))
     return 0
 
 

@@ -39,11 +39,18 @@
 // result is exact; max is order-free and idempotent, so it repeats bit for
 // bit whatever order the look-back sees.
 //
+// A status word that never shows this call's epoch (a broken wrapper, or a
+// scratch array shared by two streams) would leave the look-back spinning:
+// its wait traps after about ten seconds (tma.cuh's trap_if_stuck), so the
+// launch fails instead of hanging the card.
+//
 // Bound on an H100: bytes, 65 per slot (a 32-byte row read and written, one
 // flag), 6.7 MB at 102,400 slots, 2.0 us at 3.35 TB/s; 273 MB, 81 us, at
 // 2^22 slots.
 
 #include <cuda_runtime.h>
+
+#include "tma.cuh"
 
 namespace {
 
@@ -80,6 +87,12 @@ __device__ __forceinline__ void store_status(unsigned long long* p,
                :: "l"(p), "l"(v) : "memory");
 }
 
+// Whether status word w holds this call's aggregate or inclusive prefix.
+__device__ __forceinline__ bool published(unsigned long long w,
+                                          unsigned epoch) {
+  return (unsigned)(w >> 32) >> 2 == epoch && ((unsigned)(w >> 32) & 3u) != 0;
+}
+
 // The carry of `tile` >= 1: the last valid index before it (-1 if none), by
 // warp-wide windows of its 32 predecessors, nearest first.  Called by one
 // full warp.
@@ -91,10 +104,13 @@ __device__ int look_back(const unsigned long long* status, int tile,
     bool inclusive = true;  // before tile 0: nothing
     if (t >= 0) {
       unsigned long long w = load_status(&status[t]);
-      while ((unsigned)(w >> 32) >> 2 != epoch ||
-             ((unsigned)(w >> 32) & 3u) == 0) {
-        __nanosleep(20);
-        w = load_status(&status[t]);
+      if (!published(w, epoch)) {
+        const long long t0 = clock64();
+        do {
+          __nanosleep(20);
+          trap_if_stuck(t0);
+          w = load_status(&status[t]);
+        } while (!published(w, epoch));
       }
       value = (int)(unsigned)w;
       inclusive = ((unsigned)(w >> 32) & 3u) == kInclusive;

@@ -1,8 +1,8 @@
-// TMA and mbarrier helpers of the probe kernels (csrc/probe_mm.cu,
-// csrc/probe_window.cu): shared-memory addresses, mbarrier waits and
+// TMA and mbarrier helpers of the kernels that stage operands in shared
+// memory (csrc/probe_mm.cu, csrc/probe_window.cu, and the theta search's
+// csrc/crop_init.cuh): shared-memory addresses, bounded mbarrier waits and
 // arrivals, 2-D tensor-map loads, and cuTensorMapEncodeTiled reached
-// through cudaGetDriverEntryPoint, so that no library links
-// -lcuda.
+// through cudaGetDriverEntryPoint, so that no library links -lcuda.
 
 #pragma once
 
@@ -23,22 +23,34 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
                : "memory");
 }
 
-// Wait for the phase of `parity` to complete.  A wait that outlasts about
-// ten seconds of clock traps: a broken pipeline fails its launch rather
-// than hang the card.
+// Clock cycles a spin on a barrier or a flag may last before it traps:
+// about ten seconds at the H100's 1.98 GHz.  A broken pipeline then fails
+// its launch rather than hang the card.
+constexpr long long kSpinTrapCycles = 20000000000LL;
+
+__device__ __forceinline__ void trap_if_stuck(long long t0) {
+  if (clock64() - t0 > kSpinTrapCycles) __trap();
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Wait for the phase of `parity` to complete.  The fast path is one
+// try_wait; only a wait that has to spin reads the clock, and it traps
+// after kSpinTrapCycles.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
+  if (mbar_try_wait(bar, parity)) return;
   const long long t0 = clock64();
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-    if (!done && clock64() - t0 > 20000000000LL) __trap();
-  }
+  while (!mbar_try_wait(bar, parity)) trap_if_stuck(t0);
 }
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {

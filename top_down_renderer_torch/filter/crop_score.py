@@ -597,6 +597,32 @@ def init_schedule(row_start: torch.Tensor, nchunk: torch.Tensor):
     return torch.cat([row_start, tile_start, nchunk]).to(torch.int32)
 
 
+def init_records(scan, class_weights, fold, row_start, num_rot: int):
+    """The theta search's M build: (records, schedule) of init_operands and
+    init_schedule, M built by init_m over the K offset tables' fold
+    (fold_pixels) for the buckets that start at row_start."""
+    pix, npix, order, seg = fold
+    m = init_m(scan, class_weights, order, seg, num_rot)
+    rec, nchunk = init_operands(pix, npix, m)
+    return rec, init_schedule(row_start, nchunk)
+
+
+def init_args(maps, table, h: int, w: int, num_classes: int, rec, sched,
+              ctr, perm, num_rot: int, inv_tr: float, out) -> tuple:
+    """The theta-search entry points' arguments before the stream:
+    tdr_crop_score_init's (table None) or tdr_crop_score_multi_init's."""
+    cp = channel_pad(num_classes)
+    if table is None:
+        args = (ptr(maps), h, w, cp)
+    else:
+        args = (ptr(maps), ptr(table), table.shape[0], cp)
+    args += (ptr(rec), ptr(sched), rec.shape[1])
+    if perm is not None:
+        args += (ptr(perm),)
+    return args + (ptr(ctr), ctr.shape[0], num_rot, ctypes.c_float(inv_tr),
+                   ptr(out))
+
+
 def launch_init(name: str, maps, table, h: int, w: int, num_classes: int,
                 scan, class_weights, fold, ctr, perm, row_start,
                 num_rot: int):
@@ -604,42 +630,47 @@ def launch_init(name: str, maps, table, h: int, w: int, num_classes: int,
     tiles and launch the theta-search kernel `name` (kernels.LAUNCHES key;
     entry tdr_<name>) over the compact map `maps` (table: the K buckets'
     levels, or None at a uniform scale).  row_start (K + 1,) int64: the
-    first row of each bucket in perm's order, and N.  Returns (best, k,
-    kf) (N,); a name ending in "_raw" launches the raw-row epilogue and
-    returns (nums, dens (N, num_rot), kf (N,)): the sums as they are, kf the
-    known count times f32(1 / (Th R))."""
+    first row of each bucket in perm's order, and N.  Returns init_rows'
+    rows, the raw ones for a name ending in "_raw"."""
+    def launch(args):
+        kernels.launch("crop_score_init", f"tdr_{name}", *args)
+        kernels.LAUNCHES[name] += 1
+
+    return init_rows(launch, (maps, table, h, w, num_classes, scan,
+                              class_weights, fold, ctr, perm, row_start,
+                              num_rot), name.endswith("_raw"))
+
+
+def init_rows(launch, inputs: tuple, raw: bool, records=None):
+    """launch(args) on init_args over `inputs` (launch_init's arguments
+    after the name) and `records` (init_records', built from the inputs
+    when None), and the rows it writes: (best, k, kf) (N,), or with raw
+    (nums, dens (N, num_rot), kf (N,)): the sums as they are, kf the known
+    count times f32(1 / (Th R)).  The production kernels' launch and the
+    ablation's (probes/crop_ablate.py) share it."""
+    (maps, table, h, w, num_classes, scan, class_weights, fold, ctr, perm,
+     row_start, num_rot) = inputs
     th, r = scan.shape[1:]
     n = ctr.shape[0]
-    raw = name.endswith("_raw")
     width = 2 * num_rot + 1 if raw else 3
     out = torch.empty((n, width), dtype=torch.float32, device=ctr.device)
     inv_tr = float(np.float32(1.0) / np.float32(th * r))
     if n:
-        pix, npix, order, seg = fold
-        m = init_m(scan, class_weights, order, seg, num_rot)
-        rec, nchunk = init_operands(pix, npix, m)
-        sched = init_schedule(row_start, nchunk)
-        cp = channel_pad(num_classes)
-        if table is None:
-            args = (ptr(maps), h, w, cp)
-        else:
-            args = (ptr(maps), ptr(table), table.shape[0], cp)
-        args += (ptr(rec), ptr(sched), rec.shape[1])
-        if perm is not None:
-            args += (ptr(perm),)
-        kernels.launch("crop_score_init", f"tdr_{name}", *args, ptr(ctr), n,
-                       num_rot, ctypes.c_float(inv_tr), ptr(out))
-        kernels.LAUNCHES[name] += 1
+        if records is None:
+            records = init_records(scan, class_weights, fold, row_start,
+                                   num_rot)
+        launch(init_args(maps, table, h, w, num_classes, *records, ctr, perm,
+                         num_rot, inv_tr, out))
     if raw:
         s = 2 * num_rot
         return out[:, 0:s:2], out[:, 1:s:2], out[:, s] * inv_tr
     return out[:, 0], out[:, 1].to(torch.int64), out[:, 2]
 
 
-def _score_init(name, maps, num_classes, stencil, scan, class_weights,
-                center_px, f, num_rot, map_resolution):
-    """Check the theta search's operands on the card and launch `name`
-    (launch_init) at one uniform scale."""
+def init_inputs(maps, num_classes, stencil, scan, class_weights, center_px,
+                f, num_rot: int = 40, map_resolution: float = 1.0) -> tuple:
+    """Check the theta search's operands on the card and derive launch_init's
+    arguments after `name` at one uniform scale."""
     packed_map = maps.packed
     dev = packed_map.device
     h, w = packed_map.shape[:2]
@@ -651,12 +682,10 @@ def _score_init(name, maps, num_classes, stencil, scan, class_weights,
         raise ValueError("map too large for 32-bit indexing")
     rows = torch.zeros(2, dtype=torch.int64, device=dev)
     rows[1] = center_px.shape[0]
-    return launch_init(
-        name, compact, None, h, w, num_classes, scan, class_weights,
-        maps.fold(stencil, f),
-        crop_centers(center_px, map_resolution).contiguous(), None, rows,
-        num_rot,
-    )
+    return (compact, None, h, w, num_classes, scan, class_weights,
+            maps.fold(stencil, f),
+            crop_centers(center_px, map_resolution).contiguous(), None, rows,
+            num_rot)
 
 
 def score_init_sel(
@@ -671,8 +700,9 @@ def score_init_sel(
             maps.packed, num_classes, stencil, scan, class_weights,
             center_px, f, num_rot, map_resolution,
         )
-    return _score_init("crop_score_init", maps, num_classes, stencil, scan,
-                       class_weights, center_px, f, num_rot, map_resolution)
+    return launch_init("crop_score_init", *init_inputs(
+        maps, num_classes, stencil, scan, class_weights, center_px, f,
+        num_rot, map_resolution))
 
 
 def score_init_raw(
@@ -690,6 +720,6 @@ def score_init_raw(
             maps.packed, num_classes, stencil, scan, class_weights,
             center_px, f, num_rot, map_resolution,
         )
-    return _score_init("crop_score_init_raw", maps, num_classes, stencil,
-                       scan, class_weights, center_px, f, num_rot,
-                       map_resolution)
+    return launch_init("crop_score_init_raw", *init_inputs(
+        maps, num_classes, stencil, scan, class_weights, center_px, f,
+        num_rot, map_resolution))

@@ -435,11 +435,12 @@ def score_tracked_multi(
     )
 
 
-def _score_init_multi(name, pyr, num_classes, stencil, scan, class_weights,
-                      center_px, scale, slot_vals, bucket_level, res,
-                      num_rot, map_resolution):
-    """Check the K-bucket theta search's operands on the card and launch
-    `name` (crop_score.launch_init) over the bucket-major rows."""
+def init_inputs(pyr, num_classes, stencil, scan, class_weights, center_px,
+                scale, slot_vals, bucket_level, res, num_rot: int = 40,
+                map_resolution: float = 1.0) -> tuple:
+    """Check the K-bucket theta search's operands on the card and derive
+    crop_score.launch_init's arguments after `name`: the bucket-major
+    rows."""
     k = _check_buckets(pyr, stencil, scan, class_weights, center_px, scale,
                        slot_vals, bucket_level, num_classes, num_rot)[0]
     compact = pyr.compact(num_classes)
@@ -448,10 +449,8 @@ def _score_init_multi(name, pyr, num_classes, stencil, scan, class_weights,
         map_resolution,
     )
     perm, row_start = bucket_rows(bucket, k)
-    return cs.launch_init(
-        name, compact, table, 0, 0, num_classes, scan, class_weights,
-        cs.fold_pixels(off), ctr.contiguous(), perm, row_start, num_rot,
-    )
+    return (compact, table, 0, 0, num_classes, scan, class_weights,
+            cs.fold_pixels(off), ctr.contiguous(), perm, row_start, num_rot)
 
 
 def score_init_multi_sel(
@@ -465,11 +464,9 @@ def score_init_multi_sel(
             pyr, num_classes, stencil, scan, class_weights, center_px,
             scale, slot_vals, bucket_level, res, num_rot, map_resolution,
         )
-    return _score_init_multi(
-        "crop_score_multi_init", pyr, num_classes, stencil, scan,
-        class_weights, center_px, scale, slot_vals, bucket_level, res,
-        num_rot, map_resolution,
-    )
+    return cs.launch_init("crop_score_multi_init", *init_inputs(
+        pyr, num_classes, stencil, scan, class_weights, center_px, scale,
+        slot_vals, bucket_level, res, num_rot, map_resolution))
 
 
 def score_init_multi_raw(
@@ -487,8 +484,6 @@ def score_init_multi_raw(
             pyr, num_classes, stencil, scan, class_weights, center_px,
             scale, slot_vals, bucket_level, res, num_rot, map_resolution,
         )
-    return _score_init_multi(
-        "crop_score_multi_init_raw", pyr, num_classes, stencil, scan,
-        class_weights, center_px, scale, slot_vals, bucket_level, res,
-        num_rot, map_resolution,
-    )
+    return cs.launch_init("crop_score_multi_init_raw", *init_inputs(
+        pyr, num_classes, stencil, scan, class_weights, center_px, scale,
+        slot_vals, bucket_level, res, num_rot, map_resolution))

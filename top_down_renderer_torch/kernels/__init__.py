@@ -54,6 +54,7 @@ LAUNCHES = {
     "crop_score_multi_init_raw": 0,
     "fill_rows": 0,
     "crop_ablate": 0,
+    "crop_ablate_init": 0,
     "probe_window_gather": 0,
     "probe_mm": 0,
 }
@@ -113,6 +114,18 @@ _SIGNATURES = {
             _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
             _P, _P, _P, _I, _F, _P, _P,
         ),
+    },
+    "crop_ablate_init": {
+        # variant, then as tdr_crop_score_init, then raw (0 or 1)
+        "tdr_crop_ablate_init": (
+            _I, _P, _I, _I, _I, _P, _P, _I, _P, _I, _I, _F, _P, _I, _P,
+        ),
+        # variant, then as tdr_crop_score_multi_init, then raw
+        "tdr_crop_ablate_multi_init": (
+            _I, _P, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _F, _P, _I, _P,
+        ),
+        # variant, CP, raw, blocks an SM (out)
+        "tdr_crop_ablate_init_blocks": (_I, _I, _I, ctypes.POINTER(_I)),
     },
     "probe_window": {
         # src, S, H, W, elem bytes, origins, n, rows, cols, geometry,

@@ -1,6 +1,7 @@
 """The probe path: every hardware probe and the crop ablation on the card.
 
-    python -m top_down_renderer_torch.probes [window|mm|ablate|all]
+    python -m top_down_renderer_torch.probes \
+        [window|mm|ablate|ablate_init|all]
         [--seed 0] [--n 102400] [--device cuda]
 
 builds each probe's inputs from --seed with numpy at the TPU probes'
@@ -33,6 +34,17 @@ hold them to their definitions, and no time is measured.
   ablate  K3 (csrc/crop_ablate.cu): the tracked crop kernel's variants on
           a 1024^2 6-class map at 102,400 particles, spread, clustered and
           over K buckets; `full` held bit for bit to the production kernel.
+  ablate_init
+          K4 (csrc/crop_ablate_init.cu): the theta search's variants
+          (probes/crop_ablate.py's INIT_VARIANTS) at 102,400 particles on a
+          1024^2 map, a 3-class and a 6-class spread cloud and the 3-class
+          cloud over K buckets; `full` held bit for bit to the production
+          kernel, argmin and raw rows, with the production kernel's time
+          and its wrapper split into inputs, M build and launch; every
+          variant at one block an SM, as full; beside the bound the bytes
+          each re-reads from L2 (l2_bytes) at K1's L2 window rate.
+Every record's profile_tries says how many profiles its kernel time took
+(kernel_ms).
 """
 
 from __future__ import annotations
@@ -66,10 +78,16 @@ DR, DC = 56, 640  # a crop at mo 24: rows x bytes (probe_dma_fold.py)
 FOLD_COLS = wg.FOLD * DC  # a folded slice's bytes: 5,120
 L2_ROWS, HBM_ROWS, MAP_BYTES = 1280, 8192, 10240
 THETA_K, THETA_N = 4096, 128  # the theta search's work shape (with N rows)
+# K1's window rate from L2 on an H100 (the folded1 windows of the 13 MB
+# map, probe window): a reading set beside the bytes a kernel re-reads from
+# L2, not a bound
+L2_WINDOW_BYTES = 8.2e12
 SYMBOLS = {"probe_window_gather": "probe_window",
            "probe_mm": "probe_mm_",  # the product, and a split-K sum
            "crop_ablate": "crop_ablate_kernel",
-           "crop_score_tracked": "crop_tracked_kernel<"}
+           "crop_ablate_init": "crop_ablate_init_kernel",
+           "crop_score_tracked": "crop_tracked_kernel<",
+           "crop_score_init": "crop_init_kernel<"}  # uniform and K-bucket
 
 
 class ProbeError(RuntimeError):
@@ -101,14 +119,16 @@ def device_us(evt) -> float:
 
 
 def kernel_ms(fn, symbols, runs: int = RUNS, per_call: int = 1,
-              tries: int = 3) -> float:
-    """The kernel's own device time per launch: `runs` calls of fn under
-    torch.profiler after 3 to warm up, the mean over the device events
-    whose name holds `symbols` (a name, or a tuple of its spellings).
-    With per_call > 1 a call launches that many kernels of those names
-    (a product and its split-K sum), and the time is their sum a call.  A
-    profile whose trace holds no such event (the profiler's device trace
-    came back empty) is taken again, up to `tries` in all."""
+              tries: int = 3):
+    """(ms, profiles taken): the kernel's own device time per launch,
+    `runs` calls of fn under torch.profiler after 3 to warm up, the mean
+    over the device events whose name holds `symbols` (a name, or a tuple
+    of its spellings).  With per_call > 1 a call launches that many
+    kernels of those names (a product and its split-K sum), and the time
+    is their sum a call.  A profile whose trace holds no such event (the
+    profiler's device trace came back empty) is taken again, up to
+    `tries` in all; the second number says how many it took, so that a
+    retry stays in the records."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -132,7 +152,8 @@ def kernel_ms(fn, symbols, runs: int = RUNS, per_call: int = 1,
               f"{symbols}", file=sys.stderr, flush=True)
     check(0 < seen <= runs * per_call, f"the profiler saw {seen} launches "
           f"of {symbols} in {runs} calls")
-    return sum(device_us(e) for e in events) / seen * per_call / 1e3
+    return sum(device_us(e) for e in events) / seen * per_call / 1e3, \
+        attempt + 1
 
 
 def wrapper_ms(fn, runs: int = RUNS) -> float:
@@ -191,21 +212,30 @@ def once(dev, fn):
 
 
 def timing(dev, kernel_name, fn, plain_ms, library=None, per_call=1):
-    """{kernel_ms, plain_ms, library_ms, wrapper_ms}: the kernel under
-    torch.profiler (per_call kernels a call, kernel_ms), the library call
-    by CUDA events, the wrapper by host clock; None on the CPU.  The
-    timing loops' launches are left out of kernels.LAUNCHES, which so
-    counts the probe path's own: one launch a probe, the one its check
-    holds."""
+    """{kernel_ms, profile_tries, plain_ms, library_ms, wrapper_ms}: the
+    kernel under torch.profiler (per_call kernels a call, kernel_ms, and
+    the profiles it took), the library call by CUDA events, the wrapper by
+    host clock; None on the CPU.  The timing loops' launches are left out
+    of kernels.LAUNCHES, which so counts the probe path's own: one launch a
+    probe, the one its check holds."""
     if dev.type != "cuda":
-        return dict(kernel_ms=None, plain_ms=None, library_ms=None,
-                    wrapper_ms=None)
+        return dict(kernel_ms=None, profile_tries=None, plain_ms=None,
+                    library_ms=None, wrapper_ms=None)
     counts = dict(kernels.LAUNCHES)
-    out = dict(kernel_ms=kernel_ms(fn, SYMBOLS[kernel_name],
-                                   per_call=per_call),
-               plain_ms=plain_ms,
+    ms, tries = kernel_ms(fn, SYMBOLS[kernel_name], per_call=per_call)
+    out = dict(kernel_ms=ms, profile_tries=tries, plain_ms=plain_ms,
                library_ms=None if library is None else events_ms(library),
                wrapper_ms=wrapper_ms(fn))
+    kernels.LAUNCHES.update(counts)
+    return out
+
+
+def uncounted(fn):
+    """fn(), its kernel launches left out of kernels.LAUNCHES: a probe's
+    comparison with the production kernel is no launch of the probe
+    path."""
+    counts = dict(kernels.LAUNCHES)
+    out = fn()
     kernels.LAUNCHES.update(counts)
     return out
 
@@ -617,7 +647,7 @@ def run_ablate(dev, seed: int = 0, n: int = N, cases=None):
             cases or ablate_cases(dev, seed, n)):
         multi = production is ms.score_tracked_multi
         work = _ablate_work(args, multi)
-        prod = production(*args)
+        prod = uncounted(lambda: production(*args))
         for variant in ca.VARIANTS:
             def run(variant=variant):
                 return ablate(variant, *args)
@@ -654,15 +684,245 @@ def run_ablate(dev, seed: int = 0, n: int = N, cases=None):
                           particles=work[0], pixels_per_particle=work[1]
                           / work[0], runs=work[2], max_rel_err=rel)
             if variant == "full" and dev.type == "cuda":
-                rec["production_ms"] = timing(
-                    dev, "crop_score_tracked", lambda: production(*args),
-                    None)["kernel_ms"]
+                prod_t = timing(dev, "crop_score_tracked",
+                                lambda: production(*args), None)
+                rec.update(production_ms=prod_t["kernel_ms"],
+                           production_tries=prod_t["profile_tries"])
             recs.append(_rated(rec, dev, t, ops, ops, PEAK_F32_FLOPS, moved,
                                "tflops"))
     return recs
 
 
-PROBES = {"window": run_window, "mm": run_mm, "ablate": run_ablate}
+# -- K4: the theta search's ablation ------------------------------------------
+def ablate_init_cases(dev, seed: int = 0, n: int = N):
+    """[(label, multi, args)] of the theta search's ablation: a spread
+    cloud on a 1024^2 3-class map (class weights 0.1, 1.5, 3.0; scale 2,
+    f = 1), the TPU clone's 6-class spread cloud (ablate_cases': c, Th, R =
+    6, 100, 25) and the 3-class cloud over the 10 scale hypotheses' K
+    buckets at res 0.5.  args: score_init_sel's (uniform) or
+    score_init_multi_sel's (multi) arguments."""
+    cases = []
+    for c, cw in ((3, [0.1, 1.5, 3.0]), (6, [1.0] * 6)):
+        d = synthetic_setup(n, h=1024, w=1024, c=c, seed=seed)
+        t = [torch.as_tensor(v, device=dev) for v in (
+            d["packed"], d["stencil"], d["scan"],
+            np.asarray(cw, np.float32), d["state"]["particles"]["init_px"])]
+        cases.append((f"spread C={c}", False,
+                      (cs.CropMap(t[0]), c, *t[1:], 1.0)))
+    hyp = (10.0 ** (np.arange(10) / 10.0)).astype(np.float32)
+    plan = ms.plan_buckets(hyp, 25, 0.5, 10.0)
+    check(not isinstance(plan, str), f"no bucket plan: {plan}")
+    _, slots, mips = plan
+    levels = tuple(sorted(set(mips)))
+    maps, c, sten, scan, cw, ctr, _ = cases[0][2]
+    cases.append(("buckets C=3", True, (
+        ms.build_pyramid_maps(maps.packed, levels), c, sten, scan, cw, ctr,
+        torch.as_tensor(np.resize(hyp, n), device=dev),
+        torch.as_tensor(slots, device=dev),
+        tuple(levels.index(m) for m in mips), 0.5)))
+    return cases
+
+
+def _init_fns(multi: bool):
+    """(production argmin, production raw, ablation, plain, inputs) of the
+    uniform or the K-bucket theta search."""
+    if multi:
+        return (ms.score_init_multi_sel, ms.score_init_multi_raw,
+                ca.crop_ablate_multi_init, ca.crop_ablate_multi_init_plain,
+                ms.init_inputs)
+    return (cs.score_init_sel, cs.score_init_raw, ca.crop_ablate_init,
+            ca.crop_ablate_init_plain, cs.init_inputs)
+
+
+def _init_work(args, multi: bool) -> dict:
+    """What the theta search's inputs need: particles per bucket, distinct
+    pixels per bucket, M's chunks per bucket and a chunk's bytes, the
+    tiles of each bucket, classes, and the bytes of the compact map and
+    the per-particle inputs."""
+    if multi:
+        pyr, c, sten, scan, cw, ctr, scale, slots, bmi, res = args
+        bucket, off, _, _ = ms._prepare(pyr, sten, ctr, scale, slots, bmi,
+                                        res, 1.0)
+        compact = pyr.compact(c)
+        counts = torch.bincount(bucket.long(), minlength=len(bmi))
+        inputs = (ctr.numel() + scale.numel()) * 4
+    else:
+        maps, c, sten, scan, cw, ctr, f = args
+        off = cs.crop_offsets(sten, f)[None]
+        compact = maps.compact(c)
+        counts = torch.tensor([ctr.shape[0]])
+        inputs = ctr.numel() * 4
+    cp = cs.channel_pad(c)
+    npix = cs.fold_offsets(off)[1].long().cpu()
+    counts = counts.long().cpu()
+    return dict(counts=counts, npix=npix,
+                nchunk=(npix * cp + cs.K_CHUNK - 1) // cs.K_CHUNK,
+                chunk_bytes=2 * cs.K_CHUNK * cs.M_COLS * 2
+                + cs.K_CHUNK // cp * 8,
+                tiles=(counts + cs.INIT_TILE - 1) // cs.INIT_TILE, c=c,
+                cp=cp, inputs=compact.numel() * 4 + inputs)
+
+
+def _init_bound(variant: str, work: dict, shifts: int = cs.MAX_SEARCH):
+    """(ops, peak, bytes moved, bytes re-read from L2) of what a
+    theta-search variant keeps (crop_ablate_init.cu).  The bound is the
+    function's: the compact map, the per-particle inputs and M's nonzero hi
+    and lo entries read once and (N, 3) written, against the three split
+    products of those entries (C S cost columns on the class channels, S
+    norm columns and the kf column on the known one, chip_smoke.tc_bound's
+    count) on bf16 tensor cores for full, no_gather and no_promote, a third
+    of it for one_plane and none for gather_only and ring_only.  Beside it,
+    the bytes the kernel re-reads, which come from L2: M's records once a
+    tile (every variant) and, where it gathers, each particle's window (its
+    distinct pixels times CP float32 channels)."""
+    counts, npix, c = work["counts"].double(), work["npix"].double(), \
+        work["c"]
+    nnz = (c * shifts + shifts + 1) * npix
+    moved = work["inputs"] + float(nnz.sum()) * 4 + float(counts.sum()) * 12
+    dense = 6.0 * float((counts * nnz).sum())
+    ops = {"one_plane": dense / 3, "gather_only": 0.0,
+           "ring_only": 0.0}.get(variant, dense)
+    reread = float((work["tiles"] * work["nchunk"]).sum()) * \
+        work["chunk_bytes"]
+    if variant not in ("no_gather", "ring_only"):
+        reread += float((counts * npix).sum()) * work["cp"] * 4
+    return ops, PEAK_BF16_FLOPS, moved, reread
+
+
+def _close_rows(label, got, got_raw, want, want_raw):
+    """A theta-search variant's rows against its plain version's
+    (crop_ablate.py's module docstring): kf within REL_TOL everywhere;
+    the raw nums and dens within REL_TOL where the plain kf >= 0.5; the
+    FLT_MAX pattern of best equal (rows whose plain kf lies within
+    REL_TOL of the 0.5 gate left out), finite bests within REL_TOL; and k
+    a near-argmin: the plain cost at the kernel's k within REL_TOL of the
+    plain minimum.  Returns (largest |err| of best, nums and dens, the
+    largest relative error)."""
+    best, k, kf = got
+    wbest, _, wkf = want
+    nums, dens, rkf = got_raw
+    wnums, wdens, wrkf = want_raw
+    rel = _max_rel([kf, rkf], [wkf, wrkf])
+    check(rel <= REL_TOL, f"{label}: kf rel {rel:.3e}")
+    ok = wrkf >= 0.5
+    if bool(ok.any()):
+        r = _max_rel([nums[ok], dens[ok]], [wnums[ok], wdens[ok]])
+        check(r <= REL_TOL, f"{label}: raw rows rel {r:.3e}")
+        rel = max(rel, r)
+    sure = (wkf - 0.5).abs() > REL_TOL * 0.5
+    capped = best >= cs.FLT_MAX
+    check(torch.equal(capped[sure], (wbest >= cs.FLT_MAX)[sure]),
+          f"{label}: FLT_MAX pattern")
+    fin = sure & ~capped & torch.isfinite(best)
+    if bool(fin.any()):
+        r = _max_rel([best[fin]], [wbest[fin]])
+        check(r <= REL_TOL, f"{label}: best rel {r:.3e}")
+        rel = max(rel, r)
+    inf = sure & ~capped & ~torch.isfinite(best)
+    check(torch.equal(best[inf], wbest[inf]), f"{label}: non-finite bests")
+    s = wnums.shape[1]
+    check(bool(((k >= 0) & (k < s)).all()), f"{label}: k out of range")
+    c = torch.where(torch.isnan(wnums / wdens) | (wrkf[:, None] < 0.5),
+                    cs.FLT_MAX, wnums / wdens)
+    at_k = c.gather(1, k[:, None].clamp(0, s - 1))[:, 0]
+    low = c.min(1).values
+    near = at_k <= low + REL_TOL * low.abs()
+    check(bool(near[sure].all()), f"{label}: k is no near-argmin on "
+          f"{int((~near[sure]).sum())} rows")
+    err = max(float((g.double() - w.double())[ok].abs().max())
+              if bool(ok.any()) else 0.0
+              for g, w in ((nums, wnums), (dens, wdens)))
+    if bool(fin.any()):
+        err = max(err, float((best - wbest)[fin].abs().max()))
+    return err, rel
+
+
+def _same_bits(a, b) -> bool:
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def _split_wrapper(dev, multi: bool, args) -> dict:
+    """The full variant's wrapper time split (host clock, median of RUNS,
+    each call synchronised): the operands' checks and inputs
+    (init_inputs), the M build (crop_score.init_records) and the launch
+    with its rows (crop_ablate.launch_ablate_init) on records built
+    beforehand; {} on the CPU."""
+    if dev.type != "cuda":
+        return {}
+    counts = dict(kernels.LAUNCHES)
+    inputs_fn = _init_fns(multi)[4]
+    inputs = inputs_fn(*args)
+    scan, cw, fold, rows, nrot = (inputs[i] for i in (5, 6, 7, 10, 11))
+    records = cs.init_records(scan, cw, fold, rows, nrot)
+    split = dict(
+        inputs_ms=wrapper_ms(lambda: inputs_fn(*args)),
+        m_build_ms=wrapper_ms(lambda: cs.init_records(scan, cw, fold, rows,
+                                                      nrot)),
+        launch_ms=wrapper_ms(lambda: ca.launch_ablate_init(
+            "full", inputs, records=records)))
+    kernels.LAUNCHES.update(counts)
+    return split
+
+
+def run_ablate_init(dev, seed: int = 0, n: int = N, cases=None):
+    """Every theta-search variant of each case (ablate_init_cases, or the
+    caller's [(label, multi, args)]), argmin and raw rows: `full` bit for
+    bit against the production kernel (tdr_crop_score[_multi]_init and
+    its raw rows), every variant against its plain version (_close_rows).
+    The argmin rows are timed; `full` also with the production kernel
+    alone and its wrapper split (_split_wrapper).  On the card every
+    variant must run one block an SM, as full does (blocks_per_sm)."""
+    recs = []
+    for label, multi, args in cases or ablate_init_cases(dev, seed, n):
+        prod, prod_raw, ablate, plain, _ = _init_fns(multi)
+        work = _init_work(args, multi)
+        want_prod = uncounted(lambda: (prod(*args), prod_raw(*args)))
+        for variant in ca.INIT_VARIANTS:
+            def run(variant=variant):
+                return ablate(variant, *args)
+
+            want, plain_ms = once(dev, lambda: plain(variant, *args))
+            want_raw = plain(variant, *args, raw=True)
+            got = run()
+            got_raw = ablate(variant, *args, raw=True)
+            name = f"ablate_init/{label}/{variant}"
+            err, rel = _close_rows(name, got, got_raw, want, want_raw)
+            if variant == "full":
+                check(all(_same_bits(g, p) for g, p in zip(
+                    (*got, *got_raw), (*want_prod[0], *want_prod[1]))),
+                      f"{name}: differs from the production kernel")
+            t = timing(dev, "crop_ablate_init", run, plain_ms)
+            ops, peak, moved, reread = _init_bound(variant, work)
+            rec = _record(
+                name, "crop_ablate_init", "tests/exp_crop_ablate.py:39",
+                ("bit for bit to the production kernel (argmin and raw "
+                 "rows); " if variant == "full" else "")
+                + f"rel <= {REL_TOL} to its plain version, k a near-argmin",
+                err, particles=int(work["counts"].sum()),
+                buckets=len(work["counts"]),
+                pixels=work["npix"].tolist(), max_rel_err=rel,
+                l2_bytes=reread,
+                l2_window_rate_ms=reread / L2_WINDOW_BYTES * 1e3)
+            if dev.type == "cuda":
+                rec["blocks_per_sm"] = ca.blocks_per_sm(variant, work["c"])
+                check(rec["blocks_per_sm"] == 1, f"{name}: "
+                      f"{rec['blocks_per_sm']} blocks an SM, not full's one")
+            if variant == "full" and dev.type == "cuda":
+                prod_t = timing(dev, "crop_score_init",
+                                lambda: prod(*args), None)
+                rec.update(production_ms=prod_t["kernel_ms"],
+                           production_tries=prod_t["profile_tries"],
+                           **_split_wrapper(dev, multi, args))
+            unit = "tflops" if ops else "tbps"
+            recs.append(_rated(rec, dev, t, ops or reread, ops, peak, moved,
+                               unit))
+    return recs
+
+
+PROBES = {"window": run_window, "mm": run_mm, "ablate": run_ablate,
+          "ablate_init": run_ablate_init}
 
 
 def run(which: str, dev, seed: int = 0, n: int = N):

@@ -1,6 +1,9 @@
-"""The tracked crop kernel with stages knocked out (the counterpart of
-tests/exp_crop_ablate.py; kernel csrc/crop_ablate.cu, whose body is the
-production kernel's, csrc/crop_tracked.cuh).
+"""The crop kernels with stages knocked out (the counterparts of
+tests/exp_crop_ablate.py in its two configurations, ABL_S_COLS 64 and
+128).
+
+K3, the tracked kernel (kernel csrc/crop_ablate.cu, whose body is the
+production kernel's, csrc/crop_tracked.cuh):
 
   crop_ablate(variant, maps, ...)         the arguments of
                                           filter/crop_score.score_tracked
@@ -27,6 +30,45 @@ the kernel (C = 3 or 6), counted in kernels.LAUNCHES["crop_ablate"].
 The plain versions of the knocked-out variants sum in float64 over the
 fold's CSR (crop_score.tracked_weights) and agree with the kernel within
 float32 summation order.
+
+K4, the theta search (kernel csrc/crop_ablate_init.cu, whose body is the
+production kernel's, csrc/crop_init.cuh):
+
+  crop_ablate_init(variant, maps, ...)        the arguments of
+                                              crop_score.score_init_sel
+  crop_ablate_multi_init(variant, pyr, ...)   those of
+                                              multiscale.score_init_multi_sel
+
+Each takes raw=False for (best, k, kf) (N,) rows, as score_init_sel, or
+raw=True for (nums, dens (N, num_rot), kf (N,)), as score_init_raw, and
+builds M, its records and the schedule with the production wrappers' code
+(crop_score.init_rows).  Each particle's window w (its P distinct pixels
+times CP channels of the compact map, zero off its level) meets M (init_m)
+as acc = A @ B over M's 88 columns, then the production epilogue; the
+variants (INIT_VARIANTS):
+  full         every stage: A = w, B = M, the kernel's three hi/lo products
+               with a fresh partial sum a chunk; equal to the production
+               kernel bit for bit, its plain version the production's
+  one_plane    A_hi B_hi only: A = bf16(w), B = bf16(M)
+  no_gather    A = the particle's centre pixel (clamped into its level)
+               for every pixel of the window, B = M
+  gather_only  no product: column n sums the window's K rows r with
+               (r % 8) // 2 == (n % 8) // 2 (the rows a thread holds), hi =
+               bf16(w) into the even columns and hi + lo (split_bf16) into
+               the odd ones
+  ring_only    no window and no product: every row of a bucket has the sum
+               of |dy| of each chunk's first pixel (K_CHUNK / CP pixels a
+               chunk) in the even columns and of |dx| in the odd ones
+  no_promote   the products summed straight into the fp32 accumulators:
+               acc = w @ M, as full, in another rounding
+On CPU tensors each runs its plain version (crop_ablate_init_plain,
+crop_ablate_multi_init_plain; public, any device: acc in float64, then the
+epilogue in float32, the first argmin of select_best); on CUDA tensors it
+launches the kernel (C = 3 or 6), counted in
+kernels.LAUNCHES["crop_ablate_init"].  The kernel takes the first shift
+within TIE_REL of the row's minimum, so where the costs tie (no_gather's
+window of one pixel gives every shift the same cost in exact arithmetic)
+its k is a near-argmin of the plain costs, not their first argmin.
 """
 
 from __future__ import annotations
@@ -43,7 +85,9 @@ from top_down_renderer_torch.filter.scoring import rotation_shift
 from top_down_renderer_torch.kernels import ptr
 
 VARIANTS = ("full", "no_fold", "no_gather", "gather_only", "fold_only")
-CLASSES = (3, 6)  # the class counts the kernel is built for
+INIT_VARIANTS = ("full", "one_plane", "no_gather", "gather_only",
+                 "ring_only", "no_promote")
+CLASSES = (3, 6)  # the class counts the kernels are built for
 _CHUNK = 4096  # particles a chunk of the plain version
 
 
@@ -222,3 +266,185 @@ def _chunk(variant, compact, lv, ctr, pix, nslot, ws, c: int, inv_tr):
     return torch.stack([(a[..., :c] * ws[..., :c]).sum((1, 2)),
                         (a[..., c] * ws[..., c]).sum(1),
                         (a[..., c] * ws[..., c + 1]).sum(1) * inv_tr], 1)
+
+
+# -- K4: the theta search ------------------------------------------------------
+def _init_variant(variant: str, num_classes: int) -> None:
+    if variant not in INIT_VARIANTS:
+        raise ValueError(f"variant must be one of {INIT_VARIANTS}, got "
+                         f"{variant}")
+    if num_classes not in CLASSES:
+        raise ValueError(f"the theta-search ablation is built for C in "
+                         f"{CLASSES}, got {num_classes}")
+
+
+def launch_ablate_init(variant, inputs, raw: bool = False, records=None):
+    """Variant `variant` of the theta search on `inputs` (init_inputs'),
+    launched as crop_score.init_rows launches the production kernel
+    (records: init_records', or None to build them)."""
+    multi = inputs[1] is not None  # a table of bucket levels
+    fn = "tdr_crop_ablate_multi_init" if multi else "tdr_crop_ablate_init"
+
+    def launch(args):
+        kernels.launch("crop_ablate_init", fn, INIT_VARIANTS.index(variant),
+                       *args, int(raw))
+        kernels.LAUNCHES["crop_ablate_init"] += 1
+
+    return cs.init_rows(launch, inputs, raw, records)
+
+
+def blocks_per_sm(variant: str, num_classes: int, raw: bool = False) -> int:
+    """The blocks of a theta-search variant an SM holds at once, at the
+    shared memory its launches ask for (the CUDA occupancy calculator's
+    figure; crop_ablate_init.cu pins every variant to one)."""
+    _init_variant(variant, num_classes)
+    blocks = ctypes.c_int(0)
+    err = kernels.load("crop_ablate_init").tdr_crop_ablate_init_blocks(
+        INIT_VARIANTS.index(variant), cs.channel_pad(num_classes), int(raw),
+        ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"tdr_crop_ablate_init_blocks: CUDA error {err}")
+    return blocks.value
+
+
+def crop_ablate_init(variant, maps, num_classes, stencil, scan,
+                     class_weights, center_px, f, num_rot: int = 40,
+                     map_resolution: float = 1.0, raw: bool = False):
+    """Variant `variant` of the uniform theta search on maps (a CropMap),
+    with score_init_sel's arguments; raw=True returns score_init_raw's
+    rows."""
+    _init_variant(variant, num_classes)
+    if not kernels.on_card(maps.packed.device, "theta-search ablation"):
+        return crop_ablate_init_plain(variant, maps, num_classes, stencil,
+                                      scan, class_weights, center_px, f,
+                                      num_rot, map_resolution, raw)
+    return launch_ablate_init(variant, cs.init_inputs(
+        maps, num_classes, stencil, scan, class_weights, center_px, f,
+        num_rot, map_resolution), raw)
+
+
+def crop_ablate_multi_init(variant, pyr, num_classes, stencil, scan,
+                           class_weights, center_px, scale, slot_vals,
+                           bucket_level, res, num_rot: int = 40,
+                           map_resolution: float = 1.0, raw: bool = False):
+    """Variant `variant` of the K-bucket theta search, with
+    score_init_multi_sel's arguments; raw=True returns
+    score_init_multi_raw's rows."""
+    _init_variant(variant, num_classes)
+    if not kernels.on_card(pyr.flat.device, "theta-search ablation"):
+        return crop_ablate_multi_init_plain(
+            variant, pyr, num_classes, stencil, scan, class_weights,
+            center_px, scale, slot_vals, bucket_level, res, num_rot,
+            map_resolution, raw)
+    return launch_ablate_init(variant, ms.init_inputs(
+        pyr, num_classes, stencil, scan, class_weights, center_px, scale,
+        slot_vals, bucket_level, res, num_rot, map_resolution), raw)
+
+
+def crop_ablate_init_plain(variant, maps, num_classes, stencil, scan,
+                           class_weights, center_px, f, num_rot: int = 40,
+                           map_resolution: float = 1.0, raw: bool = False):
+    """Plain version of crop_ablate_init (any device)."""
+    _init_variant(variant, num_classes)
+    packed = maps.packed
+    if variant == "full":
+        fn = cs.score_init_raw_plain if raw else cs.score_init_sel_plain
+        return fn(packed, num_classes, stencil, scan, class_weights,
+                  center_px, f, num_rot, map_resolution)
+    dev = packed.device
+    h, w = packed.shape[:2]
+    table = torch.tensor([[0, h, w, 0]], dtype=torch.int32, device=dev)
+    compact = cs.compact_map(packed, num_classes).reshape(h * w, -1)
+    fold = cs.fold_offsets(cs.crop_offsets(stencil, f)[None].to(dev))
+    ctr = cs.crop_centers(center_px, map_resolution).to(dev)
+    bucket = torch.zeros(ctr.shape[0], dtype=torch.int32, device=dev)
+    return ablated_init_rows(variant, compact, table, fold, ctr, bucket,
+                             scan, class_weights, num_rot, raw)
+
+
+def crop_ablate_multi_init_plain(variant, pyr, num_classes, stencil, scan,
+                                 class_weights, center_px, scale, slot_vals,
+                                 bucket_level, res, num_rot: int = 40,
+                                 map_resolution: float = 1.0,
+                                 raw: bool = False):
+    """Plain version of crop_ablate_multi_init (any device)."""
+    _init_variant(variant, num_classes)
+    if variant == "full":
+        fn = (ms.score_init_multi_raw_plain if raw
+              else ms.score_init_multi_sel_plain)
+        return fn(pyr, num_classes, stencil, scan, class_weights, center_px,
+                  scale, slot_vals, bucket_level, res, num_rot,
+                  map_resolution)
+    bucket, off, ctr, table = ms._prepare(
+        pyr, stencil, center_px, scale, slot_vals, bucket_level, res,
+        map_resolution)
+    return ablated_init_rows(variant, cs.compact_map(pyr.flat, num_classes),
+                             table, cs.fold_offsets(off), ctr, bucket, scan,
+                             class_weights, num_rot, raw)
+
+
+def ablated_init_rows(variant, compact, table, fold, ctr, bucket, scan,
+                      class_weights, num_rot: int, raw: bool):
+    """The theta-search variants' rows in plain PyTorch (module docstring):
+    compact (pixels, CP); table (K, 4) of each bucket's level (pixel offset,
+    H, W, -); fold: fold_offsets of the K offset tables; ctr (N, 2) (cy, cx)
+    on the particle's level; bucket (N,).  acc in float64, then the
+    production epilogue in float32."""
+    pix, npix, order, seg = fold
+    th, r = scan.shape[1:]
+    m = cs.init_m(scan, class_weights, order, seg, num_rot)
+    n = ctr.shape[0]
+    acc = torch.zeros((n, cs.M_COLS), dtype=torch.float64,
+                      device=compact.device)
+    bucket = bucket.long()
+    for b, lv in enumerate(table.long().tolist()):
+        rows = torch.nonzero(bucket == b)[:, 0]
+        for lo in range(0, rows.shape[0], _CHUNK):
+            idx = rows[lo:lo + _CHUNK]
+            acc[idx] = _init_acc(variant, compact, lv, pix[b].long(),
+                                 int(npix[b]), m[b], ctr[idx].long())
+    s = 2 * num_rot
+    inv_tr = float(np.float32(1.0) / np.float32(th * r))
+    nums, dens = acc[:, 0:s:2].float(), acc[:, 1:s:2].float()
+    kf = acc[:, cs.KF_COL].float() * inv_tr
+    if raw:
+        return nums, dens, kf
+    return (*cs.select_best(nums, dens, kf), kf)
+
+
+def _init_acc(variant, compact, lv, pix, npix: int, m, ctr):
+    """acc (n, M_COLS) float64 of n particles of one bucket: lv its level
+    (pixel offset, H, W, -), pix (P, 2) its pixels, npix how many are
+    real, m (P*CP, M_COLS) float32 its M, ctr (n, 2) the centres."""
+    base, h, w = lv[:3]
+    cp = compact.shape[1]
+    dev = compact.device
+    cols = torch.arange(cs.M_COLS, device=dev)
+    if variant == "ring_only":
+        per = cs.K_CHUNK // cp
+        nch = (npix * cp + cs.K_CHUNK - 1) // cs.K_CHUNK
+        dy, dx = pix[0:nch * per:per].abs().double().sum(0)
+        row = torch.where(cols % 2 == 0, dy, dx)
+        return row.expand(ctr.shape[0], -1)
+    if variant == "no_gather":
+        cy = ctr[:, 0].clamp(0, h - 1)
+        cx = ctr[:, 1].clamp(0, w - 1)
+        v = compact[base + cy * w + cx].double()  # (n, CP)
+        return v @ m.double().view(-1, cp, cs.M_COLS).sum(0)
+    iy = ctr[:, None, 0] + pix[None, :, 0]
+    ix = ctr[:, None, 1] + pix[None, :, 1]
+    valid = (iy >= 0) & (iy < h) & (ix >= 0) & (ix < w)
+    lin = base + iy.clamp(0, h - 1) * w + ix.clamp(0, w - 1)
+    a = torch.where(valid[..., None], compact[lin], 0.0).reshape(
+        ctr.shape[0], -1)  # (n, P*CP) float32
+    if variant == "one_plane":
+        return (cs.split_bf16(a)[0].double()
+                @ cs.split_bf16(m)[0].double())
+    if variant == "gather_only":
+        hi, lo = (x.double() for x in cs.split_bf16(a))
+        quad = (torch.arange(a.shape[1], device=dev) % 8) // 2
+        onehot = (quad[:, None] == torch.arange(4, device=dev)).double()
+        even, odd = hi @ onehot, (hi + lo) @ onehot  # (n, 4)
+        q = (cols % 8) // 2
+        return torch.where(cols % 2 == 0, even[:, q], odd[:, q])
+    return a.double() @ m.double()  # no_promote

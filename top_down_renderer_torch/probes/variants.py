@@ -141,9 +141,11 @@ def window_variants(dev, n: int, card: str):
                     same = torch.equal(run(), want)
                     P.check(same or tag == "stage_only",
                             f"{tag} {label}: differs from the plain version")
-                    ms = P.kernel_ms(run, P.SYMBOLS["probe_window_gather"])
+                    ms, tries = P.kernel_ms(
+                        run, P.SYMBOLS["probe_window_gather"])
                 yield dict(variant=tag, case=f"window/{where}/{label}",
-                           kernel_ms=ms, checked=tag != "stage_only",
+                           kernel_ms=ms, profile_tries=tries,
+                           checked=tag != "stage_only",
                            effective_tbps=n * rows * cols / ms / 1e9,
                            card=card)
 
@@ -199,11 +201,11 @@ def mm_variants(dev, card: str):
                 else:
                     P._close(a_type, got, mm.mm_bf16_plain(a, b),
                              mm.abs_products(a, b))
-                ms = P.kernel_ms(run, P.SYMBOLS["probe_mm"],
-                                 per_call=2 if split > 1 else 1)
+                ms, tries = P.kernel_ms(run, P.SYMBOLS["probe_mm"],
+                                        per_call=2 if split > 1 else 1)
             yield dict(variant="lockstep" if lib else "shipped",
                        case=f"theta_shape/{a_type}", rows=m, split_k=split,
-                       kernel_ms=ms, card=card)
+                       kernel_ms=ms, profile_tries=tries, card=card)
         del a8, b8, ab, bb
 
 
