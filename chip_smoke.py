@@ -22,7 +22,7 @@ Phases (any failure exits non-zero before the result line):
      kernel also runs twice on the same inputs and must return the same
      bits (here and wherever a kernel is held against its plain version),
      and the tracked kernels' offset fold (one launch) must equal
-     crop_score.fold_offsets (here, in B2 and in D); the theta search's
+     crop_score.fold_offsets (here, in B2, D and D2); the theta search's
      raw rows (its raw-row epilogue) against score_init_raw_plain: kf bit
      for bit, nums and dens within rel 1e-4, and select_init_cost of the
      kernel's rows the argmin of the theta-search kernel on >= 99.9 %;
@@ -64,7 +64,10 @@ Phases (any failure exits non-zero before the result line):
      update from the 10 hypotheses (theta search, and tracked once each
      particle has a theta), the host part of its dispatch, the fill on
      C3's last state and on 2^22 random rows, and the offset fold on the
-     clustered cell's offsets; on the clustered cloud also the conv cost
+     clustered cell's offsets (beside its bound, its floor: the device
+     time of a one-element fill under the same profiler, below which no
+     one-block launch goes) and on D2's K = 12 bucket tables (checked
+     there too); on the clustered cloud also the conv cost
      field alone (CUDA events) and the conv update beside the crop
      update; on those same 3-class inputs each crop kernel
      is held against its plain version as in B; the tracked kernel also
@@ -1023,6 +1026,26 @@ def timed(name, kernel, plain, library=None):
                 library_ms=None if library is None else median_ms(library))
 
 
+def fold_floor_ms() -> float:
+    """The device time of a one-element fill under the profiler: what a
+    launch of one small block takes at least (the fold's floor)."""
+    one = torch.zeros(1, dtype=torch.int32, device="cuda")
+    return profiled_ms("one-element fill", lambda: one.fill_(7),
+                       ("FillFunctor",))
+
+
+def fold_times(off):
+    """The fold kernel's times on the offset tables off (K, Th*R, 2),
+    its bound (the tables read once, its outputs written once) and its
+    floor (fold_floor_ms)."""
+    return dict(
+        timed("crop_fold", lambda: cs.fold_pixels(off),
+              lambda: cs.fold_offsets(off)),
+        bound=bound(0.0, nbytes(off, *cs.fold_pixels(off))),
+        floor_ms=fold_floor_ms(), tables=off.shape[0],
+    )
+
+
 def phase_d(dev, pf, world, errs):
     """Times of the known-scale cells, and kernel vs plain on the cells'
     own inputs (the 3-class drive map)."""
@@ -1089,12 +1112,7 @@ def phase_d(dev, pf, world, errs):
     pair = crop_pair(args, theta, f)
     off = cs.crop_offsets(sten, f)[None]
     check_fold("D", off)
-    pix_bytes = nbytes(*cs.fold_pixels(off))
-    out["crop_fold"] = dict(
-        timed("crop_fold", lambda: cs.fold_pixels(off),
-              lambda: cs.fold_offsets(off)),
-        bound=bound(0.0, nbytes(off) + pix_bytes),
-    )
+    out["crop_fold"] = fold_times(off)
     out["crop_score_tracked"] = dict(
         timed("crop_score_tracked", *pair[0]),
         update_ms=median_ms(tracked_update),
@@ -1186,7 +1204,11 @@ def phase_d2(dev, world, errs):
         tracked = name == MULTI[0]
         inputs = (p.pose_px(), p.scale) + ((p.theta,) if tracked else ())
         mips, _ = pyr.bucket_tables(plan.bmi)
-        npix = cs.fold_offsets(ms.bucket_offsets(sten, slots, RES, mips))[1]
+        off = ms.bucket_offsets(sten, slots, RES, mips)
+        npix = cs.fold_offsets(off)[1]
+        if "crop_fold_multi" not in out:
+            check_fold(f"D2 K={off.shape[0]}", off)
+            out["crop_fold_multi"] = fold_times(off)
         counts = torch.bincount(ms.assign_buckets(p.scale, slots).long(),
                                 minlength=len(slots))
         cells = crop_bound(pyr.flat, 3, tr, 1 if tracked else 40, inputs)
@@ -2444,6 +2466,9 @@ def main() -> int:
         if "bound_cells" in t:
             extra += (f", bound per stencil cell (the earlier basis) "
                       f"{t['bound_cells'][0]:.4f} ms")
+        if "floor_ms" in t:
+            extra += (f", {t['tables']} offset table(s), floor (a "
+                      f"one-element fill) {t['floor_ms']:.4f} ms")
         if "tracked_spread_ms" in t:
             extra += (f", the tracked kernel on the spread cloud "
                       f"{t['tracked_spread_ms']:.4f} ms")
@@ -2488,6 +2513,15 @@ def main() -> int:
                if "bound_cells" in times[name] else {}),
             **({"cases": times[name]["cases"]}
                if "cases" in times[name] else {}),
+            # the fold: its floor, and its times at D2's K tables
+            **({"floor_ms": times[name]["floor_ms"],
+                "crop_fold_multi": {
+                    k: times["crop_fold_multi"][k]
+                    for k in ("tables", "ms", "wrapper_ms", "plain_ms",
+                              "floor_ms")}
+                | {"bound_ms": times["crop_fold_multi"]["bound"][0],
+                   "bound_by": times["crop_fold_multi"]["bound"][1]}}
+               if name == "crop_fold" else {}),
             **({k: times[name][k] for k in ("ms_2p22", "plain_ms_2p22",
                                             "library_ms_2p22")}
                | {"bound_ms_2p22": times[name]["bound_2p22"][0]}

@@ -28,6 +28,7 @@ from top_down_renderer_tpu.filter.scoring import (
 )
 from top_down_renderer_torch import kernels
 from top_down_renderer_torch.filter import crop_score as cs
+from top_down_renderer_torch.filter import multiscale as ms
 from top_down_renderer_torch.filter.filter import select_init_cost
 from top_down_renderer_torch.filter.scoring import rotation_shift
 from top_down_renderer_torch.maps.polar import polar_stencil
@@ -429,6 +430,66 @@ def test_fold_csr_covers_every_cell_once_in_order(fs):
     for b in range(k):
         assert (per[b, : int(npix[b])] > 0).all()
         assert (per[b, int(npix[b]):] == 0).all()
+
+
+def _fold_numpy(off):
+    """fold_offsets' result by another route, in numpy: per table the
+    distinct rows of np.unique (row-major), and the cells by a stable
+    argsort of np.unique's inverse; P = Th*R rounded up to 16."""
+    k, tr = off.shape[:2]
+    cap = -(-tr // 16) * 16
+    pix = np.full((k, cap, 2), cs.PAD_PIX, np.int64)
+    npix = np.zeros(k, np.int64)
+    order = np.zeros(k * tr, np.int64)
+    counts = np.zeros((k, cap), np.int64)
+    for b in range(k):
+        uniq, inv = np.unique(off[b], axis=0, return_inverse=True)
+        inv = inv.reshape(-1)
+        npix[b] = len(uniq)
+        pix[b, : len(uniq)] = uniq
+        order[b * tr : (b + 1) * tr] = b * tr + np.argsort(inv, kind="stable")
+        counts[b, : len(uniq)] = np.bincount(inv)
+    seg = np.concatenate([[0], np.cumsum(counts.reshape(-1))])
+    return pix, npix, order, seg
+
+
+def _d2_offsets():
+    """The K = 12 offset tables of chip_smoke D2's buckets: the 10 scale
+    hypotheses 10^(k/10) at res 0.5."""
+    hyp = (10.0 ** (np.arange(10) / 10.0)).astype(np.float32)
+    _, slots, mips = ms.plan_buckets(hyp, R, 0.5, 10.0)
+    return ms.bucket_offsets(torch.as_tensor(STENCIL), torch.as_tensor(slots),
+                             0.5, torch.as_tensor(mips, dtype=torch.float32))
+
+
+@pytest.mark.parametrize("case", [
+    "k1_f1", "k1_f0.01", "k1_f40", "k1_f80000", "k1_negative", "k1_one_cell",
+    "k12_d2", "k12_f0.01", "k12_f40",
+])
+def test_fold_offsets_equals_numpy_unique(case):
+    """fold_offsets, the fold kernel's yardstick on the card, equals a
+    numpy fold (_fold_numpy) exactly: one table and twelve (D2's
+    buckets; 12 scales from 0.01 and from 40), every cell on one pixel
+    (f = 0.01), boxes 1,921 px and ~4e6 px a side (f = 40, 80,000),
+    every offset negative, a table of one cell."""
+    sten = torch.as_tensor(STENCIL)
+    grow = torch.tensor(10.0 ** (np.arange(12) / 10.0), dtype=torch.float32)
+    off = {
+        "k1_f1": lambda: cs.crop_offsets(sten, 1.0)[None],
+        "k1_f0.01": lambda: cs.crop_offsets(sten, 0.01)[None],
+        "k1_f40": lambda: cs.crop_offsets(sten, 40.0)[None],
+        "k1_f80000": lambda: cs.crop_offsets(sten, 80_000.0)[None],
+        "k1_negative": lambda: cs.crop_offsets(sten, 1.0)[None] - 5000,
+        "k1_one_cell": lambda: cs.crop_offsets(sten[:1, 1:2], 3.0)[None],
+        "k12_d2": _d2_offsets,
+        "k12_f0.01": lambda: cs.crop_offsets(sten, 0.01 * grow[:, None, None]),
+        "k12_f40": lambda: cs.crop_offsets(sten, 40.0 * grow[:, None, None]),
+    }[case]()
+    want = _fold_numpy(np_(off).astype(np.int64))
+    got = cs.fold_offsets(off)
+    for a, b, name in zip(got, want, ("pix", "npix", "order", "seg")):
+        assert a.dtype == torch.int32
+        np.testing.assert_array_equal(np_(a), b, err_msg=name)
 
 
 def _walk_tracked_rows(skey, n):

@@ -96,26 +96,50 @@ def _check_tracked(got, ref, n):
     np.testing.assert_array_equal(np.isnan(cost), np.isnan(rcost))
 
 
+def _fold_tables(dev, th, r, fs):
+    """(K, th*r, 2) offset tables of the polar stencil: one a scale in
+    fs, or a named case: "negative" (f = 1 moved 5,000 px up and left,
+    every offset negative), "D2" (the K = 12 tables of chip_smoke D2's
+    buckets: the 10 scale hypotheses at res 0.5)."""
+    sten = torch.as_tensor(polar_stencil(th, r), device=dev)
+    if fs == "negative":
+        return cs.crop_offsets(sten, 1.0)[None] - 5000
+    if fs == "D2":
+        hyp = (10.0 ** (np.arange(10) / 10.0)).astype(np.float32)
+        _, slots, mips = ms.plan_buckets(hyp, r, 0.5, 10.0)
+        return ms.bucket_offsets(
+            sten, torch.as_tensor(slots, device=dev), 0.5,
+            torch.as_tensor(mips, dtype=torch.float32, device=dev))
+    return cs.crop_offsets(sten, torch.tensor(fs, device=dev)[:, None, None])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("th,r,fs", [
     (TH, R, (1.0,)), (TH, R, (0.5,)), (TH, R, (0.37, 0.5, 1.0)),
     (64, 20, (0.05, 2.0)), (100, 50, (1.0,)), (7, 3, (1.0,)),
+    (TH, R, (0.01,)), (TH, R, (40.0, 80_000.0)), (TH, R, "negative"),
+    (TH, R, "D2"), (1, 1, (1.0,)), (64, 16, (1.0,)), (128, 32, (0.5,)),
+    (128, 128, (1.0,)),
 ])
 def test_fold_kernel_matches_fold_offsets(dev, th, r, fs):
-    """The fold kernel (one block per offset table, a bitonic sort in
-    shared memory) returns fold_offsets' distinct pixels and cell CSR
-    exactly: one and three tables, 21 to 5,000 cells (sorts of 32 to
-    8,192 keys), offsets near zero and out to 99 px."""
-    sten = torch.as_tensor(polar_stencil(th, r), device=dev)
-    off = cs.crop_offsets(sten, torch.tensor(fs, device=dev)[:, None, None])
+    """The fold kernel (one block per offset table, a stable radix sort
+    of each cell's index in the table's bounding box) returns
+    fold_offsets' distinct pixels and cell CSR exactly, and a second
+    call the same bits: one, three and twelve tables (D2's buckets), 1
+    to 16,384 cells (2^10, 2^12 and 2^14 exactly), offsets near zero and
+    out to 127 px, every cell on one pixel (no radix pass), boxes of
+    1,921 and 4e6 px a side (3 and 6 passes), every offset negative."""
+    off = _fold_tables(dev, th, r, fs)
     before = kernels.LAUNCHES["crop_fold"]
     got = cs.fold_pixels(off)
+    again = cs.fold_pixels(off)
     pix, npix, order, seg = cs.fold_offsets(off)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["crop_fold"] == before + 1
-    for a, b in zip(got, (pix, npix, order, seg)):
+    assert kernels.LAUNCHES["crop_fold"] == before + 2
+    for a, a2, b in zip(got, again, (pix, npix, order, seg)):
         assert a.dtype == torch.int32
         assert torch.equal(a, b.to(torch.int32))
+        assert torch.equal(a2, a)
 
 
 @pytest.mark.cuda

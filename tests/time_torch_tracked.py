@@ -1,6 +1,7 @@
 """Device time of a crop kernel on the card: the tracked kernel
-(csrc/crop_score.cu, crop_tracked_kernel) or the theta search
-(csrc/crop_score_init.cu, crop_init_kernel), uniform and K-bucket.
+(csrc/crop_score.cu, crop_tracked_kernel), the theta search
+(csrc/crop_score_init.cu, crop_init_kernel), uniform and K-bucket, or
+the offset fold both read (csrc/crop_score.cu, crop_fold_kernel).
 
 Times the kernel of the checkout at ROOT:
 
@@ -9,18 +10,22 @@ Times the kernel of the checkout at ROOT:
   init     a spread cloud of 102,400 particles over the 1024^2 3-class
            map, and the same cloud over the 10 scale hypotheses' K buckets
            at res 0.5;
+  fold     the offset tables of those two: the stencil's at f = 1 (K =
+           1, Th*R = 2,500) and the K = 12 buckets'; beside them the
+           fold's floor, a one-element fill under the same profiler;
 
 each at f = 1 (1,577 distinct stencil pixels), class weights (0.1, 1.5,
 3.0): five rounds of 20 launches under torch.profiler after 3 warm-up
 calls (chip_smoke.kernel_ms of the checkout at ROOT).  Each round's result
-must equal the first call's bit for bit, and its SHA-256 is printed, so
+must equal the first call's bit for bit (the fold's four int32 outputs
+back to back), and its SHA-256 is printed, so
 that two checkouts' results can be compared too.
 
 The tree to time is ROOT (default: this checkout); running it for two
 checkouts on one machine, in turns (parent, change, change, parent),
 compares them:
 
-    python tests/time_torch_tracked.py [--kernel tracked|init] [ROOT]
+    python tests/time_torch_tracked.py [--kernel tracked|init|fold] [ROOT]
 """
 
 from __future__ import annotations
@@ -32,7 +37,8 @@ import os
 import sys
 
 ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-ap.add_argument("--kernel", choices=("tracked", "init"), default="tracked")
+ap.add_argument("--kernel", choices=("tracked", "init", "fold"),
+                default="tracked")
 ap.add_argument("root", nargs="?", default=os.path.join(
     os.path.dirname(os.path.abspath(__file__)), ".."))
 ARGS = ap.parse_args()
@@ -46,6 +52,7 @@ import torch  # noqa: E402
 import chip_smoke as smoke  # noqa: E402
 from top_down_renderer_torch.filter import crop_score as cs  # noqa: E402
 from top_down_renderer_torch.filter import multiscale as ms  # noqa: E402
+from top_down_renderer_torch.maps.polar import polar_stencil  # noqa: E402
 from top_down_renderer_torch.testing import synthetic_setup  # noqa: E402
 
 N = 102_400
@@ -86,7 +93,23 @@ def init_cells(dev):
     }
 
 
+def fold_cells(dev):
+    sten = torch.as_tensor(polar_stencil(100, 25), device=dev)
+    hyp = (10.0 ** (np.arange(10) / 10.0)).astype(np.float32)
+    _, slots, mips = ms.plan_buckets(hyp, 25, 0.5, 10.0)
+    one = cs.crop_offsets(sten, 1.0)[None]
+    multi = ms.bucket_offsets(
+        sten, torch.as_tensor(slots, device=dev), 0.5,
+        torch.as_tensor(mips, dtype=torch.float32, device=dev))
+    cell = torch.zeros(1, dtype=torch.int32, device=dev)
+    return {"uniform": (lambda: cs.fold_pixels(one), ("crop_fold_kernel",)),
+            "buckets": (lambda: cs.fold_pixels(multi), ("crop_fold_kernel",)),
+            "floor": (lambda: (cell.fill_(7),), ("FillFunctor",))}
+
+
 def rows(out):
+    if ARGS.kernel == "fold":  # int32 buffers of several shapes
+        return torch.cat([o.reshape(-1) for o in out]).cpu()
     return torch.stack([o.float() for o in out]).cpu()
 
 
@@ -95,7 +118,8 @@ def main() -> int:
         print("time_torch_tracked: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    cells = (tracked_cells if ARGS.kernel == "tracked" else init_cells)(dev)
+    cells = {"tracked": tracked_cells, "init": init_cells,
+             "fold": fold_cells}[ARGS.kernel](dev)
     result = {"root": ROOT, "kernel": ARGS.kernel,
               "card": smoke.card_name_and_limit()}
     for label, (run, symbols) in cells.items():

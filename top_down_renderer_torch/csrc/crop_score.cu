@@ -27,9 +27,11 @@
 // classes and the known channel in CP = 2, 4 or 8 floats: one 16-byte load
 // at C <= 3):
 //   - crop_fold_kernel folds each offset table to its distinct pixels,
-//     row-major, with the CSR of each pixel's stencil cells (one block per
-//     table: a bitonic sort of (dy, dx, cell) keys in shared memory, then a
-//     block scan), the result of crop_score.fold_offsets in one launch;
+//     row-major, with the CSR of each pixel's stencil cells, the result of
+//     crop_score.fold_offsets in one launch (one block per table: a stable
+//     radix sort of each cell's index in the table's bounding box, then a
+//     block scan; bound by the latency of its barrier-separated steps, see
+//     the kernel);
 //   - the wrapper sorts the particles by group = bucket * Th + shift (one
 //     stable device sort); block i of the tracked kernel takes sorted rows
 //     [i kTile, (i + 1) kTile) and walks them run by run, one group a run;
@@ -54,6 +56,7 @@
 
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstddef>
 #include <type_traits>
 
@@ -62,8 +65,17 @@
 namespace {
 
 constexpr int kFoldThreads = 1024;  // one block per offset table
-constexpr int kPad = 1 << 29;       // (dy, dx) of a padding pixel: PAD_PIX
-constexpr int kCellBits = 20;       // cells per table < 2^20
+constexpr int kFoldWarps = kFoldThreads / 32;
+constexpr int kFoldCells = 16384;  // Th*R at most
+constexpr int kDigitBits = 8;      // the widest radix digit
+// shared memory of a fold block: two buffers of the cells in their
+// current order and each cell's rank (12 bytes a cell), then the counts
+// of every warp by digit, a row of kBins + 1 a warp (the pad spreads a
+// warp's digits over the banks); 229,504 bytes at kFoldCells, of the
+// 232,448 a block may have
+constexpr int kBins = 1 << kDigitBits;
+constexpr size_t kHistBytes = (size_t)kFoldWarps * (kBins + 1) * sizeof(int);
+constexpr int kPad = 1 << 29;  // (dy, dx) of a padding pixel: PAD_PIX
 
 // The tracked kernel: its body (crop_tracked.cuh) with every stage on.
 template <int C>
@@ -85,8 +97,10 @@ __global__ void __launch_bounds__(kThreads, 2)
                          Th, R, P, skey, perm, centers, N, inv_tr, out);
 }
 
-// Exclusive prefix sum of one int per thread over a block of kFoldThreads;
-// *total gets the block's sum.  Every thread must call it.
+// Exclusive prefix sum of one int a thread over a block of kFoldThreads,
+// with one barrier: every warp scans the warp totals itself.  *total gets
+// the block's sum.  Every thread must call it, and s_warp must not be
+// written again before the next barrier.
 __device__ __forceinline__ int block_scan(int v, int* s_warp, int* total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int x = v;
@@ -97,89 +111,186 @@ __device__ __forceinline__ int block_scan(int v, int* s_warp, int* total) {
   }
   if (lane == 31) s_warp[warp] = x;
   __syncthreads();
-  if (warp == 0) {
-    int w = s_warp[lane];
+  int w = lane < kFoldWarps ? s_warp[lane] : 0;
 #pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w += y;
-    }
-    s_warp[lane] = w;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, w, o);
+    if (lane >= o) w += y;
   }
-  __syncthreads();
-  const int excl = (warp ? s_warp[warp - 1] : 0) + x - v;
-  *total = s_warp[31];
-  __syncthreads();  // s_warp is reused by the next call
-  return excl;
+  *total = __shfl_sync(0xffffffffu, w, 31);
+  return __shfl_sync(0xffffffffu, w, warp) - s_warp[warp] + x - v;
 }
 
-// Block b folds offset table b (off (K, Th*R) int2): the keys (dy, dx,
-// cell) sorted in shared memory (bitonic, n2 = Th*R rounded up to a power
-// of two), then each new pixel numbered by a block scan.  Writes pix (K, P)
+// Block b folds offset table b (off (K, Th*R) int2).  Writes pix (K, P)
 // (PAD_PIX after the table's npix[b] pixels), npix (K), order (K*Th*R, the
 // flat cells b*Th*R + i by pixel, then cell) and seg (K*P + 1): what
-// crop_score.fold_offsets returns.
+// crop_score.fold_offsets returns, bit for bit.
+//
+// What bounds it: not bytes (~60 KB at Th*R = 2,500, 0.00002 ms at HBM
+// rate) but latency.  One block on one SM walks a chain of steps, each
+// ended by a barrier, and its 32 warps share the SM's four schedulers, so
+// every step costs a few hundred cycles even where it does little work.
+// The design keeps the chain short: 2 + 4 barriers a radix pass (10 at
+// the crop stencils' 12-bit boxes), where the bitonic sort of 64-bit (dy,
+// dx, cell) keys before it took ~90; and its loops run over the cells a
+// warp has, not unrolled over the largest table.
+//   1. One block reduction finds the table's box [ymin, ymax] x [xmin,
+//      xmax]; a cell's key is its row-major index in the box, (dy - ymin)
+//      bw + (dx - xmin), in the order of (dy, dx), with only
+//      ceil(log2(box)) bits: 12 at the crop buckets' mo <= 24, up to 44 at
+//      offsets of 2^21.
+//   2. A stable LSD radix sort of the cell indices by that key, in shared
+//      memory, the digits spread evenly over ceil(bits / 8) passes (none
+//      when every cell lies on one pixel).  A pass: each warp ranks its
+//      own run of cells, 32 at a time, against its own row of counts (no
+//      atomics), the lanes of one digit found by one ballot a digit bit
+//      (__match_any_sync was slower); one block scan over (digit, warp)
+//      turns the counts into each warp's first slot for each digit; each
+//      cell goes to its slot in the other buffer.  Cells enter in
+//      increasing order and every pass is stable, so each pixel's cells
+//      come out in increasing order: the CSR needs nothing more.  The
+//      offsets are re-read through the read-only cache rather than moved.
+//   3. One block scan numbers the distinct pixels (each thread takes a
+//      run of sorted cells), then the writes.
 __global__ void __launch_bounds__(kFoldThreads)
     crop_fold_kernel(const int2* __restrict__ off, int K, int TR, int P,
-                     int n2, int2* __restrict__ pix, int* __restrict__ npix,
+                     int2* __restrict__ pix, int* __restrict__ npix,
                      int* __restrict__ order, int* __restrict__ seg) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  unsigned long long* s_key = reinterpret_cast<unsigned long long*>(smem);
-  __shared__ int s_warp[32];
+  extern __shared__ __align__(16) int s_fold[];
+  int* s_src = s_fold;          // (TR) cells in the current order
+  int* s_dst = s_fold + TR;     // (TR) cells in the next
+  int* s_rank = s_fold + 2 * TR;  // (TR) warp rank << kDigitBits | digit
+  int* s_hist = s_fold + 3 * TR;  // (warp, digit) at warp * (nb + 1) + digit
+  __shared__ int4 s_box[kFoldWarps];
+  __shared__ int s_warp[kFoldWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int b = blockIdx.x;
   const int2* o = off + (size_t)b * TR;
-  for (int i = threadIdx.x; i < n2; i += kFoldThreads) {
-    unsigned long long k = ~0ull;  // padding sorts last
-    if (i < TR) {
-      const int2 d = o[i];
-      k = ((unsigned long long)(unsigned)(d.x + (1 << 21)) << 42) |
-          ((unsigned long long)(unsigned)(d.y + (1 << 21)) << kCellBits) |
-          (unsigned long long)i;
-    }
-    s_key[i] = k;
-  }
-  __syncthreads();
-  for (int k = 2; k <= n2; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < n2; i += kFoldThreads) {
-        const int ij = i ^ j;
-        if (ij > i) {
-          const unsigned long long a = s_key[i], c = s_key[ij];
-          if ((a > c) == ((i & k) == 0)) {
-            s_key[i] = c;
-            s_key[ij] = a;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
 
-  int count = 0;  // pixels numbered so far
-  const int base = b * TR;
-  for (int r = 0; r < TR; r += kFoldThreads) {
-    const int i = r + threadIdx.x;
-    int fresh = 0;
-    unsigned long long k = 0;
-    if (i < TR) {
-      k = s_key[i];
-      fresh = i == 0 || (k >> kCellBits) != (s_key[i - 1] >> kCellBits);
+  // 1. the box: (ymin, ymax, xmin, xmax)
+  const int4 none = make_int4(INT_MAX, INT_MIN, INT_MAX, INT_MIN);
+  int4 box = none;
+  for (int i = threadIdx.x; i < TR; i += kFoldThreads) {
+    const int2 d = __ldg(o + i);
+    box = make_int4(min(box.x, d.x), max(box.y, d.x), min(box.z, d.y),
+                    max(box.w, d.y));
+  }
+  box = make_int4(__reduce_min_sync(0xffffffffu, box.x),
+                  __reduce_max_sync(0xffffffffu, box.y),
+                  __reduce_min_sync(0xffffffffu, box.z),
+                  __reduce_max_sync(0xffffffffu, box.w));
+  if (lane == 0) s_box[warp] = box;
+  __syncthreads();
+  box = lane < kFoldWarps ? s_box[lane] : none;
+  const int ymin = __reduce_min_sync(0xffffffffu, box.x);
+  const int xmin = __reduce_min_sync(0xffffffffu, box.z);
+  const unsigned long long bw =
+      (unsigned long long)(__reduce_max_sync(0xffffffffu, box.w) - xmin) + 1;
+  const unsigned long long area =
+      ((unsigned long long)(__reduce_max_sync(0xffffffffu, box.y) - ymin) +
+       1) * bw;
+  const int bits = area > 1 ? 64 - __clzll(area - 1) : 0;
+  const int passes = (bits + kDigitBits - 1) / kDigitBits;
+  const int dbits = passes ? (bits + passes - 1) / passes : 0;
+  const int nb = 1 << dbits;  // bins of a digit
+  const unsigned mask = nb - 1;
+  // warp w ranks cells [w nch 32, (w + 1) nch 32) of the current order
+  const int nch = (TR + kFoldThreads - 1) / kFoldThreads;
+  const int w0 = warp * nch * 32, w1 = min(w0 + nch * 32, TR);
+  int* hist = s_hist + warp * (nb + 1);
+
+  // 2. the radix passes
+  for (int p = 0, shift = 0; p < passes; ++p, shift += dbits) {
+    for (int d = lane; d < nb; d += 32) hist[d] = 0;
+    __syncwarp();
+    for (int c0 = w0; c0 < w1; c0 += 32) {  // a chunk of 32 cells
+      const int i = c0 + lane;
+      const unsigned live = __ballot_sync(0xffffffffu, i < w1);
+      if (i < w1) {
+        const int2 d = __ldg(o + (p ? s_src[i] : i));
+        const unsigned long long key =
+            (unsigned long long)(d.x - ymin) * bw + (unsigned)(d.y - xmin);
+        const int dig = (int)((key >> shift) & mask);
+        unsigned peers = live;
+        for (int bit = 0; bit < dbits; ++bit) {
+          const unsigned ones = __ballot_sync(live, dig >> bit & 1);
+          peers &= (dig >> bit & 1) ? ones : ~ones;
+        }
+        const int leader = __ffs(peers) - 1;
+        int before = 0;
+        if (lane == leader) {
+          before = hist[dig];
+          hist[dig] = before + __popc(peers);
+        }
+        before = __shfl_sync(live, before, leader) +
+                 __popc(peers & ((1u << lane) - 1));
+        s_rank[i] = before << kDigitBits | dig;
+      }
+      __syncwarp();
+    }
+    __syncthreads();
+    // counts -> first slots, in (digit, warp) order: thread t takes
+    // entries [t per, (t + 1) per)
+    const int n = nb * kFoldWarps;
+    const int per = (n + kFoldThreads - 1) / kFoldThreads;
+    int sum = 0;
+    for (int q = 0; q < per; ++q) {
+      const int e = threadIdx.x * per + q;
+      if (e < n) sum += s_hist[(e % kFoldWarps) * (nb + 1) + e / kFoldWarps];
     }
     int total;
-    const int u = count + block_scan(fresh, s_warp, &total);
-    if (i < TR) {
-      const int cell = (int)(k & ((1u << kCellBits) - 1));
-      order[base + i] = base + cell;
-      if (fresh) {
-        pix[(size_t)b * P + u] = o[cell];
-        seg[(size_t)b * P + u] = base + i;
+    int run = block_scan(sum, s_warp, &total);
+    for (int q = 0; q < per; ++q) {
+      const int e = threadIdx.x * per + q;
+      if (e < n) {
+        int* h = s_hist + (e % kFoldWarps) * (nb + 1) + e / kFoldWarps;
+        const int c = *h;
+        *h = run;
+        run += c;
       }
     }
-    count += total;
+    __syncthreads();
+    for (int i = w0 + lane; i < w1; i += 32) {
+      const int r = s_rank[i];
+      s_dst[hist[r & (kBins - 1)] + (r >> kDigitBits)] = p ? s_src[i] : i;
+    }
+    int* t = s_src;
+    s_src = s_dst;
+    s_dst = t;
+    __syncthreads();
   }
-  for (int u = count + threadIdx.x; u < P; u += kFoldThreads) {
-    pix[(size_t)b * P + u] = make_int2(kPad, kPad);
-    seg[(size_t)b * P + u] = base + TR;
+
+  // 3. number the distinct pixels: thread t takes sorted cells [t nch,
+  // (t + 1) nch)
+  const int i0 = min((int)threadIdx.x * nch, TR), i1 = min(i0 + nch, TR);
+  unsigned long long fresh = 0;
+  int nfresh = 0;
+  int2 prev = make_int2(kPad, kPad);  // no offset reaches it
+  if (i0 > 0 && i0 < i1)
+    prev = __ldg(o + (passes ? s_src[i0 - 1] : i0 - 1));
+  for (int i = i0; i < i1; ++i) {
+    const int2 d = __ldg(o + (passes ? s_src[i] : i));
+    if (d.x != prev.x || d.y != prev.y) {
+      fresh |= 1ull << (i - i0);
+      ++nfresh;
+    }
+    prev = d;
+  }
+  int count;
+  int u = block_scan(nfresh, s_warp, &count);
+  const int base = b * TR;
+  for (int i = i0; i < i1; ++i) {
+    if (fresh >> (i - i0) & 1) {
+      pix[(size_t)b * P + u] = __ldg(o + (passes ? s_src[i] : i));
+      seg[(size_t)b * P + u] = base + i;
+      ++u;
+    }
+  }
+  for (int i = threadIdx.x; i < TR; i += kFoldThreads)
+    order[base + i] = base + (passes ? s_src[i] : i);
+  for (int v = count + threadIdx.x; v < P; v += kFoldThreads) {
+    pix[(size_t)b * P + v] = make_int2(kPad, kPad);
+    seg[(size_t)b * P + v] = base + TR;
   }
   if (threadIdx.x == 0) {
     npix[b] = count;
@@ -229,18 +340,18 @@ int by_classes(int C, F&& f) {
 // Plain C entry points (loaded with ctypes).  Each returns the CUDA error of
 // its launch (0 on success); none allocates or synchronises.
 
-// off (K, Th*R) int2 offset tables, TR = Th*R < 2^20, P >= TR; out holds
+// off (K, Th*R) int2 offset tables, TR = Th*R <= kFoldCells = 16,384 (the
+// bitonic kernel before it took as many, its 64-bit keys filling 128 KB of
+// shared memory), offsets |d| < 2^21, P >= TR; out holds
 // pix (K, P) int2, seg (K*P + 1), order (K*Th*R) and npix (K), int32, back
 // to back.
 extern "C" int tdr_crop_fold(const int* off, int K, int TR, int P, int* out,
                              void* stream) {
   static int ready_dev = -1;
   static size_t ready_smem = 0;
-  if (K < 1 || TR < 1 || TR >= (1 << kCellBits) || P < TR)
+  if (K < 1 || TR < 1 || TR > kFoldCells || P < TR)
     return (int)cudaErrorInvalidValue;
-  int n2 = 1;
-  while (n2 < TR) n2 <<= 1;
-  const size_t smem = (size_t)n2 * sizeof(unsigned long long);
+  const size_t smem = (size_t)TR * 3 * sizeof(int) + kHistBytes;
   const cudaError_t err =
       opt_in_smem(crop_fold_kernel, smem, &ready_dev, &ready_smem);
   if (err != cudaSuccess) return (int)err;
@@ -250,8 +361,7 @@ extern "C" int tdr_crop_fold(const int* off, int K, int TR, int P, int* out,
   int* npix = order + (size_t)K * TR;
   crop_fold_kernel<<<K, kFoldThreads, smem,
                      static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const int2*>(off), K, TR, P, n2, pix, npix, order,
-      seg);
+      reinterpret_cast<const int2*>(off), K, TR, P, pix, npix, order, seg);
   return (int)cudaGetLastError();
 }
 

@@ -333,8 +333,10 @@ def fold_pixels(off: torch.Tensor):
     """The distinct pixels of the offset tables off (K, Th*R, 2) int32 and
     the CSR of their cells: (pix, npix, order, seg), as fold_offsets
     returns them.  On the card one launch of the fold kernel
-    (csrc/crop_score.cu, counted as "crop_fold") writes them into one
-    buffer; on the CPU it is fold_offsets itself."""
+    (csrc/crop_score.cu, counted as "crop_fold"; one block a table, a
+    stable radix sort of the cells by their index in the table's box,
+    Th*R <= 16,384) writes them into one buffer, bit for bit
+    fold_offsets'; on the CPU it is fold_offsets itself."""
     k, tr = off.shape[:2]
     if not kernels.on_card(off.device, "offset fold"):
         return fold_offsets(off)
