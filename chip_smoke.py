@@ -14,7 +14,9 @@ Phases (any failure exits non-zero before the result line):
      variant of K4, its HGMMA, global loads, bulk copies and mbarrier
      operations: the variants that keep a product hold HGMMA (one_plane a
      third of full's), gather_only and ring_only none, gather_only every
-     window load and ring_only none of them;
+     window load and ring_only none of them; and, per instantiation of the
+     theta search, its HGMMA and global loads: each code-map twin
+     (crop_init_i4_kernel) two thirds of its float twin's HGMMA;
   B. the uniform crop kernels against their plain PyTorch versions on
      the same card tensors at the slice's shapes: 102,400 particles, a
      1024^2 map with 6 classes (8 packed channels), Th x R = 100 x 25,
@@ -31,6 +33,14 @@ Phases (any failure exits non-zero before the result line):
      levels the dispatch picks), and per bucket against the uniform
      kernel on that bucket's mip level; the K-bucket raw rows as in B;
      the fill kernel against its plain version;
+  B3. the crop kernels on the nibble-packed code map (TDR_MAP_INT4=1;
+     CropMap(int4=True), build_pyramid_maps(int4=True)) at B's inputs
+     (6 classes: 4 code bytes a pixel), f = 1.0 and 0.5, against their
+     plain versions (the float plain versions on the dequantized codes)
+     as in B, and the K-bucket ones on B2's 10 hypotheses (one
+     quantization of the full map, every level its subsample) as in B2,
+     per bucket against the uniform code kernel on the bucket's level of
+     the code pyramid;
   C. the known-scale main path through the public entry points: the
      consumer drive (2,048 particles, 30 scans, must converge) and 20
      updates of 102,400 particles on a 1024^2 map from a spread init;
@@ -54,6 +64,13 @@ Phases (any failure exits non-zero before the result line):
      must take the conv path (one cost field, no crop launch), and a
      second run from the same state and generator seed must end in the
      same state bit for bit;
+  C5. the main path on the code map, the filter's map_int4=True: C's 20
+     known-scale updates from a spread init, each planned crop update
+     launching its code kernel (crop_score_tracked_i4 or
+     crop_score_init_i4) and no float crop kernel, each conv update no
+     crop kernel, on the float32 conv map; then C2's 20 unknown-scale
+     updates standing, each launching a K-bucket code kernel and no
+     float one;
   D. each kernel's own device time (20 launches under torch.profiler,
      after 3 warm-up calls), and median host-clock times (3 warm-up, 20
      timed, synchronised) of its wrapper, its plain version, the PyTorch
@@ -74,7 +91,11 @@ Phases (any failure exits non-zero before the result line):
      runs on the spread cloud (tiles over all 100 shifts); the lines of
      the crop kernels give the distinct pixels of their stencil (per
      bucket on the K-bucket path), the pixels each particle reads;
-     the raw-row kernels on the theta searches' inputs;
+     the raw-row kernels on the theta searches' inputs; and each code-map
+     kernel (the filter map's or pyramid's codes, C = 3: 2 bytes a pixel)
+     beside its float twin on the same cell, kernel, wrapper and plain
+     times, its map operand's bytes and its bound with the map at those
+     bytes, held against its plain version as in B;
   M1. the multi-device filter (ParticleFilter(mesh=...)) on a world-1
      NCCL mesh on the card, 102,400 particles on the 1024^2 map: (a) ten
      unknown-scale updates standing (the K-bucket theta search through
@@ -86,7 +107,9 @@ Phases (any failure exits non-zero before the result line):
      (max_likelihood rtol 1e-4, atol 1e-5), each update's plan and
      launches checked, the dispatch keys equal to the plans; then the
      mesh update against the single-device one by host clock, (a)'s theta
-     search and (b)'s conv update;
+     search and (b)'s conv update; and two K-bucket updates on the code
+     pyramid (map_int4=True), the mesh's raw rows through
+     crop_score_multi_init_raw_i4, then tracked, held to one device's;
   M2. the same three on two ranks over gloo on the one card (two
      processes; collectives through host memory), held against M1 at the
      same tolerance (their times are not the card's mesh times);
@@ -268,6 +291,10 @@ FILL_SRC = "top_down_renderer_torch/csrc/fill_rows.cu"
 # in either of the demangler's spellings
 _ARGMIN = ("crop_init_kernel<4, false>", "crop_init_kernel<4, (bool)0>")
 _RAW = ("crop_init_kernel<4, true>", "crop_init_kernel<4, (bool)1>")
+# their twins on the nibble-packed code map (TDR_MAP_INT4=1)
+_ARGMIN_I4 = ("crop_init_i4_kernel<4, false>",
+              "crop_init_i4_kernel<4, (bool)0>")
+_RAW_I4 = ("crop_init_i4_kernel<4, true>", "crop_init_i4_kernel<4, (bool)1>")
 SYMBOLS = {
     "crop_fold": ("crop_fold_kernel",),
     "crop_score_tracked": ("crop_tracked_kernel<3>",),
@@ -276,6 +303,12 @@ SYMBOLS = {
     "crop_score_multi_init": _ARGMIN,
     "crop_score_init_raw": _RAW,
     "crop_score_multi_init_raw": _RAW,
+    "crop_score_tracked_i4": ("crop_tracked_i4_kernel<3>",),
+    "crop_score_init_i4": _ARGMIN_I4,
+    "crop_score_init_raw_i4": _RAW_I4,
+    "crop_score_multi_tracked_i4": ("crop_tracked_i4_kernel<3>",),
+    "crop_score_multi_init_i4": _ARGMIN_I4,
+    "crop_score_multi_init_raw_i4": _RAW_I4,
     "fill_rows": ("fill_rows_kernel",),
 }
 # name -> (source, the TPU kernel it replaces)
@@ -297,6 +330,20 @@ KERNELS = {
         INIT_SRC, "top_down_renderer_tpu/filter/pallas_score.py:693"),
     "crop_score_multi_init_raw": (
         INIT_SRC, "top_down_renderer_tpu/filter/multiscale.py:363"),
+    # the same TPU kernel's nibble-packed configuration (TDR_MAP_INT4=1,
+    # its `i4` layout), on the same bodies reading the code map
+    "crop_score_tracked_i4": (
+        CROP_SRC, "top_down_renderer_tpu/filter/pallas_score.py:693"),
+    "crop_score_init_i4": (
+        INIT_SRC, "top_down_renderer_tpu/filter/pallas_score.py:693"),
+    "crop_score_init_raw_i4": (
+        INIT_SRC, "top_down_renderer_tpu/filter/pallas_score.py:693"),
+    "crop_score_multi_tracked_i4": (
+        CROP_SRC, "top_down_renderer_tpu/filter/multiscale.py:444"),
+    "crop_score_multi_init_i4": (
+        INIT_SRC, "top_down_renderer_tpu/filter/multiscale.py:363"),
+    "crop_score_multi_init_raw_i4": (
+        INIT_SRC, "top_down_renderer_tpu/filter/multiscale.py:363"),
     "fill_rows": (FILL_SRC, "top_down_renderer_tpu/filter/resample.py:116"),
     # the probes (phase P): each replaces several TPU probe kernels, each
     # case of its line names its own
@@ -317,7 +364,9 @@ PROBE_HEADLINE = {"crop_ablate": "ablate/D clustered C=3/full",
                   "probe_window_gather": "window/l2/strided",
                   "probe_mm": "theta_shape/s8"}
 RAW = ("crop_score_init_raw", "crop_score_multi_init_raw")
-INIT = ("crop_score_init", "crop_score_multi_init") + RAW
+RAW_I4 = tuple(k + "_i4" for k in RAW)
+INIT = (("crop_score_init", "crop_score_multi_init") + RAW
+        + ("crop_score_init_i4", "crop_score_multi_init_i4") + RAW_I4)
 # published H100 SXM peaks (dense): float32 outside the tensor cores, bf16
 # on them, HBM
 PEAK_F32_FLOPS = 67e12
@@ -433,6 +482,37 @@ def log_ablate_init_sass() -> dict:
     return counts
 
 
+_INIT_FN = re.compile(
+    r"Function : \S*(crop_init(?:_i4)?_kernel)ILi(\d)ELb(\d)E")
+
+
+def log_init_sass() -> dict:
+    """Count, per instantiation of the theta search (crop_init_kernel on
+    the float map, crop_init_i4_kernel on the code map; CP 2, 4, 8 x
+    argmin, raw), its tensor-core products (HGMMA) and global loads (LDG):
+    each code twin holds HGMMA, two thirds of its float twin's (its A, the
+    codes, is exact in bf16: no A_lo product)."""
+    counts, current = {}, None
+    for line in read_sass("crop_score_init").splitlines():
+        if "Function :" in line:
+            hit = _INIT_FN.search(line)
+            current = hit.groups() if hit else None
+            if current:
+                counts[current] = dict.fromkeys(("HGMMA", "LDG"), 0)
+        elif current:
+            for op in ("HGMMA", "LDG"):
+                counts[current][op] += f" {op}" in line
+    twins = [(k, ("crop_init_kernel",) + k[1:]) for k in counts
+             if k[0] == "crop_init_i4_kernel"]
+    check(len(twins) == 6 and all(
+        3 * counts[a]["HGMMA"] == 2 * counts.get(b, {}).get("HGMMA", -1) > 0
+        for a, b in twins), f"crop_score_init's HGMMA by kernel: {counts}")
+    for (fn, cp, raw), c in sorted(counts.items()):
+        log(f"[A] crop_score_init {fn} (CP {cp}, "
+            f"{'raw' if raw == '1' else 'argmin'}): {c}")
+    return counts
+
+
 def max_rel(ref: torch.Tensor, got: torch.Tensor) -> float:
     return float(((got - ref).abs() / ref.abs().clamp(min=1e-9)).max())
 
@@ -530,30 +610,40 @@ def check_fold(label, off) -> None:
 
 def crop_pair(args, theta, f):
     """(tracked, init) kernel/plain call pairs of the uniform crop path;
-    args[0] is the map's CropMap, as the filter passes it."""
+    args[0] is the map's CropMap, as the filter passes it (the plain
+    versions score maps.plain: the dequantized codes of a code map)."""
     maps, rest = args[0], args[1:]
+    plain = maps.plain(rest[0]).packed
     return (
         (lambda: cs.score_tracked(maps, *rest, theta, f),
-         lambda: cs.score_tracked_plain(maps.packed, *rest, theta, f)),
+         lambda: cs.score_tracked_plain(plain, *rest, theta, f)),
         (lambda: cs.score_init_sel(maps, *rest, f),
-         lambda: cs.score_init_sel_plain(maps.packed, *rest, f)),
+         lambda: cs.score_init_sel_plain(plain, *rest, f)),
     )
+
+
+def plain_args(args):
+    """The K-bucket arguments with the pyramid the plain versions score."""
+    return (args[0].plain(args[1]),) + tuple(args[1:])
 
 
 def multi_pair(args, theta, scale, slots, bmi):
     """(tracked, init) kernel/plain call pairs of the K-bucket path."""
+    plain = plain_args(args)
     return (
         (lambda: ms.score_tracked_multi(*args, theta, scale, slots, bmi, RES),
-         lambda: ms.score_tracked_multi_plain(*args, theta, scale, slots,
+         lambda: ms.score_tracked_multi_plain(*plain, theta, scale, slots,
                                               bmi, RES)),
         (lambda: ms.score_init_multi_sel(*args, scale, slots, bmi, RES),
-         lambda: ms.score_init_multi_sel_plain(*args, scale, slots, bmi,
+         lambda: ms.score_init_multi_sel_plain(*plain, scale, slots, bmi,
                                                RES)),
     )
 
 
 CROP = ("crop_score_tracked", "crop_score_init")
 MULTI = ("crop_score_multi_tracked", "crop_score_multi_init")
+CROP_I4 = tuple(k + "_i4" for k in CROP)  # on the code map
+MULTI_I4 = tuple(k + "_i4" for k in MULTI)
 FOLD = ("crop_fold",)  # launched by both tracked wrappers
 
 
@@ -587,16 +677,18 @@ def raw_triple(args, f):
     """(raw kernel, plain, argmin kernel) calls of the uniform theta
     search; args[0] is the map's CropMap."""
     maps, rest = args[0], args[1:]
+    plain = maps.plain(rest[0]).packed
     return (lambda: cs.score_init_raw(maps, *rest, f),
-            lambda: cs.score_init_raw_plain(maps.packed, *rest, f),
+            lambda: cs.score_init_raw_plain(plain, *rest, f),
             lambda: cs.score_init_sel(maps, *rest, f))
 
 
 def multi_raw_triple(args, scale, slots, bmi):
     """(raw kernel, plain, argmin kernel) calls of the K-bucket theta
     search."""
+    plain = plain_args(args)
     return (lambda: ms.score_init_multi_raw(*args, scale, slots, bmi, RES),
-            lambda: ms.score_init_multi_raw_plain(*args, scale, slots, bmi,
+            lambda: ms.score_init_multi_raw_plain(*plain, scale, slots, bmi,
                                                   RES),
             lambda: ms.score_init_multi_sel(*args, scale, slots, bmi, RES))
 
@@ -637,36 +729,7 @@ def phase_b2(dev, errs, b_args, theta):
     compare_raw("B2 multi raw", errs, RAW[1],
                 *multi_raw_triple(args, scale, slots_t, bmi))
 
-    tr = ms.score_tracked_multi(*args, theta, scale, slots_t, bmi, RES)
-    ini = ms.score_init_multi_sel(*args, scale, slots_t, bmi, RES)
-    bucket = ms.assign_buckets(scale, slots_t)
-    f_eff = slots_t * torch.tensor(RES, device=dev) / mips_t
-    for b in range(len(slots)):
-        sel = bucket == b
-        if not bool(sel.any()):
-            continue
-        level = pyr.level_map(bmi[b])
-        mres = float(levels[bmi[b]])
-        u_args = (level, C, sten, scan, cw, ctr[sel])
-        u_tr = cs.score_tracked(cs.CropMap(level), *u_args[1:], theta[sel],
-                                f_eff[b], mres)
-        u_in = cs.score_init_sel(cs.CropMap(level), *u_args[1:], f_eff[b],
-                                 40, mres)
-        torch.cuda.synchronize()
-        label = f"B2 bucket {b} (mip {levels[bmi[b]]})"
-        check(torch.equal(u_tr[2], tr[2][sel]), f"{label}: kf differs")
-        ok = u_tr[2] >= 0.5
-        for i, name in ((0, "cost"), (1, "norm")):
-            rel = max_rel(u_tr[i][ok], tr[i][sel][ok])
-            check(rel <= REL_TOL, f"{label}: tracked {name} rel {rel}")
-        fin = u_in[0] < cs.FLT_MAX
-        check(torch.equal(fin, ini[0][sel] < cs.FLT_MAX),
-              f"{label}: FLT_MAX pattern")
-        rel = max_rel(u_in[0][fin], ini[0][sel][fin])
-        check(rel <= REL_TOL, f"{label}: init best rel {rel}")
-        check(float((u_in[1] == ini[1][sel]).float().mean()) >= 0.999,
-              f"{label}: init argmin")
-    log(f"[B2] every bucket equals the uniform kernel on its level")
+    check_buckets("B2", args, theta, scale, slots_t, bmi, levels)
 
     rng = np.random.default_rng(2)
     rows = torch.as_tensor(rng.random((N, 8)).astype(np.float32), device=dev)
@@ -684,6 +747,86 @@ def phase_b2(dev, errs, b_args, theta):
         check(torch.equal(got, ref), "fill kernel differs from plain")
     errs["abs"]["fill_rows"] = 0.0
     log("[B2] fill kernel equals its plain version bit for bit")
+
+
+def check_buckets(label, args, theta, scale, slots_t, bmi, levels) -> None:
+    """Per bucket, the K-bucket kernels (args: their arguments before
+    theta) against the uniform kernels on the bucket's level
+    (PyramidMaps.level_crop_map: for a code pyramid, the pyramid's codes
+    of that level): kf bit for bit, costs within REL_TOL, the argmin on
+    99.9 %."""
+    pyr, c, sten, scan, cw, ctr = args
+    dev = ctr.device
+    tr = ms.score_tracked_multi(*args, theta, scale, slots_t, bmi, RES)
+    ini = ms.score_init_multi_sel(*args, scale, slots_t, bmi, RES)
+    mips_t, _ = pyr.bucket_tables(bmi)
+    bucket = ms.assign_buckets(scale, slots_t)
+    f_eff = slots_t * torch.tensor(RES, device=dev) / mips_t
+    for b in range(len(slots_t)):
+        sel = bucket == b
+        if not bool(sel.any()):
+            continue
+        level = pyr.level_crop_map(bmi[b])
+        mres = float(levels[bmi[b]])
+        u_args = (c, sten, scan, cw, ctr[sel])
+        u_tr = cs.score_tracked(level, *u_args, theta[sel], f_eff[b], mres)
+        u_in = cs.score_init_sel(level, *u_args, f_eff[b], 40, mres)
+        torch.cuda.synchronize()
+        lab = f"{label} bucket {b} (mip {levels[bmi[b]]})"
+        check(torch.equal(u_tr[2], tr[2][sel]), f"{lab}: kf differs")
+        ok = u_tr[2] >= 0.5
+        for i, name in ((0, "cost"), (1, "norm")):
+            rel = max_rel(u_tr[i][ok], tr[i][sel][ok])
+            check(rel <= REL_TOL, f"{lab}: tracked {name} rel {rel}")
+        fin = u_in[0] < cs.FLT_MAX
+        check(torch.equal(fin, ini[0][sel] < cs.FLT_MAX),
+              f"{lab}: FLT_MAX pattern")
+        rel = max_rel(u_in[0][fin], ini[0][sel][fin])
+        check(rel <= REL_TOL, f"{lab}: init best rel {rel}")
+        check(float((u_in[1] == ini[1][sel]).float().mean()) >= 0.999,
+              f"{lab}: init argmin")
+    log(f"[{label}] every bucket equals the uniform kernel on its level")
+
+
+def phase_b3(dev, errs, b_args, theta):
+    """The crop kernels on the nibble-packed code map (TDR_MAP_INT4=1) at
+    phase B's inputs (6 classes, 4 code bytes a pixel): each against its
+    plain version (the float plain version on the dequantized map) as in
+    B, f = 1.0 and 0.5, and the K-bucket ones on B2's 10 hypotheses
+    (one quantization of the full-resolution map, every level its
+    subsample) against theirs and, per bucket, against the uniform code
+    kernel on the bucket's level of the code pyramid."""
+    maps, c, sten, scan, cw, ctr = b_args
+    maps = cs.CropMap(maps.packed, int4=True)
+    codes = maps.codes(c)
+    check(codes.dtype == torch.uint8
+          and codes.shape == (HW, HW, cs.channel_pad(c) // 2),
+          f"B3: code map {codes.dtype} {tuple(codes.shape)}")
+    log(f"[B3] code map {tuple(codes.shape)} uint8 ({nbytes(codes) / 2**20:.1f}"
+        f" MiB; the float compact map {nbytes(maps.compact(c)) / 2**20:.1f} "
+        f"MiB), qinv {[round(float(q), 6) for q in maps.qinv]}")
+    args = (maps, c, sten, scan, cw, ctr)
+    for f in (1.0, 0.5):
+        compare(f"B3 C={c} f={f}", errs, CROP_I4, *crop_pair(args, theta, f),
+                need_gated=True)
+        compare_raw(f"B3 raw C={c} f={f}", errs, RAW_I4[0],
+                    *raw_triple(args, f))
+
+    hyp, slots, levels, bmi = init_plan()
+    pyr = ms.build_pyramid_maps(maps.packed, levels, int4=True)
+    check(torch.equal(pyr.qinv, maps.qinv),
+          "B3: the code pyramid's qinv is not the full map's")
+    scale = torch.as_tensor(np.tile(hyp, N // 10), device=dev)
+    ctr = ctr.clone()
+    ctr[6:10] = torch.tensor([[HW + 40.0, 500.0], [500.0, HW + 90.0],
+                              [-60.0, 300.0], [300.0, -50.0]], device=dev)
+    slots_t = torch.as_tensor(slots, device=dev)
+    args = (pyr, c, sten, scan, cw, ctr)
+    compare("B3 multi", errs, MULTI_I4,
+            *multi_pair(args, theta, scale, slots_t, bmi), need_gated=True)
+    compare_raw("B3 multi raw", errs, RAW_I4[1],
+                *multi_raw_triple(args, scale, slots_t, bmi))
+    check_buckets("B3", args, theta, scale, slots_t, bmi, levels)
 
 
 def big_filter(dev, **params):
@@ -785,11 +928,15 @@ def phase_c(dev):
     return pf, world
 
 
-def multi_run(dev, world, move):
+def multi_run(dev, world, move, map_int4=False):
     """20 unknown-scale updates at 102,400 particles from a spread init:
     (the dispatch's plan of each update, the updates that ran the exact
-    step, the multi launches (tracked, init) of each update)."""
-    pf, _ = make_filter(dev, N, seed=0, world=world, fixed_scale=-1.0)
+    step, the multi launches (tracked, init) of each update).  map_int4:
+    the filter's; its code kernels' launches are returned, and no float
+    K-bucket kernel may launch."""
+    pf, _ = make_filter(dev, N, seed=0, world=world, fixed_scale=-1.0,
+                        map_int4=map_int4)
+    names = MULTI_I4 + MULTI if map_int4 else MULTI
     exact, plans = [], []
     step_fn, multi_mode = pf._update_fn, pf._multi_mode
 
@@ -803,11 +950,16 @@ def multi_run(dev, world, move):
 
     pf._update_fn, pf._multi_mode = exact_step, planned
     try:
-        per, ml = run_updates(pf, world, dev, 20, MULTI, move)
+        per, ml = run_updates(pf, world, dev, 20, names, move)
     finally:
         pf._update_fn, pf._multi_mode = step_fn, multi_mode
-    label = "C2 moving" if move else "C2 standing"
-    per = per[:, :-1]  # no conv cost field under an unknown scale
+    label = ("C5" if map_int4 else "C2") + (" moving" if move else
+                                            " standing")
+    if map_int4:
+        check(not per[:, 2:].any(), f"{label}: float K-bucket launches or "
+              f"conv cost fields {per.tolist()}")
+    per = per[:, :2]  # the filter's own kernels; no conv cost field under
+    # an unknown scale
     for i, (plan, (t, n)) in enumerate(zip(plans, per)):
         log(f"[{label}] update {i}: " + (
             "exact gather" if plan is None else
@@ -862,6 +1014,40 @@ def phase_c2(dev, world):
     if drv.scale() > 0:
         check(abs(drv.scale() - SCALE_GT) / SCALE_GT < 0.1,
               f"frozen scale {drv.scale()}")
+
+
+def phase_c5(dev, world):
+    """The main path on the nibble-packed map, the filter's map_int4=True
+    (TDR_MAP_INT4=1 through the argument): 20 known-scale updates of
+    102,400 particles from a spread init, driving, as in C, each planned
+    crop update launching its code kernel and no float crop kernel, each
+    conv update no crop kernel, on the float32 conv map; then 20
+    unknown-scale updates standing, as in C2, each launching a K-bucket
+    code kernel and no float one."""
+    pf, _ = make_filter(dev, N, seed=0, world=world, map_int4=True)
+    with PlanLog() as plans:
+        per, ml = run_updates(pf, world, dev, 20, CROP_I4 + CROP)
+    check(not per[:, 2:4].any(),
+          f"C5: float crop launches per update {per.tolist()}")
+    check_paths("C5 102,400", plans, per[:, :2].sum(1), per[:, -1])
+    crop = [p for p in plans if p.path == "crop"]
+    check(crop and all(pf._get_map(p.mip).int4 for p in crop),
+          f"C5: crop plans {crop} on a float map")
+    if any(p.path == "conv" for p in plans):
+        got = pf._get_conv_map().padded
+        want = conv_score.ConvMap(cs.compact_map(
+            pf.map.grid.dist.to(dev), 3)).padded
+        check(got.dtype == torch.float32 and torch.equal(got, want),
+              "C5: the conv path's map is not the float32 one")
+        log("[C5] the conv updates read the float32 conv map")
+    log(f"[C5] 20 updates on the code map at {N} particles: n_active "
+        f"{pf.num_particles()}, ml {np.round(ml, 3).tolist()}")
+    expect = {"init": [0, 1], "tracked": [1, 0], "mixed": [1, 1]}
+    plans, exact, per = multi_run(dev, world, False, map_int4=True)
+    check(all(p is not None for p in plans) and not exact
+          and all(per[i].tolist() == expect[p.mode]
+                  for i, p in enumerate(plans)),
+          f"C5 standing: exact steps {exact}, launches {per.tolist()}")
 
 
 def phase_c3(dev, world):
@@ -990,19 +1176,22 @@ def pixel_bound(compact, c, npix, counts, inputs):
     return bound(ops, nbytes(compact, *inputs) + n * 12)
 
 
-def tc_bound(compact, c, shifts, npix, counts, inputs, out_floats=3):
+def tc_bound(compact, c, shifts, npix, counts, inputs, out_floats=3,
+             products=3):
     """The theta search on bf16 tensor cores, counting the products the
     inputs need, not the dense ones the kernel runs: M has C S + S + 1
     nonzero entries per distinct pixel (S cost columns on each class
     channel; S norm columns and the kf column on the known channel), and
-    each costs three split products of 2 FLOPs per particle of its bucket
-    (npix (K,) distinct pixels, counts (K,) particles per bucket); the
-    compact map, M's nonzero hi and lo entries and the per-particle
-    inputs read once, (N, out_floats) float32 written: 3 for the argmin,
-    2 S + 1 for the raw rows."""
+    each costs `products` split products of 2 FLOPs per particle of its
+    bucket (npix (K,) distinct pixels, counts (K,) particles per bucket):
+    three on the float map (A_hi B_hi, A_hi B_lo, A_lo B_hi), two on the
+    code map, whose codes are exact in bf16 (no A_lo); the compact map,
+    M's nonzero hi and lo entries and the per-particle inputs read once,
+    (N, out_floats) float32 written: 3 for the argmin, 2 S + 1 for the
+    raw rows."""
     nnz = (c * shifts + shifts + 1) * npix.double().cpu()
     n = int(counts.sum())
-    ops = 6.0 * float((counts.double().cpu() * nnz).sum())
+    ops = 2.0 * products * float((counts.double().cpu() * nnz).sum())
     moved = (nbytes(compact, *inputs) + float(nnz.sum()) * 4
              + n * 4 * out_floats)
     return bound(ops, moved, PEAK_BF16_FLOPS)
@@ -1093,6 +1282,32 @@ def phase_d(dev, pf, world, errs):
         pixels=int(npix[0]),
     )
     compare_raw("D spread raw, C=3", errs, RAW[0], *raw)
+    # the code kernels on the same cell: the same map quantized
+    # (TDR_MAP_INT4=1), 2 bytes a pixel where the compact map takes 16
+    cmap4 = cs.CropMap(maps, int4=True)
+    codes = cmap4.codes(3)
+    args4 = (cmap4, 3, sten, scan, cw, ctr)
+    pair4 = crop_pair(args4, spread.particles.theta, f)
+    out["crop_score_init"]["map_bytes"] = nbytes(cmap.compact(3))
+    out["crop_score_init_i4"] = dict(
+        timed("crop_score_init_i4", *pair4[1]),
+        bound=tc_bound(codes, 3, 40, npix, one, (ctr,), products=2),
+        bound_f32=crop_bound(codes, 3, tr, 40, (ctr,)),
+        tracked_spread_ms=profiled_ms("tracked i4 on the spread cloud",
+                                      pair4[0][0],
+                                      SYMBOLS["crop_score_tracked_i4"]),
+        pixels=int(npix[0]), map_bytes=nbytes(codes),
+    )
+    compare("D spread i4, C=3", errs, CROP_I4, *pair4)
+    raw4 = raw_triple(args4, f)
+    out["crop_score_init_raw_i4"] = dict(
+        timed("crop_score_init_raw_i4", *raw4[:2]),
+        bound=tc_bound(codes, 3, 40, npix, one, (ctr,), 81,
+                       products=2),
+        bound_f32=crop_bound(codes, 3, tr, 40, (ctr,)),
+        pixels=int(npix[0]), map_bytes=nbytes(codes),
+    )
+    compare_raw("D spread raw i4, C=3", errs, RAW_I4[0], *raw4)
 
     clustered = clustered_state(dev)
     ctr = clustered.particles.pose_px()
@@ -1118,9 +1333,17 @@ def phase_d(dev, pf, world, errs):
         update_ms=median_ms(tracked_update),
         bound=pixel_bound(cmap.compact(3), 3, npix, one, (ctr, theta)),
         bound_cells=crop_bound(maps, 3, tr, 1, (ctr, theta)),
-        pixels=int(npix[0]),
+        pixels=int(npix[0]), map_bytes=nbytes(cmap.compact(3)),
     )
     compare("D clustered, C=3", errs, CROP, *pair)
+    pair4 = crop_pair((cmap4, 3, sten, scan, cw, ctr), theta, f)
+    out["crop_score_tracked_i4"] = dict(
+        timed("crop_score_tracked_i4", *pair4[0]),
+        bound=pixel_bound(codes, 3, npix, one, (ctr, theta)),
+        bound_cells=crop_bound(codes, 3, tr, 1, (ctr, theta)),
+        pixels=int(npix[0]), map_bytes=nbytes(codes),
+    )
+    compare("D clustered i4, C=3", errs, CROP_I4, *pair4)
     gmm_ms = median_ms(lambda: gmm_mod.compute_gmm(
         clustered.particles, clustered.n_active, clustered.gmm.k))
     log(f"[D] GMM refit (every {pf.gmm_every}th update): {gmm_ms:.4f} ms")
@@ -1229,6 +1452,39 @@ def phase_d2(dev, world, errs):
         log(f"[D2] {name}: {plan.mode}, K {plan.kp}, mo {plan.mo}, levels "
             f"{plan.levels}; host part of the dispatch {host_ms:.4f} ms")
         compare(f"D2 {plan.mode}, C=3", errs, MULTI, *pair)
+        # the code kernel on the same cell: the code pyramid of the same
+        # map (quantized once at full resolution)
+        pyr4 = ms.build_pyramid_maps(pf.map.grid.dist.to(dev), plan.levels,
+                                     int4=True)
+        codes = pyr4.codes(3)
+        pair4 = multi_pair(pair_args(pyr4, sten, scan, cw, p), p.theta,
+                           p.scale, slots, plan.bmi)
+        name4 = name + "_i4"
+        out[name]["map_bytes"] = nbytes(pyr.compact(3))
+        out[name4] = dict(timed(name4, *pair4[0 if tracked else 1]),
+                          pixels=npix.tolist(), map_bytes=nbytes(codes))
+        cells4 = crop_bound(codes, 3, tr, 1 if tracked else 40, inputs)
+        if tracked:
+            out[name4].update(
+                bound=pixel_bound(codes, 3, npix, counts, inputs),
+                bound_cells=cells4)
+        else:
+            out[name4].update(
+                bound=tc_bound(codes, 3, 40, npix, counts, inputs,
+                               products=2),
+                bound_f32=cells4)
+        compare(f"D2 {plan.mode} i4, C=3", errs, MULTI_I4, *pair4)
+        if not tracked:
+            raw4 = multi_raw_triple(pair_args(pyr4, sten, scan, cw, p),
+                                    p.scale, slots, plan.bmi)
+            out[RAW_I4[1]] = dict(
+                timed(RAW_I4[1], *raw4[:2]),
+                bound=tc_bound(codes, 3, 40, npix, counts, inputs, 81,
+                               products=2),
+                bound_f32=cells4, pixels=npix.tolist(),
+                map_bytes=nbytes(codes),
+            )
+            compare_raw("D2 raw i4, C=3", errs, RAW_I4[1], *raw4)
         if not tracked:
             raw = multi_raw_triple(pair_args(pyr, sten, scan, cw, p), p.scale,
                                    slots, plan.bmi)
@@ -1362,6 +1618,20 @@ def mesh_drives(dev, world, mesh):
     return out
 
 
+M_NAMES_I4 = tuple(k + "_i4" for k in M_NAMES[:3]) + M_NAMES
+
+
+def code_map_drive(dev, world, mesh):
+    """Two unknown-scale updates standing (the theta search, then
+    tracked) of a filter on the code map (map_int4=True) over `mesh`
+    (None: one device), from the 10 hypotheses: (max_likelihoods,
+    launches per update of M_NAMES_I4 and conv cost fields)."""
+    pf, _ = make_filter(dev, N, seed=0, world=world, fixed_scale=-1.0,
+                        mesh=mesh, map_int4=True)
+    ml, per, _ = drive_standing(pf, world, dev, 2, M_NAMES_I4)
+    return ml, per
+
+
 def check_mesh_plans(label, got, n_ranks) -> None:
     """The mesh's plans, keys and launches per update as the reference's
     _update_sharded would dispatch them."""
@@ -1456,6 +1726,28 @@ def phase_m(dev, world, read_launches):
         read_launches("M1", ("crop_score_multi_init_raw",
                              "crop_score_multi_tracked", "crop_fold"))
         check_mesh_plans("M1", m1, 1)
+        # the mesh's K-bucket steps on the code pyramid: the init step's
+        # raw rows through crop_score_multi_init_raw_i4
+        ml4, per4 = code_map_drive(dev, world, mesh)
+        read_launches("M1 i4", ("crop_score_multi_init_raw_i4",
+                                "crop_score_multi_tracked_i4", "crop_fold"))
+        want = np.zeros_like(per4)
+        want[0, 0] = want[1, 1] = 1
+        check(np.array_equal(per4, want),
+              f"M1 i4: launches per update {per4.tolist()}")
+        ml4_single, per4 = code_map_drive(dev, world, None)
+        want = np.zeros_like(per4)
+        want[0, 2] = want[1, 1] = 1
+        check(np.array_equal(per4, want),
+              f"M1 i4 one device: launches per update {per4.tolist()}")
+        check(np.allclose(ml4, ml4_single, rtol=ML_RTOL, atol=ML_ATOL),
+              f"M1 i4: max_likelihood {ml4.tolist()} against one device's "
+              f"{ml4_single.tolist()}")
+        log(f"[M1 i4] two K-bucket updates on the code map over the mesh "
+            f"(raw rows, then tracked) within rtol {ML_RTOL}, atol "
+            f"{ML_ATOL} of one device's, largest |diff| "
+            f"{float(np.abs(ml4 - ml4_single).max()):.3e}")
+        kernels.reset_launch_counts()
         single = mesh_drives(dev, world, None)
         kernels.reset_launch_counts()
         check_close("M1 vs one device", m1, single)
@@ -2387,11 +2679,13 @@ def main() -> int:
         f" (wall {time.perf_counter() - t0:.2f} s, in parallel)")
     for name, opcodes in SASS_NEEDS.items():
         log_sass(name, opcodes)
+    log_init_sass()
     log_ablate_init_sass()
 
     errs = {"abs": dict.fromkeys(KERNELS, 0.0), "rel": dict.fromkeys(INIT, 0.0)}
     b_args, b_theta = phase_b(dev, errs)
     phase_b2(dev, errs, b_args, b_theta)
+    phase_b3(dev, errs, b_args, b_theta)
     del b_args, b_theta
 
     # each path runs with the counts set to 0 just before it and read
@@ -2416,6 +2710,8 @@ def main() -> int:
     read_launches("C2", MULTI + FOLD)
     pf_fill = phase_c3(dev, world)
     read_launches("C3", ("fill_rows",))
+    phase_c5(dev, world)
+    read_launches("C5", CROP_I4 + MULTI_I4 + FOLD)
 
     kernels.reset_launch_counts()
     calls = conv_calls()
@@ -2466,6 +2762,8 @@ def main() -> int:
         if "bound_cells" in t:
             extra += (f", bound per stencil cell (the earlier basis) "
                       f"{t['bound_cells'][0]:.4f} ms")
+        if "map_bytes" in t:
+            extra += f", map operand {t['map_bytes']} B"
         if "floor_ms" in t:
             extra += (f", {t['tables']} offset table(s), floor (a "
                       f"one-element fill) {t['floor_ms']:.4f} ms")

@@ -52,9 +52,10 @@ START = (60.0, 105.0)
 
 
 def make_filter(device="cpu", particles=2048, seed=0, world=None, mesh=None,
-                **params):
+                map_int4=None, **params):
     """(ParticleFilter, world) on the drive's map and filter settings;
-    `params` override the FilterParams; `mesh` shards the filter."""
+    `params` override the FilterParams; `mesh` shards the filter;
+    `map_int4` is the filter's (the nibble-packed map, TDR_MAP_INT4)."""
     world = make_world() if world is None else world
     tdm = TopDownMap(
         MapParams(map_path="", num_classes=3), device=device,
@@ -72,7 +73,7 @@ def make_filter(device="cpu", particles=2048, seed=0, world=None, mesh=None,
     )
     fp = dataclasses.replace(fp, **params)
     return ParticleFilter(particles, tdm, fp, seed=seed, chunk_size=512,
-                          device=device, mesh=mesh), world
+                          device=device, mesh=mesh, map_int4=map_int4), world
 
 
 def drive(

@@ -1,0 +1,99 @@
+"""Compare the SASS of the crop kernels of two checkouts, kernel by kernel.
+
+Builds csrc/crop_score.cu and csrc/crop_score_init.cu of the checkout at
+OLD and of the one at NEW (default: this checkout) with the port's nvcc
+flags (kernels.NVCC_FLAGS) into a temporary directory, disassembles each
+library with the toolkit's cuobjdump and compares every kernel OLD's
+library holds with NEW's of the same name, instruction by instruction
+(addresses and encodings left out).  Prints one line a kernel and, last,
+one JSON line {"same": [...], "differ": [...], "new": [...]}; exits 1 if a
+kernel of OLD is missing from NEW or its instructions differ.  So a change
+that adds kernels beside the old ones shows that it left them as they
+were:
+
+    python tests/sass_diff_torch.py OLD_ROOT [NEW_ROOT]
+
+Needs nvcc and cuobjdump (the CUDA toolkit); about 30 s a library.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import subprocess
+import sys
+import tempfile
+from concurrent.futures import ThreadPoolExecutor
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, HERE)
+
+from top_down_renderer_torch import kernels  # noqa: E402
+
+SOURCES = ("crop_score", "crop_score_init")
+_ADDR = re.compile(r"/\*[0-9a-f]{4,}\*/")
+_ENC = re.compile(r"/\* 0x[0-9a-f]+ \*/")
+# the anonymous namespace's per-build hash in a mangled name
+_ANON = re.compile(r"_GLOBAL__N__[0-9a-f]{8}_")
+
+
+def sass_by_kernel(lib: str) -> dict:
+    """{mangled kernel name: [instruction, ...]} of a library's SASS."""
+    tool = os.path.join(os.path.dirname(kernels.find_nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", lib], capture_output=True,
+                         text=True, check=True, timeout=300).stdout
+    fns, cur = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = _ANON.sub("_GLOBAL__N__", line.split("Function :")[1])
+            cur = fns.setdefault(name.strip(), [])
+        elif cur is not None:
+            text = _ANON.sub("_GLOBAL__N__",
+                             _ENC.sub("", _ADDR.sub("", line))).strip()
+            if text and not text.startswith((".", "-", "=")):
+                cur.append(text)
+    return fns
+
+
+def build(root: str, name: str, out_dir: str) -> str:
+    lib = os.path.join(out_dir, f"{os.path.basename(root)}_{name}.so")
+    src = os.path.join(root, "top_down_renderer_torch", "csrc", f"{name}.cu")
+    proc = subprocess.run(
+        [kernels.find_nvcc(), *kernels.NVCC_FLAGS, "-o", lib, src],
+        capture_output=True, text=True, timeout=900)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr[-4000:]}")
+    return lib
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("old")
+    ap.add_argument("new", nargs="?", default=HERE)
+    args = ap.parse_args()
+    roots = (os.path.abspath(args.old), os.path.abspath(args.new))
+    result = {"same": [], "differ": [], "new": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = [os.path.join(tmp, side) for side in ("old", "new")]
+        for d in dirs:
+            os.mkdir(d)
+        jobs = [(r, n, d) for n in SOURCES for r, d in zip(roots, dirs)]
+        with ThreadPoolExecutor(len(jobs)) as pool:
+            libs = list(pool.map(lambda j: build(*j), jobs))
+        for i, name in enumerate(SOURCES):
+            old, new = (sass_by_kernel(x) for x in libs[2 * i:2 * i + 2])
+            for fn, body in sorted(old.items()):
+                same = new.get(fn) == body
+                result["same" if same else "differ"].append(fn)
+                print(f"{name}: {fn}: {len(body)} instructions, "
+                      f"{'the same' if same else 'DIFFERENT or missing'}",
+                      flush=True)
+            result["new"] += sorted(set(new) - set(old))
+    print(json.dumps(result))
+    return 1 if result["differ"] else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

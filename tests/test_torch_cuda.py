@@ -1,7 +1,8 @@
 """The CUDA kernels (uniform and K-bucket crop scoring, with the theta
 searches' raw-row epilogue, the forward fill, and the probes: the window
 gather at any byte, the tensor-core products on every route and split,
-the crop ablations of the tracked kernel and the theta search) against
+the crop ablations of the tracked kernel and the theta search), and the
+crop kernels on the nibble-packed code map (TDR_MAP_INT4=1), against
 their plain versions, the conv path (cuDNN) against a float64
 convolution and against the CPU, the node (its plans, publish and
 snapshot copy, the PNG map), the SVG rasteriser and the refinement's
@@ -261,7 +262,8 @@ def test_crop_step_on_card_matches_cpu(dev, mode):
     assert_rel(np_(cpu.ml_state), np_(gpu.ml_state), 1e-5, "ml_state")
 
 
-def _multi_world(dev, c, k, seed, n=N, single=False, mo=ms.MO_MULTI):
+def _multi_world(dev, c, k, seed, n=N, single=False, mo=ms.MO_MULTI,
+                 int4=False):
     """The uniform world's map as a pyramid, with K buckets: K = 1 one
     scale 0.5 at res 1, K = 2 test_multiscale's (scales 0.5 and 1.0 at res
     1, mips 1 and 2), K = 10 the reference's init hypotheses 10^{k/10} at
@@ -282,7 +284,7 @@ def _multi_world(dev, c, k, seed, n=N, single=False, mo=ms.MO_MULTI):
     if single:
         pick[n // 2] = 0
     scale = slots[pick] * (1.0 + 0.02 * (rng.random(n) - 0.5))
-    pyr = ms.build_pyramid_maps(packed, levels)
+    pyr = ms.build_pyramid_maps(packed, levels, int4)
     return (pyr, c, sten, scan, cw, centers), thetas, (
         torch.as_tensor(scale.astype(np.float32), device=dev),
         torch.as_tensor(slots, device=dev), bmi, res)
@@ -963,3 +965,173 @@ def test_probe_path_on_the_card(dev):
             + probes.run_ablate_init(dev, 0, 4096))
     assert all(r["kernel_ms"] > 0 and r["profile_tries"] >= 1
                for r in recs)
+
+
+# -- the crop kernels on the nibble-packed code map (TDR_MAP_INT4=1) -------
+def _launched(name, before):
+    """The launches of `name` and of its float twin since `before`."""
+    float_name = name.removesuffix("_i4")
+    return (kernels.LAUNCHES[name] - before[name],
+            kernels.LAUNCHES[float_name] - before[float_name])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,f,n", [
+    (3, 0.5, N), (6, 1.0, N), (1, 1.0, 1), (2, 0.5, 127), (7, 0.37, 193),
+    (3, 1.0, 102_400), (6, 1.0, 102_400),
+])
+def test_i4_tracked_kernel_matches_plain(dev, c, f, n):
+    """The tracked kernel on the code map against its plain version (the
+    float plain version on the dequantized map): 1 to 7 classes (1, 2 and
+    4 code bytes a pixel), tile edges, every shift, edges and far out; a
+    second call the same bits; no float tracked launch."""
+    packed, sten, scan, cw, centers, thetas = _world(dev, c, 11, n)
+    thetas = _every_shift(thetas)
+    maps = cs.CropMap(packed, int4=True)
+    assert maps.codes(c).shape == (H, W, cs.channel_pad(c) // 2)
+    before = dict(kernels.LAUNCHES)
+    got = cs.score_tracked(maps, c, sten, scan, cw, centers, thetas, f)
+    again = cs.score_tracked(maps, c, sten, scan, cw, centers, thetas, f)
+    ref = cs.score_tracked_plain(maps.plain(c).packed, c, sten, scan, cw,
+                                 centers, thetas, f)
+    torch.cuda.synchronize()
+    assert _launched("crop_score_tracked_i4", before) == (2, 0)
+    assert _same_bits(got, again)
+    _check_tracked(got, ref, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,f,num_rot,n", [
+    (3, 0.5, 40, N), (6, 1.0, 40, N), (1, 1.0, 40, 1), (7, 0.37, 17, 129),
+    (2, 0.5, 7, 193), (3, 1.0, 40, 102_400), (6, 1.0, 40, 102_400),
+])
+def test_i4_init_kernels_match_plain(dev, c, f, num_rot, n):
+    """The theta search on the code map, argmin and raw rows, against
+    their plain versions on the dequantized map: kf bit for bit, costs
+    and raw rows within rel 1e-4, the argmin on 99 %; no float launch."""
+    packed, sten, scan, cw, centers, _ = _world(dev, c, 12, n)
+    maps = cs.CropMap(packed, int4=True)
+    plain = maps.plain(c).packed
+    before = dict(kernels.LAUNCHES)
+    best, k, kf = cs.score_init_sel(maps, c, sten, scan, cw, centers, f,
+                                    num_rot)
+    raw = cs.score_init_raw(maps, c, sten, scan, cw, centers, f, num_rot)
+    rbest, rk, rkf = cs.score_init_sel_plain(plain, c, sten, scan, cw,
+                                             centers, f, num_rot)
+    rraw = cs.score_init_raw_plain(plain, c, sten, scan, cw, centers, f,
+                                   num_rot)
+    torch.cuda.synchronize()
+    assert _launched("crop_score_init_i4", before) == (1, 0)
+    assert _launched("crop_score_init_raw_i4", before) == (1, 0)
+    np.testing.assert_array_equal(np_(kf), np_(rkf))
+    np.testing.assert_array_equal(np_(best) == cs.FLT_MAX,
+                                  np_(rbest) == cs.FLT_MAX)
+    assert np.mean(np_(k) == np_(rk)) >= 0.99
+    fin = np_(rbest) < cs.FLT_MAX
+    assert_rel(np_(rbest)[fin], np_(best)[fin], 1e-4, "best cost")
+    _check_raw(raw, rraw, (best, k, kf), num_rot,
+               far=[i for i in (5, 6) if i < n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,k,n,single,mo", [
+    (3, 2, N, False, 12), (6, 10, N, False, 12), (1, 1, 1, False, 12),
+    (5, 10, 193, True, 24), (3, 10, 102_400, False, 12),
+])
+def test_i4_multi_tracked_kernel_matches_plain(dev, c, k, n, single, mo):
+    """The K-bucket tracked kernel on the code pyramid against its plain
+    version on the dequantized pyramid; a second call the same bits."""
+    args, thetas, tail = _multi_world(dev, c, k, 13, n, single, mo,
+                                      int4=True)
+    thetas = _every_shift(thetas)
+    pyr = args[0]
+    before = dict(kernels.LAUNCHES)
+    got = ms.score_tracked_multi(*args, thetas, *tail)
+    again = ms.score_tracked_multi(*args, thetas, *tail)
+    ref = ms.score_tracked_multi_plain(pyr.plain(c), *args[1:], thetas,
+                                       *tail)
+    torch.cuda.synchronize()
+    assert _launched("crop_score_multi_tracked_i4", before) == (2, 0)
+    assert _same_bits(got, again)
+    _check_tracked(got, ref, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,k,n,num_rot,single", [
+    (3, 2, N, 40, False), (6, 10, N, 40, False), (1, 2, 1, 40, True),
+    (3, 10, 129, 7, True), (3, 10, 102_400, 40, False),
+])
+def test_i4_multi_init_kernels_match_plain(dev, c, k, n, num_rot, single):
+    """The K-bucket theta search on the code pyramid, argmin and raw rows,
+    against their plain versions on the dequantized pyramid."""
+    args, _, tail = _multi_world(dev, c, k, 14, n, single, int4=True)
+    plain = (args[0].plain(c),) + args[1:]
+    before = dict(kernels.LAUNCHES)
+    best, kk, kf = ms.score_init_multi_sel(*args, *tail, num_rot)
+    raw = ms.score_init_multi_raw(*args, *tail, num_rot)
+    rbest, rk, rkf = ms.score_init_multi_sel_plain(*plain, *tail, num_rot)
+    rraw = ms.score_init_multi_raw_plain(*plain, *tail, num_rot)
+    torch.cuda.synchronize()
+    assert _launched("crop_score_multi_init_i4", before) == (1, 0)
+    assert _launched("crop_score_multi_init_raw_i4", before) == (1, 0)
+    np.testing.assert_array_equal(np_(kf), np_(rkf))
+    np.testing.assert_array_equal(np_(best) == cs.FLT_MAX,
+                                  np_(rbest) == cs.FLT_MAX)
+    assert np.mean(np_(kk) == np_(rk)) >= 0.99
+    fin = np_(rbest) < cs.FLT_MAX
+    assert_rel(np_(rbest)[fin], np_(best)[fin], 1e-4, "best cost")
+    _check_raw(raw, rraw, (best, kk, kf), num_rot,
+               far=[i for i in (5, 6) if i < n])
+
+
+@pytest.mark.cuda
+def test_i4_entries_refuse_the_other_map(dev):
+    """A code entry point refuses the float compact map and a float one
+    the codes, before any launch: maps whose operand is the other
+    format's."""
+    packed, sten, scan, cw, centers, thetas = _world(dev, 3, 3)
+    code_map, float_map = (cs.CropMap(packed, int4=i4)
+                           for i4 in (True, False))
+    code_map._codes[3] = float_map.compact(3)
+    float_map._compact[3] = cs.CropMap(packed, int4=True).codes(3)
+    fold, ctr = code_map.fold(sten, 0.5), cs.crop_centers(centers, 1.0)
+    key = torch.zeros(len(ctr), dtype=torch.int32, device=dev)
+    before = dict(kernels.LAUNCHES)
+    for maps in (code_map, float_map):
+        with pytest.raises(TypeError):
+            cs.launch_tracked("crop_score_tracked", maps, None, H, W, 3,
+                              scan, cw, fold, ctr, key)
+    assert dict(kernels.LAUNCHES) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["tracked", "init", "mixed"])
+def test_i4_crop_step_on_card_matches_cpu(dev, mode):
+    """One whole crop update on the code map on the card (code kernels)
+    against the same update on the CPU (plain versions on the dequantized
+    map), with the same resample shift."""
+    d = synthetic_setup(512, h=128, w=128, seed=5)
+    d["state"]["particles"]["have_init"][:] = (
+        np.arange(512) % 3 == 0 if mode == "mixed" else mode == "tracked"
+    )
+    step = ft.make_update_step_fast(d["params"], 3, 1.0, 100, 512, mode,
+                                    gmm_every=1)
+    outs = []
+    before = dict(kernels.LAUNCHES)
+    for device in ("cpu", dev):
+        maps, *args = [torch.as_tensor(d[k], device=device)
+                       for k in ("packed", "map_size", "stencil", "scan")]
+        st = filter_state_from_numpy(d["state"], device)
+        outs.append(step(st, cs.CropMap(maps, int4=True), *args, 0.5,
+                         shift=0.25))
+    for name in ("crop_score_tracked", "crop_score_init"):
+        ran = mode in ("mixed", name.removeprefix("crop_score_"))
+        assert _launched(name + "_i4", before) == (int(ran), 0)
+    cpu, gpu = outs
+    assert int(gpu.n_active) == int(cpu.n_active)
+    rows_c = np_(torch.cat(
+        [cpu.particles.init_px, cpu.particles.theta[:, None]], 1))
+    rows_g = np_(torch.cat(
+        [gpu.particles.init_px, gpu.particles.theta[:, None]], 1))
+    assert np.mean(np.all(rows_c == rows_g, axis=1)) >= 0.99
+    assert_rel(np_(cpu.ml_state), np_(gpu.ml_state), 1e-5, "ml_state")

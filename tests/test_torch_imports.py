@@ -3,7 +3,8 @@ loader, its node, replay and PNG reader, the operator's modules (YAML
 reader, SVG loader and rasteriser, rosbag reader, ROS shim, run_node),
 active localisation, refinement, checkpoints and tracing, the probes,
 the script twins (tools.live_view, tools.preproc_survey), and
-chip_smoke.py's imports leaves jax, every module of the JAX package
+chip_smoke.py's imports (and running the nibble-packed map's path) leaves
+jax, every module of the JAX package
 (top_down_renderer_tpu), pyyaml, Pillow and lz4 (none of which the
 machine with the card has) out of sys.modules, and nothing is compiled
 (or needs nvcc) until a kernel is launched."""
@@ -73,6 +74,7 @@ def _run(code: str, env=None):
         "top_down_renderer_torch.tools.preproc_survey",
         "chip_smoke",
         "time_torch_tracked, time_torch_ablate_init",
+        "sass_diff_torch",
     ],
 )
 def test_imports_leave_jax_out(modules):
@@ -86,6 +88,39 @@ def test_imports_leave_jax_out(modules):
         "print(bad)\n"
     )
     assert out.strip() == "[]", out
+
+
+def test_code_map_path_leaves_jax_out():
+    """The nibble-packed map (TDR_MAP_INT4=1) on the CPU: its quantizer
+    and codes, the uniform and K-bucket scorers on them, and a filter with
+    map_int4=True through one update, with nothing of JAX or the JAX
+    package imported."""
+    out = _run(
+        "import sys\nsys.path.insert(0, 'tests')\n"
+        "import numpy as np, torch\n"
+        "from top_down_renderer_torch.filter import crop_score as cs\n"
+        "from top_down_renderer_torch.filter import multiscale as ms\n"
+        "from top_down_renderer_torch.maps.polar import polar_stencil\n"
+        "from drive_consumer_torch import make_filter\n"
+        "m = torch.rand((32, 32, 8)); m[..., 1] = 1\n"
+        "a = (1, torch.as_tensor(polar_stencil(100, 25)),\n"
+        "     torch.ones((1, 100, 25)), torch.ones(1), torch.full((3, 2), 16.))\n"
+        "cs.score_init_sel(cs.CropMap(m, int4=True), *a, 0.5)\n"
+        "cs.score_tracked(cs.CropMap(m, int4=True), *a, torch.zeros(3), 0.5)\n"
+        "pyr = ms.build_pyramid_maps(m, (1, 2), int4=True)\n"
+        "ms.score_init_multi_raw(pyr, *a, torch.ones(3), torch.tensor([1.]),\n"
+        "                        (0,), 0.5)\n"
+        "pf, _ = make_filter('cpu', 256, map_int4=True)\n"
+        "pf.update(np.random.default_rng(0).random((3, 100, 25))\n"
+        "          .astype(np.float32), 1.0)\n"
+        "maps = [v for v in pf._maps_cache.values() if hasattr(v, 'int4')]\n"
+        "print('int4', bool(maps) and all(v.int4 for v in maps))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax')\n"
+        "             or m.startswith('top_down_renderer_tpu'))\n"
+        "print(bad)\n"
+    )
+    assert out.split("\n")[:2] == ["int4 True", "[]"], out
 
 
 def test_kernel_module_needs_no_nvcc_until_launch(tmp_path):

@@ -23,9 +23,12 @@ that two checkouts' results can be compared too.
 
 The tree to time is ROOT (default: this checkout); running it for two
 checkouts on one machine, in turns (parent, change, change, parent),
-compares them:
+compares them.  --int4 times the tracked or theta-search kernels on the
+nibble-packed code map of the same map (TDR_MAP_INT4=1: the CropMap and
+the pyramid made with int4=True; crop_tracked_i4_kernel, crop_init_i4_kernel)
+beside the float ones:
 
-    python tests/time_torch_tracked.py [--kernel tracked|init|fold] [ROOT]
+    python tests/time_torch_tracked.py [--kernel tracked|init|fold] [--int4] [ROOT]
 """
 
 from __future__ import annotations
@@ -39,6 +42,8 @@ import sys
 ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
 ap.add_argument("--kernel", choices=("tracked", "init", "fold"),
                 default="tracked")
+ap.add_argument("--int4", action="store_true",
+                help="the code kernels on the nibble-packed map")
 ap.add_argument("root", nargs="?", default=os.path.join(
     os.path.dirname(os.path.abspath(__file__)), ".."))
 ARGS = ap.parse_args()
@@ -57,7 +62,14 @@ from top_down_renderer_torch.testing import synthetic_setup  # noqa: E402
 
 N = 102_400
 ROUNDS = 5
+SUFFIX = "_i4" if ARGS.int4 else ""
 CW = np.asarray([0.1, 1.5, 3.0], np.float32)
+
+
+def crop_map(packed):
+    """The CropMap of `packed`: its codes with --int4 (a parent checkout
+    without the option is called as it was)."""
+    return cs.CropMap(packed, int4=True) if ARGS.int4 else cs.CropMap(packed)
 
 
 def tracked_cells(dev):
@@ -67,9 +79,9 @@ def tracked_cells(dev):
     p = d["state"]["particles"]
     t = [torch.as_tensor(v, device=dev) for v in (
         d["stencil"], d["scan"], CW, p["init_px"], p["theta"])]
-    maps = cs.CropMap(torch.as_tensor(d["packed"], device=dev))
+    maps = crop_map(torch.as_tensor(d["packed"], device=dev))
     return {"clustered": (lambda: cs.score_tracked(maps, 3, *t, 1.0),
-                          ("crop_tracked_kernel<3>",))}
+                          (f"crop_tracked{SUFFIX}_kernel<3>",))}
 
 
 def init_cells(dev):
@@ -77,15 +89,18 @@ def init_cells(dev):
     t = [torch.as_tensor(v, device=dev) for v in (
         d["packed"], d["stencil"], d["scan"], CW,
         d["state"]["particles"]["init_px"])]
-    maps = cs.CropMap(t[0])
+    maps = crop_map(t[0])
     hyp = (10.0 ** (np.arange(10) / 10.0)).astype(np.float32)
     _, slots, mips = ms.plan_buckets(hyp, 25, 0.5, 10.0)
     levels = tuple(sorted(set(mips)))
-    multi = (ms.build_pyramid_maps(t[0], levels), 3, *t[1:],
+    pyr = (ms.build_pyramid_maps(t[0], levels, int4=True) if ARGS.int4
+           else ms.build_pyramid_maps(t[0], levels))
+    multi = (pyr, 3, *t[1:],
              torch.as_tensor(np.resize(hyp, N), device=dev),
              torch.as_tensor(slots, device=dev),
              tuple(levels.index(m) for m in mips), 0.5)
-    symbols = ("crop_init_kernel<4, false>", "crop_init_kernel<4, (bool)0>")
+    symbols = (f"crop_init{SUFFIX}_kernel<4, false>",
+               f"crop_init{SUFFIX}_kernel<4, (bool)0>")
     return {
         "uniform": (lambda: cs.score_init_sel(maps, 3, *t[1:], 1.0),
                     symbols),
@@ -120,7 +135,9 @@ def main() -> int:
     dev = torch.device("cuda")
     cells = {"tracked": tracked_cells, "init": init_cells,
              "fold": fold_cells}[ARGS.kernel](dev)
-    result = {"root": ROOT, "kernel": ARGS.kernel,
+    if ARGS.int4 and ARGS.kernel == "fold":
+        raise SystemExit("--int4 times the tracked or init kernels")
+    result = {"root": ROOT, "kernel": ARGS.kernel, "int4": ARGS.int4,
               "card": smoke.card_name_and_limit()}
     for label, (run, symbols) in cells.items():
         first = rows(run())

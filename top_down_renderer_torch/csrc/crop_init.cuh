@@ -12,6 +12,7 @@
 #include <cfloat>
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 #include "tma.cuh"
 
@@ -156,21 +157,63 @@ __device__ __forceinline__ float2 unpack(uint32_t bf2) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bf2));
 }
 
+// The code map's A operand (I4).  Its window values are the codes
+// themselves, 0-15, exact in bf16, so A needs no lo plane; qinv is folded
+// into M's rows by the wrapper (crop_score.fold_qinv).  A thread's four
+// fragment pairs of a row (K columns 16 ks + 8 hf + 2t + {0, 1}) hold whole
+// pixels: the wrapper permutes each chunk's K rows (crop_score.
+// code_chunk_order) so that pair j = 2 ks + hf is chunk row 8t + 2j + {0,
+// 1}, i.e. byte j % NB of the chunk's pixel t * (4 / NB) + j / NB, NB =
+// CP / 2 code bytes a pixel.  So a thread loads 8 / CP naturally aligned
+// words of NB bytes a row (one 4-byte word at CP = 8, two 2-byte words at
+// CP = 4) where the float map takes four float2 loads.
+template <int CP>
+struct Codes {
+  static constexpr int kNb = CP / 2;      // code bytes a pixel
+  static constexpr int kLoads = 8 / CP;  // pixels a thread loads a row
+};
+
+template <int NB>
+__device__ __forceinline__ uint32_t load_code_word(const unsigned char* p) {
+  if constexpr (NB == 1) {
+    return __ldg(p);
+  } else if constexpr (NB == 2) {
+    return __ldg(reinterpret_cast<const unsigned short*>(p));
+  } else {
+    return __ldg(reinterpret_cast<const unsigned int*>(p));
+  }
+}
+
+// bf16x2 (low nibble, high nibble) of a code byte: 0x4300 | n is bf16 128 +
+// n, less 128 it is n, exactly.
+__device__ __forceinline__ uint32_t code_pair_bf16(uint32_t byte) {
+  const uint32_t biased = ((byte * 0x1001u) & 0x000F000Fu) | 0x43004300u;
+  const __nv_bfloat162 v = __hsub2(
+      *reinterpret_cast<const __nv_bfloat162*>(&biased),
+      __floats2bfloat162_rn(128.f, 128.f));
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
 // Block i scores tile i of the bucket-sorted rows.  sched holds row_start
 // (K + 1), tile_start (K + 1) and each bucket's chunk count (K); rows are
 // positions in the sorted order, perm maps them to particles (null: the
 // identity).  Level b of the map is table[b] = (pixel offset, H, W, -), or
 // (0, H, W) when table is null.  RAW picks the raw-row epilogue, V the
-// stages (kFull: all).
-template <int CP, bool RAW, int V>
+// stages (kFull: all).  I4: the map is the code map (pixels, CP/2), M the
+// code layout's (qinv folded in, chunks permuted; see Codes), and kq the
+// known channel's code for a known pixel (15 or 7): the kf column sums
+// codes times cell counts, kq times the float map's count.  Only the whole
+// body (kFull) reads codes.
+template <int CP, bool RAW, int V, bool I4 = false>
 __device__ __forceinline__ void init_body(
-    const float* __restrict__ map,  // (pixels, CP)
+    const std::conditional_t<I4, unsigned char, float>* __restrict__ map,
     const int4* __restrict__ table, int H, int W,
     const unsigned char* __restrict__ m,  // (K, cap, Chunk)
     const int* __restrict__ sched, int K, int chunk_cap,
     const int* __restrict__ perm,
     const int2* __restrict__ centers,  // (N) cy, cx
-    int S, float inv_tr, float* __restrict__ out) {
+    int S, float inv_tr, float* __restrict__ out, float kq = 1.f) {
+  static_assert(!I4 || V == kFull, "only the whole body reads codes");
   constexpr bool kGather = V != kNoGather && V != kRingOnly;
   constexpr bool kProduct = V != kGatherOnly && V != kRingOnly;
   constexpr bool kPromote = V != kNoPromote;
@@ -224,25 +267,45 @@ __device__ __forceinline__ void init_body(
   // window values of one chunk: [k16 step][column half][row half]; column
   // half 0 holds fragment columns 2t, 2t + 1, half 1 those + 8
   float2 av[2][2][2];
+  // I4: the code words of this thread's pixels, [row half][load]
+  [[maybe_unused]] uint32_t words[2][Codes<CP>::kLoads];
   auto load_a = [&](int s) {
     const int2* pix =
         reinterpret_cast<const int2*>(smem + s * Ch::kBytes + 2 * kPlane);
+    if constexpr (I4) {
+      constexpr int kNb = Codes<CP>::kNb, kLoads = Codes<CP>::kLoads;
 #pragma unroll
-    for (int ks = 0; ks < 2; ++ks) {
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int k = ks * 16 + hf * 8 + 2 * t;  // K row within the chunk
-        const int2 o = pix[k / CP];
-        const int ch = k % CP;
+      for (int l = 0; l < kLoads; ++l) {
+        const int2 o = pix[t * kLoads + l];
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int y = cy[h] + o.x;
           const int x = cx[h] + o.y;
-          float2 v = make_float2(0.f, 0.f);
+          uint32_t w = 0;
           if ((unsigned)y < (unsigned)lv.y && (unsigned)x < (unsigned)lv.z)
-            v = __ldg(reinterpret_cast<const float2*>(
-                map + ((size_t)lv.x + (size_t)y * lv.z + x) * CP + ch));
-          av[ks][hf][h] = v;
+            w = load_code_word<kNb>(
+                map + ((size_t)lv.x + (size_t)y * lv.z + x) * kNb);
+          words[h][l] = w;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int k = ks * 16 + hf * 8 + 2 * t;  // K row within the chunk
+          const int2 o = pix[k / CP];
+          const int ch = k % CP;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int y = cy[h] + o.x;
+            const int x = cx[h] + o.y;
+            float2 v = make_float2(0.f, 0.f);
+            if ((unsigned)y < (unsigned)lv.y && (unsigned)x < (unsigned)lv.z)
+              v = __ldg(reinterpret_cast<const float2*>(
+                  map + ((size_t)lv.x + (size_t)y * lv.z + x) * CP + ch));
+            av[ks][hf][h] = v;
+          }
         }
       }
     }
@@ -289,7 +352,19 @@ __device__ __forceinline__ void init_body(
           for (int h = 0; h < 2; ++h)
             asm volatile("" : "+f"(av[ks][hf][h].x), "+f"(av[ks][hf][h].y));
     }
-    if constexpr (V != kRingOnly) {
+    if constexpr (I4) {  // pair j = 2 ks + hf: byte j % NB of load j / NB
+      constexpr int kNb = Codes<CP>::kNb;
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int j = 2 * ks + hf;
+            ahi[ks][2 * hf + h] = code_pair_bf16(
+                (words[h][j / kNb] >> (8 * (j % kNb))) & 0xFFu);
+          }
+    } else if constexpr (V != kRingOnly) {
 #pragma unroll
       for (int ks = 0; ks < 2; ++ks)
 #pragma unroll
@@ -325,10 +400,8 @@ __device__ __forceinline__ void init_body(
         const uint64_t bh = desc(hi + ks * 2 * kLbo);
         const uint64_t bl = desc(hi + kPlane + ks * 2 * kLbo);
         mma(d, ahi[ks], bh, kPromote && ks == 0);
-        if constexpr (V != kOnePlane) {
-          mma(d, ahi[ks], bl);
-          mma(d, alo[ks], bh);
-        }
+        if constexpr (V != kOnePlane) mma(d, ahi[ks], bl);
+        if constexpr (V != kOnePlane && !I4) mma(d, alo[ks], bh);
       }
       wg_commit();
     }
@@ -343,7 +416,7 @@ __device__ __forceinline__ void init_body(
 #pragma unroll
       for (int ks = 0; ks < 2; ++ks) {
         pin(ahi[ks]);
-        if constexpr (V != kOnePlane) pin(alo[ks]);
+        if constexpr (V != kOnePlane && !I4) pin(alo[ks]);
       }
       if constexpr (kPromote) {
 #pragma unroll
@@ -385,14 +458,19 @@ __device__ __forceinline__ void init_body(
           o[2 * k + 1] = acc[4 * j + 2 * h + 1];
         }
       }
-      if (t == 0) o[2 * S] = acc[4 * (kKfCol / 8) + 2 * h];
+      if (t == 0) {
+        float cnt = acc[4 * (kKfCol / 8) + 2 * h];
+        if constexpr (I4) cnt = cnt / kq;  // exact, as below
+        o[2 * S] = cnt;
+      }
     }
     return;
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const float cnt =
+    float cnt =
         __shfl_sync(0xffffffffu, acc[4 * (kKfCol / 8) + 2 * h], lane & ~3);
+    if constexpr (I4) cnt = cnt / kq;  // exact: kq times an integer count
     const float kf = cnt * inv_tr;
     float c[kMaxSearch / 4];
     float lo = __int_as_float(0x7f800000);  // +inf
@@ -440,14 +518,15 @@ __device__ __forceinline__ void init_body(
 // Launch `kern`, a kernel on init_body<CP, ...>, over the tiles of N
 // particles in K buckets with `smem` bytes of dynamic shared memory (at
 // least kRingBytes<CP>), opting in to them once per device (*ready_dev: the
-// device it was set for).
-template <typename Kernel>
+// device it was set for).  `extra` follows `out` in the kernel's arguments
+// (the code map's known code kq).
+template <typename Kernel, typename Map, typename... Extra>
 cudaError_t launch_tiles(Kernel kern, int* ready_dev, int smem,
-                         const float* map, const int* table, int H, int W,
+                         const Map* map, const int* table, int H, int W,
                          int K, const void* m, const int* sched,
                          int chunk_cap, const int* perm, const int* centers,
                          int N, int S, float inv_tr, float* out,
-                         cudaStream_t stream) {
+                         cudaStream_t stream, Extra... extra) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -462,7 +541,7 @@ cudaError_t launch_tiles(Kernel kern, int* ready_dev, int smem,
   kern<<<N / kTile + K, kThreads, smem, stream>>>(
       map, reinterpret_cast<const int4*>(table), H, W,
       static_cast<const unsigned char*>(m), sched, K, chunk_cap, perm,
-      reinterpret_cast<const int2*>(centers), S, inv_tr, out);
+      reinterpret_cast<const int2*>(centers), S, inv_tr, out, extra...);
   return cudaGetLastError();
 }
 

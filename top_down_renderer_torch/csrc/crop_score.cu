@@ -49,6 +49,17 @@
 // The tracked kernel's body lives in crop_tracked.cuh, which
 // csrc/crop_ablate.cu includes too, to time it with stages knocked out.
 //
+// The nibble-packed map (TDR_MAP_INT4=1; the same TPU kernel's `i4`
+// configuration, pallas_score.py's int4 layout): crop_tracked_i4_kernel is
+// the same body reading the code map, (pixels, CP/2) bytes, each channel a
+// 4-bit (even) or 3-bit (odd) code.  A lane loads its pixel's CP/2 bytes in
+// one load (2 bytes at C = 3, where the float map takes a 16-byte one) and
+// turns each code into code * qinv in float32 with a byte permute and one
+// FMA (load_codes): the dequantized map's values, on which the fold, the
+// weights and the per-shift sums are the float kernel's.  The gather's
+// bytes fall 8x at C = 3, but not its loads, which with their latency
+// bound it (PERF.md §6).
+//
 // Contract (equal to the plain versions in filter/crop_score.py and
 // filter/multiscale.py up to float summation order): the compact map is
 // (pixels, CP) float32, classes in channels [0, C), known in channel C;
@@ -95,6 +106,27 @@ __global__ void __launch_bounds__(kThreads, 2)
                         int N, float inv_tr, float* __restrict__ out) {
   tracked_body<C, kFull>(map, table, H, W, scan, cw, pix, npix, order, seg,
                          Th, R, P, skey, perm, centers, N, inv_tr, out);
+}
+
+// The same body on the code map (pixels, CP/2) with its qinv (8).
+template <int C>
+__global__ void __launch_bounds__(kThreads, 2)
+    crop_tracked_i4_kernel(const unsigned char* __restrict__ codes,
+                           const float* __restrict__ qinv,
+                           const int4* __restrict__ table, int H, int W,
+                           const float* __restrict__ scan,
+                           const float* __restrict__ cw,
+                           const int2* __restrict__ pix,
+                           const int* __restrict__ npix,
+                           const int* __restrict__ order,
+                           const int* __restrict__ seg, int Th, int R, int P,
+                           const int* __restrict__ skey,
+                           const long long* __restrict__ perm,
+                           const int2* __restrict__ centers, int N,
+                           float inv_tr, float* __restrict__ out) {
+  tracked_body<C, kFull, true>(codes, table, H, W, scan, cw, pix, npix, order,
+                               seg, Th, R, P, skey, perm, centers, N, inv_tr,
+                               out, qinv);
 }
 
 // Exclusive prefix sum of one int a thread over a block of kFoldThreads,
@@ -298,25 +330,40 @@ __global__ void __launch_bounds__(kFoldThreads)
   }
 }
 
-template <int C>
-cudaError_t launch(const float* map, const int* table, int H, int W,
-                   const float* scan, const float* cw, const int* pix,
-                   const int* npix, const int* order, const int* seg, int Th,
-                   int R, int P, const int* skey, const long long* perm,
-                   const int* centers, int N, float inv_tr, float* out,
-                   cudaStream_t stream) {
+// Launch the tracked kernel on the float map (qinv null) or, with I4, on
+// the code map and its qinv.
+template <int C, bool I4>
+cudaError_t launch(const void* map, const float* qinv, const int* table,
+                   int H, int W, const float* scan, const float* cw,
+                   const int* pix, const int* npix, const int* order,
+                   const int* seg, int Th, int R, int P, const int* skey,
+                   const long long* perm, const int* centers, int N,
+                   float inv_tr, float* out, cudaStream_t stream) {
   // the smem opt-in, set once per device and raised with the table size;
   // callers launch from one host thread
   static int ready_dev = -1;
   static size_t ready_smem = 0;
-  auto kern = crop_tracked_kernel<C>;
   const size_t smem = smem_bytes<C>(Th * R, P);
-  cudaError_t err = opt_in_smem(kern, smem, &ready_dev, &ready_smem);
-  if (err != cudaSuccess) return err;
-  kern<<<(N + kTile - 1) / kTile, kThreads, smem, stream>>>(
-      map, reinterpret_cast<const int4*>(table), H, W, scan, cw,
-      reinterpret_cast<const int2*>(pix), npix, order, seg, Th, R, P, skey,
-      perm, reinterpret_cast<const int2*>(centers), N, inv_tr, out);
+  const dim3 grid((N + kTile - 1) / kTile);
+  const auto* tbl = reinterpret_cast<const int4*>(table);
+  const auto* px = reinterpret_cast<const int2*>(pix);
+  const auto* ctr = reinterpret_cast<const int2*>(centers);
+  cudaError_t err;
+  if constexpr (I4) {
+    auto kern = crop_tracked_i4_kernel<C>;
+    err = opt_in_smem(kern, smem, &ready_dev, &ready_smem);
+    if (err != cudaSuccess) return err;
+    kern<<<grid, kThreads, smem, stream>>>(
+        static_cast<const unsigned char*>(map), qinv, tbl, H, W, scan, cw, px,
+        npix, order, seg, Th, R, P, skey, perm, ctr, N, inv_tr, out);
+  } else {
+    auto kern = crop_tracked_kernel<C>;
+    err = opt_in_smem(kern, smem, &ready_dev, &ready_smem);
+    if (err != cudaSuccess) return err;
+    kern<<<grid, kThreads, smem, stream>>>(
+        static_cast<const float*>(map), tbl, H, W, scan, cw, px, npix, order,
+        seg, Th, R, P, skey, perm, ctr, N, inv_tr, out);
+  }
   return cudaGetLastError();
 }
 
@@ -377,9 +424,10 @@ extern "C" int tdr_crop_score_tracked(
     const long long* perm, const int* centers, int N, float inv_tr,
     float* out, void* stream) {
   return by_classes(C, [&](auto cc) {
-    return (int)launch<decltype(cc)::value>(
-        map, nullptr, H, W, scan, cw, pix, npix, order, seg, Th, R, P, skey,
-        perm, centers, N, inv_tr, out, static_cast<cudaStream_t>(stream));
+    return (int)launch<decltype(cc)::value, false>(
+        map, nullptr, nullptr, H, W, scan, cw, pix, npix, order, seg, Th, R,
+        P, skey, perm, centers, N, inv_tr, out,
+        static_cast<cudaStream_t>(stream));
   });
 }
 
@@ -393,8 +441,40 @@ extern "C" int tdr_crop_score_multi_tracked(
     float* out, void* stream) {
   if (K < 1 || K > kMaxBuckets) return (int)cudaErrorInvalidValue;
   return by_classes(C, [&](auto cc) {
-    return (int)launch<decltype(cc)::value>(
-        pyramid, table, 0, 0, scan, cw, pix, npix, order, seg, Th, R, P,
+    return (int)launch<decltype(cc)::value, false>(
+        pyramid, nullptr, table, 0, 0, scan, cw, pix, npix, order, seg, Th, R,
+        P, skey, perm, centers, N, inv_tr, out,
+        static_cast<cudaStream_t>(stream));
+  });
+}
+
+// The nibble-packed map: codes (pixels, CP/2) uint8 and qinv (8) float32 in
+// place of the compact map, everything else as tdr_crop_score_tracked.
+extern "C" int tdr_crop_score_tracked_i4(
+    const unsigned char* codes, const float* qinv, int H, int W, int C,
+    const float* scan, const float* cw, const int* pix, const int* npix,
+    const int* order, const int* seg, int Th, int R, int P, const int* skey,
+    const long long* perm, const int* centers, int N, float inv_tr,
+    float* out, void* stream) {
+  return by_classes(C, [&](auto cc) {
+    return (int)launch<decltype(cc)::value, true>(
+        codes, qinv, nullptr, H, W, scan, cw, pix, npix, order, seg, Th, R,
+        P, skey, perm, centers, N, inv_tr, out,
+        static_cast<cudaStream_t>(stream));
+  });
+}
+
+// ... and as tdr_crop_score_multi_tracked on the code pyramid.
+extern "C" int tdr_crop_score_multi_tracked_i4(
+    const unsigned char* codes, const float* qinv, const int* table, int K,
+    int C, const float* scan, const float* cw, const int* pix,
+    const int* npix, const int* order, const int* seg, int Th, int R, int P,
+    const int* skey, const long long* perm, const int* centers, int N,
+    float inv_tr, float* out, void* stream) {
+  if (K < 1 || K > kMaxBuckets) return (int)cudaErrorInvalidValue;
+  return by_classes(C, [&](auto cc) {
+    return (int)launch<decltype(cc)::value, true>(
+        codes, qinv, table, 0, 0, scan, cw, pix, npix, order, seg, Th, R, P,
         skey, perm, centers, N, inv_tr, out,
         static_cast<cudaStream_t>(stream));
   });

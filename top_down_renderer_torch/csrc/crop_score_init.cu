@@ -60,6 +60,28 @@
 //     float32 sums come out exactly equal (first argmin 0), and this
 //     kernel's, summed in another order, differ by a few 1e-7.
 
+// The nibble-packed map (TDR_MAP_INT4=1; the same TPU kernel's `i4`
+// configuration): crop_init_i4_kernel is the same body on the code map,
+// (pixels, CP/2) bytes.  What bounds the float kernel is its window gather's
+// load count and latency (K4, PERF.md), not its bytes, so the design cuts
+// loads and arithmetic, not only bytes:
+//   - A is the codes themselves, 0-15, exact in bf16: no lo plane and no
+//     split, and two products a k16 step (A B_hi + A B_lo) where the float
+//     map takes three; M's rows carry qinv (crop_score.fold_qinv, before
+//     its hi/lo split), so acc is the dequantized map's sum to ~2^-16;
+//   - the wrapper permutes each chunk's K rows so that a thread's fragment
+//     pairs of a row are whole pixels: it loads one naturally aligned word
+//     of CP/2 bytes a pixel, 8/CP words a row (2 at CP = 4, 1 at CP = 8)
+//     where the float map takes 4 float2 loads, and turns each byte into
+//     its bf16 pair with three integer and bf16 instructions;
+//   - the kf column keeps M's cell counts, so it sums kq x the count on a
+//     known pixel (the known channel's code, 15 or 7, for a {0, 1} mask):
+//     the epilogue divides by kq, exactly, and kf is the float map's.
+// (The first design, a byte load a pair dequantized into the float
+// kernel's split and three products, ran 1.22-1.33 ms against the float
+// kernel's 1.00-1.05 on an H100 at 700 W, 102,400 particles spread over a
+// 1024^2 3-class map: PERF.md §6.)
+//
 // The body (crop_init_kernel's stages, its constants and helpers) lives in
 // csrc/crop_init.cuh, shared with the ablation (csrc/crop_ablate_init.cu);
 // its mbarrier waits trap after about ten seconds (csrc/tma.cuh), so a
@@ -84,34 +106,61 @@ __global__ void __launch_bounds__(kThreads, 1)
                             centers, S, inv_tr, out);
 }
 
+// The same body on the code map (pixels, CP/2), kq the known code.
 template <int CP, bool RAW>
-cudaError_t launch(const float* map, const int* table, int H, int W, int K,
-                   const void* m, const int* sched, int chunk_cap,
-                   const int* perm, const int* centers, int N, int S,
-                   float inv_tr, float* out, cudaStream_t stream) {
-  static int ready_dev = -1;  // the smem opt-in is set once per device
-  return launch_tiles(crop_init_kernel<CP, RAW>, &ready_dev, kRingBytes<CP>,
-                      map, table, H, W, K, m, sched, chunk_cap, perm, centers,
-                      N, S, inv_tr, out, stream);
+__global__ void __launch_bounds__(kThreads, 1)
+    crop_init_i4_kernel(const unsigned char* __restrict__ codes,
+                        const int4* __restrict__ table, int H, int W,
+                        const unsigned char* __restrict__ m,
+                        const int* __restrict__ sched, int K, int chunk_cap,
+                        const int* __restrict__ perm,
+                        const int2* __restrict__ centers, int S, float inv_tr,
+                        float* __restrict__ out, float kq) {
+  init_body<CP, RAW, kFull, true>(codes, table, H, W, m, sched, K, chunk_cap,
+                                  perm, centers, S, inv_tr, out, kq);
 }
 
-template <bool RAW>
-int by_channels(int CP, const float* map, const int* table, int H, int W,
+// Launch the theta search on the float map or, with I4, on the code map
+// (kq: its known code).
+template <int CP, bool RAW, bool I4>
+cudaError_t launch(const void* map, float kq, const int* table,
+                   int H, int W, int K, const void* m, const int* sched,
+                   int chunk_cap, const int* perm, const int* centers, int N,
+                   int S, float inv_tr, float* out, cudaStream_t stream) {
+  static int ready_dev = -1;  // the smem opt-in is set once per device
+  if constexpr (I4)
+    return launch_tiles(crop_init_i4_kernel<CP, RAW>, &ready_dev,
+                        kRingBytes<CP>, static_cast<const unsigned char*>(map),
+                        table, H, W, K, m, sched, chunk_cap, perm, centers, N,
+                        S, inv_tr, out, stream, kq);
+  else
+    return launch_tiles(crop_init_kernel<CP, RAW>, &ready_dev, kRingBytes<CP>,
+                        static_cast<const float*>(map), table, H, W, K, m,
+                        sched, chunk_cap, perm, centers, N, S, inv_tr, out,
+                        stream);
+}
+
+template <bool RAW, bool I4 = false>
+int by_channels(int CP, const void* map, const int* table, int H, int W,
                 int K, const void* m, const int* sched, int chunk_cap,
                 const int* perm, const int* centers, int N, int S,
-                float inv_tr, float* out, void* stream) {
+                float inv_tr, float* out, void* stream,
+                float kq = 1.f) {
   if (!valid_search(S, K)) return (int)cudaErrorInvalidValue;
   const auto st = static_cast<cudaStream_t>(stream);
   switch (CP) {
     case 2:
-      return (int)launch<2, RAW>(map, table, H, W, K, m, sched, chunk_cap,
-                                 perm, centers, N, S, inv_tr, out, st);
+      return (int)launch<2, RAW, I4>(map, kq, table, H, W, K, m, sched,
+                                     chunk_cap, perm, centers, N, S, inv_tr,
+                                     out, st);
     case 4:
-      return (int)launch<4, RAW>(map, table, H, W, K, m, sched, chunk_cap,
-                                 perm, centers, N, S, inv_tr, out, st);
+      return (int)launch<4, RAW, I4>(map, kq, table, H, W, K, m, sched,
+                                     chunk_cap, perm, centers, N, S, inv_tr,
+                                     out, st);
     case 8:
-      return (int)launch<8, RAW>(map, table, H, W, K, m, sched, chunk_cap,
-                                 perm, centers, N, S, inv_tr, out, st);
+      return (int)launch<8, RAW, I4>(map, kq, table, H, W, K, m, sched,
+                                     chunk_cap, perm, centers, N, S, inv_tr,
+                                     out, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -164,4 +213,50 @@ extern "C" int tdr_crop_score_multi_init_raw(const float* pyramid,
                                              void* stream) {
   return by_channels<true>(CP, pyramid, table, 0, 0, K, m, sched, chunk_cap,
                            perm, centers, N, S, inv_tr, out, stream);
+}
+
+// The nibble-packed map: codes (pixels, CP/2) uint8 and kq, the known
+// channel's code (15 or 7), in place of the compact map; m, sched and
+// chunk_cap the code layout's records (crop_score.init_records with qinv);
+// everything else as the float entry points.
+extern "C" int tdr_crop_score_init_i4(const unsigned char* codes, float kq,
+                                      int H, int W, int CP, const void* m,
+                                      const int* sched, int chunk_cap,
+                                      const int* centers, int N, int S,
+                                      float inv_tr, float* out,
+                                      void* stream) {
+  return by_channels<false, true>(CP, codes, nullptr, H, W, 1, m, sched,
+                                  chunk_cap, nullptr, centers, N, S, inv_tr,
+                                  out, stream, kq);
+}
+
+extern "C" int tdr_crop_score_init_raw_i4(const unsigned char* codes,
+                                          float kq, int H, int W, int CP,
+                                          const void* m, const int* sched,
+                                          int chunk_cap, const int* centers,
+                                          int N, int S, float inv_tr,
+                                          float* out, void* stream) {
+  return by_channels<true, true>(CP, codes, nullptr, H, W, 1, m, sched,
+                                 chunk_cap, nullptr, centers, N, S, inv_tr,
+                                 out, stream, kq);
+}
+
+extern "C" int tdr_crop_score_multi_init_i4(
+    const unsigned char* codes, float kq, const int* table, int K, int CP,
+    const void* m, const int* sched, int chunk_cap, const int* perm,
+    const int* centers, int N, int S, float inv_tr, float* out,
+    void* stream) {
+  return by_channels<false, true>(CP, codes, table, 0, 0, K, m, sched,
+                                  chunk_cap, perm, centers, N, S, inv_tr, out,
+                                  stream, kq);
+}
+
+extern "C" int tdr_crop_score_multi_init_raw_i4(
+    const unsigned char* codes, float kq, const int* table, int K, int CP,
+    const void* m, const int* sched, int chunk_cap, const int* perm,
+    const int* centers, int N, int S, float inv_tr, float* out,
+    void* stream) {
+  return by_channels<true, true>(CP, codes, table, 0, 0, K, m, sched,
+                                 chunk_cap, perm, centers, N, S, inv_tr, out,
+                                 stream, kq);
 }

@@ -65,6 +65,40 @@ __device__ __forceinline__ void load_pixel(const float* p, float (&v)[CP]) {
   }
 }
 
+// The pixel's values from the code map (crop_score.compact_codes): its CP/2
+// bytes in one load, byte j holding channel 2j in its low nibble and 2j + 1
+// in its high one.  A byte permute puts code c into the mantissa of 2^23,
+// x = 2^23 + c, and fma(x, q, -2^23 q) rounds c * q once: each channel's
+// code times its qinv in float32, the value crop_score.dequantize_int4
+// gives the plain version, in two instructions without the conversion
+// unit.  The float kernel's arithmetic follows on those values.
+template <int C, int CP>
+__device__ __forceinline__ void load_codes(const unsigned char* p,
+                                           const float (&q)[CP],
+                                           const float (&nq)[CP],
+                                           float (&v)[CP]) {
+  unsigned w;
+  if constexpr (CP == 2) {
+    w = __ldg(p);
+  } else if constexpr (CP == 4) {
+    w = __ldg(reinterpret_cast<const unsigned short*>(p));
+  } else {
+    w = __ldg(reinterpret_cast<const unsigned int*>(p));
+  }
+  // the even channels' codes, byte by byte, and the odd ones'
+  const unsigned lo = w & 0x0F0F0F0Fu, hi = (w >> 4) & 0x0F0F0F0Fu;
+#pragma unroll
+  for (int ch = 0; ch <= C; ++ch)
+    v[ch] = fmaf(__int_as_float(__byte_perm(ch % 2 ? hi : lo, 0x4B000000u,
+                                            0x7650u | (ch / 2))),
+                 q[ch], nq[ch]);
+}
+
+// The element of the map a body reads: float32 channels, or with I4 the
+// nibble-packed codes (CP/2 bytes a pixel).
+template <bool I4>
+using MapElem = std::conditional_t<I4, unsigned char, float>;
+
 // Dynamic shared memory of a block: the group's pixel offsets (P int2), its
 // folded weights (C + 2, P) and the scan tables (C + 1, Th*R).
 template <int C>
@@ -78,10 +112,12 @@ size_t smem_bytes(int TR, int P) {
 // npix[b] distinct offsets; order (K*Th*R) and seg (K*P + 1): the cells
 // b*Th*R + i on slot b*P + u are order[seg[b*P+u] .. seg[b*P+u+1]).  Level
 // b of the map is table[b] = (pixel offset, H, W, -), or (0, H, W) when
-// table is null.  V picks the stages (kFull: all).
-template <int C, int V>
+// table is null.  V picks the stages (kFull: all).  I4: the map is the code
+// map (pixels, CP/2) and qinv (8) its dequantization multipliers
+// (load_codes); only the whole body (kFull) reads codes.
+template <int C, int V, bool I4 = false>
 __device__ __forceinline__ void tracked_body(
-    const float* __restrict__ map,  // (pixels, CP)
+    const MapElem<I4>* __restrict__ map,  // (pixels, CP) or (pixels, CP/2)
     const int4* __restrict__ table, int H, int W,
     const float* __restrict__ scan,  // (C, Th*R)
     const float* __restrict__ cw,    // (C)
@@ -93,8 +129,11 @@ __device__ __forceinline__ void tracked_body(
     const int* __restrict__ skey,        // (N)
     const long long* __restrict__ perm,  // (N)
     const int2* __restrict__ centers,    // (N) cy, cx
-    int N, float inv_tr, float* __restrict__ out) {
+    int N, float inv_tr, float* __restrict__ out,
+    const float* __restrict__ qinv = nullptr) {
   constexpr int CP = Pixel<C>::CP;
+  constexpr int kPixelElems = I4 ? CP / 2 : CP;  // map elements a pixel
+  static_assert(!I4 || V == kFull, "only the whole body reads codes");
   constexpr bool kWeights = V != kGatherOnly;  // folds the weights
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_key[kTile];
@@ -124,6 +163,15 @@ __device__ __forceinline__ void tracked_body(
   __syncthreads();
 
   const int lane = threadIdx.x & 31;
+  // I4: the channels' multipliers, and -2^23 times them (exact)
+  [[maybe_unused]] float q[CP], nq[CP];
+  if constexpr (I4) {
+#pragma unroll
+    for (int ch = 0; ch <= C; ++ch) {
+      q[ch] = __ldg(qinv + ch);
+      nq[ch] = -8388608.0f * q[ch];
+    }
+  }
   int U = 0;  // distinct pixels of the folded group
   for (int run0 = 0; run0 < rows;) {
     const int g = s_key[run0];
@@ -160,7 +208,7 @@ __device__ __forceinline__ void tracked_body(
     }
 
     const int4 lv = table ? table[b] : make_int4(0, H, W, 0);
-    const float* level = map + (size_t)lv.x * CP;
+    const MapElem<I4>* level = map + (size_t)lv.x * kPixelElems;
     for (int r = run0 + (threadIdx.x >> 5); r < run1; r += kWarps) {
       const long long p = perm[row0 + r];
       float acc_c = 0.f, acc_n = 0.f, acc_k = 0.f;
@@ -188,8 +236,14 @@ __device__ __forceinline__ void tracked_body(
             const int2 o = s_pix[u];
             const int y = ctr.x + o.x;
             const int x = ctr.y + o.y;
-            if ((unsigned)y < (unsigned)lv.y && (unsigned)x < (unsigned)lv.z)
-              load_pixel<CP>(level + ((size_t)y * lv.z + x) * CP, v);
+            if ((unsigned)y < (unsigned)lv.y &&
+                (unsigned)x < (unsigned)lv.z) {
+              if constexpr (I4)
+                load_codes<C, CP>(
+                    level + ((size_t)y * lv.z + x) * kPixelElems, q, nq, v);
+              else
+                load_pixel<CP>(level + ((size_t)y * lv.z + x) * CP, v);
+            }
           }
           if constexpr (kWeights) {
             float a = 0.f;

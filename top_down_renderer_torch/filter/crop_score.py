@@ -64,6 +64,31 @@ the CPU tests.
 Both wrappers take the map as a CropMap: the packed map at one mip level
 with its compact copy, made once and kept beside it.
 
+The nibble-packed map (TDR_MAP_INT4=1, the JAX package's
+pallas_score.map_int4).  A CropMap made with int4=True (the filter's
+map_int4, or TDR_MAP_INT4=1 when the filter is made with None) scores
+the map quantized as the JAX package's quantize_channels_int4 quantizes
+it: per
+channel amax over the packed map, 15 levels on even channels and 7 on
+odd ones, codes = round(v * qmax / amax) clipped to [0, qmax], and
+dequantized as code * qinv, qinv = amax / qmax.  The known channel's
+{0, 1} comes back exact on either parity, so kf is the float map's.  Its
+kernels read the compact code map (codes(num_classes): (..., CP/2) uint8,
+byte j holding channel 2j in its low nibble and 2j + 1 in its high one,
+2 bytes a pixel at C = 3 where the float compact map takes 16), each
+pixel's bytes in one load, and are counted under the float kernels'
+names with "_i4" appended.  The tracked one turns each code into code *
+qinv in float32 (one rounding, as dequantize_int4) and runs the float
+kernel's arithmetic on it; the theta search multiplies the codes, exact
+in bf16, by M with qinv folded into its rows (fold_qinv; its chunks'
+rows reordered so that each thread loads whole pixels,
+code_chunk_order), two products a step where the float map takes three.
+The plain versions score dequantize_int4 of the same codes
+(CropMap.plain): kernel and plain version differ in the order of their
+float32 sums (and, in the theta search, where qinv enters; rel 1e-4),
+kf bit for bit.  The conv path's map (CropMap.compact) stays float32 either
+way, as the JAX conv field reads the unquantized map.
+
 The crop-size buckets and the mip fallback are kept in the host dispatch
 (filter/filter.py) so that both packages score the same map at the same
 state; neither kernel needs a crop buffer.
@@ -72,6 +97,7 @@ state; neither kernel needs a crop buffer.
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Tuple
 
 import numpy as np
@@ -106,6 +132,17 @@ _MO_BUCKETS = (12, 24)
 # the conv path's (filter/conv_score.py): its kernel has no crop buffer to
 # bound, so it covers larger range scales (its size grows with mo^2)
 _MO_BUCKETS_CONV = (12, 24, 36, 48)
+
+# quantize_channels_int4's levels: 15 on even channels, 7 on odd ones (the
+# JAX kernel keeps each packed byte <= 127 for its e-dot contraction)
+I4_QMAX = (15.0, 7.0) * (C_PAD // 2)
+
+
+def map_int4() -> bool:
+    """TDR_MAP_INT4=1: a ParticleFilter made with map_int4=None scores the
+    nibble-packed map (the JAX package's pallas_score.map_int4)."""
+    return os.environ.get("TDR_MAP_INT4", "0") == "1"
+
 
 def pick_crop_size(
     f: float, range_bins: int, buckets=_MO_BUCKETS
@@ -272,18 +309,19 @@ def check_tracked(num_classes, stencil, scan, class_weights, center_px,
 def _tracked_inputs(maps, num_classes, stencil, scan, class_weights,
                     center_px, theta, f, map_resolution):
     """Check the tracked kernel's operands and derive its inputs on their
-    device: (compact map, the stencil's fold at f (CropMap.fold), centres
-    (N, 2), shifts (N,))."""
+    device: (the map operand (CropMap.operand: the compact map, or the code
+    map of a nibble-packed one), the stencil's fold at f (CropMap.fold),
+    centres (N, 2), shifts (N,))."""
     packed = maps.packed
     dev = packed.device
     h, w = packed.shape[:2]
     _require(packed, "packed_map", (h, w, C_PAD), torch.float32, dev)
     th = check_tracked(num_classes, stencil, scan, class_weights,
                        center_px, theta, dev)[1]
-    compact = maps.compact(num_classes)
-    if compact.numel() >= 2**31:
+    operand = maps.operand(num_classes)
+    if operand.numel() >= 2**31:
         raise ValueError("map too large for 32-bit indexing")
-    return (compact, maps.fold(stencil, f),
+    return (operand, maps.fold(stencil, f),
             crop_centers(center_px, map_resolution).contiguous(),
             rotation_shift(theta, th))
 
@@ -293,20 +331,21 @@ def score_tracked(
     map_resolution: float = 1.0,
 ):
     """Tracked flavour: (cost, norm, kf) (N,) at each particle's own
-    rotation shift on maps.packed (a CropMap); cost/norm is the
+    rotation shift on maps (a CropMap: its packed map, or its codes where
+    maps.int4, "crop_score_tracked_i4" on the card); cost/norm is the
     particle's cost.  f as a number lets maps keep the stencil's fold
     (CropMap.fold)."""
     if not kernels.on_card(maps.packed.device, "crop scorer"):
         return score_tracked_plain(
-            maps.packed, num_classes, stencil, scan, class_weights,
-            center_px, theta, f, map_resolution,
+            maps.plain(num_classes).packed, num_classes, stencil, scan,
+            class_weights, center_px, theta, f, map_resolution,
         )
-    compact, fold, ctr, shift = _tracked_inputs(
+    _, fold, ctr, shift = _tracked_inputs(
         maps, num_classes, stencil, scan, class_weights, center_px, theta,
         f, map_resolution,
     )
     h, w = maps.packed.shape[:2]
-    return launch_tracked("crop_score_tracked", compact, None, h, w,
+    return launch_tracked("crop_score_tracked", maps, None, h, w,
                           num_classes, scan, class_weights, fold, ctr, shift)
 
 
@@ -353,13 +392,53 @@ def fold_pixels(off: torch.Tensor):
     return buf[: 2 * k * cap].view(k, cap, 2), buf[-k:], order, seg
 
 
-def launch_tracked(name: str, maps, table, h: int, w: int, num_classes: int,
+def check_map_operand(int4: bool, operand, qinv, num_classes: int) -> None:
+    """The map operand a crop entry point takes: a code entry ("..._i4",
+    int4) the code map (..., CP/2) uint8 with qinv (8,) float32, a float
+    entry the compact map (..., CP) float32 and no qinv; both contiguous.
+    A float map given to a code entry, or codes to a float entry, raise."""
+    cp = channel_pad(num_classes)
+    kind = "a code" if int4 else "a float"
+    want = (torch.uint8, cp // 2) if int4 else (torch.float32, cp)
+    if (operand.dtype, operand.shape[-1]) != want:
+        raise TypeError(
+            f"{kind} entry takes a map of {want[1]} {want[0]} a pixel, got "
+            f"{operand.shape[-1]} {operand.dtype}")
+    if not operand.is_contiguous():
+        raise ValueError(f"{kind} entry's map operand must be contiguous")
+    if int4:
+        _require(qinv, "qinv", (C_PAD,), torch.float32, operand.device,
+                 contiguous=True)
+    elif qinv is not None:
+        raise TypeError("a float entry takes no qinv: its map is float32")
+
+
+def entry_name(base: str, maps, raw: bool = False) -> str:
+    """The crop entry point `base` takes for maps (a CropMap or
+    PyramidMaps): "<base>[_raw][_i4]", "_i4" on a nibble-packed map; its
+    kernels.LAUNCHES key and, as tdr_<name>, its C entry."""
+    return base + "_raw" * raw + "_i4" * maps.int4
+
+
+def map_operand(maps, num_classes: int):
+    """(operand, qinv) the crop kernels read for maps (a CropMap or
+    PyramidMaps): its code map and qinv where maps.int4, else its compact
+    map and None; checked (check_map_operand)."""
+    operand = maps.operand(num_classes)
+    qinv = maps.qinv if maps.int4 else None
+    check_map_operand(maps.int4, operand, qinv, num_classes)
+    return operand, qinv
+
+
+def launch_tracked(base: str, maps, table, h: int, w: int, num_classes: int,
                    scan, class_weights, fold, ctr, key):
     """Sort the particles by group key (bucket * Th + shift) and launch
-    the tracked kernel `name` (kernels.LAUNCHES key; entry tdr_<name>)
-    over the compact map `maps` (table: the K buckets' levels, or None at
-    a uniform scale) with the K offset tables' fold (fold_pixels).
-    Returns (cost, norm, kf) (N,)."""
+    the tracked kernel entry_name(base, maps) over maps' operand
+    (map_operand: the compact map, or the code map with its qinv; table:
+    the K buckets' levels, or None at a uniform scale) with the K offset
+    tables' fold (fold_pixels).  Returns (cost, norm, kf) (N,)."""
+    name = entry_name(base, maps)
+    operand, qinv = map_operand(maps, num_classes)
     th, r = scan.shape[1:]
     n = ctr.shape[0]
     out = torch.empty((n, 3), dtype=torch.float32, device=ctr.device)
@@ -369,10 +448,12 @@ def launch_tracked(name: str, maps, table, h: int, w: int, num_classes: int,
         inv_tr = float(np.float32(1.0) / np.float32(th * r))
         # kept alive until the asynchronous launch has read them
         scan, class_weights = scan.contiguous(), class_weights.contiguous()
+        head = (ptr(operand),) if qinv is None else (ptr(operand),
+                                                     ptr(qinv))
         if table is None:
-            head = (ptr(maps), h, w)
+            head += (h, w)
         else:
-            head = (ptr(maps), ptr(table), table.shape[0])
+            head += (ptr(table), table.shape[0])
         kernels.launch(
             "crop_score", f"tdr_{name}", *head, num_classes, ptr(scan),
             ptr(class_weights), ptr(pix), ptr(npix), ptr(order), ptr(seg),
@@ -460,15 +541,70 @@ def compact_map(packed: torch.Tensor, num_classes: int) -> torch.Tensor:
     return out
 
 
+def quantize_channels_int4(packed: torch.Tensor):
+    """(..., 8) float32 -> (bytes (..., 4) uint8, qinv (8,) float32): the
+    JAX package's quantize_channels_int4 in the same float32 operations.
+    Per channel amax over the whole map, at least 1e-6; codes v =
+    round(packed * (qmax / amax)) (half to even) clipped to [0, qmax],
+    qmax 15 on even channels and 7 on odd ones; byte j = v[2j] | v[2j + 1]
+    << 4; qinv = amax / qmax."""
+    p32 = packed.to(torch.float32)
+    amax = torch.clamp(p32.reshape(-1, p32.shape[-1]).amax(0), min=1e-6)
+    qmax = torch.tensor(I4_QMAX, dtype=torch.float32, device=packed.device)
+    v = torch.minimum(torch.round(p32 * (qmax / amax)).clamp(min=0.0), qmax)
+    v = v.to(torch.uint8)
+    return v[..., 0::2] | (v[..., 1::2] << 4), amax / qmax
+
+
+def compact_codes(byte: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """(..., CP/2) uint8: the first CP/2 bytes of quantize_channels_int4's
+    bytes, the C + 1 channels the score reads (compact_map's channels),
+    the nibbles of the channels above them zeroed."""
+    keep = num_classes + 1
+    nb = (keep + 1) // 2  # the bytes that hold a channel kept
+    out = torch.zeros(byte.shape[:-1] + (channel_pad(num_classes) // 2,),
+                      dtype=torch.uint8, device=byte.device)
+    out[..., :nb] = byte[..., :nb]
+    if keep % 2:
+        out[..., nb - 1] &= 0x0F
+    return out
+
+
+def dequantize_int4(codes: torch.Tensor, qinv: torch.Tensor,
+                    num_classes: int) -> torch.Tensor:
+    """(..., 8) float32 packed map of the code map `codes` (..., CP/2):
+    channel ch <= C is code * qinv[ch] in float32, the channels above
+    zero; what the plain versions score for a nibble-packed map."""
+    shifts = torch.tensor([0, 4], dtype=torch.uint8, device=codes.device)
+    nib = ((codes[..., None] >> shifts) & 0x0F).flatten(-2)
+    keep = num_classes + 1
+    out = torch.zeros(codes.shape[:-1] + (C_PAD,), dtype=torch.float32,
+                      device=codes.device)
+    out[..., :keep] = nib[..., :keep].to(torch.float32) * qinv[:keep]
+    return out
+
+
 class CropMap:
     """A packed (..., 8) float32 map and its compact copies: the crop
     kernels' operands.  compact(num_classes) is made on first use and
     kept, so a map's owner makes it once per map version; fold(stencil,
-    f) keeps the last stencil fold at a host scale f."""
+    f) keeps the last stencil fold at a host scale f.
 
-    def __init__(self, packed: torch.Tensor):
+    int4: score the nibble-packed map (the module's docstring; the
+    filter's map_int4, which reads TDR_MAP_INT4 when None).  Such a map
+    quantizes its own packed map on first use (quantize_channels_int4, or
+    `quantized`, its (bytes, qinv) made elsewhere: the pyramid's, from
+    the full-resolution map) and keeps codes(num_classes) and
+    plain(num_classes); compact() stays the float32 map."""
+
+    def __init__(self, packed: torch.Tensor, int4: bool = False,
+                 quantized=None):
         self.packed = packed
+        self.int4 = bool(int4)
         self._compact = {}
+        self._codes = {}
+        self._plain = {}
+        self._quantized = quantized  # (bytes (..., 4), qinv (8,))
         self._fold = None  # (stencil, f, fold)
 
     def compact(self, num_classes: int) -> torch.Tensor:
@@ -477,6 +613,45 @@ class CropMap:
             self._compact[num_classes] = compact_map(self.packed,
                                                      num_classes)
         return self._compact[num_classes]
+
+    def quantized(self):
+        """(bytes, qinv) of quantize_channels_int4, made once; only a
+        nibble-packed map has them."""
+        if not self.int4:
+            raise ValueError("a float32 CropMap has no codes (int4=False)")
+        if self._quantized is None:
+            self._quantized = quantize_channels_int4(self.packed)
+        return self._quantized
+
+    @property
+    def qinv(self) -> torch.Tensor:
+        """(8,) float32: code * qinv[ch] is channel ch's value."""
+        return self.quantized()[1]
+
+    def codes(self, num_classes: int) -> torch.Tensor:
+        """compact_codes of the map's bytes, made once."""
+        if num_classes not in self._codes:
+            self._codes[num_classes] = compact_codes(self.quantized()[0],
+                                                     num_classes)
+        return self._codes[num_classes]
+
+    def operand(self, num_classes: int) -> torch.Tensor:
+        """The map the kernels read: codes or the compact map."""
+        return (self.codes(num_classes) if self.int4
+                else self.compact(num_classes))
+
+    def _dequantized(self, num_classes: int) -> torch.Tensor:
+        if num_classes not in self._plain:
+            self._plain[num_classes] = dequantize_int4(
+                self.codes(num_classes), self.qinv, num_classes)
+        return self._plain[num_classes]
+
+    def plain(self, num_classes: int) -> "CropMap":
+        """The map the plain versions score: this map, or for a
+        nibble-packed one a float32 CropMap of its dequantized codes."""
+        if not self.int4:
+            return self
+        return CropMap(self._dequantized(num_classes), int4=False)
 
     def fold(self, stencil: torch.Tensor, f):
         """fold_pixels(crop_offsets(stencil, f)[None]): the stencil's
@@ -566,16 +741,51 @@ def split_bf16(x: torch.Tensor):
     return hi, (x - hi.to(torch.float32)).to(torch.bfloat16)
 
 
-def init_operands(pix, npix, m):
+def known_code(num_classes: int) -> int:
+    """The code of a known pixel on the known channel C: its qmax, 15 on an
+    even channel and 7 on an odd one (the mask's 1 quantized)."""
+    return int(I4_QMAX[num_classes])
+
+
+def fold_qinv(m, qinv, num_classes: int):
+    """M of the code map's theta search: init_m's rows of channel ch times
+    qinv[ch], so that the codes themselves are its A operand; the kf
+    column keeps its cell counts, so that it sums known_code times the
+    count of known cells, which the kernel divides out exactly (kf then is
+    the float map's for a known mask of 0 and 1)."""
+    cp = channel_pad(num_classes)
+    scale = qinv[:cp].repeat(m.shape[1] // cp)  # row q CP + ch: qinv[ch]
+    out = m * scale[None, :, None]
+    out[..., KF_COL] = m[..., KF_COL]
+    return out
+
+
+def code_chunk_order() -> torch.Tensor:
+    """(K_CHUNK,) int64: the rows of a chunk of M (pixel * CP + channel) in
+    the order the code map's theta search takes them.  Fragment column c =
+    16 ks + 8 hf + 2 t + e holds row 8 t + 2 (2 ks + hf) + e: a thread's
+    four pairs of a row are rows 8 t .. 8 t + 7, whole pixels of the
+    chunk, which it loads as 8 / CP naturally aligned words of CP / 2 code
+    bytes each (csrc/crop_init.cuh Codes), at any CP."""
+    c = np.arange(K_CHUNK)
+    ks, hf, t, e = c // 16, (c // 8) % 2, (c % 8) // 2, c % 2
+    return torch.as_tensor(8 * t + 2 * (2 * ks + hf) + e)
+
+
+def init_operands(pix, npix, m, chunk_order=None):
     """M as the init kernel streams it: (records (K, chunks, words) int16,
     nchunk (K,) int64).  A record is one chunk of K_CHUNK rows of M: its
     bf16 hi plane, its lo plane (each in wgmma's K-major core-matrix
     order: 8 columns x 8 rows blocks of 128 bytes, N-block fastest), then
     the int32 (dy, dx) of its K_CHUNK / CP pixels.  nchunk[b] counts the
-    chunks that hold bucket b's npix[b] pixels."""
+    chunks that hold bucket b's npix[b] pixels.  chunk_order
+    (code_chunk_order) permutes each chunk's rows for the code map."""
     k, rows, ncol = m.shape
     cp = rows // pix.shape[1]
     nch = rows // K_CHUNK
+    if chunk_order is not None:
+        m = m.view(k, nch, K_CHUNK, ncol)[:, :, chunk_order.to(m.device)]
+        m = m.reshape(k, rows, ncol)
 
     def plane(x):  # (k, rows, ncol) -> chunk, k block, n block, n, k
         x = x.view(k, nch, K_CHUNK // 8, 8, ncol // 8, 8)
@@ -599,25 +809,38 @@ def init_schedule(row_start: torch.Tensor, nchunk: torch.Tensor):
     return torch.cat([row_start, tile_start, nchunk]).to(torch.int32)
 
 
-def init_records(scan, class_weights, fold, row_start, num_rot: int):
+def init_records(scan, class_weights, fold, row_start, num_rot: int,
+                 qinv=None):
     """The theta search's M build: (records, schedule) of init_operands and
     init_schedule, M built by init_m over the K offset tables' fold
-    (fold_pixels) for the buckets that start at row_start."""
+    (fold_pixels) for the buckets that start at row_start; with qinv, the
+    code map's M (fold_qinv, code_chunk_order)."""
     pix, npix, order, seg = fold
     m = init_m(scan, class_weights, order, seg, num_rot)
-    rec, nchunk = init_operands(pix, npix, m)
+    chunk_order = None
+    if qinv is not None:
+        c = scan.shape[0]
+        m = fold_qinv(m, qinv, c)
+        chunk_order = code_chunk_order()
+    rec, nchunk = init_operands(pix, npix, m, chunk_order)
     return rec, init_schedule(row_start, nchunk)
 
 
-def init_args(maps, table, h: int, w: int, num_classes: int, rec, sched,
-              ctr, perm, num_rot: int, inv_tr: float, out) -> tuple:
+def init_args(operand, table, h: int, w: int, num_classes: int, rec, sched,
+              ctr, perm, num_rot: int, inv_tr: float, out,
+              qinv=None) -> tuple:
     """The theta-search entry points' arguments before the stream:
-    tdr_crop_score_init's (table None) or tdr_crop_score_multi_init's."""
+    tdr_crop_score_init's (table None) or tdr_crop_score_multi_init's over
+    the map operand, and with qinv (a code map) their "_i4" twins',
+    known_code after the map."""
     cp = channel_pad(num_classes)
+    args = (ptr(operand),)
+    if qinv is not None:
+        args += (ctypes.c_float(known_code(num_classes)),)
     if table is None:
-        args = (ptr(maps), h, w, cp)
+        args += (h, w, cp)
     else:
-        args = (ptr(maps), ptr(table), table.shape[0], cp)
+        args += (ptr(table), table.shape[0], cp)
     args += (ptr(rec), ptr(sched), rec.shape[1])
     if perm is not None:
         args += (ptr(perm),)
@@ -625,33 +848,34 @@ def init_args(maps, table, h: int, w: int, num_classes: int, rec, sched,
                    ptr(out))
 
 
-def launch_init(name: str, maps, table, h: int, w: int, num_classes: int,
-                scan, class_weights, fold, ctr, perm, row_start,
-                num_rot: int):
+def launch_init(base: str, inputs: tuple, raw: bool = False):
     """Build M over the K offset tables' fold (fold_pixels), schedule the
-    tiles and launch the theta-search kernel `name` (kernels.LAUNCHES key;
-    entry tdr_<name>) over the compact map `maps` (table: the K buckets'
-    levels, or None at a uniform scale).  row_start (K + 1,) int64: the
-    first row of each bucket in perm's order, and N.  Returns init_rows'
-    rows, the raw ones for a name ending in "_raw"."""
+    tiles and launch the theta-search kernel entry_name(base, maps, raw)
+    over `inputs` (init_inputs': maps first, a CropMap or PyramidMaps
+    whose operand the kernel reads, map_operand; table: the K buckets'
+    levels, or None at a uniform scale; row_start (K + 1,) int64: the
+    first row of each bucket in perm's order, and N).  Returns init_rows'
+    rows, the raw ones where raw."""
+    name = entry_name(base, inputs[0], raw)
+
     def launch(args):
         kernels.launch("crop_score_init", f"tdr_{name}", *args)
         kernels.LAUNCHES[name] += 1
 
-    return init_rows(launch, (maps, table, h, w, num_classes, scan,
-                              class_weights, fold, ctr, perm, row_start,
-                              num_rot), name.endswith("_raw"))
+    return init_rows(launch, inputs, raw)
 
 
 def init_rows(launch, inputs: tuple, raw: bool, records=None):
-    """launch(args) on init_args over `inputs` (launch_init's arguments
-    after the name) and `records` (init_records', built from the inputs
-    when None), and the rows it writes: (best, k, kf) (N,), or with raw
-    (nums, dens (N, num_rot), kf (N,)): the sums as they are, kf the known
-    count times f32(1 / (Th R)).  The production kernels' launch and the
+    """launch(args) on init_args over `inputs` (maps, table, h, w,
+    num_classes, scan, class_weights, fold, ctr, perm, row_start, num_rot:
+    init_inputs') and `records` (init_records', built from the inputs when
+    None), and the rows it writes: (best, k, kf) (N,), or with raw (nums,
+    dens (N, num_rot), kf (N,)): the sums as they are, kf the known count
+    times f32(1 / (Th R)).  The production kernels' launch and the
     ablation's (probes/crop_ablate.py) share it."""
     (maps, table, h, w, num_classes, scan, class_weights, fold, ctr, perm,
      row_start, num_rot) = inputs
+    operand, qinv = map_operand(maps, num_classes)
     th, r = scan.shape[1:]
     n = ctr.shape[0]
     width = 2 * num_rot + 1 if raw else 3
@@ -660,9 +884,9 @@ def init_rows(launch, inputs: tuple, raw: bool, records=None):
     if n:
         if records is None:
             records = init_records(scan, class_weights, fold, row_start,
-                                   num_rot)
-        launch(init_args(maps, table, h, w, num_classes, *records, ctr, perm,
-                         num_rot, inv_tr, out))
+                                   num_rot, qinv)
+        launch(init_args(operand, table, h, w, num_classes, *records, ctr,
+                         perm, num_rot, inv_tr, out, qinv))
     if raw:
         s = 2 * num_rot
         return out[:, 0:s:2], out[:, 1:s:2], out[:, s] * inv_tr
@@ -672,19 +896,20 @@ def init_rows(launch, inputs: tuple, raw: bool, records=None):
 def init_inputs(maps, num_classes, stencil, scan, class_weights, center_px,
                 f, num_rot: int = 40, map_resolution: float = 1.0) -> tuple:
     """Check the theta search's operands on the card and derive launch_init's
-    arguments after `name` at one uniform scale."""
+    inputs at one uniform scale, maps first (its operand checked for
+    32-bit indexing)."""
     packed_map = maps.packed
     dev = packed_map.device
     h, w = packed_map.shape[:2]
     _require(packed_map, "packed_map", (h, w, C_PAD), torch.float32, dev)
     check_operands(num_classes, stencil, scan, class_weights, center_px,
                    dev, num_rot)
-    compact = maps.compact(num_classes)
-    if compact.numel() >= 2**31:
+    operand = maps.operand(num_classes)
+    if operand.numel() >= 2**31:
         raise ValueError("map too large for 32-bit indexing")
     rows = torch.zeros(2, dtype=torch.int64, device=dev)
     rows[1] = center_px.shape[0]
-    return (compact, None, h, w, num_classes, scan, class_weights,
+    return (maps, None, h, w, num_classes, scan, class_weights,
             maps.fold(stencil, f),
             crop_centers(center_px, map_resolution).contiguous(), None, rows,
             num_rot)
@@ -694,15 +919,16 @@ def score_init_sel(
     maps: CropMap, num_classes, stencil, scan, class_weights, center_px, f,
     num_rot: int = 40, map_resolution: float = 1.0,
 ):
-    """Theta-search flavour: (best_cost, k (int64), kf) (N,) on
-    maps.packed; ties as in the module's docstring.  f as a number lets
-    maps keep the stencil's fold (CropMap.fold)."""
+    """Theta-search flavour: (best_cost, k (int64), kf) (N,) on maps (its
+    codes where maps.int4: "crop_score_init_i4"); ties as in the module's
+    docstring.  f as a number lets maps keep the stencil's fold
+    (CropMap.fold)."""
     if not kernels.on_card(maps.packed.device, "crop scorer"):
         return score_init_sel_plain(
-            maps.packed, num_classes, stencil, scan, class_weights,
-            center_px, f, num_rot, map_resolution,
+            maps.plain(num_classes).packed, num_classes, stencil, scan,
+            class_weights, center_px, f, num_rot, map_resolution,
         )
-    return launch_init("crop_score_init", *init_inputs(
+    return launch_init("crop_score_init", init_inputs(
         maps, num_classes, stencil, scan, class_weights, center_px, f,
         num_rot, map_resolution))
 
@@ -716,12 +942,13 @@ def score_init_raw(
     gated.  A window off the map reads zeros, so a particle centred far
     off it has a row of zeros, as the reference zeroes its out-of-range
     rows.  On the card the same tensor-core product as score_init_sel
-    with the raw-row epilogue ("crop_score_init_raw")."""
+    with the raw-row epilogue ("crop_score_init_raw", or
+    "crop_score_init_raw_i4" on the codes where maps.int4)."""
     if not kernels.on_card(maps.packed.device, "crop scorer"):
         return score_init_raw_plain(
-            maps.packed, num_classes, stencil, scan, class_weights,
-            center_px, f, num_rot, map_resolution,
+            maps.plain(num_classes).packed, num_classes, stencil, scan,
+            class_weights, center_px, f, num_rot, map_resolution,
         )
-    return launch_init("crop_score_init_raw", *init_inputs(
+    return launch_init("crop_score_init", init_inputs(
         maps, num_classes, stencil, scan, class_weights, center_px, f,
-        num_rot, map_resolution))
+        num_rot, map_resolution), raw=True)

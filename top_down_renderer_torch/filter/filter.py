@@ -477,6 +477,14 @@ class ParticleFilter:
     falls back: no crop bucket even at mip 32, alive scales beyond the
     clustering ladder, or a live scale bucket beyond mip 64.
 
+    map_int4: the crop kernels score the nibble-packed map (True), the
+    float32 map (False), or what TDR_MAP_INT4 says when the filter is
+    made (None; crop_score.map_int4, read once, so every map the filter
+    builds holds the same choice).  It changes the map the crop steps
+    score (each mip level quantized itself, the pyramid once at full
+    resolution), not the plan; the conv path reads the float32 map
+    either way.
+
     mesh: a 1-D DeviceMesh (parallel.sharding.make_mesh) shards the
     particle axis over the ranks of the process group, one process per
     rank: each rank builds the same filter and calls the same methods in
@@ -503,10 +511,13 @@ class ParticleFilter:
         chunk_size: int = 2048,
         device=None,
         mesh=None,
+        map_int4: Optional[bool] = None,
     ):
         chunk_size = min(chunk_size, n_max)
         n_max = -(-n_max // chunk_size) * chunk_size
         self.mesh = mesh
+        self.map_int4 = (crop_score.map_int4() if map_int4 is None
+                         else bool(map_int4))
         if mesh is not None:
             # a mesh-size multiple too, so that the rows shard evenly
             n_max = -(-n_max // mesh.size()) * mesh.size()
@@ -937,7 +948,7 @@ class ParticleFilter:
         key = (self._map_version, tuple(levels))
         if key not in self._pyramid_cache:
             self._pyramid_cache[key] = ms.build_pyramid_maps(
-                self.map.grid.dist.to(self.device), levels
+                self.map.grid.dist.to(self.device), levels, self.map_int4
             )
         return self._pyramid_cache[key]
 
@@ -957,17 +968,20 @@ class ParticleFilter:
         return self._fast_fns[key]
 
     def _get_map(self, mip: int) -> crop_score.CropMap:
-        """The packed map at this mip level with its compact copy, per
-        map version."""
+        """The packed map at this mip level with its compact copy (and its
+        codes, quantized from this level, where map_int4), per map
+        version."""
         key = (self._map_version, mip)
         if key not in self._maps_cache:
             self._maps_cache[key] = crop_score.CropMap(crop_score.mip_map(
                 self.map.grid.dist.to(self.device), mip
-            ))
+            ), self.map_int4)
         return self._maps_cache[key]
 
     def _get_conv_map(self) -> conv_score.ConvMap:
-        """The conv path's padded compact map, per map version."""
+        """The conv path's padded compact map, per map version: float32
+        under map_int4 too, as the JAX conv field reads the unquantized
+        map."""
         key = (self._map_version, "conv")
         if key not in self._maps_cache:
             self._maps_cache[key] = conv_score.ConvMap(

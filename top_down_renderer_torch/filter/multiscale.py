@@ -20,7 +20,13 @@ The pyramid keeps the float32 packed levels dist[::m, ::m] back to back
 in one (P, 8) tensor with a host table of (pixel offset, H, W) per level.
 A window that leaves its own level reads zeros there, never another
 level's pixels.  None of the TPU layout is carried over (int8
-quantisation, y-shifted copies, padding, nibble packing).
+quantisation, y-shifted copies, padding).  The nibble-packed map
+(TDR_MAP_INT4=1, crop_score's docstring) is a configuration of what is
+scored, and is ported: as the JAX pyramid does, build_pyramid_maps
+quantizes the full-resolution map once and every level subsamples those
+codes, with one qinv for all levels (the uniform mip fallback instead
+quantizes its own subsample, as the JAX package does), and the kernels
+read the code pyramid ("_i4" twins of their names).
 
 Three scorers, each a wrapper with a public plain version beside it:
   score_tracked_multi   -> (cost, norm, kf) at each particle's own shift
@@ -194,13 +200,29 @@ def plan_buckets(scales: np.ndarray, range_bins: int, res: float,
 class PyramidMaps(cs.CropMap):
     """Packed float32 levels dist[::m, ::m] for m in `mips`, back to back
     in `flat` (P, 8); `levels[l]` = (pixel offset, H, W) of level l.
-    compact(num_classes) (P, CP) is both kernels' operand."""
+    compact(num_classes) (P, CP), or codes(num_classes) (P, CP/2) where
+    int4, is both kernels' operand; `quantized` (bytes (P, 4), qinv) is
+    build_pyramid_maps' quantization of the full-resolution map."""
 
-    def __init__(self, flat: torch.Tensor, mips, levels):
-        super().__init__(flat)
+    def __init__(self, flat: torch.Tensor, mips, levels, int4: bool = False,
+                 quantized=None):
+        super().__init__(flat, int4, quantized)
         self.mips = tuple(mips)
         self.levels = tuple(levels)
         self._tables = {}
+
+    def quantized(self):
+        if self.int4 and self._quantized is None:
+            raise ValueError("a pyramid's codes come from build_pyramid_maps")
+        return super().quantized()
+
+    def plain(self, num_classes: int) -> "PyramidMaps":
+        """The pyramid the plain versions score: this one, or a float32
+        one of the dequantized codes."""
+        if not self.int4:
+            return self
+        return PyramidMaps(self._dequantized(num_classes), self.mips,
+                           self.levels, int4=False)
 
     @property
     def flat(self) -> torch.Tensor:
@@ -210,6 +232,17 @@ class PyramidMaps(cs.CropMap):
         """Level l as an (H, W, 8) view of `flat`."""
         off, h, w = self.levels[l]
         return self.flat[off : off + h * w].view(h, w, self.flat.shape[1])
+
+    def level_crop_map(self, l: int) -> cs.CropMap:
+        """Level l as a uniform CropMap: its packed view and, where int4,
+        the pyramid's codes of it with the pyramid's one qinv (not the
+        level quantized anew, as crop_score.CropMap would)."""
+        off, h, w = self.levels[l]
+        quantized = None
+        if self.int4:
+            byte, qinv = self.quantized()
+            quantized = (byte[off : off + h * w].view(h, w, -1), qinv)
+        return cs.CropMap(self.level_map(l), self.int4, quantized)
 
     def bucket_tables(self, bucket_level: Sequence[int]):
         """(mips (K,) float32, table (K, 4) int32 of (pixel offset, H, W,
@@ -226,16 +259,25 @@ class PyramidMaps(cs.CropMap):
         return self._tables[key]
 
 
-def build_pyramid_maps(packed: torch.Tensor, mips) -> PyramidMaps:
-    """(H, W, 8) float32 packed map -> its pyramid over `mips`."""
-    parts, levels, off = [], [], 0
+def build_pyramid_maps(packed: torch.Tensor, mips,
+                       int4: bool = False) -> PyramidMaps:
+    """(H, W, 8) float32 packed map -> its pyramid over `mips`.  int4: the
+    nibble-packed pyramid, whose levels subsample the codes of the
+    full-resolution map, quantized once
+    (crop_score.quantize_channels_int4), with its one qinv."""
+    full = cs.quantize_channels_int4(packed) if int4 else None
+    parts, codes, levels, off = [], [], [], 0
     for m in mips:
         lv = packed[::m, ::m]
         h, w = lv.shape[:2]
         parts.append(lv.reshape(h * w, packed.shape[2]))
+        if int4:
+            codes.append(full[0][::m, ::m].reshape(h * w, -1))
         levels.append((off, h, w))
         off += h * w
-    return PyramidMaps(torch.cat(parts).contiguous(), mips, levels)
+    quantized = (torch.cat(codes).contiguous(), full[1]) if int4 else None
+    return PyramidMaps(torch.cat(parts).contiguous(), mips, levels, int4,
+                       quantized)
 
 
 def assign_buckets(scale: torch.Tensor, slot_vals: torch.Tensor) -> torch.Tensor:
@@ -397,21 +439,21 @@ def _tracked_inputs(pyr, num_classes, stencil, scan, class_weights,
                     center_px, theta, scale, slot_vals, bucket_level, res,
                     map_resolution):
     """Check the tracked kernel's operands and derive its inputs on their
-    device: (compact pyramid, table (K, 4), the fold of the offsets (K,
-    Th*R, 2) (crop_score.fold_pixels), centres (N, 2), group keys bucket *
-    Th + shift (N,))."""
+    device: (the pyramid operand (compact, or codes where pyr.int4), table
+    (K, 4), the fold of the offsets (K, Th*R, 2) (crop_score.fold_pixels),
+    centres (N, 2), group keys bucket * Th + shift (N,))."""
     dev = pyr.flat.device
     _check_buckets(pyr, stencil, scan, class_weights, center_px, scale,
                    slot_vals, bucket_level, num_classes)
     th = cs.check_tracked(num_classes, stencil, scan, class_weights,
                           center_px, theta, dev)[1]
-    compact = pyr.compact(num_classes)
+    operand = pyr.operand(num_classes)
     bucket, off, ctr, table = _prepare(
         pyr, stencil, center_px, scale, slot_vals, bucket_level, res,
         map_resolution,
     )
     key = bucket * th + rotation_shift(theta, th)
-    return compact, table, cs.fold_pixels(off), ctr.contiguous(), key
+    return operand, table, cs.fold_pixels(off), ctr.contiguous(), key
 
 
 def score_tracked_multi(
@@ -419,18 +461,20 @@ def score_tracked_multi(
     scale, slot_vals, bucket_level, res, map_resolution: float = 1.0,
 ):
     """Tracked flavour over K buckets: (cost, norm, kf) (N,) at each
-    particle's own rotation shift."""
+    particle's own rotation shift (on the codes where pyr.int4:
+    "crop_score_multi_tracked_i4")."""
     if not kernels.on_card(pyr.flat.device, "crop scorer"):
         return score_tracked_multi_plain(
-            pyr, num_classes, stencil, scan, class_weights, center_px,
-            theta, scale, slot_vals, bucket_level, res, map_resolution,
+            pyr.plain(num_classes), num_classes, stencil, scan,
+            class_weights, center_px, theta, scale, slot_vals, bucket_level,
+            res, map_resolution,
         )
-    compact, table, fold, ctr, key = _tracked_inputs(
+    _, table, fold, ctr, key = _tracked_inputs(
         pyr, num_classes, stencil, scan, class_weights, center_px, theta,
         scale, slot_vals, bucket_level, res, map_resolution,
     )
     return cs.launch_tracked(
-        "crop_score_multi_tracked", compact, table, 0, 0, num_classes, scan,
+        "crop_score_multi_tracked", pyr, table, 0, 0, num_classes, scan,
         class_weights, fold, ctr, key,
     )
 
@@ -439,17 +483,16 @@ def init_inputs(pyr, num_classes, stencil, scan, class_weights, center_px,
                 scale, slot_vals, bucket_level, res, num_rot: int = 40,
                 map_resolution: float = 1.0) -> tuple:
     """Check the K-bucket theta search's operands on the card and derive
-    crop_score.launch_init's arguments after `name`: the bucket-major
+    crop_score.launch_init's inputs: the pyramid first, the bucket-major
     rows."""
     k = _check_buckets(pyr, stencil, scan, class_weights, center_px, scale,
                        slot_vals, bucket_level, num_classes, num_rot)[0]
-    compact = pyr.compact(num_classes)
     bucket, off, ctr, table = _prepare(
         pyr, stencil, center_px, scale, slot_vals, bucket_level, res,
         map_resolution,
     )
     perm, row_start = bucket_rows(bucket, k)
-    return (compact, table, 0, 0, num_classes, scan, class_weights,
+    return (pyr, table, 0, 0, num_classes, scan, class_weights,
             cs.fold_pixels(off), ctr.contiguous(), perm, row_start, num_rot)
 
 
@@ -458,13 +501,15 @@ def score_init_multi_sel(
     slot_vals, bucket_level, res, num_rot: int = 40,
     map_resolution: float = 1.0,
 ):
-    """Theta-search flavour over K buckets: (best_cost, k (int64), kf)."""
+    """Theta-search flavour over K buckets: (best_cost, k (int64), kf) (on
+    the codes where pyr.int4: "crop_score_multi_init_i4")."""
     if not kernels.on_card(pyr.flat.device, "crop scorer"):
         return score_init_multi_sel_plain(
-            pyr, num_classes, stencil, scan, class_weights, center_px,
-            scale, slot_vals, bucket_level, res, num_rot, map_resolution,
+            pyr.plain(num_classes), num_classes, stencil, scan,
+            class_weights, center_px, scale, slot_vals, bucket_level, res,
+            num_rot, map_resolution,
         )
-    return cs.launch_init("crop_score_multi_init", *init_inputs(
+    return cs.launch_init("crop_score_multi_init", init_inputs(
         pyr, num_classes, stencil, scan, class_weights, center_px, scale,
         slot_vals, bucket_level, res, num_rot, map_resolution))
 
@@ -478,12 +523,14 @@ def score_init_multi_raw(
     contract: (nums, dens (N, num_rot), kf (N,)), nothing divided or gated;
     a window off its level reads zeros.  On the card the tensor-core
     product of score_init_multi_sel with the raw-row epilogue
-    ("crop_score_multi_init_raw"): the multi-device init step's scorer."""
+    ("crop_score_multi_init_raw", "..._raw_i4" on the codes where
+    pyr.int4): the multi-device init step's scorer."""
     if not kernels.on_card(pyr.flat.device, "crop scorer"):
         return score_init_multi_raw_plain(
-            pyr, num_classes, stencil, scan, class_weights, center_px,
-            scale, slot_vals, bucket_level, res, num_rot, map_resolution,
+            pyr.plain(num_classes), num_classes, stencil, scan,
+            class_weights, center_px, scale, slot_vals, bucket_level, res,
+            num_rot, map_resolution,
         )
-    return cs.launch_init("crop_score_multi_init_raw", *init_inputs(
+    return cs.launch_init("crop_score_multi_init", init_inputs(
         pyr, num_classes, stencil, scan, class_weights, center_px, scale,
-        slot_vals, bucket_level, res, num_rot, map_resolution))
+        slot_vals, bucket_level, res, num_rot, map_resolution), raw=True)

@@ -52,6 +52,13 @@ LAUNCHES = {
     "crop_score_multi_init": 0,
     "crop_score_init_raw": 0,
     "crop_score_multi_init_raw": 0,
+    # the same kernels on the nibble-packed code map (TDR_MAP_INT4=1)
+    "crop_score_tracked_i4": 0,
+    "crop_score_init_i4": 0,
+    "crop_score_init_raw_i4": 0,
+    "crop_score_multi_tracked_i4": 0,
+    "crop_score_multi_init_i4": 0,
+    "crop_score_multi_init_raw_i4": 0,
     "fill_rows": 0,
     "crop_ablate": 0,
     "crop_ablate_init": 0,
@@ -83,6 +90,16 @@ _SIGNATURES = {
             _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
             _I, _F, _P, _P,
         ),
+        # the code map and its qinv (8) in place of the compact map, then
+        # as the float entry points from H (table) on
+        "tdr_crop_score_tracked_i4": (
+            _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
+            _P, _I, _F, _P, _P,
+        ),
+        "tdr_crop_score_multi_tracked_i4": (
+            _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
+            _P, _I, _F, _P, _P,
+        ),
     },
     "crop_score_init": {
         # compact map, H, W, CP, M records, sched, chunk_cap, centers, N,
@@ -101,6 +118,21 @@ _SIGNATURES = {
         ),
         "tdr_crop_score_multi_init_raw": (
             _P, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _F, _P, _P,
+        ),
+        # the code map and its known code (15 or 7) in place of the
+        # compact map, then as the float entry points from H (table) on;
+        # the records are the code layout's (crop_score.init_records)
+        "tdr_crop_score_init_i4": (
+            _P, _F, _I, _I, _I, _P, _P, _I, _P, _I, _I, _F, _P, _P,
+        ),
+        "tdr_crop_score_init_raw_i4": (
+            _P, _F, _I, _I, _I, _P, _P, _I, _P, _I, _I, _F, _P, _P,
+        ),
+        "tdr_crop_score_multi_init_i4": (
+            _P, _F, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _F, _P, _P,
+        ),
+        "tdr_crop_score_multi_init_raw_i4": (
+            _P, _F, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _F, _P, _P,
         ),
     },
     "fill_rows": {

@@ -122,11 +122,18 @@ def _variant(variant: str) -> None:
         raise ValueError(f"variant must be one of {VARIANTS}, got {variant}")
 
 
+def _float_map(maps) -> None:
+    """The ablations are built on the float32 map's bodies only."""
+    if maps.int4:
+        raise ValueError("the crop ablations take a float32 map (int4=False)")
+
+
 def crop_ablate(variant, maps, num_classes, stencil, scan, class_weights,
                 center_px, theta, f, map_resolution: float = 1.0):
     """Variant `variant` of the uniform tracked kernel on maps (a
     CropMap), with score_tracked's arguments."""
     _variant(variant)
+    _float_map(maps)
     if not kernels.on_card(maps.packed.device, "crop ablation"):
         return crop_ablate_plain(variant, maps, num_classes, stencil, scan,
                                  class_weights, center_px, theta, f,
@@ -145,6 +152,7 @@ def crop_ablate_multi(variant, pyr, num_classes, stencil, scan,
     """Variant `variant` of the K-bucket tracked kernel, with
     score_tracked_multi's arguments."""
     _variant(variant)
+    _float_map(pyr)
     if not kernels.on_card(pyr.flat.device, "crop ablation"):
         return crop_ablate_multi_plain(
             variant, pyr, num_classes, stencil, scan, class_weights,
@@ -314,6 +322,7 @@ def crop_ablate_init(variant, maps, num_classes, stencil, scan,
     with score_init_sel's arguments; raw=True returns score_init_raw's
     rows."""
     _init_variant(variant, num_classes)
+    _float_map(maps)
     if not kernels.on_card(maps.packed.device, "theta-search ablation"):
         return crop_ablate_init_plain(variant, maps, num_classes, stencil,
                                       scan, class_weights, center_px, f,
@@ -331,6 +340,7 @@ def crop_ablate_multi_init(variant, pyr, num_classes, stencil, scan,
     score_init_multi_sel's arguments; raw=True returns
     score_init_multi_raw's rows."""
     _init_variant(variant, num_classes)
+    _float_map(pyr)
     if not kernels.on_card(pyr.flat.device, "theta-search ablation"):
         return crop_ablate_multi_init_plain(
             variant, pyr, num_classes, stencil, scan, class_weights,
