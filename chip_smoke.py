@@ -16,7 +16,10 @@ Phases (any failure exits non-zero before the result line):
      third of full's), gather_only and ring_only none, gather_only every
      window load and ring_only none of them; and, per instantiation of the
      theta search, its HGMMA and global loads: each code-map twin
-     (crop_init_i4_kernel) two thirds of its float twin's HGMMA;
+     (crop_init_i4_kernel) two thirds of its float twin's HGMMA, each
+     single-plane twin (crop_init_lokf_kernel, TDR_M_HILO=0) two thirds
+     of the hi/lo float kernel's on the float map and one third on the
+     codes;
   B. the uniform crop kernels against their plain PyTorch versions on
      the same card tensors at the slice's shapes: 102,400 particles, a
      1024^2 map with 6 classes (8 packed channels), Th x R = 100 x 25,
@@ -41,6 +44,14 @@ Phases (any failure exits non-zero before the result line):
      quantization of the full map, every level its subsample) as in B2,
      per bucket against the uniform code kernel on the bucket's level of
      the code pyramid;
+  B4. the crop kernels with the single-plane M (TDR_M_HILO=0;
+     CropMap(m_hilo=False), build_pyramid_maps(m_hilo=False)), on the
+     float and the code map, at B's and B2's inputs as in B3, against
+     their plain versions (the dequantized single-plane M): costs and raw
+     rows within rel 1e-4, kf within 1e-6 (the single plane's kf is the
+     cell count to ~1e-7, summed in two orders), the gate's patterns off
+     the gate, the argmin on 99.9 %; the tracked kernels' scales pass
+     bit for bit crop_score.tracked_lokf's scales;
   C. the known-scale main path through the public entry points: the
      consumer drive (2,048 particles, 30 scans, must converge) and 20
      updates of 102,400 particles on a 1024^2 map from a spread init;
@@ -71,6 +82,14 @@ Phases (any failure exits non-zero before the result line):
      crop kernel, on the float32 conv map; then C2's 20 unknown-scale
      updates standing, each launching a K-bucket code kernel and no
      float one;
+  C6. the main path with the single-plane M, the filter's m_hilo=False:
+     C's 20 known-scale updates on the float map and on the code map
+     (map_int4=True), each planned crop update launching its "_lokf"
+     kernel (the scales pass before the tracked one) and no other crop
+     kernel; C5's 20 unknown-scale updates standing on the code map, each
+     launching a K-bucket "_i4_lokf" kernel and no other; then the
+     unknown-scale consumer drive with m_hilo=False, held to C2's gates,
+     launching no hi/lo crop kernel;
   D. each kernel's own device time (20 launches under torch.profiler,
      after 3 warm-up calls), and median host-clock times (3 warm-up, 20
      timed, synchronised) of its wrapper, its plain version, the PyTorch
@@ -95,7 +114,11 @@ Phases (any failure exits non-zero before the result line):
      kernel (the filter map's or pyramid's codes, C = 3: 2 bytes a pixel)
      beside its float twin on the same cell, kernel, wrapper and plain
      times, its map operand's bytes and its bound with the map at those
-     bytes, held against its plain version as in B;
+     bytes, held against its plain version as in B; and each
+     single-plane kernel (float and code) beside its hi/lo twin on the
+     same cell (the theta searches' bound on two products a k16 step on
+     the float map, one on the codes), with the scales pass on the
+     clustered cell's fold, held against its plain version as in B4;
   M1. the multi-device filter (ParticleFilter(mesh=...)) on a world-1
      NCCL mesh on the card, 102,400 particles on the 1024^2 map: (a) ten
      unknown-scale updates standing (the K-bucket theta search through
@@ -110,6 +133,9 @@ Phases (any failure exits non-zero before the result line):
      search and (b)'s conv update; and two K-bucket updates on the code
      pyramid (map_int4=True), the mesh's raw rows through
      crop_score_multi_init_raw_i4, then tracked, held to one device's;
+     and two with the single-plane M (m_hilo=False), on the float and the
+     code pyramid, through crop_score_multi_init_raw[_i4]_lokf, then
+     tracked, no other crop kernel, held to one device's;
   M2. the same three on two ranks over gloo on the one card (two
      processes; collectives through host memory), held against M1 at the
      same tolerance (their times are not the card's mesh times);
@@ -295,6 +321,16 @@ _RAW = ("crop_init_kernel<4, true>", "crop_init_kernel<4, (bool)1>")
 _ARGMIN_I4 = ("crop_init_i4_kernel<4, false>",
               "crop_init_i4_kernel<4, (bool)0>")
 _RAW_I4 = ("crop_init_i4_kernel<4, true>", "crop_init_i4_kernel<4, (bool)1>")
+
+
+def _lokf_symbols(kernel, n, *flags):
+    """A single-plane kernel's name, its int template argument n and its
+    bool ones, in either of the demangler's spellings."""
+    return tuple(f"{kernel}<{n}, " + ", ".join(spell[f] for f in flags) + ">"
+                 for spell in ({True: "true", False: "false"},
+                               {True: "(bool)1", False: "(bool)0"}))
+
+
 SYMBOLS = {
     "crop_fold": ("crop_fold_kernel",),
     "crop_score_tracked": ("crop_tracked_kernel<3>",),
@@ -311,6 +347,27 @@ SYMBOLS = {
     "crop_score_multi_init_raw_i4": _RAW_I4,
     "fill_rows": ("fill_rows_kernel",),
 }
+# their twins with the single-plane M (TDR_M_HILO=0): crop_init_lokf_kernel
+# <CP, RAW, I4>, crop_tracked_lokf_kernel<C, I4>, and the tracked kernels'
+# scales pass (timed on the float map)
+for _i4 in (False, True):
+    _tag = "_i4" * _i4 + "_lokf"
+    SYMBOLS.update({
+        f"crop_score_tracked{_tag}": _lokf_symbols(
+            "crop_tracked_lokf_kernel", 3, _i4),
+        f"crop_score_multi_tracked{_tag}": _lokf_symbols(
+            "crop_tracked_lokf_kernel", 3, _i4),
+        f"crop_score_init{_tag}": _lokf_symbols(
+            "crop_init_lokf_kernel", 4, False, _i4),
+        f"crop_score_multi_init{_tag}": _lokf_symbols(
+            "crop_init_lokf_kernel", 4, False, _i4),
+        f"crop_score_init_raw{_tag}": _lokf_symbols(
+            "crop_init_lokf_kernel", 4, True, _i4),
+        f"crop_score_multi_init_raw{_tag}": _lokf_symbols(
+            "crop_init_lokf_kernel", 4, True, _i4),
+    })
+SYMBOLS["crop_lokf_scales"] = _lokf_symbols("crop_lokf_scales_kernel", 3,
+                                            False)
 # name -> (source, the TPU kernel it replaces)
 KERNELS = {
     # the tracked kernels' offset fold, launched by both tracked wrappers
@@ -345,6 +402,11 @@ KERNELS = {
     "crop_score_multi_init_raw_i4": (
         INIT_SRC, "top_down_renderer_tpu/filter/multiscale.py:363"),
     "fill_rows": (FILL_SRC, "top_down_renderer_tpu/filter/resample.py:116"),
+    # the single-plane M's scales of every (bucket, shift) before the
+    # tracked kernel: the lokf quantization of _run_kernel (XLA around the
+    # pallas_call), which the tracked kernel's fold needs in advance
+    "crop_lokf_scales": (
+        CROP_SRC, "top_down_renderer_tpu/filter/pallas_score.py:1053"),
     # the probes (phase P): each replaces several TPU probe kernels, each
     # case of its line names its own
     "crop_ablate": ("top_down_renderer_torch/csrc/crop_ablate.cu",
@@ -358,6 +420,10 @@ KERNELS = {
     "probe_mm": ("top_down_renderer_torch/csrc/probe_mm.cu",
                  "tests/probe_int8_mm.py:17"),
 }
+# the same TPU kernel with its single-plane M (TDR_M_HILO=0, the lokf
+# scheme), on the same bodies with one B plane
+for _name in [k for k in KERNELS if k.startswith("crop_score_")]:
+    KERNELS[_name + "_lokf"] = KERNELS[_name]
 # each probe kernel's case that stands for it in the kernels line
 PROBE_HEADLINE = {"crop_ablate": "ablate/D clustered C=3/full",
                   "crop_ablate_init": "ablate_init/D spread C=3/full",
@@ -365,8 +431,12 @@ PROBE_HEADLINE = {"crop_ablate": "ablate/D clustered C=3/full",
                   "probe_mm": "theta_shape/s8"}
 RAW = ("crop_score_init_raw", "crop_score_multi_init_raw")
 RAW_I4 = tuple(k + "_i4" for k in RAW)
+RAW_LOKF = tuple(k + "_lokf" for k in RAW)
+RAW_I4_LOKF = tuple(k + "_lokf" for k in RAW_I4)
 INIT = (("crop_score_init", "crop_score_multi_init") + RAW
         + ("crop_score_init_i4", "crop_score_multi_init_i4") + RAW_I4)
+INIT += tuple(k + "_lokf" for k in INIT)
+LOKF_KF_TOL = 1e-6  # the single plane's kf: the count to ~1e-7 (B4)
 # published H100 SXM peaks (dense): float32 outside the tensor cores, bf16
 # on them, HBM
 PEAK_F32_FLOPS = 67e12
@@ -484,18 +554,24 @@ def log_ablate_init_sass() -> dict:
 
 _INIT_FN = re.compile(
     r"Function : \S*(crop_init(?:_i4)?_kernel)ILi(\d)ELb(\d)E")
+# crop_init_lokf_kernel<CP, RAW, I4>: the single-plane M's
+_INIT_LOKF_FN = re.compile(
+    r"Function : \S*(crop_init_lokf_kernel)ILi(\d)ELb(\d)ELb(\d)E")
 
 
 def log_init_sass() -> dict:
     """Count, per instantiation of the theta search (crop_init_kernel on
-    the float map, crop_init_i4_kernel on the code map; CP 2, 4, 8 x
-    argmin, raw), its tensor-core products (HGMMA) and global loads (LDG):
-    each code twin holds HGMMA, two thirds of its float twin's (its A, the
-    codes, is exact in bf16: no A_lo product)."""
+    the float map, crop_init_i4_kernel on the code map, and their
+    single-plane twins crop_init_lokf_kernel; CP 2, 4, 8 x argmin, raw),
+    its tensor-core products (HGMMA) and global loads (LDG): each code
+    twin holds HGMMA, two thirds of its float twin's (its A, the codes, is
+    exact in bf16: no A_lo product); each single-plane twin two thirds of
+    the hi/lo float kernel's on the float map (no B_lo product) and one
+    third on the codes (neither)."""
     counts, current = {}, None
     for line in read_sass("crop_score_init").splitlines():
         if "Function :" in line:
-            hit = _INIT_FN.search(line)
+            hit = _INIT_FN.search(line) or _INIT_LOKF_FN.search(line)
             current = hit.groups() if hit else None
             if current:
                 counts[current] = dict.fromkeys(("HGMMA", "LDG"), 0)
@@ -507,9 +583,18 @@ def log_init_sass() -> dict:
     check(len(twins) == 6 and all(
         3 * counts[a]["HGMMA"] == 2 * counts.get(b, {}).get("HGMMA", -1) > 0
         for a, b in twins), f"crop_score_init's HGMMA by kernel: {counts}")
-    for (fn, cp, raw), c in sorted(counts.items()):
+    lokf = [(k, ("crop_init_kernel",) + k[1:3]) for k in counts
+            if k[0] == "crop_init_lokf_kernel"]
+    check(len(lokf) == 12 and all(
+        3 * counts[a]["HGMMA"] == (1 if a[3] == "1" else 2)
+        * counts.get(b, {}).get("HGMMA", -1) > 0 for a, b in lokf),
+        f"crop_score_init's single-plane HGMMA by kernel: {counts}")
+    for key, c in sorted(counts.items()):
+        fn, cp, raw = key[:3]
+        what = "" if len(key) == 3 else (", code map" if key[3] == "1"
+                                         else ", float map")
         log(f"[A] crop_score_init {fn} (CP {cp}, "
-            f"{'raw' if raw == '1' else 'argmin'}): {c}")
+            f"{'raw' if raw == '1' else 'argmin'}{what}): {c}")
     return counts
 
 
@@ -522,20 +607,39 @@ def same_bits(a, b) -> bool:
                for x, y in zip(a, b))
 
 
-def compare(label, errs, names, tracked, init, need_gated=False) -> None:
+def same_kf(kf, rkf, kf_tol) -> bool:
+    """kf bit for bit, or (the single-plane M) within kf_tol."""
+    if kf_tol == 0.0:
+        return torch.equal(kf, rkf)
+    return float((kf - rkf).abs().max()) <= kf_tol
+
+
+def off_gate(rkf, kf_tol):
+    """The rows whose plain kf lies further than kf_tol from the 0.5 gate
+    (all of them where kf is bit for bit): a single-plane kf, the count to
+    ~1e-7 summed in two orders, may fall either side of it."""
+    return (rkf - 0.5).abs() > kf_tol if kf_tol else torch.ones_like(
+        rkf, dtype=torch.bool)
+
+
+def compare(label, errs, names, tracked, init, need_gated=False,
+            kf_tol=0.0) -> None:
     """A tracked and a theta-search kernel against their plain versions:
     tracked / init are (kernel call, plain call) without arguments, names
     their kernels'.  The tracked kernel runs twice and must return the
-    same bits.  Folds the largest |err| of each into errs["abs"], and the
-    theta search's largest relative error into errs["rel"]."""
+    same bits.  kf bit for bit, or within kf_tol (the single-plane M), the
+    gate's patterns then compared off the gate (off_gate).  Folds the
+    largest |err| of each into errs["abs"], and the theta search's largest
+    relative error into errs["rel"]."""
     num, den, kf = tracked[0]()
     again = tracked[0]()
     rnum, rden, rkf = tracked[1]()
     torch.cuda.synchronize()
     check(same_bits((num, den, kf), again),
           f"{label}: the tracked kernel does not repeat bit for bit")
-    check(torch.equal(kf, rkf), f"{label}: tracked kf differs")
-    ok = rkf >= 0.5
+    check(same_kf(kf, rkf, kf_tol), f"{label}: tracked kf differs")
+    clear = off_gate(rkf, kf_tol)
+    ok = (rkf >= 0.5) & clear
     if need_gated:
         check(0 < int(ok.sum()) < ok.numel(),
               f"{label}: no kf-gated particles")
@@ -546,16 +650,18 @@ def compare(label, errs, names, tracked, init, need_gated=False) -> None:
                                     float((a - b)[ok].abs().max()))
     cost = torch.where(kf < 0.5, torch.nan, num / den)
     rcost = torch.where(rkf < 0.5, torch.nan, rnum / rden)
-    check(torch.equal(cost.isnan(), rcost.isnan()), f"{label}: NaN pattern")
+    check(torch.equal(cost.isnan()[clear], rcost.isnan()[clear]),
+          f"{label}: NaN pattern")
 
     best, k, kf = init[0]()
     rbest, rk, rkf = init[1]()
     torch.cuda.synchronize()
-    check(torch.equal(kf, rkf), f"{label}: init kf differs")
+    check(same_kf(kf, rkf, kf_tol), f"{label}: init kf differs")
+    clear = off_gate(rkf, kf_tol)
     same_k = float((k == rk).float().mean())
     check(same_k >= 0.999, f"{label}: init argmin agrees on {same_k:.5f}")
     fin = (best < cs.FLT_MAX) & (rbest < cs.FLT_MAX)
-    check(torch.equal(best < cs.FLT_MAX, rbest < cs.FLT_MAX),
+    check(torch.equal((best < cs.FLT_MAX)[clear], (rbest < cs.FLT_MAX)[clear]),
           f"{label}: init FLT_MAX pattern")
     rel = max_rel(rbest[fin], best[fin])
     check(rel <= REL_TOL, f"{label}: init best rel {rel}")
@@ -568,18 +674,18 @@ def compare(label, errs, names, tracked, init, need_gated=False) -> None:
         f"{int((~ok).sum())})")
 
 
-def compare_raw(label, errs, name, raw, plain, sel) -> None:
+def compare_raw(label, errs, name, raw, plain, sel, kf_tol=0.0) -> None:
     """A raw-row kernel against its plain version (calls without
-    arguments): kf bit for bit, nums and dens within REL_TOL where kf >=
-    0.5, and select_init_cost of the kernel's rows the theta-search
-    kernel's argmin (`sel`) on >= 99.9 % of the rows.  Folds the largest
-    |err| and relative error into errs."""
+    arguments): kf bit for bit (or within kf_tol), nums and dens within
+    REL_TOL where kf >= 0.5 (off the gate), and select_init_cost of the
+    kernel's rows the theta-search kernel's argmin (`sel`) on >= 99.9 % of
+    the rows.  Folds the largest |err| and relative error into errs."""
     nums, dens, kf = raw()
     rnums, rdens, rkf = plain()
     best, k, _ = sel()
     torch.cuda.synchronize()
-    check(torch.equal(kf, rkf), f"{label}: raw kf differs")
-    ok = rkf >= 0.5
+    check(same_kf(kf, rkf, kf_tol), f"{label}: raw kf differs")
+    ok = (rkf >= 0.5) & off_gate(rkf, kf_tol)
     rel = 0.0
     for a, b, what in ((nums, rnums, "num"), (dens, rdens, "den")):
         r = max_rel(b[ok], a[ok])
@@ -593,7 +699,10 @@ def compare_raw(label, errs, name, raw, plain, sel) -> None:
     same_k = float((rk == k).float().mean())
     check(same_k >= 0.999, f"{label}: select_init_cost of the raw rows "
           f"agrees with the argmin kernel on {same_k:.5f}")
-    log(f"[{label}] raw rows agree (num/den rel {rel:.3e}, kf bit for bit, "
+    kf_err = float((kf - rkf).abs().max()) if kf.numel() else 0.0
+    kf_how = ("bit for bit" if kf_err == 0.0
+              else f"within {kf_tol:g} (largest |diff| {kf_err:.1e})")
+    log(f"[{label}] raw rows agree (num/den rel {rel:.3e}, kf {kf_how}, "
         f"argmin same as the theta-search kernel on {same_k:.5f})")
 
 
@@ -613,12 +722,12 @@ def crop_pair(args, theta, f):
     args[0] is the map's CropMap, as the filter passes it (the plain
     versions score maps.plain: the dequantized codes of a code map)."""
     maps, rest = args[0], args[1:]
-    plain = maps.plain(rest[0]).packed
+    plain, pm = maps.plain(rest[0]).packed, maps.plain_m()
     return (
         (lambda: cs.score_tracked(maps, *rest, theta, f),
-         lambda: cs.score_tracked_plain(plain, *rest, theta, f)),
+         lambda: cs.score_tracked_plain(plain, *rest, theta, f, **pm)),
         (lambda: cs.score_init_sel(maps, *rest, f),
-         lambda: cs.score_init_sel_plain(plain, *rest, f)),
+         lambda: cs.score_init_sel_plain(plain, *rest, f, **pm)),
     )
 
 
@@ -629,14 +738,14 @@ def plain_args(args):
 
 def multi_pair(args, theta, scale, slots, bmi):
     """(tracked, init) kernel/plain call pairs of the K-bucket path."""
-    plain = plain_args(args)
+    plain, pm = plain_args(args), args[0].plain_m()
     return (
         (lambda: ms.score_tracked_multi(*args, theta, scale, slots, bmi, RES),
          lambda: ms.score_tracked_multi_plain(*plain, theta, scale, slots,
-                                              bmi, RES)),
+                                              bmi, RES, **pm)),
         (lambda: ms.score_init_multi_sel(*args, scale, slots, bmi, RES),
          lambda: ms.score_init_multi_sel_plain(*plain, scale, slots, bmi,
-                                               RES)),
+                                               RES, **pm)),
     )
 
 
@@ -645,6 +754,15 @@ MULTI = ("crop_score_multi_tracked", "crop_score_multi_init")
 CROP_I4 = tuple(k + "_i4" for k in CROP)  # on the code map
 MULTI_I4 = tuple(k + "_i4" for k in MULTI)
 FOLD = ("crop_fold",)  # launched by both tracked wrappers
+# with the single-plane M (TDR_M_HILO=0), on the float and the code map
+CROP_LOKF = tuple(k + "_lokf" for k in CROP)
+MULTI_LOKF = tuple(k + "_lokf" for k in MULTI)
+CROP_I4_LOKF = tuple(k + "_lokf" for k in CROP_I4)
+MULTI_I4_LOKF = tuple(k + "_lokf" for k in MULTI_I4)
+SCALES = ("crop_lokf_scales",)  # launched by both tracked wrappers
+ALL_MULTI = MULTI + MULTI_I4 + MULTI_LOKF + MULTI_I4_LOKF
+# every hi/lo crop kernel: none may launch on a single-plane path
+HILO_CROP = CROP + MULTI + RAW + CROP_I4 + MULTI_I4 + RAW_I4
 
 
 def phase_b(dev, errs):
@@ -677,19 +795,19 @@ def raw_triple(args, f):
     """(raw kernel, plain, argmin kernel) calls of the uniform theta
     search; args[0] is the map's CropMap."""
     maps, rest = args[0], args[1:]
-    plain = maps.plain(rest[0]).packed
+    plain, pm = maps.plain(rest[0]).packed, maps.plain_m()
     return (lambda: cs.score_init_raw(maps, *rest, f),
-            lambda: cs.score_init_raw_plain(plain, *rest, f),
+            lambda: cs.score_init_raw_plain(plain, *rest, f, **pm),
             lambda: cs.score_init_sel(maps, *rest, f))
 
 
 def multi_raw_triple(args, scale, slots, bmi):
     """(raw kernel, plain, argmin kernel) calls of the K-bucket theta
     search."""
-    plain = plain_args(args)
+    plain, pm = plain_args(args), args[0].plain_m()
     return (lambda: ms.score_init_multi_raw(*args, scale, slots, bmi, RES),
             lambda: ms.score_init_multi_raw_plain(*plain, scale, slots, bmi,
-                                                  RES),
+                                                  RES, **pm),
             lambda: ms.score_init_multi_sel(*args, scale, slots, bmi, RES))
 
 
@@ -749,7 +867,8 @@ def phase_b2(dev, errs, b_args, theta):
     log("[B2] fill kernel equals its plain version bit for bit")
 
 
-def check_buckets(label, args, theta, scale, slots_t, bmi, levels) -> None:
+def check_buckets(label, args, theta, scale, slots_t, bmi, levels,
+                  kf_tol=0.0) -> None:
     """Per bucket, the K-bucket kernels (args: their arguments before
     theta) against the uniform kernels on the bucket's level
     (PyramidMaps.level_crop_map: for a code pyramid, the pyramid's codes
@@ -773,14 +892,16 @@ def check_buckets(label, args, theta, scale, slots_t, bmi, levels) -> None:
         u_in = cs.score_init_sel(level, *u_args, f_eff[b], 40, mres)
         torch.cuda.synchronize()
         lab = f"{label} bucket {b} (mip {levels[bmi[b]]})"
-        check(torch.equal(u_tr[2], tr[2][sel]), f"{lab}: kf differs")
-        ok = u_tr[2] >= 0.5
+        check(same_kf(u_tr[2], tr[2][sel], kf_tol), f"{lab}: kf differs")
+        ok = (u_tr[2] >= 0.5) & off_gate(u_tr[2], kf_tol)
         for i, name in ((0, "cost"), (1, "norm")):
             rel = max_rel(u_tr[i][ok], tr[i][sel][ok])
             check(rel <= REL_TOL, f"{lab}: tracked {name} rel {rel}")
         fin = u_in[0] < cs.FLT_MAX
-        check(torch.equal(fin, ini[0][sel] < cs.FLT_MAX),
+        clear = off_gate(u_in[2], kf_tol)
+        check(torch.equal(fin[clear], (ini[0][sel] < cs.FLT_MAX)[clear]),
               f"{lab}: FLT_MAX pattern")
+        fin &= ini[0][sel] < cs.FLT_MAX
         rel = max_rel(u_in[0][fin], ini[0][sel][fin])
         check(rel <= REL_TOL, f"{lab}: init best rel {rel}")
         check(float((u_in[1] == ini[1][sel]).float().mean()) >= 0.999,
@@ -827,6 +948,61 @@ def phase_b3(dev, errs, b_args, theta):
     compare_raw("B3 multi raw", errs, RAW_I4[1],
                 *multi_raw_triple(args, scale, slots_t, bmi))
     check_buckets("B3", args, theta, scale, slots_t, bmi, levels)
+
+
+def phase_b4(dev, errs, b_args, theta):
+    """The crop kernels with the single-plane M (TDR_M_HILO=0;
+    CropMap(m_hilo=False), build_pyramid_maps(m_hilo=False)) at phase B's
+    inputs, on the float and the code map: each against its plain version
+    (the dequantized single-plane M) as in B, f = 1.0 and 0.5, but kf
+    within LOKF_KF_TOL and the gate's patterns off it; the K-bucket ones
+    on B2's 10 hypotheses, and per bucket against the uniform kernel on the
+    bucket's level; the scales pass bit for bit crop_score.tracked_lokf's
+    scales on the uniform and the K-bucket folds."""
+    maps, c, sten, scan, cw, ctr = b_args
+    hyp, slots, levels, bmi = init_plan()
+    scale = torch.as_tensor(np.tile(hyp, N // 10), device=dev)
+    ctr2 = ctr.clone()
+    ctr2[6:10] = torch.tensor([[HW + 40.0, 500.0], [500.0, HW + 90.0],
+                               [-60.0, 300.0], [300.0, -50.0]], device=dev)
+    slots_t = torch.as_tensor(slots, device=dev)
+    for int4 in (False, True):
+        tag = "code" if int4 else "float"
+        lmap = cs.CropMap(maps.packed, int4=int4, m_hilo=False)
+        args = (lmap, c, sten, scan, cw, ctr)
+        names = CROP_I4_LOKF if int4 else CROP_LOKF
+        raw = (RAW_I4_LOKF if int4 else RAW_LOKF)
+        for f in (1.0, 0.5):
+            compare(f"B4 {tag} C={c} f={f}", errs, names,
+                    *crop_pair(args, theta, f), need_gated=True,
+                    kf_tol=LOKF_KF_TOL)
+            compare_raw(f"B4 {tag} raw C={c} f={f}", errs, raw[0],
+                        *raw_triple(args, f), kf_tol=LOKF_KF_TOL)
+        pyr = ms.build_pyramid_maps(maps.packed, levels, int4, m_hilo=False)
+        mips_t, _ = pyr.bucket_tables(bmi)
+        for label, fold in (
+                ("uniform", lmap.fold(sten, 1.0)),
+                ("K-bucket", cs.fold_pixels(ms.bucket_offsets(
+                    sten, slots_t, RES, mips_t)))):
+            got = cs.tracked_scales(scan, cw, lmap.m_qinv, fold, c, int4)
+            want = cs.tracked_lokf(cs.tracked_weights(
+                scan, cw, fold[2], fold[3], lmap.m_qinv), int4, c)[1]
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"B4 {tag}: the {label} scales "
+                  "differ from tracked_lokf's")
+            log(f"[B4 {tag}] the {label} scales pass ({tuple(got.shape)}) "
+                "equals tracked_lokf's bit for bit")
+        errs["abs"]["crop_lokf_scales"] = 0.0
+        args = (pyr, c, sten, scan, cw, ctr2)
+        compare(f"B4 {tag} multi", errs,
+                MULTI_I4_LOKF if int4 else MULTI_LOKF,
+                *multi_pair(args, theta, scale, slots_t, bmi),
+                need_gated=True, kf_tol=LOKF_KF_TOL)
+        compare_raw(f"B4 {tag} multi raw", errs, raw[1],
+                    *multi_raw_triple(args, scale, slots_t, bmi),
+                    kf_tol=LOKF_KF_TOL)
+        check_buckets(f"B4 {tag}", args, theta, scale, slots_t, bmi, levels,
+                      kf_tol=LOKF_KF_TOL)
 
 
 def big_filter(dev, **params):
@@ -928,15 +1104,16 @@ def phase_c(dev):
     return pf, world
 
 
-def multi_run(dev, world, move, map_int4=False):
+def multi_run(dev, world, move, map_int4=False, m_hilo=True):
     """20 unknown-scale updates at 102,400 particles from a spread init:
     (the dispatch's plan of each update, the updates that ran the exact
-    step, the multi launches (tracked, init) of each update).  map_int4:
-    the filter's; its code kernels' launches are returned, and no float
-    K-bucket kernel may launch."""
+    step, the multi launches (tracked, init) of each update).  map_int4,
+    m_hilo: the filter's; its own K-bucket kernels' launches are
+    returned, and no other K-bucket kernel may launch."""
     pf, _ = make_filter(dev, N, seed=0, world=world, fixed_scale=-1.0,
-                        map_int4=map_int4)
-    names = MULTI_I4 + MULTI if map_int4 else MULTI
+                        map_int4=map_int4, m_hilo=m_hilo)
+    own = tuple(k + "_i4" * map_int4 + "_lokf" * (not m_hilo) for k in MULTI)
+    names = own + tuple(k for k in ALL_MULTI if k not in own)
     exact, plans = [], []
     step_fn, multi_mode = pf._update_fn, pf._multi_mode
 
@@ -953,11 +1130,10 @@ def multi_run(dev, world, move, map_int4=False):
         per, ml = run_updates(pf, world, dev, 20, names, move)
     finally:
         pf._update_fn, pf._multi_mode = step_fn, multi_mode
-    label = ("C5" if map_int4 else "C2") + (" moving" if move else
-                                            " standing")
-    if map_int4:
-        check(not per[:, 2:].any(), f"{label}: float K-bucket launches or "
-              f"conv cost fields {per.tolist()}")
+    label = (("C5" if map_int4 else "C2") if m_hilo else "C6") + (
+        " moving" if move else " standing")
+    check(not per[:, 2:].any(), f"{label}: other K-bucket launches or "
+          f"conv cost fields {per.tolist()}")
     per = per[:, :2]  # the filter's own kernels; no conv cost field under
     # an unknown scale
     for i, (plan, (t, n)) in enumerate(zip(plans, per)):
@@ -1048,6 +1224,60 @@ def phase_c5(dev, world):
           and all(per[i].tolist() == expect[p.mode]
                   for i, p in enumerate(plans)),
           f"C5 standing: exact steps {exact}, launches {per.tolist()}")
+
+
+def phase_c6(dev, world):
+    """The main path with the single-plane M, the filter's m_hilo=False
+    (TDR_M_HILO=0 through the argument): C's 20 known-scale updates from a
+    spread init, driving, each planned crop update launching its "_lokf"
+    kernel and no other crop kernel, each conv update no crop kernel, on
+    the float map and on the code map (map_int4=True); on the code map
+    also C5's 20 unknown-scale updates standing, each launching a
+    K-bucket "_i4_lokf" kernel and no other; then the unknown-scale
+    consumer drive (2,048 particles, 30 scans) with m_hilo=False, which
+    must find the scale within C2's gates and launch no hi/lo crop
+    kernel."""
+    for int4 in (False, True):
+        tag = "code" if int4 else "float"
+        own = CROP_I4_LOKF if int4 else CROP_LOKF
+        pf, _ = make_filter(dev, N, seed=0, world=world, map_int4=int4,
+                            m_hilo=False)
+        others = tuple(k for k in CROP_LOKF + CROP_I4_LOKF + HILO_CROP
+                       if k not in own)
+        with PlanLog() as plans:
+            per, ml = run_updates(pf, world, dev, 20, own + others)
+        check(not per[:, 2:-1].any(),
+              f"C6 {tag}: other crop launches per update {per.tolist()}")
+        check_paths(f"C6 {tag} 102,400", plans, per[:, :2].sum(1),
+                    per[:, -1])
+        crop = [p for p in plans if p.path == "crop"]
+        check(crop and not any(pf._get_map(p.mip).m_hilo for p in crop),
+              f"C6 {tag}: crop plans {crop} on a hi/lo map")
+        log(f"[C6 {tag}] 20 updates with the single-plane M at {N} "
+            f"particles: n_active {pf.num_particles()}, ml "
+            f"{np.round(ml, 3).tolist()}")
+    expect = {"init": [0, 1], "tracked": [1, 0], "mixed": [1, 1]}
+    plans, exact, per = multi_run(dev, world, False, map_int4=True,
+                                  m_hilo=False)
+    check(all(p is not None for p in plans) and not exact
+          and all(per[i].tolist() == expect[p.mode]
+                  for i, p in enumerate(plans)),
+          f"C6 standing: exact steps {exact}, launches {per.tolist()}")
+    before = {k: kernels.LAUNCHES[k] for k in HILO_CROP + MULTI_LOKF}
+    ml, cov, drv = drive_unknown_scale(dev, m_hilo=False)
+    ran = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    check(drv.m_hilo is False and not any(ran[k] for k in HILO_CROP)
+          and all(ran[k] for k in MULTI_LOKF),
+          f"C6 drive: launches {ran}")
+    log(f"[C6] unknown-scale drive with the single-plane M (2048 "
+        f"particles, 30 scans): scale {ml[3]:.4f}, cov[3,3] "
+        f"{cov[3, 3]:.5f}, frozen at {drv.scale():.4f}; K-bucket launches "
+        f"{ {k: ran[k] for k in MULTI_LOKF} }")
+    check(abs(ml[3] - SCALE_GT) / SCALE_GT < 0.1, f"C6: scale {ml[3]}")
+    check(cov[3, 3] < 0.1, f"C6: cov[3,3] {cov[3, 3]}")
+    if drv.scale() > 0:
+        check(abs(drv.scale() - SCALE_GT) / SCALE_GT < 0.1,
+              f"C6: frozen scale {drv.scale()}")
 
 
 def phase_c3(dev, world):
@@ -1197,6 +1427,18 @@ def tc_bound(compact, c, shifts, npix, counts, inputs, out_floats=3,
     return bound(ops, moved, PEAK_BF16_FLOPS)
 
 
+def scales_bound(scan, cw, qinv, fold):
+    """The scales pass: for each of the K tables' Th shifts, each stencil
+    cell's C + 1 coefficients multiplied and summed (2 operations each,
+    float32 outside the tensor cores); the scan, the class weights, qinv
+    and the fold's CSR read once, the (K, Th, 4) scales written once."""
+    _, npix, order, seg = fold
+    c, th, r = scan.shape
+    k = npix.shape[0]
+    return bound(2.0 * (c + 1) * th * r * th * k,
+                 nbytes(scan, cw, qinv, npix, order, seg) + k * th * 16)
+
+
 def profiled_ms(label, kernel, symbols) -> float:
     """kernel_ms of `kernel`, with a line in the log where the reading took
     more than one profile."""
@@ -1308,6 +1550,38 @@ def phase_d(dev, pf, world, errs):
         pixels=int(npix[0]), map_bytes=nbytes(codes),
     )
     compare_raw("D spread raw i4, C=3", errs, RAW_I4[0], *raw4)
+    # the single-plane kernels on the same cell (TDR_M_HILO=0) beside
+    # their hi/lo twins: two products a k16 step on the float map, one on
+    # the codes
+    lokf_maps = {i4: cs.CropMap(maps, int4=i4, m_hilo=False)
+                 for i4 in (False, True)}
+    for int4, lm in lokf_maps.items():
+        operand, tag = lm.operand(3), "_i4" * int4 + "_lokf"
+        prods = 1 if int4 else 2
+        argsL = (lm, 3, sten, scan, cw, ctr)
+        pairL = crop_pair(argsL, spread.particles.theta, f)
+        name = "crop_score_init" + tag
+        out[name] = dict(
+            timed(name, *pairL[1]),
+            bound=tc_bound(operand, 3, 40, npix, one, (ctr,),
+                           products=prods),
+            bound_f32=crop_bound(operand, 3, tr, 40, (ctr,)),
+            pixels=int(npix[0]), map_bytes=nbytes(operand),
+        )
+        compare(f"D spread{tag}, C=3", errs,
+                ("crop_score_tracked" + tag, name), *pairL,
+                kf_tol=LOKF_KF_TOL)
+        rawL = raw_triple(argsL, f)
+        name = "crop_score_init_raw" + tag
+        out[name] = dict(
+            timed(name, *rawL[:2]),
+            bound=tc_bound(operand, 3, 40, npix, one, (ctr,), 81,
+                           products=prods),
+            bound_f32=crop_bound(operand, 3, tr, 40, (ctr,)),
+            pixels=int(npix[0]), map_bytes=nbytes(operand),
+        )
+        compare_raw(f"D spread raw{tag}, C=3", errs, name, *rawL,
+                    kf_tol=LOKF_KF_TOL)
 
     clustered = clustered_state(dev)
     ctr = clustered.particles.pose_px()
@@ -1344,6 +1618,29 @@ def phase_d(dev, pf, world, errs):
         pixels=int(npix[0]), map_bytes=nbytes(codes),
     )
     compare("D clustered i4, C=3", errs, CROP_I4, *pair4)
+    for int4, lm in lokf_maps.items():
+        operand, tag = lm.operand(3), "_i4" * int4 + "_lokf"
+        pairL = crop_pair((lm, 3, sten, scan, cw, ctr), theta, f)
+        name = "crop_score_tracked" + tag
+        out[name] = dict(
+            timed(name, *pairL[0]),
+            bound=pixel_bound(operand, 3, npix, one, (ctr, theta)),
+            bound_cells=crop_bound(operand, 3, tr, 1, (ctr, theta)),
+            pixels=int(npix[0]), map_bytes=nbytes(operand),
+        )
+        compare(f"D clustered{tag}, C=3", errs,
+                (name, "crop_score_init" + tag), *pairL, kf_tol=LOKF_KF_TOL)
+    # the scales pass the single-plane tracked wrappers launch first, on
+    # this cell's fold (float map)
+    lm = lokf_maps[False]
+    fold = lm.fold(sten, f)
+    out["crop_lokf_scales"] = dict(
+        timed("crop_lokf_scales",
+              lambda: cs.tracked_scales(scan, cw, lm.m_qinv, fold, 3, False),
+              lambda: cs.tracked_lokf(cs.tracked_weights(
+                  scan, cw, fold[2], fold[3], lm.m_qinv), False, 3)[1]),
+        bound=scales_bound(scan, cw, lm.m_qinv, fold),
+    )
     gmm_ms = median_ms(lambda: gmm_mod.compute_gmm(
         clustered.particles, clustered.n_active, clustered.gmm.k))
     log(f"[D] GMM refit (every {pf.gmm_every}th update): {gmm_ms:.4f} ms")
@@ -1474,6 +1771,44 @@ def phase_d2(dev, world, errs):
                                products=2),
                 bound_f32=cells4)
         compare(f"D2 {plan.mode} i4, C=3", errs, MULTI_I4, *pair4)
+        # the single-plane kernels on the same cell, float and code
+        for int4 in (False, True):
+            pyrL = ms.build_pyramid_maps(pf.map.grid.dist.to(dev),
+                                         plan.levels, int4=int4,
+                                         m_hilo=False)
+            operand, tag = pyrL.operand(3), "_i4" * int4 + "_lokf"
+            prods = 1 if int4 else 2
+            argsL = pair_args(pyrL, sten, scan, cw, p)
+            pairL = multi_pair(argsL, p.theta, p.scale, slots, plan.bmi)
+            nameL = name + tag
+            out[nameL] = dict(timed(nameL, *pairL[0 if tracked else 1]),
+                              pixels=npix.tolist(),
+                              map_bytes=nbytes(operand))
+            cellsL = crop_bound(operand, 3, tr, 1 if tracked else 40, inputs)
+            if tracked:
+                out[nameL].update(
+                    bound=pixel_bound(operand, 3, npix, counts, inputs),
+                    bound_cells=cellsL)
+            else:
+                out[nameL].update(
+                    bound=tc_bound(operand, 3, 40, npix, counts, inputs,
+                                   products=prods),
+                    bound_f32=cellsL)
+            compare(f"D2 {plan.mode}{tag}, C=3", errs,
+                    MULTI_I4_LOKF if int4 else MULTI_LOKF, *pairL,
+                    kf_tol=LOKF_KF_TOL)
+            if not tracked:
+                rawL = multi_raw_triple(argsL, p.scale, slots, plan.bmi)
+                rname = RAW[1] + tag
+                out[rname] = dict(
+                    timed(rname, *rawL[:2]),
+                    bound=tc_bound(operand, 3, 40, npix, counts, inputs, 81,
+                                   products=prods),
+                    bound_f32=cellsL, pixels=npix.tolist(),
+                    map_bytes=nbytes(operand),
+                )
+                compare_raw(f"D2 raw{tag}, C=3", errs, rname, *rawL,
+                            kf_tol=LOKF_KF_TOL)
         if not tracked:
             raw4 = multi_raw_triple(pair_args(pyr4, sten, scan, cw, p),
                                     p.scale, slots, plan.bmi)
@@ -1619,16 +1954,22 @@ def mesh_drives(dev, world, mesh):
 
 
 M_NAMES_I4 = tuple(k + "_i4" for k in M_NAMES[:3]) + M_NAMES
+# the single-plane K-bucket kernels (float map, then code map) first, then
+# every other crop kernel
+M_NAMES_LOKF = tuple(k + "_lokf" for k in M_NAMES[:3]) + HILO_CROP
+M_NAMES_I4_LOKF = (tuple(k + "_i4_lokf" for k in M_NAMES[:3])
+                   + M_NAMES_LOKF[:3] + HILO_CROP)
 
 
-def code_map_drive(dev, world, mesh):
+def variant_drive(dev, world, mesh, names, **kw):
     """Two unknown-scale updates standing (the theta search, then
-    tracked) of a filter on the code map (map_int4=True) over `mesh`
-    (None: one device), from the 10 hypotheses: (max_likelihoods,
-    launches per update of M_NAMES_I4 and conv cost fields)."""
+    tracked) of a filter made with `kw` (map_int4=True: the code map;
+    m_hilo=False: the single-plane M) over `mesh` (None: one device), from
+    the 10 hypotheses: (max_likelihoods, launches per update of `names`
+    and conv cost fields)."""
     pf, _ = make_filter(dev, N, seed=0, world=world, fixed_scale=-1.0,
-                        mesh=mesh, map_int4=True)
-    ml, per, _ = drive_standing(pf, world, dev, 2, M_NAMES_I4)
+                        mesh=mesh, **kw)
+    ml, per, _ = drive_standing(pf, world, dev, 2, names)
     return ml, per
 
 
@@ -1728,14 +2069,16 @@ def phase_m(dev, world, read_launches):
         check_mesh_plans("M1", m1, 1)
         # the mesh's K-bucket steps on the code pyramid: the init step's
         # raw rows through crop_score_multi_init_raw_i4
-        ml4, per4 = code_map_drive(dev, world, mesh)
+        ml4, per4 = variant_drive(dev, world, mesh, M_NAMES_I4,
+                                  map_int4=True)
         read_launches("M1 i4", ("crop_score_multi_init_raw_i4",
                                 "crop_score_multi_tracked_i4", "crop_fold"))
         want = np.zeros_like(per4)
         want[0, 0] = want[1, 1] = 1
         check(np.array_equal(per4, want),
               f"M1 i4: launches per update {per4.tolist()}")
-        ml4_single, per4 = code_map_drive(dev, world, None)
+        ml4_single, per4 = variant_drive(dev, world, None, M_NAMES_I4,
+                                         map_int4=True)
         want = np.zeros_like(per4)
         want[0, 2] = want[1, 1] = 1
         check(np.array_equal(per4, want),
@@ -1747,6 +2090,34 @@ def phase_m(dev, world, read_launches):
             f"(raw rows, then tracked) within rtol {ML_RTOL}, atol "
             f"{ML_ATOL} of one device's, largest |diff| "
             f"{float(np.abs(ml4 - ml4_single).max()):.3e}")
+        # and with the single-plane M, float and code map: the init step's
+        # raw rows through crop_score_multi_init_raw[_i4]_lokf, no other
+        # crop kernel
+        for int4 in (False, True):
+            label = "M1 i4 lokf" if int4 else "M1 lokf"
+            names = M_NAMES_I4_LOKF if int4 else M_NAMES_LOKF
+            kernels.reset_launch_counts()
+            mlL, perL = variant_drive(dev, world, mesh, names,
+                                      map_int4=int4, m_hilo=False)
+            read_launches(label, names[:2] + ("crop_fold",
+                                              "crop_lokf_scales"))
+            want = np.zeros_like(perL)
+            want[0, 0] = want[1, 1] = 1
+            check(np.array_equal(perL, want),
+                  f"{label}: launches per update {perL.tolist()}")
+            mlL_single, perL = variant_drive(dev, world, None, names,
+                                             map_int4=int4, m_hilo=False)
+            want = np.zeros_like(perL)
+            want[0, 2] = want[1, 1] = 1
+            check(np.array_equal(perL, want),
+                  f"{label} one device: launches per update {perL.tolist()}")
+            check(np.allclose(mlL, mlL_single, rtol=ML_RTOL, atol=ML_ATOL),
+                  f"{label}: max_likelihood {mlL.tolist()} against one "
+                  f"device's {mlL_single.tolist()}")
+            log(f"[{label}] two K-bucket updates with the single-plane M "
+                f"over the mesh (raw rows, then tracked) within rtol "
+                f"{ML_RTOL}, atol {ML_ATOL} of one device's, largest |diff| "
+                f"{float(np.abs(mlL - mlL_single).max()):.3e}")
         kernels.reset_launch_counts()
         single = mesh_drives(dev, world, None)
         kernels.reset_launch_counts()
@@ -2686,6 +3057,7 @@ def main() -> int:
     b_args, b_theta = phase_b(dev, errs)
     phase_b2(dev, errs, b_args, b_theta)
     phase_b3(dev, errs, b_args, b_theta)
+    phase_b4(dev, errs, b_args, b_theta)
     del b_args, b_theta
 
     # each path runs with the counts set to 0 just before it and read
@@ -2712,6 +3084,9 @@ def main() -> int:
     read_launches("C3", ("fill_rows",))
     phase_c5(dev, world)
     read_launches("C5", CROP_I4 + MULTI_I4 + FOLD)
+    phase_c6(dev, world)
+    read_launches("C6", CROP_LOKF + MULTI_LOKF + CROP_I4_LOKF + MULTI_I4_LOKF
+                  + FOLD + SCALES)
 
     kernels.reset_launch_counts()
     calls = conv_calls()

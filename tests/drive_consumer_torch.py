@@ -52,10 +52,11 @@ START = (60.0, 105.0)
 
 
 def make_filter(device="cpu", particles=2048, seed=0, world=None, mesh=None,
-                map_int4=None, **params):
+                map_int4=None, m_hilo=None, **params):
     """(ParticleFilter, world) on the drive's map and filter settings;
     `params` override the FilterParams; `mesh` shards the filter;
-    `map_int4` is the filter's (the nibble-packed map, TDR_MAP_INT4)."""
+    `map_int4` and `m_hilo` are the filter's (the nibble-packed map,
+    TDR_MAP_INT4; M's hi/lo pair or single plane, TDR_M_HILO)."""
     world = make_world() if world is None else world
     tdm = TopDownMap(
         MapParams(map_path="", num_classes=3), device=device,
@@ -73,7 +74,8 @@ def make_filter(device="cpu", particles=2048, seed=0, world=None, mesh=None,
     )
     fp = dataclasses.replace(fp, **params)
     return ParticleFilter(particles, tdm, fp, seed=seed, chunk_size=512,
-                          device=device, mesh=mesh, map_int4=map_int4), world
+                          device=device, mesh=mesh, map_int4=map_int4,
+                          m_hilo=m_hilo), world
 
 
 def drive(
@@ -128,13 +130,14 @@ def drive(
     return err, cov_xx, err_swap
 
 
-def drive_unknown_scale(device="cpu", particles=2048, steps=30, seed=0):
+def drive_unknown_scale(device="cpu", particles=2048, steps=30, seed=0,
+                        m_hilo=None):
     """The unknown-scale drive; returns (mean_likelihood, mean_cov, the
     filter).  Each scan: propagate, update, then the node's scale-freeze
-    trigger (cov[3, 3] < 0.003 * ml[3])."""
+    trigger (cov[3, 3] < 0.003 * ml[3]).  m_hilo: the filter's."""
     pf, world = make_filter(
         device, particles, seed, fixed_scale=-1.0, init_pos_px_x=64.0,
-        init_pos_px_y=104.0, init_pos_px_cov=10.0,
+        init_pos_px_y=104.0, init_pos_px_cov=10.0, m_hilo=m_hilo,
     )
     flut = np.arange(256, dtype=np.int32)
     gt = np.array(START, np.float32)

@@ -5,9 +5,11 @@ OLD and of the one at NEW (default: this checkout) with the port's nvcc
 flags (kernels.NVCC_FLAGS) into a temporary directory, disassembles each
 library with the toolkit's cuobjdump and compares every kernel OLD's
 library holds with NEW's of the same name, instruction by instruction
-(addresses and encodings left out).  Prints one line a kernel and, last,
-one JSON line {"same": [...], "differ": [...], "new": [...]}; exits 1 if a
-kernel of OLD is missing from NEW or its instructions differ.  So a change
+(addresses and encodings left out).  Prints one line a kernel, with the
+SHA-256 of its instructions in OLD and in NEW, and, last, one JSON line
+{"same": [...], "differ": [...], "new": [...], "sha256": {kernel: [old,
+new]}}; exits 1 if a kernel of OLD is missing from NEW or its instructions
+differ.  So a change
 that adds kernels beside the old ones shows that it left them as they
 were:
 
@@ -19,6 +21,7 @@ Needs nvcc and cuobjdump (the CUDA toolkit); about 30 s a library.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import re
@@ -57,6 +60,13 @@ def sass_by_kernel(lib: str) -> dict:
     return fns
 
 
+def sha256(body) -> str:
+    """The SHA-256 of a kernel's instructions, one a line (None: none)."""
+    if body is None:
+        return None
+    return hashlib.sha256("\n".join(body).encode()).hexdigest()
+
+
 def build(root: str, name: str, out_dir: str) -> str:
     lib = os.path.join(out_dir, f"{os.path.basename(root)}_{name}.so")
     src = os.path.join(root, "top_down_renderer_torch", "csrc", f"{name}.cu")
@@ -74,7 +84,7 @@ def main() -> int:
     ap.add_argument("new", nargs="?", default=HERE)
     args = ap.parse_args()
     roots = (os.path.abspath(args.old), os.path.abspath(args.new))
-    result = {"same": [], "differ": [], "new": []}
+    result = {"same": [], "differ": [], "new": [], "sha256": {}}
     with tempfile.TemporaryDirectory() as tmp:
         dirs = [os.path.join(tmp, side) for side in ("old", "new")]
         for d in dirs:
@@ -87,9 +97,11 @@ def main() -> int:
             for fn, body in sorted(old.items()):
                 same = new.get(fn) == body
                 result["same" if same else "differ"].append(fn)
+                sha = [sha256(b) for b in (body, new.get(fn))]
+                result["sha256"][fn] = sha
                 print(f"{name}: {fn}: {len(body)} instructions, "
-                      f"{'the same' if same else 'DIFFERENT or missing'}",
-                      flush=True)
+                      f"{'the same' if same else 'DIFFERENT or missing'}, "
+                      f"SHA-256 {sha[0]} / {sha[1]}", flush=True)
             result["new"] += sorted(set(new) - set(old))
     print(json.dumps(result))
     return 1 if result["differ"] else 0

@@ -2,8 +2,8 @@
 searches' raw-row epilogue, the forward fill, and the probes: the window
 gather at any byte, the tensor-core products on every route and split,
 the crop ablations of the tracked kernel and the theta search), and the
-crop kernels on the nibble-packed code map (TDR_MAP_INT4=1), against
-their plain versions, the conv path (cuDNN) against a float64
+crop kernels on the nibble-packed code map (TDR_MAP_INT4=1) and with the
+single-plane M (TDR_M_HILO=0), against their plain versions, the conv path (cuDNN) against a float64
 convolution and against the CPU, the node (its plans, publish and
 snapshot copy, the PNG map), the SVG rasteriser and the refinement's
 count sweep against the CPU, on the card.
@@ -263,7 +263,7 @@ def test_crop_step_on_card_matches_cpu(dev, mode):
 
 
 def _multi_world(dev, c, k, seed, n=N, single=False, mo=ms.MO_MULTI,
-                 int4=False):
+                 int4=False, m_hilo=True):
     """The uniform world's map as a pyramid, with K buckets: K = 1 one
     scale 0.5 at res 1, K = 2 test_multiscale's (scales 0.5 and 1.0 at res
     1, mips 1 and 2), K = 10 the reference's init hypotheses 10^{k/10} at
@@ -284,7 +284,7 @@ def _multi_world(dev, c, k, seed, n=N, single=False, mo=ms.MO_MULTI,
     if single:
         pick[n // 2] = 0
     scale = slots[pick] * (1.0 + 0.02 * (rng.random(n) - 0.5))
-    pyr = ms.build_pyramid_maps(packed, levels, int4)
+    pyr = ms.build_pyramid_maps(packed, levels, int4, m_hilo)
     return (pyr, c, sten, scan, cw, centers), thetas, (
         torch.as_tensor(scale.astype(np.float32), device=dev),
         torch.as_tensor(slots, device=dev), bmi, res)
@@ -1127,6 +1127,218 @@ def test_i4_crop_step_on_card_matches_cpu(dev, mode):
     for name in ("crop_score_tracked", "crop_score_init"):
         ran = mode in ("mixed", name.removeprefix("crop_score_"))
         assert _launched(name + "_i4", before) == (int(ran), 0)
+    cpu, gpu = outs
+    assert int(gpu.n_active) == int(cpu.n_active)
+    rows_c = np_(torch.cat(
+        [cpu.particles.init_px, cpu.particles.theta[:, None]], 1))
+    rows_g = np_(torch.cat(
+        [gpu.particles.init_px, gpu.particles.theta[:, None]], 1))
+    assert np.mean(np.all(rows_c == rows_g, axis=1)) >= 0.99
+    assert_rel(np_(cpu.ml_state), np_(gpu.ml_state), 1e-5, "ml_state")
+
+
+# -- the crop kernels with the single-plane M (TDR_M_HILO=0) --------------
+def _lokf_launched(name, before):
+    """The launches of the single-plane entry `name` and of its hi/lo
+    twin since `before`."""
+    twin = name.removesuffix("_lokf")
+    return (kernels.LAUNCHES[name] - before[name],
+            kernels.LAUNCHES[twin] - before[twin])
+
+
+def _lokf_ok(rkf):
+    """The rows whose kf lies clear of the gate: the single-plane kf is
+    the count to ~1e-7, which the kernel and the plain version sum in
+    other orders, so a row at kf = 0.5 exactly may fall either side."""
+    return np.abs(np_(rkf) - 0.5) > 1e-6
+
+
+def _check_tracked_lokf(got, ref, n):
+    """_check_tracked with the single plane's kf: within 1e-6, not bit for
+    bit, and the gate's pattern compared off the gate."""
+    assert np.abs(np_(got[2]) - np_(ref[2])).max(initial=0.0) <= 1e-6
+    clear = _lokf_ok(ref[2])
+    ok = (np_(ref[2]) >= 0.5) & clear
+    if n > 7:
+        assert 0 < ok.sum() < n
+    for a, b, name in ((got[0], ref[0], "cost"), (got[1], ref[1], "norm")):
+        assert_rel(np_(b)[ok], np_(a)[ok], 1e-4, name)
+    np.testing.assert_array_equal((np_(got[2]) < 0.5)[clear],
+                                  (np_(ref[2]) < 0.5)[clear])
+
+
+def _check_init_lokf(got, ref, raw, rraw, num_rot):
+    """The single-plane theta search's argmin and raw rows against their
+    plain versions: kf within 1e-6, the FLT_MAX pattern off the gate, best
+    costs and raw rows within rel 1e-4, the argmin on 99 %."""
+    (best, k, kf), (rbest, rk, rkf) = got, ref
+    clear = _lokf_ok(rkf)
+    assert np.abs(np_(kf) - np_(rkf)).max(initial=0.0) <= 1e-6
+    assert np.abs(np_(raw[2]) - np_(rraw[2])).max(initial=0.0) <= 1e-6
+    np.testing.assert_array_equal((np_(best) == cs.FLT_MAX)[clear],
+                                  (np_(rbest) == cs.FLT_MAX)[clear])
+    assert np.mean(np_(k) == np_(rk)) >= 0.99
+    fin = (np_(rbest) < cs.FLT_MAX) & (np_(best) < cs.FLT_MAX)
+    assert_rel(np_(rbest)[fin], np_(best)[fin], 1e-4, "best cost")
+    ok = (np_(rraw[2]) >= 0.5) & clear
+    for a, b, name in ((raw[0], rraw[0], "num"), (raw[1], rraw[1], "den")):
+        assert a.shape == (len(kf), num_rot)
+        assert_rel(np_(b)[ok], np_(a)[ok], 1e-4, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int4", [False, True])
+@pytest.mark.parametrize("c,f,n", [
+    (3, 0.5, N), (6, 1.0, N), (1, 1.0, 1), (2, 0.5, 127), (7, 0.37, 193),
+    (3, 1.0, 102_400),
+])
+def test_lokf_tracked_kernel_matches_plain(dev, c, f, n, int4):
+    """The tracked kernel with the single-plane M, on the float and the
+    code map, against its plain version (the dequantized single-plane
+    weights): 1 to 7 classes, tile edges, every shift, edges and far out;
+    the scales pass first (one launch), a second call the same bits, no
+    hi/lo launch."""
+    packed, sten, scan, cw, centers, thetas = _world(dev, c, 21, n)
+    thetas = _every_shift(thetas)
+    maps = cs.CropMap(packed, int4=int4, m_hilo=False)
+    name = "crop_score_tracked" + "_i4" * int4 + "_lokf"
+    before = dict(kernels.LAUNCHES)
+    got = cs.score_tracked(maps, c, sten, scan, cw, centers, thetas, f)
+    again = cs.score_tracked(maps, c, sten, scan, cw, centers, thetas, f)
+    ref = cs.score_tracked_plain(maps.plain(c).packed, c, sten, scan, cw,
+                                 centers, thetas, f, **maps.plain_m())
+    torch.cuda.synchronize()
+    assert _lokf_launched(name, before) == (2, 0)
+    assert kernels.LAUNCHES["crop_lokf_scales"] == before[
+        "crop_lokf_scales"] + 2
+    assert _same_bits(got, again)
+    _check_tracked_lokf(got, ref, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int4", [False, True])
+@pytest.mark.parametrize("c,k", [(3, 1), (6, 10), (1, 2), (7, 12)])
+def test_lokf_scales_kernel_equals_tracked_lokf(dev, c, k, int4):
+    """The scales pass against crop_score.tracked_lokf's scales on the
+    same fold, bit for bit: K = 1 to 12 tables, 1 to 7 classes."""
+    _, sten, scan, cw, _, _ = _world(dev, c, 22, 8)
+    off = _fold_tables(dev, TH, R, "D2" if k > 2 else [0.5, 1.0][:k])[:k]
+    fold = cs.fold_pixels(off.contiguous())
+    qinv = torch.as_tensor(np.random.default_rng(c).random(8).astype(
+        np.float32) + 0.01, device=dev)
+    got = cs.tracked_scales(scan, cw, qinv, fold, c, int4)
+    want = cs.tracked_lokf(cs.tracked_weights(scan, cw, fold[2], fold[3],
+                                              qinv), int4, c)[1]
+    torch.cuda.synchronize()
+    assert got.shape == (off.shape[0], TH, 4)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int4", [False, True])
+@pytest.mark.parametrize("c,f,num_rot,n", [
+    (3, 0.5, 40, N), (6, 1.0, 40, N), (1, 1.0, 40, 1), (7, 0.37, 17, 129),
+    (2, 0.5, 7, 193), (3, 1.0, 40, 102_400),
+])
+def test_lokf_init_kernels_match_plain(dev, c, f, num_rot, n, int4):
+    """The theta search with the single-plane M, argmin and raw rows, on
+    the float and the code map, against their plain versions; no hi/lo
+    launch."""
+    packed, sten, scan, cw, centers, _ = _world(dev, c, 23, n)
+    maps = cs.CropMap(packed, int4=int4, m_hilo=False)
+    plain, pm = maps.plain(c).packed, maps.plain_m()
+    args = (c, sten, scan, cw, centers, f, num_rot)
+    before = dict(kernels.LAUNCHES)
+    got = cs.score_init_sel(maps, *args)
+    raw = cs.score_init_raw(maps, *args)
+    ref = cs.score_init_sel_plain(plain, *args, **pm)
+    rraw = cs.score_init_raw_plain(plain, *args, **pm)
+    torch.cuda.synchronize()
+    for base in ("crop_score_init", "crop_score_init_raw"):
+        assert _lokf_launched(base + "_i4" * int4 + "_lokf", before) == (1, 0)
+    _check_init_lokf(got, ref, raw, rraw, num_rot)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int4", [False, True])
+@pytest.mark.parametrize("c,k,n,single,mo", [
+    (3, 2, N, False, 12), (6, 10, N, False, 12), (1, 1, 1, False, 12),
+    (5, 10, 193, True, 24), (3, 10, 102_400, False, 12),
+])
+def test_lokf_multi_tracked_kernel_matches_plain(dev, c, k, n, single, mo,
+                                                 int4):
+    """The K-bucket tracked kernel with the single-plane M (one scale a
+    (bucket, shift)) against its plain version; a second call the same
+    bits."""
+    args, thetas, tail = _multi_world(dev, c, k, 24, n, single, mo,
+                                      int4=int4, m_hilo=False)
+    thetas = _every_shift(thetas)
+    pyr = args[0]
+    name = "crop_score_multi_tracked" + "_i4" * int4 + "_lokf"
+    before = dict(kernels.LAUNCHES)
+    got = ms.score_tracked_multi(*args, thetas, *tail)
+    again = ms.score_tracked_multi(*args, thetas, *tail)
+    ref = ms.score_tracked_multi_plain(pyr.plain(c), *args[1:], thetas,
+                                       *tail, **pyr.plain_m())
+    torch.cuda.synchronize()
+    assert _lokf_launched(name, before) == (2, 0)
+    assert _same_bits(got, again)
+    _check_tracked_lokf(got, ref, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int4", [False, True])
+@pytest.mark.parametrize("c,k,n,num_rot,single", [
+    (3, 2, N, 40, False), (6, 10, N, 40, False), (1, 2, 1, 40, True),
+    (3, 10, 129, 7, True), (3, 10, 102_400, 40, False),
+])
+def test_lokf_multi_init_kernels_match_plain(dev, c, k, n, num_rot, single,
+                                             int4):
+    """The K-bucket theta search with the single-plane M (one M and one
+    row of scales a bucket), argmin and raw rows, against their plain
+    versions."""
+    args, _, tail = _multi_world(dev, c, k, 25, n, single, int4=int4,
+                                 m_hilo=False)
+    pyr = args[0]
+    plain = (pyr.plain(c),) + args[1:]
+    before = dict(kernels.LAUNCHES)
+    got = ms.score_init_multi_sel(*args, *tail, num_rot)
+    raw = ms.score_init_multi_raw(*args, *tail, num_rot)
+    ref = ms.score_init_multi_sel_plain(*plain, *tail, num_rot,
+                                        **pyr.plain_m())
+    rraw = ms.score_init_multi_raw_plain(*plain, *tail, num_rot,
+                                         **pyr.plain_m())
+    torch.cuda.synchronize()
+    for base in ("crop_score_multi_init", "crop_score_multi_init_raw"):
+        assert _lokf_launched(base + "_i4" * int4 + "_lokf", before) == (1, 0)
+    _check_init_lokf(got, ref, raw, rraw, num_rot)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int4", [False, True])
+@pytest.mark.parametrize("mode", ["tracked", "init", "mixed"])
+def test_lokf_crop_step_on_card_matches_cpu(dev, mode, int4):
+    """One whole crop update with the single-plane M on the card (its
+    "_lokf" kernels, no hi/lo one) against the same update on the CPU
+    (its plain versions), with the same resample shift."""
+    d = synthetic_setup(512, h=128, w=128, seed=6)
+    d["state"]["particles"]["have_init"][:] = (
+        np.arange(512) % 3 == 0 if mode == "mixed" else mode == "tracked"
+    )
+    step = ft.make_update_step_fast(d["params"], 3, 1.0, 100, 512, mode,
+                                    gmm_every=1)
+    outs = []
+    before = dict(kernels.LAUNCHES)
+    for device in ("cpu", dev):
+        maps, *args = [torch.as_tensor(d[k], device=device)
+                       for k in ("packed", "map_size", "stencil", "scan")]
+        st = filter_state_from_numpy(d["state"], device)
+        outs.append(step(st, cs.CropMap(maps, int4=int4, m_hilo=False),
+                         *args, 0.5, shift=0.25))
+    for base in ("crop_score_tracked", "crop_score_init"):
+        ran = mode in ("mixed", base.removeprefix("crop_score_"))
+        name = base + "_i4" * int4 + "_lokf"
+        assert _lokf_launched(name, before) == (int(ran), 0)
     cpu, gpu = outs
     assert int(gpu.n_active) == int(cpu.n_active)
     rows_c = np_(torch.cat(

@@ -26,9 +26,12 @@ checkouts on one machine, in turns (parent, change, change, parent),
 compares them.  --int4 times the tracked or theta-search kernels on the
 nibble-packed code map of the same map (TDR_MAP_INT4=1: the CropMap and
 the pyramid made with int4=True; crop_tracked_i4_kernel, crop_init_i4_kernel)
-beside the float ones:
+beside the float ones.  --lokf times the kernels with the single-plane M
+(TDR_M_HILO=0: the CropMap and the pyramid made with m_hilo=False;
+crop_tracked_lokf_kernel, crop_init_lokf_kernel), on the float map or,
+with --int4, on the codes (checkouts that have the single-plane M):
 
-    python tests/time_torch_tracked.py [--kernel tracked|init|fold] [--int4] [ROOT]
+    python tests/time_torch_tracked.py [--kernel tracked|init|fold] [--int4] [--lokf] [ROOT]
 """
 
 from __future__ import annotations
@@ -44,6 +47,8 @@ ap.add_argument("--kernel", choices=("tracked", "init", "fold"),
                 default="tracked")
 ap.add_argument("--int4", action="store_true",
                 help="the code kernels on the nibble-packed map")
+ap.add_argument("--lokf", action="store_true",
+                help="the kernels with the single-plane M (TDR_M_HILO=0)")
 ap.add_argument("root", nargs="?", default=os.path.join(
     os.path.dirname(os.path.abspath(__file__)), ".."))
 ARGS = ap.parse_args()
@@ -67,9 +72,25 @@ CW = np.asarray([0.1, 1.5, 3.0], np.float32)
 
 
 def crop_map(packed):
-    """The CropMap of `packed`: its codes with --int4 (a parent checkout
-    without the option is called as it was)."""
+    """The CropMap of `packed`: its codes with --int4, the single-plane M
+    with --lokf (a parent checkout without the options is called as it
+    was)."""
+    if ARGS.lokf:
+        return cs.CropMap(packed, int4=ARGS.int4, m_hilo=False)
     return cs.CropMap(packed, int4=True) if ARGS.int4 else cs.CropMap(packed)
+
+
+def symbols(kernel, n, raw=None):
+    """The profiler names of the tracked (raw None) or theta-search kernel
+    the options pick, in either of the demangler's spellings."""
+    if not ARGS.lokf:
+        args = f"{n}" if raw is None else f"{n}, {{}}"
+        return tuple(f"crop_{kernel}{SUFFIX}_kernel<" + args.format(b) + ">"
+                     for b in ("false", "(bool)0"))
+    flags = ((ARGS.int4,) if raw is None else (raw, ARGS.int4))
+    return tuple(f"crop_{kernel}_lokf_kernel<{n}, " + ", ".join(
+        sp[f] for f in flags) + ">" for sp in (
+            {True: "true", False: "false"}, {True: "(bool)1", False: "(bool)0"}))
 
 
 def tracked_cells(dev):
@@ -81,7 +102,7 @@ def tracked_cells(dev):
         d["stencil"], d["scan"], CW, p["init_px"], p["theta"])]
     maps = crop_map(torch.as_tensor(d["packed"], device=dev))
     return {"clustered": (lambda: cs.score_tracked(maps, 3, *t, 1.0),
-                          (f"crop_tracked{SUFFIX}_kernel<3>",))}
+                          symbols("tracked", 3))}
 
 
 def init_cells(dev):
@@ -93,18 +114,19 @@ def init_cells(dev):
     hyp = (10.0 ** (np.arange(10) / 10.0)).astype(np.float32)
     _, slots, mips = ms.plan_buckets(hyp, 25, 0.5, 10.0)
     levels = tuple(sorted(set(mips)))
-    pyr = (ms.build_pyramid_maps(t[0], levels, int4=True) if ARGS.int4
-           else ms.build_pyramid_maps(t[0], levels))
+    if ARGS.lokf:
+        pyr = ms.build_pyramid_maps(t[0], levels, ARGS.int4, m_hilo=False)
+    else:
+        pyr = (ms.build_pyramid_maps(t[0], levels, int4=True) if ARGS.int4
+               else ms.build_pyramid_maps(t[0], levels))
     multi = (pyr, 3, *t[1:],
              torch.as_tensor(np.resize(hyp, N), device=dev),
              torch.as_tensor(slots, device=dev),
              tuple(levels.index(m) for m in mips), 0.5)
-    symbols = (f"crop_init{SUFFIX}_kernel<4, false>",
-               f"crop_init{SUFFIX}_kernel<4, (bool)0>")
+    names = symbols("init", 4, raw=False)
     return {
-        "uniform": (lambda: cs.score_init_sel(maps, 3, *t[1:], 1.0),
-                    symbols),
-        "buckets": (lambda: ms.score_init_multi_sel(*multi), symbols),
+        "uniform": (lambda: cs.score_init_sel(maps, 3, *t[1:], 1.0), names),
+        "buckets": (lambda: ms.score_init_multi_sel(*multi), names),
     }
 
 
@@ -135,9 +157,10 @@ def main() -> int:
     dev = torch.device("cuda")
     cells = {"tracked": tracked_cells, "init": init_cells,
              "fold": fold_cells}[ARGS.kernel](dev)
-    if ARGS.int4 and ARGS.kernel == "fold":
-        raise SystemExit("--int4 times the tracked or init kernels")
+    if (ARGS.int4 or ARGS.lokf) and ARGS.kernel == "fold":
+        raise SystemExit("--int4 and --lokf time the tracked or init kernels")
     result = {"root": ROOT, "kernel": ARGS.kernel, "int4": ARGS.int4,
+              "lokf": ARGS.lokf,
               "card": smoke.card_name_and_limit()}
     for label, (run, symbols) in cells.items():
         first = rows(run())

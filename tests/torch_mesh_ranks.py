@@ -93,6 +93,7 @@ def _filter_result(pf: ParticleFilter, mls, plans) -> dict:
         "n_active": pf.n_active_host(),
         "weight": p.weight.numpy(), "alive": p.alive.numpy(),
         "mean": pf.mean_likelihood(), "cov": pf.compute_mean_cov(),
+        "m_hilo": pf.m_hilo,
     }
 
 

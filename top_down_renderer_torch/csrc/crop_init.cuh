@@ -62,17 +62,19 @@ enum : int {
 };
 
 // One chunk of M as the wrapper lays it out: hi plane, lo plane, then the
-// (dy, dx) int2 offsets of its kChunk / CP pixels.
-template <int CP>
+// (dy, dx) int2 offsets of its kChunk / CP pixels.  NP = 1: the single-plane
+// M's one plane of integers, then the pixels.
+template <int CP, int NP = 2>
 struct Chunk {
   static constexpr int kPix = kChunk / CP;
-  static constexpr int kBytes = 2 * kPlane + kPix * 8;
+  static constexpr int kPixOff = NP * kPlane;  // bytes before the pixels
+  static constexpr int kBytes = kPixOff + kPix * 8;
   static_assert(kBytes % 16 == 0, "bulk copies move multiples of 16 bytes");
 };
 
 // Shared memory of the M ring: kStages chunks.
-template <int CP>
-constexpr int kRingBytes = kStages * Chunk<CP>::kBytes;
+template <int CP, int NP = 2>
+constexpr int kRingBytes = kStages * Chunk<CP, NP>::kBytes;
 
 // One bulk copy of `bytes` from global memory into shared memory, counted
 // on `bar` (one arrival that expects the bytes).
@@ -204,7 +206,17 @@ __device__ __forceinline__ uint32_t code_pair_bf16(uint32_t byte) {
 // known channel's code for a known pixel (15 or 7): the kf column sums
 // codes times cell counts, kq times the float map's count.  Only the whole
 // body (kFull) reads codes.
-template <int CP, bool RAW, int V, bool I4 = false>
+//
+// ONE: the single-plane M (TDR_M_HILO=0; crop_score.init_m_lokf).  Each
+// record holds one plane of integers, exact in bf16, and scales (K, 88)
+// the columns' scales: the epilogue multiplies each column's sum by its
+// scale before anything else reads it, and takes kf as columns 80 and 81
+// (the kf column's residual) scaled and added.  The float map's window is
+// multiplied by 1 / qinv[channel] (qinv: the int8 map quantization's, the
+// row multipliers M's integers were rounded under) before its bf16 split,
+// so that B holds the bare integers: A_hi B + A_lo B, two products a k16
+// step; on the codes, exact themselves, A B, one.  kq is not read.
+template <int CP, bool RAW, int V, bool I4 = false, bool ONE = false>
 __device__ __forceinline__ void init_body(
     const std::conditional_t<I4, unsigned char, float>* __restrict__ map,
     const int4* __restrict__ table, int H, int W,
@@ -212,12 +224,19 @@ __device__ __forceinline__ void init_body(
     const int* __restrict__ sched, int K, int chunk_cap,
     const int* __restrict__ perm,
     const int2* __restrict__ centers,  // (N) cy, cx
-    int S, float inv_tr, float* __restrict__ out, float kq = 1.f) {
+    int S, float inv_tr, float* __restrict__ out, float kq = 1.f,
+    const float* __restrict__ scales = nullptr,
+    const float* __restrict__ qinv = nullptr) {
   static_assert(!I4 || V == kFull, "only the whole body reads codes");
+  static_assert(!ONE || V == kFull, "only the whole body takes one plane");
   constexpr bool kGather = V != kNoGather && V != kRingOnly;
   constexpr bool kProduct = V != kGatherOnly && V != kRingOnly;
   constexpr bool kPromote = V != kNoPromote;
-  using Ch = Chunk<CP>;
+  // A's lo plane: the float map's split (not the codes, exact)
+  constexpr bool kALo = !I4 && V != kOnePlane;
+  // B's lo plane: the hi/lo M's
+  constexpr bool kBLo = !ONE && V != kOnePlane;
+  using Ch = Chunk<CP, ONE ? 1 : 2>;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) uint64_t full[kStages];
 
@@ -269,9 +288,19 @@ __device__ __forceinline__ void init_body(
   float2 av[2][2][2];
   // I4: the code words of this thread's pixels, [row half][load]
   [[maybe_unused]] uint32_t words[2][Codes<CP>::kLoads];
+  // ONE on the float map: 1 / qinv of this thread's two channels, 2t % CP
+  // and the next (every fragment column of the thread has them), applied
+  // at the split, so that the next chunk's loads stay in flight while the
+  // products run
+  [[maybe_unused]] float2 rq = make_float2(1.f, 1.f);
+  if constexpr (ONE && !I4) {
+    const int ch = (2 * t) % CP;
+    rq = make_float2(__frcp_rn(__ldg(qinv + ch)),
+                     __frcp_rn(__ldg(qinv + ch + 1)));
+  }
   auto load_a = [&](int s) {
     const int2* pix =
-        reinterpret_cast<const int2*>(smem + s * Ch::kBytes + 2 * kPlane);
+        reinterpret_cast<const int2*>(smem + s * Ch::kBytes + Ch::kPixOff);
     if constexpr (I4) {
       constexpr int kNb = Codes<CP>::kNb, kLoads = Codes<CP>::kLoads;
 #pragma unroll
@@ -364,6 +393,17 @@ __device__ __forceinline__ void init_body(
             ahi[ks][2 * hf + h] = code_pair_bf16(
                 (words[h][j / kNb] >> (8 * (j % kNb))) & 0xFFu);
           }
+    } else if constexpr (ONE) {  // the window times 1 / qinv, at the split
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float2 v = av[ks][hf][h];
+            split(make_float2(__fmul_rn(v.x, rq.x), __fmul_rn(v.y, rq.y)),
+                  ahi[ks][2 * hf + h], alo[ks][2 * hf + h]);
+          }
     } else if constexpr (V != kRingOnly) {
 #pragma unroll
       for (int ks = 0; ks < 2; ++ks)
@@ -386,7 +426,7 @@ __device__ __forceinline__ void init_body(
     }
     if constexpr (V == kRingOnly) {
       const int2 p0 =
-          *reinterpret_cast<const int2*>(smem + s * Ch::kBytes + 2 * kPlane);
+          *reinterpret_cast<const int2*>(smem + s * Ch::kBytes + Ch::kPixOff);
       even[0] += (float)abs(p0.x);
       odd[0] += (float)abs(p0.y);
     }
@@ -400,8 +440,8 @@ __device__ __forceinline__ void init_body(
         const uint64_t bh = desc(hi + ks * 2 * kLbo);
         const uint64_t bl = desc(hi + kPlane + ks * 2 * kLbo);
         mma(d, ahi[ks], bh, kPromote && ks == 0);
-        if constexpr (V != kOnePlane) mma(d, ahi[ks], bl);
-        if constexpr (V != kOnePlane && !I4) mma(d, alo[ks], bh);
+        if constexpr (kBLo) mma(d, ahi[ks], bl);
+        if constexpr (kALo) mma(d, alo[ks], bh);
       }
       wg_commit();
     }
@@ -416,7 +456,7 @@ __device__ __forceinline__ void init_body(
 #pragma unroll
       for (int ks = 0; ks < 2; ++ks) {
         pin(ahi[ks]);
-        if constexpr (V != kOnePlane && !I4) pin(alo[ks]);
+        if constexpr (kALo) pin(alo[ks]);
       }
       if constexpr (kPromote) {
 #pragma unroll
@@ -443,6 +483,22 @@ __device__ __forceinline__ void init_body(
   // epilogue: accumulator 4j + 2h (+1) holds column 8j + 2t (+1) of row
   // g + 8h, i.e. cost (norm) of shift k = 4j + t; column 80 (j 10, t 0)
   // the count of known stencil cells
+  if constexpr (ONE) {  // each column's sum times its scale; kf = 80 + 81
+    const float* sc = scales + (size_t)b * kCols + 2 * t;
+#pragma unroll
+    for (int j = 0; j < kAcc / 4; ++j) {
+      const float2 s2 = *reinterpret_cast<const float2*>(sc + 8 * j);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        acc[4 * j + 2 * h] = __fmul_rn(acc[4 * j + 2 * h], s2.x);
+        acc[4 * j + 2 * h + 1] = __fmul_rn(acc[4 * j + 2 * h + 1], s2.y);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      acc[4 * (kKfCol / 8) + 2 * h] = __fadd_rn(
+          acc[4 * (kKfCol / 8) + 2 * h], acc[4 * (kKfCol / 8) + 2 * h + 1]);
+  }
   if constexpr (RAW) {
     const int width = 2 * S + 1;
 #pragma unroll
@@ -460,7 +516,7 @@ __device__ __forceinline__ void init_body(
       }
       if (t == 0) {
         float cnt = acc[4 * (kKfCol / 8) + 2 * h];
-        if constexpr (I4) cnt = cnt / kq;  // exact, as below
+        if constexpr (I4 && !ONE) cnt = cnt / kq;  // exact, as below
         o[2 * S] = cnt;
       }
     }
@@ -470,7 +526,7 @@ __device__ __forceinline__ void init_body(
   for (int h = 0; h < 2; ++h) {
     float cnt =
         __shfl_sync(0xffffffffu, acc[4 * (kKfCol / 8) + 2 * h], lane & ~3);
-    if constexpr (I4) cnt = cnt / kq;  // exact: kq times an integer count
+    if constexpr (I4 && !ONE) cnt = cnt / kq;  // exact: kq times a count
     const float kf = cnt * inv_tr;
     float c[kMaxSearch / 4];
     float lo = __int_as_float(0x7f800000);  // +inf

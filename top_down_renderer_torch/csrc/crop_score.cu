@@ -60,6 +60,22 @@
 // bytes fall 8x at C = 3, but not its loads, which with their latency
 // bound it (PERF.md §6).
 //
+// The single-plane M (TDR_M_HILO=0; the same TPU kernel's `lokf`
+// configuration, one int8 plane of M per (variant, column), the kf column's
+// residual kept beside it).  The TPU kernel's tracked variants are groups
+// of 16 shifts, each column one shift, so its scales are per (bucket,
+// shift) for cost and norm and per bucket for kf; rounding a folded weight
+// needs its column's amax over every pixel first.  So the wrapper launches
+// crop_lokf_scales_kernel once (one block a (shift, bucket): the fold of
+// every pixel at that shift, a block max, the four scales), then
+// crop_tracked_lokf_kernel, the tracked body with its fold rounding each
+// weight as the plane does (crop_tracked.cuh, lokf_weights): the cells'
+// coefficients in bf16 times qinv (the map quantization's), summed in
+// float64 (exact, so both kernels and the plain version agree bit for bit
+// on the sums whatever their order), each column's integers round(bf16(sum)
+// / s).  The gather and the FMAs are the hi/lo kernel's; on the code map
+// the weights apply to the codes themselves.
+//
 // Contract (equal to the plain versions in filter/crop_score.py and
 // filter/multiscale.py up to float summation order): the compact map is
 // (pixels, CP) float32, classes in channels [0, C), known in channel C;
@@ -127,6 +143,107 @@ __global__ void __launch_bounds__(kThreads, 2)
   tracked_body<C, kFull, true>(codes, table, H, W, scan, cw, pix, npix, order,
                                seg, Th, R, P, skey, perm, centers, N, inv_tr,
                                out, qinv);
+}
+
+// The same body with the single-plane M: qinv (8) the map quantization's,
+// scales (K, Th, 4) from crop_lokf_scales_kernel; the float map (pixels,
+// CP) or, with I4, the code map (pixels, CP/2).
+template <int C, bool I4>
+__global__ void __launch_bounds__(kThreads, 2)
+    crop_tracked_lokf_kernel(const MapElem<I4>* __restrict__ map,
+                             const float* __restrict__ qinv,
+                             const float* __restrict__ scales,
+                             const int4* __restrict__ table, int H, int W,
+                             const float* __restrict__ scan,
+                             const float* __restrict__ cw,
+                             const int2* __restrict__ pix,
+                             const int* __restrict__ npix,
+                             const int* __restrict__ order,
+                             const int* __restrict__ seg, int Th, int R,
+                             int P, const int* __restrict__ skey,
+                             const long long* __restrict__ perm,
+                             const int2* __restrict__ centers, int N,
+                             float inv_tr, float* __restrict__ out) {
+  tracked_body<C, kFull, I4, true>(map, table, H, W, scan, cw, pix, npix,
+                                   order, seg, Th, R, P, skey, perm, centers,
+                                   N, inv_tr, out, qinv, scales);
+}
+
+constexpr int kScaleThreads = 256;
+
+// Block (s, b) writes the single-plane scales of bucket b at shift s,
+// out[b, s] = (cost, norm, kf, kf residual): it folds every distinct pixel
+// of the bucket at shift s as the tracked kernel's fold does (the same
+// bf16 coefficients, read from the scan in global memory, summed in
+// float64), takes the amax of each column's entries over the pixels
+// (lokf_amax) and its scale (lokf_scale; the residual's s_kf / 254).  One
+// launch for all K * Th groups; its work is the fold's (K Th R Th cells),
+// tiny beside the tracked kernel's gather.
+template <int C, bool I4>
+__global__ void __launch_bounds__(kScaleThreads)
+    crop_lokf_scales_kernel(const float* __restrict__ scan,
+                            const float* __restrict__ cw,
+                            const float* __restrict__ qinv,
+                            const int* __restrict__ npix,
+                            const int* __restrict__ order,
+                            const int* __restrict__ seg, int Th, int R,
+                            int P, float* __restrict__ out) {
+  __shared__ float s_max[kScaleThreads / 32][3];
+  const int s = blockIdx.x, b = blockIdx.y;
+  const int TR = Th * R, sR = s * R, cell0 = b * TR;
+  float wq[C + 1], cwc[C];
+#pragma unroll
+  for (int ch = 0; ch <= C; ++ch) wq[ch] = __ldg(qinv + ch);
+#pragma unroll
+  for (int ch = 0; ch < C; ++ch) cwc[ch] = 0.01f * __ldg(cw + ch);
+  const float kf_coef = lokf_coef(1.f, wq[C]);
+  float m[3] = {0.f, 0.f, 0.f};
+  const int U = npix[b];
+  const int* sb = seg + (size_t)b * P;
+  for (int u = threadIdx.x; u < U; u += kScaleThreads) {
+    double wc[C], wn = 0.0;
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) wc[ch] = 0.0;
+    const int lo = sb[u], hi = sb[u + 1];
+    for (int q = lo; q < hi; ++q) {
+      int j = order[q] - cell0 + sR;
+      if (j >= TR) j -= TR;
+      float sum = 0.f;
+#pragma unroll
+      for (int ch = 0; ch < C; ++ch) {
+        const float v = __ldg(scan + ch * TR + j);
+        wc[ch] += (double)lokf_coef(__fmul_rn(v, cwc[ch]), wq[ch]);
+        sum = ch ? sum + v : v;
+      }
+      wn += (double)lokf_coef(sum, wq[C]);
+    }
+    float y[C];
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) y[ch] = __double2float_rn(wc[ch]);
+    lokf_amax<C, I4>(y, __double2float_rn(wn),
+                     __double2float_rn((double)(hi - lo) * kf_coef), m);
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      m[k] = fmaxf(m[k], __shfl_xor_sync(0xffffffffu, m[k], o));
+    if (lane == 0) s_max[warp][k] = m[k];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int w = 1; w < kScaleThreads / 32; ++w)
+#pragma unroll
+      for (int k = 0; k < 3; ++k) m[k] = fmaxf(m[k], s_max[w][k]);
+    float4 r;
+    r.x = lokf_scale(m[0]);
+    r.y = lokf_scale(m[1]);
+    r.z = lokf_scale(m[2]);
+    r.w = __fdiv_rn(r.z, 254.f);
+    reinterpret_cast<float4*>(out)[(size_t)b * Th + s] = r;
+  }
 }
 
 // Exclusive prefix sum of one int a thread over a block of kFoldThreads,
@@ -331,14 +448,16 @@ __global__ void __launch_bounds__(kFoldThreads)
 }
 
 // Launch the tracked kernel on the float map (qinv null) or, with I4, on
-// the code map and its qinv.
-template <int C, bool I4>
+// the code map and its qinv; with LOKF the single-plane M's (qinv the map
+// quantization's, scales (K, Th, 4)).
+template <int C, bool I4, bool LOKF = false>
 cudaError_t launch(const void* map, const float* qinv, const int* table,
                    int H, int W, const float* scan, const float* cw,
                    const int* pix, const int* npix, const int* order,
                    const int* seg, int Th, int R, int P, const int* skey,
                    const long long* perm, const int* centers, int N,
-                   float inv_tr, float* out, cudaStream_t stream) {
+                   float inv_tr, float* out, cudaStream_t stream,
+                   const float* scales = nullptr) {
   // the smem opt-in, set once per device and raised with the table size;
   // callers launch from one host thread
   static int ready_dev = -1;
@@ -349,7 +468,14 @@ cudaError_t launch(const void* map, const float* qinv, const int* table,
   const auto* px = reinterpret_cast<const int2*>(pix);
   const auto* ctr = reinterpret_cast<const int2*>(centers);
   cudaError_t err;
-  if constexpr (I4) {
+  if constexpr (LOKF) {
+    auto kern = crop_tracked_lokf_kernel<C, I4>;
+    err = opt_in_smem(kern, smem, &ready_dev, &ready_smem);
+    if (err != cudaSuccess) return err;
+    kern<<<grid, kThreads, smem, stream>>>(
+        static_cast<const MapElem<I4>*>(map), qinv, scales, tbl, H, W, scan,
+        cw, px, npix, order, seg, Th, R, P, skey, perm, ctr, N, inv_tr, out);
+  } else if constexpr (I4) {
     auto kern = crop_tracked_i4_kernel<C>;
     err = opt_in_smem(kern, smem, &ready_dev, &ready_smem);
     if (err != cudaSuccess) return err;
@@ -478,4 +604,98 @@ extern "C" int tdr_crop_score_multi_tracked_i4(
         skey, perm, centers, N, inv_tr, out,
         static_cast<cudaStream_t>(stream));
   });
+}
+
+// The single-plane M (TDR_M_HILO=0).  tdr_crop_lokf_scales: the scales
+// (K, Th, 4) of every (bucket, shift) into out, from the scan (C, Th, R),
+// the class weights, qinv (8) of the map quantization, I4 (the code map's
+// table: 0 or 1) and tdr_crop_fold's npix, order, seg and P.  The tracked
+// entry points then take the map (or codes), qinv and those scales, then
+// the hi/lo float entry points' arguments from H (table) on.
+extern "C" int tdr_crop_lokf_scales(const float* scan, const float* cw,
+                                    const float* qinv, int C, int I4,
+                                    const int* npix, const int* order,
+                                    const int* seg, int K, int Th, int R,
+                                    int P, float* out, void* stream) {
+  if (K < 1 || K > kMaxBuckets || Th < 1 || R < 1)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(Th, K);
+  const auto st = static_cast<cudaStream_t>(stream);
+  return by_classes(C, [&](auto cc) {
+    constexpr int kC = decltype(cc)::value;
+    if (I4)
+      crop_lokf_scales_kernel<kC, true><<<grid, kScaleThreads, 0, st>>>(
+          scan, cw, qinv, npix, order, seg, Th, R, P, out);
+    else
+      crop_lokf_scales_kernel<kC, false><<<grid, kScaleThreads, 0, st>>>(
+          scan, cw, qinv, npix, order, seg, Th, R, P, out);
+    return (int)cudaGetLastError();
+  });
+}
+
+namespace {
+
+// The single-plane tracked entry points' launch, uniform (table null) and
+// K-bucket.
+template <bool I4>
+int tracked_lokf(const void* map, const float* qinv, const float* scales,
+                 const int* table, int K, int H, int W, int C,
+                 const float* scan, const float* cw, const int* pix,
+                 const int* npix, const int* order, const int* seg, int Th,
+                 int R, int P, const int* skey, const long long* perm,
+                 const int* centers, int N, float inv_tr, float* out,
+                 void* stream) {
+  if (K < 1 || K > kMaxBuckets) return (int)cudaErrorInvalidValue;
+  return by_classes(C, [&](auto cc) {
+    return (int)launch<decltype(cc)::value, I4, true>(
+        map, qinv, table, H, W, scan, cw, pix, npix, order, seg, Th, R, P,
+        skey, perm, centers, N, inv_tr, out,
+        static_cast<cudaStream_t>(stream), scales);
+  });
+}
+
+}  // namespace
+
+extern "C" int tdr_crop_score_tracked_lokf(
+    const float* map, const float* qinv, const float* scales, int H, int W,
+    int C, const float* scan, const float* cw, const int* pix,
+    const int* npix, const int* order, const int* seg, int Th, int R, int P,
+    const int* skey, const long long* perm, const int* centers, int N,
+    float inv_tr, float* out, void* stream) {
+  return tracked_lokf<false>(map, qinv, scales, nullptr, 1, H, W, C, scan,
+                             cw, pix, npix, order, seg, Th, R, P, skey, perm,
+                             centers, N, inv_tr, out, stream);
+}
+
+extern "C" int tdr_crop_score_multi_tracked_lokf(
+    const float* pyramid, const float* qinv, const float* scales,
+    const int* table, int K, int C, const float* scan, const float* cw,
+    const int* pix, const int* npix, const int* order, const int* seg,
+    int Th, int R, int P, const int* skey, const long long* perm,
+    const int* centers, int N, float inv_tr, float* out, void* stream) {
+  return tracked_lokf<false>(pyramid, qinv, scales, table, K, 0, 0, C, scan,
+                             cw, pix, npix, order, seg, Th, R, P, skey, perm,
+                             centers, N, inv_tr, out, stream);
+}
+
+extern "C" int tdr_crop_score_tracked_i4_lokf(
+    const unsigned char* codes, const float* qinv, const float* scales,
+    int H, int W, int C, const float* scan, const float* cw, const int* pix,
+    const int* npix, const int* order, const int* seg, int Th, int R, int P,
+    const int* skey, const long long* perm, const int* centers, int N,
+    float inv_tr, float* out, void* stream) {
+  return tracked_lokf<true>(codes, qinv, scales, nullptr, 1, H, W, C, scan,
+                            cw, pix, npix, order, seg, Th, R, P, skey, perm,
+                            centers, N, inv_tr, out, stream);
+}
+
+extern "C" int tdr_crop_score_multi_tracked_i4_lokf(
+    const unsigned char* codes, const float* qinv, const float* scales,
+    const int* table, int K, int C, const float* scan, const float* cw,
+    const int* pix, const int* npix, const int* order, const int* seg,
+    int Th, int R, int P, const int* skey, const long long* perm,
+    const int* centers, int N, float inv_tr, float* out, void* stream) {
+  return tracked_lokf<true>(codes, qinv, scales, table, K, 0, 0, C, scan,
+                            cw, pix, npix, order, seg, Th, R, P, skey, perm,
+                            centers, N, inv_tr, out, stream);
 }

@@ -82,6 +82,25 @@
 // kernel's 1.00-1.05 on an H100 at 700 W, 102,400 particles spread over a
 // 1024^2 3-class map: PERF.md §6.)
 //
+// The single-plane M (TDR_M_HILO=0; the same TPU kernel's `lokf`
+// configuration, _run_kernel's single int8 plane of M per (variant,
+// column), only the kf column's residual kept in column 81):
+// crop_init_lokf_kernel is the same body with one B plane.  Its records hold
+// the integers of crop_score.init_m_lokf (|q| <= 127 on the float map, <=
+// 2,032 on the codes, exact in bf16) and one scale a column (K, 88):
+//   - no B_lo product: the float map's window is multiplied by 1 / qinv (the
+//     int8 map quantization's row multipliers, under which the integers were
+//     rounded) and split into bf16 hi and lo, A_hi B + A_lo B, two products
+//     a k16 step where the hi/lo M takes three; the codes are exact, A B,
+//     one product where the hi/lo code kernel takes two;
+//   - a record is one plane and the pixels (6,144 bytes at CP = 2 where the
+//     hi/lo record takes 11,776), and so is the ring;
+//   - the epilogue multiplies every column's fp32 sum by its scale first,
+//     and kf is columns 80 and 81 scaled and added (the kf < 0.5 gate reads
+//     that sum, as JAX's reads its kfc).
+// The hi/lo instantiations compile to the SASS they had before (the switch
+// is a template argument, off by default).
+//
 // The body (crop_init_kernel's stages, its constants and helpers) lives in
 // csrc/crop_init.cuh, shared with the ablation (csrc/crop_ablate_init.cu);
 // its mbarrier waits trap after about ten seconds (csrc/tma.cuh), so a
@@ -120,15 +139,41 @@ __global__ void __launch_bounds__(kThreads, 1)
                                   perm, centers, S, inv_tr, out, kq);
 }
 
-// Launch the theta search on the float map or, with I4, on the code map
-// (kq: its known code).
+// The single-plane M's body on the float map (qinv: its int8 quantization's
+// row multipliers) or, with I4, on the code map (qinv not read); scales
+// (K, 88) the columns' scales.
 template <int CP, bool RAW, bool I4>
+__global__ void __launch_bounds__(kThreads, 1)
+    crop_init_lokf_kernel(
+        const std::conditional_t<I4, unsigned char, float>* __restrict__ map,
+        const int4* __restrict__ table, int H, int W,
+        const unsigned char* __restrict__ m, const int* __restrict__ sched,
+        int K, int chunk_cap, const int* __restrict__ perm,
+        const int2* __restrict__ centers, int S, float inv_tr,
+        float* __restrict__ out, const float* __restrict__ scales,
+        const float* __restrict__ qinv) {
+  init_body<CP, RAW, kFull, I4, true>(map, table, H, W, m, sched, K,
+                                      chunk_cap, perm, centers, S, inv_tr,
+                                      out, 1.f, scales, qinv);
+}
+
+// Launch the theta search on the float map or, with I4, on the code map
+// (kq: its known code); with ONE the single-plane M's (scales, qinv).
+template <int CP, bool RAW, bool I4, bool ONE = false>
 cudaError_t launch(const void* map, float kq, const int* table,
                    int H, int W, int K, const void* m, const int* sched,
                    int chunk_cap, const int* perm, const int* centers, int N,
-                   int S, float inv_tr, float* out, cudaStream_t stream) {
+                   int S, float inv_tr, float* out, cudaStream_t stream,
+                   const float* scales = nullptr,
+                   const float* qinv = nullptr) {
   static int ready_dev = -1;  // the smem opt-in is set once per device
-  if constexpr (I4)
+  using Map = std::conditional_t<I4, unsigned char, float>;
+  if constexpr (ONE)
+    return launch_tiles(crop_init_lokf_kernel<CP, RAW, I4>, &ready_dev,
+                        kRingBytes<CP, 1>, static_cast<const Map*>(map),
+                        table, H, W, K, m, sched, chunk_cap, perm, centers, N,
+                        S, inv_tr, out, stream, scales, qinv);
+  else if constexpr (I4)
     return launch_tiles(crop_init_i4_kernel<CP, RAW>, &ready_dev,
                         kRingBytes<CP>, static_cast<const unsigned char*>(map),
                         table, H, W, K, m, sched, chunk_cap, perm, centers, N,
@@ -140,27 +185,28 @@ cudaError_t launch(const void* map, float kq, const int* table,
                         stream);
 }
 
-template <bool RAW, bool I4 = false>
+template <bool RAW, bool I4 = false, bool ONE = false>
 int by_channels(int CP, const void* map, const int* table, int H, int W,
                 int K, const void* m, const int* sched, int chunk_cap,
                 const int* perm, const int* centers, int N, int S,
                 float inv_tr, float* out, void* stream,
-                float kq = 1.f) {
+                float kq = 1.f, const float* scales = nullptr,
+                const float* qinv = nullptr) {
   if (!valid_search(S, K)) return (int)cudaErrorInvalidValue;
   const auto st = static_cast<cudaStream_t>(stream);
   switch (CP) {
     case 2:
-      return (int)launch<2, RAW, I4>(map, kq, table, H, W, K, m, sched,
-                                     chunk_cap, perm, centers, N, S, inv_tr,
-                                     out, st);
+      return (int)launch<2, RAW, I4, ONE>(map, kq, table, H, W, K, m, sched,
+                                          chunk_cap, perm, centers, N, S,
+                                          inv_tr, out, st, scales, qinv);
     case 4:
-      return (int)launch<4, RAW, I4>(map, kq, table, H, W, K, m, sched,
-                                     chunk_cap, perm, centers, N, S, inv_tr,
-                                     out, st);
+      return (int)launch<4, RAW, I4, ONE>(map, kq, table, H, W, K, m, sched,
+                                          chunk_cap, perm, centers, N, S,
+                                          inv_tr, out, st, scales, qinv);
     case 8:
-      return (int)launch<8, RAW, I4>(map, kq, table, H, W, K, m, sched,
-                                     chunk_cap, perm, centers, N, S, inv_tr,
-                                     out, st);
+      return (int)launch<8, RAW, I4, ONE>(map, kq, table, H, W, K, m, sched,
+                                          chunk_cap, perm, centers, N, S,
+                                          inv_tr, out, st, scales, qinv);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -259,4 +305,93 @@ extern "C" int tdr_crop_score_multi_init_raw_i4(
   return by_channels<true, true>(CP, codes, table, 0, 0, K, m, sched,
                                  chunk_cap, perm, centers, N, S, inv_tr, out,
                                  stream, kq);
+}
+
+// The single-plane M (TDR_M_HILO=0): the float entry points with qinv (8,
+// the int8 map quantization's) after the map and the columns' scales (K, 88)
+// after the records m (crop_score.init_records with m_hilo=False: one plane
+// a record); the code entry points the same without qinv.
+extern "C" int tdr_crop_score_init_lokf(const float* map, const float* qinv,
+                                        int H, int W, int CP, const void* m,
+                                        const float* scales, const int* sched,
+                                        int chunk_cap, const int* centers,
+                                        int N, int S, float inv_tr, float* out,
+                                        void* stream) {
+  return by_channels<false, false, true>(CP, map, nullptr, H, W, 1, m, sched,
+                                         chunk_cap, nullptr, centers, N, S,
+                                         inv_tr, out, stream, 1.f, scales,
+                                         qinv);
+}
+
+extern "C" int tdr_crop_score_init_raw_lokf(
+    const float* map, const float* qinv, int H, int W, int CP, const void* m,
+    const float* scales, const int* sched, int chunk_cap, const int* centers,
+    int N, int S, float inv_tr, float* out, void* stream) {
+  return by_channels<true, false, true>(CP, map, nullptr, H, W, 1, m, sched,
+                                        chunk_cap, nullptr, centers, N, S,
+                                        inv_tr, out, stream, 1.f, scales,
+                                        qinv);
+}
+
+extern "C" int tdr_crop_score_multi_init_lokf(
+    const float* pyramid, const float* qinv, const int* table, int K, int CP,
+    const void* m, const float* scales, const int* sched, int chunk_cap,
+    const int* perm, const int* centers, int N, int S, float inv_tr,
+    float* out, void* stream) {
+  return by_channels<false, false, true>(CP, pyramid, table, 0, 0, K, m,
+                                         sched, chunk_cap, perm, centers, N,
+                                         S, inv_tr, out, stream, 1.f, scales,
+                                         qinv);
+}
+
+extern "C" int tdr_crop_score_multi_init_raw_lokf(
+    const float* pyramid, const float* qinv, const int* table, int K, int CP,
+    const void* m, const float* scales, const int* sched, int chunk_cap,
+    const int* perm, const int* centers, int N, int S, float inv_tr,
+    float* out, void* stream) {
+  return by_channels<true, false, true>(CP, pyramid, table, 0, 0, K, m,
+                                        sched, chunk_cap, perm, centers, N, S,
+                                        inv_tr, out, stream, 1.f, scales,
+                                        qinv);
+}
+
+extern "C" int tdr_crop_score_init_i4_lokf(const unsigned char* codes, int H,
+                                           int W, int CP, const void* m,
+                                           const float* scales,
+                                           const int* sched, int chunk_cap,
+                                           const int* centers, int N, int S,
+                                           float inv_tr, float* out,
+                                           void* stream) {
+  return by_channels<false, true, true>(CP, codes, nullptr, H, W, 1, m, sched,
+                                        chunk_cap, nullptr, centers, N, S,
+                                        inv_tr, out, stream, 1.f, scales);
+}
+
+extern "C" int tdr_crop_score_init_raw_i4_lokf(
+    const unsigned char* codes, int H, int W, int CP, const void* m,
+    const float* scales, const int* sched, int chunk_cap, const int* centers,
+    int N, int S, float inv_tr, float* out, void* stream) {
+  return by_channels<true, true, true>(CP, codes, nullptr, H, W, 1, m, sched,
+                                       chunk_cap, nullptr, centers, N, S,
+                                       inv_tr, out, stream, 1.f, scales);
+}
+
+extern "C" int tdr_crop_score_multi_init_i4_lokf(
+    const unsigned char* codes, const int* table, int K, int CP,
+    const void* m, const float* scales, const int* sched, int chunk_cap,
+    const int* perm, const int* centers, int N, int S, float inv_tr,
+    float* out, void* stream) {
+  return by_channels<false, true, true>(CP, codes, table, 0, 0, K, m, sched,
+                                        chunk_cap, perm, centers, N, S,
+                                        inv_tr, out, stream, 1.f, scales);
+}
+
+extern "C" int tdr_crop_score_multi_init_raw_i4_lokf(
+    const unsigned char* codes, const int* table, int K, int CP,
+    const void* m, const float* scales, const int* sched, int chunk_cap,
+    const int* perm, const int* centers, int N, int S, float inv_tr,
+    float* out, void* stream) {
+  return by_channels<true, true, true>(CP, codes, table, 0, 0, K, m, sched,
+                                       chunk_cap, perm, centers, N, S, inv_tr,
+                                       out, stream, 1.f, scales);
 }

@@ -6,6 +6,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -94,6 +95,101 @@ __device__ __forceinline__ void load_codes(const unsigned char* p,
                  q[ch], nq[ch]);
 }
 
+// -- the single-plane M (TDR_M_HILO=0; crop_score.tracked_lokf) -----------
+// x rounded to bf16 and back
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// A scan cell's coefficient as the JAX package's M build rounds it: the
+// cell's value (0.01 w_c scan_c, or the class sum) times the channel's
+// qinv in float32, rounded to bf16.
+__device__ __forceinline__ float lokf_coef(float v, float q) {
+  return bf16r(__fmul_rn(v, q));
+}
+
+// round(x / s) half to even, clipped to +-127: an integer of the plane
+__device__ __forceinline__ float lokf_q(float x, float s) {
+  return fminf(fmaxf(rintf(__fdiv_rn(x, s)), -127.f), 127.f);
+}
+
+// A column's scale from the amax of its sums: max(amax (1 + 2^-8), 1e-30)
+// / 127 (crop_score.lokf_scale)
+__device__ __forceinline__ float lokf_scale(float amax) {
+  return __fdiv_rn(fmaxf(__fmul_rn(amax, 1.00390625f), 1e-30f), 127.f);
+}
+
+// The amax of one pixel's entries in the cost, norm and kf columns (m[0],
+// m[1], m[2]), from its per-channel sums y (C classes), yn and yk: the
+// entries themselves on the float map; on the code map the e-dot
+// identity's pairs, y_even - y_odd / 16 and y_odd / 16, the known channel
+// C in its pair with a zero partner.
+template <int C, bool I4>
+__device__ __forceinline__ void lokf_amax(const float (&y)[C], float yn,
+                                          float yk, float (&m)[3]) {
+  if constexpr (I4) {
+#pragma unroll
+    for (int ch = 0; ch < C; ch += 2) {
+      const float b = __fmul_rn(ch + 1 < C ? y[ch + 1] : 0.f, 0.0625f);
+      m[0] = fmaxf(m[0], fmaxf(fabsf(__fsub_rn(y[ch], b)), fabsf(b)));
+    }
+    constexpr float kDiv = C % 2 ? 0.0625f : 1.f;  // known channel odd
+    m[1] = fmaxf(m[1], fabsf(__fmul_rn(yn, kDiv)));
+    m[2] = fmaxf(m[2], fabsf(__fmul_rn(yk, kDiv)));
+  } else {
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) m[0] = fmaxf(m[0], fabsf(y[ch]));
+    m[1] = fmaxf(m[1], fabsf(yn));
+    m[2] = fmaxf(m[2], fabsf(yk));
+  }
+}
+
+// One pixel's folded weights w (C + 2) under the single-plane M from its
+// per-channel sums and its group's scales sc = (cost, norm, kf, kf
+// residual): each entry rounded to its integer q, the kf entry's residual
+// to q_lo in units of sc.w; the float map's weight (q s) / qinv[ch] (rq =
+// 1 / qinv) for its values, the code map's q s for its codes (q_e + q_b on
+// an even channel, 16 q_b on an odd one).  crop_score.tracked_lokf_weights
+// in the same float32 operations.
+template <int C, bool I4>
+__device__ __forceinline__ void lokf_weights(const float (&y)[C], float yn,
+                                            float yk, float4 sc,
+                                            const float (&rq)[C + 1],
+                                            float* w) {
+  if constexpr (I4) {
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) {
+      if (ch % 2 == 0) {
+        const float b = __fmul_rn(ch + 1 < C ? y[ch + 1] : 0.f, 0.0625f);
+        w[ch] = __fmul_rn(lokf_q(bf16r(__fsub_rn(y[ch], b)), sc.x) +
+                              lokf_q(bf16r(b), sc.x), sc.x);
+      } else {
+        w[ch] = __fmul_rn(
+            16.f * lokf_q(bf16r(__fmul_rn(y[ch], 0.0625f)), sc.x), sc.x);
+      }
+    }
+    // the known channel C: its own plane (even) or 16 q_b (odd)
+    constexpr float kDiv = C % 2 ? 0.0625f : 1.f;
+    constexpr float kMul = C % 2 ? 16.f : 1.f;
+    w[C] = __fmul_rn(kMul * lokf_q(bf16r(__fmul_rn(yn, kDiv)), sc.y), sc.y);
+    const float tk = bf16r(__fmul_rn(yk, kDiv));
+    const float qk = lokf_q(tk, sc.z);
+    const float ql = lokf_q(__fsub_rn(tk, __fmul_rn(qk, sc.z)), sc.w);
+    w[C + 1] = __fadd_rn(__fmul_rn(kMul * qk, sc.z), __fmul_rn(kMul * ql,
+                                                                sc.w));
+  } else {
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch)
+      w[ch] = __fmul_rn(__fmul_rn(lokf_q(bf16r(y[ch]), sc.x), sc.x), rq[ch]);
+    w[C] = __fmul_rn(__fmul_rn(lokf_q(bf16r(yn), sc.y), sc.y), rq[C]);
+    const float tk = bf16r(yk);
+    const float qk = lokf_q(tk, sc.z);
+    const float ql = lokf_q(__fsub_rn(tk, __fmul_rn(qk, sc.z)), sc.w);
+    w[C + 1] = __fmul_rn(
+        __fadd_rn(__fmul_rn(qk, sc.z), __fmul_rn(ql, sc.w)), rq[C]);
+  }
+}
+
 // The element of the map a body reads: float32 channels, or with I4 the
 // nibble-packed codes (CP/2 bytes a pixel).
 template <bool I4>
@@ -115,7 +211,16 @@ size_t smem_bytes(int TR, int P) {
 // table is null.  V picks the stages (kFull: all).  I4: the map is the code
 // map (pixels, CP/2) and qinv (8) its dequantization multipliers
 // (load_codes); only the whole body (kFull) reads codes.
-template <int C, int V, bool I4 = false>
+//
+// LOKF: the single-plane M (TDR_M_HILO=0).  qinv (8) is the map
+// quantization's (the int8 map's for the float map, the codes' for the code
+// map) and scales (K, Th, 4) each group's (tracked_scales).  The staged
+// scan tables hold each cell's coefficient times qinv of its channel in
+// bf16 (lokf_coef), the fold sums a pixel's cells in float64 (exactly, so
+// in any order) and rounds its weights as the plane rounds them
+// (lokf_weights); the code map's codes are weighed as they are (q = 1 in
+// load_codes), not dequantized.
+template <int C, int V, bool I4 = false, bool LOKF = false>
 __device__ __forceinline__ void tracked_body(
     const MapElem<I4>* __restrict__ map,  // (pixels, CP) or (pixels, CP/2)
     const int4* __restrict__ table, int H, int W,
@@ -130,10 +235,12 @@ __device__ __forceinline__ void tracked_body(
     const long long* __restrict__ perm,  // (N)
     const int2* __restrict__ centers,    // (N) cy, cx
     int N, float inv_tr, float* __restrict__ out,
-    const float* __restrict__ qinv = nullptr) {
+    const float* __restrict__ qinv = nullptr,
+    const float* __restrict__ scales = nullptr) {
   constexpr int CP = Pixel<C>::CP;
   constexpr int kPixelElems = I4 ? CP / 2 : CP;  // map elements a pixel
   static_assert(!I4 || V == kFull, "only the whole body reads codes");
+  static_assert(!LOKF || V == kFull, "only the whole body has one plane");
   constexpr bool kWeights = V != kGatherOnly;  // folds the weights
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_key[kTile];
@@ -147,7 +254,19 @@ __device__ __forceinline__ void tracked_body(
   const int rows = min(kTile, N - row0);
   // the weighted scan 0.01 w_c scan_c and its class sum, in class order
   // (as crop_score's plain version computes them)
-  if constexpr (kWeights) {
+  if constexpr (kWeights && LOKF) {  // the coefficients in bf16
+    for (int i = threadIdx.x; i < TR; i += kThreads) {
+      float sum = 0.f;
+#pragma unroll
+      for (int ch = 0; ch < C; ++ch) {
+        const float v = scan[ch * TR + i];
+        s_ws[ch * TR + i] =
+            lokf_coef(__fmul_rn(v, 0.01f * cw[ch]), __ldg(qinv + ch));
+        sum = ch ? sum + v : v;
+      }
+      s_ss[i] = lokf_coef(sum, __ldg(qinv + C));
+    }
+  } else if constexpr (kWeights) {
     for (int i = threadIdx.x; i < TR; i += kThreads) {
       float sum = 0.f;
 #pragma unroll
@@ -168,9 +287,17 @@ __device__ __forceinline__ void tracked_body(
   if constexpr (I4) {
 #pragma unroll
     for (int ch = 0; ch <= C; ++ch) {
-      q[ch] = __ldg(qinv + ch);
+      q[ch] = LOKF ? 1.f : __ldg(qinv + ch);  // LOKF: the codes as they are
       nq[ch] = -8388608.0f * q[ch];
     }
+  }
+  // LOKF: 1 / qinv of the float map's channels, the kf cell's coefficient
+  [[maybe_unused]] float rq[C + 1];
+  [[maybe_unused]] float kf_coef = 0.f;
+  if constexpr (LOKF) {
+#pragma unroll
+    for (int ch = 0; ch <= C; ++ch) rq[ch] = __frcp_rn(__ldg(qinv + ch));
+    kf_coef = lokf_coef(1.f, __ldg(qinv + C));
   }
   int U = 0;  // distinct pixels of the folded group
   for (int run0 = 0; run0 < rows;) {
@@ -183,8 +310,30 @@ __device__ __forceinline__ void tracked_body(
       U = npix[b];
       const int* sb = seg + (size_t)b * P;
       const int cell0 = b * TR;
+      [[maybe_unused]] float4 sc;
+      if constexpr (LOKF) sc = reinterpret_cast<const float4*>(scales)[g];
       for (int u = threadIdx.x; u < U; u += kThreads) {
-        if constexpr (kWeights) {
+        if constexpr (kWeights && LOKF) {
+          double wc[C], wn = 0.0;
+#pragma unroll
+          for (int ch = 0; ch < C; ++ch) wc[ch] = 0.0;
+          const int lo = sb[u], hi = sb[u + 1];
+          for (int q = lo; q < hi; ++q) {
+            int j = order[q] - cell0 + sR;
+            if (j >= TR) j -= TR;
+#pragma unroll
+            for (int ch = 0; ch < C; ++ch) wc[ch] += (double)s_ws[ch * TR + j];
+            wn += (double)s_ss[j];
+          }
+          float y[C], w[C + 2];
+#pragma unroll
+          for (int ch = 0; ch < C; ++ch) y[ch] = __double2float_rn(wc[ch]);
+          lokf_weights<C, I4>(y, __double2float_rn(wn),
+                              __double2float_rn((double)(hi - lo) * kf_coef),
+                              sc, rq, w);
+#pragma unroll
+          for (int ch = 0; ch < C + 2; ++ch) s_w[ch * P + u] = w[ch];
+        } else if constexpr (kWeights) {
           float wc[C];
 #pragma unroll
           for (int ch = 0; ch < C; ++ch) wc[ch] = 0.f;

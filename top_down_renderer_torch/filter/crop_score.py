@@ -89,6 +89,29 @@ float32 sums (and, in the theta search, where qinv enters; rel 1e-4),
 kf bit for bit.  The conv path's map (CropMap.compact) stays float32 either
 way, as the JAX conv field reads the unquantized map.
 
+The single-plane M (TDR_M_HILO=0, the JAX package's pallas_score.m_hilo()
+off).  The JAX kernel contracts its int8 map against M quantized per
+(variant, column) to int8: by default a hi and a lo plane (~16 bits of M,
+which the port's float M keeps); with a CropMap made with m_hilo=False (the
+filter's m_hilo, or TDR_M_HILO=0 when the filter is made with None) one
+plane, only the kf column keeping a lo residual in the structurally zero
+column KF_COL + 1 (the "lokf" scheme).  That is a different function (cost
+off by ~0.5 %), which the port computes as JAX does (quantize_lokf): each
+stencil cell's coefficient times the qinv of JAX's map quantization
+(m_qinv: int8_qinv for the float map, the code map's qinv) rounded to
+bf16, summed per pixel (exactly, in float64), the column's amax times (1 +
+2^-8) / 127 its scale s, the integers round(bf16(sum) / s) clipped to
++-127.  On the code map the table holds the e-dot identity's rows (Me -
+Mo/16 | Mo/16), whose integers come back as weights q_e + q_b on the even
+channel's code and 16 q_b on the odd one.  The theta search takes one B
+plane of those integers (two products a k16 step on the float map, the
+window times 1/qinv split into bf16 hi and lo; one on the codes) and
+scales each column in its epilogue (init_m_lokf's scales); the tracked
+kernel folds and rounds its weights per shift the same way, its scales
+(K, Th, 4) coming first from one launch of the scales kernel
+(tracked_scales).  Their entry points carry "_lokf" last; the plain
+versions take m_hilo=False and score the dequantized single-plane M.
+
 The crop-size buckets and the mip fallback are kept in the host dispatch
 (filter/filter.py) so that both packages score the same map at the same
 state; neither kernel needs a crop buffer.
@@ -142,6 +165,13 @@ def map_int4() -> bool:
     """TDR_MAP_INT4=1: a ParticleFilter made with map_int4=None scores the
     nibble-packed map (the JAX package's pallas_score.map_int4)."""
     return os.environ.get("TDR_MAP_INT4", "0") == "1"
+
+
+def m_hilo() -> bool:
+    """TDR_M_HILO (default 1): a ParticleFilter made with m_hilo=None
+    scores M's hi/lo pair, or with TDR_M_HILO=0 its single plane (the
+    JAX package's pallas_score.m_hilo)."""
+    return os.environ.get("TDR_M_HILO", "1") == "1"
 
 
 def pick_crop_size(
@@ -207,12 +237,39 @@ def crop_scores_raw(
     return torch.cat(nums), torch.cat(dens), torch.cat(kfs)
 
 
+def _uniform_lokf(packed_map, num_classes, stencil, center_px, f,
+                  map_resolution, qinv):
+    """A uniform map as the single-plane plain versions take it: (compact
+    (H*W, CP), table (1, 4), centres (N, 2), bucket (N,) zeros, the fold
+    of the offsets at f, qinv: int8_qinv of the map where None)."""
+    h, w = packed_map.shape[:2]
+    dev = packed_map.device
+    ctr = crop_centers(center_px, map_resolution).to(dev)
+    fold = fold_offsets(crop_offsets(stencil, f).to(dev)[None])
+    qinv = int8_qinv(packed_map) if qinv is None else qinv
+    return (compact_map(packed_map, num_classes).reshape(h * w, -1),
+            torch.tensor([[0, h, w, 0]], dtype=torch.int32, device=dev), ctr,
+            torch.zeros(ctr.shape[0], dtype=torch.int32, device=dev), fold,
+            qinv)
+
+
 def score_init_raw_plain(
     packed_map, num_classes, stencil, scan, class_weights, center_px, f,
     num_rot: int = 40, map_resolution: float = 1.0, chunk_size: int = 4096,
+    m_hilo: bool = True, qinv=None, int4: bool = False,
 ):
     """(nums (N, num_rot), dens (N, num_rot), kf (N,)) at the search
-    shifts: the parity surface of the theta-search flavour."""
+    shifts: the parity surface of the theta-search flavour.  m_hilo=False:
+    the single-plane M's (lokf_init_rows; qinv the map quantization's,
+    int8_qinv(packed_map) when None; int4: the code map's table, packed_map
+    then its dequantized codes)."""
+    if not m_hilo:
+        compact, table, ctr, bucket, fold, qinv = _uniform_lokf(
+            packed_map, num_classes, stencil, center_px, f, map_resolution,
+            qinv)
+        return lokf_init_rows(compact, table, ctr, bucket, fold, scan,
+                              class_weights, num_rot, qinv, int4,
+                              num_classes, chunk_size)
     ssh = search_shifts(scan.shape[1], num_rot, scan.device)
     return crop_scores_raw(
         packed_map, num_classes, stencil, scan, class_weights, center_px,
@@ -234,9 +291,20 @@ def select_best(
 def score_tracked_plain(
     packed_map, num_classes, stencil, scan, class_weights, center_px,
     theta, f, map_resolution: float = 1.0, chunk_size: int = 4096,
+    m_hilo: bool = True, qinv=None, int4: bool = False,
 ):
-    """Plain version of the tracked flavour: (cost, norm, kf) (N,)."""
+    """Plain version of the tracked flavour: (cost, norm, kf) (N,).
+    m_hilo=False: the single-plane M's (lokf_tracked_scores; qinv and int4
+    as score_init_raw_plain's)."""
     th = scan.shape[1]
+    if not m_hilo:
+        compact, table, ctr, bucket, fold, qinv = _uniform_lokf(
+            packed_map, num_classes, stencil, center_px, f, map_resolution,
+            qinv)
+        return lokf_tracked_scores(
+            compact, table, ctr, bucket, rotation_shift(theta, th).to(
+                ctr.device), fold, scan, class_weights, qinv, int4,
+            num_classes, chunk_size)
     nums, dens, kf = crop_scores_raw(
         packed_map, num_classes, stencil, scan, class_weights, center_px,
         f, torch.arange(th, device=scan.device), map_resolution,
@@ -249,11 +317,12 @@ def score_tracked_plain(
 def score_init_sel_plain(
     packed_map, num_classes, stencil, scan, class_weights, center_px, f,
     num_rot: int = 40, map_resolution: float = 1.0, chunk_size: int = 4096,
+    m_hilo: bool = True, qinv=None, int4: bool = False,
 ):
     """Plain version of the theta-search flavour: (best_cost, k, kf)."""
     nums, dens, kf = score_init_raw_plain(
         packed_map, num_classes, stencil, scan, class_weights, center_px,
-        f, num_rot, map_resolution, chunk_size,
+        f, num_rot, map_resolution, chunk_size, m_hilo, qinv, int4,
     )
     best, k = select_best(nums, dens, kf)
     return best, k, kf
@@ -339,6 +408,7 @@ def score_tracked(
         return score_tracked_plain(
             maps.plain(num_classes).packed, num_classes, stencil, scan,
             class_weights, center_px, theta, f, map_resolution,
+            **maps.plain_m(),
         )
     _, fold, ctr, shift = _tracked_inputs(
         maps, num_classes, stencil, scan, class_weights, center_px, theta,
@@ -415,9 +485,11 @@ def check_map_operand(int4: bool, operand, qinv, num_classes: int) -> None:
 
 def entry_name(base: str, maps, raw: bool = False) -> str:
     """The crop entry point `base` takes for maps (a CropMap or
-    PyramidMaps): "<base>[_raw][_i4]", "_i4" on a nibble-packed map; its
+    PyramidMaps): "<base>[_raw][_i4][_lokf]", "_i4" on a nibble-packed
+    map, "_lokf" with the single-plane M (maps.m_hilo False); its
     kernels.LAUNCHES key and, as tdr_<name>, its C entry."""
-    return base + "_raw" * raw + "_i4" * maps.int4
+    return base + "_raw" * raw + "_i4" * maps.int4 + "_lokf" * (
+        not maps.m_hilo)
 
 
 def map_operand(maps, num_classes: int):
@@ -427,6 +499,9 @@ def map_operand(maps, num_classes: int):
     operand = maps.operand(num_classes)
     qinv = maps.qinv if maps.int4 else None
     check_map_operand(maps.int4, operand, qinv, num_classes)
+    if not maps.m_hilo:
+        _require(maps.m_qinv, "m_qinv", (C_PAD,), torch.float32,
+                 operand.device, contiguous=True)
     return operand, qinv
 
 
@@ -436,7 +511,10 @@ def launch_tracked(base: str, maps, table, h: int, w: int, num_classes: int,
     the tracked kernel entry_name(base, maps) over maps' operand
     (map_operand: the compact map, or the code map with its qinv; table:
     the K buckets' levels, or None at a uniform scale) with the K offset
-    tables' fold (fold_pixels).  Returns (cost, norm, kf) (N,)."""
+    tables' fold (fold_pixels).  With the single-plane M (maps.m_hilo
+    False) the kernel takes maps.m_qinv and the scales of every (bucket,
+    shift) (tracked_scales, one launch before it).  Returns (cost, norm,
+    kf) (N,)."""
     name = entry_name(base, maps)
     operand, qinv = map_operand(maps, num_classes)
     th, r = scan.shape[1:]
@@ -448,8 +526,14 @@ def launch_tracked(base: str, maps, table, h: int, w: int, num_classes: int,
         inv_tr = float(np.float32(1.0) / np.float32(th * r))
         # kept alive until the asynchronous launch has read them
         scan, class_weights = scan.contiguous(), class_weights.contiguous()
-        head = (ptr(operand),) if qinv is None else (ptr(operand),
-                                                     ptr(qinv))
+        if not maps.m_hilo:  # the M qinv and the scales of every shift
+            scales = tracked_scales(scan, class_weights, maps.m_qinv, fold,
+                                    num_classes, maps.int4)
+            head = (ptr(operand), ptr(maps.m_qinv), ptr(scales))
+        elif qinv is None:
+            head = (ptr(operand),)
+        else:
+            head = (ptr(operand), ptr(qinv))
         if table is None:
             head += (h, w)
         else:
@@ -464,6 +548,31 @@ def launch_tracked(base: str, maps, table, h: int, w: int, num_classes: int,
     return out[:, 0], out[:, 1], out[:, 2]
 
 
+def tracked_scales(scan, class_weights, qinv, fold, num_classes: int,
+                   int4: bool) -> torch.Tensor:
+    """(K, Th, 4) float32: the single-plane tracked weights' scales of
+    every (bucket, shift) (tracked_lokf's; qinv the map quantization's,
+    int4 the code map's table).  On the card one launch of the scales
+    kernel (csrc/crop_score.cu, counted as "crop_lokf_scales"; one block a
+    (shift, bucket), the tracked kernel's fold, float64 sums, a block max);
+    on the CPU tracked_lokf itself."""
+    pix, npix, order, seg = fold
+    c, th, r = scan.shape
+    if not kernels.on_card(scan.device, "scales pass"):
+        return tracked_lokf(tracked_weights(scan, class_weights, order, seg,
+                                            qinv), int4, c)[1]
+    k = npix.shape[0]
+    _require(qinv, "qinv", (C_PAD,), torch.float32, scan.device,
+             contiguous=True)
+    scan, class_weights = scan.contiguous(), class_weights.contiguous()
+    out = torch.empty((k, th, 4), dtype=torch.float32, device=scan.device)
+    kernels.launch("crop_score", "tdr_crop_lokf_scales", ptr(scan),
+                   ptr(class_weights), ptr(qinv), c, int(int4), ptr(npix),
+                   ptr(order), ptr(seg), k, th, r, pix.shape[1], ptr(out))
+    kernels.LAUNCHES["crop_lokf_scales"] += 1
+    return out
+
+
 def cell_slots(seg: torch.Tensor, n: int) -> torch.Tensor:
     """(n,) int64: the slot of each position of a CSR with segment starts
     seg, n = seg[-1] entries."""
@@ -471,14 +580,17 @@ def cell_slots(seg: torch.Tensor, n: int) -> torch.Tensor:
     return torch.searchsorted(seg.long(), pos, right=True) - 1
 
 
-def tracked_weights(scan, class_weights, order, seg):
+def tracked_weights(scan, class_weights, order, seg, qinv=None):
     """The tracked kernel's folded weights at every shift, in plain
     PyTorch: (K, Th, P, C + 2) float32 over fold_offsets' CSR (order, seg)
     of K offset tables.  w[b, s, u] holds, for pixel u of table b at shift
     s, the sums over the pixel's cells i of the weighted scan 0.01 w_c
     scan_c (C cost weights) and of its class sum (the norm weight) at scan
     cell (i + s R) mod Th R, and the count of those cells (the kf weight);
-    summed in float64, so that their order does not change the result."""
+    summed in float64, so that their order does not change the result.
+    With qinv (the single-plane M, tracked_lokf) each cell's value is first
+    multiplied by qinv of its channel (qinv[C] for the norm and the count)
+    and rounded to bf16, as the JAX package's M build rounds it."""
     c, th, r = scan.shape
     tr = th * r
     nslot = seg.shape[0] - 1
@@ -486,7 +598,11 @@ def tracked_weights(scan, class_weights, order, seg):
     dev = scan.device
     wscan = (scan * (0.01 * class_weights)[:, None, None]).reshape(c, tr)
     feat = torch.cat([wscan.T, class_sum(scan).reshape(tr, 1),
-                      torch.ones((tr, 1), device=dev)], 1).double()
+                      torch.ones((tr, 1), device=dev)], 1)
+    if qinv is not None:
+        mult = torch.cat([qinv[:c], qinv[c:c + 1].expand(2)])
+        feat = (feat * mult).to(torch.bfloat16)
+    feat = feat.double()
     slot = cell_slots(seg, order.shape[0])
     cell = order.long() % tr
     w = torch.zeros((th, nslot, c + 2), dtype=torch.float32, device=dev)
@@ -497,30 +613,24 @@ def tracked_weights(scan, class_weights, order, seg):
 
 
 def folded_scores(compact, table, ctr, pix, w, bucket, shift,
-                  num_classes: int):
+                  num_classes: int, inv_tr=None):
     """The tracked kernel's product in plain PyTorch: (cost, norm, kf)
     (N,).  Particle p in bucket b = bucket[p] at shift s = shift[p] reads
     its window a of b's distinct pixels, ctr[p] + pix[b], on the compact
     map (compact (pixels, CP); level b at table[b] = (pixel offset, H, W,
-    -), zero outside it) and weighs it with w[b, s] (tracked_weights):
-    cost = sum_u sum_{c<C} w[u, c] a[u, c], norm = sum_u w[u, C] a[u, C],
-    kf = sum_u w[u, C + 1] a[u, C] / (Th R), an exact count."""
+    -), zero outside it; pixel_windows) and weighs it with w[b, s]
+    (tracked_weights): cost = sum_u sum_{c<C} w[u, c] a[u, c], norm =
+    sum_u w[u, C] a[u, C], kf = sum_u w[u, C + 1] a[u, C] inv_tr, inv_tr
+    1 / (Th R) from the exact count of cells when None."""
     c = num_classes
-    b = bucket.long()
-    lv = table.long()[b]
-    base, h, wd = lv[:, 0:1], lv[:, 1:2], lv[:, 2:3]
-    iy = ctr[:, None, 0].long() + pix[b][..., 0]
-    ix = ctr[:, None, 1].long() + pix[b][..., 1]
-    valid = (iy >= 0) & (iy < h) & (ix >= 0) & (ix < wd)
-    lin = base + torch.minimum(iy.clamp(min=0), h - 1) * wd + torch.minimum(
-        ix.clamp(min=0), wd - 1)
-    a = torch.where(valid[..., None], compact[lin], 0.0)
-    ws = w[b, shift.long()]
-    tr = float(ws[0, :, c + 1].sum())
-    inv = float(np.float32(1.0) / np.float32(tr))
+    a = pixel_windows(compact, table, bucket, ctr, pix)
+    ws = w[bucket.long(), shift.long()]
+    if inv_tr is None:
+        tr = float(ws[0, :, c + 1].sum())
+        inv_tr = float(np.float32(1.0) / np.float32(tr))
     return ((a[..., :c] * ws[..., :c]).sum((1, 2)),
             (a[..., c] * ws[..., c]).sum(1),
-            (a[..., c] * ws[..., c + 1]).sum(1) * inv)
+            (a[..., c] * ws[..., c + 1]).sum(1) * inv_tr)
 
 
 # -- the theta-search kernel's operands ----------------------------------
@@ -595,16 +705,24 @@ class CropMap:
     quantizes its own packed map on first use (quantize_channels_int4, or
     `quantized`, its (bytes, qinv) made elsewhere: the pyramid's, from
     the full-resolution map) and keeps codes(num_classes) and
-    plain(num_classes); compact() stays the float32 map."""
+    plain(num_classes); compact() stays the float32 map.
+
+    m_hilo: the crop kernels' M, the hi/lo pair (True) or the single plane
+    (False; the module's docstring, the filter's m_hilo), whose integers
+    m_qinv decides: the code map's qinv, or int8_qinv of the float map
+    (made on first use from this map, or given: the pyramid's, from the
+    full-resolution map)."""
 
     def __init__(self, packed: torch.Tensor, int4: bool = False,
-                 quantized=None):
+                 quantized=None, m_hilo: bool = True, m_qinv=None):
         self.packed = packed
         self.int4 = bool(int4)
+        self.m_hilo = bool(m_hilo)
         self._compact = {}
         self._codes = {}
         self._plain = {}
         self._quantized = quantized  # (bytes (..., 4), qinv (8,))
+        self._m_qinv = m_qinv  # int8_qinv of the float map
         self._fold = None  # (stencil, f, fold)
 
     def compact(self, num_classes: int) -> torch.Tensor:
@@ -627,6 +745,24 @@ class CropMap:
     def qinv(self) -> torch.Tensor:
         """(8,) float32: code * qinv[ch] is channel ch's value."""
         return self.quantized()[1]
+
+    @property
+    def m_qinv(self) -> torch.Tensor:
+        """(8,) float32: the qinv the JAX package folds into M's rows for
+        this map, which decides the single-plane M's integers: the code
+        map's qinv, or int8_qinv of the float map, made once."""
+        if self.int4:
+            return self.qinv
+        if self._m_qinv is None:
+            self._m_qinv = int8_qinv(self.packed)
+        return self._m_qinv
+
+    def plain_m(self) -> dict:
+        """The M arguments of the plain versions for this map: m_hilo,
+        and for the single plane the qinv and table that decide it."""
+        if self.m_hilo:
+            return {}
+        return {"m_hilo": False, "qinv": self.m_qinv, "int4": self.int4}
 
     def codes(self, num_classes: int) -> torch.Tensor:
         """compact_codes of the map's bytes, made once."""
@@ -701,7 +837,7 @@ def fold_offsets(off: torch.Tensor):
             order.to(torch.int32), starts)
 
 
-def init_m(scan, class_weights, order, seg, num_rot: int = 40):
+def init_m(scan, class_weights, order, seg, num_rot: int = 40, qinv=None):
     """The theta search as a matrix: m (K, P*CP, M_COLS) float32 over the
     CSR (order, seg) of K offset tables' fold (fold_pixels; K = 1 at a
     uniform scale), whose pixels pix (K, P, 2) it multiplies.  Row q*CP +
@@ -711,7 +847,9 @@ def init_m(scan, class_weights, order, seg, num_rot: int = 40):
     (known channel).  So for a window w[q, ch] of the compact map at
     centre + pix[b, q]: (w @ m[b])[2k] = num(k), [2k + 1] = den(k),
     [KF_COL] * 1/(Th R) = kf.  The sums are taken in float64, so that
-    their order (index_add_ on the card) does not change the result."""
+    their order (index_add_ on the card) does not change the result.  With
+    qinv (init_m_lokf) each cell's coefficient is first multiplied by qinv
+    of its row's channel and rounded to bf16 (the JAX package's M build)."""
     c, th, r = scan.shape
     cp = channel_pad(c)
     tr = th * r
@@ -721,7 +859,12 @@ def init_m(scan, class_weights, order, seg, num_rot: int = 40):
     cost_sel, norm_sel = circulants_at_shifts(scan, class_weights, ssh)
     s = num_rot
     feat = torch.cat([cost_sel.reshape(tr, c * s), norm_sel,
-                      torch.ones((tr, 1), device=scan.device)], 1).double()
+                      torch.ones((tr, 1), device=scan.device)], 1)
+    if qinv is not None:
+        mult = torch.cat([qinv[:c].repeat_interleave(s),
+                          qinv[c:c + 1].expand(s + 1)])
+        feat = (feat * mult).to(torch.bfloat16)
+    feat = feat.double()
     acc = torch.zeros((k * cap, feat.shape[1]), dtype=torch.float64,
                       device=scan.device)
     acc.index_add_(0, cell_slots(seg, order.shape[0]),
@@ -760,6 +903,204 @@ def fold_qinv(m, qinv, num_classes: int):
     return out
 
 
+# -- the single-plane M (TDR_M_HILO=0) ------------------------------------
+LOKF_INFLATE = 1.0 + 2.0**-8  # amax's cover of the bf16 table rounding
+LOKF_LO = 254.0  # the kf residual's scale: s / 254
+
+
+def true_div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / d rounded as IEEE division (the JAX package's, and the
+    kernels' __fdiv_rn): PyTorch multiplies a CUDA tensor by the
+    reciprocal of a Python number, which can be one ulp off."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
+
+
+def int8_qinv(packed: torch.Tensor) -> torch.Tensor:
+    """(8,) float32: the qinv of the JAX package's quantize_channels (its
+    int8 crop map), per channel max |v| over the map, at least 1e-6, over
+    126; what JAX folds into M's rows for the float map, and so what
+    decides the single-plane M's integers."""
+    p32 = packed.to(torch.float32)
+    amax = torch.clamp(p32.reshape(-1, p32.shape[-1]).abs().amax(0),
+                       min=1e-6)
+    return true_div(amax, 126.0)
+
+
+def lokf_scale(amax: torch.Tensor) -> torch.Tensor:
+    """A column's scale from the amax of its float32 sums: max(amax (1 +
+    2^-8), 1e-30) / 127, in float32 as the JAX package's _run_kernel."""
+    return true_div(torch.clamp(amax * LOKF_INFLATE, min=1e-30), 127.0)
+
+
+def lokf_planes(y: torch.Tensor, int4: bool) -> torch.Tensor:
+    """The table entries JAX quantizes for per-pixel sums y (..., CP,
+    cols): y itself (1, ..., CP, cols) for the float map; for the code map
+    the e-dot identity's planes (2, ..., CP/2, cols), y_even - y_odd / 16
+    and y_odd / 16 (_build_base_t_i4)."""
+    if not int4:
+        return y[None]
+    odd = y[..., 1::2, :] / 16.0
+    return torch.stack([y[..., 0::2, :] - odd, odd])
+
+
+def quantize_lokf(y: torch.Tensor, int4: bool, kf_col: int):
+    """The single-plane quantization of per-pixel sums y (B..., P, CP,
+    cols), one scale a (B..., column) (the JAX package's _run_kernel with
+    lokf): (w (B..., P, CP, cols) float32, integer-valued, s (B..., cols)
+    float32).  Each column's scale is lokf_scale of the amax of its table
+    entries (lokf_planes) and its integers round(bf16(entry) / s) (half to
+    even) clipped to +-127; column kf_col + 1 (zero in y) takes the kf
+    column's residual bf16(entry) - q s in units of s / 254, its scale
+    s / 254.  The float map's integers are the weights of its channels;
+    the code map's come back as q_e + q_b on the even channel and 16 q_b
+    on the odd one (|w| <= 254 and 2,032, integers exact in bf16), so that
+    codes e, o give e q_e + (e + 16 o) q_b, JAX's product."""
+    shape = y.shape
+    y = y.reshape((-1,) + tuple(shape[-3:]))
+    t = lokf_planes(y, int4)  # (planes, B, P, CP or CP/2, cols)
+    s = lokf_scale(t.abs().amax(dim=(0, 2, 3)))  # (B, cols)
+    tb = t.to(torch.bfloat16).to(torch.float32)
+    q = torch.clamp(torch.round(tb / s[None, :, None, None]), -127.0, 127.0)
+    s_kf = s[None, :, None, None, kf_col]
+    s_lo = true_div(s[:, kf_col], LOKF_LO)
+    res = tb[..., kf_col] - q[..., kf_col] * s_kf
+    q[..., kf_col + 1] = torch.clamp(
+        torch.round(res / s_lo[None, :, None, None]), -127.0, 127.0)
+    s = s.clone()
+    s[:, kf_col + 1] = s_lo
+    if int4:
+        q = torch.stack([q[0] + q[1], 16.0 * q[1]], -2).flatten(-3, -2)
+    else:
+        q = q[0]
+    return q.reshape(shape), s.reshape(tuple(shape[:-3]) + (shape[-1],))
+
+
+def init_m_lokf(scan, class_weights, order, seg, num_rot: int, qinv,
+                int4: bool):
+    """The theta search's single-plane M over the CSR (order, seg) of K
+    offset tables' fold: (w (K, P*CP, M_COLS) integers, scales (K, M_COLS)),
+    init_m's layout and sums (the cells' coefficients times qinv in bf16,
+    init_m with qinv) quantized by quantize_lokf, the kf residual in column
+    KF_COL + 1.  w[b] * scales[b] / qinv[row channel] is the dequantized M
+    the plain version scores."""
+    y = init_m(scan, class_weights, order, seg, num_rot, qinv=qinv)
+    k, rows, cols = y.shape
+    cp = channel_pad(scan.shape[0])
+    w, s = quantize_lokf(y.view(k, rows // cp, cp, cols), int4, KF_COL)
+    return w.view(k, rows, cols), s
+
+
+def tracked_lokf(y, int4: bool, num_classes: int):
+    """The tracked kernel's single-plane weights from tracked_weights(...,
+    qinv)'s sums y (K, Th, P, C + 2): (w (K, Th, P, C + 3) integers: the C
+    cost weights, the norm weight, the kf weight and its residual's; scales
+    (K, Th, 4) float32 of the same four columns).  Each (bucket, shift) is
+    one JAX column group: the cost weights of the C classes share one scale
+    (the amax over the pixels and classes), the norm weight another, the kf
+    weight a third, its residual s_kf / 254 the fourth.  The code map's cost
+    weights are q_e + q_b and 16 q_b by channel parity; its norm and kf
+    weights sit on the known channel alone (on an odd known channel the
+    partner's q_e = -q_b cancel exactly)."""
+    c = num_classes
+    cp = channel_pad(c)
+    z = y.new_zeros(tuple(y.shape[:-1]) + (cp, 4))
+    z[..., :c, 0] = y[..., :c]
+    z[..., c, 1] = y[..., c]
+    z[..., c, 2] = y[..., c + 1]
+    w, s = quantize_lokf(z, int4, 2)
+    return torch.cat([w[..., :c, 0], w[..., c, 1:]], -1), s
+
+
+def tracked_lokf_weights(w, s, rq, num_classes: int):
+    """The dequantized weights (K, Th, P, C + 2) of tracked_lokf's (w
+    (K, Th, P, C + 3), s (K, Th, 4)) for a map whose values are v: cost
+    (w_c s_cost) rq[c], norm (w s_norm) rq[C], kf (q s_kf + q_lo s_lo)
+    rq[C], in float32 in this order, as the tracked kernel computes them
+    (rq = 1 / qinv on the float map; ones on the code map, whose kernel
+    weighs the codes themselves)."""
+    c = num_classes
+    sx = s[..., None, :]
+    cost = w[..., :c] * sx[..., 0:1] * rq[:c]
+    norm = w[..., c] * sx[..., 1] * rq[c]
+    kf = (w[..., c + 1] * sx[..., 2] + w[..., c + 2] * sx[..., 3]) * rq[c]
+    return torch.cat([cost, norm[..., None], kf[..., None]], -1)
+
+
+def pixel_windows(flat, table, bucket, ctr, pix):
+    """(n, P, CP): particle p's window of its bucket's distinct pixels
+    ctr[p] + pix[bucket[p]] on the flat compact map (pixels, CP), level
+    b at table[b] = (pixel offset, H, W, -), zero outside it."""
+    b = bucket.long()
+    lv = table.long()[b]
+    base, h, wd = lv[:, 0:1], lv[:, 1:2], lv[:, 2:3]
+    pb = pix.long()[b]
+    iy = ctr[:, None, 0].long() + pb[..., 0]
+    ix = ctr[:, None, 1].long() + pb[..., 1]
+    valid = (iy >= 0) & (iy < h) & (ix >= 0) & (ix < wd)
+    lin = base + torch.minimum(iy.clamp(min=0), h - 1) * wd + torch.minimum(
+        ix.clamp(min=0), wd - 1)
+    return torch.where(valid[..., None], flat[lin], 0.0)
+
+
+def lokf_tracked_scores(compact, table, ctr, bucket, shift, fold, scan,
+                        class_weights, qinv, int4: bool, num_classes: int,
+                        chunk_size: int = 4096):
+    """The single-plane tracked flavour in plain PyTorch: (cost, norm, kf)
+    (N,) of the windows on compact (pixels, CP) (levels `table`, particle
+    p in bucket[p] at shift[p], centres ctr) weighed by the dequantized
+    single-plane weights (tracked_weights with qinv, tracked_lokf,
+    tracked_lokf_weights with rq = 1 / qinv); kf the sum times f32(1 /
+    (Th R)).  For the code map, compact holds the dequantized codes."""
+    c = num_classes
+    pix, _, order, seg = fold
+    th, r = scan.shape[1:]
+    w, s = tracked_lokf(tracked_weights(scan, class_weights, order, seg,
+                                        qinv), int4, c)
+    ws = tracked_lokf_weights(w, s, 1.0 / qinv, c)
+    inv_tr = float(np.float32(1.0) / np.float32(th * r))
+    out = []
+    for lo in range(0, ctr.shape[0], chunk_size):
+        sl = slice(lo, lo + chunk_size)
+        out.append(torch.stack(folded_scores(
+            compact, table, ctr[sl], pix, ws, bucket[sl], shift[sl], c,
+            inv_tr), 1))
+    if not out:
+        z = torch.zeros(0, device=ctr.device)
+        return z, z, z
+    out = torch.cat(out)
+    return out[:, 0], out[:, 1], out[:, 2]
+
+
+def lokf_init_rows(compact, table, ctr, bucket, fold, scan, class_weights,
+                   num_rot: int, qinv, int4: bool, num_classes: int,
+                   chunk_size: int = 4096):
+    """The single-plane theta search's raw rows in plain PyTorch: (nums,
+    dens (N, num_rot), kf (N,)), each particle's window on compact
+    (pixels, CP) (pixel_windows) times its bucket's dequantized M in
+    float64: init_m_lokf's (w s[col]) / qinv[row channel] (rq = 1 / qinv
+    in float32); kf the sum of columns KF_COL and KF_COL + 1 times f32(1 /
+    (Th R))."""
+    pix, _, order, seg = fold
+    th, r = scan.shape[1:]
+    w, s = init_m_lokf(scan, class_weights, order, seg, num_rot, qinv, int4)
+    cp = channel_pad(num_classes)
+    rq = (1.0 / qinv[:cp]).repeat(w.shape[1] // cp)
+    m = ((w * s[:, None, :]) * rq[None, :, None]).double()
+    acc = torch.zeros((ctr.shape[0], M_COLS), dtype=torch.float64,
+                      device=ctr.device)
+    for b in range(m.shape[0]):
+        rows = torch.nonzero(bucket == b)[:, 0]
+        for lo in range(0, rows.shape[0], chunk_size):
+            sl = rows[lo : lo + chunk_size]
+            a = pixel_windows(compact, table, bucket[sl], ctr[sl], pix)
+            acc[sl] = a.reshape(a.shape[0], -1).double() @ m[b]
+    acc = acc.float()
+    inv_tr = float(np.float32(1.0) / np.float32(th * r))
+    s2 = 2 * num_rot
+    return (acc[:, 0:s2:2], acc[:, 1:s2:2],
+            (acc[:, KF_COL] + acc[:, KF_COL + 1]) * inv_tr)
+
+
 def code_chunk_order() -> torch.Tensor:
     """(K_CHUNK,) int64: the rows of a chunk of M (pixel * CP + channel) in
     the order the code map's theta search takes them.  Fragment column c =
@@ -772,14 +1113,16 @@ def code_chunk_order() -> torch.Tensor:
     return torch.as_tensor(8 * t + 2 * (2 * ks + hf) + e)
 
 
-def init_operands(pix, npix, m, chunk_order=None):
+def init_operands(pix, npix, m, chunk_order=None, planes: int = 2):
     """M as the init kernel streams it: (records (K, chunks, words) int16,
     nchunk (K,) int64).  A record is one chunk of K_CHUNK rows of M: its
     bf16 hi plane, its lo plane (each in wgmma's K-major core-matrix
     order: 8 columns x 8 rows blocks of 128 bytes, N-block fastest), then
     the int32 (dy, dx) of its K_CHUNK / CP pixels.  nchunk[b] counts the
     chunks that hold bucket b's npix[b] pixels.  chunk_order
-    (code_chunk_order) permutes each chunk's rows for the code map."""
+    (code_chunk_order) permutes each chunk's rows for the code map.
+    planes=1: one plane, bf16(m) (the single-plane M's integers, exact),
+    then the pixels."""
     k, rows, ncol = m.shape
     cp = rows // pix.shape[1]
     nch = rows // K_CHUNK
@@ -791,10 +1134,10 @@ def init_operands(pix, npix, m, chunk_order=None):
         x = x.view(k, nch, K_CHUNK // 8, 8, ncol // 8, 8)
         return x.permute(0, 1, 2, 4, 5, 3).reshape(k, nch, -1)
 
-    hi, lo = split_bf16(m)
+    parts = split_bf16(m) if planes == 2 else (m.to(torch.bfloat16),)
     pixels = pix.reshape(k, nch, -1).view(torch.int16)
-    rec = torch.cat([plane(hi).view(torch.int16), plane(lo).view(torch.int16),
-                     pixels], 2).contiguous()
+    rec = torch.cat([plane(x).view(torch.int16) for x in parts] + [pixels],
+                    2).contiguous()
     return rec, (npix.long() * cp + K_CHUNK - 1) // K_CHUNK
 
 
@@ -810,12 +1153,21 @@ def init_schedule(row_start: torch.Tensor, nchunk: torch.Tensor):
 
 
 def init_records(scan, class_weights, fold, row_start, num_rot: int,
-                 qinv=None):
+                 qinv=None, m_hilo: bool = True, int4: bool = False):
     """The theta search's M build: (records, schedule) of init_operands and
     init_schedule, M built by init_m over the K offset tables' fold
     (fold_pixels) for the buckets that start at row_start; with qinv, the
-    code map's M (fold_qinv, code_chunk_order)."""
+    code map's M (fold_qinv, code_chunk_order).  m_hilo=False: the
+    single-plane M (init_m_lokf; qinv the map quantization's, int4 the code
+    map's table, its chunks' rows in code_chunk_order), one plane a record,
+    and its column scales (K, M_COLS) third."""
     pix, npix, order, seg = fold
+    if not m_hilo:
+        w, scales = init_m_lokf(scan, class_weights, order, seg, num_rot,
+                                qinv, int4)
+        rec, nchunk = init_operands(
+            pix, npix, w, code_chunk_order() if int4 else None, planes=1)
+        return rec, init_schedule(row_start, nchunk), scales.contiguous()
     m = init_m(scan, class_weights, order, seg, num_rot)
     chunk_order = None
     if qinv is not None:
@@ -826,22 +1178,44 @@ def init_records(scan, class_weights, fold, row_start, num_rot: int,
     return rec, init_schedule(row_start, nchunk)
 
 
-def init_args(operand, table, h: int, w: int, num_classes: int, rec, sched,
-              ctr, perm, num_rot: int, inv_tr: float, out,
-              qinv=None) -> tuple:
+def record_args(maps) -> dict:
+    """init_records' M arguments for maps: the code map's qinv (or None)
+    for the hi/lo M, the map quantization's qinv and the table for the
+    single-plane one."""
+    if maps.m_hilo:
+        return {"qinv": maps.qinv if maps.int4 else None}
+    return {"qinv": maps.m_qinv, "m_hilo": False, "int4": maps.int4}
+
+
+def map_head(maps, num_classes: int) -> tuple:
+    """The theta-search entry's arguments between the map operand and H
+    (or the table): the known code of a code map (hi/lo M), qinv of a
+    float map with the single-plane M (its window is scaled by 1 / qinv),
+    else none."""
+    if maps.int4 and maps.m_hilo:
+        return (ctypes.c_float(known_code(num_classes)),)
+    if not maps.int4 and not maps.m_hilo:
+        return (ptr(maps.m_qinv),)
+    return ()
+
+
+def init_args(operand, head: tuple, table, h: int, w: int, num_classes: int,
+              rec, sched, ctr, perm, num_rot: int, inv_tr: float, out,
+              scales=None) -> tuple:
     """The theta-search entry points' arguments before the stream:
     tdr_crop_score_init's (table None) or tdr_crop_score_multi_init's over
-    the map operand, and with qinv (a code map) their "_i4" twins',
-    known_code after the map."""
+    the map operand, `head` (map_head) after it, and with scales (the
+    single-plane M's) the "_lokf" twins', the scales after the records."""
     cp = channel_pad(num_classes)
-    args = (ptr(operand),)
-    if qinv is not None:
-        args += (ctypes.c_float(known_code(num_classes)),)
+    args = (ptr(operand),) + head
     if table is None:
         args += (h, w, cp)
     else:
         args += (ptr(table), table.shape[0], cp)
-    args += (ptr(rec), ptr(sched), rec.shape[1])
+    args += (ptr(rec),)
+    if scales is not None:
+        args += (ptr(scales),)
+    args += (ptr(sched), rec.shape[1])
     if perm is not None:
         args += (ptr(perm),)
     return args + (ptr(ctr), ctr.shape[0], num_rot, ctypes.c_float(inv_tr),
@@ -875,7 +1249,7 @@ def init_rows(launch, inputs: tuple, raw: bool, records=None):
     ablation's (probes/crop_ablate.py) share it."""
     (maps, table, h, w, num_classes, scan, class_weights, fold, ctr, perm,
      row_start, num_rot) = inputs
-    operand, qinv = map_operand(maps, num_classes)
+    operand, _ = map_operand(maps, num_classes)
     th, r = scan.shape[1:]
     n = ctr.shape[0]
     width = 2 * num_rot + 1 if raw else 3
@@ -884,9 +1258,10 @@ def init_rows(launch, inputs: tuple, raw: bool, records=None):
     if n:
         if records is None:
             records = init_records(scan, class_weights, fold, row_start,
-                                   num_rot, qinv)
-        launch(init_args(operand, table, h, w, num_classes, *records, ctr,
-                         perm, num_rot, inv_tr, out, qinv))
+                                   num_rot, **record_args(maps))
+        launch(init_args(operand, map_head(maps, num_classes), table, h, w,
+                         num_classes, *records[:2], ctr, perm, num_rot,
+                         inv_tr, out, *records[2:]))
     if raw:
         s = 2 * num_rot
         return out[:, 0:s:2], out[:, 1:s:2], out[:, s] * inv_tr
@@ -927,6 +1302,7 @@ def score_init_sel(
         return score_init_sel_plain(
             maps.plain(num_classes).packed, num_classes, stencil, scan,
             class_weights, center_px, f, num_rot, map_resolution,
+            **maps.plain_m(),
         )
     return launch_init("crop_score_init", init_inputs(
         maps, num_classes, stencil, scan, class_weights, center_px, f,
@@ -948,6 +1324,7 @@ def score_init_raw(
         return score_init_raw_plain(
             maps.plain(num_classes).packed, num_classes, stencil, scan,
             class_weights, center_px, f, num_rot, map_resolution,
+            **maps.plain_m(),
         )
     return launch_init("crop_score_init", init_inputs(
         maps, num_classes, stencil, scan, class_weights, center_px, f,

@@ -485,6 +485,13 @@ class ParticleFilter:
     resolution), not the plan; the conv path reads the float32 map
     either way.
 
+    m_hilo: the crop kernels' M, the hi/lo pair (True, the default) or
+    the single plane (False; crop_score's docstring), or what TDR_M_HILO
+    says when the filter is made (None; crop_score.m_hilo, read once).
+    Like map_int4 it changes what every crop step scores (each of its
+    maps carries it, and the crop kernels run their "_lokf" entries), not
+    the plan.
+
     mesh: a 1-D DeviceMesh (parallel.sharding.make_mesh) shards the
     particle axis over the ranks of the process group, one process per
     rank: each rank builds the same filter and calls the same methods in
@@ -512,12 +519,14 @@ class ParticleFilter:
         device=None,
         mesh=None,
         map_int4: Optional[bool] = None,
+        m_hilo: Optional[bool] = None,
     ):
         chunk_size = min(chunk_size, n_max)
         n_max = -(-n_max // chunk_size) * chunk_size
         self.mesh = mesh
         self.map_int4 = (crop_score.map_int4() if map_int4 is None
                          else bool(map_int4))
+        self.m_hilo = crop_score.m_hilo() if m_hilo is None else bool(m_hilo)
         if mesh is not None:
             # a mesh-size multiple too, so that the rows shard evenly
             n_max = -(-n_max // mesh.size()) * mesh.size()
@@ -948,7 +957,8 @@ class ParticleFilter:
         key = (self._map_version, tuple(levels))
         if key not in self._pyramid_cache:
             self._pyramid_cache[key] = ms.build_pyramid_maps(
-                self.map.grid.dist.to(self.device), levels, self.map_int4
+                self.map.grid.dist.to(self.device), levels, self.map_int4,
+                self.m_hilo,
             )
         return self._pyramid_cache[key]
 
@@ -969,13 +979,14 @@ class ParticleFilter:
 
     def _get_map(self, mip: int) -> crop_score.CropMap:
         """The packed map at this mip level with its compact copy (and its
-        codes, quantized from this level, where map_int4), per map
+        codes, quantized from this level, where map_int4; the single-plane
+        M's qinv from this level too, where not m_hilo), per map
         version."""
         key = (self._map_version, mip)
         if key not in self._maps_cache:
             self._maps_cache[key] = crop_score.CropMap(crop_score.mip_map(
                 self.map.grid.dist.to(self.device), mip
-            ), self.map_int4)
+            ), self.map_int4, m_hilo=self.m_hilo)
         return self._maps_cache[key]
 
     def _get_conv_map(self) -> conv_score.ConvMap:

@@ -202,11 +202,13 @@ class PyramidMaps(cs.CropMap):
     in `flat` (P, 8); `levels[l]` = (pixel offset, H, W) of level l.
     compact(num_classes) (P, CP), or codes(num_classes) (P, CP/2) where
     int4, is both kernels' operand; `quantized` (bytes (P, 4), qinv) is
-    build_pyramid_maps' quantization of the full-resolution map."""
+    build_pyramid_maps' quantization of the full-resolution map, and
+    m_qinv (the single-plane M, m_hilo False) its int8_qinv or its codes'
+    qinv."""
 
     def __init__(self, flat: torch.Tensor, mips, levels, int4: bool = False,
-                 quantized=None):
-        super().__init__(flat, int4, quantized)
+                 quantized=None, m_hilo: bool = True, m_qinv=None):
+        super().__init__(flat, int4, quantized, m_hilo, m_qinv)
         self.mips = tuple(mips)
         self.levels = tuple(levels)
         self._tables = {}
@@ -215,6 +217,13 @@ class PyramidMaps(cs.CropMap):
         if self.int4 and self._quantized is None:
             raise ValueError("a pyramid's codes come from build_pyramid_maps")
         return super().quantized()
+
+    @property
+    def m_qinv(self) -> torch.Tensor:
+        if not self.int4 and self._m_qinv is None:
+            raise ValueError("a pyramid's int8 qinv comes from "
+                             "build_pyramid_maps(..., m_hilo=False)")
+        return super().m_qinv
 
     def plain(self, num_classes: int) -> "PyramidMaps":
         """The pyramid the plain versions score: this one, or a float32
@@ -236,13 +245,15 @@ class PyramidMaps(cs.CropMap):
     def level_crop_map(self, l: int) -> cs.CropMap:
         """Level l as a uniform CropMap: its packed view and, where int4,
         the pyramid's codes of it with the pyramid's one qinv (not the
-        level quantized anew, as crop_score.CropMap would)."""
+        level quantized anew, as crop_score.CropMap would), and its M
+        configuration (the pyramid's m_qinv)."""
         off, h, w = self.levels[l]
         quantized = None
         if self.int4:
             byte, qinv = self.quantized()
             quantized = (byte[off : off + h * w].view(h, w, -1), qinv)
-        return cs.CropMap(self.level_map(l), self.int4, quantized)
+        return cs.CropMap(self.level_map(l), self.int4, quantized,
+                          self.m_hilo, self._m_qinv)
 
     def bucket_tables(self, bucket_level: Sequence[int]):
         """(mips (K,) float32, table (K, 4) int32 of (pixel offset, H, W,
@@ -259,12 +270,14 @@ class PyramidMaps(cs.CropMap):
         return self._tables[key]
 
 
-def build_pyramid_maps(packed: torch.Tensor, mips,
-                       int4: bool = False) -> PyramidMaps:
+def build_pyramid_maps(packed: torch.Tensor, mips, int4: bool = False,
+                       m_hilo: bool = True) -> PyramidMaps:
     """(H, W, 8) float32 packed map -> its pyramid over `mips`.  int4: the
     nibble-packed pyramid, whose levels subsample the codes of the
     full-resolution map, quantized once
-    (crop_score.quantize_channels_int4), with its one qinv."""
+    (crop_score.quantize_channels_int4), with its one qinv.  m_hilo=False:
+    the single-plane M, decided on the float map by the full-resolution
+    map's int8_qinv, as the JAX pyramid quantizes it once."""
     full = cs.quantize_channels_int4(packed) if int4 else None
     parts, codes, levels, off = [], [], [], 0
     for m in mips:
@@ -276,8 +289,9 @@ def build_pyramid_maps(packed: torch.Tensor, mips,
         levels.append((off, h, w))
         off += h * w
     quantized = (torch.cat(codes).contiguous(), full[1]) if int4 else None
+    m_qinv = None if m_hilo or int4 else cs.int8_qinv(packed)
     return PyramidMaps(torch.cat(parts).contiguous(), mips, levels, int4,
-                       quantized)
+                       quantized, m_hilo, m_qinv)
 
 
 def assign_buckets(scale: torch.Tensor, slot_vals: torch.Tensor) -> torch.Tensor:
@@ -372,13 +386,37 @@ def multi_scores_raw(
     return torch.cat(nums), torch.cat(dens), torch.cat(kfs)
 
 
+def _lokf_inputs(pyr, num_classes, stencil, center_px, scale, slot_vals,
+                 bucket_level, res, map_resolution, qinv):
+    """The pyramid as the single-plane plain versions take it: (compact
+    (P, CP), table, centres, bucket, the fold of the K offset tables,
+    qinv: pyr.m_qinv when None)."""
+    bucket, off, ctr, table = _prepare(
+        pyr, stencil, center_px, scale, slot_vals, bucket_level, res,
+        map_resolution,
+    )
+    return (cs.compact_map(pyr.flat, num_classes), table, ctr, bucket,
+            cs.fold_offsets(off), pyr.m_qinv if qinv is None else qinv)
+
+
 def score_init_multi_raw_plain(
     pyr, num_classes, stencil, scan, class_weights, center_px, scale,
     slot_vals, bucket_level, res, num_rot: int = 40,
-    map_resolution: float = 1.0,
+    map_resolution: float = 1.0, m_hilo: bool = True, qinv=None,
+    int4: bool = False,
 ):
     """(nums (N, num_rot), dens (N, num_rot), kf (N,)) at the search
-    shifts: the parity surface of the theta-search flavour."""
+    shifts: the parity surface of the theta-search flavour.  m_hilo=False:
+    the single-plane M's rows (crop_score.lokf_init_rows, one M a bucket;
+    qinv the map quantization's, pyr.m_qinv when None; int4 the code
+    map's table, pyr then its dequantized codes)."""
+    if not m_hilo:
+        compact, table, ctr, bucket, fold, qinv = _lokf_inputs(
+            pyr, num_classes, stencil, center_px, scale, slot_vals,
+            bucket_level, res, map_resolution, qinv)
+        return cs.lokf_init_rows(compact, table, ctr, bucket, fold, scan,
+                                 class_weights, num_rot, qinv, int4,
+                                 num_classes)
     ssh = search_shifts(scan.shape[1], num_rot, scan.device)
     return multi_scores_raw(
         pyr, num_classes, stencil, scan, class_weights, center_px, scale,
@@ -389,9 +427,20 @@ def score_init_multi_raw_plain(
 def score_tracked_multi_plain(
     pyr, num_classes, stencil, scan, class_weights, center_px, theta,
     scale, slot_vals, bucket_level, res, map_resolution: float = 1.0,
+    m_hilo: bool = True, qinv=None, int4: bool = False,
 ):
-    """Plain version of the tracked flavour: (cost, norm, kf) (N,)."""
+    """Plain version of the tracked flavour: (cost, norm, kf) (N,).
+    m_hilo=False: the single-plane weights' (crop_score.
+    lokf_tracked_scores; qinv and int4 as score_init_multi_raw_plain's)."""
     th = scan.shape[1]
+    if not m_hilo:
+        compact, table, ctr, bucket, fold, qinv = _lokf_inputs(
+            pyr, num_classes, stencil, center_px, scale, slot_vals,
+            bucket_level, res, map_resolution, qinv)
+        shift = rotation_shift(theta, th).to(ctr.device)
+        return cs.lokf_tracked_scores(compact, table, ctr, bucket, shift,
+                                      fold, scan, class_weights, qinv, int4,
+                                      num_classes)
     nums, dens, kf = multi_scores_raw(
         pyr, num_classes, stencil, scan, class_weights, center_px, scale,
         slot_vals, bucket_level, res, torch.arange(th, device=scan.device),
@@ -404,12 +453,14 @@ def score_tracked_multi_plain(
 def score_init_multi_sel_plain(
     pyr, num_classes, stencil, scan, class_weights, center_px, scale,
     slot_vals, bucket_level, res, num_rot: int = 40,
-    map_resolution: float = 1.0,
+    map_resolution: float = 1.0, m_hilo: bool = True, qinv=None,
+    int4: bool = False,
 ):
     """Plain version of the theta-search flavour: (best_cost, k, kf)."""
     nums, dens, kf = score_init_multi_raw_plain(
         pyr, num_classes, stencil, scan, class_weights, center_px, scale,
-        slot_vals, bucket_level, res, num_rot, map_resolution,
+        slot_vals, bucket_level, res, num_rot, map_resolution, m_hilo, qinv,
+        int4,
     )
     best, k = cs.select_best(nums, dens, kf)
     return best, k, kf
@@ -467,7 +518,7 @@ def score_tracked_multi(
         return score_tracked_multi_plain(
             pyr.plain(num_classes), num_classes, stencil, scan,
             class_weights, center_px, theta, scale, slot_vals, bucket_level,
-            res, map_resolution,
+            res, map_resolution, **pyr.plain_m(),
         )
     _, table, fold, ctr, key = _tracked_inputs(
         pyr, num_classes, stencil, scan, class_weights, center_px, theta,
@@ -507,7 +558,7 @@ def score_init_multi_sel(
         return score_init_multi_sel_plain(
             pyr.plain(num_classes), num_classes, stencil, scan,
             class_weights, center_px, scale, slot_vals, bucket_level, res,
-            num_rot, map_resolution,
+            num_rot, map_resolution, **pyr.plain_m(),
         )
     return cs.launch_init("crop_score_multi_init", init_inputs(
         pyr, num_classes, stencil, scan, class_weights, center_px, scale,
@@ -529,7 +580,7 @@ def score_init_multi_raw(
         return score_init_multi_raw_plain(
             pyr.plain(num_classes), num_classes, stencil, scan,
             class_weights, center_px, scale, slot_vals, bucket_level, res,
-            num_rot, map_resolution,
+            num_rot, map_resolution, **pyr.plain_m(),
         )
     return cs.launch_init("crop_score_multi_init", init_inputs(
         pyr, num_classes, stencil, scan, class_weights, center_px, scale,

@@ -59,6 +59,21 @@ LAUNCHES = {
     "crop_score_multi_tracked_i4": 0,
     "crop_score_multi_init_i4": 0,
     "crop_score_multi_init_raw_i4": 0,
+    # the same kernels with the single-plane M (TDR_M_HILO=0), float map
+    # and code map, and the tracked kernels' scales pass
+    "crop_score_tracked_lokf": 0,
+    "crop_score_init_lokf": 0,
+    "crop_score_init_raw_lokf": 0,
+    "crop_score_multi_tracked_lokf": 0,
+    "crop_score_multi_init_lokf": 0,
+    "crop_score_multi_init_raw_lokf": 0,
+    "crop_score_tracked_i4_lokf": 0,
+    "crop_score_init_i4_lokf": 0,
+    "crop_score_init_raw_i4_lokf": 0,
+    "crop_score_multi_tracked_i4_lokf": 0,
+    "crop_score_multi_init_i4_lokf": 0,
+    "crop_score_multi_init_raw_i4_lokf": 0,
+    "crop_lokf_scales": 0,
     "fill_rows": 0,
     "crop_ablate": 0,
     "crop_ablate_init": 0,
@@ -100,6 +115,29 @@ _SIGNATURES = {
             _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
             _P, _I, _F, _P, _P,
         ),
+        # the single-plane M: scan, class weights, qinv, C, I4, npix,
+        # order, seg, K, Th, R, P, scales out, stream
+        "tdr_crop_lokf_scales": (
+            _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P,
+        ),
+        # the map (or codes), qinv and the scales, then as the float entry
+        # points from H (table) on
+        "tdr_crop_score_tracked_lokf": (
+            _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
+            _P, _P, _I, _F, _P, _P,
+        ),
+        "tdr_crop_score_multi_tracked_lokf": (
+            _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
+            _P, _P, _I, _F, _P, _P,
+        ),
+        "tdr_crop_score_tracked_i4_lokf": (
+            _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
+            _P, _P, _I, _F, _P, _P,
+        ),
+        "tdr_crop_score_multi_tracked_i4_lokf": (
+            _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
+            _P, _P, _I, _F, _P, _P,
+        ),
     },
     "crop_score_init": {
         # compact map, H, W, CP, M records, sched, chunk_cap, centers, N,
@@ -133,6 +171,33 @@ _SIGNATURES = {
         ),
         "tdr_crop_score_multi_init_raw_i4": (
             _P, _F, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _F, _P, _P,
+        ),
+        # the single-plane M: the float map and its qinv (the code map
+        # alone), then as the hi/lo entry points from H (table) on, the
+        # column scales (K, 88) after the records
+        "tdr_crop_score_init_lokf": (
+            _P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _I, _I, _F, _P, _P,
+        ),
+        "tdr_crop_score_init_raw_lokf": (
+            _P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _I, _I, _F, _P, _P,
+        ),
+        "tdr_crop_score_multi_init_lokf": (
+            _P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I, _F, _P, _P,
+        ),
+        "tdr_crop_score_multi_init_raw_lokf": (
+            _P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I, _F, _P, _P,
+        ),
+        "tdr_crop_score_init_i4_lokf": (
+            _P, _I, _I, _I, _P, _P, _P, _I, _P, _I, _I, _F, _P, _P,
+        ),
+        "tdr_crop_score_init_raw_i4_lokf": (
+            _P, _I, _I, _I, _P, _P, _P, _I, _P, _I, _I, _F, _P, _P,
+        ),
+        "tdr_crop_score_multi_init_i4_lokf": (
+            _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I, _F, _P, _P,
+        ),
+        "tdr_crop_score_multi_init_raw_i4_lokf": (
+            _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I, _F, _P, _P,
         ),
     },
     "fill_rows": {

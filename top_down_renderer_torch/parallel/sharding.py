@@ -338,7 +338,11 @@ def make_sharded_step_multi(
     (score_init_multi_raw) and select_init_cost, as the reference's mesh
     step does.  step(state, pyr, map_size_scaled, stencil, scan, res,
     slot_vals, shift=None, generator=None); the dispatch applies the
-    pending propagate before it plans, so the step takes no motion."""
+    pending propagate before it plans, so the step takes no motion.  The
+    pyramid carries the filter's map configuration: with m_hilo=False
+    (TDR_M_HILO=0) the raw rows and the tracked scores are the single-plane
+    M's ("..._lokf" kernels), as the reference's mesh step passes
+    lokf=not m_hilo() to the same kernels."""
     if mode not in ("tracked", "init", "mixed"):
         raise ValueError(f"unknown crop mode {mode!r}")
     _local_rows(mesh, n_max)

@@ -123,9 +123,11 @@ def _variant(variant: str) -> None:
 
 
 def _float_map(maps) -> None:
-    """The ablations are built on the float32 map's bodies only."""
+    """The ablations are built on the float32 map's hi/lo bodies only."""
     if maps.int4:
         raise ValueError("the crop ablations take a float32 map (int4=False)")
+    if not maps.m_hilo:
+        raise ValueError("the crop ablations take the hi/lo M (m_hilo=True)")
 
 
 def crop_ablate(variant, maps, num_classes, stencil, scan, class_weights,
