@@ -19,7 +19,7 @@ Phases (any failure exits non-zero before the result line):
      (crop_init_i4_kernel) two thirds of its float twin's HGMMA, each
      single-plane twin (crop_init_lokf_kernel, TDR_M_HILO=0) two thirds
      of the hi/lo float kernel's on the float map and one third on the
-     codes;
+     codes; and the int8 mma.sync (IMMA) of the int8 conv field;
   B. the uniform crop kernels against their plain PyTorch versions on
      the same card tensors at the slice's shapes: 102,400 particles, a
      1024^2 map with 6 classes (8 packed channels), Th x R = 100 x 25,
@@ -52,6 +52,12 @@ Phases (any failure exits non-zero before the result line):
      cell count to ~1e-7, summed in two orders), the gate's patterns off
      the gate, the argmin on 99.9 %; the tracked kernels' scales pass
      bit for bit crop_score.tracked_lokf's scales;
+  B5. the int8 conv field's kernel (csrc/conv_field_i8.cu,
+     TDR_CONV_INT8=1) against its plain version on random 640^2 maps of 3
+     and 6 classes (CP 4, 8), windows W 16, 32, 64, regions 64-256, conv
+     buckets mo 12-48, origins inside the map and clamped to its edges:
+     the int32 sums and the field bit for bit, and twice on the same
+     inputs;
   C. the known-scale main path through the public entry points: the
      consumer drive (2,048 particles, 30 scans, must converge) and 20
      updates of 102,400 particles on a 1024^2 map from a spread init;
@@ -72,9 +78,14 @@ Phases (any failure exits non-zero before the result line):
      path's bit for bit on the same weights and shift;
   C4. the conv path: 20 known-scale updates of 102,400 particles on the
      clustered cloud of D (100 px, a 0.15 rad theta band), driving; each
-     must take the conv path (one cost field, no crop launch), and a
-     second run from the same state and generator seed must end in the
-     same state bit for bit;
+     must take the conv path (one cost field, no crop launch and no int8
+     field launch), and a second run from the same state and generator
+     seed must end in the same state bit for bit;
+  C7. C4 with the int8 conv field, the filter's conv_int8=True: each
+     conv-tracked update whose window the int8 field takes (2 W a
+     multiple of 32, under the s2d gate) launches conv_field_i8 once and
+     makes no cuDNN field, no crop kernel runs, the two runs end bit for
+     bit equal, and the mean likelihood is logged beside C4's;
   C5. the main path on the code map, the filter's map_int4=True: C's 20
      known-scale updates from a spread init, each planned crop update
      launching its code kernel (crop_score_tracked_i4 or
@@ -118,7 +129,13 @@ Phases (any failure exits non-zero before the result line):
      single-plane kernel (float and code) beside its hi/lo twin on the
      same cell (the theta searches' bound on two products a k16 step on
      the float map, one on the codes), with the scales pass on the
-     clustered cell's fold, held against its plain version as in B4;
+     clustered cell's fold, held against its plain version as in B4; and
+     on the clustered conv cell the int8 field (kernel under the profiler,
+     wrapper, plain, torch._int_mm on the block's im2col built outside the
+     timed window, the field by CUDA events beside cuDNN's float32 field),
+     its bound on the taps with a nonzero integer (int8 tensor cores, or
+     bytes) and on the dense taps, and the conv update under
+     conv_int8=True beside the float32 route's;
   M1. the multi-device filter (ParticleFilter(mesh=...)) on a world-1
      NCCL mesh on the card, 102,400 particles on the 1024^2 map: (a) ten
      unknown-scale updates standing (the K-bucket theta search through
@@ -292,6 +309,7 @@ from top_down_renderer_torch.maps.map import (  # noqa: E402
     class_maps_from_index_image,
 )
 from top_down_renderer_torch.maps.png import read_png_rgb  # noqa: E402
+from top_down_renderer_torch.maps.polar import polar_stencil  # noqa: E402
 from top_down_renderer_torch.runtime import run_node  # noqa: E402
 from top_down_renderer_torch.runtime.node import (  # noqa: E402
     TopDownRenderNode,
@@ -311,6 +329,7 @@ from util_synthetic import generate_scan_points, make_world  # noqa: E402
 CROP_SRC = "top_down_renderer_torch/csrc/crop_score.cu"
 INIT_SRC = "top_down_renderer_torch/csrc/crop_score_init.cu"
 FILL_SRC = "top_down_renderer_torch/csrc/fill_rows.cu"
+CONV_I8_SRC = "top_down_renderer_torch/csrc/conv_field_i8.cu"
 # the kernels' names in a profile, at the drive map's 3 classes (the two
 # theta searches are one kernel at CP = 4 channels, their raw-row epilogue
 # another, the two tracked kernels one at C = 3); a bool template argument
@@ -368,6 +387,9 @@ for _i4 in (False, True):
     })
 SYMBOLS["crop_lokf_scales"] = _lokf_symbols("crop_lokf_scales_kernel", 3,
                                             False)
+# the int8 conv field: its product, and where its chunks split over blocks
+# the partial sums' kernel
+SYMBOLS["conv_field_i8"] = ("conv_field_i8_kernel", "conv_field_i8_sum_kernel")
 # name -> (source, the TPU kernel it replaces)
 KERNELS = {
     # the tracked kernels' offset fold, launched by both tracked wrappers
@@ -407,6 +429,10 @@ KERNELS = {
     # pallas_call), which the tracked kernel's fold needs in advance
     "crop_lokf_scales": (
         CROP_SRC, "top_down_renderer_tpu/filter/pallas_score.py:1053"),
+    # the conv path's int8 cost field (TDR_CONV_INT8=1): an XLA contraction
+    # of the reference, not a Pallas kernel
+    "conv_field_i8": (
+        CONV_I8_SRC, "top_down_renderer_tpu/filter/conv_score.py:562"),
     # the probes (phase P): each replaces several TPU probe kernels, each
     # case of its line names its own
     "crop_ablate": ("top_down_renderer_torch/csrc/crop_ablate.cu",
@@ -441,6 +467,7 @@ LOKF_KF_TOL = 1e-6  # the single plane's kf: the count to ~1e-7 (B4)
 # on them, HBM
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 N = 102_400
 HW = 1024
@@ -479,9 +506,10 @@ def log_clocks(label: str) -> None:
         + smi("clocks.sm,clocks.max.sm,power.draw,temperature.gpu"))
 
 
-# the instructions each library's SASS must hold: wgmma (HGMMA) and the
-# TMA tensor load (UTMALDG)
+# the instructions each library's SASS must hold: wgmma (HGMMA), the
+# TMA tensor load (UTMALDG), the int8 mma.sync (IMMA)
 SASS_NEEDS = {"crop_score_init": ("HGMMA",),
+              "conv_field_i8": ("IMMA",),  # mma.sync s8
               "crop_ablate_init": ("HGMMA", "UBLKCP"),
               "probe_mm": ("HGMMA", "UTMALDG"),
               "probe_window": ("UTMALDG",)}
@@ -1226,6 +1254,68 @@ def phase_c5(dev, world):
           f"C5 standing: exact steps {exact}, launches {per.tolist()}")
 
 
+# B5's cases: classes (CP 4, 8), window W, conv bucket mo, region, and
+# the origin: inside the map, or clamped to its top-left ("low") or
+# bottom-right ("high") edge, where the tap columns past dc read off it
+B5_CASES = ((3, 16, 24, 128, None), (3, 32, 12, 64, "low"),
+            (3, 16, 36, 256, "high"), (6, 64, 24, 256, "high"),
+            (6, 32, 48, 192, None), (6, 16, 12, 64, "low"))
+B5_HW = 640
+
+
+def conv_i8_case(dev, c, ww, mo, region, edge, seed):
+    """A B5 case on the card: the int8 ConvMap of a random B5_HW^2 map of
+    c classes, the tracked conv kernel of a random scan at the bucket's f
+    (window [95, 95 + W)), quantized; and the block's origin."""
+    rng = np.random.default_rng(seed)
+    packed = np.zeros((B5_HW, B5_HW, 8), np.float32)
+    packed[..., :c] = rng.random((B5_HW, B5_HW, c)) * 50
+    packed[..., c] = rng.random((B5_HW, B5_HW)) < 0.9
+    cmap = conv_score.ConvMap(cs.compact_map(torch.as_tensor(
+        packed, device=dev), c), int8=True)
+    scan = torch.as_tensor((rng.random((c, 100, 25)) * 3).astype(
+        np.float32), device=dev)
+    cw = torch.as_tensor(rng.random(c).astype(np.float32) + 0.5, device=dev)
+    sten = torch.as_tensor(polar_stencil(100, 25), device=dev)
+    kernel = conv_score.build_conv_kernel(scan, cw, sten, mo / 24.0, mo,
+                                          "tracked", window_w=ww, s0=95)
+    dr, dc = conv_score.conv_dims(mo)
+    origin = {None: (300, 280), "low": (dr // 2, dc // 2),
+              "high": (cmap.hp - (region + dr - 1) + dr // 2,
+                       cmap.wp - (region + dc - 1) + dc // 2)}[edge]
+    return (cmap.codes, *conv_score.quantize_conv_kernel(kernel, cmap.qinv),
+            torch.tensor(origin, device=dev), mo, region)
+
+
+def phase_b5(dev, errs):
+    """The int8 conv field's kernel against its plain version on the card
+    (B5_CASES): the int32 sums and the field equal bit for bit, and a
+    second launch on the same inputs gives the same bits."""
+    for i, (c, ww, mo, region, edge) in enumerate(B5_CASES):
+        args = conv_i8_case(dev, c, ww, mo, region, edge, 20 + i)
+        field, sums = conv_score.cost_field_i8(*args, sums=True)
+        again, sums2 = conv_score.cost_field_i8(*args, sums=True)
+        ref, ref_sums = conv_score.cost_field_i8_plain(*args)
+        torch.cuda.synchronize()
+        label = (f"B5 C={c} W={ww} mo {mo} region {region} origin "
+                 f"{edge or 'inside'}")
+        check(torch.isfinite(field).all() and field.shape == (
+            2 * ww + 1, region, region), f"{label}: field {field.shape}")
+        check(torch.equal(sums, ref_sums),
+              f"{label}: int32 sums differ from the plain version's in "
+              f"{int((sums != ref_sums).sum())} places")
+        check(same_bits((field,), (ref,)),
+              f"{label}: the field differs from the plain version's by up "
+              f"to {float((field - ref).abs().max()):.3e}")
+        check(same_bits((field,), (again,)) and torch.equal(sums, sums2),
+              f"{label}: two launches differ")
+        errs["abs"]["conv_field_i8"] = max(
+            errs["abs"]["conv_field_i8"], float((field - ref).abs().max()))
+        log(f"[B5] {label} (CP {args[0].shape[2]}): int32 sums (largest "
+            f"|sum| {int(sums.abs().max())}) and field equal the plain "
+            "version's bit for bit, twice")
+
+
 def phase_c6(dev, world):
     """The main path with the single-plane M, the filter's m_hilo=False
     (TDR_M_HILO=0 through the argument): C's 20 known-scale updates from a
@@ -1320,29 +1410,76 @@ def clustered_state(dev):
                                        100))
 
 
-def phase_c4(dev, pf, world):
-    """The conv path: 20 driving updates from the clustered cloud, twice
-    from the same state and generator seed."""
+def clustered_runs(pf, world, dev, label, names):
+    """C4's runs: 20 driving updates from the clustered cloud, twice from
+    the same state and generator seed, every update on the conv path; the
+    two runs must end in the same state bit for bit.  Returns (the plans
+    and per-update launches of `names` plus the cuDNN fields of each run,
+    the last run's mean likelihood)."""
     start = clustered_state(dev)
-    finals = []
+    finals, runs = [], []
     for run in range(2):
         pf.state, pf._all_have_init = start, True
         pf.generator.manual_seed(7)
         with PlanLog() as plans:
-            per, ml = run_updates(pf, world, dev, 20, CROP)
+            per, ml = run_updates(pf, world, dev, 20, names)
         check(all(p.path == "conv" for p in plans),
-              f"C4: updates off the conv path: {[p.path for p in plans]}")
-        check_paths(f"C4 run {run}", plans, per[:, :-1].sum(1), per[:, -1])
+              f"{label}: updates off the conv path: {[p.path for p in plans]}")
+        runs.append((list(plans), per))
         finals.append(pf.state)
     a, b = (rs.pack_fields(st.particles) for st in finals)
     check(torch.equal(a.view(torch.int32), b.view(torch.int32))
           and torch.equal(finals[0].particles.alive, finals[1].particles.alive)
           and torch.equal(finals[0].particles.weight.view(torch.int32),
                           finals[1].particles.weight.view(torch.int32)),
-          "C4: two runs from the same state differ")
+          f"{label}: two runs from the same state differ")
+    return runs, ml
+
+
+def phase_c4(dev, pf, world):
+    """The conv path: 20 driving updates from the clustered cloud, twice
+    from the same state and generator seed; returns the mean
+    likelihood."""
+    runs, ml = clustered_runs(pf, world, dev, "C4", CROP)
+    for run, (plans, per) in enumerate(runs):
+        check_paths(f"C4 run {run}", plans, per[:, :-1].sum(1), per[:, -1])
     log(f"[C4] 20 conv updates at {N} particles, twice: the same state bit "
         f"for bit; n_active {pf.num_particles()}, ml "
         f"{np.round(ml, 3).tolist()}")
+    return ml
+
+
+def int8_plan(plan) -> bool:
+    """Whether a conv plan's update scores the int8 field under conv_int8
+    (conv_score.make_conv_scorer's rule)."""
+    return (plan.mode == "tracked" and (2 * plan.ww) % 32 == 0
+            and conv_score.s2d_gate(plan.mo, 2 * plan.ww + 1))
+
+
+def phase_c7(dev, world, c4_ml):
+    """The conv path with the int8 field, the filter's conv_int8=True: C4's
+    runs; every conv-tracked update the int8 field takes launches
+    conv_field_i8 once and makes no cuDNN field (any other makes one cuDNN
+    field and no int8 launch), no crop kernel runs, and the two runs end
+    bit for bit equal; the mean likelihood beside C4's."""
+    pf, _ = make_filter(dev, N, seed=0, world=world, conv_int8=True)
+    runs, ml = clustered_runs(pf, world, dev, "C7",
+                              CROP + ("conv_field_i8",))
+    for run, (plans, per) in enumerate(runs):
+        want = [[0, 0, 1, 0] if int8_plan(p) else [0, 0, 0, 1]
+                for p in plans]
+        check(per.tolist() == want, f"C7 run {run}: launches (crop, int8 "
+              f"field, cuDNN field) per update {per.tolist()} for plans "
+              f"{plans}")
+        check(sum(map(int8_plan, plans)) >= 1, f"C7 run {run}: no update "
+              "took the int8 field")
+        log(f"[C7 run {run}] paths per update: " + " ".join(
+            f"{p.mode}/r{p.region}/w{p.ww}/{'i8' if int8_plan(p) else 'f32'}"
+            for p in plans))
+    log(f"[C7] 20 conv updates with the int8 field at {N} particles, twice: "
+        f"the same state bit for bit; n_active {pf.num_particles()}, ml "
+        f"{np.round(ml, 3).tolist()} against C4's (float32 field) "
+        f"{np.round(c4_ml, 3).tolist()}")
 
 
 def median_ms(fn, warmup=3, runs=20) -> float:
@@ -1644,7 +1781,10 @@ def phase_d(dev, pf, world, errs):
     gmm_ms = median_ms(lambda: gmm_mod.compute_gmm(
         clustered.particles, clustered.n_active, clustered.gmm.k))
     log(f"[D] GMM refit (every {pf.gmm_every}th update): {gmm_ms:.4f} ms")
-    return out, conv_times(pf, clustered, scan, cw, sten, f)
+    conv = conv_times(pf, clustered, scan, cw, sten, f)
+    out["conv_field_i8"] = conv_i8_times(dev, world, clustered, scan, cw,
+                                         sten, f, conv, errs)
+    return out, conv
 
 
 def conv_times(pf, clustered, scan, cw, sten, f):
@@ -1686,6 +1826,95 @@ def conv_times(pf, clustered, scan, cw, sten, f):
         bound=bound(ops, moved),
         flops=ops,
         update_ms=median_ms(conv_update),
+        origin=origin,
+    )
+
+
+def int_mm_operands(codes, ints, origin, mo, region):
+    """torch._int_mm's operands for the int8 field's sums: the block's
+    im2col (region^2, dr dc CP) int8 in (dy, dx, c) order, built here
+    outside any timed window, and the integers (2 S_out rounded up to 8,
+    dr dc CP) int8 (zeros past 2 S_out; the library call takes their
+    transpose)."""
+    dr, dc = conv_score.conv_dims(mo)
+    s_out, _, cp = ints.shape[:3]
+    oy, ox = (int(v) for v in origin.tolist())
+    block = codes[oy - dr // 2 : oy - dr // 2 + region + dr - 1,
+                  ox - dc // 2 : ox - dc // 2 + region + dc - 1]
+    a = block.unfold(0, dr, 1).unfold(1, dc, 1)  # (R, R, CP, dr, dc)
+    a = a.permute(0, 1, 3, 4, 2).reshape(region * region, dr * dc * cp)
+    b = torch.zeros((-(-2 * s_out // 8) * 8, dr * dc * cp), dtype=torch.int8,
+                    device=codes.device)
+    b[: 2 * s_out] = ints.permute(0, 1, 3, 4, 2).reshape(2 * s_out, -1)
+    return a.contiguous(), b
+
+
+def conv_i8_times(dev, world, clustered, scan, cw, sten, f, conv, errs):
+    """The int8 field on D's clustered cell (conv_times' plan, kernel and
+    origin): the kernel's own time under the profiler (with its partial
+    sums' kernel where its chunks split), its wrapper's (the fragment
+    layout and the launches), the plain version's and
+    torch._int_mm's on the im2col (host clock); the field alone by CUDA
+    events beside cuDNN's float32 field; its bound on the taps with a
+    nonzero integer (2 region^2 K N int8 operations, or the block, the
+    integers and the field at the HBM rate) and on the dense K; the conv
+    update under conv_int8=True beside the float32 route's.  The kernel is
+    held to its plain version bit for bit here too."""
+    plan = conv["plan"]
+    check(int8_plan(plan), f"D: the clustered cell's plan {plan} takes no "
+          "int8 field")
+    pf, _ = make_filter(dev, N, seed=0, world=world, conv_int8=True)
+    cmap = pf._get_conv_map()
+    kernel = conv_score.build_conv_kernel(scan, cw, sten, f, plan.mo,
+                                          "tracked", window_w=plan.ww,
+                                          s0=plan.s0)
+    ints, scales = conv_score.quantize_conv_kernel(kernel, cmap.qinv)
+    args = (cmap.codes, ints, scales, conv["origin"], plan.mo, plan.region)
+    field, sums = conv_score.cost_field_i8(*args, sums=True)
+    ref, ref_sums = conv_score.cost_field_i8_plain(*args)
+    a, b = int_mm_operands(cmap.codes, ints, conv["origin"], plan.mo,
+                           plan.region)
+    lib = torch._int_mm(a, b.T)[:, : sums.shape[0]].T.reshape(sums.shape)
+    torch.cuda.synchronize()
+    check(torch.equal(sums, ref_sums) and same_bits((field,), (ref,)),
+          "D: the int8 field differs from its plain version")
+    check(torch.equal(lib, sums), "D: torch._int_mm's sums differ")
+    errs["abs"]["conv_field_i8"] = max(errs["abs"]["conv_field_i8"],
+                                       float((field - ref).abs().max()))
+    s_out, _, cp, dr, dc = ints.shape
+    r = plan.region
+    k_nnz = int(ints.reshape(2 * s_out, -1).ne(0).any(0).sum())
+    k_dense = dr * dc * cp
+    moved = ((r + dr - 1) * (r + dc - 1) * cp + nbytes(ints, scales, field))
+    groups = -(-2 * s_out // (conv_score.I8_GROUP_TILES * 8))
+    splits = conv_score.i8_splits(r, groups, dr, conv_score.i8_dcp(dc, cp),
+                                  cp)
+
+    def update():
+        as_updated(pf, clustered, True)
+        pf.update(scan, RES)
+
+    before = kernels.LAUNCHES["conv_field_i8"], conv_calls()
+    update()
+    check((kernels.LAUNCHES["conv_field_i8"] - before[0],
+           conv_calls() - before[1]) == (1, 0),
+          "D: the int8 conv update launched no int8 field, or a cuDNN one")
+    ms, tries = kernel_ms(lambda: conv_score.cost_field_i8(*args),
+                          SYMBOLS["conv_field_i8"], per_call=1 + (splits > 1))
+    if tries > 1:
+        log(f"[D] conv_field_i8: the kernel time took {tries} profiles")
+    return dict(
+        ms=ms, splits=splits,
+        wrapper_ms=median_ms(lambda: conv_score.cost_field_i8(*args)),
+        plain_ms=median_ms(lambda: conv_score.cost_field_i8_plain(*args)),
+        library_ms=median_ms(lambda: torch._int_mm(a, b.T)),
+        field_ms=events_ms(lambda: conv_score.cost_field_i8(*args)),
+        library_events_ms=events_ms(lambda: torch._int_mm(a, b.T)),
+        bound=bound(2.0 * r * r * k_nnz * 2 * s_out, moved, PEAK_INT8_OPS),
+        bound_dense=bound(2.0 * r * r * k_dense * 2 * s_out, moved,
+                          PEAK_INT8_OPS),
+        taps=(k_nnz, k_dense), im2col_bytes=nbytes(a),
+        update_ms=median_ms(update),
     )
 
 
@@ -3059,6 +3288,7 @@ def main() -> int:
     phase_b3(dev, errs, b_args, b_theta)
     phase_b4(dev, errs, b_args, b_theta)
     del b_args, b_theta
+    phase_b5(dev, errs)
 
     # each path runs with the counts set to 0 just before it and read
     # just after: its own kernels (`names`) must have launched.  Every
@@ -3090,12 +3320,14 @@ def main() -> int:
 
     kernels.reset_launch_counts()
     calls = conv_calls()
-    phase_c4(dev, pf, world)
+    c4_ml = phase_c4(dev, pf, world)
     check(conv_calls() - calls == 40, "C4: not one cost field per update")
-    check(not any(kernels.LAUNCHES[k] for k in CROP),
-          f"C4: crop launches {kernels.LAUNCHES}")
+    check(not any(kernels.LAUNCHES[k] for k in CROP + ("conv_field_i8",)),
+          f"C4: crop or int8 field launches {kernels.LAUNCHES}")
     log(f"[C4] conv cost fields on its path: {conv_calls() - calls}")
     read_launches("C4", ())
+    phase_c7(dev, world, c4_ml)
+    read_launches("C7", ("conv_field_i8",))
 
     log_clocks("D start")
     times, conv = phase_d(dev, pf, world, errs)
@@ -3166,6 +3398,18 @@ def main() -> int:
         f"{conv['build_ms']:.4f} ms, conv update {conv['update_ms']:.4f} ms "
         f"against the crop update {times['crop_score_tracked']['update_ms']:.4f}"
         f" ms ({N} particles, {HW}^2 map) on {name_limit}")
+    i8 = times["conv_field_i8"]
+    log(f"[D] int8 conv field on the same cell (TDR_CONV_INT8=1): kernel "
+        f"{i8['ms']:.4f} ms ({i8['splits']} block(s) a tile), field "
+        f"{i8['field_ms']:.4f} ms (CUDA events; "
+        f"the float32 cuDNN field {conv['field_ms']:.4f} ms), bound "
+        f"{i8['bound'][0]:.4f} ms ({i8['bound'][1]}; {i8['taps'][0]} taps "
+        f"with a nonzero integer of {i8['taps'][1]}; dense "
+        f"{i8['bound_dense'][0]:.4f} ms), torch._int_mm on the "
+        f"{i8['im2col_bytes']} B im2col {i8['library_events_ms']:.4f} ms "
+        f"(CUDA events); conv update {i8['update_ms']:.4f} ms against the "
+        f"float32 route's {conv['update_ms']:.4f} ms (host clock) on "
+        f"{name_limit}")
 
     result = {"kernels": [
         {

@@ -52,11 +52,12 @@ START = (60.0, 105.0)
 
 
 def make_filter(device="cpu", particles=2048, seed=0, world=None, mesh=None,
-                map_int4=None, m_hilo=None, **params):
+                map_int4=None, m_hilo=None, conv_int8=None, **params):
     """(ParticleFilter, world) on the drive's map and filter settings;
     `params` override the FilterParams; `mesh` shards the filter;
-    `map_int4` and `m_hilo` are the filter's (the nibble-packed map,
-    TDR_MAP_INT4; M's hi/lo pair or single plane, TDR_M_HILO)."""
+    `map_int4`, `m_hilo` and `conv_int8` are the filter's (the
+    nibble-packed map, TDR_MAP_INT4; M's hi/lo pair or single plane,
+    TDR_M_HILO; the conv path's int8 field, TDR_CONV_INT8)."""
     world = make_world() if world is None else world
     tdm = TopDownMap(
         MapParams(map_path="", num_classes=3), device=device,
@@ -75,7 +76,7 @@ def make_filter(device="cpu", particles=2048, seed=0, world=None, mesh=None,
     fp = dataclasses.replace(fp, **params)
     return ParticleFilter(particles, tdm, fp, seed=seed, chunk_size=512,
                           device=device, mesh=mesh, map_int4=map_int4,
-                          m_hilo=m_hilo), world
+                          m_hilo=m_hilo, conv_int8=conv_int8), world
 
 
 def drive(

@@ -4,7 +4,8 @@ gather at any byte, the tensor-core products on every route and split,
 the crop ablations of the tracked kernel and the theta search), and the
 crop kernels on the nibble-packed code map (TDR_MAP_INT4=1) and with the
 single-plane M (TDR_M_HILO=0), against their plain versions, the conv path (cuDNN) against a float64
-convolution and against the CPU, the node (its plans, publish and
+convolution and against the CPU, its int8 field (TDR_CONV_INT8=1)
+against its plain version and against the CPU, the node (its plans, publish and
 snapshot copy, the PNG map), the SVG rasteriser and the refinement's
 count sweep against the CPU, on the card.
 
@@ -639,6 +640,106 @@ def test_conv_step_on_card_matches_cpu(dev, mode):
         st = filter_state_from_numpy(d["state"], device)
         outs.append(step(st, cs_conv.ConvMap(cs.compact_map(maps, 3)),
                          *args, 0.5, 2.0, 0, shift=0.25))
+    cpu, gpu = outs
+    assert int(gpu.n_active) == int(cpu.n_active)
+    rows_c = np_(torch.cat(
+        [cpu.particles.init_px, cpu.particles.theta[:, None]], 1))
+    rows_g = np_(torch.cat(
+        [gpu.particles.init_px, gpu.particles.theta[:, None]], 1))
+    assert np.mean(np.all(rows_c == rows_g, axis=1)) >= 0.99
+    assert_rel(np_(cpu.ml_state), np_(gpu.ml_state), 1e-5, "ml_state")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,ww,mo,region,edge", [
+    (3, 16, 24, 128, None), (3, 32, 12, 64, "low"), (6, 64, 24, 64, "high"),
+    (6, 32, 48, 64, None), (3, 16, 36, 128, "high"),
+])
+def test_conv_field_i8_kernel_matches_plain(dev, c, ww, mo, region, edge):
+    """The int8 conv field's kernel against its plain version on the card:
+    the int32 sums and the field bit for bit, and a second launch on the
+    same inputs bit for bit; each launch counted; the chunks split over 1
+    and 3 blocks a tile (partial sums added by the second kernel) as
+    well.  The codes and the quantized kernel on the card equal the CPU's."""
+    packed, sten, scan, cw, _, _ = _world(dev, c, 11)
+    cmap = cs_conv.ConvMap(cs.compact_map(packed, c), int8=True)
+    kernel = cs_conv.build_conv_kernel(scan, cw, sten, mo / 24.0, mo,
+                                       "tracked", window_w=ww, s0=95)
+    ints, scales = cs_conv.quantize_conv_kernel(kernel, cmap.qinv)
+    cpu_map = cs_conv.ConvMap(cs.compact_map(packed.cpu(), c), int8=True)
+    cpu_ints, cpu_scales = cs_conv.quantize_conv_kernel(kernel.cpu(),
+                                                        cpu_map.qinv)
+    assert torch.equal(cmap.codes.cpu(), cpu_map.codes)
+    assert torch.equal(cmap.qinv.cpu(), cpu_map.qinv)
+    assert torch.equal(ints.cpu(), cpu_ints)
+    assert torch.equal(scales.cpu(), cpu_scales)
+    dr, dc = cs_conv.conv_dims(mo)
+    origin = {None: (90, 100), "low": (dr // 2, dc // 2),
+              "high": (cmap.hp - (region + dr - 1) + dr // 2,
+                       cmap.wp - (region + dc - 1) + dc // 2)}[edge]
+    args = (cmap.codes, ints, scales, torch.tensor(origin, device=dev), mo,
+            region)
+    before = kernels.LAUNCHES["conv_field_i8"]
+    got, sums = cs_conv.cost_field_i8(*args, sums=True)
+    again = cs_conv.cost_field_i8(*args)
+    ref, ref_sums = cs_conv.cost_field_i8_plain(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["conv_field_i8"] == before + 2
+    assert got.shape == (2 * ww + 1, region, region)
+    assert torch.equal(sums, ref_sums)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    for splits in (1, 3):
+        field, split_sums = cs_conv.cost_field_i8(*args, sums=True,
+                                                  splits=splits)
+        torch.cuda.synchronize()
+        assert torch.equal(split_sums, ref_sums), splits
+        assert torch.equal(field.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_conv_field_i8_wrapper_refuses_what_the_kernel_cannot_take(dev):
+    packed, sten, scan, cw, _, _ = _world(dev, 3, 12)
+    cmap = cs_conv.ConvMap(cs.compact_map(packed, 3), int8=True)
+    kernel = cs_conv.build_conv_kernel(scan, cw, sten, 0.5, 12, "tracked",
+                                       window_w=16)
+    ints, scales = cs_conv.quantize_conv_kernel(kernel, cmap.qinv)
+    origin = torch.tensor([60, 60], device=dev)
+    with pytest.raises(ValueError):
+        cs_conv.cost_field_i8(cmap.codes, ints, scales, origin, 12, 40)
+    with pytest.raises(ValueError):
+        cs_conv.cost_field_i8(cmap.codes.float(), ints, scales, origin, 12,
+                              64)
+    with pytest.raises(ValueError):
+        cs_conv.cost_field_i8(cmap.codes, ints, scales, origin, 24, 64)
+    with pytest.raises(ValueError):
+        cs_conv.cost_field_i8(cmap.codes, ints, scales.double(), origin, 12,
+                              64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ww", [16, 32])
+def test_int8_conv_step_on_card_matches_cpu(dev, ww):
+    """One whole tracked conv update with the int8 field on the card
+    against the same update on the CPU (its plain version), with the same
+    resample shift: the fields are equal bit for bit, so the weights are
+    too up to the step's other float32 sums."""
+    d = synthetic_setup(512, h=128, w=128, seed=5, cluster=(30, 40, 60))
+    d["state"]["particles"]["have_init"][:] = True
+    step = ft.make_update_step_fast(d["params"], 3, 1.0, 100, 512,
+                                    "tracked", gmm_every=1, path="conv",
+                                    mo=24, region=64, window_w=ww,
+                                    conv_int8=True)
+    outs = []
+    before = kernels.LAUNCHES["conv_field_i8"]
+    for device in ("cpu", dev):
+        maps, *args = [torch.as_tensor(d[k], device=device)
+                       for k in ("packed", "map_size", "stencil", "scan")]
+        st = filter_state_from_numpy(d["state"], device)
+        outs.append(step(st, cs_conv.ConvMap(cs.compact_map(maps, 3),
+                                             int8=True),
+                         *args, 0.5, 2.0, 90, shift=0.25))
+    assert kernels.LAUNCHES["conv_field_i8"] == before + 1
     cpu, gpu = outs
     assert int(gpu.n_active) == int(cpu.n_active)
     rows_c = np_(torch.cat(

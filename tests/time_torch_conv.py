@@ -8,10 +8,13 @@ from the same state (step 1: no GMM refit) on each path: the crop path
 (the conv region withheld from the dispatch), the conv path reading its
 host snapshot afresh (as the update of a state no update made does), and
 the conv path with the state's snapshot copy made, as the update that
-made it leaves it.  Then the medians of 20 synchronised calls
-of the conv update's parts: the snapshot read, the dispatch's plan with
-the snapshot kept, the kernel build, the cost field, the whole conv
-scorer, and beside them the crop path's tracked scorer.
+made it leaves it, and that update with the int8 field (a filter made
+with conv_int8=True, TDR_CONV_INT8=1).  Then the medians of 20
+synchronised calls of the conv update's parts: the snapshot read, the
+dispatch's plan with the snapshot kept, the kernel build, the cost field,
+the whole conv scorer; the int8 field's parts: the kernel's quantization,
+its fragment layout, the int8 cost field, the int8 conv scorer; and
+beside them the crop path's tracked scorer.
 
     python tests/time_torch_conv.py
 """
@@ -54,23 +57,24 @@ def main() -> int:
     dev = torch.device("cuda")
     card = smoke.card_name_and_limit()
     pf, world = smoke.big_filter(dev)
+    pf8, _ = smoke.big_filter(dev, conv_int8=True)
     scan = smoke.scan_at(world, 0, dev)
     clustered = smoke.clustered_state(dev)
     sten = pf._device_consts()[1]
     cw = torch.tensor([0.1, 1.5, 3.0], device=dev)
     f = smoke.SCALE_GT * smoke.RES
 
-    def update(path, fresh=True):
+    def update(path, fresh=True, filt=pf):
         def run():
-            smoke.as_updated(pf, clustered, True)
+            smoke.as_updated(filt, clustered, True)
             if fresh:
-                pf._snap = None
+                filt._snap = None
             if path == "crop":
-                pf._conv_region = lambda mo: None
+                filt._conv_region = lambda mo: None
             try:
-                pf.update(scan, smoke.RES)
+                filt.update(scan, smoke.RES)
             finally:
-                pf.__dict__.pop("_conv_region", None)
+                filt.__dict__.pop("_conv_region", None)
         return run
 
     for rnd in range(3):
@@ -78,7 +82,9 @@ def main() -> int:
                           ("conv update, snapshot read afresh",
                            update("conv")),
                           ("conv update, snapshot kept",
-                           update("conv", fresh=False))):
+                           update("conv", fresh=False)),
+                          ("conv update, int8 field, snapshot kept",
+                           update("conv", fresh=False, filt=pf8))):
             print(f"round {rnd}: {label}: {median_ms(fn):.4f} ms")
 
     pf.state, pf._all_have_init = clustered, True
@@ -92,6 +98,10 @@ def main() -> int:
     origin = torch.round(p.pose_px().flip(-1)).to(torch.int64).amin(0) + 64
     scorer = conv_score.make_conv_scorer(plan.mo, plan.region, "tracked",
                                          window_w=plan.ww)
+    scorer8 = conv_score.make_conv_scorer(plan.mo, plan.region, "tracked",
+                                          window_w=plan.ww, conv_int8=True)
+    cmap8 = pf8._get_conv_map()
+    ints, scales = conv_score.quantize_conv_kernel(kernel, cmap8.qinv)
     parts = {
         "snapshot read": lambda: ft._snapshot_vec(clustered).cpu(),
         "plan, snapshot kept": lambda: pf._fast_mode(smoke.RES),
@@ -102,6 +112,14 @@ def main() -> int:
             cmap.padded, kernel, origin, plan.mo, plan.region),
         "conv scorer": lambda: scorer(cmap, sten, scan, cw, p.pose_px(),
                                       p.theta, f, p.alive, plan.s0),
+        "int8 quantizer": lambda: conv_score.quantize_conv_kernel(
+            kernel, cmap8.qinv),
+        "int8 fragment layout": lambda: conv_score.b_fragments(ints),
+        "int8 cost field": lambda: conv_score.cost_field_i8(
+            cmap8.codes, ints, scales, origin, plan.mo, plan.region),
+        "int8 conv scorer": lambda: scorer8(cmap8, sten, scan, cw,
+                                            p.pose_px(), p.theta, f,
+                                            p.alive, plan.s0),
         "crop tracked scorer": lambda: cs.score_tracked(
             pf._get_map(1), 3, sten, scan, cw, p.pose_px(), p.theta, f),
     }

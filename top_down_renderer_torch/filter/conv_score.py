@@ -25,21 +25,45 @@ convolution runs in float32 with TF32 off, so each product of two bf16
 values is exact and only the order of the float32 sums differs from the
 reference's.  A bf16 convolution would round every output to 8 bits.
 
-CALLS counts the cost fields computed ("cost_field"): the path launches
-no kernel of this package, so kernels.LAUNCHES does not see it.
+The int8 field (TDR_CONV_INT8=1, the filter's conv_int8; the reference's
+cost_field_s2d_split_i8): a different function, within about 1e-3 of the
+float field.  The map is quantized per channel to int8 codes
+(quantize_channels, 126 / amax) and each column of the kernel, times the
+map's qinv per channel, to a hi/lo pair of int8 integers with scales of
+its own (quantize_conv_kernel); the field is the exact int32 product,
+dequantized in float32.  On the card it is the kernel of
+csrc/conv_field_i8.cu (cost_field_i8: an implicit GEMM on the tensor
+cores), on the CPU its plain version.  The scorer takes it where the
+reference does: the tracked flavour with (2 W) % 32 == 0 and the kernel
+under the reference's s2d gate; the init flavour, the full window of
+mixed updates and large kernels keep the float field.
 
-Only the direct formulation is ported: the reference's space-to-depth
-fold, its kf split and its int8 variant exist for the TPU's 128-lane
-tiling (ROADMAP, "Not to port").
+CALLS counts the cost fields computed ("cost_field" on cuDNN,
+"cost_field_i8" the int8 ones); kernels.LAUNCHES["conv_field_i8"] counts
+the int8 kernel's launches.
+
+The reference's space-to-depth fold and its kf split are layouts for the
+TPU's 128-lane tiling (ROADMAP, "Not to port"): the port runs the direct
+formulation of both fields, whose sums they only reorder (the int8 one's
+exactly).
 """
 
 from __future__ import annotations
+
+import ctypes
+import os
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from top_down_renderer_torch.filter.crop_score import channel_pad, crop_offsets
+from top_down_renderer_torch import kernels
+from top_down_renderer_torch.filter.crop_score import (
+    channel_pad,
+    crop_offsets,
+    int8_qinv,
+)
+from top_down_renderer_torch.kernels import ptr
 from top_down_renderer_torch.filter.scoring import (
     circulants_at_shifts,
     rotation_shift,
@@ -50,7 +74,7 @@ from top_down_renderer_torch.filter.scoring import (
 REGION_BUCKETS = (64, 128, 192, 256)
 MAP_PAD = 64  # the reference's zero border around the map (MAP_PAD)
 
-CALLS = {"cost_field": 0}
+CALLS = {"cost_field": 0, "cost_field_i8": 0}
 
 # The reference's gate between its space-to-depth conv and its direct one
 # (top_down_renderer_tpu/filter/conv_score.py F_S2D, K4_MAX_BYTES,
@@ -152,14 +176,24 @@ class ConvMap:
     """The conv path's map operand: the compact map (H, W, CP)
     (crop_score.compact_map) with a border of `pad` zeros, rounded to bf16
     and kept in float32, laid out (1, CP, hp, wp).  hp = H + 2 pad and
-    wp = W + 2 pad, as the reference's padded map."""
+    wp = W + 2 pad, as the reference's padded map.
 
-    def __init__(self, compact: torch.Tensor, pad: int = MAP_PAD):
+    int8: also the int8 field's operand, `codes` (hp, wp, CP) int8 (a
+    pixel's channels contiguous) with the same border, quantized from the
+    float32 map by quantize_channels, and their `qinv` (CP,); else both
+    are None."""
+
+    def __init__(self, compact: torch.Tensor, pad: int = MAP_PAD,
+                 int8: bool = False):
         h, w = compact.shape[:2]
         self.padded = F.pad(
             compact.permute(2, 0, 1), (pad, pad, pad, pad)
         ).to(torch.bfloat16).to(torch.float32)[None].contiguous()
         self.hp, self.wp, self.pad = h + 2 * pad, w + 2 * pad, pad
+        self.codes = self.qinv = None
+        if int8:
+            codes, self.qinv = quantize_channels(compact)
+            self.codes = F.pad(codes, (0, 0, pad, pad, pad, pad)).contiguous()
 
 
 def cost_field(
@@ -193,6 +227,208 @@ def cost_field(
         out = F.conv2d(block, kernel)
     CALLS["cost_field"] += 1
     return out[0]
+
+
+# -- the int8 field (TDR_CONV_INT8=1) -------------------------------------
+# XLA folds the reference's divisions by the constants 127 and 127 * 254
+# into products by their float32 reciprocals
+_HI_RECIP = float(np.float32(1.0) / np.float32(127.0))
+_LO_RECIP = float(np.float32(1.0) / np.float32(127.0 * 254.0))
+I8_GROUP_TILES = 9  # n8 tiles of int8 columns a block of the kernel takes
+
+
+def conv_int8() -> bool:
+    """TDR_CONV_INT8=1: the tracked conv field in int8 (cost_field_i8)
+    where the reference takes its int8 field; default 0, the float32 field.
+    Only the filter reads it, once, where its conv_int8 is None."""
+    return os.environ.get("TDR_CONV_INT8", "0") == "1"
+
+
+def quantize_channels(packed: torch.Tensor):
+    """(..., K) float32 -> (codes (..., K) int8, qinv (K,) float32): the
+    JAX package's quantize_channels (pallas_score.py) in the same float32
+    operations: per channel amax = max(max |v|, 1e-6), codes clip(round(v
+    (126 / amax)), -127, 127) (half to even; 126 / amax an IEEE
+    division), qinv = amax / 126 (crop_score.int8_qinv)."""
+    p32 = packed.to(torch.float32)
+    amax = torch.clamp(p32.reshape(-1, p32.shape[-1]).abs().amax(0),
+                       min=1e-6)
+    q = torch.full((), 126.0, device=p32.device) / amax
+    codes = torch.clamp(torch.round(p32 * q), -127.0, 127.0).to(torch.int8)
+    return codes, int8_qinv(p32)
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a b + c of float32 tensors (broadcast) rounded once to float32, as a
+    fused multiply-add: the product is exact in float64, the sum's
+    rounding error is recovered (two-sum) and, where it is not zero, kept
+    as the last bit of the float64 sum (round to odd), so that rounding
+    that sum to float32 rounds the exact value."""
+    a, b, c = a.double(), b.double(), c.double()
+    p = a * b
+    s = p + c
+    v = s - p
+    e = (p - (s - v)) + (c - v)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.copysign(torch.full_like(s, float("inf")), e)
+    return torch.where((e != 0) & even, torch.nextafter(s, toward), s).float()
+
+
+def quantize_conv_kernel(kernel: torch.Tensor, qinv: torch.Tensor):
+    """The int8 field's integers and scales of an (S_out, CP, dr, dc)
+    kernel (build_conv_kernel's), as the compiled reference's
+    cost_field_s2d_split_i8 computes them, each output column s (the W
+    costs, the W norms, the kf column) on its own: kq = kernel qinv[c];
+    amax = max(max |kq|, 1e-30); s_hi = amax f32(1/127); hi = clip(round(kq
+    / s_hi), -127, 127) (an IEEE division, half to even); s_lo = amax
+    f32(1/32258); lo = clip(round(fma(kernel, qinv, -hi s_hi) / s_lo),
+    -127, 127).  XLA turns the reference's divisions by 127 and (then) 254
+    into products by these constant reciprocals, and contracts kq - hi s_hi
+    into an FMA of the unrounded kq (tests/test_torch_conv_int8.py).
+    Returns (ints (S_out, 2, CP, dr, dc) int8: hi, lo; scales (S_out, 2)
+    float32: s_hi, s_lo)."""
+    qv = qinv[: kernel.shape[1]].view(1, -1, 1, 1)
+    kq = kernel * qv
+    amax = torch.clamp(kq.abs().amax((1, 2, 3)), min=1e-30)
+    s_hi, s_lo = amax * _HI_RECIP, amax * _LO_RECIP
+    hi = torch.clamp(torch.round(kq / s_hi.view(-1, 1, 1, 1)), -127.0, 127.0)
+    res = fma_f32(kernel, qv, -(hi * s_hi.view(-1, 1, 1, 1)))
+    lo = torch.clamp(torch.round(res / s_lo.view(-1, 1, 1, 1)), -127.0, 127.0)
+    return (torch.stack([hi, lo], 1).to(torch.int8),
+            torch.stack([s_hi, s_lo], 1))
+
+
+def i8_dcp(dc: int, cp: int) -> int:
+    """The int8 kernel's tap columns: dc rounded up to 32 / CP, so that a
+    k32 slice of a tap row is whole pixels."""
+    step = 32 // cp
+    return -(-dc // step) * step
+
+
+def b_fragments(ints: torch.Tensor) -> torch.Tensor:
+    """The integers (S_out, 2, CP, dr, dc) as csrc/conv_field_i8.cu reads
+    them: the matrix B[k, n], k = (dy, dx, c) over dx < i8_dcp (zeros past
+    dc), n = 2 s + p (zeros past 2 S_out), in groups of I8_GROUP_TILES n8
+    tiles, each k32 chunk and tile in mma.m16n8k32's fragment order, and
+    one chunk of zeros after each group's: (groups, chunks + 1, tiles, 32
+    lanes, 8 bytes) int8, lane = 4 g + t holding B[16 h + 4 t + j, 8 tile +
+    g] at byte 4 h + j."""
+    s_out, _, cp, dr, dc = ints.shape
+    dcp = i8_dcp(dc, cp)
+    cols = I8_GROUP_TILES * 8
+    groups = -(-2 * s_out // cols)
+    b = torch.zeros((dr, dcp, cp, groups * cols), dtype=torch.int8,
+                    device=ints.device)
+    b[:, :dc, :, : 2 * s_out] = ints.permute(3, 4, 2, 0, 1).reshape(
+        dr, dc, cp, 2 * s_out)
+    chunks = dr * dcp * cp // 32
+    # (chunk, h, t, j, group, tile, g) -> (group, chunk, tile, g, t, h, j)
+    b = b.view(chunks, 2, 4, 4, groups, I8_GROUP_TILES, 8)
+    return F.pad(b.permute(4, 0, 5, 6, 2, 1, 3),
+                 (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1))
+
+
+def i8_splits(region: int, groups: int, dr: int, dcp: int, cp: int) -> int:
+    """The blocks a tile of centres of the int8 kernel splits its chunks
+    over (tdr_conv_field_i8_splits: as many as one wave of the card holds,
+    at most 8), so that a small region still keeps every SM busy with
+    several blocks."""
+    splits = ctypes.c_int(0)
+    err = kernels.load("conv_field_i8").tdr_conv_field_i8_splits(
+        cp, dr, dcp, region, groups, ctypes.byref(splits))
+    if err != 0:
+        raise RuntimeError(f"tdr_conv_field_i8_splits: CUDA error {err}")
+    return splits.value
+
+
+def cost_field_i8_plain(codes, ints, scales, origin_yx, mo: int,
+                        region: int):
+    """The plain version of cost_field_i8: (field (S_out, region, region)
+    float32, sums (2 S_out, region, region) int32, row 2 s + p).  The
+    block's codes times the integers, one tap row dy at a time as a float64
+    product, exact (every partial sum an integer below 2^31), then
+    dequantized as the compiled reference does: fma(f32(hi), s_hi, f32(lo)
+    s_lo) (fma_f32)."""
+    dr, dc = conv_dims(mo)
+    dev = codes.device
+    s_out, _, cp = ints.shape[:3]
+    ys = origin_yx[0] - dr // 2 + torch.arange(region + dr - 1, device=dev)
+    xs = origin_yx[1] - dc // 2 + torch.arange(region + dc - 1, device=dev)
+    block = codes.index_select(0, ys).index_select(1, xs).double()
+    w = ints.double().permute(3, 4, 2, 0, 1).reshape(dr, dc * cp, 2 * s_out)
+    acc = torch.zeros((region * region, 2 * s_out), dtype=torch.float64,
+                      device=dev)
+    for dy in range(dr):
+        win = block[dy : dy + region].unfold(1, dc, 1)  # (R, R, CP, dc)
+        acc += win.transpose(2, 3).reshape(region * region, dc * cp) @ w[dy]
+    sums = acc.to(torch.int32).T.reshape(2 * s_out, region, region)
+    hi, lo = sums.view(s_out, 2, region, region).unbind(1)
+    field = fma_f32(hi.float(), scales[:, 0, None, None],
+                    lo.float() * scales[:, 1, None, None])
+    return field, sums.contiguous()
+
+
+def cost_field_i8(codes, ints, scales, origin_yx, mo: int, region: int,
+                  sums: bool = False, splits=None):
+    """The int8 cost field, cost_field's (S_out, region, region) float32
+    rows (costs, norms, kf) from the map's codes (ConvMap.codes) and the
+    kernel's integers and scales (quantize_conv_kernel), over the block of
+    centres whose top-left centre is origin_yx ((2,) integer tensor, read
+    on the device).  On CPU tensors the plain version, on CUDA the kernel
+    of csrc/conv_field_i8.cu; any other device raises.  sums=True also
+    returns the int32 sums (cost_field_i8_plain's); splits sets the
+    kernel's split of its chunks (i8_splits where None)."""
+    dev = codes.device
+    if not kernels.on_card(dev, "int8 conv cost field"):
+        field, acc = cost_field_i8_plain(codes, ints, scales, origin_yx, mo,
+                                         region)
+    else:
+        field, acc = _launch_field_i8(codes, ints, scales, origin_yx, mo,
+                                      region, sums, splits)
+    CALLS["cost_field_i8"] += 1
+    return (field, acc) if sums else field
+
+
+def _launch_field_i8(codes, ints, scales, origin_yx, mo, region, sums,
+                     splits):
+    dr, dc = conv_dims(mo)
+    dev = codes.device
+    if codes.dim() != 3 or codes.dtype != torch.int8 or codes.shape[2] not in (
+            4, 8) or not codes.is_contiguous():
+        raise ValueError("codes must be a contiguous (hp, wp, 4 or 8) int8")
+    hp, wp, cp = codes.shape
+    s_out = ints.shape[0]
+    if (ints.dtype != torch.int8 or tuple(ints.shape) != (s_out, 2, cp, dr, dc)
+            or ints.device != dev):
+        raise ValueError(f"ints must be ({s_out}, 2, {cp}, {dr}, {dc}) int8 "
+                         "beside the codes")
+    if (scales.dtype != torch.float32 or tuple(scales.shape) != (s_out, 2)
+            or not scales.is_contiguous() or scales.device != dev):
+        raise ValueError(f"scales must be a contiguous ({s_out}, 2) float32")
+    origin = origin_yx.to(torch.int64).contiguous()
+    if tuple(origin.shape) != (2,) or origin.device != dev:
+        raise ValueError("origin_yx must be a (2,) tensor beside the codes")
+    if region % 16:
+        raise ValueError(f"region {region} is not a multiple of 16")
+    bfrag = b_fragments(ints)
+    groups, chunks = bfrag.shape[0], bfrag.shape[1] - 1
+    nonzero = bfrag[:, :chunks].reshape(groups, chunks, -1).ne(0).any(-1)
+    if splits is None:
+        splits = i8_splits(region, groups, dr, i8_dcp(dc, cp), cp)
+    out = torch.empty((s_out, region, region), dtype=torch.float32,
+                      device=dev)
+    acc = (torch.empty((2 * s_out, region, region), dtype=torch.int32,
+                       device=dev) if sums else None)
+    partial = (torch.empty((splits, groups * I8_GROUP_TILES * 8, region,
+                            region), dtype=torch.int32, device=dev)
+               if splits > 1 else None)
+    kernels.launch("conv_field_i8", "tdr_conv_field_i8", ptr(codes), hp, wp,
+                   cp, ptr(bfrag), ptr(nonzero), ptr(scales), ptr(origin),
+                   dr, dc, i8_dcp(dc, cp), region, s_out, groups, splits,
+                   ptr(out), None if acc is None else ptr(acc),
+                   None if partial is None else ptr(partial))
+    kernels.LAUNCHES["conv_field_i8"] += 1
+    return out, acc
 
 
 def conv_centres(center_px: torch.Tensor, map_resolution: float, pad: int):
@@ -244,6 +480,7 @@ def make_conv_scorer(
     num_rot: int = 40,
     map_resolution: float = 1.0,
     window_w: int = 100,
+    conv_int8: bool = False,
 ):
     """Returns score(cmap: ConvMap, stencil, scan, class_weights,
     center_px, theta, f, alive, s0=0) for the clustered regime:
@@ -257,9 +494,16 @@ def make_conv_scorer(
     map), clamped so that the block fits the padded map.  The caller plans
     the region so that every alive centre falls inside it; a straggler is
     clamped to the region's edge and scored there.  A shift outside the
-    window is clamped to its edge the same way."""
+    window is clamped to its edge the same way.
+
+    conv_int8: the int8 field (cost_field_i8, on the map's codes) where the
+    reference's scorer takes it under TDR_CONV_INT8=1: the tracked flavour
+    with (2 window_w) % 32 == 0 (its kf split) and the kernel under its s2d
+    gate; elsewhere the float32 field."""
     if mode not in ("tracked", "init"):
         raise ValueError(f"unknown conv mode {mode!r}")
+    use_i8 = (conv_int8 and mode == "tracked" and (2 * window_w) % 32 == 0
+              and s2d_gate(mo, 2 * window_w + 1))
 
     def score(cmap: ConvMap, stencil, scan, class_weights, center_px,
               theta, f, alive, s0=0):
@@ -270,9 +514,18 @@ def make_conv_scorer(
         ix = (cx - ox).clamp(0, region - 1)
         kernel = build_conv_kernel(scan, class_weights, stencil, f, mo,
                                    mode, num_rot, window_w, s0)
-        field = cost_field(cmap.padded, kernel, torch.stack([oy, ox]), mo,
-                           region).reshape(kernel.shape[0], -1)
-        return read_scores(field, iy * region + ix, theta, mode, num_rot,
-                           window_w, s0, th, r)
+        origin = torch.stack([oy, ox])
+        if use_i8:
+            if cmap.codes is None:
+                raise ValueError("the int8 conv field needs a ConvMap made "
+                                 "with int8=True")
+            field = cost_field_i8(cmap.codes,
+                                  *quantize_conv_kernel(kernel, cmap.qinv),
+                                  origin, mo, region)
+        else:
+            field = cost_field(cmap.padded, kernel, origin, mo, region)
+        return read_scores(field.reshape(kernel.shape[0], -1),
+                           iy * region + ix, theta, mode, num_rot, window_w,
+                           s0, th, r)
 
     return score

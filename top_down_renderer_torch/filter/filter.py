@@ -303,6 +303,7 @@ def make_update_step_fast(
     mo: int = 24,
     region: int = 128,
     window_w: int = 100,
+    conv_int8: bool = False,
 ):
     """The fast update step for a uniform particle scale:
     update(state, maps, map_size_scaled, stencil, scan, res, scale=None,
@@ -322,7 +323,9 @@ def make_update_step_fast(
     conv_score.ConvMap, mo the conv kernel's bucket, and the tracked
     flavour reads the shift window [s0, s0 + window_w).  The theta search
     feeds its (N, num_rot) costs, gated where kf < 0.5, to
-    select_init_cost."""
+    select_init_cost.  conv_int8: the tracked flavour scores the int8 field
+    where the reference does (conv_score.make_conv_scorer); `maps` then
+    holds the codes (ConvMap(int8=True))."""
     if mode not in ("tracked", "init", "mixed"):
         raise ValueError(f"unknown crop mode {mode!r}")
     if path not in ("crop", "conv") or (path == "conv" and mip != 1):
@@ -333,7 +336,8 @@ def make_update_step_fast(
     if path == "conv":
         conv = {
             flavour: conv_score.make_conv_scorer(
-                mo, region, flavour, num_rot, map_resolution, window_w)
+                mo, region, flavour, num_rot, map_resolution, window_w,
+                conv_int8)
             for flavour in ("tracked", "init")
             if mode in (flavour, "mixed")
         }
@@ -492,6 +496,14 @@ class ParticleFilter:
     maps carries it, and the crop kernels run their "_lokf" entries), not
     the plan.
 
+    conv_int8: the conv path's tracked updates score the int8 cost field
+    (conv_score's docstring; csrc/conv_field_i8.cu on the card) where the
+    reference's TDR_CONV_INT8=1 does, or what TDR_CONV_INT8 says when the
+    filter is made (None; conv_score.conv_int8, read once).  The conv map
+    then also holds its codes, quantized from the float32 map whatever
+    map_int4 says; the plan is unchanged, and the mesh's row-sharded conv
+    step keeps the float32 field, as the reference's mesh does.
+
     mesh: a 1-D DeviceMesh (parallel.sharding.make_mesh) shards the
     particle axis over the ranks of the process group, one process per
     rank: each rank builds the same filter and calls the same methods in
@@ -520,6 +532,7 @@ class ParticleFilter:
         mesh=None,
         map_int4: Optional[bool] = None,
         m_hilo: Optional[bool] = None,
+        conv_int8: Optional[bool] = None,
     ):
         chunk_size = min(chunk_size, n_max)
         n_max = -(-n_max // chunk_size) * chunk_size
@@ -527,6 +540,8 @@ class ParticleFilter:
         self.map_int4 = (crop_score.map_int4() if map_int4 is None
                          else bool(map_int4))
         self.m_hilo = crop_score.m_hilo() if m_hilo is None else bool(m_hilo)
+        self.conv_int8 = (conv_score.conv_int8() if conv_int8 is None
+                          else bool(conv_int8))
         if mesh is not None:
             # a mesh-size multiple too, so that the rows shard evenly
             n_max = -(-n_max // mesh.size()) * mesh.size()
@@ -992,16 +1007,17 @@ class ParticleFilter:
     def _get_conv_map(self) -> conv_score.ConvMap:
         """The conv path's padded compact map, per map version: float32
         under map_int4 too, as the JAX conv field reads the unquantized
-        map."""
+        map; with its int8 codes where conv_int8 (one device)."""
         key = (self._map_version, "conv")
         if key not in self._maps_cache:
             self._maps_cache[key] = conv_score.ConvMap(
-                self._get_map(1).compact(self.map.grid.num_classes))
+                self._get_map(1).compact(self.map.grid.num_classes),
+                int8=self.conv_int8 and self.mesh is None)
         return self._maps_cache[key]
 
     def _get_fast_fn(self, mode: str, mo: int, path: str = "crop",
                      region: int = 0, window_w: int = 100, mip: int = 1):
-        key = (mode, mo, path, region, window_w, mip)
+        key = (mode, mo, path, region, window_w, mip, self.conv_int8)
         if key not in self._fast_fns:
             self._fast_fns[key] = make_update_step_fast(
                 self.params,
@@ -1016,6 +1032,7 @@ class ParticleFilter:
                 mo=mo,
                 region=region,
                 window_w=window_w,
+                conv_int8=self.conv_int8,
             )
         return self._fast_fns[key]
 

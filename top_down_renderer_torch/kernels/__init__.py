@@ -9,7 +9,8 @@ with ctypes: pointers and the stream go as c_void_p, and every entry
 point returns the CUDA error of its launch.
 
 The wrappers around the kernels (filter/crop_score.py,
-filter/multiscale.py, filter/resample.py, and the probes' in probes/)
+filter/multiscale.py, filter/resample.py, filter/conv_score.py, and the
+probes' in probes/)
 share on_card(), which sends
 CPU tensors to their plain versions, and launch().  LAUNCHES counts the
 launches of every kernel by name: each wrapper adds one where it
@@ -75,6 +76,8 @@ LAUNCHES = {
     "crop_score_multi_init_raw_i4_lokf": 0,
     "crop_lokf_scales": 0,
     "fill_rows": 0,
+    # the conv path's int8 cost field (TDR_CONV_INT8=1)
+    "conv_field_i8": 0,
     "crop_ablate": 0,
     "crop_ablate_init": 0,
     "probe_window_gather": 0,
@@ -203,6 +206,17 @@ _SIGNATURES = {
     "fill_rows": {
         # rows0, valid0, N, out, scratch, epoch, stream
         "tdr_fill_rows": (_P, _P, _I, _P, _P, ctypes.c_uint, _P),
+    },
+    "conv_field_i8": {
+        # codes, hp, wp, CP, B fragments, chunk flags, scales, origin, dr,
+        # dc, dcp, region, S_out, column groups, splits, out, sums (or
+        # null), partial sums (or null), stream
+        "tdr_conv_field_i8": (
+            _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+            _P, _P, _P,
+        ),
+        # CP, dr, dcp, region, column groups, splits (out)
+        "tdr_conv_field_i8_splits": (_I, _I, _I, _I, _I, ctypes.POINTER(_I)),
     },
     "crop_ablate": {
         # variant, compact map, table (or null), K, H, W, then as
