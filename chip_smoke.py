@@ -19,7 +19,8 @@ Phases (any failure exits non-zero before the result line):
      (crop_init_i4_kernel) two thirds of its float twin's HGMMA, each
      single-plane twin (crop_init_lokf_kernel, TDR_M_HILO=0) two thirds
      of the hi/lo float kernel's on the float map and one third on the
-     codes; and the int8 mma.sync (IMMA) of the int8 conv field;
+     codes; and the int8 wgmma (IGMMA) and the TMA tensor loads (UTMALDG)
+     of the int8 conv field;
   B. the uniform crop kernels against their plain PyTorch versions on
      the same card tensors at the slice's shapes: 102,400 particles, a
      1024^2 map with 6 classes (8 packed channels), Th x R = 100 x 25,
@@ -52,12 +53,14 @@ Phases (any failure exits non-zero before the result line):
      cell count to ~1e-7, summed in two orders), the gate's patterns off
      the gate, the argmin on 99.9 %; the tracked kernels' scales pass
      bit for bit crop_score.tracked_lokf's scales;
-  B5. the int8 conv field's kernel (csrc/conv_field_i8.cu,
-     TDR_CONV_INT8=1) against its plain version on random 640^2 maps of 3
-     and 6 classes (CP 4, 8), windows W 16, 32, 64, regions 64-256, conv
+  B5. the int8 conv field's kernels (csrc/conv_field_i8.cu,
+     TDR_CONV_INT8=1) against their plain versions on random 640^2 maps of
+     3 and 6 classes (CP 4, 8), windows W 16, 32, 64, regions 64-256, conv
      buckets mo 12-48, origins inside the map and clamped to its edges:
-     the int32 sums and the field bit for bit, and twice on the same
-     inputs;
+     the quantizer's B, chunk flags and scales against quantize_conv_kernel
+     laid out by i8_layout, the field's int32 sums and field on those
+     integers and with its two launches (conv_field_i8), bit for bit, and
+     twice on the same inputs;
   C. the known-scale main path through the public entry points: the
      consumer drive (2,048 particles, 30 scans, must converge) and 20
      updates of 102,400 particles on a 1024^2 map from a spread init;
@@ -83,7 +86,8 @@ Phases (any failure exits non-zero before the result line):
      seed must end in the same state bit for bit;
   C7. C4 with the int8 conv field, the filter's conv_int8=True: each
      conv-tracked update whose window the int8 field takes (2 W a
-     multiple of 32, under the s2d gate) launches conv_field_i8 once and
+     multiple of 32, under the s2d gate) launches conv_quant_i8 and
+     conv_field_i8 once each and
      makes no cuDNN field, no crop kernel runs, the two runs end bit for
      bit equal, and the mean likelihood is logged beside C4's;
   C5. the main path on the code map, the filter's map_int4=True: C's 20
@@ -130,12 +134,14 @@ Phases (any failure exits non-zero before the result line):
      same cell (the theta searches' bound on two products a k16 step on
      the float map, one on the codes), with the scales pass on the
      clustered cell's fold, held against its plain version as in B4; and
-     on the clustered conv cell the int8 field (kernel under the profiler,
-     wrapper, plain, torch._int_mm on the block's im2col built outside the
-     timed window, the field by CUDA events beside cuDNN's float32 field),
-     its bound on the taps with a nonzero integer (int8 tensor cores, or
-     bytes) and on the dense taps, and the conv update under
-     conv_int8=True beside the float32 route's;
+     on the clustered conv cell the int8 field (its two kernels under the
+     profiler, the quantizer and the field; the field with its two
+     launches by host clock and by CUDA events beside cuDNN's float32
+     field; plain versions; torch._int_mm on the block's im2col built
+     outside the timed window), the field's bound on the taps with a
+     nonzero integer (int8 tensor cores, or bytes) and on the dense taps,
+     the quantizer's (bytes), and the conv update under conv_int8=True
+     beside the float32 route's;
   M1. the multi-device filter (ParticleFilter(mesh=...)) on a world-1
      NCCL mesh on the card, 102,400 particles on the 1024^2 map: (a) ten
      unknown-scale updates standing (the K-bucket theta search through
@@ -387,9 +393,10 @@ for _i4 in (False, True):
     })
 SYMBOLS["crop_lokf_scales"] = _lokf_symbols("crop_lokf_scales_kernel", 3,
                                             False)
-# the int8 conv field: its product, and where its chunks split over blocks
-# the partial sums' kernel
-SYMBOLS["conv_field_i8"] = ("conv_field_i8_kernel", "conv_field_i8_sum_kernel")
+# the int8 conv field (a cluster adds a split tile's sums) and its
+# quantizer
+SYMBOLS["conv_field_i8"] = ("conv_field_i8_kernel",)
+SYMBOLS["conv_quant_i8"] = ("conv_quant_i8_kernel",)
 # name -> (source, the TPU kernel it replaces)
 KERNELS = {
     # the tracked kernels' offset fold, launched by both tracked wrappers
@@ -433,6 +440,10 @@ KERNELS = {
     # of the reference, not a Pallas kernel
     "conv_field_i8": (
         CONV_I8_SRC, "top_down_renderer_tpu/filter/conv_score.py:562"),
+    # its quantization of the kernel's columns to hi/lo int8 pairs and the
+    # layout of the integers (XLA in the reference's function)
+    "conv_quant_i8": (
+        CONV_I8_SRC, "top_down_renderer_tpu/filter/conv_score.py:588"),
     # the probes (phase P): each replaces several TPU probe kernels, each
     # case of its line names its own
     "crop_ablate": ("top_down_renderer_torch/csrc/crop_ablate.cu",
@@ -506,10 +517,10 @@ def log_clocks(label: str) -> None:
         + smi("clocks.sm,clocks.max.sm,power.draw,temperature.gpu"))
 
 
-# the instructions each library's SASS must hold: wgmma (HGMMA), the
-# TMA tensor load (UTMALDG), the int8 mma.sync (IMMA)
+# the instructions each library's SASS must hold: wgmma (HGMMA; IGMMA
+# for int8), the TMA tensor load (UTMALDG)
 SASS_NEEDS = {"crop_score_init": ("HGMMA",),
-              "conv_field_i8": ("IMMA",),  # mma.sync s8
+              "conv_field_i8": ("IGMMA", "UTMALDG"),
               "crop_ablate_init": ("HGMMA", "UBLKCP"),
               "probe_mm": ("HGMMA", "UTMALDG"),
               "probe_window": ("UTMALDG",)}
@@ -778,6 +789,7 @@ def multi_pair(args, theta, scale, slots, bmi):
 
 
 CROP = ("crop_score_tracked", "crop_score_init")
+CONV_I8 = ("conv_quant_i8", "conv_field_i8")  # the int8 field's launches
 MULTI = ("crop_score_multi_tracked", "crop_score_multi_init")
 CROP_I4 = tuple(k + "_i4" for k in CROP)  # on the code map
 MULTI_I4 = tuple(k + "_i4" for k in MULTI)
@@ -1266,7 +1278,9 @@ B5_HW = 640
 def conv_i8_case(dev, c, ww, mo, region, edge, seed):
     """A B5 case on the card: the int8 ConvMap of a random B5_HW^2 map of
     c classes, the tracked conv kernel of a random scan at the bucket's f
-    (window [95, 95 + W)), quantized; and the block's origin."""
+    (window [95, 95 + W)); (the field's arguments: codes, the kernel
+    quantized by its plain version, the block's origin, mo, region; the
+    float kernel; qinv)."""
     rng = np.random.default_rng(seed)
     packed = np.zeros((B5_HW, B5_HW, 8), np.float32)
     packed[..., :c] = rng.random((B5_HW, B5_HW, c)) * 50
@@ -1283,22 +1297,39 @@ def conv_i8_case(dev, c, ww, mo, region, edge, seed):
     origin = {None: (300, 280), "low": (dr // 2, dc // 2),
               "high": (cmap.hp - (region + dr - 1) + dr // 2,
                        cmap.wp - (region + dc - 1) + dc // 2)}[edge]
-    return (cmap.codes, *conv_score.quantize_conv_kernel(kernel, cmap.qinv),
-            torch.tensor(origin, device=dev), mo, region)
+    return ((cmap.codes, *conv_score.quantize_conv_kernel(kernel, cmap.qinv),
+             torch.tensor(origin, device=dev), mo, region), kernel,
+            cmap.qinv)
 
 
 def phase_b5(dev, errs):
-    """The int8 conv field's kernel against its plain version on the card
-    (B5_CASES): the int32 sums and the field equal bit for bit, and a
-    second launch on the same inputs gives the same bits."""
+    """The int8 conv field's kernels against their plain versions on the
+    card (B5_CASES): the quantizer's B, flags and scales equal
+    quantize_conv_kernel's laid out by i8_layout, the field's int32 sums
+    and field equal the plain version's bit for bit, on those integers and
+    with the two launches, and a second launch on the same inputs gives
+    the same bits."""
     for i, (c, ww, mo, region, edge) in enumerate(B5_CASES):
-        args = conv_i8_case(dev, c, ww, mo, region, edge, 20 + i)
-        field, sums = conv_score.cost_field_i8(*args, sums=True)
-        again, sums2 = conv_score.cost_field_i8(*args, sums=True)
-        ref, ref_sums = conv_score.cost_field_i8_plain(*args)
-        torch.cuda.synchronize()
+        args, kernel, qinv = conv_i8_case(dev, c, ww, mo, region, edge,
+                                          20 + i)
         label = (f"B5 C={c} W={ww} mo {mo} region {region} origin "
                  f"{edge or 'inside'}")
+        quant = [conv_score.quantize_i8(kernel, qinv) for _ in range(2)]
+        ref_b, ref_nz = conv_score.i8_layout(args[1])
+        torch.cuda.synchronize()
+        for b, nz, sc in quant:
+            check(torch.equal(b, ref_b) and torch.equal(nz, ref_nz)
+                  and same_bits((sc,), (args[2],)),
+                  f"{label}: the quantizer kernel's B, flags or scales "
+                  "differ from the plain version's")
+        quantized = (args[0], qinv, kernel, *args[3:])
+        field, sums = conv_score.launch_field_i8(
+            args[0], ref_b, ref_nz, args[2], *args[3:],
+            args[1].shape[0], sums=True)
+        again, sums2 = conv_score.conv_field_i8(*quantized, sums=True)
+        twice, sums3 = conv_score.conv_field_i8(*quantized, sums=True)
+        ref, ref_sums = conv_score.cost_field_i8_plain(*args)
+        torch.cuda.synchronize()
         check(torch.isfinite(field).all() and field.shape == (
             2 * ww + 1, region, region), f"{label}: field {field.shape}")
         check(torch.equal(sums, ref_sums),
@@ -1307,13 +1338,16 @@ def phase_b5(dev, errs):
         check(same_bits((field,), (ref,)),
               f"{label}: the field differs from the plain version's by up "
               f"to {float((field - ref).abs().max()):.3e}")
-        check(same_bits((field,), (again,)) and torch.equal(sums, sums2),
-              f"{label}: two launches differ")
+        check(same_bits((field, field), (again, twice))
+              and torch.equal(sums, sums2) and torch.equal(sums, sums3),
+              f"{label}: the field on the quantizer kernel's integers, or "
+              "twice, differs")
         errs["abs"]["conv_field_i8"] = max(
             errs["abs"]["conv_field_i8"], float((field - ref).abs().max()))
-        log(f"[B5] {label} (CP {args[0].shape[2]}): int32 sums (largest "
-            f"|sum| {int(sums.abs().max())}) and field equal the plain "
-            "version's bit for bit, twice")
+        log(f"[B5] {label} (CP {args[0].shape[2]}): quantizer kernel "
+            f"({int(ref_nz.sum())} of {ref_nz.numel()} chunks nonzero) and "
+            f"int32 sums (largest |sum| {int(sums.abs().max())}) and field "
+            "equal the plain versions' bit for bit, twice")
 
 
 def phase_c6(dev, world):
@@ -1459,18 +1493,18 @@ def int8_plan(plan) -> bool:
 def phase_c7(dev, world, c4_ml):
     """The conv path with the int8 field, the filter's conv_int8=True: C4's
     runs; every conv-tracked update the int8 field takes launches
-    conv_field_i8 once and makes no cuDNN field (any other makes one cuDNN
-    field and no int8 launch), no crop kernel runs, and the two runs end
+    conv_quant_i8 and conv_field_i8 once each and makes no cuDNN field (any
+    other makes one cuDNN field and no int8 launch), no crop kernel runs,
+    and the two runs end
     bit for bit equal; the mean likelihood beside C4's."""
     pf, _ = make_filter(dev, N, seed=0, world=world, conv_int8=True)
-    runs, ml = clustered_runs(pf, world, dev, "C7",
-                              CROP + ("conv_field_i8",))
+    runs, ml = clustered_runs(pf, world, dev, "C7", CROP + CONV_I8)
     for run, (plans, per) in enumerate(runs):
-        want = [[0, 0, 1, 0] if int8_plan(p) else [0, 0, 0, 1]
+        want = [[0, 0, 1, 1, 0] if int8_plan(p) else [0, 0, 0, 0, 1]
                 for p in plans]
         check(per.tolist() == want, f"C7 run {run}: launches (crop, int8 "
-              f"field, cuDNN field) per update {per.tolist()} for plans "
-              f"{plans}")
+              f"quantizer, int8 field, cuDNN field) per update "
+              f"{per.tolist()} for plans {plans}")
         check(sum(map(int8_plan, plans)) >= 1, f"C7 run {run}: no update "
               "took the int8 field")
         log(f"[C7 run {run}] paths per update: " + " ".join(
@@ -1782,8 +1816,8 @@ def phase_d(dev, pf, world, errs):
         clustered.particles, clustered.n_active, clustered.gmm.k))
     log(f"[D] GMM refit (every {pf.gmm_every}th update): {gmm_ms:.4f} ms")
     conv = conv_times(pf, clustered, scan, cw, sten, f)
-    out["conv_field_i8"] = conv_i8_times(dev, world, clustered, scan, cw,
-                                         sten, f, conv, errs)
+    out["conv_field_i8"], out["conv_quant_i8"] = conv_i8_times(
+        dev, world, clustered, scan, cw, sten, f, conv, errs)
     return out, conv
 
 
@@ -1851,15 +1885,19 @@ def int_mm_operands(codes, ints, origin, mo, region):
 
 def conv_i8_times(dev, world, clustered, scan, cw, sten, f, conv, errs):
     """The int8 field on D's clustered cell (conv_times' plan, kernel and
-    origin): the kernel's own time under the profiler (with its partial
-    sums' kernel where its chunks split), its wrapper's (the fragment
-    layout and the launches), the plain version's and
-    torch._int_mm's on the im2col (host clock); the field alone by CUDA
-    events beside cuDNN's float32 field; its bound on the taps with a
-    nonzero integer (2 region^2 K N int8 operations, or the block, the
-    integers and the field at the HBM rate) and on the dense K; the conv
-    update under conv_int8=True beside the float32 route's.  The kernel is
-    held to its plain version bit for bit here too."""
+    origin): each kernel's own time under the profiler (the field kernel
+    on the quantizer kernel's integers; a split tile's sums are added in
+    its cluster), the field with its two launches (host clock, and by CUDA
+    events beside cuDNN's float32 field), the plain versions' (the field's;
+    quantize_conv_kernel and i8_layout for the quantizer) and
+    torch._int_mm's on the im2col (host clock, and by events); the field's
+    bound on the taps with a nonzero integer (2 region^2 K N int8
+    operations, or the block, the integers and the field at the HBM rate)
+    and on the dense K; the quantizer's bound (the float kernel and qinv
+    read once; the integers, 2 S_out CP dr dc bytes without the layout's
+    padding, the flags and the scales written once; at the HBM rate); the
+    conv update under conv_int8=True beside the float32 route's.  Both
+    kernels are held to their plain versions bit for bit here too."""
     plan = conv["plan"]
     check(int8_plan(plan), f"D: the clustered cell's plan {plan} takes no "
           "int8 field")
@@ -1870,12 +1908,19 @@ def conv_i8_times(dev, world, clustered, scan, cw, sten, f, conv, errs):
                                           s0=plan.s0)
     ints, scales = conv_score.quantize_conv_kernel(kernel, cmap.qinv)
     args = (cmap.codes, ints, scales, conv["origin"], plan.mo, plan.region)
-    field, sums = conv_score.cost_field_i8(*args, sums=True)
+    quantized = (cmap.codes, cmap.qinv, kernel, conv["origin"], plan.mo,
+                 plan.region)
+    b, nonzero, qscales = conv_score.quantize_i8(kernel, cmap.qinv)
+    ref_b, ref_nz = conv_score.i8_layout(ints)
+    field, sums = conv_score.conv_field_i8(*quantized, sums=True)
     ref, ref_sums = conv_score.cost_field_i8_plain(*args)
-    a, b = int_mm_operands(cmap.codes, ints, conv["origin"], plan.mo,
-                           plan.region)
-    lib = torch._int_mm(a, b.T)[:, : sums.shape[0]].T.reshape(sums.shape)
+    a, bt = int_mm_operands(cmap.codes, ints, conv["origin"], plan.mo,
+                            plan.region)
+    lib = torch._int_mm(a, bt.T)[:, : sums.shape[0]].T.reshape(sums.shape)
     torch.cuda.synchronize()
+    check(torch.equal(b, ref_b) and torch.equal(nonzero, ref_nz)
+          and same_bits((qscales,), (scales,)),
+          "D: the quantizer kernel differs from its plain version")
     check(torch.equal(sums, ref_sums) and same_bits((field,), (ref,)),
           "D: the int8 field differs from its plain version")
     check(torch.equal(lib, sums), "D: torch._int_mm's sums differ")
@@ -1886,36 +1931,55 @@ def conv_i8_times(dev, world, clustered, scan, cw, sten, f, conv, errs):
     k_nnz = int(ints.reshape(2 * s_out, -1).ne(0).any(0).sum())
     k_dense = dr * dc * cp
     moved = ((r + dr - 1) * (r + dc - 1) * cp + nbytes(ints, scales, field))
-    groups = -(-2 * s_out // (conv_score.I8_GROUP_TILES * 8))
-    splits = conv_score.i8_splits(r, groups, dr, conv_score.i8_dcp(dc, cp),
-                                  cp)
+    groups, width = conv_score.i8_columns(s_out)
+    dcp = conv_score.i8_dcp(dc, cp)
+    splits = conv_score.i8_splits(cp, width, dr, dcp, r, groups, dev.index)
 
     def update():
         as_updated(pf, clustered, True)
         pf.update(scan, RES)
 
-    before = kernels.LAUNCHES["conv_field_i8"], conv_calls()
+    before = [kernels.LAUNCHES[k] for k in CONV_I8] + [conv_calls()]
     update()
-    check((kernels.LAUNCHES["conv_field_i8"] - before[0],
-           conv_calls() - before[1]) == (1, 0),
-          "D: the int8 conv update launched no int8 field, or a cuDNN one")
-    ms, tries = kernel_ms(lambda: conv_score.cost_field_i8(*args),
-                          SYMBOLS["conv_field_i8"], per_call=1 + (splits > 1))
+    check([kernels.LAUNCHES[k] for k in CONV_I8] + [conv_calls()]
+          == [before[0] + 1, before[1] + 1, before[2]],
+          "D: the int8 conv update launched no quantizer or int8 field, or "
+          "a cuDNN one")
+    ms, tries = kernel_ms(
+        lambda: conv_score.launch_field_i8(
+            cmap.codes, b, nonzero, qscales, conv["origin"], plan.mo,
+            plan.region, s_out),
+        SYMBOLS["conv_field_i8"])
     if tries > 1:
         log(f"[D] conv_field_i8: the kernel time took {tries} profiles")
-    return dict(
+    quant_ms = profiled_ms(
+        "conv_quant_i8", lambda: conv_score.quantize_i8(kernel, cmap.qinv),
+        SYMBOLS["conv_quant_i8"])
+    out = dict(
         ms=ms, splits=splits,
-        wrapper_ms=median_ms(lambda: conv_score.cost_field_i8(*args)),
+        wrapper_ms=median_ms(lambda: conv_score.conv_field_i8(*quantized)),
         plain_ms=median_ms(lambda: conv_score.cost_field_i8_plain(*args)),
-        library_ms=median_ms(lambda: torch._int_mm(a, b.T)),
-        field_ms=events_ms(lambda: conv_score.cost_field_i8(*args)),
-        library_events_ms=events_ms(lambda: torch._int_mm(a, b.T)),
+        library_ms=median_ms(lambda: torch._int_mm(a, bt.T)),
+        field_ms=events_ms(lambda: conv_score.conv_field_i8(*quantized)),
+        library_events_ms=events_ms(lambda: torch._int_mm(a, bt.T)),
         bound=bound(2.0 * r * r * k_nnz * 2 * s_out, moved, PEAK_INT8_OPS),
         bound_dense=bound(2.0 * r * r * k_dense * 2 * s_out, moved,
                           PEAK_INT8_OPS),
         taps=(k_nnz, k_dense), im2col_bytes=nbytes(a),
+        chunks=(int(nonzero.sum()), nonzero.numel()),
         update_ms=median_ms(update),
     )
+    quant = dict(
+        ms=quant_ms,
+        wrapper_ms=median_ms(lambda: conv_score.quantize_i8(kernel,
+                                                            cmap.qinv)),
+        plain_ms=median_ms(lambda: conv_score.i8_layout(
+            conv_score.quantize_conv_kernel(kernel, cmap.qinv)[0])),
+        library_ms=None,
+        bound=bound(0.0, nbytes(kernel, cmap.qinv[:cp], ints, nonzero,
+                           qscales)),
+    )
+    return out, quant
 
 
 def phase_d2(dev, world, errs):
@@ -3322,12 +3386,12 @@ def main() -> int:
     calls = conv_calls()
     c4_ml = phase_c4(dev, pf, world)
     check(conv_calls() - calls == 40, "C4: not one cost field per update")
-    check(not any(kernels.LAUNCHES[k] for k in CROP + ("conv_field_i8",)),
+    check(not any(kernels.LAUNCHES[k] for k in CROP + CONV_I8),
           f"C4: crop or int8 field launches {kernels.LAUNCHES}")
     log(f"[C4] conv cost fields on its path: {conv_calls() - calls}")
     read_launches("C4", ())
     phase_c7(dev, world, c4_ml)
-    read_launches("C7", ("conv_field_i8",))
+    read_launches("C7", CONV_I8)
 
     log_clocks("D start")
     times, conv = phase_d(dev, pf, world, errs)
@@ -3398,10 +3462,13 @@ def main() -> int:
         f"{conv['build_ms']:.4f} ms, conv update {conv['update_ms']:.4f} ms "
         f"against the crop update {times['crop_score_tracked']['update_ms']:.4f}"
         f" ms ({N} particles, {HW}^2 map) on {name_limit}")
-    i8 = times["conv_field_i8"]
-    log(f"[D] int8 conv field on the same cell (TDR_CONV_INT8=1): kernel "
-        f"{i8['ms']:.4f} ms ({i8['splits']} block(s) a tile), field "
-        f"{i8['field_ms']:.4f} ms (CUDA events; "
+    i8, q8 = times["conv_field_i8"], times["conv_quant_i8"]
+    log(f"[D] int8 conv field on the same cell (TDR_CONV_INT8=1): field "
+        f"kernel {i8['ms']:.4f} ms ({i8['splits']} block(s) a tile, "
+        f"{i8['chunks'][0]} of {i8['chunks'][1]} chunks listed), quantizer "
+        f"kernel {q8['ms']:.4f} ms (bound {q8['bound'][0]:.4f} ms, "
+        f"{q8['bound'][1]}; its plain version {q8['plain_ms']:.4f} ms), the "
+        f"field with its two launches {i8['field_ms']:.4f} ms (CUDA events; "
         f"the float32 cuDNN field {conv['field_ms']:.4f} ms), bound "
         f"{i8['bound'][0]:.4f} ms ({i8['bound'][1]}; {i8['taps'][0]} taps "
         f"with a nonzero integer of {i8['taps'][1]}; dense "

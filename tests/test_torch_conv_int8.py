@@ -24,10 +24,13 @@ version:
   and past the s2d gate, and the mesh keeps it;
 - (g) map_int4=True leaves the int8 field unchanged.
 
-The kernel's indexing (its window, its A and B fragments, the
-mma.m16n8k32 layouts of the PTX ISA, its epilogue) is emulated in numpy
-against the plain version; the kernel itself is held to the plain version
-on the card (tests/test_torch_cuda.py -k conv_field_i8, chip_smoke B5).
+The card kernels' layout (i8_layout, the plain version of what the
+quantizer kernel writes) is held to a numpy build, and the field kernel's
+indexing (its TMA window box, its chunk list and cluster splits, wgmma's
+m64 A and accumulator fragments of the PTX ISA, its epilogue) is emulated
+in numpy against the plain version; the kernels themselves are held to
+their plain versions on the card (tests/test_torch_cuda.py -k "int8 or
+conv_field_i8 or conv_quant_i8", chip_smoke B5).
 """
 
 import jax
@@ -183,89 +186,220 @@ def test_field_and_integers_equal_jax(mo, ww, s0, edge, monkeypatch):
     assert_rel(ref, field, 1e-6, f"field ({differ} values differ)")
 
 
-# -- the kernel's indexing, emulated ---------------------------------------
-KCHUNKS = 4  # chunks a stage of the kernel's ring
+# -- the card kernels' layout and indexing, emulated --------------------------
+@pytest.mark.parametrize("cp", [4, 8])
+@pytest.mark.parametrize("ww", [16, 32, 64])
+def test_i8_layout_equals_numpy(cp, ww):
+    """i8_layout (the plain version of what the quantizer kernel writes and
+    the field kernel's TMA reads) against a numpy build of B[group, chunk,
+    n, b] = ints[s, p, c, dy, dx] at n = 2 s + p (its group's row), k = 32
+    chunk + (b XOR 16 where (n >> 2) is odd: the 32-byte swizzle) = (dy
+    dcp + dx) CP + c, zeros past dc and past 2 S_out, and the chunk flags; quantize_i8 on the CPU is quantize_conv_kernel laid
+    out so.  The groups: the least wgmma int8 widths."""
+    rng = np.random.default_rng(cp + ww)
+    mo = 12
+    dr, dc = cs.conv_dims(mo)
+    s_out = 2 * ww + 1
+    kern = rng.standard_normal((s_out, cp, dr, dc)).astype(np.float32) * (
+        rng.random((s_out, cp, dr, dc)) < 0.5)
+    kern[:, :, 3:7] = 0.0  # whole zero chunks
+    kern = torch.as_tensor(kern).bfloat16().float()
+    qinv = torch.as_tensor(rng.random(cp).astype(np.float32) + 0.1)
+    ints, scales = cs.quantize_conv_kernel(kern, qinv)
+    b, nonzero = cs.i8_layout(ints)
+    groups, width = cs.i8_columns(s_out)
+    assert (groups, width) == {16: (1, 80), 32: (1, 144), 64: (2, 144)}[ww]
+    # an N that wgmma's m64nNk32 .s8 takes: 8, 16, 24, multiples of 16
+    assert width in (8, 16, 24, *range(32, 257, 16))
+    assert groups * width >= 2 * s_out > (groups * width
+                                          - 16 * groups if width > 32
+                                          else 0)
+    dcp = cs.i8_dcp(dc, cp)
+    chunks = dr * dcp * cp // 32
+    want = np.zeros((groups, chunks, width, 32), np.int8)
+    s, p, c, dy, dx = np.meshgrid(*map(np.arange, ints.shape),
+                                  indexing="ij")
+    n = 2 * s + p
+    k = (dy * dcp + dx) * cp + c
+    row = n % width  # its 16-byte halves swapped where (row >> 2) is odd
+    want[n // width, k // 32, row, (k % 32) ^ (16 * ((row >> 2) & 1))] = (
+        np_(ints))
+    assert b.dtype == torch.int8 and b.is_contiguous()
+    np.testing.assert_array_equal(np_(b), want)
+    np.testing.assert_array_equal(np_(nonzero),
+                                  want.reshape(groups, chunks, -1).any(-1))
+    assert 0 < int(nonzero.sum()) < nonzero.numel()
+    qb, qnz, qs = cs.quantize_i8(kern, qinv)
+    assert torch.equal(qb, b) and torch.equal(qnz, nonzero)
+    assert torch.equal(qs, scales)
 
 
-def _emulate_kernel(codes, bfrag, origin, dr, dc, dcp, region, s_out,
+@pytest.mark.parametrize("ww", [8, 24, 48])
+def test_i8_layout_refuses_widths_without_a_kernel(ww):
+    """The layout's groups are a table of W 16, 32 and 64 (the card
+    kernel's instances): any other W raises, in i8_columns and so in
+    i8_layout and quantize_i8 on the CPU too."""
+    s_out = 2 * ww + 1
+    with pytest.raises(ValueError):
+        cs.i8_columns(s_out)
+    ints = torch.zeros((s_out, 2, 4, 10, 10), dtype=torch.int8)
+    with pytest.raises(ValueError):
+        cs.i8_layout(ints)
+    with pytest.raises(ValueError):
+        cs.quantize_i8(torch.zeros((s_out, 4, 10, 10)), torch.ones(4))
+
+
+@pytest.mark.parametrize("mo", [12, 24, 36, 48])
+@pytest.mark.parametrize("cp", [4, 8])
+def test_i8_window_box_covers_the_reads(mo, cp):
+    """The field kernel's window box (i8_window): within TMA's 256 a
+    dimension, and wide enough for every A word a thread reads, from any
+    start of the block's first pixel in its 16-byte group (0 to 16 - CP
+    bytes in)."""
+    dr, dc = cs.conv_dims(mo)
+    dcp = cs.i8_dcp(dc, cp)
+    rows, groups16 = cs.i8_window(dr, dcp, cp)
+    assert rows <= 256 and groups16 <= 256
+    ty, tx = cs.I8_TILE
+    assert rows == ty + dr - 1
+    # the last byte read: row's start xs, chunk kk, centre g + 8, word a3
+    last = (16 - cp) + (dcp * cp - 32) + (tx - 1) * cp + 16 + 3 * 4 + 3
+    assert last < groups16 * 16
+    assert (tx - 1 + dcp - 1) * cp + 15 < groups16 * 16  # the last pixel
+
+
+def test_conv_map_codes_rows_are_whole_16_byte_groups():
+    """ConvMap's codes: a (hp, wp, CP) view of rows padded with zeros to
+    whole 16-byte groups (the card kernel's TMA strides), equal to the
+    padded map, at a width whose rows are not whole groups."""
+    rng = np.random.default_rng(2)
+    for c, width in ((3, 97), (6, 97), (3, 96)):
+        packed = np.zeros((40, width, 8), np.float32)
+        packed[..., : c + 1] = rng.random((40, width, c + 1)) * 30
+        cmap = _conv_map(packed, c, int8=True)
+        cp = crop_score.channel_pad(c)
+        assert cmap.codes.shape == (cmap.hp, cmap.wp, cp)
+        assert cmap.codes.stride(0) % 16 == 0
+        assert cmap.codes.stride()[1:] == (cp, 1)
+        assert cmap.codes.stride(0) - cmap.wp * cp < 16
+        codes, _ = cs.quantize_channels(crop_score.compact_map(
+            torch.as_tensor(packed), c))
+        pad = cmap.pad
+        want = torch.nn.functional.pad(codes, (0, 0, pad, pad, pad, pad))
+        assert torch.equal(cmap.codes, want)
+        rows = torch.as_strided(cmap.codes, (cmap.hp, cmap.codes.stride(0)),
+                                (cmap.codes.stride(0), 1))
+        assert not rows[:, cmap.wp * cp :].any()
+
+
+def _tma_box(rows_flat, xg, y0, groups16, nrows):
+    """A box of the 3-D tensor map (16, pitch / 16, hp) over the codes'
+    rows (hp, pitch) at coordinates (0, xg, y0): nrows x groups16 16-byte
+    groups, zeros out of bounds (TMA's fill)."""
+    hp, pitch = rows_flat.shape
+    ys = y0 + np.arange(nrows)
+    xs = 16 * xg + np.arange(16 * groups16)
+    ok = ((ys >= 0) & (ys < hp))[:, None] & ((xs >= 0) & (xs < pitch))
+    return np.where(ok, rows_flat[np.clip(ys, 0, hp - 1)][
+        :, np.clip(xs, 0, pitch - 1)], 0)
+
+
+def _emulate_kernel(codes, b, nonzero, origin, dr, dc, region, s_out,
                     splits):
-    """csrc/conv_field_i8.cu's reads in numpy: each group's list of the
-    chunks flagged nonzero (the wrapper's flags), cut into `splits` ranges
-    padded to whole stages with the zero chunk after the group's (whose A
-    reads tap row 0); each block's window as it stages it (zeros off the
-    map), each lane's A registers (a0-a3: bytes of the window row) and B
-    registers (the fragment bytes), placed in the m16 x k32 A and k32 x n8
-    B tiles where mma.m16n8k32's fragment layouts (PTX ISA) put them,
-    multiplied, and the products' tiles read back by the epilogue's mapping
-    (accumulators 2h, 2h + 1: centre column g + 8h, column pair n = 2 s +
-    p); the splits' sums added.  Returns the sums (2 S_out, region,
+    """csrc/conv_field_i8.cu's field kernel in numpy: each group's list of
+    the chunks flagged nonzero, cut into `splits` ranges (a cluster's
+    blocks); each block's window as the TMA box from the 16-byte group at
+    or below its first pixel (zeros off the rows); each consumer thread's A
+    words (warp w of warpgroup wg: centre row 4 wg + w; a0 row g, bytes 4 t
+    .., a1 row g + 8, a2 and a3 16 bytes on) placed where wgmma's m64 A
+    fragment puts them (rows 16 w + ...), times the chunk's K-major B rows
+    (read through the 32-byte swizzle);
+    the products' m64 x N tile read back as wgmma's accumulator fragment
+    (register r: row 16 w + g + 8 ((r >> 1) & 1), column 8 (r >> 2) + 2 t +
+    (r & 1)); the cluster's sums added and each pair (hi, lo) written by
+    the split whose share it is, once.  Returns the sums (2 S_out, region,
     region)."""
-    codes = np.asarray(codes).astype(np.int64)
     hp, wp, cp = codes.shape
-    groups, chunks = bfrag.shape[0], bfrag.shape[1] - 1
-    bf = np.asarray(bfrag).reshape(groups, chunks + 1, 9, 32, 8).astype(
+    pitch = codes.stride(0)
+    rows_flat = np_(torch.as_strided(codes, (hp, pitch), (pitch, 1))).astype(
         np.int64)
-    assert not bf[:, chunks].any()
+    dcp = cs.i8_dcp(dc, cp)
     cpr = dcp * cp // 32
+    nrows, groups16 = cs.i8_window(dr, dcp, cp)
+    ty, tx = cs.I8_TILE
+    groups, chunks, width, _ = b.shape
+    # B's rows as wgmma reads them through the 32-byte swizzle
+    rows = np.arange(width)[:, None]
+    bb = np_(b).astype(np.int64)[..., rows, np.arange(32) ^ (
+        16 * ((rows >> 2) & 1))]
+    nz = np_(nonzero)
     lane = np.arange(32)
-    g, t, i = lane // 4, lane % 4, np.arange(4)
-    # B tiles (group, chunk, tile, k32, n8): register q of a lane holds
-    # B[16 q + 4 t + i, g] in bytes 4 q + i
-    b = np.zeros((groups, chunks + 1, 9, 32, 8), np.int64)
-    for q in range(2):
-        b[:, :, :, (16 * q + 4 * t)[:, None] + i, g[:, None]] = (
-            bf[:, :, :, lane[:, None], 4 * q + i])
-    nonzero = bf[:, :chunks].reshape(groups, chunks, -1).any(-1)
-    sums = np.zeros((groups * 72, region, region), np.int64)
-    rows, row_bytes = 8 + dr - 1, (16 + dcp - 1) * cp
+    g, t, i4 = lane // 4, lane % 4, np.arange(4)
+    r = np.arange(width // 2)
+    acc_row = g[:, None] + 8 * ((r >> 1) & 1)  # (lane, register), in a warp
+    acc_col = 8 * (r >> 2) + 2 * t[:, None] + (r & 1)
+    sums = np.zeros((groups * width, region, region), np.int64)
+    written = np.zeros(sums.shape, np.int64)
     for grp in range(groups):
-        listed = np.nonzero(nonzero[grp])[0]
-        for split in range(splits):
-            lo = len(listed) * split // splits
-            hi = len(listed) * (split + 1) // splits
-            kc = np.full(-(-(hi - lo) // KCHUNKS) * KCHUNKS, chunks)
-            kc[: hi - lo] = listed[lo:hi]
-            ka = np.minimum(kc, chunks - 1)
-            dy, kk = ka // cpr, (ka % cpr) * 32
-            for by in range(region // 8):
-                for bx in range(region // 16):
-                    y0 = origin[0] - dr // 2 + by * 8
-                    x0 = origin[1] - dc // 2 + bx * 16
-                    ys = y0 + np.arange(rows)
-                    xs = x0 + np.arange(row_bytes) // cp
-                    ok = (((ys >= 0) & (ys < hp))[:, None]
-                          & ((xs >= 0) & (xs < wp)))
-                    win = np.where(ok, codes[np.clip(ys, 0, hp - 1)][
-                        :, np.clip(xs, 0, wp - 1),
-                        np.arange(row_bytes) % cp], 0)
-                    # A tiles (tile row, chunk, m16, k32): a0 (g, 4t + i),
-                    # a1 (g + 8, 4t + i), a2 (g, 16 + 4t + i), a3 (g + 8,
-                    # 16 + 4t + i)
-                    a = np.zeros((8, len(kc), 16, 32), np.int64)
-                    for dm, dk in ((0, 0), (8, 0), (0, 16), (8, 16)):
-                        src = (g + dm)[:, None] * cp + 4 * t[:, None] + dk + i
-                        a[:, :, (g + dm)[:, None], 4 * t[:, None] + dk + i] = (
-                            win[np.arange(8)[:, None, None, None]
-                                + dy[None, :, None, None],
-                                kk[None, :, None, None] + src[None, None]])
-                    d = np.einsum("rcmk,cnkj->rmnj", a, b[grp, kc])
-                    sums[grp * 72 : grp * 72 + 72, by * 8 : by * 8 + 8,
-                         bx * 16 : bx * 16 + 16] += (
-                        d.reshape(8, 16, 72).transpose(2, 0, 1))
+        listed = np.nonzero(nz[grp])[0]
+        for by in range(region // ty):
+            for bx in range(region // tx):
+                y0 = origin[0] - dr // 2 + by * ty
+                x0 = origin[1] - dc // 2 + bx * tx
+                xg = x0 * cp // 16
+                xs = x0 * cp - 16 * xg
+                win = _tma_box(rows_flat, xg, y0, groups16, nrows)
+                total = np.zeros((2, 4, 32, width // 2), np.int64)
+                for split in range(splits):
+                    lo = len(listed) * split // splits
+                    hi = len(listed) * (split + 1) // splits
+                    for kc in listed[lo:hi]:
+                        dy, kk = kc // cpr, (kc % cpr) * 32
+                        for wg in range(2):
+                            a = np.zeros((64, 32), np.int64)
+                            for w in range(4):
+                                row = win[wg * 4 + w + dy]
+                                base = xs + kk + 4 * t[:, None] + i4
+                                for dm, dk in ((0, 0), (8, 0), (0, 16),
+                                               (8, 16)):
+                                    a[16 * w + g[:, None] + dm,
+                                      dk + 4 * t[:, None] + i4] = row[
+                                        base + (g[:, None] + dm) * cp + dk]
+                            prod = a @ bb[grp, kc].T  # (64, width)
+                            for w in range(4):
+                                total[wg, w] += prod[16 * w + acc_row,
+                                                     acc_col]
+                npair = width // 4
+                for split in range(splits):
+                    for p in range(npair * split // splits,
+                                   npair * (split + 1) // splits):
+                        col = grp * width + 8 * (p >> 1) + 2 * t
+                        x = bx * tx + g + 8 * (p & 1)
+                        for wg in range(2):
+                            for w in range(4):
+                                y = by * ty + wg * 4 + w
+                                for e in range(2):
+                                    sums[col + e, y, x] = total[wg, w, :,
+                                                                2 * p + e]
+                                    written[col + e, y, x] += 1
+    assert (written == 1).all()
     return sums[: 2 * s_out]
 
 
 @pytest.mark.parametrize("c,ww,edge,splits", [(3, 16, False, 1),
                                               (3, 32, True, 3),
-                                              (6, 16, True, 2)])
+                                              (6, 16, True, 2),
+                                              (6, 64, False, 3)])
 def test_kernel_indexing_emulated_equals_plain(c, ww, edge, splits):
-    """The kernel's chunk list and splits, window, fragment and epilogue
-    indexing (emulated) against the plain version's sums, CP 4 and 8, one
+    """The field kernel's chunk list and cluster splits, TMA window box,
+    A fragments, m64 tile, N padding and epilogue (emulated on the
+    quantizer's layout) against the plain version's sums, CP 4 and 8, one
     and two column groups, a block at the map's far corner (the padded tap
-    columns past the map read zeros), a kernel with zero chunks."""
+    columns past the map read TMA's zeros), rows that are not whole
+    16-byte groups, a kernel with zero chunks."""
     rng = np.random.default_rng(c + ww)
-    packed = np.zeros((80, 96, 8), np.float32)
-    packed[..., : c + 1] = rng.random((80, 96, c + 1)) * 40
+    packed = np.zeros((80, 97, 8), np.float32)
+    packed[..., : c + 1] = rng.random((80, 97, c + 1)) * 40
     cmap = _conv_map(packed, c, int8=True)
     mo, region = 12, 32
     dr, dc = cs.conv_dims(mo)
@@ -282,12 +416,11 @@ def test_kernel_indexing_emulated_equals_plain(c, ww, edge, splits):
     field, sums = cs.cost_field_i8(cmap.codes, ints, scales,
                                    torch.tensor(origin), mo, region, sums=True)
     assert sums.dtype == torch.int32 and sums.shape == (2 * s_out, 32, 32)
-    bfrag = cs.b_fragments(ints)
-    nonzero = bfrag[:, :-1].reshape(bfrag.shape[0], bfrag.shape[1] - 1,
-                                    -1).ne(0).any(-1)
+    b, nonzero, qscales = cs.quantize_i8(kern, cmap.qinv)
+    assert torch.equal(qscales, scales)
     assert 0 < int(nonzero.sum()) < nonzero.numel()
-    got = _emulate_kernel(cmap.codes, bfrag, origin, dr, dc,
-                          cs.i8_dcp(dc, cp), region, s_out, splits)
+    got = _emulate_kernel(cmap.codes, b, nonzero, origin, dr, dc, region,
+                          s_out, splits)
     np.testing.assert_array_equal(got, np_(sums))
     hi, lo = got.reshape(s_out, 2, region, region).transpose(1, 0, 2, 3)
     s = np_(scales)[..., None, None]
@@ -295,6 +428,9 @@ def test_kernel_indexing_emulated_equals_plain(c, ww, edge, splits):
                      torch.as_tensor(s[:, 0]),
                      torch.as_tensor(lo.astype(np.float32) * s[:, 1]))
     assert torch.equal(deq, field)
+    f2, s2 = cs.conv_field_i8(cmap.codes, cmap.qinv, kern,
+                              torch.tensor(origin), mo, region, sums=True)
+    assert torch.equal(f2, field) and torch.equal(s2, sums)
 
 
 def test_fma_f32_rounds_once():

@@ -4,8 +4,9 @@ gather at any byte, the tensor-core products on every route and split,
 the crop ablations of the tracked kernel and the theta search), and the
 crop kernels on the nibble-packed code map (TDR_MAP_INT4=1) and with the
 single-plane M (TDR_M_HILO=0), against their plain versions, the conv path (cuDNN) against a float64
-convolution and against the CPU, its int8 field (TDR_CONV_INT8=1)
-against its plain version and against the CPU, the node (its plans, publish and
+convolution and against the CPU, its int8 field (TDR_CONV_INT8=1: the
+quantizer kernel and the field kernel) against their plain versions and
+against the CPU, the node (its plans, publish and
 snapshot copy, the PNG map), the SVG rasteriser and the refinement's
 count sweep against the CPU, on the card.
 
@@ -650,6 +651,53 @@ def test_conv_step_on_card_matches_cpu(dev, mode):
     assert_rel(np_(cpu.ml_state), np_(gpu.ml_state), 1e-5, "ml_state")
 
 
+def _conv_i8_kernel(dev, c, ww, mo, seed):
+    """The int8 ConvMap of _world's map of c classes and the tracked conv
+    kernel of its scan at the bucket's f, window [95, 95 + W)."""
+    packed, sten, scan, cw, _, _ = _world(dev, c, seed)
+    cmap = cs_conv.ConvMap(cs.compact_map(packed, c), int8=True)
+    kernel = cs_conv.build_conv_kernel(scan, cw, sten, mo / 24.0, mo,
+                                       "tracked", window_w=ww, s0=95)
+    return packed, cmap, kernel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,ww,mo", [(3, 16, 24), (3, 32, 12), (6, 64, 24),
+                                     (6, 32, 48), (3, 16, 36), (6, 16, 12)])
+def test_conv_quant_i8_kernel_matches_plain(dev, c, ww, mo):
+    """The quantize-and-layout kernel (one launch, counted) against its
+    plain version on the card (quantize_conv_kernel laid out by
+    i8_layout) and on the CPU: B, the chunk flags and the scales bit for
+    bit, twice."""
+    packed, cmap, kernel = _conv_i8_kernel(dev, c, ww, mo, 13)
+    before = kernels.LAUNCHES["conv_quant_i8"]
+    b, nonzero, scales = cs_conv.quantize_i8(kernel, cmap.qinv)
+    b2, nonzero2, scales2 = cs_conv.quantize_i8(kernel, cmap.qinv)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["conv_quant_i8"] == before + 2
+    ints, ref_scales = cs_conv.quantize_conv_kernel(kernel, cmap.qinv)
+    ref_b, ref_nonzero = cs_conv.i8_layout(ints)
+    cpu = cs_conv.quantize_i8(kernel.cpu(), cmap.qinv.cpu())
+    assert torch.equal(b, ref_b) and torch.equal(b.cpu(), cpu[0])
+    assert torch.equal(nonzero, ref_nonzero)
+    assert torch.equal(nonzero.cpu(), cpu[1])
+    assert torch.equal(scales.view(torch.int32), ref_scales.view(torch.int32))
+    assert torch.equal(scales.cpu().view(torch.int32),
+                       cpu[2].view(torch.int32))
+    assert torch.equal(b2, b) and torch.equal(nonzero2, nonzero)
+    assert torch.equal(scales2.view(torch.int32), scales.view(torch.int32))
+    assert 0 < int(nonzero.sum()) < nonzero.numel()
+
+
+def _field_on_ints(codes, ints, scales, origin, mo, region, sums=False,
+                   splits=None):
+    """The field kernel alone on integers quantized before, laid out by
+    the plain layout: (field, sums or None)."""
+    return cs_conv.launch_field_i8(codes, *cs_conv.i8_layout(ints), scales,
+                                   origin, mo, region, ints.shape[0], sums,
+                                   splits)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("c,ww,mo,region,edge", [
     (3, 16, 24, 128, None), (3, 32, 12, 64, "low"), (6, 64, 24, 64, "high"),
@@ -659,12 +707,11 @@ def test_conv_field_i8_kernel_matches_plain(dev, c, ww, mo, region, edge):
     """The int8 conv field's kernel against its plain version on the card:
     the int32 sums and the field bit for bit, and a second launch on the
     same inputs bit for bit; each launch counted; the chunks split over 1
-    and 3 blocks a tile (partial sums added by the second kernel) as
-    well.  The codes and the quantized kernel on the card equal the CPU's."""
-    packed, sten, scan, cw, _, _ = _world(dev, c, 11)
-    cmap = cs_conv.ConvMap(cs.compact_map(packed, c), int8=True)
-    kernel = cs_conv.build_conv_kernel(scan, cw, sten, mo / 24.0, mo,
-                                       "tracked", window_w=ww, s0=95)
+    and 3 blocks a tile (a cluster) as well; on the integers quantized
+    before (laid out by i8_layout) and by the quantizer kernel
+    (conv_field_i8).  The codes and the quantized kernel on the card equal
+    the CPU's."""
+    packed, cmap, kernel = _conv_i8_kernel(dev, c, ww, mo, 11)
     ints, scales = cs_conv.quantize_conv_kernel(kernel, cmap.qinv)
     cpu_map = cs_conv.ConvMap(cs.compact_map(packed.cpu(), c), int8=True)
     cpu_ints, cpu_scales = cs_conv.quantize_conv_kernel(kernel.cpu(),
@@ -677,11 +724,11 @@ def test_conv_field_i8_kernel_matches_plain(dev, c, ww, mo, region, edge):
     origin = {None: (90, 100), "low": (dr // 2, dc // 2),
               "high": (cmap.hp - (region + dr - 1) + dr // 2,
                        cmap.wp - (region + dc - 1) + dc // 2)}[edge]
-    args = (cmap.codes, ints, scales, torch.tensor(origin, device=dev), mo,
-            region)
+    origin = torch.tensor(origin, device=dev)
+    args = (cmap.codes, ints, scales, origin, mo, region)
     before = kernels.LAUNCHES["conv_field_i8"]
-    got, sums = cs_conv.cost_field_i8(*args, sums=True)
-    again = cs_conv.cost_field_i8(*args)
+    got, sums = _field_on_ints(*args, sums=True)
+    again, _ = _field_on_ints(*args)
     ref, ref_sums = cs_conv.cost_field_i8_plain(*args)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["conv_field_i8"] == before + 2
@@ -689,12 +736,15 @@ def test_conv_field_i8_kernel_matches_plain(dev, c, ww, mo, region, edge):
     assert torch.equal(sums, ref_sums)
     assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
     assert torch.equal(got.view(torch.int32), again.view(torch.int32))
-    for splits in (1, 3):
-        field, split_sums = cs_conv.cost_field_i8(*args, sums=True,
-                                                  splits=splits)
-        torch.cuda.synchronize()
-        assert torch.equal(split_sums, ref_sums), splits
-        assert torch.equal(field.view(torch.int32), ref.view(torch.int32))
+    quantized = (cmap.codes, cmap.qinv, kernel, origin, mo, region)
+    for splits in (None, 1, 3):
+        for field, split_sums in (
+                _field_on_ints(*args, sums=True, splits=splits),
+                cs_conv.conv_field_i8(*quantized, sums=True, splits=splits)):
+            torch.cuda.synchronize()
+            assert torch.equal(split_sums, ref_sums), splits
+            assert torch.equal(field.view(torch.int32),
+                               ref.view(torch.int32)), splits
 
 
 @pytest.mark.cuda
@@ -706,15 +756,70 @@ def test_conv_field_i8_wrapper_refuses_what_the_kernel_cannot_take(dev):
     ints, scales = cs_conv.quantize_conv_kernel(kernel, cmap.qinv)
     origin = torch.tensor([60, 60], device=dev)
     with pytest.raises(ValueError):
-        cs_conv.cost_field_i8(cmap.codes, ints, scales, origin, 12, 40)
+        _field_on_ints(cmap.codes, ints, scales, origin, 12, 40)
     with pytest.raises(ValueError):
-        cs_conv.cost_field_i8(cmap.codes.float(), ints, scales, origin, 12,
-                              64)
+        _field_on_ints(cmap.codes.float(), ints, scales, origin, 12, 64)
     with pytest.raises(ValueError):
-        cs_conv.cost_field_i8(cmap.codes, ints, scales, origin, 24, 64)
+        _field_on_ints(cmap.codes, ints, scales, origin, 24, 64)
     with pytest.raises(ValueError):
-        cs_conv.cost_field_i8(cmap.codes, ints, scales.double(), origin, 12,
-                              64)
+        _field_on_ints(cmap.codes, ints, scales.double(), origin, 12, 64)
+    # rows that are not whole 16-byte groups (TMA's strides)
+    odd = cmap.codes[:, 1:].contiguous()
+    assert odd.stride(0) % 16
+    with pytest.raises(ValueError):
+        _field_on_ints(odd, ints, scales, origin, 12, 64)
+    # the field on integers quantized before is the CPU's way in only
+    with pytest.raises(ValueError):
+        cs_conv.cost_field_i8(cmap.codes, ints, scales, origin, 12, 64)
+    # W 48: 194 columns, a width the kernel has no instance of
+    # (conv_score.I8_COLUMNS)
+    wide = cs_conv.build_conv_kernel(scan, cw, sten, 0.5, 12, "tracked",
+                                     window_w=48)
+    with pytest.raises(ValueError):
+        cs_conv.conv_field_i8(cmap.codes, cmap.qinv, wide, origin, 12, 64)
+    with pytest.raises(ValueError):
+        cs_conv.quantize_i8(kernel.double(), cmap.qinv)
+
+
+@pytest.mark.cuda
+def test_int8_conv_update_launches_each_kernel_once(dev, monkeypatch):
+    """A conv-tracked update on the int8 route launches the quantizer
+    kernel once and the field kernel once, and calls no eager quantizer or
+    layout (both replaced by functions that raise); the int8 field with
+    its quantization synchronises nothing (sync debug mode "error")."""
+    d = synthetic_setup(512, h=128, w=128, seed=5, cluster=(30, 40, 60))
+    d["state"]["particles"]["have_init"][:] = True
+    step = ft.make_update_step_fast(d["params"], 3, 1.0, 100, 512,
+                                    "tracked", gmm_every=1, path="conv",
+                                    mo=24, region=64, window_w=16,
+                                    conv_int8=True)
+    maps, *args = [torch.as_tensor(d[k], device=dev)
+                   for k in ("packed", "map_size", "stencil", "scan")]
+    cmap = cs_conv.ConvMap(cs.compact_map(maps, 3), int8=True)
+    kernel = cs_conv.build_conv_kernel(args[2], torch.ones(3, device=dev),
+                                       args[1], 1.0, 24, "tracked",
+                                       window_w=16, s0=90)
+    origin = torch.tensor([70, 70], device=dev)
+    cs_conv.conv_field_i8(cmap.codes, cmap.qinv, kernel, origin, 24, 64)
+    torch.cuda.synchronize()
+
+    def eager(*a, **k):
+        raise AssertionError("an eager quantization or layout call")
+
+    monkeypatch.setattr(cs_conv, "quantize_conv_kernel", eager)
+    monkeypatch.setattr(cs_conv, "i8_layout", eager)
+    before = dict(kernels.LAUNCHES)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cs_conv.conv_field_i8(cmap.codes, cmap.qinv, kernel, origin, 24, 64)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    st = filter_state_from_numpy(d["state"], dev)
+    step(st, cmap, *args, 0.5, 2.0, 90, shift=0.25)
+    torch.cuda.synchronize()
+    got = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    assert got == {k: 2 * (k in ("conv_quant_i8", "conv_field_i8"))
+                   for k in before}, got
 
 
 @pytest.mark.cuda
@@ -732,6 +837,7 @@ def test_int8_conv_step_on_card_matches_cpu(dev, ww):
                                     conv_int8=True)
     outs = []
     before = kernels.LAUNCHES["conv_field_i8"]
+    before_q = kernels.LAUNCHES["conv_quant_i8"]
     for device in ("cpu", dev):
         maps, *args = [torch.as_tensor(d[k], device=device)
                        for k in ("packed", "map_size", "stencil", "scan")]
@@ -740,6 +846,7 @@ def test_int8_conv_step_on_card_matches_cpu(dev, ww):
                                              int8=True),
                          *args, 0.5, 2.0, 90, shift=0.25))
     assert kernels.LAUNCHES["conv_field_i8"] == before + 1
+    assert kernels.LAUNCHES["conv_quant_i8"] == before_q + 1
     cpu, gpu = outs
     assert int(gpu.n_active) == int(cpu.n_active)
     rows_c = np_(torch.cat(

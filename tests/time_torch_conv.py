@@ -3,20 +3,24 @@
 Builds chip_smoke.py's 102,400-particle filter (1024^2 class-map world,
 res 0.5, fixed scale 2) and its cloud clustered to 100 px with a 0.15 rad
 theta band (the conv cell: region 128, mo 24, a window of 16 shifts), and
-times, in three rounds of turns, the median of 20 synchronised updates
-from the same state (step 1: no GMM refit) on each path: the crop path
+times, in ROUNDS rounds of turns (default 3), the median of 20
+synchronised updates from the same state (step 1: no GMM refit) on each path: the crop path
 (the conv region withheld from the dispatch), the conv path reading its
 host snapshot afresh (as the update of a state no update made does), and
 the conv path with the state's snapshot copy made, as the update that
 made it leaves it, and that update with the int8 field (a filter made
-with conv_int8=True, TDR_CONV_INT8=1).  Then the medians of 20
+with conv_int8=True, TDR_CONV_INT8=1), and the quartiles over the rounds
+of the int8 update's median less the float32 one's (both with the
+snapshot kept, one after the other in each round).  Then the medians of 20
 synchronised calls of the conv update's parts: the snapshot read, the
 dispatch's plan with the snapshot kept, the kernel build, the cost field,
-the whole conv scorer; the int8 field's parts: the kernel's quantization,
-its fragment layout, the int8 cost field, the int8 conv scorer; and
+the whole conv scorer; the int8 field's parts: the kernel's quantization
+and its layout by their plain versions, the quantizer kernel, the field
+kernel alone (on the quantizer's outputs) and with its quantization (the
+two launches), the int8 conv scorer; and
 beside them the crop path's tracked scorer.
 
-    python tests/time_torch_conv.py
+    python tests/time_torch_conv.py [ROUNDS]
 """
 
 from __future__ import annotations
@@ -77,7 +81,10 @@ def main() -> int:
                 filt.__dict__.pop("_conv_region", None)
         return run
 
-    for rnd in range(3):
+    rounds = int(sys.argv[1]) if len(sys.argv) > 1 else 3
+    diffs = []
+    for rnd in range(rounds):
+        got = {}
         for label, fn in (("crop update", update("crop")),
                           ("conv update, snapshot read afresh",
                            update("conv")),
@@ -85,7 +92,14 @@ def main() -> int:
                            update("conv", fresh=False)),
                           ("conv update, int8 field, snapshot kept",
                            update("conv", fresh=False, filt=pf8))):
-            print(f"round {rnd}: {label}: {median_ms(fn):.4f} ms")
+            got[label] = median_ms(fn)
+            print(f"round {rnd}: {label}: {got[label]:.4f} ms")
+        diffs.append(got["conv update, int8 field, snapshot kept"]
+                     - got["conv update, snapshot kept"])
+    q1, q2, q3 = np.percentile(diffs, [25, 50, 75])
+    print(f"int8 less float32 conv update over {rounds} rounds: quartiles "
+          f"{q1:.4f} / {q2:.4f} / {q3:.4f} ms, range {min(diffs):.4f} to "
+          f"{max(diffs):.4f} ms, {sum(d < 0 for d in diffs)} rounds below 0")
 
     pf.state, pf._all_have_init = clustered, True
     plan = pf._fast_mode(smoke.RES)
@@ -101,7 +115,8 @@ def main() -> int:
     scorer8 = conv_score.make_conv_scorer(plan.mo, plan.region, "tracked",
                                           window_w=plan.ww, conv_int8=True)
     cmap8 = pf8._get_conv_map()
-    ints, scales = conv_score.quantize_conv_kernel(kernel, cmap8.qinv)
+    ints = conv_score.quantize_conv_kernel(kernel, cmap8.qinv)[0]
+    laid = conv_score.quantize_i8(kernel, cmap8.qinv)
     parts = {
         "snapshot read": lambda: ft._snapshot_vec(clustered).cpu(),
         "plan, snapshot kept": lambda: pf._fast_mode(smoke.RES),
@@ -112,11 +127,16 @@ def main() -> int:
             cmap.padded, kernel, origin, plan.mo, plan.region),
         "conv scorer": lambda: scorer(cmap, sten, scan, cw, p.pose_px(),
                                       p.theta, f, p.alive, plan.s0),
-        "int8 quantizer": lambda: conv_score.quantize_conv_kernel(
+        "int8 quantizer, plain": lambda: conv_score.quantize_conv_kernel(
             kernel, cmap8.qinv),
-        "int8 fragment layout": lambda: conv_score.b_fragments(ints),
-        "int8 cost field": lambda: conv_score.cost_field_i8(
-            cmap8.codes, ints, scales, origin, plan.mo, plan.region),
+        "int8 layout, plain": lambda: conv_score.i8_layout(ints),
+        "int8 quantizer kernel": lambda: conv_score.quantize_i8(
+            kernel, cmap8.qinv),
+        "int8 field kernel alone": lambda: conv_score.launch_field_i8(
+            cmap8.codes, *laid, origin, plan.mo, plan.region,
+            ints.shape[0]),
+        "int8 cost field, two launches": lambda: conv_score.conv_field_i8(
+            cmap8.codes, cmap8.qinv, kernel, origin, plan.mo, plan.region),
         "int8 conv scorer": lambda: scorer8(cmap8, sten, scan, cw,
                                             p.pose_px(), p.theta, f,
                                             p.alive, plan.s0),

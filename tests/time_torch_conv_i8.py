@@ -6,11 +6,17 @@ The cell is chip_smoke D's clustered conv cell in shape: a 1024^2 map of C
 classes (random distances, seed 0), the tracked kernel of the polar
 stencil (Th x R = 100 x 25) at the conv bucket's f, window W at 95, the
 block of `region` centres at (500, 500): by default region 128, mo 24, C
-3 (CP 4), W 16.  Five rounds of 20 calls of the field under torch.profiler
+3 (CP 4), W 16.  Five rounds of 20 calls of the field on quantized
+integers (the field kernel alone, launch_field_i8, on the plain layout;
+cost_field_i8 where the tree has no launch_field_i8) under torch.profiler
 (after 3 warm-up calls) give the device time of its kernels (every event
-whose name holds "conv_field_i8": with K split, the partial sums' kernel
-too) a call; CUDA events around 20 calls give the field with its wrapper,
-and the same for torch._int_mm (im2col built before) and the cuDNN field.
+whose name holds "conv_field_i8": where a tree splits K over a second
+kernel, that one too) a call; where the tree has the quantizer kernel (conv_quant_i8), its
+device time the same way.  CUDA events around 20 calls give the field
+with its wrapper, the field with its quantization as the int8 scorer
+computes it (quantize_conv_kernel and cost_field_i8, or conv_field_i8's
+two launches where the tree has them), torch._int_mm (im2col built
+before) and the cuDNN field.
 Each round's field must equal the plain version's bit for bit; the field's
 SHA-256 is printed, so that two checkouts can be compared.  --splits N
 sets the kernel's split of its chunks over N blocks a tile (default: its
@@ -53,9 +59,9 @@ from top_down_renderer_torch.probes.__main__ import events_ms  # noqa: E402
 ROUNDS, RUNS, HW = 5, 20, 1024
 
 
-def device_ms(fn) -> dict:
+def device_ms(fn, name="conv_field_i8") -> dict:
     """The device time a call of fn of each kernel whose name holds
-    conv_field_i8, under torch.profiler (runs calls after 3 warm-up)."""
+    `name`, under torch.profiler (runs calls after 3 warm-up)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -69,9 +75,9 @@ def device_ms(fn) -> dict:
         torch.cuda.synchronize()
     ms = {e.key.split("(")[0]: e.device_time_total / RUNS / 1e3
           for e in prof.key_averages()
-          if e.device_type == DeviceType.CUDA and "conv_field_i8" in e.key}
+          if e.device_type == DeviceType.CUDA and name in e.key}
     if not ms:
-        raise RuntimeError("the profile holds no conv_field_i8 kernel")
+        raise RuntimeError(f"the profile holds no {name} kernel")
     return ms
 
 
@@ -99,11 +105,21 @@ def main() -> int:
     args = (cmap.codes, ints, scales, origin, mo, region)
     kw = {} if ARGS.splits is None else {"splits": ARGS.splits}
     ref, _ = conv_score.cost_field_i8_plain(*args)
+    if hasattr(conv_score, "launch_field_i8"):  # the field kernel alone
+        laid = conv_score.i8_layout(ints)
+
+        def field():
+            return conv_score.launch_field_i8(
+                cmap.codes, *laid, scales, origin, mo, region, ints.shape[0],
+                **kw)[0]
+    else:
+        def field():
+            return conv_score.cost_field_i8(*args, **kw)
     rounds, parts, digest = [], [], None
     for _ in range(ROUNDS):
-        parts.append(device_ms(lambda: conv_score.cost_field_i8(*args, **kw)))
+        parts.append(device_ms(field))
         rounds.append(sum(parts[-1].values()))
-        got = conv_score.cost_field_i8(*args, **kw)
+        got = field()
         torch.cuda.synchronize()
         if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
             raise RuntimeError("the field differs from the plain version's")
@@ -117,13 +133,31 @@ def main() -> int:
     b = torch.zeros((-(-2 * s_out // 8) * 8, a.shape[1]), dtype=torch.int8,
                     device=dev)
     b[: 2 * s_out] = ints.permute(0, 1, 3, 4, 2).reshape(2 * s_out, -1)
+    if hasattr(conv_score, "conv_field_i8"):  # the quantizer on the card
+        def quantized():
+            return conv_score.conv_field_i8(cmap.codes, cmap.qinv, kernel,
+                                            origin, mo, region, **kw)
+        quant = device_ms(lambda: conv_score.quantize_i8(kernel, cmap.qinv),
+                          "conv_quant_i8")
+    else:
+        def quantized():
+            return conv_score.cost_field_i8(
+                cmap.codes, *conv_score.quantize_conv_kernel(
+                    kernel, cmap.qinv), origin, mo, region, **kw)
+        quant = None
+    got = quantized()
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+        raise RuntimeError("the quantized field differs from the plain one")
     print(json.dumps({
         "root": ROOT, "region": region, "mo": mo, "classes": c, "ww": ww,
         "splits": ARGS.splits,
         "kernel_ms": sorted(rounds), "median_ms": float(np.median(rounds)),
         "by_kernel": {k: float(np.median([p[k] for p in parts]))
                       for k in parts[0]},
-        "field_ms": events_ms(lambda: conv_score.cost_field_i8(*args, **kw)),
+        "quant_kernel_ms": quant,
+        "field_ms": events_ms(field),
+        "quantized_field_ms": events_ms(quantized),
         "int_mm_ms": events_ms(lambda: torch._int_mm(a, b.T)),
         "cudnn_f32_ms": events_ms(lambda: conv_score.cost_field(
             cmap.padded, kernel, origin, mo, region)),

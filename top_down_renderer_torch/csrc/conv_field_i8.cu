@@ -1,11 +1,13 @@
-// The int8 conv cost field of the clustered cloud, for Hopper (sm_90a).
+// The int8 conv cost field of the clustered cloud, for Hopper (sm_90a): one
+// kernel quantizes the float conv kernel and lays its integers out for the
+// GEMM, a second computes the field on wgmma fed by TMA.
 //
 // Replaces: top_down_renderer_tpu/filter/conv_score.py::
 // cost_field_s2d_split_i8 (TDR_CONV_INT8=1), an XLA contraction, not a
 // Pallas kernel: the int8 map (per-channel codes, quantize_channels) against
-// the conv kernel's columns quantized to hi/lo int8 pairs, summed in int32,
-// dequantized in float32.  For the centre (y, x) of a (region, region) block
-// whose top-left centre is (oy, ox) on the padded map:
+// the conv kernel's columns quantized to hi/lo int8 pairs (:588-606), summed
+// in int32, dequantized in float32.  For the centre (y, x) of a (region,
+// region) block whose top-left centre is (oy, ox) on the padded map:
 //
 //   acc[s, p, y, x] = sum_{dy, dx, c} codes[oy - dr/2 + y + dy,
 //                                           ox - dc/2 + x + dx, c]
@@ -18,90 +20,134 @@
 // (conv_score.fma_f32, tests/test_torch_conv_int8.py).
 //
 // Range: codes are at most 126 in magnitude and the integers at most 127,
-// so a sum over the dr dc CP taps (98 x 98 x 8 = 76,832 at mo 48, CP 8; the
-// stencil's Th R cells reach fewer) stays below 76,832 x 126 x 127 =
-// 1.23e9 < 2^31: the int32 sums, and any partial sums of them, are exact,
-// and so equal the plain version's bit for bit, in any order.
+// so a sum over the dr dc CP taps (98 x 98 x 8 = 76,832 at mo 48, CP 8)
+// stays below 76,832 x 126 x 127 = 1.23e9 < 2^31: the int32 sums, and any
+// partial sums of them, are exact, and so equal the plain version's bit for
+// bit, in any order.
 //
-// Formulation: an implicit GEMM on the tensor cores, M = region^2 centres,
-// K = dr x dcp x CP taps in the order (dy, dx, c), N = 2 S_out columns in
-// the order (s, p), so that a column's hi and lo land in one thread's pair
-// of accumulators.  dx runs to dcp, dc rounded up to 32 / CP, so that a
-// k32 chunk of a centre's A row is 32 contiguous bytes of one window row
-// ((hp, wp, CP) codes: a pixel's channels contiguous); the columns past dc
-// hold zero integers.  No im2col in device memory: a block stages its
-// centres' map window in shared memory once and reads every A fragment of
-// every tap from it.
+// The GEMM: M = region^2 centres, K = dr x dcp x CP taps in the order (dy,
+// dx, c), N = 2 S_out columns in the order n = 2 s + p.  dx runs to dcp, dc
+// rounded up to 32 / CP, so that a k32 chunk of a centre's A row is 32
+// contiguous bytes of one window row ((hp, wp, CP) codes: a pixel's
+// channels contiguous); the columns past dc hold zero integers.  The
+// columns go in groups of NP, the least width wgmma takes for .s8 (8, 16,
+// 24, then multiples of 16 to 256) that holds 2 S_out, in as few groups as
+// 256 allows: W 16 one group of 80 (66 columns), W 32 one of 144 (130), W
+// 64 two of 144 (258).  conv_score.I8_COLUMNS lists them.
 //
-// Block: 128 threads (4 warps) own 8 rows x 16 columns of centres and one
-// group of 72 columns (9 n8 tiles; W = 16 has one group, 32 two, 64 four).
-// Warp w holds rows 2w, 2w + 1 (two m16 tiles: 16 centres of a row each)
-// against the 9 tiles: 72 int32 accumulators a thread.  The integers come in
-// the fragment order of mma.m16n8k32 (the wrapper's b_fragments): per k32
-// chunk and tile, a lane's two B registers are 8 contiguous bytes, so a
-// chunk of a group is one run of 2,304 bytes, staged by cp.async in a ring of
-// kStages buffers of kChunks chunks.  The product is
-// mma.sync.m16n8k32.s32.s8.s8.s32 (IMMA).
+// 1. conv_quant_i8_kernel (tdr_conv_quant_i8): exactly
+//    conv_score.quantize_conv_kernel, then the layout: kq = kernel qinv[c];
+//    amax = max(max |kq|, 1e-30) a column; s_hi = amax f32(1/127), s_lo =
+//    amax f32(1/32258); hi = clip(rint(kq / s_hi), -127, 127); lo =
+//    clip(rint(fma(kernel, qinv, -hi s_hi) / s_lo), -127, 127).  Every
+//    product, division and FMA is an _rn intrinsic, so that nvcc's
+//    contraction of products and sums into FMAs (its default) changes no
+//    bit; the one FMA is the one XLA contracted.  One cooperative launch:
+//    stage 1 a block a slice of 4,096 values of a column (its max |kq|); a
+//    grid barrier; stage 2 a block a (group, chunk): the group's columns'
+//    amax from their slices, their scales, the chunk's NP rows of 32 bytes
+//    of B (K-major, each row in the 32-byte swizzle that wgmma reads: the
+//    layout the field kernel's TMA copies as it is) and its flag, 1 where
+//    an integer of the chunk is not zero (the block's OR).  A max and an
+//    OR: no atomics, the same bits in any order.  Bound: bytes, the float
+//    kernel and qinv read once and the integers (2 S_out CP dr dc bytes,
+//    without B's padding), flags and scales written once (D's cell: 1.32
+//    MB + 0.66 MB, 0.59 us at 3.35 TB/s).
 //
-// Against the first design (one block a tile running every chunk, 2 chunks
-// a stage, 3 stages: 0.096 ms at region 128, mo 24, W 16; this one 0.054
-// ms, tests/time_torch_conv_i8.py on an H100 at 700 W), a ring of 4 stages
-// of 4 chunks and two choices:
-// - Only the chunks with a nonzero integer run (the stencil is a disc: about
-//   half of the dense taps are zero there).  The wrapper flags them per
-//   group; each block lists them in shared memory (a warp's ballots), so the
-//   list costs no launch.
-// - The listed chunks split over `splits` blocks a tile
-//   (tdr_conv_field_i8_splits: as many as one wave holds), so that a small region still
-//   puts several blocks on each SM to hide the products' and the ring's
-//   latency.  With one split the block writes the field; with more, each
-//   writes its int32 partial sums and conv_field_i8_sum_kernel adds them
-//   (exact: integers) and writes the field.  More splits than a wave holds
-//   lost (3 a tile 0.054 ms, 5 0.073 at region 128).
+// 2. conv_field_i8_kernel (tdr_conv_field_i8): a block owns 8 rows x 16
+//    columns of centres and one column group, and runs
+//    - one producer warp (an elected lane): the block's window of codes,
+//      (8 + dr - 1) rows of the (hp, wp, CP) map, by one TMA box of a 3-D
+//      tensor map over its 16-byte groups, from the group at or below the
+//      block's first pixel (TMA's coordinates and strides are whole 16-byte
+//      groups: ConvMap pads the codes' row pitch to a multiple of 16 bytes,
+//      and the wrapper refuses codes whose pitch is not); TMA's
+//      out-of-bounds zero fill stands for the map's edges.  Then B: one box
+//      a listed chunk, its NP x 32 bytes as NP / 4 rows of 128, into a
+//      ring of kStages stages of kChunks chunks on full/empty mbarriers.
+//      Only the chunks flagged nonzero are listed (warp 0's ballots over
+//      flags all threads stage) and fetched;
+//    - two consumer warpgroups, each an m64 tile of 4 centre rows x 16
+//      (warp w the 16 centres of row w, as wgmma's A fragment puts rows 16 w
+//      .. 16 w + 15), issuing wgmma.mma_async m64nNPk32 .s32.s8.s8 with A
+//      from registers (each thread reads its four A words a chunk from the
+//      window by ld.shared) and B from the ring by descriptor.  A stage's
+//      chunks are one commit group, and the next stage's A words are read
+//      while it runs (two groups in flight).  The loop is kept short, since
+//      with a few warps a scheduler its dependent bookkeeping sets the pace
+//      (a division and generic loads a chunk cost more than the products):
+//      each listed chunk's window offset is computed once by the lister,
+//      and the loop is unrolled over the ring's four slots, whose offsets
+//      are then compile-time.
+//    The listed chunks of a tile split over `splits` blocks (one wave of the
+//    card, tdr_conv_field_i8_splits), a cluster of `splits` blocks along z:
+//    each puts its accumulators in its shared memory, and after a cluster
+//    barrier each adds its share of the cluster's through distributed
+//    shared memory (int32: exact) and writes it, so the split costs no
+//    second kernel and no partial sums in device memory.
+//    Bound on an H100: operations, 2 region^2 K N at 1,979 TOP/s int8 (D's
+//    cell, region 128, mo 24, CP 4, W 16: 0.0051 ms on the 4,634 taps with
+//    a nonzero integer, 0.0109 dense); the bytes (window, integers, field)
+//    are 2.6 MB there, 0.8 us.
 //
-// Bound on an H100: operations, 2 region^2 K N at 1,979 TOP/s int8 (21.6 G
-// at region 128, mo 24, CP 4, W 16 on the dense K and N: 0.011 ms; on the
-// taps with a nonzero integer less); the bytes (the window, the integers,
-// the field) are 2.6 MB there, 0.8 us.  wgmma fed by TMA is later work.
+// The ring's offsets are compile-time (NP, kChunks, kStages): the window
+// probe's variants (probes/variants.py) lose 28 % with barrier offsets
+// computed at run time.  A wait that outlasts about ten seconds traps
+// (tma.cuh), so a broken pipeline fails its launch.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tma.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kTileY = 8;   // centre rows a block
-constexpr int kTileX = 16;  // centre columns a block (one m16 tile a row)
-constexpr int kNt = 9;      // n8 tiles a block: a group of 72 columns
-constexpr int kCols = kNt * 8;
-constexpr int kChunkBytes = kNt * 32 * 8;  // B of one k32 chunk, one group
-constexpr int kChunks = 4;  // chunks a stage
+namespace cg = cooperative_groups;
+
+constexpr int kConsumers = 2;  // warpgroups, an m64 tile (4 centre rows)
+                               // each
+constexpr int kConsumerThreads = kConsumers * 128;
+constexpr int kThreads = kConsumerThreads + 32;  // + the producer warp
+constexpr int kProducer = kConsumers * 4;         // the producer's warp
+constexpr int kTileY = 4 * kConsumers;  // centre rows a block
+constexpr int kTileX = 16;              // centre columns a block
+constexpr int kChunks = 4;  // k32 chunks a ring stage and a commit group
 constexpr int kStages = 4;
-constexpr int kStageBytes = kChunks * kChunkBytes;
 constexpr int kMaxChunks = 2560;  // dr dcp CP / 32 at mo 48, CP 8: 2,450
+constexpr int kMaxSplits = 8;     // a portable cluster
+constexpr int kQuantThreads = 256;
+constexpr int kQuantSlice = 4096;  // values of a column a stage-1 item
+constexpr int kMaxWidth = 256;     // wgmma's widest product
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
-               :: "r"(s), "l"(gmem) : "memory");
+// The byte offset that the 32-byte swizzle adds to (XORs into) a K-major
+// row of 32 bytes: its 16-byte halves swap where (row >> 2) is odd.
+__device__ __forceinline__ int swizzle32(int row) {
+  return ((row >> 2) & 1) << 4;
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
+template <int NP>
+struct Ring {
+  static constexpr int kChunkBytes = NP * 32;  // NP rows of 32 bytes of K
+  static constexpr int kBytes = kStages * kChunks * kChunkBytes;
+  // the block's accumulators, [index][thread], for the cluster's sums
+  static constexpr int kReduceBytes = NP / 2 * kConsumerThreads * 4;
+};
+
+// The window box: rows and 16-byte groups (conv_score.i8_window).  A row
+// starts up to 15 bytes before the block's first pixel.
+__host__ __device__ inline int window_rows(int dr) { return kTileY + dr - 1; }
+__host__ __device__ inline int window_groups(int dcp, int cp) {
+  return ((kTileX + dcp - 1) * cp + 15) / 16 + 1;
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void mma_s8(int* c, const unsigned* a,
-                                       const uint2 b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+template <int NP>
+__host__ __device__ inline int field_smem(int dr, int dcp, int cp) {
+  const int main = Ring<NP>::kBytes +
+                   window_rows(dr) * window_groups(dcp, cp) * 16;
+  const int body = main > Ring<NP>::kReduceBytes ? main
+                                                 : Ring<NP>::kReduceBytes;
+  return 1024 + body + (2 * kStages + 1) * 8;  // alignment, barriers
 }
 
 __device__ __forceinline__ float dequant(int hi, int lo, float s_hi,
@@ -110,27 +156,147 @@ __device__ __forceinline__ float dequant(int hi, int lo, float s_hi,
                    __fmul_rn(__int2float_rn(lo), s_lo));
 }
 
-// The window's row pitch in bytes: (16 + dcp - 1) pixels, 16-byte aligned.
-__host__ __device__ inline int window_pitch(int dcp, int cp) {
-  return ((kTileX + dcp - 1) * cp + 15) / 16 * 16;
+// A 32-bit word of shared memory at address `addr`.
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(addr));
+  return v;
 }
 
-__host__ __device__ inline int window_bytes(int dr, int dcp, int cp) {
-  return (kTileY + dr - 1) * window_pitch(dcp, cp);
+// wgmma descriptor of a K-major operand of 32-byte rows in the 32-byte
+// swizzle that the tensor map writes: start address, leading byte offset
+// unused (1), 256 bytes between 8-row groups, layout type 3 (32B).  The
+// buffer starts on 256 bytes.
+__device__ __forceinline__ uint64_t desc_sw32(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         ((uint64_t)(256 >> 4) << 32) | (3ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving accesses of wgmma's accumulators across
+// the fences and waits (CUTLASS's warpgroup_fence_operand).
+template <int N>
+__device__ __forceinline__ void pin(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+#define TDR_R4(i) "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3])
+#define TDR_R8(i) TDR_R4(i), TDR_R4(i + 4)
+#define TDR_A4 "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3])
+
+// d (64 x NP int32, this thread's NP / 2) += A (64 x 32 s8, registers) B^T
+// (NP x 32 s8, shared memory): the RS form.
+template <int NP>
+__device__ __forceinline__ void wgmma_rs(int (&d)[NP / 2],
+                                         const uint32_t (&a)[4], uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<80>(int (&d)[40],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p;\n}\n"
+      : TDR_R8(0), TDR_R8(8), TDR_R8(16), TDR_R8(24), TDR_R8(32)
+      : TDR_A4, "l"(b));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<144>(int (&d)[72],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n144k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71}, "
+      "{%72, %73, %74, %75}, %76, p;\n}\n"
+      : TDR_R8(0), TDR_R8(8), TDR_R8(16), TDR_R8(24), TDR_R8(32),
+        TDR_R8(40), TDR_R8(48), TDR_R8(56), TDR_R8(64)
+      : TDR_A4, "l"(b));
+}
+
+#undef TDR_A4
+#undef TDR_R8
+#undef TDR_R4
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+// The int32 at `p` in the shared memory of the cluster's block `rank`.
+__device__ __forceinline__ int ld_cluster(const int* p, int rank) {
+  uint32_t remote;
+  int v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(remote)
+               : "r"(smem_addr(p)), "r"(rank));
+  asm volatile("ld.shared::cluster.u32 %0, [%1];"
+               : "=r"(v)
+               : "r"(remote)
+               : "memory");
+  return v;
 }
 
 // The chunk list of a group: the indices of the chunks flagged nonzero, in
-// order (warp 0, a ballot a 32 chunks); returns their count.
-__device__ int list_chunks(const bool* __restrict__ nonzero, int nchunk,
-                           short* list, int* count) {
+// order, and each one's byte offset in the window (its tap row dy times the
+// pitch, plus 32 bytes a chunk of the row); returns their count.  Every
+// thread stages the flags (16 bytes each, in parallel), then warp 0 lists
+// them (a ballot a 32 chunks).
+__device__ int list_chunks(const unsigned char* __restrict__ nonzero,
+                           int nchunk, int cpr, int pitch,
+                           unsigned char* flags, short* list, int* off,
+                           int* count) {
+  for (int i = threadIdx.x * 16; i < nchunk; i += blockDim.x * 16) {
+    if (i + 16 <= nchunk &&
+        (reinterpret_cast<uintptr_t>(nonzero + i) & 15) == 0) {
+      *reinterpret_cast<uint4*>(flags + i) =
+          *reinterpret_cast<const uint4*>(nonzero + i);
+    } else {
+      for (int j = i; j < min(i + 16, nchunk); ++j) flags[j] = nonzero[j];
+    }
+  }
+  __syncthreads();
   if (threadIdx.x < 32) {
     const int lane = threadIdx.x;
     int n = 0;
     for (int base = 0; base < nchunk; base += 32) {
-      const bool f = base + lane < nchunk && nonzero[base + lane];
+      const int kc = base + lane;
+      const bool f = kc < nchunk && flags[kc];
       const unsigned m = __ballot_sync(0xffffffffu, f);
-      if (f) list[n + __popc(m & ((1u << lane) - 1))] =
-          static_cast<short>(base + lane);
+      if (f) {
+        const int at = n + __popc(m & ((1u << lane) - 1));
+        const int dy = kc / cpr;
+        list[at] = static_cast<short>(kc);
+        off[at] = dy * pitch + (kc - dy * cpr) * 32;
+      }
       n += __popc(m);
     }
     if (lane == 0) *count = n;
@@ -139,224 +305,405 @@ __device__ int list_chunks(const bool* __restrict__ nonzero, int nchunk,
   return *count;
 }
 
-template <int CP>
-__global__ void __launch_bounds__(kThreads)
-conv_field_i8_kernel(const int8_t* __restrict__ codes, int hp, int wp,
-                     const uint2* __restrict__ bfrag,
-                     const bool* __restrict__ nonzero,
+__device__ __forceinline__ int floor_div16(int v) {
+  return v >= 0 ? v / 16 : -((15 - v) / 16);
+}
+
+// A consumer thread's view of the pipeline: the ring's barriers and the
+// descriptor of its first chunk, its split's chunks as window offsets, and
+// its row of the window.
+template <int NP>
+struct Consumer {
+  uint64_t* full;
+  uint64_t* empty;
+  uint64_t desc;      // wgmma descriptor of the ring's first chunk
+  const int* off;     // this split's chunks: byte offsets in the window
+  int n;              // their count
+  uint32_t wrow;      // the window row of the thread's centres, at its A
+                      // bytes (shared address)
+  int lane;
+
+  // chunk i's A words: a0 (row g, bytes 4 t .. 4 t + 3 of the k32 slice),
+  // a1 (row g + 8), a2 and a3 the same 16 bytes on
+  template <int CP>
+  __device__ __forceinline__ void load_a(int i, uint32_t (&a)[4]) const {
+    const uint32_t p = wrow + off[i];
+    a[0] = lds32(p);
+    a[1] = lds32(p + 8 * CP);
+    a[2] = lds32(p + 16);
+    a[3] = lds32(p + 8 * CP + 16);
+  }
+
+  template <int CP>
+  __device__ __forceinline__ void load_stage(
+      int st, uint32_t (&a)[kChunks][4]) const {
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c)
+      if (st * kChunks + c < n)
+        this->template load_a<CP>(st * kChunks + c, a[c]);
+  }
+
+  // stage st (in ring slot SLOT, compile-time): one commit group of its
+  // chunks' wgmma from registers a; then, once stage st - 1's group is
+  // done, its slot released and stage st + 1's A words read into `next`
+  // (stage st - 1's registers) while this group runs
+  template <int CP, int SLOT>
+  __device__ __forceinline__ void stage(
+      int (&acc)[NP / 2], int st, int parity,
+      const uint32_t (&a)[kChunks][4], uint32_t (&next)[kChunks][4]) const {
+    mbar_wait(&full[SLOT], parity);
+    wg_fence();
+    pin(acc);
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      if (st * kChunks + c >= n) break;
+      wgmma_rs<NP>(acc, a[c],
+                   desc + (((SLOT * kChunks + c) * Ring<NP>::kChunkBytes) >>
+                           4));
+    }
+    wg_commit();
+    wg_wait<1>();
+    pin(acc);
+    if (st > 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[(SLOT + kStages - 1) % kStages]);
+    }
+    this->template load_stage<CP>(st + 1, next);
+  }
+};
+
+// Two blocks an SM where the accumulators allow (N 80: at most 96
+// registers a thread, so that two blocks' 18 warps fit the four schedulers'
+// register files), one with N 144.
+template <int CP, int NP>
+__global__ void __launch_bounds__(kThreads, NP == 80 ? 2 : 1)
+conv_field_i8_kernel(const __grid_constant__ CUtensorMap tm_codes,
+                     const __grid_constant__ CUtensorMap tm_b,
+                     const unsigned char* __restrict__ nonzero,
                      const float* __restrict__ scales,
                      const long long* __restrict__ origin, int dr, int dc,
                      int dcp, int region, int s_out, int splits,
-                     float* __restrict__ out, int* __restrict__ sums,
-                     int* __restrict__ partial) {
-  extern __shared__ __align__(16) unsigned char smem[];
+                     float* __restrict__ out, int* __restrict__ sums) {
+  using R = Ring<NP>;
+  extern __shared__ unsigned char smem_raw[];
   __shared__ short list[kMaxChunks];
+  __shared__ int list_off[kMaxChunks];
+  __shared__ __align__(16) unsigned char flags[kMaxChunks];
   __shared__ int listed;
-  const int pitch = window_pitch(dcp, CP);
-  unsigned char* win = smem;
-  unsigned char* ring = smem + window_bytes(dr, dcp, CP);
+  // the ring's stages on 256 bytes (the 32-byte swizzle's period)
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int rows = window_rows(dr), pitch = window_groups(dcp, CP) * 16;
+  unsigned char* ring = smem;
+  unsigned char* win = smem + R::kBytes;
+  const int body = max(R::kBytes + rows * pitch, R::kReduceBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + body);
+  uint64_t* empty = full + kStages;
+  uint64_t* win_full = empty + kStages;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int cpr = dcp * CP / 32;  // k32 chunks a window row
   const int nchunk = dr * cpr;
   const int group = blockIdx.z / splits, split = blockIdx.z % splits;
-  // chunk nchunk of each group is all zeros: a stage's tail computes on it
-  const unsigned char* bsrc = reinterpret_cast<const unsigned char*>(
-      bfrag + static_cast<size_t>(group) * (nchunk + 1) * (kChunkBytes / 8));
 
-  const int count = list_chunks(nonzero + group * nchunk, nchunk, list,
-                                &listed);
-  const int lo = static_cast<int>(static_cast<long long>(count) * split /
-                                  splits);
-  const int hi = static_cast<int>(static_cast<long long>(count) *
-                                  (split + 1) / splits);
-  const int nstage = (hi - lo + kChunks - 1) / kChunks;
-  auto chunk_at = [&](int i) { return i < hi ? int(list[i]) : nchunk; };
-
-  auto load_stage = [&](int st) {
-    if (st < nstage) {
-      unsigned char* dst = ring + (st % kStages) * kStageBytes;
-#pragma unroll
-      for (int cc = 0; cc < kChunks; ++cc) {
-        const unsigned char* src =
-            bsrc + static_cast<size_t>(chunk_at(lo + st * kChunks + cc)) *
-                       kChunkBytes;
-        for (int i = tid * 16; i < kChunkBytes; i += kThreads * 16)
-          cp_async16(dst + cc * kChunkBytes + i, src + i);
-      }
-    }
-    cp_async_commit();  // an empty group past the end keeps the count
-  };
-#pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) load_stage(st);
-
-  // the block's map window, (8 + dr - 1) rows of (16 + dcp - 1) pixels, in
-  // 4-byte words (a word never straddles a pixel: CP is 4 or 8); pixels off
-  // the padded map read as zero codes
   const int y0 = static_cast<int>(origin[0]) - dr / 2 + blockIdx.y * kTileY;
   const int x0 = static_cast<int>(origin[1]) - dc / 2 + blockIdx.x * kTileX;
-  const int row_words = (kTileX + dcp - 1) * CP / 4;
-  const int rows = kTileY + dr - 1;
-  for (int i = tid; i < rows * row_words; i += kThreads) {
-    const int r = i / row_words, w = i - r * row_words;
-    const int y = y0 + r, x = x0 + w * 4 / CP;
-    unsigned v = 0;
-    if (y >= 0 && y < hp && x >= 0 && x < wp)
-      v = __ldg(reinterpret_cast<const unsigned*>(
-          codes + (static_cast<size_t>(y) * wp + x) * CP + w * 4 % CP));
-    *reinterpret_cast<unsigned*>(win + r * pitch + w * 4) = v;
+  const int xg = floor_div16(x0 * CP);  // the window's first 16-byte group
+  const int xs = x0 * CP - 16 * xg;     // the first pixel's byte in it
+  if (tid == kProducer * 32) {  // the barriers, and the window's box at once
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers * 4);  // one arrival a consumer warp
+    }
+    mbar_init(win_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_expect(win_full, rows * pitch);
+    tma_load_3d(win, &tm_codes, 0, xg, y0, win_full);
   }
+  const int count = list_chunks(nonzero + group * nchunk, nchunk, cpr, pitch,
+                                flags, list, list_off, &listed);
+  // (its block barriers publish the barriers' init)
+  const int lo = static_cast<int>(static_cast<long long>(count) * split /
+                                  splits);
+  const int n = static_cast<int>(static_cast<long long>(count) *
+                                 (split + 1) / splits) - lo;
 
-  int acc[2][kNt][4];
+  int acc[NP / 2];
 #pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int n = 0; n < kNt; ++n)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[m][n][j] = 0;
+  for (int i = 0; i < NP / 2; ++i) acc[i] = 0;
+  const int wg = warp >> 2, w = warp & 3, g = lane >> 2, t = lane & 3;
 
-  for (int st = 0; st < nstage; ++st) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // stage st landed for all; stage st - 1 is consumed
-    load_stage(st + kStages - 1);
-    const unsigned char* bst = ring + (st % kStages) * kStageBytes;
-#pragma unroll
-    for (int cc = 0; cc < kChunks; ++cc) {
-      // the zero chunk past the list reads the window at tap row 0
-      const int kc = min(chunk_at(lo + st * kChunks + cc), nchunk - 1);
-      const int dy = kc / cpr;
-      const int kk = (kc - dy * cpr) * 32;
-      unsigned a[2][4];
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        // A row = centre column x of tile row 2 warp + m; its k32 slice is
-        // window row (row + dy), bytes x CP + kk .. + 32
-        const unsigned char* base =
-            win + (warp * 2 + m + dy) * pitch + kk + t * 4;
-        a[m][0] = *reinterpret_cast<const unsigned*>(base + g * CP);
-        a[m][1] = *reinterpret_cast<const unsigned*>(base + (g + 8) * CP);
-        a[m][2] = *reinterpret_cast<const unsigned*>(base + g * CP + 16);
-        a[m][3] =
-            *reinterpret_cast<const unsigned*>(base + (g + 8) * CP + 16);
-      }
-      const uint2* bc =
-          reinterpret_cast<const uint2*>(bst + cc * kChunkBytes) + lane;
-#pragma unroll
-      for (int n = 0; n < kNt; ++n) {
-        const uint2 b = bc[n * 32];
-        mma_s8(acc[0][n], a[0], b);
-        mma_s8(acc[1][n], a[1], b);
+  if (warp == kProducer) {
+    if (lane == 0) {
+      for (int st = 0; st * kChunks < n; ++st) {
+        const int slot = st % kStages;
+        mbar_wait(&empty[slot], ((st / kStages) & 1) ^ 1);
+        const int nv = min(kChunks, n - st * kChunks);
+        mbar_expect(&full[slot], nv * R::kChunkBytes);
+        for (int c = 0; c < nv; ++c)
+          tma_load(ring + (slot * kChunks + c) * R::kChunkBytes, &tm_b, 0,
+                   (group * nchunk + list[lo + st * kChunks + c]) * (NP / 4),
+                   &full[slot]);
       }
     }
+    __syncwarp();
+  } else {
+    // warp w of warpgroup wg: centre row 4 wg + w of the block, A rows
+    // 16 w .. 16 w + 15 of its warpgroup's tile (centre columns 0 .. 15)
+    const Consumer<NP> k{
+        full, empty, desc_sw32(smem_addr(ring)), list_off + lo, n,
+        smem_addr(win + (wg * 4 + w) * pitch + xs + 4 * t + g * CP), lane};
+    mbar_wait(win_full, 0);  // also where no chunk is listed: the window's
+                             // bytes land before the ring is reused
+    uint32_t a0[kChunks][4], a1[kChunks][4];
+    const int nstage = (n + kChunks - 1) / kChunks;
+    k.template load_stage<CP>(0, a0);
+    // the stages in turns of the ring, so that each slot's offsets are
+    // compile-time
+    static_assert(kStages == 4, "the turn below is unrolled for 4 slots");
+    for (int st = 0, parity = 0; st < nstage; st += kStages, parity ^= 1) {
+      k.template stage<CP, 0>(acc, st, parity, a0, a1);
+      if (st + 1 >= nstage) break;
+      k.template stage<CP, 1>(acc, st + 1, parity, a1, a0);
+      if (st + 2 >= nstage) break;
+      k.template stage<CP, 2>(acc, st + 2, parity, a0, a1);
+      if (st + 3 >= nstage) break;
+      k.template stage<CP, 3>(acc, st + 3, parity, a1, a0);
+    }
+    wg_wait<0>();
+    pin(acc);
   }
-  cp_async_wait<0>();
 
-  // epilogue: accumulators j = 0, 1 are centre column g, j = 2, 3 column
-  // g + 8, each pair (hi, lo) of output column s
+  // the epilogue: pair p = 2 j + h of a consumer thread, its accumulators
+  // 2 p (hi) and 2 p + 1 (lo), is row g + 8 h of its warp's 16 (centre
+  // column g + 8 h) and columns 8 j + 2 t, + 1 of the group (hi and lo of s)
   const size_t plane = static_cast<size_t>(region) * region;
+  const int y = blockIdx.y * kTileY + wg * 4 + w;
+  auto put = [&](int p, int hi, int lo_sum) {
+    const int col = group * NP + 8 * (p >> 1) + 2 * t, s = col >> 1;
+    if (s >= s_out) return;
+    const size_t at = static_cast<size_t>(y) * region + blockIdx.x * kTileX +
+                      g + 8 * (p & 1);
+    out[s * plane + at] = dequant(hi, lo_sum, scales[2 * s],
+                                  scales[2 * s + 1]);
+    if (sums != nullptr) {
+      sums[col * plane + at] = hi;
+      sums[(col + 1) * plane + at] = lo_sum;
+    }
+  };
+  if (splits == 1) {
+    if (warp < kProducer) {
 #pragma unroll
-  for (int m = 0; m < 2; ++m) {
-    const int y = blockIdx.y * kTileY + warp * 2 + m;
+      for (int p = 0; p < NP / 4; ++p) put(p, acc[2 * p], acc[2 * p + 1]);
+    }
+    return;
+  }
+  // the cluster's sums: the ring (and window) is free once every consumer
+  // is past its products
+  int* red = reinterpret_cast<int*>(smem);
+  if (warp < kProducer) {
+    asm volatile("bar.sync 1, %0;" ::"n"(kConsumerThreads) : "memory");
 #pragma unroll
-    for (int n = 0; n < kNt; ++n) {
-      const int col = group * kCols + n * 8 + 2 * t;  // the hi column
-      const int s = col / 2;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int x = blockIdx.x * kTileX + g + 8 * h;
-        const int hi_sum = acc[m][n][2 * h], lo_sum = acc[m][n][2 * h + 1];
-        const size_t at = static_cast<size_t>(y) * region + x;
-        if (splits > 1) {  // every column of the group, pads included
-          int* p = partial + static_cast<size_t>(split) *
-                                 (gridDim.z / splits) * kCols * plane;
-          p[col * plane + at] = hi_sum;
-          p[(col + 1) * plane + at] = lo_sum;
-          continue;
-        }
-        if (s >= s_out) continue;
-        out[s * plane + at] =
-            dequant(hi_sum, lo_sum, scales[2 * s], scales[2 * s + 1]);
-        if (sums != nullptr) {
-          sums[col * plane + at] = hi_sum;
-          sums[(col + 1) * plane + at] = lo_sum;
-        }
+    for (int j = 0; j < NP / 2; ++j) red[j * kConsumerThreads + tid] = acc[j];
+  }
+  cluster_sync();
+  if (warp < kProducer) {
+    const int p0 = NP / 4 * split / splits, p1 = NP / 4 * (split + 1) / splits;
+    for (int p = p0; p < p1; ++p) {
+      int hi = 0, lo_sum = 0;
+      for (int k = 0; k < splits; ++k) {
+        hi += ld_cluster(red + 2 * p * kConsumerThreads + tid, k);
+        lo_sum += ld_cluster(red + (2 * p + 1) * kConsumerThreads + tid, k);
       }
+      put(p, hi, lo_sum);
     }
   }
+  cluster_sync();  // no block leaves while another reads its sums
 }
 
-// The splits' partial sums (splits, groups * 72, region^2) added in order
-// and dequantized: one thread a (column s, centre).
-__global__ void __launch_bounds__(256)
-conv_field_i8_sum_kernel(const int* __restrict__ partial, int splits,
-                         int cols, const float* __restrict__ scales,
-                         int plane, int s_out, float* __restrict__ out,
-                         int* __restrict__ sums) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (i >= static_cast<long long>(s_out) * plane) return;
-  const int s = static_cast<int>(i / plane);
-  const int at = static_cast<int>(i - static_cast<long long>(s) * plane);
-  int hi = 0, lo = 0;
-  for (int k = 0; k < splits; ++k) {
-    const int* p = partial + static_cast<size_t>(k) * cols * plane;
-    hi += p[static_cast<size_t>(2 * s) * plane + at];
-    lo += p[static_cast<size_t>(2 * s + 1) * plane + at];
+// The quantization and the layout (see the note at the top).  kernel
+// (S_out, CP, dr, dc) float32; qinv (>= CP) float32; partial (S_out,
+// slices) float32 scratch; b (groups, nchunk, NP, 32) int8; nonzero
+// (groups, nchunk) uint8; scales (S_out, 2) float32.
+__global__ void __launch_bounds__(kQuantThreads)
+conv_quant_i8_kernel(const float* __restrict__ kernel,
+                     const float* __restrict__ qinv, int s_out, int cp,
+                     int dr, int dc, int dcp, int groups, int np,
+                     float hi_recip, float lo_recip,
+                     float* __restrict__ partial, int8_t* __restrict__ b,
+                     unsigned char* __restrict__ nonzero,
+                     float* __restrict__ scales) {
+  __shared__ float part[kQuantThreads / 32];
+  __shared__ float col_scales[2][kMaxWidth / 2];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int taps = dr * dc, per_col = cp * taps;
+  const int slices = (per_col + kQuantSlice - 1) / kQuantSlice;
+  // stage 1: the max |kq| of each slice of kQuantSlice values of a column
+  for (int it = blockIdx.x; it < s_out * slices; it += gridDim.x) {
+    const int s = it / slices, e0 = (it - s * slices) * kQuantSlice;
+    const int e1 = min(per_col, e0 + kQuantSlice);
+    const float* col = kernel + static_cast<size_t>(s) * per_col;
+    float m = 0.0f;
+#pragma unroll 8
+    for (int e = e0 + tid; e < e1; e += kQuantThreads)
+      m = fmaxf(m, fabsf(__fmul_rn(col[e], qinv[e / taps])));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    if (lane == 0) part[warp] = m;
+    __syncthreads();
+    if (tid == 0) {
+      for (int k = 1; k < kQuantThreads / 32; ++k) m = fmaxf(m, part[k]);
+      partial[it] = fmaxf(part[0], m);
+    }
+    __syncthreads();
   }
-  out[i] = dequant(hi, lo, scales[2 * s], scales[2 * s + 1]);
-  if (sums != nullptr) {
-    sums[static_cast<size_t>(2 * s) * plane + at] = hi;
-    sums[static_cast<size_t>(2 * s + 1) * plane + at] = lo;
+  cg::this_grid().sync();
+  // stage 2: a (group, chunk): its NP rows of 32 bytes and its flag; a
+  // thread 4 bytes of a row (a word of hi, a word of lo)
+  const int cpr = dcp * cp / 32, nchunk = dr * cpr;
+  int scaled = -1;  // the group whose scales col_scales holds
+  for (int u = blockIdx.x; u < groups * nchunk; u += gridDim.x) {
+    const int grp = u / nchunk, chunk = u - grp * nchunk;
+    const int dy = chunk / cpr, kx = chunk - dy * cpr;
+    if (grp != scaled) {  // the group's columns' amax and scales
+      if (tid < np / 2 && grp * (np / 2) + tid < s_out) {
+        const int s = grp * (np / 2) + tid;
+        float amax = 1e-30f;
+        for (int k = 0; k < slices; ++k)
+          amax = fmaxf(amax, __ldcg(partial + s * slices + k));
+        col_scales[0][tid] = __fmul_rn(amax, hi_recip);
+        col_scales[1][tid] = __fmul_rn(amax, lo_recip);
+        if (chunk == 0) {
+          scales[2 * s] = col_scales[0][tid];
+          scales[2 * s + 1] = col_scales[1][tid];
+        }
+      }
+      __syncthreads();
+      scaled = grp;
+    }
+    int any = 0;
+    for (int i = tid; i < np / 2 * 8; i += kQuantThreads) {
+      const int ss = i >> 3, w4 = i & 7;
+      const int s = grp * (np / 2) + ss;
+      uint32_t hi4 = 0, lo4 = 0;
+      if (s < s_out) {
+        const float s_hi = col_scales[0][ss], s_lo = col_scales[1][ss];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int k = kx * 32 + w4 * 4 + j;
+          const int dx = k / cp, c = k - dx * cp;
+          if (dx >= dc) continue;
+          const float v = kernel[((static_cast<size_t>(s) * cp + c) * dr +
+                                  dy) * dc + dx];
+          const float q = qinv[c];
+          const float h = fminf(
+              fmaxf(rintf(__fdiv_rn(__fmul_rn(v, q), s_hi)), -127.0f),
+              127.0f);
+          const float res = __fmaf_rn(v, q, -__fmul_rn(h, s_hi));
+          const float l = fminf(fmaxf(rintf(__fdiv_rn(res, s_lo)), -127.0f),
+                                127.0f);
+          hi4 |= (static_cast<uint32_t>(static_cast<int>(h)) & 0xffu)
+                 << (8 * j);
+          lo4 |= (static_cast<uint32_t>(static_cast<int>(l)) & 0xffu)
+                 << (8 * j);
+        }
+      }
+      // rows 2 ss (hi) and 2 ss + 1 (lo), pre-swizzled: a row's 16-byte
+      // halves swap where (row >> 2) is odd
+      const int n = 2 * ss;
+      int8_t* base = b + (static_cast<size_t>(u) * np + n) * 32;
+      *reinterpret_cast<uint32_t*>(base + ((w4 * 4) ^ swizzle32(n))) = hi4;
+      *reinterpret_cast<uint32_t*>(base + 32 + ((w4 * 4) ^ swizzle32(n + 1))) =
+          lo4;
+      any |= (hi4 | lo4) != 0;
+    }
+    any = __syncthreads_or(any);
+    if (tid == 0) nonzero[u] = any != 0;
   }
 }
 
-// The kernel of a CP with the dynamic shared memory of a shape allowed:
-// the function, the bytes and the error (cudaErrorInvalidValue for a CP
-// it has no instance of).
-struct Configured {
-  const void* fn;
-  int smem;
-  cudaError_t err;
-};
-
-Configured configure(int cp, int dr, int dcp) {
-  const void* fn = nullptr;
-  if (cp == 4) fn = reinterpret_cast<const void*>(conv_field_i8_kernel<4>);
-  if (cp == 8) fn = reinterpret_cast<const void*>(conv_field_i8_kernel<8>);
-  const int smem = window_bytes(dr, dcp, cp) + kStages * kStageBytes;
-  if (fn == nullptr) return {fn, smem, cudaErrorInvalidValue};
-  return {fn, smem,
-          cudaFuncSetAttribute(
-              fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)};
+// codes (3-D: 16-byte groups of the rows, rows): boxes of the window
+CUresult encode_codes(CUtensorMap* map, const void* codes, int hp, int pitch,
+                      int rows, int groups16) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[3] = {16, (cuuint64_t)(pitch / 16), (cuuint64_t)hp};
+  const cuuint64_t strides[2] = {16, (cuuint64_t)pitch};
+  const cuuint32_t box[3] = {16, (cuuint32_t)groups16, (cuuint32_t)rows};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(codes),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int CP>
-int launch(const void* codes, int hp, int wp, const void* bfrag,
-           const void* nonzero, const void* scales, const void* origin,
-           int dr, int dc, int dcp, int region, int s_out, int groups,
-           int splits, void* out, void* sums, void* partial,
-           cudaStream_t stream) {
-  const Configured k = configure(CP, dr, dcp);
-  if (k.err != cudaSuccess) return static_cast<int>(k.err);
-  const dim3 grid(region / kTileX, region / kTileY, groups * splits);
-  conv_field_i8_kernel<CP><<<grid, kThreads, k.smem, stream>>>(
-      static_cast<const int8_t*>(codes), hp, wp,
-      static_cast<const uint2*>(bfrag), static_cast<const bool*>(nonzero),
+// B as rows of 128 bytes: a box a chunk, its NP x 32 bytes (pre-swizzled
+// by the quantizer) as NP / 4 rows of 128, copied as they are
+CUresult encode_b(CUtensorMap* map, const void* b, int chunks, int np) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[2] = {128, (cuuint64_t)chunks * (np / 4)};
+  const cuuint64_t strides[1] = {128};
+  const cuuint32_t box[2] = {128, (cuuint32_t)(np / 4)};
+  const cuuint32_t unit[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(b),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// The kernel of a (CP, NP), or null where it has no instance.
+const void* field_fn(int cp, int np) {
+  if (cp == 4 && np == 80)
+    return reinterpret_cast<const void*>(conv_field_i8_kernel<4, 80>);
+  if (cp == 4 && np == 144)
+    return reinterpret_cast<const void*>(conv_field_i8_kernel<4, 144>);
+  if (cp == 8 && np == 80)
+    return reinterpret_cast<const void*>(conv_field_i8_kernel<8, 80>);
+  if (cp == 8 && np == 144)
+    return reinterpret_cast<const void*>(conv_field_i8_kernel<8, 144>);
+  return nullptr;
+}
+
+int field_smem_of(int np, int dr, int dcp, int cp) {
+  return np == 80 ? field_smem<80>(dr, dcp, cp) : field_smem<144>(dr, dcp, cp);
+}
+
+template <int CP, int NP>
+int launch_field(const void* codes, int hp, int pitch, const void* b,
+                 const void* nonzero, const void* scales, const void* origin,
+                 int dr, int dc, int dcp, int region, int s_out, int groups,
+                 int splits, void* out, void* sums, cudaStream_t stream) {
+  auto kern = conv_field_i8_kernel<CP, NP>;
+  const int smem = field_smem<NP>(dr, dcp, CP);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap tm_codes, tm_b;
+  CUresult res = encode_codes(&tm_codes, codes, hp, pitch, window_rows(dr),
+                              window_groups(dcp, CP));
+  if (res == CUDA_SUCCESS)
+    res = encode_b(&tm_b, b, groups * dr * (dcp * CP / 32), NP);
+  if (res != CUDA_SUCCESS) return kEncodeFailed + static_cast<int>(res);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(region / kTileX, region / kTileY, groups * splits);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = splits;
+  cfg.attrs = attr;
+  cfg.numAttrs = splits > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(
+      &cfg, kern, tm_codes, tm_b, static_cast<const unsigned char*>(nonzero),
       static_cast<const float*>(scales),
       static_cast<const long long*>(origin), dr, dc, dcp, region, s_out,
-      splits, static_cast<float*>(out), static_cast<int*>(sums),
-      static_cast<int*>(partial));
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const int plane = region * region;
-  const long long n = static_cast<long long>(s_out) * plane;
-  conv_field_i8_sum_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
-                             stream>>>(
-      static_cast<const int*>(partial), splits, groups * kCols,
-      static_cast<const float*>(scales), plane, s_out,
-      static_cast<float*>(out), static_cast<int*>(sums));
+      splits, static_cast<float*>(out), static_cast<int*>(sums));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -364,51 +711,134 @@ int launch(const void* codes, int hp, int wp, const void* bfrag,
 
 extern "C" {
 
-// codes (hp, wp, CP) int8; bfrag (groups, dr dcp CP / 32 + 1, 9, 32) uint2
-// (conv_score.b_fragments: the last chunk of each group zeros); nonzero
-// (groups, dr dcp CP / 32) bool, a chunk's flag; scales (S_out, 2) float32;
-// origin (2,) int64 on the card; out (S_out, region, region) float32; sums
-// (2 S_out, region, region) int32 or null; partial (splits, groups *
-// 72, region, region) int32 scratch where splits > 1, else null.  region a
-// multiple of 16, dcp CP a multiple of 32.
-int tdr_conv_field_i8(const void* codes, int hp, int wp, int cp,
-                      const void* bfrag, const void* nonzero,
-                      const void* scales, const void* origin, int dr, int dc,
-                      int dcp, int region, int s_out, int groups, int splits,
-                      void* out, void* sums, void* partial, void* stream) {
-  if (region % kTileX || (dcp * cp) % 32 || dcp < dc ||
-      groups * kCols < 2 * s_out || dr * dcp * cp / 32 > kMaxChunks ||
-      splits < 1 || (splits > 1 && partial == nullptr))
+// The quantization and layout, one cooperative launch.  kernel (S_out, CP,
+// dr, dc) float32 contiguous; qinv (>= CP,) float32; partial float32
+// scratch of partial_len values (a launch with fewer than S_out
+// ceil(CP dr dc / kQuantSlice) is refused);
+// b (groups, dr dcp CP / 32, np, 32) int8, each row of 32 bytes
+// pre-swizzled (swizzle32); nonzero (groups, dr dcp CP / 32) uint8; scales
+// (S_out, 2) float32; hi_recip, lo_recip f32(1/127), f32(1/32258).
+int tdr_conv_quant_i8(const void* kernel, const void* qinv, int s_out, int cp,
+                      int dr, int dc, int dcp, int groups, int np,
+                      float hi_recip, float lo_recip, void* partial,
+                      long long partial_len, void* b, void* nonzero,
+                      void* scales, void* stream) {
+  const int items = s_out * ((cp * dr * dc + kQuantSlice - 1) / kQuantSlice);
+  if ((cp != 4 && cp != 8) || (dcp * cp) % 32 || dcp < dc || s_out < 1 ||
+      np % 8 || np > kMaxWidth || groups * np < 2 * s_out ||
+      (groups - 1) * np >= 2 * s_out || partial_len < items)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the blocks the card holds at once (a cooperative grid's most), asked
+  // once a device
+  static int ready_dev = -1, resident = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev != ready_dev) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, conv_quant_i8_kernel, kQuantThreads, 0);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    resident = sms * per_sm;
+    ready_dev = dev;
+  }
+  const int units = groups * dr * (dcp * cp / 32);
+  int grid = units > items ? units : items;
+  if (grid > resident) grid = resident;
+  int8_t* b8 = static_cast<int8_t*>(b);
+  unsigned char* nz = static_cast<unsigned char*>(nonzero);
+  float* sc = static_cast<float*>(scales);
+  float* part = static_cast<float*>(partial);
+  void* args[] = {(void*)&kernel, (void*)&qinv, &s_out, &cp, &dr, &dc,
+                  &dcp, &groups, &np, &hi_recip, &lo_recip, &part, &b8,
+                  &nz, &sc};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(conv_quant_i8_kernel), dim3(grid),
+      dim3(kQuantThreads), args, 0, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The field.  codes (hp, wp, CP) int8 with a row pitch of `pitch` bytes (a
+// multiple of 16) on a 16-byte aligned base; b, nonzero, scales as
+// tdr_conv_quant_i8 writes them (np 80 or 144); origin (2,) int64 on the
+// card; out (S_out, region, region) float32; sums (2 S_out, region, region)
+// int32 or null; win_groups the window's 16-byte groups a row
+// (conv_score.i8_window: checked against the kernel's); region a multiple
+// of 16; splits 1 to 8 (the blocks of a cluster that share a tile's
+// chunks).  Returns the CUDA error, or 1000 + the CUresult of a tensor map's
+// encoding.
+int tdr_conv_field_i8(const void* codes, int hp, int wp, int pitch, int cp,
+                      const void* b, const void* nonzero, const void* scales,
+                      const void* origin, int dr, int dc, int dcp, int region,
+                      int s_out, int groups, int np, int splits,
+                      int win_groups, void* out, void* sums, void* stream) {
+  if (region % kTileX || region < kTileX || (cp != 4 && cp != 8) ||
+      (dcp * cp) % 32 || dcp < dc || pitch % 16 || pitch < wp * cp ||
+      reinterpret_cast<uintptr_t>(codes) % 16 || groups * np < 2 * s_out ||
+      dr * dcp * cp / 32 > kMaxChunks || splits < 1 || splits > kMaxSplits ||
+      win_groups != window_groups(dcp, cp) || field_fn(cp, np) == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cp == 4)
-    return launch<4>(codes, hp, wp, bfrag, nonzero, scales, origin, dr, dc,
-                     dcp, region, s_out, groups, splits, out, sums, partial,
-                     s);
-  if (cp == 8)
-    return launch<8>(codes, hp, wp, bfrag, nonzero, scales, origin, dr, dc,
-                     dcp, region, s_out, groups, splits, out, sums, partial,
-                     s);
+#define TDR_FIELD(CP, NP)                                                    \
+  if (cp == CP && np == NP)                                                  \
+    return launch_field<CP, NP>(codes, hp, pitch, b, nonzero, scales, origin, \
+                                dr, dc, dcp, region, s_out, groups, splits,  \
+                                out, sums, s);
+  TDR_FIELD(4, 80)
+  TDR_FIELD(4, 144)
+  TDR_FIELD(8, 80)
+  TDR_FIELD(8, 144)
+#undef TDR_FIELD
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The blocks a tile of centres splits its chunks over: as many as one wave
-// of the card holds (the occupancy calculator's blocks an SM, for this
-// shape's shared memory, times the SMs), at most 8 and at least 1.
-int tdr_conv_field_i8_splits(int cp, int dr, int dcp, int region, int groups,
-                             int* splits) {
-  const Configured k = configure(cp, dr, dcp);
-  if (k.err != cudaSuccess) return static_cast<int>(k.err);
+// The blocks (a cluster along z) a tile of centres splits its chunks over:
+// as many as one wave of the card holds (the occupancy calculator's blocks
+// an SM, for this shape's shared memory, times the SMs, over the tiles), at
+// most 8 and at least 1, and no more than lets every tile's cluster be
+// resident at once (cudaOccupancyMaxActiveClusters).
+int tdr_conv_field_i8_splits(int cp, int np, int dr, int dcp, int region,
+                             int groups, int* splits) {
+  const void* fn = field_fn(cp, np);
+  if (fn == nullptr || region < kTileX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = field_smem_of(np, dr, dcp, cp);
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   int per_sm = 0, dev = 0, sms = 0;
-  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, k.fn, kThreads, k.smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads,
+                                                        smem);
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (region / kTileX) * (region / kTileY) * groups;
   const int fit = sms * per_sm / tiles;
-  *splits = fit < 1 ? 1 : (fit > 8 ? 8 : fit);
+  int sp = fit < 1 ? 1 : (fit > kMaxSplits ? kMaxSplits : fit);
+  // fewer where the tiles' clusters do not all fit at once (a cluster's
+  // blocks share a GPC)
+  for (; sp > 1; --sp) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(region / kTileX, region / kTileY, groups * sp);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = sp;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (clusters >= tiles) break;
+  }
+  *splits = sp;
   return 0;
 }
 

@@ -1,8 +1,9 @@
 // TMA and mbarrier helpers of the kernels that stage operands in shared
-// memory (csrc/probe_mm.cu, csrc/probe_window.cu, and the theta search's
-// csrc/crop_init.cuh): shared-memory addresses, bounded mbarrier waits and
-// arrivals, 2-D tensor-map loads, and cuTensorMapEncodeTiled reached
-// through cudaGetDriverEntryPoint, so that no library links -lcuda.
+// memory (csrc/probe_mm.cu, csrc/probe_window.cu, the theta search's
+// csrc/crop_init.cuh and csrc/conv_field_i8.cu): shared-memory addresses,
+// bounded mbarrier waits and arrivals, 2-D and 3-D tensor-map loads, and
+// cuTensorMapEncodeTiled reached through cudaGetDriverEntryPoint, so that
+// no library links -lcuda.
 
 #pragma once
 
@@ -75,6 +76,18 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// One TMA box at element coordinates (x, y, z) of a 3-D tensor map.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            int x, int y, int z,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z),
       "r"(smem_addr(bar))
       : "memory");
 }

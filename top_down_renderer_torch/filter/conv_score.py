@@ -31,16 +31,20 @@ float field.  The map is quantized per channel to int8 codes
 (quantize_channels, 126 / amax) and each column of the kernel, times the
 map's qinv per channel, to a hi/lo pair of int8 integers with scales of
 its own (quantize_conv_kernel); the field is the exact int32 product,
-dequantized in float32.  On the card it is the kernel of
-csrc/conv_field_i8.cu (cost_field_i8: an implicit GEMM on the tensor
-cores), on the CPU its plain version.  The scorer takes it where the
+dequantized in float32.  On the card the scorer's conv_field_i8 makes two
+launches of csrc/conv_field_i8.cu: the quantizer kernel (quantize_i8: the
+integers in the layout the field kernel reads, i8_layout's) and the field
+kernel (an implicit GEMM on wgmma fed by TMA); on the CPU their plain
+versions.  cost_field_i8 takes integers quantized before, on the CPU (the
+JAX-parity tests' way in); launch_field_i8 is the field kernel alone, on
+operands already laid out.  The scorer takes the int8 field where the
 reference does: the tracked flavour with (2 W) % 32 == 0 and the kernel
 under the reference's s2d gate; the init flavour, the full window of
 mixed updates and large kernels keep the float field.
 
 CALLS counts the cost fields computed ("cost_field" on cuDNN,
-"cost_field_i8" the int8 ones); kernels.LAUNCHES["conv_field_i8"] counts
-the int8 kernel's launches.
+"cost_field_i8" the int8 ones); kernels.LAUNCHES["conv_quant_i8"] and
+["conv_field_i8"] count the int8 kernels' launches.
 
 The reference's space-to-depth fold and its kf split are layouts for the
 TPU's 128-lane tiling (ROADMAP, "Not to port"): the port runs the direct
@@ -51,6 +55,7 @@ exactly).
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 
 import numpy as np
@@ -181,7 +186,8 @@ class ConvMap:
     int8: also the int8 field's operand, `codes` (hp, wp, CP) int8 (a
     pixel's channels contiguous) with the same border, quantized from the
     float32 map by quantize_channels, and their `qinv` (CP,); else both
-    are None."""
+    are None.  codes is a view of rows padded with zeros to whole 16-byte
+    groups (the card kernel's TMA strides)."""
 
     def __init__(self, compact: torch.Tensor, pad: int = MAP_PAD,
                  int8: bool = False):
@@ -193,7 +199,15 @@ class ConvMap:
         self.codes = self.qinv = None
         if int8:
             codes, self.qinv = quantize_channels(compact)
-            self.codes = F.pad(codes, (0, 0, pad, pad, pad, pad)).contiguous()
+            cp = codes.shape[-1]
+            # the card kernel stages windows by TMA, whose row strides are
+            # whole 16-byte groups: the rows are stored that wide, zeros
+            # past wp, and codes is the (hp, wp, CP) view
+            wide = -(-self.wp * cp // 16) * 16 // cp
+            store = torch.zeros((self.hp, wide, cp), dtype=torch.int8,
+                                device=codes.device)
+            store[pad : pad + h, pad : pad + w] = codes
+            self.codes = store[:, : self.wp]
 
 
 def cost_field(
@@ -234,7 +248,16 @@ def cost_field(
 # into products by their float32 reciprocals
 _HI_RECIP = float(np.float32(1.0) / np.float32(127.0))
 _LO_RECIP = float(np.float32(1.0) / np.float32(127.0 * 254.0))
-I8_GROUP_TILES = 9  # n8 tiles of int8 columns a block of the kernel takes
+# S_out -> (groups, width): the 2 S_out integer columns of W 16, 32 and 64
+# in as few groups as wgmma's widest int8 product (N 256) allows, each
+# padded to the least N it takes for .s8 (8, 16, 24, then multiples of
+# 16): 66 columns one group of 80, 130 one of 144, 258 two of 144.  The
+# card kernel has instances of these widths only.
+I8_COLUMNS = {33: (1, 80), 65: (1, 144), 129: (2, 144)}
+I8_TILE = (8, 16)  # centre rows and columns a block of the card kernel
+# values of a column the quantizer's max takes at once (kQuantSlice of
+# csrc/conv_field_i8.cu, which refuses a shorter scratch)
+I8_QUANT_SLICE = 4096
 
 
 def conv_int8() -> bool:
@@ -305,37 +328,98 @@ def i8_dcp(dc: int, cp: int) -> int:
     return -(-dc // step) * step
 
 
-def b_fragments(ints: torch.Tensor) -> torch.Tensor:
-    """The integers (S_out, 2, CP, dr, dc) as csrc/conv_field_i8.cu reads
-    them: the matrix B[k, n], k = (dy, dx, c) over dx < i8_dcp (zeros past
-    dc), n = 2 s + p (zeros past 2 S_out), in groups of I8_GROUP_TILES n8
-    tiles, each k32 chunk and tile in mma.m16n8k32's fragment order, and
-    one chunk of zeros after each group's: (groups, chunks + 1, tiles, 32
-    lanes, 8 bytes) int8, lane = 4 g + t holding B[16 h + 4 t + j, 8 tile +
-    g] at byte 4 h + j."""
+def i8_columns(s_out: int):
+    """(groups, width) of I8_COLUMNS; S_out other than W 16, 32 or 64's
+    raises."""
+    if s_out not in I8_COLUMNS:
+        raise ValueError(f"{2 * s_out} columns: the int8 layout takes W 16, "
+                         "32 or 64 (S_out 33, 65, 129)")
+    return I8_COLUMNS[s_out]
+
+
+def i8_window(dr: int, dcp: int, cp: int):
+    """The card kernel's window box: (rows, 16-byte groups a row).  A block
+    of I8_TILE centres reads I8_TILE[0] + dr - 1 rows of I8_TILE[1] + dcp -
+    1 pixels, staged from the 16-byte group at or below its first pixel, so
+    up to 15 bytes more: one group to spare."""
+    return (I8_TILE[0] + dr - 1,
+            ((I8_TILE[1] + dcp - 1) * cp + 15) // 16 + 1)
+
+
+def i8_layout(ints: torch.Tensor):
+    """The plain version of the layout the card kernel's TMA reads (the
+    quantizer kernel writes it): the integers (S_out, 2, CP, dr, dc) as B
+    (groups, chunks, width, 32) int8, i8_columns' groups of columns n = 2 s
+    + p (zeros past 2 S_out), each k32 chunk of K = (dy, dx, c) over dx <
+    i8_dcp (zeros past dc) a run of `width` rows of 32 bytes (K-major:
+    B[group, chunk, n, b] the integer of column n at k = 32 chunk + b); and
+    nonzero (groups, chunks) bool, a chunk's flag: one of its integers is
+    not zero.  Each row is stored in the 32-byte swizzle that the field
+    kernel's wgmma reads (its 16-byte halves swapped where (n >> 2) is
+    odd), so that its TMA copies a chunk as it is."""
     s_out, _, cp, dr, dc = ints.shape
     dcp = i8_dcp(dc, cp)
-    cols = I8_GROUP_TILES * 8
-    groups = -(-2 * s_out // cols)
-    b = torch.zeros((dr, dcp, cp, groups * cols), dtype=torch.int8,
+    groups, width = i8_columns(s_out)
+    b = torch.zeros((dr, dcp, cp, groups * width), dtype=torch.int8,
                     device=ints.device)
     b[:, :dc, :, : 2 * s_out] = ints.permute(3, 4, 2, 0, 1).reshape(
         dr, dc, cp, 2 * s_out)
+    b = b.view(dr * dcp * cp // 32, 32, groups, width).permute(2, 0, 3, 1)
+    nonzero = b.ne(0).flatten(2).any(-1)
+    odd = (torch.arange(width, device=ints.device) >> 2) & 1 == 1
+    b = b.contiguous()
+    b[:, :, odd] = b[:, :, odd].roll(16, -1)
+    return b, nonzero
+
+
+def quantize_i8(kernel: torch.Tensor, qinv: torch.Tensor):
+    """The int8 field's operands of an (S_out, CP, dr, dc) float32 kernel:
+    (B, nonzero, scales) as i8_layout lays out quantize_conv_kernel's
+    integers, and its scales.  On CPU tensors those two plain versions, on
+    CUDA the quantizer kernel of csrc/conv_field_i8.cu (one launch,
+    counted LAUNCHES["conv_quant_i8"]); any other device raises."""
+    if not kernels.on_card(kernel.device, "int8 conv quantizer"):
+        ints, scales = quantize_conv_kernel(kernel, qinv)
+        return (*i8_layout(ints), scales)
+    if (kernel.dim() != 4 or kernel.dtype != torch.float32
+            or kernel.shape[1] not in (4, 8) or not kernel.is_contiguous()):
+        raise ValueError("kernel must be a contiguous (S_out, 4 or 8, dr, "
+                         "dc) float32")
+    s_out, cp, dr, dc = kernel.shape
+    if (qinv.dtype != torch.float32 or qinv.dim() != 1
+            or qinv.shape[0] < cp or not qinv.is_contiguous()
+            or qinv.device != kernel.device):
+        raise ValueError(f"qinv must be a contiguous float32 of >= {cp} "
+                         "beside the kernel")
+    dcp = i8_dcp(dc, cp)
+    groups, width = i8_columns(s_out)
     chunks = dr * dcp * cp // 32
-    # (chunk, h, t, j, group, tile, g) -> (group, chunk, tile, g, t, h, j)
-    b = b.view(chunks, 2, 4, 4, groups, I8_GROUP_TILES, 8)
-    return F.pad(b.permute(4, 0, 5, 6, 2, 1, 3),
-                 (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1))
+    dev = kernel.device
+    b = torch.empty((groups, chunks, width, 32), dtype=torch.int8, device=dev)
+    nonzero = torch.empty((groups, chunks), dtype=torch.bool, device=dev)
+    scales = torch.empty((s_out, 2), dtype=torch.float32, device=dev)
+    # each column's max in slices of I8_QUANT_SLICE values, then reduced
+    partial = torch.empty((s_out * -(-cp * dr * dc // I8_QUANT_SLICE),),
+                          dtype=torch.float32, device=dev)
+    kernels.launch("conv_field_i8", "tdr_conv_quant_i8", ptr(kernel),
+                   ptr(qinv), s_out, cp, dr, dc, dcp, groups, width,
+                   _HI_RECIP, _LO_RECIP, ptr(partial), partial.numel(),
+                   ptr(b), ptr(nonzero), ptr(scales))
+    kernels.LAUNCHES["conv_quant_i8"] += 1
+    return b, nonzero, scales
 
 
-def i8_splits(region: int, groups: int, dr: int, dcp: int, cp: int) -> int:
-    """The blocks a tile of centres of the int8 kernel splits its chunks
-    over (tdr_conv_field_i8_splits: as many as one wave of the card holds,
-    at most 8), so that a small region still keeps every SM busy with
-    several blocks."""
+@functools.cache
+def i8_splits(cp: int, width: int, dr: int, dcp: int, region: int,
+              groups: int, device: int) -> int:
+    """The blocks (a cluster) a tile of centres of the int8 kernel splits
+    its chunks over, on card `device` (tdr_conv_field_i8_splits: as many as
+    one wave of the card holds, at most 8), so that a small region still
+    keeps every SM busy with several blocks; asked once a shape."""
     splits = ctypes.c_int(0)
-    err = kernels.load("conv_field_i8").tdr_conv_field_i8_splits(
-        cp, dr, dcp, region, groups, ctypes.byref(splits))
+    with torch.cuda.device(device):
+        err = kernels.load("conv_field_i8").tdr_conv_field_i8_splits(
+            cp, width, dr, dcp, region, groups, ctypes.byref(splits))
     if err != 0:
         raise RuntimeError(f"tdr_conv_field_i8_splits: CUDA error {err}")
     return splits.value
@@ -369,64 +453,96 @@ def cost_field_i8_plain(codes, ints, scales, origin_yx, mo: int,
 
 
 def cost_field_i8(codes, ints, scales, origin_yx, mo: int, region: int,
-                  sums: bool = False, splits=None):
+                  sums: bool = False):
     """The int8 cost field, cost_field's (S_out, region, region) float32
-    rows (costs, norms, kf) from the map's codes (ConvMap.codes) and the
-    kernel's integers and scales (quantize_conv_kernel), over the block of
-    centres whose top-left centre is origin_yx ((2,) integer tensor, read
-    on the device).  On CPU tensors the plain version, on CUDA the kernel
-    of csrc/conv_field_i8.cu; any other device raises.  sums=True also
-    returns the int32 sums (cost_field_i8_plain's); splits sets the
-    kernel's split of its chunks (i8_splits where None)."""
-    dev = codes.device
-    if not kernels.on_card(dev, "int8 conv cost field"):
-        field, acc = cost_field_i8_plain(codes, ints, scales, origin_yx, mo,
-                                         region)
-    else:
-        field, acc = _launch_field_i8(codes, ints, scales, origin_yx, mo,
-                                      region, sums, splits)
+    rows (costs, norms, kf), from the map's codes (ConvMap.codes) and
+    integers and scales already quantized (quantize_conv_kernel), over the
+    block of centres whose top-left centre is origin_yx ((2,) integer
+    tensor): on CPU tensors, the plain version.  On the card the field
+    quantizes its kernel itself (conv_field_i8), so CUDA tensors raise, as
+    any other device does.  sums=True also returns the int32 sums
+    (cost_field_i8_plain's)."""
+    if kernels.on_card(codes.device, "int8 conv cost field"):
+        raise ValueError("on the card the int8 field quantizes its float "
+                         "kernel: conv_field_i8")
+    field, acc = cost_field_i8_plain(codes, ints, scales, origin_yx, mo,
+                                     region)
     CALLS["cost_field_i8"] += 1
     return (field, acc) if sums else field
 
 
-def _launch_field_i8(codes, ints, scales, origin_yx, mo, region, sums,
-                     splits):
-    dr, dc = conv_dims(mo)
+def conv_field_i8(codes, qinv, kernel, origin_yx, mo: int, region: int,
+                  sums: bool = False, splits=None):
+    """cost_field_i8 of the float (S_out, CP, dr, dc) kernel
+    (build_conv_kernel's), quantized against the map's qinv: on CPU tensors
+    quantize_conv_kernel and the plain field; on CUDA two launches, the
+    quantizer kernel (quantize_i8) and the field kernel, with no eager
+    quantization or layout and no host synchronisation; any other device
+    raises.  sums as cost_field_i8's; splits as launch_field_i8's."""
+    if not kernels.on_card(codes.device, "int8 conv cost field"):
+        field, acc = cost_field_i8_plain(
+            codes, *quantize_conv_kernel(kernel, qinv), origin_yx, mo, region)
+    else:
+        field, acc = launch_field_i8(codes, *quantize_i8(kernel, qinv),
+                                     origin_yx, mo, region, kernel.shape[0],
+                                     sums, splits)
+    CALLS["cost_field_i8"] += 1
+    return (field, acc) if sums else field
+
+
+def launch_field_i8(codes, b, nonzero, scales, origin_yx, mo: int,
+                    region: int, s_out: int, sums: bool = False,
+                    splits=None):
+    """The field kernel of csrc/conv_field_i8.cu alone, on CUDA tensors, on
+    operands laid out as quantize_i8 (or i8_layout) lays them out: (field,
+    int32 sums or None); LAUNCHES["conv_field_i8"] counts it.  splits sets
+    its split of a tile's chunks over a cluster's blocks (i8_splits where
+    None)."""
     dev = codes.device
-    if codes.dim() != 3 or codes.dtype != torch.int8 or codes.shape[2] not in (
-            4, 8) or not codes.is_contiguous():
-        raise ValueError("codes must be a contiguous (hp, wp, 4 or 8) int8")
+    if not kernels.on_card(dev, "int8 conv field kernel"):
+        raise ValueError("launch_field_i8 takes CUDA tensors")
+    dr, dc = conv_dims(mo)
+    if (codes.dim() != 3 or codes.dtype != torch.int8
+            or codes.shape[2] not in (4, 8) or codes.stride()[1:] != (
+                codes.shape[2], 1) or codes.stride(0) % 16
+            or codes.data_ptr() % 16):
+        raise ValueError("codes must be an (hp, wp, 4 or 8) int8 with "
+                         "contiguous pixels and rows of whole 16-byte groups "
+                         "on a 16-byte aligned base (ConvMap's)")
     hp, wp, cp = codes.shape
-    s_out = ints.shape[0]
-    if (ints.dtype != torch.int8 or tuple(ints.shape) != (s_out, 2, cp, dr, dc)
-            or ints.device != dev):
-        raise ValueError(f"ints must be ({s_out}, 2, {cp}, {dr}, {dc}) int8 "
-                         "beside the codes")
+    dcp = i8_dcp(dc, cp)
+    groups, width = i8_columns(s_out)
+    chunks = dr * dcp * cp // 32
+    if (b.dtype != torch.int8 or tuple(b.shape) != (groups, chunks, width, 32)
+            or not b.is_contiguous() or b.device != dev):
+        raise ValueError(f"B must be a contiguous ({groups}, {chunks}, "
+                         f"{width}, 32) int8 beside the codes")
+    if (nonzero.dtype != torch.bool or tuple(nonzero.shape) != (groups,
+                                                                chunks)
+            or not nonzero.is_contiguous() or nonzero.device != dev):
+        raise ValueError(f"nonzero must be a contiguous ({groups}, {chunks}) "
+                         "bool beside the codes")
     if (scales.dtype != torch.float32 or tuple(scales.shape) != (s_out, 2)
             or not scales.is_contiguous() or scales.device != dev):
         raise ValueError(f"scales must be a contiguous ({s_out}, 2) float32")
     origin = origin_yx.to(torch.int64).contiguous()
     if tuple(origin.shape) != (2,) or origin.device != dev:
         raise ValueError("origin_yx must be a (2,) tensor beside the codes")
-    if region % 16:
+    if region % I8_TILE[1] or region < I8_TILE[1]:
         raise ValueError(f"region {region} is not a multiple of 16")
-    bfrag = b_fragments(ints)
-    groups, chunks = bfrag.shape[0], bfrag.shape[1] - 1
-    nonzero = bfrag[:, :chunks].reshape(groups, chunks, -1).ne(0).any(-1)
     if splits is None:
-        splits = i8_splits(region, groups, dr, i8_dcp(dc, cp), cp)
+        splits = i8_splits(cp, width, dr, dcp, region, groups,
+                           dev.index if dev.index is not None
+                           else torch.cuda.current_device())
     out = torch.empty((s_out, region, region), dtype=torch.float32,
                       device=dev)
     acc = (torch.empty((2 * s_out, region, region), dtype=torch.int32,
                        device=dev) if sums else None)
-    partial = (torch.empty((splits, groups * I8_GROUP_TILES * 8, region,
-                            region), dtype=torch.int32, device=dev)
-               if splits > 1 else None)
     kernels.launch("conv_field_i8", "tdr_conv_field_i8", ptr(codes), hp, wp,
-                   cp, ptr(bfrag), ptr(nonzero), ptr(scales), ptr(origin),
-                   dr, dc, i8_dcp(dc, cp), region, s_out, groups, splits,
-                   ptr(out), None if acc is None else ptr(acc),
-                   None if partial is None else ptr(partial))
+                   codes.stride(0), cp, ptr(b), ptr(nonzero), ptr(scales),
+                   ptr(origin), dr, dc, dcp, region, s_out, groups, width,
+                   splits, i8_window(dr, dcp, cp)[1], ptr(out),
+                   None if acc is None else ptr(acc))
     kernels.LAUNCHES["conv_field_i8"] += 1
     return out, acc
 
@@ -519,9 +635,8 @@ def make_conv_scorer(
             if cmap.codes is None:
                 raise ValueError("the int8 conv field needs a ConvMap made "
                                  "with int8=True")
-            field = cost_field_i8(cmap.codes,
-                                  *quantize_conv_kernel(kernel, cmap.qinv),
-                                  origin, mo, region)
+            field = conv_field_i8(cmap.codes, cmap.qinv, kernel, origin,
+                                  mo, region)
         else:
             field = cost_field(cmap.padded, kernel, origin, mo, region)
         return read_scores(field.reshape(kernel.shape[0], -1),

@@ -76,7 +76,9 @@ LAUNCHES = {
     "crop_score_multi_init_raw_i4_lokf": 0,
     "crop_lokf_scales": 0,
     "fill_rows": 0,
-    # the conv path's int8 cost field (TDR_CONV_INT8=1)
+    # the conv path's int8 cost field (TDR_CONV_INT8=1): the quantizer and
+    # the field
+    "conv_quant_i8": 0,
     "conv_field_i8": 0,
     "crop_ablate": 0,
     "crop_ablate_init": 0,
@@ -208,15 +210,24 @@ _SIGNATURES = {
         "tdr_fill_rows": (_P, _P, _I, _P, _P, ctypes.c_uint, _P),
     },
     "conv_field_i8": {
-        # codes, hp, wp, CP, B fragments, chunk flags, scales, origin, dr,
-        # dc, dcp, region, S_out, column groups, splits, out, sums (or
-        # null), partial sums (or null), stream
-        "tdr_conv_field_i8": (
-            _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
-            _P, _P, _P,
+        # float kernel, qinv, S_out, CP, dr, dc, dcp, column groups, group
+        # width, f32(1/127), f32(1/32258), partial maxima (scratch) and
+        # their count, B out, chunk flags out, scales out, stream
+        "tdr_conv_quant_i8": (
+            _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P, ctypes.c_longlong,
+            _P, _P, _P, _P,
         ),
-        # CP, dr, dcp, region, column groups, splits (out)
-        "tdr_conv_field_i8_splits": (_I, _I, _I, _I, _I, ctypes.POINTER(_I)),
+        # codes, hp, wp, row pitch, CP, B, chunk flags, scales, origin, dr,
+        # dc, dcp, region, S_out, column groups, group width, splits,
+        # window groups, out, sums (or null), stream
+        "tdr_conv_field_i8": (
+            _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+            _I, _I, _P, _P, _P,
+        ),
+        # CP, group width, dr, dcp, region, column groups, splits (out)
+        "tdr_conv_field_i8_splits": (
+            _I, _I, _I, _I, _I, _I, ctypes.POINTER(_I),
+        ),
     },
     "crop_ablate": {
         # variant, compact map, table (or null), K, H, W, then as
