@@ -374,7 +374,7 @@ SYMBOLS = {
 }
 # their twins with the single-plane M (TDR_M_HILO=0): crop_init_lokf_kernel
 # <CP, RAW, I4>, crop_tracked_lokf_kernel<C, I4>, and the tracked kernels'
-# scales pass (timed on the float map)
+# weights pass (timed on the float map)
 for _i4 in (False, True):
     _tag = "_i4" * _i4 + "_lokf"
     SYMBOLS.update({
@@ -391,8 +391,8 @@ for _i4 in (False, True):
         f"crop_score_multi_init_raw{_tag}": _lokf_symbols(
             "crop_init_lokf_kernel", 4, True, _i4),
     })
-SYMBOLS["crop_lokf_scales"] = _lokf_symbols("crop_lokf_scales_kernel", 3,
-                                            False)
+SYMBOLS["crop_lokf_weights"] = _lokf_symbols("crop_lokf_weights_kernel", 3,
+                                             False)
 # the int8 conv field (a cluster adds a split tile's sums) and its
 # quantizer
 SYMBOLS["conv_field_i8"] = ("conv_field_i8_kernel",)
@@ -431,10 +431,10 @@ KERNELS = {
     "crop_score_multi_init_raw_i4": (
         INIT_SRC, "top_down_renderer_tpu/filter/multiscale.py:363"),
     "fill_rows": (FILL_SRC, "top_down_renderer_tpu/filter/resample.py:116"),
-    # the single-plane M's scales of every (bucket, shift) before the
-    # tracked kernel: the lokf quantization of _run_kernel (XLA around the
-    # pallas_call), which the tracked kernel's fold needs in advance
-    "crop_lokf_scales": (
+    # the single-plane M's weights pass before the tracked kernel: every
+    # (bucket, shift)'s integers and scales, the lokf quantization of
+    # _run_kernel (XLA around the pallas_call)
+    "crop_lokf_weights": (
         CROP_SRC, "top_down_renderer_tpu/filter/pallas_score.py:1053"),
     # the conv path's int8 cost field (TDR_CONV_INT8=1): an XLA contraction
     # of the reference, not a Pallas kernel
@@ -637,6 +637,38 @@ def log_init_sass() -> dict:
     return counts
 
 
+# crop_tracked_lokf_kernel<C, I4> in its mangled names (ILi<C>ELb<I4>E)
+_TRACKED_LOKF_FN = re.compile(
+    r"Function : \S*crop_tracked_lokf_kernelILi(\d)ELb(\d)E")
+TRACKED_LOKF_COUNTED = ("UBLKCP", "SYNCS", "DADD", "LDG")
+
+
+def log_tracked_lokf_sass() -> dict:
+    """Count, per instantiation of the single-plane tracked kernel
+    (crop_tracked_lokf_kernel<C, I4>: C 1..7, float and code map), its
+    bulk copies (UBLKCP), mbarrier operations (SYNCS), float64 adds (DADD)
+    and global loads (LDG): each copies its group's weights (UBLKCP) and
+    folds none in float64 (no DADD)."""
+    counts, current = {}, None
+    for line in read_sass("crop_score").splitlines():
+        if "Function :" in line:
+            hit = _TRACKED_LOKF_FN.search(line)
+            current = hit.groups() if hit else None
+            if current:
+                counts[current] = dict.fromkeys(TRACKED_LOKF_COUNTED, 0)
+        elif current:
+            for op in TRACKED_LOKF_COUNTED:
+                counts[current][op] += f" {op}" in line
+    check(len(counts) == 14, "crop_score's SASS names the single-plane "
+          f"tracked kernels {sorted(counts)}")
+    for (c, i4), n in sorted(counts.items()):
+        log(f"[A] crop_tracked_lokf_kernel<{c}, "
+            f"{'code' if i4 == '1' else 'float'} map>: {n}")
+    check(all(n["UBLKCP"] > 0 and n["DADD"] == 0 for n in counts.values()),
+          f"crop_tracked_lokf_kernel's bulk copies and float64 adds: {counts}")
+    return counts
+
+
 def max_rel(ref: torch.Tensor, got: torch.Tensor) -> float:
     return float(((got - ref).abs() / ref.abs().clamp(min=1e-9)).max())
 
@@ -799,7 +831,7 @@ CROP_LOKF = tuple(k + "_lokf" for k in CROP)
 MULTI_LOKF = tuple(k + "_lokf" for k in MULTI)
 CROP_I4_LOKF = tuple(k + "_lokf" for k in CROP_I4)
 MULTI_I4_LOKF = tuple(k + "_lokf" for k in MULTI_I4)
-SCALES = ("crop_lokf_scales",)  # launched by both tracked wrappers
+SCALES = ("crop_lokf_weights",)  # launched by both tracked wrappers
 ALL_MULTI = MULTI + MULTI_I4 + MULTI_LOKF + MULTI_I4_LOKF
 # every hi/lo crop kernel: none may launch on a single-plane path
 HILO_CROP = CROP + MULTI + RAW + CROP_I4 + MULTI_I4 + RAW_I4
@@ -997,8 +1029,9 @@ def phase_b4(dev, errs, b_args, theta):
     (the dequantized single-plane M) as in B, f = 1.0 and 0.5, but kf
     within LOKF_KF_TOL and the gate's patterns off it; the K-bucket ones
     on B2's 10 hypotheses, and per bucket against the uniform kernel on the
-    bucket's level; the scales pass bit for bit crop_score.tracked_lokf's
-    scales on the uniform and the K-bucket folds."""
+    bucket's level; the weights pass bit for bit crop_score.tracked_lokf's
+    integers (on each bucket's npix[b] pixels rounded up to 8, the entries
+    it writes) and scales on the uniform and the K-bucket folds."""
     maps, c, sten, scan, cw, ctr = b_args
     hyp, slots, levels, bmi = init_plan()
     scale = torch.as_tensor(np.tile(hyp, N // 10), device=dev)
@@ -1024,15 +1057,23 @@ def phase_b4(dev, errs, b_args, theta):
                 ("uniform", lmap.fold(sten, 1.0)),
                 ("K-bucket", cs.fold_pixels(ms.bucket_offsets(
                     sten, slots_t, RES, mips_t)))):
-            got = cs.tracked_scales(scan, cw, lmap.m_qinv, fold, c, int4)
-            want = cs.tracked_lokf(cs.tracked_weights(
-                scan, cw, fold[2], fold[3], lmap.m_qinv), int4, c)[1]
+            table, got = cs.tracked_table(scan, cw, lmap.m_qinv, fold, c,
+                                          int4)
+            w, want = cs.tracked_lokf(cs.tracked_weights(
+                scan, cw, fold[2], fold[3], lmap.m_qinv), int4, c)
+            want_q = w.transpose(-1, -2).to(torch.int16)
             torch.cuda.synchronize()
             check(torch.equal(got, want), f"B4 {tag}: the {label} scales "
                   "differ from tracked_lokf's")
-            log(f"[B4 {tag}] the {label} scales pass ({tuple(got.shape)}) "
+            for b, u in enumerate(fold[1].tolist()):
+                u8 = -(-u // 8) * 8
+                check(torch.equal(table[b, ..., :u8], want_q[b, ..., :u8]),
+                      f"B4 {tag}: the {label} integers of bucket {b} "
+                      "differ from tracked_lokf's")
+            log(f"[B4 {tag}] the {label} weights pass (table "
+                f"{tuple(table.shape)} int16, scales {tuple(got.shape)}) "
                 "equals tracked_lokf's bit for bit")
-        errs["abs"]["crop_lokf_scales"] = 0.0
+        errs["abs"]["crop_lokf_weights"] = 0.0
         args = (pyr, c, sten, scan, cw, ctr2)
         compare(f"B4 {tag} multi", errs,
                 MULTI_I4_LOKF if int4 else MULTI_LOKF,
@@ -1565,16 +1606,26 @@ def crop_bound(maps, c, tr, shifts, inputs):
                  nbytes(maps, *inputs) + n * 12)
 
 
-def pixel_bound(compact, c, npix, counts, inputs):
+def pixel_bound(compact, c, npix, counts, inputs, extra=0.0):
     """The tracked kernels on the work their inputs need: C + 1 FMAs
     (cost, norm) per distinct stencil pixel of the particle's bucket
     (npix (K,) distinct pixels, counts (K,) particles per bucket), float32
-    outside the tensor cores; the compact map and the per-particle inputs
-    read once, (N, 3) written."""
+    outside the tensor cores; the compact map, the per-particle inputs and
+    `extra` bytes (slab_bytes) read once, (N, 3) written."""
     n = int(counts.sum())
     ops = 2.0 * (c + 1) * float((counts.double().cpu()
                                  * npix.double().cpu()).sum())
-    return bound(ops, nbytes(compact, *inputs) + n * 12)
+    return bound(ops, nbytes(compact, *inputs) + n * 12 + extra)
+
+
+def slab_bytes(c, npix, key, th) -> float:
+    """The bytes of the weights table a single-plane tracked call reads:
+    the slab of each group (key = bucket * Th + shift) its particles fall
+    in, C + 3 int16 rows of its bucket's npix distinct pixels rounded up
+    to 8, and its scales (16 bytes)."""
+    groups = torch.unique(key.long())
+    u8 = (npix.long()[groups // th] + 7) // 8 * 8
+    return float(((c + 3) * 2 * u8 + 16).sum())
 
 
 def tc_bound(compact, c, shifts, npix, counts, inputs, out_floats=3,
@@ -1598,16 +1649,33 @@ def tc_bound(compact, c, shifts, npix, counts, inputs, out_floats=3,
     return bound(ops, moved, PEAK_BF16_FLOPS)
 
 
-def scales_bound(scan, cw, qinv, fold):
-    """The scales pass: for each of the K tables' Th shifts, each stencil
-    cell's C + 1 coefficients multiplied and summed (2 operations each,
-    float32 outside the tensor cores); the scan, the class weights, qinv
-    and the fold's CSR read once, the (K, Th, 4) scales written once."""
+def weights_bound(scan, cw, qinv, fold):
+    """The weights pass: for each of the K tables' Th shifts, each stencil
+    cell's C + 1 coefficients added to its pixel's sums (float64 in the
+    pass; counted at the float32 peak outside the tensor cores, the table's
+    rate for CUDA cores); the scan, the class weights, qinv and the fold's
+    CSR read once, and the integers it writes (C + 3 int16 a pixel of
+    npix[b] rounded up to 8, at every shift) and the (K, Th, 4) scales
+    written once."""
     _, npix, order, seg = fold
     c, th, r = scan.shape
     k = npix.shape[0]
-    return bound(2.0 * (c + 1) * th * r * th * k,
-                 nbytes(scan, cw, qinv, npix, order, seg) + k * th * 16)
+    u8 = float(((npix.long().cpu() + 7) // 8 * 8).sum())
+    return bound(1.0 * (c + 1) * th * r * th * k,
+                 nbytes(scan, cw, qinv, npix, order, seg)
+                 + th * (c + 3) * 2 * u8 + k * th * 16)
+
+
+def both_ms(name, kernel) -> float:
+    """The device time a call of a single-plane tracked wrapper takes in
+    its two launches, the weights pass and the kernel (their sum under
+    the profiler)."""
+    pass_symbols = _lokf_symbols("crop_lokf_weights_kernel", 3, "_i4" in name)
+    ms, tries = kernel_ms(kernel, SYMBOLS[name] + pass_symbols, per_call=2)
+    if tries > 1:
+        log(f"[D] {name} with its weights pass: the time took {tries} "
+            "profiles (an empty device trace before)")
+    return ms
 
 
 def profiled_ms(label, kernel, symbols) -> float:
@@ -1789,28 +1857,31 @@ def phase_d(dev, pf, world, errs):
         pixels=int(npix[0]), map_bytes=nbytes(codes),
     )
     compare("D clustered i4, C=3", errs, CROP_I4, *pair4)
+    slabs = slab_bytes(3, npix, rotation_shift(theta, sten.shape[0]),
+                       sten.shape[0])
     for int4, lm in lokf_maps.items():
         operand, tag = lm.operand(3), "_i4" * int4 + "_lokf"
         pairL = crop_pair((lm, 3, sten, scan, cw, ctr), theta, f)
         name = "crop_score_tracked" + tag
         out[name] = dict(
             timed(name, *pairL[0]),
-            bound=pixel_bound(operand, 3, npix, one, (ctr, theta)),
+            both_ms=both_ms(name, pairL[0][0]),
+            bound=pixel_bound(operand, 3, npix, one, (ctr, theta), slabs),
             bound_cells=crop_bound(operand, 3, tr, 1, (ctr, theta)),
             pixels=int(npix[0]), map_bytes=nbytes(operand),
         )
         compare(f"D clustered{tag}, C=3", errs,
                 (name, "crop_score_init" + tag), *pairL, kf_tol=LOKF_KF_TOL)
-    # the scales pass the single-plane tracked wrappers launch first, on
+    # the weights pass the single-plane tracked wrappers launch first, on
     # this cell's fold (float map)
     lm = lokf_maps[False]
     fold = lm.fold(sten, f)
-    out["crop_lokf_scales"] = dict(
-        timed("crop_lokf_scales",
-              lambda: cs.tracked_scales(scan, cw, lm.m_qinv, fold, 3, False),
+    out["crop_lokf_weights"] = dict(
+        timed("crop_lokf_weights",
+              lambda: cs.tracked_table(scan, cw, lm.m_qinv, fold, 3, False),
               lambda: cs.tracked_lokf(cs.tracked_weights(
-                  scan, cw, fold[2], fold[3], lm.m_qinv), False, 3)[1]),
-        bound=scales_bound(scan, cw, lm.m_qinv, fold),
+                  scan, cw, fold[2], fold[3], lm.m_qinv), False, 3)),
+        bound=weights_bound(scan, cw, lm.m_qinv, fold),
     )
     gmm_ms = median_ms(lambda: gmm_mod.compute_gmm(
         clustered.particles, clustered.n_active, clustered.gmm.k))
@@ -2070,6 +2141,8 @@ def phase_d2(dev, world, errs):
                                          plan.levels, int4=int4,
                                          m_hilo=False)
             operand, tag = pyrL.operand(3), "_i4" * int4 + "_lokf"
+            if not int4:
+                qinvK = pyrL.m_qinv  # the float map's, for the weights pass
             prods = 1 if int4 else 2
             argsL = pair_args(pyrL, sten, scan, cw, p)
             pairL = multi_pair(argsL, p.theta, p.scale, slots, plan.bmi)
@@ -2079,8 +2152,13 @@ def phase_d2(dev, world, errs):
                               map_bytes=nbytes(operand))
             cellsL = crop_bound(operand, 3, tr, 1 if tracked else 40, inputs)
             if tracked:
+                th = sten.shape[0]
+                key = (ms.assign_buckets(p.scale, slots).long() * th
+                       + rotation_shift(p.theta, th).long())
                 out[nameL].update(
-                    bound=pixel_bound(operand, 3, npix, counts, inputs),
+                    both_ms=both_ms(nameL, pairL[0][0]),
+                    bound=pixel_bound(operand, 3, npix, counts, inputs,
+                                      slab_bytes(3, npix, key, th)),
                     bound_cells=cellsL)
             else:
                 out[nameL].update(
@@ -2102,6 +2180,16 @@ def phase_d2(dev, world, errs):
                 )
                 compare_raw(f"D2 raw{tag}, C=3", errs, rname, *rawL,
                             kf_tol=LOKF_KF_TOL)
+        if tracked:  # the weights pass on this cell's K tables
+            foldK = cs.fold_pixels(off)
+            out["crop_lokf_weights_multi"] = dict(
+                timed("crop_lokf_weights",
+                      lambda: cs.tracked_table(scan, cw, qinvK, foldK, 3,
+                                               False),
+                      lambda: cs.tracked_lokf(cs.tracked_weights(
+                          scan, cw, foldK[2], foldK[3], qinvK), False, 3)),
+                bound=weights_bound(scan, cw, qinvK, foldK),
+                tables=off.shape[0])
         if not tracked:
             raw4 = multi_raw_triple(pair_args(pyr4, sten, scan, cw, p),
                                     p.scale, slots, plan.bmi)
@@ -2393,7 +2481,7 @@ def phase_m(dev, world, read_launches):
             mlL, perL = variant_drive(dev, world, mesh, names,
                                       map_int4=int4, m_hilo=False)
             read_launches(label, names[:2] + ("crop_fold",
-                                              "crop_lokf_scales"))
+                                              "crop_lokf_weights"))
             want = np.zeros_like(perL)
             want[0, 0] = want[1, 1] = 1
             check(np.array_equal(perL, want),
@@ -3345,6 +3433,7 @@ def main() -> int:
         log_sass(name, opcodes)
     log_init_sass()
     log_ablate_init_sass()
+    log_tracked_lokf_sass()
 
     errs = {"abs": dict.fromkeys(KERNELS, 0.0), "rel": dict.fromkeys(INIT, 0.0)}
     b_args, b_theta = phase_b(dev, errs)
@@ -3438,6 +3527,11 @@ def main() -> int:
         if "floor_ms" in t:
             extra += (f", {t['tables']} offset table(s), floor (a "
                       f"one-element fill) {t['floor_ms']:.4f} ms")
+        if "both_ms" in t:
+            extra += (f", with the weights pass (both launches) "
+                      f"{t['both_ms']:.4f} ms")
+        if "tables" in t and "floor_ms" not in t:
+            extra += f", {t['tables']} offset tables"
         if "tracked_spread_ms" in t:
             extra += (f", the tracked kernel on the spread cloud "
                       f"{t['tracked_spread_ms']:.4f} ms")
@@ -3506,6 +3600,15 @@ def main() -> int:
                 | {"bound_ms": times["crop_fold_multi"]["bound"][0],
                    "bound_by": times["crop_fold_multi"]["bound"][1]}}
                if name == "crop_fold" else {}),
+            **({"both_ms": times[name]["both_ms"]}
+               if "both_ms" in times[name] else {}),
+            # the weights pass: its times at D2's K tables
+            **({"k_bucket": {
+                k: times["crop_lokf_weights_multi"][k]
+                for k in ("tables", "ms", "wrapper_ms", "plain_ms")}
+                | {"bound_ms": times["crop_lokf_weights_multi"]["bound"][0],
+                   "bound_by": times["crop_lokf_weights_multi"]["bound"][1]}}
+               if name == "crop_lokf_weights" else {}),
             **({k: times[name][k] for k in ("ms_2p22", "plain_ms_2p22",
                                             "library_ms_2p22")}
                | {"bound_ms_2p22": times[name]["bound_2p22"][0]}

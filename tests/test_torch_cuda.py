@@ -1404,7 +1404,7 @@ def test_lokf_tracked_kernel_matches_plain(dev, c, f, n, int4):
     """The tracked kernel with the single-plane M, on the float and the
     code map, against its plain version (the dequantized single-plane
     weights): 1 to 7 classes, tile edges, every shift, edges and far out;
-    the scales pass first (one launch), a second call the same bits, no
+    the weights pass first (one launch), a second call the same bits, no
     hi/lo launch."""
     packed, sten, scan, cw, centers, thetas = _world(dev, c, 21, n)
     thetas = _every_shift(thetas)
@@ -1417,8 +1417,8 @@ def test_lokf_tracked_kernel_matches_plain(dev, c, f, n, int4):
                                  centers, thetas, f, **maps.plain_m())
     torch.cuda.synchronize()
     assert _lokf_launched(name, before) == (2, 0)
-    assert kernels.LAUNCHES["crop_lokf_scales"] == before[
-        "crop_lokf_scales"] + 2
+    assert kernels.LAUNCHES["crop_lokf_weights"] == before[
+        "crop_lokf_weights"] + 2
     assert _same_bits(got, again)
     _check_tracked_lokf(got, ref, n)
 
@@ -1427,19 +1427,30 @@ def test_lokf_tracked_kernel_matches_plain(dev, c, f, n, int4):
 @pytest.mark.parametrize("int4", [False, True])
 @pytest.mark.parametrize("c,k", [(3, 1), (6, 10), (1, 2), (7, 12)])
 def test_lokf_scales_kernel_equals_tracked_lokf(dev, c, k, int4):
-    """The scales pass against crop_score.tracked_lokf's scales on the
-    same fold, bit for bit: K = 1 to 12 tables, 1 to 7 classes."""
+    """The weights pass against crop_score.tracked_lokf on the same fold,
+    bit for bit: its scales, and its integer table (K, Th, C + 3, P) int16
+    on each bucket's npix[b] pixels rounded up to 8 (zeros past npix[b]);
+    K = 1 to 12 tables, 1 to 7 classes; tracked_scales the same scales."""
     _, sten, scan, cw, _, _ = _world(dev, c, 22, 8)
     off = _fold_tables(dev, TH, R, "D2" if k > 2 else [0.5, 1.0][:k])[:k]
     fold = cs.fold_pixels(off.contiguous())
     qinv = torch.as_tensor(np.random.default_rng(c).random(8).astype(
         np.float32) + 0.01, device=dev)
-    got = cs.tracked_scales(scan, cw, qinv, fold, c, int4)
-    want = cs.tracked_lokf(cs.tracked_weights(scan, cw, fold[2], fold[3],
-                                              qinv), int4, c)[1]
+    before = kernels.LAUNCHES["crop_lokf_weights"]
+    table, got = cs.tracked_table(scan, cw, qinv, fold, c, int4)
+    scales = cs.tracked_scales(scan, cw, qinv, fold, c, int4)
+    w, want = cs.tracked_lokf(cs.tracked_weights(scan, cw, fold[2], fold[3],
+                                                 qinv), int4, c)
     torch.cuda.synchronize()
+    assert kernels.LAUNCHES["crop_lokf_weights"] == before + 2
     assert got.shape == (off.shape[0], TH, 4)
-    assert torch.equal(got, want)
+    assert torch.equal(got, want) and torch.equal(scales, want)
+    assert table.shape == (off.shape[0], TH, c + 3, fold[0].shape[1])
+    assert table.dtype == torch.int16
+    want_q = w.transpose(-1, -2).to(torch.int16)
+    for b, u in enumerate(fold[1].tolist()):
+        u8 = -(-u // 8) * 8
+        assert torch.equal(table[b, ..., :u8], want_q[b, ..., :u8])
 
 
 @pytest.mark.cuda

@@ -455,17 +455,44 @@ def _kernel_weights(y, s, rq, c, int4):
     return torch.as_tensor(w)
 
 
-@pytest.mark.parametrize("c,f,int4", [(1, 1.0, False), (3, 0.5, False),
-                                      (6, 0.37, False), (2, 1.0, True),
-                                      (3, 0.5, True), (7, 0.37, True)])
-def test_lokf_tracked_fold_equals_plain(c, f, int4):
-    """The tracked kernel's single-plane fold on the CPU: its weights
-    (lokf_weights, emulated line by line in numpy from the exact per-pixel
-    sums and tracked_scales' scales) equal tracked_lokf_weights' bit for
-    bit on the float map, and weigh the window as the kernel does (the
-    float map's values, or the codes themselves on the code map) to the
-    plain version's scores (rel 1e-5, kf within 1e-6); every shift, windows
-    across the edges and far out."""
+def _table_weights(table, s, rq, c, int4):
+    """lokf_dequant of csrc/crop_tracked.cuh in numpy float32, one line of
+    the kernel at a time, from the weights pass's table (K, Th, C + 3, P)
+    int16 and scales (K, Th, 4): the weights (K, Th, P, C + 2) the tracked
+    kernel dequantizes into shared memory, (q s) rq on the float map, q s
+    on the code map, the kf weight q_kf s_kf + q_lo s_lo."""
+    q = np_(table).astype(np.float32).transpose(0, 1, 3, 2)
+    s = np_(s)[:, :, None, :]
+    sx, sy, sz, sw = (s[..., i] for i in range(4))
+    w = np.zeros(q.shape[:-1] + (c + 2,), np.float32)
+    rq = np_(rq)
+    for ch in range(c):
+        w[..., ch] = q[..., ch] * sx if int4 else (q[..., ch] * sx) * rq[ch]
+    w[..., c] = q[..., c] * sy if int4 else (q[..., c] * sy) * rq[c]
+    k = q[..., c + 1] * sz + q[..., c + 2] * sw
+    w[..., c + 1] = k if int4 else k * rq[c]
+    return torch.as_tensor(w)
+
+
+_FOLD_CASES = [(1, 1.0, False), (3, 0.5, False), (6, 0.37, False),
+               (2, 1.0, True), (3, 0.5, True), (7, 0.37, True)]
+
+
+@pytest.mark.parametrize("c,f,int4,src", [
+    pytest.param(*k, src, id="-".join(map(str, k)) + tag)
+    for src, tag in (("sums", ""), ("table", "-table"))
+    for k in _FOLD_CASES])
+def test_lokf_tracked_fold_equals_plain(c, f, int4, src):
+    """The tracked kernel's single-plane weights on the CPU, src "sums":
+    lokf_weights, emulated line by line in numpy from the exact per-pixel
+    sums and tracked_scales' scales; src "table": the weights pass's plain
+    version (tracked_table: tracked_lokf's integers, as int16 in the
+    kernel's (K, Th, C + 3, P) layout, and its scales) and the kernel's
+    dequantization of them (lokf_dequant, emulated in numpy).  Either
+    equals tracked_lokf_weights' bit for bit on the float map, and weighs
+    the window as the kernel does (the float map's values, or the codes
+    themselves on the code map) to the plain version's scores (rel 1e-5,
+    kf within 1e-6); every shift, windows across the edges and far out."""
     packed, scan, centers, cw = _classes_world(c, int(f * 100) + c)
     m, sten, sc, cwt, ctr = _t(packed, STENCIL, scan, cw, centers)
     th = torch.as_tensor((np.arange(160) * np.float32(2 * math.pi / TH)
@@ -477,7 +504,17 @@ def test_lokf_tracked_fold_equals_plain(c, f, int4):
     y = cs.tracked_weights(sc, cwt, fold[2], fold[3], qinv)
     s = cs.tracked_scales(sc, cwt, qinv, fold, c, int4)
     rq = 1.0 / qinv
-    w = _kernel_weights(y, s, rq, c, int4)
+    if src == "sums":
+        w = _kernel_weights(y, s, rq, c, int4)
+    else:
+        table, ts = cs.tracked_table(sc, cwt, qinv, fold, c, int4)
+        wl, sl = cs.tracked_lokf(y, int4, c)
+        assert table.dtype == torch.int16
+        assert table.shape == (1, TH, c + 3, fold[0].shape[1])
+        assert torch.equal(table.float().transpose(-1, -2), wl)
+        assert torch.equal(ts, sl) and torch.equal(ts, s)
+        assert np.abs(np_(table)).max() <= (2032 if int4 else 127)
+        w = _table_weights(table, ts, rq, c, int4)
     if int4:
         a = _code_values(maps, c)
     else:

@@ -6,7 +6,9 @@ the offset fold both read (csrc/crop_score.cu, crop_fold_kernel).
 Times the kernel of the checkout at ROOT:
 
   tracked  the clustered cell: 102,400 particles in a 100 px square of a
-           1024^2 3-class map, thetas in a 0.15 rad band;
+           1024^2 3-class map, thetas in a 0.15 rad band; and the K-bucket
+           cell: the spread cloud below over the 10 scale hypotheses' K
+           buckets at res 0.5, with a theta each;
   init     a spread cloud of 102,400 particles over the 1024^2 3-class
            map, and the same cloud over the 10 scale hypotheses' K buckets
            at res 0.5;
@@ -29,9 +31,16 @@ the pyramid made with int4=True; crop_tracked_i4_kernel, crop_init_i4_kernel)
 beside the float ones.  --lokf times the kernels with the single-plane M
 (TDR_M_HILO=0: the CropMap and the pyramid made with m_hilo=False;
 crop_tracked_lokf_kernel, crop_init_lokf_kernel), on the float map or,
-with --int4, on the codes (checkouts that have the single-plane M):
+with --int4, on the codes (checkouts that have the single-plane M).  A
+single-plane tracked call makes two launches, a pass over every (bucket,
+shift) first (the scales pass, or the weights pass, whichever ROOT has)
+and the kernel: each tracked cell then also gives their sum a call
+("with_pass_ms").  --slabs N times ROOT's kernels built with N slabs of
+the weights table in the single-plane ring (csrc/crop_tracked.cuh's
+kSlabs replaced in a copy of the sources, built by nvcc into a temporary
+directory; checkouts that have it):
 
-    python tests/time_torch_tracked.py [--kernel tracked|init|fold] [--int4] [--lokf] [ROOT]
+    python tests/time_torch_tracked.py [--kernel tracked|init|fold] [--int4] [--lokf] [--slabs N] [ROOT]
 """
 
 from __future__ import annotations
@@ -40,7 +49,11 @@ import argparse
 import hashlib
 import json
 import os
+import shutil
+import subprocess
 import sys
+import tempfile
+from pathlib import Path
 
 ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
 ap.add_argument("--kernel", choices=("tracked", "init", "fold"),
@@ -49,6 +62,8 @@ ap.add_argument("--int4", action="store_true",
                 help="the code kernels on the nibble-packed map")
 ap.add_argument("--lokf", action="store_true",
                 help="the kernels with the single-plane M (TDR_M_HILO=0)")
+ap.add_argument("--slabs", type=int, choices=(1, 2),
+                help="slabs in the single-plane tracked kernel's ring")
 ap.add_argument("root", nargs="?", default=os.path.join(
     os.path.dirname(os.path.abspath(__file__)), ".."))
 ARGS = ap.parse_args()
@@ -64,6 +79,31 @@ from top_down_renderer_torch.filter import crop_score as cs  # noqa: E402
 from top_down_renderer_torch.filter import multiscale as ms  # noqa: E402
 from top_down_renderer_torch.maps.polar import polar_stencil  # noqa: E402
 from top_down_renderer_torch.testing import synthetic_setup  # noqa: E402
+
+
+def use_slabs(n: int, tmp: str) -> None:
+    """Load ROOT's crop_score library from a build with n slabs in the
+    single-plane ring: the sources copied into tmp, kSlabs replaced, and
+    crop_score.LOKF_SLABS set to match (its shared-memory check)."""
+    from top_down_renderer_torch import kernels
+
+    old = "constexpr int kSlabs = 1;"
+    header = kernels.CSRC / "crop_tracked.cuh"
+    if not hasattr(cs, "LOKF_SLABS") or old not in header.read_text():
+        raise SystemExit(f"{ROOT} has no ring of slabs")
+    for f in kernels.CSRC.iterdir():
+        if f.suffix in (".cu", ".cuh"):
+            shutil.copy(f, tmp)
+    copy = Path(tmp, header.name)
+    copy.write_text(copy.read_text().replace(
+        old, f"constexpr int kSlabs = {n};"))
+    lib = Path(tmp, "libcrop_score.so")
+    subprocess.run([kernels.find_nvcc(), *kernels.NVCC_FLAGS, "-o", str(lib),
+                    str(Path(tmp, "crop_score.cu"))], check=True)
+    build = kernels.build
+    kernels.build = lambda name: lib if name == "crop_score" else build(name)
+    cs.LOKF_SLABS = n
+
 
 N = 102_400
 ROUNDS = 5
@@ -93,6 +133,31 @@ def symbols(kernel, n, raw=None):
             {True: "true", False: "false"}, {True: "(bool)1", False: "(bool)0"}))
 
 
+# the pass a single-plane tracked call launches before its kernel, by the
+# names it has had, on the map the options pick
+PASS_SYMBOLS = tuple(f"crop_lokf_{n}_kernel<3, {flag}>"
+                     for n in ("scales", "weights")
+                     for flag in (("true", "(bool)1") if ARGS.int4
+                                  else ("false", "(bool)0")))
+
+
+def pyramid(packed, levels):
+    """The pyramid of `packed` at `levels` the options pick."""
+    if ARGS.lokf:
+        return ms.build_pyramid_maps(packed, levels, ARGS.int4, m_hilo=False)
+    return (ms.build_pyramid_maps(packed, levels, int4=True) if ARGS.int4
+            else ms.build_pyramid_maps(packed, levels))
+
+
+def hypotheses():
+    """The 10 scale hypotheses at res 0.5: (hyp, slots, bucket levels,
+    level per bucket)."""
+    hyp = (10.0 ** (np.arange(10) / 10.0)).astype(np.float32)
+    _, slots, mips = ms.plan_buckets(hyp, 25, 0.5, 10.0)
+    levels = tuple(sorted(set(mips)))
+    return hyp, slots, levels, tuple(levels.index(m) for m in mips)
+
+
 def tracked_cells(dev):
     """{label: (the kernel's wrapper call, its profiler symbols)}."""
     d = synthetic_setup(N, h=1024, w=1024, c=3, cluster=(462, 462, 100),
@@ -101,8 +166,18 @@ def tracked_cells(dev):
     t = [torch.as_tensor(v, device=dev) for v in (
         d["stencil"], d["scan"], CW, p["init_px"], p["theta"])]
     maps = crop_map(torch.as_tensor(d["packed"], device=dev))
+    spread = synthetic_setup(N, h=1024, w=1024, c=3)
+    q = spread["state"]["particles"]
+    hyp, slots, levels, bmi = hypotheses()
+    packed = torch.as_tensor(spread["packed"], device=dev)
+    multi = (pyramid(packed, levels), 3, *[torch.as_tensor(v, device=dev)
+                                          for v in (
+        spread["stencil"], spread["scan"], CW, q["init_px"], q["theta"],
+        np.resize(hyp, N), slots)], bmi, 0.5)
     return {"clustered": (lambda: cs.score_tracked(maps, 3, *t, 1.0),
-                          symbols("tracked", 3))}
+                          symbols("tracked", 3)),
+            "buckets": (lambda: ms.score_tracked_multi(*multi),
+                        symbols("tracked", 3))}
 
 
 def init_cells(dev):
@@ -111,18 +186,10 @@ def init_cells(dev):
         d["packed"], d["stencil"], d["scan"], CW,
         d["state"]["particles"]["init_px"])]
     maps = crop_map(t[0])
-    hyp = (10.0 ** (np.arange(10) / 10.0)).astype(np.float32)
-    _, slots, mips = ms.plan_buckets(hyp, 25, 0.5, 10.0)
-    levels = tuple(sorted(set(mips)))
-    if ARGS.lokf:
-        pyr = ms.build_pyramid_maps(t[0], levels, ARGS.int4, m_hilo=False)
-    else:
-        pyr = (ms.build_pyramid_maps(t[0], levels, int4=True) if ARGS.int4
-               else ms.build_pyramid_maps(t[0], levels))
-    multi = (pyr, 3, *t[1:],
+    hyp, slots, levels, bmi = hypotheses()
+    multi = (pyramid(t[0], levels), 3, *t[1:],
              torch.as_tensor(np.resize(hyp, N), device=dev),
-             torch.as_tensor(slots, device=dev),
-             tuple(levels.index(m) for m in mips), 0.5)
+             torch.as_tensor(slots, device=dev), bmi, 0.5)
     names = symbols("init", 4, raw=False)
     return {
         "uniform": (lambda: cs.score_init_sel(maps, 3, *t[1:], 1.0), names),
@@ -155,20 +222,28 @@ def main() -> int:
         print("time_torch_tracked: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
+    slab_dir = tempfile.TemporaryDirectory()  # the variant build, if any
+    if ARGS.slabs is not None:
+        use_slabs(ARGS.slabs, slab_dir.name)
     cells = {"tracked": tracked_cells, "init": init_cells,
              "fold": fold_cells}[ARGS.kernel](dev)
     if (ARGS.int4 or ARGS.lokf) and ARGS.kernel == "fold":
         raise SystemExit("--int4 and --lokf time the tracked or init kernels")
     result = {"root": ROOT, "kernel": ARGS.kernel, "int4": ARGS.int4,
-              "lokf": ARGS.lokf,
+              "lokf": ARGS.lokf, "slabs": getattr(cs, "LOKF_SLABS", None),
               "card": smoke.card_name_and_limit()}
+    both = ARGS.lokf and ARGS.kernel == "tracked"
     for label, (run, symbols) in cells.items():
         first = rows(run())
-        times = []
+        times, with_pass = [], []
         for _ in range(ROUNDS):
-            ms_ = smoke.kernel_ms(run, symbols)
             # (ms, profiles taken) where ROOT's kernel_ms reports its tries
+            ms_ = smoke.kernel_ms(run, symbols)
             times.append(ms_[0] if isinstance(ms_, tuple) else ms_)
+            if both:
+                ms_ = smoke.kernel_ms(run, symbols + PASS_SYMBOLS,
+                                      per_call=2)
+                with_pass.append(ms_[0] if isinstance(ms_, tuple) else ms_)
             if not torch.equal(rows(run()).view(torch.int32),
                                first.view(torch.int32)):
                 raise RuntimeError(f"the {label} kernel does not repeat")
@@ -176,6 +251,10 @@ def main() -> int:
             "kernel_ms": times, "median_ms": float(np.median(times)),
             "sha256": hashlib.sha256(first.numpy().tobytes()).hexdigest(),
         }
+        if both:
+            result[label].update(with_pass_ms=with_pass,
+                                 with_pass_median_ms=float(
+                                     np.median(with_pass)))
     print(json.dumps(result))
     return 0
 

@@ -76,22 +76,6 @@ struct Chunk {
 template <int CP, int NP = 2>
 constexpr int kRingBytes = kStages * Chunk<CP, NP>::kBytes;
 
-// One bulk copy of `bytes` from global memory into shared memory, counted
-// on `bar` (one arrival that expects the bytes).
-__device__ __forceinline__ void load_chunk(void* dst, const void* src,
-                                           int bytes, uint64_t* bar) {
-  const uint32_t b = smem_addr(bar);
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b),
-      "r"(bytes)
-      : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(b)
-      : "memory");
-}
-
 // wgmma descriptor of a K-major bf16 operand without swizzle: start address,
 // leading (K) and stride (N) byte offsets between 8 x 16-byte core matrices.
 __device__ __forceinline__ uint64_t desc(uint32_t addr) {

@@ -66,21 +66,29 @@
 // of 16 shifts, each column one shift, so its scales are per (bucket,
 // shift) for cost and norm and per bucket for kf; rounding a folded weight
 // needs its column's amax over every pixel first.  So the wrapper launches
-// crop_lokf_scales_kernel once (one block a (shift, bucket): the fold of
-// every pixel at that shift, a block max, the four scales), then
-// crop_tracked_lokf_kernel, the tracked body with its fold rounding each
-// weight as the plane does (crop_tracked.cuh, lokf_weights): the cells'
-// coefficients in bf16 times qinv (the map quantization's), summed in
-// float64 (exact, so both kernels and the plain version agree bit for bit
-// on the sums whatever their order), each column's integers round(bf16(sum)
-// / s).  The gather and the FMAs are the hi/lo kernel's; on the code map
-// the weights apply to the codes themselves.
-//
+// crop_lokf_weights_kernel once (the weights pass: each (bucket, shift)
+// group's fold of every distinct pixel, the cells' coefficients in bf16
+// times qinv (the map quantization's) summed in float64, exact, so the pass
+// and the plain version agree bit for bit whatever their order; each
+// column's amax and its scale; then every pixel's integers round(bf16(sum)
+// / s) into a table (K*Th, C + 3, P) int16 and the scales (K, Th, 4)),
+// then crop_tracked_lokf_kernel, which folds nothing: for each run it
+// copies its group's integers and scales into shared memory by 1-D bulk
+// copies on an mbarrier, the next run's copy in flight while the warps
+// gather, and dequantizes them in crop_score.tracked_lokf_weights' float32
+// operations (crop_tracked.cuh, lokf_dequant).  The gather and the FMAs are
+// the hi/lo kernel's; on the code map the weights apply to the codes
+// themselves.  Each group is folded and rounded once a call, not once in
+// every block that holds one of its runs (hundreds of blocks a group on a
+// clustered cloud, whose blocks share a handful of shifts); no block does
+// float64 arithmetic or a division.
+
 // Contract (equal to the plain versions in filter/crop_score.py and
 // filter/multiscale.py up to float summation order): the compact map is
 // (pixels, CP) float32, classes in channels [0, C), known in channel C;
 // centers are (cy, cx) int32, pixel offsets (dy, dx) int32.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -146,84 +154,253 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 // The same body with the single-plane M: qinv (8) the map quantization's,
-// scales (K, Th, 4) from crop_lokf_scales_kernel; the float map (pixels,
-// CP) or, with I4, the code map (pixels, CP/2).
+// wtab (K*Th, C + 3, P) int16 and scales (K, Th, 4) from
+// crop_lokf_weights_kernel; the float map (pixels, CP) or, with I4, the
+// code map (pixels, CP/2).
 template <int C, bool I4>
 __global__ void __launch_bounds__(kThreads, 2)
     crop_tracked_lokf_kernel(const MapElem<I4>* __restrict__ map,
                              const float* __restrict__ qinv,
+                             const short* __restrict__ wtab,
                              const float* __restrict__ scales,
                              const int4* __restrict__ table, int H, int W,
-                             const float* __restrict__ scan,
-                             const float* __restrict__ cw,
                              const int2* __restrict__ pix,
-                             const int* __restrict__ npix,
-                             const int* __restrict__ order,
-                             const int* __restrict__ seg, int Th, int R,
-                             int P, const int* __restrict__ skey,
+                             const int* __restrict__ npix, int Th, int P,
+                             const int* __restrict__ skey,
                              const long long* __restrict__ perm,
                              const int2* __restrict__ centers, int N,
                              float inv_tr, float* __restrict__ out) {
-  tracked_body<C, kFull, I4, true>(map, table, H, W, scan, cw, pix, npix,
-                                   order, seg, Th, R, P, skey, perm, centers,
-                                   N, inv_tr, out, qinv, scales);
+  tracked_body<C, kFull, I4, true>(map, table, H, W, nullptr, nullptr, pix,
+                                   npix, nullptr, nullptr, Th, 1, P, skey,
+                                   perm, centers, N, inv_tr, out, qinv,
+                                   scales, wtab);
 }
 
-constexpr int kScaleThreads = 256;
+// -- the weights pass's arithmetic (crop_score.tracked_lokf) --------------
+// x rounded to bf16 and back
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
 
-// Block (s, b) writes the single-plane scales of bucket b at shift s,
-// out[b, s] = (cost, norm, kf, kf residual): it folds every distinct pixel
-// of the bucket at shift s as the tracked kernel's fold does (the same
-// bf16 coefficients, read from the scan in global memory, summed in
-// float64), takes the amax of each column's entries over the pixels
-// (lokf_amax) and its scale (lokf_scale; the residual's s_kf / 254).  One
-// launch for all K * Th groups; its work is the fold's (K Th R Th cells),
-// tiny beside the tracked kernel's gather.
+// A scan cell's coefficient as the JAX package's M build rounds it: the
+// cell's value (0.01 w_c scan_c, or the class sum) times the channel's
+// qinv in float32, rounded to bf16.
+__device__ __forceinline__ float lokf_coef(float v, float q) {
+  return bf16r(__fmul_rn(v, q));
+}
+
+// round(x / s) half to even, clipped to +-127: an integer of the plane
+__device__ __forceinline__ float lokf_q(float x, float s) {
+  return fminf(fmaxf(rintf(__fdiv_rn(x, s)), -127.f), 127.f);
+}
+
+// A column's scale from the amax of its sums: max(amax (1 + 2^-8), 1e-30)
+// / 127 (crop_score.lokf_scale)
+__device__ __forceinline__ float lokf_scale(float amax) {
+  return __fdiv_rn(fmaxf(__fmul_rn(amax, 1.00390625f), 1e-30f), 127.f);
+}
+
+// The amax of one pixel's entries in the cost, norm and kf columns (m[0],
+// m[1], m[2]), from its per-channel sums y (C classes), yn and yk: the
+// entries themselves on the float map; on the code map the e-dot
+// identity's pairs, y_even - y_odd / 16 and y_odd / 16, the known channel
+// C in its pair with a zero partner.
 template <int C, bool I4>
-__global__ void __launch_bounds__(kScaleThreads)
-    crop_lokf_scales_kernel(const float* __restrict__ scan,
-                            const float* __restrict__ cw,
-                            const float* __restrict__ qinv,
-                            const int* __restrict__ npix,
-                            const int* __restrict__ order,
-                            const int* __restrict__ seg, int Th, int R,
-                            int P, float* __restrict__ out) {
-  __shared__ float s_max[kScaleThreads / 32][3];
+__device__ __forceinline__ void lokf_amax(const float (&y)[C], float yn,
+                                          float yk, float (&m)[3]) {
+  if constexpr (I4) {
+#pragma unroll
+    for (int ch = 0; ch < C; ch += 2) {
+      const float b = __fmul_rn(ch + 1 < C ? y[ch + 1] : 0.f, 0.0625f);
+      m[0] = fmaxf(m[0], fmaxf(fabsf(__fsub_rn(y[ch], b)), fabsf(b)));
+    }
+    constexpr float kDiv = C % 2 ? 0.0625f : 1.f;  // known channel odd
+    m[1] = fmaxf(m[1], fabsf(__fmul_rn(yn, kDiv)));
+    m[2] = fmaxf(m[2], fabsf(__fmul_rn(yk, kDiv)));
+  } else {
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) m[0] = fmaxf(m[0], fabsf(y[ch]));
+    m[1] = fmaxf(m[1], fabsf(yn));
+    m[2] = fmaxf(m[2], fabsf(yk));
+  }
+}
+
+// One pixel's integers q (C + 3) under the single-plane M from its
+// per-channel sums y (C classes), yn and yk and its group's scales sc =
+// (cost, norm, kf, kf residual): each entry rounded to its integer of the
+// plane, the kf entry's residual to q_lo in units of sc.w.  On the float
+// map they are the plane's own; on the code map they weigh the codes
+// themselves: q_e + q_b on an even channel, 16 q_b on an odd one (the known
+// channel: its own plane when even, 16 q_b when odd, kf and q_lo alike).
+// crop_score.tracked_lokf's integers, in the same float32 operations.
+template <int C, bool I4>
+__device__ __forceinline__ void lokf_ints(const float (&y)[C], float yn,
+                                          float yk, float4 sc,
+                                          float (&q)[C + 3]) {
+  if constexpr (I4) {
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) {
+      if (ch % 2 == 0) {
+        const float b = __fmul_rn(ch + 1 < C ? y[ch + 1] : 0.f, 0.0625f);
+        q[ch] = lokf_q(bf16r(__fsub_rn(y[ch], b)), sc.x) +
+                lokf_q(bf16r(b), sc.x);
+      } else {
+        q[ch] = 16.f * lokf_q(bf16r(__fmul_rn(y[ch], 0.0625f)), sc.x);
+      }
+    }
+    constexpr float kDiv = C % 2 ? 0.0625f : 1.f;
+    constexpr float kMul = C % 2 ? 16.f : 1.f;
+    q[C] = kMul * lokf_q(bf16r(__fmul_rn(yn, kDiv)), sc.y);
+    const float tk = bf16r(__fmul_rn(yk, kDiv));
+    const float qk = lokf_q(tk, sc.z);
+    q[C + 1] = kMul * qk;
+    q[C + 2] = kMul * lokf_q(__fsub_rn(tk, __fmul_rn(qk, sc.z)), sc.w);
+  } else {
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) q[ch] = lokf_q(bf16r(y[ch]), sc.x);
+    q[C] = lokf_q(bf16r(yn), sc.y);
+    const float tk = bf16r(yk);
+    const float qk = lokf_q(tk, sc.z);
+    q[C + 1] = qk;
+    q[C + 2] = lokf_q(__fsub_rn(tk, __fmul_rn(qk, sc.z)), sc.w);
+  }
+}
+
+constexpr int kPassThreads = 512;
+constexpr int kLight = 64;  // cells of a pixel one pass thread sums alone
+
+// Shared memory of a weights-pass block: each pixel's float32 sums (C + 1,
+// P), the bucket's cells in the CSR's order (Th*R int) and its segment
+// starts (P + 1 int), both relative to the bucket, and the coefficients
+// (C + 1, Th*R) in bf16 (exact: they are bf16 values).
+template <int C>
+size_t pass_smem_bytes(int TR, int P) {
+  return (size_t)(C + 1) * P * sizeof(float) + (size_t)TR * sizeof(int) +
+         (size_t)(P + 1) * sizeof(int) +
+         (size_t)(C + 1) * TR * sizeof(__nv_bfloat16);
+}
+
+// The weights pass: block (s, b) takes group b Th + s.  It stages the
+// bucket's coefficients (lokf_coef: 0.01 w_c scan_c and the class sum
+// times qinv of the channel, in bf16), its cells and its segment starts,
+// then folds every distinct pixel (and the padding up to 8, whose empty
+// cells give zeros): the coefficients of its cells at scan cell (i + s R)
+// mod Th R summed in float64, rounded once to float32 and kept in shared
+// memory.  Thread t owns pixels t, t + kPassThreads, ...: it sums one of
+// at most kLight cells alone; a heavier one (the stencil's centre: 100-220
+// cells at the crop buckets) its warp sums, the lanes over the cells and a
+// butterfly over the lanes (float64 sums of bf16 values are exact, so
+// both give the sequential sum's bits).  Then the amax of each column
+// (lokf_amax) over the block, one barrier, each thread reducing the warps'
+// maxima to the same four scales (lokf_scale; the residual's s_kf / 254),
+// and each owner its pixels' C + 3 integers (lokf_ints) into wtab[b Th +
+// s] (C + 3, P), the scales into scales[b, s].  No atomics: every sum and
+// max in a fixed order.
+//
+// Bound: the table it writes ((C + 3) 2 bytes per pixel and shift; 1.9 MB,
+// 0.6 us at HBM rate at K = 1, C = 3, Th = 100, 1,577 pixels) more than
+// its (C + 1) float64 adds per cell and shift.  What it takes is latency:
+// the staging, then the longest pixel's sums (hence the warps on the heavy
+// pixels) and one barrier.  One group a block measured faster than blocks
+// of several shifts that stage once for them (more blocks hide each
+// other's latency), and than reading the scan and the CSR unstaged
+// (tests/time_torch_lokf_pass.py times kLight's and kPassThreads' choices).
+template <int C, bool I4>
+__global__ void __launch_bounds__(kPassThreads, 2)
+    crop_lokf_weights_kernel(const float* __restrict__ scan,
+                             const float* __restrict__ cw,
+                             const float* __restrict__ qinv,
+                             const int* __restrict__ npix,
+                             const int* __restrict__ order,
+                             const int* __restrict__ seg, int Th, int R,
+                             int P, short* __restrict__ wtab,
+                             float* __restrict__ scales) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float s_max[kPassThreads / 32][3];
   const int s = blockIdx.x, b = blockIdx.y;
-  const int TR = Th * R, sR = s * R, cell0 = b * TR;
+  const int TR = Th * R, cell0 = b * TR, sR = s * R;
+  float* s_sum = reinterpret_cast<float*>(smem);
+  int* s_cell = reinterpret_cast<int*>(s_sum + (size_t)(C + 1) * P);
+  int* s_seg = s_cell + TR;
+  __nv_bfloat16* s_coef = reinterpret_cast<__nv_bfloat16*>(s_seg + P + 1);
   float wq[C + 1], cwc[C];
 #pragma unroll
   for (int ch = 0; ch <= C; ++ch) wq[ch] = __ldg(qinv + ch);
 #pragma unroll
   for (int ch = 0; ch < C; ++ch) cwc[ch] = 0.01f * __ldg(cw + ch);
   const float kf_coef = lokf_coef(1.f, wq[C]);
-  float m[3] = {0.f, 0.f, 0.f};
-  const int U = npix[b];
-  const int* sb = seg + (size_t)b * P;
-  for (int u = threadIdx.x; u < U; u += kScaleThreads) {
-    double wc[C], wn = 0.0;
+  const int u8 = min((npix[b] + 7) & ~7, P);
+  for (int i = threadIdx.x; i < TR; i += kPassThreads) {
+    float sum = 0.f;
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) {
+      const float v = __ldg(scan + ch * TR + i);
+      s_coef[ch * TR + i] =
+          __float2bfloat16_rn(lokf_coef(__fmul_rn(v, cwc[ch]), wq[ch]));
+      sum = ch ? sum + v : v;
+    }
+    s_coef[C * TR + i] = __float2bfloat16_rn(lokf_coef(sum, wq[C]));
+    s_cell[i] = __ldg(order + cell0 + i) - cell0;
+  }
+  for (int u = threadIdx.x; u <= u8; u += kPassThreads)
+    s_seg[u] = __ldg(seg + (size_t)b * P + u) - cell0;
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // the float64 sums of one pixel's cells q0, q0 + step, ... below hi
+  auto sums = [&](int q0, int hi, int step, double (&wc)[C], double& wn) {
 #pragma unroll
     for (int ch = 0; ch < C; ++ch) wc[ch] = 0.0;
-    const int lo = sb[u], hi = sb[u + 1];
-    for (int q = lo; q < hi; ++q) {
-      int j = order[q] - cell0 + sR;
+    wn = 0.0;
+    for (int q = q0; q < hi; q += step) {
+      int j = s_cell[q] + sR;
       if (j >= TR) j -= TR;
-      float sum = 0.f;
 #pragma unroll
-      for (int ch = 0; ch < C; ++ch) {
-        const float v = __ldg(scan + ch * TR + j);
-        wc[ch] += (double)lokf_coef(__fmul_rn(v, cwc[ch]), wq[ch]);
-        sum = ch ? sum + v : v;
-      }
-      wn += (double)lokf_coef(sum, wq[C]);
+      for (int ch = 0; ch < C; ++ch)
+        wc[ch] += (double)__bfloat162float(s_coef[ch * TR + j]);
+      wn += (double)__bfloat162float(s_coef[C * TR + j]);
     }
+  };
+  // pixel u's kf entry: its count of cells times the kf cell's coefficient
+  auto kf_sum = [&](int u) {
+    return __double2float_rn((double)(s_seg[u + 1] - s_seg[u]) * kf_coef);
+  };
+  // pixel u's sums rounded once to float32, kept, and taken into the amax
+  auto keep = [&](int u, const double (&wc)[C], double wn, float (&m)[3]) {
     float y[C];
 #pragma unroll
-    for (int ch = 0; ch < C; ++ch) y[ch] = __double2float_rn(wc[ch]);
-    lokf_amax<C, I4>(y, __double2float_rn(wn),
-                     __double2float_rn((double)(hi - lo) * kf_coef), m);
+    for (int ch = 0; ch < C; ++ch) {
+      y[ch] = __double2float_rn(wc[ch]);
+      s_sum[ch * P + u] = y[ch];
+    }
+    const float yn = __double2float_rn(wn);
+    s_sum[C * P + u] = yn;
+    lokf_amax<C, I4>(y, yn, kf_sum(u), m);
+  };
+  float m[3] = {0.f, 0.f, 0.f};
+  for (int base = warp * 32; base < u8; base += kPassThreads) {
+    const int u = base + lane;
+    const int lo = u < u8 ? s_seg[u] : 0, hi = u < u8 ? s_seg[u + 1] : 0;
+    double wc[C], wn;
+    if (hi - lo <= kLight) {
+      sums(lo, hi, 1, wc, wn);
+      if (u < u8) keep(u, wc, wn, m);
+    }
+    for (unsigned heavy = __ballot_sync(0xffffffffu, hi - lo > kLight);
+         heavy; heavy &= heavy - 1) {
+      const int v = __ffs(heavy) - 1;  // the owner's lane
+      sums(__shfl_sync(0xffffffffu, lo, v) + lane,
+           __shfl_sync(0xffffffffu, hi, v), 32, wc, wn);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+        for (int ch = 0; ch < C; ++ch)
+          wc[ch] += __shfl_xor_sync(0xffffffffu, wc[ch], o);
+        wn += __shfl_xor_sync(0xffffffffu, wn, o);
+      }
+      if (lane == v) keep(u, wc, wn, m);
+    }
   }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
 #pragma unroll
@@ -232,17 +409,25 @@ __global__ void __launch_bounds__(kScaleThreads)
     if (lane == 0) s_max[warp][k] = m[k];
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
 #pragma unroll
-    for (int w = 1; w < kScaleThreads / 32; ++w)
+  for (int w = 0; w < kPassThreads / 32; ++w)
 #pragma unroll
-      for (int k = 0; k < 3; ++k) m[k] = fmaxf(m[k], s_max[w][k]);
-    float4 r;
-    r.x = lokf_scale(m[0]);
-    r.y = lokf_scale(m[1]);
-    r.z = lokf_scale(m[2]);
-    r.w = __fdiv_rn(r.z, 254.f);
-    reinterpret_cast<float4*>(out)[(size_t)b * Th + s] = r;
+    for (int k = 0; k < 3; ++k) m[k] = fmaxf(m[k], s_max[w][k]);
+  float4 sc;
+  sc.x = lokf_scale(m[0]);
+  sc.y = lokf_scale(m[1]);
+  sc.z = lokf_scale(m[2]);
+  sc.w = __fdiv_rn(sc.z, 254.f);
+  const int g = b * Th + s;
+  if (threadIdx.x == 0) reinterpret_cast<float4*>(scales)[g] = sc;
+  short* wg = wtab + (size_t)g * (C + 3) * P;
+  for (int u = threadIdx.x; u < u8; u += kPassThreads) {
+    float y[C], q[C + 3];
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) y[ch] = s_sum[ch * P + u];
+    lokf_ints<C, I4>(y, s_sum[C * P + u], kf_sum(u), sc, q);
+#pragma unroll
+    for (int e = 0; e < C + 3; ++e) wg[(size_t)e * P + u] = (short)q[e];
   }
 }
 
@@ -448,16 +633,14 @@ __global__ void __launch_bounds__(kFoldThreads)
 }
 
 // Launch the tracked kernel on the float map (qinv null) or, with I4, on
-// the code map and its qinv; with LOKF the single-plane M's (qinv the map
-// quantization's, scales (K, Th, 4)).
-template <int C, bool I4, bool LOKF = false>
+// the code map and its qinv.
+template <int C, bool I4>
 cudaError_t launch(const void* map, const float* qinv, const int* table,
                    int H, int W, const float* scan, const float* cw,
                    const int* pix, const int* npix, const int* order,
                    const int* seg, int Th, int R, int P, const int* skey,
                    const long long* perm, const int* centers, int N,
-                   float inv_tr, float* out, cudaStream_t stream,
-                   const float* scales = nullptr) {
+                   float inv_tr, float* out, cudaStream_t stream) {
   // the smem opt-in, set once per device and raised with the table size;
   // callers launch from one host thread
   static int ready_dev = -1;
@@ -468,14 +651,7 @@ cudaError_t launch(const void* map, const float* qinv, const int* table,
   const auto* px = reinterpret_cast<const int2*>(pix);
   const auto* ctr = reinterpret_cast<const int2*>(centers);
   cudaError_t err;
-  if constexpr (LOKF) {
-    auto kern = crop_tracked_lokf_kernel<C, I4>;
-    err = opt_in_smem(kern, smem, &ready_dev, &ready_smem);
-    if (err != cudaSuccess) return err;
-    kern<<<grid, kThreads, smem, stream>>>(
-        static_cast<const MapElem<I4>*>(map), qinv, scales, tbl, H, W, scan,
-        cw, px, npix, order, seg, Th, R, P, skey, perm, ctr, N, inv_tr, out);
-  } else if constexpr (I4) {
+  if constexpr (I4) {
     auto kern = crop_tracked_i4_kernel<C>;
     err = opt_in_smem(kern, smem, &ready_dev, &ready_smem);
     if (err != cudaSuccess) return err;
@@ -490,6 +666,45 @@ cudaError_t launch(const void* map, const float* qinv, const int* table,
         static_cast<const float*>(map), tbl, H, W, scan, cw, px, npix, order,
         seg, Th, R, P, skey, perm, ctr, N, inv_tr, out);
   }
+  return cudaGetLastError();
+}
+
+// Launch the single-plane tracked kernel.
+template <int C, bool I4>
+cudaError_t launch_lokf(const void* map, const float* qinv, const short* wtab,
+                        const float* scales, const int* table, int H, int W,
+                        const int* pix, const int* npix, int Th, int P,
+                        const int* skey, const long long* perm,
+                        const int* centers, int N, float inv_tr, float* out,
+                        cudaStream_t stream) {
+  static int ready_dev = -1;
+  static size_t ready_smem = 0;
+  const size_t smem = lokf_smem_bytes<C>(P);
+  auto kern = crop_tracked_lokf_kernel<C, I4>;
+  const cudaError_t err = opt_in_smem(kern, smem, &ready_dev, &ready_smem);
+  if (err != cudaSuccess) return err;
+  kern<<<(N + kTile - 1) / kTile, kThreads, smem, stream>>>(
+      static_cast<const MapElem<I4>*>(map), qinv, wtab, scales,
+      reinterpret_cast<const int4*>(table), H, W,
+      reinterpret_cast<const int2*>(pix), npix, Th, P, skey, perm,
+      reinterpret_cast<const int2*>(centers), N, inv_tr, out);
+  return cudaGetLastError();
+}
+
+// Launch the weights pass: one block a (shift, bucket).
+template <int C, bool I4>
+cudaError_t launch_pass(const float* scan, const float* cw, const float* qinv,
+                        const int* npix, const int* order, const int* seg,
+                        int K, int Th, int R, int P, short* wtab,
+                        float* scales, cudaStream_t stream) {
+  static int ready_dev = -1;
+  static size_t ready_smem = 0;
+  const size_t smem = pass_smem_bytes<C>(Th * R, P);
+  auto kern = crop_lokf_weights_kernel<C, I4>;
+  const cudaError_t err = opt_in_smem(kern, smem, &ready_dev, &ready_smem);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3(Th, K), kPassThreads, smem, stream>>>(
+      scan, cw, qinv, npix, order, seg, Th, R, P, wtab, scales);
   return cudaGetLastError();
 }
 
@@ -606,30 +821,31 @@ extern "C" int tdr_crop_score_multi_tracked_i4(
   });
 }
 
-// The single-plane M (TDR_M_HILO=0).  tdr_crop_lokf_scales: the scales
-// (K, Th, 4) of every (bucket, shift) into out, from the scan (C, Th, R),
-// the class weights, qinv (8) of the map quantization, I4 (the code map's
-// table: 0 or 1) and tdr_crop_fold's npix, order, seg and P.  The tracked
-// entry points then take the map (or codes), qinv and those scales, then
-// the hi/lo float entry points' arguments from H (table) on.
-extern "C" int tdr_crop_lokf_scales(const float* scan, const float* cw,
-                                    const float* qinv, int C, int I4,
-                                    const int* npix, const int* order,
-                                    const int* seg, int K, int Th, int R,
-                                    int P, float* out, void* stream) {
-  if (K < 1 || K > kMaxBuckets || Th < 1 || R < 1)
+// The single-plane M (TDR_M_HILO=0).  tdr_crop_lokf_weights: the weights
+// pass, from the scan (C, Th, R), the class weights, qinv (8) of the map
+// quantization, I4 (the code map's table: 0 or 1) and tdr_crop_fold's
+// npix, order, seg and P (a multiple of 8), into wtab (K*Th, C + 3, P)
+// int16 (each group's first npix[b] entries of a row rounded up to 8
+// written, the rest not) and scales (K, Th, 4).  The tracked entry points
+// then take the map (or codes), qinv, wtab and scales, then H, W (or the
+// table and K), C, pix, npix, Th, P, the sorted keys, perm, centers, N,
+// inv_tr and out.
+extern "C" int tdr_crop_lokf_weights(const float* scan, const float* cw,
+                                     const float* qinv, int C, int I4,
+                                     const int* npix, const int* order,
+                                     const int* seg, int K, int Th, int R,
+                                     int P, short* wtab, float* scales,
+                                     void* stream) {
+  if (K < 1 || K > kMaxBuckets || Th < 1 || R < 1 || P % 8 || P < Th * R)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(Th, K);
   const auto st = static_cast<cudaStream_t>(stream);
   return by_classes(C, [&](auto cc) {
     constexpr int kC = decltype(cc)::value;
-    if (I4)
-      crop_lokf_scales_kernel<kC, true><<<grid, kScaleThreads, 0, st>>>(
-          scan, cw, qinv, npix, order, seg, Th, R, P, out);
-    else
-      crop_lokf_scales_kernel<kC, false><<<grid, kScaleThreads, 0, st>>>(
-          scan, cw, qinv, npix, order, seg, Th, R, P, out);
-    return (int)cudaGetLastError();
+    return (int)(I4 ? launch_pass<kC, true>(scan, cw, qinv, npix, order, seg,
+                                            K, Th, R, P, wtab, scales, st)
+                    : launch_pass<kC, false>(scan, cw, qinv, npix, order,
+                                             seg, K, Th, R, P, wtab, scales,
+                                             st));
   });
 }
 
@@ -638,64 +854,57 @@ namespace {
 // The single-plane tracked entry points' launch, uniform (table null) and
 // K-bucket.
 template <bool I4>
-int tracked_lokf(const void* map, const float* qinv, const float* scales,
-                 const int* table, int K, int H, int W, int C,
-                 const float* scan, const float* cw, const int* pix,
-                 const int* npix, const int* order, const int* seg, int Th,
-                 int R, int P, const int* skey, const long long* perm,
-                 const int* centers, int N, float inv_tr, float* out,
-                 void* stream) {
-  if (K < 1 || K > kMaxBuckets) return (int)cudaErrorInvalidValue;
+int tracked_lokf(const void* map, const float* qinv, const short* wtab,
+                 const float* scales, const int* table, int K, int H, int W,
+                 int C, const int* pix, const int* npix, int Th, int P,
+                 const int* skey, const long long* perm, const int* centers,
+                 int N, float inv_tr, float* out, void* stream) {
+  if (K < 1 || K > kMaxBuckets || P % 8) return (int)cudaErrorInvalidValue;
   return by_classes(C, [&](auto cc) {
-    return (int)launch<decltype(cc)::value, I4, true>(
-        map, qinv, table, H, W, scan, cw, pix, npix, order, seg, Th, R, P,
-        skey, perm, centers, N, inv_tr, out,
-        static_cast<cudaStream_t>(stream), scales);
+    return (int)launch_lokf<decltype(cc)::value, I4>(
+        map, qinv, wtab, scales, table, H, W, pix, npix, Th, P, skey, perm,
+        centers, N, inv_tr, out, static_cast<cudaStream_t>(stream));
   });
 }
 
 }  // namespace
 
 extern "C" int tdr_crop_score_tracked_lokf(
-    const float* map, const float* qinv, const float* scales, int H, int W,
-    int C, const float* scan, const float* cw, const int* pix,
-    const int* npix, const int* order, const int* seg, int Th, int R, int P,
-    const int* skey, const long long* perm, const int* centers, int N,
-    float inv_tr, float* out, void* stream) {
-  return tracked_lokf<false>(map, qinv, scales, nullptr, 1, H, W, C, scan,
-                             cw, pix, npix, order, seg, Th, R, P, skey, perm,
-                             centers, N, inv_tr, out, stream);
+    const float* map, const float* qinv, const short* wtab,
+    const float* scales, int H, int W, int C, const int* pix,
+    const int* npix, int Th, int P, const int* skey, const long long* perm,
+    const int* centers, int N, float inv_tr, float* out, void* stream) {
+  return tracked_lokf<false>(map, qinv, wtab, scales, nullptr, 1, H, W, C,
+                             pix, npix, Th, P, skey, perm, centers, N, inv_tr,
+                             out, stream);
 }
 
 extern "C" int tdr_crop_score_multi_tracked_lokf(
-    const float* pyramid, const float* qinv, const float* scales,
-    const int* table, int K, int C, const float* scan, const float* cw,
-    const int* pix, const int* npix, const int* order, const int* seg,
-    int Th, int R, int P, const int* skey, const long long* perm,
+    const float* pyramid, const float* qinv, const short* wtab,
+    const float* scales, const int* table, int K, int C, const int* pix,
+    const int* npix, int Th, int P, const int* skey, const long long* perm,
     const int* centers, int N, float inv_tr, float* out, void* stream) {
-  return tracked_lokf<false>(pyramid, qinv, scales, table, K, 0, 0, C, scan,
-                             cw, pix, npix, order, seg, Th, R, P, skey, perm,
-                             centers, N, inv_tr, out, stream);
+  return tracked_lokf<false>(pyramid, qinv, wtab, scales, table, K, 0, 0, C,
+                             pix, npix, Th, P, skey, perm, centers, N, inv_tr,
+                             out, stream);
 }
 
 extern "C" int tdr_crop_score_tracked_i4_lokf(
-    const unsigned char* codes, const float* qinv, const float* scales,
-    int H, int W, int C, const float* scan, const float* cw, const int* pix,
-    const int* npix, const int* order, const int* seg, int Th, int R, int P,
-    const int* skey, const long long* perm, const int* centers, int N,
-    float inv_tr, float* out, void* stream) {
-  return tracked_lokf<true>(codes, qinv, scales, nullptr, 1, H, W, C, scan,
-                            cw, pix, npix, order, seg, Th, R, P, skey, perm,
-                            centers, N, inv_tr, out, stream);
+    const unsigned char* codes, const float* qinv, const short* wtab,
+    const float* scales, int H, int W, int C, const int* pix,
+    const int* npix, int Th, int P, const int* skey, const long long* perm,
+    const int* centers, int N, float inv_tr, float* out, void* stream) {
+  return tracked_lokf<true>(codes, qinv, wtab, scales, nullptr, 1, H, W, C,
+                            pix, npix, Th, P, skey, perm, centers, N, inv_tr,
+                            out, stream);
 }
 
 extern "C" int tdr_crop_score_multi_tracked_i4_lokf(
-    const unsigned char* codes, const float* qinv, const float* scales,
-    const int* table, int K, int C, const float* scan, const float* cw,
-    const int* pix, const int* npix, const int* order, const int* seg,
-    int Th, int R, int P, const int* skey, const long long* perm,
+    const unsigned char* codes, const float* qinv, const short* wtab,
+    const float* scales, const int* table, int K, int C, const int* pix,
+    const int* npix, int Th, int P, const int* skey, const long long* perm,
     const int* centers, int N, float inv_tr, float* out, void* stream) {
-  return tracked_lokf<true>(codes, qinv, scales, table, K, 0, 0, C, scan,
-                            cw, pix, npix, order, seg, Th, R, P, skey, perm,
-                            centers, N, inv_tr, out, stream);
+  return tracked_lokf<true>(codes, qinv, wtab, scales, table, K, 0, 0, C,
+                            pix, npix, Th, P, skey, perm, centers, N, inv_tr,
+                            out, stream);
 }

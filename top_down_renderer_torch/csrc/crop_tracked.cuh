@@ -6,11 +6,13 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 #include <type_traits>
+
+#include "tma.cuh"
 
 namespace {
 
@@ -18,6 +20,12 @@ constexpr int kWarps = 16;
 constexpr int kThreads = kWarps * 32;
 constexpr int kTile = 64;  // particles per block: TRACKED_TILE
 constexpr int kMaxBuckets = 12;
+// slabs of the weights table in a single-plane block's ring: one keeps two
+// blocks an SM at the crop stencils' Th*R = 2,500, where two take a third
+// more shared memory and leave one, and measured slower; the next run's
+// copy overlaps the current run's gather either way
+// (tests/time_torch_tracked.py --slabs 2 builds the other ring)
+constexpr int kSlabs = 1;
 
 // The stages a body runs (crop_ablate.cu's variants; the production kernel
 // is kFull).  A knocked-out stage leaves an output that still depends on
@@ -96,98 +104,43 @@ __device__ __forceinline__ void load_codes(const unsigned char* p,
 }
 
 // -- the single-plane M (TDR_M_HILO=0; crop_score.tracked_lokf) -----------
-// x rounded to bf16 and back
-__device__ __forceinline__ float bf16r(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// A scan cell's coefficient as the JAX package's M build rounds it: the
-// cell's value (0.01 w_c scan_c, or the class sum) times the channel's
-// qinv in float32, rounded to bf16.
-__device__ __forceinline__ float lokf_coef(float v, float q) {
-  return bf16r(__fmul_rn(v, q));
-}
-
-// round(x / s) half to even, clipped to +-127: an integer of the plane
-__device__ __forceinline__ float lokf_q(float x, float s) {
-  return fminf(fmaxf(rintf(__fdiv_rn(x, s)), -127.f), 127.f);
-}
-
-// A column's scale from the amax of its sums: max(amax (1 + 2^-8), 1e-30)
-// / 127 (crop_score.lokf_scale)
-__device__ __forceinline__ float lokf_scale(float amax) {
-  return __fdiv_rn(fmaxf(__fmul_rn(amax, 1.00390625f), 1e-30f), 127.f);
-}
-
-// The amax of one pixel's entries in the cost, norm and kf columns (m[0],
-// m[1], m[2]), from its per-channel sums y (C classes), yn and yk: the
-// entries themselves on the float map; on the code map the e-dot
-// identity's pairs, y_even - y_odd / 16 and y_odd / 16, the known channel
-// C in its pair with a zero partner.
-template <int C, bool I4>
-__device__ __forceinline__ void lokf_amax(const float (&y)[C], float yn,
-                                          float yk, float (&m)[3]) {
-  if constexpr (I4) {
-#pragma unroll
-    for (int ch = 0; ch < C; ch += 2) {
-      const float b = __fmul_rn(ch + 1 < C ? y[ch + 1] : 0.f, 0.0625f);
-      m[0] = fmaxf(m[0], fmaxf(fabsf(__fsub_rn(y[ch], b)), fabsf(b)));
-    }
-    constexpr float kDiv = C % 2 ? 0.0625f : 1.f;  // known channel odd
-    m[1] = fmaxf(m[1], fabsf(__fmul_rn(yn, kDiv)));
-    m[2] = fmaxf(m[2], fabsf(__fmul_rn(yk, kDiv)));
-  } else {
-#pragma unroll
-    for (int ch = 0; ch < C; ++ch) m[0] = fmaxf(m[0], fabsf(y[ch]));
-    m[1] = fmaxf(m[1], fabsf(yn));
-    m[2] = fmaxf(m[2], fabsf(yk));
-  }
-}
-
-// One pixel's folded weights w (C + 2) under the single-plane M from its
-// per-channel sums and its group's scales sc = (cost, norm, kf, kf
-// residual): each entry rounded to its integer q, the kf entry's residual
-// to q_lo in units of sc.w; the float map's weight (q s) / qinv[ch] (rq =
-// 1 / qinv) for its values, the code map's q s for its codes (q_e + q_b on
-// an even channel, 16 q_b on an odd one).  crop_score.tracked_lokf_weights
+// One pixel's weights w (C + 2) from its integers q (lokf_ints) and its
+// group's scales sc: the float map's (q s) / qinv[ch] for its values (rq
+// = 1 / qinv), the code map's q s for its codes; the kf weight q_kf s_kf +
+// q_lo s_lo (times rq[C] on the float map).  crop_score.tracked_lokf_weights
 // in the same float32 operations.
 template <int C, bool I4>
-__device__ __forceinline__ void lokf_weights(const float (&y)[C], float yn,
-                                            float yk, float4 sc,
-                                            const float (&rq)[C + 1],
-                                            float* w) {
-  if constexpr (I4) {
+__device__ __forceinline__ void lokf_dequant(const float (&q)[C + 3],
+                                             float4 sc,
+                                             const float (&rq)[C + 1],
+                                             float (&w)[C + 2]) {
 #pragma unroll
-    for (int ch = 0; ch < C; ++ch) {
-      if (ch % 2 == 0) {
-        const float b = __fmul_rn(ch + 1 < C ? y[ch + 1] : 0.f, 0.0625f);
-        w[ch] = __fmul_rn(lokf_q(bf16r(__fsub_rn(y[ch], b)), sc.x) +
-                              lokf_q(bf16r(b), sc.x), sc.x);
-      } else {
-        w[ch] = __fmul_rn(
-            16.f * lokf_q(bf16r(__fmul_rn(y[ch], 0.0625f)), sc.x), sc.x);
-      }
-    }
-    // the known channel C: its own plane (even) or 16 q_b (odd)
-    constexpr float kDiv = C % 2 ? 0.0625f : 1.f;
-    constexpr float kMul = C % 2 ? 16.f : 1.f;
-    w[C] = __fmul_rn(kMul * lokf_q(bf16r(__fmul_rn(yn, kDiv)), sc.y), sc.y);
-    const float tk = bf16r(__fmul_rn(yk, kDiv));
-    const float qk = lokf_q(tk, sc.z);
-    const float ql = lokf_q(__fsub_rn(tk, __fmul_rn(qk, sc.z)), sc.w);
-    w[C + 1] = __fadd_rn(__fmul_rn(kMul * qk, sc.z), __fmul_rn(kMul * ql,
-                                                                sc.w));
-  } else {
+  for (int ch = 0; ch < C; ++ch)
+    w[ch] = I4 ? __fmul_rn(q[ch], sc.x)
+               : __fmul_rn(__fmul_rn(q[ch], sc.x), rq[ch]);
+  w[C] = I4 ? __fmul_rn(q[C], sc.y) : __fmul_rn(__fmul_rn(q[C], sc.y), rq[C]);
+  const float k = __fadd_rn(__fmul_rn(q[C + 1], sc.z),
+                            __fmul_rn(q[C + 2], sc.w));
+  w[C + 1] = I4 ? k : __fmul_rn(k, rq[C]);
+}
+
+// Copy group g's slab of the weights table wtab (groups, C + 3, P) int16
+// into shared memory at dst (C + 3, P), each row's first u8 entries (its
+// bucket's distinct pixels rounded up to 8: whole 16-byte bulk copies),
+// and its scales (float4) into *sc, on one arrival of mbarrier bar that
+// expects all their bytes.
+template <int C>
+__device__ __forceinline__ void fetch_group(const short* wtab,
+                                            const float* scales, int g,
+                                            int P, int u8, short* dst,
+                                            float4* sc, uint64_t* bar) {
+  const int bytes = u8 * (int)sizeof(short);
+  mbar_expect(bar, (C + 3) * bytes + (int)sizeof(float4));
+  const short* src = wtab + (size_t)g * (C + 3) * P;
 #pragma unroll
-    for (int ch = 0; ch < C; ++ch)
-      w[ch] = __fmul_rn(__fmul_rn(lokf_q(bf16r(y[ch]), sc.x), sc.x), rq[ch]);
-    w[C] = __fmul_rn(__fmul_rn(lokf_q(bf16r(yn), sc.y), sc.y), rq[C]);
-    const float tk = bf16r(yk);
-    const float qk = lokf_q(tk, sc.z);
-    const float ql = lokf_q(__fsub_rn(tk, __fmul_rn(qk, sc.z)), sc.w);
-    w[C + 1] = __fmul_rn(
-        __fadd_rn(__fmul_rn(qk, sc.z), __fmul_rn(ql, sc.w)), rq[C]);
-  }
+  for (int e = 0; e < C + 3; ++e)
+    bulk_copy(dst + e * P, src + (size_t)e * P, bytes, bar);
+  bulk_copy(sc, scales + 4 * (size_t)g, (int)sizeof(float4), bar);
 }
 
 // The element of the map a body reads: float32 channels, or with I4 the
@@ -203,6 +156,16 @@ size_t smem_bytes(int TR, int P) {
          (size_t)(C + 1) * TR * sizeof(float);
 }
 
+// ... and of a single-plane block: the pixel offsets and weights, then in
+// place of the scan tables kSlabs slabs of the weights table, each (C + 3,
+// P) int16 with its group's scales (float4), and their mbarriers.
+template <int C>
+size_t lokf_smem_bytes(int P) {
+  return (size_t)P * sizeof(int2) + (size_t)(C + 2) * P * sizeof(float) +
+         (size_t)kSlabs * ((C + 3) * P * sizeof(short) + sizeof(float4) +
+                           sizeof(uint64_t));
+}
+
 // Block i scores sorted rows [i kTile, (i + 1) kTile): skey[row] is the
 // group bucket * Th + shift of particle perm[row].  pix (K, P): bucket b's
 // npix[b] distinct offsets; order (K*Th*R) and seg (K*P + 1): the cells
@@ -214,12 +177,14 @@ size_t smem_bytes(int TR, int P) {
 //
 // LOKF: the single-plane M (TDR_M_HILO=0).  qinv (8) is the map
 // quantization's (the int8 map's for the float map, the codes' for the code
-// map) and scales (K, Th, 4) each group's (tracked_scales).  The staged
-// scan tables hold each cell's coefficient times qinv of its channel in
-// bf16 (lokf_coef), the fold sums a pixel's cells in float64 (exactly, so
-// in any order) and rounds its weights as the plane rounds them
-// (lokf_weights); the code map's codes are weighed as they are (q = 1 in
-// load_codes), not dequantized.
+// map), wtab (K*Th, C + 3, P) int16 each group's integers and scales (K,
+// Th, 4) its scales, both from the weights pass (crop_score.tracked_table).
+// No scan, cw, order or seg: a run's weights are not folded but copied,
+// its group's slab by bulk copies into a ring of kSlabs slabs on one
+// mbarrier each, the next runs' copies in flight while the warps gather,
+// and dequantized into the weights (lokf_dequant); s_pix is reloaded only
+// where the bucket changes.  The code map's codes are weighed as they are
+// (q = 1 in load_codes), not dequantized.
 template <int C, int V, bool I4 = false, bool LOKF = false>
 __device__ __forceinline__ void tracked_body(
     const MapElem<I4>* __restrict__ map,  // (pixels, CP) or (pixels, CP/2)
@@ -236,7 +201,8 @@ __device__ __forceinline__ void tracked_body(
     const int2* __restrict__ centers,    // (N) cy, cx
     int N, float inv_tr, float* __restrict__ out,
     const float* __restrict__ qinv = nullptr,
-    const float* __restrict__ scales = nullptr) {
+    const float* __restrict__ scales = nullptr,
+    const short* __restrict__ wtab = nullptr) {
   constexpr int CP = Pixel<C>::CP;
   constexpr int kPixelElems = I4 ? CP / 2 : CP;  // map elements a pixel
   static_assert(!I4 || V == kFull, "only the whole body reads codes");
@@ -249,24 +215,31 @@ __device__ __forceinline__ void tracked_body(
   float* s_w = reinterpret_cast<float*>(s_pix + P);
   float* s_ws = s_w + (C + 2) * P;
   float* s_ss = s_ws + C * TR;
+  // LOKF: the slabs of the weights table where the scan tables would be,
+  // then their scales and mbarriers
+  [[maybe_unused]] short* s_slab = reinterpret_cast<short*>(s_ws);
+  [[maybe_unused]] float4* s_sc =
+      reinterpret_cast<float4*>(s_slab + (size_t)kSlabs * (C + 3) * P);
+  [[maybe_unused]] uint64_t* s_bar =
+      reinterpret_cast<uint64_t*>(s_sc + kSlabs);
 
   const int row0 = blockIdx.x * kTile;
   const int rows = min(kTile, N - row0);
+  // LOKF: the copy of group g's slab into slab i (fetch_group)
+  [[maybe_unused]] auto fetch = [&](int g, int i) {
+    fetch_group<C>(wtab, scales, g, P, (npix[g / Th] + 7) & ~7,
+                   s_slab + (size_t)i * (C + 3) * P, s_sc + i, s_bar + i);
+  };
+  if constexpr (LOKF) {  // the first run's copy starts while the keys stage
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < kSlabs; ++i) mbar_init(s_bar + i, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      fetch(skey[row0], 0);
+    }
+  }
   // the weighted scan 0.01 w_c scan_c and its class sum, in class order
   // (as crop_score's plain version computes them)
-  if constexpr (kWeights && LOKF) {  // the coefficients in bf16
-    for (int i = threadIdx.x; i < TR; i += kThreads) {
-      float sum = 0.f;
-#pragma unroll
-      for (int ch = 0; ch < C; ++ch) {
-        const float v = scan[ch * TR + i];
-        s_ws[ch * TR + i] =
-            lokf_coef(__fmul_rn(v, 0.01f * cw[ch]), __ldg(qinv + ch));
-        sum = ch ? sum + v : v;
-      }
-      s_ss[i] = lokf_coef(sum, __ldg(qinv + C));
-    }
-  } else if constexpr (kWeights) {
+  if constexpr (kWeights && !LOKF) {
     for (int i = threadIdx.x; i < TR; i += kThreads) {
       float sum = 0.f;
 #pragma unroll
@@ -280,6 +253,25 @@ __device__ __forceinline__ void tracked_body(
   }
   for (int r = threadIdx.x; r < rows; r += kThreads) s_key[r] = skey[row0 + r];
   __syncthreads();
+  // LOKF, thread 0: the first sorted row of the next run to copy (the end of
+  // the run of one key that starts at row r: run_end(r)); the first kSlabs
+  // runs' copies start here
+  [[maybe_unused]] auto run_end = [&](int r) {
+    const int g = s_key[r];
+    while (++r < rows && s_key[r] == g) {
+    }
+    return r;
+  };
+  [[maybe_unused]] int next = 0;
+  if constexpr (LOKF) {
+    if (threadIdx.x == 0) {
+      next = run_end(0);
+      for (int i = 1; i < kSlabs && next < rows; ++i) {
+        fetch(s_key[next], i);
+        next = run_end(next);
+      }
+    }
+  }
 
   const int lane = threadIdx.x & 31;
   // I4: the channels' multipliers, and -2^23 times them (exact)
@@ -291,49 +283,47 @@ __device__ __forceinline__ void tracked_body(
       nq[ch] = -8388608.0f * q[ch];
     }
   }
-  // LOKF: 1 / qinv of the float map's channels, the kf cell's coefficient
+  // LOKF: 1 / qinv of the float map's channels
   [[maybe_unused]] float rq[C + 1];
-  [[maybe_unused]] float kf_coef = 0.f;
   if constexpr (LOKF) {
 #pragma unroll
     for (int ch = 0; ch <= C; ++ch) rq[ch] = __frcp_rn(__ldg(qinv + ch));
-    kf_coef = lokf_coef(1.f, __ldg(qinv + C));
   }
   int U = 0;  // distinct pixels of the folded group
-  for (int run0 = 0; run0 < rows;) {
+  [[maybe_unused]] int pb = -1;  // LOKF: the bucket whose pixels s_pix holds
+  for (int run0 = 0, nrun = 0; run0 < rows; ++nrun) {
     const int g = s_key[run0];
     int run1 = run0 + 1;
     while (run1 < rows && s_key[run1] == g) ++run1;
     const int b = g / Th;
-    if (V != kNoFold || run0 == 0) {
+    if constexpr (LOKF) {  // run nrun's slab i, and its copy's phase
+      const int i = nrun % kSlabs;
+      mbar_wait(s_bar + i, (nrun / kSlabs) & 1);
+      U = npix[b];
+      const short* sq = s_slab + (size_t)i * (C + 3) * P;
+      const float4 sc = s_sc[i];
+      for (int u = threadIdx.x; u < U; u += kThreads) {
+        float qi[C + 3], w[C + 2];
+#pragma unroll
+        for (int e = 0; e < C + 3; ++e) qi[e] = sq[e * P + u];
+        lokf_dequant<C, I4>(qi, sc, rq, w);
+#pragma unroll
+        for (int ch = 0; ch < C + 2; ++ch) s_w[ch * P + u] = w[ch];
+        if (b != pb) s_pix[u] = pix[(size_t)b * P + u];
+      }
+      pb = b;
+      __syncthreads();  // the weights are in, and slab i is free
+      if (threadIdx.x == 0 && next < rows) {
+        fetch(s_key[next], i);
+        next = run_end(next);
+      }
+    } else if (V != kNoFold || run0 == 0) {
       const int sR = (g - b * Th) * R;
       U = npix[b];
       const int* sb = seg + (size_t)b * P;
       const int cell0 = b * TR;
-      [[maybe_unused]] float4 sc;
-      if constexpr (LOKF) sc = reinterpret_cast<const float4*>(scales)[g];
       for (int u = threadIdx.x; u < U; u += kThreads) {
-        if constexpr (kWeights && LOKF) {
-          double wc[C], wn = 0.0;
-#pragma unroll
-          for (int ch = 0; ch < C; ++ch) wc[ch] = 0.0;
-          const int lo = sb[u], hi = sb[u + 1];
-          for (int q = lo; q < hi; ++q) {
-            int j = order[q] - cell0 + sR;
-            if (j >= TR) j -= TR;
-#pragma unroll
-            for (int ch = 0; ch < C; ++ch) wc[ch] += (double)s_ws[ch * TR + j];
-            wn += (double)s_ss[j];
-          }
-          float y[C], w[C + 2];
-#pragma unroll
-          for (int ch = 0; ch < C; ++ch) y[ch] = __double2float_rn(wc[ch]);
-          lokf_weights<C, I4>(y, __double2float_rn(wn),
-                              __double2float_rn((double)(hi - lo) * kf_coef),
-                              sc, rq, w);
-#pragma unroll
-          for (int ch = 0; ch < C + 2; ++ch) s_w[ch * P + u] = w[ch];
-        } else if constexpr (kWeights) {
+        if constexpr (kWeights) {
           float wc[C];
 #pragma unroll
           for (int ch = 0; ch < C; ++ch) wc[ch] = 0.f;

@@ -1,7 +1,8 @@
 // TMA and mbarrier helpers of the kernels that stage operands in shared
 // memory (csrc/probe_mm.cu, csrc/probe_window.cu, the theta search's
-// csrc/crop_init.cuh and csrc/conv_field_i8.cu): shared-memory addresses,
-// bounded mbarrier waits and arrivals, 2-D and 3-D tensor-map loads, and
+// csrc/crop_init.cuh, the tracked body's csrc/crop_tracked.cuh and
+// csrc/conv_field_i8.cu): shared-memory addresses, bounded mbarrier waits
+// and arrivals, 1-D bulk copies, 2-D and 3-D tensor-map loads, and
 // cuTensorMapEncodeTiled reached through cudaGetDriverEntryPoint, so that
 // no library links -lcuda.
 
@@ -66,6 +67,26 @@ __device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
           smem_addr(bar)),
       "r"(bytes)
       : "memory");
+}
+
+// One 1-D bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from global memory into shared memory, its bytes counted on
+// `bar`; the arrival that expects them is the caller's (mbar_expect).
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// One bulk copy of `bytes` from global memory into shared memory, counted
+// on `bar` (one arrival that expects the bytes).
+__device__ __forceinline__ void load_chunk(void* dst, const void* src,
+                                           int bytes, uint64_t* bar) {
+  mbar_expect(bar, bytes);
+  bulk_copy(dst, src, bytes, bar);
 }
 
 // One TMA box at element coordinates (x, y) of a 2-D tensor map into

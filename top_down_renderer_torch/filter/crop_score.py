@@ -106,11 +106,14 @@ Mo/16 | Mo/16), whose integers come back as weights q_e + q_b on the even
 channel's code and 16 q_b on the odd one.  The theta search takes one B
 plane of those integers (two products a k16 step on the float map, the
 window times 1/qinv split into bf16 hi and lo; one on the codes) and
-scales each column in its epilogue (init_m_lokf's scales); the tracked
-kernel folds and rounds its weights per shift the same way, its scales
-(K, Th, 4) coming first from one launch of the scales kernel
-(tracked_scales).  Their entry points carry "_lokf" last; the plain
-versions take m_hilo=False and score the dequantized single-plane M.
+scales each column in its epilogue (init_m_lokf's scales).  The tracked
+kernel's weights come from one launch of the weights pass first
+(tracked_table): every (bucket, shift)'s integers (K, Th, C + 3, P) int16,
+rounded the same way, and its scales (K, Th, 4); the kernel copies each
+run's slab of them into shared memory and dequantizes it
+(tracked_lokf_weights' arithmetic).  Their entry points carry "_lokf" last;
+the plain versions take m_hilo=False and score the dequantized
+single-plane M.
 
 The crop-size buckets and the mip fallback are kept in the host dispatch
 (filter/filter.py) so that both packages score the same map at the same
@@ -147,6 +150,9 @@ K_CHUNK = 32  # rows of M per pipeline stage of the init kernel
 TIE_REL = 2.0**-20  # the init kernel's tie window (kTieRel)
 INIT_TILE = 192  # particles per block of the init kernel
 TRACKED_TILE = 64  # sorted rows per block of the tracked kernel (kTile)
+# slabs of the weights table in a single-plane tracked block's ring
+# (csrc/crop_tracked.cuh's kSlabs)
+LOKF_SLABS = 1
 PAD_PIX = 2**29  # (dy, dx) of a padding pixel: outside every map
 _KEY_BITS = 22  # bits per offset in fold_offsets' sort key
 
@@ -363,12 +369,14 @@ def check_operands(num_classes, stencil, scan, class_weights, center_px,
 
 
 def check_tracked(num_classes, stencil, scan, class_weights, center_px,
-                  theta, dev):
+                  theta, dev, m_hilo: bool = True):
     """The checks both tracked wrappers share: the crop operands, the
-    block's shared memory (tracked_smem) and theta: (C, Th, R)."""
+    block's shared memory (tracked_smem; with the single-plane M,
+    m_hilo False, its kernel's and its weights pass's) and theta: (C, Th,
+    R)."""
     c, th, r = check_operands(num_classes, stencil, scan, class_weights,
                               center_px, dev)
-    smem = tracked_smem(c, th * r)
+    smem = tracked_smem(c, th * r, 0 if m_hilo else LOKF_SLABS)
     if smem > SMEM_LIMIT:
         raise ValueError(f"scan window needs {smem} B of shared memory")
     _require(theta, "theta", (center_px.shape[0],), torch.float32, dev)
@@ -386,7 +394,7 @@ def _tracked_inputs(maps, num_classes, stencil, scan, class_weights,
     h, w = packed.shape[:2]
     _require(packed, "packed_map", (h, w, C_PAD), torch.float32, dev)
     th = check_tracked(num_classes, stencil, scan, class_weights,
-                       center_px, theta, dev)[1]
+                       center_px, theta, dev, maps.m_hilo)[1]
     operand = maps.operand(num_classes)
     if operand.numel() >= 2**31:
         raise ValueError("map too large for 32-bit indexing")
@@ -420,12 +428,22 @@ def score_tracked(
 
 
 # -- the tracked kernel's operands ---------------------------------------
-def tracked_smem(num_classes: int, tr: int) -> int:
+def tracked_smem(num_classes: int, tr: int, slabs: int = 0) -> int:
     """Bytes of shared memory of a tracked kernel block: the pixel offsets
     (P int2), the folded weights (C + 2, P) and the scan tables (C + 1,
-    Th*R) float32, P = Th*R rounded up to 16 (fold_offsets)."""
+    Th*R) float32, P = Th*R rounded up to 16 (fold_offsets).  slabs > 0:
+    the single-plane kernel's, `slabs` slabs of the weights table (C + 3,
+    P) int16, each with its scales and mbarrier, in place of the scan
+    tables, or its weights pass's block where that takes more: the sums
+    (C + 1, P) float32, the cells and segment starts (Th*R + P + 1 int32)
+    and the coefficients (C + 1, Th*R) bf16."""
+    c = num_classes
     cap = -(-tr // 16) * 16
-    return cap * 8 + (num_classes + 2) * cap * 4 + (num_classes + 1) * tr * 4
+    head = cap * 8 + (c + 2) * cap * 4
+    if not slabs:
+        return head + (c + 1) * tr * 4
+    return max(head + slabs * ((c + 3) * cap * 2 + 24),
+               (c + 1) * cap * 4 + (tr + cap + 1) * 4 + (c + 1) * tr * 2)
 
 
 def tracked_rows(key: torch.Tensor):
@@ -512,9 +530,10 @@ def launch_tracked(base: str, maps, table, h: int, w: int, num_classes: int,
     (map_operand: the compact map, or the code map with its qinv; table:
     the K buckets' levels, or None at a uniform scale) with the K offset
     tables' fold (fold_pixels).  With the single-plane M (maps.m_hilo
-    False) the kernel takes maps.m_qinv and the scales of every (bucket,
-    shift) (tracked_scales, one launch before it).  Returns (cost, norm,
-    kf) (N,)."""
+    False) the kernel takes maps.m_qinv and the weights table and scales
+    of every (bucket, shift) (tracked_table, one launch before it) in
+    place of the scan, the class weights and the CSR.  Returns (cost,
+    norm, kf) (N,)."""
     name = entry_name(base, maps)
     operand, qinv = map_operand(maps, num_classes)
     th, r = scan.shape[1:]
@@ -526,51 +545,65 @@ def launch_tracked(base: str, maps, table, h: int, w: int, num_classes: int,
         inv_tr = float(np.float32(1.0) / np.float32(th * r))
         # kept alive until the asynchronous launch has read them
         scan, class_weights = scan.contiguous(), class_weights.contiguous()
-        if not maps.m_hilo:  # the M qinv and the scales of every shift
-            scales = tracked_scales(scan, class_weights, maps.m_qinv, fold,
-                                    num_classes, maps.int4)
-            head = (ptr(operand), ptr(maps.m_qinv), ptr(scales))
-        elif qinv is None:
-            head = (ptr(operand),)
-        else:
-            head = (ptr(operand), ptr(qinv))
-        if table is None:
-            head += (h, w)
-        else:
-            head += (ptr(table), table.shape[0])
-        kernels.launch(
-            "crop_score", f"tdr_{name}", *head, num_classes, ptr(scan),
-            ptr(class_weights), ptr(pix), ptr(npix), ptr(order), ptr(seg),
-            th, r, pix.shape[1], ptr(skey), ptr(perm), ptr(ctr), n,
-            ctypes.c_float(inv_tr), ptr(out),
-        )
+        level = (h, w) if table is None else (ptr(table), table.shape[0])
+        rows = (ptr(skey), ptr(perm), ptr(ctr), n, ctypes.c_float(inv_tr),
+                ptr(out))
+        if maps.m_hilo:
+            head = (ptr(operand),) + ((ptr(qinv),) if maps.int4 else ())
+            args = (*head, *level, num_classes, ptr(scan),
+                    ptr(class_weights), ptr(pix), ptr(npix), ptr(order),
+                    ptr(seg), th, r, pix.shape[1], *rows)
+        else:  # the weights table and scales of every shift
+            wtab, scales = tracked_table(scan, class_weights, maps.m_qinv,
+                                         fold, num_classes, maps.int4)
+            args = (ptr(operand), ptr(maps.m_qinv), ptr(wtab), ptr(scales),
+                    *level, num_classes, ptr(pix), ptr(npix), th,
+                    pix.shape[1], *rows)
+        kernels.launch("crop_score", f"tdr_{name}", *args)
         kernels.LAUNCHES[name] += 1
     return out[:, 0], out[:, 1], out[:, 2]
+
+
+def tracked_table(scan, class_weights, qinv, fold, num_classes: int,
+                  int4: bool):
+    """The single-plane tracked weights of every (bucket, shift): (table
+    (K, Th, C + 3, P) int16, scales (K, Th, 4) float32), tracked_lokf's
+    integers and scales (qinv the map quantization's, int4 the code map's
+    table) with each group's C + 3 rows of P pixels contiguous, the slab
+    the tracked kernel copies.  On the card one launch of the weights pass
+    (csrc/crop_score.cu, counted as "crop_lokf_weights": each group folded
+    once, float64 sums, its amax, scales and integers), which writes each
+    row's first npix[b] entries rounded up to 8 (zeros past npix[b]) and
+    leaves the rest of the row unwritten; on the CPU tracked_lokf itself,
+    every entry written."""
+    pix, npix, order, seg = fold
+    c, th, r = scan.shape
+    k, cap = pix.shape[:2]
+    if not kernels.on_card(scan.device, "weights pass"):
+        w, s = tracked_lokf(tracked_weights(scan, class_weights, order, seg,
+                                            qinv), int4, c)
+        return w.transpose(-1, -2).to(torch.int16).contiguous(), s
+    _require(qinv, "qinv", (C_PAD,), torch.float32, scan.device,
+             contiguous=True)
+    scan, class_weights = scan.contiguous(), class_weights.contiguous()
+    table = torch.empty((k, th, c + 3, cap), dtype=torch.int16,
+                        device=scan.device)
+    scales = torch.empty((k, th, 4), dtype=torch.float32, device=scan.device)
+    kernels.launch("crop_score", "tdr_crop_lokf_weights", ptr(scan),
+                   ptr(class_weights), ptr(qinv), c, int(int4), ptr(npix),
+                   ptr(order), ptr(seg), k, th, r, cap, ptr(table),
+                   ptr(scales))
+    kernels.LAUNCHES["crop_lokf_weights"] += 1
+    return table, scales
 
 
 def tracked_scales(scan, class_weights, qinv, fold, num_classes: int,
                    int4: bool) -> torch.Tensor:
     """(K, Th, 4) float32: the single-plane tracked weights' scales of
-    every (bucket, shift) (tracked_lokf's; qinv the map quantization's,
-    int4 the code map's table).  On the card one launch of the scales
-    kernel (csrc/crop_score.cu, counted as "crop_lokf_scales"; one block a
-    (shift, bucket), the tracked kernel's fold, float64 sums, a block max);
-    on the CPU tracked_lokf itself."""
-    pix, npix, order, seg = fold
-    c, th, r = scan.shape
-    if not kernels.on_card(scan.device, "scales pass"):
-        return tracked_lokf(tracked_weights(scan, class_weights, order, seg,
-                                            qinv), int4, c)[1]
-    k = npix.shape[0]
-    _require(qinv, "qinv", (C_PAD,), torch.float32, scan.device,
-             contiguous=True)
-    scan, class_weights = scan.contiguous(), class_weights.contiguous()
-    out = torch.empty((k, th, 4), dtype=torch.float32, device=scan.device)
-    kernels.launch("crop_score", "tdr_crop_lokf_scales", ptr(scan),
-                   ptr(class_weights), ptr(qinv), c, int(int4), ptr(npix),
-                   ptr(order), ptr(seg), k, th, r, pix.shape[1], ptr(out))
-    kernels.LAUNCHES["crop_lokf_scales"] += 1
-    return out
+    every (bucket, shift), tracked_table's (one launch of the weights pass
+    on the card; tracked_lokf's on the CPU)."""
+    return tracked_table(scan, class_weights, qinv, fold, num_classes,
+                         int4)[1]
 
 
 def cell_slots(seg: torch.Tensor, n: int) -> torch.Tensor:

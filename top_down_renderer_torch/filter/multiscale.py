@@ -497,7 +497,7 @@ def _tracked_inputs(pyr, num_classes, stencil, scan, class_weights,
     _check_buckets(pyr, stencil, scan, class_weights, center_px, scale,
                    slot_vals, bucket_level, num_classes)
     th = cs.check_tracked(num_classes, stencil, scan, class_weights,
-                          center_px, theta, dev)[1]
+                          center_px, theta, dev, pyr.m_hilo)[1]
     operand = pyr.operand(num_classes)
     bucket, off, ctr, table = _prepare(
         pyr, stencil, center_px, scale, slot_vals, bucket_level, res,

@@ -61,7 +61,7 @@ LAUNCHES = {
     "crop_score_multi_init_i4": 0,
     "crop_score_multi_init_raw_i4": 0,
     # the same kernels with the single-plane M (TDR_M_HILO=0), float map
-    # and code map, and the tracked kernels' scales pass
+    # and code map, and the tracked kernels' weights pass
     "crop_score_tracked_lokf": 0,
     "crop_score_init_lokf": 0,
     "crop_score_init_raw_lokf": 0,
@@ -74,7 +74,7 @@ LAUNCHES = {
     "crop_score_multi_tracked_i4_lokf": 0,
     "crop_score_multi_init_i4_lokf": 0,
     "crop_score_multi_init_raw_i4_lokf": 0,
-    "crop_lokf_scales": 0,
+    "crop_lokf_weights": 0,
     "fill_rows": 0,
     # the conv path's int8 cost field (TDR_CONV_INT8=1): the quantizer and
     # the field
@@ -120,28 +120,29 @@ _SIGNATURES = {
             _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
             _P, _I, _F, _P, _P,
         ),
-        # the single-plane M: scan, class weights, qinv, C, I4, npix,
-        # order, seg, K, Th, R, P, scales out, stream
-        "tdr_crop_lokf_scales": (
-            _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P,
+        # the single-plane M's weights pass: scan, class weights, qinv, C,
+        # I4, npix, order, seg, K, Th, R, P, table out, scales out, stream
+        "tdr_crop_lokf_weights": (
+            _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
         ),
-        # the map (or codes), qinv and the scales, then as the float entry
-        # points from H (table) on
+        # the map (or codes), qinv, the weights table and scales, H, W (or
+        # table, K), C, pix, npix, Th, P, sorted keys, perm, centers, N,
+        # inv_tr, out, stream
         "tdr_crop_score_tracked_lokf": (
-            _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
-            _P, _P, _I, _F, _P, _P,
+            _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P, _I, _F,
+            _P, _P,
         ),
         "tdr_crop_score_multi_tracked_lokf": (
-            _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
-            _P, _P, _I, _F, _P, _P,
+            _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _I, _F,
+            _P, _P,
         ),
         "tdr_crop_score_tracked_i4_lokf": (
-            _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
-            _P, _P, _I, _F, _P, _P,
+            _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P, _I, _F,
+            _P, _P,
         ),
         "tdr_crop_score_multi_tracked_i4_lokf": (
-            _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
-            _P, _P, _I, _F, _P, _P,
+            _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _I, _F,
+            _P, _P,
         ),
     },
     "crop_score_init": {
