@@ -19,8 +19,11 @@ Phases (any failure exits non-zero before the result line):
      (crop_init_i4_kernel) two thirds of its float twin's HGMMA, each
      single-plane twin (crop_init_lokf_kernel, TDR_M_HILO=0) two thirds
      of the hi/lo float kernel's on the float map and one third on the
-     codes; and the int8 wgmma (IGMMA) and the TMA tensor loads (UTMALDG)
-     of the int8 conv field;
+     codes; per instantiation of the code tracked kernel
+     (crop_tracked_i4_kernel<C>) its bulk copies (UBLKCP: the windows of
+     codes it stages), shared and global loads (LDS, LDG), each with
+     UBLKCP and LDS; and the int8 wgmma (IGMMA) and the TMA tensor loads
+     (UTMALDG) of the int8 conv field;
   B. the uniform crop kernels against their plain PyTorch versions on
      the same card tensors at the slice's shapes: 102,400 particles, a
      1024^2 map with 6 classes (8 packed channels), Th x R = 100 x 25,
@@ -44,7 +47,12 @@ Phases (any failure exits non-zero before the result line):
      as in B, and the K-bucket ones on B2's 10 hypotheses (one
      quantization of the full map, every level its subsample) as in B2,
      per bucket against the uniform code kernel on the bucket's level of
-     the code pyramid;
+     the code pyramid; then the code tracked kernels' two routes, each
+     against its plain version and, at budget 0 (crop_score.WINDOW_BUDGET:
+     every block's gather from L2), bit for bit its staged call: the
+     K-bucket pyramid (the plain window rule, crop_score.launch_windows,
+     stages some windows: the coarse levels'), the spread cloud on the
+     full level (none) and a cloud clustered to 100 px (all);
   B4. the crop kernels with the single-plane M (TDR_M_HILO=0;
      CropMap(m_hilo=False), build_pyramid_maps(m_hilo=False)), on the
      float and the code map, at B's and B2's inputs as in B3, against
@@ -96,7 +104,8 @@ Phases (any failure exits non-zero before the result line):
      crop_score_init_i4) and no float crop kernel, each conv update no
      crop kernel, on the float32 conv map; then C2's 20 unknown-scale
      updates standing, each launching a K-bucket code kernel and no
-     float one;
+     float one; each code tracked launch logs the share of its windows
+     the plain rule stages;
   C6. the main path with the single-plane M, the filter's m_hilo=False:
      C's 20 known-scale updates on the float map and on the code map
      (map_int4=True), each planned crop update launching its "_lokf"
@@ -129,7 +138,9 @@ Phases (any failure exits non-zero before the result line):
      kernel (the filter map's or pyramid's codes, C = 3: 2 bytes a pixel)
      beside its float twin on the same cell, kernel, wrapper and plain
      times, its map operand's bytes and its bound with the map at those
-     bytes, held against its plain version as in B; and each
+     bytes, held against its plain version as in B (the code tracked ones
+     also with the share of windows staged and their kernel time at
+     budget 0); and each
      single-plane kernel (float and code) beside its hi/lo twin on the
      same cell (the theta searches' bound on two products a k16 step on
      the float map, one on the codes), with the scales pass on the
@@ -669,6 +680,36 @@ def log_tracked_lokf_sass() -> dict:
     return counts
 
 
+# crop_tracked_i4_kernel<C> in its mangled names (ILi<C>E)
+_TRACKED_I4_FN = re.compile(r"Function : \S*crop_tracked_i4_kernelILi(\d)E")
+TRACKED_I4_COUNTED = ("UBLKCP", "LDS", "LDG")
+
+
+def log_tracked_i4_sass() -> dict:
+    """Count, per instantiation of the code tracked kernel
+    (crop_tracked_i4_kernel<C>: C 1..7), its bulk copies (UBLKCP: the
+    window's rows), shared-memory loads (LDS: the gather from the window,
+    the weights and offsets) and global loads (LDG: the gather from L2,
+    the fold's tables): each stages windows by bulk copies."""
+    counts, current = {}, None
+    for line in read_sass("crop_score").splitlines():
+        if "Function :" in line:
+            hit = _TRACKED_I4_FN.search(line)
+            current = hit.group(1) if hit else None
+            if current:
+                counts[current] = dict.fromkeys(TRACKED_I4_COUNTED, 0)
+        elif current:
+            for op in TRACKED_I4_COUNTED:
+                counts[current][op] += f" {op}" in line
+    check(len(counts) == 7, "crop_score's SASS names the code tracked "
+          f"kernels {sorted(counts)}")
+    for c, n in sorted(counts.items()):
+        log(f"[A] crop_tracked_i4_kernel<{c}>: {n}")
+    check(all(n["UBLKCP"] > 0 and n["LDS"] > 0 for n in counts.values()),
+          f"crop_tracked_i4_kernel's bulk copies and shared loads: {counts}")
+    return counts
+
+
 def max_rel(ref: torch.Tensor, got: torch.Tensor) -> float:
     return float(((got - ref).abs() / ref.abs().clamp(min=1e-9)).max())
 
@@ -693,15 +734,14 @@ def off_gate(rkf, kf_tol):
         rkf, dtype=torch.bool)
 
 
-def compare(label, errs, names, tracked, init, need_gated=False,
-            kf_tol=0.0) -> None:
-    """A tracked and a theta-search kernel against their plain versions:
-    tracked / init are (kernel call, plain call) without arguments, names
-    their kernels'.  The tracked kernel runs twice and must return the
-    same bits.  kf bit for bit, or within kf_tol (the single-plane M), the
-    gate's patterns then compared off the gate (off_gate).  Folds the
-    largest |err| of each into errs["abs"], and the theta search's largest
-    relative error into errs["rel"]."""
+def compare_tracked(label, errs, name, tracked, need_gated=False,
+                    kf_tol=0.0) -> int:
+    """A tracked kernel against its plain version: tracked is (kernel
+    call, plain call) without arguments, name its kernel's.  The kernel
+    runs twice and must return the same bits; kf bit for bit, or within
+    kf_tol (the single-plane M), the gate's patterns then compared off the
+    gate (off_gate); cost and norm within REL_TOL.  Folds the largest
+    |err| into errs["abs"]; returns the count of kf-gated particles."""
     num, den, kf = tracked[0]()
     again = tracked[0]()
     rnum, rden, rkf = tracked[1]()
@@ -714,16 +754,29 @@ def compare(label, errs, names, tracked, init, need_gated=False,
     if need_gated:
         check(0 < int(ok.sum()) < ok.numel(),
               f"{label}: no kf-gated particles")
-    for a, b, name in ((num, rnum, "cost"), (den, rden, "norm")):
+    for a, b, what in ((num, rnum, "cost"), (den, rden, "norm")):
         rel = max_rel(b[ok], a[ok])
-        check(rel <= REL_TOL, f"{label}: tracked {name} rel {rel}")
-        errs["abs"][names[0]] = max(errs["abs"][names[0]],
-                                    float((a - b)[ok].abs().max()))
+        check(rel <= REL_TOL, f"{label}: tracked {what} rel {rel}")
+        errs["abs"][name] = max(errs["abs"][name],
+                                float((a - b)[ok].abs().max()))
     cost = torch.where(kf < 0.5, torch.nan, num / den)
     rcost = torch.where(rkf < 0.5, torch.nan, rnum / rden)
     check(torch.equal(cost.isnan()[clear], rcost.isnan()[clear]),
           f"{label}: NaN pattern")
+    return int((~ok).sum())
 
+
+def compare(label, errs, names, tracked, init, need_gated=False,
+            kf_tol=0.0) -> None:
+    """A tracked and a theta-search kernel against their plain versions:
+    tracked / init are (kernel call, plain call) without arguments, names
+    their kernels'.  The tracked kernel as compare_tracked checks it; the
+    theta search's kf bit for bit, or within kf_tol (the single-plane M),
+    the gate's patterns then compared off the gate (off_gate).  Folds the
+    largest |err| of each into errs["abs"], and the theta search's largest
+    relative error into errs["rel"]."""
+    gated = compare_tracked(label, errs, names[0], tracked, need_gated,
+                            kf_tol)
     best, k, kf = init[0]()
     rbest, rk, rkf = init[1]()
     torch.cuda.synchronize()
@@ -742,7 +795,7 @@ def compare(label, errs, names, tracked, init, need_gated=False,
     log(f"[{label}] tracked (repeats bit for bit) and init agree (init "
         f"argmin same on "
         f"{same_k:.5f}, init best rel {rel:.3e}, kf-gated "
-        f"{int((~ok).sum())})")
+        f"{gated})")
 
 
 def compare_raw(label, errs, name, raw, plain, sel, kf_tol=0.0) -> None:
@@ -1021,6 +1074,70 @@ def phase_b3(dev, errs, b_args, theta):
                 *multi_raw_triple(args, scale, slots_t, bmi))
     check_buckets("B3", args, theta, scale, slots_t, bmi, levels)
 
+    # the code tracked kernels' two routes, each call also at budget 0 (every
+    # gather from L2) bit for bit: the K-bucket pyramid (the coarse levels'
+    # blocks stage their windows, the fine ones' not), the spread cloud on
+    # the full level (no block: its windows span the map) and a cloud
+    # clustered to 100 px, its thetas in a 0.15 rad band (every block)
+    window_routes("B3 multi windows", errs, MULTI_I4[0],
+                  multi_pair(args, theta, scale, slots_t, bmi)[0],
+                  multi_windows(args, theta, scale, slots_t, bmi), "some")
+    args = (maps, c, sten, scan, cw, b_args[5])
+    window_routes("B3 spread windows", errs, CROP_I4[0],
+                  crop_pair(args, theta, 1.0)[0],
+                  uniform_windows(args, theta, 1.0), "none")
+    rng = np.random.default_rng(3)
+    args = (maps, c, sten, scan, cw, torch.as_tensor(
+        rng.uniform(462, 562, (N, 2)).astype(np.float32), device=dev))
+    band = torch.as_tensor((0.7 + 0.15 * rng.random(N)).astype(np.float32),
+                           device=dev)
+    window_routes("B3 clustered windows", errs, CROP_I4[0],
+                  crop_pair(args, band, 1.0)[0],
+                  uniform_windows(args, band, 1.0), "all")
+
+
+def uniform_windows(args, theta, f) -> dict:
+    """The windows the uniform code tracked call on args (a code CropMap
+    first, as crop_pair takes them) stages (crop_score.launch_windows, the
+    plain rule)."""
+    maps, c, sten, scan, cw, ctr = args
+    _, fold, cc, key = cs._tracked_inputs(maps, c, sten, scan, cw, ctr,
+                                          theta, f, 1.0)
+    h, w = maps.packed.shape[:2]
+    return cs.launch_windows(maps, None, h, w, c, scan, fold, cc, key)
+
+
+def multi_windows(args, theta, scale, slots, bmi) -> dict:
+    """... and the K-bucket one on args (a code pyramid first)."""
+    pyr, c, sten, scan, cw, ctr = args
+    _, table, fold, cc, key = ms._tracked_inputs(
+        pyr, c, sten, scan, cw, ctr, theta, scale, slots, bmi, RES, 1.0)
+    return cs.launch_windows(pyr, table, 0, 0, c, scan, fold, cc, key)
+
+
+def window_routes(label, errs, name, tracked, windows, want) -> tuple:
+    """A code tracked entry (tracked: kernel call, plain call) against its
+    plain version (compare_tracked), and at budget 0 (every block's
+    gather from L2) bit for bit its staged call; the share of windows the
+    plain rule stages (windows) must be `want`: "all", "none" or "some".
+    Returns (the windows' share staged, their rows' share)."""
+    compare_tracked(label, errs, name, tracked)
+    staged = tracked[0]()
+    with mock.patch.object(cs, "WINDOW_BUDGET", 0):
+        on_l2 = tracked[0]()
+    torch.cuda.synchronize()
+    check(same_bits(staged, on_l2),
+          f"{label}: budget 0 (the gather from L2) differs from the staged "
+          "call")
+    share = cs.staged_share(windows)
+    check({"all": share[0] == 1.0, "none": share[0] == 0.0,
+           "some": 0.0 < share[0] < 1.0}[want],
+          f"{label}: the plain rule stages {share}, not {want}")
+    log(f"[{label}] {name} staged windows {share[0]:.4f} of "
+        f"{windows['staged'].numel()} (rows {share[1]:.4f}); at budget 0 the "
+        "same bits")
+    return share
+
 
 def phase_b4(dev, errs, b_args, theta):
     """The crop kernels with the single-plane M (TDR_M_HILO=0;
@@ -1273,6 +1390,29 @@ def phase_c2(dev, world):
               f"frozen scale {drv.scale()}")
 
 
+@contextlib.contextmanager
+def staged_log(label):
+    """Log, for each code tracked launch (crop_score.launch_tracked on a
+    code map with the hi/lo M) while the block runs, the share of its
+    windows the plain rule stages (launch_windows; it reads the fold's
+    npix to the host)."""
+    launch = cs.launch_tracked
+    seen = []
+
+    def logged(base, maps, table, h, w, c, scan, cw, fold, ctr, key):
+        if maps.int4 and maps.m_hilo:
+            share = cs.staged_share(cs.launch_windows(
+                maps, table, h, w, c, scan, fold, ctr, key))
+            seen.append(share)
+            log(f"[{label}] tracked launch {len(seen)} ({base}_i4, "
+                f"{ctr.shape[0]} rows): staged windows {share[0]:.4f}, rows "
+                f"{share[1]:.4f}")
+        return launch(base, maps, table, h, w, c, scan, cw, fold, ctr, key)
+
+    with mock.patch.object(cs, "launch_tracked", logged):
+        yield seen
+
+
 def phase_c5(dev, world):
     """The main path on the nibble-packed map, the filter's map_int4=True
     (TDR_MAP_INT4=1 through the argument): 20 known-scale updates of
@@ -1282,7 +1422,7 @@ def phase_c5(dev, world):
     unknown-scale updates standing, as in C2, each launching a K-bucket
     code kernel and no float one."""
     pf, _ = make_filter(dev, N, seed=0, world=world, map_int4=True)
-    with PlanLog() as plans:
+    with PlanLog() as plans, staged_log("C5 known scale"):
         per, ml = run_updates(pf, world, dev, 20, CROP_I4 + CROP)
     check(not per[:, 2:4].any(),
           f"C5: float crop launches per update {per.tolist()}")
@@ -1300,7 +1440,8 @@ def phase_c5(dev, world):
     log(f"[C5] 20 updates on the code map at {N} particles: n_active "
         f"{pf.num_particles()}, ml {np.round(ml, 3).tolist()}")
     expect = {"init": [0, 1], "tracked": [1, 0], "mixed": [1, 1]}
-    plans, exact, per = multi_run(dev, world, False, map_int4=True)
+    with staged_log("C5 standing"):
+        plans, exact, per = multi_run(dev, world, False, map_int4=True)
     check(all(p is not None for p in plans) and not exact
           and all(per[i].tolist() == expect[p.mode]
                   for i, p in enumerate(plans)),
@@ -1716,6 +1857,15 @@ def fold_times(off):
     )
 
 
+def l2_route(name, kernel, windows) -> dict:
+    """A code tracked cell's windows: the share the plain rule stages
+    (crop_score.staged_share), and the kernel's time at budget 0, every
+    block's gather from L2."""
+    with mock.patch.object(cs, "WINDOW_BUDGET", 0):
+        l2 = profiled_ms(f"{name} at budget 0", kernel, SYMBOLS[name])
+    return dict(staged=cs.staged_share(windows), l2_ms=l2)
+
+
 def phase_d(dev, pf, world, errs):
     """Times of the known-scale cells, and kernel vs plain on the cells'
     own inputs (the 3-class drive map)."""
@@ -1855,6 +2005,8 @@ def phase_d(dev, pf, world, errs):
         bound=pixel_bound(codes, 3, npix, one, (ctr, theta)),
         bound_cells=crop_bound(codes, 3, tr, 1, (ctr, theta)),
         pixels=int(npix[0]), map_bytes=nbytes(codes),
+        **l2_route("crop_score_tracked_i4", pair4[0][0], uniform_windows(
+            (cmap4, 3, sten, scan, cw, ctr), theta, f)),
     )
     compare("D clustered i4, C=3", errs, CROP_I4, *pair4)
     slabs = slab_bytes(3, npix, rotation_shift(theta, sten.shape[0]),
@@ -2128,7 +2280,10 @@ def phase_d2(dev, world, errs):
         if tracked:
             out[name4].update(
                 bound=pixel_bound(codes, 3, npix, counts, inputs),
-                bound_cells=cells4)
+                bound_cells=cells4,
+                **l2_route(name4, pair4[0][0], multi_windows(
+                    pair_args(pyr4, sten, scan, cw, p), p.theta, p.scale,
+                    slots, plan.bmi)))
         else:
             out[name4].update(
                 bound=tc_bound(codes, 3, 40, npix, counts, inputs,
@@ -3434,6 +3589,7 @@ def main() -> int:
     log_init_sass()
     log_ablate_init_sass()
     log_tracked_lokf_sass()
+    log_tracked_i4_sass()
 
     errs = {"abs": dict.fromkeys(KERNELS, 0.0), "rel": dict.fromkeys(INIT, 0.0)}
     b_args, b_theta = phase_b(dev, errs)
@@ -3532,6 +3688,10 @@ def main() -> int:
                       f"{t['both_ms']:.4f} ms")
         if "tables" in t and "floor_ms" not in t:
             extra += f", {t['tables']} offset tables"
+        if "staged" in t:
+            extra += (f", windows staged {t['staged'][0]:.4f} (their rows "
+                      f"{t['staged'][1]:.4f}), at budget 0 (every gather "
+                      f"from L2) {t['l2_ms']:.4f} ms")
         if "tracked_spread_ms" in t:
             extra += (f", the tracked kernel on the spread cloud "
                       f"{t['tracked_spread_ms']:.4f} ms")

@@ -1,6 +1,7 @@
 """Compare the SASS of the crop kernels of two checkouts, kernel by kernel.
 
-Builds csrc/crop_score.cu and csrc/crop_score_init.cu of the checkout at
+Builds csrc/crop_score.cu, csrc/crop_score_init.cu and csrc/crop_ablate.cu
+of the checkout at
 OLD and of the one at NEW (default: this checkout) with the port's nvcc
 flags (kernels.NVCC_FLAGS) into a temporary directory, disassembles each
 library with the toolkit's cuobjdump and compares every kernel OLD's
@@ -35,7 +36,7 @@ sys.path.insert(0, HERE)
 
 from top_down_renderer_torch import kernels  # noqa: E402
 
-SOURCES = ("crop_score", "crop_score_init")
+SOURCES = ("crop_score", "crop_score_init", "crop_ablate")
 _ADDR = re.compile(r"/\*[0-9a-f]{4,}\*/")
 _ENC = re.compile(r"/\* 0x[0-9a-f]+ \*/")
 # the anonymous namespace's per-build hash in a mangled name

@@ -1183,29 +1183,66 @@ def _launched(name, before):
             kernels.LAUNCHES[float_name] - before[float_name])
 
 
+def _clustered(centers, thetas, seed):
+    """The centres past the edges and far-out ones (the first 7) in a 24 px
+    square at (100, 100), on three shifts: blocks whose window of codes
+    fits shared memory."""
+    rng = np.random.default_rng(seed)
+    n = len(centers) - 7
+    if n > 0:
+        centers[7:] = torch.as_tensor(
+            rng.uniform(88, 112, (n, 2)).astype(np.float32),
+            device=centers.device)
+        thetas[7:] = torch.as_tensor(
+            (rng.integers(0, 3, n) * (2 * np.pi / TH)).astype(np.float32),
+            device=thetas.device)
+    return centers, thetas
+
+
+def _staged(windows) -> float:
+    """The share of a code tracked launch's windows the plain rule stages
+    (crop_score.launch_windows)."""
+    return cs.staged_share(windows)[0]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,f,n", [
-    (3, 0.5, N), (6, 1.0, N), (1, 1.0, 1), (2, 0.5, 127), (7, 0.37, 193),
-    (3, 1.0, 102_400), (6, 1.0, 102_400),
+@pytest.mark.parametrize("c,f,n,clustered", [
+    (3, 0.5, N, False), (6, 1.0, N, False), (1, 1.0, 1, False),
+    (2, 0.5, 127, False), (7, 0.37, 193, False), (3, 1.0, 102_400, False),
+    (6, 1.0, 102_400, False), (3, 1.0, N, True), (1, 0.5, 193, True),
+    (3, 1.0, 102_400, True), (6, 1.0, 102_400, True),
 ])
-def test_i4_tracked_kernel_matches_plain(dev, c, f, n):
+def test_i4_tracked_kernel_matches_plain(dev, c, f, n, clustered,
+                                         monkeypatch):
     """The tracked kernel on the code map against its plain version (the
     float plain version on the dequantized map): 1 to 7 classes (1, 2 and
-    4 code bytes a pixel), tile edges, every shift, edges and far out; a
-    second call the same bits; no float tracked launch."""
+    4 code bytes a pixel), tile edges, every shift, edges and far out, and
+    clustered clouds whose blocks stage their windows of codes; a second
+    call the same bits, and a call at budget 0 (every block's gather from
+    L2) the same bits too; no float tracked launch."""
     packed, sten, scan, cw, centers, thetas = _world(dev, c, 11, n)
     thetas = _every_shift(thetas)
+    if clustered:
+        centers, thetas = _clustered(centers, thetas, 11)
     maps = cs.CropMap(packed, int4=True)
     assert maps.codes(c).shape == (H, W, cs.channel_pad(c) // 2)
     before = dict(kernels.LAUNCHES)
     got = cs.score_tracked(maps, c, sten, scan, cw, centers, thetas, f)
     again = cs.score_tracked(maps, c, sten, scan, cw, centers, thetas, f)
+    monkeypatch.setattr(cs, "WINDOW_BUDGET", 0)
+    on_l2 = cs.score_tracked(maps, c, sten, scan, cw, centers, thetas, f)
     ref = cs.score_tracked_plain(maps.plain(c).packed, c, sten, scan, cw,
                                  centers, thetas, f)
     torch.cuda.synchronize()
-    assert _launched("crop_score_tracked_i4", before) == (2, 0)
+    assert _launched("crop_score_tracked_i4", before) == (3, 0)
     assert _same_bits(got, again)
+    assert _same_bits(got, on_l2)
     _check_tracked(got, ref, n)
+    _, fold, ctr, key = cs._tracked_inputs(maps, c, sten, scan, cw, centers,
+                                           thetas, f, 1.0)
+    staged = _staged(cs.launch_windows(maps, None, H, W, c, scan, fold, ctr,
+                                       key, cs.SMEM_LIMIT))
+    assert staged > 0.5 if clustered else staged >= 0.0
 
 
 @pytest.mark.cuda
@@ -1242,26 +1279,41 @@ def test_i4_init_kernels_match_plain(dev, c, f, num_rot, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,k,n,single,mo", [
-    (3, 2, N, False, 12), (6, 10, N, False, 12), (1, 1, 1, False, 12),
-    (5, 10, 193, True, 24), (3, 10, 102_400, False, 12),
+@pytest.mark.parametrize("c,k,n,single,mo,clustered", [
+    (3, 2, N, False, 12, False), (6, 10, N, False, 12, False),
+    (1, 1, 1, False, 12, False), (5, 10, 193, True, 24, False),
+    (3, 10, 102_400, False, 12, False), (3, 2, N, False, 12, True),
+    (3, 10, 102_400, False, 12, True), (6, 10, 102_400, True, 24, True),
 ])
-def test_i4_multi_tracked_kernel_matches_plain(dev, c, k, n, single, mo):
+def test_i4_multi_tracked_kernel_matches_plain(dev, c, k, n, single, mo,
+                                               clustered, monkeypatch):
     """The K-bucket tracked kernel on the code pyramid against its plain
-    version on the dequantized pyramid; a second call the same bits."""
+    version on the dequantized pyramid, spread and clustered (blocks
+    that stage their windows, on every level); a second call the same
+    bits, and a call at budget 0 (every gather from L2) too."""
     args, thetas, tail = _multi_world(dev, c, k, 13, n, single, mo,
                                       int4=True)
     thetas = _every_shift(thetas)
+    if clustered:
+        args = (*args[:5], _clustered(args[5], thetas, 13)[0])
     pyr = args[0]
     before = dict(kernels.LAUNCHES)
     got = ms.score_tracked_multi(*args, thetas, *tail)
     again = ms.score_tracked_multi(*args, thetas, *tail)
+    monkeypatch.setattr(cs, "WINDOW_BUDGET", 0)
+    on_l2 = ms.score_tracked_multi(*args, thetas, *tail)
     ref = ms.score_tracked_multi_plain(pyr.plain(c), *args[1:], thetas,
                                        *tail)
     torch.cuda.synchronize()
-    assert _launched("crop_score_multi_tracked_i4", before) == (2, 0)
+    assert _launched("crop_score_multi_tracked_i4", before) == (3, 0)
     assert _same_bits(got, again)
+    assert _same_bits(got, on_l2)
     _check_tracked(got, ref, n)
+    _, table, fold, ctr, key = ms._tracked_inputs(pyr, *args[1:], thetas,
+                                                  *tail, 1.0)
+    staged = _staged(cs.launch_windows(pyr, table, 0, 0, c, args[3], fold,
+                                       ctr, key, cs.SMEM_LIMIT))
+    assert staged > 0.5 if clustered else staged >= 0.0
 
 
 @pytest.mark.cuda

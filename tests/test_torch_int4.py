@@ -632,3 +632,248 @@ def test_operand_checks_refuse_the_other_map():
     maps._codes[C] = compact  # a map whose operand is not its format's
     with pytest.raises(TypeError):
         cs.map_operand(maps, C)
+
+
+# -- the code tracked kernel's row order and windows, on the CPU ------------
+def _window_case(kind, c, seed=21, h=45, w=67):
+    """Inputs of the code tracked kernel on an odd-sized map (so that rows
+    start at every byte of a 16-byte word), particles clustered in a
+    corner (their own shifts, so that whole blocks hold them), spread, at
+    the edges and far out: (maps, ctr (N, 2), key (N,), fold, levels (K,
+    4), groups, extent)."""
+    packed, rng = _classes_world(c, seed, h, w)
+    n = 300
+    centers = np.concatenate([
+        rng.uniform(0, 12, (150, 2)),
+        rng.uniform(-10, max(h, w) + 10, (146, 2)),
+        [[0.0, 0.0], [h - 1.0, w - 1.0], [-400.0, 20.0], [30.0, 900.0]],
+    ]).astype(np.float32)[:, ::-1].copy()  # (x, y) -> the pose's (x, y)
+    # the clustered rows on shifts 0-1, the others on 2-5: blocks of each
+    shifts = np.concatenate([rng.integers(0, 2, 150),
+                             rng.integers(2, 6, n - 150)])
+    thetas = (shifts * (2 * np.pi / TH)).astype(np.float32)
+    scan = (rng.random((c, TH, R)) * 3).astype(np.float32)
+    cw = (0.5 + rng.random(c)).astype(np.float32)
+    sten, sc, cwt, ctr_px, th = _t(STENCIL, scan, cw, centers, thetas)
+    if kind == "uniform":
+        maps = cs.CropMap(torch.as_tensor(packed), int4=True)
+        _, fold, ctr, key = cs._tracked_inputs(maps, c, sten, sc, cwt, ctr_px,
+                                               th, 0.5, 1.0)
+        levels = torch.tensor([[0, h, w, 0]], dtype=torch.int32)
+        return maps, ctr, key, fold, levels, TH, max(h, w)
+    maps = ms.build_pyramid_maps(torch.as_tensor(packed), (1, 2, 4), True)
+    slots = torch.tensor([0.5, 1.0, 2.0])
+    scale = torch.as_tensor(np.resize(np.float32([0.5, 1.0, 2.0]), n))
+    _, table, fold, ctr, key = ms._tracked_inputs(
+        maps, c, sten, sc, cwt, ctr_px, th, scale, slots, (0, 1, 2), 1.0, 1.0)
+    extent = max(max(lv[1:]) for lv in maps.levels)
+    return maps, ctr, key, fold, table, 3 * TH, extent
+
+
+@pytest.mark.parametrize("kind", ["uniform", "buckets"])
+def test_code_tracked_order_is_group_major_by_position(kind):
+    """tracked_order (the code kernel's rows) equals its plain twin
+    tracked_order_plain bit for bit; each group's rows are contiguous and
+    the groups come in tracked_rows' order; within a group the centres'
+    Morton codes rise; the group is the key's bits from kshift up."""
+    maps, ctr, key, fold, levels, groups, extent = _window_case(kind, 3)
+    skey, perm, kshift = cs.tracked_order(key, ctr, groups, extent)
+    pkey, pperm, pshift = cs.tracked_order_plain(np_(key), np_(ctr), groups,
+                                                 extent)
+    assert skey.dtype == torch.int32 and perm.dtype == torch.int64
+    np.testing.assert_array_equal(np_(skey), pkey)
+    np.testing.assert_array_equal(np_(perm), pperm)
+    assert kshift == pshift and (np_(skey) >= 0).all()
+    rkey, rperm = (np_(x) for x in cs.tracked_rows(key))
+    group = np_(skey) >> kshift
+    np.testing.assert_array_equal(group, rkey)  # today's groups, in order
+    np.testing.assert_array_equal(np.sort(np_(perm)), np.arange(len(key)))
+    np.testing.assert_array_equal(np_(key)[np_(perm)], group)
+    low = np_(skey) & ((1 << kshift) - 1)
+    same = np.diff(group) == 0
+    assert (np.diff(low)[same] >= 0).all()
+    for g in np.unique(group):  # each group's rows are that group's rows
+        np.testing.assert_array_equal(np.sort(np_(perm)[group == g]),
+                                      np.flatnonzero(np_(key) == g))
+
+
+def _windows(kind, c, cap=None):
+    """The plain window rule on _window_case's inputs, at cap bytes (None:
+    as many as any window needs)."""
+    maps, ctr, key, fold, levels, groups, extent = _window_case(kind, c)
+    skey, perm, kshift = cs.tracked_order(key, ctr, groups, extent)
+    codes = maps.codes(c)
+    flat = codes.reshape(-1, codes.shape[-1])
+    win = cs.tracked_windows(skey, perm, ctr, kshift, TH, levels, fold,
+                             flat.shape[0], flat.shape[1],
+                             1 << 30 if cap is None else cap)
+    return win, flat, skey, perm, kshift, ctr, fold, levels
+
+
+def _block_rows(win, i, skey, kshift):
+    """The sorted rows of window i: its block's rows of its bucket."""
+    b0 = int(win["block"][i]) * cs.TRACKED_TILE
+    rows = torch.arange(b0, min(b0 + cs.TRACKED_TILE, skey.shape[0]))
+    return rows[(skey[rows].long() >> kshift) // TH == win["bucket"][i]]
+
+
+@pytest.mark.parametrize("kind", ["uniform", "buckets"])
+def test_code_window_box_covers_every_pixel_its_rows_read(kind):
+    """For every block and bucket, the plain rule's box holds every
+    in-level pixel its rows read (centre + each of the bucket's distinct
+    pixels), and its windows hold the block's rows once each;
+    launch_windows (the rule on a launch's arguments) takes the same boxes
+    and stages those within the block's bytes."""
+    win, _, skey, perm, kshift, ctr, fold, levels = _windows(kind, 3)
+    maps, _, key, *_ = _window_case(kind, 3)
+    pix, npix = fold[0].long(), fold[1].long()
+    assert int(win["rows"].sum()) == skey.shape[0]
+    got = cs.launch_windows(maps, None if kind == "uniform" else levels,
+                            45, 67, 3, torch.zeros(3, TH, R), fold, ctr, key)
+    cap = cs.tracked_window_cap(3, TH * R, int(npix.max()), cs.WINDOW_BUDGET)
+    for k in ("block", "bucket", "rows", "y0", "y1", "x0", "x1", "bytes"):
+        assert torch.equal(got[k], win[k]), k
+    assert torch.equal(got["staged"], win["staged"] & (win["bytes"] <= cap))
+    for i in range(win["block"].shape[0]):
+        rows = _block_rows(win, i, skey, kshift)
+        assert len(rows) == int(win["rows"][i])
+        b = int(win["bucket"][i])
+        off = pix[b, : npix[b]]
+        c = ctr.long()[perm[rows]]
+        y = (c[:, None, 0] + off[:, 0]).reshape(-1)
+        x = (c[:, None, 1] + off[:, 1]).reshape(-1)
+        h, w = int(levels[b, 1]), int(levels[b, 2])
+        read = (y >= 0) & (y < h) & (x >= 0) & (x < w)
+        if not bool(read.any()):
+            continue
+        assert int(win["y0"][i]) <= int(y[read].min())
+        assert int(win["y1"][i]) >= int(y[read].max())
+        assert int(win["x0"][i]) <= int(x[read].min())
+        assert int(win["x1"][i]) >= int(x[read].max())
+
+
+def _staged_bytes(win, i, flat, levels, elem):
+    """Window i staged as the kernel stages it: box row r's segment, from
+    the 16-byte word at or below its first byte to the one at or above its
+    last, at byte (c0 + r pitch) rounded down to 16 of the window, c0 the
+    first byte's place in its word; no two rows' segments meet, and no
+    byte comes from past the buffer.  Returns (the window's bytes, c0)."""
+    buf = np_(flat).reshape(-1)
+    y0, y1, x0, x1, pitch = (int(win[k][i])
+                             for k in ("y0", "y1", "x0", "x1", "pitch"))
+    lv = levels[int(win["bucket"][i])].long()
+    c0 = (int(lv[0]) + y0 * int(lv[2]) + x0) * elem % 16
+    out = np.zeros((y1 - y0 + 1) * pitch + 16, np.uint8)
+    end = 0
+    for r, y in enumerate(range(y0, y1 + 1)):
+        s = (int(lv[0]) + y * int(lv[2]) + x0) * elem
+        a0, a1 = s // 16 * 16, -(-(s + (x1 - x0 + 1) * elem) // 16) * 16
+        at = (c0 + r * pitch) // 16 * 16
+        assert at % 16 == 0 and at >= end and a1 <= buf.size
+        assert (c0 + r * pitch) % 16 == s % 16  # the row's skew kept
+        out[at : at + a1 - a0] = buf[a0:a1]
+        end = at + a1 - a0
+    assert end <= out.size
+    return out, c0
+
+
+@pytest.mark.parametrize("kind,c", [("uniform", 3), ("uniform", 1),
+                                    ("buckets", 3), ("buckets", 6)])
+def test_code_window_gather_equals_pixel_windows(kind, c):
+    """Each row's codes read from its staged window at the kernel's
+    offset, c0 + (y - y0) pitch + (x - x0) bytes a pixel, equal
+    pixel_windows' gather of the code map bit for bit, on every byte
+    alignment of a row, at the edges and far out; a window that fits no
+    cap is not staged, and one whose last word would pass the buffer's
+    end is not either."""
+    win, flat, skey, perm, kshift, ctr, fold, levels = _windows(kind, c)
+    elem = flat.shape[1]
+    pix, npix = fold[0], fold[1].long()
+    staged = win["staged"]
+    assert bool(staged.any())
+    skews = set()
+    for i in np.flatnonzero(np_(staged)):
+        rows = _block_rows(win, i, skey, kshift)
+        b = int(win["bucket"][i])
+        data, c0 = _staged_bytes(win, i, flat, levels, elem)
+        p = perm[rows]
+        want = cs.pixel_windows(flat, levels, torch.full((len(p),), b),
+                                ctr[p], pix)[:, : npix[b]]
+        off = pix.long()[b, : npix[b]]
+        y = ctr.long()[p][:, None, 0] + off[:, 0]
+        x = ctr.long()[p][:, None, 1] + off[:, 1]
+        inside = ((y >= 0) & (y < levels[b, 1]) & (x >= 0)
+                  & (x < levels[b, 2]))
+        at = (c0 + (y - win["y0"][i]) * win["pitch"][i]
+              + (x - win["x0"][i]) * elem)
+        skews |= set(np_((c0 + (y[inside] - win["y0"][i])
+                          * win["pitch"][i]) % 16).tolist())
+        idx = np_(torch.where(inside, at, 0))[..., None] + np.arange(elem)
+        got = np.where(np_(inside)[..., None], data[idx], 0)
+        np.testing.assert_array_equal(got, np_(want).astype(np.uint8))
+    assert len(skews) > 2  # rows at several byte offsets of their word
+    none = cs.tracked_windows(skey, perm, ctr, kshift, TH, levels, fold,
+                              flat.shape[0], elem, 0)
+    assert not bool(none["staged"].any())
+    # the same windows over a buffer cut just past each level's last pixel
+    # read: a window whose last word would pass the end stays on L2
+    end = int(((win["y1"] * levels[win["bucket"], 2] + win["x1"] + 1
+                + levels[win["bucket"], 0]).long() * elem).max())
+    cut = cs.tracked_windows(skey, perm, ctr, kshift, TH, levels, fold,
+                             end // elem, elem, 1 << 30)
+    past = (win["y1"] * levels[win["bucket"], 2] + win["x1"] + 1
+            + levels[win["bucket"], 0]).long() * elem
+    np.testing.assert_array_equal(
+        np_(cut["staged"]),
+        np_(win["staged"] & ((past + 15) // 16 * 16 <= end // elem * elem)))
+
+
+def test_code_tracked_scores_are_the_same_in_both_row_orders():
+    """The tracked code kernel's arithmetic (folded_scores on the
+    dequantized codes) over tracked_order's rows and over tracked_rows',
+    each row's result put back on its particle: the same bits, and the
+    plain version's scores (rel 1e-5, kf bit for bit)."""
+    maps, ctr, key, fold, levels, groups, extent = _window_case("uniform", 3)
+    pix, npix, order, seg = fold
+    rng = np.random.default_rng(5)
+    scan = torch.as_tensor((rng.random((3, TH, R)) * 3).astype(np.float32))
+    cw = torch.as_tensor(CW)
+    w = cs.tracked_weights(scan, cw, order, seg)
+    compact = cs.compact_map(maps.plain(3).packed, 3).reshape(-1, 4)
+    outs = []
+    for skey, perm in (cs.tracked_order(key, ctr, groups, extent)[:2],
+                       cs.tracked_rows(key)):
+        got = cs.folded_scores(compact, levels, ctr[perm], pix, w,
+                               torch.zeros(len(perm), dtype=torch.int32),
+                               key[perm], 3)
+        back = torch.empty(3, len(perm))
+        back[:, perm] = torch.stack(got)
+        outs.append(back)
+    np.testing.assert_array_equal(np_(outs[0]).view(np.int32),
+                                  np_(outs[1]).view(np.int32))
+
+
+def test_tracked_smem_states_the_tight_stride_and_the_window():
+    """tracked_smem at stride P and at the tight stride, the launch's
+    shared memory and the window's bytes (tracked_window_cap) at the
+    slice's shapes: C = 3 and 6, Th*R = 2,500, the largest npix 1,577
+    (f = 1) and 489 (K = 12 buckets); a launch that stages windows keeps
+    two blocks an SM where its layout at stride P allows, and budget 0
+    is the layout at stride P with no window."""
+    assert cs.tracked_smem(3, 2500) == 110_336
+    assert cs.tracked_smem(3, 2500, npix=1577) == 84_352
+    assert cs.tracked_smem(3, 2500, npix=489) == 53_888
+    assert cs.tracked_smem(3, 2500) - cs.tracked_smem(3, 2500,
+                                                      npix=1577) == 25_984
+    budget = cs.WINDOW_BUDGET
+    assert cs.tracked_launch_smem(3, 2500, budget) == cs.TRACKED_SMEM_TWO
+    assert cs.tracked_launch_smem(3, 2500, 0) == 110_336
+    assert cs.tracked_launch_smem(6, 2500, budget) == cs.TRACKED_SMEM_ONE
+    # two blocks an SM: 228 KB an SM, 1 KB reserved a block, ~1 KB static
+    assert 2 * (cs.TRACKED_SMEM_TWO + 2048) <= 228 * 1024
+    assert cs.TRACKED_SMEM_ONE + 2048 <= cs.SMEM_LIMIT
+    assert cs.tracked_window_cap(3, 2500, 1577, budget) == 29_312
+    assert cs.tracked_window_cap(3, 2500, 489, budget) == 59_776
+    assert cs.tracked_window_cap(6, 2500, 1577, budget) == 97_040
+    assert cs.tracked_window_cap(3, 2500, 1577, 4096) == 4096
+    assert cs.tracked_window_cap(3, 2500, 1577, 0) == 0

@@ -38,14 +38,24 @@ and the kernel: each tracked cell then also gives their sum a call
 ("with_pass_ms").  --slabs N times ROOT's kernels built with N slabs of
 the weights table in the single-plane ring (csrc/crop_tracked.cuh's
 kSlabs replaced in a copy of the sources, built by nvcc into a temporary
-directory; checkouts that have it):
+directory; checkouts that have it); --one-block times them with the code
+tracked kernel at one block an SM whatever its layout, its window taking
+the rest of the SM's shared memory (kTwoBlockSmem set to 0 in the copy).
+The code tracked kernel (--int4
+without --lokf) of a checkout that stages windows of codes
+(crop_score.WINDOW_BUDGET) is also timed at budget 0, every block's
+gather from L2, whose result must equal the staged call's bit for bit
+(its SHA-256 printed beside it), and each cell gives the share of its
+windows, and of their rows, that the plain rule stages
+(crop_score.launch_windows):
 
-    python tests/time_torch_tracked.py [--kernel tracked|init|fold] [--int4] [--lokf] [--slabs N] [ROOT]
+    python tests/time_torch_tracked.py [--kernel tracked|init|fold] [--int4] [--lokf] [--slabs N] [--one-block] [ROOT]
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import os
@@ -64,6 +74,8 @@ ap.add_argument("--lokf", action="store_true",
                 help="the kernels with the single-plane M (TDR_M_HILO=0)")
 ap.add_argument("--slabs", type=int, choices=(1, 2),
                 help="slabs in the single-plane tracked kernel's ring")
+ap.add_argument("--one-block", action="store_true",
+                help="the code tracked kernel at one block an SM")
 ap.add_argument("root", nargs="?", default=os.path.join(
     os.path.dirname(os.path.abspath(__file__)), ".."))
 ARGS = ap.parse_args()
@@ -81,28 +93,46 @@ from top_down_renderer_torch.maps.polar import polar_stencil  # noqa: E402
 from top_down_renderer_torch.testing import synthetic_setup  # noqa: E402
 
 
-def use_slabs(n: int, tmp: str) -> None:
-    """Load ROOT's crop_score library from a build with n slabs in the
-    single-plane ring: the sources copied into tmp, kSlabs replaced, and
-    crop_score.LOKF_SLABS set to match (its shared-memory check)."""
+def use_build(source: str, old: str, new: str, tmp: str) -> None:
+    """Load ROOT's crop_score library from a build with `old` replaced by
+    `new` in csrc/<source>: the sources copied into tmp, the line
+    replaced, built by nvcc."""
     from top_down_renderer_torch import kernels
 
-    old = "constexpr int kSlabs = 1;"
-    header = kernels.CSRC / "crop_tracked.cuh"
-    if not hasattr(cs, "LOKF_SLABS") or old not in header.read_text():
-        raise SystemExit(f"{ROOT} has no ring of slabs")
+    if old not in (kernels.CSRC / source).read_text():
+        raise SystemExit(f"{ROOT}'s {source} has no {old!r}")
     for f in kernels.CSRC.iterdir():
         if f.suffix in (".cu", ".cuh"):
             shutil.copy(f, tmp)
-    copy = Path(tmp, header.name)
-    copy.write_text(copy.read_text().replace(
-        old, f"constexpr int kSlabs = {n};"))
+    copy = Path(tmp, source)
+    copy.write_text(copy.read_text().replace(old, new))
     lib = Path(tmp, "libcrop_score.so")
     subprocess.run([kernels.find_nvcc(), *kernels.NVCC_FLAGS, "-o", str(lib),
                     str(Path(tmp, "crop_score.cu"))], check=True)
     build = kernels.build
     kernels.build = lambda name: lib if name == "crop_score" else build(name)
+
+
+def use_slabs(n: int, tmp: str) -> None:
+    """ROOT's kernels with n slabs in the single-plane ring (kSlabs), and
+    crop_score.LOKF_SLABS set to match (its shared-memory check)."""
+    if not hasattr(cs, "LOKF_SLABS"):
+        raise SystemExit(f"{ROOT} has no ring of slabs")
+    use_build("crop_tracked.cuh", "constexpr int kSlabs = 1;",
+              f"constexpr int kSlabs = {n};", tmp)
     cs.LOKF_SLABS = n
+
+
+def use_one_block(tmp: str) -> None:
+    """ROOT's code tracked kernel at one block an SM, whatever its layout:
+    its launch up to kOneBlockSmem (no kTwoBlockSmem), the window's bytes
+    those past its tight layout, and crop_score.TRACKED_SMEM_TWO set to
+    match (the plain rule's share)."""
+    if not hasattr(cs, "TRACKED_SMEM_TWO"):
+        raise SystemExit(f"{ROOT} stages no windows of codes")
+    use_build("crop_score.cu", "constexpr size_t kTwoBlockSmem = 111 * 1024;",
+              "constexpr size_t kTwoBlockSmem = 0;", tmp)
+    cs.TRACKED_SMEM_TWO = 0
 
 
 N = 102_400
@@ -159,7 +189,9 @@ def hypotheses():
 
 
 def tracked_cells(dev):
-    """{label: (the kernel's wrapper call, its profiler symbols)}."""
+    """{label: (the kernel's wrapper call, its profiler symbols, the
+    windows its blocks stage where ROOT's code kernel stages them, else
+    None)}."""
     d = synthetic_setup(N, h=1024, w=1024, c=3, cluster=(462, 462, 100),
                         theta_spread=(0.7, 0.075))
     p = d["state"]["particles"]
@@ -174,10 +206,18 @@ def tracked_cells(dev):
                                           for v in (
         spread["stencil"], spread["scan"], CW, q["init_px"], q["theta"],
         np.resize(hyp, N), slots)], bmi, 0.5)
+    windows = {"clustered": None, "buckets": None}
+    if ARGS.int4 and not ARGS.lokf and hasattr(cs, "launch_windows"):
+        _, fold, ctr, key = cs._tracked_inputs(maps, 3, *t, 1.0, 1.0)
+        windows["clustered"] = cs.launch_windows(maps, None, 1024, 1024, 3,
+                                                 t[1], fold, ctr, key)
+        _, table, fold, ctr, key = ms._tracked_inputs(*multi, 1.0)
+        windows["buckets"] = cs.launch_windows(multi[0], table, 0, 0, 3,
+                                               multi[3], fold, ctr, key)
     return {"clustered": (lambda: cs.score_tracked(maps, 3, *t, 1.0),
-                          symbols("tracked", 3)),
+                          symbols("tracked", 3), windows["clustered"]),
             "buckets": (lambda: ms.score_tracked_multi(*multi),
-                        symbols("tracked", 3))}
+                        symbols("tracked", 3), windows["buckets"])}
 
 
 def init_cells(dev):
@@ -211,6 +251,18 @@ def fold_cells(dev):
             "floor": (lambda: (cell.fill_(7),), ("FillFunctor",))}
 
 
+@contextlib.contextmanager
+def budget_zero():
+    """ROOT's code tracked kernel with no window staged: every block's
+    gather from L2."""
+    budget = cs.WINDOW_BUDGET
+    cs.WINDOW_BUDGET = 0
+    try:
+        yield
+    finally:
+        cs.WINDOW_BUDGET = budget
+
+
 def rows(out):
     if ARGS.kernel == "fold":  # int32 buffers of several shapes
         return torch.cat([o.reshape(-1) for o in out]).cpu()
@@ -222,20 +274,24 @@ def main() -> int:
         print("time_torch_tracked: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    slab_dir = tempfile.TemporaryDirectory()  # the variant build, if any
+    slab_dir = tempfile.TemporaryDirectory()  # a variant build, if any
     if ARGS.slabs is not None:
         use_slabs(ARGS.slabs, slab_dir.name)
+    if ARGS.one_block:
+        use_one_block(slab_dir.name)
     cells = {"tracked": tracked_cells, "init": init_cells,
              "fold": fold_cells}[ARGS.kernel](dev)
     if (ARGS.int4 or ARGS.lokf) and ARGS.kernel == "fold":
         raise SystemExit("--int4 and --lokf time the tracked or init kernels")
     result = {"root": ROOT, "kernel": ARGS.kernel, "int4": ARGS.int4,
               "lokf": ARGS.lokf, "slabs": getattr(cs, "LOKF_SLABS", None),
+              "one_block": ARGS.one_block,
               "card": smoke.card_name_and_limit()}
     both = ARGS.lokf and ARGS.kernel == "tracked"
-    for label, (run, symbols) in cells.items():
+    for label, (run, symbols, *windows) in cells.items():
+        windows = windows[0] if windows else None
         first = rows(run())
-        times, with_pass = [], []
+        times, with_pass, on_l2 = [], [], []
         for _ in range(ROUNDS):
             # (ms, profiles taken) where ROOT's kernel_ms reports its tries
             ms_ = smoke.kernel_ms(run, symbols)
@@ -244,6 +300,13 @@ def main() -> int:
                 ms_ = smoke.kernel_ms(run, symbols + PASS_SYMBOLS,
                                       per_call=2)
                 with_pass.append(ms_[0] if isinstance(ms_, tuple) else ms_)
+            if windows is not None:
+                with budget_zero():
+                    on_l2.append(smoke.kernel_ms(run, symbols)[0])
+                    if not torch.equal(rows(run()).view(torch.int32),
+                                       first.view(torch.int32)):
+                        raise RuntimeError(f"the {label} kernel at budget "
+                                           "0 differs from its staged call")
             if not torch.equal(rows(run()).view(torch.int32),
                                first.view(torch.int32)):
                 raise RuntimeError(f"the {label} kernel does not repeat")
@@ -255,6 +318,11 @@ def main() -> int:
             result[label].update(with_pass_ms=with_pass,
                                  with_pass_median_ms=float(
                                      np.median(with_pass)))
+        if windows is not None:
+            result[label].update(
+                staged=cs.staged_share(windows),
+                windows=int(windows["staged"].numel()),
+                budget0_ms=on_l2, budget0_median_ms=float(np.median(on_l2)))
     print(json.dumps(result))
     return 0
 

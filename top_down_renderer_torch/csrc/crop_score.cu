@@ -58,7 +58,16 @@
 // FMA (load_codes): the dequantized map's values, on which the fold, the
 // weights and the per-shift sums are the float kernel's.  The gather's
 // bytes fall 8x at C = 3, but not its loads, which with their latency
-// bound it (PERF.md §6).
+// and the instructions around them bound it (PERF.md §6).  So the code
+// map, 2 MB at 1024^2 and C = 3, is small enough to stage by the block:
+// the wrapper orders each shift group's rows by position
+// (crop_score.tracked_order), and each block copies the box of its rows'
+// windows into shared memory by 1-D bulk copies where it fits (a 100 px
+// cloud at f = 1: ~7 KB a block of 64 rows), s_pix and the weights at the
+// fold's own largest npix to leave it room at two blocks an SM, and
+// gathers from there; a block whose box does not fit gathers from L2, as
+// before.  Rows whose stencil lies inside the level skip the bounds check,
+// and a warp scores two of them at once (crop_tracked.cuh, Window).
 //
 // The single-plane M (TDR_M_HILO=0; the same TPU kernel's `lokf`
 // configuration, one int8 plane of M per (variant, column), the kf column's
@@ -91,8 +100,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <climits>
 #include <cstddef>
+#include <cstdint>
 #include <type_traits>
 
 #include "crop_tracked.cuh"
@@ -132,7 +143,10 @@ __global__ void __launch_bounds__(kThreads, 2)
                          Th, R, P, skey, perm, centers, N, inv_tr, out);
 }
 
-// The same body on the code map (pixels, CP/2) with its qinv (8).
+// The same body on the code map (pixels, CP/2) with its qinv (8), each
+// block's window of codes staged in shared memory where it fits (Window):
+// K buckets, the code buffer's pixels, the keys' group shift, the window's
+// budget and the launch's dynamic shared memory (tracked_body).
 template <int C>
 __global__ void __launch_bounds__(kThreads, 2)
     crop_tracked_i4_kernel(const unsigned char* __restrict__ codes,
@@ -147,10 +161,13 @@ __global__ void __launch_bounds__(kThreads, 2)
                            const int* __restrict__ skey,
                            const long long* __restrict__ perm,
                            const int2* __restrict__ centers, int N,
-                           float inv_tr, float* __restrict__ out) {
+                           float inv_tr, float* __restrict__ out, int K,
+                           int pixels, int kshift, int budget, int smem) {
+  __shared__ Window window;
   tracked_body<C, kFull, true>(codes, table, H, W, scan, cw, pix, npix, order,
                                seg, Th, R, P, skey, perm, centers, N, inv_tr,
-                               out, qinv);
+                               out, qinv, nullptr, nullptr, &window, kshift,
+                               K, pixels, budget, smem);
 }
 
 // The same body with the single-plane M: qinv (8) the map quantization's,
@@ -632,20 +649,41 @@ __global__ void __launch_bounds__(kFoldThreads)
   }
 }
 
+// Dynamic shared memory of a code kernel block that stages windows: up to
+// kTwoBlockSmem where the block's layout at stride P fits it (two blocks an
+// SM, each beside its static Window and the 1 KB the SM reserves a block),
+// else up to kOneBlockSmem (crop_score.TRACKED_SMEM_TWO, _ONE).
+constexpr size_t kTwoBlockSmem = 111 * 1024;
+constexpr size_t kOneBlockSmem = 225 * 1024;
+
+// The code kernel's launch: the layout at stride P (its tight layout fits
+// in it whatever the fold's npix), and with a budget the bytes up to its
+// occupancy's share for the window (crop_score.tracked_launch_smem).
+template <int C>
+size_t window_smem(int TR, int P, int budget) {
+  const size_t fixed = smem_bytes<C>(TR, P);
+  if (budget <= 0) return fixed;
+  const size_t lim = fixed <= kTwoBlockSmem ? kTwoBlockSmem : kOneBlockSmem;
+  return std::max(fixed, std::min(fixed + (size_t)budget, lim));
+}
+
 // Launch the tracked kernel on the float map (qinv null) or, with I4, on
-// the code map and its qinv.
+// the code map and its qinv (K buckets, the buffer's pixels, the keys'
+// group shift and the window's budget: crop_tracked_i4_kernel).
 template <int C, bool I4>
 cudaError_t launch(const void* map, const float* qinv, const int* table,
                    int H, int W, const float* scan, const float* cw,
                    const int* pix, const int* npix, const int* order,
                    const int* seg, int Th, int R, int P, const int* skey,
                    const long long* perm, const int* centers, int N,
-                   float inv_tr, float* out, cudaStream_t stream) {
+                   float inv_tr, float* out, cudaStream_t stream, int K = 1,
+                   int pixels = 0, int kshift = 0, int budget = 0) {
   // the smem opt-in, set once per device and raised with the table size;
   // callers launch from one host thread
   static int ready_dev = -1;
   static size_t ready_smem = 0;
-  const size_t smem = smem_bytes<C>(Th * R, P);
+  const size_t smem = I4 ? window_smem<C>(Th * R, P, budget)
+                         : smem_bytes<C>(Th * R, P);
   const dim3 grid((N + kTile - 1) / kTile);
   const auto* tbl = reinterpret_cast<const int4*>(table);
   const auto* px = reinterpret_cast<const int2*>(pix);
@@ -657,7 +695,8 @@ cudaError_t launch(const void* map, const float* qinv, const int* table,
     if (err != cudaSuccess) return err;
     kern<<<grid, kThreads, smem, stream>>>(
         static_cast<const unsigned char*>(map), qinv, tbl, H, W, scan, cw, px,
-        npix, order, seg, Th, R, P, skey, perm, ctr, N, inv_tr, out);
+        npix, order, seg, Th, R, P, skey, perm, ctr, N, inv_tr, out, K,
+        pixels, kshift, budget, (int)smem);
   } else {
     auto kern = crop_tracked_kernel<C>;
     err = opt_in_smem(kern, smem, &ready_dev, &ready_smem);
@@ -789,36 +828,59 @@ extern "C" int tdr_crop_score_multi_tracked(
   });
 }
 
+namespace {
+
+// The code entry points' launch: the codes' base 16-byte aligned where a
+// window may be staged (its rows are copied from 16-byte boundaries),
+// kshift in 0..30.
+int tracked_i4(const unsigned char* codes, const float* qinv,
+               const int* table, int K, int H, int W, int pixels, int C,
+               const float* scan, const float* cw, const int* pix,
+               const int* npix, const int* order, const int* seg, int Th,
+               int R, int P, const int* skey, const long long* perm,
+               const int* centers, int N, float inv_tr, float* out,
+               int kshift, int budget, void* stream) {
+  if (K < 1 || K > kMaxBuckets || kshift < 0 || kshift > 30 || pixels < 0 ||
+      (budget > 0 && reinterpret_cast<uintptr_t>(codes) % 16))
+    return (int)cudaErrorInvalidValue;
+  return by_classes(C, [&](auto cc) {
+    return (int)launch<decltype(cc)::value, true>(
+        codes, qinv, table, H, W, scan, cw, pix, npix, order, seg, Th, R, P,
+        skey, perm, centers, N, inv_tr, out,
+        static_cast<cudaStream_t>(stream), K, pixels, kshift, budget);
+  });
+}
+
+}  // namespace
+
 // The nibble-packed map: codes (pixels, CP/2) uint8 and qinv (8) float32 in
-// place of the compact map, everything else as tdr_crop_score_tracked.
+// place of the compact map, everything else as tdr_crop_score_tracked but
+// the keys and two arguments after out: skey holds each row's group in its
+// bits from kshift up (crop_score.tracked_order), and budget is the most
+// bytes of shared memory a block's window of codes may take (0: no block
+// stages one; a 16-byte aligned code map where it is not 0).
 extern "C" int tdr_crop_score_tracked_i4(
     const unsigned char* codes, const float* qinv, int H, int W, int C,
     const float* scan, const float* cw, const int* pix, const int* npix,
     const int* order, const int* seg, int Th, int R, int P, const int* skey,
     const long long* perm, const int* centers, int N, float inv_tr,
-    float* out, void* stream) {
-  return by_classes(C, [&](auto cc) {
-    return (int)launch<decltype(cc)::value, true>(
-        codes, qinv, nullptr, H, W, scan, cw, pix, npix, order, seg, Th, R,
-        P, skey, perm, centers, N, inv_tr, out,
-        static_cast<cudaStream_t>(stream));
-  });
+    float* out, int kshift, int budget, void* stream) {
+  return tracked_i4(codes, qinv, nullptr, 1, H, W, H * W, C, scan, cw, pix,
+                    npix, order, seg, Th, R, P, skey, perm, centers, N,
+                    inv_tr, out, kshift, budget, stream);
 }
 
-// ... and as tdr_crop_score_multi_tracked on the code pyramid.
+// ... and as tdr_crop_score_multi_tracked on the code pyramid of `pixels`
+// pixels.
 extern "C" int tdr_crop_score_multi_tracked_i4(
     const unsigned char* codes, const float* qinv, const int* table, int K,
-    int C, const float* scan, const float* cw, const int* pix,
+    int pixels, int C, const float* scan, const float* cw, const int* pix,
     const int* npix, const int* order, const int* seg, int Th, int R, int P,
     const int* skey, const long long* perm, const int* centers, int N,
-    float inv_tr, float* out, void* stream) {
-  if (K < 1 || K > kMaxBuckets) return (int)cudaErrorInvalidValue;
-  return by_classes(C, [&](auto cc) {
-    return (int)launch<decltype(cc)::value, true>(
-        codes, qinv, table, 0, 0, scan, cw, pix, npix, order, seg, Th, R, P,
-        skey, perm, centers, N, inv_tr, out,
-        static_cast<cudaStream_t>(stream));
-  });
+    float inv_tr, float* out, int kshift, int budget, void* stream) {
+  return tracked_i4(codes, qinv, table, K, 0, 0, pixels, C, scan, cw, pix,
+                    npix, order, seg, Th, R, P, skey, perm, centers, N,
+                    inv_tr, out, kshift, budget, stream);
 }
 
 // The single-plane M (TDR_M_HILO=0).  tdr_crop_lokf_weights: the weights

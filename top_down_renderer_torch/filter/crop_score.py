@@ -87,7 +87,11 @@ The plain versions score dequantize_int4 of the same codes
 (CropMap.plain): kernel and plain version differ in the order of their
 float32 sums (and, in the theta search, where qinv enters; rel 1e-4),
 kf bit for bit.  The conv path's map (CropMap.compact) stays float32 either
-way, as the JAX conv field reads the unquantized map.
+way, as the JAX conv field reads the unquantized map.  The tracked code
+kernel (with the hi/lo M) takes its rows in tracked_order, each shift
+group's by the position of their centres, and each block stages its
+window of codes in shared memory where it fits (WINDOW_BUDGET,
+tracked_window_cap); tracked_windows is the rule in plain PyTorch.
 
 The single-plane M (TDR_M_HILO=0, the JAX package's pallas_score.m_hilo()
 off).  The JAX kernel contracts its int8 map against M quantized per
@@ -153,6 +157,15 @@ TRACKED_TILE = 64  # sorted rows per block of the tracked kernel (kTile)
 # slabs of the weights table in a single-plane tracked block's ring
 # (csrc/crop_tracked.cuh's kSlabs)
 LOKF_SLABS = 1
+# dynamic shared memory of a code tracked block that stages windows: up to
+# the first where its layout at stride P fits it (two blocks an SM), else
+# up to the second (csrc/crop_score.cu's kTwoBlockSmem, kOneBlockSmem)
+TRACKED_SMEM_TWO = 111 * 1024
+TRACKED_SMEM_ONE = 225 * 1024
+# the most bytes a code tracked block's window of codes may take, read by
+# launch_tracked at each call: all its shared memory leaves (0 sends every
+# block's gather to L2, as the tests and chip_smoke do to compare routes)
+WINDOW_BUDGET = SMEM_LIMIT
 PAD_PIX = 2**29  # (dy, dx) of a padding pixel: outside every map
 _KEY_BITS = 22  # bits per offset in fold_offsets' sort key
 
@@ -428,22 +441,54 @@ def score_tracked(
 
 
 # -- the tracked kernel's operands ---------------------------------------
-def tracked_smem(num_classes: int, tr: int, slabs: int = 0) -> int:
+def tracked_smem(num_classes: int, tr: int, slabs: int = 0,
+                 npix: int | None = None) -> int:
     """Bytes of shared memory of a tracked kernel block: the pixel offsets
-    (P int2), the folded weights (C + 2, P) and the scan tables (C + 1,
-    Th*R) float32, P = Th*R rounded up to 16 (fold_offsets).  slabs > 0:
-    the single-plane kernel's, `slabs` slabs of the weights table (C + 3,
-    P) int16, each with its scales and mbarrier, in place of the scan
-    tables, or its weights pass's block where that takes more: the sums
-    (C + 1, P) float32, the cells and segment starts (Th*R + P + 1 int32)
-    and the coefficients (C + 1, Th*R) bf16."""
+    (S int2), the folded weights (C + 2, S) and the scan tables (C + 1,
+    Th*R) float32 at the stride S = P, Th*R rounded up to 16 (fold_offsets):
+    110,336 at C = 3, Th*R = 2,500.  npix, the fold's largest count of
+    distinct pixels: the code kernel's tight layout, S = npix rounded up to
+    8 (84,352 at npix 1,577; 53,888 at 489), whose end rounded up to 16 is
+    where its window starts (tracked_window_cap).  slabs > 0: the
+    single-plane kernel's, `slabs` slabs of the weights table (C + 3, P)
+    int16, each with its scales and mbarrier, in place of the scan tables,
+    or its weights pass's block where that takes more: the sums (C + 1, P)
+    float32, the cells and segment starts (Th*R + P + 1 int32) and the
+    coefficients (C + 1, Th*R) bf16."""
     c = num_classes
     cap = -(-tr // 16) * 16
-    head = cap * 8 + (c + 2) * cap * 4
+    stride = cap if npix is None else -(-npix // 8) * 8
+    head = stride * 8 + (c + 2) * stride * 4
     if not slabs:
         return head + (c + 1) * tr * 4
     return max(head + slabs * ((c + 3) * cap * 2 + 24),
                (c + 1) * cap * 4 + (tr + cap + 1) * 4 + (c + 1) * tr * 2)
+
+
+def tracked_launch_smem(num_classes: int, tr: int, budget: int) -> int:
+    """Dynamic shared memory of a launch of the code tracked kernel
+    (csrc/crop_score.cu, window_smem): its layout at stride P
+    (tracked_smem), and with a budget the bytes up to TRACKED_SMEM_TWO
+    where that layout fits it (two blocks an SM), else up to
+    TRACKED_SMEM_ONE, at most the budget more."""
+    fixed = tracked_smem(num_classes, tr)
+    if budget <= 0:
+        return fixed
+    lim = TRACKED_SMEM_TWO if fixed <= TRACKED_SMEM_TWO else TRACKED_SMEM_ONE
+    return max(fixed, min(fixed + budget, lim))
+
+
+def tracked_window_cap(num_classes: int, tr: int, npix: int,
+                       budget: int) -> int:
+    """The bytes a code tracked block has for its window of codes: those
+    of its launch (tracked_launch_smem) past its tight layout at the fold's
+    largest npix (tracked_smem, rounded up to 16), at most the budget:
+    29,312 at C = 3, Th*R = 2,500 and npix 1,577 (two blocks an SM);
+    59,776 at npix 489; 97,040 at C = 6, npix 1,577 (one block an SM);
+    0 at budget 0."""
+    start = -(-tracked_smem(num_classes, tr, npix=npix) // 16) * 16
+    return max(0, min(budget,
+                      tracked_launch_smem(num_classes, tr, budget) - start))
 
 
 def tracked_rows(key: torch.Tensor):
@@ -454,6 +499,136 @@ def tracked_rows(key: torch.Tensor):
     weights; row j's result goes to particle perm[j].  One device sort of
     32-bit keys (half the radix passes of 64-bit ones), no host read."""
     return torch.sort(key.to(torch.int32), stable=True)
+
+
+_MORTON_BITS = 15  # bits of a tile coordinate the Morton tables spread
+_MORTON = {}  # device -> (the two tables back to back, their offsets)
+
+
+def _morton_tables(device):
+    """((2 * 2^15,) int32, (2,) int32): each tile coordinate's bits spread
+    to the odd bit positions (the row's) and to the even ones (the
+    column's), back to back, and the offsets of the two tables; made once
+    a device."""
+    if device not in _MORTON:
+        v = np.arange(1 << _MORTON_BITS, dtype=np.int64)
+        spread = sum(((v >> i) & 1) << (2 * i) for i in range(_MORTON_BITS))
+        both = np.concatenate([spread << 1, spread]).astype(np.int32)
+        _MORTON[device] = (
+            torch.as_tensor(both, device=device),
+            torch.tensor([0, 1 << _MORTON_BITS], dtype=torch.int32,
+                         device=device))
+    return _MORTON[device]
+
+
+def order_bits(groups: int, extent: int):
+    """(kshift, tbits) of tracked_order for `groups` groups on levels of at
+    most `extent` pixels a side: the group in the bits of a non-negative
+    int32 from kshift up, and the kshift = 2a bits below it the Morton
+    code of the centre's tile, 2^tbits pixels a side, so that 2^a tiles
+    a side cover the extent."""
+    kshift = 2 * ((31 - max(1, (groups - 1).bit_length())) // 2)
+    return kshift, max(0, (extent - 1).bit_length() - kshift // 2)
+
+
+def tracked_order(key: torch.Tensor, ctr: torch.Tensor, groups: int,
+                  extent: int):
+    """The code tracked kernel's rows: the particles in stable order of
+    their group keys (bucket * Th + shift < groups) and, within a group,
+    of the Morton code of their centre's tile on its level (ctr (N, 2)
+    int32 (cy, cx), clamped into the tiles; extent bounds the levels'
+    sides; order_bits), so that a block's rows lie close together and
+    its window of codes is small.  Returns (sorted keys int32: the group
+    in the bits from kshift up, the Morton code below; perm int64,
+    kshift).  One stable device sort of 32-bit keys, no host read, as
+    tracked_rows; tracked_order_plain is its plain twin.  Each particle's
+    score is its own: the order changes no bit of the output."""
+    kshift, tbits = order_bits(groups, extent)
+    tables, offsets = _morton_tables(ctr.device)
+    tile = ctr.clamp(0, (1 << (kshift // 2 + tbits)) - 1) >> tbits
+    spread = tables[tile + offsets]
+    morton = spread[:, 0] | spread[:, 1]
+    skey, perm = torch.sort((key.to(torch.int32) << kshift) | morton,
+                            stable=True)
+    return skey, perm, kshift
+
+
+def tracked_order_plain(key, ctr, groups: int, extent: int):
+    """tracked_order in numpy, by a lexicographic sort of (group, Morton
+    code of the centre's tile, particle) with the bits interleaved one by
+    one: (sorted keys int32, perm int64, kshift)."""
+    key = np.asarray(key, np.int64)
+    ctr = np.asarray(ctr, np.int64)
+    kshift, tbits = order_bits(groups, extent)
+    a = kshift // 2
+    tile = np.clip(ctr, 0, (1 << (a + tbits)) - 1) >> tbits
+    morton = np.zeros(len(key), np.int64)
+    for i in range(a):
+        morton |= ((tile[:, 0] >> i) & 1) << (2 * i + 1)
+        morton |= ((tile[:, 1] >> i) & 1) << (2 * i)
+    perm = np.lexsort((np.arange(len(key)), morton, key))
+    return ((key[perm] << kshift) | morton[perm]).astype(np.int32), perm, \
+        kshift
+
+
+def tracked_windows(skey, perm, ctr, kshift: int, th: int, levels, fold,
+                    pixels: int, elem: int, cap: int) -> dict:
+    """The code tracked kernel's window rule, in plain PyTorch: for each
+    block (TRACKED_TILE sorted rows) and bucket among its rows, the box of
+    their centres (ctr (N, 2), the particles') +- the extent of the
+    bucket's distinct pixels (fold's pix[:npix]), clipped to its level
+    (levels (K, 4): pixel offset, H, W, -), and whether the block stages it
+    (csrc/crop_tracked.cuh, stage_window): the box is not empty, its rows
+    at the pitch (its columns' elem bytes + 30 rounded up to 16, plus the
+    level's row bytes mod 16) and 16 bytes more take at most cap bytes
+    (tracked_window_cap), and the 16-byte word of the code buffer (pixels
+    of elem bytes) that holds its last byte lies in the buffer.  Returns
+    {block, bucket, rows (the block's rows of the bucket), y0, y1, x0, x1
+    (empty where y0 > y1 or x0 > x1), pitch, bytes, staged}, tensors of
+    one entry a window, in order."""
+    pix, npix = fold[0].long(), fold[1].long()
+    k = pix.shape[0]
+    n = skey.shape[0]
+    bucket = (skey.long() >> kshift) // th
+    seg = torch.arange(n, device=skey.device) // TRACKED_TILE * k + bucket
+    ids, inv, rows = torch.unique_consecutive(seg, return_inverse=True,
+                                              return_counts=True)
+    c = ctr.long()[perm]
+    big = 1 << 40
+
+    def reduce(v, how):
+        init = big if how == "amin" else -big
+        return torch.full(ids.shape, init, dtype=torch.long,
+                          device=v.device).scatter_reduce(0, inv, v, how)
+
+    live = torch.arange(pix.shape[1], device=pix.device) < npix[:, None]
+    lo = torch.where(live[..., None], pix, big).amin(1)[ids % k]
+    hi = torch.where(live[..., None], pix, -big).amax(1)[ids % k]
+    lv = levels.long()[ids % k]
+    y0 = (reduce(c[:, 0], "amin") + lo[:, 0]).clamp(min=0)
+    y1 = torch.minimum(reduce(c[:, 0], "amax") + hi[:, 0], lv[:, 1] - 1)
+    x0 = (reduce(c[:, 1], "amin") + lo[:, 1]).clamp(min=0)
+    x1 = torch.minimum(reduce(c[:, 1], "amax") + hi[:, 1], lv[:, 2] - 1)
+    some = (y0 <= y1) & (x0 <= x1)
+    pitch = ((x1 - x0 + 1) * elem + 45) // 16 * 16 + lv[:, 2] * elem % 16
+    need = (y1 - y0 + 1) * pitch + 16
+    last = (lv[:, 0] + y1 * lv[:, 2] + x1 + 1) * elem
+    staged = (some & (cap > 0) & (need <= cap)
+              & ((last + 15) // 16 * 16 <= pixels * elem))
+    return {"block": ids // k, "bucket": ids % k, "rows": rows, "y0": y0,
+            "y1": y1, "x0": x0, "x1": x1, "pitch": pitch,
+            "bytes": torch.where(some, need, 0), "staged": staged}
+
+
+def staged_share(windows: dict):
+    """(the share of tracked_windows' windows staged, the share of the
+    rows they hold)."""
+    staged = windows["staged"]
+    if not staged.numel():
+        return 0.0, 0.0
+    rows = windows["rows"]
+    return (float(staged.float().mean()),
+            float(rows[staged].sum() / rows.sum()))
 
 
 def fold_pixels(off: torch.Tensor):
@@ -532,8 +707,11 @@ def launch_tracked(base: str, maps, table, h: int, w: int, num_classes: int,
     tables' fold (fold_pixels).  With the single-plane M (maps.m_hilo
     False) the kernel takes maps.m_qinv and the weights table and scales
     of every (bucket, shift) (tracked_table, one launch before it) in
-    place of the scan, the class weights and the CSR.  Returns (cost,
-    norm, kf) (N,)."""
+    place of the scan, the class weights and the CSR.  On the code map with
+    the hi/lo M the rows go in tracked_order (each group's by position)
+    and the kernel stages each block's window of codes in shared memory
+    where it fits, at most WINDOW_BUDGET bytes (read at each call; 0: no
+    block does).  Returns (cost, norm, kf) (N,)."""
     name = entry_name(base, maps)
     operand, qinv = map_operand(maps, num_classes)
     th, r = scan.shape[1:]
@@ -541,13 +719,26 @@ def launch_tracked(base: str, maps, table, h: int, w: int, num_classes: int,
     out = torch.empty((n, 3), dtype=torch.float32, device=ctr.device)
     if n:
         pix, npix, order, seg = fold
-        skey, perm = tracked_rows(key)
+        window = maps.int4 and maps.m_hilo
+        tail = ()
+        if window:  # the code kernel's order, group shift and budget
+            skey, perm, kshift = tracked_order(key, ctr, pix.shape[0] * th,
+                                               _level_extent(maps, h, w))
+            budget = int(WINDOW_BUDGET)
+            if budget and operand.data_ptr() % 16:
+                raise ValueError("a code map whose window is staged must "
+                                 "start on a 16-byte boundary")
+            tail = (kshift, budget)
+        else:
+            skey, perm = tracked_rows(key)
         inv_tr = float(np.float32(1.0) / np.float32(th * r))
         # kept alive until the asynchronous launch has read them
         scan, class_weights = scan.contiguous(), class_weights.contiguous()
         level = (h, w) if table is None else (ptr(table), table.shape[0])
+        if window and table is not None:  # the code pyramid's pixels
+            level += (operand.shape[0],)
         rows = (ptr(skey), ptr(perm), ptr(ctr), n, ctypes.c_float(inv_tr),
-                ptr(out))
+                ptr(out), *tail)
         if maps.m_hilo:
             head = (ptr(operand),) + ((ptr(qinv),) if maps.int4 else ())
             args = (*head, *level, num_classes, ptr(scan),
@@ -562,6 +753,34 @@ def launch_tracked(base: str, maps, table, h: int, w: int, num_classes: int,
         kernels.launch("crop_score", f"tdr_{name}", *args)
         kernels.LAUNCHES[name] += 1
     return out[:, 0], out[:, 1], out[:, 2]
+
+
+def _level_extent(maps, h: int, w: int) -> int:
+    """The longest side of maps' levels: h, w of a CropMap, or a
+    pyramid's largest level."""
+    levels = getattr(maps, "levels", ((0, h, w),))
+    return max(max(lv[1:]) for lv in levels)
+
+
+def launch_windows(maps, table, h: int, w: int, num_classes: int, scan,
+                   fold, ctr, key, budget=None) -> dict:
+    """The windows a code tracked launch (launch_tracked's arguments, on a
+    code map with the hi/lo M) stages at `budget` (default WINDOW_BUDGET):
+    tracked_windows on its rows in tracked_order, at the bytes its blocks
+    have (tracked_window_cap).  Reads the fold's npix to the host."""
+    pix, npix = fold[:2]
+    th, r = scan.shape[1:]
+    operand = maps.operand(num_classes)
+    skey, perm, kshift = tracked_order(key, ctr, pix.shape[0] * th,
+                                       _level_extent(maps, h, w))
+    if table is None:
+        table = torch.tensor([[0, h, w, 0]], dtype=torch.int32,
+                             device=ctr.device)
+    budget = int(WINDOW_BUDGET if budget is None else budget)
+    cap = tracked_window_cap(num_classes, th * r, int(npix.max()), budget)
+    flat = operand.reshape(-1, operand.shape[-1])
+    return tracked_windows(skey, perm, ctr, kshift, th, table, fold,
+                           flat.shape[0], flat.shape[1], cap)
 
 
 def tracked_table(scan, class_weights, qinv, fold, num_classes: int,

@@ -111,14 +111,16 @@ _SIGNATURES = {
             _I, _F, _P, _P,
         ),
         # the code map and its qinv (8) in place of the compact map, then
-        # as the float entry points from H (table) on
+        # as the float entry points from H (table, K and the code pyramid's
+        # pixels) on, and after out the keys' group shift and the window's
+        # budget in bytes
         "tdr_crop_score_tracked_i4": (
             _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
-            _P, _I, _F, _P, _P,
+            _P, _I, _F, _P, _I, _I, _P,
         ),
         "tdr_crop_score_multi_tracked_i4": (
-            _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
-            _P, _I, _F, _P, _P,
+            _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
+            _P, _P, _I, _F, _P, _I, _I, _P,
         ),
         # the single-plane M's weights pass: scan, class weights, qinv, C,
         # I4, npix, order, seg, K, Th, R, P, table out, scales out, stream
