@@ -15,12 +15,12 @@ Phases (any failure exits non-zero before the result line):
      operations: the variants that keep a product hold HGMMA (one_plane a
      third of full's), gather_only and ring_only none, gather_only every
      window load and ring_only none of them; and, per instantiation of the
-     theta search, its HGMMA and global loads: each code-map twin
-     (crop_init_i4_kernel) two thirds of its float twin's HGMMA, each
-     single-plane twin (crop_init_lokf_kernel, TDR_M_HILO=0) two thirds
-     of the hi/lo float kernel's on the float map and one third on the
-     codes; per instantiation of the code tracked kernel
-     (crop_tracked_i4_kernel<C>) its bulk copies (UBLKCP: the windows of
+     theta search, its HGMMA and global and shared-memory loads (LDG,
+     LDS): each code-map twin (crop_init_i4_kernel) two thirds of its
+     float twin's HGMMA, each single-plane twin (crop_init_lokf_kernel,
+     TDR_M_HILO=0) two thirds of the hi/lo float kernel's on the float
+     map and one third on the codes; per instantiation of the code
+     tracked kernel (crop_tracked_i4_kernel<C>) its bulk copies (UBLKCP: the windows of
      codes it stages), shared and global loads (LDS, LDG), each with
      UBLKCP and LDS; and the int8 wgmma (IGMMA) and the TMA tensor loads
      (UTMALDG) of the int8 conv field;
@@ -52,7 +52,12 @@ Phases (any failure exits non-zero before the result line):
      every block's gather from L2), bit for bit its staged call: the
      K-bucket pyramid (the plain window rule, crop_score.launch_windows,
      stages some windows: the coarse levels'), the spread cloud on the
-     full level (none) and a cloud clustered to 100 px (all);
+     full level (none) and a cloud clustered to 100 px (all); and the
+     code theta search (crop_init_i4_kernel: rows by position, an
+     unchecked gather for warps inside their level) on that clustered
+     cloud, raw rows against their plain version; and that search, at f =
+     1.0 and 0.5, K buckets and the clustered cloud, argmin and raw rows
+     bit for bit in the particles' order;
   B4. the crop kernels with the single-plane M (TDR_M_HILO=0;
      CropMap(m_hilo=False), build_pyramid_maps(m_hilo=False)), on the
      float and the code map, at B's and B2's inputs as in B3, against
@@ -60,7 +65,9 @@ Phases (any failure exits non-zero before the result line):
      rows within rel 1e-4, kf within 1e-6 (the single plane's kf is the
      cell count to ~1e-7, summed in two orders), the gate's patterns off
      the gate, the argmin on 99.9 %; the tracked kernels' scales pass
-     bit for bit crop_score.tracked_lokf's scales;
+     bit for bit crop_score.tracked_lokf's scales; the float map's theta
+     search (crop_init_lokf_kernel, rows by position) also on B3's
+     clustered cloud, and bit for bit in the particles' order as B3's;
   B5. the int8 conv field's kernels (csrc/conv_field_i8.cu,
      TDR_CONV_INT8=1) against their plain versions on random 640^2 maps of
      3 and 6 classes (CP 4, 8), windows W 16, 32, 64, regions 64-256, conv
@@ -609,24 +616,27 @@ _INIT_LOKF_FN = re.compile(
     r"Function : \S*(crop_init_lokf_kernel)ILi(\d)ELb(\d)ELb(\d)E")
 
 
+INIT_COUNTED = ("HGMMA", "LDG", "LDS")
+
+
 def log_init_sass() -> dict:
     """Count, per instantiation of the theta search (crop_init_kernel on
     the float map, crop_init_i4_kernel on the code map, and their
     single-plane twins crop_init_lokf_kernel; CP 2, 4, 8 x argmin, raw),
-    its tensor-core products (HGMMA) and global loads (LDG): each code
-    twin holds HGMMA, two thirds of its float twin's (its A, the codes, is
-    exact in bf16: no A_lo product); each single-plane twin two thirds of
-    the hi/lo float kernel's on the float map (no B_lo product) and one
-    third on the codes (neither)."""
+    its tensor-core products (HGMMA) and global and shared-memory loads
+    (LDG, LDS): each code twin holds HGMMA, two thirds of its float twin's
+    (its A, the codes, is exact in bf16: no A_lo product); each
+    single-plane twin two thirds of the hi/lo float kernel's on the float
+    map (no B_lo product) and one third on the codes (neither)."""
     counts, current = {}, None
     for line in read_sass("crop_score_init").splitlines():
         if "Function :" in line:
             hit = _INIT_FN.search(line) or _INIT_LOKF_FN.search(line)
             current = hit.groups() if hit else None
             if current:
-                counts[current] = dict.fromkeys(("HGMMA", "LDG"), 0)
+                counts[current] = dict.fromkeys(INIT_COUNTED, 0)
         elif current:
-            for op in ("HGMMA", "LDG"):
+            for op in INIT_COUNTED:
                 counts[current][op] += f" {op}" in line
     twins = [(k, ("crop_init_kernel",) + k[1:]) for k in counts
              if k[0] == "crop_init_i4_kernel"]
@@ -1057,6 +1067,8 @@ def phase_b3(dev, errs, b_args, theta):
                 need_gated=True)
         compare_raw(f"B3 raw C={c} f={f}", errs, RAW_I4[0],
                     *raw_triple(args, f))
+        init_orders(f"B3 init order C={c} f={f}", "crop_score_init",
+                    cs.init_inputs(*args, f))
 
     hyp, slots, levels, bmi = init_plan()
     pyr = ms.build_pyramid_maps(maps.packed, levels, int4=True)
@@ -1072,6 +1084,8 @@ def phase_b3(dev, errs, b_args, theta):
             *multi_pair(args, theta, scale, slots_t, bmi), need_gated=True)
     compare_raw("B3 multi raw", errs, RAW_I4[1],
                 *multi_raw_triple(args, scale, slots_t, bmi))
+    init_orders("B3 multi init order", "crop_score_multi_init",
+                ms.init_inputs(*args, scale, slots_t, bmi, RES))
     check_buckets("B3", args, theta, scale, slots_t, bmi, levels)
 
     # the code tracked kernels' two routes, each call also at budget 0 (every
@@ -1094,6 +1108,34 @@ def phase_b3(dev, errs, b_args, theta):
     window_routes("B3 clustered windows", errs, CROP_I4[0],
                   crop_pair(args, band, 1.0)[0],
                   uniform_windows(args, band, 1.0), "all")
+    # the code theta search on the same cloud, against its plain version
+    # and in the particles' order
+    compare_raw("B3 clustered raw", errs, RAW_I4[0], *raw_triple(args, 1.0))
+    init_orders("B3 clustered init order", "crop_score_init",
+                cs.init_inputs(*args, 1.0))
+
+
+def init_orders(label, base, inputs) -> None:
+    """A window-route theta search (crop_score.launch_init's `base`) on
+    `inputs` (init_inputs': the rows in init_order), argmin and raw rows,
+    bit for bit the same search with each bucket's rows in the particles'
+    order (multiscale.bucket_rows): other warps, other votes on the
+    unchecked gather, the same rows."""
+    perm, row_start = inputs[9], inputs[10]
+    row = torch.arange(perm.shape[0], device=perm.device)
+    bucket = torch.empty_like(perm)
+    bucket[perm.long()] = (torch.searchsorted(row_start, row, right=True)
+                           - 1).to(torch.int32)
+    other = (inputs[:9] + ms.bucket_rows(bucket, row_start.shape[0] - 1)
+             + inputs[11:])
+    for raw in (False, True):
+        got = cs.launch_init(base, inputs, raw)
+        want = cs.launch_init(base, other, raw)
+        torch.cuda.synchronize()
+        check(same_bits(got, want), f"{label}: the rows in position order "
+              f"differ from the particles' order (raw {raw})")
+    log(f"[{label}] {cs.entry_name(base, inputs[0], False)}: argmin and raw "
+        "rows in position order equal the particles' order bit for bit")
 
 
 def uniform_windows(args, theta, f) -> dict:
@@ -1168,6 +1210,18 @@ def phase_b4(dev, errs, b_args, theta):
                     kf_tol=LOKF_KF_TOL)
             compare_raw(f"B4 {tag} raw C={c} f={f}", errs, raw[0],
                         *raw_triple(args, f), kf_tol=LOKF_KF_TOL)
+            if cs.init_window(lmap):
+                init_orders(f"B4 {tag} init order C={c} f={f}",
+                            "crop_score_init", cs.init_inputs(*args, f))
+        if cs.init_window(lmap):  # B3's clustered cloud
+            rng = np.random.default_rng(3)
+            cargs = (lmap, c, sten, scan, cw, torch.as_tensor(
+                rng.uniform(462, 562, (N, 2)).astype(np.float32),
+                device=dev))
+            compare_raw(f"B4 {tag} clustered raw", errs, raw[0],
+                        *raw_triple(cargs, 1.0), kf_tol=LOKF_KF_TOL)
+            init_orders(f"B4 {tag} clustered init order", "crop_score_init",
+                        cs.init_inputs(*cargs, 1.0))
         pyr = ms.build_pyramid_maps(maps.packed, levels, int4, m_hilo=False)
         mips_t, _ = pyr.bucket_tables(bmi)
         for label, fold in (
@@ -1199,6 +1253,9 @@ def phase_b4(dev, errs, b_args, theta):
         compare_raw(f"B4 {tag} multi raw", errs, raw[1],
                     *multi_raw_triple(args, scale, slots_t, bmi),
                     kf_tol=LOKF_KF_TOL)
+        if cs.init_window(pyr):
+            init_orders(f"B4 {tag} multi init order", "crop_score_multi_init",
+                        ms.init_inputs(*args, scale, slots_t, bmi, RES))
         check_buckets(f"B4 {tag}", args, theta, scale, slots_t, bmi, levels,
                       kf_tol=LOKF_KF_TOL)
 

@@ -1,16 +1,18 @@
 """Compare the SASS of the crop kernels of two checkouts, kernel by kernel.
 
-Builds csrc/crop_score.cu, csrc/crop_score_init.cu and csrc/crop_ablate.cu
-of the checkout at
+Builds csrc/crop_score.cu, csrc/crop_score_init.cu, csrc/crop_ablate.cu
+and csrc/crop_ablate_init.cu of the checkout at
 OLD and of the one at NEW (default: this checkout) with the port's nvcc
 flags (kernels.NVCC_FLAGS) into a temporary directory, disassembles each
 library with the toolkit's cuobjdump and compares every kernel OLD's
 library holds with NEW's of the same name, instruction by instruction
-(addresses and encodings left out).  Prints one line a kernel, with the
-SHA-256 of its instructions in OLD and in NEW, and, last, one JSON line
-{"same": [...], "differ": [...], "new": [...], "sha256": {kernel: [old,
-new]}}; exits 1 if a kernel of OLD is missing from NEW or its instructions
-differ.  So a change
+(addresses and encodings left out).  A kernel template's instantiation is
+known by its name and template arguments: one whose parameters changed is
+compared with its old self, and listed under "signature" too.  Prints one
+line a kernel, with the SHA-256 of its instructions in OLD and in NEW,
+and, last, one JSON line {"same": [...], "differ": [...], "new": [...],
+"signature": [...], "sha256": {kernel: [old, new]}}; exits 1 if a kernel
+of OLD is missing from NEW or its instructions differ.  So a change
 that adds kernels beside the old ones shows that it left them as they
 were:
 
@@ -36,11 +38,23 @@ sys.path.insert(0, HERE)
 
 from top_down_renderer_torch import kernels  # noqa: E402
 
-SOURCES = ("crop_score", "crop_score_init", "crop_ablate")
+SOURCES = ("crop_score", "crop_score_init", "crop_ablate",
+           "crop_ablate_init")
 _ADDR = re.compile(r"/\*[0-9a-f]{4,}\*/")
 _ENC = re.compile(r"/\* 0x[0-9a-f]+ \*/")
 # the anonymous namespace's per-build hash in a mangled name
 _ANON = re.compile(r"_GLOBAL__N__[0-9a-f]{8}_")
+# a kernel template's mangled name up to the end of its template arguments
+# (literals only: ILi4ELb0EE), before its return type and parameters
+_TEMPLATE = re.compile(r"^(.*?I(?:L[a-z]+n?\d+E)+EE)v")
+
+
+def kernel_key(name: str) -> str:
+    """The name a kernel is compared under: a template instantiation's
+    name and template arguments, without its parameters; any other
+    kernel's whole mangled name."""
+    hit = _TEMPLATE.match(name)
+    return hit.group(1) if hit else name
 
 
 def sass_by_kernel(lib: str) -> dict:
@@ -85,7 +99,8 @@ def main() -> int:
     ap.add_argument("new", nargs="?", default=HERE)
     args = ap.parse_args()
     roots = (os.path.abspath(args.old), os.path.abspath(args.new))
-    result = {"same": [], "differ": [], "new": [], "sha256": {}}
+    result = {"same": [], "differ": [], "new": [], "signature": [],
+              "sha256": {}}
     with tempfile.TemporaryDirectory() as tmp:
         dirs = [os.path.join(tmp, side) for side in ("old", "new")]
         for d in dirs:
@@ -95,6 +110,12 @@ def main() -> int:
             libs = list(pool.map(lambda j: build(*j), jobs))
         for i, name in enumerate(SOURCES):
             old, new = (sass_by_kernel(x) for x in libs[2 * i:2 * i + 2])
+            keys = {kernel_key(fn): fn for fn in new}
+            result["signature"] += sorted(
+                fn for fn in old
+                if fn not in new and kernel_key(fn) in keys)
+            new = {kernel_key(fn): body for fn, body in new.items()}
+            old = {kernel_key(fn): body for fn, body in old.items()}
             for fn, body in sorted(old.items()):
                 same = new.get(fn) == body
                 result["same" if same else "differ"].append(fn)

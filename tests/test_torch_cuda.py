@@ -1427,17 +1427,32 @@ def _check_tracked_lokf(got, ref, n):
                                   (np_(ref[2]) < 0.5)[clear])
 
 
-def _check_init_lokf(got, ref, raw, rraw, num_rot):
+def _near_ties(k, rk, rraw, rel=1e-4):
+    """Every row whose argmin k differs from the plain version's rk is a
+    near tie of the plain rows (nums, dens): the plain cost at k within
+    rel of the plain cost at rk."""
+    bad = np.flatnonzero(np_(k) != np_(rk))
+    cost = np_(rraw[0]).astype(np.float64) / np_(rraw[1]).astype(np.float64)
+    at_k, at_rk = cost[bad, np_(k)[bad]], cost[bad, np_(rk)[bad]]
+    assert np.all(np.abs(at_k - at_rk) <= rel * np.abs(at_rk)), (
+        bad, at_k, at_rk)
+
+
+def _check_init_lokf(got, ref, raw, rraw, num_rot, near_ties=False):
     """The single-plane theta search's argmin and raw rows against their
     plain versions: kf within 1e-6, the FLT_MAX pattern off the gate, best
-    costs and raw rows within rel 1e-4, the argmin on 99 %."""
+    costs and raw rows within rel 1e-4, the argmin on 99 % (near_ties:
+    every row whose argmin differs a near tie of the plain rows)."""
     (best, k, kf), (rbest, rk, rkf) = got, ref
     clear = _lokf_ok(rkf)
     assert np.abs(np_(kf) - np_(rkf)).max(initial=0.0) <= 1e-6
     assert np.abs(np_(raw[2]) - np_(rraw[2])).max(initial=0.0) <= 1e-6
     np.testing.assert_array_equal((np_(best) == cs.FLT_MAX)[clear],
                                   (np_(rbest) == cs.FLT_MAX)[clear])
-    assert np.mean(np_(k) == np_(rk)) >= 0.99
+    if near_ties:
+        _near_ties(k, rk, rraw)
+    else:
+        assert np.mean(np_(k) == np_(rk)) >= 0.99
     fin = (np_(rbest) < cs.FLT_MAX) & (np_(best) < cs.FLT_MAX)
     assert_rel(np_(rbest)[fin], np_(best)[fin], 1e-4, "best cost")
     ok = (np_(rraw[2]) >= 0.5) & clear
@@ -1618,3 +1633,143 @@ def test_lokf_crop_step_on_card_matches_cpu(dev, mode, int4):
         [gpu.particles.init_px, gpu.particles.theta[:, None]], 1))
     assert np.mean(np.all(rows_c == rows_g, axis=1)) >= 0.99
     assert_rel(np_(cpu.ml_state), np_(gpu.ml_state), 1e-5, "ml_state")
+
+
+# -- the theta searches' window route (crop_init_i4_kernel, and
+# crop_init_lokf_kernel on the float map) -----------------------------------
+def _init_cloud(centers, cloud, seed):
+    """The centres of a window-route case: `spread` as _world gives them,
+    `clustered` all but the first 7 (edges and far out) in a 24 px square
+    at (100, 100), `edge` all but the first 7 within 4 px of the map's
+    sides, inside and past them (rows whose window crosses the level's
+    edge)."""
+    rng = np.random.default_rng(seed)
+    n = len(centers) - 7
+    if n <= 0 or cloud == "spread":
+        return centers
+    if cloud == "clustered":
+        pts = rng.uniform(88, 112, (n, 2))
+    else:
+        side = rng.integers(0, 4, n)
+        along = rng.uniform(0, W, n)
+        depth = rng.uniform(-4, 4, n)
+        pts = np.stack([np.where(side < 2, along, np.where(side == 2, depth,
+                                                            W - 1 + depth)),
+                        np.where(side >= 2, along, np.where(side == 0, depth,
+                                                             H - 1 + depth))],
+                       -1)
+    centers[7:] = torch.as_tensor(pts.astype(np.float32),
+                                  device=centers.device)
+    return centers
+
+
+def _window_maps(kind):
+    """The CropMap arguments of a window-route kind: the code map with the
+    hi/lo M ("i4") or the float map with the single-plane M ("lokf")."""
+    return {"int4": kind == "i4", "m_hilo": kind == "i4"}
+
+
+def _init_sha(outs) -> str:
+    """One SHA-256 of the argmin and raw rows a theta search wrote."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for part in outs:
+        for t in part:
+            h.update(np_(t.float().contiguous()).tobytes())
+    return h.hexdigest()
+
+
+def _check_window_init(kind, got, ref, num_rot=40):
+    """A window-route theta search's argmin and raw rows against their plain
+    versions, within the bounds each kind has always been held to, every
+    row whose argmin differs a near tie of the plain rows (_near_ties: a
+    clustered cloud's rows share their near ties)."""
+    if kind == "lokf":
+        _check_init_lokf(got[0], ref[0], got[1], ref[1], num_rot,
+                         near_ties=True)
+        return
+    (best, k, kf), (rbest, rk, rkf) = got[0], ref[0]
+    np.testing.assert_array_equal(np_(kf), np_(rkf))
+    np.testing.assert_array_equal(np_(best) == cs.FLT_MAX,
+                                  np_(rbest) == cs.FLT_MAX)
+    _near_ties(k, rk, ref[1])
+    fin = np_(rbest) < cs.FLT_MAX
+    assert_rel(np_(rbest)[fin], np_(best)[fin], 1e-4, "best cost")
+    _check_raw(got[1], ref[1], got[0], num_rot, far=[
+        i for i in (5, 6) if i < len(kf)])
+
+
+def _in_particle_order(inputs):
+    """init_inputs' with the rows in the particles' order within each
+    bucket (multiscale.bucket_rows, the other theta searches' order) in
+    place of init_order's: other warps, other votes, the same rows."""
+    perm, row_start = inputs[9], inputs[10]
+    row = torch.arange(perm.shape[0], device=perm.device)
+    bucket = torch.empty_like(perm)
+    bucket[perm.long()] = (torch.searchsorted(row_start, row, right=True)
+                           - 1).to(torch.int32)
+    return (inputs[:9] + ms.bucket_rows(bucket, row_start.shape[0] - 1)
+            + inputs[11:])
+
+
+def _both_orders(base, inputs):
+    """A window-route theta search's argmin and raw rows on inputs (in
+    init_order) and on the same inputs in the particles' order."""
+    other = _in_particle_order(inputs)
+    return ((cs.launch_init(base, inputs), cs.launch_init(base, inputs, True)),
+            (cs.launch_init(base, other), cs.launch_init(base, other, True)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["i4", "lokf"])
+@pytest.mark.parametrize("cloud", ["spread", "clustered", "edge"])
+@pytest.mark.parametrize("c,f,n", [
+    (3, 1.0, N), (6, 1.0, N), (3, 1.5, N), (6, 1.5, 193), (3, 1.0, 102_400),
+])
+def test_init_window_route_equals_particle_order(dev, kind, cloud, c, f, n):
+    """The uniform theta search on the window route (rows by position, an
+    unchecked gather for each warp whose rows lie in their level), argmin
+    and raw rows: the same bits with the rows in the particles' order, and
+    within the plain version's bounds."""
+    packed, sten, scan, cw, centers, _ = _world(dev, c, 31, n)
+    centers = _init_cloud(centers, cloud, 31)
+    maps = cs.CropMap(packed, **_window_maps(kind))
+    args = (maps, c, sten, scan, cw, centers, f)
+    name = "crop_score_init" + ("_i4" if kind == "i4" else "_lokf")
+    before = dict(kernels.LAUNCHES)
+    got, ordered = _both_orders("crop_score_init", cs.init_inputs(*args))
+    plain = (maps.plain(c).packed, *args[1:])
+    ref = (cs.score_init_sel_plain(*plain, **maps.plain_m()),
+           cs.score_init_raw_plain(*plain, **maps.plain_m()))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] - before[name] == 2
+    raw = name.replace("init", "init_raw")
+    assert kernels.LAUNCHES[raw] - before[raw] == 2
+    assert _init_sha(got) == _init_sha(ordered)
+    _check_window_init(kind, got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["i4", "lokf"])
+@pytest.mark.parametrize("cloud", ["spread", "clustered", "edge"])
+@pytest.mark.parametrize("c,k,n", [(3, 10, N), (6, 2, N), (3, 10, 102_400)])
+def test_multi_init_window_route_equals_particle_order(dev, kind, cloud, c,
+                                                       k, n):
+    """The K-bucket theta search on the window route, argmin and raw rows:
+    the same bits with each bucket's rows in the particles' order, within
+    the plain version's bounds."""
+    args, _, tail = _multi_world(dev, c, k, 32, n, **_window_maps(kind))
+    args = (*args[:5], _init_cloud(args[5], cloud, 32))
+    pyr = args[0]
+    before = dict(kernels.LAUNCHES)
+    got, ordered = _both_orders("crop_score_multi_init",
+                                ms.init_inputs(*args, *tail))
+    plain = (pyr.plain(c),) + args[1:]
+    ref = (ms.score_init_multi_sel_plain(*plain, *tail, **pyr.plain_m()),
+           ms.score_init_multi_raw_plain(*plain, *tail, **pyr.plain_m()))
+    torch.cuda.synchronize()
+    name = "crop_score_multi_init" + ("_i4" if kind == "i4" else "_lokf")
+    assert kernels.LAUNCHES[name] - before[name] == 2
+    assert _init_sha(got) == _init_sha(ordered)
+    _check_window_init(kind, got, ref)

@@ -10,8 +10,10 @@ Times the kernel of the checkout at ROOT:
            cell: the spread cloud below over the 10 scale hypotheses' K
            buckets at res 0.5, with a theta each;
   init     a spread cloud of 102,400 particles over the 1024^2 3-class
-           map, and the same cloud over the 10 scale hypotheses' K buckets
-           at res 0.5;
+           map, the same cloud over the 10 scale hypotheses' K buckets
+           at res 0.5, a cloud clustered to 100 px (as the tracked
+           cell's) and the spread cloud on a 6-class map (C = 6, 8
+           channels a pixel);
   fold     the offset tables of those two: the stencil's at f = 1 (K =
            1, Th*R = 2,500) and the K = 12 buckets'; beside them the
            fold's floor, a one-element fill under the same profiler;
@@ -47,7 +49,8 @@ without --lokf) of a checkout that stages windows of codes
 gather from L2, whose result must equal the staged call's bit for bit
 (its SHA-256 printed beside it), and each cell gives the share of its
 windows, and of their rows, that the plain rule stages
-(crop_score.launch_windows):
+(crop_score.launch_windows).  Each cell also gives its wrapper's host
+time (median of 20 synchronised calls, chip_smoke.median_ms):
 
     python tests/time_torch_tracked.py [--kernel tracked|init|fold] [--int4] [--lokf] [--slabs N] [--one-block] [ROOT]
 """
@@ -139,6 +142,7 @@ N = 102_400
 ROUNDS = 5
 SUFFIX = "_i4" if ARGS.int4 else ""
 CW = np.asarray([0.1, 1.5, 3.0], np.float32)
+CW6 = np.asarray([0.1, 1.5, 3.0, 0.7, 1.1, 2.0], np.float32)
 
 
 def crop_map(packed):
@@ -221,6 +225,9 @@ def tracked_cells(dev):
 
 
 def init_cells(dev):
+    """{label: (the theta search's wrapper call, its profiler symbols)}:
+    the spread cell (chip_smoke D), the K-bucket one (D2), a cloud
+    clustered to 100 px and the spread cloud on a 6-class map."""
     d = synthetic_setup(N, h=1024, w=1024, c=3)
     t = [torch.as_tensor(v, device=dev) for v in (
         d["packed"], d["stencil"], d["scan"], CW,
@@ -230,11 +237,25 @@ def init_cells(dev):
     multi = (pyramid(t[0], levels), 3, *t[1:],
              torch.as_tensor(np.resize(hyp, N), device=dev),
              torch.as_tensor(slots, device=dev), bmi, 0.5)
-    names = symbols("init", 4, raw=False)
-    return {
-        "uniform": (lambda: cs.score_init_sel(maps, 3, *t[1:], 1.0), names),
-        "buckets": (lambda: ms.score_init_multi_sel(*multi), names),
+    clustered = torch.as_tensor(synthetic_setup(
+        N, h=1024, w=1024, c=3, cluster=(462, 462, 100))["state"][
+            "particles"]["init_px"], device=dev)
+    d6 = synthetic_setup(N, h=1024, w=1024, c=6)
+    t6 = [torch.as_tensor(v, device=dev) for v in (
+        d6["packed"], d6["stencil"], d6["scan"], CW6,
+        d6["state"]["particles"]["init_px"])]
+    maps6 = crop_map(t6[0])
+    uniform = (maps, 3, *t[1:], 1.0)
+    cells = {
+        "uniform": (uniform, cs.score_init_sel, 4),
+        "buckets": (multi, ms.score_init_multi_sel, 4),
+        "clustered": ((maps, 3, *t[1:4], clustered, 1.0), cs.score_init_sel,
+                      4),
+        "c6": ((maps6, 6, *t6[1:], 1.0), cs.score_init_sel, 8),
     }
+    return {label: ((lambda fn=fn, args=args: fn(*args)),
+                    symbols("init", cp, raw=False))
+            for label, (args, fn, cp) in cells.items()}
 
 
 def fold_cells(dev):
@@ -313,6 +334,7 @@ def main() -> int:
         result[label] = {
             "kernel_ms": times, "median_ms": float(np.median(times)),
             "sha256": hashlib.sha256(first.numpy().tobytes()).hexdigest(),
+            "wrapper_ms": smoke.median_ms(run),
         }
         if both:
             result[label].update(with_pass_ms=with_pass,

@@ -76,6 +76,23 @@ struct Chunk {
 template <int CP, int NP = 2>
 constexpr int kRingBytes = kStages * Chunk<CP, NP>::kBytes;
 
+// -- the window route (WIN: crop_init_lokf_kernel on the float map,
+// crop_init_i4_kernel) ------------------------------------------------------
+// A block scores 192 rows of one bucket, which the wrapper orders by the
+// position of their centres (crop_score.init_order), so that a warp's rows
+// lie close together and their loads hit L1; every row reads the same pixel
+// offsets around its own centre.  A warp whose rows' windows all lie in
+// their level (each centre plus the bucket's extent, the least and greatest
+// dy, dx of its distinct pixels, crop_score.fold_extent; a vote of its
+// lanes, so that no branch of the gather splits a warp and the loop keeps
+// its wgmma descriptors in uniform registers) reads each pixel at its row's
+// base in the level plus the pixel's offset, computed once a chunk at the
+// level's row bytes and shared by the thread's two rows, with no bounds
+// check.  The other warps, and every bucket's last chunk (its padding
+// pixels lie outside every map), keep the checked gather, zeros outside the
+// level.  The values loaded, and so every product, are those of the checked
+// gather.
+
 // wgmma descriptor of a K-major bf16 operand without swizzle: start address,
 // leading (K) and stride (N) byte offsets between 8 x 16-byte core matrices.
 __device__ __forceinline__ uint64_t desc(uint32_t addr) {
@@ -200,7 +217,11 @@ __device__ __forceinline__ uint32_t code_pair_bf16(uint32_t byte) {
 // row multipliers M's integers were rounded under) before its bf16 split,
 // so that B holds the bare integers: A_hi B + A_lo B, two products a k16
 // step; on the codes, exact themselves, A B, one.  kq is not read.
-template <int CP, bool RAW, int V, bool I4 = false, bool ONE = false>
+//
+// WIN: the window route (above), ext (K) each bucket's extent (dy min,
+// dy max, dx min, dx max).
+template <int CP, bool RAW, int V, bool I4 = false, bool ONE = false,
+          bool WIN = false>
 __device__ __forceinline__ void init_body(
     const std::conditional_t<I4, unsigned char, float>* __restrict__ map,
     const int4* __restrict__ table, int H, int W,
@@ -210,9 +231,12 @@ __device__ __forceinline__ void init_body(
     const int2* __restrict__ centers,  // (N) cy, cx
     int S, float inv_tr, float* __restrict__ out, float kq = 1.f,
     const float* __restrict__ scales = nullptr,
-    const float* __restrict__ qinv = nullptr) {
+    const float* __restrict__ qinv = nullptr,
+    const int4* __restrict__ ext = nullptr) {
   static_assert(!I4 || V == kFull, "only the whole body reads codes");
   static_assert(!ONE || V == kFull, "only the whole body takes one plane");
+  static_assert(!WIN || V == kFull,
+                "only the whole body takes the window route");
   constexpr bool kGather = V != kNoGather && V != kRingOnly;
   constexpr bool kProduct = V != kGatherOnly && V != kRingOnly;
   constexpr bool kPromote = V != kNoPromote;
@@ -267,6 +291,28 @@ __device__ __forceinline__ void init_body(
     }
   }
 
+  // WIN: whether every row of this warp lies in its level with its whole
+  // window (a vote), the level's row bytes, and the thread's rows' bases
+  [[maybe_unused]] bool inside = false;
+  [[maybe_unused]] int rb = 0;
+  [[maybe_unused]] const unsigned char* gb[2] = {nullptr, nullptr};
+  if constexpr (WIN) {
+    constexpr int E = I4 ? CP / 2 : CP * 4;  // bytes a pixel
+    const int4 e = ext[b];
+    const unsigned char* level =
+        reinterpret_cast<const unsigned char*>(map) + (size_t)lv.x * E;
+    rb = lv.z * E;
+    inside = true;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const bool in = cy[h] + e.x >= 0 && cy[h] + e.y < lv.y &&
+                      cx[h] + e.z >= 0 && cx[h] + e.w < lv.z;
+      inside = inside && in;
+      if (in) gb[h] = level + ((long long)cy[h] * lv.z + cx[h]) * E;
+    }
+    inside = __all_sync(0xffffffffu, inside);
+  }
+
   // window values of one chunk: [k16 step][column half][row half]; column
   // half 0 holds fragment columns 2t, 2t + 1, half 1 those + 8
   float2 av[2][2][2];
@@ -282,9 +328,45 @@ __device__ __forceinline__ void init_body(
     rq = make_float2(__frcp_rn(__ldg(qinv + ch)),
                      __frcp_rn(__ldg(qinv + ch + 1)));
   }
-  auto load_a = [&](int s) {
+  // WIN: the gather of two inside rows, no bounds check: each pixel's
+  // offset at the level's row bytes once a chunk, then a load a row
+  [[maybe_unused]] auto gather_inside = [&](const int2* pix) {
+    if constexpr (I4) {
+      constexpr int kNb = Codes<CP>::kNb, kLoads = Codes<CP>::kLoads;
+#pragma unroll
+      for (int l = 0; l < kLoads; ++l) {
+        const int2 o = pix[t * kLoads + l];
+        const int off = o.x * rb + o.y * kNb;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          words[h][l] = load_code_word<kNb>(gb[h] + off);
+      }
+    } else {
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int k = ks * 16 + hf * 8 + 2 * t;  // K row within the chunk
+          const int2 o = pix[k / CP];
+          const int off = o.x * rb + (o.y * CP + k % CP) * 4;
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            av[ks][hf][h] =
+                __ldg(reinterpret_cast<const float2*>(gb[h] + off));
+        }
+      }
+    }
+  };
+  // the window values of chunk kc, on stage s
+  auto load_a = [&](int s, [[maybe_unused]] int kc = 0) {
     const int2* pix =
         reinterpret_cast<const int2*>(smem + s * Ch::kBytes + Ch::kPixOff);
+    if constexpr (WIN) {  // every pixel real but in the bucket's last chunk
+      if (inside && kc + 1 < nchunks) {
+        gather_inside(pix);
+        return;
+      }
+    }
     if constexpr (I4) {
       constexpr int kNb = Codes<CP>::kNb, kLoads = Codes<CP>::kLoads;
 #pragma unroll
@@ -432,7 +514,7 @@ __device__ __forceinline__ void init_body(
     if (kc + 1 < nchunks) {  // the next chunk's window, while the MMAs run
       const int s1 = (kc + 1) % kStages;
       mbar_wait(&full[s1], ((kc + 1) / kStages) & 1);
-      if constexpr (kGather) load_a(s1);
+      if constexpr (kGather) load_a(s1, kc + 1);
     }
     if constexpr (kProduct) {
       wg_wait_all();
@@ -559,7 +641,8 @@ __device__ __forceinline__ void init_body(
 // particles in K buckets with `smem` bytes of dynamic shared memory (at
 // least kRingBytes<CP>), opting in to them once per device (*ready_dev: the
 // device it was set for).  `extra` follows `out` in the kernel's arguments
-// (the code map's known code kq).
+// (the code map's known code kq, the single plane's scales and qinv, the
+// window route's extents).
 template <typename Kernel, typename Map, typename... Extra>
 cudaError_t launch_tiles(Kernel kern, int* ready_dev, int smem,
                          const Map* map, const int* table, int H, int W,

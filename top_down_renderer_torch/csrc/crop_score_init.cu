@@ -101,6 +101,24 @@
 // The hi/lo instantiations compile to the SASS they had before (the switch
 // is a template argument, off by default).
 //
+// The window route (crop_init_i4_kernel, and crop_init_lokf_kernel on the
+// float map; csrc/crop_init.cuh).  The gather, not the products, sets these
+// kernels' pace, and within it the instructions around each load (a bounds
+// check and a 64-bit address a pair), not L2's bytes: fewer bytes a load did
+// not help (the code map), nor did one B plane less (the single plane).  So
+// the wrapper orders each bucket's rows by the Morton code of their
+// centres' tiles (crop_score.init_order: one device sort), so that a
+// warp's 16 rows lie close together and their loads hit L1, and a warp
+// whose rows' windows all lie in their level (a vote, on ext: each bucket's
+// extent, crop_score.fold_extent) gathers without a bounds check, each
+// row's base once and each pixel's offset once a chunk, shared by the
+// thread's two rows.  Each row's product and argmin are its own, so no bit
+// of the output changes.  A box of each block's rows staged in shared
+// memory by bulk copies measured slower than this gather from L2 through
+// L1, and an mbarrier a ring stage slower than the block barrier (PERF.md
+// §6).  The other theta searches (crop_init_kernel, crop_init_lokf_kernel
+// on the codes, the ablation) keep their SASS and their row order.
+//
 // The body (crop_init_kernel's stages, its constants and helpers) lives in
 // csrc/crop_init.cuh, shared with the ablation (csrc/crop_ablate_init.cu);
 // its mbarrier waits trap after about ten seconds (csrc/tma.cuh), so a
@@ -125,7 +143,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                             centers, S, inv_tr, out);
 }
 
-// The same body on the code map (pixels, CP/2), kq the known code.
+// The same body on the code map (pixels, CP/2), kq the known code, on the
+// window route: the rows in position order, ext (K) the buckets' extents.
 template <int CP, bool RAW>
 __global__ void __launch_bounds__(kThreads, 1)
     crop_init_i4_kernel(const unsigned char* __restrict__ codes,
@@ -134,14 +153,17 @@ __global__ void __launch_bounds__(kThreads, 1)
                         const int* __restrict__ sched, int K, int chunk_cap,
                         const int* __restrict__ perm,
                         const int2* __restrict__ centers, int S, float inv_tr,
-                        float* __restrict__ out, float kq) {
-  init_body<CP, RAW, kFull, true>(codes, table, H, W, m, sched, K, chunk_cap,
-                                  perm, centers, S, inv_tr, out, kq);
+                        float* __restrict__ out, float kq,
+                        const int4* __restrict__ ext) {
+  init_body<CP, RAW, kFull, true, false, true>(
+      codes, table, H, W, m, sched, K, chunk_cap, perm, centers, S, inv_tr,
+      out, kq, nullptr, nullptr, ext);
 }
 
 // The single-plane M's body on the float map (qinv: its int8 quantization's
-// row multipliers) or, with I4, on the code map (qinv not read); scales
-// (K, 88) the columns' scales.
+// row multipliers) on the window route (ext, as crop_init_i4_kernel's) or,
+// with I4, on the code map (qinv and ext not read, the rows in bucket
+// order); scales (K, 88) the columns' scales.
 template <int CP, bool RAW, bool I4>
 __global__ void __launch_bounds__(kThreads, 1)
     crop_init_lokf_kernel(
@@ -151,33 +173,37 @@ __global__ void __launch_bounds__(kThreads, 1)
         int K, int chunk_cap, const int* __restrict__ perm,
         const int2* __restrict__ centers, int S, float inv_tr,
         float* __restrict__ out, const float* __restrict__ scales,
-        const float* __restrict__ qinv) {
-  init_body<CP, RAW, kFull, I4, true>(map, table, H, W, m, sched, K,
-                                      chunk_cap, perm, centers, S, inv_tr,
-                                      out, 1.f, scales, qinv);
+        const float* __restrict__ qinv, const int4* __restrict__ ext) {
+  init_body<CP, RAW, kFull, I4, true, !I4>(map, table, H, W, m, sched, K,
+                                           chunk_cap, perm, centers, S,
+                                           inv_tr, out, 1.f, scales, qinv,
+                                           ext);
 }
 
 // Launch the theta search on the float map or, with I4, on the code map
-// (kq: its known code); with ONE the single-plane M's (scales, qinv).
+// (kq: its known code); with ONE the single-plane M's (scales, qinv).  The
+// code map's hi/lo kernel and the float map's single-plane kernel take the
+// window route (ext).
 template <int CP, bool RAW, bool I4, bool ONE = false>
 cudaError_t launch(const void* map, float kq, const int* table,
                    int H, int W, int K, const void* m, const int* sched,
                    int chunk_cap, const int* perm, const int* centers, int N,
                    int S, float inv_tr, float* out, cudaStream_t stream,
                    const float* scales = nullptr,
-                   const float* qinv = nullptr) {
+                   const float* qinv = nullptr, const int* ext = nullptr) {
   static int ready_dev = -1;  // the smem opt-in is set once per device
   using Map = std::conditional_t<I4, unsigned char, float>;
+  const auto* ext4 = reinterpret_cast<const int4*>(ext);
   if constexpr (ONE)
     return launch_tiles(crop_init_lokf_kernel<CP, RAW, I4>, &ready_dev,
                         kRingBytes<CP, 1>, static_cast<const Map*>(map),
                         table, H, W, K, m, sched, chunk_cap, perm, centers, N,
-                        S, inv_tr, out, stream, scales, qinv);
+                        S, inv_tr, out, stream, scales, qinv, ext4);
   else if constexpr (I4)
     return launch_tiles(crop_init_i4_kernel<CP, RAW>, &ready_dev,
                         kRingBytes<CP>, static_cast<const unsigned char*>(map),
                         table, H, W, K, m, sched, chunk_cap, perm, centers, N,
-                        S, inv_tr, out, stream, kq);
+                        S, inv_tr, out, stream, kq, ext4);
   else
     return launch_tiles(crop_init_kernel<CP, RAW>, &ready_dev, kRingBytes<CP>,
                         static_cast<const float*>(map), table, H, W, K, m,
@@ -191,22 +217,25 @@ int by_channels(int CP, const void* map, const int* table, int H, int W,
                 const int* perm, const int* centers, int N, int S,
                 float inv_tr, float* out, void* stream,
                 float kq = 1.f, const float* scales = nullptr,
-                const float* qinv = nullptr) {
+                const float* qinv = nullptr, const int* ext = nullptr) {
   if (!valid_search(S, K)) return (int)cudaErrorInvalidValue;
   const auto st = static_cast<cudaStream_t>(stream);
   switch (CP) {
     case 2:
       return (int)launch<2, RAW, I4, ONE>(map, kq, table, H, W, K, m, sched,
                                           chunk_cap, perm, centers, N, S,
-                                          inv_tr, out, st, scales, qinv);
+                                          inv_tr, out, st, scales, qinv,
+                                          ext);
     case 4:
       return (int)launch<4, RAW, I4, ONE>(map, kq, table, H, W, K, m, sched,
                                           chunk_cap, perm, centers, N, S,
-                                          inv_tr, out, st, scales, qinv);
+                                          inv_tr, out, st, scales, qinv,
+                                          ext);
     case 8:
       return (int)launch<8, RAW, I4, ONE>(map, kq, table, H, W, K, m, sched,
                                           chunk_cap, perm, centers, N, S,
-                                          inv_tr, out, st, scales, qinv);
+                                          inv_tr, out, st, scales, qinv,
+                                          ext);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -264,95 +293,106 @@ extern "C" int tdr_crop_score_multi_init_raw(const float* pyramid,
 // The nibble-packed map: codes (pixels, CP/2) uint8 and kq, the known
 // channel's code (15 or 7), in place of the compact map; m, sched and
 // chunk_cap the code layout's records (crop_score.init_records with qinv);
+// perm (N) the particles in position order (crop_score.init_order; the
+// uniform entries take it too); after out ext (K, 4) int32 each bucket's
+// extent (crop_score.fold_extent);
 // everything else as the float entry points.
 extern "C" int tdr_crop_score_init_i4(const unsigned char* codes, float kq,
                                       int H, int W, int CP, const void* m,
                                       const int* sched, int chunk_cap,
-                                      const int* centers, int N, int S,
-                                      float inv_tr, float* out,
-                                      void* stream) {
+                                      const int* perm, const int* centers,
+                                      int N, int S, float inv_tr, float* out,
+                                      const int* ext, void* stream) {
+  if (!perm || !ext) return (int)cudaErrorInvalidValue;
   return by_channels<false, true>(CP, codes, nullptr, H, W, 1, m, sched,
-                                  chunk_cap, nullptr, centers, N, S, inv_tr,
-                                  out, stream, kq);
+                                  chunk_cap, perm, centers, N, S, inv_tr,
+                                  out, stream, kq, nullptr, nullptr, ext);
 }
 
-extern "C" int tdr_crop_score_init_raw_i4(const unsigned char* codes,
-                                          float kq, int H, int W, int CP,
-                                          const void* m, const int* sched,
-                                          int chunk_cap, const int* centers,
-                                          int N, int S, float inv_tr,
-                                          float* out, void* stream) {
+extern "C" int tdr_crop_score_init_raw_i4(
+    const unsigned char* codes, float kq, int H, int W, int CP, const void* m,
+    const int* sched, int chunk_cap, const int* perm, const int* centers,
+    int N, int S, float inv_tr, float* out, const int* ext, void* stream) {
+  if (!perm || !ext) return (int)cudaErrorInvalidValue;
   return by_channels<true, true>(CP, codes, nullptr, H, W, 1, m, sched,
-                                 chunk_cap, nullptr, centers, N, S, inv_tr,
-                                 out, stream, kq);
+                                 chunk_cap, perm, centers, N, S, inv_tr, out,
+                                 stream, kq, nullptr, nullptr, ext);
 }
 
 extern "C" int tdr_crop_score_multi_init_i4(
     const unsigned char* codes, float kq, const int* table, int K, int CP,
     const void* m, const int* sched, int chunk_cap, const int* perm,
     const int* centers, int N, int S, float inv_tr, float* out,
-    void* stream) {
+    const int* ext, void* stream) {
+  if (!perm || !ext) return (int)cudaErrorInvalidValue;
   return by_channels<false, true>(CP, codes, table, 0, 0, K, m, sched,
                                   chunk_cap, perm, centers, N, S, inv_tr, out,
-                                  stream, kq);
+                                  stream, kq, nullptr, nullptr, ext);
 }
 
 extern "C" int tdr_crop_score_multi_init_raw_i4(
     const unsigned char* codes, float kq, const int* table, int K, int CP,
     const void* m, const int* sched, int chunk_cap, const int* perm,
     const int* centers, int N, int S, float inv_tr, float* out,
-    void* stream) {
+    const int* ext, void* stream) {
+  if (!perm || !ext) return (int)cudaErrorInvalidValue;
   return by_channels<true, true>(CP, codes, table, 0, 0, K, m, sched,
                                  chunk_cap, perm, centers, N, S, inv_tr, out,
-                                 stream, kq);
+                                 stream, kq, nullptr, nullptr, ext);
 }
 
 // The single-plane M (TDR_M_HILO=0): the float entry points with qinv (8,
 // the int8 map quantization's) after the map and the columns' scales (K, 88)
 // after the records m (crop_score.init_records with m_hilo=False: one plane
-// a record); the code entry points the same without qinv.
-extern "C" int tdr_crop_score_init_lokf(const float* map, const float* qinv,
-                                        int H, int W, int CP, const void* m,
-                                        const float* scales, const int* sched,
-                                        int chunk_cap, const int* centers,
-                                        int N, int S, float inv_tr, float* out,
-                                        void* stream) {
+// a record); on the float map perm and ext as the code map's hi/lo entry
+// points.  The code entry points take neither: their rows keep the bucket
+// order (the uniform ones none).
+extern "C" int tdr_crop_score_init_lokf(
+    const float* map, const float* qinv, int H, int W, int CP, const void* m,
+    const float* scales, const int* sched, int chunk_cap, const int* perm,
+    const int* centers, int N, int S, float inv_tr, float* out,
+    const int* ext, void* stream) {
+  if (!perm || !ext) return (int)cudaErrorInvalidValue;
   return by_channels<false, false, true>(CP, map, nullptr, H, W, 1, m, sched,
-                                         chunk_cap, nullptr, centers, N, S,
+                                         chunk_cap, perm, centers, N, S,
                                          inv_tr, out, stream, 1.f, scales,
-                                         qinv);
+                                         qinv, ext);
 }
 
 extern "C" int tdr_crop_score_init_raw_lokf(
     const float* map, const float* qinv, int H, int W, int CP, const void* m,
-    const float* scales, const int* sched, int chunk_cap, const int* centers,
-    int N, int S, float inv_tr, float* out, void* stream) {
+    const float* scales, const int* sched, int chunk_cap, const int* perm,
+    const int* centers, int N, int S, float inv_tr, float* out,
+    const int* ext, void* stream) {
+  if (!perm || !ext) return (int)cudaErrorInvalidValue;
   return by_channels<true, false, true>(CP, map, nullptr, H, W, 1, m, sched,
-                                        chunk_cap, nullptr, centers, N, S,
+                                        chunk_cap, perm, centers, N, S,
                                         inv_tr, out, stream, 1.f, scales,
-                                        qinv);
+                                        qinv, ext);
 }
 
 extern "C" int tdr_crop_score_multi_init_lokf(
     const float* pyramid, const float* qinv, const int* table, int K, int CP,
     const void* m, const float* scales, const int* sched, int chunk_cap,
     const int* perm, const int* centers, int N, int S, float inv_tr,
-    float* out, void* stream) {
+    float* out, const int* ext, void* stream) {
+  if (!perm || !ext) return (int)cudaErrorInvalidValue;
   return by_channels<false, false, true>(CP, pyramid, table, 0, 0, K, m,
                                          sched, chunk_cap, perm, centers, N,
                                          S, inv_tr, out, stream, 1.f, scales,
-                                         qinv);
+                                         qinv, ext);
 }
 
 extern "C" int tdr_crop_score_multi_init_raw_lokf(
     const float* pyramid, const float* qinv, const int* table, int K, int CP,
     const void* m, const float* scales, const int* sched, int chunk_cap,
     const int* perm, const int* centers, int N, int S, float inv_tr,
-    float* out, void* stream) {
+    float* out, const int* ext, void* stream) {
+  if (!perm || !ext) return (int)cudaErrorInvalidValue;
   return by_channels<true, false, true>(CP, pyramid, table, 0, 0, K, m,
                                         sched, chunk_cap, perm, centers, N, S,
                                         inv_tr, out, stream, 1.f, scales,
-                                        qinv);
+                                        qinv, ext);
 }
 
 extern "C" int tdr_crop_score_init_i4_lokf(const unsigned char* codes, int H,

@@ -92,6 +92,10 @@ kernel (with the hi/lo M) takes its rows in tracked_order, each shift
 group's by the position of their centres, and each block stages its
 window of codes in shared memory where it fits (WINDOW_BUDGET,
 tracked_window_cap); tracked_windows is the rule in plain PyTorch.
+The theta search on the code map with the hi/lo M (and on the float map
+with the single-plane M, below) takes its rows in init_order, each
+bucket's by the position of their centres, and a warp whose rows' windows
+all lie in their level (fold_extent) gathers without bounds checks.
 
 The single-plane M (TDR_M_HILO=0, the JAX package's pallas_score.m_hilo()
 off).  The JAX kernel contracts its int8 map against M quantized per
@@ -509,15 +513,15 @@ def _morton_tables(device):
     """((2 * 2^15,) int32, (2,) int32): each tile coordinate's bits spread
     to the odd bit positions (the row's) and to the even ones (the
     column's), back to back, and the offsets of the two tables; made once
-    a device."""
+    a device, on the device (no copy from the host, which would block)."""
     if device not in _MORTON:
-        v = np.arange(1 << _MORTON_BITS, dtype=np.int64)
-        spread = sum(((v >> i) & 1) << (2 * i) for i in range(_MORTON_BITS))
-        both = np.concatenate([spread << 1, spread]).astype(np.int32)
+        v = torch.arange(1 << _MORTON_BITS, dtype=torch.int32, device=device)
+        spread = torch.zeros_like(v)
+        for i in range(_MORTON_BITS):
+            spread |= ((v >> i) & 1) << (2 * i)
         _MORTON[device] = (
-            torch.as_tensor(both, device=device),
-            torch.tensor([0, 1 << _MORTON_BITS], dtype=torch.int32,
-                         device=device))
+            torch.cat([spread << 1, spread]),
+            torch.arange(2, dtype=torch.int32, device=device) << _MORTON_BITS)
     return _MORTON[device]
 
 
@@ -1404,6 +1408,59 @@ def init_schedule(row_start: torch.Tensor, nchunk: torch.Tensor):
     return torch.cat([row_start, tile_start, nchunk]).to(torch.int32)
 
 
+def init_window(maps) -> bool:
+    """Whether the theta search on maps (a CropMap or PyramidMaps) takes
+    the window route (csrc/crop_init.cuh): the code map with the hi/lo M
+    (crop_init_i4_kernel) and the float map with the single-plane M
+    (crop_init_lokf_kernel on the float map).  Its rows go in init_order
+    and its entries take the fold's extents (fold_extent) after out."""
+    return maps.int4 == maps.m_hilo
+
+
+def init_extent(pix: torch.Tensor, npix: torch.Tensor) -> torch.Tensor:
+    """(K, 4) int32: each bucket's extent, the least and greatest dy and
+    dx of its npix[b] distinct pixels pix[b] (fold_pixels'), as (dy min,
+    dy max, dx min, dx max).  Device ops of fixed size: no host read."""
+    big = 1 << 30
+    live = (torch.arange(pix.shape[1], device=pix.device)
+            < npix[:, None])[..., None]
+    lo = torch.where(live, pix, big).amin(1)
+    hi = torch.where(live, pix, -big).amax(1)
+    return torch.stack([lo[:, 0], hi[:, 0], lo[:, 1], hi[:, 1]],
+                       1).to(torch.int32).contiguous()
+
+
+_FOLD_EXTENT = [None, None]  # the last fold's pix, its init_extent
+
+
+def fold_extent(fold) -> torch.Tensor:
+    """init_extent of a fold (fold_pixels'), kept for the last fold: a
+    fold that CropMap.fold returns again gives its extents without a
+    launch."""
+    if _FOLD_EXTENT[0] is not fold[0]:
+        _FOLD_EXTENT[:] = fold[0], init_extent(*fold[:2])
+    return _FOLD_EXTENT[1]
+
+
+def init_order(bucket: torch.Tensor, ctr: torch.Tensor, k: int,
+               extent: int):
+    """The window-route theta search's rows: the particles in stable order
+    of their bucket (< k) and, within a bucket, of the Morton code of
+    their centre's tile on its level (tracked_order with the bucket as the
+    group; extent bounds the levels' sides), so that a warp's 16 rows lie
+    close together and their loads hit L1.  Returns (perm (N,) int32,
+    row_start (K + 1,) int64: bucket b's first row, and N), as bucket_rows
+    returns them.  One stable device sort of 32-bit keys, no host read;
+    each row's result is its own, so the order changes no bit of the
+    output."""
+    skey, perm, kshift = tracked_order(bucket, ctr, k, extent)
+    # bucket b's first key, b < k: (k - 1) << kshift fits an int32
+    first = torch.arange(k, dtype=torch.int32, device=ctr.device) << kshift
+    row_start = torch.cat([torch.searchsorted(skey, first),
+                           first.new_full((1,), skey.shape[0]).long()])
+    return perm.to(torch.int32), row_start
+
+
 def init_records(scan, class_weights, fold, row_start, num_rot: int,
                  qinv=None, m_hilo: bool = True, int4: bool = False):
     """The theta search's M build: (records, schedule) of init_operands and
@@ -1453,11 +1510,13 @@ def map_head(maps, num_classes: int) -> tuple:
 
 def init_args(operand, head: tuple, table, h: int, w: int, num_classes: int,
               rec, sched, ctr, perm, num_rot: int, inv_tr: float, out,
-              scales=None) -> tuple:
+              scales=None, ext=None) -> tuple:
     """The theta-search entry points' arguments before the stream:
     tdr_crop_score_init's (table None) or tdr_crop_score_multi_init's over
     the map operand, `head` (map_head) after it, and with scales (the
-    single-plane M's) the "_lokf" twins', the scales after the records."""
+    single-plane M's) the "_lokf" twins', the scales after the records;
+    perm where it is not None, and ext (fold_extent) after out where it is
+    not None."""
     cp = channel_pad(num_classes)
     args = (ptr(operand),) + head
     if table is None:
@@ -1470,8 +1529,9 @@ def init_args(operand, head: tuple, table, h: int, w: int, num_classes: int,
     args += (ptr(sched), rec.shape[1])
     if perm is not None:
         args += (ptr(perm),)
-    return args + (ptr(ctr), ctr.shape[0], num_rot, ctypes.c_float(inv_tr),
-                   ptr(out))
+    args += (ptr(ctr), ctr.shape[0], num_rot, ctypes.c_float(inv_tr),
+             ptr(out))
+    return args if ext is None else args + (ptr(ext),)
 
 
 def launch_init(base: str, inputs: tuple, raw: bool = False):
@@ -1498,7 +1558,8 @@ def init_rows(launch, inputs: tuple, raw: bool, records=None):
     None), and the rows it writes: (best, k, kf) (N,), or with raw (nums,
     dens (N, num_rot), kf (N,)): the sums as they are, kf the known count
     times f32(1 / (Th R)).  The production kernels' launch and the
-    ablation's (probes/crop_ablate.py) share it."""
+    ablation's (probes/crop_ablate.py) share it; the window route
+    (init_window) takes the fold's extents after out."""
     (maps, table, h, w, num_classes, scan, class_weights, fold, ctr, perm,
      row_start, num_rot) = inputs
     operand, _ = map_operand(maps, num_classes)
@@ -1511,9 +1572,10 @@ def init_rows(launch, inputs: tuple, raw: bool, records=None):
         if records is None:
             records = init_records(scan, class_weights, fold, row_start,
                                    num_rot, **record_args(maps))
+        ext = fold_extent(fold) if init_window(maps) else None
         launch(init_args(operand, map_head(maps, num_classes), table, h, w,
                          num_classes, *records[:2], ctr, perm, num_rot,
-                         inv_tr, out, *records[2:]))
+                         inv_tr, out, *records[2:], ext=ext))
     if raw:
         s = 2 * num_rot
         return out[:, 0:s:2], out[:, 1:s:2], out[:, s] * inv_tr
@@ -1524,7 +1586,8 @@ def init_inputs(maps, num_classes, stencil, scan, class_weights, center_px,
                 f, num_rot: int = 40, map_resolution: float = 1.0) -> tuple:
     """Check the theta search's operands on the card and derive launch_init's
     inputs at one uniform scale, maps first (its operand checked for
-    32-bit indexing)."""
+    32-bit indexing); on the window route (init_window) the rows in
+    init_order, else in the particles' order (perm None)."""
     packed_map = maps.packed
     dev = packed_map.device
     h, w = packed_map.shape[:2]
@@ -1534,12 +1597,17 @@ def init_inputs(maps, num_classes, stencil, scan, class_weights, center_px,
     operand = maps.operand(num_classes)
     if operand.numel() >= 2**31:
         raise ValueError("map too large for 32-bit indexing")
-    rows = torch.zeros(2, dtype=torch.int64, device=dev)
-    rows[1] = center_px.shape[0]
+    ctr = crop_centers(center_px, map_resolution).contiguous()
+    if init_window(maps):  # the rows by position
+        perm, rows = init_order(
+            torch.zeros(ctr.shape[0], dtype=torch.int32, device=dev), ctr, 1,
+            max(h, w))
+    else:
+        perm = None
+        rows = torch.zeros(2, dtype=torch.int64, device=dev)
+        rows[1] = center_px.shape[0]
     return (maps, None, h, w, num_classes, scan, class_weights,
-            maps.fold(stencil, f),
-            crop_centers(center_px, map_resolution).contiguous(), None, rows,
-            num_rot)
+            maps.fold(stencil, f), ctr, perm, rows, num_rot)
 
 
 def score_init_sel(

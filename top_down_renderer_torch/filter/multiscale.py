@@ -535,14 +535,19 @@ def init_inputs(pyr, num_classes, stencil, scan, class_weights, center_px,
                 map_resolution: float = 1.0) -> tuple:
     """Check the K-bucket theta search's operands on the card and derive
     crop_score.launch_init's inputs: the pyramid first, the bucket-major
-    rows."""
+    rows (each bucket's by position on the window route,
+    crop_score.init_order)."""
     k = _check_buckets(pyr, stencil, scan, class_weights, center_px, scale,
                        slot_vals, bucket_level, num_classes, num_rot)[0]
     bucket, off, ctr, table = _prepare(
         pyr, stencil, center_px, scale, slot_vals, bucket_level, res,
         map_resolution,
     )
-    perm, row_start = bucket_rows(bucket, k)
+    if cs.init_window(pyr):  # each bucket's rows by position
+        perm, row_start = cs.init_order(bucket, ctr, k,
+                                        cs._level_extent(pyr, 0, 0))
+    else:
+        perm, row_start = bucket_rows(bucket, k)
     return (pyr, table, 0, 0, num_classes, scan, class_weights,
             cs.fold_pixels(off), ctr.contiguous(), perm, row_start, num_rot)
 

@@ -166,34 +166,41 @@ _SIGNATURES = {
             _P, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _F, _P, _P,
         ),
         # the code map and its known code (15 or 7) in place of the
-        # compact map, then as the float entry points from H (table) on;
-        # the records are the code layout's (crop_score.init_records)
+        # compact map, then as the float entry points from H (table) on,
+        # perm in the uniform entries too; the records are the code
+        # layout's (crop_score.init_records); after out the window route's
+        # extents (K, 4) (crop_score.fold_extent)
         "tdr_crop_score_init_i4": (
-            _P, _F, _I, _I, _I, _P, _P, _I, _P, _I, _I, _F, _P, _P,
+            _P, _F, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _F, _P, _P, _P,
         ),
         "tdr_crop_score_init_raw_i4": (
-            _P, _F, _I, _I, _I, _P, _P, _I, _P, _I, _I, _F, _P, _P,
+            _P, _F, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _F, _P, _P, _P,
         ),
         "tdr_crop_score_multi_init_i4": (
-            _P, _F, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _F, _P, _P,
+            _P, _F, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _F, _P, _P, _P,
         ),
         "tdr_crop_score_multi_init_raw_i4": (
-            _P, _F, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _F, _P, _P,
+            _P, _F, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _F, _P, _P, _P,
         ),
         # the single-plane M: the float map and its qinv (the code map
         # alone), then as the hi/lo entry points from H (table) on, the
-        # column scales (K, 88) after the records
+        # column scales (K, 88) after the records; on the float map perm
+        # and the extents as the code map's hi/lo entries
         "tdr_crop_score_init_lokf": (
-            _P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _I, _I, _F, _P, _P,
+            _P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I, _F, _P, _P,
+            _P,
         ),
         "tdr_crop_score_init_raw_lokf": (
-            _P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _I, _I, _F, _P, _P,
+            _P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I, _F, _P, _P,
+            _P,
         ),
         "tdr_crop_score_multi_init_lokf": (
             _P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I, _F, _P, _P,
+            _P,
         ),
         "tdr_crop_score_multi_init_raw_lokf": (
             _P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I, _F, _P, _P,
+            _P,
         ),
         "tdr_crop_score_init_i4_lokf": (
             _P, _I, _I, _I, _P, _P, _P, _I, _P, _I, _I, _F, _P, _P,
