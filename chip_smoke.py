@@ -65,8 +65,8 @@ Phases (any failure exits non-zero before the result line):
      rows within rel 1e-4, kf within 1e-6 (the single plane's kf is the
      cell count to ~1e-7, summed in two orders), the gate's patterns off
      the gate, the argmin on 99.9 %; the tracked kernels' scales pass
-     bit for bit crop_score.tracked_lokf's scales; the float map's theta
-     search (crop_init_lokf_kernel, rows by position) also on B3's
+     bit for bit crop_score.tracked_lokf's scales; the theta search on
+     either map (crop_init_lokf_kernel, rows by position) also on B3's
      clustered cloud, and bit for bit in the particles' order as B3's;
   B5. the int8 conv field's kernels (csrc/conv_field_i8.cu,
      TDR_CONV_INT8=1) against their plain versions on random 640^2 maps of
@@ -1190,7 +1190,10 @@ def phase_b4(dev, errs, b_args, theta):
     on B2's 10 hypotheses, and per bucket against the uniform kernel on the
     bucket's level; the weights pass bit for bit crop_score.tracked_lokf's
     integers (on each bucket's npix[b] pixels rounded up to 8, the entries
-    it writes) and scales on the uniform and the K-bucket folds."""
+    it writes) and scales on the uniform and the K-bucket folds; the theta
+    searches on both maps (the window route) at f = 1.0 and 0.5, on B3's
+    clustered cloud (its raw rows against their plain version too) and on
+    K buckets, argmin and raw rows bit for bit in the particles' order."""
     maps, c, sten, scan, cw, ctr = b_args
     hyp, slots, levels, bmi = init_plan()
     scale = torch.as_tensor(np.tile(hyp, N // 10), device=dev)
@@ -1210,18 +1213,16 @@ def phase_b4(dev, errs, b_args, theta):
                     kf_tol=LOKF_KF_TOL)
             compare_raw(f"B4 {tag} raw C={c} f={f}", errs, raw[0],
                         *raw_triple(args, f), kf_tol=LOKF_KF_TOL)
-            if cs.init_window(lmap):
-                init_orders(f"B4 {tag} init order C={c} f={f}",
-                            "crop_score_init", cs.init_inputs(*args, f))
-        if cs.init_window(lmap):  # B3's clustered cloud
-            rng = np.random.default_rng(3)
-            cargs = (lmap, c, sten, scan, cw, torch.as_tensor(
-                rng.uniform(462, 562, (N, 2)).astype(np.float32),
-                device=dev))
-            compare_raw(f"B4 {tag} clustered raw", errs, raw[0],
-                        *raw_triple(cargs, 1.0), kf_tol=LOKF_KF_TOL)
-            init_orders(f"B4 {tag} clustered init order", "crop_score_init",
-                        cs.init_inputs(*cargs, 1.0))
+            init_orders(f"B4 {tag} init order C={c} f={f}",
+                        "crop_score_init", cs.init_inputs(*args, f))
+        # B3's clustered cloud
+        rng = np.random.default_rng(3)
+        cargs = (lmap, c, sten, scan, cw, torch.as_tensor(
+            rng.uniform(462, 562, (N, 2)).astype(np.float32), device=dev))
+        compare_raw(f"B4 {tag} clustered raw", errs, raw[0],
+                    *raw_triple(cargs, 1.0), kf_tol=LOKF_KF_TOL)
+        init_orders(f"B4 {tag} clustered init order", "crop_score_init",
+                    cs.init_inputs(*cargs, 1.0))
         pyr = ms.build_pyramid_maps(maps.packed, levels, int4, m_hilo=False)
         mips_t, _ = pyr.bucket_tables(bmi)
         for label, fold in (
@@ -1253,9 +1254,8 @@ def phase_b4(dev, errs, b_args, theta):
         compare_raw(f"B4 {tag} multi raw", errs, raw[1],
                     *multi_raw_triple(args, scale, slots_t, bmi),
                     kf_tol=LOKF_KF_TOL)
-        if cs.init_window(pyr):
-            init_orders(f"B4 {tag} multi init order", "crop_score_multi_init",
-                        ms.init_inputs(*args, scale, slots_t, bmi, RES))
+        init_orders(f"B4 {tag} multi init order", "crop_score_multi_init",
+                    ms.init_inputs(*args, scale, slots_t, bmi, RES))
         check_buckets(f"B4 {tag}", args, theta, scale, slots_t, bmi, levels,
                       kf_tol=LOKF_KF_TOL)
 

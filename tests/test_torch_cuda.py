@@ -1636,7 +1636,7 @@ def test_lokf_crop_step_on_card_matches_cpu(dev, mode, int4):
 
 
 # -- the theta searches' window route (crop_init_i4_kernel, and
-# crop_init_lokf_kernel on the float map) -----------------------------------
+# crop_init_lokf_kernel on the float and the code map) ----------------------
 def _init_cloud(centers, cloud, seed):
     """The centres of a window-route case: `spread` as _world gives them,
     `clustered` all but the first 7 (edges and far out) in a 24 px square
@@ -1663,10 +1663,14 @@ def _init_cloud(centers, cloud, seed):
     return centers
 
 
+WINDOW_KINDS = ("i4", "lokf", "i4_lokf")
+
+
 def _window_maps(kind):
     """The CropMap arguments of a window-route kind: the code map with the
-    hi/lo M ("i4") or the float map with the single-plane M ("lokf")."""
-    return {"int4": kind == "i4", "m_hilo": kind == "i4"}
+    hi/lo M ("i4"), the float map with the single-plane M ("lokf") or the
+    code map with the single-plane M ("i4_lokf")."""
+    return {"int4": kind != "lokf", "m_hilo": kind == "i4"}
 
 
 def _init_sha(outs) -> str:
@@ -1685,7 +1689,7 @@ def _check_window_init(kind, got, ref, num_rot=40):
     versions, within the bounds each kind has always been held to, every
     row whose argmin differs a near tie of the plain rows (_near_ties: a
     clustered cloud's rows share their near ties)."""
-    if kind == "lokf":
+    if kind != "i4":  # the single-plane M
         _check_init_lokf(got[0], ref[0], got[1], ref[1], num_rot,
                          near_ties=True)
         return
@@ -1722,7 +1726,7 @@ def _both_orders(base, inputs):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["i4", "lokf"])
+@pytest.mark.parametrize("kind", WINDOW_KINDS)
 @pytest.mark.parametrize("cloud", ["spread", "clustered", "edge"])
 @pytest.mark.parametrize("c,f,n", [
     (3, 1.0, N), (6, 1.0, N), (3, 1.5, N), (6, 1.5, 193), (3, 1.0, 102_400),
@@ -1736,7 +1740,7 @@ def test_init_window_route_equals_particle_order(dev, kind, cloud, c, f, n):
     centers = _init_cloud(centers, cloud, 31)
     maps = cs.CropMap(packed, **_window_maps(kind))
     args = (maps, c, sten, scan, cw, centers, f)
-    name = "crop_score_init" + ("_i4" if kind == "i4" else "_lokf")
+    name = cs.entry_name("crop_score_init", maps)
     before = dict(kernels.LAUNCHES)
     got, ordered = _both_orders("crop_score_init", cs.init_inputs(*args))
     plain = (maps.plain(c).packed, *args[1:])
@@ -1744,14 +1748,14 @@ def test_init_window_route_equals_particle_order(dev, kind, cloud, c, f, n):
            cs.score_init_raw_plain(*plain, **maps.plain_m()))
     torch.cuda.synchronize()
     assert kernels.LAUNCHES[name] - before[name] == 2
-    raw = name.replace("init", "init_raw")
+    raw = cs.entry_name("crop_score_init", maps, raw=True)
     assert kernels.LAUNCHES[raw] - before[raw] == 2
     assert _init_sha(got) == _init_sha(ordered)
     _check_window_init(kind, got, ref)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["i4", "lokf"])
+@pytest.mark.parametrize("kind", WINDOW_KINDS)
 @pytest.mark.parametrize("cloud", ["spread", "clustered", "edge"])
 @pytest.mark.parametrize("c,k,n", [(3, 10, N), (6, 2, N), (3, 10, 102_400)])
 def test_multi_init_window_route_equals_particle_order(dev, kind, cloud, c,
@@ -1769,7 +1773,7 @@ def test_multi_init_window_route_equals_particle_order(dev, kind, cloud, c,
     ref = (ms.score_init_multi_sel_plain(*plain, *tail, **pyr.plain_m()),
            ms.score_init_multi_raw_plain(*plain, *tail, **pyr.plain_m()))
     torch.cuda.synchronize()
-    name = "crop_score_multi_init" + ("_i4" if kind == "i4" else "_lokf")
+    name = cs.entry_name("crop_score_multi_init", pyr)
     assert kernels.LAUNCHES[name] - before[name] == 2
     assert _init_sha(got) == _init_sha(ordered)
     _check_window_init(kind, got, ref)

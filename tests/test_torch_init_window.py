@@ -1,6 +1,7 @@
 """The theta searches' window route on the CPU: crop_init_i4_kernel (the
-code map with the hi/lo M) and crop_init_lokf_kernel on the float map
-(the single-plane M), csrc/crop_init.cuh.
+code map with the hi/lo M) and crop_init_lokf_kernel on the float and on
+the code map (the single-plane M), csrc/crop_init.cuh: every theta search
+but the float map's with the hi/lo M.
 
 The kernels run only on the card (tests/test_torch_cuda.py, marked cuda:
 each entry bit for bit in the particles' order, and against its plain
@@ -33,7 +34,8 @@ torch.set_num_threads(2)
 
 TH, R = 100, 25
 KINDS = {"i4": {"int4": True, "m_hilo": True},
-         "lokf": {"int4": False, "m_hilo": False}}
+         "lokf": {"int4": False, "m_hilo": False},
+         "i4_lokf": {"int4": True, "m_hilo": False}}
 
 
 SLOTS = (0.5, 1.0, 2.0)  # the K = 3 buckets' scales, on mips 1, 2, 4
@@ -100,7 +102,7 @@ def _inside(ctr, ext, lv):
 
 
 @pytest.mark.parametrize("where", ["uniform", "buckets"])
-@pytest.mark.parametrize("kind", ["i4", "lokf"])
+@pytest.mark.parametrize("kind", list(KINDS))
 def test_init_order_is_tracked_order_plain_by_bucket(where, kind):
     """The window route's rows (init_inputs, init_order) are
     tracked_order_plain's with the bucket as the group, bit for bit:
@@ -129,22 +131,19 @@ def test_init_order_is_tracked_order_plain_by_bucket(where, kind):
 
 @pytest.mark.parametrize("where", ["uniform", "buckets"])
 def test_theta_searches_off_the_window_route_keep_their_order(where):
-    """Off the window route (the float map with the hi/lo M, the code map
-    with the single plane) the rows stay as they were: in the particles'
-    order at a uniform scale (no perm), bucket_rows' over K buckets."""
-    for kw in ({"int4": False, "m_hilo": True},
-               {"int4": True, "m_hilo": False}):
-        inputs, bucket = _case(where, kw, 3)
-        assert not cs.init_window(inputs[0])
-        perm, row_start = inputs[9], inputs[10]
-        if where == "uniform":
-            assert perm is None
-            np.testing.assert_array_equal(np_(row_start),
-                                          [0, len(bucket)])
-        else:
-            want = ms.bucket_rows(bucket, len(SLOTS))
-            assert torch.equal(perm, want[0])
-            assert torch.equal(row_start, want[1])
+    """Off the window route (only the float map with the hi/lo M) the rows
+    stay as they were: in the particles' order at a uniform scale (no
+    perm), bucket_rows' over K buckets."""
+    inputs, bucket = _case(where, {"int4": False, "m_hilo": True}, 3)
+    assert not cs.init_window(inputs[0])
+    perm, row_start = inputs[9], inputs[10]
+    if where == "uniform":
+        assert perm is None
+        np.testing.assert_array_equal(np_(row_start), [0, len(bucket)])
+    else:
+        want = ms.bucket_rows(bucket, len(SLOTS))
+        assert torch.equal(perm, want[0])
+        assert torch.equal(row_start, want[1])
 
 
 @settings(max_examples=40, deadline=None)
@@ -191,7 +190,7 @@ def test_init_extent_covers_every_pixel_an_inside_row_reads(data):
 @pytest.mark.parametrize("where,kind,c", [
     ("uniform", "i4", 3), ("uniform", "lokf", 3), ("uniform", "lokf", 1),
     ("uniform", "i4", 6), ("buckets", "i4", 3), ("buckets", "lokf", 6),
-    ("buckets", "i4", 1),
+    ("buckets", "i4", 1), ("uniform", "i4_lokf", 3), ("buckets", "i4_lokf", 3),
 ])
 def test_init_unchecked_gather_equals_pixel_windows(where, kind, c):
     """Each row's pixels as the kernel reads them (a warp of 16 sorted rows

@@ -33,7 +33,9 @@ the pyramid made with int4=True; crop_tracked_i4_kernel, crop_init_i4_kernel)
 beside the float ones.  --lokf times the kernels with the single-plane M
 (TDR_M_HILO=0: the CropMap and the pyramid made with m_hilo=False;
 crop_tracked_lokf_kernel, crop_init_lokf_kernel), on the float map or,
-with --int4, on the codes (checkouts that have the single-plane M).  A
+with --int4, on the codes (checkouts that have the single-plane M).  The
+theta searches' cells also give the registers a thread of each
+instantiation of the kernel timed (cuobjdump --dump-resource-usage).  A
 single-plane tracked call makes two launches, a pass over every (bucket,
 shift) first (the scales pass, or the weights pass, whichever ROOT has)
 and the kernel: each tracked cell then also gives their sum a call
@@ -62,6 +64,7 @@ import contextlib
 import hashlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -114,6 +117,32 @@ def use_build(source: str, old: str, new: str, tmp: str) -> None:
                     str(Path(tmp, "crop_score.cu"))], check=True)
     build = kernels.build
     kernels.build = lambda name: lib if name == "crop_score" else build(name)
+
+
+def registers(name: str, kernel: str) -> dict:
+    """{"kernel<template arguments>": registers a thread} of each
+    instantiation of `kernel` in ROOT's library `name`, from cuobjdump
+    --dump-resource-usage."""
+    from top_down_renderer_torch import kernels
+
+    tool = Path(kernels.find_nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "--dump-resource-usage",
+                          str(kernels.build(name))], capture_output=True,
+                         text=True, check=True).stdout
+    # the mangled template arguments: Li4E an int, Lb0E / Lb1E a bool
+    mangled = re.compile(rf"\d{kernel}I((?:L[ib]\d+E)+)E")
+    found, fn = {}, None
+    for line in out.splitlines():
+        if "Function " in line:
+            fn = mangled.search(line)
+        elif fn and "REG:" in line:
+            args = re.findall(r"L([ib])(\d+)E", fn.group(1))
+            key = ", ".join(v if t == "i" else ("false", "true")[int(v)]
+                            for t, v in args)
+            found[f"{kernel}<{key}>"] = int(
+                re.search(r"REG:(\d+)", line).group(1))
+            fn = None
+    return found
 
 
 def use_slabs(n: int, tmp: str) -> None:
@@ -345,6 +374,10 @@ def main() -> int:
                 staged=cs.staged_share(windows),
                 windows=int(windows["staged"].numel()),
                 budget0_ms=on_l2, budget0_median_ms=float(np.median(on_l2)))
+    if ARGS.kernel == "init":
+        result["registers"] = registers(
+            "crop_score_init", "crop_init_lokf_kernel" if ARGS.lokf
+            else f"crop_init{SUFFIX}_kernel")
     print(json.dumps(result))
     return 0
 

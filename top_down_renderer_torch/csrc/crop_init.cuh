@@ -76,8 +76,8 @@ struct Chunk {
 template <int CP, int NP = 2>
 constexpr int kRingBytes = kStages * Chunk<CP, NP>::kBytes;
 
-// -- the window route (WIN: crop_init_lokf_kernel on the float map,
-// crop_init_i4_kernel) ------------------------------------------------------
+// -- the window route (WIN: crop_init_i4_kernel, crop_init_lokf_kernel on
+// either map; every theta search but crop_init_kernel and the ablation) -----
 // A block scores 192 rows of one bucket, which the wrapper orders by the
 // position of their centres (crop_score.init_order), so that a warp's rows
 // lie close together and their loads hit L1; every row reads the same pixel

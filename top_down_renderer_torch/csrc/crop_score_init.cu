@@ -101,23 +101,27 @@
 // The hi/lo instantiations compile to the SASS they had before (the switch
 // is a template argument, off by default).
 //
-// The window route (crop_init_i4_kernel, and crop_init_lokf_kernel on the
-// float map; csrc/crop_init.cuh).  The gather, not the products, sets these
-// kernels' pace, and within it the instructions around each load (a bounds
-// check and a 64-bit address a pair), not L2's bytes: fewer bytes a load did
-// not help (the code map), nor did one B plane less (the single plane).  So
-// the wrapper orders each bucket's rows by the Morton code of their
-// centres' tiles (crop_score.init_order: one device sort), so that a
-// warp's 16 rows lie close together and their loads hit L1, and a warp
-// whose rows' windows all lie in their level (a vote, on ext: each bucket's
-// extent, crop_score.fold_extent) gathers without a bounds check, each
-// row's base once and each pixel's offset once a chunk, shared by the
-// thread's two rows.  Each row's product and argmin are its own, so no bit
-// of the output changes.  A box of each block's rows staged in shared
-// memory by bulk copies measured slower than this gather from L2 through
-// L1, and an mbarrier a ring stage slower than the block barrier (PERF.md
-// §6).  The other theta searches (crop_init_kernel, crop_init_lokf_kernel
-// on the codes, the ablation) keep their SASS and their row order.
+// The window route (crop_init_i4_kernel and crop_init_lokf_kernel, on the
+// float and the code map; csrc/crop_init.cuh).  The gather, not the
+// products, sets these kernels' pace, and within it the instructions around
+// each load (a bounds check and a 64-bit address a pair), not L2's bytes:
+// fewer bytes a load did not help (the code map), nor did one B plane less
+// (the single plane).  So the wrapper orders each bucket's rows by the
+// Morton code of their centres' tiles (crop_score.init_order: one device
+// sort), so that a warp's 16 rows lie close together and their loads hit
+// L1, and a warp whose rows' windows all lie in their level (a vote, on
+// ext: each bucket's extent, crop_score.fold_extent) gathers without a
+// bounds check, each row's base once and each pixel's offset once a chunk,
+// shared by the thread's two rows.  Each row's product and argmin are its
+// own, so no bit of the output changes.  A box of each block's rows staged
+// in shared memory by bulk copies measured slower than this gather from L2
+// through L1, and an mbarrier a ring stage slower than the block barrier
+// (PERF.md §6), and so did two chunks of code words in flight in the code
+// map's single-plane kernel (chunk kc + 2's loads issued before chunk kc's
+// product): every global load of the loop signals one scoreboard, and the
+// first use of a loaded word waits for all of them, so the second chunk
+// was waited for with the first while its loads delayed the product.
+// crop_init_kernel and the ablation keep their row order and their SASS.
 //
 // The body (crop_init_kernel's stages, its constants and helpers) lives in
 // csrc/crop_init.cuh, shared with the ablation (csrc/crop_ablate_init.cu);
@@ -160,10 +164,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       out, kq, nullptr, nullptr, ext);
 }
 
-// The single-plane M's body on the float map (qinv: its int8 quantization's
-// row multipliers) on the window route (ext, as crop_init_i4_kernel's) or,
-// with I4, on the code map (qinv and ext not read, the rows in bucket
-// order); scales (K, 88) the columns' scales.
+// The single-plane M's body on the window route (ext, as
+// crop_init_i4_kernel's), on the float map (qinv: its int8 quantization's
+// row multipliers) or, with I4, on the code map (qinv not read); scales
+// (K, 88) the columns' scales.
 template <int CP, bool RAW, bool I4>
 __global__ void __launch_bounds__(kThreads, 1)
     crop_init_lokf_kernel(
@@ -174,16 +178,15 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int2* __restrict__ centers, int S, float inv_tr,
         float* __restrict__ out, const float* __restrict__ scales,
         const float* __restrict__ qinv, const int4* __restrict__ ext) {
-  init_body<CP, RAW, kFull, I4, true, !I4>(map, table, H, W, m, sched, K,
-                                           chunk_cap, perm, centers, S,
-                                           inv_tr, out, 1.f, scales, qinv,
-                                           ext);
+  init_body<CP, RAW, kFull, I4, true, true>(map, table, H, W, m, sched, K,
+                                            chunk_cap, perm, centers, S,
+                                            inv_tr, out, 1.f, scales, qinv,
+                                            ext);
 }
 
 // Launch the theta search on the float map or, with I4, on the code map
-// (kq: its known code); with ONE the single-plane M's (scales, qinv).  The
-// code map's hi/lo kernel and the float map's single-plane kernel take the
-// window route (ext).
+// (kq: its known code); with ONE the single-plane M's (scales, qinv).  All
+// but the float map's hi/lo kernel take the window route (ext).
 template <int CP, bool RAW, bool I4, bool ONE = false>
 cudaError_t launch(const void* map, float kq, const int* table,
                    int H, int W, int K, const void* m, const int* sched,
@@ -344,9 +347,8 @@ extern "C" int tdr_crop_score_multi_init_raw_i4(
 // The single-plane M (TDR_M_HILO=0): the float entry points with qinv (8,
 // the int8 map quantization's) after the map and the columns' scales (K, 88)
 // after the records m (crop_score.init_records with m_hilo=False: one plane
-// a record); on the float map perm and ext as the code map's hi/lo entry
-// points.  The code entry points take neither: their rows keep the bucket
-// order (the uniform ones none).
+// a record); perm and ext as the code map's hi/lo entry points.  The code
+// map's entry points (_i4_lokf) take no qinv.
 extern "C" int tdr_crop_score_init_lokf(
     const float* map, const float* qinv, int H, int W, int CP, const void* m,
     const float* scales, const int* sched, int chunk_cap, const int* perm,
@@ -395,43 +397,50 @@ extern "C" int tdr_crop_score_multi_init_raw_lokf(
                                         qinv, ext);
 }
 
-extern "C" int tdr_crop_score_init_i4_lokf(const unsigned char* codes, int H,
-                                           int W, int CP, const void* m,
-                                           const float* scales,
-                                           const int* sched, int chunk_cap,
-                                           const int* centers, int N, int S,
-                                           float inv_tr, float* out,
-                                           void* stream) {
+extern "C" int tdr_crop_score_init_i4_lokf(
+    const unsigned char* codes, int H, int W, int CP, const void* m,
+    const float* scales, const int* sched, int chunk_cap, const int* perm,
+    const int* centers, int N, int S, float inv_tr, float* out,
+    const int* ext, void* stream) {
+  if (!perm || !ext) return (int)cudaErrorInvalidValue;
   return by_channels<false, true, true>(CP, codes, nullptr, H, W, 1, m, sched,
-                                        chunk_cap, nullptr, centers, N, S,
-                                        inv_tr, out, stream, 1.f, scales);
+                                        chunk_cap, perm, centers, N, S,
+                                        inv_tr, out, stream, 1.f, scales,
+                                        nullptr, ext);
 }
 
 extern "C" int tdr_crop_score_init_raw_i4_lokf(
     const unsigned char* codes, int H, int W, int CP, const void* m,
-    const float* scales, const int* sched, int chunk_cap, const int* centers,
-    int N, int S, float inv_tr, float* out, void* stream) {
+    const float* scales, const int* sched, int chunk_cap, const int* perm,
+    const int* centers, int N, int S, float inv_tr, float* out,
+    const int* ext, void* stream) {
+  if (!perm || !ext) return (int)cudaErrorInvalidValue;
   return by_channels<true, true, true>(CP, codes, nullptr, H, W, 1, m, sched,
-                                       chunk_cap, nullptr, centers, N, S,
-                                       inv_tr, out, stream, 1.f, scales);
+                                       chunk_cap, perm, centers, N, S,
+                                       inv_tr, out, stream, 1.f, scales,
+                                       nullptr, ext);
 }
 
 extern "C" int tdr_crop_score_multi_init_i4_lokf(
     const unsigned char* codes, const int* table, int K, int CP,
     const void* m, const float* scales, const int* sched, int chunk_cap,
     const int* perm, const int* centers, int N, int S, float inv_tr,
-    float* out, void* stream) {
+    float* out, const int* ext, void* stream) {
+  if (!perm || !ext) return (int)cudaErrorInvalidValue;
   return by_channels<false, true, true>(CP, codes, table, 0, 0, K, m, sched,
                                         chunk_cap, perm, centers, N, S,
-                                        inv_tr, out, stream, 1.f, scales);
+                                        inv_tr, out, stream, 1.f, scales,
+                                        nullptr, ext);
 }
 
 extern "C" int tdr_crop_score_multi_init_raw_i4_lokf(
     const unsigned char* codes, const int* table, int K, int CP,
     const void* m, const float* scales, const int* sched, int chunk_cap,
     const int* perm, const int* centers, int N, int S, float inv_tr,
-    float* out, void* stream) {
+    float* out, const int* ext, void* stream) {
+  if (!perm || !ext) return (int)cudaErrorInvalidValue;
   return by_channels<true, true, true>(CP, codes, table, 0, 0, K, m, sched,
                                        chunk_cap, perm, centers, N, S, inv_tr,
-                                       out, stream, 1.f, scales);
+                                       out, stream, 1.f, scales, nullptr,
+                                       ext);
 }

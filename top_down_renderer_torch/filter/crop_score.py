@@ -92,10 +92,10 @@ kernel (with the hi/lo M) takes its rows in tracked_order, each shift
 group's by the position of their centres, and each block stages its
 window of codes in shared memory where it fits (WINDOW_BUDGET,
 tracked_window_cap); tracked_windows is the rule in plain PyTorch.
-The theta search on the code map with the hi/lo M (and on the float map
-with the single-plane M, below) takes its rows in init_order, each
-bucket's by the position of their centres, and a warp whose rows' windows
-all lie in their level (fold_extent) gathers without bounds checks.
+The theta search on the code map (and on the float map with the
+single-plane M, below) takes its rows in init_order, each bucket's by the
+position of their centres, and a warp whose rows' windows all lie in
+their level (fold_extent) gathers without bounds checks.
 
 The single-plane M (TDR_M_HILO=0, the JAX package's pallas_score.m_hilo()
 off).  The JAX kernel contracts its int8 map against M quantized per
@@ -1410,11 +1410,12 @@ def init_schedule(row_start: torch.Tensor, nchunk: torch.Tensor):
 
 def init_window(maps) -> bool:
     """Whether the theta search on maps (a CropMap or PyramidMaps) takes
-    the window route (csrc/crop_init.cuh): the code map with the hi/lo M
-    (crop_init_i4_kernel) and the float map with the single-plane M
-    (crop_init_lokf_kernel on the float map).  Its rows go in init_order
-    and its entries take the fold's extents (fold_extent) after out."""
-    return maps.int4 == maps.m_hilo
+    the window route (csrc/crop_init.cuh): every configuration but the
+    float map with the hi/lo M, i.e. the code map with the hi/lo M
+    (crop_init_i4_kernel) and either map with the single-plane M
+    (crop_init_lokf_kernel).  Its rows go in init_order and its entries
+    take the fold's extents (fold_extent) after out."""
+    return maps.int4 or not maps.m_hilo
 
 
 def init_extent(pix: torch.Tensor, npix: torch.Tensor) -> torch.Tensor:

@@ -184,8 +184,8 @@ _SIGNATURES = {
         ),
         # the single-plane M: the float map and its qinv (the code map
         # alone), then as the hi/lo entry points from H (table) on, the
-        # column scales (K, 88) after the records; on the float map perm
-        # and the extents as the code map's hi/lo entries
+        # column scales (K, 88) after the records; perm and the extents as
+        # the code map's hi/lo entries
         "tdr_crop_score_init_lokf": (
             _P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I, _F, _P, _P,
             _P,
@@ -203,16 +203,16 @@ _SIGNATURES = {
             _P,
         ),
         "tdr_crop_score_init_i4_lokf": (
-            _P, _I, _I, _I, _P, _P, _P, _I, _P, _I, _I, _F, _P, _P,
+            _P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I, _F, _P, _P, _P,
         ),
         "tdr_crop_score_init_raw_i4_lokf": (
-            _P, _I, _I, _I, _P, _P, _P, _I, _P, _I, _I, _F, _P, _P,
+            _P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I, _F, _P, _P, _P,
         ),
         "tdr_crop_score_multi_init_i4_lokf": (
-            _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I, _F, _P, _P,
+            _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I, _F, _P, _P, _P,
         ),
         "tdr_crop_score_multi_init_raw_i4_lokf": (
-            _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I, _F, _P, _P,
+            _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I, _F, _P, _P, _P,
         ),
     },
     "fill_rows": {
