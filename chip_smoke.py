@@ -31,7 +31,10 @@ Phases (any failure exits non-zero before the result line):
      kernel also runs twice on the same inputs and must return the same
      bits (here and wherever a kernel is held against its plain version),
      and the tracked kernels' offset fold (one launch) must equal
-     crop_score.fold_offsets (here, in B2, D and D2); the theta search's
+     crop_score.fold_offsets (here, in B2, D and D2), and their sort keys
+     with the hi/lo M (the order kernel, one launch) must equal
+     crop_score.order_keys_plain bit for bit (in D, on the clustered
+     cell's rows and on every tile coordinate); the theta search's
      raw rows (its raw-row epilogue) against score_init_raw_plain: kf bit
      for bit, nums and dens within rel 1e-4, and select_init_cost of the
      kernel's rows the argmin of the theta-search kernel on >= 99.9 %;
@@ -233,10 +236,14 @@ Phases (any failure exits non-zero before the result line):
      the theta search's work shape (its last wave's tiles split over K)
      beside torch._int_mm and torch.matmul; a line a case with its route,
      kernel and wrapper ms, bound, share and library ms; the tracked crop
-     kernel with stages knocked out (K3) on D's clustered cloud and on
-     the probe's own spread, clustered and K-bucket clouds, `full` bit
-     for bit against the production kernel and the others against their
-     plain versions at REL_TOL; the theta search with stages knocked out
+     kernel with stages knocked out (K3: no_fold, no_gather,
+     gather_only, fold_only, and checked, every row through the
+     bounds-checked loop) on D's clustered cloud and on the probe's own
+     spread, clustered and K-bucket clouds, each variant with its rows in
+     both orders (by position, as the production wrapper sorts them, and
+     by key alone; a line each), `full` and `checked` bit for bit against
+     the production kernel and the others against their plain versions
+     at REL_TOL; the theta search with stages knocked out
      (K4: one_plane, no_gather, gather_only, ring_only, no_promote) on
      D's crop-init spread cell, the TPU clone's 6-class spread cloud and
      D2's multi-init cell, `full` bit for bit against the production
@@ -376,6 +383,7 @@ def _lokf_symbols(kernel, n, *flags):
 
 SYMBOLS = {
     "crop_fold": ("crop_fold_kernel",),
+    "crop_order": ("crop_order_kernel",),
     "crop_score_tracked": ("crop_tracked_kernel<3>",),
     "crop_score_init": _ARGMIN,
     "crop_score_multi_tracked": ("crop_tracked_kernel<3>",),
@@ -419,6 +427,10 @@ SYMBOLS["conv_quant_i8"] = ("conv_quant_i8_kernel",)
 KERNELS = {
     # the tracked kernels' offset fold, launched by both tracked wrappers
     "crop_fold": (CROP_SRC, "top_down_renderer_tpu/filter/pallas_score.py:693"),
+    # the hi/lo tracked kernels' sort keys, launched by both tracked
+    # wrappers with the hi/lo M
+    "crop_order": (CROP_SRC,
+                   "top_down_renderer_tpu/filter/pallas_score.py:693"),
     "crop_score_tracked": (
         CROP_SRC, "top_down_renderer_tpu/filter/pallas_score.py:693"),
     "crop_score_init": (
@@ -889,6 +901,7 @@ MULTI = ("crop_score_multi_tracked", "crop_score_multi_init")
 CROP_I4 = tuple(k + "_i4" for k in CROP)  # on the code map
 MULTI_I4 = tuple(k + "_i4" for k in MULTI)
 FOLD = ("crop_fold",)  # launched by both tracked wrappers
+ORDER = ("crop_order",)  # ... with the hi/lo M
 # with the single-plane M (TDR_M_HILO=0), on the float and the code map
 CROP_LOKF = tuple(k + "_lokf" for k in CROP)
 MULTI_LOKF = tuple(k + "_lokf" for k in MULTI)
@@ -1914,6 +1927,36 @@ def fold_times(off):
     )
 
 
+def order_times(args, theta, f, errs) -> dict:
+    """The order kernel's times on the keys and centres the tracked
+    wrapper gives it for args (crop_pair's), and its bound (the keys and
+    centres read once, the int32 keys written once); first it must equal
+    order_keys_plain bit for bit there and on every tile coordinate of
+    both axes, centres beyond either edge among them."""
+    _, fold, ctr, key = cs._tracked_inputs(*args, theta, f, 1.0)
+    h, w = args[0].packed.shape[:2]
+    kshift, tbits = cs.order_bits(fold[0].shape[0] * args[3].shape[1],
+                                  max(h, w))
+    tiles = torch.arange(1 << (kshift // 2), dtype=torch.int32,
+                         device=ctr.device) << tbits
+    edges = torch.tensor([[-1, -(1 << 30)], [1 << 30, 2**31 - 1],
+                          [h + 900, -400]], dtype=torch.int32,
+                         device=ctr.device)
+    every = torch.cat([torch.stack([tiles, tiles.flip(0)], 1), edges])
+    for k, c in ((key, ctr), (torch.arange(every.shape[0], device=ctr.device)
+                              % (fold[0].shape[0] * args[3].shape[1]),
+                              every)):
+        check(torch.equal(cs.order_keys(k, c, kshift, tbits),
+                          cs.order_keys_plain(k, c, kshift, tbits)),
+              "D: the order kernel's keys differ from order_keys_plain's")
+    errs["abs"]["crop_order"] = 0.0
+    keys = cs.order_keys(key, ctr, kshift, tbits)
+    return dict(
+        timed("crop_order", lambda: cs.order_keys(key, ctr, kshift, tbits),
+              lambda: cs.order_keys_plain(key, ctr, kshift, tbits)),
+        bound=bound(0.0, nbytes(key, ctr, keys)))
+
+
 def l2_route(name, kernel, windows) -> dict:
     """A code tracked cell's windows: the share the plain rule stages
     (crop_score.staged_share), and the kernel's time at budget 0, every
@@ -2056,6 +2099,7 @@ def phase_d(dev, pf, world, errs):
         pixels=int(npix[0]), map_bytes=nbytes(cmap.compact(3)),
     )
     compare("D clustered, C=3", errs, CROP, *pair)
+    out["crop_order"] = order_times(args, theta, f, errs)
     pair4 = crop_pair((cmap4, 3, sten, scan, cw, ctr), theta, f)
     out["crop_score_tracked_i4"] = dict(
         timed("crop_score_tracked_i4", *pair4[0]),
@@ -2658,14 +2702,16 @@ def phase_m(dev, world, read_launches):
         check(conv_calls() - calls == M_CONV,
               "M1: not one cost field per conv update")
         read_launches("M1", ("crop_score_multi_init_raw",
-                             "crop_score_multi_tracked", "crop_fold"))
+                             "crop_score_multi_tracked", "crop_fold",
+                             "crop_order"))
         check_mesh_plans("M1", m1, 1)
         # the mesh's K-bucket steps on the code pyramid: the init step's
         # raw rows through crop_score_multi_init_raw_i4
         ml4, per4 = variant_drive(dev, world, mesh, M_NAMES_I4,
                                   map_int4=True)
         read_launches("M1 i4", ("crop_score_multi_init_raw_i4",
-                                "crop_score_multi_tracked_i4", "crop_fold"))
+                                "crop_score_multi_tracked_i4", "crop_fold",
+                                "crop_order"))
         want = np.zeros_like(per4)
         want[0, 0] = want[1, 1] = 1
         check(np.array_equal(per4, want),
@@ -3047,7 +3093,7 @@ def phase_n(dev, name_limit, read_launches):
 
     rec, errs, times, ulog, syncs, snaps, sites = node_replay(node, traj, bag)
     read_launches("N1", ("crop_score_init", "crop_score_tracked",
-                         "crop_fold"))
+                         "crop_fold", "crop_order"))
     out["first_warm_ms"] = sum(times[0][k] for k in ("render_ms", "filter_ms",
                                                     "publish_ms"))
     paths = check_node_plans("N1", ulog.rows)
@@ -3108,7 +3154,7 @@ def phase_n(dev, name_limit, read_launches):
     node.filter.publish_stats = guarded
     rec, errs, times, ulog, syncs, snaps, _ = node_replay(node, traj, bag)
     read_launches("N2", ("crop_score_init", "crop_score_tracked",
-                         "crop_fold"))
+                         "crop_fold", "crop_order"))
     check_node_plans("N2", ulog.rows)
     check(rec["first_converged_stamp"] is not None and node.is_converged,
           "N2: did not converge")
@@ -3141,7 +3187,7 @@ def phase_n(dev, name_limit, read_launches):
     rec, errs, times, ulog, syncs, snaps, _ = node_replay(
         node, traj, bag, max_scans=N3_SCANS, after_scan=kick)
     read_launches("N3", ("crop_score_multi_init", "crop_score_multi_tracked",
-                         "crop_fold"))
+                         "crop_fold", "crop_order"))
     paths = check_node_plans("N3", ulog.rows)
     check(kicked and paths.get("multi/mixed"),
           f"N3: no mixed K-bucket update after the kick ({kicked})")
@@ -3162,6 +3208,7 @@ R2_AT = (5, 10)  # R2: the GMM means after these scans, and at the end
 R_SPANS = ("tdr.render", "tdr.update", "tdr.publish")
 # the crop kernels' names in the city node's trace (6 classes)
 R5_SYMBOLS = {"crop_fold": "crop_fold_kernel",
+              "crop_order": "crop_order_kernel",
               "crop_score_tracked": "crop_tracked_kernel<",
               "crop_score_init": "crop_init_kernel<"}
 R_TOPICS = ["--scan-topic", "/pc", "--prior-topic", "/odom",
@@ -3438,7 +3485,7 @@ def _phase_r(dev, name_limit, read_launches, n_out, tmp):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_main
     read_launches("R1", ("crop_score_init", "crop_score_tracked",
-                         "crop_fold"))
+                         "crop_fold", "crop_order"))
     node = run["node"]
     check(rc == 0, f"R1: run_node.main returned {rc}")
     check(node.device.type == "cuda", f"R1: the node ran on {node.device}")
@@ -3673,13 +3720,13 @@ def main() -> int:
 
     kernels.reset_launch_counts()
     pf, world = phase_c(dev)
-    read_launches("C", CROP + FOLD)
+    read_launches("C", CROP + FOLD + ORDER)
     phase_c2(dev, world)
-    read_launches("C2", MULTI + FOLD)
+    read_launches("C2", MULTI + FOLD + ORDER)
     pf_fill = phase_c3(dev, world)
     read_launches("C3", ("fill_rows",))
     phase_c5(dev, world)
-    read_launches("C5", CROP_I4 + MULTI_I4 + FOLD)
+    read_launches("C5", CROP_I4 + MULTI_I4 + FOLD + ORDER)
     phase_c6(dev, world)
     read_launches("C6", CROP_LOKF + MULTI_LOKF + CROP_I4_LOKF + MULTI_I4_LOKF
                   + FOLD + SCALES)

@@ -347,20 +347,28 @@ def test_kernel_operand_checks():
 
 
 # -- the tracked kernel's folded product -----------------------------------
-def _folded(packed, c, sten, scan, cw, centers, thetas, f):
+def _folded(packed, c, sten, scan, cw, centers, thetas, f, rows=None):
     """The tracked kernel's computation in plain PyTorch at one uniform
     scale: the offsets folded to their distinct pixels, the weights at
     every shift, each particle's window of those pixels on the compact
-    map."""
+    map.  rows "position": over the rows in tracked_order (the kernel's,
+    each shift's by position), each row's result put back on its
+    particle."""
     pix, _, order, seg = cs.fold_offsets(cs.crop_offsets(sten, f)[None])
     w = cs.tracked_weights(scan, cw, order, seg)
     h, wd = packed.shape[:2]
     ctr = cs.crop_centers(centers, 1.0)
-    return cs.folded_scores(
+    shift = rotation_shift(thetas, scan.shape[1])
+    perm = torch.arange(len(ctr))
+    if rows == "position":
+        perm = cs.tracked_order(shift, ctr, scan.shape[1], max(h, wd))[1]
+    got = cs.folded_scores(
         cs.compact_map(packed, c).reshape(h * wd, -1),
-        torch.tensor([[0, h, wd, 0]]), ctr, pix, w,
-        torch.zeros(len(ctr), dtype=torch.int32),
-        rotation_shift(thetas, scan.shape[1]), c)
+        torch.tensor([[0, h, wd, 0]]), ctr[perm], pix, w,
+        torch.zeros(len(ctr), dtype=torch.int32), shift[perm], c)
+    back = torch.empty((3, len(ctr)), dtype=got[0].dtype)
+    back[:, perm] = torch.stack(got)
+    return tuple(back)
 
 
 @pytest.mark.parametrize("c,f", [(1, 1.0), (3, 0.5), (3, 1.0), (6, 0.37),
@@ -390,13 +398,17 @@ def test_folded_product_equals_tracked_plain(c, f):
     assert (np_(kf) == 0).any() and (np_(kf) > 0.5).any()
 
 
-def test_folded_product_holds_the_jax_tracked_kernel_bounds(float_world):
+@pytest.mark.parametrize("rows", [None, "position"])
+def test_folded_product_holds_the_jax_tracked_kernel_bounds(float_world,
+                                                             rows):
     """The tracked kernel's fold against the JAX tracked kernel
     (interpret mode) on float centres, within
-    test_float_centres_tracked_vs_jax_kernel's bounds."""
+    test_float_centres_tracked_vs_jax_kernel's bounds: in the particles'
+    order, and over tracked_order's rows (the kernel's) put back on the
+    particles."""
     packed, scan, centers, thetas, ref = float_world
     args = _t(packed, STENCIL, scan, CW, centers, thetas)
-    num, den, kf = _folded(args[0], C, *args[1:], F)
+    num, den, kf = _folded(args[0], C, *args[1:], F, rows)
     rn, rd, rkf = ref["tracked"]
     _check(_ratio(rn, rd), _ratio(num, den), rkf, np_(kf), "folded tracked")
 
@@ -543,6 +555,31 @@ def test_fold_pixels_on_the_cpu_is_fold_offsets():
         assert a.dtype == torch.int32
         np.testing.assert_array_equal(np_(a), np_(b))
     assert sum(kernels.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("groups,extent", [
+    (100, 1024), (1200, 1536), (2, 1 << 20), (1 << 20, 64), (250, 96),
+])
+def test_order_keys_on_the_cpu_interleave_the_tile_bits(groups, extent):
+    """order_keys, the order kernel's wrapper, runs order_keys_plain on
+    CPU tensors (no launch counted), and its keys are tracked_order_plain's
+    bit by bit interleave (numpy) of the clamped tiles under the group:
+    every tile coordinate of both axes, centres at the int32 range's ends
+    and off the levels; kshift from 10 to 30."""
+    kshift, tbits = cs.order_bits(groups, extent)
+    rng = np.random.default_rng(groups)
+    tiles = np.arange(1 << (kshift // 2), dtype=np.int64) << tbits
+    ctr = np.concatenate([
+        np.stack([tiles, tiles[::-1]], 1),
+        [[-2**31, 2**31 - 1], [2**31 - 1, -1]],
+        rng.integers(-extent, 2 * extent, (500, 2))]).astype(np.int32)
+    key = rng.integers(0, groups, len(ctr))
+    kernels.reset_launch_counts()
+    got = cs.order_keys(torch.as_tensor(key), torch.as_tensor(ctr), kshift,
+                        tbits)
+    assert got.dtype == torch.int32 and sum(kernels.LAUNCHES.values()) == 0
+    want, perm, _ = cs.tracked_order_plain(key, ctr, groups, extent)
+    np.testing.assert_array_equal(np_(got)[perm], want)
 
 
 def test_tracked_rows_put_rows_back():

@@ -38,7 +38,7 @@ from top_down_renderer_torch.probes import window as wg
 from top_down_renderer_torch.testing import synthetic_setup
 from top_down_renderer_torch.utils.convert import filter_state_from_numpy
 
-from torch_parity import assert_rel, np_
+from torch_parity import assert_rel, np_, tracked_pairs
 
 TH, R = 100, 25
 N = 256
@@ -143,6 +143,43 @@ def test_fold_kernel_matches_fold_offsets(dev, th, r, fs):
         assert a.dtype == torch.int32
         assert torch.equal(a, b.to(torch.int32))
         assert torch.equal(a2, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups,extent,n", [
+    (100, 1024, 102_400), (1200, 1536, 1_000), (2, 1 << 20, 1),
+    (1 << 20, 64, 4_097), (250, 96, 65_536),
+])
+def test_order_kernel_matches_order_keys_plain(dev, groups, extent, n):
+    """The order kernel (one launch, "crop_order") against
+    order_keys_plain bit for bit, and tracked_order against
+    tracked_order_plain (numpy): random keys and centres on and off the
+    levels, every tile coordinate of both axes, centres at the int32
+    range's ends; kshift from 10 to 30."""
+    kshift, tbits = cs.order_bits(groups, extent)
+    rng = np.random.default_rng(groups)
+    key = torch.as_tensor(rng.integers(0, groups, n), device=dev)
+    ctr = torch.as_tensor(rng.integers(-extent, 2 * extent, (n, 2)),
+                          dtype=torch.int32, device=dev)
+    tiles = torch.arange(1 << (kshift // 2), dtype=torch.int32,
+                         device=dev) << tbits
+    every = torch.cat([torch.stack([tiles, tiles.flip(0)], 1),
+                       torch.tensor([[-2**31, 2**31 - 1], [2**31 - 1, -1]],
+                                    dtype=torch.int32, device=dev)])
+    before = kernels.LAUNCHES["crop_order"]
+    for k, c in ((key, ctr), (torch.arange(every.shape[0], device=dev)
+                              % groups, every)):
+        got = cs.order_keys(k, c, kshift, tbits)
+        assert got.dtype == torch.int32
+        assert torch.equal(got, cs.order_keys_plain(k, c, kshift, tbits))
+    skey, perm, shift = cs.tracked_order(key, ctr, groups, extent)
+    pkey, pperm, pshift = cs.tracked_order_plain(np_(key), np_(ctr), groups,
+                                                 extent)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["crop_order"] == before + 3
+    np.testing.assert_array_equal(np_(skey), pkey)
+    np.testing.assert_array_equal(np_(perm), pperm)
+    assert shift == pshift == kshift
 
 
 @pytest.mark.cuda
@@ -320,6 +357,94 @@ def test_multi_tracked_kernel_matches_plain(dev, c, k, n, single, mo):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["crop_score_multi_tracked"] == before + 2
     assert _same_bits(got, again)
+    _check_tracked(got, ref, n)
+
+
+def _by_key(monkeypatch):
+    """Sort the hi/lo tracked kernels' rows by group alone (tracked_rows'
+    order, kshift 0) in place of tracked_order."""
+    monkeypatch.setattr(cs, "tracked_order", lambda key, ctr, groups, extent:
+                        (*cs.tracked_rows(key), 0))
+
+
+def _odd_run(centers, thetas, seed):
+    """_clustered's cloud (most rows inside and paired) with 37 of its
+    clustered rows on shift 7: at most two runs of one block each, so one
+    run with an odd count of inside rows."""
+    centers, thetas = _clustered(centers, thetas, seed)
+    thetas[7:44] = 7 * (2 * np.pi / TH)
+    return centers, thetas
+
+
+def _pairs(maps, args, f):
+    """tracked_pairs of a uniform float launch's rows: (inside, paired,
+    run)."""
+    c, sten, scan, cw, centers, thetas = args
+    _, fold, ctr, key = cs._tracked_inputs(maps, c, sten, scan, cw, centers,
+                                           thetas, f, 1.0)
+    skey, perm, kshift = cs.tracked_order(key, ctr, TH, max(H, W))
+    table = torch.tensor([[0, H, W, 0]], dtype=torch.int32, device=ctr.device)
+    return tracked_pairs(skey, perm, ctr, kshift, TH, table, fold)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,f,n,clustered", [
+    (3, 1.0, N, False), (6, 1.0, N, False), (3, 0.5, N, False),
+    (6, 0.5, N, False), (3, 1.0, N, True), (6, 1.0, N, True),
+    (3, 0.5, 193, True), (6, 0.5, N, True), (3, 1.0, 102_400, True),
+    (6, 1.0, 102_400, True), (3, 1.0, 102_400, False),
+])
+def test_tracked_kernel_pairs_inside_rows(dev, c, f, n, clustered,
+                                          monkeypatch):
+    """The float tracked kernel with its rows in position order (a row
+    inside its level unchecked, two such rows a warp) against its plain
+    version as test_tracked_kernel_matches_plain holds it: C = 3 and 6, f
+    = 1 and 0.5, every shift, edges and far out; spread clouds, and
+    clustered ones where most rows pair and a group of 37 rows leaves a
+    run with an odd count of inside rows.  Its rows in tracked_rows'
+    order (kshift 0) give the same bits."""
+    packed, sten, scan, cw, centers, thetas = _world(dev, c, 17, n)
+    thetas = _every_shift(thetas)
+    if clustered:
+        centers, thetas = _odd_run(centers, thetas, 17)
+    maps = cs.CropMap(packed)
+    args = (c, sten, scan, cw, centers, thetas)
+    before = kernels.LAUNCHES["crop_score_tracked"]
+    got = cs.score_tracked(maps, *args, f)
+    inside, paired, run = _pairs(maps, args, f)
+    _by_key(monkeypatch)
+    by_key = cs.score_tracked(maps, *args, f)
+    ref = cs.score_tracked_plain(packed, *args, f)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["crop_score_tracked"] == before + 2
+    assert _same_bits(got, by_key)
+    _check_tracked(got, ref, n)
+    assert bool(inside.any()) and not bool(inside.all())
+    if clustered:
+        odd = torch.bincount(run, inside.long()) % 2 == 1
+        assert float(paired.float().mean()) > 0.5 and bool(odd.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,k,n,clustered", [
+    (3, 10, N, False), (6, 2, N, False), (3, 2, N, True),
+    (6, 10, 102_400, True), (3, 10, 102_400, False),
+])
+def test_multi_tracked_kernel_same_bits_in_both_row_orders(
+        dev, c, k, n, clustered, monkeypatch):
+    """The K-bucket float tracked kernel with its rows in position order
+    against its plain version, and with its rows in tracked_rows' order
+    (kshift 0): the same bits."""
+    args, thetas, tail = _multi_world(dev, c, k, 18, n)
+    thetas = _every_shift(thetas)
+    if clustered:
+        args = (*args[:5], _odd_run(args[5], thetas, 18)[0])
+    got = ms.score_tracked_multi(*args, thetas, *tail)
+    _by_key(monkeypatch)
+    by_key = ms.score_tracked_multi(*args, thetas, *tail)
+    ref = ms.score_tracked_multi_plain(*args, thetas, *tail)
+    torch.cuda.synchronize()
+    assert _same_bits(got, by_key)
     _check_tracked(got, ref, n)
 
 

@@ -45,7 +45,7 @@ from test_torch_crop_score import (
     _world,
 )
 from test_torch_filter import _compare_states, _resample_shift, _setups
-from torch_parity import assert_rel, np_
+from torch_parity import assert_rel, np_, tracked_pairs
 
 torch.set_num_threads(2)
 
@@ -634,13 +634,14 @@ def test_operand_checks_refuse_the_other_map():
         cs.map_operand(maps, C)
 
 
-# -- the code tracked kernel's row order and windows, on the CPU ------------
-def _window_case(kind, c, seed=21, h=45, w=67):
-    """Inputs of the code tracked kernel on an odd-sized map (so that rows
-    start at every byte of a 16-byte word), particles clustered in a
-    corner (their own shifts, so that whole blocks hold them), spread, at
-    the edges and far out: (maps, ctr (N, 2), key (N,), fold, levels (K,
-    4), groups, extent)."""
+# -- the hi/lo tracked kernels' row order and the code windows, on the CPU ---
+def _window_case(kind, c, seed=21, h=45, w=67, int4=True):
+    """Inputs of the code tracked kernel (int4 False: of the float one, the
+    same inputs on the float map) on an odd-sized map (so that rows start
+    at every byte of a 16-byte word), particles clustered in a corner
+    (their own shifts, so that whole blocks hold them), spread, at the
+    edges and far out: (maps, ctr (N, 2), key (N,), fold, levels (K, 4),
+    groups, extent)."""
     packed, rng = _classes_world(c, seed, h, w)
     n = 300
     centers = np.concatenate([
@@ -656,12 +657,12 @@ def _window_case(kind, c, seed=21, h=45, w=67):
     cw = (0.5 + rng.random(c)).astype(np.float32)
     sten, sc, cwt, ctr_px, th = _t(STENCIL, scan, cw, centers, thetas)
     if kind == "uniform":
-        maps = cs.CropMap(torch.as_tensor(packed), int4=True)
+        maps = cs.CropMap(torch.as_tensor(packed), int4=int4)
         _, fold, ctr, key = cs._tracked_inputs(maps, c, sten, sc, cwt, ctr_px,
                                                th, 0.5, 1.0)
         levels = torch.tensor([[0, h, w, 0]], dtype=torch.int32)
         return maps, ctr, key, fold, levels, TH, max(h, w)
-    maps = ms.build_pyramid_maps(torch.as_tensor(packed), (1, 2, 4), True)
+    maps = ms.build_pyramid_maps(torch.as_tensor(packed), (1, 2, 4), int4)
     slots = torch.tensor([0.5, 1.0, 2.0])
     scale = torch.as_tensor(np.resize(np.float32([0.5, 1.0, 2.0]), n))
     _, table, fold, ctr, key = ms._tracked_inputs(
@@ -670,13 +671,16 @@ def _window_case(kind, c, seed=21, h=45, w=67):
     return maps, ctr, key, fold, table, 3 * TH, extent
 
 
+@pytest.mark.parametrize("int4", [True, False])
 @pytest.mark.parametrize("kind", ["uniform", "buckets"])
-def test_code_tracked_order_is_group_major_by_position(kind):
-    """tracked_order (the code kernel's rows) equals its plain twin
-    tracked_order_plain bit for bit; each group's rows are contiguous and
-    the groups come in tracked_rows' order; within a group the centres'
-    Morton codes rise; the group is the key's bits from kshift up."""
-    maps, ctr, key, fold, levels, groups, extent = _window_case(kind, 3)
+def test_code_tracked_order_is_group_major_by_position(kind, int4):
+    """tracked_order (the rows of the hi/lo tracked kernels, on the code
+    map and on the float map) equals its plain twin tracked_order_plain
+    bit for bit; each group's rows are contiguous and the groups come in
+    tracked_rows' order; within a group the centres' Morton codes rise;
+    the group is the key's bits from kshift up."""
+    maps, ctr, key, fold, levels, groups, extent = _window_case(
+        kind, 3, int4=int4)
     skey, perm, kshift = cs.tracked_order(key, ctr, groups, extent)
     pkey, pperm, pshift = cs.tracked_order_plain(np_(key), np_(ctr), groups,
                                                  extent)
@@ -695,6 +699,60 @@ def test_code_tracked_order_is_group_major_by_position(kind):
     for g in np.unique(group):  # each group's rows are that group's rows
         np.testing.assert_array_equal(np.sort(np_(perm)[group == g]),
                                       np.flatnonzero(np_(key) == g))
+
+
+@pytest.mark.parametrize("kind", ["uniform", "buckets"])
+def test_tracked_pairs_walks_the_kernels_row_loop(kind):
+    """torch_parity.tracked_pairs (the hi/lo tracked kernels' loop rule,
+    whose shares of rows the card tests read) against the loop walked row
+    by row as crop_tracked.cuh walks it: each block's runs of one group,
+    warp w taking rows run0 + w + 32 i and 16 rows later together where
+    both rows' stencils lie inside their level; the rest one at a time."""
+    maps, ctr, key, fold, levels, groups, extent = _window_case(
+        kind, 3, int4=False)
+    if kind == "uniform":  # the corner's cloud moved inside: rows that pair
+        ctr = ctr.clone()
+        ctr[:150] = torch.as_tensor(np.random.default_rng(3).integers(
+            [20, 31], [25, 36], (150, 2)), dtype=torch.int32)
+    skey, perm, kshift = cs.tracked_order(key, ctr, groups, extent)
+    inside, paired, run = tracked_pairs(skey, perm, ctr, kshift, TH,
+                                        levels, fold)
+    pix, npix = fold[0].long(), fold[1].long()
+    group = np_(skey).astype(np.int64) >> kshift
+    c = np_(ctr).astype(np.int64)[np_(perm)]
+    n = len(group)
+    want_in = np.zeros(n, bool)
+    for j in range(n):
+        b = group[j] // TH
+        off = np_(pix[b, : npix[b]])
+        lv = np_(levels[b]).astype(np.int64)
+        want_in[j] = ((c[j, 0] + off[:, 0] >= 0).all()
+                      and (c[j, 0] + off[:, 0] < lv[1]).all()
+                      and (c[j, 1] + off[:, 1] >= 0).all()
+                      and (c[j, 1] + off[:, 1] < lv[2]).all())
+    want_pair = np.zeros(n, bool)
+    runs = []
+    for b0 in range(0, n, cs.TRACKED_TILE):
+        r0 = b0
+        end = min(b0 + cs.TRACKED_TILE, n)
+        while r0 < end:
+            r1 = r0 + 1
+            while r1 < end and group[r1] == group[r0]:
+                r1 += 1
+            runs.append((r0, r1))
+            for w in range(16):
+                for r in range(r0 + w, r1, 32):
+                    r2 = r + 16
+                    if r2 < r1 and want_in[r] and want_in[r2]:
+                        want_pair[r] = want_pair[r2] = True
+            r0 = r1
+    np.testing.assert_array_equal(np_(inside), want_in)
+    np.testing.assert_array_equal(np_(paired), want_pair)
+    np.testing.assert_array_equal(
+        np_(run), np.repeat(np.arange(len(runs)), [b - a for a, b in runs]))
+    assert want_in.any() and (~want_in).any()
+    if kind == "uniform":
+        assert want_pair.any()
 
 
 def _windows(kind, c, cap=None):
@@ -828,12 +886,14 @@ def test_code_window_gather_equals_pixel_windows(kind, c):
         np_(win["staged"] & ((past + 15) // 16 * 16 <= end // elem * elem)))
 
 
-def test_code_tracked_scores_are_the_same_in_both_row_orders():
-    """The tracked code kernel's arithmetic (folded_scores on the
-    dequantized codes) over tracked_order's rows and over tracked_rows',
-    each row's result put back on its particle: the same bits, and the
-    plain version's scores (rel 1e-5, kf bit for bit)."""
-    maps, ctr, key, fold, levels, groups, extent = _window_case("uniform", 3)
+@pytest.mark.parametrize("int4", [True, False])
+def test_code_tracked_scores_are_the_same_in_both_row_orders(int4):
+    """The hi/lo tracked kernels' arithmetic (folded_scores on the
+    dequantized codes, or on the float map) over tracked_order's rows and
+    over tracked_rows', each row's result put back on its particle: the
+    same bits."""
+    maps, ctr, key, fold, levels, groups, extent = _window_case(
+        "uniform", 3, int4=int4)
     pix, npix, order, seg = fold
     rng = np.random.default_rng(5)
     scan = torch.as_tensor((rng.random((3, TH, R)) * 3).astype(np.float32))

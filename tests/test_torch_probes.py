@@ -492,16 +492,20 @@ def test_no_gather_and_gather_only_on_a_constant_map():
                                atol=0)
 
 
-def test_fold_only_writes_its_groups_folded_weights():
-    """fold_only: the particle at sorted row j writes slot j % U of its
-    group's weights (tracked_weights)."""
+@pytest.mark.parametrize("order", ca.ORDERS)
+def test_fold_only_writes_its_groups_folded_weights(order):
+    """fold_only: the particle at sorted row j (in either row order)
+    writes slot j % U of its group's weights (tracked_weights)."""
     maps, c, sten, scan, cw, ctr, theta, f = _ablation_args()
     cost, norm, kf = ca.crop_ablate("fold_only", maps, c, sten, scan, cw,
-                                    ctr, theta, f)
-    pix, npix, order, seg = cs.fold_offsets(cs.crop_offsets(sten, f)[None])
-    w = cs.tracked_weights(scan, cw, order, seg)[0]
+                                    ctr, theta, f, order=order)
+    pix, npix, order_, seg = cs.fold_offsets(cs.crop_offsets(sten, f)[None])
+    w = cs.tracked_weights(scan, cw, order_, seg)[0]
     shift = cs.rotation_shift(theta, scan.shape[1])
-    _, perm = cs.tracked_rows(shift)
+    perm = ca.ablation_rows(order, shift, cs.crop_centers(ctr, 1.0),
+                            scan.shape[1], 256)[1]
+    if order == "key":
+        assert torch.equal(perm, cs.tracked_rows(shift)[1])
     u_count = int(npix[0])
     for j in (0, 1, 63, 64, 1000, N_ABL - 1):
         p = int(perm[j])
@@ -509,6 +513,30 @@ def test_fold_only_writes_its_groups_folded_weights():
         assert abs(float(cost[p]) - float(ws[0])) <= 1e-6 * float(ws[0])
         assert abs(float(norm[p]) - float(ws[c])) <= 1e-6 * float(ws[c])
         assert kf[p] == np.float32(ws[c + 1] * np.float32(1 / 2500))
+
+
+def test_checked_is_full_and_full_holds_in_both_row_orders():
+    """K3's plain versions: `checked` is `full` bit for bit, and `full`
+    gives the same bits with its rows in position order and in key
+    order; the order-bound variants (no_fold, fold_only) differ between
+    the orders only in which block a row lands in, and no_gather does
+    not depend on the order."""
+    args = _ablation_args()
+    full = ca.crop_ablate_plain("full", *args)
+    for order in ca.ORDERS:
+        for variant in ("full", "checked"):
+            got = ca.crop_ablate_plain(variant, *args, order=order)
+            for g, w in zip(got, full):
+                assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    for g, w in zip(ca.crop_ablate_plain("no_gather", *args),
+                    ca.crop_ablate_plain("no_gather", *args, order="key")):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    pos, key = (ca.crop_ablate_plain("fold_only", *args, order=o)[0]
+                for o in ca.ORDERS)
+    assert not torch.equal(pos, key)
+    assert torch.equal(pos.sort().values, key.sort().values)
+    with pytest.raises(ValueError, match="order"):
+        ca.crop_ablate_plain("full", *args, order="shift")
 
 
 def _multi_args(n=N_ABL):
@@ -840,7 +868,9 @@ def test_probe_path_checks_on_the_cpu():
             + probes.window_rates(CPU, 0, N_WIN, 256, "small")
             + probes.run_mm(CPU, 0, 256)
             + probes.run_ablate(CPU, 0, 512))
-    assert len(recs) == 6 + 6 + 7 + 15
+    # K3: three cases, each variant with its rows in each order
+    assert len(recs) == 6 + 6 + 7 + 3 * len(ca.VARIANTS) * len(ca.ORDERS)
+    assert len(ca.VARIANTS) * len(ca.ORDERS) == 12
     assert all(r.get("kernel_ms") is None for r in recs)
     assert {r["replaces"].split(":")[0] for r in recs} == {
         f"tests/{f}.py" for f in (

@@ -6,9 +6,12 @@ the offset fold both read (csrc/crop_score.cu, crop_fold_kernel).
 Times the kernel of the checkout at ROOT:
 
   tracked  the clustered cell: 102,400 particles in a 100 px square of a
-           1024^2 3-class map, thetas in a 0.15 rad band; and the K-bucket
+           1024^2 3-class map, thetas in a 0.15 rad band; the K-bucket
            cell: the spread cloud below over the 10 scale hypotheses' K
-           buckets at res 0.5, with a theta each;
+           buckets at res 0.5, with a theta each; the same clustered cloud
+           on a 6-class map (C = 6, 8 channels a pixel: the city's class
+           count); and the spread cloud over the 3-class map at scale 1,
+           with a theta each;
   init     a spread cloud of 102,400 particles over the 1024^2 3-class
            map, the same cloud over the 10 scale hypotheses' K buckets
            at res 0.5, a cloud clustered to 100 px (as the tracked
@@ -52,7 +55,12 @@ gather from L2, whose result must equal the staged call's bit for bit
 (its SHA-256 printed beside it), and each cell gives the share of its
 windows, and of their rows, that the plain rule stages
 (crop_score.launch_windows).  Each cell also gives its wrapper's host
-time (median of 20 synchronised calls, chip_smoke.median_ms):
+time (median of 20 synchronised calls, chip_smoke.median_ms).  The float
+tracked cells (--kernel tracked without --int4 or --lokf) also give the
+share of rows inside their level and of rows scored two a warp
+(tests/torch_parity.tracked_pairs, where ROOT has it), and the registers,
+stack and local bytes a thread of each instantiation of the tracked
+kernel:
 
     python tests/time_torch_tracked.py [--kernel tracked|init|fold] [--int4] [--lokf] [--slabs N] [--one-block] [ROOT]
 """
@@ -93,6 +101,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke as smoke  # noqa: E402
+import torch_parity as parity  # noqa: E402
 from top_down_renderer_torch.filter import crop_score as cs  # noqa: E402
 from top_down_renderer_torch.filter import multiscale as ms  # noqa: E402
 from top_down_renderer_torch.maps.polar import polar_stencil  # noqa: E402
@@ -119,10 +128,11 @@ def use_build(source: str, old: str, new: str, tmp: str) -> None:
     kernels.build = lambda name: lib if name == "crop_score" else build(name)
 
 
-def registers(name: str, kernel: str) -> dict:
+def registers(name: str, kernel: str, spills: bool = False) -> dict:
     """{"kernel<template arguments>": registers a thread} of each
     instantiation of `kernel` in ROOT's library `name`, from cuobjdump
-    --dump-resource-usage."""
+    --dump-resource-usage; with spills, {...: {"REG": n, "STACK": bytes,
+    "LOCAL": bytes}} (local memory a thread: spills, where it is not 0)."""
     from top_down_renderer_torch import kernels
 
     tool = Path(kernels.find_nvcc()).parent / "cuobjdump"
@@ -139,8 +149,10 @@ def registers(name: str, kernel: str) -> dict:
             args = re.findall(r"L([ib])(\d+)E", fn.group(1))
             key = ", ".join(v if t == "i" else ("false", "true")[int(v)]
                             for t, v in args)
-            found[f"{kernel}<{key}>"] = int(
-                re.search(r"REG:(\d+)", line).group(1))
+            use = {k: (int(m.group(1)) if m else None) for k, m in (
+                (k, re.search(rf"{k}:(\d+)", line))
+                for k in ("REG", "STACK", "LOCAL"))}
+            found[f"{kernel}<{key}>"] = use if spills else use["REG"]
             fn = None
     return found
 
@@ -221,16 +233,40 @@ def hypotheses():
     return hyp, slots, levels, tuple(levels.index(m) for m in mips)
 
 
+def uniform_cell(dev, c, cw, **kw):
+    """(maps, score_tracked's arguments after maps) of a 1024^2 c-class
+    world at f = 1, its cloud shaped by synthetic_setup's kw."""
+    d = synthetic_setup(N, h=1024, w=1024, c=c, **kw)
+    p = d["state"]["particles"]
+    t = [torch.as_tensor(v, device=dev) for v in (
+        d["stencil"], d["scan"], cw, p["init_px"], p["theta"])]
+    return crop_map(torch.as_tensor(d["packed"], device=dev)), (c, *t, 1.0)
+
+
+def pairs(maps, args) -> dict:
+    """The share of a uniform float tracked launch's rows inside their
+    level and of those scored two a warp (torch_parity.tracked_pairs)."""
+    _, fold, ctr, key = cs._tracked_inputs(maps, *args, 1.0)
+    th = args[2].shape[1]
+    skey, perm, kshift = cs.tracked_order(key, ctr, th, 1024)
+    table = torch.tensor([[0, 1024, 1024, 0]], dtype=torch.int32,
+                         device=ctr.device)
+    inside, paired, _ = parity.tracked_pairs(skey, perm, ctr, kshift, th,
+                                             table, fold)
+    return {"inside": float(inside.float().mean()),
+            "paired": float(paired.float().mean())}
+
+
 def tracked_cells(dev):
     """{label: (the kernel's wrapper call, its profiler symbols, the
     windows its blocks stage where ROOT's code kernel stages them, else
+    None, and the float kernel's pairs share where ROOT has it, else
     None)}."""
-    d = synthetic_setup(N, h=1024, w=1024, c=3, cluster=(462, 462, 100),
-                        theta_spread=(0.7, 0.075))
-    p = d["state"]["particles"]
-    t = [torch.as_tensor(v, device=dev) for v in (
-        d["stencil"], d["scan"], CW, p["init_px"], p["theta"])]
-    maps = crop_map(torch.as_tensor(d["packed"], device=dev))
+    clustered = dict(cluster=(462, 462, 100), theta_spread=(0.7, 0.075))
+    maps, args = uniform_cell(dev, 3, CW, **clustered)
+    maps6, args6 = uniform_cell(dev, 6, CW6, **clustered)
+    maps_s, args_s = uniform_cell(dev, 3, CW)
+    t = args[1:-1]  # the clustered cell's arguments between C and f
     spread = synthetic_setup(N, h=1024, w=1024, c=3)
     q = spread["state"]["particles"]
     hyp, slots, levels, bmi = hypotheses()
@@ -247,10 +283,21 @@ def tracked_cells(dev):
         _, table, fold, ctr, key = ms._tracked_inputs(*multi, 1.0)
         windows["buckets"] = cs.launch_windows(multi[0], table, 0, 0, 3,
                                                multi[3], fold, ctr, key)
-    return {"clustered": (lambda: cs.score_tracked(maps, 3, *t, 1.0),
-                          symbols("tracked", 3), windows["clustered"]),
-            "buckets": (lambda: ms.score_tracked_multi(*multi),
-                        symbols("tracked", 3), windows["buckets"])}
+    share = {"c6": None, "spread": None}
+    if not (ARGS.int4 or ARGS.lokf) and hasattr(parity, "tracked_pairs"):
+        share = {"clustered": pairs(maps, args), "c6": pairs(maps6, args6),
+                 "spread": pairs(maps_s, args_s)}
+    cells = {"clustered": (lambda: cs.score_tracked(maps, *args),
+                           symbols("tracked", 3), windows["clustered"],
+                           share.get("clustered")),
+             "buckets": (lambda: ms.score_tracked_multi(*multi),
+                         symbols("tracked", 3), windows["buckets"], None)}
+    if not (ARGS.int4 or ARGS.lokf):  # the float kernel's own cells
+        cells["c6"] = (lambda: cs.score_tracked(maps6, *args6),
+                       symbols("tracked", 6), None, share["c6"])
+        cells["spread"] = (lambda: cs.score_tracked(maps_s, *args_s),
+                           symbols("tracked", 3), None, share["spread"])
+    return cells
 
 
 def init_cells(dev):
@@ -338,8 +385,8 @@ def main() -> int:
               "one_block": ARGS.one_block,
               "card": smoke.card_name_and_limit()}
     both = ARGS.lokf and ARGS.kernel == "tracked"
-    for label, (run, symbols, *windows) in cells.items():
-        windows = windows[0] if windows else None
+    for label, (run, symbols, *extra) in cells.items():
+        windows, share = (extra + [None, None])[:2]
         first = rows(run())
         times, with_pass, on_l2 = [], [], []
         for _ in range(ROUNDS):
@@ -374,6 +421,11 @@ def main() -> int:
                 staged=cs.staged_share(windows),
                 windows=int(windows["staged"].numel()),
                 budget0_ms=on_l2, budget0_median_ms=float(np.median(on_l2)))
+        if share is not None:
+            result[label].update(rows=share)
+    if ARGS.kernel == "tracked" and not (ARGS.int4 or ARGS.lokf):
+        result["registers"] = registers("crop_score", "crop_tracked_kernel",
+                                        spills=True)
     if ARGS.kernel == "init":
         result["registers"] = registers(
             "crop_score_init", "crop_init_lokf_kernel" if ARGS.lokf

@@ -1,0 +1,254 @@
+"""Host-clock A/B of the float tracked path of two checkouts on the card,
+in paired rounds.
+
+Each round runs OLD, NEW, NEW, OLD, one process each (OLD the parent, NEW
+by default this checkout), and each process times at 102,400 particles,
+on the host's clock, synchronised:
+
+  wrapper_c3  crop_score.score_tracked on the clustered cell of
+              tests/time_torch_tracked.py (1024^2 3-class map, the cloud
+              in a 100 px square, thetas in a 0.15 rad band, f = 1);
+  wrapper_c6  the same cloud on a 6-class map (the city's class count);
+  update_d    chip_smoke D's tracked ParticleFilter.update, as
+              tests/time_torch_update.py times it fresh (1024^2 world,
+              res 0.5, the cloud clustered to 100 px, the conv region
+              withheld);
+  update_n1   a tracked update of chip_smoke N1's node (city.png, 1536^2,
+              6 classes): the city drive's first SCANS scans replayed
+              through the node, then the last of their updates that ran
+              the crop path's tracked kernel alone and refit no GMM
+              (pf.gmm_every), repeated from the state it started from
+              (the conv region withheld).
+
+Each is the median of RUNS calls after 5 warm-up calls, and each timed
+update must launch the tracked kernel and no theta search or conv field
+(kernels.LAUNCHES).  Each update also gives the host time of
+crop_score.score_tracked inside it (not synchronised, median over the
+same calls: "_scorer_ms"), the tracked kernel's device time in it
+(chip_smoke.kernel_ms: "_kernel_ms") and, for N1, its plan (chip_smoke's
+PlanLog).  A checkout with crop_score.order_keys also gives the host time
+(not synchronised, median of ORDER_RUNS calls taken in turns, the queue
+drained before each) of the tracked wrapper's two row orders on the
+clustered C = 3 cell's keys: tracked_rows (the single-plane M's) and
+tracked_order (the order kernel, then the sort) ("order_host_us").  Each
+process prints one JSON
+line; last comes the
+summary: for each metric the medians of OLD's and of NEW's processes,
+and for each round NEW's two medians' mean less OLD's, and over the
+rounds their median, least and greatest; and NEW's order_host_us:
+
+    python tests/time_torch_tracked_host.py [--rounds R] OLD_ROOT [NEW_ROOT]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+RUNS = 50
+ORDER_RUNS = 200
+SCANS = 60
+METRICS = ("wrapper_c3", "wrapper_c6", "update_d", "update_n1",
+           "update_d_scorer", "update_n1_scorer", "update_d_kernel",
+           "update_n1_kernel")
+
+
+def child(root: str) -> dict:
+    """The four medians (ms) of the checkout at root."""
+    sys.path[:0] = [root, os.path.join(root, "tests")]
+    import time
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as smoke
+    import city_drive_torch as city_drive
+    from top_down_renderer_torch import kernels
+    from top_down_renderer_torch.filter import crop_score as cs
+    from top_down_renderer_torch.testing import synthetic_setup
+    from top_down_renderer_torch.utils.convert import filter_state_from_numpy
+
+    dev = torch.device("cuda")
+    kernels.build_all()
+    out = {"root": root, "card": smoke.card_name_and_limit()}
+
+    def median(fn):
+        return smoke.median_ms(fn, warmup=5, runs=RUNS)
+
+    cw = {3: [0.1, 1.5, 3.0], 6: [0.1, 1.5, 3.0, 0.7, 1.1, 2.0]}
+    for c in (3, 6):
+        d = synthetic_setup(smoke.N, h=1024, w=1024, c=c,
+                            cluster=(462, 462, 100),
+                            theta_spread=(0.7, 0.075))
+        p = d["state"]["particles"]
+        args = [torch.as_tensor(v, device=dev) for v in (
+            d["stencil"], d["scan"], np.asarray(cw[c], np.float32),
+            p["init_px"], p["theta"])]
+        maps = cs.CropMap(torch.as_tensor(d["packed"], device=dev))
+        out[f"wrapper_c{c}"] = median(
+            lambda: cs.score_tracked(maps, c, *args, 1.0))
+        if c == 3 and hasattr(cs, "order_keys"):
+            out["order_host_us"] = order_host_us(
+                cs, *cs._tracked_inputs(maps, c, *args, 1.0, 1.0)[2:],
+                args[1].shape[1], 1024)
+
+    def tracked_alone(fn):
+        """fn() once; whether it launched the tracked kernel and no
+        theta search or conv field."""
+        before, conv = dict(kernels.LAUNCHES), smoke.conv_calls()
+        fn()
+        d = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        return (d["crop_score_tracked"] >= 1 and d["crop_score_init"] == 0
+                and smoke.conv_calls() == conv)
+
+    scorer, host = cs.score_tracked, []
+
+    def timed_scorer(*args, **kw):
+        t0 = time.perf_counter()
+        got = scorer(*args, **kw)
+        host.append((time.perf_counter() - t0) * 1e3)
+        return got
+
+    def timed_update(label, fn):
+        if not tracked_alone(fn):
+            raise RuntimeError(f"{label}: not the tracked kernel alone")
+        cs.score_tracked = timed_scorer
+        host.clear()
+        out[label] = median(fn)
+        out[f"{label}_scorer"] = float(np.median(host[-RUNS:]))
+        cs.score_tracked = scorer
+        ms = smoke.kernel_ms(fn, ("crop_tracked_kernel<",))
+        out[f"{label}_kernel"] = ms[0] if isinstance(ms, tuple) else ms
+        if not tracked_alone(fn):
+            raise RuntimeError(f"{label}: not the tracked kernel alone")
+
+    pf, world = smoke.big_filter(dev)
+    scan = smoke.scan_at(world, 0, dev)
+    d = synthetic_setup(smoke.N, h=smoke.HW, w=smoke.HW, c=3,
+                        cluster=(smoke.HW // 2, smoke.HW // 2, 100),
+                        theta_spread=(0.7, 0.15))
+    clustered = filter_state_from_numpy(d["state"], dev).replace(step=1)
+    pf._conv_region = lambda mo: None
+
+    def update_d():
+        pf.state, pf._all_have_init = clustered, True
+        pf.update(scan, smoke.RES)
+
+    timed_update("update_d", update_d)
+    del pf, world
+
+    maps, traj, psi = city_drive.city_world()
+    bag = city_drive.make_bag(maps, traj, psi, SCANS)
+    node = city_drive.make_node(particles=smoke.N, device=dev)
+    node.warmup()
+    pf, seen = node.filter, []
+    update = pf.update
+
+    def recorded(scan, res):
+        start = (pf.state, pf._all_have_init, scan.clone(), res)
+        refit = int(pf.state.step) % pf.gmm_every == 0
+        alone = tracked_alone(lambda: update(scan, res))
+        seen.append((len(seen), start if alone and not refit else None))
+
+    pf.update = recorded
+    city_drive.run(node, bag, traj)
+    del pf.update  # the instance attribute: the method again
+    i, start = max((u for u in seen if u[1] is not None),
+                   key=lambda u: u[0])
+    state, init, n1_scan, res = start
+    pf._conv_region = lambda mo: None
+
+    def update_n1():
+        pf.state, pf._all_have_init = state, init
+        pf.update(n1_scan, res)
+
+    timed_update("update_n1", update_n1)
+    with smoke.PlanLog() as plans:
+        update_n1()
+    out["n1_update_index"] = i
+    out["n1_plan"] = f"{plans[-1].path}/{plans[-1].mode}/mip{plans[-1].mip}"
+    torch.cuda.synchronize()
+    return out
+
+
+def order_host_us(cs, ctr, key, groups: int, extent: int) -> dict:
+    """{row order: host us a call} (module docstring)."""
+    import time
+
+    import numpy as np
+    import torch
+
+    fns = {"rows": lambda: cs.tracked_rows(key),
+           "order": lambda: cs.tracked_order(key, ctr, groups, extent)}
+    host = {k: [] for k in fns}
+    for i in range(ORDER_RUNS + 5):
+        for k, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            if i >= 5:
+                host[k].append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return {k: float(np.median(v)) for k, v in host.items()}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--rounds", type=int, default=4)
+    ap.add_argument("--child", help=argparse.SUPPRESS)
+    ap.add_argument("old", nargs="?")
+    ap.add_argument("new", nargs="?", default=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), ".."))
+    args = ap.parse_args()
+    if args.child:
+        import torch
+
+        if not torch.cuda.is_available():
+            print("time_torch_tracked_host: no CUDA device", file=sys.stderr)
+            return 1
+        print(json.dumps(child(args.child)))
+        return 0
+    if args.old is None:
+        ap.error("OLD_ROOT is required")
+    old, new = os.path.abspath(args.old), os.path.abspath(args.new)
+    runs = {old: [], new: []}
+    for r in range(args.rounds):
+        for root in (old, new, new, old):
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--child", root],
+                capture_output=True, text=True)
+            if proc.returncode != 0:
+                sys.stderr.write(proc.stdout + proc.stderr)
+                return proc.returncode
+            got = json.loads(proc.stdout.strip().splitlines()[-1])
+            got["round"] = r
+            print(json.dumps(got), flush=True)
+            runs[root].append(got)
+    summary = {"old": old, "new": new, "rounds": args.rounds,
+               "card": runs[new][0]["card"]}
+    for m in METRICS:
+        diffs = [(runs[new][2 * r][m] + runs[new][2 * r + 1][m]) / 2
+                 - (runs[old][2 * r][m] + runs[old][2 * r + 1][m]) / 2
+                 for r in range(args.rounds)]
+        summary[m] = {
+            "old_ms": [x[m] for x in runs[old]],
+            "new_ms": [x[m] for x in runs[new]],
+            "old_median_ms": statistics.median(x[m] for x in runs[old]),
+            "new_median_ms": statistics.median(x[m] for x in runs[new]),
+            "new_less_old_ms": diffs,
+            "median_ms": statistics.median(diffs),
+            "least_ms": min(diffs), "greatest_ms": max(diffs)}
+    if "order_host_us" in runs[new][0]:
+        summary["order_host_us"] = {
+            k: statistics.median(x["order_host_us"][k] for x in runs[new])
+            for k in runs[new][0]["order_host_us"]}
+    print(json.dumps(summary))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

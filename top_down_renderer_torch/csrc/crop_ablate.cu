@@ -13,8 +13,16 @@
 //   2 no_gather    each lane reads the particle's centre pixel, not its own
 //   3 gather_only  the pixels summed without weights, no weight fold
 //   4 fold_only    the per-run fold, no pixel loop
-// Each variant's output depends on what it keeps (crop_tracked.cuh), and
-// probes/crop_ablate.py holds a plain version of each.
+//   5 checked      every stage, every row through the bounds-checked loop
+//                  one row a warp (the production kernel before its rows
+//                  inside the level went unchecked, two a warp)
+// Variants 0-3 run the production kernel's loop: rows inside their level
+// unchecked, two a warp.  Each variant's output depends on what it keeps
+// (crop_tracked.cuh), and probes/crop_ablate.py holds a plain version of
+// each.  The rows come in the order the caller sorted them: by group and
+// position (crop_score.tracked_order, as the production wrapper sorts
+// them) or by group alone (kshift 0, tracked_rows), so that the order's
+// share can be timed too.
 //
 // Bound: as the tracked kernel's, less the stages knocked out (the FMAs of
 // 2 (C + 1) float32 FLOPs per distinct pixel and particle, or the compact
@@ -43,9 +51,11 @@ __global__ void __launch_bounds__(kThreads, 2)
                        const int* __restrict__ skey,
                        const long long* __restrict__ perm,
                        const int2* __restrict__ centers, int N, float inv_tr,
-                       float* __restrict__ out) {
+                       float* __restrict__ out, int kshift) {
+  __shared__ Window window;  // the rows' centres and the bucket's extent
   tracked_body<C, V>(map, table, H, W, scan, cw, pix, npix, order, seg, Th,
-                     R, P, skey, perm, centers, N, inv_tr, out);
+                     R, P, skey, perm, centers, N, inv_tr, out, nullptr,
+                     nullptr, nullptr, &window, kshift);
 }
 
 template <int C, int V>
@@ -54,7 +64,7 @@ cudaError_t launch(const float* map, const int* table, int H, int W,
                    const int* npix, const int* order, const int* seg, int Th,
                    int R, int P, const int* skey, const long long* perm,
                    const int* centers, int N, float inv_tr, float* out,
-                   cudaStream_t stream) {
+                   int kshift, cudaStream_t stream) {
   static int ready_dev = -1;
   static size_t ready_smem = 0;
   auto kern = crop_ablate_kernel<C, V>;
@@ -64,7 +74,7 @@ cudaError_t launch(const float* map, const int* table, int H, int W,
   kern<<<(N + kTile - 1) / kTile, kThreads, smem, stream>>>(
       map, reinterpret_cast<const int4*>(table), H, W, scan, cw,
       reinterpret_cast<const int2*>(pix), npix, order, seg, Th, R, P, skey,
-      perm, reinterpret_cast<const int2*>(centers), N, inv_tr, out);
+      perm, reinterpret_cast<const int2*>(centers), N, inv_tr, out, kshift);
   return cudaGetLastError();
 }
 
@@ -75,18 +85,19 @@ cudaError_t launch_variant(int variant, const float* map, const int* table,
                            const int* seg, int Th, int R, int P,
                            const int* skey, const long long* perm,
                            const int* centers, int N, float inv_tr,
-                           float* out, cudaStream_t stream) {
+                           float* out, int kshift, cudaStream_t stream) {
 #define TDR_ABLATE_CASE(V)                                                 \
   case V:                                                                  \
     return launch<C, V>(map, table, H, W, scan, cw, pix, npix, order, seg, \
                         Th, R, P, skey, perm, centers, N, inv_tr, out,     \
-                        stream);
+                        kshift, stream);
   switch (variant) {
     TDR_ABLATE_CASE(kFull)
     TDR_ABLATE_CASE(kNoFold)
     TDR_ABLATE_CASE(kNoGather)
     TDR_ABLATE_CASE(kGatherOnly)
     TDR_ABLATE_CASE(kFoldOnly)
+    TDR_ABLATE_CASE(kChecked)
     default: return cudaErrorInvalidValue;
   }
 #undef TDR_ABLATE_CASE
@@ -95,10 +106,10 @@ cudaError_t launch_variant(int variant, const float* map, const int* table,
 }  // namespace
 
 // Plain C entry point (loaded with ctypes); returns the CUDA error of its
-// launch.  variant 0-4 as above; the other arguments are those of
+// launch.  variant 0-5 as above; the other arguments are those of
 // tdr_crop_score_tracked (table null: one map of H x W) or of
 // tdr_crop_score_multi_tracked (table (K, 4): the buckets' levels; H, W
-// unused), with C in {3, 6}.
+// unused), with C in {3, 6}, kshift (0..30) after out.
 extern "C" int tdr_crop_ablate(int variant, const float* map,
                                const int* table, int K, int H, int W, int C,
                                const float* scan, const float* cw,
@@ -106,19 +117,20 @@ extern "C" int tdr_crop_ablate(int variant, const float* map,
                                const int* order, const int* seg, int Th,
                                int R, int P, const int* skey,
                                const long long* perm, const int* centers,
-                               int N, float inv_tr, float* out,
+                               int N, float inv_tr, float* out, int kshift,
                                void* stream) {
-  if (table && (K < 1 || K > kMaxBuckets)) return (int)cudaErrorInvalidValue;
+  if ((table && (K < 1 || K > kMaxBuckets)) || kshift < 0 || kshift > 30)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C) {
     case 3:
       return (int)launch_variant<3>(variant, map, table, H, W, scan, cw, pix,
                                     npix, order, seg, Th, R, P, skey, perm,
-                                    centers, N, inv_tr, out, s);
+                                    centers, N, inv_tr, out, kshift, s);
     case 6:
       return (int)launch_variant<6>(variant, map, table, H, W, scan, cw, pix,
                                     npix, order, seg, Th, R, P, skey, perm,
-                                    centers, N, inv_tr, out, s);
+                                    centers, N, inv_tr, out, kshift, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

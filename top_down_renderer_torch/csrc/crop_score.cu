@@ -33,7 +33,9 @@
 //     block scan; bound by the latency of its barrier-separated steps, see
 //     the kernel);
 //   - the wrapper sorts the particles by group = bucket * Th + shift (one
-//     stable device sort); block i of the tracked kernel takes sorted rows
+//     stable device sort; with the hi/lo M of the keys crop_order_kernel
+//     writes, the group above the Morton code of the centre's tile); block
+//     i of the tracked kernel takes sorted rows
 //     [i kTile, (i + 1) kTile) and walks them run by run, one group a run;
 //   - for each run the block folds the weights of its shift into W[u] = (C
 //     cost weights, one norm weight, the cell count) in shared memory, each
@@ -44,7 +46,14 @@
 //     C + 2 FMAs a pixel, then a fixed butterfly sum, and the row goes back
 //     to its particle through the sort's permutation.
 // kf is an integer count of known cells times 1/(Th R), exact as in the
-// plain version.
+// plain version.  The gather's loads, and the instructions around each (a
+// bounds test, a 64-bit address, C + 3 shared-memory loads), bound it, not
+// L2's bytes (PERF.md §6).  So each shift group's rows go in the order of
+// their centres' positions (crop_score.tracked_order: a block's rows lie
+// close together, and their windows meet in L1); a row whose stencil lies
+// inside its level reads pixel u at its base plus u's offset with no
+// bounds check, and a warp scores two such rows at once, each pixel's
+// offset and weights read once for both (crop_tracked.cuh).
 //
 // The tracked kernel's body lives in crop_tracked.cuh, which
 // csrc/crop_ablate.cu includes too, to time it with stages knocked out.
@@ -122,8 +131,39 @@ constexpr int kDigitBits = 8;      // the widest radix digit
 constexpr int kBins = 1 << kDigitBits;
 constexpr size_t kHistBytes = (size_t)kFoldWarps * (kBins + 1) * sizeof(int);
 constexpr int kPad = 1 << 29;  // (dy, dx) of a padding pixel: PAD_PIX
+constexpr int kOrderThreads = 256;  // a row a thread
 
-// The tracked kernel: its body (crop_tracked.cuh) with every stage on.
+// v's bits 0-15 moved to the even bit positions 0-30 (bit i to bit 2i)
+__device__ __forceinline__ unsigned spread_bits(unsigned v) {
+  v &= 0xffffu;
+  v = (v | (v << 8)) & 0x00ff00ffu;
+  v = (v | (v << 4)) & 0x0f0f0f0fu;
+  v = (v | (v << 2)) & 0x33333333u;
+  v = (v | (v << 1)) & 0x55555555u;
+  return v;
+}
+
+// The hi/lo tracked kernels' sort keys (crop_score.order_keys), one row a
+// thread: the group key in the bits from kshift up, and below it the
+// Morton code of the centre's tile, min(max(centre, 0), hi) >> tbits, the
+// tile row's bits at the odd positions and its column's at the even ones.
+// In place of the wrapper's eager ops (a clamp, shifts, a table gather and
+// ors), which cost more host time than the order saves on the card.
+__global__ void __launch_bounds__(kOrderThreads)
+    crop_order_kernel(const long long* __restrict__ key,
+                      const int2* __restrict__ ctr, int N, int kshift,
+                      int tbits, int hi, int* __restrict__ out) {
+  const int i = blockIdx.x * kOrderThreads + threadIdx.x;
+  if (i >= N) return;
+  const int2 c = ctr[i];
+  const unsigned ty = (unsigned)min(max(c.x, 0), hi) >> tbits;
+  const unsigned tx = (unsigned)min(max(c.y, 0), hi) >> tbits;
+  out[i] = (int)(((unsigned)key[i] << kshift) | (spread_bits(ty) << 1) |
+                 spread_bits(tx));
+}
+
+// The tracked kernel: its body (crop_tracked.cuh) with every stage on, its
+// keys' group from bit kshift up (tracked_body).
 template <int C>
 __global__ void __launch_bounds__(kThreads, 2)
     crop_tracked_kernel(const float* __restrict__ map,  // (pixels, CP)
@@ -138,9 +178,12 @@ __global__ void __launch_bounds__(kThreads, 2)
                         const int* __restrict__ skey,        // (N)
                         const long long* __restrict__ perm,  // (N)
                         const int2* __restrict__ centers,    // (N) cy, cx
-                        int N, float inv_tr, float* __restrict__ out) {
+                        int N, float inv_tr, float* __restrict__ out,
+                        int kshift) {
+  __shared__ Window window;  // the rows' centres and the bucket's extent
   tracked_body<C, kFull>(map, table, H, W, scan, cw, pix, npix, order, seg,
-                         Th, R, P, skey, perm, centers, N, inv_tr, out);
+                         Th, R, P, skey, perm, centers, N, inv_tr, out,
+                         nullptr, nullptr, nullptr, &window, kshift);
 }
 
 // The same body on the code map (pixels, CP/2) with its qinv (8), each
@@ -668,8 +711,8 @@ size_t window_smem(int TR, int P, int budget) {
 }
 
 // Launch the tracked kernel on the float map (qinv null) or, with I4, on
-// the code map and its qinv (K buckets, the buffer's pixels, the keys'
-// group shift and the window's budget: crop_tracked_i4_kernel).
+// the code map and its qinv (K buckets, the buffer's pixels and the
+// window's budget: crop_tracked_i4_kernel); kshift: the keys' group shift.
 template <int C, bool I4>
 cudaError_t launch(const void* map, const float* qinv, const int* table,
                    int H, int W, const float* scan, const float* cw,
@@ -703,7 +746,7 @@ cudaError_t launch(const void* map, const float* qinv, const int* table,
     if (err != cudaSuccess) return err;
     kern<<<grid, kThreads, smem, stream>>>(
         static_cast<const float*>(map), tbl, H, W, scan, cw, px, npix, order,
-        seg, Th, R, P, skey, perm, ctr, N, inv_tr, out);
+        seg, Th, R, P, skey, perm, ctr, N, inv_tr, out, kshift);
   }
   return cudaGetLastError();
 }
@@ -792,39 +835,60 @@ extern "C" int tdr_crop_fold(const int* off, int K, int TR, int P, int* out,
   return (int)cudaGetLastError();
 }
 
+// key (N) int64 group keys, ctr (N) int2 centres (cy, cx); out (N) int32:
+// the keys crop_order_kernel writes.  kshift and tbits as
+// crop_score.order_bits gives them (kshift even, <= 30; the tiles fit 15
+// bits), hi = 2^(kshift / 2 + tbits) - 1.
+extern "C" int tdr_crop_order(const long long* key, const int* ctr, int N,
+                              int kshift, int tbits, int hi, int* out,
+                              void* stream) {
+  if (N < 1 || kshift < 0 || kshift > 30 || tbits < 0 || tbits > 30 ||
+      hi < 0 || (hi >> tbits) >= (1 << 16))
+    return (int)cudaErrorInvalidValue;
+  crop_order_kernel<<<(N + kOrderThreads - 1) / kOrderThreads,
+                      kOrderThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      key, reinterpret_cast<const int2*>(ctr), N, kshift, tbits, hi, out);
+  return (int)cudaGetLastError();
+}
+
 // map: the compact (H, W, CP) map; scan (C, Th, R) and cw (C): the scan
 // and the class weights; pix, npix, order, seg, P: tdr_crop_fold's output;
-// skey (N) int32, perm (N) int64: the particles' group keys (shift at one
-// scale) sorted stably, and the sort's permutation; centers (N) int2 (cy, cx);
-// out (N, 3).
+// skey (N) int32, perm (N) int64: the particles' sorted keys, each row's
+// group (shift at one scale) in its bits from kshift (0..30) up and its
+// place in the group's position order below (crop_score.tracked_order;
+// kshift 0: the group keys sorted stably, tracked_rows), and the sort's
+// permutation; centers (N) int2 (cy, cx); out (N, 3).  The rows' order
+// changes no bit of any particle's output.
 extern "C" int tdr_crop_score_tracked(
     const float* map, int H, int W, int C, const float* scan,
     const float* cw, const int* pix, const int* npix, const int* order,
     const int* seg, int Th, int R, int P, const int* skey,
     const long long* perm, const int* centers, int N, float inv_tr,
-    float* out, void* stream) {
+    float* out, int kshift, void* stream) {
+  if (kshift < 0 || kshift > 30) return (int)cudaErrorInvalidValue;
   return by_classes(C, [&](auto cc) {
     return (int)launch<decltype(cc)::value, false>(
         map, nullptr, nullptr, H, W, scan, cw, pix, npix, order, seg, Th, R,
         P, skey, perm, centers, N, inv_tr, out,
-        static_cast<cudaStream_t>(stream));
+        static_cast<cudaStream_t>(stream), 1, 0, kshift);
   });
 }
 
 // K buckets: compact pyramid (pixels, CP) with table (K, 4) of (pixel
-// offset, H, W, -) per bucket; the group keys are bucket * Th + shift.
+// offset, H, W, -) per bucket; the keys' groups are bucket * Th + shift.
 extern "C" int tdr_crop_score_multi_tracked(
     const float* pyramid, const int* table, int K, int C, const float* scan,
     const float* cw, const int* pix, const int* npix, const int* order,
     const int* seg, int Th, int R, int P, const int* skey,
     const long long* perm, const int* centers, int N, float inv_tr,
-    float* out, void* stream) {
-  if (K < 1 || K > kMaxBuckets) return (int)cudaErrorInvalidValue;
+    float* out, int kshift, void* stream) {
+  if (K < 1 || K > kMaxBuckets || kshift < 0 || kshift > 30)
+    return (int)cudaErrorInvalidValue;
   return by_classes(C, [&](auto cc) {
     return (int)launch<decltype(cc)::value, false>(
         pyramid, nullptr, table, 0, 0, scan, cw, pix, npix, order, seg, Th, R,
         P, skey, perm, centers, N, inv_tr, out,
-        static_cast<cudaStream_t>(stream));
+        static_cast<cudaStream_t>(stream), K, 0, kshift);
   });
 }
 

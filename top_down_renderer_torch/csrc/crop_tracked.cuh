@@ -38,13 +38,17 @@ constexpr int kSlabs = 1;
 //                scattered loads go);
 //   kGatherOnly  the pixels are summed without weights (no weight fold);
 //   kFoldOnly    the weights are folded per run, and each particle writes
-//                one folded pixel's weights (no pixel loop).
+//                one folded pixel's weights (no pixel loop);
+//   kChecked     every stage, but every row through the bounds-checked
+//                loop, one row a warp (no unchecked loop, no pairs): the
+//                loop the float kernel ran before its rows went inside.
 enum : int {
   kFull = 0,
   kNoFold = 1,
   kNoGather = 2,
   kGatherOnly = 3,
   kFoldOnly = 4,
+  kChecked = 5,
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -113,7 +117,11 @@ __device__ __forceinline__ void load_codes(const unsigned char* p,
                  q[ch], nq[ch]);
 }
 
-// -- the code map's window (crop_tracked_i4_kernel) ------------------------
+// -- the rows' centres and the code map's window ---------------------------
+// The hi/lo bodies (crop_tracked_kernel, crop_tracked_i4_kernel and the
+// ablation) keep their block's rows' centres and the bucket's extent here:
+// a row whose centre +- the extent lies in its level is inside, and skips
+// the bounds check.  The code kernel also stages a window here.
 // A block of the code kernel scores its rows of one bucket from a window of
 // the bucket's level staged in shared memory: the box of the rows' centres
 // +- the extent of the bucket's distinct pixels, clipped to the level, each
@@ -302,20 +310,28 @@ size_t lokf_smem_bytes(int P) {
 // where the bucket changes.  The code map's codes are weighed as they are
 // (q = 1 in load_codes), not dequantized.
 //
-// I4 without LOKF (crop_tracked_i4_kernel): the code map's window (Window,
-// stage_window).  skey holds the group in its bits from kshift up and the
-// row's place in the group's position order below (crop_score.
-// tracked_order); s_key keeps the group.  s_pix and the weights take the
-// stride tight_stride(npix, K), and the window the bytes from the end of
-// the scan tables to smem_size, at most budget (0: every block gathers from
-// L2).  At each bucket change the block loads the bucket's pixel offsets
-// and their extent, warp 0 stages the window (its copies start before the
-// fold, which hides them), and the block waits for them after the fold;
-// the lanes then read each pixel's codes from the window, under the same
-// level bounds check (none for a row whose every pixel is in the level; a
-// warp scores two such rows at once, each pixel's offset and weights read
-// once for both).  The codes read, and so the arithmetic and the output,
-// are those of the gather from L2.
+// Without LOKF (the hi/lo M, on either map): skey holds the group in its
+// bits from kshift up and the row's place in the group's position order
+// below (crop_score.tracked_order; kshift 0: tracked_rows' keys); s_key
+// keeps the group, win->ctr the rows' centres.  At each bucket change the
+// block loads the bucket's pixel offsets and their extent (win->e); a row
+// whose centre +- the extent lies in its level reads pixel u at its own
+// base plus u's offset with no bounds check, and a warp scores two such
+// rows at once, each pixel's offset and weights read once for both;
+// every other row takes the checked loop.  Each row's sums run in the
+// same order on either route, so the output is the checked loop's bit for
+// bit.
+// (kChecked and kFoldOnly keep the checked loop for every row.)
+//
+// I4 without LOKF (crop_tracked_i4_kernel) also stages the code map's
+// window (Window, stage_window).  s_pix and the weights take the stride
+// tight_stride(npix, K), and the window the bytes from the end of the scan
+// tables to smem_size, at most budget (0: every block gathers from L2).
+// At each bucket change warp 0 stages the window (its copies start before
+// the fold, which hides them), and the block waits for them after the
+// fold; the lanes then read each pixel's codes from the window, under the
+// same level bounds check.  The codes read, and so the arithmetic and the
+// output, are those of the gather from L2.
 template <int C, int V, bool I4 = false, bool LOKF = false>
 __device__ __forceinline__ void tracked_body(
     const MapElem<I4>* __restrict__ map,  // (pixels, CP) or (pixels, CP/2)
@@ -341,6 +357,8 @@ __device__ __forceinline__ void tracked_body(
   static_assert(!I4 || V == kFull, "only the whole body reads codes");
   static_assert(!LOKF || V == kFull, "only the whole body has one plane");
   constexpr bool kWeights = V != kGatherOnly;  // folds the weights
+  // the unchecked loop for rows inside their level
+  constexpr bool kInside = !LOKF && V != kChecked && V != kFoldOnly;
   constexpr bool kWin = I4 && !LOKF;  // stages windows of codes
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_key[kTile];
@@ -403,11 +421,14 @@ __device__ __forceinline__ void tracked_body(
       s_ss[i] = sum;
     }
   }
-  if constexpr (kWin) {  // the groups, and the rows' centres
+  if constexpr (kInside) {  // the groups, and the rows' centres
     for (int r = threadIdx.x; r < rows; r += kThreads) {
       s_key[r] = skey[row0 + r] >> kshift;
       win->ctr[r] = centers[perm[row0 + r]];
     }
+  } else if constexpr (!LOKF) {
+    for (int r = threadIdx.x; r < rows; r += kThreads)
+      s_key[r] = skey[row0 + r] >> kshift;
   } else {
     for (int r = threadIdx.x; r < rows; r += kThreads)
       s_key[r] = skey[row0 + r];
@@ -450,7 +471,7 @@ __device__ __forceinline__ void tracked_body(
     for (int ch = 0; ch <= C; ++ch) rq[ch] = __frcp_rn(__ldg(qinv + ch));
   }
   int U = 0;  // distinct pixels of the folded group
-  // LOKF, kWin: the bucket whose pixels s_pix holds
+  // LOKF, kInside: the bucket whose pixels s_pix holds
   [[maybe_unused]] int pb = -1;
   [[maybe_unused]] int nst = 0;  // kWin: the windows staged and waited for
   for (int run0 = 0, nrun = 0; run0 < rows; ++nrun) {
@@ -482,8 +503,8 @@ __device__ __forceinline__ void tracked_body(
     } else if (V != kNoFold || run0 == 0) {
       const int sR = (g - b * Th) * R;
       U = npix[b];
-      [[maybe_unused]] const bool fresh = kWin && b != pb;
-      if constexpr (kWin) {
+      [[maybe_unused]] const bool fresh = kInside && b != pb;
+      if constexpr (kInside) {
         if (fresh) {  // the bucket's pixels and their extent, its window
           int4 e = make_int4(INT_MAX, INT_MIN, INT_MAX, INT_MIN);
           for (int u = threadIdx.x; u < U; u += kThreads) {
@@ -499,13 +520,25 @@ __device__ __forceinline__ void tracked_body(
                         __reduce_max_sync(full, e.w));
           if (lane == 0) win->ext[threadIdx.x >> 5] = e;
           // barrier 1: the other warps hand their extents to warp 0 and go
-          // on to the fold; warp 0 waits for them and stages the window
+          // on to the fold; warp 0 waits for them, and records the block's
+          // extent (and, on the code map, stages the window)
           if (threadIdx.x < 32) {
             asm volatile("bar.sync 1, %0;" ::"r"(kThreads) : "memory");
-            stage_window<kPixelElems>(
-                win, s_key, run0, rows, Th, b,
-                table ? table[b] : make_int4(0, H, W, 0), map, pixels,
-                s_win, cap);
+            if constexpr (kWin) {
+              stage_window<kPixelElems>(
+                  win, s_key, run0, rows, Th, b,
+                  table ? table[b] : make_int4(0, H, W, 0), map, pixels,
+                  s_win, cap);
+            } else {
+              e = lane < kWarps ? win->ext[lane]
+                                : make_int4(INT_MAX, INT_MIN, INT_MAX,
+                                            INT_MIN);
+              e = make_int4(__reduce_min_sync(full, e.x),
+                            __reduce_max_sync(full, e.y),
+                            __reduce_min_sync(full, e.z),
+                            __reduce_max_sync(full, e.w));
+              if (lane == 0) win->e = e;
+            }
           } else {
             asm volatile("bar.arrive 1, %0;" ::"r"(kThreads) : "memory");
           }
@@ -533,7 +566,7 @@ __device__ __forceinline__ void tracked_body(
           s_w[C * SP + u] = wn;
           s_w[(C + 1) * SP + u] = (float)(hi - lo);
         }
-        if constexpr (!kWin) s_pix[u] = pix[(size_t)b * P + u];
+        if constexpr (!kInside) s_pix[u] = pix[(size_t)b * P + u];
       }
       __syncthreads();
       if constexpr (kWin) {
@@ -543,45 +576,70 @@ __device__ __forceinline__ void tracked_body(
 
     const int4 lv = table ? table[b] : make_int4(0, H, W, 0);
     const MapElem<I4>* level = map + (size_t)lv.x * kPixelElems;
-    if constexpr (kWin) {
-      // the run's rows, each pixel's codes from the window (on_window) or
-      // from L2: the float kernel's FMAs and sums on them, each row's in
-      // the same order.  A row whose every pixel lies in the level (inside:
-      // its centre +- the bucket's extent) reads pixel u at its own base
-      // plus u's offset, with no bounds check; a warp takes its rows r and
-      // r + kWarps together where both are inside, each pixel's offset and
-      // weights loaded once for the two.
+    if constexpr (kInside) {
+      // the run's rows, each pixel's values from the map or, on the code
+      // map, its codes from the window (on_window) or from L2 (the float
+      // kernel's FMAs and sums on them), each row's in the same order.  A
+      // row whose every pixel lies in the level (inside: its centre +- the
+      // bucket's extent) reads pixel u at its own base plus u's offset,
+      // with no bounds check; a warp takes its rows r and r + kWarps
+      // together where both are inside, each pixel's offset and weights
+      // loaded once for the two.
       const int4 e = win->e;
       const int y0 = win->y0, x0 = win->x0, c0 = win->c0;
       const int pitch = win->pitch;
       auto score = [&](auto on_window) {
         constexpr bool kStaged = decltype(on_window)::value;
-        // the bytes from one row of the source to the next
+        using Elem = const MapElem<I4>;
+        // the elements from one row of the source to the next
         const int rb = kStaged ? pitch : lv.z * kPixelElems;
-        auto load = [&](const unsigned char* at, float (&v)[CP]) {
-          if constexpr (kStaged)
+        auto load = [&](Elem* at, float (&v)[CP]) {
+          if constexpr (!I4)
+            load_pixel<CP>(at, v);
+          else if constexpr (kStaged)
             load_codes<C, CP, true>(at, q, nq, v);
           else
             load_codes<C, CP>(at, q, nq, v);
         };
-        // pixel u's codes v weighed into row acc (cost, norm, kf)
+        // pixel u's values v weighed into row acc (cost, norm, kf); with
+        // kGatherOnly summed unweighed
         auto weigh = [&](const float (&w)[C + 2], const float (&v)[CP],
                          float (&acc)[3]) {
           float a = 0.f;
+          if constexpr (kWeights) {
 #pragma unroll
-          for (int ch = 0; ch < C; ++ch) a = fmaf(w[ch], v[ch], a);
-          acc[0] += a;
-          acc[1] = fmaf(w[C], v[C], acc[1]);
-          acc[2] = fmaf(w[C + 1], v[C], acc[2]);
+            for (int ch = 0; ch < C; ++ch) a = fmaf(w[ch], v[ch], a);
+            acc[0] += a;
+            acc[1] = fmaf(w[C], v[C], acc[1]);
+            acc[2] = fmaf(w[C + 1], v[C], acc[2]);
+          } else {
+#pragma unroll
+            for (int ch = 0; ch < C; ++ch) a += v[ch];
+            acc[0] += a;
+            acc[1] += v[C];
+            acc[2] += v[C];
+          }
         };
         auto weights = [&](int u, float (&w)[C + 2]) {
+          if constexpr (kWeights) {
 #pragma unroll
-          for (int ch = 0; ch < C + 2; ++ch) w[ch] = s_w[ch * SP + u];
+            for (int ch = 0; ch < C + 2; ++ch) w[ch] = s_w[ch * SP + u];
+          }
         };
         auto inside = [&](int r) {
           const int2 ctr = win->ctr[r];
           return ctr.x + e.x >= 0 && ctr.x + e.y < lv.y &&
                  ctr.y + e.z >= 0 && ctr.y + e.w < lv.z;
+        };
+        // the pixel row r reads at offset 0: its centre or, with kNoGather,
+        // its centre clamped into the level (the one pixel it reads)
+        auto origin = [&](int r) {
+          const int2 ctr = win->ctr[r];
+          if constexpr (V == kNoGather)
+            return make_int2(min(max(ctr.x, 0), lv.y - 1),
+                             min(max(ctr.y, 0), lv.z - 1));
+          else
+            return ctr;
         };
         auto finish = [&](int r, float (&acc)[3]) {
           acc[0] = warp_sum(acc[0]);
@@ -597,20 +655,24 @@ __device__ __forceinline__ void tracked_body(
         // NR rows rr, every one inside
         auto inside_rows = [&](auto nr, const int* rr) {
           constexpr int NR = decltype(nr)::value;
-          const unsigned char* base[NR];
+          Elem* base[NR];
           float acc[NR][3];
 #pragma unroll
           for (int i = 0; i < NR; ++i) {
-            const int2 ctr = win->ctr[rr[i]];
-            base[i] = kStaged ? s_win + c0 + (ctr.x - y0) * pitch +
-                                    (ctr.y - x0) * kPixelElems
+            const int2 ctr = origin(rr[i]);
+            base[i] = kStaged ? reinterpret_cast<Elem*>(
+                                    s_win + c0 + (ctr.x - y0) * pitch +
+                                    (ctr.y - x0) * kPixelElems)
                               : level + ((long long)ctr.x * lv.z + ctr.y) *
                                             kPixelElems;
             acc[i][0] = acc[i][1] = acc[i][2] = 0.f;
           }
           auto pixel = [&](int u) {
-            const int2 o = s_pix[u];
-            const int off = o.x * rb + o.y * kPixelElems;
+            int off = 0;
+            if constexpr (V != kNoGather) {
+              const int2 o = s_pix[u];
+              off = o.x * rb + o.y * kPixelElems;
+            }
             float w[C + 2];
             weights(u, w);
 #pragma unroll
@@ -637,21 +699,27 @@ __device__ __forceinline__ void tracked_body(
             inside_rows(std::integral_constant<int, 1>{}, rr);
             return;
           }
-          const int2 ctr = win->ctr[r];
+          const int2 ctr = origin(r);
           float acc[3] = {0.f, 0.f, 0.f};
 #pragma unroll 4
           for (int u = lane; u < U; u += 32) {
             float v[CP];
 #pragma unroll
             for (int ch = 0; ch < CP; ++ch) v[ch] = 0.f;
-            const int2 o = s_pix[u];
-            const int y = ctr.x + o.x;
-            const int x = ctr.y + o.y;
-            if ((unsigned)y < (unsigned)lv.y && (unsigned)x < (unsigned)lv.z)
-              load(kStaged ? s_win + c0 + (y - y0) * pitch +
-                                 (x - x0) * kPixelElems
-                           : level + ((size_t)y * lv.z + x) * kPixelElems,
-                   v);
+            if constexpr (V == kNoGather) {
+              load(level + ((size_t)ctr.x * lv.z + ctr.y) * kPixelElems, v);
+            } else {
+              const int2 o = s_pix[u];
+              const int y = ctr.x + o.x;
+              const int x = ctr.y + o.y;
+              if ((unsigned)y < (unsigned)lv.y &&
+                  (unsigned)x < (unsigned)lv.z)
+                load(kStaged ? reinterpret_cast<Elem*>(
+                                   s_win + c0 + (y - y0) * pitch +
+                                   (x - x0) * kPixelElems)
+                             : level + ((size_t)y * lv.z + x) * kPixelElems,
+                     v);
+            }
             float w[C + 2];
             weights(u, w);
             weigh(w, v, acc);
@@ -669,10 +737,14 @@ __device__ __forceinline__ void tracked_body(
           }
         }
       };
-      if (win->staged)
-        score(std::true_type{});
-      else
+      if constexpr (kWin) {
+        if (win->staged)
+          score(std::true_type{});
+        else
+          score(std::false_type{});
+      } else {
         score(std::false_type{});
+      }
     } else {
       for (int r = run0 + (threadIdx.x >> 5); r < run1; r += kWarps) {
         const long long p = perm[row0 + r];
@@ -685,47 +757,30 @@ __device__ __forceinline__ void tracked_body(
             acc_k = s_w[(C + 1) * SP + u];
           }
         } else {
+          // every stage (LOKF, kChecked): each pixel under the bounds check
           const int2 ctr = centers[p];
-          // kNoGather: the centre clamped into the level, the same pixel for
-          // every lane and slot
-          const int yc = min(max(ctr.x, 0), lv.y - 1);
-          const int xc = min(max(ctr.y, 0), lv.z - 1);
 #pragma unroll 4
           for (int u = lane; u < U; u += 32) {
             float v[CP];
 #pragma unroll
             for (int ch = 0; ch < CP; ++ch) v[ch] = 0.f;
-            if constexpr (V == kNoGather) {
-              load_pixel<CP>(level + ((size_t)yc * lv.z + xc) * CP, v);
-            } else {
-              const int2 o = s_pix[u];
-              const int y = ctr.x + o.x;
-              const int x = ctr.y + o.y;
-              if ((unsigned)y < (unsigned)lv.y &&
-                  (unsigned)x < (unsigned)lv.z) {
-                if constexpr (I4)
-                  load_codes<C, CP>(
-                      level + ((size_t)y * lv.z + x) * kPixelElems, q, nq, v);
-                else
-                  load_pixel<CP>(level + ((size_t)y * lv.z + x) * CP, v);
-              }
+            const int2 o = s_pix[u];
+            const int y = ctr.x + o.x;
+            const int x = ctr.y + o.y;
+            if ((unsigned)y < (unsigned)lv.y && (unsigned)x < (unsigned)lv.z) {
+              if constexpr (I4)
+                load_codes<C, CP>(
+                    level + ((size_t)y * lv.z + x) * kPixelElems, q, nq, v);
+              else
+                load_pixel<CP>(level + ((size_t)y * lv.z + x) * CP, v);
             }
-            if constexpr (kWeights) {
-              float a = 0.f;
+            float a = 0.f;
 #pragma unroll
-              for (int ch = 0; ch < C; ++ch)
-                a = fmaf(s_w[ch * SP + u], v[ch], a);
-              acc_c += a;
-              acc_n = fmaf(s_w[C * SP + u], v[C], acc_n);
-              acc_k = fmaf(s_w[(C + 1) * SP + u], v[C], acc_k);
-            } else {
-              float a = 0.f;
-#pragma unroll
-              for (int ch = 0; ch < C; ++ch) a += v[ch];
-              acc_c += a;
-              acc_n += v[C];
-              acc_k += v[C];
-            }
+            for (int ch = 0; ch < C; ++ch)
+              a = fmaf(s_w[ch * SP + u], v[ch], a);
+            acc_c += a;
+            acc_n = fmaf(s_w[C * SP + u], v[C], acc_n);
+            acc_k = fmaf(s_w[(C + 1) * SP + u], v[C], acc_k);
           }
           acc_c = warp_sum(acc_c);
           acc_n = warp_sum(acc_n);

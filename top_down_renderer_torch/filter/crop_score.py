@@ -53,13 +53,17 @@ stencil folded for the particle's own shift: per pixel, the cost weights
 of its C classes, the norm weight and the count of its cells.  The
 wrapper sorts the particles by shift (bucket * Th + shift over K
 buckets), so that a block of the kernel folds the weights once for each
-run of one shift among its rows (tracked_rows).  The fold of the offsets
-to distinct pixels and their cells, which both kernels read, is a kernel
-of its own (fold_pixels, one launch; fold_offsets is its plain version),
-and a CropMap keeps the last fold for a scale f given as a number, so the
-filter folds its stencil once per map and scale.  tracked_weights and
-folded_scores are the tracked kernel's computation in plain PyTorch, for
-the CPU tests.
+run of one shift among its rows, and with the hi/lo M each shift's rows
+by the position of their centres (tracked_order, its keys one launch of
+the order kernel, order_keys; with the single-plane M by shift alone,
+tracked_rows): a row whose stencil lies inside its level
+reads its pixels without a bounds check, two such rows a warp.  The fold
+of the offsets to distinct pixels and their cells, which both kernels
+read, is a kernel of its own (fold_pixels, one launch; fold_offsets is
+its plain version), and a CropMap keeps the last fold for a scale f
+given as a number, so the filter folds its stencil once per map and
+scale.  tracked_weights and folded_scores are the tracked kernel's
+computation in plain PyTorch, for the CPU tests.
 
 Both wrappers take the map as a CropMap: the packed map at one mip level
 with its compact copy, made once and kept beside it.
@@ -88,10 +92,10 @@ The plain versions score dequantize_int4 of the same codes
 float32 sums (and, in the theta search, where qinv enters; rel 1e-4),
 kf bit for bit.  The conv path's map (CropMap.compact) stays float32 either
 way, as the JAX conv field reads the unquantized map.  The tracked code
-kernel (with the hi/lo M) takes its rows in tracked_order, each shift
-group's by the position of their centres, and each block stages its
-window of codes in shared memory where it fits (WINDOW_BUDGET,
-tracked_window_cap); tracked_windows is the rule in plain PyTorch.
+kernel (with the hi/lo M) takes its rows in tracked_order, as the float
+one does, and each block stages its window of codes in shared memory
+where it fits (WINDOW_BUDGET, tracked_window_cap); tracked_windows is
+the rule in plain PyTorch.
 The theta search on the code map (and on the float map with the
 single-plane M, below) takes its rows in init_order, each bucket's by the
 position of their centres, and a warp whose rows' windows all lie in
@@ -505,26 +509,6 @@ def tracked_rows(key: torch.Tensor):
     return torch.sort(key.to(torch.int32), stable=True)
 
 
-_MORTON_BITS = 15  # bits of a tile coordinate the Morton tables spread
-_MORTON = {}  # device -> (the two tables back to back, their offsets)
-
-
-def _morton_tables(device):
-    """((2 * 2^15,) int32, (2,) int32): each tile coordinate's bits spread
-    to the odd bit positions (the row's) and to the even ones (the
-    column's), back to back, and the offsets of the two tables; made once
-    a device, on the device (no copy from the host, which would block)."""
-    if device not in _MORTON:
-        v = torch.arange(1 << _MORTON_BITS, dtype=torch.int32, device=device)
-        spread = torch.zeros_like(v)
-        for i in range(_MORTON_BITS):
-            spread |= ((v >> i) & 1) << (2 * i)
-        _MORTON[device] = (
-            torch.cat([spread << 1, spread]),
-            torch.arange(2, dtype=torch.int32, device=device) << _MORTON_BITS)
-    return _MORTON[device]
-
-
 def order_bits(groups: int, extent: int):
     """(kshift, tbits) of tracked_order for `groups` groups on levels of at
     most `extent` pixels a side: the group in the bits of a non-negative
@@ -537,24 +521,55 @@ def order_bits(groups: int, extent: int):
 
 def tracked_order(key: torch.Tensor, ctr: torch.Tensor, groups: int,
                   extent: int):
-    """The code tracked kernel's rows: the particles in stable order of
+    """The hi/lo tracked kernels' rows: the particles in stable order of
     their group keys (bucket * Th + shift < groups) and, within a group,
     of the Morton code of their centre's tile on its level (ctr (N, 2)
     int32 (cy, cx), clamped into the tiles; extent bounds the levels'
-    sides; order_bits), so that a block's rows lie close together and
-    its window of codes is small.  Returns (sorted keys int32: the group
-    in the bits from kshift up, the Morton code below; perm int64,
-    kshift).  One stable device sort of 32-bit keys, no host read, as
-    tracked_rows; tracked_order_plain is its plain twin.  Each particle's
-    score is its own: the order changes no bit of the output."""
+    sides; order_bits), so that a block's rows lie close together (their
+    windows meet in L1, and the code kernel's staged window is small).
+    Returns (sorted keys int32: the group in the bits from kshift up, the
+    Morton code below; perm int64, kshift).  The keys (order_keys: one
+    launch on the card), then one stable device sort of them, no host
+    read, as tracked_rows; tracked_order_plain is its plain twin.  Each
+    particle's score is its own: the order changes no bit of the
+    output."""
     kshift, tbits = order_bits(groups, extent)
-    tables, offsets = _morton_tables(ctr.device)
-    tile = ctr.clamp(0, (1 << (kshift // 2 + tbits)) - 1) >> tbits
-    spread = tables[tile + offsets]
-    morton = spread[:, 0] | spread[:, 1]
-    skey, perm = torch.sort((key.to(torch.int32) << kshift) | morton,
-                            stable=True)
+    skey, perm = torch.sort(order_keys(key, ctr, kshift, tbits), stable=True)
     return skey, perm, kshift
+
+
+def order_keys(key: torch.Tensor, ctr: torch.Tensor, kshift: int,
+               tbits: int) -> torch.Tensor:
+    """tracked_order's keys before the sort, (N,) int32: each group key
+    (N,) in the bits from kshift up, and below them the Morton code of
+    the centre's tile (ctr (N, 2) int32 (cy, cx), clamped into the tiles,
+    >> tbits; the row's bits at the odd positions).  On the card one
+    launch of the order kernel (csrc/crop_score.cu, counted as
+    "crop_order"), in place of order_keys_plain's eager ops; on the CPU it
+    is order_keys_plain itself."""
+    if not kernels.on_card(ctr.device, "order keys"):
+        return order_keys_plain(key, ctr, kshift, tbits)
+    n = ctr.shape[0]
+    key = key.to(torch.int64).contiguous()
+    _require(ctr, "ctr", (n, 2), torch.int32, key.device, contiguous=True)
+    out = torch.empty(n, dtype=torch.int32, device=ctr.device)
+    if n:
+        kernels.launch("crop_score", "tdr_crop_order", ptr(key), ptr(ctr), n,
+                       kshift, tbits, (1 << (kshift // 2 + tbits)) - 1,
+                       ptr(out))
+        kernels.LAUNCHES["crop_order"] += 1
+    return out
+
+
+def order_keys_plain(key, ctr, kshift: int, tbits: int) -> torch.Tensor:
+    """order_keys in eager PyTorch: the tiles clamped and shifted, their
+    bits interleaved one by one under the group key."""
+    tile = ctr.clamp(0, (1 << (kshift // 2 + tbits)) - 1) >> tbits
+    out = key.to(torch.int32) << kshift
+    for i in range(kshift // 2):
+        out |= ((tile[:, 0] >> i) & 1) << (2 * i + 1)
+        out |= ((tile[:, 1] >> i) & 1) << (2 * i)
+    return out
 
 
 def tracked_order_plain(key, ctr, groups: int, extent: int):
@@ -711,11 +726,13 @@ def launch_tracked(base: str, maps, table, h: int, w: int, num_classes: int,
     tables' fold (fold_pixels).  With the single-plane M (maps.m_hilo
     False) the kernel takes maps.m_qinv and the weights table and scales
     of every (bucket, shift) (tracked_table, one launch before it) in
-    place of the scan, the class weights and the CSR.  On the code map with
-    the hi/lo M the rows go in tracked_order (each group's by position)
-    and the kernel stages each block's window of codes in shared memory
-    where it fits, at most WINDOW_BUDGET bytes (read at each call; 0: no
-    block does).  Returns (cost, norm, kf) (N,)."""
+    place of the scan, the class weights and the CSR.  With the hi/lo M
+    the rows go in tracked_order (each group's by position), and the
+    kernel takes the keys' group shift: a row inside its level skips the
+    bounds check, two a warp.  On the code map the kernel also stages each
+    block's window of codes in shared memory where it fits, at most
+    WINDOW_BUDGET bytes (read at each call; 0: no block does).  Returns
+    (cost, norm, kf) (N,)."""
     name = entry_name(base, maps)
     operand, qinv = map_operand(maps, num_classes)
     th, r = scan.shape[1:]
@@ -725,16 +742,18 @@ def launch_tracked(base: str, maps, table, h: int, w: int, num_classes: int,
         pix, npix, order, seg = fold
         window = maps.int4 and maps.m_hilo
         tail = ()
-        if window:  # the code kernel's order, group shift and budget
+        if maps.m_hilo:  # the rows by position, and the keys' group shift
             skey, perm, kshift = tracked_order(key, ctr, pix.shape[0] * th,
                                                _level_extent(maps, h, w))
+            tail = (kshift,)
+        else:
+            skey, perm = tracked_rows(key)
+        if window:  # the code kernel's budget
             budget = int(WINDOW_BUDGET)
             if budget and operand.data_ptr() % 16:
                 raise ValueError("a code map whose window is staged must "
                                  "start on a 16-byte boundary")
-            tail = (kshift, budget)
-        else:
-            skey, perm = tracked_rows(key)
+            tail += (budget,)
         inv_tr = float(np.float32(1.0) / np.float32(th * r))
         # kept alive until the asynchronous launch has read them
         scan, class_weights = scan.contiguous(), class_weights.contiguous()

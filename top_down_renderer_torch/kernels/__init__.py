@@ -47,6 +47,7 @@ NVCC_FLAGS = (
 # kernel launches by name (reset by callers that count a run)
 LAUNCHES = {
     "crop_fold": 0,
+    "crop_order": 0,
     "crop_score_tracked": 0,
     "crop_score_init": 0,
     "crop_score_multi_tracked": 0,
@@ -99,21 +100,24 @@ _SIGNATURES = {
     "crop_score": {
         # offsets, K, TR, P, out, stream
         "tdr_crop_fold": (_P, _I, _I, _I, _P, _P),
+        # group keys, centres, N, kshift, tbits, hi, out, stream
+        "tdr_crop_order": (_P, _P, _I, _I, _I, _I, _P, _P),
         # compact map, H, W, C, scan, class weights, pix, npix, order, seg,
-        # Th, R, P, sorted keys, perm, centers, N, inv_tr, out, stream
+        # Th, R, P, sorted keys, perm, centers, N, inv_tr, out, the keys'
+        # group shift, stream
         "tdr_crop_score_tracked": (
             _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
-            _I, _F, _P, _P,
+            _I, _F, _P, _I, _P,
         ),
         # compact pyramid, table, K, then as above from C on
         "tdr_crop_score_multi_tracked": (
             _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
-            _I, _F, _P, _P,
+            _I, _F, _P, _I, _P,
         ),
         # the code map and its qinv (8) in place of the compact map, then
         # as the float entry points from H (table, K and the code pyramid's
-        # pixels) on, and after out the keys' group shift and the window's
-        # budget in bytes
+        # pixels) on, and after the keys' group shift the window's budget
+        # in bytes
         "tdr_crop_score_tracked_i4": (
             _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
             _P, _I, _F, _P, _I, _I, _P,
@@ -241,10 +245,10 @@ _SIGNATURES = {
     },
     "crop_ablate": {
         # variant, compact map, table (or null), K, H, W, then as
-        # tdr_crop_score_tracked from C on
+        # tdr_crop_score_tracked from C on (the keys' group shift after out)
         "tdr_crop_ablate": (
             _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-            _P, _P, _P, _I, _F, _P, _P,
+            _P, _P, _P, _I, _F, _P, _I, _P,
         ),
     },
     "crop_ablate_init": {

@@ -33,7 +33,9 @@ hold them to their definitions, and no time is measured.
           product must repeat bit for bit;
   ablate  K3 (csrc/crop_ablate.cu): the tracked crop kernel's variants on
           a 1024^2 6-class map at 102,400 particles, spread, clustered and
-          over K buckets; `full` held bit for bit to the production kernel.
+          over K buckets, each with its rows in both orders (position, the
+          production wrapper's, and key); `full` held bit for bit to the
+          production kernel in both, `checked` to `full`.
   ablate_init
           K4 (csrc/crop_ablate_init.cu): the theta search's variants
           (probes/crop_ablate.py's INIT_VARIANTS) at 102,400 particles on a
@@ -50,6 +52,7 @@ Every record's profile_tries says how many profiles its kernel time took
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import subprocess
 import sys
@@ -631,6 +634,7 @@ def _ablate_bound(variant, work):
     compact map and the inputs read once, (N, 3) written."""
     n, pixels, runs, cells, c, inputs = work
     ops = {"full": 2 * (c + 1) * pixels, "no_fold": 2 * (c + 1) * pixels,
+           "checked": 2 * (c + 1) * pixels,
            "no_gather": 2 * (c + 1) * pixels,
            "gather_only": (c + 1) * pixels,
            "fold_only": (c + 1) * cells * runs}[variant]
@@ -638,9 +642,11 @@ def _ablate_bound(variant, work):
 
 
 def run_ablate(dev, seed: int = 0, n: int = N, cases=None):
-    """Every variant of each case (ablate_cases, or the caller's):
-    `full` bit for bit against the production kernel and, as chip_smoke
-    holds that kernel, against its plain version; the others against
+    """Every variant of each case (ablate_cases, or the caller's) with its
+    rows in each order (crop_ablate.ORDERS; records of the "key" order
+    named "<probe> key"): `full` bit for bit against the production
+    kernel and, as chip_smoke holds that kernel, against its plain
+    version, and `checked` bit for bit against `full`; the others against
     their plain versions at REL_TOL."""
     recs = []
     for label, production, ablate, plain, args in (
@@ -648,42 +654,45 @@ def run_ablate(dev, seed: int = 0, n: int = N, cases=None):
         multi = production is ms.score_tracked_multi
         work = _ablate_work(args, multi)
         prod = uncounted(lambda: production(*args))
-        for variant in ca.VARIANTS:
-            def run(variant=variant):
-                return ablate(variant, *args)
+        for order, variant in itertools.product(ca.ORDERS, ca.VARIANTS):
+            def run(variant=variant, order=order):
+                return ablate(variant, *args, order=order)
 
-            def ref(variant=variant):
-                return plain(variant, *args)
+            def ref(variant=variant, order=order):
+                return plain(variant, *args, order=order)
 
             want, plain_ms = once(dev, ref)
             got = run()
             rel = _max_rel(got, want)
-            if variant == "full":
-                check(all(torch.equal(g.view(torch.int32), p.view(torch.int32))
-                          for g, p in zip(got, prod)),
-                      f"{label}: full differs from the production kernel")
+            name = f"ablate/{label}/{variant}" + (
+                "" if order == "position" else " key")
+            if variant in ("full", "checked"):  # and so checked is full
+                check(all(_same_bits(g, p) for g, p in zip(got, prod)),
+                      f"{name}: differs from the production kernel")
                 # as chip_smoke holds the tracked kernel: kf equal, cost
                 # and norm where kf >= 0.5
                 ok = want[2] >= 0.5
                 rel = _max_rel([g[ok] for g in got[:2]],
                                [w[ok] for w in want[:2]])
                 check(torch.equal(got[2], want[2]) and rel <= REL_TOL,
-                      f"{label}: full rel {rel:.3e} from the plain version")
+                      f"{name}: rel {rel:.3e} from the plain version")
             else:
-                check(rel <= REL_TOL, f"{label} {variant}: rel {rel:.3e} "
-                      "from its plain version")
+                check(rel <= REL_TOL, f"{name}: rel {rel:.3e} from its plain "
+                      "version")
             t = timing(dev, "crop_ablate", run, plain_ms)
             ops, moved = _ablate_bound(variant, work)
-            rec = _record(f"ablate/{label}/{variant}", "crop_ablate",
+            rec = _record(name, "crop_ablate",
                           "tests/exp_crop_ablate.py:39",
                           "bit for bit to the production kernel"
-                          if variant == "full" else
+                          if variant in ("full", "checked") else
                           f"rel <= {REL_TOL} to its plain version",
                           float(max((g - w).abs().max() for g, w in
                                     zip(got, want))),
                           particles=work[0], pixels_per_particle=work[1]
-                          / work[0], runs=work[2], max_rel_err=rel)
-            if variant == "full" and dev.type == "cuda":
+                          / work[0], runs=work[2], max_rel_err=rel,
+                          order=order)
+            if (variant, order) == ("full", "position") and \
+                    dev.type == "cuda":
                 prod_t = timing(dev, "crop_score_tracked",
                                 lambda: production(*args), None)
                 rec.update(production_ms=prod_t["kernel_ms"],

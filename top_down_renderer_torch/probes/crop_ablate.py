@@ -24,6 +24,17 @@ variants (VARIANTS):
   fold_only    the per-run fold and no pixel loop: particle at sorted row
                j writes slot u = j % U of its group's folded weights: (cost
                weight of class 0, norm weight, count / (Th R))
+  checked      every stage, every row through the bounds-checked loop one
+               row a warp (no row skips the check, no warp takes two):
+               full's output bit for bit, its plain version full's
+The first four run the production kernel's loop (a row inside its level
+unchecked, two such rows a warp).  Each takes order= (ORDERS): "position"
+(the default), the rows as the production wrapper sorts them
+(crop_score.tracked_order: each shift group's by the position of their
+centres), or "key", by group alone (tracked_rows), so that the order's
+share of the time can be measured too; "checked" under "key" is the
+production kernel as it was before its rows went in position order.
+Only no_fold and fold_only depend on the order (a block's rows).
 On CPU tensors each runs its plain version (crop_ablate_plain,
 crop_ablate_multi_plain; public, any device); on CUDA tensors it launches
 the kernel (C = 3 or 6), counted in kernels.LAUNCHES["crop_ablate"].
@@ -84,42 +95,56 @@ from top_down_renderer_torch.filter import multiscale as ms
 from top_down_renderer_torch.filter.scoring import rotation_shift
 from top_down_renderer_torch.kernels import ptr
 
-VARIANTS = ("full", "no_fold", "no_gather", "gather_only", "fold_only")
+VARIANTS = ("full", "no_fold", "no_gather", "gather_only", "fold_only",
+            "checked")
+ORDERS = ("position", "key")  # K3's row orders
 INIT_VARIANTS = ("full", "one_plane", "no_gather", "gather_only",
                  "ring_only", "no_promote")
 CLASSES = (3, 6)  # the class counts the kernels are built for
 _CHUNK = 4096  # particles a chunk of the plain version
 
 
+def ablation_rows(order: str, key, ctr, groups: int, extent: int):
+    """The sorted rows of a K3 launch: (keys int32, perm int64, the keys'
+    group shift): crop_score.tracked_order's, as the production wrapper
+    sorts them ("position"), or tracked_rows' at shift 0 ("key")."""
+    if order == "position":
+        return cs.tracked_order(key, ctr, groups, extent)
+    return (*cs.tracked_rows(key), 0)
+
+
 def _launch(variant, compact, table, h, w, num_classes, scan, class_weights,
-            fold, ctr, key):
-    """Sort the particles by group key as crop_score.launch_tracked does
-    and launch variant `variant` of the ablation kernel."""
+            fold, ctr, key, order, extent):
+    """Sort the particles in `order` (ablation_rows; extent: the levels'
+    longest side) and launch variant `variant` of the ablation kernel."""
     if num_classes not in CLASSES:
         raise ValueError(f"the ablation kernel is built for C in {CLASSES}")
     th, r = scan.shape[1:]
     n = ctr.shape[0]
     out = torch.empty((n, 3), dtype=torch.float32, device=ctr.device)
     if n:
-        pix, npix, order, seg = fold
-        skey, perm = cs.tracked_rows(key)
+        pix, npix, cells, seg = fold
+        skey, perm, kshift = ablation_rows(order, key, ctr,
+                                           pix.shape[0] * th, extent)
         inv_tr = float(np.float32(1.0) / np.float32(th * r))
         scan, class_weights = scan.contiguous(), class_weights.contiguous()
         kernels.launch(
             "crop_ablate", "tdr_crop_ablate", VARIANTS.index(variant),
             ptr(compact), None if table is None else ptr(table),
             0 if table is None else table.shape[0], h, w, num_classes,
-            ptr(scan), ptr(class_weights), ptr(pix), ptr(npix), ptr(order),
+            ptr(scan), ptr(class_weights), ptr(pix), ptr(npix), ptr(cells),
             ptr(seg), th, r, pix.shape[1], ptr(skey), ptr(perm), ptr(ctr), n,
-            ctypes.c_float(inv_tr), ptr(out),
+            ctypes.c_float(inv_tr), ptr(out), kshift,
         )
         kernels.LAUNCHES["crop_ablate"] += 1
     return out[:, 0], out[:, 1], out[:, 2]
 
 
-def _variant(variant: str) -> None:
+def _variant(variant: str, order: str = "position") -> None:
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got {variant}")
+    if order not in ORDERS:
+        raise ValueError(f"order must be one of {ORDERS}, got {order}")
 
 
 def _float_map(maps) -> None:
@@ -131,50 +156,54 @@ def _float_map(maps) -> None:
 
 
 def crop_ablate(variant, maps, num_classes, stencil, scan, class_weights,
-                center_px, theta, f, map_resolution: float = 1.0):
+                center_px, theta, f, map_resolution: float = 1.0,
+                order: str = "position"):
     """Variant `variant` of the uniform tracked kernel on maps (a
-    CropMap), with score_tracked's arguments."""
-    _variant(variant)
+    CropMap), with score_tracked's arguments, its rows in `order`."""
+    _variant(variant, order)
     _float_map(maps)
     if not kernels.on_card(maps.packed.device, "crop ablation"):
         return crop_ablate_plain(variant, maps, num_classes, stencil, scan,
                                  class_weights, center_px, theta, f,
-                                 map_resolution)
+                                 map_resolution, order)
     compact, fold, ctr, shift = cs._tracked_inputs(
         maps, num_classes, stencil, scan, class_weights, center_px, theta,
         f, map_resolution)
     h, w = maps.packed.shape[:2]
     return _launch(variant, compact, None, h, w, num_classes, scan,
-                   class_weights, fold, ctr, shift)
+                   class_weights, fold, ctr, shift, order,
+                   cs._level_extent(maps, h, w))
 
 
 def crop_ablate_multi(variant, pyr, num_classes, stencil, scan,
                       class_weights, center_px, theta, scale, slot_vals,
-                      bucket_level, res, map_resolution: float = 1.0):
+                      bucket_level, res, map_resolution: float = 1.0,
+                      order: str = "position"):
     """Variant `variant` of the K-bucket tracked kernel, with
-    score_tracked_multi's arguments."""
-    _variant(variant)
+    score_tracked_multi's arguments, its rows in `order`."""
+    _variant(variant, order)
     _float_map(pyr)
     if not kernels.on_card(pyr.flat.device, "crop ablation"):
         return crop_ablate_multi_plain(
             variant, pyr, num_classes, stencil, scan, class_weights,
             center_px, theta, scale, slot_vals, bucket_level, res,
-            map_resolution)
+            map_resolution, order)
     compact, table, fold, ctr, key = ms._tracked_inputs(
         pyr, num_classes, stencil, scan, class_weights, center_px, theta,
         scale, slot_vals, bucket_level, res, map_resolution)
     return _launch(variant, compact, table, 0, 0, num_classes, scan,
-                   class_weights, fold, ctr, key)
+                   class_weights, fold, ctr, key, order,
+                   cs._level_extent(pyr, 0, 0))
 
 
 # -- plain versions ----------------------------------------------------------
 def crop_ablate_plain(variant, maps, num_classes, stencil, scan,
                       class_weights, center_px, theta, f,
-                      map_resolution: float = 1.0):
+                      map_resolution: float = 1.0, order: str = "position"):
     """Plain version of crop_ablate (any device)."""
-    _variant(variant)
+    _variant(variant, order)
     packed = maps.packed
-    if variant == "full":
+    if variant in ("full", "checked"):
         return cs.score_tracked_plain(packed, num_classes, stencil, scan,
                                       class_weights, center_px, theta, f,
                                       map_resolution)
@@ -186,16 +215,17 @@ def crop_ablate_plain(variant, maps, num_classes, stencil, scan,
     ctr = cs.crop_centers(center_px, map_resolution).to(packed.device)
     key = rotation_shift(theta, scan.shape[1]).to(packed.device)
     return ablated_scores(variant, compact, table, fold, ctr, key, scan,
-                          class_weights, num_classes)
+                          class_weights, num_classes, order, max(h, w))
 
 
 def crop_ablate_multi_plain(variant, pyr, num_classes, stencil, scan,
                             class_weights, center_px, theta, scale,
                             slot_vals, bucket_level, res,
-                            map_resolution: float = 1.0):
+                            map_resolution: float = 1.0,
+                            order: str = "position"):
     """Plain version of crop_ablate_multi (any device)."""
-    _variant(variant)
-    if variant == "full":
+    _variant(variant, order)
+    if variant in ("full", "checked"):
         return ms.score_tracked_multi_plain(
             pyr, num_classes, stencil, scan, class_weights, center_px, theta,
             scale, slot_vals, bucket_level, res, map_resolution)
@@ -206,30 +236,33 @@ def crop_ablate_multi_plain(variant, pyr, num_classes, stencil, scan,
     key = bucket * th + rotation_shift(theta, th).to(bucket.device)
     return ablated_scores(variant, cs.compact_map(pyr.flat, num_classes),
                           table, cs.fold_offsets(off), ctr, key, scan,
-                          class_weights, num_classes)
+                          class_weights, num_classes, order,
+                          cs._level_extent(pyr, 0, 0))
 
 
 def ablated_scores(variant, compact, table, fold, ctr, key, scan,
-                   class_weights, num_classes: int):
+                   class_weights, num_classes: int, order: str,
+                   extent: int):
     """The knocked-out variants' (cost, norm, kf) (N,) in plain PyTorch:
     compact (pixels, CP); table (K, 4) of each bucket's level (pixel
     offset, H, W, -); fold: fold_offsets of the K offset tables; ctr (N, 2)
     (cy, cx) on the particle's level; key (N,) bucket * Th + shift.  The
-    rows go in crop_score.tracked_rows' order, TRACKED_TILE to a block,
-    as the kernel takes them."""
+    rows go in `order` (ablation_rows; extent: the levels' longest side),
+    TRACKED_TILE to a block, as the kernel takes them."""
     c = num_classes
     th, r = scan.shape[1:]
     dev = compact.device
-    pix, npix, order, seg = fold
-    w = cs.tracked_weights(scan, class_weights, order, seg).double()
-    skey, perm = cs.tracked_rows(key)
+    pix, npix, cells, seg = fold
+    w = cs.tracked_weights(scan, class_weights, cells, seg).double()
+    skey, perm, kshift = ablation_rows(order, key, ctr, pix.shape[0] * th,
+                                       extent)
     n = skey.shape[0]
     rows = torch.arange(n, device=dev)
-    group = skey.long()
+    group = skey.long() >> kshift
+    lv = table.long()[group // th]  # each row's own level
     if variant == "no_fold":  # the weights of the block's first run
         group = group[rows // cs.TRACKED_TILE * cs.TRACKED_TILE]
     bw, sw = group // th, group % th
-    lv = table.long()[skey.long() // th]  # each row's own level
     nslot = npix.long()[bw]
     inv_tr = float(np.float32(1.0) / np.float32(th * r))
     out = torch.empty((n, 3), dtype=torch.float64, device=dev)
