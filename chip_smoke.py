@@ -13,7 +13,8 @@ Phases (any failure exits non-zero before the result line):
      (fails without the tool or without the instructions); and, per
      variant of K4, its HGMMA, global loads, bulk copies and mbarrier
      operations: the variants that keep a product hold HGMMA (one_plane a
-     third of full's), gather_only and ring_only none, gather_only every
+     third of full's, checked as many), gather_only and ring_only none,
+     gather_only every
      window load and ring_only none of them; and, per instantiation of the
      theta search, its HGMMA and global and shared-memory loads (LDG,
      LDS): each code-map twin (crop_init_i4_kernel) two thirds of its
@@ -37,11 +38,16 @@ Phases (any failure exits non-zero before the result line):
      cell's rows and on every tile coordinate); the theta search's
      raw rows (its raw-row epilogue) against score_init_raw_plain: kf bit
      for bit, nums and dens within rel 1e-4, and select_init_cost of the
-     kernel's rows the argmin of the theta-search kernel on >= 99.9 %;
+     kernel's rows the argmin of the theta-search kernel on >= 99.9 %,
+     also on a cloud clustered to 100 px; the theta search (rows by
+     position, an unchecked gather for warps inside their level), at f =
+     1.0 and 0.5 and on the clustered cloud, argmin and raw rows bit for
+     bit in the particles' order;
   B2. the K-bucket crop kernels against their plain versions on the
      same map with the 10 init hypotheses 10^{k/10} at res 0.5 (the
      levels the dispatch picks), and per bucket against the uniform
-     kernel on that bucket's mip level; the K-bucket raw rows as in B;
+     kernel on that bucket's mip level; the K-bucket raw rows as in B,
+     and the K-bucket theta search bit for bit in the particles' order;
      the fill kernel against its plain version;
   B3. the crop kernels on the nibble-packed code map (TDR_MAP_INT4=1;
      CropMap(int4=True), build_pyramid_maps(int4=True)) at B's inputs
@@ -244,10 +250,13 @@ Phases (any failure exits non-zero before the result line):
      by key alone; a line each), `full` and `checked` bit for bit against
      the production kernel and the others against their plain versions
      at REL_TOL; the theta search with stages knocked out
-     (K4: one_plane, no_gather, gather_only, ring_only, no_promote) on
-     D's crop-init spread cell, the TPU clone's 6-class spread cloud and
-     D2's multi-init cell, `full` bit for bit against the production
-     theta search (argmin and raw rows, uniform and K-bucket), every
+     (K4: one_plane, no_gather, gather_only, ring_only, no_promote, and
+     checked, every warp through the bounds-checked gather) on D's
+     crop-init spread cell, the TPU clone's 6-class spread cloud and D2's
+     multi-init cell, every variant with its rows by position (as the
+     production wrappers order them), full and checked also in the
+     particles' order, `full` and `checked` bit for bit against the
+     production theta search (argmin and raw rows, uniform and K-bucket), every
      variant against its plain version (rel 1e-4, k a near-argmin), with
      the production kernel's time and `full`'s wrapper split into inputs,
      M build and launch; one JSON line a probe, a line whenever a kernel
@@ -589,10 +598,11 @@ def log_ablate_init_sass() -> dict:
     """Count, per variant of K4 (CP 4, argmin rows), its tensor-core
     products (HGMMA), global loads (LDG), bulk copies (UBLKCP) and
     mbarrier operations (SYNCS), so that no knocked-out stage took a kept
-    one with it: full, one_plane, no_gather and no_promote hold HGMMA
-    (one_plane a third of full's), gather_only and ring_only none;
-    gather_only holds every global load full does, ring_only fewer (no
-    window); each holds the ring's bulk copies."""
+    one with it: full, one_plane, no_gather, no_promote and checked hold
+    HGMMA (one_plane a third of full's, checked as many as full),
+    gather_only and ring_only none; gather_only holds every global load
+    full does, ring_only fewer (no window); each holds the ring's bulk
+    copies."""
     sass = read_sass("crop_ablate_init")
     counts, current = {}, None
     for line in sass.splitlines():
@@ -610,7 +620,7 @@ def log_ablate_init_sass() -> dict:
         log(f"[A] crop_ablate_init {v} (CP 4, argmin): {c}")
     hg = {v: c["HGMMA"] for v, c in counts.items()}
     check(all(hg[v] > 0 for v in ("full", "no_gather", "no_promote"))
-          and 3 * hg["one_plane"] == hg["full"]
+          and 3 * hg["one_plane"] == hg["full"] == hg["checked"]
           and hg["gather_only"] == hg["ring_only"] == 0,
           f"K4's tensor-core products by variant: {hg}")
     ldg = {v: c["LDG"] for v, c in counts.items()}
@@ -932,7 +942,15 @@ def phase_b(dev, errs):
         compare(f"B C={C} f={f}", errs, CROP, *crop_pair(args, theta, f),
                 need_gated=True)
         compare_raw(f"B raw C={C} f={f}", errs, RAW[0], *raw_triple(args, f))
+        init_orders(f"B init order C={C} f={f}", "crop_score_init",
+                    cs.init_inputs(*args, f))
     errs["abs"]["crop_fold"] = 0.0
+    # a cloud clustered to 100 px (B3's): every warp's windows inside
+    cargs = args[:5] + (torch.as_tensor(np.random.default_rng(3).uniform(
+        462, 562, (N, 2)).astype(np.float32), device=dev),)
+    compare_raw("B clustered raw", errs, RAW[0], *raw_triple(cargs, 1.0))
+    init_orders("B clustered init order", "crop_score_init",
+                cs.init_inputs(*cargs, 1.0))
     init_ms = median_ms(lambda: cs.score_init_sel(*args, 1.0))
     log(f"[B] theta-search kernel at C={C}, f=1.0: {init_ms:.4f} ms")
     torch.cuda.synchronize()
@@ -994,6 +1012,8 @@ def phase_b2(dev, errs, b_args, theta):
             *multi_pair(args, theta, scale, slots_t, bmi), need_gated=True)
     compare_raw("B2 multi raw", errs, RAW[1],
                 *multi_raw_triple(args, scale, slots_t, bmi))
+    init_orders("B2 multi init order", "crop_score_multi_init",
+                ms.init_inputs(*args, scale, slots_t, bmi, RES))
 
     check_buckets("B2", args, theta, scale, slots_t, bmi, levels)
 
@@ -1129,18 +1149,12 @@ def phase_b3(dev, errs, b_args, theta):
 
 
 def init_orders(label, base, inputs) -> None:
-    """A window-route theta search (crop_score.launch_init's `base`) on
-    `inputs` (init_inputs': the rows in init_order), argmin and raw rows,
-    bit for bit the same search with each bucket's rows in the particles'
-    order (multiscale.bucket_rows): other warps, other votes on the
-    unchecked gather, the same rows."""
-    perm, row_start = inputs[9], inputs[10]
-    row = torch.arange(perm.shape[0], device=perm.device)
-    bucket = torch.empty_like(perm)
-    bucket[perm.long()] = (torch.searchsorted(row_start, row, right=True)
-                           - 1).to(torch.int32)
-    other = (inputs[:9] + ms.bucket_rows(bucket, row_start.shape[0] - 1)
-             + inputs[11:])
+    """A theta search on the window route (crop_score.launch_init's
+    `base`) on `inputs` (init_inputs': the rows in init_order), argmin and
+    raw rows, bit for bit the same search with each bucket's rows in the
+    particles' order (crop_ablate.init_ablation_rows: other warps, other
+    votes on the unchecked gather, the same rows)."""
+    other = ca.init_ablation_rows("particles", inputs)
     for raw in (False, True):
         got = cs.launch_init(base, inputs, raw)
         want = cs.launch_init(base, other, raw)
@@ -2823,13 +2837,18 @@ def phase_p(dev, pf, world, errs, read_launches, name_limit):
                SCALE_GT * RES))
     cases = [d_case] + probes.ablate_cases(dev)
     i_cases = init_cases(dev, pf, world)
+    # K4: every variant in position order, full and checked in the
+    # particles' order too (the whole grid: probes ablate_init)
+    i_grid = [("position", v) for v in ca.INIT_VARIANTS] + [
+        ("particles", "full"), ("particles", "checked")]
     kernels.reset_launch_counts()
     recs = []
     for label, fn in (
             ("window", probes.run_window), ("mm", probes.run_mm),
             ("ablate", lambda d: probes.run_ablate(d, cases=cases)),
             ("ablate_init",
-             lambda d: probes.run_ablate_init(d, cases=i_cases))):
+             lambda d: probes.run_ablate_init(d, cases=i_cases,
+                                              grid=i_grid))):
         t0 = time.perf_counter()
         recs += fn(dev)
         log(f"[P] {label}: {time.perf_counter() - t0:.1f} s")

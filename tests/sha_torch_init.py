@@ -1,9 +1,10 @@
 """SHA-256 of the window-route theta searches' outputs on the card.
 
-Runs the twelve entries of the theta searches on the window route
-(csrc/crop_score_init.cu: crop_init_i4_kernel, the code map with the
-hi/lo M; crop_init_lokf_kernel, the single-plane M, on the float and on
-the code map), argmin and raw rows, uniform and K-bucket, of the
+Runs the sixteen entries of the theta searches, every one on the window
+route (csrc/crop_score_init.cu: crop_init_kernel, the float map with the
+hi/lo M; crop_init_i4_kernel, the code map with it; crop_init_lokf_kernel,
+the single-plane M, on the float and on the code map), argmin and raw
+rows, uniform and K-bucket, of the
 checkout at ROOT on 102,400 particles over a 1024^2 map of 3 and of 6
 classes: a spread cloud, one clustered to 100 px and one along the map's
 edges (centres within 4 px of a side, inside and past it), uniform at f =
@@ -37,7 +38,8 @@ from top_down_renderer_torch.testing import synthetic_setup  # noqa: E402
 
 N = 102_400
 HW = 1024
-KINDS = {"i4": {"int4": True, "m_hilo": True},
+KINDS = {"hilo": {"int4": False, "m_hilo": True},
+         "i4": {"int4": True, "m_hilo": True},
          "lokf": {"int4": False, "m_hilo": False},
          "i4_lokf": {"int4": True, "m_hilo": False}}
 

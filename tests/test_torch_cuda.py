@@ -1244,16 +1244,18 @@ def test_split_k_repeats_bit_for_bit(dev, a_type):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("order", ca.INIT_ORDERS)
 @pytest.mark.parametrize("variant", ca.INIT_VARIANTS)
 @pytest.mark.parametrize("multi,c,n", [
     (False, 3, N), (False, 6, 193), (True, 3, N), (True, 6, 129),
 ])
-def test_init_ablation_matches_plain(dev, variant, multi, c, n):
-    """Each variant of the theta search's ablation (K4) against its plain
-    version, argmin and raw rows (probes' _close_rows: rel 1e-4, k a
-    near-argmin), on the uniform world (map edges, far-out centres,
-    kf-gated windows, tile edges) and over K = 10 buckets; `full` also
-    against the production kernel bit for bit."""
+def test_init_ablation_matches_plain(dev, variant, order, multi, c, n):
+    """Each variant of the theta search's ablation (K4), its rows in each
+    order, against its plain version, argmin and raw rows (probes'
+    _close_rows: rel 1e-4, k a near-argmin), on the uniform world (map
+    edges, far-out centres, kf-gated windows, tile edges) and over K = 10
+    buckets; `full` and `checked` also against the production kernel bit
+    for bit."""
     if multi:
         args, _, tail = _multi_world(dev, c, 10, 5, n)
         args += tail
@@ -1265,12 +1267,13 @@ def test_init_ablation_matches_plain(dev, variant, multi, c, n):
         fn, plain = ca.crop_ablate_init, ca.crop_ablate_init_plain
         prod = (cs.score_init_sel, cs.score_init_raw)
     before = kernels.LAUNCHES["crop_ablate_init"]
-    got, raw = fn(variant, *args), fn(variant, *args, raw=True)
+    got = fn(variant, *args, order=order)
+    raw = fn(variant, *args, raw=True, order=order)
     want, want_raw = plain(variant, *args), plain(variant, *args, raw=True)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["crop_ablate_init"] == before + 2
     probes._close_rows(variant, got, raw, want, want_raw)
-    if variant == "full":
+    if variant in ("full", "checked"):
         for g, w in zip((*got, *raw), (*prod[0](*args), *prod[1](*args))):
             assert probes._same_bits(g, w)
 
@@ -1788,14 +1791,15 @@ def _init_cloud(centers, cloud, seed):
     return centers
 
 
-WINDOW_KINDS = ("i4", "lokf", "i4_lokf")
+WINDOW_KINDS = ("hilo", "i4", "lokf", "i4_lokf")
 
 
 def _window_maps(kind):
-    """The CropMap arguments of a window-route kind: the code map with the
-    hi/lo M ("i4"), the float map with the single-plane M ("lokf") or the
-    code map with the single-plane M ("i4_lokf")."""
-    return {"int4": kind != "lokf", "m_hilo": kind == "i4"}
+    """The CropMap arguments of a window-route kind: the float map with the
+    hi/lo M ("hilo"), the code map with it ("i4"), the float map with the
+    single-plane M ("lokf") or the code map with it ("i4_lokf")."""
+    return {"int4": kind in ("i4", "i4_lokf"),
+            "m_hilo": kind in ("hilo", "i4")}
 
 
 def _init_sha(outs) -> str:
@@ -1814,7 +1818,7 @@ def _check_window_init(kind, got, ref, num_rot=40):
     versions, within the bounds each kind has always been held to, every
     row whose argmin differs a near tie of the plain rows (_near_ties: a
     clustered cloud's rows share their near ties)."""
-    if kind != "i4":  # the single-plane M
+    if kind in ("lokf", "i4_lokf"):  # the single-plane M
         _check_init_lokf(got[0], ref[0], got[1], ref[1], num_rot,
                          near_ties=True)
         return
@@ -1829,23 +1833,12 @@ def _check_window_init(kind, got, ref, num_rot=40):
         i for i in (5, 6) if i < len(kf)])
 
 
-def _in_particle_order(inputs):
-    """init_inputs' with the rows in the particles' order within each
-    bucket (multiscale.bucket_rows, the other theta searches' order) in
-    place of init_order's: other warps, other votes, the same rows."""
-    perm, row_start = inputs[9], inputs[10]
-    row = torch.arange(perm.shape[0], device=perm.device)
-    bucket = torch.empty_like(perm)
-    bucket[perm.long()] = (torch.searchsorted(row_start, row, right=True)
-                           - 1).to(torch.int32)
-    return (inputs[:9] + ms.bucket_rows(bucket, row_start.shape[0] - 1)
-            + inputs[11:])
-
-
 def _both_orders(base, inputs):
     """A window-route theta search's argmin and raw rows on inputs (in
-    init_order) and on the same inputs in the particles' order."""
-    other = _in_particle_order(inputs)
+    init_order) and on the same inputs with each bucket's rows in the
+    particles' order (crop_ablate.init_ablation_rows: other warps, other
+    votes, the same rows)."""
+    other = ca.init_ablation_rows("particles", inputs)
     return ((cs.launch_init(base, inputs), cs.launch_init(base, inputs, True)),
             (cs.launch_init(base, other), cs.launch_init(base, other, True)))
 

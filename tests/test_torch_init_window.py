@@ -1,14 +1,14 @@
-"""The theta searches' window route on the CPU: crop_init_i4_kernel (the
-code map with the hi/lo M) and crop_init_lokf_kernel on the float and on
-the code map (the single-plane M), csrc/crop_init.cuh: every theta search
-but the float map's with the hi/lo M.
+"""The theta searches' window route on the CPU: crop_init_kernel (the
+float map with the hi/lo M), crop_init_i4_kernel (the code map with it)
+and crop_init_lokf_kernel on the float and on the code map (the
+single-plane M), csrc/crop_init.cuh: every theta search.
 
 The kernels run only on the card (tests/test_torch_cuda.py, marked cuda:
 each entry bit for bit in the particles' order, and against its plain
 version).  Here the wrapper's part is held: the rows' order
 (crop_score.init_order, the code tracked kernel's tracked_order with the
 bucket as the group, against its numpy twin tracked_order_plain), which
-init_inputs takes on the window route and only there; the buckets'
+init_inputs takes for every configuration; the buckets'
 extents (crop_score.init_extent, kept with the fold by fold_extent), on
 which a warp votes that its rows' windows lie in their level (every pixel
 such a row reads lies in it, over centres, K buckets and levels); and the
@@ -16,7 +16,8 @@ unchecked gather, each pixel at its row's base plus its offset at the
 level's row bytes for a warp that votes so, the checked one for the
 others, against pixel_windows, bit for bit.  The theta search's result on
 the CPU under the new order is held to JAX's by the existing tests of
-test_torch_int4.py and test_torch_lokf.py.
+test_torch_crop_score.py, test_torch_multiscale.py, test_torch_int4.py
+and test_torch_lokf.py.
 """
 
 import numpy as np
@@ -33,7 +34,8 @@ from torch_parity import np_
 torch.set_num_threads(2)
 
 TH, R = 100, 25
-KINDS = {"i4": {"int4": True, "m_hilo": True},
+KINDS = {"hilo": {"int4": False, "m_hilo": True},
+         "i4": {"int4": True, "m_hilo": True},
          "lokf": {"int4": False, "m_hilo": False},
          "i4_lokf": {"int4": True, "m_hilo": False}}
 
@@ -130,20 +132,23 @@ def test_init_order_is_tracked_order_plain_by_bucket(where, kind):
 
 
 @pytest.mark.parametrize("where", ["uniform", "buckets"])
-def test_theta_searches_off_the_window_route_keep_their_order(where):
-    """Off the window route (only the float map with the hi/lo M) the rows
-    stay as they were: in the particles' order at a uniform scale (no
-    perm), bucket_rows' over K buckets."""
-    inputs, bucket = _case(where, {"int4": False, "m_hilo": True}, 3)
-    assert not cs.init_window(inputs[0])
-    perm, row_start = inputs[9], inputs[10]
-    if where == "uniform":
-        assert perm is None
-        np.testing.assert_array_equal(np_(row_start), [0, len(bucket)])
-    else:
-        want = ms.bucket_rows(bucket, len(SLOTS))
-        assert torch.equal(perm, want[0])
-        assert torch.equal(row_start, want[1])
+def test_every_theta_search_takes_the_window_route(where):
+    """Every configuration's theta search is on the window route, the
+    float map with the hi/lo M too: its init_inputs' rows are
+    init_order's (perm and row_start), no longer the particles' order
+    (bucket_rows'), and their extents are the fold's."""
+    for kind in KINDS:
+        assert cs.init_window(_case(where, kind, 3, n=40)[0][0])
+    inputs, bucket = _case(where, "hilo", 3)
+    ctr, perm, row_start = inputs[8], inputs[9], inputs[10]
+    k = row_start.shape[0] - 1
+    extent = max(inputs[2:4]) if where == "uniform" else cs._level_extent(
+        inputs[0], 0, 0)
+    want = cs.init_order(bucket, ctr, k, extent)
+    assert torch.equal(perm, want[0]) and torch.equal(row_start, want[1])
+    assert not torch.equal(perm, ms.bucket_rows(bucket, k)[0])
+    np.testing.assert_array_equal(np_(row_start), np_(ms.bucket_rows(
+        bucket, k)[1]))
 
 
 @settings(max_examples=40, deadline=None)
@@ -191,6 +196,7 @@ def test_init_extent_covers_every_pixel_an_inside_row_reads(data):
     ("uniform", "i4", 3), ("uniform", "lokf", 3), ("uniform", "lokf", 1),
     ("uniform", "i4", 6), ("buckets", "i4", 3), ("buckets", "lokf", 6),
     ("buckets", "i4", 1), ("uniform", "i4_lokf", 3), ("buckets", "i4_lokf", 3),
+    ("uniform", "hilo", 3), ("buckets", "hilo", 6), ("uniform", "hilo", 1),
 ])
 def test_init_unchecked_gather_equals_pixel_windows(where, kind, c):
     """Each row's pixels as the kernel reads them (a warp of 16 sorted rows

@@ -799,16 +799,67 @@ def test_bucket_init_variants_follow_their_definitions():
                     acc[:, cs.KF_COL].astype(np.float32) * inv_tr)
             sel = torch.as_tensor(rows)
             np.testing.assert_array_equal(got[2][sel].numpy(), want[2])
-            ok = (want[2] >= 0.5 if variant == "full"
-                  else np.ones(len(rows), bool))
+            exact = variant in ("full", "checked")  # the production's
+            ok = want[2] >= 0.5 if exact else np.ones(len(rows), bool)
             for g, w_ in zip(got[:2], want[:2]):
                 np.testing.assert_allclose(
                     g[sel].numpy()[ok], w_[ok],
-                    rtol=1e-5 if variant == "full" else 1e-6, atol=0,
+                    rtol=1e-5 if exact else 1e-6, atol=0,
                     err_msg=f"{variant}, bucket {b}")
-        if variant != "full":
+        if variant not in ("full", "checked"):
             _same(ca.crop_ablate_multi_init(variant, *args),
                   (*cs.select_best(*got), got[2]))
+
+
+@pytest.mark.parametrize("multi", [False, True])
+def test_init_checked_is_full_in_both_row_orders(multi):
+    """K4's CPU cases in both row orders: `checked` and `full` are the
+    production plain version bit for bit, argmin and raw rows, in
+    position order and in the particles' order, and every other variant's
+    rows do not depend on the order."""
+    if multi:
+        args = _init_multi_args(n=256)
+        fn = ca.crop_ablate_multi_init
+        prod = (ms.score_init_multi_sel_plain, ms.score_init_multi_raw_plain)
+        want = tuple(p(*args) for p in prod)
+    else:
+        args = _init_args(n=256, cluster=None)
+        fn = ca.crop_ablate_init
+        want = (cs.score_init_sel_plain(args[0].packed, *args[1:]),
+                cs.score_init_raw_plain(args[0].packed, *args[1:]))
+    for order in ca.INIT_ORDERS:
+        for variant in ("full", "checked"):
+            _same(fn(variant, *args, order=order), want[0])
+            _same(fn(variant, *args, raw=True, order=order), want[1])
+    for variant in ca.INIT_VARIANTS:
+        _same(fn(variant, *args, raw=True, order="particles"),
+              fn(variant, *args, raw=True))
+    with pytest.raises(ValueError, match="order"):
+        fn("full", *args, order="key")
+
+
+@pytest.mark.parametrize("multi", [False, True])
+def test_init_ablation_rows_in_the_particles_order(multi):
+    """init_ablation_rows: position order leaves init_inputs' rows as
+    they are; the particles' order is the identity at a uniform scale and
+    multiscale.bucket_rows over K buckets, each bucket keeping its rows
+    (row_start) and every row its particle."""
+    if multi:
+        pyr, c, sten, scan, cw, ctr, scale, slots, bmi, res = \
+            _init_multi_args(n=256)
+        inputs = ms.init_inputs(pyr, c, sten, scan, cw, ctr, scale, slots,
+                                bmi, res)
+        bucket = ms._prepare(pyr, sten, ctr, scale, slots, bmi, res, 1.0)[0]
+        want = ms.bucket_rows(bucket, len(bmi))[0]
+    else:
+        inputs = cs.init_inputs(*_init_args(n=256, cluster=None))
+        want = torch.arange(256, dtype=torch.int32)
+    assert ca.init_ablation_rows("position", inputs) is inputs
+    other = ca.init_ablation_rows("particles", inputs)
+    assert other[:9] == inputs[:9] and other[11:] == inputs[11:]
+    assert torch.equal(other[9], want) and other[9].dtype == torch.int32
+    assert not torch.equal(other[9], inputs[9])
+    assert torch.equal(other[10], inputs[10])
 
 
 def test_init_ablation_refuses_unknown_variants_and_classes():
@@ -881,16 +932,22 @@ def test_probe_path_checks_on_the_cpu():
 
 def test_theta_search_ablation_checks_on_the_cpu():
     """probes.run_ablate_init's cases at 256 particles on the CPU: 3 cases
-    times 6 variants, every check holds, no time is measured."""
+    times 7 variants times 2 row orders, every check holds, no time is
+    measured."""
     recs = probes.run_ablate_init(CPU, 0, 256)
-    assert [r["probe"] for r in recs[:6]] == [
-        f"ablate_init/spread C=3/{v}" for v in ca.INIT_VARIANTS]
-    assert len(recs) == 18 and {r["buckets"] for r in recs} == {1, 12}
+    nv = len(ca.INIT_VARIANTS)
+    assert [r["probe"] for r in recs[:2 * nv]] == [
+        f"ablate_init/spread C=3/{v}" for v in ca.INIT_VARIANTS] + [
+        f"ablate_init/spread C=3/{v} particles" for v in ca.INIT_VARIANTS]
+    assert [r["order"] for r in recs[:2 * nv]] == list(np.repeat(
+        ca.INIT_ORDERS, nv))
+    assert len(recs) == 42 and {r["buckets"] for r in recs} == {1, 12}
     assert all(r["kernel_ms"] is None and r["profile_tries"] is None
                and r["replaces"] == "tests/exp_crop_ablate.py:39"
                and r["bound_ms"] > 0 for r in recs)
-    by = {r["probe"].split("/")[-1]: r for r in recs[:6]}
+    by = {r["probe"].split("/")[-1]: r for r in recs[:nv]}
     assert by["one_plane"]["ops"] * 3 == pytest.approx(by["full"]["ops"])
+    assert by["checked"]["ops"] == by["full"]["ops"]
     assert by["gather_only"]["bound_by"] == "bytes"
     assert by["ring_only"]["ops"] == 0.0
     # the bound is the function's bytes for every variant; what gather_only

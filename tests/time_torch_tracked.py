@@ -37,8 +37,10 @@ beside the float ones.  --lokf times the kernels with the single-plane M
 (TDR_M_HILO=0: the CropMap and the pyramid made with m_hilo=False;
 crop_tracked_lokf_kernel, crop_init_lokf_kernel), on the float map or,
 with --int4, on the codes (checkouts that have the single-plane M).  The
-theta searches' cells also give the registers a thread of each
-instantiation of the kernel timed (cuobjdump --dump-resource-usage).  A
+theta searches' cells also give the registers, stack and local bytes a
+thread of each instantiation of the kernel timed (cuobjdump
+--dump-resource-usage), the float kernel's (no --int4 or --lokf) also
+those of its ablation's (K4, crop_ablate_init_kernel).  A
 single-plane tracked call makes two launches, a pass over every (bucket,
 shift) first (the scales pass, or the weights pass, whichever ROOT has)
 and the kernel: each tracked cell then also gives their sum a call
@@ -429,7 +431,10 @@ def main() -> int:
     if ARGS.kernel == "init":
         result["registers"] = registers(
             "crop_score_init", "crop_init_lokf_kernel" if ARGS.lokf
-            else f"crop_init{SUFFIX}_kernel")
+            else f"crop_init{SUFFIX}_kernel", spills=True)
+        if not (ARGS.int4 or ARGS.lokf):  # K4, the float kernel's body
+            result["ablate_registers"] = registers(
+                "crop_ablate_init", "crop_ablate_init_kernel", spills=True)
     print(json.dumps(result))
     return 0
 

@@ -1,9 +1,9 @@
-"""Host-clock A/B of the float tracked path of two checkouts on the card,
-in paired rounds.
+"""Host-clock A/B of the float tracked path, or of the float theta search
+(--path init), of two checkouts on the card, in paired rounds.
 
 Each round runs OLD, NEW, NEW, OLD, one process each (OLD the parent, NEW
 by default this checkout), and each process times at 102,400 particles,
-on the host's clock, synchronised:
+on the host's clock, synchronised, for the tracked path:
 
   wrapper_c3  crop_score.score_tracked on the clustered cell of
               tests/time_torch_tracked.py (1024^2 3-class map, the cloud
@@ -30,14 +30,33 @@ PlanLog).  A checkout with crop_score.order_keys also gives the host time
 (not synchronised, median of ORDER_RUNS calls taken in turns, the queue
 drained before each) of the tracked wrapper's two row orders on the
 clustered C = 3 cell's keys: tracked_rows (the single-plane M's) and
-tracked_order (the order kernel, then the sort) ("order_host_us").  Each
-process prints one JSON
-line; last comes the
-summary: for each metric the medians of OLD's and of NEW's processes,
-and for each round NEW's two medians' mean less OLD's, and over the
-rounds their median, least and greatest; and NEW's order_host_us:
+tracked_order (the order kernel, then the sort) ("order_host_us").
 
-    python tests/time_torch_tracked_host.py [--rounds R] OLD_ROOT [NEW_ROOT]
+For the theta search (--path init, crop_init_kernel: the float map with
+the hi/lo M):
+
+  wrapper_c3  crop_score.score_init_sel on the spread cell of
+              tests/time_torch_tracked.py --kernel init (1024^2 3-class
+              map, f = 1);
+  wrapper_c6  the spread cloud on a 6-class map;
+  update_d    chip_smoke D's crop-init spread update (a fresh spread
+              init of a 1024^2 world's filter, res 0.5, no particle with
+              a theta yet), which must launch the theta search and no
+              tracked kernel or conv field;
+
+with the update's scorer (crop_score.score_init_sel, "_scorer") and
+kernel ("_kernel") as above, and, where the checkout has
+crop_score.init_order, the host time of its rows on the C = 3 cell's
+centres (order_host_us, as above): init_order at one bucket, its sort
+alone (tracked_order) and the sort with the K-bucket form's row_start
+(arange, searchsorted, cat: "search").
+
+Each process prints one JSON line; last comes the summary: for each
+metric the medians of OLD's and of NEW's processes, and for each round
+NEW's two medians' mean less OLD's, and over the rounds their median,
+least and greatest; and NEW's order_host_us:
+
+    python tests/time_torch_tracked_host.py [--path tracked|init] [--rounds R] OLD_ROOT [NEW_ROOT]
 """
 
 from __future__ import annotations
@@ -52,13 +71,15 @@ import sys
 RUNS = 50
 ORDER_RUNS = 200
 SCANS = 60
-METRICS = ("wrapper_c3", "wrapper_c6", "update_d", "update_n1",
-           "update_d_scorer", "update_n1_scorer", "update_d_kernel",
-           "update_n1_kernel")
+METRICS = {"tracked": ("wrapper_c3", "wrapper_c6", "update_d", "update_n1",
+                        "update_d_scorer", "update_n1_scorer",
+                        "update_d_kernel", "update_n1_kernel"),
+           "init": ("wrapper_c3", "wrapper_c6", "update_d",
+                    "update_d_scorer", "update_d_kernel")}
 
 
 def child(root: str) -> dict:
-    """The four medians (ms) of the checkout at root."""
+    """The tracked path's medians (ms) of the checkout at root."""
     sys.path[:0] = [root, os.path.join(root, "tests")]
     import time
 
@@ -175,15 +196,108 @@ def child(root: str) -> dict:
     return out
 
 
-def order_host_us(cs, ctr, key, groups: int, extent: int) -> dict:
-    """{row order: host us a call} (module docstring)."""
+def init_child(root: str) -> dict:
+    """The theta search's medians (ms) of the checkout at root."""
+    sys.path[:0] = [root, os.path.join(root, "tests")]
     import time
 
     import numpy as np
     import torch
 
-    fns = {"rows": lambda: cs.tracked_rows(key),
-           "order": lambda: cs.tracked_order(key, ctr, groups, extent)}
+    import chip_smoke as smoke
+    from top_down_renderer_torch import kernels
+    from top_down_renderer_torch.filter import crop_score as cs
+    from top_down_renderer_torch.testing import synthetic_setup
+
+    dev = torch.device("cuda")
+    kernels.build_all()
+    out = {"root": root, "card": smoke.card_name_and_limit()}
+
+    def median(fn):
+        return smoke.median_ms(fn, warmup=5, runs=RUNS)
+
+    cw = {3: [0.1, 1.5, 3.0], 6: [0.1, 1.5, 3.0, 0.7, 1.1, 2.0]}
+    for c in (3, 6):
+        d = synthetic_setup(smoke.N, h=1024, w=1024, c=c)
+        args = [torch.as_tensor(v, device=dev) for v in (
+            d["stencil"], d["scan"], np.asarray(cw[c], np.float32),
+            d["state"]["particles"]["init_px"])]
+        maps = cs.CropMap(torch.as_tensor(d["packed"], device=dev))
+        out[f"wrapper_c{c}"] = median(
+            lambda: cs.score_init_sel(maps, c, *args, 1.0))
+        if c == 3 and hasattr(cs, "init_order"):
+            ctr = cs.crop_centers(args[3], 1.0).contiguous()
+            zeros = torch.zeros(ctr.shape[0], dtype=torch.int64, device=dev)
+
+            def search():
+                skey, perm, kshift = cs.tracked_order(zeros, ctr, 1, 1024)
+                first = torch.arange(1, dtype=torch.int32,
+                                     device=dev) << kshift
+                return perm.to(torch.int32), torch.cat([
+                    torch.searchsorted(skey, first),
+                    first.new_full((1,), skey.shape[0]).long()])
+
+            out["order_host_us"] = host_us({
+                "init_order": lambda: cs.init_order(zeros, ctr, 1, 1024),
+                "sort": lambda: cs.tracked_order(zeros, ctr, 1, 1024),
+                "search": search})
+
+    def init_alone(fn):
+        """fn() once; whether it launched the theta search and no
+        tracked kernel or conv field."""
+        before, conv = dict(kernels.LAUNCHES), smoke.conv_calls()
+        fn()
+        d = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        return (d["crop_score_init"] >= 1 and d["crop_score_tracked"] == 0
+                and smoke.conv_calls() == conv)
+
+    scorer, host = cs.score_init_sel, []
+
+    def timed_scorer(*args, **kw):
+        t0 = time.perf_counter()
+        got = scorer(*args, **kw)
+        host.append((time.perf_counter() - t0) * 1e3)
+        return got
+
+    pf, world = smoke.big_filter(dev)
+    scan = smoke.scan_at(world, 0, dev)
+    pf.initialize_particles()  # spread cloud, no theta prior
+    spread = pf.state.replace(step=1)
+
+    def update_d():
+        smoke.as_updated(pf, spread, False)
+        pf.update(scan, smoke.RES)
+
+    if not init_alone(update_d):
+        raise RuntimeError("update_d: not the theta search alone")
+    cs.score_init_sel = timed_scorer
+    out["update_d"] = median(update_d)
+    out["update_d_scorer"] = float(np.median(host[-RUNS:]))
+    cs.score_init_sel = scorer
+    ms = smoke.kernel_ms(update_d, ("crop_init_kernel<",))
+    out["update_d_kernel"] = ms[0] if isinstance(ms, tuple) else ms
+    if not init_alone(update_d):
+        raise RuntimeError("update_d: not the theta search alone")
+    torch.cuda.synchronize()
+    return out
+
+
+def order_host_us(cs, ctr, key, groups: int, extent: int) -> dict:
+    """{row order: host us a call} (module docstring)."""
+    return host_us({"rows": lambda: cs.tracked_rows(key),
+                    "order": lambda: cs.tracked_order(key, ctr, groups,
+                                                      extent)})
+
+
+def host_us(fns: dict) -> dict:
+    """{name: host us a call of fns[name]}: the median of ORDER_RUNS calls
+    taken in turns, the queue drained before each (not synchronised
+    after)."""
+    import time
+
+    import numpy as np
+    import torch
+
     host = {k: [] for k in fns}
     for i in range(ORDER_RUNS + 5):
         for k, fn in fns.items():
@@ -198,6 +312,7 @@ def order_host_us(cs, ctr, key, groups: int, extent: int) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--path", choices=tuple(METRICS), default="tracked")
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--child", help=argparse.SUPPRESS)
     ap.add_argument("old", nargs="?")
@@ -210,7 +325,8 @@ def main() -> int:
         if not torch.cuda.is_available():
             print("time_torch_tracked_host: no CUDA device", file=sys.stderr)
             return 1
-        print(json.dumps(child(args.child)))
+        print(json.dumps((init_child if args.path == "init" else child)(
+            args.child)))
         return 0
     if args.old is None:
         ap.error("OLD_ROOT is required")
@@ -219,8 +335,8 @@ def main() -> int:
     for r in range(args.rounds):
         for root in (old, new, new, old):
             proc = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), "--child", root],
-                capture_output=True, text=True)
+                [sys.executable, os.path.abspath(__file__), "--path",
+                 args.path, "--child", root], capture_output=True, text=True)
             if proc.returncode != 0:
                 sys.stderr.write(proc.stdout + proc.stderr)
                 return proc.returncode
@@ -228,9 +344,9 @@ def main() -> int:
             got["round"] = r
             print(json.dumps(got), flush=True)
             runs[root].append(got)
-    summary = {"old": old, "new": new, "rounds": args.rounds,
-               "card": runs[new][0]["card"]}
-    for m in METRICS:
+    summary = {"old": old, "new": new, "path": args.path,
+               "rounds": args.rounds, "card": runs[new][0]["card"]}
+    for m in METRICS[args.path]:
         diffs = [(runs[new][2 * r][m] + runs[new][2 * r + 1][m]) / 2
                  - (runs[old][2 * r][m] + runs[old][2 * r + 1][m]) / 2
                  for r in range(args.rounds)]

@@ -30,7 +30,19 @@
 //                  moving the operands costs alone, flat_only's role);
 //   5 no_promote   the six products of a chunk straight into the fp32
 //                  accumulators, no fresh partial sum (Hopper's own stage:
-//                  the tensor cores' truncating sums, crop_score_init.cu).
+//                  the tensor cores' truncating sums, crop_score_init.cu);
+//   6 checked      every stage, every warp through the bounds-checked
+//                  gather (the window route off): full's output bit for
+//                  bit (the production kernel before its warps inside
+//                  their level went unchecked).
+// The variants that gather (full, one_plane, gather_only, no_promote) run
+// the production kernel's window route (csrc/crop_init.cuh): a warp whose
+// rows' windows lie in their level gathers without bounds checks.  The rows
+// come in the order the caller gives them (perm, the uniform entry's too):
+// by position (crop_score.init_order, as the production wrapper orders
+// them) or in the particles' order (bucket-major, stable), so that the
+// order's share of the time can be measured too; `checked` in the
+// particles' order is the production kernel as it was before either.
 // Each variant then runs the production epilogue on its columns (argmin, or
 // raw rows), so its output depends on what it keeps; probes/crop_ablate.py
 // holds a plain version of each.
@@ -64,6 +76,9 @@ static_assert(kOneBlockSmem >= kRingBytes<4> &&
                   kOneBlockSmem >= kRingBytes<8>,
               "the ring fits the pinned shared memory");
 
+// Variant 6: the whole body (kFull) on the checked gather.
+constexpr int kChecked = 6;
+
 template <int CP, bool RAW, int V>
 __global__ void __launch_bounds__(kThreads, 1)
     crop_ablate_init_kernel(const float* __restrict__ map,
@@ -72,9 +87,14 @@ __global__ void __launch_bounds__(kThreads, 1)
                             const int* __restrict__ sched, int K,
                             int chunk_cap, const int* __restrict__ perm,
                             const int2* __restrict__ centers, int S,
-                            float inv_tr, float* __restrict__ out) {
-  init_body<CP, RAW, V>(map, table, H, W, m, sched, K, chunk_cap, perm,
-                        centers, S, inv_tr, out);
+                            float inv_tr, float* __restrict__ out,
+                            const int4* __restrict__ ext) {
+  constexpr int kBody = V == kChecked ? kFull : V;  // its stages
+  constexpr bool kWin =
+      V != kChecked && V != kNoGather && V != kRingOnly;  // a gather's
+  init_body<CP, RAW, kBody, false, false, kWin>(
+      map, table, H, W, m, sched, K, chunk_cap, perm, centers, S, inv_tr,
+      out, 1.f, nullptr, nullptr, ext);
 }
 
 using Kernel = decltype(&crop_ablate_init_kernel<4, false, kFull>);
@@ -88,6 +108,7 @@ Kernel by_variant(int variant) {
     case kGatherOnly: return crop_ablate_init_kernel<CP, RAW, kGatherOnly>;
     case kRingOnly: return crop_ablate_init_kernel<CP, RAW, kRingOnly>;
     case kNoPromote: return crop_ablate_init_kernel<CP, RAW, kNoPromote>;
+    case kChecked: return crop_ablate_init_kernel<CP, RAW, kChecked>;
     default: return nullptr;
   }
 }
@@ -106,30 +127,32 @@ Kernel kernel_of(int variant, int CP, int raw) {
 int launch(int variant, int CP, int raw, const float* map, const int* table,
            int H, int W, int K, const void* m, const int* sched,
            int chunk_cap, const int* perm, const int* centers, int N, int S,
-           float inv_tr, float* out, void* stream) {
+           float inv_tr, float* out, const int* ext, void* stream) {
   const Kernel kern = kernel_of(variant, CP, raw);
-  if (kern == nullptr || !valid_search(S, K))
+  if (kern == nullptr || !valid_search(S, K) || !perm || !ext)
     return (int)cudaErrorInvalidValue;
   int opt_in = -1;  // no state kept: every launch sets its opt-in
   return (int)launch_tiles(kern, &opt_in, kOneBlockSmem, map, table, H, W,
                            K, m, sched, chunk_cap, perm, centers, N, S,
-                           inv_tr, out, static_cast<cudaStream_t>(stream));
+                           inv_tr, out, static_cast<cudaStream_t>(stream),
+                           reinterpret_cast<const int4*>(ext));
 }
 
 }  // namespace
 
 // Plain C entry points (loaded with ctypes); each returns the CUDA error of
-// its launch.  variant 0-5 as above; raw 0 for (best, k, kf) rows, 1 for
-// the raw rows; the other arguments are those of tdr_crop_score_init and
-// tdr_crop_score_multi_init, with CP in {4, 8}.
+// its launch.  variant 0-6 as above; the other arguments are those of
+// tdr_crop_score_init and tdr_crop_score_multi_init (perm and ext refused
+// null), with CP in {4, 8}, then raw: 0 for (best, k, kf) rows, 1 for the
+// raw rows.
 extern "C" int tdr_crop_ablate_init(int variant, const float* map, int H,
                                     int W, int CP, const void* m,
                                     const int* sched, int chunk_cap,
-                                    const int* centers, int N, int S,
-                                    float inv_tr, float* out, int raw,
-                                    void* stream) {
+                                    const int* perm, const int* centers,
+                                    int N, int S, float inv_tr, float* out,
+                                    const int* ext, int raw, void* stream) {
   return launch(variant, CP, raw, map, nullptr, H, W, 1, m, sched, chunk_cap,
-                nullptr, centers, N, S, inv_tr, out, stream);
+                perm, centers, N, S, inv_tr, out, ext, stream);
 }
 
 extern "C" int tdr_crop_ablate_multi_init(int variant, const float* pyramid,
@@ -137,10 +160,11 @@ extern "C" int tdr_crop_ablate_multi_init(int variant, const float* pyramid,
                                           const void* m, const int* sched,
                                           int chunk_cap, const int* perm,
                                           const int* centers, int N, int S,
-                                          float inv_tr, float* out, int raw,
+                                          float inv_tr, float* out,
+                                          const int* ext, int raw,
                                           void* stream) {
   return launch(variant, CP, raw, pyramid, table, 0, 0, K, m, sched,
-                chunk_cap, perm, centers, N, S, inv_tr, out, stream);
+                chunk_cap, perm, centers, N, S, inv_tr, out, ext, stream);
 }
 
 // *blocks = the blocks of (variant, CP, raw) an SM holds at once with the

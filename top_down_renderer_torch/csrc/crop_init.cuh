@@ -76,8 +76,9 @@ struct Chunk {
 template <int CP, int NP = 2>
 constexpr int kRingBytes = kStages * Chunk<CP, NP>::kBytes;
 
-// -- the window route (WIN: crop_init_i4_kernel, crop_init_lokf_kernel on
-// either map; every theta search but crop_init_kernel and the ablation) -----
+// -- the window route (WIN: every theta search, crop_init_kernel,
+// crop_init_i4_kernel and crop_init_lokf_kernel on either map, and the
+// ablation's variants that gather, but its `checked`) -------------------------
 // A block scores 192 rows of one bucket, which the wrapper orders by the
 // position of their centres (crop_score.init_order), so that a warp's rows
 // lie close together and their loads hit L1; every row reads the same pixel
@@ -235,9 +236,8 @@ __device__ __forceinline__ void init_body(
     const int4* __restrict__ ext = nullptr) {
   static_assert(!I4 || V == kFull, "only the whole body reads codes");
   static_assert(!ONE || V == kFull, "only the whole body takes one plane");
-  static_assert(!WIN || V == kFull,
-                "only the whole body takes the window route");
   constexpr bool kGather = V != kNoGather && V != kRingOnly;
+  static_assert(!WIN || kGather, "the window route is a gather's");
   constexpr bool kProduct = V != kGatherOnly && V != kRingOnly;
   constexpr bool kPromote = V != kNoPromote;
   // A's lo plane: the float map's split (not the codes, exact)

@@ -98,30 +98,31 @@
 //   - the epilogue multiplies every column's fp32 sum by its scale first,
 //     and kf is columns 80 and 81 scaled and added (the kf < 0.5 gate reads
 //     that sum, as JAX's reads its kfc).
-// The hi/lo instantiations compile to the SASS they had before (the switch
-// is a template argument, off by default).
 //
-// The window route (crop_init_i4_kernel and crop_init_lokf_kernel, on the
-// float and the code map; csrc/crop_init.cuh).  The gather, not the
-// products, sets these kernels' pace, and within it the instructions around
-// each load (a bounds check and a 64-bit address a pair), not L2's bytes:
-// fewer bytes a load did not help (the code map), nor did one B plane less
-// (the single plane).  So the wrapper orders each bucket's rows by the
-// Morton code of their centres' tiles (crop_score.init_order: one device
-// sort), so that a warp's 16 rows lie close together and their loads hit
-// L1, and a warp whose rows' windows all lie in their level (a vote, on
-// ext: each bucket's extent, crop_score.fold_extent) gathers without a
-// bounds check, each row's base once and each pixel's offset once a chunk,
-// shared by the thread's two rows.  Each row's product and argmin are its
-// own, so no bit of the output changes.  A box of each block's rows staged
-// in shared memory by bulk copies measured slower than this gather from L2
-// through L1, and an mbarrier a ring stage slower than the block barrier
-// (PERF.md §6), and so did two chunks of code words in flight in the code
-// map's single-plane kernel (chunk kc + 2's loads issued before chunk kc's
-// product): every global load of the loop signals one scoreboard, and the
-// first use of a loaded word waits for all of them, so the second chunk
-// was waited for with the first while its loads delayed the product.
-// crop_init_kernel and the ablation keep their row order and their SASS.
+// The window route (every theta search: crop_init_kernel, and
+// crop_init_i4_kernel and crop_init_lokf_kernel on the float and the code
+// map; csrc/crop_init.cuh).  The gather, not the products, sets these
+// kernels' pace, and within it the instructions around each load (a bounds
+// check and a 64-bit address a pair), not L2's bytes: fewer bytes a load
+// did not help (the code map), nor did one B plane less (the single plane),
+// and K4 (csrc/crop_ablate_init.cu) put the float hi/lo kernel's gather
+// ahead of its products.  So the wrapper orders each bucket's rows by the
+// Morton code of their centres' tiles (crop_score.init_order: one launch
+// of the order kernel and one device sort), so that a warp's 16 rows lie
+// close together and their loads hit L1, and a warp whose rows' windows
+// all lie in their level (a vote, on ext: each bucket's extent,
+// crop_score.fold_extent) gathers without a bounds check, each row's base
+// once and each pixel's offset once a chunk, shared by the thread's two
+// rows.  Each row's product and argmin are its own, so no bit of the
+// output changes.  A box of each block's rows staged in shared memory by
+// bulk copies measured slower than this gather from L2 through L1, and an
+// mbarrier a ring stage slower than the block barrier (PERF.md §6), and so
+// did two chunks of code words in flight in the code map's single-plane
+// kernel (chunk kc + 2's loads issued before chunk kc's product): every
+// global load of the loop signals one scoreboard, and the first use of a
+// loaded word waits for all of them, so the second chunk was waited for
+// with the first while its loads delayed the product.  Every entry point
+// takes perm (the uniform ones too) and ext, and refuses either null.
 //
 // The body (crop_init_kernel's stages, its constants and helpers) lives in
 // csrc/crop_init.cuh, shared with the ablation (csrc/crop_ablate_init.cu);
@@ -134,6 +135,8 @@
 
 namespace {
 
+// The float map's theta search with the hi/lo M, on the window route: the
+// rows in position order, ext (K) the buckets' extents.
 template <int CP, bool RAW>
 __global__ void __launch_bounds__(kThreads, 1)
     crop_init_kernel(const float* __restrict__ map,
@@ -142,9 +145,10 @@ __global__ void __launch_bounds__(kThreads, 1)
                      const int* __restrict__ sched, int K, int chunk_cap,
                      const int* __restrict__ perm,
                      const int2* __restrict__ centers, int S, float inv_tr,
-                     float* __restrict__ out) {
-  init_body<CP, RAW, kFull>(map, table, H, W, m, sched, K, chunk_cap, perm,
-                            centers, S, inv_tr, out);
+                     float* __restrict__ out, const int4* __restrict__ ext) {
+  init_body<CP, RAW, kFull, false, false, true>(
+      map, table, H, W, m, sched, K, chunk_cap, perm, centers, S, inv_tr,
+      out, 1.f, nullptr, nullptr, ext);
 }
 
 // The same body on the code map (pixels, CP/2), kq the known code, on the
@@ -185,8 +189,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // Launch the theta search on the float map or, with I4, on the code map
-// (kq: its known code); with ONE the single-plane M's (scales, qinv).  All
-// but the float map's hi/lo kernel take the window route (ext).
+// (kq: its known code); with ONE the single-plane M's (scales, qinv).  Each
+// takes the window route (ext).
 template <int CP, bool RAW, bool I4, bool ONE = false>
 cudaError_t launch(const void* map, float kq, const int* table,
                    int H, int W, int K, const void* m, const int* sched,
@@ -211,7 +215,7 @@ cudaError_t launch(const void* map, float kq, const int* table,
     return launch_tiles(crop_init_kernel<CP, RAW>, &ready_dev, kRingBytes<CP>,
                         static_cast<const float*>(map), table, H, W, K, m,
                         sched, chunk_cap, perm, centers, N, S, inv_tr, out,
-                        stream);
+                        stream, ext4);
 }
 
 template <bool RAW, bool I4 = false, bool ONE = false>
@@ -249,37 +253,49 @@ int by_channels(int CP, const void* map, const int* table, int H, int W,
 // Plain C entry points (loaded with ctypes).  Each returns the CUDA error of
 // its launch (0 on success); none allocates or synchronises.  map: the
 // compact (H, W, CP) map; m, sched, chunk_cap: init_operands' records and
-// schedule (filter/crop_score.py); centers (N) int2 (cy, cx); out (N, 3),
-// or (N, 2S + 1) for the raw-row entry points (*_raw).
+// schedule (filter/crop_score.py); perm (N) the particles in position order
+// (crop_score.init_order); centers (N) int2 (cy, cx); out (N, 3), or
+// (N, 2S + 1) for the raw-row entry points (*_raw); after out ext (K, 4)
+// int32 each bucket's extent (crop_score.fold_extent).  A null perm or ext
+// is refused.
 extern "C" int tdr_crop_score_init(const float* map, int H, int W, int CP,
                                    const void* m, const int* sched,
-                                   int chunk_cap, const int* centers, int N,
-                                   int S, float inv_tr, float* out,
+                                   int chunk_cap, const int* perm,
+                                   const int* centers, int N, int S,
+                                   float inv_tr, float* out, const int* ext,
                                    void* stream) {
+  if (!perm || !ext) return (int)cudaErrorInvalidValue;
   return by_channels<false>(CP, map, nullptr, H, W, 1, m, sched, chunk_cap,
-                            nullptr, centers, N, S, inv_tr, out, stream);
+                            perm, centers, N, S, inv_tr, out, stream, 1.f,
+                            nullptr, nullptr, ext);
 }
 
 extern "C" int tdr_crop_score_init_raw(const float* map, int H, int W, int CP,
                                        const void* m, const int* sched,
-                                       int chunk_cap, const int* centers,
-                                       int N, int S, float inv_tr, float* out,
-                                       void* stream) {
+                                       int chunk_cap, const int* perm,
+                                       const int* centers, int N, int S,
+                                       float inv_tr, float* out,
+                                       const int* ext, void* stream) {
+  if (!perm || !ext) return (int)cudaErrorInvalidValue;
   return by_channels<true>(CP, map, nullptr, H, W, 1, m, sched, chunk_cap,
-                           nullptr, centers, N, S, inv_tr, out, stream);
+                           perm, centers, N, S, inv_tr, out, stream, 1.f,
+                           nullptr, nullptr, ext);
 }
 
 // K buckets: pyramid (pixels, CP) with table (K, 4) of (pixel offset, H, W,
-// -) per bucket; perm (N) the particles in bucket order.
+// -) per bucket; perm (N) the particles in bucket order, each bucket's by
+// position.
 extern "C" int tdr_crop_score_multi_init(const float* pyramid,
                                          const int* table, int K, int CP,
                                          const void* m, const int* sched,
                                          int chunk_cap, const int* perm,
                                          const int* centers, int N, int S,
                                          float inv_tr, float* out,
-                                         void* stream) {
+                                         const int* ext, void* stream) {
+  if (!perm || !ext) return (int)cudaErrorInvalidValue;
   return by_channels<false>(CP, pyramid, table, 0, 0, K, m, sched, chunk_cap,
-                            perm, centers, N, S, inv_tr, out, stream);
+                            perm, centers, N, S, inv_tr, out, stream, 1.f,
+                            nullptr, nullptr, ext);
 }
 
 extern "C" int tdr_crop_score_multi_init_raw(const float* pyramid,
@@ -288,17 +304,16 @@ extern "C" int tdr_crop_score_multi_init_raw(const float* pyramid,
                                              int chunk_cap, const int* perm,
                                              const int* centers, int N, int S,
                                              float inv_tr, float* out,
-                                             void* stream) {
+                                             const int* ext, void* stream) {
+  if (!perm || !ext) return (int)cudaErrorInvalidValue;
   return by_channels<true>(CP, pyramid, table, 0, 0, K, m, sched, chunk_cap,
-                           perm, centers, N, S, inv_tr, out, stream);
+                           perm, centers, N, S, inv_tr, out, stream, 1.f,
+                           nullptr, nullptr, ext);
 }
 
 // The nibble-packed map: codes (pixels, CP/2) uint8 and kq, the known
 // channel's code (15 or 7), in place of the compact map; m, sched and
 // chunk_cap the code layout's records (crop_score.init_records with qinv);
-// perm (N) the particles in position order (crop_score.init_order; the
-// uniform entries take it too); after out ext (K, 4) int32 each bucket's
-// extent (crop_score.fold_extent);
 // everything else as the float entry points.
 extern "C" int tdr_crop_score_init_i4(const unsigned char* codes, float kq,
                                       int H, int W, int CP, const void* m,

@@ -96,10 +96,10 @@ kernel (with the hi/lo M) takes its rows in tracked_order, as the float
 one does, and each block stages its window of codes in shared memory
 where it fits (WINDOW_BUDGET, tracked_window_cap); tracked_windows is
 the rule in plain PyTorch.
-The theta search on the code map (and on the float map with the
-single-plane M, below) takes its rows in init_order, each bucket's by the
-position of their centres, and a warp whose rows' windows all lie in
-their level (fold_extent) gathers without bounds checks.
+Every theta search, on either map and with either M (below), takes its
+rows in init_order, each bucket's by the position of their centres, and
+a warp whose rows' windows all lie in their level (fold_extent) gathers
+without bounds checks.
 
 The single-plane M (TDR_M_HILO=0, the JAX package's pallas_score.m_hilo()
 off).  The JAX kernel contracts its int8 map against M quantized per
@@ -1429,12 +1429,12 @@ def init_schedule(row_start: torch.Tensor, nchunk: torch.Tensor):
 
 def init_window(maps) -> bool:
     """Whether the theta search on maps (a CropMap or PyramidMaps) takes
-    the window route (csrc/crop_init.cuh): every configuration but the
-    float map with the hi/lo M, i.e. the code map with the hi/lo M
+    the window route (csrc/crop_init.cuh): every configuration does, the
+    float map with the hi/lo M (crop_init_kernel), the code map with it
     (crop_init_i4_kernel) and either map with the single-plane M
     (crop_init_lokf_kernel).  Its rows go in init_order and its entries
     take the fold's extents (fold_extent) after out."""
-    return maps.int4 or not maps.m_hilo
+    return True
 
 
 def init_extent(pix: torch.Tensor, npix: torch.Tensor) -> torch.Tensor:
@@ -1472,8 +1472,13 @@ def init_order(bucket: torch.Tensor, ctr: torch.Tensor, k: int,
     row_start (K + 1,) int64: bucket b's first row, and N), as bucket_rows
     returns them.  One stable device sort of 32-bit keys, no host read;
     each row's result is its own, so the order changes no bit of the
-    output."""
+    output.  One bucket (a uniform scale) starts at row 0 and needs no
+    search."""
     skey, perm, kshift = tracked_order(bucket, ctr, k, extent)
+    if k == 1:
+        row_start = torch.zeros(2, dtype=torch.int64, device=ctr.device)
+        row_start[1] = skey.shape[0]
+        return perm.to(torch.int32), row_start
     # bucket b's first key, b < k: (k - 1) << kshift fits an int32
     first = torch.arange(k, dtype=torch.int32, device=ctr.device) << kshift
     row_start = torch.cat([torch.searchsorted(skey, first),
@@ -1529,14 +1534,13 @@ def map_head(maps, num_classes: int) -> tuple:
 
 
 def init_args(operand, head: tuple, table, h: int, w: int, num_classes: int,
-              rec, sched, ctr, perm, num_rot: int, inv_tr: float, out,
-              scales=None, ext=None) -> tuple:
+              rec, sched, ctr, perm, num_rot: int, inv_tr: float, out, ext,
+              scales=None) -> tuple:
     """The theta-search entry points' arguments before the stream:
     tdr_crop_score_init's (table None) or tdr_crop_score_multi_init's over
     the map operand, `head` (map_head) after it, and with scales (the
     single-plane M's) the "_lokf" twins', the scales after the records;
-    perm where it is not None, and ext (fold_extent) after out where it is
-    not None."""
+    perm (init_order's), and ext (fold_extent) after out."""
     cp = channel_pad(num_classes)
     args = (ptr(operand),) + head
     if table is None:
@@ -1546,12 +1550,9 @@ def init_args(operand, head: tuple, table, h: int, w: int, num_classes: int,
     args += (ptr(rec),)
     if scales is not None:
         args += (ptr(scales),)
-    args += (ptr(sched), rec.shape[1])
-    if perm is not None:
-        args += (ptr(perm),)
-    args += (ptr(ctr), ctr.shape[0], num_rot, ctypes.c_float(inv_tr),
-             ptr(out))
-    return args if ext is None else args + (ptr(ext),)
+    return args + (ptr(sched), rec.shape[1], ptr(perm), ptr(ctr),
+                   ctr.shape[0], num_rot, ctypes.c_float(inv_tr), ptr(out),
+                   ptr(ext))
 
 
 def launch_init(base: str, inputs: tuple, raw: bool = False):
@@ -1578,8 +1579,8 @@ def init_rows(launch, inputs: tuple, raw: bool, records=None):
     None), and the rows it writes: (best, k, kf) (N,), or with raw (nums,
     dens (N, num_rot), kf (N,)): the sums as they are, kf the known count
     times f32(1 / (Th R)).  The production kernels' launch and the
-    ablation's (probes/crop_ablate.py) share it; the window route
-    (init_window) takes the fold's extents after out."""
+    ablation's (probes/crop_ablate.py) share it; every entry takes the
+    fold's extents after out (the window route, init_window)."""
     (maps, table, h, w, num_classes, scan, class_weights, fold, ctr, perm,
      row_start, num_rot) = inputs
     operand, _ = map_operand(maps, num_classes)
@@ -1592,10 +1593,9 @@ def init_rows(launch, inputs: tuple, raw: bool, records=None):
         if records is None:
             records = init_records(scan, class_weights, fold, row_start,
                                    num_rot, **record_args(maps))
-        ext = fold_extent(fold) if init_window(maps) else None
         launch(init_args(operand, map_head(maps, num_classes), table, h, w,
                          num_classes, *records[:2], ctr, perm, num_rot,
-                         inv_tr, out, *records[2:], ext=ext))
+                         inv_tr, out, fold_extent(fold), *records[2:]))
     if raw:
         s = 2 * num_rot
         return out[:, 0:s:2], out[:, 1:s:2], out[:, s] * inv_tr
@@ -1606,8 +1606,8 @@ def init_inputs(maps, num_classes, stencil, scan, class_weights, center_px,
                 f, num_rot: int = 40, map_resolution: float = 1.0) -> tuple:
     """Check the theta search's operands on the card and derive launch_init's
     inputs at one uniform scale, maps first (its operand checked for
-    32-bit indexing); on the window route (init_window) the rows in
-    init_order, else in the particles' order (perm None)."""
+    32-bit indexing), the rows in init_order (the window route,
+    init_window)."""
     packed_map = maps.packed
     dev = packed_map.device
     h, w = packed_map.shape[:2]
@@ -1618,14 +1618,9 @@ def init_inputs(maps, num_classes, stencil, scan, class_weights, center_px,
     if operand.numel() >= 2**31:
         raise ValueError("map too large for 32-bit indexing")
     ctr = crop_centers(center_px, map_resolution).contiguous()
-    if init_window(maps):  # the rows by position
-        perm, rows = init_order(
-            torch.zeros(ctr.shape[0], dtype=torch.int32, device=dev), ctr, 1,
-            max(h, w))
-    else:
-        perm = None
-        rows = torch.zeros(2, dtype=torch.int64, device=dev)
-        rows[1] = center_px.shape[0]
+    perm, rows = init_order(  # the rows by position
+        torch.zeros(ctr.shape[0], dtype=torch.int64, device=dev), ctr, 1,
+        max(h, w))
     return (maps, None, h, w, num_classes, scan, class_weights,
             maps.fold(stencil, f), ctr, perm, rows, num_rot)
 

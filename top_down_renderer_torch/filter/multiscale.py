@@ -325,9 +325,13 @@ def pyramid_centers(center_px, bucket, mips, map_resolution: float):
 
 def bucket_rows(bucket: torch.Tensor, k: int):
     """Bucket-major rows for the theta-search kernel, whose tiles each lie
-    in one bucket: (perm (N,) int32, the particles in stable bucket order;
-    row_start (K + 1,) int64, bucket b's first row, and N).  Device ops of
-    fixed size only: no host read."""
+    in one bucket, each bucket's in the particles' order: (perm (N,)
+    int32, the particles in stable bucket order; row_start (K + 1,)
+    int64, bucket b's first row, and N).  The production wrappers order
+    each bucket's rows by position (crop_score.init_order); these are the
+    rows of the theta-search ablation's "particles" order
+    (probes/crop_ablate.py).  Device ops of fixed size only: no host
+    read."""
     sorted_bucket, perm = torch.sort(bucket, stable=True)
     row_start = torch.searchsorted(
         sorted_bucket,
@@ -535,19 +539,16 @@ def init_inputs(pyr, num_classes, stencil, scan, class_weights, center_px,
                 map_resolution: float = 1.0) -> tuple:
     """Check the K-bucket theta search's operands on the card and derive
     crop_score.launch_init's inputs: the pyramid first, the bucket-major
-    rows (each bucket's by position on the window route,
-    crop_score.init_order)."""
+    rows, each bucket's by position (crop_score.init_order: the window
+    route)."""
     k = _check_buckets(pyr, stencil, scan, class_weights, center_px, scale,
                        slot_vals, bucket_level, num_classes, num_rot)[0]
     bucket, off, ctr, table = _prepare(
         pyr, stencil, center_px, scale, slot_vals, bucket_level, res,
         map_resolution,
     )
-    if cs.init_window(pyr):  # each bucket's rows by position
-        perm, row_start = cs.init_order(bucket, ctr, k,
-                                        cs._level_extent(pyr, 0, 0))
-    else:
-        perm, row_start = bucket_rows(bucket, k)
+    perm, row_start = cs.init_order(bucket, ctr, k,
+                                    cs._level_extent(pyr, 0, 0))
     return (pyr, table, 0, 0, num_classes, scan, class_weights,
             cs.fold_pixels(off), ctr.contiguous(), perm, row_start, num_rot)
 

@@ -152,28 +152,27 @@ _SIGNATURES = {
         ),
     },
     "crop_score_init": {
-        # compact map, H, W, CP, M records, sched, chunk_cap, centers, N,
-        # S, inv_tr, out, stream
+        # compact map, H, W, CP, M records, sched, chunk_cap, perm, centers,
+        # N, S, inv_tr, out, the window route's extents (K, 4)
+        # (crop_score.fold_extent), stream
         "tdr_crop_score_init": (
-            _P, _I, _I, _I, _P, _P, _I, _P, _I, _I, _F, _P, _P,
+            _P, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _F, _P, _P, _P,
         ),
         # compact pyramid, table, K, CP, M records, sched, chunk_cap, perm,
-        # centers, N, S, inv_tr, out, stream
+        # centers, N, S, inv_tr, out, extents, stream
         "tdr_crop_score_multi_init": (
-            _P, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _F, _P, _P,
+            _P, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _F, _P, _P, _P,
         ),
         # the raw-row epilogue of each: the same arguments, out (N, 2S + 1)
         "tdr_crop_score_init_raw": (
-            _P, _I, _I, _I, _P, _P, _I, _P, _I, _I, _F, _P, _P,
+            _P, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _F, _P, _P, _P,
         ),
         "tdr_crop_score_multi_init_raw": (
-            _P, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _F, _P, _P,
+            _P, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _F, _P, _P, _P,
         ),
         # the code map and its known code (15 or 7) in place of the
-        # compact map, then as the float entry points from H (table) on,
-        # perm in the uniform entries too; the records are the code
-        # layout's (crop_score.init_records); after out the window route's
-        # extents (K, 4) (crop_score.fold_extent)
+        # compact map, then as the float entry points from H (table) on;
+        # the records are the code layout's (crop_score.init_records)
         "tdr_crop_score_init_i4": (
             _P, _F, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _F, _P, _P, _P,
         ),
@@ -188,8 +187,7 @@ _SIGNATURES = {
         ),
         # the single-plane M: the float map and its qinv (the code map
         # alone), then as the hi/lo entry points from H (table) on, the
-        # column scales (K, 88) after the records; perm and the extents as
-        # the code map's hi/lo entries
+        # column scales (K, 88) after the records
         "tdr_crop_score_init_lokf": (
             _P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I, _F, _P, _P,
             _P,
@@ -254,11 +252,13 @@ _SIGNATURES = {
     "crop_ablate_init": {
         # variant, then as tdr_crop_score_init, then raw (0 or 1)
         "tdr_crop_ablate_init": (
-            _I, _P, _I, _I, _I, _P, _P, _I, _P, _I, _I, _F, _P, _I, _P,
+            _I, _P, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _F, _P, _P, _I,
+            _P,
         ),
         # variant, then as tdr_crop_score_multi_init, then raw
         "tdr_crop_ablate_multi_init": (
-            _I, _P, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _F, _P, _I, _P,
+            _I, _P, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _F, _P, _P, _I,
+            _P,
         ),
         # variant, CP, raw, blocks an SM (out)
         "tdr_crop_ablate_init_blocks": (_I, _I, _I, ctypes.POINTER(_I)),

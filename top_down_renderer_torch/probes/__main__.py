@@ -40,8 +40,11 @@ hold them to their definitions, and no time is measured.
           K4 (csrc/crop_ablate_init.cu): the theta search's variants
           (probes/crop_ablate.py's INIT_VARIANTS) at 102,400 particles on a
           1024^2 map, a 3-class and a 6-class spread cloud and the 3-class
-          cloud over K buckets; `full` held bit for bit to the production
-          kernel, argmin and raw rows, with the production kernel's time
+          cloud over K buckets, each with its rows in both orders
+          (INIT_ORDERS: position, the production wrappers', and the
+          particles'); `full` and `checked` held bit for bit to the
+          production kernel, argmin and raw rows, with the production
+          kernel's time
           and its wrapper split into inputs, M build and launch; every
           variant at one block an SM, as full; beside the bound the bytes
           each re-reads from L2 (l2_bytes) at K1's L2 window rate.
@@ -875,30 +878,43 @@ def _split_wrapper(dev, multi: bool, args) -> dict:
     return split
 
 
-def run_ablate_init(dev, seed: int = 0, n: int = N, cases=None):
-    """Every theta-search variant of each case (ablate_init_cases, or the
-    caller's [(label, multi, args)]), argmin and raw rows: `full` bit for
-    bit against the production kernel (tdr_crop_score[_multi]_init and
-    its raw rows), every variant against its plain version (_close_rows).
-    The argmin rows are timed; `full` also with the production kernel
-    alone and its wrapper split (_split_wrapper).  On the card every
-    variant must run one block an SM, as full does (blocks_per_sm)."""
+# K4's whole grid: every variant in each row order
+INIT_GRID = tuple(itertools.product(ca.INIT_ORDERS, ca.INIT_VARIANTS))
+
+
+def run_ablate_init(dev, seed: int = 0, n: int = N, cases=None,
+                    grid=INIT_GRID):
+    """Each (order, variant) of `grid` (every theta-search variant in each
+    row order, crop_ablate.INIT_ORDERS; records of the "particles" order
+    named "<probe> particles") on each case (ablate_init_cases, or the
+    caller's [(label, multi, args)]), argmin and raw rows: `full` and
+    `checked` bit for bit against the production kernel
+    (tdr_crop_score[_multi]_init and its raw rows), every variant against
+    its plain version (_close_rows).  The argmin rows are timed; `full` in
+    position order also with the production kernel alone and its wrapper
+    split (_split_wrapper).  On the card every variant must run one block
+    an SM, as full does (blocks_per_sm)."""
     recs = []
     for label, multi, args in cases or ablate_init_cases(dev, seed, n):
         prod, prod_raw, ablate, plain, _ = _init_fns(multi)
         work = _init_work(args, multi)
         want_prod = uncounted(lambda: (prod(*args), prod_raw(*args)))
-        for variant in ca.INIT_VARIANTS:
-            def run(variant=variant):
-                return ablate(variant, *args)
+        plains = {}  # variant: its plain rows, which no order changes
+        for order, variant in grid:
+            def run(variant=variant, order=order):
+                return ablate(variant, *args, order=order)
 
-            want, plain_ms = once(dev, lambda: plain(variant, *args))
-            want_raw = plain(variant, *args, raw=True)
+            if variant not in plains:
+                plains[variant] = (*once(dev, lambda: plain(variant, *args)),
+                                   plain(variant, *args, raw=True))
+            want, plain_ms, want_raw = plains[variant]
             got = run()
-            got_raw = ablate(variant, *args, raw=True)
-            name = f"ablate_init/{label}/{variant}"
+            got_raw = ablate(variant, *args, raw=True, order=order)
+            name = f"ablate_init/{label}/{variant}" + (
+                "" if order == "position" else " particles")
             err, rel = _close_rows(name, got, got_raw, want, want_raw)
-            if variant == "full":
+            exact = variant in ("full", "checked")
+            if exact:
                 check(all(_same_bits(g, p) for g, p in zip(
                     (*got, *got_raw), (*want_prod[0], *want_prod[1]))),
                       f"{name}: differs from the production kernel")
@@ -907,18 +923,20 @@ def run_ablate_init(dev, seed: int = 0, n: int = N, cases=None):
             rec = _record(
                 name, "crop_ablate_init", "tests/exp_crop_ablate.py:39",
                 ("bit for bit to the production kernel (argmin and raw "
-                 "rows); " if variant == "full" else "")
+                 "rows); " if exact else "")
                 + f"rel <= {REL_TOL} to its plain version, k a near-argmin",
                 err, particles=int(work["counts"].sum()),
                 buckets=len(work["counts"]),
                 pixels=work["npix"].tolist(), max_rel_err=rel,
                 l2_bytes=reread,
-                l2_window_rate_ms=reread / L2_WINDOW_BYTES * 1e3)
+                l2_window_rate_ms=reread / L2_WINDOW_BYTES * 1e3,
+                order=order)
             if dev.type == "cuda":
                 rec["blocks_per_sm"] = ca.blocks_per_sm(variant, work["c"])
                 check(rec["blocks_per_sm"] == 1, f"{name}: "
                       f"{rec['blocks_per_sm']} blocks an SM, not full's one")
-            if variant == "full" and dev.type == "cuda":
+            if (variant, order) == ("full", "position") and \
+                    dev.type == "cuda":
                 prod_t = timing(dev, "crop_score_init",
                                 lambda: prod(*args), None)
                 rec.update(production_ms=prod_t["kernel_ms"],

@@ -72,6 +72,19 @@ variants (INIT_VARIANTS):
                chunk) in the even columns and of |dx| in the odd ones
   no_promote   the products summed straight into the fp32 accumulators:
                acc = w @ M, as full, in another rounding
+  checked      every stage, every warp through the bounds-checked gather
+               (no warp skips the check): full's output bit for bit, its
+               plain version full's
+The gathering variants but checked (full, one_plane, gather_only,
+no_promote) run the production kernel's window route (a warp whose rows'
+windows lie in their level gathers unchecked).  Each takes order=
+(INIT_ORDERS): "position" (the default), the rows as the production
+wrappers order them (crop_score.init_order: each bucket's by the position
+of their centres), or "particles", each bucket's in the particles' order
+(multiscale.bucket_rows; the identity at a uniform scale), so that the
+order's share of the time can be measured too; "checked" under
+"particles" is the production kernel as it was before either.  Each row's
+result is its own, so no variant's output depends on the order.
 On CPU tensors each runs its plain version (crop_ablate_init_plain,
 crop_ablate_multi_init_plain; public, any device: acc in float64, then the
 epilogue in float32, the first argmin of select_best); on CUDA tensors it
@@ -99,7 +112,8 @@ VARIANTS = ("full", "no_fold", "no_gather", "gather_only", "fold_only",
             "checked")
 ORDERS = ("position", "key")  # K3's row orders
 INIT_VARIANTS = ("full", "one_plane", "no_gather", "gather_only",
-                 "ring_only", "no_promote")
+                 "ring_only", "no_promote", "checked")
+INIT_ORDERS = ("position", "particles")  # K4's row orders
 CLASSES = (3, 6)  # the class counts the kernels are built for
 _CHUNK = 4096  # particles a chunk of the plain version
 
@@ -312,19 +326,41 @@ def _chunk(variant, compact, lv, ctr, pix, nslot, ws, c: int, inv_tr):
 
 
 # -- K4: the theta search ------------------------------------------------------
-def _init_variant(variant: str, num_classes: int) -> None:
+def _init_variant(variant: str, num_classes: int,
+                  order: str = "position") -> None:
     if variant not in INIT_VARIANTS:
         raise ValueError(f"variant must be one of {INIT_VARIANTS}, got "
                          f"{variant}")
+    if order not in INIT_ORDERS:
+        raise ValueError(f"order must be one of {INIT_ORDERS}, got {order}")
     if num_classes not in CLASSES:
         raise ValueError(f"the theta-search ablation is built for C in "
                          f"{CLASSES}, got {num_classes}")
 
 
-def launch_ablate_init(variant, inputs, raw: bool = False, records=None):
+def init_ablation_rows(order: str, inputs: tuple) -> tuple:
+    """init_inputs' `inputs` (their rows in init_order) with the rows in
+    `order`: as they are ("position"), or each bucket's in the particles'
+    order ("particles": multiscale.bucket_rows of each row's bucket, the
+    identity at a uniform scale).  row_start stays: each bucket keeps its
+    rows."""
+    if order == "position":
+        return inputs
+    perm, row_start = inputs[9], inputs[10]
+    row = torch.arange(perm.shape[0], device=perm.device)
+    bucket = torch.empty_like(perm)
+    bucket[perm.long()] = (torch.searchsorted(row_start, row, right=True)
+                           - 1).to(torch.int32)
+    return (inputs[:9] + ms.bucket_rows(bucket, row_start.shape[0] - 1)
+            + inputs[11:])
+
+
+def launch_ablate_init(variant, inputs, raw: bool = False, records=None,
+                       order: str = "position"):
     """Variant `variant` of the theta search on `inputs` (init_inputs'),
-    launched as crop_score.init_rows launches the production kernel
-    (records: init_records', or None to build them)."""
+    its rows in `order` (init_ablation_rows), launched as
+    crop_score.init_rows launches the production kernel (records:
+    init_records', or None to build them)."""
     multi = inputs[1] is not None  # a table of bucket levels
     fn = "tdr_crop_ablate_multi_init" if multi else "tdr_crop_ablate_init"
 
@@ -333,7 +369,8 @@ def launch_ablate_init(variant, inputs, raw: bool = False, records=None):
                        *args, int(raw))
         kernels.LAUNCHES["crop_ablate_init"] += 1
 
-    return cs.init_rows(launch, inputs, raw, records)
+    return cs.init_rows(launch, init_ablation_rows(order, inputs), raw,
+                        records)
 
 
 def blocks_per_sm(variant: str, num_classes: int, raw: bool = False) -> int:
@@ -352,47 +389,52 @@ def blocks_per_sm(variant: str, num_classes: int, raw: bool = False) -> int:
 
 def crop_ablate_init(variant, maps, num_classes, stencil, scan,
                      class_weights, center_px, f, num_rot: int = 40,
-                     map_resolution: float = 1.0, raw: bool = False):
+                     map_resolution: float = 1.0, raw: bool = False,
+                     order: str = "position"):
     """Variant `variant` of the uniform theta search on maps (a CropMap),
-    with score_init_sel's arguments; raw=True returns score_init_raw's
-    rows."""
-    _init_variant(variant, num_classes)
+    with score_init_sel's arguments, its rows in `order`; raw=True
+    returns score_init_raw's rows."""
+    _init_variant(variant, num_classes, order)
     _float_map(maps)
     if not kernels.on_card(maps.packed.device, "theta-search ablation"):
         return crop_ablate_init_plain(variant, maps, num_classes, stencil,
                                       scan, class_weights, center_px, f,
-                                      num_rot, map_resolution, raw)
+                                      num_rot, map_resolution, raw, order)
     return launch_ablate_init(variant, cs.init_inputs(
         maps, num_classes, stencil, scan, class_weights, center_px, f,
-        num_rot, map_resolution), raw)
+        num_rot, map_resolution), raw, order=order)
 
 
 def crop_ablate_multi_init(variant, pyr, num_classes, stencil, scan,
                            class_weights, center_px, scale, slot_vals,
                            bucket_level, res, num_rot: int = 40,
-                           map_resolution: float = 1.0, raw: bool = False):
+                           map_resolution: float = 1.0, raw: bool = False,
+                           order: str = "position"):
     """Variant `variant` of the K-bucket theta search, with
-    score_init_multi_sel's arguments; raw=True returns
-    score_init_multi_raw's rows."""
-    _init_variant(variant, num_classes)
+    score_init_multi_sel's arguments, its rows in `order`; raw=True
+    returns score_init_multi_raw's rows."""
+    _init_variant(variant, num_classes, order)
     _float_map(pyr)
     if not kernels.on_card(pyr.flat.device, "theta-search ablation"):
         return crop_ablate_multi_init_plain(
             variant, pyr, num_classes, stencil, scan, class_weights,
             center_px, scale, slot_vals, bucket_level, res, num_rot,
-            map_resolution, raw)
+            map_resolution, raw, order)
     return launch_ablate_init(variant, ms.init_inputs(
         pyr, num_classes, stencil, scan, class_weights, center_px, scale,
-        slot_vals, bucket_level, res, num_rot, map_resolution), raw)
+        slot_vals, bucket_level, res, num_rot, map_resolution), raw,
+        order=order)
 
 
 def crop_ablate_init_plain(variant, maps, num_classes, stencil, scan,
                            class_weights, center_px, f, num_rot: int = 40,
-                           map_resolution: float = 1.0, raw: bool = False):
-    """Plain version of crop_ablate_init (any device)."""
-    _init_variant(variant, num_classes)
+                           map_resolution: float = 1.0, raw: bool = False,
+                           order: str = "position"):
+    """Plain version of crop_ablate_init (any device; each row's result
+    is its own, so the order changes none)."""
+    _init_variant(variant, num_classes, order)
     packed = maps.packed
-    if variant == "full":
+    if variant in ("full", "checked"):
         fn = cs.score_init_raw_plain if raw else cs.score_init_sel_plain
         return fn(packed, num_classes, stencil, scan, class_weights,
                   center_px, f, num_rot, map_resolution)
@@ -411,10 +453,11 @@ def crop_ablate_multi_init_plain(variant, pyr, num_classes, stencil, scan,
                                  class_weights, center_px, scale, slot_vals,
                                  bucket_level, res, num_rot: int = 40,
                                  map_resolution: float = 1.0,
-                                 raw: bool = False):
-    """Plain version of crop_ablate_multi_init (any device)."""
-    _init_variant(variant, num_classes)
-    if variant == "full":
+                                 raw: bool = False, order: str = "position"):
+    """Plain version of crop_ablate_multi_init (any device; the order
+    changes no row)."""
+    _init_variant(variant, num_classes, order)
+    if variant in ("full", "checked"):
         fn = (ms.score_init_multi_raw_plain if raw
               else ms.score_init_multi_sel_plain)
         return fn(pyr, num_classes, stencil, scan, class_weights, center_px,
