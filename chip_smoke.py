@@ -32,10 +32,13 @@ Phases (any failure exits non-zero before the result line):
      kernel also runs twice on the same inputs and must return the same
      bits (here and wherever a kernel is held against its plain version),
      and the tracked kernels' offset fold (one launch) must equal
-     crop_score.fold_offsets (here, in B2, D and D2), and their sort keys
-     with the hi/lo M (the order kernel, one launch) must equal
-     crop_score.order_keys_plain bit for bit (in D, on the clustered
-     cell's rows and on every tile coordinate); the theta search's
+     crop_score.fold_offsets (here, in B2, D and D2), and the row order
+     of the crop wrappers (the order kernel, one launch: the sorted keys,
+     the permutation and the buckets' first rows) must equal
+     crop_score.order_rows_plain bit for bit (in B2 on both K-bucket
+     wrappers' rows, in D on the spread and clustered cells' rows and on
+     every tile coordinate, in N1 on the node's first orders); the theta
+     search's
      raw rows (its raw-row epilogue) against score_init_raw_plain: kf bit
      for bit, nums and dens within rel 1e-4, and select_init_cost of the
      kernel's rows the argmin of the theta-search kernel on >= 99.9 %,
@@ -143,7 +146,11 @@ Phases (any failure exits non-zero before the result line):
      clustered cell's offsets (beside its bound, its floor: the device
      time of a one-element fill under the same profiler, below which no
      one-block launch goes) and on D2's K = 12 bucket tables (checked
-     there too); on the clustered cloud also the conv cost
+     there too); the row order on the clustered cell's rows beside
+     torch.sort(stable=True) of the same keys (device time under the
+     profiler, CUDA events, host clock) and its bound, and the profiles
+     of the crop tracked and init updates, which must hold no library
+     sort kernel; on the clustered cloud also the conv cost
      field alone (CUDA events) and the conv update beside the crop
      update; on those same 3-class inputs each crop kernel
      is held against its plain version as in B; the tracked kernel also
@@ -436,8 +443,10 @@ SYMBOLS["conv_quant_i8"] = ("conv_quant_i8_kernel",)
 KERNELS = {
     # the tracked kernels' offset fold, launched by both tracked wrappers
     "crop_fold": (CROP_SRC, "top_down_renderer_tpu/filter/pallas_score.py:693"),
-    # the hi/lo tracked kernels' sort keys, launched by both tracked
-    # wrappers with the hi/lo M
+    # the rows' order (the keys, their stable sort, the permutation and
+    # the buckets' first rows, one launch), taken by every crop wrapper
+    # (both tracked kernels, every theta search); the reference's wrapper
+    # orders the rows with a counting sort in JAX, no kernel of its own
     "crop_order": (CROP_SRC,
                    "top_down_renderer_tpu/filter/pallas_score.py:693"),
     "crop_score_tracked": (
@@ -911,7 +920,7 @@ MULTI = ("crop_score_multi_tracked", "crop_score_multi_init")
 CROP_I4 = tuple(k + "_i4" for k in CROP)  # on the code map
 MULTI_I4 = tuple(k + "_i4" for k in MULTI)
 FOLD = ("crop_fold",)  # launched by both tracked wrappers
-ORDER = ("crop_order",)  # ... with the hi/lo M
+ORDER = ("crop_order",)  # the rows' order, every crop update
 # with the single-plane M (TDR_M_HILO=0), on the float and the code map
 CROP_LOKF = tuple(k + "_lokf" for k in CROP)
 MULTI_LOKF = tuple(k + "_lokf" for k in MULTI)
@@ -1014,6 +1023,9 @@ def phase_b2(dev, errs, b_args, theta):
                 *multi_raw_triple(args, scale, slots_t, bmi))
     init_orders("B2 multi init order", "crop_score_multi_init",
                 ms.init_inputs(*args, scale, slots_t, bmi, RES))
+    # the row order of both K-bucket wrappers (row_start of the buckets)
+    check_orders("B2", captured_orders(lambda: [
+        fn() for fn, _ in multi_pair(args, theta, scale, slots_t, bmi)]))
 
     check_buckets("B2", args, theta, scale, slots_t, bmi, levels)
 
@@ -1941,34 +1953,136 @@ def fold_times(off):
     )
 
 
-def order_times(args, theta, f, errs) -> dict:
-    """The order kernel's times on the keys and centres the tracked
-    wrapper gives it for args (crop_pair's), and its bound (the keys and
-    centres read once, the int32 keys written once); first it must equal
-    order_keys_plain bit for bit there and on every tile coordinate of
-    both axes, centres beyond either edge among them."""
-    _, fold, ctr, key = cs._tracked_inputs(*args, theta, f, 1.0)
-    h, w = args[0].packed.shape[:2]
-    kshift, tbits = cs.order_bits(fold[0].shape[0] * args[3].shape[1],
-                                  max(h, w))
+@contextlib.contextmanager
+def capturing_orders(calls: list, limit=None):
+    """Within it, each row order taken from crop_score.order_rows goes
+    into `calls` as it was taken: (key, ctr, groups, extent, keywords,
+    outputs), the tensors copied (at most `limit` calls of each form,
+    tracked and with row_start; None: all)."""
+    real, seen = cs.order_rows, {}
+
+    def spy(key, ctr, groups, extent, **kw):
+        got = real(key, ctr, groups, extent, **kw)
+        form = bool(kw.get("starts"))
+        seen[form] = seen.get(form, 0) + 1
+        if limit is None or seen[form] <= limit:
+            calls.append((key.clone(), None if ctr is None else ctr.clone(),
+                          groups, extent, kw, tuple(
+                              x.clone() if isinstance(x, torch.Tensor) else x
+                              for x in got)))
+        return got
+
+    cs.order_rows = spy
+    try:
+        yield calls
+    finally:
+        cs.order_rows = real
+
+
+def captured_orders(fn) -> list:
+    """The row orders one call of fn() takes (capturing_orders)."""
+    with capturing_orders([]) as calls:
+        fn()
+    return calls
+
+
+def check_orders(label, calls) -> None:
+    """Each captured order (captured_orders) against order_rows_plain on
+    the same card tensors, bit for bit: the sorted keys, perm (its index
+    type too), kshift and row_start; every call must have taken one."""
+    check(calls, f"{label}: no row order was taken")
+    for key, ctr, groups, extent, kw, got in calls:
+        want = cs.order_rows_plain(key, ctr, groups, extent, **kw)
+        same = got[2] == want[2] and (got[3] is None) == (want[3] is None)
+        for a, b in zip(got, want):
+            if isinstance(a, torch.Tensor):
+                same = same and a.dtype == b.dtype and torch.equal(a, b)
+        check(same, f"{label}: the order kernel's keys, perm or row_start "
+              f"differ from order_rows_plain's ({key.shape[0]} rows, "
+              f"{groups} groups, {kw})")
+    forms = sorted({(c[2], bool(c[4].get("starts"))) for c in calls})
+    log(f"[{label}] the order kernel's sorted keys, perm and row_start equal "
+        f"order_rows_plain's bit for bit on {len(calls)} row order(s) "
+        f"((groups, row_start): {forms})")
+
+
+def device_events(fn, runs: int = 1) -> list:
+    """The device events under torch.profiler of `runs` calls of fn,
+    after 3 to warm up (key_averages: a name, its count and device time);
+    a profile with none (an empty device trace) is taken again, up to
+    three in all."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        if events:
+            break
+    check(events, "a profile holds no device event")
+    return events
+
+
+def library_sorts(fn) -> dict:
+    """{name: count} of the device kernels of one call of fn whose name
+    holds "sort" (a library sort: torch.sort's CUB radix sort and its
+    helpers)."""
+    return {e.key: e.count for e in device_events(fn)
+            if "sort" in e.key.lower()}
+
+
+def order_times(calls, errs) -> dict:
+    """The order kernel on the rows the tracked wrapper takes on D's
+    clustered cell (calls: captured_orders of it, held first to
+    order_rows_plain): its device time (profiler), its wrapper's and plain
+    version's host times, torch.sort(stable=True)'s on the same keys (host
+    clock; its device time, all its launches, under the profiler), the
+    wrapper and torch.sort by CUDA events, and the bound: the keys and
+    centres read once, the sorted keys, perm and row_start written once."""
+    check_orders("D clustered", calls)
+    key, ctr, groups, extent, kw, got = calls[0]
+    kshift, tbits = cs.order_bits(groups, extent)
+    # and every tile coordinate of both axes, centres beyond either edge
     tiles = torch.arange(1 << (kshift // 2), dtype=torch.int32,
                          device=ctr.device) << tbits
     edges = torch.tensor([[-1, -(1 << 30)], [1 << 30, 2**31 - 1],
-                          [h + 900, -400]], dtype=torch.int32,
+                          [extent + 900, -400]], dtype=torch.int32,
                          device=ctr.device)
     every = torch.cat([torch.stack([tiles, tiles.flip(0)], 1), edges])
-    for k, c in ((key, ctr), (torch.arange(every.shape[0], device=ctr.device)
-                              % (fold[0].shape[0] * args[3].shape[1]),
-                              every)):
-        check(torch.equal(cs.order_keys(k, c, kshift, tbits),
-                          cs.order_keys_plain(k, c, kshift, tbits)),
-              "D: the order kernel's keys differ from order_keys_plain's")
+    check_orders("D every tile", captured_orders(lambda: cs.order_rows(
+        torch.arange(every.shape[0], device=ctr.device) % groups, every,
+        groups, extent, **kw)))
+    keys = cs.order_keys_plain(key, ctr, kshift, tbits)
     errs["abs"]["crop_order"] = 0.0
-    keys = cs.order_keys(key, ctr, kshift, tbits)
-    return dict(
-        timed("crop_order", lambda: cs.order_keys(key, ctr, kshift, tbits),
-              lambda: cs.order_keys_plain(key, ctr, kshift, tbits)),
-        bound=bound(0.0, nbytes(key, ctr, keys)))
+    kernel = lambda: cs.order_rows(key, ctr, groups, extent, **kw)  # noqa
+    library = lambda: torch.sort(keys, stable=True)  # noqa: E731
+    out = dict(
+        timed("crop_order", kernel,
+              lambda: cs.order_rows_plain(key, ctr, groups, extent, **kw)),
+        bound=bound(0.0, nbytes(key, ctr, *(x for x in got
+                                            if isinstance(x, torch.Tensor)))),
+        events_ms=events_ms(kernel), library_events_ms=events_ms(library),
+        # the line's yardstick: torch.sort's device time, all its launches
+        library_ms=sum(device_us(e) for e in device_events(library, 20))
+        / 20 / 1e3,
+        library_host_ms=median_ms(library), rows=key.shape[0], groups=groups,
+    )
+    log(f"[D] crop_order on the clustered cell ({key.shape[0]} rows, "
+        f"{groups} groups, kshift {kshift}): kernel {out['ms']:.4f} ms, "
+        f"by CUDA events {out['events_ms']:.4f} ms; torch.sort(stable=True)"
+        f" of the same keys {out['library_ms']:.4f} ms of device "
+        f"time (all its launches), by CUDA events "
+        f"{out['library_events_ms']:.4f} ms, host {out['library_host_ms']:.4f}"
+        f" ms; bound {out['bound'][0]:.4f} ms ({out['bound'][1]})")
+    return out
 
 
 def l2_route(name, kernel, windows) -> dict:
@@ -2019,6 +2133,8 @@ def phase_d(dev, pf, world, errs):
         pixels=int(npix[0]),
     )
     compare("D spread, C=3", errs, CROP, *pair)
+    check_orders("D spread", captured_orders(
+        lambda: [kernel() for kernel, _ in pair]))
     raw = raw_triple(args, f)
     out["crop_score_init_raw"] = dict(
         timed("crop_score_init_raw", *raw[:2]),
@@ -2113,7 +2229,13 @@ def phase_d(dev, pf, world, errs):
         pixels=int(npix[0]), map_bytes=nbytes(cmap.compact(3)),
     )
     compare("D clustered, C=3", errs, CROP, *pair)
-    out["crop_order"] = order_times(args, theta, f, errs)
+    out["crop_order"] = order_times(captured_orders(pair[0][0]), errs)
+    for label, update in (("tracked", tracked_update), ("init", init_update)):
+        sorts = library_sorts(update)
+        check(not sorts, f"D: the crop {label} update's profile holds a "
+              f"library sort: {sorts}")
+    log("[D] the crop tracked and init updates' profiles hold no library "
+        "sort kernel")
     pair4 = crop_pair((cmap4, 3, sten, scan, cw, ctr), theta, f)
     out["crop_score_tracked_i4"] = dict(
         timed("crop_score_tracked_i4", *pair4[0]),
@@ -2752,7 +2874,7 @@ def phase_m(dev, world, read_launches):
             kernels.reset_launch_counts()
             mlL, perL = variant_drive(dev, world, mesh, names,
                                       map_int4=int4, m_hilo=False)
-            read_launches(label, names[:2] + ("crop_fold",
+            read_launches(label, names[:2] + ("crop_fold", "crop_order",
                                               "crop_lokf_weights"))
             want = np.zeros_like(perL)
             want[0, 0] = want[1, 1] = 1
@@ -3018,11 +3140,14 @@ def city_bag_for_smoke(n_scans):
     return traj, psi, bag
 
 
-def node_replay(node, traj, bag, max_scans=None, after_scan=None):
+def node_replay(node, traj, bag, max_scans=None, after_scan=None,
+                capture=None):
     """Replay the bag through the node with every update logged and every
     blocking read counted: the synchronising calls that torch.cuda's sync
     debug mode reports ("warn"), by site, and the waits on the filter's
-    snapshot copy.  after_scan(node, ulog) runs after each scan.  Returns
+    snapshot copy.  after_scan(node, ulog) runs after each scan.  With a
+    list `capture`, the first two row orders of either form go into it
+    (capturing_orders).  Returns
     (record, errors (m) of the published poses, per-scan timing dicts,
     UpdateLog, per-scan synchronising calls, per-scan snapshot reads,
     sites)."""
@@ -3031,7 +3156,9 @@ def node_replay(node, traj, bag, max_scans=None, after_scan=None):
     syncs, snaps, sites = [], [], {}
     seen = [0, pf.snapshot_reads]
     with UpdateLog(pf) as ulog, warnings.catch_warnings(
-            record=True) as caught:
+            record=True) as caught, (
+                contextlib.nullcontext() if capture is None
+                else capturing_orders(capture, limit=2)):
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
@@ -3110,9 +3237,14 @@ def phase_n(dev, name_limit, read_launches):
         f"without warmup {out['first_cold_ms']:.1f} ms; warmup "
         f"{out['warmup_ms']:.1f} ms (step functions, maps cached: {caches})")
 
-    rec, errs, times, ulog, syncs, snaps, sites = node_replay(node, traj, bag)
+    orders = []
+    rec, errs, times, ulog, syncs, snaps, sites = node_replay(
+        node, traj, bag, capture=orders)
     read_launches("N1", ("crop_score_init", "crop_score_tracked",
                          "crop_fold", "crop_order"))
+    before = kernels.LAUNCHES["crop_order"]
+    check_orders("N1", orders)  # its first orders of either form
+    kernels.LAUNCHES["crop_order"] = before  # the check's own launches
     out["first_warm_ms"] = sum(times[0][k] for k in ("render_ms", "filter_ms",
                                                     "publish_ms"))
     paths = check_node_plans("N1", ulog.rows)
@@ -3748,7 +3880,7 @@ def main() -> int:
     read_launches("C5", CROP_I4 + MULTI_I4 + FOLD + ORDER)
     phase_c6(dev, world)
     read_launches("C6", CROP_LOKF + MULTI_LOKF + CROP_I4_LOKF + MULTI_I4_LOKF
-                  + FOLD + SCALES)
+                  + FOLD + ORDER + SCALES)
 
     kernels.reset_launch_counts()
     calls = conv_calls()
@@ -3885,6 +4017,11 @@ def main() -> int:
                if name == "crop_fold" else {}),
             **({"both_ms": times[name]["both_ms"]}
                if "both_ms" in times[name] else {}),
+            # the order: by CUDA events, its wrapper's and torch.sort's
+            # host times (library_ms is torch.sort's device time)
+            **({k: times[name][k] for k in (
+                "events_ms", "library_events_ms", "wrapper_ms",
+                "library_host_ms")} if name == "crop_order" else {}),
             # the weights pass: its times at D2's K tables
             **({"k_bucket": {
                 k: times["crop_lokf_weights_multi"][k]

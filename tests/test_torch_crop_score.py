@@ -34,7 +34,14 @@ from top_down_renderer_torch.filter.scoring import rotation_shift
 from top_down_renderer_torch.maps.polar import polar_stencil
 
 from test_pallas_interpret import _check, _centers
-from torch_parity import assert_rel, np_
+from torch_parity import (
+    ORDER_CASES,
+    ORDER_SIZES,
+    assert_rel,
+    np_,
+    order_case,
+    order_rows_numpy,
+)
 
 torch.set_num_threads(2)
 
@@ -561,11 +568,11 @@ def test_fold_pixels_on_the_cpu_is_fold_offsets():
     (100, 1024), (1200, 1536), (2, 1 << 20), (1 << 20, 64), (250, 96),
 ])
 def test_order_keys_on_the_cpu_interleave_the_tile_bits(groups, extent):
-    """order_keys, the order kernel's wrapper, runs order_keys_plain on
-    CPU tensors (no launch counted), and its keys are tracked_order_plain's
-    bit by bit interleave (numpy) of the clamped tiles under the group:
-    every tile coordinate of both axes, centres at the int32 range's ends
-    and off the levels; kshift from 10 to 30."""
+    """order_rows, the order kernel's wrapper, runs order_rows_plain on
+    CPU tensors (no launch counted), and its sorted keys are
+    tracked_order_plain's bit by bit interleave (numpy) of the clamped
+    tiles under the group: every tile coordinate of both axes, centres at
+    the int32 range's ends and off the levels; kshift from 10 to 30."""
     kshift, tbits = cs.order_bits(groups, extent)
     rng = np.random.default_rng(groups)
     tiles = np.arange(1 << (kshift // 2), dtype=np.int64) << tbits
@@ -575,11 +582,44 @@ def test_order_keys_on_the_cpu_interleave_the_tile_bits(groups, extent):
         rng.integers(-extent, 2 * extent, (500, 2))]).astype(np.int32)
     key = rng.integers(0, groups, len(ctr))
     kernels.reset_launch_counts()
-    got = cs.order_keys(torch.as_tensor(key), torch.as_tensor(ctr), kshift,
-                        tbits)
+    got, _, shift, _ = cs.order_rows(torch.as_tensor(key),
+                                     torch.as_tensor(ctr), groups, extent)
     assert got.dtype == torch.int32 and sum(kernels.LAUNCHES.values()) == 0
+    assert shift == kshift
     want, perm, _ = cs.tracked_order_plain(key, ctr, groups, extent)
-    np.testing.assert_array_equal(np_(got)[perm], want)
+    np.testing.assert_array_equal(np_(got), want)
+    np.testing.assert_array_equal(
+        np_(cs.order_keys_plain(torch.as_tensor(key), torch.as_tensor(ctr),
+                                kshift, tbits))[perm], want)
+
+
+@pytest.mark.parametrize("key_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("n", ORDER_SIZES)
+@pytest.mark.parametrize("case", list(ORDER_CASES))
+def test_order_rows_plain_is_tracked_order_plain(case, n, key_dtype):
+    """order_rows on the CPU (order_rows_plain: the keys, torch.sort,
+    searchsorted), the tracked kernels' form (perm int64, no starts),
+    equals order_rows_numpy (tracked_order_plain, or a stable argsort of
+    the keys alone) bit for bit: N = 0 to 102,400, kshift 0 to 30 (the
+    keys alone: tracked_rows, no centres), every key and centre equal,
+    buckets left empty, centres off both edges and at the int32 range's
+    ends, int32 and int64 group keys; no launch counted.  tracked_order
+    and tracked_rows return its parts."""
+    key, ctr, groups, extent = order_case(case, n)
+    skey, perm, kshift, _ = order_rows_numpy(key, ctr, groups, extent)
+    tkey = torch.as_tensor(key).to(key_dtype)
+    tctr = None if ctr is None else torch.as_tensor(ctr)
+    kernels.reset_launch_counts()
+    got = cs.order_rows(tkey, tctr, groups or 0, extent)
+    assert sum(kernels.LAUNCHES.values()) == 0
+    assert got[0].dtype == torch.int32 and got[1].dtype == torch.int64
+    assert got[2] == kshift and got[3] is None
+    np.testing.assert_array_equal(np_(got[0]), skey)
+    np.testing.assert_array_equal(np_(got[1]), perm)
+    short = (cs.tracked_rows(tkey) if ctr is None
+             else cs.tracked_order(tkey, tctr, groups, extent))
+    for a, b in zip(short, got):
+        assert a == b if isinstance(a, int) else torch.equal(a, b)
 
 
 def test_tracked_rows_put_rows_back():

@@ -18,6 +18,7 @@ no JAX, so it also runs on a machine without it:
 (tests/conftest.py imports JAX, hence --noconftest there).
 """
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -38,7 +39,15 @@ from top_down_renderer_torch.probes import window as wg
 from top_down_renderer_torch.testing import synthetic_setup
 from top_down_renderer_torch.utils.convert import filter_state_from_numpy
 
-from torch_parity import assert_rel, np_, tracked_pairs
+from torch_parity import (
+    ORDER_CASES,
+    ORDER_SIZES,
+    assert_rel,
+    np_,
+    order_case,
+    order_rows_numpy,
+    tracked_pairs,
+)
 
 TH, R = 100, 25
 N = 256
@@ -146,40 +155,114 @@ def test_fold_kernel_matches_fold_offsets(dev, th, r, fs):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("groups,extent,n", [
-    (100, 1024, 102_400), (1200, 1536, 1_000), (2, 1 << 20, 1),
-    (1 << 20, 64, 4_097), (250, 96, 65_536),
-])
-def test_order_kernel_matches_order_keys_plain(dev, groups, extent, n):
-    """The order kernel (one launch, "crop_order") against
-    order_keys_plain bit for bit, and tracked_order against
-    tracked_order_plain (numpy): random keys and centres on and off the
-    levels, every tile coordinate of both axes, centres at the int32
-    range's ends; kshift from 10 to 30."""
-    kshift, tbits = cs.order_bits(groups, extent)
-    rng = np.random.default_rng(groups)
-    key = torch.as_tensor(rng.integers(0, groups, n), device=dev)
-    ctr = torch.as_tensor(rng.integers(-extent, 2 * extent, (n, 2)),
-                          dtype=torch.int32, device=dev)
-    tiles = torch.arange(1 << (kshift // 2), dtype=torch.int32,
-                         device=dev) << tbits
-    every = torch.cat([torch.stack([tiles, tiles.flip(0)], 1),
-                       torch.tensor([[-2**31, 2**31 - 1], [2**31 - 1, -1]],
-                                    dtype=torch.int32, device=dev)])
+@pytest.mark.parametrize("n", ORDER_SIZES + (1 << 20,))
+@pytest.mark.parametrize("case", list(ORDER_CASES))
+def test_order_kernel_matches_order_keys_plain(dev, case, n):
+    """The order kernel (one launch a call, "crop_order") against
+    order_rows_plain (order_keys_plain, torch.sort, searchsorted) on the
+    same card tensors, bit for bit: sorted keys, perm in both index types
+    and, where the groups allow it, row_start; N = 0 to 2^20, kshift 0 to
+    30 (the keys alone: tracked_rows, no centres), every key and centre
+    equal, buckets left empty, centres off both edges and at the int32
+    range's ends, int32 and int64 group keys; up to 4,097 rows also
+    against order_rows_numpy (tracked_order_plain).  Twice in a row on
+    the same inputs, bit for bit (each call a new epoch of the scratch)."""
+    key, ctr, groups, extent = order_case(case, n)
+    tctr = None if ctr is None else torch.as_tensor(ctr, device=dev)
+    want = order_rows_numpy(key, ctr, groups, extent) if n <= 4_097 else None
+    starts = groups is not None and groups <= cs.ORDER_MAX_GROUPS
+    for key_dtype, index_dtype in ((torch.int64, torch.int64),
+                                   (torch.int32, torch.int32)):
+        tkey = torch.as_tensor(key, device=dev).to(key_dtype)
+        plain = cs.order_rows_plain(tkey, tctr, groups or 0, extent,
+                                    index_dtype=index_dtype, starts=starts)
+        before = kernels.LAUNCHES["crop_order"]
+        got = cs.order_rows(tkey, tctr, groups or 0, extent,
+                            index_dtype=index_dtype, starts=starts)
+        again = cs.order_rows(tkey, tctr, groups or 0, extent,
+                              index_dtype=index_dtype, starts=starts)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["crop_order"] == before + 2
+        assert got[1].dtype == index_dtype and got[2] == plain[2]
+        for a, b, c in zip(got, again, plain):
+            if isinstance(a, torch.Tensor):
+                assert a.dtype == c.dtype and torch.equal(a, c)
+                assert torch.equal(b, a)
+        assert (got[3] is None) == (not starts)
+        if want is not None:
+            np.testing.assert_array_equal(np_(got[0]), want[0])
+            np.testing.assert_array_equal(np_(got[1]), want[1])
+            if starts:
+                np.testing.assert_array_equal(np_(got[3]), want[3])
+
+
+@pytest.mark.cuda
+def test_order_rows_refuses_what_the_kernel_cannot_take(dev):
+    """order_rows on the card raises, and launches nothing, for float
+    keys, keys of another shape, an index type other than int32 and
+    int64, row_start of more groups than the kernel counts, and centres
+    of the wrong type; a launch its entry refuses (kshift 31) raises
+    too."""
+    key = torch.zeros(64, dtype=torch.int64, device=dev)
+    ctr = torch.zeros((64, 2), dtype=torch.int32, device=dev)
     before = kernels.LAUNCHES["crop_order"]
-    for k, c in ((key, ctr), (torch.arange(every.shape[0], device=dev)
-                              % groups, every)):
-        got = cs.order_keys(k, c, kshift, tbits)
-        assert got.dtype == torch.int32
-        assert torch.equal(got, cs.order_keys_plain(k, c, kshift, tbits))
-    skey, perm, shift = cs.tracked_order(key, ctr, groups, extent)
-    pkey, pperm, pshift = cs.tracked_order_plain(np_(key), np_(ctr), groups,
-                                                 extent)
+    for kw, err in (({"key": key.float()}, TypeError),
+                    ({"key": key[:, None]}, TypeError),
+                    ({"index_dtype": torch.int16}, TypeError),
+                    ({"groups": cs.ORDER_MAX_GROUPS + 1, "starts": True},
+                     ValueError),
+                    ({"ctr": ctr.long()}, TypeError)):
+        args = {"key": key, "ctr": ctr, "groups": 12, "extent": 64} | kw
+        with pytest.raises(err):
+            cs.order_rows(args.pop("key"), args.pop("ctr"), args.pop("groups"),
+                          args.pop("extent"), **args)
+    assert kernels.LAUNCHES["crop_order"] == before
+    skey, perm, _, _ = cs.order_rows(key, ctr, 12, 64)
+    scratch = cs._order_status(dev, torch.cuda.current_stream(), 64)[0]
+    pairs = torch.empty(128, dtype=torch.int64, device=dev)
+    with pytest.raises(RuntimeError, match="tdr_crop_order"):
+        kernels.launch("crop_score", "tdr_crop_order", kernels.ptr(key), 8,
+                       kernels.ptr(ctr), 64, 31, 0, 0, 0, kernels.ptr(skey),
+                       kernels.ptr(perm), 8, None, kernels.ptr(scratch),
+                       scratch.numel(), kernels.ptr(pairs), ctypes.c_uint(1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["tracked_rows", "tracked_order",
+                                  "init_order", "init_order_k12"])
+def test_order_is_one_launch(dev, form):
+    """Each order a crop wrapper takes is one device activity a call under
+    torch.profiler, the order kernel's (no sort, fill, copy or search
+    kernel beside it), and one "crop_order" launch, at 102,400 rows."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    key, ctr, _, _ = order_case("shifts", 102_400)
+    tkey = torch.as_tensor(key, device=dev)
+    tctr = torch.as_tensor(ctr, device=dev)
+    b12, zeros = tkey % 12, torch.zeros_like(tkey)
+    fn = {"tracked_rows": lambda: cs.tracked_rows(tkey),
+          "tracked_order": lambda: cs.tracked_order(tkey, tctr, 100, 1024),
+          "init_order": lambda: cs.init_order(zeros, tctr, 1, 1024),
+          "init_order_k12": lambda: cs.init_order(b12, tctr, 12, 1024)}[form]
+    fn()
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["crop_order"] == before + 3
-    np.testing.assert_array_equal(np_(skey), pkey)
-    np.testing.assert_array_equal(np_(perm), pperm)
-    assert shift == pshift == kshift
+    for _ in range(3):  # an empty device trace is taken again
+        before = kernels.LAUNCHES["crop_order"]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+        assert kernels.LAUNCHES["crop_order"] == before + 5
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        if events:
+            break
+    names = {e.key: e.count for e in events}
+    assert len(names) == 1, names
+    ((name, count),) = names.items()
+    assert "crop_order_kernel" in name and count == 5, names
 
 
 @pytest.mark.cuda

@@ -29,7 +29,13 @@ from top_down_renderer_torch.filter import crop_score as cs
 from top_down_renderer_torch.filter import multiscale as ms
 from top_down_renderer_torch.maps.polar import polar_stencil
 
-from torch_parity import np_
+from torch_parity import (
+    ORDER_CASES,
+    ORDER_SIZES,
+    np_,
+    order_case,
+    order_rows_numpy,
+)
 
 torch.set_num_threads(2)
 
@@ -129,6 +135,38 @@ def test_init_order_is_tracked_order_plain_by_bucket(where, kind):
     for t in np.unique(tile):
         assert len(set(sorted_bucket[tile == t].tolist())) == 1
     assert np.bincount(tile).max() <= cs.INIT_TILE
+
+
+STARTS_CASES = [c for c, (g, _, _) in ORDER_CASES.items()
+                if g is not None and g <= cs.ORDER_MAX_GROUPS]
+
+
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("n", ORDER_SIZES)
+@pytest.mark.parametrize("case", STARTS_CASES)
+def test_order_rows_plain_starts_are_searchsorted(case, n, index_dtype):
+    """order_rows on the CPU with the groups' first rows (init_order's
+    form): perm in either index type and row_start (K + 1,) int64 equal
+    order_rows_numpy's (tracked_order_plain, np.searchsorted of each
+    group's first key, then N) bit for bit: K = 1, 2, 12 and 100 groups,
+    empty ones among them, every key equal, N = 0 to 102,400, centres off
+    both edges; row_start is also each group's count summed; init_order
+    returns the int32 form."""
+    key, ctr, groups, extent = order_case(case, n)
+    skey, perm, kshift, starts = order_rows_numpy(key, ctr, groups, extent)
+    np.testing.assert_array_equal(starts, np.concatenate(
+        [[0], np.cumsum(np.bincount(key, minlength=groups))]))
+    tkey, tctr = torch.as_tensor(key), torch.as_tensor(ctr)
+    got = cs.order_rows(tkey, tctr, groups, extent, index_dtype=index_dtype,
+                        starts=True)
+    assert got[1].dtype == index_dtype and got[3].dtype == torch.int64
+    assert got[2] == kshift
+    np.testing.assert_array_equal(np_(got[0]), skey)
+    np.testing.assert_array_equal(np_(got[1]), perm)
+    np.testing.assert_array_equal(np_(got[3]), starts)
+    if index_dtype == torch.int32:
+        want = cs.init_order(tkey, tctr, groups, extent)
+        assert torch.equal(want[0], got[1]) and torch.equal(want[1], got[3])
 
 
 @pytest.mark.parametrize("where", ["uniform", "buckets"])

@@ -26,11 +26,15 @@ update must launch the tracked kernel and no theta search or conv field
 crop_score.score_tracked inside it (not synchronised, median over the
 same calls: "_scorer_ms"), the tracked kernel's device time in it
 (chip_smoke.kernel_ms: "_kernel_ms") and, for N1, its plan (chip_smoke's
-PlanLog).  A checkout with crop_score.order_keys also gives the host time
-(not synchronised, median of ORDER_RUNS calls taken in turns, the queue
-drained before each) of the tracked wrapper's two row orders on the
-clustered C = 3 cell's keys: tracked_rows (the single-plane M's) and
-tracked_order (the order kernel, then the sort) ("order_host_us").
+PlanLog).  Each checkout also gives the host time (not synchronised,
+median of ORDER_RUNS calls taken in turns, the queue drained before each)
+of the tracked wrapper's two row orders on the clustered C = 3 cell's
+keys: tracked_rows (the single-plane M's) and tracked_order
+("order_host_us"), and their device time under torch.profiler (every
+device activity of DEVICE_RUNS calls, a call's sum, with the activities
+a call and their names: "order_device_us"), whatever launches they make
+(a key kernel and torch.sort's kernels before crop_score.order_rows, its
+one launch since).
 
 For the theta search (--path init, crop_init_kernel: the float map with
 the hi/lo M):
@@ -45,16 +49,17 @@ the hi/lo M):
               tracked kernel or conv field;
 
 with the update's scorer (crop_score.score_init_sel, "_scorer") and
-kernel ("_kernel") as above, and, where the checkout has
-crop_score.init_order, the host time of its rows on the C = 3 cell's
-centres (order_host_us, as above): init_order at one bucket, its sort
-alone (tracked_order) and the sort with the K-bucket form's row_start
-(arange, searchsorted, cat: "search").
+kernel ("_kernel") as above, and the host and device time of its rows on
+the C = 3 cell's centres (order_host_us, order_device_us, as above):
+init_order at one bucket, at 12 buckets (each centre's bucket its row
+mod 12: the K-bucket form, with row_start from a searchsorted before
+crop_score.order_rows), and tracked_order at one bucket ("sort").
 
 Each process prints one JSON line; last comes the summary: for each
 metric the medians of OLD's and of NEW's processes, and for each round
 NEW's two medians' mean less OLD's, and over the rounds their median,
-least and greatest; and NEW's order_host_us:
+least and greatest; and OLD's and NEW's order_host_us and
+order_device_us (medians over their processes):
 
     python tests/time_torch_tracked_host.py [--path tracked|init] [--rounds R] OLD_ROOT [NEW_ROOT]
 """
@@ -70,6 +75,7 @@ import sys
 
 RUNS = 50
 ORDER_RUNS = 200
+DEVICE_RUNS = 50
 SCANS = 60
 METRICS = {"tracked": ("wrapper_c3", "wrapper_c6", "update_d", "update_n1",
                         "update_d_scorer", "update_n1_scorer",
@@ -112,10 +118,10 @@ def child(root: str) -> dict:
         maps = cs.CropMap(torch.as_tensor(d["packed"], device=dev))
         out[f"wrapper_c{c}"] = median(
             lambda: cs.score_tracked(maps, c, *args, 1.0))
-        if c == 3 and hasattr(cs, "order_keys"):
-            out["order_host_us"] = order_host_us(
+        if c == 3:
+            out.update(order_times(
                 cs, *cs._tracked_inputs(maps, c, *args, 1.0, 1.0)[2:],
-                args[1].shape[1], 1024)
+                args[1].shape[1], 1024))
 
     def tracked_alone(fn):
         """fn() once; whether it launched the tracked kernel and no
@@ -225,22 +231,16 @@ def init_child(root: str) -> dict:
         maps = cs.CropMap(torch.as_tensor(d["packed"], device=dev))
         out[f"wrapper_c{c}"] = median(
             lambda: cs.score_init_sel(maps, c, *args, 1.0))
-        if c == 3 and hasattr(cs, "init_order"):
+        if c == 3:
             ctr = cs.crop_centers(args[3], 1.0).contiguous()
             zeros = torch.zeros(ctr.shape[0], dtype=torch.int64, device=dev)
-
-            def search():
-                skey, perm, kshift = cs.tracked_order(zeros, ctr, 1, 1024)
-                first = torch.arange(1, dtype=torch.int32,
-                                     device=dev) << kshift
-                return perm.to(torch.int32), torch.cat([
-                    torch.searchsorted(skey, first),
-                    first.new_full((1,), skey.shape[0]).long()])
-
-            out["order_host_us"] = host_us({
-                "init_order": lambda: cs.init_order(zeros, ctr, 1, 1024),
-                "sort": lambda: cs.tracked_order(zeros, ctr, 1, 1024),
-                "search": search})
+            k12 = torch.arange(ctr.shape[0], device=dev) % 12
+            fns = {"init_order": lambda: cs.init_order(zeros, ctr, 1, 1024),
+                   "init_order_k12": lambda: cs.init_order(k12, ctr, 12,
+                                                           1024),
+                   "sort": lambda: cs.tracked_order(zeros, ctr, 1, 1024)}
+            out["order_host_us"] = host_us(fns)
+            out["order_device_us"] = device_us_a_call(fns)
 
     def init_alone(fn):
         """fn() once; whether it launched the theta search and no
@@ -282,11 +282,46 @@ def init_child(root: str) -> dict:
     return out
 
 
-def order_host_us(cs, ctr, key, groups: int, extent: int) -> dict:
-    """{row order: host us a call} (module docstring)."""
-    return host_us({"rows": lambda: cs.tracked_rows(key),
-                    "order": lambda: cs.tracked_order(key, ctr, groups,
-                                                      extent)})
+def order_times(cs, ctr, key, groups: int, extent: int) -> dict:
+    """{"order_host_us": {row order: host us a call}, "order_device_us":
+    {row order: device_us_a_call's}} (module docstring)."""
+    fns = {"rows": lambda: cs.tracked_rows(key),
+           "order": lambda: cs.tracked_order(key, ctr, groups, extent)}
+    return {"order_host_us": host_us(fns),
+            "order_device_us": device_us_a_call(fns)}
+
+
+def device_us_a_call(fns: dict) -> dict:
+    """{name: {"us": the device time of a call of fns[name], "activities":
+    the device activities a call (kernels, copies, fills), "names": their
+    names}}: the sums over DEVICE_RUNS calls under torch.profiler, after 5
+    to warm up, over the calls; a profile with no device activity (an
+    empty device trace) is taken again, up to three in all."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from top_down_renderer_torch.probes.__main__ import device_us
+
+    out = {}
+    for k, fn in fns.items():
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(DEVICE_RUNS):
+                    fn()
+                torch.cuda.synchronize()
+            ev = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+            if ev:
+                break
+        out[k] = {"us": sum(device_us(e) for e in ev) / DEVICE_RUNS,
+                  "activities": sum(e.count for e in ev) / DEVICE_RUNS,
+                  "names": sorted(e.key for e in ev)}
+    return out
 
 
 def host_us(fns: dict) -> dict:
@@ -358,10 +393,19 @@ def main() -> int:
             "new_less_old_ms": diffs,
             "median_ms": statistics.median(diffs),
             "least_ms": min(diffs), "greatest_ms": max(diffs)}
-    if "order_host_us" in runs[new][0]:
-        summary["order_host_us"] = {
-            k: statistics.median(x["order_host_us"][k] for x in runs[new])
-            for k in runs[new][0]["order_host_us"]}
+    for side, root in (("old", old), ("new", new)):
+        if "order_host_us" not in runs[root][0]:
+            continue
+        summary[f"order_host_us_{side}"] = {
+            k: statistics.median(x["order_host_us"][k] for x in runs[root])
+            for k in runs[root][0]["order_host_us"]}
+        summary[f"order_device_us_{side}"] = {
+            k: {"us": statistics.median(x["order_device_us"][k]["us"]
+                                        for x in runs[root]),
+                "activities": runs[root][0]["order_device_us"][k][
+                    "activities"],
+                "names": runs[root][0]["order_device_us"][k]["names"]}
+            for k in runs[root][0]["order_device_us"]}
     print(json.dumps(summary))
     return 0
 

@@ -84,3 +84,64 @@ def tracked_pairs(skey, perm, ctr, kshift: int, th: int, levels, fold):
     there = torch.where(first, partner < run1[run], True)
     paired = inside & there & inside[partner.clamp(0, max(n - 1, 0))]
     return inside, paired, run
+
+
+# the row order's cases (crop_score.order_rows): name -> (groups, extent,
+# kind); groups None orders by the group keys alone (kshift 0, no
+# centres, tracked_rows').  kshift 30, 30, 26, 24, 20, 16, 10, 0.
+ORDER_CASES = {
+    "one_group": (1, 1024, "random"),
+    "two_groups_one_empty": (2, 1 << 20, "empty"),
+    "k12_half_empty": (12, 1536, "empty"),
+    "shifts": (100, 1024, "random"),
+    "g2000": (2000, 1536, "random"),
+    "g16384": (1 << 14, 300, "random"),
+    "g2p20": (1 << 20, 64, "random"),
+    "every_key_equal": (5, 96, "equal"),
+    "keys_alone": (None, 0, "random"),
+}
+ORDER_SIZES = (0, 1, 31, 4_097, 102_400)
+
+
+def order_case(name: str, n: int, seed: int = 0):
+    """(key (n,) int64, ctr (n, 2) int32 or None, groups, extent) of
+    ORDER_CASES[name]: keys in [0, groups) (1,200 groups for the keys
+    alone), the odd groups empty for "empty", one group and one centre
+    for "equal"; centres from -extent to 2 extent (off both edges of the
+    levels), the first two at the int32 range's ends."""
+    groups, extent, kind = ORDER_CASES[name]
+    rng = np.random.default_rng(seed + n)
+    if kind == "equal":
+        key = np.full(n, groups - 1, np.int64)
+        ctr = np.full((n, 2), 7, np.int64)
+    else:
+        key = rng.integers(0, groups or 1200, n)
+        if kind == "empty":
+            key = key // 2 * 2
+        ctr = rng.integers(-extent, 2 * extent + 1, (n, 2))
+        ctr[:2] = np.array([[-2**31, 2**31 - 1], [2**31 - 1, -1]])[:n]
+    return key, None if groups is None else ctr.astype(np.int32), groups, \
+        extent
+
+
+def order_rows_numpy(key, ctr, groups, extent):
+    """crop_score.order_rows' result in numpy: (sorted keys int32, perm
+    int64, kshift, row_start int64 or None): tracked_order_plain's keys
+    and perm (with ctr None, a stable argsort of the keys as int32,
+    kshift 0), and where groups <= ORDER_MAX_GROUPS each group's first row
+    by np.searchsorted of its first key, then N."""
+    from top_down_renderer_torch.filter import crop_score as cs
+
+    key = np.asarray(key)
+    if ctr is None:
+        k32 = key.astype(np.int32)
+        perm = np.argsort(k32, kind="stable").astype(np.int64)
+        skey, kshift = k32[perm], 0
+    else:
+        skey, perm, kshift = cs.tracked_order_plain(key, ctr, groups, extent)
+    starts = None
+    if groups is not None and groups <= cs.ORDER_MAX_GROUPS:
+        first = np.arange(groups, dtype=np.int64) << kshift
+        starts = np.concatenate([np.searchsorted(skey, first),
+                                 [len(key)]]).astype(np.int64)
+    return skey, perm, kshift, starts

@@ -32,10 +32,11 @@
 //     radix sort of each cell's index in the table's bounding box, then a
 //     block scan; bound by the latency of its barrier-separated steps, see
 //     the kernel);
-//   - the wrapper sorts the particles by group = bucket * Th + shift (one
-//     stable device sort; with the hi/lo M of the keys crop_order_kernel
-//     writes, the group above the Morton code of the centre's tile); block
-//     i of the tracked kernel takes sorted rows
+//   - the wrapper orders the particles by group = bucket * Th + shift
+//     (crop_order_kernel, one launch: the keys, a stable radix sort and
+//     the permutation; with the hi/lo M the group above the Morton code
+//     of the centre's tile, with the single-plane M the group alone);
+//     block i of the tracked kernel takes sorted rows
 //     [i kTile, (i + 1) kTile) and walks them run by run, one group a run;
 //   - for each run the block folds the weights of its shift into W[u] = (C
 //     cost weights, one norm weight, the cell count) in shared memory, each
@@ -131,7 +132,6 @@ constexpr int kDigitBits = 8;      // the widest radix digit
 constexpr int kBins = 1 << kDigitBits;
 constexpr size_t kHistBytes = (size_t)kFoldWarps * (kBins + 1) * sizeof(int);
 constexpr int kPad = 1 << 29;  // (dy, dx) of a padding pixel: PAD_PIX
-constexpr int kOrderThreads = 256;  // a row a thread
 
 // v's bits 0-15 moved to the even bit positions 0-30 (bit i to bit 2i)
 __device__ __forceinline__ unsigned spread_bits(unsigned v) {
@@ -143,23 +143,468 @@ __device__ __forceinline__ unsigned spread_bits(unsigned v) {
   return v;
 }
 
-// The hi/lo tracked kernels' sort keys (crop_score.order_keys), one row a
-// thread: the group key in the bits from kshift up, and below it the
-// Morton code of the centre's tile, min(max(centre, 0), hi) >> tbits, the
-// tile row's bits at the odd positions and its column's at the even ones.
-// In place of the wrapper's eager ops (a clamp, shifts, a table gather and
-// ors), which cost more host time than the order saves on the card.
+// The row order (crop_score.order_rows): one cooperative launch that
+// gives the crop kernels' rows their order.  It replaces no TPU kernel:
+// the JAX wrapper sorts the particles by group itself, with a stable
+// counting sort (pallas_score.py::_counting_pos, _group_layout), which the
+// port had swapped for torch.sort; here it is a kernel of its own.
+//
+// Each row's 32-bit key is the group key in the bits from kshift up and,
+// below it, the Morton code of its centre's tile, min(max(centre, 0), hi)
+// >> tbits, the tile row's bits at the odd positions and its column's at
+// the even ones (crop_score.order_keys_plain; kshift 0: the group key
+// alone, and no centres are read).  The kernel writes the keys sorted
+// stably (as signed int32: the sign bit is flipped for the digits), the
+// permutation, int32 or int64 as the caller's crop kernel reads it, and,
+// with K > 0 groups, row_start (K + 1) int64: the first row of each group
+// and N, torch.searchsorted's answer on the sorted keys.  Stability makes
+// the permutation unique, so the result equals torch.sort's bit for bit.
+//
+// Design: a stable LSD radix sort of 8-bit digits, in one persistent
+// launch of as many blocks as the card holds at once (at most one a tile
+// of kOrderTile rows; a block walks tiles blockIdx.x + j gridDim.x), with
+// grid barriers between its steps:
+//   1. the key pass computes every key in registers and counts, per
+//      block in shared memory and then by atomics into this call's
+//      counters, the digits of all four passes at once and the rows of
+//      each group (order-free sums: no rank depends on the atomics'
+//      order);
+//   2. after a grid barrier every block turns the counts into each
+//      digit's first slot (the four passes' scans at once, a digit a
+//      thread) and drops each pass whose
+//      digit is one value for every row (a pass that would move nothing:
+//      at K = 1 the group's bits and the Morton code's unused top bits,
+//      one or two of the four); block 0 writes row_start from the groups'
+//      counts;
+//   3. each remaining pass, a tile at a time: each warp ranks its 64
+//      rows, 32 at a time in row order, against its own row of counts,
+//      the lanes of one digit found by one ballot a digit bit (the fold
+//      kernel's way); the digit's counts are summed over the warps; the
+//      tile publishes its count of each digit and looks back over the
+//      tiles before it for its first slot (a decoupled look-back, as
+//      csrc/fill_rows.cu's, kLookBack status words of one digit in flight
+//      a round); the rows are staged in shared memory in digit order, and
+//      written from there, each digit's run to consecutive slots (key and
+//      row index in one 8-byte word, to the other of two buffers of N in
+//      L2, or, in the last pass, the outputs).  A grid barrier ends each
+//      pass but the last.
+// Status words hold (epoch, pass, state) beside the count, so words of an
+// earlier pass or call read as unpublished; the counters come in two sets
+// by the epoch's parity, and each call zeroes the set of the next one, so
+// nothing is reset between calls on the stream.  Every spin (the grid
+// barrier's, the look-back's) traps after about ten seconds (tma.cuh,
+// trap_if_stuck), so a broken call fails its launch rather than hang.
+//
+// Bound on an H100: bytes, each key and centre read once and the sorted
+// keys, the permutation and row_start written once (28 bytes a row with
+// int64 groups and perm: 2.9 MB, 0.86 us at 102,400 rows).  The kernel is
+// bound instead by the latency of its chain of steps, about 7 us a pass
+// at 102,400 rows (tests/time_torch_order.py: ranking 2, the digit sums
+// and look-back 3, the staged write 1, the grid barrier 1; PERF.md §6).
+// The grid barriers take about a sixth of it, so the sort was not moved
+// into one thread-block cluster's distributed shared memory to trade them
+// for cluster barriers.  Of the shapes measured, 1,024 threads of two
+// rows each (a short ranking chain a warp, 32 warps to hide it) lose to
+// none by more than 3 %: 256 threads of eight take 27 % longer, 1,024 of
+// one (100 tiles: a longer look-back) 16 % longer with two passes and
+// 46 % at 2^20 rows; a window of 16 status words 4 % longer than 8.
+constexpr int kOrderThreads = 1024;
+constexpr int kOrderItems = 2;  // rows a thread ranks in a tile
+constexpr int kOrderWarps = kOrderThreads / 32;
+constexpr int kOrderTile = kOrderThreads * kOrderItems;  // 2,048 rows
+constexpr int kRadix = 256;                              // 8-bit digits
+constexpr int kDigitGroups = kOrderThreads / kRadix;  // threads a digit
+constexpr int kOrderPasses = 4;                       // of 32-bit keys
+constexpr int kMaxStartGroups = 1024;  // K of row_start at most
+constexpr int kLookBack = 8;  // a digit's status words in flight a round
+// a call's counters: every pass's digit counts, then the groups' (bin 0
+// the negative keys, bin g + 1 group g, the groups from K - 1 up in bin
+// K), then the grid barrier's; two sets, by the epoch's parity
+constexpr int kOrderBins = kOrderPasses * kRadix;
+constexpr int kOrderBarrier = kOrderBins + kMaxStartGroups + 1;
+constexpr int kOrderCounters = kOrderBarrier + 1;  // 2,050: even
+// a block's shared words that serve, in turn, the groups' counts (key
+// pass), the warps' digit counts and the tile's rows in digit order
+constexpr int kOrderShared = kOrderWarps * kRadix > 2 * kOrderTile
+                                 ? kOrderWarps * kRadix
+                                 : 2 * kOrderTile;
+constexpr unsigned kAggregate = 1, kInclusive = 2;
+static_assert(kOrderThreads % kRadix == 0 && kOrderWarps % kDigitGroups == 0,
+              "a digit's warps split evenly over its threads");
+static_assert(kOrderShared >= kMaxStartGroups + 1, "the groups' counts fit");
+
+template <typename KeyT>
+__device__ __forceinline__ unsigned order_key(const KeyT* __restrict__ key,
+                                              const int2* __restrict__ ctr,
+                                              int i, int kshift, int tbits,
+                                              int hi) {
+  unsigned k = (unsigned)__ldg(key + i) << kshift;  // the int32 cast's bits
+  if (kshift) {
+    const int2 c = __ldg(ctr + i);
+    const unsigned ty = (unsigned)min(max(c.x, 0), hi) >> tbits;
+    const unsigned tx = (unsigned)min(max(c.y, 0), hi) >> tbits;
+    k |= (spread_bits(ty) << 1) | spread_bits(tx);
+  }
+  return k;
+}
+
+__device__ __forceinline__ unsigned order_digit(unsigned k, int p) {
+  return ((k ^ 0x80000000u) >> (8 * p)) & 0xffu;
+}
+
+// Add one for each lane of `live` (the calling lanes) to hist[d]: one
+// atomic for the warp where all its lanes share d (a digit above the keys'
+// varying bits), else one a lane.
+__device__ __forceinline__ void count_digit(unsigned* hist, unsigned d,
+                                            unsigned live, int lane) {
+  if (__reduce_min_sync(live, d) == __reduce_max_sync(live, d)) {
+    if (lane == __ffs(live) - 1) atomicAdd(hist + d, (unsigned)__popc(live));
+  } else {
+    atomicAdd(hist + d, 1u);
+  }
+}
+
+// The exclusive sum of v over the block's threads, in thread order, and
+// the total.
+__device__ __forceinline__ unsigned order_scan(unsigned v, unsigned* s_scan,
+                                               unsigned* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) s_scan[warp] = x;
+  __syncthreads();
+  unsigned w = lane < kOrderWarps ? s_scan[lane] : 0u;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned y = __shfl_up_sync(0xffffffffu, w, o);
+    if (lane >= o) w += y;
+  }
+  *total = __shfl_sync(0xffffffffu, w, 31);
+  const unsigned below = __shfl_sync(0xffffffffu, w, warp) - s_scan[warp];
+  __syncthreads();
+  return below + x - v;
+}
+
+__device__ __forceinline__ unsigned long long order_load_status(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// A status word: the high half (tag << 2 | state), tag = epoch << 2 |
+// pass; the low half the count.
+__device__ __forceinline__ void order_store_status(unsigned long long* p,
+                                                   unsigned tag,
+                                                   unsigned state,
+                                                   unsigned count) {
+  const unsigned long long v =
+      ((unsigned long long)(tag << 2 | state) << 32) | count;
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
+               :: "l"(p), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ bool order_published(unsigned long long w,
+                                                unsigned tag) {
+  const unsigned hi = (unsigned)(w >> 32);
+  return hi >> 2 == tag && (hi & 3u) != 0;
+}
+
+// The rows of digit d in the tiles before `tile` (>= 1), by their status
+// words, nearest first, kLookBack of them loaded at once: counts until
+// the nearest inclusive prefix (tile 0 publishes one at once).
+__device__ unsigned order_look_back(const unsigned long long* status,
+                                    int tile, int d, unsigned tag) {
+  unsigned sum = 0;
+  for (int pred = tile - 1;; pred -= kLookBack) {
+    unsigned long long w[kLookBack];
+#pragma unroll
+    for (int k = 0; k < kLookBack; ++k)
+      w[k] = pred - k >= 0
+                 ? order_load_status(status + (size_t)(pred - k) * kRadix + d)
+                 : 0ull;
+#pragma unroll
+    for (int k = 0; k < kLookBack; ++k) {
+      if (pred - k < 0) return sum;  // not reached: tile 0 is inclusive
+      unsigned long long v = w[k];
+      if (!order_published(v, tag)) {
+        const long long t0 = clock64();
+        do {
+          __nanosleep(20);
+          trap_if_stuck(t0);
+          v = order_load_status(status + (size_t)(pred - k) * kRadix + d);
+        } while (!order_published(v, tag));
+      }
+      sum += (unsigned)v;
+      if (((unsigned)(v >> 32) & 3u) == kInclusive) return sum;
+    }
+  }
+}
+
+// All blocks of the cooperative grid arrive; the count reaches `target`
+// (the grid's size times the barriers passed) once they have.  Writes
+// before it are seen after it (fence, then a relaxed add; an acquire
+// load); the wait traps after about ten seconds.
+__device__ __forceinline__ void grid_barrier(unsigned* count,
+                                             unsigned target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(count, 1u);
+    unsigned seen;
+    asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+                 : "=r"(seen) : "l"(count) : "memory");
+    if (seen < target) {
+      const long long t0 = clock64();
+      do {
+        __nanosleep(32);
+        trap_if_stuck(t0);
+        asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+                     : "=r"(seen) : "l"(count) : "memory");
+      } while (seen < target);
+    }
+  }
+  __syncthreads();
+}
+
+// The row order (see above).  scratch: the two sets of counters
+// (kOrderCounters words each, set epoch & 1 this call's, zero when it
+// starts), then the status words ((tiles, kRadix) 64-bit), zero when
+// first used and never anything else; pairs: two buffers of N (key, row)
+// words, no initial contents.
+template <typename KeyT, typename IdxT>
 __global__ void __launch_bounds__(kOrderThreads)
-    crop_order_kernel(const long long* __restrict__ key,
+    crop_order_kernel(const KeyT* __restrict__ key,
                       const int2* __restrict__ ctr, int N, int kshift,
-                      int tbits, int hi, int* __restrict__ out) {
-  const int i = blockIdx.x * kOrderThreads + threadIdx.x;
-  if (i >= N) return;
-  const int2 c = ctr[i];
-  const unsigned ty = (unsigned)min(max(c.x, 0), hi) >> tbits;
-  const unsigned tx = (unsigned)min(max(c.y, 0), hi) >> tbits;
-  out[i] = (int)(((unsigned)key[i] << kshift) | (spread_bits(ty) << 1) |
-                 spread_bits(tx));
+                      int tbits, int hi, int K, int* __restrict__ skey,
+                      IdxT* __restrict__ perm,
+                      long long* __restrict__ row_start, unsigned* scratch,
+                      unsigned long long* pairs, unsigned epoch) {
+  // the block's digit counts in the key pass, then each pass's first slot
+  // of each digit
+  __shared__ unsigned s_digit[kOrderBins];
+  __shared__ unsigned long long s_big[kOrderShared / 2];
+  __shared__ unsigned s_part[kDigitGroups][kRadix];  // a digit's warp sums
+  __shared__ unsigned s_local[kRadix];  // a digit's first row in the tile
+  __shared__ unsigned s_slot[kRadix];   // ... and its first slot
+  __shared__ unsigned s_scan[kOrderWarps];
+  __shared__ unsigned s_first[kOrderPasses][kOrderWarps];  // step 2's sums
+  __shared__ unsigned s_flat;  // the passes whose digit is one value
+  unsigned* s_group = reinterpret_cast<unsigned*>(s_big);  // key pass
+  unsigned* s_warp = reinterpret_cast<unsigned*>(s_big);  // (warp, digit)
+  unsigned long long* s_rows = s_big;  // the tile's rows in digit order
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int tiles = (N + kOrderTile - 1) / kOrderTile;
+  unsigned* counters = scratch + (epoch & 1) * kOrderCounters;
+  unsigned* next = scratch + (~epoch & 1) * kOrderCounters;
+  unsigned long long* status =
+      reinterpret_cast<unsigned long long*>(scratch + 2 * kOrderCounters);
+
+  // 1. the key pass: every pass's digit counts and the groups' counts
+  for (int e = t; e < kOrderBins; e += kOrderThreads) s_digit[e] = 0;
+  for (int e = t; e <= K; e += kOrderThreads) s_group[e] = 0;
+  if (t == 0) s_flat = 0;
+  for (int e = blockIdx.x * kOrderThreads + t; e < kOrderCounters;
+       e += gridDim.x * kOrderThreads)
+    next[e] = 0;  // the next call's set (the last call's, done)
+  __syncthreads();
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int row0 = tile * kOrderTile + warp * 32 * kOrderItems + lane;
+    unsigned k[kOrderItems];
+#pragma unroll
+    for (int j = 0; j < kOrderItems; ++j)  // every load in flight first
+      if (row0 + j * 32 < N)
+        k[j] = order_key(key, ctr, row0 + j * 32, kshift, tbits, hi);
+#pragma unroll
+    for (int j = 0; j < kOrderItems; ++j) {
+      const int i = row0 + j * 32;
+      const unsigned live = __ballot_sync(0xffffffffu, i < N);
+      if (i < N) {
+#pragma unroll
+        for (int p = 0; p < kOrderPasses; ++p)
+          count_digit(s_digit + p * kRadix, order_digit(k[j], p), live, lane);
+        if (K) {
+          const int g = (int)k[j] >> kshift;
+          count_digit(s_group, g < 0 ? 0 : min(g, K - 1) + 1, live, lane);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int e = t; e < kOrderBins; e += kOrderThreads)
+    if (s_digit[e]) atomicAdd(counters + e, s_digit[e]);
+  for (int e = t; e <= K; e += kOrderThreads)
+    if (s_group[e]) atomicAdd(counters + kOrderBins + e, s_group[e]);
+  grid_barrier(counters + kOrderBarrier, gridDim.x);
+
+  // 2. each digit's first slot (the four passes' scans at once, digit t
+  // on thread t), the passes whose digit varies, row_start
+  unsigned c[kOrderPasses], x[kOrderPasses];
+#pragma unroll
+  for (int p = 0; p < kOrderPasses; ++p) {
+    c[p] = t < kRadix ? __ldcg(counters + p * kRadix + t) : 0u;
+    if (t < kRadix && c[p] == (unsigned)N) atomicOr(&s_flat, 1u << p);
+    x[p] = c[p];
+  }
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+#pragma unroll
+    for (int p = 0; p < kOrderPasses; ++p) {
+      const unsigned y = __shfl_up_sync(0xffffffffu, x[p], o);
+      if (lane >= o) x[p] += y;
+    }
+  }
+  if (lane == 31) {
+#pragma unroll
+    for (int p = 0; p < kOrderPasses; ++p) s_first[p][warp] = x[p];
+  }
+  __syncthreads();
+  if (t < kRadix) {
+#pragma unroll
+    for (int p = 0; p < kOrderPasses; ++p) {
+      unsigned below = 0;
+      for (int w = 0; w < warp; ++w) below += s_first[p][w];
+      s_digit[p * kRadix + t] = below + x[p] - c[p];
+    }
+  }
+  int npass = 0;
+  unsigned passes = 0;  // their indices, two bits each
+  for (int p = 0; p < kOrderPasses; ++p)
+    if (!(s_flat >> p & 1)) passes |= p << (2 * npass++);
+  if (!npass) npass = 1;  // one digit value throughout: pass 0 keeps order
+  if (K && blockIdx.x == 0) {  // row_start[b] = the rows of groups < b
+    unsigned carry = 0;
+    for (int b0 = 0; b0 < K; b0 += kOrderThreads) {
+      const int b = b0 + t;
+      const unsigned c = b < K ? __ldcg(counters + kOrderBins + b) : 0u;
+      unsigned total;
+      const unsigned below = order_scan(c, s_scan, &total);
+      if (b < K) row_start[b] = carry + below + c;
+      carry += total;
+    }
+    if (t == 0) row_start[K] = N;
+  }
+
+  // 3. the passes
+  const int d = t & (kRadix - 1), h = t / kRadix;  // a digit's thread
+  constexpr int kPer = kOrderWarps / kDigitGroups;  // its warps
+  for (int q = 0; q < npass; ++q) {
+    const int p = passes >> (2 * q) & 3;
+    const bool last = q == npass - 1;
+    const unsigned long long* src = pairs + (size_t)((q - 1) & 1) * N;
+    unsigned long long* dst = pairs + (size_t)(q & 1) * N;
+    const unsigned tag = epoch << 2 | q;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int row0 = tile * kOrderTile + warp * 32 * kOrderItems + lane;
+      unsigned long long pr[kOrderItems];  // (key, row)
+#pragma unroll
+      for (int j = 0; j < kOrderItems; ++j) {
+        const int i = row0 + j * 32;
+        if (i < N)
+          pr[j] = q == 0 ? (unsigned long long)(unsigned)i << 32 |
+                               order_key(key, ctr, i, kshift, tbits, hi)
+                         : __ldcg(src + i);  // other blocks wrote it
+      }
+      for (int e = lane; e < kRadix; e += 32) s_warp[warp * kRadix + e] = 0;
+      __syncwarp();
+      unsigned rank[kOrderItems];
+#pragma unroll
+      for (int j = 0; j < kOrderItems; ++j) {
+        const int i = row0 + j * 32;
+        const unsigned live = __ballot_sync(0xffffffffu, i < N);
+        if (i < N) {
+          const unsigned dig = order_digit((unsigned)pr[j], p);
+          unsigned peers = live;
+#pragma unroll
+          for (int bit = 0; bit < 8; ++bit) {
+            const unsigned ones = __ballot_sync(live, dig >> bit & 1);
+            peers &= (dig >> bit & 1) ? ones : ~ones;
+          }
+          const int leader = __ffs(peers) - 1;
+          unsigned before = 0;
+          if (lane == leader) {
+            before = s_warp[warp * kRadix + dig];
+            s_warp[warp * kRadix + dig] = before + __popc(peers);
+          }
+          rank[j] = __shfl_sync(live, before, leader) +
+                    __popc(peers & ((1u << lane) - 1));
+        }
+        __syncwarp();
+      }
+      __syncthreads();
+      // digit d over warps [h kPer, (h + 1) kPer): each warp's first rank
+      // in the digit, then the tile's count of it
+      unsigned run = 0;
+#pragma unroll
+      for (int w = h * kPer; w < (h + 1) * kPer; ++w) {
+        const unsigned v = s_warp[w * kRadix + d];
+        s_warp[w * kRadix + d] = run;
+        run += v;
+      }
+      s_part[h][d] = run;
+      __syncthreads();
+      unsigned below = 0, count = 0;
+#pragma unroll
+      for (int g = 0; g < kDigitGroups; ++g) {
+        const unsigned v = s_part[g][d];
+        below += g < h ? v : 0u;
+        count += v;
+      }
+      if (h) {
+#pragma unroll
+        for (int w = h * kPer; w < (h + 1) * kPer; ++w)
+          s_warp[w * kRadix + d] += below;
+      }
+      unsigned long long* st = status + (size_t)tile * kRadix + d;
+      if (t < kRadix)
+        order_store_status(st, tag, tile ? kAggregate : kInclusive, count);
+      unsigned total;
+      const unsigned local = order_scan(t < kRadix ? count : 0u, s_scan,
+                                        &total);
+      if (t < kRadix) {
+        unsigned prior = 0;
+        if (tile) {
+          prior = order_look_back(status, tile, d, tag);
+          order_store_status(st, tag, kInclusive, prior + count);
+        }
+        s_local[d] = local;
+        s_slot[d] = s_digit[p * kRadix + d] + prior;
+      }
+      __syncthreads();
+      unsigned at[kOrderItems];  // each row's place in the tile
+#pragma unroll
+      for (int j = 0; j < kOrderItems; ++j) {
+        if (row0 + j * 32 < N) {
+          const unsigned dig = order_digit((unsigned)pr[j], p);
+          at[j] = s_local[dig] + s_warp[warp * kRadix + dig] + rank[j];
+        }
+      }
+      __syncthreads();  // s_warp's words become s_rows'
+#pragma unroll
+      for (int j = 0; j < kOrderItems; ++j)
+        if (row0 + j * 32 < N) s_rows[at[j]] = pr[j];
+      __syncthreads();
+      const int rows = min(kOrderTile, N - tile * kOrderTile);
+      for (int r = t; r < rows; r += kOrderThreads) {  // runs coalesce
+        const unsigned long long v = s_rows[r];
+        const unsigned dig = order_digit((unsigned)v, p);
+        const unsigned slot = s_slot[dig] + (r - s_local[dig]);
+        if (last) {
+          skey[slot] = (int)(unsigned)v;
+          perm[slot] = (IdxT)(unsigned)(v >> 32);
+        } else {
+          dst[slot] = v;
+        }
+      }
+      __syncthreads();  // s_big, s_local and s_slot are the next tile's
+    }
+    if (!last) grid_barrier(counters + kOrderBarrier, gridDim.x * (q + 2));
+  }
 }
 
 // The tracked kernel: its body (crop_tracked.cuh) with every stage on, its
@@ -835,20 +1280,93 @@ extern "C" int tdr_crop_fold(const int* off, int K, int TR, int P, int* out,
   return (int)cudaGetLastError();
 }
 
-// key (N) int64 group keys, ctr (N) int2 centres (cy, cx); out (N) int32:
-// the keys crop_order_kernel writes.  kshift and tbits as
-// crop_score.order_bits gives them (kshift even, <= 30; the tiles fit 15
-// bits), hi = 2^(kshift / 2 + tbits) - 1.
-extern "C" int tdr_crop_order(const long long* key, const int* ctr, int N,
-                              int kshift, int tbits, int hi, int* out,
-                              void* stream) {
-  if (N < 1 || kshift < 0 || kshift > 30 || tbits < 0 || tbits > 30 ||
-      hi < 0 || (hi >> tbits) >= (1 << 16))
-    return (int)cudaErrorInvalidValue;
-  crop_order_kernel<<<(N + kOrderThreads - 1) / kOrderThreads,
-                      kOrderThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      key, reinterpret_cast<const int2*>(ctr), N, kshift, tbits, hi, out);
+namespace {
+
+// The row order, one cooperative launch of crop_order_kernel<KeyT, IdxT>
+// over as many blocks as the card holds at once (asked once a device), at
+// most one a tile.
+template <typename KeyT, typename IdxT>
+int launch_order(const void* key, const int* ctr, int N, int kshift,
+                 int tbits, int hi, int K, int* skey, void* perm,
+                 long long* row_start, unsigned* scratch, void* pairs,
+                 unsigned epoch, cudaStream_t stream) {
+  static int ready_dev = -1, resident = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev != ready_dev) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, crop_order_kernel<KeyT, IdxT>, kOrderThreads, 0);
+    if (err != cudaSuccess) return (int)err;
+    resident = sms * per_sm;
+    ready_dev = dev;
+  }
+  const int tiles = (N + kOrderTile - 1) / kOrderTile;
+  const int grid = std::min(std::max(tiles, 1), resident);
+  if (grid < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const KeyT* k = static_cast<const KeyT*>(key);
+  const int2* c = reinterpret_cast<const int2*>(ctr);
+  IdxT* pm = static_cast<IdxT*>(perm);
+  unsigned long long* pr = static_cast<unsigned long long*>(pairs);
+  void* args[] = {(void*)&k, (void*)&c, &N,         &kshift,
+                  &tbits,    &hi,       &K,         &skey,
+                  &pm,       &row_start, &scratch,  &pr,
+                  &epoch};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(crop_order_kernel<KeyT, IdxT>),
+      dim3(grid), dim3(kOrderThreads), args, 0, stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The row order (crop_score.order_rows).  key (N) group keys of key_bytes
+// 4 (int32) or 8 (int64); ctr (N) int2 centres (cy, cx), read only where
+// kshift > 0 (null allowed at 0); kshift and tbits as
+// crop_score.order_bits gives them (kshift even, <= 30; the tiles fit 15
+// bits), hi = 2^(kshift / 2 + tbits) - 1; K groups of row_start (0: none,
+// row_start null; at most kMaxStartGroups).  Writes skey (N) int32, perm
+// (N) of perm_bytes 4 (int32) or 8 (int64) and row_start (K + 1) int64.
+// scratch: scratch_words 32-bit words (crop_score.order_scratch_words(N)
+// or more) that hold nothing but this kernel's counters and status words,
+// zero when first used; pairs: 2 N 8-byte words, 8-byte aligned; epoch in
+// [1, 2^28), each call on the scratch the next (a call whose launch
+// failed leaves it unused).
+extern "C" int tdr_crop_order(const void* key, int key_bytes, const int* ctr,
+                              int N, int kshift, int tbits, int hi, int K,
+                              int* skey, void* perm, int perm_bytes,
+                              long long* row_start, unsigned* scratch,
+                              long long scratch_words, void* pairs,
+                              unsigned epoch, void* stream) {
+  const long long tiles = ((long long)N + kOrderTile - 1) / kOrderTile;
+  if (N < 0 || N > (1 << 30) || (N && (!key || !skey || !perm || !pairs)) ||
+      (key_bytes != 4 && key_bytes != 8) ||
+      (perm_bytes != 4 && perm_bytes != 8) || kshift < 0 || kshift > 30 ||
+      (kshift && N && !ctr) || tbits < 0 || tbits > 30 || hi < 0 ||
+      (hi >> tbits) >= (1 << 16) || K < 0 || K > kMaxStartGroups ||
+      (K && !row_start) || !scratch || epoch == 0 || epoch >= (1u << 28) ||
+      scratch_words < 2LL * kOrderCounters + 2 * tiles * kRadix ||
+      reinterpret_cast<uintptr_t>(pairs) % 8)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (key_bytes == 4 && perm_bytes == 4)
+    return launch_order<int, int>(key, ctr, N, kshift, tbits, hi, K, skey,
+                                  perm, row_start, scratch, pairs, epoch, s);
+  if (key_bytes == 4)
+    return launch_order<int, long long>(key, ctr, N, kshift, tbits, hi, K,
+                                        skey, perm, row_start, scratch,
+                                        pairs, epoch, s);
+  if (perm_bytes == 4)
+    return launch_order<long long, int>(key, ctr, N, kshift, tbits, hi, K,
+                                        skey, perm, row_start, scratch,
+                                        pairs, epoch, s);
+  return launch_order<long long, long long>(key, ctr, N, kshift, tbits, hi,
+                                            K, skey, perm, row_start,
+                                            scratch, pairs, epoch, s);
 }
 
 // map: the compact (H, W, CP) map; scan (C, Th, R) and cw (C): the scan

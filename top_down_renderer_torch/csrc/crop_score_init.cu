@@ -108,7 +108,8 @@
 // and K4 (csrc/crop_ablate_init.cu) put the float hi/lo kernel's gather
 // ahead of its products.  So the wrapper orders each bucket's rows by the
 // Morton code of their centres' tiles (crop_score.init_order: one launch
-// of the order kernel and one device sort), so that a warp's 16 rows lie
+// of the order kernel, the keys, their stable sort, the permutation and
+// each bucket's first row), so that a warp's 16 rows lie
 // close together and their loads hit L1, and a warp whose rows' windows
 // all lie in their level (a vote, on ext: each bucket's extent,
 // crop_score.fold_extent) gathers without a bounds check, each row's base

@@ -54,9 +54,8 @@ of its C classes, the norm weight and the count of its cells.  The
 wrapper sorts the particles by shift (bucket * Th + shift over K
 buckets), so that a block of the kernel folds the weights once for each
 run of one shift among its rows, and with the hi/lo M each shift's rows
-by the position of their centres (tracked_order, its keys one launch of
-the order kernel, order_keys; with the single-plane M by shift alone,
-tracked_rows): a row whose stencil lies inside its level
+by the position of their centres (tracked_order; with the single-plane
+M by shift alone, tracked_rows): a row whose stencil lies inside its level
 reads its pixels without a bounds check, two such rows a warp.  The fold
 of the offsets to distinct pixels and their cells, which both kernels
 read, is a kernel of its own (fold_pixels, one launch; fold_offsets is
@@ -99,7 +98,12 @@ the rule in plain PyTorch.
 Every theta search, on either map and with either M (below), takes its
 rows in init_order, each bucket's by the position of their centres, and
 a warp whose rows' windows all lie in their level (fold_extent) gathers
-without bounds checks.
+without bounds checks.  All three orders (tracked_order, tracked_rows,
+init_order) are order_rows: on the card one launch of the order kernel,
+which computes the keys, sorts them stably and writes the permutation in
+the index type the crop kernel reads and, for init_order, each bucket's
+first row (order_rows_plain, a torch.sort and a searchsorted, is its
+plain version).
 
 The single-plane M (TDR_M_HILO=0, the JAX package's pallas_score.m_hilo()
 off).  The JAX kernel contracts its int8 map against M quantized per
@@ -504,9 +508,10 @@ def tracked_rows(key: torch.Tensor):
     shift): (sorted keys int32, perm int64) (N,).  Block i of the tracked
     kernel takes sorted rows [i T, (i + 1) T), T = TRACKED_TILE, and
     scores each run of one key among them with that group's folded
-    weights; row j's result goes to particle perm[j].  One device sort of
-    32-bit keys (half the radix passes of 64-bit ones), no host read."""
-    return torch.sort(key.to(torch.int32), stable=True)
+    weights; row j's result goes to particle perm[j].  order_rows with
+    kshift 0 and no Morton bits: one launch of the order kernel on the
+    card, no host read."""
+    return order_rows(key, None, 0, 0)[:2]
 
 
 def order_bits(groups: int, extent: int):
@@ -528,42 +533,123 @@ def tracked_order(key: torch.Tensor, ctr: torch.Tensor, groups: int,
     sides; order_bits), so that a block's rows lie close together (their
     windows meet in L1, and the code kernel's staged window is small).
     Returns (sorted keys int32: the group in the bits from kshift up, the
-    Morton code below; perm int64, kshift).  The keys (order_keys: one
-    launch on the card), then one stable device sort of them, no host
-    read, as tracked_rows; tracked_order_plain is its plain twin.  Each
-    particle's score is its own: the order changes no bit of the
-    output."""
-    kshift, tbits = order_bits(groups, extent)
-    skey, perm = torch.sort(order_keys(key, ctr, kshift, tbits), stable=True)
-    return skey, perm, kshift
+    Morton code below; perm int64, kshift): order_rows, one launch on the
+    card; tracked_order_plain is its numpy twin.  Each particle's score is
+    its own: the order changes no bit of the output."""
+    return order_rows(key, ctr, groups, extent)[:3]
 
 
-def order_keys(key: torch.Tensor, ctr: torch.Tensor, kshift: int,
-               tbits: int) -> torch.Tensor:
-    """tracked_order's keys before the sort, (N,) int32: each group key
-    (N,) in the bits from kshift up, and below them the Morton code of
-    the centre's tile (ctr (N, 2) int32 (cy, cx), clamped into the tiles,
-    >> tbits; the row's bits at the odd positions).  On the card one
-    launch of the order kernel (csrc/crop_score.cu, counted as
-    "crop_order"), in place of order_keys_plain's eager ops; on the CPU it
-    is order_keys_plain itself."""
-    if not kernels.on_card(ctr.device, "order keys"):
-        return order_keys_plain(key, ctr, kshift, tbits)
-    n = ctr.shape[0]
-    key = key.to(torch.int64).contiguous()
-    _require(ctr, "ctr", (n, 2), torch.int32, key.device, contiguous=True)
-    out = torch.empty(n, dtype=torch.int32, device=ctr.device)
-    if n:
-        kernels.launch("crop_score", "tdr_crop_order", ptr(key), ptr(ctr), n,
-                       kshift, tbits, (1 << (kshift // 2 + tbits)) - 1,
-                       ptr(out))
-        kernels.LAUNCHES["crop_order"] += 1
-    return out
+ORDER_TILE = 2048  # rows a tile of the order kernel (kOrderTile)
+ORDER_COUNTERS = 2050  # 32-bit words of one set of its counters
+ORDER_MAX_GROUPS = 1024  # groups of row_start at most (kMaxStartGroups)
+_ORDER_EPOCHS = 2**28  # its status words hold epochs below this
+# (device index, stream) -> [scratch int32, last epoch]
+_order_scratch = {}
+
+
+def order_scratch_words(n: int) -> int:
+    """The order kernel's scratch for n rows, in 32-bit words: two sets of
+    counters and a 64-bit status word a (tile, digit).  It holds nothing
+    else, so a word of an earlier call never reads as this call's."""
+    return 2 * ORDER_COUNTERS + 2 * 256 * -(-n // ORDER_TILE)
+
+
+def _order_status(dev: torch.device, stream, n: int):
+    """The order kernel's scratch on this device and stream, [tensor, last
+    epoch]: zeroed once when made (or grown, or when the epochs run out);
+    the caller takes the next epoch and records it once its launch went
+    out, so that status words and counters of earlier calls read as
+    unpublished and nothing is reset between calls."""
+    key = (dev.index, stream.cuda_stream)
+    ent = _order_scratch.get(key)
+    words = order_scratch_words(n)
+    if ent is None or ent[0].numel() < words or ent[1] + 1 >= _ORDER_EPOCHS:
+        ent = [torch.zeros(words, dtype=torch.int32, device=dev), 0]
+        _order_scratch[key] = ent
+    return ent
+
+
+def order_rows(key: torch.Tensor, ctr, groups: int, extent: int, *,
+               index_dtype=torch.int64, starts: bool = False):
+    """The crop kernels' row order: the particles in stable order of their
+    keys, each group key (N,) int32 or int64 in the bits from kshift up
+    and, below it, the Morton code of the centre's tile (ctr (N, 2) int32
+    (cy, cx); order_bits(groups, extent) gives kshift and the tiles;
+    order_keys_plain), or with ctr None the group keys alone as int32
+    (kshift 0).  Returns (sorted keys (N,) int32, perm (N,) index_dtype
+    (int64 for the tracked kernels, int32 for the theta searches), kshift,
+    row_start): with starts, row_start (groups + 1,) int64 is each group's
+    first row and N (groups <= ORDER_MAX_GROUPS), else None.
+
+    On the card one allocation and one launch of the order kernel
+    (csrc/crop_score.cu, crop_order_kernel, counted as "crop_order"): the
+    keys, a stable radix sort of them and the groups' first rows, bit for
+    bit order_rows_plain's; on the CPU order_rows_plain itself."""
+    dev = key.device
+    if not kernels.on_card(dev, "row order"):
+        return order_rows_plain(key, ctr, groups, extent,
+                                index_dtype=index_dtype, starts=starts)
+    n = key.shape[0]
+    if key.dtype not in (torch.int32, torch.int64) or key.shape != (n,):
+        raise TypeError("the group keys must be an (N,) int32 or int64")
+    if index_dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"no row order with {index_dtype} indices")
+    if starts and not 1 <= groups <= ORDER_MAX_GROUPS:
+        raise ValueError(f"row_start of {groups} groups is out of range")
+    key = key.contiguous()
+    kshift, tbits = (0, 0) if ctr is None else order_bits(groups, extent)
+    if ctr is not None:
+        _require(ctr, "ctr", (n, 2), torch.int32, dev, contiguous=True)
+    k = groups if starts else 0
+    wide = index_dtype == torch.int64
+    # one buffer of int32 words: row_start (int64), the kernel's two
+    # buffers of n (key, row) pairs, perm, the sorted keys
+    sizes = (2 * (k + 1) if starts else 0, 4 * n, (2 if wide else 1) * n, n)
+    row_start, pairs, perm, skey = torch.empty(
+        sum(sizes), dtype=torch.int32, device=dev).split(sizes)
+    row_start = row_start.view(torch.int64) if starts else None
+    perm = perm.view(torch.int64) if wide else perm
+    stream = torch.cuda.current_stream(dev)
+    status = _order_status(dev, stream, n)
+    scratch, epoch = status[0], status[1] + 1
+    kernels.launch(
+        "crop_score", "tdr_crop_order", ptr(key), key.element_size(),
+        None if ctr is None else ptr(ctr), n, kshift, tbits,
+        (1 << (kshift // 2 + tbits)) - 1, k, ptr(skey), ptr(perm),
+        perm.element_size(), ptr(row_start) if starts else None,
+        ptr(scratch), scratch.numel(), ptr(pairs), ctypes.c_uint(epoch),
+        stream=stream)
+    status[1] = epoch
+    kernels.LAUNCHES["crop_order"] += 1
+    return skey, perm, kshift, row_start
+
+
+def order_rows_plain(key, ctr, groups: int, extent: int, *,
+                     index_dtype=torch.int64, starts: bool = False):
+    """order_rows in eager PyTorch: order_keys_plain's keys (the group keys
+    as int32 where ctr is None), one stable sort, and with starts
+    searchsorted of each group's first key, then N."""
+    if ctr is None:
+        kshift, keys = 0, key.to(torch.int32)
+    else:
+        kshift, tbits = order_bits(groups, extent)
+        keys = order_keys_plain(key, ctr, kshift, tbits)
+    skey, perm = torch.sort(keys, stable=True)
+    row_start = None
+    if starts:  # group g's first key, g < groups: (groups - 1) << kshift
+        first = torch.arange(groups, dtype=torch.int32,  # fits an int32
+                             device=key.device) << kshift
+        row_start = torch.cat([torch.searchsorted(skey, first),
+                               first.new_full((1,), skey.shape[0]).long()])
+    return skey, perm.to(index_dtype), kshift, row_start
 
 
 def order_keys_plain(key, ctr, kshift: int, tbits: int) -> torch.Tensor:
-    """order_keys in eager PyTorch: the tiles clamped and shifted, their
-    bits interleaved one by one under the group key."""
+    """order_rows' keys before the sort, (N,) int32, in eager PyTorch: the
+    group keys (N,) shifted to the bits from kshift up, and below them
+    the Morton code of the centre's tile (ctr (N, 2) int32 (cy, cx),
+    clamped into the tiles, >> tbits), its bits interleaved one by one
+    (the row's at the odd positions)."""
     tile = ctr.clamp(0, (1 << (kshift // 2 + tbits)) - 1) >> tbits
     out = key.to(torch.int32) << kshift
     for i in range(kshift // 2):
@@ -1470,20 +1556,11 @@ def init_order(bucket: torch.Tensor, ctr: torch.Tensor, k: int,
     group; extent bounds the levels' sides), so that a warp's 16 rows lie
     close together and their loads hit L1.  Returns (perm (N,) int32,
     row_start (K + 1,) int64: bucket b's first row, and N), as bucket_rows
-    returns them.  One stable device sort of 32-bit keys, no host read;
-    each row's result is its own, so the order changes no bit of the
-    output.  One bucket (a uniform scale) starts at row 0 and needs no
-    search."""
-    skey, perm, kshift = tracked_order(bucket, ctr, k, extent)
-    if k == 1:
-        row_start = torch.zeros(2, dtype=torch.int64, device=ctr.device)
-        row_start[1] = skey.shape[0]
-        return perm.to(torch.int32), row_start
-    # bucket b's first key, b < k: (k - 1) << kshift fits an int32
-    first = torch.arange(k, dtype=torch.int32, device=ctr.device) << kshift
-    row_start = torch.cat([torch.searchsorted(skey, first),
-                           first.new_full((1,), skey.shape[0]).long()])
-    return perm.to(torch.int32), row_start
+    returns them: order_rows, one launch on the card, no host read; each
+    row's result is its own, so the order changes no bit of the output."""
+    _, perm, _, row_start = order_rows(bucket, ctr, k, extent,
+                                       index_dtype=torch.int32, starts=True)
+    return perm, row_start
 
 
 def init_records(scan, class_weights, fold, row_start, num_rot: int,

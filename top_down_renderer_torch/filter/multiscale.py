@@ -42,11 +42,14 @@ raises.  Both kernels are the uniform path's, with one fold of the
 offsets per bucket (crop_score.fold_pixels over the (K, Th*R) offsets)
 read on the bucket's level of the compact pyramid (PyramidMaps.compact).
 The theta search is the tensor-core product with one M per bucket
-(crop_score.init_m); its wrapper sorts the particles by bucket (a stable
-torch.sort), so that each tile of the kernel lies in one bucket.  The
-tracked wrapper sorts them by bucket * Th + shift, so that each tile
-lies in one bucket at one shift.  Both kernels write each row back to
-its particle.
+(crop_score.init_m); its wrapper orders the particles by bucket, each
+bucket's by the position of their centres (crop_score.init_order), so
+that each tile of the kernel lies in one bucket.  The tracked wrapper
+orders them by bucket * Th + shift (crop_score.tracked_order, or
+tracked_rows with the single-plane M), so that each tile lies in one
+bucket at one shift.  Each order is one launch of the order kernel (the
+keys, their stable sort, the permutation and the buckets' first rows).
+Both kernels write each row back to its particle.
 """
 
 from __future__ import annotations

@@ -100,8 +100,11 @@ _SIGNATURES = {
     "crop_score": {
         # offsets, K, TR, P, out, stream
         "tdr_crop_fold": (_P, _I, _I, _I, _P, _P),
-        # group keys, centres, N, kshift, tbits, hi, out, stream
-        "tdr_crop_order": (_P, _P, _I, _I, _I, _I, _P, _P),
+        # group keys, their bytes, centres, N, kshift, tbits, hi, groups
+        # of row_start, sorted keys, perm, its bytes, row_start, scratch,
+        # its words, the pair buffers, epoch, stream
+        "tdr_crop_order": (_P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P,
+                           _P, ctypes.c_longlong, _P, ctypes.c_uint, _P),
         # compact map, H, W, C, scan, class weights, pix, npix, order, seg,
         # Th, R, P, sorted keys, perm, centers, N, inv_tr, out, the keys'
         # group shift, stream
@@ -305,12 +308,14 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def launch(name: str, fn_name: str, *args) -> None:
-    """Call entry point fn_name of csrc/<name>.cu with args and the
-    current CUDA stream; raise on the CUDA error it returns."""
+def launch(name: str, fn_name: str, *args, stream=None) -> None:
+    """Call entry point fn_name of csrc/<name>.cu with args and `stream`
+    (a caller that has the current CUDA stream passes it; None: the
+    current stream); raise on the CUDA error it returns."""
+    if stream is None:
+        stream = torch.cuda.current_stream()
     err = getattr(load(name), fn_name)(
-        *args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    )
+        *args, ctypes.c_void_p(stream.cuda_stream))
     if err != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {err}")
 
