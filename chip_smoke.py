@@ -2438,8 +2438,47 @@ def conv_i8_times(dev, world, clustered, scan, cw, sten, f, conv, errs):
         library_ms=None,
         bound=bound(0.0, nbytes(kernel, cmap.qinv[:cp], ints, nonzero,
                            qscales)),
+        floor_fill_ms=fold_floor_ms(),
+        largest=quant_largest(dev),
     )
     return out, quant
+
+
+def quant_largest(dev) -> dict:
+    """The quantizer at the largest shape the int8 field takes (W 64, six
+    classes, mo 48: S_out 129, CP 8, dr = dc = 98, two column groups, a
+    39.6 MB float kernel): B, flags and scales bit for bit its plain
+    version's (quantize_conv_kernel laid out by i8_layout), twice; its
+    kernel time under the profiler, its wrapper's and plain version's
+    (host clock) and its bound (bytes, as at D's cell)."""
+    args, kernel, qinv = conv_i8_case(dev, 6, 64, 48, 64, None, 30)
+    ints, scales = args[1], args[2]
+    ref_b, ref_nz = conv_score.i8_layout(ints)
+    got = [conv_score.quantize_i8(kernel, qinv) for _ in range(2)]
+    torch.cuda.synchronize()
+    for b, nz, sc in got:
+        check(torch.equal(b, ref_b) and torch.equal(nz, ref_nz)
+              and same_bits((sc,), (scales,)),
+              "D: the quantizer at S_out 129, CP 8, mo 48 differs from its "
+              "plain version")
+    cp = kernel.shape[1]
+    out = dict(
+        shape=list(kernel.shape),
+        ms=profiled_ms("conv_quant_i8 (largest)",
+                       lambda: conv_score.quantize_i8(kernel, qinv),
+                       SYMBOLS["conv_quant_i8"]),
+        wrapper_ms=median_ms(lambda: conv_score.quantize_i8(kernel, qinv)),
+        plain_ms=median_ms(lambda: conv_score.i8_layout(
+            conv_score.quantize_conv_kernel(kernel, qinv)[0])),
+    )
+    out["bound_ms"], out["bound_by"] = bound(
+        0.0, nbytes(kernel, qinv[:cp], ints, got[0][1], got[0][2]))
+    log(f"[D] conv_quant_i8 at S_out 129, CP 8, mo 48 ({nbytes(kernel)} B "
+        f"float kernel): B, flags and scales equal the plain version's bit "
+        f"for bit, twice; kernel {out['ms']:.4f} ms (with its wrapper "
+        f"{out['wrapper_ms']:.4f} ms), plain {out['plain_ms']:.4f} ms, bound "
+        f"{out['bound_ms']:.4f} ms ({out['bound_by']})")
+    return out
 
 
 def phase_d2(dev, world, errs):
@@ -3976,7 +4015,9 @@ def main() -> int:
         f"kernel {i8['ms']:.4f} ms ({i8['splits']} block(s) a tile, "
         f"{i8['chunks'][0]} of {i8['chunks'][1]} chunks listed), quantizer "
         f"kernel {q8['ms']:.4f} ms (bound {q8['bound'][0]:.4f} ms, "
-        f"{q8['bound'][1]}; its plain version {q8['plain_ms']:.4f} ms), the "
+        f"{q8['bound'][1]}; floor, a one-element fill, "
+        f"{q8['floor_fill_ms']:.4f} ms; its wrapper {q8['wrapper_ms']:.4f} "
+        f"ms; its plain version {q8['plain_ms']:.4f} ms), the "
         f"field with its two launches {i8['field_ms']:.4f} ms (CUDA events; "
         f"the float32 cuDNN field {conv['field_ms']:.4f} ms), bound "
         f"{i8['bound'][0]:.4f} ms ({i8['bound'][1]}; {i8['taps'][0]} taps "
@@ -4017,6 +4058,10 @@ def main() -> int:
                if name == "crop_fold" else {}),
             **({"both_ms": times[name]["both_ms"]}
                if "both_ms" in times[name] else {}),
+            # the quantizer: its floor, and its times at the largest shape
+            **({"floor_ms": times[name]["floor_fill_ms"],
+                "largest": times[name]["largest"]}
+               if name == "conv_quant_i8" else {}),
             # the order: by CUDA events, its wrapper's and torch.sort's
             # host times (library_ms is torch.sort's device time)
             **({k: times[name][k] for k in (

@@ -125,6 +125,9 @@ def _jax_field_i8(maps, kern, origin, mo, region, monkeypatch):
         return fold(k)
 
     monkeypatch.setattr(cs_j, "fold_kernel_s2d", capture)
+    # traced afresh, so that the capture runs whatever an earlier case of
+    # the same shapes compiled
+    cs_j.cost_field_s2d_split_i8.clear_cache()
     s_out = kern.shape[-1]
     out4, out_kf, roy, rox = jax.block_until_ready(
         cs_j.cost_field_s2d_split_i8(maps.padded4d_i8, kern, maps.qinv4d,
@@ -142,23 +145,48 @@ def _jax_field_i8(maps, kern, origin, mo, region, monkeypatch):
     return field, k_i8, kf2
 
 
-@pytest.mark.parametrize("mo,ww,s0,edge", [
-    (12, 16, 95, None),   # a window across shift 0
-    (12, 32, 7, "low"),   # two column groups; the block at the map's corner
-    (24, 16, 3, "high"),  # the far corner
+def _classes(d, c, seed):
+    """d with its map, scan and class weights redrawn for c classes (the
+    known channel at c)."""
+    rng = np.random.default_rng(seed)
+    h, w = d["packed"].shape[:2]
+    packed = np.zeros((h, w, 8), np.float32)
+    packed[..., :c] = rng.random((h, w, c)) * 50
+    packed[..., c] = (rng.random((h, w)) < 0.9).astype(np.float32)
+    return dict(d, packed=packed,
+                scan=(rng.random((c, TH, d["scan"].shape[2])) * 3).astype(
+                    np.float32),
+                cw=(0.5 + rng.random(c)).astype(np.float32))
+
+
+@pytest.mark.parametrize("mo,ww,s0,edge,c", [
+    # a window across shift 0
+    pytest.param(12, 16, 95, None, C, id="12-16-95-None"),
+    # S_out 65; the block at the map's corner
+    pytest.param(12, 32, 7, "low", C, id="12-32-7-low"),
+    pytest.param(24, 16, 3, "high", C, id="24-16-3-high"),  # the far corner
+    # CP 8 (six classes), the quantizer's other channel layout
+    pytest.param(12, 16, 95, None, 6, id="12-16-95-None-cp8"),
+    # S_out 129: two column groups of the card's layout
+    pytest.param(12, 64, 40, None, C, id="12-64-40-None"),
 ])
-def test_field_and_integers_equal_jax(mo, ww, s0, edge, monkeypatch):
+def test_field_and_integers_equal_jax(mo, ww, s0, edge, c, monkeypatch):
     d = _inputs(seed=6, band=0.3)
+    if c != C:
+        d = _classes(d, c, seed=16)
+    cp = 4 if c < 4 else 8
     f = {12: F_HALF, 24: 1.0}[mo]
     region = 64
     kern_j = _jax_kernel(d, mo, ww, s0, f)
     t = _t(d)
     kern = cs.build_conv_kernel(t["scan"], t["cw"], t["stencil"], f, mo,
                                 "tracked", window_w=ww, s0=s0)
+    assert kern.shape[:2] == (2 * ww + 1, cp)
     np.testing.assert_array_equal(
         np_(kern),
-        np.asarray(kern_j.astype(jnp.float32))[:, :, :4].transpose(3, 2, 0, 1))
-    cmap = _conv_map(d["packed"], int8=True)
+        np.asarray(kern_j.astype(jnp.float32))[:, :, :cp].transpose(
+            3, 2, 0, 1))
+    cmap = _conv_map(d["packed"], c, int8=True)
     dr, dc = cs.conv_dims(mo)
     origin = {None: (160, 150), "low": (dr // 2, dc // 2),
               "high": (cmap.hp - (region + dr - 1) + dr // 2,
@@ -172,10 +200,10 @@ def test_field_and_integers_equal_jax(mo, ww, s0, edge, monkeypatch):
     want = np.concatenate([
         k_i8[..., :sm, None], k_i8[..., sm:, None]], -1)  # (dr, dc, 8, sm, 2)
     np.testing.assert_array_equal(got_ints[:sm].transpose(3, 4, 2, 0, 1),
-                                  want[:, :, :4])
+                                  want[:, :, :cp])
     np.testing.assert_array_equal(got_ints[sm].transpose(2, 3, 1, 0),
-                                  kf2[:, :, :4])
-    assert not k_i8[:, :, 4:].any() and not kf2[:, :, 4:].any()
+                                  kf2[:, :, :cp])
+    assert not k_i8[:, :, cp:].any() and not kf2[:, :, cp:].any()
     before = cs.CALLS["cost_field_i8"]
     field = np_(cs.cost_field_i8(cmap.codes, ints, scales,
                                  torch.tensor(origin), mo, region))

@@ -870,14 +870,24 @@ def _conv_i8_kernel(dev, c, ww, mo, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,ww,mo", [(3, 16, 24), (3, 32, 12), (6, 64, 24),
-                                     (6, 32, 48), (3, 16, 36), (6, 16, 12)])
-def test_conv_quant_i8_kernel_matches_plain(dev, c, ww, mo):
+@pytest.mark.parametrize("c,ww,mo,zeros", [
+    (3, 16, 24, False), (3, 32, 12, False), (6, 64, 24, False),
+    (6, 32, 48, False), (3, 16, 36, False), (6, 16, 12, False),
+    # the largest: two groups, CP 8, 39.6 MB, more chunks than a block's
+    # shared memory holds; the smallest W 64 kernel
+    (6, 64, 48, False), (3, 64, 12, False),
+    # an all-zero column (amax clamped to 1e-30) and whole zero chunks
+    (6, 64, 24, True)])
+def test_conv_quant_i8_kernel_matches_plain(dev, c, ww, mo, zeros):
     """The quantize-and-layout kernel (one launch, counted) against its
     plain version on the card (quantize_conv_kernel laid out by
     i8_layout) and on the CPU: B, the chunk flags and the scales bit for
     bit, twice."""
     packed, cmap, kernel = _conv_i8_kernel(dev, c, ww, mo, 13)
+    if zeros:
+        kernel[5] = 0.0  # a cost column of group 0
+        kernel[100] = 0.0  # a norm column of group 1
+        kernel[:, :, 3:9] = 0.0  # tap rows 3-8: their chunks are zero
     before = kernels.LAUNCHES["conv_quant_i8"]
     b, nonzero, scales = cs_conv.quantize_i8(kernel, cmap.qinv)
     b2, nonzero2, scales2 = cs_conv.quantize_i8(kernel, cmap.qinv)
@@ -895,6 +905,12 @@ def test_conv_quant_i8_kernel_matches_plain(dev, c, ww, mo):
     assert torch.equal(b2, b) and torch.equal(nonzero2, nonzero)
     assert torch.equal(scales2.view(torch.int32), scales.view(torch.int32))
     assert 0 < int(nonzero.sum()) < nonzero.numel()
+    if zeros:
+        cpr = nonzero.shape[1] // kernel.shape[2]
+        assert not nonzero[:, 3 * cpr : 9 * cpr].any()
+        assert not ints[[5, 100]].any()
+        assert float(scales[5, 0]) == float(np.float32(1e-30) * np.float32(
+            1.0 / 127.0))
 
 
 def _field_on_ints(codes, ints, scales, origin, mo, region, sums=False,

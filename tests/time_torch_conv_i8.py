@@ -11,8 +11,10 @@ integers (the field kernel alone, launch_field_i8, on the plain layout;
 cost_field_i8 where the tree has no launch_field_i8) under torch.profiler
 (after 3 warm-up calls) give the device time of its kernels (every event
 whose name holds "conv_field_i8": where a tree splits K over a second
-kernel, that one too) a call; where the tree has the quantizer kernel (conv_quant_i8), its
-device time the same way.  CUDA events around 20 calls give the field
+kernel, that one too) a call; where the tree has the quantizer kernel
+(conv_quant_i8), its device time the same way in five rounds, its
+wrapper's host time a call (median of 200 calls, no synchronisation) and
+the SHA-256 of its B, flags and scales.  CUDA events around 20 calls give the field
 with its wrapper, the field with its quantization as the int8 scorer
 computes it (quantize_conv_kernel and cost_field_i8, or conv_field_i8's
 two launches where the tree has them), torch._int_mm (im2col built
@@ -33,6 +35,7 @@ import hashlib
 import json
 import os
 import sys
+import time
 
 ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
 ap.add_argument("--region", type=int, default=128)
@@ -137,14 +140,28 @@ def main() -> int:
         def quantized():
             return conv_score.conv_field_i8(cmap.codes, cmap.qinv, kernel,
                                             origin, mo, region, **kw)
-        quant = device_ms(lambda: conv_score.quantize_i8(kernel, cmap.qinv),
-                          "conv_quant_i8")
+        def quantize():
+            return conv_score.quantize_i8(kernel, cmap.qinv)
+
+        quant = [sum(device_ms(quantize, "conv_quant_i8").values())
+                 for _ in range(ROUNDS)]
+        qout = quantize()
+        torch.cuda.synchronize()
+        quant_sha = hashlib.sha256(b"".join(
+            t.cpu().numpy().tobytes() for t in qout)).hexdigest()
+        host = []
+        for i in range(200):
+            t0 = time.perf_counter()
+            quantize()
+            host.append(time.perf_counter() - t0)
+            if i % 50 == 49:
+                torch.cuda.synchronize()
     else:
         def quantized():
             return conv_score.cost_field_i8(
                 cmap.codes, *conv_score.quantize_conv_kernel(
                     kernel, cmap.qinv), origin, mo, region, **kw)
-        quant = None
+        quant, quant_sha, host = None, None, [float("nan")]
     got = quantized()
     torch.cuda.synchronize()
     if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
@@ -155,7 +172,10 @@ def main() -> int:
         "kernel_ms": sorted(rounds), "median_ms": float(np.median(rounds)),
         "by_kernel": {k: float(np.median([p[k] for p in parts]))
                       for k in parts[0]},
-        "quant_kernel_ms": quant,
+        "quant_kernel_ms": quant and sorted(quant),
+        "quant_median_ms": quant and float(np.median(quant)),
+        "quant_wrapper_host_us": float(np.median(host)) * 1e6,
+        "quant_sha256": quant_sha,
         "field_ms": events_ms(field),
         "quantized_field_ms": events_ms(quantized),
         "int_mm_ms": events_ms(lambda: torch._int_mm(a, b.T)),

@@ -39,20 +39,52 @@
 //    conv_score.quantize_conv_kernel, then the layout: kq = kernel qinv[c];
 //    amax = max(max |kq|, 1e-30) a column; s_hi = amax f32(1/127), s_lo =
 //    amax f32(1/32258); hi = clip(rint(kq / s_hi), -127, 127); lo =
-//    clip(rint(fma(kernel, qinv, -hi s_hi) / s_lo), -127, 127).  Every
+//    clip(rint(fma(kernel, qinv, -hi s_hi) / s_lo), -127, 127) (the
+//    reference's quantization, cost_field_s2d_split_i8 :588-606).  Every
 //    product, division and FMA is an _rn intrinsic, so that nvcc's
 //    contraction of products and sums into FMAs (its default) changes no
-//    bit; the one FMA is the one XLA contracted.  One cooperative launch:
-//    stage 1 a block a slice of 4,096 values of a column (its max |kq|); a
-//    grid barrier; stage 2 a block a (group, chunk): the group's columns'
-//    amax from their slices, their scales, the chunk's NP rows of 32 bytes
-//    of B (K-major, each row in the 32-byte swizzle that wgmma reads: the
-//    layout the field kernel's TMA copies as it is) and its flag, 1 where
-//    an integer of the chunk is not zero (the block's OR).  A max and an
-//    OR: no atomics, the same bits in any order.  Bound: bytes, the float
-//    kernel and qinv read once and the integers (2 S_out CP dr dc bytes,
-//    without B's padding), flags and scales written once (D's cell: 1.32
-//    MB + 0.66 MB, 0.59 us at 3.35 TB/s).
+//    bit; the one FMA is the one XLA contracted.  Out: B, a chunk's NP rows
+//    of 32 bytes (K-major, each row in the 32-byte swizzle that wgmma
+//    reads: the layout the field kernel's TMA copies as it is), a flag a
+//    chunk (1 where an integer of it is not zero) and the scales.
+//    Bound: bytes, the float kernel and qinv read once and the integers
+//    (2 S_out CP dr dc bytes, without B's padding), flags and scales
+//    written once (D's cell: 1.32 MB + 0.66 MB, 0.59 us at 3.35 TB/s);
+//    floor: a one-element fill, 1.0 us.
+//    Where the time went (the first design, stamped by
+//    tests/time_torch_conv_quant.py): a block a slice of a column for its
+//    max (at D's cell 99 slices on 350 blocks), a grid barrier, then a
+//    block a chunk re-reading its values from L2 or device memory, one
+//    dependent load a value: on an H100 SXM at 700 W 12.6 us at D's cell,
+//    the rounding 5.3 of it; 145 us at the largest shape (S_out 129, CP 8,
+//    mo 48: 39.6 MB, read twice).  This design takes 8.1 and 78 us there
+//    (at D's cell 2.3 until its copies are issued, the grid barrier 1.3,
+//    the group's maxima 1.6, the rounding 1.2): one cooperative launch of
+//    one block an SM, a group's chunks split evenly over sms / groups
+//    blocks, each block's chunks read once:
+//    - staged in shared memory as [chunk][column][32 values of K] (B's row
+//      order, so an item's 4 values are one float4), a warp copying 32
+//      consecutive floats of a plane's (s, c) run (the block's chunks
+//      cover one contiguous run of each plane: a row's last chunk ends at
+//      dc, where the next row starts) by 4-byte cp.async.  A plane's run
+//      starts anywhere (tap rows are dc floats), so no 16-byte copy, 1-D
+//      bulk copy or tap-row TMA box applies;
+//    - the chunks past the shared memory (only the largest shape has
+//      them) read for their max before the barrier and copied in again,
+//      from L2, after it, a shared memory's worth at a time;
+//    - the block's column maxima (a max of |kq| per item, then of a
+//      column's lanes, then an integer atomicMax on the bits in shared
+//      memory: exact and order-free) written to `partial`, the one grid
+//      barrier, a column's maxima over its group's blocks read by 16
+//      lanes at once; no run-time division in an inner loop (CP is a
+//      template argument);
+//    - a product of zero skips the two divisions (its integers are 0, as
+//      the divisions give; 5,366 of D's 10,000 taps have no nonzero
+//      integer), and a whole number becomes its byte by one add of
+//      1.5 2^23.
+//    tests/time_torch_conv_quant.py stamps the phases at the "stamp:"
+//    lines.
+//    No float atomics: a max and an OR, the same bits in any order.
 //
 // 2. conv_field_i8_kernel (tdr_conv_field_i8): a block owns 8 rows x 16
 //    columns of centres and one column group, and runs
@@ -116,9 +148,8 @@ constexpr int kChunks = 4;  // k32 chunks a ring stage and a commit group
 constexpr int kStages = 4;
 constexpr int kMaxChunks = 2560;  // dr dcp CP / 32 at mo 48, CP 8: 2,450
 constexpr int kMaxSplits = 8;     // a portable cluster
-constexpr int kQuantThreads = 256;
-constexpr int kQuantSlice = 4096;  // values of a column a stage-1 item
-constexpr int kMaxWidth = 256;     // wgmma's widest product
+constexpr int kQuantThreads = 1024;  // the quantizer's block, one an SM
+constexpr int kQuantMaxChunks = 64;  // chunks a quantizer block takes
 
 // The byte offset that the 32-byte swizzle adds to (XORs into) a K-major
 // row of 32 bytes: its 16-byte halves swap where (row >> 2) is odd.
@@ -522,105 +553,289 @@ conv_field_i8_kernel(const __grid_constant__ CUtensorMap tm_codes,
 }
 
 // The quantization and the layout (see the note at the top).  kernel
-// (S_out, CP, dr, dc) float32; qinv (>= CP) float32; partial (S_out,
-// slices) float32 scratch; b (groups, nchunk, NP, 32) int8; nonzero
-// (groups, nchunk) uint8; scales (S_out, 2) float32.
+// (S_out, CP, dr, dc) float32; qinv (>= CP) float32; partial (groups,
+// NP / 2, per_group) float32 scratch, each block's column maxima; b
+// (groups, nchunk, NP, 32) int8; nonzero (groups, nchunk) uint8; scales
+// (S_out, 2) float32.  Block bg of group g takes the group's chunks [c0,
+// c0 + nb), per_group blocks a group.  Its shared memory holds
+// `staged_cap` chunks as [chunk][column][32 values of K] (B's row order;
+// a tap column past dc is never read), each chunk kChunkWords floats.
+template <int CP, int NP>
+struct Quant {
+  static constexpr int kP = 32 / CP;  // tap columns (dx) a chunk
+  static constexpr int kCols = NP / 2;
+  static constexpr int kItems = kCols * 8;  // (column, word) items a chunk
+  // a staged chunk, 4 floats over its columns' (fewer bank conflicts
+  // where a warp's copies span chunks)
+  static constexpr int kChunkWords = kCols * 32 + 4;
+};
+
+// A (column ss, word w4) item's four values, k = 32 chunk + 4 w4 + j: the
+// CP channels of tap column w4 (CP 4), or channels 4 (w4 & 1) + j of tap
+// column w4 / 2 (CP 8); q the item's j-th value's qinv.
+template <int CP>
+__device__ __forceinline__ int item_px(int w4) {
+  return CP == 4 ? w4 : w4 >> 1;
+}
+template <int CP>
+__device__ __forceinline__ float item_q(const float (&q)[CP], int w4, int j) {
+  if constexpr (CP == 4) {
+    return q[j];
+  } else {
+    return (w4 & 1) ? q[4 + j] : q[j];
+  }
+}
+
+// q[c] for a c known only at run time, in registers
+template <int CP>
+__device__ __forceinline__ float pick_q(const float (&q)[CP], int c) {
+  float r = q[0];
+#pragma unroll
+  for (int j = 1; j < CP; ++j) r = c == j ? q[j] : r;
+  return r;
+}
+
+// A block's chunks [ka, kb) cover one run of each plane (s, c) of the
+// kernel, [chunk_off[ka], chunk_off[kb - 1] + chunk_px[kb - 1]): a row's
+// last chunk ends at dc, where the next row starts.  Returns its length.
+__device__ __forceinline__ int run_len(const int* chunk_off,
+                                       const int* chunk_px, int ka, int kb) {
+  return chunk_off[kb - 1] + chunk_px[kb - 1] - chunk_off[ka];
+}
+
+// Chunks [ka, kb) of the block into shared-memory slots 0.., a warp 32
+// consecutive floats of a plane's run at a time (128 bytes), by 4-byte
+// cp.async: a plane's run starts anywhere, so no 16-byte copy, bulk copy
+// or TMA box applies.  run_dst maps a run position to its slot's word; the
+// caller synchronises the block before (the slots' readers are done) and
+// waits for the copies.
+template <int CP, int NP>
+__device__ __forceinline__ void stage_chunks(
+    float* staged, int* run_dst, const float* __restrict__ kg, int taps,
+    int cols, int ka, int kb, const int* chunk_off, const int* chunk_px) {
+  using Q = Quant<CP, NP>;
+  const int tid = threadIdx.x, lane = tid & 31;
+  for (int i = tid; i < (kb - ka) * Q::kP; i += kQuantThreads) {
+    const int k = ka + i / Q::kP, px = i & (Q::kP - 1);
+    if (px < chunk_px[k])
+      run_dst[chunk_off[k] - chunk_off[ka] + px] =
+          (k - ka) * Q::kChunkWords + px * CP;
+  }
+  __syncthreads();
+  const int len = run_len(chunk_off, chunk_px, ka, kb);
+  const int segs = (len + 31) / 32, off = chunk_off[ka];
+  for (int u = tid >> 5; u < cols * CP * segs; u += kQuantThreads / 32) {
+    const int plane = u / segs, pos = (u - plane * segs) * 32 + lane;
+    if (pos < len) {
+      const float* src = kg + static_cast<size_t>(plane) * taps + off + pos;
+      float* dst = staged + run_dst[pos] + (plane / CP) * 32 +
+                   (plane & (CP - 1));
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                       smem_addr(dst)),
+                   "l"(src));
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// The exact int8 of x, a whole number in [-127, 127], as a byte:
+// 1.5 2^23 + x is exact, and its low byte is x's two's complement.
+__device__ __forceinline__ uint32_t byte_of(float x) {
+  return __float_as_uint(__fadd_rn(x, 12582912.0f)) & 0xffu;
+}
+
+template <int CP, int NP>
 __global__ void __launch_bounds__(kQuantThreads)
 conv_quant_i8_kernel(const float* __restrict__ kernel,
-                     const float* __restrict__ qinv, int s_out, int cp,
-                     int dr, int dc, int dcp, int groups, int np,
+                     const float* __restrict__ qinv, int s_out, int dr,
+                     int dc, int cpr, int per_group, int staged_cap,
                      float hi_recip, float lo_recip,
                      float* __restrict__ partial, int8_t* __restrict__ b,
                      unsigned char* __restrict__ nonzero,
                      float* __restrict__ scales) {
-  __shared__ float part[kQuantThreads / 32];
-  __shared__ float col_scales[2][kMaxWidth / 2];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int taps = dr * dc, per_col = cp * taps;
-  const int slices = (per_col + kQuantSlice - 1) / kQuantSlice;
-  // stage 1: the max |kq| of each slice of kQuantSlice values of a column
-  for (int it = blockIdx.x; it < s_out * slices; it += gridDim.x) {
-    const int s = it / slices, e0 = (it - s * slices) * kQuantSlice;
-    const int e1 = min(per_col, e0 + kQuantSlice);
-    const float* col = kernel + static_cast<size_t>(s) * per_col;
-    float m = 0.0f;
-#pragma unroll 8
-    for (int e = e0 + tid; e < e1; e += kQuantThreads)
-      m = fmaxf(m, fabsf(__fmul_rn(col[e], qinv[e / taps])));
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    if (lane == 0) part[warp] = m;
-    __syncthreads();
-    if (tid == 0) {
-      for (int k = 1; k < kQuantThreads / 32; ++k) m = fmaxf(m, part[k]);
-      partial[it] = fmaxf(part[0], m);
-    }
-    __syncthreads();
+  using Q = Quant<CP, NP>;
+  constexpr int kCols = Q::kCols, kItems = Q::kItems;
+  extern __shared__ float4 staged4[];  // [chunk][column][32 values of K]
+  float* staged = reinterpret_cast<float*>(staged4);
+  __shared__ int chunk_off[kQuantMaxChunks];  // dy dc + kx kP in a plane
+  __shared__ int chunk_px[kQuantMaxChunks];   // its tap columns < dc
+  __shared__ int chunk_nz[kQuantMaxChunks];
+  __shared__ int run_dst[kQuantMaxChunks * 8];
+  __shared__ unsigned col_max[kCols];  // the bits of the max |kq| >= 0
+  __shared__ float col_scale[2][kCols];
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int nchunk = dr * cpr, taps = dr * dc;
+  const int g = blockIdx.x / per_group, bg = blockIdx.x - g * per_group;
+  // bg nchunk < 2^31: per_group <= the SMs, nchunk <= kQuantMaxChunks
+  // per_group (the launcher's checks)
+  const int c0 = bg * nchunk / per_group;
+  const int nb = (bg + 1) * nchunk / per_group - c0;
+  const int n_staged = min(nb, staged_cap);
+  const int cols = min(kCols, s_out - g * kCols);  // the group's columns
+  const float* kg = kernel + static_cast<size_t>(g) * kCols * CP * taps;
+  // stamp: start
+  if (tid < nb) {
+    const int chunk = c0 + tid, dy = chunk / cpr, kx = chunk - dy * cpr;
+    chunk_off[tid] = dy * dc + kx * Q::kP;
+    chunk_px[tid] = min(Q::kP, dc - kx * Q::kP);
+    chunk_nz[tid] = 0;
   }
-  cg::this_grid().sync();
-  // stage 2: a (group, chunk): its NP rows of 32 bytes and its flag; a
-  // thread 4 bytes of a row (a word of hi, a word of lo)
-  const int cpr = dcp * cp / 32, nchunk = dr * cpr;
-  int scaled = -1;  // the group whose scales col_scales holds
-  for (int u = blockIdx.x; u < groups * nchunk; u += gridDim.x) {
-    const int grp = u / nchunk, chunk = u - grp * nchunk;
-    const int dy = chunk / cpr, kx = chunk - dy * cpr;
-    if (grp != scaled) {  // the group's columns' amax and scales
-      if (tid < np / 2 && grp * (np / 2) + tid < s_out) {
-        const int s = grp * (np / 2) + tid;
-        float amax = 1e-30f;
-        for (int k = 0; k < slices; ++k)
-          amax = fmaxf(amax, __ldcg(partial + s * slices + k));
-        col_scales[0][tid] = __fmul_rn(amax, hi_recip);
-        col_scales[1][tid] = __fmul_rn(amax, lo_recip);
-        if (chunk == 0) {
-          scales[2 * s] = col_scales[0][tid];
-          scales[2 * s + 1] = col_scales[1][tid];
-        }
+  if (tid < kCols) col_max[tid] = 0u;
+  float q[CP];
+#pragma unroll
+  for (int c = 0; c < CP; ++c) q[c] = __ldg(qinv + c);
+  __syncthreads();
+  // 1. the chunks shared memory holds
+  stage_chunks<CP, NP>(staged, run_dst, kg, taps, cols, 0, n_staged,
+                       chunk_off, chunk_px);
+  // stamp: copies issued
+  // 2. the column maxima of the chunks it does not hold, read while the
+  // copies land: a warp 32 consecutive floats of a plane's run, 8 such
+  // units at a time; a unit's max, then the block's (an integer max of
+  // the bits of non-negative floats: exact, in any order)
+  if (n_staged < nb) {
+    const int len = run_len(chunk_off, chunk_px, n_staged, nb);
+    const int segs = (len + 31) / 32, off = chunk_off[n_staged];
+    for (int u0 = (tid >> 5) * 8; u0 < cols * CP * segs;
+         u0 += kQuantThreads / 4) {
+      float v[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int plane = (u0 + j) / segs;
+        const int pos = (u0 + j - plane * segs) * 32 + lane;
+        v[j] = 0.0f;
+        if (plane < cols * CP && pos < len)
+          v[j] = fabsf(__fmul_rn(
+              __ldg(kg + static_cast<size_t>(plane) * taps + off + pos),
+              pick_q<CP>(q, plane & (CP - 1))));
       }
-      __syncthreads();
-      scaled = grp;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float m = v[j];
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+        const int plane = (u0 + j) / segs;
+        if (lane == 0 && plane < cols * CP)
+          atomicMax(&col_max[plane / CP], __float_as_uint(m));
+      }
     }
-    int any = 0;
-    for (int i = tid; i < np / 2 * 8; i += kQuantThreads) {
-      const int ss = i >> 3, w4 = i & 7;
-      const int s = grp * (np / 2) + ss;
+  }
+  // stamp: unstaged max
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  // stamp: copies landed
+  // 3. the held chunks' maxima: an item's 4 values, then its column's 8
+  // words' (lanes)
+  for (int base = 0; base < n_staged * kItems; base += kQuantThreads) {
+    const int i = base + tid, k = i / kItems, r = i - k * kItems;
+    const int ss = r >> 3, w4 = r & 7;
+    float m = 0.0f;
+    if (i < n_staged * kItems && ss < cols &&
+        item_px<CP>(w4) < chunk_px[k]) {
+      const float4 v = staged4[(k * Q::kChunkWords + ss * 32) / 4 + w4];
+      const float a[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        m = fmaxf(m, fabsf(__fmul_rn(a[j], item_q<CP>(q, w4, j))));
+    }
+#pragma unroll
+    for (int o = 1; o < 8; o <<= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    if (w4 == 0 && i < n_staged * kItems && ss < cols)
+      atomicMax(&col_max[ss], __float_as_uint(m));
+  }
+  __syncthreads();
+  if (tid < cols)
+    partial[static_cast<size_t>(g * kCols + tid) * per_group + bg] =
+        __uint_as_float(col_max[tid]);
+  // stamp: block maxima
+  cg::this_grid().sync();
+  // stamp: grid barrier
+  // 4. a column's maximum over its group's blocks (16 lanes a column, 9
+  // reads each in flight at once), amax = max(., 1e-30) and the scales
+  for (int s0 = 0; s0 < cols; s0 += kQuantThreads / 16) {
+    const int s = s0 + (tid >> 4);
+    float m = 0.0f;
+    if (s < cols) {
+      const float* p =
+          partial + static_cast<size_t>(g * kCols + s) * per_group;
+      for (int kb0 = tid & 15; kb0 < per_group; kb0 += 16 * 9) {
+#pragma unroll
+        for (int r = 0; r < 9; ++r)
+          if (kb0 + 16 * r < per_group)
+            m = fmaxf(m, __ldcg(p + kb0 + 16 * r));
+      }
+    }
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    if ((tid & 15) == 0 && s < cols) {
+      const float amax = fmaxf(m, 1e-30f);
+      col_scale[0][s] = __fmul_rn(amax, hi_recip);
+      col_scale[1][s] = __fmul_rn(amax, lo_recip);
+      if (bg == 0) {
+        scales[2 * (g * kCols + s)] = col_scale[0][s];
+        scales[2 * (g * kCols + s) + 1] = col_scale[1][s];
+      }
+    }
+  }
+  __syncthreads();
+  // stamp: scales
+  // 5. B from the held chunks, then from the others a shared memory's
+  // worth at a time (copied in again, from L2): an item's 4 bytes of its
+  // column's hi row and lo row (zeros past the group's columns and past
+  // dc), pre-swizzled, and the chunk's flag.  A zero product skips the
+  // divisions: its integers are 0, as the divisions give.
+  for (int ka = 0; ka < nb; ka += staged_cap) {
+    const int n = min(staged_cap, nb - ka);
+    if (ka > 0) {
+      // stamp: a batch rounded
+      __syncthreads();  // the slots' readers are done
+      stage_chunks<CP, NP>(staged, run_dst, kg, taps, cols, ka, ka + n,
+                           chunk_off, chunk_px);
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      __syncthreads();
+      // stamp: copied in again
+    }
+    for (int i = tid; i < n * kItems; i += kQuantThreads) {
+      const int k = i / kItems, r = i - k * kItems;
+      const int ss = r >> 3, w4 = r & 7;
       uint32_t hi4 = 0, lo4 = 0;
-      if (s < s_out) {
-        const float s_hi = col_scales[0][ss], s_lo = col_scales[1][ss];
+      if (ss < cols && item_px<CP>(w4) < chunk_px[ka + k]) {
+        const float4 v4 = staged4[(k * Q::kChunkWords + ss * 32) / 4 + w4];
+        const float a[4] = {v4.x, v4.y, v4.z, v4.w};
+        const float s_hi = col_scale[0][ss], s_lo = col_scale[1][ss];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const int k = kx * 32 + w4 * 4 + j;
-          const int dx = k / cp, c = k - dx * cp;
-          if (dx >= dc) continue;
-          const float v = kernel[((static_cast<size_t>(s) * cp + c) * dr +
-                                  dy) * dc + dx];
-          const float q = qinv[c];
-          const float h = fminf(
-              fmaxf(rintf(__fdiv_rn(__fmul_rn(v, q), s_hi)), -127.0f),
-              127.0f);
-          const float res = __fmaf_rn(v, q, -__fmul_rn(h, s_hi));
-          const float l = fminf(fmaxf(rintf(__fdiv_rn(res, s_lo)), -127.0f),
-                                127.0f);
-          hi4 |= (static_cast<uint32_t>(static_cast<int>(h)) & 0xffu)
-                 << (8 * j);
-          lo4 |= (static_cast<uint32_t>(static_cast<int>(l)) & 0xffu)
-                 << (8 * j);
+          const float qj = item_q<CP>(q, w4, j), kq = __fmul_rn(a[j], qj);
+          if (kq != 0.0f) {
+            const float h = fminf(
+                fmaxf(rintf(__fdiv_rn(kq, s_hi)), -127.0f), 127.0f);
+            const float res = __fmaf_rn(a[j], qj, -__fmul_rn(h, s_hi));
+            hi4 |= byte_of(h) << (8 * j);
+            if (res != 0.0f)
+              lo4 |= byte_of(fminf(
+                         fmaxf(rintf(__fdiv_rn(res, s_lo)), -127.0f), 127.0f))
+                     << (8 * j);
+          }
         }
       }
       // rows 2 ss (hi) and 2 ss + 1 (lo), pre-swizzled: a row's 16-byte
       // halves swap where (row >> 2) is odd
-      const int n = 2 * ss;
-      int8_t* base = b + (static_cast<size_t>(u) * np + n) * 32;
-      *reinterpret_cast<uint32_t*>(base + ((w4 * 4) ^ swizzle32(n))) = hi4;
-      *reinterpret_cast<uint32_t*>(base + 32 + ((w4 * 4) ^ swizzle32(n + 1))) =
-          lo4;
-      any |= (hi4 | lo4) != 0;
+      const int row = 2 * ss;
+      int8_t* out =
+          b + (static_cast<size_t>(g * nchunk + c0 + ka + k) * NP + row) * 32;
+      *reinterpret_cast<uint32_t*>(out + ((w4 * 4) ^ swizzle32(row))) = hi4;
+      *reinterpret_cast<uint32_t*>(out + 32 +
+                                   ((w4 * 4) ^ swizzle32(row + 1))) = lo4;
+      if (hi4 | lo4) chunk_nz[ka + k] = 1;  // every writer writes 1
     }
-    any = __syncthreads_or(any);
-    if (tid == 0) nonzero[u] = any != 0;
   }
+  // stamp: rounded
+  __syncthreads();
+  if (tid < nb) nonzero[g * nchunk + c0 + tid] = chunk_nz[tid] != 0;
+  // stamp: flags
 }
 
 // codes (3-D: 16-byte groups of the rows, rows): boxes of the window
@@ -707,58 +922,110 @@ int launch_field(const void* codes, int hp, int pitch, const void* b,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The quantizer of a (CP, NP), one cooperative launch (see
+// tdr_conv_quant_i8).
+template <int CP, int NP>
+int launch_quant(const void* kernel, const void* qinv, int s_out, int dr,
+                 int dc, int dcp, int groups, float hi_recip, float lo_recip,
+                 void* partial, long long partial_len, void* b,
+                 void* nonzero, void* scales, cudaStream_t stream) {
+  auto kern = conv_quant_i8_kernel<CP, NP>;
+  constexpr int kChunkBytes = Quant<CP, NP>::kChunkWords * 4;
+  // a device's SMs and the most dynamic shared memory a block can take,
+  // asked once a device; the blocks an SM holds, asked again where the
+  // shared memory changes
+  static int ready_dev = -1, sms = 0, smem_max = 0;
+  static int occ_smem = -1, per_sm = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev != ready_dev) {
+    cudaFuncAttributes attr;
+    int optin = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(
+          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kern);
+    if (err == cudaSuccess) {
+      smem_max = optin - static_cast<int>(attr.sharedSizeBytes);
+      err = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_max);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready_dev = dev;
+    occ_smem = -1;
+  }
+  // a group's chunks over sms / groups blocks, the first of each block's
+  // chunks staged up to the shared memory a block can take
+  const int cpr = dcp * CP / 32, nchunk = dr * cpr;
+  int per_group = sms / groups;
+  per_group = per_group < 1 ? 1 : (per_group > nchunk ? nchunk : per_group);
+  const int most = (nchunk + per_group - 1) / per_group;
+  const int grid = groups * per_group;
+  if (most > kQuantMaxChunks || partial_len < 1LL * grid * (NP / 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int staged_cap =
+      most < smem_max / kChunkBytes ? most : smem_max / kChunkBytes;
+  const int smem = staged_cap * kChunkBytes;
+  if (smem != occ_smem) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                        kQuantThreads, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    occ_smem = smem;
+  }
+  if (grid > sms * per_sm)
+    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  const float* k = static_cast<const float*>(kernel);
+  const float* qv = static_cast<const float*>(qinv);
+  float* part = static_cast<float*>(partial);
+  int8_t* b8 = static_cast<int8_t*>(b);
+  unsigned char* nz = static_cast<unsigned char*>(nonzero);
+  float* sc = static_cast<float*>(scales);
+  void* args[] = {(void*)&k,    (void*)&qv, &s_out,      &dr,
+                  &dc,          (void*)&cpr, &per_group, (void*)&staged_cap,
+                  &hi_recip,    &lo_recip,  &part,       &b8,
+                  &nz,          &sc};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kern),
+                                    dim3(grid), dim3(kQuantThreads), args,
+                                    smem, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
 // The quantization and layout, one cooperative launch.  kernel (S_out, CP,
 // dr, dc) float32 contiguous; qinv (>= CP,) float32; partial float32
-// scratch of partial_len values (a launch with fewer than S_out
-// ceil(CP dr dc / kQuantSlice) is refused);
-// b (groups, dr dcp CP / 32, np, 32) int8, each row of 32 bytes
-// pre-swizzled (swizzle32); nonzero (groups, dr dcp CP / 32) uint8; scales
-// (S_out, 2) float32; hi_recip, lo_recip f32(1/127), f32(1/32258).
+// scratch of partial_len values, NP / 2 a block (a launch whose blocks it
+// does not hold is refused; one block a chunk at most, groups dr dcp CP /
+// 32 blocks, always does); b (groups, dr dcp CP / 32, np, 32) int8, each
+// row of 32 bytes pre-swizzled (swizzle32); nonzero (groups, dr dcp CP /
+// 32) uint8; scales (S_out, 2) float32; hi_recip, lo_recip f32(1/127),
+// f32(1/32258).  CP 4 or 8, np 80 or 144 (conv_score.I8_COLUMNS).
 int tdr_conv_quant_i8(const void* kernel, const void* qinv, int s_out, int cp,
                       int dr, int dc, int dcp, int groups, int np,
                       float hi_recip, float lo_recip, void* partial,
                       long long partial_len, void* b, void* nonzero,
                       void* scales, void* stream) {
-  const int items = s_out * ((cp * dr * dc + kQuantSlice - 1) / kQuantSlice);
-  if ((cp != 4 && cp != 8) || (dcp * cp) % 32 || dcp < dc || s_out < 1 ||
-      np % 8 || np > kMaxWidth || groups * np < 2 * s_out ||
-      (groups - 1) * np >= 2 * s_out || partial_len < items)
+  if ((cp != 4 && cp != 8) || (np != 80 && np != 144) || (dcp * cp) % 32 ||
+      dcp < dc || dcp - dc >= 32 / cp || dc < 1 || dr < 1 || s_out < 1 ||
+      groups * np < 2 * s_out || (groups - 1) * np >= 2 * s_out)
     return static_cast<int>(cudaErrorInvalidValue);
-  // the blocks the card holds at once (a cooperative grid's most), asked
-  // once a device
-  static int ready_dev = -1, resident = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev != ready_dev) {
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, conv_quant_i8_kernel, kQuantThreads, 0);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    resident = sms * per_sm;
-    ready_dev = dev;
-  }
-  const int units = groups * dr * (dcp * cp / 32);
-  int grid = units > items ? units : items;
-  if (grid > resident) grid = resident;
-  int8_t* b8 = static_cast<int8_t*>(b);
-  unsigned char* nz = static_cast<unsigned char*>(nonzero);
-  float* sc = static_cast<float*>(scales);
-  float* part = static_cast<float*>(partial);
-  void* args[] = {(void*)&kernel, (void*)&qinv, &s_out, &cp, &dr, &dc,
-                  &dcp, &groups, &np, &hi_recip, &lo_recip, &part, &b8,
-                  &nz, &sc};
-  err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(conv_quant_i8_kernel), dim3(grid),
-      dim3(kQuantThreads), args, 0, static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define TDR_QUANT(CP, NP)                                                  \
+  if (cp == CP && np == NP)                                                \
+    return launch_quant<CP, NP>(kernel, qinv, s_out, dr, dc, dcp, groups,  \
+                                hi_recip, lo_recip, partial, partial_len,  \
+                                b, nonzero, scales, s);
+  TDR_QUANT(4, 80)
+  TDR_QUANT(4, 144)
+  TDR_QUANT(8, 80)
+  TDR_QUANT(8, 144)
+#undef TDR_QUANT
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The field.  codes (hp, wp, CP) int8 with a row pitch of `pitch` bytes (a

@@ -255,9 +255,6 @@ _LO_RECIP = float(np.float32(1.0) / np.float32(127.0 * 254.0))
 # card kernel has instances of these widths only.
 I8_COLUMNS = {33: (1, 80), 65: (1, 144), 129: (2, 144)}
 I8_TILE = (8, 16)  # centre rows and columns a block of the card kernel
-# values of a column the quantizer's max takes at once (kQuantSlice of
-# csrc/conv_field_i8.cu, which refuses a shorter scratch)
-I8_QUANT_SLICE = 4096
 
 
 def conv_int8() -> bool:
@@ -375,9 +372,11 @@ def i8_layout(ints: torch.Tensor):
 def quantize_i8(kernel: torch.Tensor, qinv: torch.Tensor):
     """The int8 field's operands of an (S_out, CP, dr, dc) float32 kernel:
     (B, nonzero, scales) as i8_layout lays out quantize_conv_kernel's
-    integers, and its scales.  On CPU tensors those two plain versions, on
-    CUDA the quantizer kernel of csrc/conv_field_i8.cu (one launch,
-    counted LAUNCHES["conv_quant_i8"]); any other device raises."""
+    integers, and its scales.  On CPU tensors those two plain versions; on
+    CUDA one allocation, carved into the three and the kernel's scratch
+    (a block's column maxima), and one launch of the quantizer kernel of
+    csrc/conv_field_i8.cu (counted LAUNCHES["conv_quant_i8"]), with no
+    host synchronisation; any other device raises."""
     if not kernels.on_card(kernel.device, "int8 conv quantizer"):
         ints, scales = quantize_conv_kernel(kernel, qinv)
         return (*i8_layout(ints), scales)
@@ -394,13 +393,17 @@ def quantize_i8(kernel: torch.Tensor, qinv: torch.Tensor):
     dcp = i8_dcp(dc, cp)
     groups, width = i8_columns(s_out)
     chunks = dr * dcp * cp // 32
-    dev = kernel.device
-    b = torch.empty((groups, chunks, width, 32), dtype=torch.int8, device=dev)
-    nonzero = torch.empty((groups, chunks), dtype=torch.bool, device=dev)
-    scales = torch.empty((s_out, 2), dtype=torch.float32, device=dev)
-    # each column's max in slices of I8_QUANT_SLICE values, then reduced
-    partial = torch.empty((s_out * -(-cp * dr * dc // I8_QUANT_SLICE),),
-                          dtype=torch.float32, device=dev)
+    # one buffer: B (its base, 16-byte aligned, for the field's TMA), the
+    # scales, the scratch (width / 2 maxima a block, a block at most a
+    # chunk) and the flags
+    sizes = (groups * chunks * width * 32, s_out * 8,
+             groups * chunks * width * 2, groups * chunks)
+    b, scales, partial, nonzero = torch.empty(
+        sum(sizes), dtype=torch.uint8, device=kernel.device).split(sizes)
+    b = b.view(torch.int8).view(groups, chunks, width, 32)
+    scales = scales.view(torch.float32).view(s_out, 2)
+    partial = partial.view(torch.float32)
+    nonzero = nonzero.view(torch.bool).view(groups, chunks)
     kernels.launch("conv_field_i8", "tdr_conv_quant_i8", ptr(kernel),
                    ptr(qinv), s_out, cp, dr, dc, dcp, groups, width,
                    _HI_RECIP, _LO_RECIP, ptr(partial), partial.numel(),
